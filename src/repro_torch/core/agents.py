@@ -12,10 +12,11 @@ execution substrate:
   tensors their wrappers run the plain version.
 
 Agents are in-process modules with one FIFO worker thread each (DESIGN.md
-§2).  Every kernel launches on PyTorch's current stream; a worker's future
-completes once the kernel is *launched*, and a CUDA event recorded right
-after the launch lets ``recv``/``wait`` promise a device-ready result
-(DESIGN.md §4).
+§2).  PyTorch's current stream is per thread, so ``isend`` captures the
+caller's current stream and the worker launches on it; a worker's future
+completes once the kernel is *launched*, and a CUDA event recorded on that
+stream right after the launch lets ``recv``/``wait`` promise a device-ready
+result (DESIGN.md §4).
 
 Two dispatch paths exist (DESIGN.md §3): :meth:`RuntimeAgent.dispatch`, a
 direct select-and-call, and ``claim/send/recv/send_fwd``, the C2MPI DRPC
@@ -61,15 +62,31 @@ def require_hopper(device: torch.device) -> None:
             f"the hopper kernels need {HOPPER_CAPABILITY} or higher")
 
 
+def _card_device(tree: Any) -> Optional[torch.device]:
+    """The CUDA device of the first tensor in ``tree`` that lies on one."""
+    for leaf in pytree.tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor) and leaf.device.type == "cuda":
+            return leaf.device
+    return None
+
+
+def _caller_stream(args: Tuple) -> Optional["torch.cuda.Stream"]:
+    """The calling thread's current stream on the device of ``args``, or
+    None for host operands.  A worker thread's own current stream is the
+    default stream, so requests carry the caller's."""
+    dev = _card_device(args)
+    return None if dev is None else torch.cuda.current_stream(dev)
+
+
 def _record_ready(out: Any) -> Optional["torch.cuda.Event"]:
     """A CUDA event recorded on the current stream of the device that holds
     ``out``'s tensors, or None when none lies on a CUDA device."""
-    for leaf in pytree.tree_leaves(out):
-        if isinstance(leaf, torch.Tensor) and leaf.device.type == "cuda":
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(leaf.device))
-            return ev
-    return None
+    dev = _card_device(out)
+    if dev is None:
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(dev))
+    return ev
 
 
 # ---------------------------------------------------------------------------
@@ -549,20 +566,14 @@ class RuntimeAgent:
                 return choice
         # no cost estimate available for any candidate (or scheduler off):
         # static preference order + priority + version + round-robin ties
-        return self.registry.select(alias, *args, allowed_platforms=allowed,
-                                    platform_preference=pref,
-                                    _candidates=candidates)
-
-    def _tuned_kwargs(self, record: KernelRecord, args: Tuple,
-                      kwargs: Dict) -> Dict:
-        """Merge the scheduler's tuned config for (record, args) under the
-        call kwargs; explicit caller kwargs win."""
-        cfg = self.scheduler.tuned_config(record, args) \
-            if self.scheduler is not None else None
-        if not cfg:
-            return kwargs
-        cfg.update(kwargs)
-        return cfg
+        record = self.registry.select(alias, *args, allowed_platforms=allowed,
+                                      platform_preference=pref,
+                                      _candidates=candidates)
+        if record.platform not in allowed:
+            # the registry's fail-safe does not override a claim's pin
+            raise SelectionError(
+                f"alias {alias!r}: no feasible record on {list(allowed)}")
+        return record
 
     def dispatch(self, alias: str, *args, overrides: Optional[Dict] = None,
                  **kwargs):
@@ -578,12 +589,11 @@ class RuntimeAgent:
             raise
         finally:
             self._account_t1(time.perf_counter() - t0)
-        return record.fn(*args, **self._tuned_kwargs(record, args, kwargs))
+        return record.fn(*args, **kwargs)
 
     def _execute_on(self, agent: VirtualizationAgent, record: KernelRecord,
                     cr: Optional[ChildRank], args: Tuple, kwargs: Dict):
         """One execution attempt on an explicit agent — no failover."""
-        kwargs = self._tuned_kwargs(record, args, kwargs)
         if cr is not None and cr.stateful:
             # snapshot under the lock: a concurrent free() may be clearing
             # the CR's buffers while this request is in flight on a worker
@@ -618,23 +628,30 @@ class RuntimeAgent:
                         args: Tuple, kwargs: Dict):
         """Execute with failsafe semantics (§IV-C): an agent that raises
         quarantines its record and the request re-places onto the next
-        feasible record, ending at the registry fail-safe (or the CR's
-        claim-level callback); only when every path fails does the
-        *original* error surface to the waiter."""
+        feasible record the claim allows, ending at the registry fail-safe
+        (or the CR's claim-level callback); only when every path fails does
+        the *original* error surface to the waiter.
+
+        A hopper record given tensors on the card is the exception: its
+        build or launch error surfaces at once, unquarantined, so a request
+        on the card never gives way to a plain version unseen."""
+        overrides = cr.overrides if cr is not None else {}
         agent = self._agent_for(record)
         if agent is None:
-            fs = self.registry.failsafe(record.alias)
-            if fs is None:
+            record = self._next_record(record.alias, args, overrides, [record])
+            if record is None:
                 raise SelectionError(
-                    f"no agent for platform {record.platform!r} and no fail-safe")
-            record, agent = fs, self.agents["torch"]
+                    f"no agent for the selected platform and no allowed "
+                    f"fail-safe")
+            agent = self._agent_for(record) or self.agents["torch"]
         tried: List[KernelRecord] = []
         first_exc: Optional[BaseException] = None
-        overrides = cr.overrides if cr is not None else {}
         while True:
             try:
                 return self._execute_on(agent, record, cr, args, kwargs)
             except Exception as exc:  # noqa: BLE001 — failsafe re-placement
+                if record.platform == "hopper" and _card_device(args) is not None:
+                    raise
                 tried.append(record)
                 first_exc = first_exc or exc
                 self._record_failure(record, exc)
@@ -651,7 +668,8 @@ class RuntimeAgent:
     def _next_record(self, alias: str, args: Tuple, overrides: Dict,
                      tried: Sequence[KernelRecord]) -> Optional[KernelRecord]:
         """Next feasible record for re-placement, excluding already-tried
-        ones; falls back to the registry fail-safe record."""
+        ones; falls back to the registry fail-safe record when the claim's
+        ``allowed_platforms`` admit it."""
         allowed = overrides.get("allowed_platforms", self._allowed_platforms())
         pref = overrides.get("platform_preference", self._platform_preference())
         try:
@@ -664,7 +682,8 @@ class RuntimeAgent:
             if self._agent_for(rec) is not None:
                 return rec
         fs = self.registry.failsafe(alias)
-        if fs is not None and all(fs is not r for r in tried):
+        if fs is not None and fs.platform in allowed \
+                and all(fs is not r for r in tried):
             return fs
         return None
 
@@ -762,9 +781,14 @@ class RuntimeAgent:
                     fut.wait_device()
                     sched.observe(rec0, sig, time.perf_counter() - t0)
 
+        stream = _caller_stream(args)
+
         def task():
-            out = run()
-            fut._ready = _record_ready(out)
+            # launch on the caller's stream, so work it queued before this
+            # request (its inputs) is ordered before the kernel
+            with torch.cuda.stream(stream):
+                out = run()
+                fut._ready = _record_ready(out)
             return out
 
         # mailbox append and worker enqueue are atomic together: per-tag FIFO

@@ -1,7 +1,6 @@
 """Performance-portability metrics (paper §VI-A) — port of
 ``repro.core.portability``.
 
-* ``performance_penalty``  = (T3_x − T3_baseline) / T3_baseline × 100   [%]
 * ``portability_score`` Φ  = T3_baseline / T3_hardware_agnostic ∈ [0, 1]
 * ``overhead_ratio``       = T1 / T4, with T4 = T1 + T2 + T3
 
@@ -9,7 +8,8 @@ T-terms (paper definitions): T1 = HALO framework overhead (agent/dispatch
 time only), T2 = hardware data-transfer time, T3 = kernel execution time,
 T4 = total runtime.  Buffers stay on the device between calls, so T2 ≈ 0.
 On the card T3 is timed with CUDA events around each call; on the CPU with
-the host clock.
+the host clock.  ``chip_smoke.py`` prints one :class:`KernelReport` per
+kernel.
 """
 from __future__ import annotations
 
@@ -20,8 +20,8 @@ from typing import Callable, List
 
 import torch
 
-__all__ = ["KernelReport", "Timing", "overhead_ratio", "performance_penalty",
-           "portability_score", "time_fn"]
+__all__ = ["KernelReport", "Timing", "overhead_ratio", "portability_score",
+           "time_fn"]
 
 
 @dataclasses.dataclass
@@ -70,11 +70,6 @@ def time_fn(fn: Callable, *args, device="cuda", warmup: int = 2,
     return Timing(mean_s=statistics.fmean(samples),
                   std_s=statistics.pstdev(samples),
                   median_s=statistics.median(samples), runs=iters, device=where)
-
-
-def performance_penalty(t3_impl: float, t3_baseline: float) -> float:
-    """Percent slowdown vs. the hardware-optimized baseline (Table VI)."""
-    return (t3_impl - t3_baseline) / t3_baseline * 100.0
 
 
 def portability_score(t3_baseline: float, t3_agnostic: float) -> float:

@@ -15,7 +15,7 @@ Records with no estimate are left to the static selection order.  A record
 whose execution raised is quarantined (:meth:`mark_failed`) until
 :meth:`clear_failures`.  The reference's other estimate sources — its
 TuningDB sweep results and the records' analytic cost models — are not
-ported yet: :meth:`tuned_config` returns None.
+ported yet.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ import threading
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from .envutil import env_path
 from .registry import KernelRecord
 
 log = logging.getLogger("repro_torch.halo.scheduler")
@@ -97,8 +98,7 @@ class CostModelScheduler:
     def default(cls) -> "CostModelScheduler":
         """Process-default scheduler: persistent iff ``HALO_AUTOTUNE_CACHE``
         is set."""
-        from .config import halo_config
-        return cls(cache_path=halo_config().autotune_cache)
+        return cls(cache_path=env_path("HALO_AUTOTUNE_CACHE"))
 
     # -- measurement feedback ------------------------------------------------
     def observe(self, record: KernelRecord, sig: SigType,
@@ -163,12 +163,6 @@ class CostModelScheduler:
             self._failed.clear()
 
     # -- selection -----------------------------------------------------------
-    def tuned_config(self, record: KernelRecord, args: Sequence[Any]
-                     ) -> Optional[Dict[str, Any]]:
-        """The swept tile config for (record, args); None until the tuning
-        database is ported."""
-        return None
-
     def choose(self, alias: str, candidates: Sequence[KernelRecord],
                args: Sequence[Any], explore: bool = False
                ) -> Optional[KernelRecord]:

@@ -27,12 +27,9 @@ from .core.c2mpi import (MPIX_Claim as claim,
                          MPIX_Test as test, MPIX_Wait as wait,
                          MPIX_Waitall as waitall, halo_dispatch as dispatch,
                          halo_session as session)
-from .core.config import HaloConfig, configure
-from .core.config import halo_config as config
 
 __all__ = [
     "initialize", "finalize", "session", "dispatch", "claim", "send",
     "recv", "isend", "irecv", "wait", "waitall", "test", "send_fwd",
-    "create_buffer", "free", "HaloFuture", "HaloConfig", "configure",
-    "config",
+    "create_buffer", "free", "HaloFuture",
 ]

@@ -29,7 +29,8 @@ def make_jobs(sizes: Mapping[str, int], device, seed: int = 0
 
     ``sizes`` gives the edge per family: ``"MMM"`` (n×n @ n×n), ``"EW"``
     (n×n operands; the divisor is shifted by +3 away from 0), ``"MVM"``
-    (n×n @ n) and ``"VDP"`` (two length-n vectors)."""
+    (n×n @ n) and ``"VDP"`` (two length-n vectors of mean 1, so Σxy grows
+    like n and a relative error of the result means something)."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
@@ -40,7 +41,7 @@ def make_jobs(sizes: Mapping[str, int], device, seed: int = 0
     a_mmm, b_mmm = normal(n_mmm, n_mmm), normal(n_mmm, n_mmm)
     a_ew, b_ew = normal(n_ew, n_ew), normal(n_ew, n_ew) + 3.0
     a_mvm, x_mvm = normal(n_mvm, n_mvm), normal(n_mvm)
-    x_vdp, y_vdp = normal(n_vdp), normal(n_vdp)
+    x_vdp, y_vdp = normal(n_vdp) + 1.0, normal(n_vdp) + 1.0
     return {
         "MMM": (a_mmm, b_mmm),
         "EWMM": (a_ew, b_ew),

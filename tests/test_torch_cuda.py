@@ -1,5 +1,6 @@
 """The Hopper kernels on the card: each against its plain version at small
-ragged shapes, plus launch counting and run-to-run reproducibility.
+ragged shapes, plus launch counting, run-to-run reproducibility, and the
+runtime's handling of the card (caller's stream, no silent fallback).
 
 Marked ``cuda``; every test skips without a CUDA card of capability 9.0.
 This file imports no JAX, so it runs on a machine that has none:
@@ -9,7 +10,9 @@ This file imports no JAX, so it runs on a machine that has none:
 import pytest
 import torch
 
-from repro_torch.kernels import _cuda
+from repro_torch.core.agents import RuntimeAgent
+from repro_torch.core.registry import KernelRecord, KernelRegistry
+from repro_torch.kernels import _cuda, register_all
 from repro_torch.kernels.ewise.ewise import ewise_hopper
 from repro_torch.kernels.ewise.ref import OP_REFS
 from repro_torch.kernels.matmul.matmul import mmm_hopper
@@ -92,12 +95,25 @@ def test_mvm_kernel(card, dtype, m, k):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", [1, 7, 1024, 100_003])
 def test_vdp_kernel(card, dtype, n):
-    x, y = _rnd(card, n, dtype=dtype), _rnd(card, n, dtype=dtype, seed=1)
+    # integers in {1, 2}: every partial sum is an integer below 2^24, so any
+    # summation order is exact and each element dropped or counted twice
+    # moves the result by at least 1
+    g = torch.Generator(device=card).manual_seed(2)
+    x = (1 + (torch.rand(n, generator=g, device=card) < 0.5).float()).to(dtype)
+    y = (1 + (torch.rand(n, generator=g, device=card) < 0.5).float()).to(dtype)
     out = vdp_hopper(x, y)
     assert out.dtype == torch.float32 and out.shape == ()
-    scale = x.double().norm() * y.double().norm()
-    assert float((out.double() - vdp_ref(x, y).double()).abs() / scale) <= 1e-5
-    assert all(torch.equal(out, vdp_hopper(x, y)) for _ in range(3))
+    assert float(out) == float((x.double() * y.double()).sum())
+    assert torch.equal(out, vdp_ref(x, y))
+    # mean 2: Σxy is of the order of ‖x‖‖y‖, so |k − r| / |r| is the dot
+    # product's own relative error; the output is float32 and 16-bit
+    # products are exact in float32, so every type differs only in the
+    # order of float32 additions
+    x = _rnd(card, n, dtype=dtype, shift=2.0)
+    y = _rnd(card, n, dtype=dtype, seed=1, shift=2.0)
+    out, ref = vdp_hopper(x, y).double(), vdp_ref(x, y).double()
+    assert float((out - ref).abs() / ref.abs()) <= 1e-5
+    assert all(torch.equal(vdp_hopper(x, y), vdp_hopper(x, y)) for _ in range(3))
 
 
 def test_each_launch_counts_once(card):
@@ -116,3 +132,53 @@ def test_build_log_reports_registers(card):
     so = _cuda.build()
     log = (so.parent / "build.log").read_text()
     assert "registers" in log
+
+
+def test_isend_launches_on_the_callers_stream(card, monkeypatch):
+    reg = KernelRegistry()
+    register_all(reg)
+    rt = RuntimeAgent(registry=reg, device=card)
+    seen = []
+    real = _cuda.stream
+
+    def spy(device):
+        seen.append(real(device))
+        return seen[-1]
+
+    monkeypatch.setattr(_cuda, "stream", spy)
+    side = torch.cuda.Stream(card)
+    try:
+        with torch.cuda.stream(side):
+            # the inputs come from work queued on the side stream; a kernel
+            # on another stream, with no event, could read them unfinished
+            a = _rnd(card, 2048, 2048, dtype=torch.float32)
+            b = (a @ a) / 2048
+            cr = rt.claim("EWADD", overrides={"allowed_platforms": ["hopper"]})
+            rt.send((b, b), cr)
+            out = rt.recv(cr)
+            assert seen == [side.cuda_stream]
+            assert torch.equal(_bits(out), _bits(b + b))
+    finally:
+        rt.finalize()
+
+
+def test_hopper_error_on_the_card_reaches_the_waiter(card):
+    def broken(x):
+        raise RuntimeError("kernel launch failed")
+
+    reg = KernelRegistry()
+    reg.register(KernelRecord(alias="X", fn=broken, platform="hopper"))
+    reg.register(KernelRecord(alias="X", fn=lambda x: x, platform="torch",
+                              is_failsafe=True))
+    rt = RuntimeAgent(registry=reg, device=card)
+    try:
+        # unpinned: on the card the error is not re-placed or quarantined
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            rt.send((torch.ones(2, device=card),), rt.claim("X"))
+        assert rt.scheduler.failed_record_keys() == []
+        assert rt.agents["torch"].metrics["requests"] == 0
+        # host operands keep the fail-safe ladder
+        rt.send((torch.ones(2),), rt.claim("X"))
+        assert rt.agents["torch"].metrics["requests"] == 1
+    finally:
+        rt.finalize()

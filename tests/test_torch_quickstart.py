@@ -78,6 +78,7 @@ def test_make_jobs_shapes_and_seed():
     assert bool((jobs["EWMD"][1] > 0).float().mean() > 0.9)     # shifted +3
     assert [tuple(t.shape) for t in jobs["MVM"]] == [(5, 5), (5,)]
     assert [tuple(t.shape) for t in jobs["VDP"]] == [(33,), (33,)]
+    assert float(jobs["VDP"][0] @ jobs["VDP"][1]) > 0           # mean 1 each
     again = quickstart.make_jobs(sizes, "cpu", seed=3)
     assert all(torch.equal(u, v) for k in jobs for u, v in zip(jobs[k], again[k]))
     assert all(t.dtype == torch.float32 for v in jobs.values() for t in v)

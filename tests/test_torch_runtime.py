@@ -17,7 +17,6 @@ from repro_torch.core.agents import (HaloCancelledError, HaloFuture,
 from repro_torch.core.c2mpi import MPIX_Test
 from repro_torch.core.compute_object import (ComputeObject, as_compute_object,
                                              from_numpy, to_numpy)
-from repro_torch.core.config import configure, halo_config, reset_config
 from repro_torch.core.manifest import Manifest, default_manifest
 from repro_torch.core.portability import KernelReport, time_fn
 from repro_torch.core.registry import (KernelAttributes, KernelRecord,
@@ -308,6 +307,39 @@ def test_failing_record_is_quarantined_and_request_replaced(agent):
     assert agent.scheduler.failed_record_keys() == []
 
 
+def test_pinned_claim_never_leaves_its_platforms(agent):
+    """A claim pinned to ``hopper`` gets the kernel's error, not the oracle's
+    answer: neither re-placement nor selection falls back to the fail-safe
+    row outside the pin."""
+    def broken(x):
+        raise RuntimeError("kernel launch failed")
+
+    reg = KernelRegistry()
+    reg.register(KernelRecord(alias="X", fn=broken, platform="hopper"))
+    reg.register(KernelRecord(alias="X", fn=lambda x: x, platform="torch",
+                              is_failsafe=True))
+    rt = RuntimeAgent(registry=reg, device="cpu")
+    try:
+        cr = rt.claim("X", overrides={"allowed_platforms": ["hopper"]})
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            rt.send((torch.ones(2),), cr)
+        # the record is quarantined now; selection refuses the fail-safe
+        # rather than route the pinned claim to it
+        with pytest.raises(SelectionError, match="no feasible record"):
+            rt.send((torch.ones(2),), cr)
+        assert rt.agents["torch"].metrics["requests"] == 0
+        # the unpinned claim still re-places onto the oracle
+        rt.send((torch.ones(2),), rt.claim("X"))
+        assert rt.agents["torch"].metrics["requests"] == 1
+    finally:
+        rt.finalize()
+    # an infeasible hopper row (VDP takes 1-D vectors) is refused the same way
+    with pytest.raises(SelectionError):
+        agent.send((torch.eye(4), torch.eye(4)), agent.claim(
+            "VDP", overrides={"allowed_platforms": ["hopper"]}))
+    assert agent.agents["torch"].metrics["requests"] == 0
+
+
 def test_every_path_failing_surfaces_the_first_error(agent):
     def broken(*a):
         raise RuntimeError("first")
@@ -384,7 +416,6 @@ def test_scheduler_ema_warmup_and_choice():
     assert s.choose("A", [hop, aten], args) is aten
     s.observe(hop, sig, 0.0)
     assert s.measured(hop, sig) == pytest.approx(1.5)
-    assert s.tuned_config(hop, args) is None
 
 
 def test_scheduler_explores_unmeasured_candidates():
@@ -398,7 +429,7 @@ def test_scheduler_explores_unmeasured_candidates():
     assert [p.platform for p in picks].count("hopper") == 2
 
 
-def test_scheduler_persists_latency_table(tmp_path):
+def test_scheduler_persists_latency_table(tmp_path, monkeypatch):
     path = tmp_path / "lat.json"
     s = CostModelScheduler(cache_path=path)
     rec = _rec("aten")
@@ -407,14 +438,10 @@ def test_scheduler_persists_latency_table(tmp_path):
     s.observe(rec, sig, 3.0)
     s.save()
     assert CostModelScheduler(cache_path=path).measured(rec, sig) == 3.0
-    try:
-        configure(autotune_cache=str(path))
-        assert halo_config().autotune_cache == str(path)
-        assert CostModelScheduler.default().measured(rec, sig) == 3.0
-        with pytest.raises(TypeError):
-            configure(no_such_knob=1)
-    finally:
-        reset_config()
+    monkeypatch.setenv("HALO_AUTOTUNE_CACHE", str(path))
+    assert CostModelScheduler.default().measured(rec, sig) == 3.0
+    monkeypatch.setenv("HALO_AUTOTUNE_CACHE", "")
+    assert CostModelScheduler.default().cache_path is None
 
 
 # ---------------------------------------------------------------------------
