@@ -10,9 +10,14 @@ Phases (any failure exits non-zero before the result lines are printed):
    in parallel); print the card and its power limit; turn TF32 off.
 2. Hold each kernel (each EW op) against its plain PyTorch version on the
    card, in float32 and bfloat16, at ragged shapes and at the shapes of
-   phase 3.  EW*: bit-exact.  MMM, MVM: normwise relative error, see
-   ``TOL``.  VDP: bit-exact on integer vectors whose sum every order gets
-   exactly, and relative error (``VDP_TOL``) on vectors of mean 1.
+   phase 3.  EW*, 1DCONV: bit-exact.  MMM, MVM, SMMM: normwise relative
+   error, see ``TOL``.  VDP: bit-exact on integer vectors whose sum every
+   order gets exactly, and relative error (``VDP_TOL``) on vectors of mean
+   1.  JS: normwise, within a bound derived from the inputs
+   (``js_tol``), with x ≠ 0; and 30 sweeps of ``jacobi_solve`` on the
+   phase-3 system must reach ‖Ax − b‖/‖b‖ ≤ ``JS_RESIDUAL`` in float64.
+   SMMM's pad slots hold 7.0 and one block row has only pad slots (its
+   output rows must be exactly 0).
 3. The slice end to end: ``repro_torch.quickstart.run`` on ``cuda`` with
    every claim pinned to the hopper records, blocking and asynchronous, at
    working sets inside the paper's 48 MB–1 GB.  Every kernel's launch count
@@ -39,8 +44,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: working sets of phase 3 (paper's 48 MB–1 GB range)
-SIZES = {"MMM": 4096, "EW": 8192, "MVM": 8192, "VDP": 1 << 26}
+#: working sets of phase 3 (paper's 48 MB–1 GB range): JS A 268 MB; 1DCONV
+#: 268 MB in and out; SMMM A 8192x8192 in 64x128 blocks at density 0.25
+#: (values ~110 MB) times B 8192x4096 (134 MB)
+SIZES = {"MMM": 4096, "EW": 8192, "MVM": 8192, "VDP": 1 << 26, "JS": 8192,
+         "1DCONV": 1 << 26, "SMMM": 8192}
 
 #: MMM and MVM: normwise relative error allowed between a kernel and its
 #: plain version.  float32: the two sum the same float32 products in another
@@ -61,6 +69,15 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 #: held bit-exact instead.
 VDP_TOL = 1e-5
 
+#: JS: 30 sweeps of a diagonally dominant system must bring the float64
+#: residual ‖Ax − b‖/‖b‖ this low; the contraction factor is ~2/√n per
+#: sweep, so what is left is float32 rounding (~1e-6).
+JS_RESIDUAL = 1e-4
+
+#: SMMM pad slots are filled with this instead of zeros, so a kernel that
+#: read a pad slot as block 0 would add 7·B[0:bk] to its rows
+PAD_FILL = 7.0
+
 #: published peaks (NVIDIA data sheets, dense): bytes/s, float32 CUDA-core
 #: FLOP/s, bfloat16 tensor-core FLOP/s
 PEAKS = {"H100 SXM": (3.35e12, 67e12, 989e12),
@@ -75,6 +92,9 @@ REPLACES = {
     "ewise": "src/repro/kernels/ewise/ewise.py:33",
     "mvm": "src/repro/kernels/mvm/mvm.py:42",
     "vdp": "src/repro/kernels/vdp/vdp.py:33",
+    "jacobi": "src/repro/kernels/jacobi/jacobi.py:47",
+    "conv1d": "src/repro/kernels/conv1d/conv1d.py:35",
+    "spmm": "src/repro/kernels/spmm/spmm.py:54",
 }
 
 
@@ -137,6 +157,44 @@ def check_close(what: str, err: float, dtype, tol=None) -> None:
         fail(f"{what}: error {err:.3e} exceeds {tol:g}")
 
 
+def js_tol(a, x, b, dtype) -> float:
+    """JS: normwise relative error allowed between the kernel and its plain
+    version.  The plain version sums A·x in float32 and then cancels the
+    diagonal term (diag(A) ≈ n times the rest of its row), so it may err by
+    up to ``sweep_error_scale`` (u·√n·‖S ⊘ d‖/‖x'‖, derived in its
+    docstring; ~1.2e-3 at n = 8192); the kernel sums without the diagonal
+    and errs less, so twice the bound covers both; the 16-bit types also
+    round x' (``TOL``)."""
+    from repro_torch.kernels.jacobi.ref import sweep_error_scale
+    return TOL[dtype] + 2 * sweep_error_scale(a, x, b)
+
+
+def js_system(n, dtype, gen, dev):
+    """A + n·I (diagonally dominant) with a random x ≠ 0 and b."""
+    a = torch.randn((n, n), generator=gen, device=dev)
+    a.diagonal().add_(float(n))
+    x = torch.randn(n, generator=gen, device=dev)
+    b = torch.randn(n, generator=gen, device=dev)
+    if not bool((x != 0).all()):
+        fail("JS inputs: x has a zero")
+    return a.to(dtype), x.to(dtype), b.to(dtype)
+
+
+def bell_inputs(m, n, dtype, gen, dev):
+    """Blocked-ELL parts of a random block-sparse m×m A (64x128 blocks,
+    density 0.25) whose block row 0 has only pad slots, pad slots filled
+    with ``PAD_FILL``, and a dense m×n B."""
+    from repro_torch.kernels.spmm.ref import dense_to_bell, random_block_sparse
+    a = random_block_sparse(gen, m, m, 64, 128, 0.25)
+    a[:64] = 0
+    values, indices = dense_to_bell(a.to(dtype), 64, 128)
+    if not bool((indices[0] < 0).all()) or bool((indices >= 0).all()):
+        fail("SMMM inputs: no pad slots or no all-pad block row")
+    values[indices < 0] = PAD_FILL
+    b = torch.randn((m, n), generator=gen, device=dev).to(dtype)
+    return values, indices, b
+
+
 def check_bits(what: str, k: torch.Tensor, r: torch.Tensor) -> None:
     same = k.shape == r.shape and k.dtype == r.dtype and torch.equal(bits(k), bits(r))
     print(f"  {what:42s} bit-exact {same}")
@@ -149,12 +207,19 @@ def check_bits(what: str, k: torch.Tensor, r: torch.Tensor) -> None:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def phase2(dev) -> None:
+    from repro_torch.kernels.conv1d.conv1d import conv1d_hopper
+    from repro_torch.kernels.conv1d.ref import conv1d_ref
     from repro_torch.kernels.ewise.ewise import ewise_hopper
     from repro_torch.kernels.ewise.ref import OP_REFS as EW_REFS
+    from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
+    from repro_torch.kernels.jacobi.ops import jacobi_solve
+    from repro_torch.kernels.jacobi.ref import jacobi_step_ref
     from repro_torch.kernels.matmul.matmul import mmm_hopper
     from repro_torch.kernels.matmul.ref import mmm_ref
     from repro_torch.kernels.mvm.mvm import mvm_hopper
     from repro_torch.kernels.mvm.ref import mvm_ref
+    from repro_torch.kernels.spmm.ref import smmm_bell_ref
+    from repro_torch.kernels.spmm.spmm import smmm_hopper
     from repro_torch.kernels.vdp.ref import vdp_ref
     from repro_torch.kernels.vdp.vdp import vdp_hopper
 
@@ -198,6 +263,41 @@ def phase2(dev) -> None:
         if not all(torch.equal(first, vdp_hopper(x, y)) for _ in range(3)):
             fail(f"VDP {name}: repeated calls differ (expected the same bits)")
         print(f"  VDP {name} repeated calls give the same bits")
+        # JS: ragged row counts (1001 also takes the scalar path), x ≠ 0
+        for n in (1000, 1001, SIZES["JS"]):
+            a, x, b = js_system(n, dt, gen, dev)
+            k, r = jacobi_hopper(a, x, b), jacobi_step_ref(a, x, b)
+            check_close(f"JS {name} n={n}", normwise(k, r), dt, js_tol(a, x, b, dt))
+            if dt == torch.float32 and n == SIZES["JS"]:
+                a64, x64, b64 = a.double(), x.double(), b.double()
+                d = a64.diagonal()
+                exact = (b64 - (a64 @ x64 - d * x64)) / d
+                print(f"  JS float32 n={n} against float64: kernel "
+                      f"{normwise(k, exact):.3e}, plain {normwise(r, exact):.3e}")
+        # 1DCONV: the last output tile is ragged at every N here
+        n_conv = SIZES["1DCONV"]
+        for n, k in ((1_000_003, 1), (1_000_003, 17), (1_000_003, 1025),
+                     (1_000_003, 4097), (n_conv, 17)):
+            x, w = rnd(n, dtype=dt), rnd(k, dtype=dt)
+            check_bits(f"1DCONV {name} N={n} K={k}", conv1d_hopper(x, w),
+                       conv1d_ref(x, w))
+        # SMMM: pad slots hold 7.0, block row 0 is all pad, N not a multiple
+        # of the 256-column tile
+        for m, n in ((1024, 1000), (SIZES["SMMM"], SIZES["SMMM"] // 2 + 77)):
+            values, indices, b = bell_inputs(m, n, dt, gen, dev)
+            k = smmm_hopper(values, indices, b)
+            if bool(k[:64].any()):
+                fail(f"SMMM {name} {m}x{m}: the all-pad block row is not 0")
+            check_close(f"SMMM {name} {m}x{m}@{m}x{n}",
+                        normwise(k, smmm_bell_ref(values, indices, b)), dt)
+    # JS convergence on the phase-3 system, on its own terms (not against
+    # the plain version)
+    n = SIZES["JS"]
+    a, _, b = js_system(n, torch.float32, gen, dev)
+    x = jacobi_solve(a, b, iters=30)
+    resid = float((a.double() @ x.double() - b.double()).norm() / b.double().norm())
+    check_close(f"JS solve n={n}, 30 sweeps: ‖Ax−b‖/‖b‖", resid, torch.float32,
+                JS_RESIDUAL)
     torch.cuda.synchronize(dev)
 
 
@@ -207,9 +307,12 @@ def phase2(dev) -> None:
 def phase3(dev):
     from repro_torch import halo, quickstart
     from repro_torch.kernels import _cuda
+    from repro_torch.kernels.conv1d.ref import conv1d_ref
     from repro_torch.kernels.ewise.ref import OP_REFS as EW_REFS
+    from repro_torch.kernels.jacobi.ref import jacobi_step_ref
     from repro_torch.kernels.matmul.ref import mmm_ref
     from repro_torch.kernels.mvm.ref import mvm_ref
+    from repro_torch.kernels.spmm.ref import smmm_bell_ref
     from repro_torch.kernels.vdp.ref import vdp_ref
 
     session = halo.initialize()              # device=None means the card
@@ -229,7 +332,8 @@ def phase3(dev):
           f"T1 {session.t1_seconds_per_call * 1e6:.1f} us per call over "
           f"{2 * len(jobs)} calls")
     print(f"  launches {launches}; quarantine {quarantined}")
-    expected = {"mmm": 2, "ewise": 8, "mvm": 2, "vdp": 2}
+    expected = {"mmm": 2, "ewise": 8, "mvm": 2, "vdp": 2, "jacobi": 2,
+                "conv1d": 2, "spmm": 2}
     if launches != expected:
         fail(f"launch counts {launches} != requests sent {expected}: a request "
              f"did not reach its kernel")
@@ -238,8 +342,10 @@ def phase3(dev):
 
     refs = {"MMM": mmm_ref, "EWMM": EW_REFS["mul"], "EWMD": EW_REFS["div"],
             "EWADD": EW_REFS["add"], "EWSUB": EW_REFS["sub"], "MVM": mvm_ref,
-            "VDP": vdp_ref}
-    kernel_of = {"MMM": "mmm", "MVM": "mvm", "VDP": "vdp"}
+            "VDP": vdp_ref, "JS": jacobi_step_ref, "1DCONV": conv1d_ref,
+            "SMMM": smmm_bell_ref}
+    kernel_of = {"MMM": "mmm", "MVM": "mvm", "VDP": "vdp", "JS": "jacobi",
+                 "1DCONV": "conv1d", "SMMM": "spmm"}
     max_abs = {k: 0.0 for k in expected}
     for alias, args in jobs.items():
         ref = refs[alias](*args)
@@ -252,10 +358,13 @@ def phase3(dev):
             max_abs[kname] = max(max_abs[kname],
                                  float((out.double() - ref.double()).abs().max()))
             label = f"{alias} {mode} {'x'.join(map(str, args[0].shape))}"
-            if kname == "ewise":
+            if kname in ("ewise", "conv1d"):
                 check_bits(label, out, ref)
             elif alias == "VDP":
                 check_close(label, relative(out, ref), torch.float32, VDP_TOL)
+            elif alias == "JS":
+                check_close(label, normwise(out, ref), torch.float32,
+                            js_tol(*args, torch.float32))
             else:
                 check_close(label, normwise(out, ref), torch.float32)
     # end to end, after the counted run: wall time of the whole template
@@ -280,13 +389,19 @@ def phase3(dev):
 # ---------------------------------------------------------------------------
 def phase4(dev, jobs, launches, max_abs, e2e, card_name):
     from repro_torch.core.portability import KernelReport, time_fn
+    from repro_torch.kernels.conv1d.conv1d import conv1d_hopper
+    from repro_torch.kernels.conv1d.ref import conv1d_aten, conv1d_ref
     from repro_torch.kernels.ewise.ewise import ewise_hopper
     from repro_torch.kernels.ewise.ref import OP_ATEN
     from repro_torch.kernels.ewise.ref import OP_REFS as EW_REFS
+    from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
+    from repro_torch.kernels.jacobi.ref import jacobi_step_aten, jacobi_step_ref
     from repro_torch.kernels.matmul.matmul import mmm_hopper
     from repro_torch.kernels.matmul.ref import mmm_aten, mmm_ref
     from repro_torch.kernels.mvm.mvm import mvm_hopper
     from repro_torch.kernels.mvm.ref import mvm_aten, mvm_ref
+    from repro_torch.kernels.spmm.ref import bell_to_dense, smmm_aten, smmm_bell_ref
+    from repro_torch.kernels.spmm.spmm import smmm_hopper
     from repro_torch.kernels.vdp.ref import vdp_aten, vdp_ref
     from repro_torch.kernels.vdp.vdp import vdp_hopper
 
@@ -315,6 +430,27 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name):
     vx, vy = jobs["VDP"]
     nv = vx.numel()
     vdp_bound = bound(4 * (2 * nv + 1), 2 * nv)
+    ja, jx, jb = jobs["JS"]
+    nj = ja.shape[0]
+    js_bound = bound(4 * (nj * nj + 3 * nj), 2 * nj * nj)
+    cx, cw = jobs["1DCONV"]
+    nc, kc = cx.numel(), cw.numel()
+    lc = nc - kc + 1
+    conv_bound = bound(4 * (nc + kc + lc), 2 * kc * lc)
+    sv, si, sb = jobs["SMMM"]
+    nrows, snnz, bm, bk = sv.shape
+    ks, ns = sb.shape
+    # the work this run's sparsity pattern needs: its non-pad slots only,
+    # counted on the host before any timing
+    kept = int((si >= 0).sum())
+    spmm_bound = bound(4 * (kept * bm * bk + ks * ns + nrows * bm * ns)
+                       + si.numel() * si.element_size(), 2 * kept * bm * bk * ns)
+    # library yardstick: one dense cuBLAS product of the densified A (built
+    # outside the timing); no single PyTorch call computes blocked-ELL @ B
+    sa_dense = bell_to_dense(sv, si, ks)
+    spmm_aten_ms = ms(smmm_aten, sv, si, sb)
+    print(f"  spmm: {kept} of {nrows * snnz} slots kept (S = {snnz}); "
+          f"smmm_aten (per-slot baddbmm) {spmm_aten_ms:.4f} ms")
 
     per_op = {}
     for op in ("mul", "div", "add", "sub"):
@@ -333,6 +469,17 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name):
         ("vdp", {"ms": ms(vdp_hopper, vx, vy), "plain_ms": ms(vdp_ref, vx, vy),
                  "library_ms": ms(vdp_aten, vx, vy)}, vdp_bound,
          f"n={nv} float32"),
+        ("jacobi", {"ms": ms(jacobi_hopper, ja, jx, jb),
+                    "plain_ms": ms(jacobi_step_ref, ja, jx, jb),
+                    "library_ms": ms(jacobi_step_aten, ja, jx, jb)}, js_bound,
+         f"{nj}x{nj} float32, one sweep"),
+        ("conv1d", {"ms": ms(conv1d_hopper, cx, cw), "plain_ms": ms(conv1d_ref, cx, cw),
+                    "library_ms": ms(conv1d_aten, cx, cw)}, conv_bound,
+         f"N={nc} K={kc} float32"),
+        ("spmm", {"ms": ms(smmm_hopper, sv, si, sb),
+                  "plain_ms": ms(smmm_bell_ref, sv, si, sb),
+                  "library_ms": ms(torch.matmul, sa_dense, sb)}, spmm_bound,
+         f"{nrows * bm}x{ks} bELL {bm}x{bk} @{ks}x{ns} float32"),
     ]
     kernels = []
     for name, times, (bound_ms, bound_by), shape in rows:
@@ -362,7 +509,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name):
                               t3_agnostic_s=entry["plain_ms"] * 1e-3)
         entry["phi"] = report.halo_score
         print("  " + report.csv())
-    # device time the template's 14 requests need: each kernel's median
+    # device time the template's 20 requests need: each kernel's median
     # times the launches the counted run made (EW per op: two each)
     busy = sum(per_op[op]["ms"] * 2 for op in per_op) + sum(
         e["ms"] * e["launches"] for e in kernels if e["name"] != "ewise")

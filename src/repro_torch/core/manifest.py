@@ -19,7 +19,8 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
 
 #: the aliases this package registers (kernels.register_all)
-SLICE_ALIASES = ("MMM", "EWMM", "EWMD", "EWADD", "EWSUB", "MVM", "VDP")
+SLICE_ALIASES = ("MMM", "EWMM", "EWMD", "EWADD", "EWSUB", "MVM", "VDP", "JS",
+                 "1DCONV", "SMMM")
 
 
 @dataclasses.dataclass

@@ -47,16 +47,25 @@ def register_all(registry=None) -> None:
     if _REGISTERED and registry is GLOBAL_REGISTRY:
         return
 
+    from .conv1d import conv1d, conv1d_ref
+    from .conv1d.ops import conv1d_supported
+    from .conv1d.ref import conv1d_aten
     from .ewise import (ewadd, ewadd_ref, ewmd, ewmd_ref, ewmm, ewmm_ref,
                         ewsub, ewsub_ref)
     from .ewise.ops import ewise_supported
     from .ewise.ref import ewadd_aten, ewmd_aten, ewmm_aten, ewsub_aten
+    from .jacobi import jacobi_step, jacobi_step_ref
+    from .jacobi.ops import jacobi_supported
+    from .jacobi.ref import jacobi_step_aten
     from .matmul import mmm, mmm_ref
     from .matmul.ops import mmm_supported
     from .matmul.ref import mmm_aten
     from .mvm import mvm, mvm_ref
     from .mvm.ops import mvm_supported
     from .mvm.ref import mvm_aten
+    from .spmm import smmm
+    from .spmm.ops import smmm_supported
+    from .spmm.ref import smmm_aten, smmm_bell_ref
     from .vdp import vdp, vdp_ref
     from .vdp.ops import vdp_supported
     from .vdp.ref import vdp_aten
@@ -71,6 +80,10 @@ def register_all(registry=None) -> None:
         ("EWSUB", ewsub_ref, ewsub_aten, ewsub, ew_ok),
         ("MVM", mvm_ref, mvm_aten, mvm, mvm_supported),
         ("VDP", vdp_ref, vdp_aten, vdp, vdp_supported),
+        ("JS", jacobi_step_ref, jacobi_step_aten, jacobi_step, jacobi_supported),
+        ("1DCONV", conv1d_ref, conv1d_aten, conv1d, conv1d_supported),
+        # SMMM's oracle reads the blocked-ELL parts slot by slot
+        ("SMMM", smmm_bell_ref, smmm_aten, smmm, smmm_supported),
     ]
     for alias, ref_fn, aten_fn, hopper_fn, ok in table:
         registry.register(_rec(alias, ref_fn, "torch", 0, failsafe=True))

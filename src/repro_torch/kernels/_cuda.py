@@ -30,9 +30,9 @@ from typing import Dict, Optional, Sequence
 import torch
 
 __all__ = ["BUILD_ROOT", "CSRC", "LaunchCounter", "NVCC_FLAGS", "aligned",
-           "build", "check", "counter", "dtype_code", "launch_counts", "lib",
-           "operand_problem", "require", "require_cuda", "reset_launch_counts",
-           "source_hash", "stream"]
+           "build", "check", "counter", "dtype_code", "index_problem",
+           "launch_counts", "lib", "operand_problem", "require",
+           "require_cuda", "reset_launch_counts", "source_hash", "stream"]
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -55,6 +55,12 @@ _SIGNATURES = {
     "halo_mvm": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
     # x, y, partials, out, n, nparts, dtype, vec, stream
     "halo_vdp": [_vp, _vp, _vp, _vp, _ll, _int, _int, _int, _vp],
+    # a, x, b, out, n, dtype, vec, stream
+    "halo_jacobi": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
+    # x, w, out, n, k, dtype, stream
+    "halo_conv1d": [_vp, _vp, _vp, _ll, _ll, _int, _vp],
+    # values, indices, b, c, nrows, S, bm, bk, k, n, dtype, stream
+    "halo_smmm": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp],
 }
 
 _lock = threading.Lock()
@@ -130,6 +136,22 @@ def operand_problem(tensors: Sequence) -> Optional[str]:
         return f"unsupported device {dev}"
     if not all(t.is_contiguous() for t in tensors):
         return "operands must be contiguous"
+    return None
+
+
+def index_problem(index, like: torch.Tensor) -> Optional[str]:
+    """Why the kernels cannot take ``index`` as the int32 index table beside
+    the float operand ``like``, or None: a contiguous int32 tensor on
+    ``like``'s device."""
+    if not isinstance(index, torch.Tensor):
+        return "the index table must be a tensor"
+    if index.dtype != torch.int32:
+        return f"the index table must be int32, got {index.dtype}"
+    if index.device != like.device:
+        return (f"the index table lies on {index.device}, the operands on "
+                f"{like.device}")
+    if not index.is_contiguous():
+        return "the index table must be contiguous"
     return None
 
 

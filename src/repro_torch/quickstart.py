@@ -1,5 +1,6 @@
 """Quickstart: the paper's hardware-agnostic host template (Table V) for the
-ported aliases — MMM, EWMM, EWMD, EWADD, EWSUB, MVM and VDP.
+ported aliases — MMM, EWMM, EWMD, EWADD, EWSUB, MVM, VDP, JS, 1DCONV and
+SMMM, which cover the paper's eight evaluated subroutines.
 
 The same host code — claim by alias, send a compute-object, receive the
 result — runs every alias with no hardware-specific logic; the runtime
@@ -17,9 +18,17 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import torch
 
 from . import halo
+from .kernels.common import round_up
+from .kernels.spmm.ref import dense_to_bell, random_block_sparse
 
 #: the aliases the quickstart drives, in order
-ALIASES = ("MMM", "EWMM", "EWMD", "EWADD", "EWSUB", "MVM", "VDP")
+ALIASES = ("MMM", "EWMM", "EWMD", "EWADD", "EWSUB", "MVM", "VDP", "JS",
+           "1DCONV", "SMMM")
+
+#: SMMM's blocked-ELL block shape and density, as in examples/quickstart.py
+SMMM_BM, SMMM_BK, SMMM_DENSITY = 64, 128, 0.25
+#: 1DCONV's tap count, as in examples/quickstart.py
+CONV_TAPS = 17
 
 
 def make_jobs(sizes: Mapping[str, int], device, seed: int = 0
@@ -29,19 +38,34 @@ def make_jobs(sizes: Mapping[str, int], device, seed: int = 0
 
     ``sizes`` gives the edge per family: ``"MMM"`` (n×n @ n×n), ``"EW"``
     (n×n operands; the divisor is shifted by +3 away from 0), ``"MVM"``
-    (n×n @ n) and ``"VDP"`` (two length-n vectors of mean 1, so Σxy grows
-    like n and a relative error of the result means something)."""
+    (n×n @ n), ``"VDP"`` (two length-n vectors of mean 1, so Σxy grows
+    like n and a relative error of the result means something), ``"JS"``
+    (A + n·I, diagonally dominant, with a random x ≠ 0, so the sweep's
+    A·x term counts, and a random b), ``"1DCONV"`` (a length-n signal and
+    :data:`CONV_TAPS` taps) and ``"SMMM"`` (a block-sparse m×m A,
+    m = n rounded up to a whole number of blocks, in blocked-ELL form,
+    times a dense m × n/2 B)."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def normal(*shape):
         return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
 
-    n_mmm, n_ew, n_mvm, n_vdp = (sizes[k] for k in ("MMM", "EW", "MVM", "VDP"))
+    n_mmm, n_ew, n_mvm, n_vdp, n_js, n_conv, n_sp = (
+        sizes[k] for k in ("MMM", "EW", "MVM", "VDP", "JS", "1DCONV", "SMMM"))
     a_mmm, b_mmm = normal(n_mmm, n_mmm), normal(n_mmm, n_mmm)
     a_ew, b_ew = normal(n_ew, n_ew), normal(n_ew, n_ew) + 3.0
     a_mvm, x_mvm = normal(n_mvm, n_mvm), normal(n_mvm)
     x_vdp, y_vdp = normal(n_vdp) + 1.0, normal(n_vdp) + 1.0
+    a_js = normal(n_js, n_js)
+    a_js.diagonal().add_(float(n_js))
+    x_js, b_js = normal(n_js), normal(n_js)
+    signal, taps = normal(n_conv), normal(CONV_TAPS)
+    m_sp = round_up(n_sp, SMMM_BK)
+    values, indices = dense_to_bell(
+        random_block_sparse(gen, m_sp, m_sp, SMMM_BM, SMMM_BK, SMMM_DENSITY),
+        SMMM_BM, SMMM_BK)
+    b_sp = normal(m_sp, max(1, n_sp // 2))
     return {
         "MMM": (a_mmm, b_mmm),
         "EWMM": (a_ew, b_ew),
@@ -50,6 +74,9 @@ def make_jobs(sizes: Mapping[str, int], device, seed: int = 0
         "EWSUB": (a_ew, b_ew),
         "MVM": (a_mvm, x_mvm),
         "VDP": (x_vdp, y_vdp),
+        "JS": (a_js, x_js, b_js),
+        "1DCONV": (signal, taps),
+        "SMMM": (values, indices, b_sp),
     }
 
 
@@ -85,11 +112,13 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--device", default=None,
                    help="cuda (default; needs an H100) or cpu")
-    p.add_argument("--n", type=int, default=512, help="edge of every input")
+    p.add_argument("--n", type=int, default=512,
+                   help="edge of every input (1DCONV: a signal of n*n)")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     session = halo.initialize(device=args.device)
-    sizes = {"MMM": args.n, "EW": args.n, "MVM": args.n, "VDP": args.n}
+    sizes = {"MMM": args.n, "EW": args.n, "MVM": args.n, "VDP": args.n,
+             "JS": args.n, "1DCONV": args.n * args.n, "SMMM": args.n}
     jobs = make_jobs(sizes, session.device, seed=args.seed)
     sync, asyn = run(jobs)
     for alias, out in sync.items():

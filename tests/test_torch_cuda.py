@@ -13,12 +13,20 @@ import torch
 from repro_torch.core.agents import RuntimeAgent
 from repro_torch.core.registry import KernelRecord, KernelRegistry
 from repro_torch.kernels import _cuda, register_all
+from repro_torch.kernels.conv1d.conv1d import conv1d_hopper
+from repro_torch.kernels.conv1d.ref import conv1d_ref
 from repro_torch.kernels.ewise.ewise import ewise_hopper
 from repro_torch.kernels.ewise.ref import OP_REFS
+from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
+from repro_torch.kernels.jacobi.ops import jacobi_solve
+from repro_torch.kernels.jacobi.ref import jacobi_step_ref, sweep_error_scale
 from repro_torch.kernels.matmul.matmul import mmm_hopper
 from repro_torch.kernels.matmul.ref import mmm_ref
 from repro_torch.kernels.mvm.mvm import mvm_hopper
 from repro_torch.kernels.mvm.ref import mvm_ref
+from repro_torch.kernels.spmm.ref import (dense_to_bell, random_block_sparse,
+                                          smmm_bell_ref)
+from repro_torch.kernels.spmm.spmm import smmm_hopper
 from repro_torch.kernels.vdp.ref import vdp_ref
 from repro_torch.kernels.vdp.vdp import vdp_hopper
 
@@ -116,15 +124,79 @@ def test_vdp_kernel(card, dtype, n):
     assert all(torch.equal(vdp_hopper(x, y), vdp_hopper(x, y)) for _ in range(3))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 37, 130, 1000])
+def test_jacobi_kernel(card, dtype, n):
+    # A + n·I with x ≠ 0: with x = 0 a kernel that skips A·x would pass
+    a = _rnd(card, n, n, dtype=torch.float32)
+    a.diagonal().add_(float(n))
+    a = a.to(dtype)
+    x, b = _rnd(card, n, dtype=dtype, seed=1), _rnd(card, n, dtype=dtype, seed=2)
+    out = jacobi_hopper(a, x, b)
+    assert out.dtype == dtype and out.shape == (n,)
+    # each version's float32 rounding is bounded by sweep_error_scale (the
+    # diagonal cancels after the sum); the 16-bit types also round x'
+    tol = TOL[dtype] + 2 * sweep_error_scale(a, x, b)
+    assert _normwise(out, jacobi_step_ref(a, x, b)) <= tol
+
+
+def test_jacobi_solve_on_the_card_converges(card):
+    n = 1000
+    a = _rnd(card, n, n, dtype=torch.float32)
+    a.diagonal().add_(float(n))
+    b = _rnd(card, n, dtype=torch.float32, seed=1)
+    before = _cuda.launch_counts()["jacobi"]
+    x = jacobi_solve(a, b, iters=30)
+    assert _cuda.launch_counts()["jacobi"] == before + 30
+    resid = (a.double() @ x.double() - b.double()).norm() / b.double().norm()
+    assert float(resid) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,k", [(1, 1), (100, 1), (5000, 17), (2048 + 17, 17),
+                                 (5000, 1025), (9000, 4097), (3000, 3000)])
+def test_conv1d_kernel_is_bit_exact(card, dtype, n, k):
+    # the kernel sums the taps in the plain version's order with its
+    # roundings, so the two agree to the bit; 4097 taps span five staged
+    # chunks, and 2048 + 17 leaves a last tile of one output
+    x, w = _rnd(card, n, dtype=dtype), _rnd(card, k, dtype=dtype, seed=1)
+    out = conv1d_hopper(x, w)
+    assert out.dtype == dtype and out.shape == (n - k + 1,)
+    assert torch.equal(_bits(out), _bits(conv1d_ref(x, w)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n,bm,bk", [(256, 256, 200, 64, 128),
+                                         (384, 256, 300, 128, 64),
+                                         (200, 120, 70, 100, 40),
+                                         (64, 128, 1, 32, 128)])
+def test_smmm_kernel(card, dtype, m, k, n, bm, bk):
+    gen = torch.Generator(device=card).manual_seed(3)
+    a = random_block_sparse(gen, m, k, bm, bk, density=0.4)
+    a[:bm] = 0                                   # block row 0: only pad slots
+    values, indices = dense_to_bell(a.to(dtype), bm, bk)
+    values[indices < 0] = 7.0                    # a pad slot read would show
+    b = _rnd(card, k, n, dtype=dtype, seed=4)
+    out = smmm_hopper(values, indices, b)
+    assert out.dtype == dtype and out.shape == (m // bm * bm, n)
+    assert not bool(out[:bm].any())              # exactly 0
+    assert _normwise(out, smmm_bell_ref(values, indices, b)) <= TOL[dtype]
+
+
 def test_each_launch_counts_once(card):
     a = _rnd(card, 16, 16, dtype=torch.float32)
+    a.diagonal().add_(16.0)
     before = _cuda.launch_counts()
     mmm_hopper(a, a)
     ewise_hopper(a, a, "add")
     mvm_hopper(a, a[0])
     vdp_hopper(a[0], a[0])
+    jacobi_hopper(a, a[0], a[1])
+    conv1d_hopper(a[0], a[1, :3])
+    smmm_hopper(a.view(2, 1, 8, 16), torch.zeros(2, 1, dtype=torch.int32,
+                                                 device=card), a)
     after = _cuda.launch_counts()
-    for name in ("mmm", "ewise", "mvm", "vdp"):
+    for name in ("mmm", "ewise", "mvm", "vdp", "jacobi", "conv1d", "spmm"):
         assert after[name] == before[name] + 1
 
 

@@ -78,10 +78,12 @@ def test_initialize_without_a_device_refuses_a_missing_card():
 
 HOPPER_PATH = [PKG / "kernels" / d / f
                for d, name in (("matmul", "matmul"), ("ewise", "ewise"),
-                               ("mvm", "mvm"), ("vdp", "vdp"))
+                               ("mvm", "mvm"), ("vdp", "vdp"),
+                               ("jacobi", "jacobi"), ("conv1d", "conv1d"),
+                               ("spmm", "spmm"))
                for f in (f"{name}.py", "ops.py")]
-LIBRARY_CALLS = {"matmul", "mm", "mv", "dot", "bmm", "einsum", "mul", "div",
-                 "add", "sub"}
+LIBRARY_CALLS = {"matmul", "mm", "mv", "dot", "bmm", "baddbmm", "einsum",
+                 "mul", "div", "add", "sub", "conv1d"}
 
 
 @pytest.mark.parametrize("path", HOPPER_PATH,
@@ -92,19 +94,25 @@ def test_hopper_path_calls_no_library_op(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Attribute) and node.attr in LIBRARY_CALLS \
-                and isinstance(node.value, ast.Name) and node.value.id == "torch":
+                and isinstance(node.value, ast.Name) \
+                and node.value.id in ("torch", "F"):
             pytest.fail(f"{path.name}:{node.lineno} calls torch.{node.attr}")
         if isinstance(node, ast.BinOp) and isinstance(node.op, ast.MatMult):
             pytest.fail(f"{path.name}:{node.lineno} uses @")
 
 
-@pytest.mark.parametrize("name", ["mmm", "ewise", "mvm", "vdp"])
+#: C entry point of each source whose name differs from the source's
+ENTRY = {"spmm": "smmm"}
+
+
+@pytest.mark.parametrize("name", ["mmm", "ewise", "mvm", "vdp", "jacobi",
+                                  "conv1d", "spmm"])
 def test_kernel_sources_carry_their_note(name):
     src = (PKG / "csrc" / f"{name}.cu").read_text()
     head = src.split("#include")[0]
     assert "Replaces src/repro/kernels/" in head
     assert "Bound on the H100" in head and "Design" in head
-    assert f"extern \"C\" int halo_{name}(" in src
+    assert f"extern \"C\" int halo_{ENTRY.get(name, name)}(" in src
 
 
 def test_build_flags_target_sm90a_without_fast_math():

@@ -19,15 +19,21 @@ from repro.kernels.vdp import ops as j_vdp_ops
 from repro.kernels.vdp import ref as j_vdp_ref
 from repro_torch.core.compute_object import from_numpy, to_numpy
 from repro_torch.kernels import _cuda
+from repro_torch.kernels.conv1d import ops as t_conv_ops
+from repro_torch.kernels.conv1d.conv1d import conv1d_hopper
 from repro_torch.kernels.ewise import ops as t_ew_ops
 from repro_torch.kernels.ewise import ref as t_ew_ref
 from repro_torch.kernels.ewise.ewise import ewise_hopper
+from repro_torch.kernels.jacobi import ops as t_js_ops
+from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
 from repro_torch.kernels.matmul import ops as t_mm_ops
 from repro_torch.kernels.matmul import ref as t_mm_ref
 from repro_torch.kernels.matmul.matmul import mmm_hopper
 from repro_torch.kernels.mvm import ops as t_mvm_ops
 from repro_torch.kernels.mvm import ref as t_mvm_ref
 from repro_torch.kernels.mvm.mvm import mvm_hopper
+from repro_torch.kernels.spmm import ops as t_sp_ops
+from repro_torch.kernels.spmm.spmm import smmm_hopper
 from repro_torch.kernels.vdp import ops as t_vdp_ops
 from repro_torch.kernels.vdp import ref as t_vdp_ref
 from repro_torch.kernels.vdp.vdp import vdp_hopper, vdp_parts
@@ -151,6 +157,10 @@ def test_wrappers_reject_what_the_kernel_does_not_take(fn, args, match):
     (lambda a, b: ewise_hopper(a, b, "div"), (torch.ones(4), torch.ones(4))),
     (mvm_hopper, (torch.ones(4, 4), torch.ones(4))),
     (vdp_hopper, (torch.ones(4), torch.ones(4))),
+    (jacobi_hopper, (torch.ones(4, 4), torch.ones(4), torch.ones(4))),
+    (conv1d_hopper, (torch.ones(8), torch.ones(3))),
+    (smmm_hopper, (torch.ones(2, 1, 4, 8), torch.zeros(2, 1, dtype=torch.int32),
+                   torch.ones(16, 3))),
 ])
 def test_kernel_wrappers_refuse_host_tensors(launch, args):
     """The kernel wrappers launch or raise: a CPU tensor never reaches a
@@ -168,8 +178,12 @@ def test_plain_versions_count_no_launch():
     t_ew_ops.ewsub(a, a)
     t_mvm_ops.mvm(a, a[0])
     t_vdp_ops.vdp(a[0], a[0])
+    t_js_ops.jacobi_solve(a + 8 * torch.eye(8), a[0], iters=2)
+    t_conv_ops.conv1d(a[0], a[1, :3])
+    t_sp_ops.smmm(a.view(2, 1, 4, 8), torch.zeros(2, 1, dtype=torch.int32), a)
     assert _cuda.launch_counts() == before
-    assert set(before) >= {"mmm", "ewise", "mvm", "vdp"}
+    assert set(before) >= {"mmm", "ewise", "mvm", "vdp", "jacobi", "conv1d",
+                           "spmm"}
 
 
 def test_launch_counter_add_and_reset():

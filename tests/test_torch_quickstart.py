@@ -1,13 +1,18 @@
-"""The slice as a whole on the CPU: repro_torch.quickstart's seven aliases,
+"""The slice as a whole on the CPU: repro_torch.quickstart's ten aliases,
 blocking and asynchronous, against the JAX package's repro.halo
 claim/send/recv with claims pinned to its Pallas records (interpret mode),
-on the same numpy inputs."""
+on the same numpy inputs.
+
+The reference's SMMM Pallas record is never feasible (its ``_floaty``
+check refuses the int32 index table), so its pinned claim falls to the jnp
+fail-safe; test_torch_hpc.py holds SMMM to the Pallas kernel itself."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro import halo as jhalo
+from repro.kernels.spmm.ref import dense_to_bell
 from repro_torch import halo, quickstart
 from repro_torch.core.compute_object import from_numpy, to_numpy
 
@@ -25,8 +30,19 @@ def _numpy_jobs(dtype, seed=0):
 
     a, b = normal(N, N), normal(N, N, shift=3.0)
     x = normal(N)
+    # JS: diagonally dominant, x ≠ 0 so the sweep's A·x term counts
+    a_dd = (rng.standard_normal((N, N)).astype(np.float32)
+            + N * np.eye(N, dtype=np.float32)).astype(dt)
+    sig, taps = normal(1000), normal(17)
+    # SMMM: 2x1 blocks of 64x128, block row 1 empty, pad slots hold 7.0
+    sp = rng.standard_normal((N, N)).astype(np.float32)
+    sp[64:] = 0.0
+    vals, idx = (np.array(v) for v in dense_to_bell(sp, 64, 128))
+    vals[idx < 0] = 7.0
     return {"MMM": (a, b), "EWMM": (a, b), "EWMD": (a, b), "EWADD": (a, b),
-            "EWSUB": (a, b), "MVM": (a, x), "VDP": (x, x)}
+            "EWSUB": (a, b), "MVM": (a, x), "VDP": (x, x),
+            "JS": (a_dd, x, normal(N)), "1DCONV": (sig, taps),
+            "SMMM": (vals.astype(dt), idx, normal(N, 96))}
 
 
 def _jax_results(jobs):
@@ -66,22 +82,35 @@ def test_quickstart_matches_jax_halo(cpu_session, dtype, pin):
         want = torch.float32 if alias == "VDP" else getattr(torch, dtype)
         assert sync[alias].dtype == want
     # every request ran on the hopper substrate (plain versions on the CPU)
-    assert cpu_session.agents["hopper"].metrics["requests"] == 14
+    assert cpu_session.agents["hopper"].metrics["requests"] == 20
     assert cpu_session.scheduler.failed_record_keys() == []
 
 
 def test_make_jobs_shapes_and_seed():
-    sizes = {"MMM": 8, "EW": 6, "MVM": 5, "VDP": 33}
+    sizes = {"MMM": 8, "EW": 6, "MVM": 5, "VDP": 33, "JS": 7, "1DCONV": 40,
+             "SMMM": 200}
     jobs = quickstart.make_jobs(sizes, "cpu", seed=3)
+    assert list(jobs) == list(quickstart.ALIASES)
     assert [tuple(t.shape) for t in jobs["MMM"]] == [(8, 8), (8, 8)]
     assert [tuple(t.shape) for t in jobs["EWMD"]] == [(6, 6), (6, 6)]
     assert bool((jobs["EWMD"][1] > 0).float().mean() > 0.9)     # shifted +3
     assert [tuple(t.shape) for t in jobs["MVM"]] == [(5, 5), (5,)]
     assert [tuple(t.shape) for t in jobs["VDP"]] == [(33,), (33,)]
     assert float(jobs["VDP"][0] @ jobs["VDP"][1]) > 0           # mean 1 each
+    a, x, b = jobs["JS"]
+    assert [tuple(t.shape) for t in jobs["JS"]] == [(7, 7), (7,), (7,)]
+    assert bool((x != 0).all())                                 # x ≠ 0
+    off = a.abs().sum(dim=1) - a.diagonal().abs()
+    assert bool((a.diagonal().abs() > off).all())               # dominant
+    assert [tuple(t.shape) for t in jobs["1DCONV"]] == [(40,), (17,)]
+    values, indices, b_sp = jobs["SMMM"]                        # 200 -> 256
+    assert values.shape[0] == 4 and values.shape[2:] == (64, 128)
+    assert indices.dtype == torch.int32 and tuple(b_sp.shape) == (256, 100)
+    assert bool((indices[:, 0] == 0).all())                     # column 0 kept
     again = quickstart.make_jobs(sizes, "cpu", seed=3)
     assert all(torch.equal(u, v) for k in jobs for u, v in zip(jobs[k], again[k]))
-    assert all(t.dtype == torch.float32 for v in jobs.values() for t in v)
+    assert all(t.dtype == torch.float32 for k, v in jobs.items() for t in v
+               if not (k == "SMMM" and t.dtype == torch.int32))
 
 
 def test_quickstart_main_on_cpu(capsys):

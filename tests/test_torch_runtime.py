@@ -24,7 +24,8 @@ from repro_torch.core.registry import (KernelAttributes, KernelRecord,
 from repro_torch.core.scheduler import CostModelScheduler
 from repro_torch.kernels import register_all
 
-SLICE = ("MMM", "EWMM", "EWMD", "EWADD", "EWSUB", "MVM", "VDP")
+SLICE = ("MMM", "EWMM", "EWMD", "EWADD", "EWSUB", "MVM", "VDP", "JS",
+         "1DCONV", "SMMM")
 
 
 @pytest.fixture()
@@ -47,7 +48,11 @@ def _args(alias, n=16):
     a = torch.randn(n, n, generator=g)
     b = torch.randn(n, n, generator=g) + 3.0
     x = torch.randn(n, generator=g)
-    return {"MMM": (a, b), "MVM": (a, x), "VDP": (x, x)}.get(alias, (a, b))
+    values = torch.randn(2, 3, n // 2, 4, generator=g)
+    indices = torch.tensor([[0, 2, -1], [3, -1, -1]], dtype=torch.int32)
+    return {"MMM": (a, b), "MVM": (a, x), "VDP": (x, x),
+            "JS": (a + n * torch.eye(n), x, x + 1.0), "1DCONV": (x, x[:5]),
+            "SMMM": (values, indices, b)}.get(alias, (a, b))
 
 
 # ---------------------------------------------------------------------------
