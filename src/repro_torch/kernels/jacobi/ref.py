@@ -1,7 +1,5 @@
 """Plain PyTorch oracle for JS, the Jacobi solver on Ax = b (port of
 ``repro.kernels.jacobi.ref``)."""
-import math
-
 import torch
 
 
@@ -31,25 +29,3 @@ def jacobi_step_aten(a, x, b):
     same float32 tail as the oracle."""
     return _sweep_tail(torch.mv(a, x), a, x, b)
 
-
-def sweep_error_scale(a, x, b) -> float:
-    """The normwise relative error that float32 rounding alone may give one
-    sweep, computed in float64 from the inputs: u·√n·‖S ⊘ d‖ / ‖x'‖ with
-    u = 2⁻²⁴, S = |A|·|x| + |d∘x| + |b| and x' the exact sweep.
-
-    Each row sums n products in some order; every addition errs by at most
-    u times a partial sum no larger than S, and such errors add up like a
-    random walk of at most n steps.  With A = randn + n·I, d∘x is about √n
-    times the rest of A·x and cancels after the sum, so the bound grows like
-    n·u: about 3e-4 at n = 2048 and 1.2e-3 at n = 8192, where a sum without
-    cancellation would stay near u·√n.  It is a bound, not an estimate: the
-    float32 sweep of :func:`jacobi_step_ref` errs by 5e-6 at n = 2048 (on
-    the CPU), as most additions happen before the diagonal term enters a
-    partial sum.  Two versions that round differently may differ by up to
-    twice this."""
-    a64, x64, b64 = a.double(), x.double(), b.double()
-    d = a64.diagonal()
-    s = a64.abs() @ x64.abs() + (d * x64).abs() + b64.abs()
-    exact = (b64 - (a64 @ x64 - d * x64)) / d
-    n = a.shape[0]
-    return 2.0 ** -24 * math.sqrt(n) * float((s / d).norm() / exact.norm())
