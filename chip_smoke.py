@@ -18,7 +18,11 @@ Phases (any failure exits non-zero before the result lines are printed):
    plain version's own error; and 30 sweeps of ``jacobi_solve`` on the
    phase-3 system must reach ‖Ax − b‖/‖b‖ ≤ ``JS_RESIDUAL`` in float64.
    SMMM's pad slots hold 7.0 and one block row has only pad slots (its
-   output rows must be exactly 0).
+   output rows must be exactly 0).  FFT: normwise within ``FFT_TOL``
+   against ``torch.fft.fft`` in float64 and against its plain version.
+   SORT: bit-exact, and NaN last on rows that hold NaN, ±inf and ±0.
+   HIST: bit-exact, on bin edges, range ends, NaN and ±inf, at several
+   bin counts, and with every value in one bin.
 3. The slice end to end: ``repro_torch.quickstart.run`` on ``cuda`` with
    every claim pinned to the hopper records, blocking and asynchronous, at
    working sets inside the paper's 48 MB–1 GB.  Every kernel's launch count
@@ -47,9 +51,12 @@ sys.path.insert(0, str(ROOT / "src"))
 
 #: working sets of phase 3 (paper's 48 MB–1 GB range): JS A 268 MB; 1DCONV
 #: 268 MB in and out; SMMM A 8192x8192 in 64x128 blocks at density 0.25
-#: (values ~110 MB) times B 8192x4096 (134 MB)
+#: (values ~110 MB) times B 8192x4096 (134 MB); FFT a 2048x4096 batch
+#: (32 MB) against 128 MB of twiddles into 64 MB of complex64; SORT 2^24
+#: values (64 MB in, 64 MB out); HIST 2^26 values (268 MB)
 SIZES = {"MMM": 4096, "EW": 8192, "MVM": 8192, "VDP": 1 << 26, "JS": 8192,
-         "1DCONV": 1 << 26, "SMMM": 8192}
+         "1DCONV": 1 << 26, "SMMM": 8192, "FFT": 4096, "SORT": 1 << 24,
+         "HIST": 1 << 26}
 
 #: MMM and MVM: normwise relative error allowed between a kernel and its
 #: plain version.  float32: the two sum the same float32 products in another
@@ -75,6 +82,14 @@ VDP_TOL = 1e-5
 #: sweep, so what is left is float32 rounding (~1e-6).
 JS_RESIDUAL = 1e-4
 
+#: FFT: normwise relative error of the kernel against the float64 DFT and
+#: against its plain version (the same float32 DFT by matmul).  Each output
+#: sums n float32 products of twiddles rounded once from float64; that
+#: errs by a few units of 2^-24 times sqrt(n), about 1e-6 at n = 4096.
+#: Twiddles whose angle is formed in float32, as the reference's are, err
+#: above this limit from n = 1000 on (tests/test_torch_fft_sorthist.py).
+FFT_TOL = 1e-5
+
 #: SMMM pad slots are filled with this instead of zeros, so a kernel that
 #: read a pad slot as block 0 would add 7·B[0:bk] to its rows
 PAD_FILL = 7.0
@@ -96,6 +111,9 @@ REPLACES = {
     "jacobi": "src/repro/kernels/jacobi/jacobi.py:47",
     "conv1d": "src/repro/kernels/conv1d/conv1d.py:35",
     "spmm": "src/repro/kernels/spmm/spmm.py:54",
+    "fft": "src/repro/kernels/fft/fft.py:58",
+    "sort": "src/repro/kernels/sorthist/sorthist.py:57",
+    "hist": "src/repro/kernels/sorthist/sorthist.py:97",
 }
 
 
@@ -118,8 +136,13 @@ def peaks(name: str):
 # ---------------------------------------------------------------------------
 # comparison helpers
 # ---------------------------------------------------------------------------
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float64, or complex128 when it is complex."""
+    return t.to(torch.complex128 if t.is_complex() else torch.float64)
+
+
 def normwise(k: torch.Tensor, r: torch.Tensor) -> float:
-    k, r = k.double(), r.double()
+    k, r = wide(k), wide(r)
     return float((k - r).norm() / r.norm().clamp_min(1e-300))
 
 
@@ -204,6 +227,32 @@ def bell_inputs(m, n, dtype, gen, dev):
     values[indices < 0] = PAD_FILL
     b = torch.randn((m, n), generator=gen, device=dev).to(dtype)
     return values, indices, b
+
+
+def same_values(k: torch.Tensor, r: torch.Tensor) -> bool:
+    """Equal element by element when −0.0 counts as +0.0 and NaN as NaN."""
+    return k.shape == r.shape and k.dtype == r.dtype and bool(
+        ((k == r) | (k.isnan() & r.isnan())).all())
+
+
+def hist_edge_inputs(bins, lo, hi, gen, dev):
+    """Values on every bin edge lo + k·width (k = 0 .. bins, in float32 and
+    rounded from float64), one float32 step either side of each, lo, hi,
+    nextafter(hi, +inf), below lo, NaN, ±inf, and uniform values over
+    [lo − 1, hi + 1]: float32."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    k = torch.arange(bins + 1, **f32)
+    lo32, w32 = torch.tensor(lo, **f32), torch.tensor((hi - lo) / bins, **f32)
+    edges = torch.cat([lo32 + k * w32, (lo + torch.arange(
+        bins + 1, dtype=torch.float64, device=dev) * ((hi - lo) / bins)).float()])
+    inf = torch.tensor(float("inf"), **f32)
+    hi32 = torch.tensor(hi, **f32)
+    ends = torch.tensor([lo, hi, lo - 1.0, float("nan"), float("inf"),
+                         float("-inf")], **f32)
+    uniform = torch.rand(100_000, generator=gen, **f32) * (hi - lo + 2) + (lo - 1)
+    return torch.cat([edges, torch.nextafter(edges, inf),
+                      torch.nextafter(edges, -inf), ends,
+                      torch.nextafter(hi32, inf).view(1), uniform])
 
 
 def check_bits(what: str, k: torch.Tensor, r: torch.Tensor) -> None:
@@ -303,7 +352,94 @@ def phase2(dev) -> None:
     resid = float((a.double() @ x.double() - b.double()).norm() / b.double().norm())
     check_close(f"JS solve n={n}, 30 sweeps: ‖Ax−b‖/‖b‖", resid, torch.float32,
                 JS_RESIDUAL)
+    for dt in (torch.float32, torch.bfloat16):
+        phase2_fft(dev, gen, dt)
+        phase2_sort(dev, gen, dt)
+        phase2_hist(dev, gen, dt)
     torch.cuda.synchronize(dev)
+
+
+def phase2_fft(dev, gen, dt) -> None:
+    """FFT against torch.fft.fft of the same input in float64 and against
+    its plain version, at ragged n, 1, 3 and 2048 rows, and 1-D."""
+    from repro_torch.kernels.fft.fft import fft_hopper
+    from repro_torch.kernels.fft.ops import cached_twiddles
+    from repro_torch.kernels.fft.ref import dft_ref
+
+    name = str(dt).split(".")[-1]
+    for n in (1, 7, 1000, 1024, SIZES["FFT"]):
+        c, s = cached_twiddles(n, dev)
+        for shape in ((1, n), (3, n), (2048, n), (n,)):
+            x = torch.randn(shape, generator=gen, device=dev).to(dt)
+            k = fft_hopper(x, c, s)
+            label = f"FFT {name} {'x'.join(map(str, shape))}"
+            check_close(f"{label} vs float64",
+                        normwise(k, torch.fft.fft(x.double(), dim=-1)), dt, FFT_TOL)
+            check_close(f"{label} vs plain", normwise(k, dft_ref(x, c, s)), dt,
+                        FFT_TOL)
+
+
+def phase2_sort(dev, gen, dt) -> None:
+    """SORT bit-exact against its plain version across the tile boundary,
+    on ragged and many rows, on duplicates; NaN last beside ±inf and ±0."""
+    from repro_torch.kernels.sorthist.ref import sort_ref
+    from repro_torch.kernels.sorthist.sorthist import SORT_TILE, sort_hopper
+
+    name = str(dt).split(".")[-1]
+    # rows of at most SORT_TILE places sort in one block, longer ones merge
+    # through global memory
+    tile = SORT_TILE
+    shapes = [(n,) for n in (1, 2, 127, 128, 129, tile, tile + 1, (1 << 20) + 3,
+                             SIZES["SORT"])]
+    shapes += [(5, 129), (5, tile + 1), (5, (1 << 20) + 3), (4096, 4096)]
+    for shape in shapes:
+        x = torch.randn(shape, generator=gen, device=dev).to(dt)
+        check_bits(f"SORT {name} {'x'.join(map(str, shape))}", sort_hopper(x),
+                   sort_ref(x))
+    for shape in ((1 << 20) + 3,), (4096, 4096), (3, 2, 1000):
+        x = torch.randint(0, 16, shape, generator=gen, device=dev).to(dt)
+        check_bits(f"SORT {name} {'x'.join(map(str, shape))} duplicates",
+                   sort_hopper(x), sort_ref(x))
+    specials = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0, 0.0,
+                             -float("nan")], device=dev)
+    for n in (1000, tile + 1, (1 << 20) + 3):
+        x = torch.randn((2, n), generator=gen, device=dev)
+        place = torch.randperm(n, generator=gen, device=dev)[:3 * specials.numel()]
+        x[:, place] = specials.repeat(3)
+        x = x.to(dt)
+        k, r = sort_hopper(x), sort_ref(x)
+        nans = int(x[0].isnan().sum())
+        ok = same_values(k, r) and bool(k[:, n - nans:].isnan().all()) \
+            and not bool(k[:, :n - nans].isnan().any())
+        print(f"  {f'SORT {name} 2x{n} NaN, ±inf, ±0':42s} NaN last, values "
+              f"of the plain version {ok}")
+        if not ok:
+            fail(f"SORT {name} 2x{n} with NaN, ±inf and ±0: not NaN-last or "
+                 f"not the plain version's values")
+
+
+def phase2_hist(dev, gen, dt) -> None:
+    """HIST bit-exact against its plain version: 2^26 values, edge values at
+    several bin counts and ranges, and every value in one bin."""
+    from repro_torch.kernels.sorthist.ref import hist_ref
+    from repro_torch.kernels.sorthist.sorthist import hist_hopper
+
+    name = str(dt).split(".")[-1]
+    x = torch.sigmoid(torch.randn(SIZES["HIST"], generator=gen, device=dev)).to(dt)
+    check_bits(f"HIST {name} n={x.numel()}", hist_hopper(x), hist_ref(x))
+    # (10, -2, 3) has a width of 0.5; (7, -2, 3) and (1000, 0, 1) have
+    # widths that float32 does not hold exactly
+    for bins, lo, hi in ((1, 0.0, 1.0), (64, 0.0, 1.0), (1000, 0.0, 1.0),
+                         (65536, 0.0, 1.0), (10, -2.0, 3.0), (7, -2.0, 3.0)):
+        x = hist_edge_inputs(bins, lo, hi, gen, dev).to(dt)
+        k = hist_hopper(x, bins=bins, lo=lo, hi=hi)
+        check_bits(f"HIST {name} bins={bins} [{lo}, {hi}] edges", k,
+                   hist_ref(x, bins=bins, lo=lo, hi=hi))
+    x = torch.full(((1 << 24) - 1,), 0.3, device=dev).to(dt)
+    k = hist_hopper(x)
+    check_bits(f"HIST {name} one bin, n=2^24-1", k, hist_ref(x))
+    if float(k.max()) != x.numel():
+        fail(f"HIST {name} one bin: {float(k.max())} != {x.numel()}")
 
 
 # ---------------------------------------------------------------------------
@@ -314,9 +450,11 @@ def phase3(dev):
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.conv1d.ref import conv1d_ref
     from repro_torch.kernels.ewise.ref import OP_REFS as EW_REFS
+    from repro_torch.kernels.fft.ref import dft_ref
     from repro_torch.kernels.jacobi.ref import jacobi_step_ref
     from repro_torch.kernels.matmul.ref import mmm_ref
     from repro_torch.kernels.mvm.ref import mvm_ref
+    from repro_torch.kernels.sorthist.ref import hist_ref, sort_ref
     from repro_torch.kernels.spmm.ref import smmm_bell_ref
     from repro_torch.kernels.vdp.ref import vdp_ref
 
@@ -338,7 +476,7 @@ def phase3(dev):
           f"{2 * len(jobs)} calls")
     print(f"  launches {launches}; quarantine {quarantined}")
     expected = {"mmm": 2, "ewise": 8, "mvm": 2, "vdp": 2, "jacobi": 2,
-                "conv1d": 2, "spmm": 2}
+                "conv1d": 2, "spmm": 2, "fft": 2, "sort": 2, "hist": 2}
     if launches != expected:
         fail(f"launch counts {launches} != requests sent {expected}: a request "
              f"did not reach its kernel")
@@ -348,9 +486,11 @@ def phase3(dev):
     refs = {"MMM": mmm_ref, "EWMM": EW_REFS["mul"], "EWMD": EW_REFS["div"],
             "EWADD": EW_REFS["add"], "EWSUB": EW_REFS["sub"], "MVM": mvm_ref,
             "VDP": vdp_ref, "JS": jacobi_step_ref, "1DCONV": conv1d_ref,
-            "SMMM": smmm_bell_ref}
+            "SMMM": smmm_bell_ref, "FFT": dft_ref, "SORT": sort_ref,
+            "HIST": hist_ref}
     kernel_of = {"MMM": "mmm", "MVM": "mvm", "VDP": "vdp", "JS": "jacobi",
-                 "1DCONV": "conv1d", "SMMM": "spmm"}
+                 "1DCONV": "conv1d", "SMMM": "spmm", "FFT": "fft",
+                 "SORT": "sort", "HIST": "hist"}
     max_abs = {k: 0.0 for k in expected}
     for alias, args in jobs.items():
         ref = refs[alias](*args)
@@ -361,10 +501,16 @@ def phase3(dev):
                 fail(f"{alias} {mode}: {tuple(out.shape)} {out.dtype} vs "
                      f"{tuple(ref.shape)} {ref.dtype} or not finite")
             max_abs[kname] = max(max_abs[kname],
-                                 float((out.double() - ref.double()).abs().max()))
+                                 float((wide(out) - wide(ref)).abs().max()))
             label = f"{alias} {mode} {'x'.join(map(str, args[0].shape))}"
-            if kname in ("ewise", "conv1d"):
+            if kname in ("ewise", "conv1d", "sort", "hist"):
                 check_bits(label, out, ref)
+            elif alias == "FFT":
+                check_close(f"{label} vs plain", normwise(out, ref), torch.float32,
+                            FFT_TOL)
+                check_close(f"{label} vs float64", normwise(
+                    out, torch.fft.fft(args[0].double(), dim=-1)), torch.float32,
+                    FFT_TOL)
             elif alias == "VDP":
                 check_close(label, relative(out, ref), torch.float32, VDP_TOL)
             elif alias == "JS":
@@ -398,12 +544,17 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name):
     from repro_torch.kernels.ewise.ewise import ewise_hopper
     from repro_torch.kernels.ewise.ref import OP_ATEN
     from repro_torch.kernels.ewise.ref import OP_REFS as EW_REFS
+    from repro_torch.kernels.fft.fft import fft_hopper
+    from repro_torch.kernels.fft.ops import cached_twiddles, clear_twiddle_cache
+    from repro_torch.kernels.fft.ref import dft_ref, fft_aten
     from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
     from repro_torch.kernels.jacobi.ref import jacobi_step_aten, jacobi_step_ref
     from repro_torch.kernels.matmul.matmul import mmm_hopper
     from repro_torch.kernels.matmul.ref import mmm_aten, mmm_ref
     from repro_torch.kernels.mvm.mvm import mvm_hopper
     from repro_torch.kernels.mvm.ref import mvm_aten, mvm_ref
+    from repro_torch.kernels.sorthist.ref import hist_ref, sort_ref
+    from repro_torch.kernels.sorthist.sorthist import hist_hopper, sort_hopper
     from repro_torch.kernels.spmm.ref import bell_to_dense, smmm_aten, smmm_bell_ref
     from repro_torch.kernels.spmm.spmm import smmm_hopper
     from repro_torch.kernels.vdp.ref import vdp_aten, vdp_ref
@@ -455,6 +606,27 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name):
     spmm_aten_ms = ms(smmm_aten, sv, si, sb)
     print(f"  spmm: {kept} of {nrows * snnz} slots kept (S = {snnz}); "
           f"smmm_aten (per-slot baddbmm) {spmm_aten_ms:.4f} ms")
+    fx, = jobs["FFT"]
+    f_m, f_n = fx.shape
+    fft_bound = bound(4 * f_m * f_n + 2 * 4 * f_n * f_n + 8 * f_m * f_n,
+                      4 * f_m * f_n * f_n)
+    # the twiddles' first-call build, timed apart from the kernel
+    clear_twiddle_cache()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    fc, fs = cached_twiddles(f_n, dev)
+    torch.cuda.synchronize(dev)
+    twiddle_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  fft twiddle build (first call, n={f_n}, host clock): {twiddle_ms:.3f} ms")
+    sx, = jobs["SORT"]
+    n_sort = sx.numel()
+    # bytes: one read, one write; operations: the n·log2(n) comparisons no
+    # comparison sort can do without (the bytes bound it all the same, and
+    # no comparison sort reaches that bound)
+    sort_bound = bound(4 * 2 * n_sort, n_sort * max(1, (n_sort - 1).bit_length()))
+    hx, = jobs["HIST"]
+    n_hist = hx.numel()
+    hist_bound = bound(4 * n_hist + 4 * 64, n_hist)
 
     per_op = {}
     for op in ("mul", "div", "add", "sub"):
@@ -484,6 +656,18 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name):
                   "plain_ms": ms(smmm_bell_ref, sv, si, sb),
                   "library_ms": ms(torch.matmul, sa_dense, sb)}, spmm_bound,
          f"{nrows * bm}x{ks} bELL {bm}x{bk} @{ks}x{ns} float32"),
+        ("fft", {"ms": ms(fft_hopper, fx, fc, fs), "plain_ms": ms(dft_ref, fx, fc, fs),
+                 "library_ms": ms(fft_aten, fx)}, fft_bound,
+         f"{f_m}x{f_n} float32, DFT (library: cuFFT)"),
+        # the library call also returns the permutation; the plain version
+        # makes every NaN positive, then keeps the values of one torch.sort
+        ("sort", {"ms": ms(sort_hopper, sx), "plain_ms": ms(sort_ref, sx),
+                  "library_ms": ms(torch.sort, sx)}, sort_bound,
+         f"n={n_sort} float32 (library: torch.sort)"),
+        # torch.histc bins the edges differently: a time yardstick only
+        ("hist", {"ms": ms(hist_hopper, hx), "plain_ms": ms(hist_ref, hx),
+                  "library_ms": ms(torch.histc, hx, 64, 0.0, 1.0)}, hist_bound,
+         f"n={n_hist} float32, 64 bins (library: histc)"),
     ]
     kernels = []
     for name, times, (bound_ms, bound_by), shape in rows:
@@ -513,7 +697,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name):
                               t3_agnostic_s=entry["plain_ms"] * 1e-3)
         entry["phi"] = report.halo_score
         print("  " + report.csv())
-    # device time the template's 20 requests need: each kernel's median
+    # device time the template's requests need: each kernel's median
     # times the launches the counted run made (EW per op: two each)
     busy = sum(per_op[op]["ms"] * 2 for op in per_op) + sum(
         e["ms"] * e["launches"] for e in kernels if e["name"] != "ewise")

@@ -20,7 +20,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 #: the aliases this package registers (kernels.register_all)
 SLICE_ALIASES = ("MMM", "EWMM", "EWMD", "EWADD", "EWSUB", "MVM", "VDP", "JS",
-                 "1DCONV", "SMMM")
+                 "1DCONV", "SMMM", "FFT", "SORT", "HIST")
 
 
 @dataclasses.dataclass

@@ -54,6 +54,9 @@ def register_all(registry=None) -> None:
                         ewsub, ewsub_ref)
     from .ewise.ops import ewise_supported
     from .ewise.ref import ewadd_aten, ewmd_aten, ewmm_aten, ewsub_aten
+    from .fft import fft, fft_ref
+    from .fft.ops import fft_supported
+    from .fft.ref import fft_aten
     from .jacobi import jacobi_step, jacobi_step_ref
     from .jacobi.ops import jacobi_supported
     from .jacobi.ref import jacobi_step_aten
@@ -63,6 +66,9 @@ def register_all(registry=None) -> None:
     from .mvm import mvm, mvm_ref
     from .mvm.ops import mvm_supported
     from .mvm.ref import mvm_aten
+    from .sorthist import hist, hist_ref, sort, sort_ref
+    from .sorthist.ops import hist_supported, sort_supported
+    from .sorthist.ref import hist_aten, sort_aten
     from .spmm import smmm
     from .spmm.ops import smmm_supported
     from .spmm.ref import smmm_aten, smmm_bell_ref
@@ -84,6 +90,10 @@ def register_all(registry=None) -> None:
         ("1DCONV", conv1d_ref, conv1d_aten, conv1d, conv1d_supported),
         # SMMM's oracle reads the blocked-ELL parts slot by slot
         ("SMMM", smmm_bell_ref, smmm_aten, smmm, smmm_supported),
+        # data-reorganization and spectral class (paper Table II rows 9-11)
+        ("FFT", fft_ref, fft_aten, fft, fft_supported),
+        ("SORT", sort_ref, sort_aten, sort, sort_supported),
+        ("HIST", hist_ref, hist_aten, hist, hist_supported),
     ]
     for alias, ref_fn, aten_fn, hopper_fn, ok in table:
         registry.register(_rec(alias, ref_fn, "torch", 0, failsafe=True))

@@ -45,7 +45,7 @@ LIB_NAME = "libhalo_kernels.so"
 #: the types every kernel takes, with their code in the C interface
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-_vp, _int, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_vp, _int, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     # a, b, c, m, n, k, dtype, stream
     "halo_mmm": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
@@ -61,6 +61,12 @@ _SIGNATURES = {
     "halo_conv1d": [_vp, _vp, _vp, _ll, _ll, _int, _vp],
     # values, indices, b, c, nrows, S, bm, bk, k, n, dtype, stream
     "halo_smmm": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp],
+    # x, c, s, out, m, n, dtype, stream
+    "halo_fft": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
+    # x, out, keys, rows, n, npow2, dtype, stream
+    "halo_sort": [_vp, _vp, _vp, _ll, _ll, _ll, _int, _vp],
+    # x, counts, out, n, bins, lo, hi, width, dtype, stream
+    "halo_hist": [_vp, _vp, _vp, _ll, _int, _f, _f, _f, _int, _vp],
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,7 @@
 """Quickstart: the paper's hardware-agnostic host template (Table V) for the
-ported aliases — MMM, EWMM, EWMD, EWADD, EWSUB, MVM, VDP, JS, 1DCONV and
-SMMM, which cover the paper's eight evaluated subroutines.
+ported aliases — MMM, EWMM, EWMD, EWADD, EWSUB, MVM, VDP, JS, 1DCONV, SMMM,
+FFT, SORT and HIST: the paper's eight evaluated subroutines and the
+reference quickstart's eleven.
 
 The same host code — claim by alias, send a compute-object, receive the
 result — runs every alias with no hardware-specific logic; the runtime
@@ -19,11 +20,12 @@ import torch
 
 from . import halo
 from .kernels.common import round_up
+from .kernels.fft.fft import MAX_N as FFT_MAX_N
 from .kernels.spmm.ref import dense_to_bell, random_block_sparse
 
 #: the aliases the quickstart drives, in order
 ALIASES = ("MMM", "EWMM", "EWMD", "EWADD", "EWSUB", "MVM", "VDP", "JS",
-           "1DCONV", "SMMM")
+           "1DCONV", "SMMM", "FFT", "SORT", "HIST")
 
 #: SMMM's blocked-ELL block shape and density, as in examples/quickstart.py
 SMMM_BM, SMMM_BK, SMMM_DENSITY = 64, 128, 0.25
@@ -44,15 +46,19 @@ def make_jobs(sizes: Mapping[str, int], device, seed: int = 0
     A·x term counts, and a random b), ``"1DCONV"`` (a length-n signal and
     :data:`CONV_TAPS` taps) and ``"SMMM"`` (a block-sparse m×m A,
     m = n rounded up to a whole number of blocks, in blocked-ELL form,
-    times a dense m × n/2 B)."""
+    times a dense m × n/2 B), ``"FFT"`` (an n/2 × n batch of signals),
+    ``"SORT"`` (one length-n vector, as the reference quickstart sorts a
+    vector) and ``"HIST"`` (n values of sigmoid(normal), binned with the
+    defaults: 64 bins over [0, 1])."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def normal(*shape):
         return torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
 
-    n_mmm, n_ew, n_mvm, n_vdp, n_js, n_conv, n_sp = (
-        sizes[k] for k in ("MMM", "EW", "MVM", "VDP", "JS", "1DCONV", "SMMM"))
+    n_mmm, n_ew, n_mvm, n_vdp, n_js, n_conv, n_sp, n_fft, n_sort, n_hist = (
+        sizes[k] for k in ("MMM", "EW", "MVM", "VDP", "JS", "1DCONV", "SMMM",
+                           "FFT", "SORT", "HIST"))
     a_mmm, b_mmm = normal(n_mmm, n_mmm), normal(n_mmm, n_mmm)
     a_ew, b_ew = normal(n_ew, n_ew), normal(n_ew, n_ew) + 3.0
     a_mvm, x_mvm = normal(n_mvm, n_mvm), normal(n_mvm)
@@ -66,6 +72,9 @@ def make_jobs(sizes: Mapping[str, int], device, seed: int = 0
         random_block_sparse(gen, m_sp, m_sp, SMMM_BM, SMMM_BK, SMMM_DENSITY),
         SMMM_BM, SMMM_BK)
     b_sp = normal(m_sp, max(1, n_sp // 2))
+    signals = normal(max(1, n_fft // 2), n_fft)
+    unsorted = normal(n_sort)
+    values01 = torch.sigmoid(normal(n_hist))
     return {
         "MMM": (a_mmm, b_mmm),
         "EWMM": (a_ew, b_ew),
@@ -77,6 +86,9 @@ def make_jobs(sizes: Mapping[str, int], device, seed: int = 0
         "JS": (a_js, x_js, b_js),
         "1DCONV": (signal, taps),
         "SMMM": (values, indices, b_sp),
+        "FFT": (signals,),
+        "SORT": (unsorted,),
+        "HIST": (values01,),
     }
 
 
@@ -113,12 +125,15 @@ def main(argv=None) -> None:
     p.add_argument("--device", default=None,
                    help="cuda (default; needs an H100) or cpu")
     p.add_argument("--n", type=int, default=512,
-                   help="edge of every input (1DCONV: a signal of n*n)")
+                   help="edge of every input (1DCONV, SORT, HIST: n*n values; "
+                        "FFT: a batch of f/2 signals of f = min(n, 4096))")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
     session = halo.initialize(device=args.device)
     sizes = {"MMM": args.n, "EW": args.n, "MVM": args.n, "VDP": args.n,
-             "JS": args.n, "1DCONV": args.n * args.n, "SMMM": args.n}
+             "JS": args.n, "1DCONV": args.n * args.n, "SMMM": args.n,
+             "FFT": min(args.n, FFT_MAX_N), "SORT": args.n * args.n,
+             "HIST": args.n * args.n}
     jobs = make_jobs(sizes, session.device, seed=args.seed)
     sync, asyn = run(jobs)
     for alias, out in sync.items():

@@ -17,6 +17,9 @@ from repro_torch.kernels.conv1d.conv1d import conv1d_hopper
 from repro_torch.kernels.conv1d.ref import conv1d_ref
 from repro_torch.kernels.ewise.ewise import ewise_hopper
 from repro_torch.kernels.ewise.ref import OP_REFS
+from repro_torch.kernels.fft.fft import fft_hopper
+from repro_torch.kernels.fft.ops import cached_twiddles
+from repro_torch.kernels.fft.ref import dft_ref
 from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
 from repro_torch.kernels.jacobi.ops import jacobi_solve
 from repro_torch.kernels.jacobi.ref import jacobi_step_ref
@@ -24,6 +27,8 @@ from repro_torch.kernels.matmul.matmul import mmm_hopper
 from repro_torch.kernels.matmul.ref import mmm_ref
 from repro_torch.kernels.mvm.mvm import mvm_hopper
 from repro_torch.kernels.mvm.ref import mvm_ref
+from repro_torch.kernels.sorthist.ref import hist_ref, sort_ref
+from repro_torch.kernels.sorthist.sorthist import hist_hopper, sort_hopper
 from repro_torch.kernels.spmm.ref import (dense_to_bell, random_block_sparse,
                                           smmm_bell_ref)
 from repro_torch.kernels.spmm.spmm import smmm_hopper
@@ -191,6 +196,76 @@ def test_smmm_kernel(card, dtype, m, k, n, bm, bk):
     assert _normwise(out, smmm_bell_ref(values, indices, b)) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 1), (7,), (3, 1000), (130, 257), (5, 4096)])
+def test_fft_kernel(card, dtype, shape):
+    # normwise 1e-5 against the float64 DFT of the same input, whatever its
+    # type (16-bit inputs are exact in float32), and against the plain
+    # version, which sums the same float32 products in another order
+    x = _rnd(card, *shape, dtype=dtype)
+    c, s = cached_twiddles(shape[-1], card)
+    out = fft_hopper(x, c, s)
+    assert out.dtype == torch.complex64 and out.shape == x.shape
+    exact = torch.fft.fft(x.double(), dim=-1)
+    wide = out.to(torch.complex128)
+    assert float((wide - exact).norm() / exact.norm()) <= 1e-5
+    ref = dft_ref(x, c, s).to(torch.complex128)
+    assert float((wide - ref).norm() / ref.norm()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1,), (2,), (129,), (3, 8192), (2, 8193),
+                                   (4, 70_000), (2, 3, 1000)])
+def test_sort_kernel_is_bit_exact(card, dtype, shape):
+    # 8192 places fit one shared-memory tile; 8193 and 70 000 merge through
+    # global memory, with the sentinel past n; integers give duplicates
+    x = _rnd(card, *shape, dtype=dtype)
+    out = sort_hopper(x)
+    assert out.dtype == dtype and out.shape == x.shape
+    assert torch.equal(_bits(out), _bits(sort_ref(x)))
+    g = torch.Generator(device=card).manual_seed(5)
+    d = torch.randint(0, 9, shape, generator=g, device=card).to(dtype)
+    assert torch.equal(_bits(sort_hopper(d)), _bits(sort_ref(d)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [100, 9000])
+def test_sort_kernel_puts_nan_last(card, dtype, n):
+    x = _rnd(card, 3, n, dtype=torch.float32)
+    x[:, [3, 7, 11, 20, 30, 40]] = torch.tensor(
+        [float("nan"), float("inf"), float("-inf"), -0.0, 0.0, -float("nan")],
+        device=card)
+    x = x.to(dtype)
+    out, ref = sort_hopper(x), sort_ref(x)
+    assert bool(((out == ref) | (out.isnan() & ref.isnan())).all())
+    assert bool(out[:, -2:].isnan().all()) and not bool(out[:, :-2].isnan().any())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bins,lo,hi", [(1, 0.0, 1.0), (64, 0.0, 1.0),
+                                        (1000, 0.0, 1.0), (7, -2.0, 3.0),
+                                        (20_000, -1.0, 1.0)])
+def test_hist_kernel_is_bit_exact(card, dtype, bins, lo, hi):
+    # every bin edge, a step either side, the range ends, NaN and ±inf, and
+    # uniform values; 20 000 bins do not fit shared memory and count in
+    # global memory; the counts are integers, so any atomic order agrees
+    f32 = dict(dtype=torch.float32, device=card)
+    k = torch.arange(bins + 1, **f32)
+    edges = torch.tensor(lo, **f32) + k * torch.tensor((hi - lo) / bins, **f32)
+    inf = torch.tensor(float("inf"), **f32)
+    g = torch.Generator(device=card).manual_seed(6)
+    x = torch.cat([edges, torch.nextafter(edges, inf), torch.nextafter(edges, -inf),
+                   torch.tensor([lo, hi, float("nan"), float("inf"),
+                                 float("-inf"), lo - 1.0], **f32),
+                   torch.rand(300_001, generator=g, **f32) * (hi - lo + 2) + lo - 1])
+    x = x.to(dtype)
+    out = hist_hopper(x, bins=bins, lo=lo, hi=hi)
+    assert out.dtype == torch.float32 and out.shape == (bins,)
+    assert torch.equal(out, hist_ref(x, bins=bins, lo=lo, hi=hi))
+    one = torch.full((100_000,), 0.3, device=card).to(dtype)
+    assert torch.equal(hist_hopper(one), hist_ref(one))
+
+
 def test_each_launch_counts_once(card):
     a = _rnd(card, 16, 16, dtype=torch.float32)
     a.diagonal().add_(16.0)
@@ -203,8 +278,12 @@ def test_each_launch_counts_once(card):
     conv1d_hopper(a[0], a[1, :3])
     smmm_hopper(a.view(2, 1, 8, 16), torch.zeros(2, 1, dtype=torch.int32,
                                                  device=card), a)
+    fft_hopper(a, *cached_twiddles(16, card))
+    sort_hopper(a)
+    hist_hopper(a)
     after = _cuda.launch_counts()
-    for name in ("mmm", "ewise", "mvm", "vdp", "jacobi", "conv1d", "spmm"):
+    for name in ("mmm", "ewise", "mvm", "vdp", "jacobi", "conv1d", "spmm",
+                 "fft", "sort", "hist"):
         assert after[name] == before[name] + 1
 
 

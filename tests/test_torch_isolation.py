@@ -80,17 +80,20 @@ HOPPER_PATH = [PKG / "kernels" / d / f
                for d, name in (("matmul", "matmul"), ("ewise", "ewise"),
                                ("mvm", "mvm"), ("vdp", "vdp"),
                                ("jacobi", "jacobi"), ("conv1d", "conv1d"),
-                               ("spmm", "spmm"))
+                               ("spmm", "spmm"), ("fft", "fft"),
+                               ("sorthist", "sorthist"))
                for f in (f"{name}.py", "ops.py")]
 LIBRARY_CALLS = {"matmul", "mm", "mv", "dot", "bmm", "baddbmm", "einsum",
-                 "mul", "div", "add", "sub", "conv1d"}
+                 "mul", "div", "add", "sub", "conv1d", "fft", "sort",
+                 "argsort", "msort", "histc", "bincount"}
 
 
 @pytest.mark.parametrize("path", HOPPER_PATH,
                          ids=[str(p.relative_to(PKG)) for p in HOPPER_PATH])
 def test_hopper_path_calls_no_library_op(path):
     """The wrappers reach the card only through the hand-written kernels:
-    no torch.matmul/mv/dot/… and no ``@`` on the hopper path."""
+    no torch.matmul/mv/dot/fft/sort/histc/… and no ``@`` on the hopper
+    path."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Attribute) and node.attr in LIBRARY_CALLS \
@@ -106,7 +109,7 @@ ENTRY = {"spmm": "smmm"}
 
 
 @pytest.mark.parametrize("name", ["mmm", "ewise", "mvm", "vdp", "jacobi",
-                                  "conv1d", "spmm"])
+                                  "conv1d", "spmm", "fft", "sort", "hist"])
 def test_kernel_sources_carry_their_note(name):
     src = (PKG / "csrc" / f"{name}.cu").read_text()
     head = src.split("#include")[0]

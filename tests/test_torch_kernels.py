@@ -24,6 +24,8 @@ from repro_torch.kernels.conv1d.conv1d import conv1d_hopper
 from repro_torch.kernels.ewise import ops as t_ew_ops
 from repro_torch.kernels.ewise import ref as t_ew_ref
 from repro_torch.kernels.ewise.ewise import ewise_hopper
+from repro_torch.kernels.fft import ops as t_fft_ops
+from repro_torch.kernels.fft.fft import fft_hopper
 from repro_torch.kernels.jacobi import ops as t_js_ops
 from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
 from repro_torch.kernels.matmul import ops as t_mm_ops
@@ -32,6 +34,8 @@ from repro_torch.kernels.matmul.matmul import mmm_hopper
 from repro_torch.kernels.mvm import ops as t_mvm_ops
 from repro_torch.kernels.mvm import ref as t_mvm_ref
 from repro_torch.kernels.mvm.mvm import mvm_hopper
+from repro_torch.kernels.sorthist import ops as t_sh_ops
+from repro_torch.kernels.sorthist.sorthist import hist_hopper, sort_hopper
 from repro_torch.kernels.spmm import ops as t_sp_ops
 from repro_torch.kernels.spmm.spmm import smmm_hopper
 from repro_torch.kernels.vdp import ops as t_vdp_ops
@@ -161,6 +165,9 @@ def test_wrappers_reject_what_the_kernel_does_not_take(fn, args, match):
     (conv1d_hopper, (torch.ones(8), torch.ones(3))),
     (smmm_hopper, (torch.ones(2, 1, 4, 8), torch.zeros(2, 1, dtype=torch.int32),
                    torch.ones(16, 3))),
+    (fft_hopper, (torch.ones(2, 8), torch.ones(8, 8), torch.ones(8, 8))),
+    (sort_hopper, (torch.ones(2, 8),)),
+    (hist_hopper, (torch.ones(8),)),
 ])
 def test_kernel_wrappers_refuse_host_tensors(launch, args):
     """The kernel wrappers launch or raise: a CPU tensor never reaches a
@@ -181,9 +188,12 @@ def test_plain_versions_count_no_launch():
     t_js_ops.jacobi_solve(a + 8 * torch.eye(8), a[0], iters=2)
     t_conv_ops.conv1d(a[0], a[1, :3])
     t_sp_ops.smmm(a.view(2, 1, 4, 8), torch.zeros(2, 1, dtype=torch.int32), a)
+    t_fft_ops.fft(a)
+    t_sh_ops.sort(a)
+    t_sh_ops.hist(a)
     assert _cuda.launch_counts() == before
     assert set(before) >= {"mmm", "ewise", "mvm", "vdp", "jacobi", "conv1d",
-                           "spmm"}
+                           "spmm", "fft", "sort", "hist"}
 
 
 def test_launch_counter_add_and_reset():

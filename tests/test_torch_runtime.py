@@ -25,7 +25,7 @@ from repro_torch.core.scheduler import CostModelScheduler
 from repro_torch.kernels import register_all
 
 SLICE = ("MMM", "EWMM", "EWMD", "EWADD", "EWSUB", "MVM", "VDP", "JS",
-         "1DCONV", "SMMM")
+         "1DCONV", "SMMM", "FFT", "SORT", "HIST")
 
 
 @pytest.fixture()
@@ -52,7 +52,8 @@ def _args(alias, n=16):
     indices = torch.tensor([[0, 2, -1], [3, -1, -1]], dtype=torch.int32)
     return {"MMM": (a, b), "MVM": (a, x), "VDP": (x, x),
             "JS": (a + n * torch.eye(n), x, x + 1.0), "1DCONV": (x, x[:5]),
-            "SMMM": (values, indices, b)}.get(alias, (a, b))
+            "SMMM": (values, indices, b), "FFT": (a,), "SORT": (a,),
+            "HIST": (torch.sigmoid(a),)}.get(alias, (a, b))
 
 
 # ---------------------------------------------------------------------------
@@ -87,6 +88,14 @@ def test_hopper_rows_infeasible_for_what_the_kernel_does_not_take(registry):
     assert registry.select("MMM", f, f.double()).platform == "aten"
     assert registry.select("VDP", f, f).platform == "aten"     # not 1-D
     assert registry.select("EWADD", f, torch.ones(4)).platform == "aten"
+
+
+@pytest.mark.parametrize("alias", ["FFT", "SORT", "HIST"])
+def test_integer_operands_leave_the_hopper_row(registry, alias):
+    i = torch.ones(4, 4, dtype=torch.int32)
+    assert registry.select(alias, i).platform == "aten"
+    assert registry.select(alias, i, allowed_platforms=["hopper", "torch"]
+                           ).platform == "torch"
 
 
 def test_unknown_alias_raises(registry):
