@@ -39,6 +39,7 @@ limit, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -545,7 +546,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name):
     from repro_torch.kernels.ewise.ref import OP_ATEN
     from repro_torch.kernels.ewise.ref import OP_REFS as EW_REFS
     from repro_torch.kernels.fft.fft import fft_hopper
-    from repro_torch.kernels.fft.ops import cached_twiddles, clear_twiddle_cache
+    from repro_torch.kernels.fft.ops import cached_twiddles
     from repro_torch.kernels.fft.ref import dft_ref, fft_aten
     from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
     from repro_torch.kernels.jacobi.ref import jacobi_step_aten, jacobi_step_ref
@@ -608,10 +609,18 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name):
           f"smmm_aten (per-slot baddbmm) {spmm_aten_ms:.4f} ms")
     fx, = jobs["FFT"]
     f_m, f_n = fx.shape
-    fft_bound = bound(4 * f_m * f_n + 2 * 4 * f_n * f_n + 8 * f_m * f_n,
+    # the function's own work: x read once, complex64 written once, and the
+    # 5/2·n·log2(n) operations of a real-input FFT per row
+    fft_bound = bound(4 * f_m * f_n + 8 * f_m * f_n,
+                      2.5 * f_m * f_n * math.log2(f_n))
+    # the floor of the kernel's O(n²) algorithm, not of the function: the
+    # twiddles read once more and 4·m·n² operations
+    dft_floor = bound(4 * f_m * f_n + 2 * 4 * f_n * f_n + 8 * f_m * f_n,
                       4 * f_m * f_n * f_n)
+    print(f"  fft DFT-by-matmul floor (4·m·n² operations): {dft_floor[0]:.4f} ms "
+          f"({dft_floor[1]}); the bound below is the transform's")
     # the twiddles' first-call build, timed apart from the kernel
-    clear_twiddle_cache()
+    cached_twiddles.cache_clear()
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     fc, fs = cached_twiddles(f_n, dev)

@@ -7,12 +7,12 @@
 // walks (bm, bn) frequency tiles with the time axis innermost and keeps two
 // f32 VMEM accumulators, one per plane, for the MXU.
 //
-// Bound on the H100: operations.  Two products of (M,N) by (N,N) need
-// 4*M*N^2 FLOP; at M = 2048, N = 4096 that is 137 GFLOP, at least 2.05 ms
-// at 67 TFLOP/s (float32 on the CUDA cores), while x, both twiddle
-// matrices and the complex output move 235 MB, 0.07 ms at 3.35 TB/s.  The
-// O(N^2) DFT is the reference's algorithm; a radix FFT does O(N log N)
-// and is later work.
+// Bound on the H100: bytes.  The transform reads x once and writes the
+// complex output once, 96 MB at M = 2048, N = 4096, 0.03 ms at 3.35 TB/s;
+// its 2.5*M*N*log2(N) operations take less.  This kernel's O(N^2)
+// algorithm, the reference's, has a floor of its own: two products of
+// (M,N) by (N,N), 4*M*N^2 = 137 GFLOP, at least 2.05 ms at 67 TFLOP/s
+// (float32 on the CUDA cores).  A radix FFT is later work.
 //
 // Design (mmm.cu's tiling, two planes): one 256-thread block per 128-row x
 // 64-frequency output tile; the time loop stages a 128x16 slice of x

@@ -149,11 +149,14 @@ int sort_rows(const T* x, T* out, unsigned* keys, long long rows, long long n,
 }  // namespace
 
 // x, out (rows, n) in the type of `dtype`; npow2 = next_pow2(n); keys: an
-// int32 buffer of rows * npow2 when npow2 > 8192, unused otherwise.
-extern "C" int halo_sort(const void* x, void* out, void* keys, long long rows, long long n,
-                         long long npow2, int dtype, void* stream) {
+// int32 buffer of keys_len elements, at least rows * npow2 when npow2 >
+// kTile (the merge path writes it), unused otherwise.
+extern "C" int halo_sort(const void* x, void* out, void* keys, long long keys_len,
+                         long long rows, long long n, long long npow2, int dtype,
+                         void* stream) {
   if (rows < 1 || n < 1 || npow2 < n || (npow2 & (npow2 - 1)) != 0 ||
-      rows * (npow2 > kTile ? npow2 / kTile : 1) > 0x7fffffffLL)
+      rows * (npow2 > kTile ? npow2 / kTile : 1) > 0x7fffffffLL ||
+      (npow2 > kTile && keys_len < rows * npow2))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   HALO_DISPATCH_TYPE(dtype, T,

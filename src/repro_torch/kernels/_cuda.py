@@ -63,8 +63,8 @@ _SIGNATURES = {
     "halo_smmm": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp],
     # x, c, s, out, m, n, dtype, stream
     "halo_fft": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
-    # x, out, keys, rows, n, npow2, dtype, stream
-    "halo_sort": [_vp, _vp, _vp, _ll, _ll, _ll, _int, _vp],
+    # x, out, keys, keys_len, rows, n, npow2, dtype, stream
+    "halo_sort": [_vp, _vp, _vp, _ll, _ll, _ll, _ll, _int, _vp],
     # x, counts, out, n, bins, lo, hi, width, dtype, stream
     "halo_hist": [_vp, _vp, _vp, _ll, _int, _f, _f, _f, _int, _vp],
 }

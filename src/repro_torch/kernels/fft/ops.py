@@ -2,41 +2,18 @@
 tensors, and the twiddle cache."""
 from __future__ import annotations
 
-import threading
-from collections import OrderedDict
+import functools
 
 from .. import _cuda
 from .fft import fft_hopper, fft_problem
 from .ref import dft_ref, twiddles
 
-#: bytes of twiddles kept; one n = 4096 pair is 128 MB
-TWIDDLE_CACHE_BYTES = 256 << 20
 
-_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
-_cache_lock = threading.Lock()
-
-
+@functools.lru_cache(maxsize=2)
 def cached_twiddles(n: int, device):
-    """:func:`~.ref.twiddles` for ``(n, device)``, kept in a cache of at
-    most :data:`TWIDDLE_CACHE_BYTES` (least recently used out first)."""
-    key = (n, str(device))
-    with _cache_lock:
-        if key in _cache:
-            _cache.move_to_end(key)
-            return _cache[key]
-    pair = twiddles(n, device)
-    with _cache_lock:
-        _cache[key] = pair
-        _cache.move_to_end(key)
-        while len(_cache) > 1 and sum(
-                2 * c.numel() * 4 for c, _ in _cache.values()) > TWIDDLE_CACHE_BYTES:
-            _cache.popitem(last=False)
-    return pair
-
-
-def clear_twiddle_cache() -> None:
-    with _cache_lock:
-        _cache.clear()
+    """:func:`~.ref.twiddles` for ``(n, device)``, the two most recently used
+    kept: one n = 4096 pair is 128 MB, so at most 256 MB."""
+    return twiddles(n, device)
 
 
 def fft(x):

@@ -29,7 +29,8 @@ from ..common import next_pow2
 SORT_LAUNCHES = _cuda.counter("sort")
 HIST_LAUNCHES = _cuda.counter("hist")
 
-#: keys one block sorts in shared memory (32 KB); must match csrc/sort.cu
+#: keys one block sorts in shared memory (32 KB), csrc/sort.cu's kTile;
+#: the kernel refuses a key buffer shorter than its merge path needs
 SORT_TILE = 8192
 
 
@@ -68,8 +69,8 @@ def sort_hopper(x: torch.Tensor) -> torch.Tensor:
     keys = torch.empty((rows, npow2) if npow2 > SORT_TILE else (0,),
                        dtype=torch.int32, device=x.device)
     rc = _cuda.lib().halo_sort(x.data_ptr(), out.data_ptr(), keys.data_ptr(),
-                               rows, n, npow2, _cuda.dtype_code(x.dtype),
-                               _cuda.stream(x.device))
+                               keys.numel(), rows, n, npow2,
+                               _cuda.dtype_code(x.dtype), _cuda.stream(x.device))
     _cuda.check(rc, "sort")
     SORT_LAUNCHES.add()
     return out

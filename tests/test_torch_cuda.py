@@ -28,6 +28,7 @@ from repro_torch.kernels.matmul.ref import mmm_ref
 from repro_torch.kernels.mvm.mvm import mvm_hopper
 from repro_torch.kernels.mvm.ref import mvm_ref
 from repro_torch.kernels.sorthist.ref import hist_ref, sort_ref
+from repro_torch.kernels.sorthist import sorthist
 from repro_torch.kernels.sorthist.sorthist import hist_hopper, sort_hopper
 from repro_torch.kernels.spmm.ref import (dense_to_bell, random_block_sparse,
                                           smmm_bell_ref)
@@ -226,6 +227,16 @@ def test_sort_kernel_is_bit_exact(card, dtype, shape):
     g = torch.Generator(device=card).manual_seed(5)
     d = torch.randint(0, 9, shape, generator=g, device=card).to(dtype)
     assert torch.equal(_bits(sort_hopper(d)), _bits(sort_ref(d)))
+
+
+def test_sort_kernel_refuses_a_short_key_buffer(card, monkeypatch):
+    # a row longer than the kernel's tile merges through the key buffer;
+    # were the wrapper's tile larger than the kernel's, it would pass an
+    # empty buffer, and the kernel refuses it rather than write past it
+    monkeypatch.setattr(sorthist, "SORT_TILE", 2 * sorthist.SORT_TILE)
+    x = _rnd(card, 2, 8193, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="sort kernel launch failed"):
+        sort_hopper(x)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

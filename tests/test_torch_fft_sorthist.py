@@ -159,17 +159,15 @@ def test_twiddles_round_the_float64_angle_once():
     assert torch.equal(c, c.t()) and torch.equal(s, s.t())
 
 
-def test_twiddle_cache_is_bounded_and_reused(monkeypatch):
-    t_fft_ops.clear_twiddle_cache()
-    pair = lambda n: 2 * n * n * 4                # C and S, float32
-    monkeypatch.setattr(t_fft_ops, "TWIDDLE_CACHE_BYTES", pair(64) + pair(48))
+def test_twiddle_cache_is_bounded_and_reused():
+    t_fft_ops.cached_twiddles.cache_clear()
     first = t_fft_ops.cached_twiddles(64, "cpu")
     assert t_fft_ops.cached_twiddles(64, "cpu") is first
     t_fft_ops.cached_twiddles(32, "cpu")
-    t_fft_ops.cached_twiddles(48, "cpu")         # over the budget: 64 goes
-    assert [k[0] for k in t_fft_ops._cache] == [32, 48]
+    t_fft_ops.cached_twiddles(48, "cpu")         # two kept: 64 goes
+    assert t_fft_ops.cached_twiddles.cache_info().currsize == 2
     assert t_fft_ops.cached_twiddles(64, "cpu") is not first
-    t_fft_ops.clear_twiddle_cache()
+    t_fft_ops.cached_twiddles.cache_clear()
 
 
 @pytest.mark.parametrize("x", [torch.ones(2, 4097), torch.ones(2, 3, 8),
