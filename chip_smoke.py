@@ -23,21 +23,34 @@ Phases (any failure exits non-zero before the result lines are printed):
    SORT: bit-exact, and NaN last on rows that hold NaN, ±inf and ±0.
    HIST: bit-exact, on bin edges, range ends, NaN and ±inf, at several
    bin counts, and with every value in one bin.
+   RMSNORM and FLASH_ATTN: normwise (``TOL``) at the model path's shapes,
+   FLASH_ATTN under four masks (causal, window, prefix with window,
+   Sq < Skv).
 3. The slice end to end: ``repro_torch.quickstart.run`` on ``cuda`` with
    every claim pinned to the hopper records, blocking and asynchronous, at
    working sets inside the paper's 48 MB–1 GB.  Every kernel's launch count
    must rise by exactly the requests sent to it, the scheduler's quarantine
    must stay empty, and every output must match its plain version.  Then
    the template is timed end to end (median of 5 runs, T1 per call).
-4. Times at the phase-3 shapes: the median of 20 CUDA-event-timed calls of
-   the kernel, its plain version and one library call, beside the least
-   time the card could take (``bound_ms``).
+3b. The model path: h2o-danube-1.8b at full width (random bfloat16 weights
+   from a seed) served through ``repro_torch.launch.serve.run_requests``
+   on a SlotEngine/StepScheduler: 8 requests on 4 slots, prompts of 512
+   and 4200 tokens (past the 4096 window), greedy, mixed budgets up to 16.
+   The launch counts must follow the model's structure (MMM 7·L+1 and
+   RMSNORM 2·L+1 per forward pass, FLASH_ATTN L per prefill), the
+   quarantine must stay empty, and every step's logits must agree with a
+   replay through the plain versions on the card (``SERVE_TOL``).
+4. Times at the phase-3 shapes (RMSNORM and FLASH_ATTN: at the shapes of
+   phase 3b's prefill): the median of 20 CUDA-event-timed calls of the
+   kernel, its plain version and one library call, beside the least time
+   the card could take (``bound_ms``).
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -100,6 +113,33 @@ PAD_FILL = 7.0
 PEAKS = {"H100 SXM": (3.35e12, 67e12, 989e12),
          "H100 PCIe": (2.0e12, 51e12, 756e12)}
 
+#: phase 3b: the served model and its traffic
+SERVE = {"arch": "h2o-danube-1.8b", "slots": 4, "requests": 8,
+         "prompt_lens": (512, 4200), "max_new": 16, "seed": 0}
+
+#: phase 3b: normwise error allowed between the served logits and the plain
+#: replay's, both bfloat16.  Both round every kernel's output to bfloat16 at
+#: the same places, and the kernels compute the plain versions' function
+#: (the float32 leg below holds them to F32_SERVE_TOL), but one rounding
+#: that lands on the other side of a bfloat16 boundary changes that value
+#: by 2^-8 of itself, which moves each output of the next projection by a
+#: few hundredths of its own rounding step, so a few in a hundred of them
+#: round the other way too; within a layer or two the two runs differ by
+#: an ulp in most elements, and the logits by ~5e-3.  On the H100 the gap
+#: read 4.9e-3 with one layer kept and 1.7e-2 with all 24 (the depth sweep
+#: below prints it); a kernel that dropped a key tile, a rescale or the
+#: window mask errs by 3e-2 to 5e-1 at a single call.
+SERVE_TOL = 2e-2
+
+#: phase 3b: the same check with the weights widened to float32, where both
+#: paths differ only in float32 summation order (~1e-7 per kernel call), and
+#: a depth of 24 layers amplifies that to ~1e-5; the CPU parity tests hold
+#: reduced models to the JAX package at the same 1e-4
+F32_SERVE_TOL = 1e-4
+
+#: the kernels phase 3b's model path adds (their launches come from 3b)
+MODEL_KERNELS = ("rmsnorm", "flash_attention")
+
 TIMED_RUNS = 20
 E2E_REPEATS = 5
 PIN = {"allowed_platforms": ["hopper"]}
@@ -115,6 +155,8 @@ REPLACES = {
     "fft": "src/repro/kernels/fft/fft.py:58",
     "sort": "src/repro/kernels/sorthist/sorthist.py:57",
     "hist": "src/repro/kernels/sorthist/sorthist.py:97",
+    "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:36",
+    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:106",
 }
 
 
@@ -357,6 +399,7 @@ def phase2(dev) -> None:
         phase2_fft(dev, gen, dt)
         phase2_sort(dev, gen, dt)
         phase2_hist(dev, gen, dt)
+        phase2_model(dev, gen, dt)
     torch.cuda.synchronize(dev)
 
 
@@ -443,6 +486,43 @@ def phase2_hist(dev, gen, dt) -> None:
         fail(f"HIST {name} one bin: {float(k.max())} != {x.numel()}")
 
 
+#: phase 2: FLASH_ATTN masks at (1, 32, Sq, 80) with 8 KV heads
+FA_MASKS = {"causal": dict(sq=1024, causal=True, window=None, prefix_len=0),
+            "causal window 256": dict(sq=1024, causal=True, window=256, prefix_len=0),
+            "prefix 64 window 256": dict(sq=1024, causal=True, window=256,
+                                         prefix_len=64),
+            "Sq 17 < Skv 1024": dict(sq=17, causal=True, window=None, prefix_len=0)}
+
+
+def phase2_model(dev, gen, dt) -> None:
+    """RMSNORM and FLASH_ATTN against their plain versions at the model
+    path's widths (danube: d_model 2560, 32 heads of 80 over 8 KV heads)."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_hopper)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_hopper
+
+    name = str(dt).split(".")[-1]
+    for rows, d in ((4096, 2560), (3, 80), (7, 1000)):
+        x = (torch.randn((rows, d), generator=gen, device=dev) + 0.5).to(dt)
+        g = (torch.randn(d, generator=gen, device=dev) * 0.1 + 1.0).to(dt)
+        check_close(f"RMSNORM {name} {rows}x{d}",
+                    normwise(rmsnorm_hopper(x, g, 1e-5), rmsnorm_ref(x, g, 1e-5)), dt)
+    # v has mean 1: with zero-mean v, attention spread over ~1000 keys
+    # returns a sum ~30x smaller than its terms, and float32 reordering alone
+    # then moves it by ~1e-5; a dropped tile of 64 keys still moves it ~1e-3
+    skv = 1024
+    k = torch.randn((1, 8, skv, 80), generator=gen, device=dev).to(dt)
+    v = (torch.randn((1, 8, skv, 80), generator=gen, device=dev) + 1.0).to(dt)
+    for label, c in FA_MASKS.items():
+        q = torch.randn((1, 32, c["sq"], 80), generator=gen, device=dev).to(dt)
+        kw = dict(causal=c["causal"], window=c["window"], prefix_len=c["prefix_len"])
+        check_close(f"FLASH_ATTN {name} 1x32x{c['sq']}x80 {label}",
+                    normwise(flash_attention_hopper(q, k, v, **kw),
+                             attention_ref(q, k, v, **kw)), dt)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the slice end to end through the port's host API
 # ---------------------------------------------------------------------------
@@ -477,7 +557,8 @@ def phase3(dev):
           f"{2 * len(jobs)} calls")
     print(f"  launches {launches}; quarantine {quarantined}")
     expected = {"mmm": 2, "ewise": 8, "mvm": 2, "vdp": 2, "jacobi": 2,
-                "conv1d": 2, "spmm": 2, "fft": 2, "sort": 2, "hist": 2}
+                "conv1d": 2, "spmm": 2, "fft": 2, "sort": 2, "hist": 2,
+                "rmsnorm": 0, "flash_attention": 0}
     if launches != expected:
         fail(f"launch counts {launches} != requests sent {expected}: a request "
              f"did not reach its kernel")
@@ -492,7 +573,7 @@ def phase3(dev):
     kernel_of = {"MMM": "mmm", "MVM": "mvm", "VDP": "vdp", "JS": "jacobi",
                  "1DCONV": "conv1d", "SMMM": "spmm", "FFT": "fft",
                  "SORT": "sort", "HIST": "hist"}
-    max_abs = {k: 0.0 for k in expected}
+    max_abs = {k: 0.0 for k in expected if k not in MODEL_KERNELS}
     for alias, args in jobs.items():
         ref = refs[alias](*args)
         kname = kernel_of.get(alias, "ewise")
@@ -536,9 +617,269 @@ def phase3(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the model path, served at full width
+# ---------------------------------------------------------------------------
+def recording_engine():
+    """A SlotEngine that keeps each request's logits at every step (float32
+    copies on the card) and the host time of each admission and decode
+    step; it computes exactly what SlotEngine does."""
+    from repro_torch.serve.engine import SlotEngine
+
+    class RecordingEngine(SlotEngine):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.records, self._lane_rec = [], {}
+            self.prefill_s, self.decode_s = [], []
+            self._active = None
+
+        def _admit_logits(self, slot, toks):
+            logits = super()._admit_logits(slot, toks)
+            rec = {"prompt": toks[0].tolist(), "logits": [logits[0].float()]}
+            self.records.append(rec)
+            self._lane_rec[slot] = rec
+            return logits
+
+        def _decode_logits(self, tok, pos, active):
+            logits = super()._decode_logits(tok, pos, active)
+            for i in self._active:
+                self._lane_rec[i]["logits"].append(logits[i].float())
+            return logits
+
+        def prefill_into_slot(self, slot, prompt, generator, temperature=0.0):
+            t0 = time.perf_counter()
+            tok = super().prefill_into_slot(slot, prompt, generator, temperature)
+            self.prefill_s.append((len(prompt), time.perf_counter() - t0))
+            return tok
+
+        def decode_step(self, tok, pos, active, generator, temperature=0.0):
+            self._active = [i for i, a in enumerate(active) if a]
+            t0 = time.perf_counter()
+            out = super().decode_step(tok, pos, active, generator, temperature)
+            self.decode_s.append(time.perf_counter() - t0)
+            return out
+
+    return RecordingEngine
+
+
+def device_seconds(prof) -> float:
+    """Σ device time of every kernel a torch.profiler run saw."""
+    total = 0.0
+    for e in prof.key_averages():
+        total += getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0)) or 0.0
+    return total / 1e6
+
+
+def phase3b(dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import halo
+    from repro_torch.configs import get_config
+    from repro_torch.core.manifest import default_manifest
+    from repro_torch.core.portability import percentile_nearest
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.serve import mixed_budgets, run_requests, summary
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import SlotEngine, StepScheduler
+    from repro_torch.serve.kvcache import pad_caches
+
+    cfg = get_config(SERVE["arch"])
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SERVE["seed"])
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize(dev)
+    n_params = sum(t.numel() for t in torch.utils._pytree.tree_leaves(params))
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B parameters in {cfg.dtype}, random from seed "
+          f"{SERVE['seed']} ({time.perf_counter() - t0:.1f} s)")
+    n, lens = SERVE["requests"], SERVE["prompt_lens"]
+    prompts = [torch.randint(0, cfg.vocab_size, (lens[i % len(lens)],), generator=gen,
+                             device=dev).tolist() for i in range(n)]
+    max_news = mixed_budgets(n, SERVE["max_new"])
+    max_len = max(lens) + SERVE["max_new"] + cfg.prefix_len + 8
+    Engine = recording_engine()
+
+    session = halo.initialize()              # device=None means the card
+    if session.device.type != "cuda":
+        fail(f"session runs on {session.device}, not the card")
+    # warm-up: one short request on a one-slot engine, before the counts
+    warm = StepScheduler(SlotEngine(model, params, 1, 80), seed=SERVE["seed"])
+    run_requests(warm, [prompts[0][:64]], [2])
+    del warm
+    engine = Engine(model, params, SERVE["slots"], max_len)
+    sched = StepScheduler(engine, temperature=0.0, seed=SERVE["seed"])
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _cuda.reset_launch_counts()
+    session.reset_t1()
+    results, lat, wall = run_requests(sched, prompts, max_news)
+    torch.cuda.synchronize(dev)
+    launches = _cuda.launch_counts()
+    quarantined = session.scheduler.failed_record_keys()
+    t1_us = session.t1_seconds_per_call * 1e6
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    report = sched.report()
+    for line in summary(results, lat, wall, report):
+        print("  " + line)
+    print(f"  launches {launches}; quarantine {quarantined}")
+
+    if [len(r) for r in results] != max_news:
+        fail(f"served {[len(r) for r in results]} tokens, budgets {max_news}")
+    passes = len(engine.prefill_s) + len(engine.decode_s)
+    layers = cfg.n_layers
+    expected = {k: 0 for k in launches}
+    expected.update(mmm=(7 * layers + 1) * passes, rmsnorm=(2 * layers + 1) * passes,
+                    flash_attention=layers * len(engine.prefill_s))
+    print(f"  {len(engine.prefill_s)} prefills + {len(engine.decode_s)} decode steps: "
+          f"expected launches {expected}")
+    if launches != expected:
+        fail(f"launch counts {launches} != the model's structure {expected}: a "
+             f"dispatch went to another record")
+    if quarantined:
+        fail(f"records were quarantined on the model path: {quarantined}")
+    for rec, p, r in zip(engine.records, prompts, results):
+        if rec["prompt"] != p or len(rec["logits"]) != len(r):
+            fail("the recorded steps do not match the requests")
+        if not all(bool(torch.isfinite(x).all()) and x.shape == (cfg.padded_vocab,)
+                   for x in rec["logits"]):
+            fail("served logits are not finite or not of the vocab's width")
+
+    prefill_ms = {L: [s * 1e3 for n_, s in engine.prefill_s if n_ == L] for L in lens}
+    decode_ms = sorted(s * 1e3 for s in engine.decode_s)
+    stats = {"tokens_per_s": sum(map(len, results)) / wall, "wall_s": wall,
+             "latency_p50_ms": percentile_nearest(lat, 0.5) * 1e3,
+             "latency_p95_ms": percentile_nearest(lat, 0.95) * 1e3,
+             "prefill_ms": {str(L): v for L, v in prefill_ms.items()},
+             "decode_step_ms_median": decode_ms[len(decode_ms) // 2],
+             "decode_steps": len(decode_ms), "t1_us_per_dispatch": t1_us,
+             "t1_s": report.t1_s, "t3_s": report.t3_s, "peak_gb": peak_gb}
+    for L, v in prefill_ms.items():
+        print(f"  prefill {L} tokens: {', '.join(f'{x:.1f}' for x in v)} ms per request")
+    print(f"  decode step: median {stats['decode_step_ms_median']:.2f} ms over "
+          f"{len(decode_ms)} steps ({decode_ms[0]:.2f}–{decode_ms[-1]:.2f}); T1 "
+          f"{t1_us:.1f} us per dispatch; peak memory {peak_gb:.2f} GB")
+
+    # the same requests again under torch.profiler: device time by kernel
+    records = engine.records
+    del engine, sched
+    sched = StepScheduler(SlotEngine(model, params, SERVE["slots"], max_len),
+                          seed=SERVE["seed"])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again, _, wall_prof = run_requests(sched, prompts, max_news)
+        torch.cuda.synchronize(dev)
+    if again != results:
+        fail("a second greedy run served other tokens")
+    busy_s = device_seconds(prof)
+    stats["device_s"] = busy_s
+    stats["device_busy_share"] = busy_s / wall if busy_s > 0 else None
+    if busy_s > 0:
+        print(f"  device time {busy_s * 1e3:.1f} ms (profiled rerun, wall "
+              f"{wall_prof * 1e3:.1f} ms); busy share {busy_s / wall:.3f} of the "
+              f"counted run's {wall * 1e3:.1f} ms")
+        key = "self_device_time_total" if hasattr(
+            prof.key_averages()[0], "self_device_time_total") else "self_cuda_time_total"
+        top = sorted(prof.key_averages(), key=lambda e: getattr(e, key), reverse=True)
+        for e in top[:10]:
+            print(f"    {getattr(e, key) / 1e3:10.1f} ms  {e.count:6d}x  {e.key[:90]}")
+    else:
+        print("  device busy share: not measured (the profiler saw no device time)")
+    del sched
+    halo.finalize()
+
+    # replay every request through the plain versions on the card
+    plain = default_manifest()
+    plain.platform_list = [{"platform_preference": ["torch"]}]
+    halo.initialize(manifest=plain)
+    _cuda.reset_launch_counts()
+    worst, same, total, per_request = 0.0, 0, 0, []
+    with torch.no_grad():
+        for rec, p, r in zip(records, prompts, results):
+            logits, caches = model.prefill(params, {"tokens": torch.tensor([p], device=dev)})
+            caches = pad_caches(cfg, caches, max_len)
+            steps = [logits[0]]
+            for i, tok in enumerate(r[:-1]):
+                logits, caches = model.decode_step(
+                    params, caches, torch.tensor([[tok]], device=dev), len(p) + i)
+                steps.append(logits[0])
+            errs = [normwise(served, ref) for served, ref in zip(rec["logits"], steps)]
+            per_request.append((len(p), max(errs), errs.index(max(errs)), len(errs)))
+            worst = max(worst, *errs)
+            same += sum(int(ref.argmax()) == tok for ref, tok in zip(steps, r))
+            total += len(errs)
+            del caches
+    plain_launches = {k: v for k, v in _cuda.launch_counts().items() if v}
+    halo.finalize()
+    print(f"  plain replay on the card (manifest prefers torch): worst normwise "
+          f"logits error {worst:.3e} over {total} steps (tol {SERVE_TOL:g}); "
+          f"{same} of {total} served tokens equal the plain argmax")
+    print("  per request (prompt, worst error, at step, steps): " + "; ".join(
+        f"{n_} {e:.2e} @{i}/{k}" for n_, e, i, k in per_request))
+    if plain_launches:
+        fail(f"the plain replay launched kernels: {plain_launches}")
+    if not worst <= SERVE_TOL:
+        fail(f"served logits differ from the plain replay by {worst:.3e}")
+    stats.update(plain_worst_err=worst, plain_argmax_agree=same, steps_checked=total)
+
+    # where the bfloat16 gap comes from: the same weights widened to float32
+    # on the kernels against the plain versions (F32_SERVE_TOL), and the
+    # bfloat16 gap of the 512-token prefill against the depth kept
+    prompt, toks = prompts[0], results[0][:4]
+    wide32 = torch.utils._pytree.tree_map(lambda t: t.float(), params)
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    e32 = [normwise(k, r) for k, r in zip(
+        replay(m32, wide32, prompt, toks, max_len, None),
+        replay(m32, wide32, prompt, toks, max_len, plain))]
+    del wide32
+    print(f"  float32, same weights, {len(prompt)}-token prompt + {len(toks) - 1} "
+          f"decode steps, kernels vs plain: {', '.join(f'{e:.2e}' for e in e32)} "
+          f"(tol {F32_SERVE_TOL:g})")
+    if not max(e32) <= F32_SERVE_TOL:
+        fail(f"float32 served logits differ from the plain versions by {max(e32):.3e}")
+    depth = {}
+    for n_layers in sorted({n_ for n_ in (1, 3, 6, 12) if n_ < cfg.n_layers}
+                           | {cfg.n_layers}):
+        cut = dataclasses.replace(cfg, stages=(dataclasses.replace(
+            cfg.stages[0], repeats=n_layers),))
+        sliced = dict(params, stages=[torch.utils._pytree.tree_map(
+            lambda t: t[:n_layers], params["stages"][0])])
+        mc = build_model(cut)
+        depth[n_layers] = normwise(replay(mc, sliced, prompt, toks[:1], max_len, None)[0],
+                                   replay(mc, sliced, prompt, toks[:1], max_len, plain)[0])
+    print(f"  {cfg.dtype} prefill gap, kernels vs plain, by layers kept: " + ", ".join(
+        f"{n_}: {e:.2e}" for n_, e in depth.items()))
+    stats.update(f32_err=e32, bf16_gap_by_depth=depth)
+    return launches, stats
+
+
+def replay(model, params, prompt, toks, max_len, manifest):
+    """Logits (float32) of ``prompt``'s prefill and of one decode step per
+    token of ``toks`` but the last, on a session with ``manifest`` (None:
+    the default, which resolves to the kernels)."""
+    from repro_torch import halo
+    from repro_torch.serve.kvcache import pad_caches
+
+    dev = params["embed"].device
+    halo.initialize(manifest=manifest)
+    try:
+        with torch.no_grad():
+            logits, caches = model.prefill(params, {"tokens": torch.tensor([prompt], device=dev)})
+            caches = pad_caches(model.cfg, caches, max_len)
+            out = [logits[0].float()]
+            for i, tok in enumerate(toks[:-1]):
+                logits, caches = model.decode_step(
+                    params, caches, torch.tensor([[tok]], device=dev), len(prompt) + i)
+                out.append(logits[0].float())
+        return out
+    finally:
+        halo.finalize()
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times at the phase-3 shapes
 # ---------------------------------------------------------------------------
-def phase4(dev, jobs, launches, max_abs, e2e, card_name):
+def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches):
+    from repro_torch.configs import get_config
     from repro_torch.core.portability import KernelReport, time_fn
     from repro_torch.kernels.conv1d.conv1d import conv1d_hopper
     from repro_torch.kernels.conv1d.ref import conv1d_aten, conv1d_ref
@@ -548,12 +889,18 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name):
     from repro_torch.kernels.fft.fft import fft_hopper
     from repro_torch.kernels.fft.ops import cached_twiddles
     from repro_torch.kernels.fft.ref import dft_ref, fft_aten
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_hopper)
+    from repro_torch.kernels.flash_attention.ref import (attention_aten,
+                                                         attention_ref, visibility)
     from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
     from repro_torch.kernels.jacobi.ref import jacobi_step_aten, jacobi_step_ref
     from repro_torch.kernels.matmul.matmul import mmm_hopper
     from repro_torch.kernels.matmul.ref import mmm_aten, mmm_ref
     from repro_torch.kernels.mvm.mvm import mvm_hopper
     from repro_torch.kernels.mvm.ref import mvm_aten, mvm_ref
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_aten, rmsnorm_ref
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_hopper
     from repro_torch.kernels.sorthist.ref import hist_ref, sort_ref
     from repro_torch.kernels.sorthist.sorthist import hist_hopper, sort_hopper
     from repro_torch.kernels.spmm.ref import bell_to_dense, smmm_aten, smmm_bell_ref
@@ -561,16 +908,17 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name):
     from repro_torch.kernels.vdp.ref import vdp_aten, vdp_ref
     from repro_torch.kernels.vdp.vdp import vdp_hopper
 
-    spec, (bw, f32_peak, _bf16_peak) = peaks(card_name)
+    spec, (bw, f32_peak, bf16_peak) = peaks(card_name)
     print(f"  bounds from the {spec} data sheet: {bw / 1e12} TB/s, "
-          f"{f32_peak / 1e12} TFLOP/s float32 (all phase-3 inputs are float32)")
+          f"{f32_peak / 1e12} TFLOP/s float32 (all phase-3 inputs are float32), "
+          f"{bf16_peak / 1e12} TFLOP/s bfloat16 tensor cores (RMSNORM, FLASH_ATTN)")
 
     def ms(fn, *args):
         return time_fn(fn, *args, device=dev, warmup=3,
                        iters=TIMED_RUNS).median_s * 1e3
 
-    def bound(nbytes, flops):
-        t_bytes, t_ops = nbytes / bw, flops / f32_peak
+    def bound(nbytes, flops, peak=f32_peak):
+        t_bytes, t_ops = nbytes / bw, flops / peak
         return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
     a, b = jobs["MMM"]
@@ -637,6 +985,41 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name):
     n_hist = hx.numel()
     hist_bound = bound(4 * n_hist + 4 * 64, n_hist)
 
+    # the model path at phase 3b's shapes, in the model's type: RMSNORM over
+    # 4096 rows of d_model; FLASH_ATTN over the longest prompt, every head,
+    # with the model's mask (danube: 1x32x4200x80 on 8 KV heads, causal,
+    # window 4096)
+    cfg = get_config(SERVE["arch"])
+    attn = cfg.stages[0].pattern[0].attn
+    mdt, seq = cfg.activation_dtype(), max(SERVE["prompt_lens"])
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rx = (torch.randn((4096, cfg.d_model), generator=gen, device=dev) + 0.5).to(mdt)
+    rg = (torch.randn(cfg.d_model, generator=gen, device=dev) * 0.1 + 1.0).to(mdt)
+    rms_bound = bound(rx.element_size() * (2 * rx.numel() + rg.numel()),
+                      4 * rx.numel(), bf16_peak)
+    fq = torch.randn((1, attn.n_heads, seq, attn.head_dim), generator=gen, device=dev).to(mdt)
+    fk = torch.randn((1, attn.n_kv_heads, seq, attn.head_dim), generator=gen, device=dev).to(mdt)
+    fv = (torch.randn((1, attn.n_kv_heads, seq, attn.head_dim), generator=gen, device=dev)
+          + 1.0).to(mdt)
+    fkw = dict(causal=True, window=attn.window, prefix_len=cfg.prefix_len)
+    # the (q, k) pairs this mask leaves visible, 4·D operations each (q·k and
+    # p·v); q, k, v read once and o written once
+    pairs = int(visibility(seq, seq, device=dev, **fkw).sum()) * attn.n_heads
+    fa_flops = 4 * attn.head_dim * pairs
+    fa_bound = bound(fq.element_size() * (2 * fq.numel() + fk.numel() + fv.numel()),
+                     fa_flops, bf16_peak)
+    print(f"  flash_attention: {pairs} visible (q, k) pairs, {fa_flops / 1e9:.1f} "
+          f"GFLOP; RMSNORM and FLASH_ATTN are bound against the bfloat16 "
+          f"tensor-core peak")
+    max_abs["rmsnorm"] = float((wide(rmsnorm_hopper(rx, rg, cfg.norm_eps))
+                                - wide(rmsnorm_ref(rx, rg, cfg.norm_eps))).abs().max())
+    fo, fr = flash_attention_hopper(fq, fk, fv, **fkw), attention_ref(fq, fk, fv, **fkw)
+    max_abs["flash_attention"] = float((wide(fo) - wide(fr)).abs().max())
+    check_close(f"FLASH_ATTN {tuple(fq.shape)} window {attn.window} vs plain",
+                normwise(fo, fr), mdt)
+    del fo, fr
+    mname = str(mdt).split(".")[-1]
+
     per_op = {}
     for op in ("mul", "div", "add", "sub"):
         per_op[op] = {"ms": ms(ewise_hopper, ea, eb, op),
@@ -677,20 +1060,35 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name):
         ("hist", {"ms": ms(hist_hopper, hx), "plain_ms": ms(hist_ref, hx),
                   "library_ms": ms(torch.histc, hx, 64, 0.0, 1.0)}, hist_bound,
          f"n={n_hist} float32, 64 bins (library: histc)"),
+        ("rmsnorm", {"ms": ms(rmsnorm_hopper, rx, rg, cfg.norm_eps),
+                     "plain_ms": ms(rmsnorm_ref, rx, rg, cfg.norm_eps),
+                     "library_ms": ms(rmsnorm_aten, rx, rg, cfg.norm_eps)}, rms_bound,
+         f"4096x{cfg.d_model} {mname} (library: F.rms_norm)"),
+        ("flash_attention", {"ms": ms(lambda: flash_attention_hopper(fq, fk, fv, **fkw)),
+                             "plain_ms": ms(lambda: attention_ref(fq, fk, fv, **fkw)),
+                             "library_ms": ms(lambda: attention_aten(fq, fk, fv, **fkw))},
+         fa_bound, f"1x{attn.n_heads}x{seq}x{attn.head_dim} {mname}, "
+         f"{attn.n_kv_heads} KV heads, causal, window {attn.window} "
+         f"(library: SDPA, explicit mask)"),
     ]
     kernels = []
     for name, times, (bound_ms, bound_by), shape in rows:
+        # each kernel's launches in the run of the path it serves: phase 3
+        # for the quickstart's, phase 3b for the model path's own two
+        path_launches = (serve_launches if name in MODEL_KERNELS else launches)[name]
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/csrc/{name}.cu",
-                 "replaces": REPLACES[name], "launches": launches[name],
+                 "replaces": REPLACES[name], "launches": path_launches,
                  "max_abs_err": max_abs[name], **times, "bound_ms": bound_ms,
                  "bound_by": bound_by, "shape": shape}
         if name == "ewise":
             entry["per_op"] = per_op
+        if name == "mmm":
+            entry["launches_serve"] = serve_launches["mmm"]
         kernels.append(entry)
         print(f"  {name:6s} {shape:40s} kernel_ms {times['ms']:.4f}  plain_ms "
               f"{times['plain_ms']:.4f}  library_ms {times['library_ms']:.4f}  "
-              f"bound_ms {bound_ms:.4f} ({bound_by})  launches {launches[name]}")
+              f"bound_ms {bound_ms:.4f} ({bound_by})  launches {path_launches}")
     for op, t in per_op.items():
         print(f"  ewise {op}: kernel_ms {t['ms']:.4f}  plain_ms "
               f"{t['plain_ms']:.4f}  library_ms {t['library_ms']:.4f}")
@@ -709,7 +1107,8 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name):
     # device time the template's requests need: each kernel's median
     # times the launches the counted run made (EW per op: two each)
     busy = sum(per_op[op]["ms"] * 2 for op in per_op) + sum(
-        e["ms"] * e["launches"] for e in kernels if e["name"] != "ewise")
+        e["ms"] * e["launches"] for e in kernels
+        if e["name"] not in ("ewise", *MODEL_KERNELS))
     e2e["kernel_ms_sum"] = busy
     e2e["device_busy_share"] = busy / e2e["wall_ms"]
     print(f"  end to end: quickstart wall {e2e['wall_ms']:.3f} ms (median of "
@@ -727,6 +1126,7 @@ def main() -> None:
     from repro_torch.kernels import _cuda
 
     dev = torch.device("cuda", 0)
+    seconds = {}
     print("phase 1: build")
     t0 = time.perf_counter()
     so = _cuda.build()
@@ -743,13 +1143,29 @@ def main() -> None:
           f"torch.backends.cuda.matmul.allow_tf32 = "
           f"{torch.backends.cuda.matmul.allow_tf32}")
 
+    seconds["1 build"] = time.perf_counter() - t0
+
     print("phase 2: kernels against their plain versions on the card")
+    t0 = time.perf_counter()
     phase2(dev)
+    seconds["2 kernels"] = time.perf_counter() - t0
     print("phase 3: quickstart through claim/send/recv and isend/waitall, "
           "pinned to hopper")
+    t0 = time.perf_counter()
     jobs, launches, max_abs, e2e = phase3(dev)
+    seconds["3 quickstart"] = time.perf_counter() - t0
+    print(f"phase 3b: {SERVE['arch']} at full width served through "
+          f"repro_torch.launch.serve on the kernels")
+    t0 = time.perf_counter()
+    serve_launches, serve_stats = phase3b(dev)
+    seconds["3b serve"] = time.perf_counter() - t0
+    print(json.dumps({"serve": serve_stats}))
     print("phase 4: times (median of 20 CUDA-event-timed calls)")
-    kernels = phase4(dev, jobs, launches, max_abs, e2e, card.split(",")[0])
+    t0 = time.perf_counter()
+    kernels = phase4(dev, jobs, launches, max_abs, e2e, card.split(",")[0],
+                     serve_launches)
+    seconds["4 times"] = time.perf_counter() - t0
+    print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
 
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -20,7 +20,8 @@ from typing import Any, Dict, List, Optional, Sequence
 
 #: the aliases this package registers (kernels.register_all)
 SLICE_ALIASES = ("MMM", "EWMM", "EWMD", "EWADD", "EWSUB", "MVM", "VDP", "JS",
-                 "1DCONV", "SMMM", "FFT", "SORT", "HIST")
+                 "1DCONV", "SMMM", "FFT", "SORT", "HIST", "RMSNORM",
+                 "FLASH_ATTN")
 
 
 @dataclasses.dataclass

@@ -16,12 +16,12 @@ from __future__ import annotations
 import dataclasses
 import statistics
 import time
-from typing import Callable, List
+from typing import Callable, List, Sequence
 
 import torch
 
-__all__ = ["KernelReport", "Timing", "overhead_ratio", "portability_score",
-           "time_fn"]
+__all__ = ["KernelReport", "ServeReport", "Timing", "overhead_ratio",
+           "percentile_nearest", "portability_score", "time_fn"]
 
 
 @dataclasses.dataclass
@@ -82,6 +82,15 @@ def overhead_ratio(t1: float, t4: float) -> float:
     return t1 / t4 if t4 > 0 else 0.0
 
 
+def percentile_nearest(sorted_vals: Sequence[float], q: float) -> float:
+    """Nearest-rank percentile of an ascending-sorted sequence (request
+    latency reporting in the serving launcher)."""
+    if not sorted_vals:
+        return 0.0
+    i = min(len(sorted_vals) - 1, int(round(q * (len(sorted_vals) - 1))))
+    return sorted_vals[i]
+
+
 @dataclasses.dataclass
 class KernelReport:
     """One row of the paper's evaluation: a kernel on one device class."""
@@ -124,3 +133,40 @@ class KernelReport:
     def csv_header() -> str:
         return ("kernel,device,T1_us,T3_base_us,T3_halo_us,T3_agnostic_us,"
                 "halo_score,agnostic_score,halo_gain_x,overhead_ratio")
+
+
+@dataclasses.dataclass
+class ServeReport:
+    """Serving-path scorecard: the paper's T-term decomposition applied to
+    the slot engine's iteration loop.
+
+    T1 = host orchestration (admission bookkeeping, slot retirement, mask
+    assembly), T3 = blocked device time (prefill-into-slot and the batched
+    decode step, each ending when its sampled tokens reach the host), T2 ≈
+    0 (the slot cache stays on the device).  ``overhead`` is T1/T4."""
+
+    t1_s: float
+    t3_s: float
+    steps: int
+    tokens: int
+
+    @property
+    def t4_s(self) -> float:
+        return self.t1_s + self.t3_s
+
+    @property
+    def overhead(self) -> float:
+        return overhead_ratio(self.t1_s, self.t4_s)
+
+    @property
+    def tokens_per_s(self) -> float:
+        return self.tokens / self.t4_s if self.t4_s > 0 else 0.0
+
+    def csv(self) -> str:
+        return (f"serve,{self.steps},{self.tokens},{self.t1_s * 1e6:.1f},"
+                f"{self.t3_s * 1e6:.1f},{self.tokens_per_s:.1f},"
+                f"{self.overhead * 100:.4f}%")
+
+    @staticmethod
+    def csv_header() -> str:
+        return "path,steps,tokens,T1_us,T3_us,tok_per_s,overhead_ratio"

@@ -57,6 +57,9 @@ def register_all(registry=None) -> None:
     from .fft import fft, fft_ref
     from .fft.ops import fft_supported
     from .fft.ref import fft_aten
+    from .flash_attention import attention_ref, flash_attention
+    from .flash_attention.ops import flash_attention_supported
+    from .flash_attention.ref import attention_aten
     from .jacobi import jacobi_step, jacobi_step_ref
     from .jacobi.ops import jacobi_supported
     from .jacobi.ref import jacobi_step_aten
@@ -66,6 +69,9 @@ def register_all(registry=None) -> None:
     from .mvm import mvm, mvm_ref
     from .mvm.ops import mvm_supported
     from .mvm.ref import mvm_aten
+    from .rmsnorm import rmsnorm, rmsnorm_ref
+    from .rmsnorm.ops import rmsnorm_supported
+    from .rmsnorm.ref import rmsnorm_aten
     from .sorthist import hist, hist_ref, sort, sort_ref
     from .sorthist.ops import hist_supported, sort_supported
     from .sorthist.ref import hist_aten, sort_aten
@@ -94,6 +100,10 @@ def register_all(registry=None) -> None:
         ("FFT", fft_ref, fft_aten, fft, fft_supported),
         ("SORT", sort_ref, sort_aten, sort, sort_supported),
         ("HIST", hist_ref, hist_aten, hist, hist_supported),
+        # the model path (models/): normalization and sequence attention
+        ("RMSNORM", rmsnorm_ref, rmsnorm_aten, rmsnorm, rmsnorm_supported),
+        ("FLASH_ATTN", attention_ref, attention_aten, flash_attention,
+         flash_attention_supported),
     ]
     for alias, ref_fn, aten_fn, hopper_fn, ok in table:
         registry.register(_rec(alias, ref_fn, "torch", 0, failsafe=True))

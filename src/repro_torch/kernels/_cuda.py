@@ -67,6 +67,12 @@ _SIGNATURES = {
     "halo_sort": [_vp, _vp, _vp, _ll, _ll, _ll, _ll, _int, _vp],
     # x, counts, out, n, bins, lo, hi, width, dtype, stream
     "halo_hist": [_vp, _vp, _vp, _ll, _int, _f, _f, _f, _int, _vp],
+    # x, gamma, out, rows, d, eps, dtype, vec, stream
+    "halo_rmsnorm": [_vp, _vp, _vp, _int, _int, _f, _int, _int, _vp],
+    # q, k, v, out, b, h, hkv, sq, skv, d, causal, has_window, window,
+    # prefix, scale, dtype, stream
+    "halo_flash_attention": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
+                             _int, _int, _int, _int, _int, _f, _int, _vp],
 }
 
 _lock = threading.Lock()

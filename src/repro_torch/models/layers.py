@@ -1,0 +1,76 @@
+"""Shared layers: projections, norms, RoPE, activations, embeddings — port
+of ``repro.models.layers``.
+
+All matmul-shaped work and every norm dispatch through HALO aliases;
+sharding names logical axes (a no-op on one device).
+``softmax_xent`` comes with training.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..core.c2mpi import halo_dispatch
+from ..distributed.sharding import shard
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., D) @ w (D, F) via the MMM alias (f32 accumulation).  The
+    kernels take contiguous operands, and a row slice such as x[:, -1:]
+    is not one."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1]).contiguous()
+    y = halo_dispatch("MMM", x2, w.to(x.dtype))
+    return y.reshape(*shape[:-1], w.shape[-1])
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    return halo_dispatch("RMSNORM", x, gamma, eps=eps)
+
+
+def act_fn(name: str, gate: torch.Tensor, up: Optional[torch.Tensor] = None):
+    if name == "swiglu":
+        return F.silu(gate.float()).to(gate.dtype) * up
+    if name == "geglu":
+        return F.gelu(gate.float(), approximate="tanh").to(gate.dtype) * up
+    if name == "gelu":
+        return F.gelu(gate.float(), approximate="tanh").to(gate.dtype)
+    raise ValueError(name)
+
+
+def ffn(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """Gated (swiglu/geglu) or plain (gelu) FFN."""
+    if act in ("swiglu", "geglu"):
+        g = shard(dense(x, params["wg"]), "batch", None, "tp")
+        u = shard(dense(x, params["wu"]), "batch", None, "tp")
+        h = act_fn(act, g, u)
+    else:
+        h = act_fn(act, shard(dense(x, params["wu"]), "batch", None, "tp"))
+    return shard(dense(h, params["wd"]), "batch", None, None)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, NeoX half-rotation.  x (B,S,H,dh), positions (B,S)."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs                  # (B,S,half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding lookup: rows of the (V, D) table."""
+    return embed[tokens]
+
+
+def logits_from_hidden(unembed: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """h (..., D) @ unembed (D, V)."""
+    return shard(dense(h, unembed), "batch", None, "vocab")

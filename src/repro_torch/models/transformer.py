@@ -1,0 +1,298 @@
+"""Model assembly: stage-stacked decoder stacks — port of
+``repro.models.transformer`` for dense attention models.
+
+A model is a list of *stages* (see configs.base): each stage runs
+``repeats`` stacked copies of a block *pattern*, as a plain loop over the
+stacked weights.  Two entry points serve a model:
+
+* ``prefill(params, batch)``            — full-sequence forward → (last-token
+                                          logits, decode cache)
+* ``decode_step(params, cache, token, pos[, active])`` — one-token serve
+  step; ``pos`` may be a per-slot (B,) position vector and ``active`` a
+  (B,) slot mask; the cache is updated in place
+
+Parameters are nested dicts, lists and tuples of tensors with the
+reference's nesting, so :meth:`Model.params_from_numpy` carries the JAX
+package's weights across.  Not ported yet: Mamba, MoE, MLA, the
+zamba2-style shared block and the stub frontends (ROADMAP A6), and the
+training loss (ROADMAP A8).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.utils._pytree as pytree
+
+from ..configs.base import ArchConfig, AttnConfig, BlockSpec, Stage
+from ..core.compute_object import from_numpy
+from ..distributed.sharding import ParamSpec, current_context, shard
+from .attention import attn_param_specs, gqa_forward, mla_forward
+from .layers import embed_tokens, ffn, logits_from_hidden, rms_norm
+
+PyTree = Any
+
+
+def _unsupported(cfg: ArchConfig) -> Optional[str]:
+    """What of ``cfg`` the port cannot build yet, or None."""
+    if cfg.frontend != "none":
+        return f"the {cfg.frontend} frontend"
+    if cfg.shared_attn is not None:
+        return "the shared attention block"
+    for st in cfg.stages:
+        for b in st.pattern:
+            if b.kind != "attn":
+                return f"{b.kind} blocks (the SSD rows)"
+            if b.moe is not None:
+                return "MoE FFNs (the MOE_FFN row)"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Parameter planning
+# ---------------------------------------------------------------------------
+def _ffn_specs(d_model: int, d_ff: int, act: str, dtype) -> Dict[str, ParamSpec]:
+    s = {
+        "wu": ParamSpec((d_model, d_ff), dtype, ("fsdp", "tp")),
+        "wd": ParamSpec((d_ff, d_model), dtype, ("tp", "fsdp")),
+    }
+    if act in ("swiglu", "geglu"):
+        s["wg"] = ParamSpec((d_model, d_ff), dtype, ("fsdp", "tp"))
+    return s
+
+
+def _block_specs(cfg: ArchConfig, spec: BlockSpec, dtype) -> Dict[str, Any]:
+    d = cfg.d_model
+    return {
+        "ln1": ParamSpec((d,), dtype, (None,), init_kind="ones"),
+        "ln2": ParamSpec((d,), dtype, (None,), init_kind="ones"),
+        "attn": attn_param_specs(d, spec.attn, dtype),
+        "ffn": _ffn_specs(d, spec.d_ff, spec.act, dtype),
+    }
+
+
+def _stack_specs(tree: PyTree, r: int) -> PyTree:
+    return pytree.tree_map(
+        lambda s: ParamSpec((r, *s.shape), s.dtype, (None, *s.logical),
+                            init_kind=s.init_kind), tree)
+
+
+def param_specs(cfg: ArchConfig) -> PyTree:
+    dtype = cfg.activation_dtype()
+    d = cfg.d_model
+    specs: Dict[str, Any] = {
+        "embed": ParamSpec((cfg.padded_vocab, d), dtype, (None, "tp")),
+        "unembed": ParamSpec((d, cfg.padded_vocab), dtype, (None, "vocab")),
+        "final_norm": ParamSpec((d,), dtype, (None,), init_kind="ones"),
+        "stages": [],
+    }
+    for st in cfg.stages:
+        specs["stages"].append(tuple(
+            _stack_specs(_block_specs(cfg, b, dtype), st.repeats)
+            for b in st.pattern))
+    return specs
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator) -> PyTree:
+    """Random weights from ``generator``, on its device: N(0, 1/fan_in) for
+    matrices, ones for norm scales (the reference's ``init_params``; the
+    two packages draw different numbers from the same seed)."""
+    dev = generator.device
+
+    def materialize(s: ParamSpec):
+        if s.init_kind == "ones":
+            return torch.ones(s.shape, dtype=s.dtype, device=dev)
+        if s.init_kind == "zeros":
+            return torch.zeros(s.shape, dtype=s.dtype, device=dev)
+        fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+        w = torch.randn(s.shape, generator=generator, dtype=torch.float32,
+                        device=dev) * (fan_in ** -0.5)
+        return w.to(s.dtype)
+
+    return pytree.tree_map(materialize, param_specs(cfg))
+
+
+def _carry(spec: PyTree, leaf, device, path: str):
+    """``leaf`` (numpy) as a tensor on ``device``, checked against ``spec``
+    with the same nesting."""
+    if isinstance(spec, ParamSpec):
+        t = from_numpy(np.array(leaf), device)     # a writable copy
+        if tuple(t.shape) != spec.shape or t.dtype != spec.dtype:
+            raise ValueError(f"{path}: {tuple(t.shape)} {t.dtype}, expected "
+                             f"{spec.shape} {spec.dtype}")
+        return t
+    if isinstance(spec, dict):
+        if not isinstance(leaf, dict) or set(leaf) != set(spec):
+            raise ValueError(f"{path}: keys {sorted(leaf) if isinstance(leaf, dict) else type(leaf)}, "
+                             f"expected {sorted(spec)}")
+        return {k: _carry(spec[k], leaf[k], device, f"{path}.{k}") for k in spec}
+    if not isinstance(leaf, (list, tuple)) or len(leaf) != len(spec):
+        raise ValueError(f"{path}: expected a sequence of {len(spec)}")
+    return type(spec)(_carry(s, x, device, f"{path}[{i}]")
+                      for i, (s, x) in enumerate(zip(spec, leaf)))
+
+
+# ---------------------------------------------------------------------------
+# Cache planning
+# ---------------------------------------------------------------------------
+def _kv_cache_logical(n_kv: int):
+    """Shard KV heads over tp when divisible, else sequence-parallel."""
+    ctx = current_context()
+    tp = ctx.axis_size(ctx.rules.tp) if ctx.mesh is not None else 1
+    if tp > 1 and n_kv % tp == 0:
+        return ("batch", "tp", None, None)
+    return ("batch", None, "seq", None)
+
+
+def ring_len(cfg: ArchConfig, a: Optional[AttnConfig], seq: int) -> int:
+    """Serving cache length for one attention layer: sliding-window layers
+    only attend to the last ``window`` keys, so their decode cache is a
+    ring of ``window`` slots — unless a bidirectional prefix must stay."""
+    if a is not None and a.window is not None and not cfg.prefix_len:
+        return min(seq, a.window)
+    return seq
+
+
+def cache_specs(cfg: ArchConfig, batch: int, seq: int) -> PyTree:
+    dtype = cfg.activation_dtype()
+    out = []
+    for st in cfg.stages:
+        blocks = []
+        for b in st.pattern:
+            a = b.attn
+            shp = (batch, a.n_kv_heads, ring_len(cfg, a, seq), a.head_dim)
+            logical = _kv_cache_logical(a.n_kv_heads)
+            blocks.append(_stack_specs(
+                (ParamSpec(shp, dtype, logical), ParamSpec(shp, dtype, logical)),
+                st.repeats))
+        out.append(tuple(blocks))
+    return out
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq: int, device="cpu") -> PyTree:
+    return pytree.tree_map(
+        lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device),
+        cache_specs(cfg, batch, seq))
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+def _apply_block(spec: BlockSpec, bp, x, *, cfg: ArchConfig, positions,
+                 cache=None, cache_pos=None, active=None):
+    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    attend = mla_forward if spec.attn.kv_lora else gqa_forward
+    att, nc = attend(bp["attn"], h, spec.attn, positions=positions,
+                     prefix_len=cfg.prefix_len, cache=cache,
+                     cache_pos=cache_pos, active=active)
+    x = x + att
+    h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
+    return x + ffn(bp["ffn"], h2, spec.act), nc
+
+
+def _run_stage(st: Stage, sp, x, *, cfg, positions, caches=None,
+               cache_pos=None, active=None, mode: str = "prefill"):
+    """The stage's repeats in order.  Prefill returns each block's (k, v)
+    stacked over the repeats; decode updates ``caches`` in place."""
+    fresh: List[List[tuple]] = [[] for _ in st.pattern]
+    for r in range(st.repeats):
+        x = shard(x, "batch", "seq_act", None)
+        for j, spec in enumerate(st.pattern):
+            cj = None if caches is None else (caches[j][0][r], caches[j][1][r])
+            bp = pytree.tree_map(lambda t: t[r], sp[j])
+            x, nc = _apply_block(spec, bp, x, cfg=cfg, positions=positions,
+                                 cache=cj, cache_pos=cache_pos, active=active)
+            fresh[j].append(nc)
+    if mode == "prefill":
+        return x, tuple((torch.stack([k for k, _ in kv]),
+                         torch.stack([v for _, v in kv])) for kv in fresh)
+    return x, caches
+
+
+def _forward(params, x, positions, cfg: ArchConfig, *, caches=None,
+             cache_pos=None, active=None, mode="prefill"):
+    new_caches = []
+    for i, st in enumerate(cfg.stages):
+        x, nc = _run_stage(
+            st, params["stages"][i], x, cfg=cfg, positions=positions,
+            caches=None if caches is None else caches[i],
+            cache_pos=cache_pos, active=active, mode=mode)
+        new_caches.append(nc)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, new_caches
+
+
+def _masked_logits(params, x, cfg: ArchConfig):
+    logits = logits_from_hidden(params["unembed"], x)
+    if cfg.padded_vocab != cfg.vocab_size:
+        tail = torch.where(
+            torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size,
+            0.0, -1e30).to(logits.dtype)
+        logits = logits + tail
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Public model object
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class Model:
+    cfg: ArchConfig
+
+    # -- planning ---------------------------------------------------------
+    def param_specs(self) -> PyTree:
+        return param_specs(self.cfg)
+
+    def cache_specs(self, batch: int, seq: int) -> PyTree:
+        return cache_specs(self.cfg, batch, seq)
+
+    def init(self, generator: torch.Generator) -> PyTree:
+        return init_params(self.cfg, generator)
+
+    def init_cache(self, batch: int, seq: int, device="cpu") -> PyTree:
+        return init_cache(self.cfg, batch, seq, device)
+
+    def params_from_numpy(self, tree: PyTree, device="cpu") -> PyTree:
+        """The reference's ``init_params`` tree, as numpy arrays (bfloat16
+        included), → this model's parameters on ``device``.  Every leaf's
+        shape and dtype is checked against :meth:`param_specs`."""
+        return _carry(param_specs(self.cfg), tree, device, "params")
+
+    # -- serving -----------------------------------------------------------
+    def prefill(self, params, batch):
+        """batch["tokens"] (B,S) → (last-token logits (B,V), caches)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = embed_tokens(params["embed"], tokens).to(cfg.activation_dtype())
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        x, caches = _forward(params, x, positions, cfg, mode="prefill")
+        logits = _masked_logits(params, x[:, -1:], cfg)
+        return logits[:, 0], caches
+
+    def decode_step(self, params, caches, token, pos, active=None):
+        """token (B,1) int; ``pos`` a scalar (every lane writes the same
+        cache slot) or a (B,) vector of per-slot write positions;
+        ``active`` an optional (B,) bool slot mask — inactive lanes write
+        nothing, so free slots never corrupt the slot-indexed cache.  The
+        cache is updated in place and returned."""
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], token).to(cfg.activation_dtype())
+        b = x.shape[0]
+        pos = torch.as_tensor(pos, dtype=torch.long, device=x.device)
+        if pos.dim() == 0:
+            pos = pos.expand(b)
+        x, caches = _forward(params, x, pos[:, None], cfg, caches=caches,
+                             cache_pos=pos, active=active, mode="decode")
+        logits = _masked_logits(params, x, cfg)
+        return logits[:, 0], caches
+
+
+def build_model(cfg: ArchConfig) -> Model:
+    what = _unsupported(cfg)
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} is not ported yet (ROADMAP A6)")
+    return Model(cfg=cfg)

@@ -20,6 +20,8 @@ from repro_torch.kernels.ewise.ref import OP_REFS
 from repro_torch.kernels.fft.fft import fft_hopper
 from repro_torch.kernels.fft.ops import cached_twiddles
 from repro_torch.kernels.fft.ref import dft_ref
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention_hopper
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
 from repro_torch.kernels.jacobi.ops import jacobi_solve
 from repro_torch.kernels.jacobi.ref import jacobi_step_ref
@@ -27,6 +29,8 @@ from repro_torch.kernels.matmul.matmul import mmm_hopper
 from repro_torch.kernels.matmul.ref import mmm_ref
 from repro_torch.kernels.mvm.mvm import mvm_hopper
 from repro_torch.kernels.mvm.ref import mvm_ref
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_hopper
 from repro_torch.kernels.sorthist.ref import hist_ref, sort_ref
 from repro_torch.kernels.sorthist import sorthist
 from repro_torch.kernels.sorthist.sorthist import hist_hopper, sort_hopper
@@ -277,6 +281,159 @@ def test_hist_kernel_is_bit_exact(card, dtype, bins, lo, hi):
     assert torch.equal(hist_hopper(one), hist_ref(one))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1, 1), (3, 80), (7, 1000), (5, 1025),
+                                   (4, 2560), (2, 3, 4097)])
+def test_rmsnorm_kernel(card, dtype, shape):
+    # D <= 1024 takes one warp per row, larger D one block; 1000 and 2560
+    # fill whole 16-byte vectors, 1025 and 4097 do not
+    x = _rnd(card, *shape, dtype=dtype, shift=0.5)
+    g = _rnd(card, shape[-1], dtype=dtype, seed=1, shift=1.0)
+    out = rmsnorm_hopper(x, g, 1e-5)
+    assert out.dtype == dtype and out.shape == x.shape
+    assert _normwise(out, rmsnorm_ref(x, g, 1e-5)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_unaligned_rows(card, dtype):
+    empty = _rnd(card, 0, 1000, dtype=dtype)
+    assert rmsnorm_hopper(empty, _rnd(card, 1000, dtype=dtype)).numel() == 0
+    big = _rnd(card, 64 * 999 + 1, dtype=dtype)
+    x = big[1:].view(64, 999)          # rows off the 16-byte grid
+    assert x.data_ptr() % 16 != 0
+    g = _rnd(card, 999, dtype=dtype, seed=1)
+    assert _normwise(rmsnorm_hopper(x, g), rmsnorm_ref(x, g)) <= TOL[dtype]
+
+
+FA_CASES = {
+    "causal": dict(sq=200, skv=200, causal=True, window=None, prefix_len=0),
+    "window": dict(sq=200, skv=200, causal=True, window=37, prefix_len=0),
+    "prefix+window": dict(sq=200, skv=200, causal=True, window=37, prefix_len=70),
+    "sq<skv": dict(sq=17, skv=300, causal=True, window=None, prefix_len=0),
+    "sq<skv window": dict(sq=65, skv=300, causal=True, window=100, prefix_len=0),
+    "bidirectional": dict(sq=130, skv=130, causal=False, window=None, prefix_len=0),
+    "no key seen": dict(sq=100, skv=30, causal=True, window=None, prefix_len=0),
+    # the last query tile is row 128 alone, whose last key opens a key tile
+    "one past a tile": dict(sq=129, skv=129, causal=True, window=None, prefix_len=0),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [32, 80, 128, 256])
+@pytest.mark.parametrize("case", sorted(FA_CASES))
+def test_flash_attention_kernel(card, dtype, d, case):
+    # 8 query heads over 2 KV heads; ragged tiles everywhere.  "no key
+    # seen": query rows 0-69 sit before every key and get the mean of v,
+    # as attention_ref gives it.  v has mean 1, so the output is no
+    # near-cancelling sum whose float32 reordering alone errs by ~1e-5
+    c = FA_CASES[case]
+    q = _rnd(card, 2, 8, c["sq"], d, dtype=dtype)
+    k = _rnd(card, 2, 2, c["skv"], d, dtype=dtype, seed=1)
+    v = _rnd(card, 2, 2, c["skv"], d, dtype=dtype, seed=2, shift=1.0)
+    kw = dict(causal=c["causal"], window=c["window"], prefix_len=c["prefix_len"])
+    out = flash_attention_hopper(q, k, v, **kw)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert _normwise(out, attention_ref(q, k, v, **kw)) <= TOL[dtype]
+
+
+def _bad_operands(dev):
+    x = torch.randn(4, 80, device=dev)
+    q = torch.randn(1, 4, 8, 32, device=dev)
+    return [
+        (rmsnorm_hopper, (x.t(), x[0])),                     # not contiguous
+        (rmsnorm_hopper, (x, x[0].bfloat16())),              # mixed types
+        (rmsnorm_hopper, (x, x[0, :79].contiguous())),       # gamma too short
+        (flash_attention_hopper, (q, q[:, :2].transpose(2, 3).contiguous()
+                                  .transpose(2, 3), q[:, :2])),
+        (flash_attention_hopper, (q, q[:, :2].half(), q[:, :2].half())),
+        (flash_attention_hopper, (q[..., :24].contiguous(),) * 3),   # head dim
+    ]
+
+
+def test_new_wrappers_refuse_host_tensors_and_bad_operands():
+    # runs on any host: the wrappers check before they touch the card
+    for fn, args in _bad_operands("cpu"):
+        with pytest.raises(ValueError):
+            fn(*args)
+    x = torch.randn(4, 80)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rmsnorm_hopper(x, x[0])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        q = torch.randn(1, 2, 4, 32)
+        flash_attention_hopper(q, q, q)
+
+
+def test_new_wrappers_refuse_bad_operands_on_the_card(card):
+    before = _cuda.launch_counts()
+    for fn, args in _bad_operands(card):
+        with pytest.raises(ValueError):
+            fn(*args)
+    after = _cuda.launch_counts()
+    assert after.get("rmsnorm", 0) == before.get("rmsnorm", 0)
+    assert after.get("flash_attention", 0) == before.get("flash_attention", 0)
+
+
+def test_serve_launcher_without_a_device_refuses_a_missing_card():
+    if torch.cuda.is_available() and torch.cuda.get_device_capability(0) >= (9, 0):
+        pytest.skip("a capability-9.0 card is present; the refusal needs a host "
+                    "without one")
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="CUDA|capability"):
+        serve.main(["--arch", "h2o-danube-1.8b", "--reduced"])
+
+
+def test_model_on_the_card_runs_the_kernels(card):
+    """Reduced danube in float32 with GQA (Hkv 2): prefill of 40 tokens (past
+    the 32-token window) and 4 decode steps, once on a session that
+    resolves to the kernels and once on one that prefers the plain
+    versions; logits agree, and the kernels ran as the structure says."""
+    import dataclasses
+
+    from repro_torch import halo
+    from repro_torch.configs import get_config
+    from repro_torch.core.manifest import default_manifest
+    from repro_torch.models import build_model
+    from repro_torch.serve.kvcache import pad_caches
+
+    cfg = get_config("h2o-danube-1.8b").reduced()
+    stages = tuple(dataclasses.replace(st, pattern=tuple(
+        dataclasses.replace(b, attn=dataclasses.replace(b.attn, n_kv_heads=2))
+        for b in st.pattern)) for st in cfg.stages)
+    model = build_model(dataclasses.replace(cfg, stages=stages))
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    g = torch.Generator(device=card).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 40), generator=g, device=card)
+    steps = torch.randint(0, cfg.vocab_size, (4, 1, 1), generator=g, device=card)
+    plain = default_manifest()
+    plain.platform_list = [{"platform_preference": ["torch"]}]
+
+    def run(manifest):
+        halo.initialize(manifest=manifest, device=card)
+        try:
+            logits, caches = model.prefill(params, {"tokens": prompt})
+            caches = pad_caches(model.cfg, caches, 48)
+            out = [logits]
+            for i, tok in enumerate(steps):
+                logits, caches = model.decode_step(params, caches, tok, 40 + i)
+                out.append(logits)
+            return out
+        finally:
+            halo.finalize()
+
+    _cuda.reset_launch_counts()
+    served = run(None)
+    counts = _cuda.launch_counts()
+    layers = model.cfg.n_layers
+    assert counts["mmm"] == 5 * (7 * layers + 1)
+    assert counts["rmsnorm"] == 5 * (2 * layers + 1)
+    assert counts["flash_attention"] == layers
+    _cuda.reset_launch_counts()
+    ref = run(plain)
+    assert sum(_cuda.launch_counts().values()) == 0
+    for a, b in zip(served, ref):
+        assert _normwise(a, b) <= 1e-4
+
+
 def test_each_launch_counts_once(card):
     a = _rnd(card, 16, 16, dtype=torch.float32)
     a.diagonal().add_(16.0)
@@ -292,9 +449,12 @@ def test_each_launch_counts_once(card):
     fft_hopper(a, *cached_twiddles(16, card))
     sort_hopper(a)
     hist_hopper(a)
+    rmsnorm_hopper(a, a[0])
+    q = a[:, :8].reshape(1, 2, 2, 32)
+    flash_attention_hopper(q, q[:, :1], q[:, :1])
     after = _cuda.launch_counts()
     for name in ("mmm", "ewise", "mvm", "vdp", "jacobi", "conv1d", "spmm",
-                 "fft", "sort", "hist"):
+                 "fft", "sort", "hist", "rmsnorm", "flash_attention"):
         assert after[name] == before[name] + 1
 
 

@@ -52,6 +52,7 @@ def test_import_leaves_jax_out_of_sys_modules():
     code = (
         "import sys, torch\n"
         "import repro_torch, repro_torch.halo, repro_torch.quickstart\n"
+        "import repro_torch.launch.serve, repro_torch.serve.engine\n"
         "import repro_torch.kernels as k\n"
         "from repro_torch.core.compute_object import to_numpy\n"
         "k.register_all()\n"
@@ -81,11 +82,13 @@ HOPPER_PATH = [PKG / "kernels" / d / f
                                ("mvm", "mvm"), ("vdp", "vdp"),
                                ("jacobi", "jacobi"), ("conv1d", "conv1d"),
                                ("spmm", "spmm"), ("fft", "fft"),
-                               ("sorthist", "sorthist"))
+                               ("sorthist", "sorthist"), ("rmsnorm", "rmsnorm"),
+                               ("flash_attention", "flash_attention"))
                for f in (f"{name}.py", "ops.py")]
 LIBRARY_CALLS = {"matmul", "mm", "mv", "dot", "bmm", "baddbmm", "einsum",
                  "mul", "div", "add", "sub", "conv1d", "fft", "sort",
-                 "argsort", "msort", "histc", "bincount"}
+                 "argsort", "msort", "histc", "bincount", "rms_norm",
+                 "scaled_dot_product_attention", "softmax"}
 
 
 @pytest.mark.parametrize("path", HOPPER_PATH,
@@ -109,7 +112,8 @@ ENTRY = {"spmm": "smmm"}
 
 
 @pytest.mark.parametrize("name", ["mmm", "ewise", "mvm", "vdp", "jacobi",
-                                  "conv1d", "spmm", "fft", "sort", "hist"])
+                                  "conv1d", "spmm", "fft", "sort", "hist",
+                                  "rmsnorm", "flash_attention"])
 def test_kernel_sources_carry_their_note(name):
     src = (PKG / "csrc" / f"{name}.cu").read_text()
     head = src.split("#include")[0]

@@ -1,0 +1,366 @@
+"""Port parity for the model path: configs field for field, RMSNORM and
+FLASH_ATTN against the JAX package's Pallas ops (interpret mode), whole
+reduced models (prefill, then decode through the ring cache) on the JAX
+package's own weights, the slot engine's greedy tokens against the JAX
+StepScheduler's, the serving helpers, and a fault of the reference pinned.
+
+Inputs are made once in numpy from a seed and fed to both packages; the
+port runs on the CPU (its wrappers' plain versions), through a session
+made with ``device="cpu"``.  Tolerances are normwise relative errors:
+float32 1e-5 for one kernel (the two sum the same float32 terms in another
+order), 1e-4 for a whole model's logits (rounding differences compound
+over the layers, as in the reference's own model tests), bfloat16 1e-2
+(an 8-bit mantissa rounds the output)."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCH_IDS as J_ARCH_IDS
+from repro.configs import get_config as j_get_config
+from repro.kernels.flash_attention import ops as j_fa_ops
+from repro.kernels.flash_attention import ref as j_fa_ref
+from repro.kernels.rmsnorm import ops as j_rms_ops
+from repro.models import build_model as j_build_model
+from repro.serve import kvcache as j_kvcache
+from repro.serve.engine import SlotEngine as JSlotEngine
+from repro.serve.engine import StepScheduler as JStepScheduler
+from repro_torch import halo
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.compute_object import from_numpy, to_numpy
+from repro_torch.kernels.flash_attention import ops as t_fa_ops
+from repro_torch.kernels.flash_attention import ref as t_fa_ref
+from repro_torch.kernels.rmsnorm import ops as t_rms_ops
+from repro_torch.kernels.rmsnorm import ref as t_rms_ref
+from repro_torch.launch import serve as t_serve
+from repro_torch.models import build_model
+from repro_torch.serve import kvcache as t_kvcache
+from repro_torch.serve.engine import (AdmissionError, AdmissionPolicy,
+                                      QoSClass, SlotEngine, StepScheduler,
+                                      sample_tokens)
+
+KERNEL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+MODEL_TOL = 1e-4
+DTYPES = ["float32", "bfloat16"]
+#: the dense attention architectures the port builds; the others need the
+#: SSD, MOE_FFN or MLA rows, the shared block or a stub frontend
+PORTED = ["mistral-large-123b", "h2o-danube-1.8b", "gemma-7b", "gemma3-4b"]
+
+
+def _np(dtype, a):
+    return np.asarray(a, np.float32).astype(jnp.bfloat16 if dtype == "bfloat16"
+                                            else np.float32)
+
+
+def _normwise(got, want) -> float:
+    got = np.asarray(to_numpy(got) if isinstance(got, torch.Tensor) else got,
+                     np.float64)
+    want = np.asarray(to_numpy(want) if isinstance(want, torch.Tensor) else want,
+                      np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-300))
+
+
+@pytest.fixture(scope="module")
+def cpu_session():
+    session = halo.initialize(device="cpu")
+    yield session
+    halo.finalize()
+
+
+# ---------------------------------------------------------------------------
+# (a) configs
+# ---------------------------------------------------------------------------
+def test_arch_ids_match():
+    assert ARCH_IDS == J_ARCH_IDS
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_config_equals_the_reference_field_for_field(arch):
+    t, j = get_config(arch), j_get_config(arch)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert dataclasses.asdict(t.reduced()) == dataclasses.asdict(j.reduced())
+    for tc, jc in ((t, j), (t.reduced(), j.reduced())):
+        assert (tc.n_layers, tc.padded_vocab) == (jc.n_layers, jc.padded_vocab)
+        assert str(tc.activation_dtype()).split(".")[-1] \
+            == jnp.dtype(jc.activation_dtype()).name
+
+
+# ---------------------------------------------------------------------------
+# (b) RMSNORM
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [80, 1000])
+def test_rmsnorm_matches_jax(dtype, d):
+    rng = np.random.default_rng(d)
+    x = _np(dtype, rng.standard_normal((3, 5, d)) * 2.0)
+    g = _np(dtype, 1.0 + 0.1 * rng.standard_normal(d))
+    want = j_rms_ops.rmsnorm(jnp.asarray(x), jnp.asarray(g), eps=1e-5,
+                             interpret=True)
+    tx, tg = from_numpy(x), from_numpy(g)
+    got = t_rms_ops.rmsnorm(tx, tg, eps=1e-5)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    assert _normwise(got, want) <= KERNEL_TOL[dtype]
+    # the library row computes the same function
+    assert _normwise(t_rms_ref.rmsnorm_aten(tx, tg, 1e-5), want) <= KERNEL_TOL[dtype]
+
+
+# ---------------------------------------------------------------------------
+# (c) FLASH_ATTN
+# ---------------------------------------------------------------------------
+FA_CASES = {
+    "causal": dict(sq=70, skv=70, causal=True, window=None, prefix_len=0),
+    "window": dict(sq=70, skv=70, causal=True, window=16, prefix_len=0),
+    "prefix+window": dict(sq=70, skv=70, causal=True, window=16, prefix_len=8),
+    "sq<skv": dict(sq=17, skv=70, causal=True, window=None, prefix_len=0),
+    "bidirectional": dict(sq=33, skv=33, causal=False, window=None, prefix_len=0),
+}
+
+
+def fa_inputs(dtype, sq, skv, h=8, hkv=2, d=80, seed=0):
+    rng = np.random.default_rng(seed)
+    return (_np(dtype, rng.standard_normal((1, h, sq, d))),
+            _np(dtype, rng.standard_normal((1, hkv, skv, d))),
+            _np(dtype, rng.standard_normal((1, hkv, skv, d))))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(FA_CASES))
+def test_flash_attention_matches_jax(dtype, case):
+    c = FA_CASES[case]
+    q, k, v = fa_inputs(dtype, c["sq"], c["skv"])
+    kw = dict(causal=c["causal"], window=c["window"], prefix_len=c["prefix_len"])
+    want = j_fa_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), interpret=True, **kw)
+    tq, tk, tv = from_numpy((q, k, v))
+    got = t_fa_ops.flash_attention(tq, tk, tv, **kw)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    assert _normwise(got, want) <= KERNEL_TOL[dtype]
+    # the library row: SDPA with the end-aligned mask where it differs
+    assert _normwise(t_fa_ref.attention_aten(tq, tk, tv, **kw), want) \
+        <= KERNEL_TOL[dtype]
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take():
+    q, k, v = from_numpy(fa_inputs("float32", 8, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        t_fa_ops.flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v)
+    with pytest.raises(ValueError, match="head dim"):
+        t_fa_ops.flash_attention(q[..., :40].contiguous(), k[..., :40].contiguous(),
+                                 v[..., :40].contiguous())
+    with pytest.raises(ValueError, match="share one of"):
+        t_fa_ops.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="do not split"):
+        t_fa_ops.flash_attention(q[:, :7].contiguous(), k, v)
+
+
+# ---------------------------------------------------------------------------
+# (f) a fault of the reference, pinned
+# ---------------------------------------------------------------------------
+def test_reference_flash_attention_fully_masked_row_is_not_zero():
+    """q (1,2,16,32), k/v (1,1,10,32), causal: query rows 0–5 sit at
+    positions −6..−1 and see no key.  The Pallas kernel's comment says such
+    rows return 0; they do not.  The masked score is a finite −1e30, so
+    p = exp(0) = 1 for every key: the Pallas op returns Σv over the keys
+    zero-padded to 128 divided by 128, attention_ref the mean of v.  The
+    port follows attention_ref (its kernel pads nothing)."""
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((1, 2, 16, 32)).astype(np.float32)
+    k = rng.standard_normal((1, 1, 10, 32)).astype(np.float32)
+    v = rng.standard_normal((1, 1, 10, 32)).astype(np.float32)
+    pallas = np.asarray(j_fa_ops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        interpret=True))
+    ref = np.asarray(j_fa_ref.attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                            jnp.asarray(v), causal=True))
+    port = to_numpy(t_fa_ops.flash_attention(*from_numpy((q, k, v)), causal=True))
+    blind = slice(0, 6)
+    np.testing.assert_allclose(pallas[0, :, blind], np.broadcast_to(
+        v[0, 0].sum(0) / 128, (2, 6, 32)), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(ref[0, :, blind], np.broadcast_to(
+        v[0, 0].mean(0), (2, 6, 32)), rtol=1e-5, atol=1e-6)
+    assert np.abs(pallas[0, :, blind]).min() > 0 and np.abs(ref[0, :, blind]).min() > 0
+    np.testing.assert_allclose(port, ref, rtol=1e-5, atol=1e-6)
+    # rows that see at least one key agree everywhere
+    np.testing.assert_allclose(pallas[0, :, 6:], ref[0, :, 6:], rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# (d) whole models on the JAX package's weights
+# ---------------------------------------------------------------------------
+def _gqa(cfg, n_kv):
+    """``cfg`` with every attention block's n_kv_heads set to ``n_kv``."""
+    stages = tuple(dataclasses.replace(st, pattern=tuple(
+        dataclasses.replace(b, attn=dataclasses.replace(b.attn, n_kv_heads=n_kv))
+        for b in st.pattern)) for st in cfg.stages)
+    return dataclasses.replace(cfg, stages=stages)
+
+
+def _models(arch, n_kv=None):
+    jc, tc = j_get_config(arch).reduced(), get_config(arch).reduced()
+    if n_kv is not None:
+        jc, tc = _gqa(jc, n_kv), _gqa(tc, n_kv)
+    jm, tm = j_build_model(jc), build_model(tc)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp))
+    return jm, jp, tm, tp
+
+
+MODEL_CASES = [(a, None) for a in PORTED] + [("h2o-danube-1.8b", 2)]
+
+
+@pytest.mark.parametrize("arch,n_kv", MODEL_CASES,
+                         ids=[f"{a}-kv{n or 'cfg'}" for a, n in MODEL_CASES])
+def test_model_prefill_and_ring_decode_match_jax(cpu_session, arch, n_kv):
+    """Prefill a 36-token prompt (past the reduced 32-token window, so the
+    window masks and pad_caches rolls the cache into a ring), then 8 decode
+    steps that wrap the ring; logits at every step ≤ 1e-4 normwise."""
+    jm, jp, tm, tp = _models(arch, n_kv)
+    cfg = tm.cfg
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, cfg.vocab_size, (1, 36)).astype(np.int32)
+    steps = rng.integers(0, cfg.vocab_size, (8, 1, 1)).astype(np.int32)
+    max_len = 48
+
+    jl, jcache = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(prompt)})
+    tl, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(prompt).long()})
+    assert tl.shape == (1, cfg.padded_vocab)
+    assert _normwise(tl, jl) <= MODEL_TOL
+    jcache = j_kvcache.pad_caches(jm.cfg, jcache, max_len)
+    tcache = t_kvcache.pad_caches(cfg, tcache, max_len)
+    for jc, tcc in zip(jax.tree.leaves(jcache), torch.utils._pytree.tree_leaves(tcache)):
+        assert _normwise(tcc, jc) <= MODEL_TOL
+    decode = jax.jit(jm.decode_step)
+    for i, tok in enumerate(steps):
+        pos = 36 + i
+        jl, jcache = decode(jp, jcache, jnp.asarray(tok), jnp.int32(pos))
+        tl, tcache = tm.decode_step(tp, tcache, torch.from_numpy(tok).long(), pos)
+        assert _normwise(tl, jl) <= MODEL_TOL, (arch, i)
+
+
+def test_decode_step_leaves_inactive_lanes_untouched(cpu_session):
+    _, _, tm, tp = _models("h2o-danube-1.8b")
+    caches = tm.init_cache(2, 48)
+    for leaf in torch.utils._pytree.tree_leaves(caches):
+        leaf.normal_(generator=torch.Generator().manual_seed(5))
+    before = [t.clone() for t in torch.utils._pytree.tree_leaves(caches)]
+    tm.decode_step(tp, caches, torch.tensor([[3], [4]]), torch.tensor([40, 7]),
+                   torch.tensor([True, False]))
+    for old, new in zip(before, torch.utils._pytree.tree_leaves(caches)):
+        assert torch.equal(old[:, 1], new[:, 1])          # lane 1 wrote nothing
+        assert not torch.equal(old[:, 0], new[:, 0])      # lane 0 wrote its slot
+
+
+def test_params_from_numpy_checks_every_leaf(cpu_session):
+    jm, jp, tm, _ = _models("h2o-danube-1.8b")
+    tree = jax.tree.map(np.asarray, jp)
+    tree["final_norm"] = tree["final_norm"][:-1]
+    with pytest.raises(ValueError, match=r"params\.final_norm"):
+        tm.params_from_numpy(tree)
+    tree = jax.tree.map(np.asarray, jp)
+    tree["stages"][0][0]["attn"]["wq"] = tree["stages"][0][0]["attn"]["wq"].astype(np.float64)
+    with pytest.raises(ValueError, match=r"stages\[0\]\[0\]\.attn\.wq"):
+        tm.params_from_numpy(tree)
+    del tree["unembed"]
+    with pytest.raises(ValueError, match="keys"):
+        tm.params_from_numpy(tree)
+
+
+@pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(PORTED)))
+def test_build_model_refuses_what_is_not_ported(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        build_model(get_config(arch).reduced())
+
+
+def test_mla_attention_raises_naming_the_roadmap():
+    cfg = get_config("deepseek-v2-236b").reduced()
+    stages = tuple(dataclasses.replace(st, pattern=tuple(
+        dataclasses.replace(b, moe=None, d_ff=64) for b in st.pattern))
+        for st in cfg.stages)
+    model = build_model(dataclasses.replace(cfg, stages=stages))
+    with pytest.raises(NotImplementedError, match="mla_forward.*ROADMAP A6"):
+        model.init(torch.Generator())
+
+
+def test_bf16_weights_cross_with_their_bits(cpu_session):
+    jc = dataclasses.replace(j_get_config("h2o-danube-1.8b").reduced(), dtype="bfloat16")
+    tc = dataclasses.replace(get_config("h2o-danube-1.8b").reduced(), dtype="bfloat16")
+    jp = j_build_model(jc).init(jax.random.PRNGKey(3))
+    tp = build_model(tc).params_from_numpy(jax.tree.map(np.asarray, jp))
+    w, jw = tp["stages"][0][0]["ffn"]["wd"], jp["stages"][0][0]["ffn"]["wd"]
+    assert w.dtype == torch.bfloat16
+    assert np.array_equal(w.view(torch.int16).numpy(),
+                          np.asarray(jw).view(np.int16))
+
+
+# ---------------------------------------------------------------------------
+# (e) the slot engine against the JAX StepScheduler
+# ---------------------------------------------------------------------------
+SERVE_CASES = [([3, 1, 4, 1, 5], 4), (list(range(40, 76)), 6),
+               ([9, 9, 8, 7, 6, 5, 4, 3, 2], 8)]
+
+
+def test_step_scheduler_greedy_tokens_match_jax(cpu_session):
+    jm, jp, tm, tp = _models("h2o-danube-1.8b")
+    jsched = JStepScheduler(JSlotEngine(jm, jp, slots=2, max_len=48))
+    tsched = StepScheduler(SlotEngine(tm, tp, slots=2, max_len=48))
+    jf = [jsched.submit(p, max_new=n) for p, n in SERVE_CASES]
+    tf = [tsched.submit(p, max_new=n) for p, n in SERVE_CASES]
+    jsched.drain()
+    tsched.drain()
+    for (p, n), a, b in zip(SERVE_CASES, jf, tf):
+        assert b.result(timeout=60) == a.result(timeout=60)
+        assert len(b.result()) == n
+    assert tsched.completed == 3 and tsched.active() == 0
+    rep = tsched.report()
+    assert rep.tokens == sum(n for _, n in SERVE_CASES) and rep.steps > 0
+    # retired lanes are zeroed
+    assert all(not bool(t.any()) for t in
+               torch.utils._pytree.tree_leaves(tsched.engine.caches))
+
+
+def test_to_ring_matches_jax():
+    rng = np.random.default_rng(2)
+    for s0 in (5, 32, 37, 70):
+        k = rng.standard_normal((2, 1, 3, s0, 4)).astype(np.float32)
+        want = np.asarray(j_kvcache._to_ring(jnp.asarray(k), 32))
+        assert np.array_equal(to_numpy(t_kvcache._to_ring(torch.from_numpy(k), 32)), want)
+
+
+def test_sample_tokens_greedy_and_seeded_draw():
+    logits = torch.tensor([[0.0, 3.0, 3.0, 1.0], [5.0, 0.0, 0.0, 0.0]])
+    assert sample_tokens(logits, None, 0.0).tolist() == [1, 0]
+    draws = [sample_tokens(logits, torch.Generator().manual_seed(s), 1.0).tolist()
+             for s in (0, 0, 1)]
+    assert draws[0] == draws[1]
+    assert all(0 <= t < 4 for d in draws for t in d)
+
+
+def test_admission_policy_caps_the_queue(cpu_session):
+    _, _, tm, tp = _models("h2o-danube-1.8b")
+    pol = AdmissionPolicy(classes={"batch": QoSClass(max_depth=1)})
+    sched = StepScheduler(SlotEngine(tm, tp, slots=1, max_len=16), policy=pol)
+    sched.submit([1, 2], max_new=2, qos="batch")
+    with pytest.raises(AdmissionError):
+        sched.submit([3, 4], max_new=2, qos="batch")
+    with pytest.raises(ValueError, match="exceeds"):
+        sched.submit(list(range(15)), max_new=2)
+    sched.drain()
+    assert sched.rejected == 1 and sched.completed == 1
+
+
+def test_serve_launcher_on_the_cpu(capsys):
+    results = t_serve.main(["--arch", "h2o-danube-1.8b", "--reduced",
+                            "--device", "cpu", "--slots", "2", "--requests", "5",
+                            "--max-new", "4"])
+    assert [len(r) for r in results] == t_serve.mixed_budgets(5, 4)
+    out = capsys.readouterr().out
+    assert "served 5 requests" in out and "T1_us" in out
+
+
+def test_serve_launcher_refuses_the_unported_paths():
+    with pytest.raises(SystemExit):
+        t_serve.main(["--arch", "h2o-danube-1.8b", "--paged", "--device", "cpu"])

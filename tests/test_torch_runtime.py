@@ -25,7 +25,7 @@ from repro_torch.core.scheduler import CostModelScheduler
 from repro_torch.kernels import register_all
 
 SLICE = ("MMM", "EWMM", "EWMD", "EWADD", "EWSUB", "MVM", "VDP", "JS",
-         "1DCONV", "SMMM", "FFT", "SORT", "HIST")
+         "1DCONV", "SMMM", "FFT", "SORT", "HIST", "RMSNORM", "FLASH_ATTN")
 
 
 @pytest.fixture()
@@ -50,10 +50,13 @@ def _args(alias, n=16):
     x = torch.randn(n, generator=g)
     values = torch.randn(2, 3, n // 2, 4, generator=g)
     indices = torch.tensor([[0, 2, -1], [3, -1, -1]], dtype=torch.int32)
+    q = torch.randn(1, 4, 5, 32, generator=g)
+    kv = torch.randn(1, 2, 7, 32, generator=g)
     return {"MMM": (a, b), "MVM": (a, x), "VDP": (x, x),
             "JS": (a + n * torch.eye(n), x, x + 1.0), "1DCONV": (x, x[:5]),
             "SMMM": (values, indices, b), "FFT": (a,), "SORT": (a,),
-            "HIST": (torch.sigmoid(a),)}.get(alias, (a, b))
+            "HIST": (torch.sigmoid(a),), "RMSNORM": (a, x),
+            "FLASH_ATTN": (q, kv, kv + 1.0)}.get(alias, (a, b))
 
 
 # ---------------------------------------------------------------------------
