@@ -40,10 +40,12 @@ Phases (any failure exits non-zero before the result lines are printed):
    RMSNORM 2·L+1 per forward pass, FLASH_ATTN L per prefill), the
    quarantine must stay empty, and every step's logits must agree with a
    replay through the plain versions on the card (``SERVE_TOL``).
-4. Times at the phase-3 shapes (RMSNORM and FLASH_ATTN: at the shapes of
-   phase 3b's prefill): the median of 20 CUDA-event-timed calls of the
-   kernel, its plain version and one library call, beside the least time
-   the card could take (``bound_ms``).
+4. Times at the phase-3 shapes: the median of 20 CUDA-event-timed calls of
+   the kernel, its plain version and one library call, beside the least
+   time the card could take (``bound_ms``).  RMSNORM and FLASH_ATTN, at the
+   shapes of phase 3b: device time per call from ``torch.profiler`` over 20
+   calls (a kernel of tens of µs is shorter than its Python wrapper), with
+   the event times beside it.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.
@@ -879,6 +881,8 @@ def replay(model, params, prompt, toks, max_len, manifest):
 # phase 4: times at the phase-3 shapes
 # ---------------------------------------------------------------------------
 def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches):
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.configs import get_config
     from repro_torch.core.portability import KernelReport, time_fn
     from repro_torch.kernels.conv1d.conv1d import conv1d_hopper
@@ -916,6 +920,28 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches):
     def ms(fn, *args):
         return time_fn(fn, *args, device=dev, warmup=3,
                        iters=TIMED_RUNS).median_s * 1e3
+
+    def device_ms(fn):
+        """Device time per call of the kernels ``fn`` launches, from
+        torch.profiler over TIMED_RUNS calls.  A kernel of tens of µs is
+        shorter than its Python wrapper, so events around each call would
+        time the host's launch."""
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TIMED_RUNS):
+                fn()
+            torch.cuda.synchronize(dev)
+        return device_seconds(prof) * 1e3 / TIMED_RUNS
+
+    def model_row(kernel, plain, library):
+        """Device times of the model path's kernel, plain version and
+        library call, with the CUDA-event times beside them."""
+        fns = {"ms": kernel, "plain_ms": plain, "library_ms": library}
+        row = {k: device_ms(f) for k, f in fns.items()}
+        row["event_ms"] = {k: ms(f) for k, f in fns.items()}
+        return row
 
     def bound(nbytes, flops, peak=f32_peak):
         t_bytes, t_ops = nbytes / bw, flops / peak
@@ -1060,15 +1086,16 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches):
         ("hist", {"ms": ms(hist_hopper, hx), "plain_ms": ms(hist_ref, hx),
                   "library_ms": ms(torch.histc, hx, 64, 0.0, 1.0)}, hist_bound,
          f"n={n_hist} float32, 64 bins (library: histc)"),
-        ("rmsnorm", {"ms": ms(rmsnorm_hopper, rx, rg, cfg.norm_eps),
-                     "plain_ms": ms(rmsnorm_ref, rx, rg, cfg.norm_eps),
-                     "library_ms": ms(rmsnorm_aten, rx, rg, cfg.norm_eps)}, rms_bound,
-         f"4096x{cfg.d_model} {mname} (library: F.rms_norm)"),
-        ("flash_attention", {"ms": ms(lambda: flash_attention_hopper(fq, fk, fv, **fkw)),
-                             "plain_ms": ms(lambda: attention_ref(fq, fk, fv, **fkw)),
-                             "library_ms": ms(lambda: attention_aten(fq, fk, fv, **fkw))},
+        # device time from the profiler (event times under "event_ms")
+        ("rmsnorm", model_row(lambda: rmsnorm_hopper(rx, rg, cfg.norm_eps),
+                              lambda: rmsnorm_ref(rx, rg, cfg.norm_eps),
+                              lambda: rmsnorm_aten(rx, rg, cfg.norm_eps)), rms_bound,
+         f"4096x{cfg.d_model} {mname}, device time (library: F.rms_norm)"),
+        ("flash_attention", model_row(lambda: flash_attention_hopper(fq, fk, fv, **fkw),
+                                      lambda: attention_ref(fq, fk, fv, **fkw),
+                                      lambda: attention_aten(fq, fk, fv, **fkw)),
          fa_bound, f"1x{attn.n_heads}x{seq}x{attn.head_dim} {mname}, "
-         f"{attn.n_kv_heads} KV heads, causal, window {attn.window} "
+         f"{attn.n_kv_heads} KV heads, causal, window {attn.window}, device time "
          f"(library: SDPA, explicit mask)"),
     ]
     kernels = []
@@ -1092,6 +1119,11 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches):
     for op, t in per_op.items():
         print(f"  ewise {op}: kernel_ms {t['ms']:.4f}  plain_ms "
               f"{t['plain_ms']:.4f}  library_ms {t['library_ms']:.4f}")
+    for name in MODEL_KERNELS:
+        t = next(e for e in kernels if e["name"] == name)["event_ms"]
+        print(f"  {name} CUDA-event times per call (host launch included): "
+              f"kernel_ms {t['ms']:.4f}  plain_ms {t['plain_ms']:.4f}  "
+              f"library_ms {t['library_ms']:.4f}")
     # the paper's evaluation row per kernel: T3 of the library call as the
     # baseline, of the kernel as HALO's, of the plain version as the
     # hardware-agnostic one; T1 from the end-to-end runs; Φ = T3_base/T3_halo

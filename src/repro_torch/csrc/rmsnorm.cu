@@ -9,20 +9,23 @@
 // once with three operations between, so at 4096x2560 bfloat16 the 42 MB
 // take at least 0.0125 ms at 3.35 TB/s, against 32 MFLOP.
 //
-// Design: no padding, so any D works.  D <= 1024: one warp per row, eight
-// rows per 256-thread block; larger D: one 256-thread block per row.  Pass
-// one sums x^2 in float32 (16-byte loads when the row and gamma are
-// 16-byte aligned and D fills whole vectors), reduced by warp shuffles (and
-// across warps through shared memory); pass two reads the row again, now
-// from L1/L2, and writes (x * r) * gamma with r = __frsqrt_rn(sum / D +
-// eps), a correctly rounded reciprocal square root, never the approximate
-// rsqrtf.
+// Design: no padding, so any D works.  Rows that are 16-byte aligned and
+// fill whole 16-byte vectors, up to 512 vectors (4096 bfloat16, 2048
+// float32), take one warp per row, eight rows per 256-thread block: each
+// lane loads its vectors once into registers, sums x^2 in float32, the warp
+// reduces by shuffles, and the lane scales the values it holds, so x is
+// read from device memory once.  Other rows take one 256-thread block per
+// row: pass one sums x^2 (reduced across warps through shared memory), pass
+// two reads the row again, from L1/L2.  Both write (x * r) * gamma with
+// r = __frsqrt_rn(sum / D + eps), a correctly rounded reciprocal square
+// root, never the approximate rsqrtf.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarpRows = kThreads / 32;
+constexpr int kMaxVecs = 16;  // 16-byte vectors a lane holds in registers
 
 // Sum of x^2 over elements [start, D) of row x with stride `step`.
 template <typename T>
@@ -85,16 +88,49 @@ __device__ __forceinline__ float inv_rms(float sum, int D, float eps) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-rmsnorm_warp_kernel(const T* __restrict__ X, const T* __restrict__ G, T* __restrict__ O,
-                    int R, int D, float eps, int vec) {
+rmsnorm_regs_kernel(const T* __restrict__ X, const T* __restrict__ G, T* __restrict__ O,
+                    int R, int D, float eps) {
+  constexpr int V = halo::Vec16<T>::kN;
   const int row = blockIdx.x * kWarpRows + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= R) return;  // uniform across the warp
-  const T* x = X + (size_t)row * D;
-  float s = sum_squares(x, D, lane, 32, vec);
+  const int nvec = D / V;
+  const uint4* xv = reinterpret_cast<const uint4*>(X + (size_t)row * D);
+  uint4 held[kMaxVecs];
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < kMaxVecs; ++k) {
+    if (lane + 32 * k < nvec) {
+      held[k] = xv[lane + 32 * k];
+      const T* p = reinterpret_cast<const T*>(&held[k]);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float f = halo::to_float(p[j]);
+        s = fmaf(f, f, s);
+      }
+    }
+  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  scale_row(x, G, O + (size_t)row * D, D, lane, 32, inv_rms(s, D, eps), vec);
+  const float r = inv_rms(s, D, eps);
+  const uint4* gv = reinterpret_cast<const uint4*>(G);
+  uint4* ov = reinterpret_cast<uint4*>(O + (size_t)row * D);
+#pragma unroll
+  for (int k = 0; k < kMaxVecs; ++k) {
+    const int i = lane + 32 * k;
+    if (i < nvec) {
+      const uint4 rg = gv[i];
+      const T* px = reinterpret_cast<const T*>(&held[k]);
+      const T* pg = reinterpret_cast<const T*>(&rg);
+      uint4 ro;
+      T* po = reinterpret_cast<T*>(&ro);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        po[j] = halo::from_float<T>(__fmul_rn(__fmul_rn(halo::to_float(px[j]), r),
+                                              halo::to_float(pg[j])));
+      ov[i] = ro;
+    }
+  }
 }
 
 template <typename T>
@@ -117,17 +153,16 @@ rmsnorm_block_kernel(const T* __restrict__ X, const T* __restrict__ G, T* __rest
 extern "C" int halo_rmsnorm(const void* x, const void* gamma, void* out, int rows, int d,
                             float eps, int dtype, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 1024) {
-    const unsigned blocks = (unsigned)((rows + kWarpRows - 1) / kWarpRows);
-    HALO_DISPATCH_TYPE(dtype, T,
-        rmsnorm_warp_kernel<T><<<blocks, kThreads, 0, s>>>(
+  const unsigned warp_blocks = (unsigned)((rows + kWarpRows - 1) / kWarpRows);
+  HALO_DISPATCH_TYPE(dtype, T,
+      if (vec && d <= 32 * kMaxVecs * halo::Vec16<T>::kN) {
+        rmsnorm_regs_kernel<T><<<warp_blocks, kThreads, 0, s>>>(
             static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<T*>(out),
-            rows, d, eps, vec))
-  } else {
-    HALO_DISPATCH_TYPE(dtype, T,
+            rows, d, eps);
+      } else {
         rmsnorm_block_kernel<T><<<(unsigned)rows, kThreads, 0, s>>>(
             static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<T*>(out),
-            d, eps, vec))
-  }
+            d, eps, vec);
+      })
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 """RMSNORM on Hopper: the ctypes wrapper around ``csrc/rmsnorm.cu``.
 
 Replaces ``repro/kernels/rmsnorm/rmsnorm.py::rmsnorm_pallas``.  One warp
-(D ≤ 1024) or one block per row, float32 inside; nothing is padded, so the
+per row holding the row in registers (16-byte aligned rows of up to 512
+vectors) or one block per row, float32 inside; nothing is padded, so the
 wrapper passes the rows as they are.
 """
 from __future__ import annotations

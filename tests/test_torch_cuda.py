@@ -283,10 +283,11 @@ def test_hist_kernel_is_bit_exact(card, dtype, bins, lo, hi):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(1, 1), (3, 80), (7, 1000), (5, 1025),
-                                   (4, 2560), (2, 3, 4097)])
+                                   (4, 2560), (2, 3, 4097), (3, 8192)])
 def test_rmsnorm_kernel(card, dtype, shape):
-    # D <= 1024 takes one warp per row, larger D one block; 1000 and 2560
-    # fill whole 16-byte vectors, 1025 and 4097 do not
+    # rows that fill whole 16-byte vectors, up to 512 of them (80, 1000,
+    # 2560), are held in registers by one warp each; the others (1, 1025,
+    # 4097, and 8192, too long for the registers) take one block per row
     x = _rnd(card, *shape, dtype=dtype, shift=0.5)
     g = _rnd(card, shape[-1], dtype=dtype, seed=1, shift=1.0)
     out = rmsnorm_hopper(x, g, 1e-5)
