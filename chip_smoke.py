@@ -25,7 +25,10 @@ Phases (any failure exits non-zero before the result lines are printed):
    bin counts, and with every value in one bin.
    RMSNORM and FLASH_ATTN: normwise (``TOL``) at the model path's shapes,
    FLASH_ATTN under four masks (causal, window, prefix with window,
-   Sq < Skv).
+   Sq < Skv).  The fused chain kernel: bit-exact against its plain version
+   and against serial EW launches, in float32, bfloat16 and float16, on
+   every op, copy, "acc" as the second operand, an input read twice and a
+   chain at the caps, at ragged, prime and misaligned sizes.
 3. The slice end to end: ``repro_torch.quickstart.run`` on ``cuda`` with
    every claim pinned to the hopper records, blocking and asynchronous, at
    working sets inside the paper's 48 MB–1 GB.  Every kernel's launch count
@@ -40,12 +43,26 @@ Phases (any failure exits non-zero before the result lines are printed):
    RMSNORM 2·L+1 per forward pass, FLASH_ATTN L per prefill), the
    quarantine must stay empty, and every step's logits must agree with a
    replay through the plain versions on the card (``SERVE_TOL``).
+3c. Execution graphs, fusion and compiled replay: ``halo.graph(launch=False)``
+   → ``compile()`` → 20 ``replay()`` calls per workload, every other one
+   rebinding an input, each output bit-identical to serial blocking
+   dispatch of the same members: an EW chain EWMM → EWADD → EWSUB → EWMD
+   over 8192² float32 and bfloat16 (one launch of the chain kernel per
+   replay under ``fusion_contract``, four EW launches without); a decode
+   chain MVM → EWADD → RMSNORM × 24 layers at danube's d_model 2560 in
+   bfloat16, one fused call loop; 30 Jacobi sweeps on the phase-3 system,
+   fused, in the same graph as the EW chain.  Compile stats, launch counts
+   per replay, an empty quarantine, no re-scored placement in steady state
+   and a compile-cache hit are checked; then each workload is timed three
+   ways (serial, fresh capture + launch, compiled replay; median of 5).
 4. Times at the phase-3 shapes: the median of 20 CUDA-event-timed calls of
    the kernel, its plain version and one library call, beside the least
    time the card could take (``bound_ms``).  RMSNORM and FLASH_ATTN, at the
    shapes of phase 3b: device time per call from ``torch.profiler`` over 20
    calls (a kernel of tens of µs is shorter than its Python wrapper), with
-   the event times beside it.
+   the event times beside it.  The fused chain kernel at a 4-step
+   8192² float32 chain, beside its plain version, the four ATen calls and
+   the four serial EW launches.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.
@@ -142,6 +159,13 @@ F32_SERVE_TOL = 1e-4
 #: the kernels phase 3b's model path adds (their launches come from 3b)
 MODEL_KERNELS = ("rmsnorm", "flash_attention")
 
+#: phase 3c: the graph workloads' sizes and the replays each is driven
+GRAPH = {"ew_n": 8192, "decode_d": 2560, "decode_layers": 24, "js_n": 8192,
+         "js_sweeps": 30, "replays": 20}
+
+#: the kernel phase 3c's path adds (its launches come from 3c)
+GRAPH_KERNELS = ("fused",)
+
 TIMED_RUNS = 20
 E2E_REPEATS = 5
 PIN = {"allowed_platforms": ["hopper"]}
@@ -159,6 +183,7 @@ REPLACES = {
     "hist": "src/repro/kernels/sorthist/sorthist.py:97",
     "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:36",
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:106",
+    "fused": "src/repro/kernels/fused.py:58",
 }
 
 
@@ -402,6 +427,8 @@ def phase2(dev) -> None:
         phase2_sort(dev, gen, dt)
         phase2_hist(dev, gen, dt)
         phase2_model(dev, gen, dt)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        phase2_fused(dev, gen, dt)
     torch.cuda.synchronize(dev)
 
 
@@ -525,6 +552,80 @@ def phase2_model(dev, gen, dt) -> None:
                              attention_ref(q, k, v, **kw)), dt)
 
 
+#: phase 2: fused chains — (op, a, b) steps over inputs 0..4, "acc" the
+#: previous step's result
+FUSED_CHAINS = {
+    "4-step ((a·b + c) − d) / e": (("mul", 0, 1), ("add", "acc", 2),
+                                   ("sub", "acc", 3), ("div", "acc", 4)),
+    "every op, acc second": (("sub", 0, 1), ("div", 2, "acc"), ("mul", "acc", 3),
+                             ("sub", 4, "acc"), ("add", 1, "acc"),
+                             ("div", "acc", 4)),
+    "copy": (("copy", 2, None), ("mul", "acc", 0), ("copy", "acc", None),
+             ("add", "acc", 3)),
+    "input twice": (("mul", 0, 0), ("div", "acc", 4), ("add", "acc", 0)),
+}
+
+
+def fused_cap_chain():
+    """A chain at the kernel's caps: 16 inputs, 32 steps, every input read."""
+    from repro_torch.kernels.fused import MAX_INPUTS, MAX_STEPS
+    ops = ("add", "mul", "sub", "div")
+    steps = [("copy", 0, None)]
+    for s in range(1, MAX_STEPS):
+        steps.append((ops[s % 4], "acc", s % MAX_INPUTS))
+    return tuple(steps)
+
+
+def serial_chain(arrays, steps):
+    """The chain as one EW kernel launch per step."""
+    from repro_torch.kernels.ewise.ewise import ewise_hopper
+    acc = None
+    for op, a, b in steps:
+        x = acc if a == "acc" else arrays[a]
+        acc = x.clone() if op == "copy" else ewise_hopper(
+            x, acc if b == "acc" else arrays[b], op)
+    return acc
+
+
+def fused_shift(j: int) -> float:
+    """Inputs that the chains divide by (odd ones and input 4) are shifted
+    by +3 away from 0."""
+    return 3.0 if j % 2 or j == 4 else 0.0
+
+
+def phase2_fused(dev, gen, dt) -> None:
+    """The chain kernel bit-exact against its plain version and against the
+    serial EW kernels."""
+    from repro_torch.kernels.fused import ewise_chain_hopper, ewise_chain_ref
+
+    name = str(dt).split(".")[-1]
+
+    def inputs(shape, k):
+        return [(torch.randn(shape, generator=gen, device=dev)
+                 + fused_shift(j)).to(dt) for j in range(k)]
+
+    cases = [(label, shape, steps) for label, steps in FUSED_CHAINS.items()
+             for shape in ((1,), (3, 5, 7), (1_000_003,))]
+    cases += [("4-step ((a·b + c) − d) / e", (8192, 8191),
+               FUSED_CHAINS["4-step ((a·b + c) − d) / e"]),
+              ("caps: 16 inputs, 32 steps", (100_003,), fused_cap_chain())]
+    for label, shape, steps in cases:
+        k = 1 + max(s for _, a, b in steps for s in (a, b) if isinstance(s, int))
+        xs = inputs(shape, k)
+        out = ewise_chain_hopper(*xs, steps=steps)
+        what = f"FUSED {name} {'x'.join(map(str, shape))} {label}"
+        check_bits(f"{what} vs plain", out, ewise_chain_ref(*xs, steps=steps))
+        check_bits(f"{what} vs serial EW", out, serial_chain(xs, steps))
+    # offset views: pointers off the 16-byte grid take the scalar path
+    steps = FUSED_CHAINS["every op, acc second"]
+    xs = [x[1:] for x in inputs((100_004,), 5)]
+    out = ewise_chain_hopper(*xs, steps=steps)
+    check_bits(f"FUSED {name} unaligned 100003 vs plain", out,
+               ewise_chain_ref(*xs, steps=steps))
+    check_bits(f"FUSED {name} unaligned 100003 vs serial EW", out,
+               serial_chain(xs, steps))
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the slice end to end through the port's host API
 # ---------------------------------------------------------------------------
@@ -560,7 +661,7 @@ def phase3(dev):
     print(f"  launches {launches}; quarantine {quarantined}")
     expected = {"mmm": 2, "ewise": 8, "mvm": 2, "vdp": 2, "jacobi": 2,
                 "conv1d": 2, "spmm": 2, "fft": 2, "sort": 2, "hist": 2,
-                "rmsnorm": 0, "flash_attention": 0}
+                "rmsnorm": 0, "flash_attention": 0, "fused": 0}
     if launches != expected:
         fail(f"launch counts {launches} != requests sent {expected}: a request "
              f"did not reach its kernel")
@@ -575,7 +676,8 @@ def phase3(dev):
     kernel_of = {"MMM": "mmm", "MVM": "mvm", "VDP": "vdp", "JS": "jacobi",
                  "1DCONV": "conv1d", "SMMM": "spmm", "FFT": "fft",
                  "SORT": "sort", "HIST": "hist"}
-    max_abs = {k: 0.0 for k in expected if k not in MODEL_KERNELS}
+    max_abs = {k: 0.0 for k in expected
+               if k not in MODEL_KERNELS + GRAPH_KERNELS}
     for alias, args in jobs.items():
         ref = refs[alias](*args)
         kname = kernel_of.get(alias, "ewise")
@@ -663,13 +765,34 @@ def recording_engine():
     return RecordingEngine
 
 
+def device_seconds_of(e) -> float:
+    """Device seconds of one torch.profiler key-average entry."""
+    return (getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0)) or 0.0) / 1e6
+
+
 def device_seconds(prof) -> float:
     """Σ device time of every kernel a torch.profiler run saw."""
-    total = 0.0
-    for e in prof.key_averages():
-        total += getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0)) or 0.0
-    return total / 1e6
+    return sum(device_seconds_of(e) for e in prof.key_averages())
+
+
+def device_ms_per_call(fn, runs: int, dev):
+    """Device ms of the kernels one call of ``fn`` launches: ``runs`` calls,
+    each synchronised, under torch.profiler after one waiting and one
+    warm-up call.  The profiler does not record every launch (on the H100
+    it kept 4 of 5 of a kernel launched from an agent's worker thread), so
+    each kernel counts at its mean time times its launches per call, the
+    recorded count over ``runs`` rounded."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=runs)) as prof:
+        for _ in range(runs + 2):
+            fn()
+            torch.cuda.synchronize(dev)
+            prof.step()
+    return 1e3 * sum(device_seconds_of(e) / e.count * max(1, round(e.count / runs))
+                     for e in prof.key_averages() if e.count and device_seconds_of(e))
 
 
 def phase3b(dev):
@@ -854,6 +977,194 @@ def phase3b(dev):
     return launches, stats
 
 
+# ---------------------------------------------------------------------------
+# phase 3c: execution graphs, fusion and compiled replay
+# ---------------------------------------------------------------------------
+def ew_program(send, w):
+    """EWMM(a, b) → EWADD(·, c) → EWSUB(·, d) → EWMD(·, e)."""
+    t = send("EWMM", (w["a"], w["b"]))
+    t = send("EWADD", (t, w["c"]))
+    t = send("EWSUB", (t, w["d"]))
+    return [send("EWMD", (t, w["e"]))]
+
+
+def decode_program(send, w):
+    """benchmarks/graph_fusion.py's decode step: per layer MVM → EWADD →
+    RMSNORM on a (D,) activation."""
+    x = w["x"]
+    for wi, bi in zip(w["W"], w["bias"]):
+        x = send("MVM", (wi, x))
+        x = send("EWADD", (x, bi))
+        x = send("RMSNORM", (x, w["gamma"]))
+    return [x]
+
+
+def ew_js_program(send, w):
+    """The EW chain and, independent of it, ``js_sweeps`` Jacobi sweeps."""
+    out = ew_program(send, w)
+    x = w["x0"]
+    for _ in range(GRAPH["js_sweeps"]):
+        x = send("JS", (w["A"], x, w["bJ"]))
+    return out + [x]
+
+
+def phase3c(dev, card):
+    from repro_torch import halo
+    from repro_torch.kernels import _cuda
+
+    session = halo.initialize()              # device=None means the card
+    if session.device.type != "cuda":
+        fail(f"session runs on {session.device}, not the card")
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape, dtype=torch.float32, shift=0.0, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                + shift).to(dtype)
+
+    def ew_inputs(dtype):
+        n = GRAPH["ew_n"]
+        w = {k: rnd(n, n, dtype=dtype) for k in "abcd"}
+        w["e"] = (rnd(n, n).abs() + 1.0).to(dtype)     # away from 0
+        return w
+
+    d, layers = GRAPH["decode_d"], GRAPH["decode_layers"]
+    bf16 = torch.bfloat16
+    decode_w = {"W": [rnd(d, d, dtype=bf16, scale=d ** -0.5) for _ in range(layers)],
+                "bias": [rnd(d, dtype=bf16, scale=0.1) for _ in range(layers)],
+                "gamma": rnd(d, dtype=bf16, shift=1.0, scale=0.1),
+                "x": rnd(d, dtype=bf16)}
+    js_w = ew_inputs(torch.float32)
+    js_w["A"], js_w["x0"], js_w["bJ"] = js_system(GRAPH["js_n"], torch.float32,
+                                                  gen, dev)
+    # (name, program, inputs, the input rebound on every other replay,
+    #  fusion_contract, expected stats, expected launches per replay)
+    n_dec, sweeps = 3 * layers, GRAPH["js_sweeps"]
+    workloads = [
+        (f"EW chain {dt_name} {mode}", ew_program, ew_inputs(dt), "a", contract,
+         dict(captured_nodes=4, nodes=1, fused_nodes=1, intermediates_eliminated=3),
+         {"fused": 1} if contract else {"ewise": 4})
+        for dt, dt_name in ((torch.float32, "float32"), (bf16, "bfloat16"))
+        for contract, mode in ((True, "contract"), (False, "default"))]
+    workloads += [
+        (f"decode chain bfloat16 {layers} layers", decode_program, decode_w, "x",
+         False, dict(captured_nodes=n_dec, nodes=1, fused_nodes=1,
+                     intermediates_eliminated=n_dec - 1),
+         {"mvm": layers, "ewise": layers, "rmsnorm": layers}),
+        (f"EW chain + {sweeps} JS sweeps float32 contract", ew_js_program, js_w,
+         "x0", True, dict(captured_nodes=4 + sweeps, nodes=2, fused_nodes=2,
+                          intermediates_eliminated=3 + sweeps - 1),
+         {"fused": 1, "jacobi": sweeps})]
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def claims(program, w):
+        crs = {}
+        program(lambda al, p: crs.setdefault(al, halo.claim(al, overrides=PIN)), w)
+        return crs
+
+    def serial(program, w, crs):
+        def send(al, p):
+            halo.send(p, crs[al])
+            return halo.recv(crs[al])
+        return program(send, w)
+
+    def capture(program, w, crs, launch):
+        with halo.graph(launch=launch) as g:
+            program(lambda al, p: halo.isend(p, crs[al]), w)
+        return g
+
+    _cuda.reset_launch_counts()
+    compiled = []
+    for name, program, w, swap, contract, want_stats, per_replay in workloads:
+        halo.configure(fusion_contract=contract)
+        crs = claims(program, w)
+        alt = dict(w, **{swap: w[swap] * 1.5 + 0.25})
+        refs = [serial(program, w, crs), serial(program, alt, crs)]
+        sync()
+        cg = capture(program, w, crs, launch=False).compile()
+        st = cg.stats
+        got = {k: st[k] for k in want_stats}
+        print(f"  {name}: compile stats {got}; fused {st['fused_aliases']}")
+        if got != want_stats or st["unplanned_placements"]:
+            fail(f"{name}: compile stats {st} != {want_stats}")
+        if capture(program, w, crs, launch=False).compile() is not cg \
+                or st["cache_hits"] != 1:
+            fail(f"{name}: a second compile of the same capture missed the cache")
+        slot = cg.slot_of(w[swap])
+        before = _cuda.launch_counts()
+        for i in range(GRAPH["replays"]):
+            outs = cg.replay(updates={slot: alt[swap]} if i % 2 else None)
+            sync()
+            for out, ref in zip(outs, refs[i % 2]):
+                if not (out.shape == ref.shape and out.dtype == ref.dtype
+                        and torch.equal(bits(out), bits(ref))):
+                    fail(f"{name}: replay {i} differs from serial dispatch")
+        after = _cuda.launch_counts()
+        delta = {k: after[k] - before.get(k, 0) for k in after
+                 if after[k] != before.get(k, 0)}
+        want = {k: v * GRAPH["replays"] for k, v in per_replay.items()}
+        quarantined = session.scheduler.failed_record_keys()
+        print(f"  {name}: {GRAPH['replays']} replays bit-identical to serial "
+              f"dispatch; launches {delta}; quarantine {quarantined}; "
+              f"placements scored in the last replay "
+              f"{st['placements_scored_last']}")
+        if delta != want:
+            fail(f"{name}: launches {delta} != {want}: a node went to another "
+                 f"record or decomposed")
+        if quarantined or st["placements_scored_last"] != 0:
+            fail(f"{name}: quarantine {quarantined}, "
+                 f"{st['placements_scored_last']} placements re-scored")
+        if program is ew_js_program:
+            x = outs[-1]
+            a, b = w["A"].double(), w["bJ"].double()
+            resid = float((a @ x.double() - b).norm() / b.norm())
+            check_close(f"{name}: JS ‖Ax−b‖/‖b‖", resid, torch.float32, JS_RESIDUAL)
+        compiled.append((name, program, w, contract, crs, cg))
+    launches = _cuda.launch_counts()
+
+    # times: serial blocking send/recv, a fresh capture + launch, compiled
+    # replay; median of E2E_REPEATS per workload, one step each
+    print(f"  times on {card} (median of {E2E_REPEATS}, ms per step):")
+    stats = {}
+    for name, program, w, contract, crs, cg in compiled:
+        halo.configure(fusion_contract=contract)
+
+        def timed(fn, host=None):
+            walls = []
+            for _ in range(E2E_REPEATS):
+                t0 = time.perf_counter()
+                fn()
+                if host is not None:
+                    host.append(time.perf_counter() - t0)
+                sync()
+                walls.append(time.perf_counter() - t0)
+            return sorted(walls)[len(walls) // 2] * 1e3
+
+        def launched():
+            g = capture(program, w, crs, launch=True)
+            g.wait(timeout=600)
+
+        host = []
+        row = {"serial_ms": timed(lambda: serial(program, w, crs)),
+               "graph_ms": timed(launched),
+               "replay_ms": timed(lambda: cg.replay(timeout=600), host)}
+        row["t1_replay_us"] = sorted(host)[len(host) // 2] * 1e6
+        busy = device_ms_per_call(lambda: cg.replay(timeout=600), E2E_REPEATS, dev)
+        row["device_ms_per_replay"] = busy if busy > 0 else None
+        row["device_busy_share"] = busy / row["replay_ms"] if busy > 0 else None
+        stats[name] = row
+        print(f"    {name}: serial {row['serial_ms']:.3f}, graph "
+              f"{row['graph_ms']:.3f}, replay {row['replay_ms']:.3f}; T1 per "
+              f"replay {row['t1_replay_us']:.1f} us; device "
+              + (f"{busy:.3f} ms per replay, busy share "
+                 f"{row['device_busy_share']:.3f}" if busy > 0
+                 else "time not measured (the profiler saw none)"))
+    halo.configure(fusion_contract=None)
+    halo.finalize()
+    return launches, stats
+
+
 def replay(model, params, prompt, toks, max_len, manifest):
     """Logits (float32) of ``prompt``'s prefill and of one decode step per
     token of ``toks`` but the last, on a session with ``manifest`` (None:
@@ -880,9 +1191,8 @@ def replay(model, params, prompt, toks, max_len, manifest):
 # ---------------------------------------------------------------------------
 # phase 4: times at the phase-3 shapes
 # ---------------------------------------------------------------------------
-def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches):
-    from torch.profiler import ProfilerActivity, profile
-
+def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
+           graph_launches):
     from repro_torch.configs import get_config
     from repro_torch.core.portability import KernelReport, time_fn
     from repro_torch.kernels.conv1d.conv1d import conv1d_hopper
@@ -897,6 +1207,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches):
         flash_attention_hopper)
     from repro_torch.kernels.flash_attention.ref import (attention_aten,
                                                          attention_ref, visibility)
+    from repro_torch.kernels.fused import ewise_chain_hopper, ewise_chain_ref
     from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
     from repro_torch.kernels.jacobi.ref import jacobi_step_aten, jacobi_step_ref
     from repro_torch.kernels.matmul.matmul import mmm_hopper
@@ -928,12 +1239,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches):
         time the host's launch."""
         for _ in range(3):
             fn()
-        torch.cuda.synchronize(dev)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(TIMED_RUNS):
-                fn()
-            torch.cuda.synchronize(dev)
-        return device_seconds(prof) * 1e3 / TIMED_RUNS
+        return device_ms_per_call(fn, TIMED_RUNS, dev)
 
     def model_row(kernel, plain, library):
         """Device times of the model path's kernel, plain version and
@@ -1046,6 +1352,22 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches):
     del fo, fr
     mname = str(mdt).split(".")[-1]
 
+    # the fused chain at phase 3c's EW shape: ((a·b + c) − d) / e over five
+    # 8192² float32 inputs; five read and one written, one operation per
+    # element per step.  No single PyTorch call computes the chain: the
+    # library yardstick is the four ATen calls in a row, and the four
+    # serial EW kernel launches stand beside it.
+    chain = FUSED_CHAINS["4-step ((a·b + c) − d) / e"]
+    gen5 = torch.Generator(device=dev).manual_seed(5)
+    chain_x = [torch.randn((SIZES["EW"], SIZES["EW"]), generator=gen5, device=dev)
+               + fused_shift(j) for j in range(5)]
+    fused_bound = bound(4 * 6 * chain_x[0].numel(), 4 * chain_x[0].numel())
+    max_abs["fused"] = float((wide(ewise_chain_hopper(*chain_x, steps=chain))
+                              - wide(ewise_chain_ref(*chain_x, steps=chain))).abs().max())
+
+    def four_aten(a, b, c, d, e):
+        return torch.div(torch.sub(torch.add(torch.mul(a, b), c), d), e)
+
     per_op = {}
     for op in ("mul", "div", "add", "sub"):
         per_op[op] = {"ms": ms(ewise_hopper, ea, eb, op),
@@ -1097,12 +1419,21 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches):
          fa_bound, f"1x{attn.n_heads}x{seq}x{attn.head_dim} {mname}, "
          f"{attn.n_kv_heads} KV heads, causal, window {attn.window}, device time "
          f"(library: SDPA, explicit mask)"),
+        ("fused", {"ms": ms(lambda: ewise_chain_hopper(*chain_x, steps=chain)),
+                   "plain_ms": ms(lambda: ewise_chain_ref(*chain_x, steps=chain)),
+                   "library_ms": ms(four_aten, *chain_x),
+                   "serial_ewise_ms": ms(lambda: serial_chain(chain_x, chain))},
+         fused_bound, f"{SIZES['EW']}x{SIZES['EW']} float32, 4 steps "
+         f"((a*b+c)-d)/e (library: four ATen calls; serial_ewise_ms: four EW "
+         f"kernel launches)"),
     ]
     kernels = []
     for name, times, (bound_ms, bound_by), shape in rows:
         # each kernel's launches in the run of the path it serves: phase 3
-        # for the quickstart's, phase 3b for the model path's own two
-        path_launches = (serve_launches if name in MODEL_KERNELS else launches)[name]
+        # for the quickstart's, 3b for the model path's own two, 3c for the
+        # fused chain
+        path_launches = (serve_launches if name in MODEL_KERNELS else
+                         graph_launches if name in GRAPH_KERNELS else launches)[name]
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/csrc/{name}.cu",
                  "replaces": REPLACES[name], "launches": path_launches,
@@ -1112,6 +1443,8 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches):
             entry["per_op"] = per_op
         if name == "mmm":
             entry["launches_serve"] = serve_launches["mmm"]
+        if name == "fused":
+            print(f"  fused: four serial EW launches {times['serial_ewise_ms']:.4f} ms")
         kernels.append(entry)
         print(f"  {name:6s} {shape:40s} kernel_ms {times['ms']:.4f}  plain_ms "
               f"{times['plain_ms']:.4f}  library_ms {times['library_ms']:.4f}  "
@@ -1140,7 +1473,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches):
     # times the launches the counted run made (EW per op: two each)
     busy = sum(per_op[op]["ms"] * 2 for op in per_op) + sum(
         e["ms"] * e["launches"] for e in kernels
-        if e["name"] not in ("ewise", *MODEL_KERNELS))
+        if e["name"] not in ("ewise", *MODEL_KERNELS, *GRAPH_KERNELS))
     e2e["kernel_ms_sum"] = busy
     e2e["device_busy_share"] = busy / e2e["wall_ms"]
     print(f"  end to end: quickstart wall {e2e['wall_ms']:.3f} ms (median of "
@@ -1192,10 +1525,18 @@ def main() -> None:
     serve_launches, serve_stats = phase3b(dev)
     seconds["3b serve"] = time.perf_counter() - t0
     print(json.dumps({"serve": serve_stats}))
-    print("phase 4: times (median of 20 CUDA-event-timed calls)")
+    print(f"phase 3c: execution graphs, fusion and compiled replay on {card}")
+    t0 = time.perf_counter()
+    graph_launches, graph_stats = phase3c(dev, card)
+    seconds["3c graphs"] = time.perf_counter() - t0
+    print(json.dumps({"graphs": graph_stats}))
+    missing = [k for k in GRAPH_KERNELS if not graph_launches.get(k)]
+    if missing:
+        fail(f"phase 3c launched no {missing}")
+    print(f"phase 4: times (median of 20 CUDA-event-timed calls) on {card}")
     t0 = time.perf_counter()
     kernels = phase4(dev, jobs, launches, max_abs, e2e, card.split(",")[0],
-                     serve_launches)
+                     serve_launches, graph_launches)
     seconds["4 times"] = time.perf_counter() - t0
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
 

@@ -21,7 +21,8 @@ result (DESIGN.md §4).
 Two dispatch paths exist (DESIGN.md §3): :meth:`RuntimeAgent.dispatch`, a
 direct select-and-call, and ``claim/send/recv/send_fwd``, the C2MPI DRPC
 surface with child ranks, tagged FIFO mailboxes, stateful internal buffers
-and fail-safe re-placement.
+and fail-safe re-placement.  Inside a ``halo_graph()`` capture region
+(DESIGN.md §8) ``dispatch`` and ``isend`` record graph nodes instead.
 """
 from __future__ import annotations
 
@@ -43,6 +44,17 @@ from .registry import (GLOBAL_REGISTRY, KernelRecord, KernelRegistry,
 from .scheduler import CostModelScheduler, abstract_signature
 
 log = logging.getLogger("repro_torch.halo.agents")
+
+# Execution-graph capture state (DESIGN.md §8).  The graph module installs
+# the active ExecutionGraph here (thread-local: capture is a host-thread
+# construct); isend/dispatch consult it so host code inside a
+# ``halo_graph()`` region records DAG nodes instead of executing.
+_graph_capture = threading.local()
+
+
+def _active_graph(session: "RuntimeAgent"):
+    g = getattr(_graph_capture, "graph", None)
+    return g if g is not None and g.session is session else None
 
 #: the least CUDA capability the hopper substrate runs on (H100 = 9.0)
 HOPPER_CAPABILITY = (9, 0)
@@ -121,6 +133,10 @@ class HaloFuture:
     def done(self) -> bool:
         with self._cond:
             return self._state in (HaloFuture._DONE, HaloFuture._CANCELLED)
+
+    def running(self) -> bool:
+        with self._cond:
+            return self._state == HaloFuture._RUNNING
 
     def cancelled(self) -> bool:
         with self._cond:
@@ -447,6 +463,10 @@ class RuntimeAgent:
         # T1 instrumentation: host-side dispatch overhead accounting
         self._t1_seconds = 0.0
         self._t1_calls = 0
+        # per-session compiled-graph cache (DESIGN.md §12): graph key ->
+        # CompiledGraph, LRU-bounded by the ``graph_cache`` knob
+        self._compiled_graphs: "collections.OrderedDict[str, Any]" = \
+            collections.OrderedDict()
 
     def _allowed_platforms(self) -> List[str]:
         return [p for p, a in self.agents.items() if a.available()]
@@ -531,6 +551,7 @@ class RuntimeAgent:
             agent.shutdown(cancel_pending=True, wait=True)
         with self._lock:
             self._buffer_table.clear()
+            self._compiled_graphs.clear()
             self.finalized = True
         if self.scheduler is not None:
             self.scheduler.save()
@@ -579,7 +600,14 @@ class RuntimeAgent:
                  **kwargs):
         """Direct dispatch: select, then call the record in the caller's
         thread.  No mailboxes, no buffer table and no device sync — the
-        result may still be in flight on the card."""
+        result may still be in flight on the card.
+
+        Inside a ``halo_graph()`` capture region the call records a DAG node
+        and returns it; passing the node into later captured calls expresses
+        the data dependency (DESIGN.md §8)."""
+        g = _active_graph(self)
+        if g is not None:
+            return g.record_dispatch(alias, args, kwargs, overrides)
         t0 = time.perf_counter()
         try:
             record = self._select(alias, args, overrides)
@@ -741,10 +769,21 @@ class RuntimeAgent:
         the kernel; ``MPIX_Wait``/``recv`` add the device sync through the
         CUDA event recorded after the launch.  The same future is queued
         FIFO on the (dest or cr) mailbox for this tag; pass
-        ``mailbox=False`` when it will only be consumed through the handle."""
+        ``mailbox=False`` when it will only be consumed through the handle.
+
+        Inside a ``halo_graph()`` capture region the call records a DAG node
+        (returned in place of a live request) instead of executing; graph
+        results arrive through the node futures only, never the mailbox."""
         self._check_live()
         if cr.freed:
             raise RuntimeError(f"CR {cr.uid} was freed")
+        g = _active_graph(self)
+        if g is not None:
+            if dest is not None:
+                raise RuntimeError(
+                    "MPIX_SendFwd/dest is not supported inside graph capture; "
+                    "pass the returned node as a later payload instead")
+            return g.record_isend(cr, payload, tag=tag, kwargs=kwargs)
         co = as_compute_object(payload)
         args = tuple(co.inputs[k] for k in sorted(co.inputs))
         kwargs = dict(kwargs)
@@ -834,6 +873,9 @@ class RuntimeAgent:
         """MPIX_Send: blocking path — a thin wait-on-future wrapper over
         :meth:`isend`.  Waits for the launch so errors surface here; the
         result stays queued for ``recv``."""
+        if _active_graph(self) is not None:
+            raise RuntimeError("blocking MPIX_Send inside a halo_graph "
+                               "capture would deadlock; use MPIX_ISend")
         self.isend(payload, cr, tag=tag, **kwargs).result()
 
     def recv(self, cr: ChildRank, tag: int = 0, block: bool = True):
@@ -842,6 +884,9 @@ class RuntimeAgent:
         Always waits for the request's worker execution; ``block=False``
         only skips the final device sync."""
         self._check_live()
+        if _active_graph(self) is not None:
+            raise RuntimeError("MPIX_Recv inside a halo_graph capture: graph "
+                               "results arrive on node futures, not mailboxes")
         with self._lock:
             box = cr.mailboxes[tag]
             if not box:

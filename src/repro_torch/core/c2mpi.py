@@ -11,8 +11,9 @@ session, so host applications read exactly like the paper's template:
     MPIX_Finalize()
 
 Non-blocking variants return :class:`HaloFuture` request handles
-(DESIGN.md §4), mirroring MPI's ``MPI_Isend``/``MPI_Irecv``/``MPI_Wait``.
-The graph and collective verbs of the reference are not ported yet.
+(DESIGN.md §4), mirroring MPI's ``MPI_Isend``/``MPI_Irecv``/``MPI_Wait``;
+``MPIX_GraphBegin``/``MPIX_GraphEnd`` capture them into an execution graph
+(DESIGN.md §8).  The collective verbs of the reference are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,8 +28,8 @@ from .registry import GLOBAL_REGISTRY, KernelRegistry
 
 __all__ = [
     "MPIX_Claim", "MPIX_CreateBuffer", "MPIX_Finalize", "MPIX_Free",
-    "MPIX_Initialize", "MPIX_IRecv", "MPIX_ISend", "MPIX_Recv", "MPIX_Send",
-    "MPIX_SendFwd", "MPIX_Test", "MPIX_Wait", "MPIX_Waitall",
+    "MPIX_GraphBegin", "MPIX_GraphEnd", "MPIX_Initialize", "MPIX_IRecv",
+    "MPIX_ISend", "MPIX_Recv", "MPIX_Send", "MPIX_SendFwd", "MPIX_Test", "MPIX_Wait", "MPIX_Waitall",
     "halo_dispatch", "halo_session",
 ]
 
@@ -196,3 +197,22 @@ def halo_dispatch(alias: str, *args, overrides: Optional[Dict] = None, **kwargs)
 
     Host code names *what* to compute (the alias), never *how* or *where*."""
     return halo_session().dispatch(alias, *args, overrides=overrides, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Execution graphs (DESIGN.md §8)
+# ---------------------------------------------------------------------------
+def MPIX_GraphBegin() -> "ExecutionGraph":
+    """Start capturing MPIX_ISend/halo_dispatch calls into an execution
+    graph on this thread.  Captured calls return :class:`GraphNode` request
+    handles; pass a node inside a later payload to express the dependency."""
+    from .graph import begin_capture
+    return begin_capture(halo_session())
+
+
+def MPIX_GraphEnd(launch: bool = True) -> "ExecutionGraph":
+    """Stop capturing; by default launch the DAG at once, on the calling
+    thread's current stream.  Wait via ``graph.wait()`` or any node's
+    future (``MPIX_Wait(node)``)."""
+    from .graph import end_capture
+    return end_capture(launch=launch)

@@ -78,6 +78,7 @@ class KernelRecord:
     attrs: KernelAttributes = dataclasses.field(default_factory=KernelAttributes)
     priority: int = 0                # higher wins within a platform
     supports: Optional[Callable[..., bool]] = None   # predicate over args
+    cost_model: Optional[Callable[..., float]] = None  # est. seconds for args
     is_failsafe: bool = False        # reference oracle for the alias
     doc: str = ""
     uid: int = dataclasses.field(default_factory=_record_uids.__next__)

@@ -11,11 +11,13 @@ The first observation per key is discarded as warmup (it includes the
 kernel build).  The table persists as a small JSON file when
 ``HALO_AUTOTUNE_CACHE`` (or an explicit path) is set.
 
-Records with no estimate are left to the static selection order.  A record
-whose execution raised is quarantined (:meth:`mark_failed`) until
-:meth:`clear_failures`.  The reference's other estimate sources — its
-TuningDB sweep results and the records' analytic cost models — are not
-ported yet.
+An estimate is the measured EMA, else the record's analytic
+``cost_model`` (fused graph records sum their members' estimates).  Records
+with no estimate are left to the static selection order.  A record whose
+execution raised is quarantined (:meth:`mark_failed`) until
+:meth:`clear_failures`; :attr:`epoch` moves with every change of the
+quarantined set.  :meth:`place` scores graph nodes (DESIGN.md §8).  The
+reference's TuningDB rung is not ported yet.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import threading
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-from .envutil import env_path
+from .config import halo_config
 from .registry import KernelRecord
 
 log = logging.getLogger("repro_torch.halo.scheduler")
@@ -72,6 +74,12 @@ class CostModelScheduler:
     #: route every Nth DRPC selection to the best-ranked *unmeasured*
     #: candidate so greedy choice cannot lock out an untried record.
     explore_every: Optional[int] = 16
+    #: cross-substrate transfer model for graph placement (DESIGN.md §8): a
+    #: fixed staging latency plus payload bytes over an effective host-side
+    #: link bandwidth, so chained nodes stay on one substrate unless the
+    #: estimated kernel-time win exceeds the hop
+    transfer_latency_s: float = 2e-5
+    transfer_bandwidth: float = 8e9          # bytes / second
 
     def __init__(self, cache_path: Optional[os.PathLike] = None,
                  explore_every: Optional[int] = None,
@@ -86,6 +94,7 @@ class CostModelScheduler:
         self._attempts: Dict[str, int] = {}    # wants_sample() call counts
         self._chooses: Dict[str, int] = {}     # choose() call counts per key
         self._failed: Dict[str, int] = {}      # record key -> failure count
+        self._epoch = 0                        # bumps on quarantine changes
         self._since_save = 0
         if explore_every is not None:
             self.explore_every = explore_every or None
@@ -98,7 +107,7 @@ class CostModelScheduler:
     def default(cls) -> "CostModelScheduler":
         """Process-default scheduler: persistent iff ``HALO_AUTOTUNE_CACHE``
         is set."""
-        return cls(cache_path=env_path("HALO_AUTOTUNE_CACHE"))
+        return cls(cache_path=halo_config().autotune_cache)
 
     # -- measurement feedback ------------------------------------------------
     def observe(self, record: KernelRecord, sig: SigType,
@@ -142,12 +151,22 @@ class CostModelScheduler:
             return n % self.sample_every == 0
 
     # -- failure quarantine ---------------------------------------------------
+    @property
+    def epoch(self) -> int:
+        """Monotonic quarantine-state version: bumps whenever
+        :meth:`mark_failed` / :meth:`clear_failures` changes the failed set,
+        so holders of derived state (graph candidate caches, compiled graphs
+        with pinned placements) can detect staleness cheaply."""
+        with self._lock:
+            return self._epoch
+
     def mark_failed(self, record: KernelRecord) -> None:
         """Quarantine a record whose execution raised: selection skips it
         until :meth:`clear_failures`.  Process-local, never persisted."""
         key = _record_key(record)
         with self._lock:
             self._failed[key] = self._failed.get(key, 0) + 1
+            self._epoch += 1
 
     def failed_record_keys(self) -> List[str]:
         """The currently-quarantined record keys (``alias|platform|prio:ver``)."""
@@ -160,9 +179,26 @@ class CostModelScheduler:
 
     def clear_failures(self) -> None:
         with self._lock:
+            if self._failed:
+                self._epoch += 1
             self._failed.clear()
 
     # -- selection -----------------------------------------------------------
+    def estimate(self, record: KernelRecord, sig: SigType,
+                 args: Sequence[Any]) -> Optional[float]:
+        """Best available latency estimate for one record, or None: the
+        measured EMA, then the record's analytic cost model."""
+        est = self.measured(record, sig)
+        if est is not None:
+            return est
+        if record.cost_model is not None:
+            try:
+                return float(record.cost_model(*args))
+            except Exception:
+                log.debug("cost_model raised for %s/%s", record.alias,
+                          record.platform, exc_info=True)
+        return None
+
     def choose(self, alias: str, candidates: Sequence[KernelRecord],
                args: Sequence[Any], explore: bool = False
                ) -> Optional[KernelRecord]:
@@ -176,7 +212,7 @@ class CostModelScheduler:
         if not candidates:
             return None
         sig = abstract_signature(args)
-        estimates = [self.measured(rec, sig) for rec in candidates]
+        estimates = [self.estimate(rec, sig, args) for rec in candidates]
         if explore and self.explore_every \
                 and any(e is None for e in estimates) \
                 and any(e is not None for e in estimates):
@@ -192,6 +228,46 @@ class CostModelScheduler:
             if est is not None and (best is None or est < best[0]):
                 best = (est, i)
         return candidates[best[1]] if best is not None else None
+
+    # -- graph placement (DESIGN.md §8) ---------------------------------------
+    def transfer_penalty(self, nbytes: int) -> float:
+        """Estimated seconds to stage one node's inputs onto a different
+        substrate than the one that produced them."""
+        return self.transfer_latency_s + max(0, nbytes) / self.transfer_bandwidth
+
+    def place(self, alias: str, candidates: Sequence[KernelRecord],
+              args: Sequence[Any], parent_platforms: Sequence[str] = (),
+              payload_bytes: int = 0,
+              backlog: Optional[Dict[str, float]] = None
+              ) -> Optional[KernelRecord]:
+        """Per-node graph placement: cheapest estimated completion time.
+
+        Score = latency estimate + the substrate's queued graph seconds
+        (``backlog``: spreads independent branches across agents) + one
+        :meth:`transfer_penalty` per parent that ran on another substrate
+        (keeps dependent chains together unless splitting pays).  A
+        candidate with no estimate scores as the worst estimated one.
+        Returns None when no candidate has an estimate — callers fall back
+        to static preference with parent-platform affinity."""
+        if not candidates:
+            return None
+        sig = abstract_signature(args)
+        estimates = [self.estimate(rec, sig, args) for rec in candidates]
+        known = [e for e in estimates if e is not None]
+        if not known:
+            return None
+        proxy = max(known)
+        best: Optional[Tuple[float, int]] = None
+        for i, rec in enumerate(candidates):
+            score = estimates[i] if estimates[i] is not None else proxy
+            if backlog:
+                score += backlog.get(rec.platform, 0.0)
+            score += sum(self.transfer_penalty(payload_bytes)
+                         for p in parent_platforms
+                         if p is not None and p != rec.platform)
+            if best is None or score < best[0]:
+                best = (score, i)
+        return candidates[best[1]]
 
     # -- persistence ---------------------------------------------------------
     def load(self, path: os.PathLike) -> None:

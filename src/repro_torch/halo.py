@@ -11,6 +11,11 @@ short names as ``repro.halo``::
     c = halo.recv(cr)                      # device-ready
     reqs = [halo.isend((a, b), halo.claim("EWADD"), mailbox=False)]
     outs = halo.waitall(reqs)
+    with halo.graph(launch=False) as g:    # capture a DAG (DESIGN.md §8)
+        t = halo.isend((a, b), halo.claim("EWMM"))
+        u = halo.isend((t, b), halo.claim("EWADD"))
+    cg = g.compile()                       # fuse + plan (§12)
+    out, = cg.replay()
     halo.finalize()
 
 Each name re-exports the object :mod:`repro_torch.core.c2mpi` defines.
@@ -27,9 +32,18 @@ from .core.c2mpi import (MPIX_Claim as claim,
                          MPIX_Test as test, MPIX_Wait as wait,
                          MPIX_Waitall as waitall, halo_dispatch as dispatch,
                          halo_session as session)
+from .core.config import HaloConfig, configure
+from .core.config import halo_config as config
+from .core.fusion import CompiledGraph, compile_graph
+from .core.graph import ExecutionGraph
+from .core.graph import halo_graph as graph
 
 __all__ = [
     "initialize", "finalize", "session", "dispatch", "claim", "send",
     "recv", "isend", "irecv", "wait", "waitall", "test", "send_fwd",
     "create_buffer", "free", "HaloFuture",
+    # graph capture / compiled replay (§8, §12)
+    "graph", "compile_graph", "ExecutionGraph", "CompiledGraph",
+    # configuration (typed env knobs)
+    "HaloConfig", "configure", "config",
 ]

@@ -12,7 +12,9 @@ Each subpackage ships three artifacts per kernel:
 :func:`register_all` publishes three rows per alias with Table-II
 attributes — ``torch`` (oracle, priority 0, fail-safe), ``aten`` (library,
 10) and ``hopper`` (kernel, 20) — so the runtime agent resolves each alias
-to the best feasible substrate (hopper > aten > torch by default).
+to the best feasible substrate (hopper > aten > torch by default), and
+declares which aliases the graph fusion pass (DESIGN.md §12) may collapse
+into chains.
 """
 from __future__ import annotations
 
@@ -109,6 +111,32 @@ def register_all(registry=None) -> None:
         registry.register(_rec(alias, ref_fn, "torch", 0, failsafe=True))
         registry.register(_rec(alias, aten_fn, "aten", 10))
         registry.register(_rec(alias, hopper_fn, "hopper", 20, supports=ok))
+
+    # Data-movement builtins (DESIGN.md §10): every substrate carries a row,
+    # so a graph can stage a value on whichever agent runs its consumer.
+    # No TPU kernel stands behind them: their rows are ATen calls.
+    from .staging import concat_ref, copy_ref, copy_stage
+    registry.register(_rec("COPY", copy_ref, "torch", 0, failsafe=True))
+    registry.register(_rec("COPY", copy_stage, "aten", 10))
+    registry.register(_rec("COPY", copy_stage, "hopper", 20))
+    registry.register(_rec("CONCAT", concat_ref, "torch", 0, failsafe=True))
+    registry.register(_rec("CONCAT", concat_ref, "aten", 10))
+    registry.register(_rec("CONCAT", concat_ref, "hopper", 20))
+
+    # Fusibility rules (DESIGN.md §12): EW* members carry the element-wise
+    # op the chain kernel (csrc/fused.cu) applies; COPY is a unary
+    # pass-through; RMSNORM/MVM/JS fuse as a call loop; MMM may only end a
+    # chain.  Rules are global (alias semantics, not registry state).
+    from ..core.fusion import register_fusible
+    register_fusible("EWMM", ewise_op="mul")
+    register_fusible("EWMD", ewise_op="div")
+    register_fusible("EWADD", ewise_op="add")
+    register_fusible("EWSUB", ewise_op="sub")
+    register_fusible("COPY", unary=True)
+    register_fusible("RMSNORM")
+    register_fusible("MVM")
+    register_fusible("JS")
+    register_fusible("MMM", terminal=True)
 
     if registry is GLOBAL_REGISTRY:
         _REGISTERED = True

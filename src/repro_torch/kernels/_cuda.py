@@ -73,6 +73,10 @@ _SIGNATURES = {
     # prefix, scale, dtype, stream
     "halo_flash_attention": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
                              _int, _int, _int, _int, _int, _f, _int, _vp],
+    # inputs (void* array), n_in, steps (int array), n_steps, out, n, dtype,
+    # vec, stream
+    "halo_fused": [ctypes.POINTER(_vp), _int, ctypes.POINTER(_int), _int, _vp,
+                   _ll, _int, _int, _vp],
 }
 
 _lock = threading.Lock()

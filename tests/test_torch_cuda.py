@@ -22,6 +22,8 @@ from repro_torch.kernels.fft.ops import cached_twiddles
 from repro_torch.kernels.fft.ref import dft_ref
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_hopper
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.fused import (ACC, MAX_INPUTS, MAX_STEPS,
+                                       ewise_chain_hopper, ewise_chain_ref)
 from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
 from repro_torch.kernels.jacobi.ops import jacobi_solve
 from repro_torch.kernels.jacobi.ref import jacobi_step_ref
@@ -511,5 +513,180 @@ def test_hopper_error_on_the_card_reaches_the_waiter(card):
         # host operands keep the fail-safe ladder
         rt.send((torch.ones(2),), rt.claim("X"))
         assert rt.agents["torch"].metrics["requests"] == 1
+    finally:
+        rt.finalize()
+
+
+#: fused chains over inputs 0..4 (the divisors — odd inputs and input 4 —
+#: shifted by +3 away from 0)
+CHAINS = {
+    "ew4": (("mul", 0, 1), ("add", ACC, 2), ("sub", ACC, 3), ("div", ACC, 4)),
+    "every op, acc second": (("sub", 0, 1), ("div", 2, ACC), ("mul", ACC, 3),
+                             ("sub", 4, ACC), ("add", 1, ACC), ("div", ACC, 4)),
+    "copy": (("copy", 2, None), ("mul", ACC, 0), ("copy", ACC, None),
+             ("add", ACC, 3)),
+    "input twice": (("mul", 0, 0), ("div", ACC, 4), ("add", ACC, 0)),
+    "caps": (("copy", 0, None),) + tuple(
+        (("add", "mul", "sub", "div")[s % 4], ACC, s % MAX_INPUTS)
+        for s in range(1, MAX_STEPS)),
+}
+
+
+def _chain_inputs(card, shape, k, dtype, seed=0):
+    return [_rnd(card, *shape, dtype=dtype, seed=seed + j,
+                 shift=3.0 if j % 2 or j == 4 else 0.0) for j in range(k)]
+
+
+def _serial_chain(xs, steps):
+    acc = None
+    for op, a, b in steps:
+        x = acc if a == ACC else xs[a]
+        acc = x.clone() if op == "copy" else ewise_hopper(
+            x, acc if b == ACC else xs[b], op)
+    return acc
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", sorted(CHAINS))
+@pytest.mark.parametrize("shape", [(1,), (37, 129), (3, 5, 7), (100_003,)])
+def test_fused_chain_kernel_is_bit_exact(card, dtype, name, shape):
+    """The chain kernel equals its plain version and the serial EW kernel
+    launches bit for bit in every type."""
+    steps = CHAINS[name]
+    k = MAX_INPUTS if name == "caps" else 5
+    xs = _chain_inputs(card, shape, k, dtype)
+    out = ewise_chain_hopper(*xs, steps=steps)
+    assert out.dtype == dtype and out.shape == xs[0].shape
+    assert torch.equal(_bits(out), _bits(ewise_chain_ref(*xs, steps=steps)))
+    assert torch.equal(_bits(out), _bits(_serial_chain(xs, steps)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_chain_kernel_unaligned_views(card, dtype):
+    """Pointers off the 16-byte grid take the scalar path."""
+    steps = CHAINS["every op, acc second"]
+    xs = [x[1:] for x in _chain_inputs(card, (4099,), 5, dtype)]
+    out = ewise_chain_hopper(*xs, steps=steps)
+    assert torch.equal(_bits(out), _bits(ewise_chain_ref(*xs, steps=steps)))
+    assert torch.equal(_bits(out), _bits(_serial_chain(xs, steps)))
+
+
+def test_fused_chain_kernel_refuses_what_it_does_not_take(card):
+    xs = _chain_inputs(card, (8, 8), 2, torch.float32)
+    steps = (("add", 0, 1),)
+    before = _cuda.launch_counts()["fused"]
+    for bad in ([xs[0], xs[1].t()], [xs[0], xs[1].to(torch.bfloat16)],
+                [xs[0], xs[1][:4]], [xs[0].cpu(), xs[1].cpu()]):
+        with pytest.raises(ValueError):
+            ewise_chain_hopper(*bad, steps=steps)
+    for steps in ((("add", ACC, 0),), (("add", 0, 2),), ()):
+        with pytest.raises(ValueError):
+            ewise_chain_hopper(*xs, steps=steps)
+    assert _cuda.launch_counts()["fused"] == before
+    ewise_chain_hopper(*xs, steps=(("add", 0, 1),))
+    assert _cuda.launch_counts()["fused"] == before + 1
+
+
+def _card_session(card):
+    reg = KernelRegistry()
+    register_all(reg)
+    return RuntimeAgent(registry=reg, device=card)
+
+
+@pytest.mark.parametrize("contract", [True, False], ids=["contract", "loop"])
+def test_compiled_replay_on_the_card_runs_the_kernels(card, contract):
+    """A 4-step EW chain compiled and replayed on the card: one chain kernel
+    launch per replay under fusion_contract, four EW launches without; the
+    result equals serial dispatch bit for bit."""
+    from repro_torch.core.config import configure
+    from repro_torch.core.graph import halo_graph
+    rt = _card_session(card)
+    configure(fusion_contract=contract)
+    try:
+        xs = _chain_inputs(card, (256, 300), 5, torch.float32)
+        pin = {"allowed_platforms": ["hopper"]}
+        crs = [rt.claim(al, overrides=pin) for al in ("EWMM", "EWADD", "EWSUB",
+                                                        "EWMD")]
+
+        def program(send):
+            t = send(crs[0], (xs[0], xs[1]))
+            for cr, j in zip(crs[1:], (2, 3, 4)):
+                t = send(cr, (t, xs[j]))
+            return t
+
+        ref = program(lambda cr, p: rt.isend(p, cr, mailbox=False).result(60))
+        with halo_graph(session=rt, launch=False) as g:
+            program(lambda cr, p: rt.isend(p, cr))
+        cg = g.compile()
+        before = _cuda.launch_counts()
+        (out,) = cg.replay(timeout=60)
+        torch.cuda.synchronize(card)
+        after = _cuda.launch_counts()
+        assert after["fused"] - before["fused"] == (1 if contract else 0)
+        assert after["ewise"] - before["ewise"] == (0 if contract else 4)
+        assert torch.equal(_bits(out), _bits(ref))
+    finally:
+        configure(fusion_contract=None)
+        rt.finalize()
+
+
+def test_graph_launches_on_the_launching_stream(card, monkeypatch):
+    """Graph nodes run on the agents' workers but launch on the stream that
+    was current where the graph was launched, so the work queued before it
+    (the inputs) is ordered before every node."""
+    from repro_torch.core.graph import halo_graph
+    rt = _card_session(card)
+    seen = []
+    real = _cuda.stream
+
+    def spy(device):
+        seen.append(real(device))
+        return seen[-1]
+
+    monkeypatch.setattr(_cuda, "stream", spy)
+    side = torch.cuda.Stream(card)
+    try:
+        with torch.cuda.stream(side):
+            a = _rnd(card, 2048, 2048, dtype=torch.float32)
+            b = (a @ a) / 2048
+            pin = {"allowed_platforms": ["hopper"]}
+            with halo_graph(session=rt) as g:
+                t = rt.isend((b, b), rt.claim("EWADD", overrides=pin))
+                rt.isend((t, b), rt.claim("EWMM", overrides=pin))
+            (out,) = g.wait(timeout=60)
+            g.wait_device()
+        assert seen == [side.cuda_stream] * 2
+        assert torch.equal(_bits(out), _bits((b + b) * b))
+    finally:
+        rt.finalize()
+
+
+def test_failing_fused_hopper_record_on_the_card_fails_its_node(card):
+    """A fused hopper record that raises on card tensors fails its node at
+    once: no quarantine, no re-placement, no decomposition onto members."""
+    from repro_torch.core.graph import halo_graph
+    rt = _card_session(card)
+    try:
+        xs = _chain_inputs(card, (64, 64), 3, torch.float32)
+        crs = [rt.claim(al) for al in ("EWMM", "EWADD")]
+        with halo_graph(session=rt, launch=False) as g:
+            t = rt.isend((xs[0], xs[1]), crs[0])
+            rt.isend((t, xs[2]), crs[1])
+        cg = g.compile()
+        (alias,) = cg.stats["fused_aliases"]
+        hop = next(r for r in rt.registry.records(alias)
+                   if r.platform == "hopper")
+        assert cg.templates[0].pinned is hop
+
+        def broken(*args):
+            raise RuntimeError("kernel launch failed")
+
+        hop.fn = broken
+        gr = cg.replay_async()
+        with pytest.raises(RuntimeError, match="kernel launch failed"):
+            gr.wait(timeout=60)
+        node = gr.nodes[0]
+        assert node.attempts == ["hopper"]
+        assert rt.scheduler.failed_record_keys() == []
     finally:
         rt.finalize()

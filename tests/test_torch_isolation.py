@@ -53,6 +53,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import sys, torch\n"
         "import repro_torch, repro_torch.halo, repro_torch.quickstart\n"
         "import repro_torch.launch.serve, repro_torch.serve.engine\n"
+        "import repro_torch.core.graph, repro_torch.core.fusion\n"
+        "import repro_torch.kernels.fused, repro_torch.graph_pipeline\n"
         "import repro_torch.kernels as k\n"
         "from repro_torch.core.compute_object import to_numpy\n"
         "k.register_all()\n"
@@ -84,7 +86,7 @@ HOPPER_PATH = [PKG / "kernels" / d / f
                                ("spmm", "spmm"), ("fft", "fft"),
                                ("sorthist", "sorthist"), ("rmsnorm", "rmsnorm"),
                                ("flash_attention", "flash_attention"))
-               for f in (f"{name}.py", "ops.py")]
+               for f in (f"{name}.py", "ops.py")] + [PKG / "kernels" / "fused.py"]
 LIBRARY_CALLS = {"matmul", "mm", "mv", "dot", "bmm", "baddbmm", "einsum",
                  "mul", "div", "add", "sub", "conv1d", "fft", "sort",
                  "argsort", "msort", "histc", "bincount", "rms_norm",
@@ -113,7 +115,7 @@ ENTRY = {"spmm": "smmm"}
 
 @pytest.mark.parametrize("name", ["mmm", "ewise", "mvm", "vdp", "jacobi",
                                   "conv1d", "spmm", "fft", "sort", "hist",
-                                  "rmsnorm", "flash_attention"])
+                                  "rmsnorm", "flash_attention", "fused"])
 def test_kernel_sources_carry_their_note(name):
     src = (PKG / "csrc" / f"{name}.cu").read_text()
     head = src.split("#include")[0]
@@ -129,3 +131,23 @@ def test_build_flags_target_sm90a_without_fast_math():
     assert "fast_math" not in flags and "fast-math" not in flags
     assert len(_cuda.source_hash()) == 16
     assert _cuda.BUILD_ROOT.relative_to(PKG).parts == ("_build",)
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.core.c2mpi", "repro_torch.core.config",
+    "repro_torch.core.fusion", "repro_torch.core.graph",
+    "repro_torch.core.registry", "repro_torch.core.scheduler",
+    "repro_torch.kernels.fused", "repro_torch.halo"])
+def test_public_api_has_docstrings(module):
+    """As tests/test_docstrings.py asks of the reference's core modules:
+    ``__all__`` resolves and every function or class in it has a one-line
+    docstring summary."""
+    import importlib
+    import inspect
+    mod = importlib.import_module(module)
+    assert getattr(mod, "__all__", None), f"{module}: no __all__"
+    for sym in mod.__all__:
+        obj = getattr(mod, sym)
+        if inspect.isfunction(obj) or inspect.isclass(obj):
+            doc = inspect.getdoc(obj)
+            assert doc and doc.strip().splitlines()[0].strip(), f"{module}.{sym}"
