@@ -48,7 +48,7 @@ Phases (any failure exits non-zero before the result lines are printed):
    rebinding an input, each output bit-identical to serial blocking
    dispatch of the same members: an EW chain EWMM → EWADD → EWSUB → EWMD
    over 8192² float32 and bfloat16 (one launch of the chain kernel per
-   replay under ``fusion_contract``, four EW launches without); a decode
+   replay); a decode
    chain MVM → EWADD → RMSNORM × 24 layers at danube's d_model 2560 in
    bfloat16, one fused call loop; 30 Jacobi sweeps on the phase-3 system,
    fused, in the same graph as the EW chain.  Compile stats, launch counts
@@ -1037,22 +1037,21 @@ def phase3c(dev, card):
     js_w["A"], js_w["x0"], js_w["bJ"] = js_system(GRAPH["js_n"], torch.float32,
                                                   gen, dev)
     # (name, program, inputs, the input rebound on every other replay,
-    #  fusion_contract, expected stats, expected launches per replay)
+    #  expected stats, expected launches per replay)
     n_dec, sweeps = 3 * layers, GRAPH["js_sweeps"]
     workloads = [
-        (f"EW chain {dt_name} {mode}", ew_program, ew_inputs(dt), "a", contract,
+        (f"EW chain {dt_name}", ew_program, ew_inputs(dt), "a",
          dict(captured_nodes=4, nodes=1, fused_nodes=1, intermediates_eliminated=3),
-         {"fused": 1} if contract else {"ewise": 4})
-        for dt, dt_name in ((torch.float32, "float32"), (bf16, "bfloat16"))
-        for contract, mode in ((True, "contract"), (False, "default"))]
+         {"fused": 1})
+        for dt, dt_name in ((torch.float32, "float32"), (bf16, "bfloat16"))]
     workloads += [
         (f"decode chain bfloat16 {layers} layers", decode_program, decode_w, "x",
-         False, dict(captured_nodes=n_dec, nodes=1, fused_nodes=1,
-                     intermediates_eliminated=n_dec - 1),
+         dict(captured_nodes=n_dec, nodes=1, fused_nodes=1,
+              intermediates_eliminated=n_dec - 1),
          {"mvm": layers, "ewise": layers, "rmsnorm": layers}),
-        (f"EW chain + {sweeps} JS sweeps float32 contract", ew_js_program, js_w,
-         "x0", True, dict(captured_nodes=4 + sweeps, nodes=2, fused_nodes=2,
-                          intermediates_eliminated=3 + sweeps - 1),
+        (f"EW chain + {sweeps} JS sweeps float32", ew_js_program, js_w, "x0",
+         dict(captured_nodes=4 + sweeps, nodes=2, fused_nodes=2,
+              intermediates_eliminated=3 + sweeps - 1),
          {"fused": 1, "jacobi": sweeps})]
 
     def sync():
@@ -1076,8 +1075,7 @@ def phase3c(dev, card):
 
     _cuda.reset_launch_counts()
     compiled = []
-    for name, program, w, swap, contract, want_stats, per_replay in workloads:
-        halo.configure(fusion_contract=contract)
+    for name, program, w, swap, want_stats, per_replay in workloads:
         crs = claims(program, w)
         alt = dict(w, **{swap: w[swap] * 1.5 + 0.25})
         refs = [serial(program, w, crs), serial(program, alt, crs)]
@@ -1120,15 +1118,14 @@ def phase3c(dev, card):
             a, b = w["A"].double(), w["bJ"].double()
             resid = float((a @ x.double() - b).norm() / b.norm())
             check_close(f"{name}: JS ‖Ax−b‖/‖b‖", resid, torch.float32, JS_RESIDUAL)
-        compiled.append((name, program, w, contract, crs, cg))
+        compiled.append((name, program, w, crs, cg))
     launches = _cuda.launch_counts()
 
     # times: serial blocking send/recv, a fresh capture + launch, compiled
     # replay; median of E2E_REPEATS per workload, one step each
     print(f"  times on {card} (median of {E2E_REPEATS}, ms per step):")
     stats = {}
-    for name, program, w, contract, crs, cg in compiled:
-        halo.configure(fusion_contract=contract)
+    for name, program, w, crs, cg in compiled:
 
         def timed(fn, host=None):
             walls = []
@@ -1160,7 +1157,6 @@ def phase3c(dev, card):
               + (f"{busy:.3f} ms per replay, busy share "
                  f"{row['device_busy_share']:.3f}" if busy > 0
                  else "time not measured (the profiler saw none)"))
-    halo.configure(fusion_contract=None)
     halo.finalize()
     return launches, stats
 
@@ -1360,10 +1356,14 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     chain = FUSED_CHAINS["4-step ((a·b + c) − d) / e"]
     gen5 = torch.Generator(device=dev).manual_seed(5)
     chain_x = [torch.randn((SIZES["EW"], SIZES["EW"]), generator=gen5, device=dev)
-               + fused_shift(j) for j in range(5)]
+               for _ in range(5)]
+    chain_x[4] = chain_x[4].abs() + 1.0          # the divisor, away from 0
     fused_bound = bound(4 * 6 * chain_x[0].numel(), 4 * chain_x[0].numel())
     max_abs["fused"] = float((wide(ewise_chain_hopper(*chain_x, steps=chain))
                               - wide(ewise_chain_ref(*chain_x, steps=chain))).abs().max())
+    if max_abs["fused"] != 0.0:                  # phase 2 holds it bit-exact
+        fail(f"fused chain at {SIZES['EW']}² float32 differs from its plain "
+             f"version by {max_abs['fused']}")
 
     def four_aten(a, b, c, d, e):
         return torch.div(torch.sub(torch.add(torch.mul(a, b), c), d), e)

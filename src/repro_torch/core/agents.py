@@ -464,7 +464,7 @@ class RuntimeAgent:
         self._t1_seconds = 0.0
         self._t1_calls = 0
         # per-session compiled-graph cache (DESIGN.md §12): graph key ->
-        # CompiledGraph, LRU-bounded by the ``graph_cache`` knob
+        # CompiledGraph, LRU-bounded by ``fusion.GRAPH_CACHE``
         self._compiled_graphs: "collections.OrderedDict[str, Any]" = \
             collections.OrderedDict()
 

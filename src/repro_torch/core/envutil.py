@@ -1,40 +1,14 @@
 """``HALO_*`` environment-variable parsing (port of ``repro.core.envutil``).
 
-Only the readers the port's knobs use are kept.  An unset or empty variable
-yields the default, matching the reference's semantics; a malformed number
-warns and yields the default instead of raising deep inside an init path.
+Only the reader the port's knobs use is kept.  An unset or empty variable
+yields the default, matching the reference's semantics.
 """
 from __future__ import annotations
 
-import logging
 import os
 from typing import Optional
 
-log = logging.getLogger("repro_torch.halo.env")
-
-__all__ = ["env_flag", "env_int", "env_path"]
-
-
-def env_int(name: str, default: int) -> int:
-    """``int(os.environ[name])`` with warn-and-fallback on malformed values."""
-    raw = os.environ.get(name)
-    if raw is None or raw == "":
-        return default
-    try:
-        return int(raw)
-    except ValueError:
-        log.warning("ignoring non-integer %s=%r (using default %r)",
-                    name, raw, default)
-        return default
-
-
-def env_flag(name: str, default: bool = False) -> bool:
-    """Boolean knob: unset/empty -> ``default``; ``"0"`` -> False; any other
-    value -> True."""
-    raw = os.environ.get(name)
-    if raw is None or raw == "":
-        return default
-    return raw != "0"
+__all__ = ["env_path"]
 
 
 def env_path(name: str, default: Optional[str] = None) -> Optional[str]:

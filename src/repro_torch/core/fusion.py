@@ -6,20 +6,21 @@ port of ``repro.core.fusion``.
   declares the per-alias rules) and collapses each into one synthetic
   ``FUSED:*`` :class:`~repro_torch.core.registry.KernelRecord` with two
   rows: ``aten`` (priority 10), a call loop over the members' aten records,
-  and ``hopper`` (20), a call loop over the members' hopper records — or,
-  for pure element-wise chains under the ``fusion_contract`` knob, the
-  hand-written chain kernel ``csrc/fused.cu`` in one launch.  Both modes
-  are bit-identical to serial member execution: the call loops run the
-  members' own launches, and the chain kernel rounds as each EW launch
-  does.  Fused records estimate as the sum of their members' estimates
-  until measured.
+  and ``hopper`` (20): for a pure element-wise chain the hand-written chain
+  kernel ``csrc/fused.cu`` in one launch, for a mixed chain a call loop over
+  the members' hopper records.  Both are bit-identical to serial member
+  execution: the call loops run the members' own launches, and the chain
+  kernel rounds as each EW launch does, so the reference's
+  ``HALO_FUSION_CONTRACT`` choice between the two has no counterpart here.
+  Fused records estimate as the sum of their members' estimates until
+  measured.
 * **Buffer planning** — chain intermediates never become node payloads;
   single-consumer inputs produced inside the same graph are planned for
   donation and counted (``stats["planned_donations"]``); writing into a
   donated buffer is not implemented.
 * **Replay** — :func:`compile_graph` freezes the optimized DAG into a
   :class:`CompiledGraph` keyed by (topology hash, shapes, dtypes, devices,
-  placement epoch), cached per session (``graph_cache`` entries).
+  placement epoch), cached per session (:data:`GRAPH_CACHE` entries).
   ``replay()`` re-instantiates nodes from templates — no re-capture, no
   payload re-scanning, and placement pinned to the plan.
 
@@ -47,7 +48,6 @@ import torch
 
 from .agents import HaloFuture, RuntimeAgent
 from .compute_object import ComputeObject, as_compute_object
-from .config import halo_config
 from .registry import KernelAttributes, KernelRecord, SelectionError
 from .scheduler import abstract_signature
 
@@ -72,6 +72,9 @@ _MAX_PAYLOAD = 64
 
 #: member-feasibility cache entries per fused hopper loop record
 _FEASIBLE_CACHE_MAX = 64
+
+#: LRU capacity of the per-session compiled-graph cache
+GRAPH_CACHE = 16
 
 
 # ---------------------------------------------------------------------------
@@ -371,15 +374,11 @@ def _loop_supports(registry, members: Sequence[MemberSpec],
     return supports
 
 
-def _fused_alias(members: Sequence[MemberSpec], donate: Sequence[int],
-                 kernel: bool = False) -> str:
-    """``FUSED:A+B+…@hash``; ``kernel`` (the chain kernel's records, under
-    ``fusion_contract``) gives another alias than the call loops'."""
+def _fused_alias(members: Sequence[MemberSpec], donate: Sequence[int]) -> str:
+    """``FUSED:A+B+…@hash``."""
     desc = "+".join(m.alias for m in members)
     spec = repr([(m.alias, m.argmap, sorted(m.kwargs.items()))
                  for m in members]) + repr(sorted(donate))
-    if kernel:
-        spec += ";chain-kernel"
     return f"FUSED:{desc}@{hashlib.sha1(spec.encode()).hexdigest()[:8]}"
 
 
@@ -389,36 +388,32 @@ def _ensure_fused_records(session: RuntimeAgent, alias: str,
                           donate: Sequence[int]) -> List[KernelRecord]:
     """Register (idempotently) the synthetic records for one fused alias.
 
-    ``aten`` (10): a call loop over the members' aten records, in both
-    modes (the reference's single-jit contract composition has no
-    counterpart here).  ``hopper`` (20): under ``fusion_contract`` a pure
-    element-wise chain is the chain kernel (``csrc/fused.cu``, one
-    launch); otherwise a call loop over the members' hopper records, when
-    every member has one.  No fail-safe row: an exhausted fused node
-    decomposes back to its members, which *is* the fail-safe."""
+    ``aten`` (10): a call loop over the members' aten records (the
+    reference's single-jit composition has no counterpart here).
+    ``hopper`` (20): a pure element-wise chain is the chain kernel
+    (``csrc/fused.cu``, one launch); a mixed chain is a call loop over the
+    members' hopper records, when every member has one.  No fail-safe row:
+    an exhausted fused node decomposes back to its members, which *is* the
+    fail-safe."""
     registry = session.registry
     existing = registry.records(alias)
     if existing:
         return existing
     from ..kernels.fused import ACC, ewise_chain, make_composed
 
-    cfg = halo_config()
     cost = _sum_of_parts_cost(session, members)
     argmaps = [tuple(ACC if s == CHAIN else s for s in m.argmap)
                for m in members]
     kwargs_list = [dict(m.kwargs) for m in members]
-    planned = (f"; donation of payload slot(s) {sorted(donate)} planned, "
-               f"not applied" if donate and cfg.fusion_donate else "")
     aten_recs = [_member_record(registry, m.alias, "aten") for m in members]
     out = [registry.register(KernelRecord(
         alias=alias, fn=make_composed([r.fn for r in aten_recs], argmaps,
                                       kwargs_list),
         platform="aten", attrs=KernelAttributes(sw_fid=f"fid:{alias.lower()}"),
         priority=10, cost_model=cost,
-        doc=f"composition loop over {len(members)} chained aten "
-            f"kernels{planned}"))]
+        doc=f"composition loop over {len(members)} chained aten kernels"))]
     hw = dict(vid="nvidia", pid="h100")
-    if cfg.fusion_contract and ew_steps is not None:
+    if ew_steps is not None:
         out.append(registry.register(KernelRecord(
             alias=alias, fn=functools.partial(ewise_chain, steps=ew_steps),
             platform="hopper",
@@ -426,7 +421,7 @@ def _ensure_fused_records(session: RuntimeAgent, alias: str,
             priority=20, supports=_chain_supports(n_inputs, ew_steps),
             cost_model=cost,
             doc=f"hand-written chain kernel over {len(members)} ewise ops "
-                f"(csrc/fused.cu, fusion_contract){planned}")))
+                f"(csrc/fused.cu)")))
         return out
     hop_recs = [_member_record(registry, m.alias, "hopper") for m in members]
     if all(r.platform == "hopper" for r in hop_recs):
@@ -438,7 +433,7 @@ def _ensure_fused_records(session: RuntimeAgent, alias: str,
             priority=20, supports=_loop_supports(registry, members, hop_recs),
             cost_model=cost,
             doc=f"composition loop over {len(members)} chained hopper "
-                f"kernels{planned}")))
+                f"kernels")))
     return out
 
 
@@ -586,16 +581,14 @@ def _callable_uid(fn: Callable) -> int:
             return id(fn)
 
 
-def _graph_key(g, fuse: bool, contract: bool,
-               slot_idx: Dict[int, int]) -> str:
+def _graph_key(g, fuse: bool, slot_idx: Dict[int, int]) -> str:
     """Cache key: topology + shapes/dtypes/devices + kwargs/overrides + the
-    fusion mode + placement epoch.  A quarantine change (scheduler epoch)
+    fusion switch + placement epoch.  A quarantine change (scheduler epoch)
     invalidates every compiled plan, so stale pinned placements are never
     replayed."""
     sched = g.session.scheduler
     h = hashlib.sha1()
-    h.update(f"fuse={int(fuse)};contract={int(contract)};"
-             f"epoch={sched.epoch if sched else 0}".encode())
+    h.update(f"fuse={int(fuse)};epoch={sched.epoch if sched else 0}".encode())
     for node in g.nodes:
         # stateless CRs key by presence only (re-claiming the same alias
         # between steps still hits); stateful CRs key by uid
@@ -745,8 +738,12 @@ def _ewise_steps(chain: List[Any], members: List[MemberSpec],
                  payload: List[Any], table: Dict[int, Any]
                  ) -> Optional[Tuple]:
     """Static step tuple for the chain kernel, or None when the chain is
-    not purely element-wise over operands of one shape and type."""
-    from ..kernels.fused import ACC
+    not purely element-wise over operands of one shape and type, or is
+    over the kernel's caps (such a chain keeps the hopper call loop)."""
+    from ..kernels.fused import ACC, MAX_INPUTS, MAX_STEPS
+
+    if len(payload) > MAX_INPUTS or len(members) > MAX_STEPS:
+        return None
 
     out = table[id(chain[-1])]
     shape, dtype = tuple(out.shape), out.dtype
@@ -833,14 +830,14 @@ def _keep(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def compile_graph(g, fuse: Optional[bool] = None) -> CompiledGraph:
+def compile_graph(g, fuse: bool = True) -> CompiledGraph:
     """Run the capture-time optimization pass over an unlaunched captured
     graph and freeze it into a session-cached :class:`CompiledGraph`.
 
-    ``fuse=None`` follows the ``fusion`` knob (default on; off keeps replay
-    caching).  Raises :class:`~repro_torch.core.graph.GraphError` for
-    launched graphs and graphs gated on foreign futures (their readiness is
-    external state a frozen replay cannot reproduce)."""
+    ``fuse=False`` skips the fusion pass and keeps replay caching.  Raises
+    :class:`~repro_torch.core.graph.GraphError` for launched graphs and
+    graphs gated on foreign futures (their readiness is external state a
+    frozen replay cannot reproduce)."""
     from .graph import GraphError
     session = g.session
     if g._launched:
@@ -851,12 +848,8 @@ def compile_graph(g, fuse: Optional[bool] = None) -> CompiledGraph:
             raise GraphError(
                 f"node {node.uid} ({node.alias}) depends on a future from "
                 f"outside this graph; compiled replay requires a closed DAG")
-    cfg = halo_config()
-    if fuse is None:
-        fuse = cfg.fusion
-
     slots, slot_idx = _collect_inputs(g)
-    key = _graph_key(g, fuse, cfg.fusion_contract, slot_idx)
+    key = _graph_key(g, fuse, slot_idx)
     cache = session._compiled_graphs
     hit = cache.get(key)
     if hit is not None:
@@ -891,8 +884,7 @@ def compile_graph(g, fuse: Optional[bool] = None) -> CompiledGraph:
                       if isinstance(e, HaloFuture)
                       and all(id(c) in chain_ids for c in e.children)]
             planned_donations += len(donate)
-            alias = _fused_alias(members, donate, kernel=cfg.fusion_contract
-                                 and ew_steps is not None)
+            alias = _fused_alias(members, donate)
             _ensure_fused_records(session, alias, members, len(payload),
                                   ew_steps, donate)
             fused_aliases.append(alias)
@@ -950,6 +942,6 @@ def compile_graph(g, fuse: Optional[bool] = None) -> CompiledGraph:
              "%d intermediate(s) eliminated)", key[:8], len(g.nodes),
              len(templates), len(chains), stats["intermediates_eliminated"])
     cache[key] = cg
-    while len(cache) > max(1, cfg.graph_cache):
+    while len(cache) > GRAPH_CACHE:
         cache.popitem(last=False)
     return cg

@@ -234,11 +234,11 @@ class ExecutionGraph:
         Shadow nodes (decomposed fused-chain members, §12) are excluded."""
         return [n for n in self.nodes if not n.children and not n._shadow]
 
-    def compile(self, fuse: Optional[bool] = None):
+    def compile(self, fuse: bool = True):
         """Freeze this captured (unlaunched) graph into a replayable,
         session-cached :class:`~repro_torch.core.fusion.CompiledGraph`,
-        running the §12 fusion pass on the way (``fuse=None`` follows the
-        ``fusion`` knob).  Capture with ``halo_graph(launch=False)``."""
+        running the §12 fusion pass on the way unless ``fuse=False``.
+        Capture with ``halo_graph(launch=False)``."""
         from .fusion import compile_graph
         return compile_graph(self, fuse=fuse)
 

@@ -28,7 +28,7 @@ import threading
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-from .config import halo_config
+from .envutil import env_path
 from .registry import KernelRecord
 
 log = logging.getLogger("repro_torch.halo.scheduler")
@@ -107,7 +107,7 @@ class CostModelScheduler:
     def default(cls) -> "CostModelScheduler":
         """Process-default scheduler: persistent iff ``HALO_AUTOTUNE_CACHE``
         is set."""
-        return cls(cache_path=halo_config().autotune_cache)
+        return cls(cache_path=env_path("HALO_AUTOTUNE_CACHE"))
 
     # -- measurement feedback ------------------------------------------------
     def observe(self, record: KernelRecord, sig: SigType,

@@ -32,8 +32,6 @@ from .core.c2mpi import (MPIX_Claim as claim,
                          MPIX_Test as test, MPIX_Wait as wait,
                          MPIX_Waitall as waitall, halo_dispatch as dispatch,
                          halo_session as session)
-from .core.config import HaloConfig, configure
-from .core.config import halo_config as config
 from .core.fusion import CompiledGraph, compile_graph
 from .core.graph import ExecutionGraph
 from .core.graph import halo_graph as graph
@@ -44,6 +42,4 @@ __all__ = [
     "create_buffer", "free", "HaloFuture",
     # graph capture / compiled replay (§8, §12)
     "graph", "compile_graph", "ExecutionGraph", "CompiledGraph",
-    # configuration (typed env knobs)
-    "HaloConfig", "configure", "config",
 ]

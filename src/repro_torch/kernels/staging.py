@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+__all__ = ["concat_ref", "copy_ref", "copy_stage"]
+
 
 def copy_ref(x):
     """Identity staging oracle (COPY fail-safe)."""

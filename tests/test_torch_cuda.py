@@ -593,40 +593,42 @@ def _card_session(card):
     return RuntimeAgent(registry=reg, device=card)
 
 
-@pytest.mark.parametrize("contract", [True, False], ids=["contract", "loop"])
-def test_compiled_replay_on_the_card_runs_the_kernels(card, contract):
-    """A 4-step EW chain compiled and replayed on the card: one chain kernel
-    launch per replay under fusion_contract, four EW launches without; the
-    result equals serial dispatch bit for bit."""
-    from repro_torch.core.config import configure
+@pytest.mark.parametrize("chain", ["ew", "mixed"])
+def test_compiled_replay_on_the_card_runs_the_kernels(card, chain):
+    """A chain compiled and replayed on the card: a 4-step EW chain is one
+    chain kernel launch per replay, a chain with an RMSNORM in it is a call
+    loop over the members' kernels; the result equals serial dispatch bit
+    for bit."""
     from repro_torch.core.graph import halo_graph
     rt = _card_session(card)
-    configure(fusion_contract=contract)
     try:
         xs = _chain_inputs(card, (256, 300), 5, torch.float32)
+        gamma = torch.ones(300, device=card)
         pin = {"allowed_platforms": ["hopper"]}
-        crs = [rt.claim(al, overrides=pin) for al in ("EWMM", "EWADD", "EWSUB",
-                                                        "EWMD")]
+        last = "EWMD" if chain == "ew" else "RMSNORM"
+        crs = [rt.claim(al, overrides=pin)
+               for al in ("EWMM", "EWADD", "EWSUB", last)]
 
         def program(send):
             t = send(crs[0], (xs[0], xs[1]))
-            for cr, j in zip(crs[1:], (2, 3, 4)):
+            for cr, j in zip(crs[1:3], (2, 3)):
                 t = send(cr, (t, xs[j]))
-            return t
+            return send(crs[3], (t, xs[4] if chain == "ew" else gamma))
 
         ref = program(lambda cr, p: rt.isend(p, cr, mailbox=False).result(60))
         with halo_graph(session=rt, launch=False) as g:
             program(lambda cr, p: rt.isend(p, cr))
         cg = g.compile()
+        assert cg.stats["fused_nodes"] == 1 and cg.stats["nodes"] == 1
         before = _cuda.launch_counts()
         (out,) = cg.replay(timeout=60)
         torch.cuda.synchronize(card)
         after = _cuda.launch_counts()
-        assert after["fused"] - before["fused"] == (1 if contract else 0)
-        assert after["ewise"] - before["ewise"] == (0 if contract else 4)
+        want = {"fused": 1, "ewise": 0, "rmsnorm": 0} if chain == "ew" \
+            else {"fused": 0, "ewise": 3, "rmsnorm": 1}
+        assert {k: after[k] - before[k] for k in want} == want
         assert torch.equal(_bits(out), _bits(ref))
     finally:
-        configure(fusion_contract=None)
         rt.finalize()
 
 

@@ -1,9 +1,9 @@
 """Graph fusion + compiled replay in the port (DESIGN.md §12) on the CPU: the
 semantics tests/test_fusion.py pins for the JAX package, and parity with it.
 
-Fused must be *bit-identical* to serial member dispatch within the port, in
-both modes (call loops, and the chain kernel's plain version under
-``fusion_contract``) and in float32 and bfloat16; decomposition after a
+Fused must be *bit-identical* to serial member dispatch within the port, on
+both rows (call loops, and the chain kernel's plain version for pure
+element-wise chains) and in float32 and bfloat16; decomposition after a
 failing fused record too.  Against the JAX package, on the same numpy
 inputs: the compile stats of the same captured program are equal, and the
 fused results agree within the reference's conformance tolerances
@@ -21,8 +21,8 @@ from repro.core import halo_graph as jax_graph
 from repro.kernels import register_all as jax_register_all
 from repro.kernels.fused import ewise_chain as jax_ewise_chain
 from repro_torch import halo
+from repro_torch.core import fusion
 from repro_torch.core.agents import RuntimeAgent
-from repro_torch.core.config import configure, halo_config, reset_config
 from repro_torch.core.graph import GraphError, halo_graph
 from repro_torch.core.manifest import default_manifest
 from repro_torch.core.registry import (KernelRecord, KernelRegistry,
@@ -44,13 +44,6 @@ MIXED4 = [("EWMM", (0, 1)), ("EWADD", ("prev", 2)),
 EW3 = [("EWMM", (0, 1)), ("EWADD", ("prev", 2)), ("EWSUB", ("prev", 1))]
 EW4 = [("EWMM", (0, 1)), ("EWADD", ("prev", 2)), ("EWSUB", ("prev", 3)),
        ("EWMD", ("prev", 1))]
-
-
-@pytest.fixture(autouse=True)
-def _fresh_config():
-    reset_config()
-    yield
-    reset_config()
 
 
 @pytest.fixture()
@@ -115,7 +108,7 @@ def _capture(sess, chain, inputs, pin=None, graph=halo_graph):
     return g
 
 
-def _fused(sess, chain, inputs, pin=None, fuse=None, graph=halo_graph):
+def _fused(sess, chain, inputs, pin=None, fuse=True, graph=halo_graph):
     cg = _capture(sess, chain, inputs, pin, graph).compile(fuse=fuse)
     gr = cg.replay_async()
     out = gr.wait(timeout=60)
@@ -204,13 +197,11 @@ def test_consumers_of_fused_tail_rewire_to_fused_node(sess):
 # Differential conformance: fused is bit-identical to serial in the port
 # ---------------------------------------------------------------------------
 @DTYPES
-@pytest.mark.parametrize("contract", [False, True], ids=["loop", "contract"])
 @pytest.mark.parametrize("pin", [None, "hopper", "aten"])
 @pytest.mark.parametrize("chain", [MIXED4, EW4], ids=["mixed4", "ew4"])
-def test_fused_chain_bitwise_vs_serial(sess, dtype, contract, pin, chain):
-    """Both modes, both types, each substrate: the fused node is one node,
+def test_fused_chain_bitwise_vs_serial(sess, dtype, pin, chain):
+    """Both rows, both types, each substrate: the fused node is one node,
     never decomposes, and equals one-kernel-at-a-time dispatch bit for bit."""
-    configure(fusion_contract=contract)
     inputs = _torch(_np_inputs(), dtype)
     ref = _serial(sess, chain, inputs, pin=pin or "hopper")
     cg, gr, out = _fused(sess, chain, inputs, pin=pin)
@@ -222,12 +213,10 @@ def test_fused_chain_bitwise_vs_serial(sess, dtype, contract, pin, chain):
 
 
 @DTYPES
-@pytest.mark.parametrize("contract", [False, True], ids=["loop", "contract"])
 @pytest.mark.parametrize("chain", [MIXED4, EW4], ids=["mixed4", "ew4"])
-def test_fused_chain_matches_jax(sess, jsess, dtype, contract, chain):
+def test_fused_chain_matches_jax(sess, jsess, dtype, chain):
     """The port's fused output agrees with the JAX package's fused output
     on the same numpy inputs; the compile stats are equal."""
-    configure(fusion_contract=contract)
     arrays = _np_inputs(seed=3)
     cg, _, out = _fused(sess, chain, _torch(arrays, dtype))
     jcg, _, jout = _fused(jsess, chain, _jax(arrays, dtype), graph=jax_graph)
@@ -418,19 +407,19 @@ def test_replay_cache_hit_and_epoch_invalidation(sess):
     sess.scheduler.clear_failures()
 
 
-def test_contract_mode_compiles_apart(sess):
-    """The fusion mode is part of the plan: the same capture compiled with
-    and without fusion_contract gives two graphs and two fused aliases."""
+def test_fuse_switch_compiles_apart(sess):
+    """The fusion switch is part of the plan: the same capture compiled
+    with and without fusion gives two graphs."""
     inputs = _torch(_np_inputs())
-    loop = _capture(sess, EW3, inputs).compile()
-    configure(fusion_contract=True)
-    kernel = _capture(sess, EW3, inputs).compile()
-    assert kernel is not loop
-    assert kernel.stats["fused_aliases"] != loop.stats["fused_aliases"]
+    fused = _capture(sess, EW3, inputs).compile()
+    unfused = _capture(sess, EW3, inputs).compile(fuse=False)
+    assert unfused is not fused
+    assert fused.stats["fused_aliases"] and not unfused.stats["fused_aliases"]
+    assert _capture(sess, EW3, inputs).compile(fuse=False) is unfused
 
 
 def test_compiled_graph_cache_is_bounded(monkeypatch, sess):
-    monkeypatch.setenv("HALO_GRAPH_CACHE", "2")
+    monkeypatch.setattr(fusion, "GRAPH_CACHE", 2)
     for m in (8, 16, 24):
         _capture(sess, EW3, _torch(_np_inputs(m=m))).compile()
     assert len(sess._compiled_graphs) == 2
@@ -477,23 +466,21 @@ def test_steady_state_replay_is_fully_pinned(sess):
     assert cg.stats["placements_pinned_last"] == cg.stats["nodes"]
 
 
-def test_halo_fusion_env_disables_fusion(monkeypatch, sess):
-    """HALO_FUSION=0 keeps replay caching but skips the fusion pass; the
+def test_fuse_false_disables_fusion(sess):
+    """fuse=False keeps replay caching but skips the fusion pass; the
     unfused compiled graph still matches serial bit for bit."""
-    monkeypatch.setenv("HALO_FUSION", "0")
     inputs = _torch(_np_inputs())
     ref = _serial(sess, MIXED4, inputs, pin="hopper")
-    cg, gr, out = _fused(sess, MIXED4, inputs, pin="hopper")
+    cg, gr, out = _fused(sess, MIXED4, inputs, pin="hopper", fuse=False)
     assert cg.stats["fused_nodes"] == 0
     assert cg.stats["nodes"] == cg.stats["captured_nodes"] == 4
     _bitwise(ref, out)
 
 
-def test_contract_mode_registers_the_chain_kernel(monkeypatch, sess):
-    """HALO_FUSION_CONTRACT=1 gives a pure element-wise chain the chain
-    kernel as its hopper row (its plain version on CPU tensors); a mixed
-    chain keeps the hopper call loop."""
-    monkeypatch.setenv("HALO_FUSION_CONTRACT", "1")
+def test_ew_chain_registers_the_chain_kernel(sess):
+    """A pure element-wise chain has the chain kernel as its hopper row
+    (its plain version on CPU tensors); a mixed chain, and an element-wise
+    chain over the kernel's caps, keep the hopper call loop."""
     inputs = _torch(_np_inputs())
     cg, gr, out = _fused(sess, EW3, inputs)
     (alias,) = cg.stats["fused_aliases"]
@@ -508,12 +495,44 @@ def test_contract_mode_registers_the_chain_kernel(monkeypatch, sess):
     hop = next(r for r in sess.registry.records(mixed.stats["fused_aliases"][0])
                if r.platform == "hopper")
     assert "loop" in hop.doc
+    long_chain = [("EWMM", (0, 1))] + [("EWADD", ("prev", 2))] * 32
+    long, _, out = _fused(sess, long_chain, inputs)
+    hop = next(r for r in sess.registry.records(long.stats["fused_aliases"][0])
+               if r.platform == "hopper")
+    assert "loop" in hop.doc
+    _bitwise(_serial(sess, long_chain, inputs, pin="hopper"), out)
+
+
+EW_GRAPH_CHAINS = {
+    "copy": [("COPY", (2,)), ("EWMM", ("prev", 0)), ("COPY", ("prev",)),
+             ("EWADD", ("prev", 3))],
+    "acc second": [("EWMM", (1, 1)), ("EWMD", (0, "prev")),
+                   ("EWSUB", (2, "prev")), ("EWADD", (3, "prev"))],
+    "input twice": [("EWMM", (0, 0)), ("EWMD", ("prev", 1)),
+                    ("EWADD", ("prev", 0))],
+}
+
+
+@DTYPES
+@pytest.mark.parametrize("name", sorted(EW_GRAPH_CHAINS))
+def test_ew_chain_kernel_row_bitwise_vs_serial(sess, dtype, name):
+    """Captured chains with COPY steps, the chain result as the second
+    operand, and an input used twice run on the chain kernel's row and
+    equal serial hopper dispatch bit for bit."""
+    chain = EW_GRAPH_CHAINS[name]
+    inputs = _torch(_np_inputs(seed=11), dtype)
+    cg, gr, out = _fused(sess, chain, inputs)
+    assert cg.stats["fused_nodes"] == 1 and cg.stats["nodes"] == 1
+    hop = next(r for r in sess.registry.records(cg.stats["fused_aliases"][0])
+               if r.platform == "hopper")
+    assert hop.fn.func is ewise_chain
+    assert gr.nodes[0].platform == "hopper"
+    _bitwise(_serial(sess, chain, inputs, pin="hopper"), out)
 
 
 def test_chain_kernel_row_refuses_what_the_kernel_does_not_take(sess):
     """The chain kernel's hopper row is infeasible for mixed shapes, mixed
     types, 0-d operands, and chains over the kernel's caps."""
-    configure(fusion_contract=True)
     inputs = _torch(_np_inputs())
     cg = _capture(sess, EW3, inputs).compile()
     hop = next(r for r in sess.registry.records(cg.stats["fused_aliases"][0])
@@ -561,8 +580,6 @@ def test_facade_graph_compile_replay():
         (out,) = cg.replay(timeout=60)
         _bitwise(a * b + c, out)
         assert session._compiled_graphs
-        assert halo.config().fusion and isinstance(halo.config(),
-                                                   halo.HaloConfig)
     finally:
         halo.finalize()
 
@@ -604,23 +621,6 @@ def test_scheduler_epoch_tracks_quarantine_changes():
     assert sched.epoch == e0 + 2
     sched.clear_failures()                       # nothing quarantined: no-op
     assert sched.epoch == e0 + 2
-
-
-def test_config_precedence_and_unknown_knobs(monkeypatch):
-    """override > environment > default; unknown names raise; None clears."""
-    assert halo_config().graph_cache == 16 and not halo_config().fusion_contract
-    monkeypatch.setenv("HALO_GRAPH_CACHE", "3")
-    monkeypatch.setenv("HALO_FUSION_CONTRACT", "1")
-    monkeypatch.setenv("HALO_AUTOTUNE_CACHE", "/nonexistent/at.json")
-    cfg = halo_config()
-    assert cfg.graph_cache == 3 and cfg.fusion_contract
-    assert cfg.autotune_cache == "/nonexistent/at.json"
-    assert configure(graph_cache=5).graph_cache == 5
-    assert configure(graph_cache=None).graph_cache == 3
-    monkeypatch.setenv("HALO_GRAPH_CACHE", "many")
-    assert halo_config().graph_cache == 16       # malformed: the default
-    with pytest.raises(TypeError, match="heartbeat_timeout"):
-        configure(heartbeat_timeout=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,6 @@ from repro_torch.core.agents import HaloCancelledError, RuntimeAgent
 from repro_torch.core.c2mpi import (MPIX_Claim, MPIX_Finalize,
                                     MPIX_GraphBegin, MPIX_GraphEnd,
                                     MPIX_Initialize, MPIX_ISend, MPIX_Wait)
-from repro_torch.core.config import reset_config
 from repro_torch.core.graph import (ExecutionGraph, GraphDependencyError,
                                     GraphError, GraphNode, begin_capture,
                                     halo_graph)
@@ -34,13 +33,6 @@ from repro_torch.kernels import register_all
 
 TIMEOUT = 60
 PIN = {"allowed_platforms": ["hopper"]}
-
-
-@pytest.fixture(autouse=True)
-def _fresh_config():
-    reset_config()
-    yield
-    reset_config()
 
 
 @pytest.fixture()

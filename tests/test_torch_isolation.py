@@ -134,7 +134,7 @@ def test_build_flags_target_sm90a_without_fast_math():
 
 
 @pytest.mark.parametrize("module", [
-    "repro_torch.core.c2mpi", "repro_torch.core.config",
+    "repro_torch.core.c2mpi", "repro_torch.kernels.staging",
     "repro_torch.core.fusion", "repro_torch.core.graph",
     "repro_torch.core.registry", "repro_torch.core.scheduler",
     "repro_torch.kernels.fused", "repro_torch.halo"])
