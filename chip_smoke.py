@@ -18,8 +18,13 @@ Phases (any failure exits non-zero before the result lines are printed):
    plain version's own error; and 30 sweeps of ``jacobi_solve`` on the
    phase-3 system must reach ‖Ax − b‖/‖b‖ ≤ ``JS_RESIDUAL`` in float64.
    SMMM's pad slots hold 7.0 and one block row has only pad slots (its
-   output rows must be exactly 0).  FFT: normwise within ``FFT_TOL``
-   against ``torch.fft.fft`` in float64 and against its plain version.
+   output rows must be exactly 0).  MMM's skinny route: every M up to
+   SKINNY_M_MAX at danube's five decode projections, ragged and unaligned
+   cases, against ``mmm_ref`` and the split-K plain version (``TOL``), and
+   two calls bit-identical.  FFT: normwise within ``FFT_TOL`` against
+   ``torch.fft.fft`` in float64 and against its plain version, in three
+   types: the radix route at every n = 2^j ≤ 4096, the DFT route at n = 7,
+   1000 and DFT_N.
    SORT: bit-exact, and NaN last on rows that hold NaN, ±inf and ±0.
    HIST: bit-exact, on bin edges, range ends, NaN and ±inf, at several
    bin counts, and with every value in one bin.
@@ -32,17 +37,23 @@ Phases (any failure exits non-zero before the result lines are printed):
 3. The slice end to end: ``repro_torch.quickstart.run`` on ``cuda`` with
    every claim pinned to the hopper records, blocking and asynchronous, at
    working sets inside the paper's 48 MB–1 GB.  Every kernel's launch count
-   must rise by exactly the requests sent to it, the scheduler's quarantine
-   must stay empty, and every output must match its plain version.  Then
-   the template is timed end to end (median of 5 runs, T1 per call).
+   must rise by exactly the requests sent to it (MMM at 4096 rows on the
+   tile route, FFT at n = 4096 on the radix route), the scheduler's
+   quarantine must stay empty, and every output must match its plain
+   version.  One more FFT request at n = DFT_N, counted alone, must take
+   the DFT route.  Then the template is timed end to end (median of 5
+   runs, T1 per call).
 3b. The model path: h2o-danube-1.8b at full width (random bfloat16 weights
    from a seed) served through ``repro_torch.launch.serve.run_requests``
    on a SlotEngine/StepScheduler: 8 requests on 4 slots, prompts of 512
    and 4200 tokens (past the 4096 window), greedy, mixed budgets up to 16.
    The launch counts must follow the model's structure (MMM 7·L+1 and
-   RMSNORM 2·L+1 per forward pass, FLASH_ATTN L per prefill), the
-   quarantine must stay empty, and every step's logits must agree with a
-   replay through the plain versions on the card (``SERVE_TOL``).
+   RMSNORM 2·L+1 per forward pass, FLASH_ATTN L per prefill; a prefill's
+   7·L projections on MMM's tile route, its one-row unembed and every
+   decode pass's MMMs on the skinny route), the quarantine must stay
+   empty, and every step's logits must agree with a replay through the
+   plain versions on the card (``SERVE_TOL``).  The decode step is split
+   into MMM device time per pass and dispatches per pass × T1.
 3c. Execution graphs, fusion and compiled replay: ``halo.graph(launch=False)``
    → ``compile()`` → 20 ``replay()`` calls per workload, every other one
    rebinding an input, each output bit-identical to serial blocking
@@ -60,7 +71,11 @@ Phases (any failure exits non-zero before the result lines are printed):
    time the card could take (``bound_ms``).  RMSNORM and FLASH_ATTN, at the
    shapes of phase 3b: device time per call from ``torch.profiler`` over 20
    calls (a kernel of tens of µs is shorter than its Python wrapper), with
-   the event times beside it.  The fused chain kernel at a 4-step
+   the event times beside it; so are the radix FFT at the template's shape
+   and MMM's skinny route at each decode projection (M = 4, bfloat16, B
+   cold in L2), beside ``torch.matmul``, with a sweep of both MMM routes
+   over M that sets SKINNY_M_MAX.  The DFT route at 2048 x DFT_N.  The
+   fused chain kernel at a 4-step
    8192² float32 chain, beside its plain version, the four ATen calls and
    the four serial EW launches.
 
@@ -85,11 +100,15 @@ sys.path.insert(0, str(ROOT / "src"))
 #: working sets of phase 3 (paper's 48 MB–1 GB range): JS A 268 MB; 1DCONV
 #: 268 MB in and out; SMMM A 8192x8192 in 64x128 blocks at density 0.25
 #: (values ~110 MB) times B 8192x4096 (134 MB); FFT a 2048x4096 batch
-#: (32 MB) against 128 MB of twiddles into 64 MB of complex64; SORT 2^24
-#: values (64 MB in, 64 MB out); HIST 2^26 values (268 MB)
+#: (32 MB) into 64 MB of complex64 on the radix route (a 32 KB twiddle
+#: table); SORT 2^24 values (64 MB in, 64 MB out); HIST 2^26 values (268 MB)
 SIZES = {"MMM": 4096, "EW": 8192, "MVM": 8192, "VDP": 1 << 26, "JS": 8192,
          "1DCONV": 1 << 26, "SMMM": 8192, "FFT": 4096, "SORT": 1 << 24,
          "HIST": 1 << 26}
+
+#: phase 3 and 4: the FFT length that is not a power of two, for the DFT
+#: route (2048 rows of it, 24.6 MB, against 72 MB of twiddle matrices)
+DFT_N = 3000
 
 #: MMM and MVM: normwise relative error allowed between a kernel and its
 #: plain version.  float32: the two sum the same float32 products in another
@@ -156,15 +175,16 @@ SERVE_TOL = 2e-2
 #: reduced models to the JAX package at the same 1e-4
 F32_SERVE_TOL = 1e-4
 
-#: the kernels phase 3b's model path adds (their launches come from 3b)
-MODEL_KERNELS = ("rmsnorm", "flash_attention")
+#: phase 4: enough copies of a decode weight matrix to pass the H100's 50 MB
+#: L2 between two calls on one of them
+L2_COLD_BYTES = 200_000_000
+
+#: phase 4: the row counts of the MMM route sweep
+CROSSOVER_M = (1, 4, 8, 16, 32, 64, 128, 256)
 
 #: phase 3c: the graph workloads' sizes and the replays each is driven
 GRAPH = {"ew_n": 8192, "decode_d": 2560, "decode_layers": 24, "js_n": 8192,
          "js_sweeps": 30, "replays": 20}
-
-#: the kernel phase 3c's path adds (its launches come from 3c)
-GRAPH_KERNELS = ("fused",)
 
 TIMED_RUNS = 20
 E2E_REPEATS = 5
@@ -184,7 +204,31 @@ REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:36",
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:106",
     "fused": "src/repro/kernels/fused.py:58",
+    "mmm_skinny": "src/repro/kernels/matmul/matmul.py:43",
+    "fft_radix": "src/repro/kernels/fft/fft.py:58",
 }
+
+#: where each kernel's launches are counted when it is not the template's
+#: (phase 3): the model path (3b), the graphs (3c), or the template's FFT
+#: request at the non-power-of-two DFT_N (phase 3, the DFT route)
+PATH_OF = {"rmsnorm": "serve", "flash_attention": "serve", "mmm_skinny": "serve",
+           "fused": "graph", "fft": "dft"}
+
+
+def decode_projections(cfg):
+    """(K, N) → launches per forward pass of danube's projections: q and o
+    (d × H·dh), k and v (d × Hkv·dh), gate and up (d × d_ff), down
+    (d_ff × d), the unembed (d × padded vocab)."""
+    block = cfg.stages[0].pattern[0]
+    attn, layers, d = block.attn, cfg.n_layers, cfg.d_model
+    shapes = [(d, attn.n_heads * attn.head_dim), (d, attn.n_kv_heads * attn.head_dim),
+              (d, attn.n_kv_heads * attn.head_dim), (attn.n_heads * attn.head_dim, d),
+              (d, block.d_ff), (d, block.d_ff), (block.d_ff, d)]
+    per_pass = {}
+    for kn in shapes:
+        per_pass[kn] = per_pass.get(kn, 0) + layers
+    per_pass[(d, cfg.padded_vocab)] = per_pass.get((d, cfg.padded_vocab), 0) + 1
+    return per_pass
 
 
 def fail(msg: str) -> None:
@@ -423,7 +467,10 @@ def phase2(dev) -> None:
     check_close(f"JS solve n={n}, 30 sweeps: ‖Ax−b‖/‖b‖", resid, torch.float32,
                 JS_RESIDUAL)
     for dt in (torch.float32, torch.bfloat16):
+        phase2_mmm_skinny(dev, gen, dt)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
         phase2_fft(dev, gen, dt)
+    for dt in (torch.float32, torch.bfloat16):
         phase2_sort(dev, gen, dt)
         phase2_hist(dev, gen, dt)
         phase2_model(dev, gen, dt)
@@ -432,24 +479,80 @@ def phase2(dev) -> None:
     torch.cuda.synchronize(dev)
 
 
-def phase2_fft(dev, gen, dt) -> None:
-    """FFT against torch.fft.fft of the same input in float64 and against
-    its plain version, at ragged n, 1, 3 and 2048 rows, and 1-D."""
-    from repro_torch.kernels.fft.fft import fft_hopper
-    from repro_torch.kernels.fft.ops import cached_twiddles
-    from repro_torch.kernels.fft.ref import dft_ref
+def phase2_mmm_skinny(dev, gen, dt) -> None:
+    """The skinny-M route against its plain versions (``mmm_ref``, and
+    ``mmm_splitk_ref``, which sums K in the kernel's own segments) within
+    ``TOL``: every M up to SKINNY_M_MAX at danube's decode projections; a
+    ragged N = 1001 with K = 777 (scalar loads), an N that is a multiple of
+    4 but not of 8, a B off the 16-byte grid; two calls bit-identical."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.matmul.matmul import SKINNY_M_MAX, mmm_skinny_hopper
+    from repro_torch.kernels.matmul.ref import mmm_ref, mmm_splitk_ref
 
     name = str(dt).split(".")[-1]
-    for n in (1, 7, 1000, 1024, SIZES["FFT"]):
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    def check(label, a, b):
+        k = mmm_skinny_hopper(a, b)
+        check_close(f"{label} vs plain", normwise(k, mmm_ref(a, b)), dt)
+        check_close(f"{label} vs split-K plain", normwise(k, mmm_splitk_ref(a, b)), dt)
+        return k
+
+    shapes = list(decode_projections(get_config(SERVE["arch"])))
+    for m in sorted({1, 2, 4, 7, 8, 16, SKINNY_M_MAX}):
+        a_by_k = {kk: rnd(m, kk) for kk in {kk for kk, _ in shapes}}
+        for kk, n in shapes:
+            check(f"MMM skinny {name} {m}x{kk}@{kk}x{n}", a_by_k[kk], rnd(kk, n))
+    for m, kk, n in ((1, 777, 1001), (4, 777, 1001), (16, 777, 1001), (4, 2560, 2564)):
+        check(f"MMM skinny {name} {m}x{kk}@{kk}x{n}", rnd(m, kk), rnd(kk, n))
+    b = rnd(2560 * 640 + 1)[1:].view(2560, 640)
+    if b.data_ptr() % 16 == 0:
+        fail("MMM skinny: the offset view of B is 16-byte aligned")
+    a = rnd(4, 2560)
+    check(f"MMM skinny {name} 4x2560@2560x640 unaligned B", a, b)
+    b = rnd(2560, 6912)
+    first = mmm_skinny_hopper(a, b)
+    if not torch.equal(bits(first), bits(mmm_skinny_hopper(a, b))):
+        fail(f"MMM skinny {name}: two calls differ (expected the same bits)")
+    print(f"  MMM skinny {name} 4x2560@2560x6912: two calls give the same bits")
+
+
+def phase2_fft(dev, gen, dt) -> None:
+    """FFT against torch.fft.fft of the same input in float64 and against
+    its plain version, at 1, 3 and 2048 rows and 1-D: the radix route at
+    every n = 2^j up to 4096, and an x off the 16-byte grid; the DFT route
+    at n = 7, 1000 and DFT_N."""
+    from repro_torch.kernels.fft.fft import fft_hopper, fft_radix_hopper
+    from repro_torch.kernels.fft.ops import cached_radix_twiddles, cached_twiddles
+    from repro_torch.kernels.fft.ref import dft_ref, fft_radix_ref
+
+    name = str(dt).split(".")[-1]
+
+    def check(label, k, x, ref):
+        check_close(f"{label} vs float64",
+                    normwise(k, torch.fft.fft(x.double(), dim=-1)), dt, FFT_TOL)
+        check_close(f"{label} vs plain", normwise(k, ref), dt, FFT_TOL)
+
+    shapes = ((1,), (3,), (2048,), ())
+    for j in range(13):
+        n = 1 << j
+        tw = cached_radix_twiddles(n, dev)
+        for rows in shapes:
+            x = torch.randn((*rows, n), generator=gen, device=dev).to(dt)
+            check(f"FFT radix {name} {'x'.join(map(str, (*rows, n)))}",
+                  fft_radix_hopper(x, tw), x, fft_radix_ref(x, tw))
+    x = torch.randn(3 * 4096 + 1, generator=gen, device=dev).to(dt)[1:].view(3, 4096)
+    tw = cached_radix_twiddles(4096, dev)
+    check(f"FFT radix {name} 3x4096 unaligned", fft_radix_hopper(x, tw), x,
+          fft_radix_ref(x, tw))
+    for n in (7, 1000, DFT_N):
         c, s = cached_twiddles(n, dev)
-        for shape in ((1, n), (3, n), (2048, n), (n,)):
-            x = torch.randn(shape, generator=gen, device=dev).to(dt)
-            k = fft_hopper(x, c, s)
-            label = f"FFT {name} {'x'.join(map(str, shape))}"
-            check_close(f"{label} vs float64",
-                        normwise(k, torch.fft.fft(x.double(), dim=-1)), dt, FFT_TOL)
-            check_close(f"{label} vs plain", normwise(k, dft_ref(x, c, s)), dt,
-                        FFT_TOL)
+        for rows in shapes:
+            x = torch.randn((*rows, n), generator=gen, device=dev).to(dt)
+            check(f"FFT dft {name} {'x'.join(map(str, (*rows, n)))}",
+                  fft_hopper(x, c, s), x, dft_ref(x, c, s))
 
 
 def phase2_sort(dev, gen, dt) -> None:
@@ -634,7 +737,7 @@ def phase3(dev):
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.conv1d.ref import conv1d_ref
     from repro_torch.kernels.ewise.ref import OP_REFS as EW_REFS
-    from repro_torch.kernels.fft.ref import dft_ref
+    from repro_torch.kernels.fft.ref import dft_ref, fft_radix_ref
     from repro_torch.kernels.jacobi.ref import jacobi_step_ref
     from repro_torch.kernels.matmul.ref import mmm_ref
     from repro_torch.kernels.mvm.ref import mvm_ref
@@ -659,9 +762,10 @@ def phase3(dev):
           f"T1 {session.t1_seconds_per_call * 1e6:.1f} us per call over "
           f"{2 * len(jobs)} calls")
     print(f"  launches {launches}; quarantine {quarantined}")
-    expected = {"mmm": 2, "ewise": 8, "mvm": 2, "vdp": 2, "jacobi": 2,
-                "conv1d": 2, "spmm": 2, "fft": 2, "sort": 2, "hist": 2,
-                "rmsnorm": 0, "flash_attention": 0, "fused": 0}
+    # MMM at M = 4096 takes the tile route, FFT at n = 4096 the radix route
+    expected = {"mmm": 2, "mmm_skinny": 0, "ewise": 8, "mvm": 2, "vdp": 2,
+                "jacobi": 2, "conv1d": 2, "spmm": 2, "fft": 0, "fft_radix": 2,
+                "sort": 2, "hist": 2, "rmsnorm": 0, "flash_attention": 0, "fused": 0}
     if launches != expected:
         fail(f"launch counts {launches} != requests sent {expected}: a request "
              f"did not reach its kernel")
@@ -671,13 +775,12 @@ def phase3(dev):
     refs = {"MMM": mmm_ref, "EWMM": EW_REFS["mul"], "EWMD": EW_REFS["div"],
             "EWADD": EW_REFS["add"], "EWSUB": EW_REFS["sub"], "MVM": mvm_ref,
             "VDP": vdp_ref, "JS": jacobi_step_ref, "1DCONV": conv1d_ref,
-            "SMMM": smmm_bell_ref, "FFT": dft_ref, "SORT": sort_ref,
+            "SMMM": smmm_bell_ref, "FFT": fft_radix_ref, "SORT": sort_ref,
             "HIST": hist_ref}
     kernel_of = {"MMM": "mmm", "MVM": "mvm", "VDP": "vdp", "JS": "jacobi",
-                 "1DCONV": "conv1d", "SMMM": "spmm", "FFT": "fft",
+                 "1DCONV": "conv1d", "SMMM": "spmm", "FFT": "fft_radix",
                  "SORT": "sort", "HIST": "hist"}
-    max_abs = {k: 0.0 for k in expected
-               if k not in MODEL_KERNELS + GRAPH_KERNELS}
+    max_abs = {k: 0.0 for k in expected if k not in PATH_OF}
     for alias, args in jobs.items():
         ref = refs[alias](*args)
         kname = kernel_of.get(alias, "ewise")
@@ -703,6 +806,25 @@ def phase3(dev):
                 check_js(label, out, ref, *args, torch.float32)
             else:
                 check_close(label, normwise(out, ref), torch.float32)
+    # the DFT route through the same host API: one FFT request at the
+    # non-power-of-two DFT_N, counted on its own
+    x = torch.randn((SIZES["FFT"] // 2, DFT_N), generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev)
+    cr = halo.claim("FFT", overrides=PIN)
+    _cuda.reset_launch_counts()
+    halo.send((x,), cr)
+    out = halo.recv(cr)
+    torch.cuda.synchronize(dev)
+    dft_launches = _cuda.launch_counts()
+    print(f"  FFT request {x.shape[0]}x{DFT_N}: launches "
+          f"{ {k: v for k, v in dft_launches.items() if v} }")
+    if dft_launches != {**{k: 0 for k in expected}, "fft": 1}:
+        fail(f"the FFT request at n={DFT_N} launched {dft_launches}, not one DFT")
+    label = f"FFT {x.shape[0]}x{DFT_N} (dft route)"
+    check_close(f"{label} vs plain", normwise(out, dft_ref(x)), torch.float32, FFT_TOL)
+    check_close(f"{label} vs float64", normwise(out, torch.fft.fft(x.double(), dim=-1)),
+                torch.float32, FFT_TOL)
+    max_abs["fft"] = float((wide(out) - wide(dft_ref(x))).abs().max())
     # end to end, after the counted run: wall time of the whole template
     # (blocking + burst) on the same inputs, and T1 per call
     walls = []
@@ -717,7 +839,7 @@ def phase3(dev):
            "t1_us_per_call": session.t1_seconds_per_call * 1e6,
            "requests": 2 * len(jobs)}
     halo.finalize()
-    return jobs, launches, max_abs, e2e
+    return jobs, launches, dft_launches, max_abs, e2e
 
 
 # ---------------------------------------------------------------------------
@@ -854,7 +976,14 @@ def phase3b(dev):
     passes = len(engine.prefill_s) + len(engine.decode_s)
     layers = cfg.n_layers
     expected = {k: 0 for k in launches}
-    expected.update(mmm=(7 * layers + 1) * passes, rmsnorm=(2 * layers + 1) * passes,
+    # 7·L + 1 MMMs per forward pass: a prefill's 7·L projections of its
+    # prompt rows take the tile route and its last-token unembed (one row)
+    # the skinny route; a decode pass's 7·L + 1 (one row per slot) all take
+    # the skinny route
+    expected.update(mmm=7 * layers * len(engine.prefill_s),
+                    mmm_skinny=(7 * layers + 1) * len(engine.decode_s)
+                    + len(engine.prefill_s),
+                    rmsnorm=(2 * layers + 1) * passes,
                     flash_attention=layers * len(engine.prefill_s))
     print(f"  {len(engine.prefill_s)} prefills + {len(engine.decode_s)} decode steps: "
           f"expected launches {expected}")
@@ -898,6 +1027,25 @@ def phase3b(dev):
     busy_s = device_seconds(prof)
     stats["device_s"] = busy_s
     stats["device_busy_share"] = busy_s / wall if busy_s > 0 else None
+    # the decode step's split: the skinny kernels of the decode passes (M =
+    # slots; the prefills' one-row unembeds are the MT = 1 instances), and
+    # the host's dispatches per pass times T1
+    slots_mt = f", {SERVE['slots']}"
+    mmm_decode_s = sum(device_seconds_of(e) for e in prof.key_averages()
+                       if "mmm_skinny" in e.key and slots_mt in e.key.split("<", 1)[-1]
+                       .split(">", 1)[0])
+    per_pass = 7 * layers + 1 + 2 * layers + 1
+    stats["decode_mmm_device_ms_per_pass"] = (mmm_decode_s * 1e3 / stats["decode_steps"]
+                                              if mmm_decode_s > 0 else None)
+    stats["decode_dispatches_per_pass"] = per_pass
+    stats["decode_dispatch_t1_ms_per_pass"] = per_pass * t1_us / 1e3
+    print(f"  decode step split: MMM device time "
+          + (f"{stats['decode_mmm_device_ms_per_pass']:.3f} ms per pass (profiled "
+             f"rerun, skinny kernels at M = {SERVE['slots']})" if mmm_decode_s > 0
+             else "not measured (the profiler saw no skinny kernel)")
+          + f"; {per_pass} dispatches per pass × T1 {t1_us:.1f} us = "
+          f"{stats['decode_dispatch_t1_ms_per_pass']:.3f} ms; median step "
+          f"{stats['decode_step_ms_median']:.2f} ms")
     if busy_s > 0:
         print(f"  device time {busy_s * 1e3:.1f} ms (profiled rerun, wall "
               f"{wall_prof * 1e3:.1f} ms); busy share {busy_s / wall:.3f} of the "
@@ -910,6 +1058,35 @@ def phase3b(dev):
     else:
         print("  device busy share: not measured (the profiler saw no device time)")
     del sched
+    # one decode step alone, every slot past its prompt: host-clock ms per
+    # step over 5 steps, then device ms per step under the profiler
+    import numpy as np
+    lone = SlotEngine(model, params, SERVE["slots"], max_len)
+    tok = np.array([lone.prefill_into_slot(i, prompts[i], None)
+                    for i in range(SERVE["slots"])])
+    pos, act = np.array([len(p) for p in prompts[:SERVE["slots"]]]), np.ones(
+        SERVE["slots"], bool)
+
+    def steps(k):
+        nonlocal tok, pos
+        for _ in range(k):
+            tok = lone.decode_step(tok, pos, act, None)
+            pos = pos + 1
+        torch.cuda.synchronize(dev)
+
+    steps(2)
+    t0 = time.perf_counter()
+    steps(5)
+    stats["decode_step_ms_alone"] = (time.perf_counter() - t0) / 5 * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        steps(5)
+    lone_s = device_seconds(prof)
+    stats["decode_step_device_ms"] = lone_s / 5 * 1e3 if lone_s > 0 else None
+    print(f"  one decode step alone ({SERVE['slots']} slots): "
+          f"{stats['decode_step_ms_alone']:.2f} ms host clock, "
+          + (f"{stats['decode_step_device_ms']:.3f} ms of device time" if lone_s > 0
+             else "device time not measured (the profiler saw none)"))
+    del lone
     halo.finalize()
 
     # replay every request through the plain versions on the card
@@ -1188,7 +1365,7 @@ def replay(model, params, prompt, toks, max_len, manifest):
 # phase 4: times at the phase-3 shapes
 # ---------------------------------------------------------------------------
 def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
-           graph_launches):
+           graph_launches, dft_launches):
     from repro_torch.configs import get_config
     from repro_torch.core.portability import KernelReport, time_fn
     from repro_torch.kernels.conv1d.conv1d import conv1d_hopper
@@ -1196,9 +1373,9 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     from repro_torch.kernels.ewise.ewise import ewise_hopper
     from repro_torch.kernels.ewise.ref import OP_ATEN
     from repro_torch.kernels.ewise.ref import OP_REFS as EW_REFS
-    from repro_torch.kernels.fft.fft import fft_hopper
-    from repro_torch.kernels.fft.ops import cached_twiddles
-    from repro_torch.kernels.fft.ref import dft_ref, fft_aten
+    from repro_torch.kernels.fft.fft import fft_hopper, fft_radix_hopper
+    from repro_torch.kernels.fft.ops import cached_radix_twiddles, cached_twiddles
+    from repro_torch.kernels.fft.ref import dft_ref, fft_aten, fft_radix_ref
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_hopper)
     from repro_torch.kernels.flash_attention.ref import (attention_aten,
@@ -1206,7 +1383,8 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     from repro_torch.kernels.fused import ewise_chain_hopper, ewise_chain_ref
     from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
     from repro_torch.kernels.jacobi.ref import jacobi_step_aten, jacobi_step_ref
-    from repro_torch.kernels.matmul.matmul import mmm_hopper
+    from repro_torch.kernels.matmul.matmul import (SKINNY_M_MAX, mmm_skinny_hopper,
+                                                   mmm_tile_hopper)
     from repro_torch.kernels.matmul.ref import mmm_aten, mmm_ref
     from repro_torch.kernels.mvm.mvm import mvm_hopper
     from repro_torch.kernels.mvm.ref import mvm_aten, mvm_ref
@@ -1235,7 +1413,13 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         time the host's launch."""
         for _ in range(3):
             fn()
-        return device_ms_per_call(fn, TIMED_RUNS, dev)
+        # the profiler on the card now and then returns an empty window (a
+        # library call has read 0.0 ms): measure again
+        for _ in range(3):
+            t = device_ms_per_call(fn, TIMED_RUNS, dev)
+            if t > 0:
+                return t
+        fail("torch.profiler saw no device time in three windows")
 
     def model_row(kernel, plain, library):
         """Device times of the model path's kernel, plain version and
@@ -1285,24 +1469,37 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
           f"smmm_aten (per-slot baddbmm) {spmm_aten_ms:.4f} ms")
     fx, = jobs["FFT"]
     f_m, f_n = fx.shape
-    # the function's own work: x read once, complex64 written once, and the
-    # 5/2·n·log2(n) operations of a real-input FFT per row
-    fft_bound = bound(4 * f_m * f_n + 8 * f_m * f_n,
-                      2.5 * f_m * f_n * math.log2(f_n))
-    # the floor of the kernel's O(n²) algorithm, not of the function: the
-    # twiddles read once more and 4·m·n² operations
-    dft_floor = bound(4 * f_m * f_n + 2 * 4 * f_n * f_n + 8 * f_m * f_n,
-                      4 * f_m * f_n * f_n)
-    print(f"  fft DFT-by-matmul floor (4·m·n² operations): {dft_floor[0]:.4f} ms "
-          f"({dft_floor[1]}); the bound below is the transform's")
-    # the twiddles' first-call build, timed apart from the kernel
-    cached_twiddles.cache_clear()
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    fc, fs = cached_twiddles(f_n, dev)
-    torch.cuda.synchronize(dev)
-    twiddle_ms = (time.perf_counter() - t0) * 1e3
-    print(f"  fft twiddle build (first call, n={f_n}, host clock): {twiddle_ms:.3f} ms")
+
+    def fft_bound_of(m_, n_):
+        """The transform's own work: x read once, complex64 written once,
+        and the 5/2·n·log2(n) operations of a real-input FFT per row."""
+        return bound(4 * m_ * n_ + 8 * m_ * n_, 2.5 * m_ * n_ * math.log2(n_))
+
+    def dft_floor_of(m_, n_):
+        """The DFT-by-matmul algorithm's floor, not the function's: the
+        twiddles read once more and 4·m·n² operations."""
+        return bound(4 * m_ * n_ + 2 * 4 * n_ * n_ + 8 * m_ * n_, 4 * m_ * n_ * n_)
+
+    fft_bound = fft_bound_of(f_m, f_n)
+    dx = torch.randn((f_m, DFT_N), generator=torch.Generator(device=dev).manual_seed(6),
+                     device=dev)
+    dft_bound = fft_bound_of(f_m, DFT_N)
+    for n_ in (f_n, DFT_N):
+        floor = dft_floor_of(f_m, n_)
+        print(f"  fft DFT-by-matmul floor at {f_m}x{n_} (4·m·n² operations): "
+              f"{floor[0]:.4f} ms ({floor[1]}); the bounds below are the transform's")
+    # the twiddles' first-call builds, timed apart from the kernels
+    for what, cache, n_ in (("radix table", cached_radix_twiddles, f_n),
+                            ("DFT matrices", cached_twiddles, DFT_N)):
+        cache.cache_clear()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        cache(n_, dev)
+        torch.cuda.synchronize(dev)
+        print(f"  fft twiddle build, {what} (first call, n={n_}, host clock): "
+              f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    ftw = cached_radix_twiddles(f_n, dev)
+    fc, fs = cached_twiddles(DFT_N, dev)
     sx, = jobs["SORT"]
     n_sort = sx.numel()
     # bytes: one read, one write; operations: the n·log2(n) comparisons no
@@ -1348,6 +1545,75 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     del fo, fr
     mname = str(mdt).split(".")[-1]
 
+    def cycling(fn, args_list):
+        """``fn`` on the next argument tuple at each call."""
+        it = iter(range(1 << 62))
+        return lambda: fn(*args_list[next(it) % len(args_list)])
+
+    # the skinny route at danube's decode projections (M = slots, the
+    # model's type): device time per call from the profiler, each call on
+    # the next of enough copies of B that the 50 MB L2 holds none of them
+    # from one call to the next, as a decode pass finds them (it reads
+    # 3.5 GB of weights); event times beside it
+    slots, gen7 = SERVE["slots"], torch.Generator(device=dev).manual_seed(7)
+
+    def weights(kk, nn, copies):
+        return [(torch.randn((kk, nn), generator=gen7, device=dev) * kk ** -0.5).to(mdt)
+                for _ in range(copies)]
+
+    decode = []
+    for (kk, nn), per_pass in decode_projections(cfg).items():
+        a4 = torch.randn((slots, kk), generator=gen7, device=dev).to(mdt)
+        bs = weights(kk, nn, max(2, math.ceil(L2_COLD_BYTES / (2 * kk * nn))))
+        args = [(a4, b_) for b_ in bs]
+        fns = {"ms": cycling(mmm_skinny_hopper, args), "plain_ms": cycling(mmm_ref, args),
+               "library_ms": cycling(mmm_aten, args)}
+        row = {k: device_ms(f) for k, f in fns.items()}
+        row["event_ms"] = {k: ms(f) for k, f in fns.items()}
+        row["bound_ms"], row["bound_by"] = bound(
+            a4.element_size() * (a4.numel() + kk * nn + slots * nn),
+            2 * slots * kk * nn, bf16_peak)
+        row["max_abs_err"] = float((wide(mmm_skinny_hopper(a4, bs[0]))
+                                    - wide(mmm_ref(a4, bs[0]))).abs().max())
+        row.update(shape=f"{slots}x{kk}@{kk}x{nn} {mname}", launches_per_pass=per_pass,
+                   copies_of_b=len(bs))
+        decode.append(row)
+        print(f"  mmm_skinny {row['shape']:26s} kernel_ms {row['ms']:.4f}  plain_ms "
+              f"{row['plain_ms']:.4f}  library_ms {row['library_ms']:.4f}  bound_ms "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}, {row['bound_ms'] / row['ms']:.0%} "
+              f"of it)  {per_pass} per pass; events {row['event_ms']}")
+        del bs, args
+    max_abs["mmm_skinny"] = max(r["max_abs_err"] for r in decode)
+    skinny_times = {k: sum(r[k] * r["launches_per_pass"] for r in decode)
+                    for k in ("ms", "plain_ms", "library_ms")}
+    skinny_bound = (sum(r["bound_ms"] * r["launches_per_pass"] for r in decode), "bytes")
+    print(f"  mmm_skinny, one decode pass ({sum(r['launches_per_pass'] for r in decode)} "
+          f"MMMs): kernel {skinny_times['ms']:.3f} ms, torch.matmul "
+          f"{skinny_times['library_ms']:.3f} ms, bound {skinny_bound[0]:.3f} ms")
+
+    # the crossover of the two routes by device time, at the gate/up
+    # projection and at the unembed (the widest): it sets SKINNY_M_MAX
+    crossover = {}
+    for kk, nn in ((cfg.d_model, cfg.stages[0].pattern[0].d_ff),
+                   (cfg.d_model, cfg.padded_vocab)):
+        bs = weights(kk, nn, max(2, math.ceil(L2_COLD_BYTES / (2 * kk * nn))))
+        sweep = {}
+        for m_ in CROSSOVER_M:
+            a_ = torch.randn((m_, kk), generator=gen7, device=dev).to(mdt)
+            args = [(a_, b_) for b_ in bs]
+            sweep[str(m_)] = {"skinny_ms": device_ms(cycling(mmm_skinny_hopper, args)),
+                              "tile_ms": device_ms(cycling(mmm_tile_hopper, args)),
+                              "library_ms": device_ms(cycling(mmm_aten, args))}
+        del bs, args
+        faster = [int(m_) for m_, t in sweep.items() if t["skinny_ms"] < t["tile_ms"]]
+        crossover[f"{kk}x{nn} {mname}"] = sweep
+        print(f"  MMM routes at {kk}x{nn} {mname}, device ms (M: skinny / tile / "
+              f"torch.matmul): " + "; ".join(
+                  f"{m_}: {t['skinny_ms']:.4f} / {t['tile_ms']:.4f} / {t['library_ms']:.4f}"
+                  for m_, t in sweep.items())
+              + f"; skinny faster at M = {faster}; SKINNY_M_MAX = {SKINNY_M_MAX}")
+    skinny_times.update(per_shape=decode, crossover=crossover, skinny_m_max=SKINNY_M_MAX)
+
     # the fused chain at phase 3c's EW shape: ((a·b + c) − d) / e over five
     # 8192² float32 inputs; five read and one written, one operation per
     # element per step.  No single PyTorch call computes the chain: the
@@ -1374,9 +1640,14 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
                       "plain_ms": ms(EW_REFS[op], ea, eb),
                       "library_ms": ms(OP_ATEN[op], ea, eb)}
     rows = [
-        ("mmm", {"ms": ms(mmm_hopper, a, b), "plain_ms": ms(mmm_ref, a, b),
+        ("mmm", {"ms": ms(mmm_tile_hopper, a, b), "plain_ms": ms(mmm_ref, a, b),
                  "library_ms": ms(mmm_aten, a, b)}, mmm_bound,
-         f"{m}x{k}@{k}x{n} float32"),
+         f"{m}x{k}@{k}x{n} float32, tile route"),
+        # device time of one decode pass's MMMs: Σ per shape of device ms ×
+        # launches per pass (per_shape below); launches from phase 3b
+        ("mmm_skinny", skinny_times, skinny_bound,
+         f"one decode pass: {sum(r['launches_per_pass'] for r in decode)} MMMs at "
+         f"M={slots} {mname}, device time (library: torch.matmul)"),
         ("ewise", dict(per_op["mul"]), ew_bound, f"{ea.shape[0]}x{ea.shape[1]} "
          f"float32, EWMM (per op below)"),
         ("mvm", {"ms": ms(mvm_hopper, ma, mx), "plain_ms": ms(mvm_ref, ma, mx),
@@ -1396,9 +1667,12 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
                   "plain_ms": ms(smmm_bell_ref, sv, si, sb),
                   "library_ms": ms(torch.matmul, sa_dense, sb)}, spmm_bound,
          f"{nrows * bm}x{ks} bELL {bm}x{bk} @{ks}x{ns} float32"),
-        ("fft", {"ms": ms(fft_hopper, fx, fc, fs), "plain_ms": ms(dft_ref, fx, fc, fs),
-                 "library_ms": ms(fft_aten, fx)}, fft_bound,
-         f"{f_m}x{f_n} float32, DFT (library: cuFFT)"),
+        ("fft_radix", model_row(lambda: fft_radix_hopper(fx, ftw),
+                                lambda: fft_radix_ref(fx, ftw), lambda: fft_aten(fx)),
+         fft_bound, f"{f_m}x{f_n} float32, radix route, device time (library: cuFFT)"),
+        ("fft", {"ms": ms(fft_hopper, dx, fc, fs), "plain_ms": ms(dft_ref, dx, fc, fs),
+                 "library_ms": ms(fft_aten, dx)}, dft_bound,
+         f"{f_m}x{DFT_N} float32, DFT route (library: cuFFT)"),
         # the library call also returns the permutation; the plain version
         # makes every NaN positive, then keeps the values of one torch.sort
         ("sort", {"ms": ms(sort_hopper, sx), "plain_ms": ms(sort_ref, sx),
@@ -1429,11 +1703,13 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     ]
     kernels = []
     for name, times, (bound_ms, bound_by), shape in rows:
-        # each kernel's launches in the run of the path it serves: phase 3
-        # for the quickstart's, 3b for the model path's own two, 3c for the
-        # fused chain
-        path_launches = (serve_launches if name in MODEL_KERNELS else
-                         graph_launches if name in GRAPH_KERNELS else launches)[name]
+        # each kernel's launches in the run of the path it serves (PATH_OF):
+        # phase 3 for the quickstart's, 3b for the model path's, 3c for the
+        # fused chain, phase 3's FFT request at DFT_N for the DFT route
+        path_launches = {"serve": serve_launches, "graph": graph_launches,
+                         "dft": dft_launches}.get(PATH_OF.get(name), launches)[name]
+        if not path_launches:
+            fail(f"{name} was launched no time on its path")
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/csrc/{name}.cu",
                  "replaces": REPLACES[name], "launches": path_launches,
@@ -1452,8 +1728,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     for op, t in per_op.items():
         print(f"  ewise {op}: kernel_ms {t['ms']:.4f}  plain_ms "
               f"{t['plain_ms']:.4f}  library_ms {t['library_ms']:.4f}")
-    for name in MODEL_KERNELS:
-        t = next(e for e in kernels if e["name"] == name)["event_ms"]
+    for name, t in ((e["name"], e["event_ms"]) for e in kernels if "event_ms" in e):
         print(f"  {name} CUDA-event times per call (host launch included): "
               f"kernel_ms {t['ms']:.4f}  plain_ms {t['plain_ms']:.4f}  "
               f"library_ms {t['library_ms']:.4f}")
@@ -1473,7 +1748,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     # times the launches the counted run made (EW per op: two each)
     busy = sum(per_op[op]["ms"] * 2 for op in per_op) + sum(
         e["ms"] * e["launches"] for e in kernels
-        if e["name"] not in ("ewise", *MODEL_KERNELS, *GRAPH_KERNELS))
+        if e["name"] != "ewise" and e["name"] not in PATH_OF)
     e2e["kernel_ms_sum"] = busy
     e2e["device_busy_share"] = busy / e2e["wall_ms"]
     print(f"  end to end: quickstart wall {e2e['wall_ms']:.3f} ms (median of "
@@ -1517,7 +1792,7 @@ def main() -> None:
     print("phase 3: quickstart through claim/send/recv and isend/waitall, "
           "pinned to hopper")
     t0 = time.perf_counter()
-    jobs, launches, max_abs, e2e = phase3(dev)
+    jobs, launches, dft_launches, max_abs, e2e = phase3(dev)
     seconds["3 quickstart"] = time.perf_counter() - t0
     print(f"phase 3b: {SERVE['arch']} at full width served through "
           f"repro_torch.launch.serve on the kernels")
@@ -1530,13 +1805,10 @@ def main() -> None:
     graph_launches, graph_stats = phase3c(dev, card)
     seconds["3c graphs"] = time.perf_counter() - t0
     print(json.dumps({"graphs": graph_stats}))
-    missing = [k for k in GRAPH_KERNELS if not graph_launches.get(k)]
-    if missing:
-        fail(f"phase 3c launched no {missing}")
     print(f"phase 4: times (median of 20 CUDA-event-timed calls) on {card}")
     t0 = time.perf_counter()
     kernels = phase4(dev, jobs, launches, max_abs, e2e, card.split(",")[0],
-                     serve_launches, graph_launches)
+                     serve_launches, graph_launches, dft_launches)
     seconds["4 times"] = time.perf_counter() - t0
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
 

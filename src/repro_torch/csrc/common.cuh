@@ -30,6 +30,34 @@ template <typename T> struct Vec16 {
   static constexpr int kN = 16 / sizeof(T);
 };
 
+// The kN values of a 16-byte vector of T (as loaded into a uint4) in
+// float32; the 16-bit types widen exactly.
+template <typename T>
+__device__ __forceinline__ void unpack16(uint4 u, float (&f)[Vec16<T>::kN]);
+template <>
+__device__ __forceinline__ void unpack16<float>(uint4 u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
+}
+template <>
+__device__ __forceinline__ void unpack16<__nv_bfloat16>(uint4 u, float (&f)[8]) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+template <>
+__device__ __forceinline__ void unpack16<__half>(uint4 u, float (&f)[8]) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __half2float(__ushort_as_half(static_cast<unsigned short>(w[i] & 0xffffu)));
+    f[2 * i + 1] = __half2float(__ushort_as_half(static_cast<unsigned short>(w[i] >> 16)));
+  }
+}
+
 // Sum of v over the block, valid in thread 0.  Fixed order: warp shuffles,
 // then the first warp over the per-warp sums.  blockDim.x must be a
 // multiple of 32, at most 1024.

@@ -49,6 +49,9 @@ _vp, _int, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_
 _SIGNATURES = {
     # a, b, c, m, n, k, dtype, stream
     "halo_mmm": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
+    # a, b, c, ws, m, n, k, splits, kb, kw, vec, dtype, stream
+    "halo_mmm_skinny": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int,
+                        _int, _int, _vp],
     # a, b, out, n, op, dtype, vec, stream
     "halo_ewise": [_vp, _vp, _vp, _ll, _int, _int, _int, _vp],
     # a, x, y, m, k, dtype, vec, stream
@@ -63,6 +66,8 @@ _SIGNATURES = {
     "halo_smmm": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp],
     # x, c, s, out, m, n, dtype, stream
     "halo_fft": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
+    # x, tw, out, m, n, vec, dtype, stream
+    "halo_fft_radix": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
     # x, out, keys, keys_len, rows, n, npow2, dtype, stream
     "halo_sort": [_vp, _vp, _vp, _ll, _ll, _ll, _ll, _int, _vp],
     # x, counts, out, n, bins, lo, hi, width, dtype, stream

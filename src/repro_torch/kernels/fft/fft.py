@@ -1,10 +1,19 @@
-"""FFT on Hopper: the ctypes wrapper around ``csrc/fft.cu``.
+"""FFT on Hopper: the ctypes wrappers around ``csrc/fft_radix.cu`` and
+``csrc/fft.cu``, and the route between them.
 
-Replaces ``repro/kernels/fft/fft.py::fft_pallas``: the DFT of each row as
-re = x·C and im = x·S against the twiddle matrices, both accumulated in one
-pass over x.  The kernel tiles 128 rows x 64 frequencies with a
-shared-memory time loop, masks ragged edges, and writes complex64
-interleaved, so the wrapper pads and combines nothing.
+Replaces ``repro/kernels/fft/fft.py::fft_pallas``.  Two routes, chosen by the
+transform length alone (:func:`fft_route`):
+
+* ``radix`` (``fft_radix.cu``), for n a power of two: each real row as one
+  n/2-point complex Stockham radix-4/2 FFT in shared memory and a
+  post-pass, against a table of n twiddles;
+* ``dft`` (``fft.cu``), for every other n: the reference's DFT, re = x·C
+  and im = x·S against the n x n twiddle matrices, both accumulated in one
+  pass over x, in 128-row x 64-frequency tiles.
+
+Both kernels mask ragged edges and write complex64 interleaved, so the
+wrappers pad and combine nothing.  Each route counts its own launches
+(``fft_radix`` and ``fft``).
 """
 from __future__ import annotations
 
@@ -16,10 +25,17 @@ from .. import _cuda
 from ..common import cdiv
 
 LAUNCHES = _cuda.counter("fft")
+RADIX_LAUNCHES = _cuda.counter("fft_radix")
 
-#: longest transform: the twiddle matrices are n x n (the reference's cap)
+#: longest transform: the DFT route's twiddle matrices are n x n (the
+#: reference's cap), the radix route's shared buffer holds 4096 values
 MAX_N = 4096
 _MAX_GRID_Y = 65535     # row tiles of 128
+
+
+def fft_route(n: int) -> str:
+    """``"radix"`` for n a power of two, else ``"dft"``."""
+    return "radix" if n >= 1 and n & (n - 1) == 0 else "dft"
 
 
 def fft_problem(x) -> Optional[str]:
@@ -37,9 +53,37 @@ def fft_problem(x) -> Optional[str]:
     return None
 
 
+def fft_radix_hopper(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
+    """FFT of each row of ``x`` on the card, n a power of two, against the
+    complex64 twiddle table ``tw`` (n,) of :func:`~.ref.radix_twiddles`:
+    complex64 of x's shape."""
+    _cuda.require_cuda(fft_problem(x), "FFT", x)
+    n = x.shape[-1]
+    if fft_route(n) != "radix":
+        raise ValueError(f"FFT: the radix route takes n a power of two, got n={n}")
+    if tw.dtype != torch.complex64 or tw.shape != (n,) or tw.device != x.device \
+            or not tw.is_contiguous():
+        raise ValueError(f"FFT: the twiddle table must be a contiguous "
+                         f"complex64 ({n},) tensor on {x.device}")
+    out = torch.empty(x.shape, dtype=torch.complex64, device=x.device)
+    m = x.numel() // n
+    if m == 0:
+        return out
+    rc = _cuda.lib().halo_fft_radix(x.data_ptr(), tw.data_ptr(), out.data_ptr(),
+                                    m, n, int(_cuda.aligned(x)),
+                                    _cuda.dtype_code(x.dtype), _cuda.stream(x.device))
+    _cuda.check(rc, "fft_radix")
+    RADIX_LAUNCHES.add()
+    # the table may come from a cache that drops it before the kernel is
+    # done: tell the allocator this stream still reads it
+    tw.record_stream(torch.cuda.current_stream(x.device))
+    return out
+
+
 def fft_hopper(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """DFT of each row of ``x`` on the card against the float32 twiddles
-    ``c``, ``s`` (n, n): complex64 of x's shape."""
+    ``c``, ``s`` (n, n): complex64 of x's shape (the ``dft`` route; it takes
+    any n up to :data:`MAX_N`)."""
     _cuda.require_cuda(fft_problem(x), "FFT", x)
     n = x.shape[-1]
     for name, t in (("C", c), ("S", s)):

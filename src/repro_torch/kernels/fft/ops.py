@@ -1,12 +1,13 @@
-"""Public FFT: the Hopper kernel for CUDA tensors, the plain version for CPU
-tensors, and the twiddle cache."""
+"""Public FFT: the Hopper kernels for CUDA tensors, their plain versions for
+CPU tensors, by the route of :func:`~.fft.fft_route`, and the twiddle
+caches."""
 from __future__ import annotations
 
 import functools
 
 from .. import _cuda
-from .fft import fft_hopper, fft_problem
-from .ref import dft_ref, twiddles
+from .fft import fft_hopper, fft_problem, fft_radix_hopper, fft_route
+from .ref import dft_ref, fft_radix_ref, radix_twiddles, twiddles
 
 
 @functools.lru_cache(maxsize=2)
@@ -16,16 +17,29 @@ def cached_twiddles(n: int, device):
     return twiddles(n, device)
 
 
+@functools.lru_cache(maxsize=8)
+def cached_radix_twiddles(n: int, device):
+    """:func:`~.ref.radix_twiddles` for ``(n, device)``: 32 KB at n = 4096."""
+    return radix_twiddles(n, device)
+
+
 def fft(x):
     """DFT along the last axis of a real (n,) or (m, n) input, n ≤ 4096 →
-    complex64 of the same shape (the DFT by twiddle matrices)."""
+    complex64 of the same shape: the radix FFT for n a power of two, the
+    DFT by twiddle matrices for other n."""
     _cuda.require(fft_problem(x), "FFT")
-    c, s = cached_twiddles(x.shape[-1], x.device)
+    n = x.shape[-1]
+    if fft_route(n) == "radix":
+        tw = cached_radix_twiddles(n, x.device)
+        if x.device.type == "cpu":
+            return fft_radix_ref(x, tw)
+        return fft_radix_hopper(x, tw)
+    c, s = cached_twiddles(n, x.device)
     if x.device.type == "cpu":
         return dft_ref(x, c, s)
     return fft_hopper(x, c, s)
 
 
 def fft_supported(x, **kw) -> bool:
-    """Feasibility of the hopper row: the kernel takes this operand."""
+    """Feasibility of the hopper row: a kernel takes this operand."""
     return fft_problem(x) is None

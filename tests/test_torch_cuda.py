@@ -17,9 +17,9 @@ from repro_torch.kernels.conv1d.conv1d import conv1d_hopper
 from repro_torch.kernels.conv1d.ref import conv1d_ref
 from repro_torch.kernels.ewise.ewise import ewise_hopper
 from repro_torch.kernels.ewise.ref import OP_REFS
-from repro_torch.kernels.fft.fft import fft_hopper
-from repro_torch.kernels.fft.ops import cached_twiddles
-from repro_torch.kernels.fft.ref import dft_ref
+from repro_torch.kernels.fft.fft import fft_hopper, fft_radix_hopper
+from repro_torch.kernels.fft.ops import cached_radix_twiddles, cached_twiddles
+from repro_torch.kernels.fft.ref import dft_ref, fft_radix_ref
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_hopper
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.fused import (ACC, MAX_INPUTS, MAX_STEPS,
@@ -27,8 +27,9 @@ from repro_torch.kernels.fused import (ACC, MAX_INPUTS, MAX_STEPS,
 from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
 from repro_torch.kernels.jacobi.ops import jacobi_solve
 from repro_torch.kernels.jacobi.ref import jacobi_step_ref
-from repro_torch.kernels.matmul.matmul import mmm_hopper
-from repro_torch.kernels.matmul.ref import mmm_ref
+from repro_torch.kernels.matmul.matmul import (SKINNY_M_MAX, mmm_hopper, mmm_route,
+                                               mmm_skinny_hopper, mmm_tile_hopper)
+from repro_torch.kernels.matmul.ref import mmm_ref, mmm_splitk_ref
 from repro_torch.kernels.mvm.mvm import mvm_hopper
 from repro_torch.kernels.mvm.ref import mvm_ref
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -81,6 +82,44 @@ def test_mmm_kernel(card, dtype, m, k, n):
     out = mmm_hopper(a, b)
     assert out.dtype == dtype and out.shape == (m, n)
     assert _normwise(out, mmm_ref(a, b)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("k,n", [(2560, 2560), (2560, 640), (2560, 6912), (6912, 2560),
+                                 (2560, 32000), (777, 1001), (129, 70), (300, 2564)])
+def test_mmm_skinny_kernel(card, dtype, m, k, n):
+    """danube's decode projections, then a ragged N (scalar path), a short K
+    and an N that is a multiple of 4 but not of 8."""
+    a, b = _rnd(card, m, k, dtype=dtype), _rnd(card, k, n, dtype=dtype, seed=1)
+    out = mmm_skinny_hopper(a, b)
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert _normwise(out, mmm_ref(a, b)) <= TOL[dtype]
+    assert _normwise(out, mmm_splitk_ref(a, b)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mmm_skinny_unaligned_and_repeatable(card, dtype):
+    """B off the 16-byte grid takes the scalar path; two calls give the same
+    bits (the splits are summed in a fixed order)."""
+    flat = _rnd(card, 2560 * 640 + 1, dtype=dtype, seed=1)
+    b = flat[1:].view(2560, 640)
+    assert b.data_ptr() % 16 != 0
+    a = _rnd(card, 4, 2560, dtype=dtype)
+    out = mmm_skinny_hopper(a, b)
+    assert _normwise(out, mmm_ref(a, b)) <= TOL[dtype]
+    b = _rnd(card, 2560, 640, dtype=dtype, seed=2)
+    assert torch.equal(_bits(mmm_skinny_hopper(a, b)), _bits(mmm_skinny_hopper(a, b)))
+
+
+def test_mmm_routes_count_apart(card):
+    before = _cuda.launch_counts()
+    for m in (1, SKINNY_M_MAX, SKINNY_M_MAX + 1):
+        a, b = _rnd(card, m, 64, dtype=torch.bfloat16), _rnd(card, 64, 32, dtype=torch.bfloat16)
+        assert _normwise(mmm_hopper(a, b), mmm_ref(a, b)) <= TOL[torch.bfloat16]
+    after = _cuda.launch_counts()
+    assert after["mmm_skinny"] == before["mmm_skinny"] + 2
+    assert after["mmm"] == before["mmm"] + 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -218,6 +257,26 @@ def test_fft_kernel(card, dtype, shape):
     assert float((wide - exact).norm() / exact.norm()) <= 1e-5
     ref = dft_ref(x, c, s).to(torch.complex128)
     assert float((wide - ref).norm() / ref.norm()) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("j", range(13))
+def test_fft_radix_kernel(card, dtype, j):
+    """Every power of two: normwise 1e-5 against the float64 DFT and against
+    the plain version (the same stages in the same order), 1-D, 3 rows and
+    more rows than a block holds, and an x off the 16-byte grid."""
+    n = 1 << j
+    tw = cached_radix_twiddles(n, card)
+    unaligned = _rnd(card, 3 * n + 1, dtype=dtype, seed=2)[1:].view(3, n)
+    for x in (_rnd(card, n, dtype=dtype), _rnd(card, 3, n, dtype=dtype, seed=1),
+              _rnd(card, 1030, n, dtype=dtype, seed=3), unaligned):
+        out = fft_radix_hopper(x, tw)
+        assert out.dtype == torch.complex64 and out.shape == x.shape
+        wide = out.to(torch.complex128)
+        exact = torch.fft.fft(x.double(), dim=-1)
+        assert float((wide - exact).norm() / exact.norm()) <= 1e-5
+        ref = fft_radix_ref(x, tw).to(torch.complex128)
+        assert float((wide - ref).norm() / ref.norm()) <= 1e-5
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -427,7 +486,13 @@ def test_model_on_the_card_runs_the_kernels(card):
     served = run(None)
     counts = _cuda.launch_counts()
     layers = model.cfg.n_layers
-    assert counts["mmm"] == 5 * (7 * layers + 1)
+    # the prefill's 40 rows take the route mmm_route(40) picks, its
+    # last-token unembed (one row) and the 4 decode passes (one row each)
+    # the skinny route
+    assert counts["mmm"] + counts["mmm_skinny"] == 5 * (7 * layers + 1)
+    prefill_tile = 7 * layers if mmm_route(40) == "tile" else 0
+    assert counts["mmm"] == prefill_tile
+    assert counts["mmm_skinny"] == 5 * (7 * layers + 1) - prefill_tile
     assert counts["rmsnorm"] == 5 * (2 * layers + 1)
     assert counts["flash_attention"] == layers
     _cuda.reset_launch_counts()
@@ -441,7 +506,8 @@ def test_each_launch_counts_once(card):
     a = _rnd(card, 16, 16, dtype=torch.float32)
     a.diagonal().add_(16.0)
     before = _cuda.launch_counts()
-    mmm_hopper(a, a)
+    mmm_tile_hopper(a, a)
+    mmm_skinny_hopper(a, a)
     ewise_hopper(a, a, "add")
     mvm_hopper(a, a[0])
     vdp_hopper(a[0], a[0])
@@ -450,14 +516,16 @@ def test_each_launch_counts_once(card):
     smmm_hopper(a.view(2, 1, 8, 16), torch.zeros(2, 1, dtype=torch.int32,
                                                  device=card), a)
     fft_hopper(a, *cached_twiddles(16, card))
+    fft_radix_hopper(a, cached_radix_twiddles(16, card))
     sort_hopper(a)
     hist_hopper(a)
     rmsnorm_hopper(a, a[0])
     q = a[:, :8].reshape(1, 2, 2, 32)
     flash_attention_hopper(q, q[:, :1], q[:, :1])
     after = _cuda.launch_counts()
-    for name in ("mmm", "ewise", "mvm", "vdp", "jacobi", "conv1d", "spmm",
-                 "fft", "sort", "hist", "rmsnorm", "flash_attention"):
+    for name in ("mmm", "mmm_skinny", "ewise", "mvm", "vdp", "jacobi", "conv1d",
+                 "spmm", "fft", "fft_radix", "sort", "hist", "rmsnorm",
+                 "flash_attention"):
         assert after[name] == before[name] + 1
 
 

@@ -113,8 +113,9 @@ def test_hopper_path_calls_no_library_op(path):
 ENTRY = {"spmm": "smmm"}
 
 
-@pytest.mark.parametrize("name", ["mmm", "ewise", "mvm", "vdp", "jacobi",
-                                  "conv1d", "spmm", "fft", "sort", "hist",
+@pytest.mark.parametrize("name", ["mmm", "mmm_skinny", "ewise", "mvm", "vdp",
+                                  "jacobi", "conv1d", "spmm", "fft", "fft_radix",
+                                  "sort", "hist",
                                   "rmsnorm", "flash_attention", "fused"])
 def test_kernel_sources_carry_their_note(name):
     src = (PKG / "csrc" / f"{name}.cu").read_text()
