@@ -25,12 +25,17 @@ Phases (any failure exits non-zero before the result lines are printed):
    ``torch.fft.fft`` in float64 and against its plain version, in three
    types: the radix route at every n = 2^j ≤ 4096, the DFT route at n = 7,
    1000 and DFT_N.
-   SORT: bit-exact, and NaN last on rows that hold NaN, ±inf and ±0.
+   SORT: bit-exact, and NaN last on rows that hold NaN, ±inf and ±0;
+   the radix route also on rows that skip passes (16-bit types, a
+   constant row, integers 0–15) and on negative-only rows, bit-exact
+   with its plain model and, where both take the row, the tile route.
    HIST: bit-exact, on bin edges, range ends, NaN and ±inf, at several
    bin counts, and with every value in one bin.
-   RMSNORM and FLASH_ATTN: normwise (``TOL``) at the model path's shapes,
-   FLASH_ATTN under four masks (causal, window, prefix with window,
-   Sq < Skv).  The fused chain kernel: bit-exact against its plain version
+   RMSNORM and FLASH_ATTN: normwise (``TOL``) at the model path's shapes
+   in three types, FLASH_ATTN under four masks (causal, window, prefix
+   with window, Sq < Skv): the tensor-core route in bfloat16 and float16
+   (also against its plain model), the CUDA-core route in all three.
+   The fused chain kernel: bit-exact against its plain version
    and against serial EW launches, in float32, bfloat16 and float16, on
    every op, copy, "acc" as the second operand, an input read twice and a
    chain at the caps, at ragged, prime and misaligned sizes.
@@ -38,17 +43,20 @@ Phases (any failure exits non-zero before the result lines are printed):
    every claim pinned to the hopper records, blocking and asynchronous, at
    working sets inside the paper's 48 MB–1 GB.  Every kernel's launch count
    must rise by exactly the requests sent to it (MMM at 4096 rows on the
-   tile route, FFT at n = 4096 on the radix route), the scheduler's
-   quarantine must stay empty, and every output must match its plain
-   version.  One more FFT request at n = DFT_N, counted alone, must take
-   the DFT route.  Then the template is timed end to end (median of 5
-   runs, T1 per call).
+   tile route, FFT at n = 4096 and SORT at 2^24 on their radix routes),
+   the scheduler's quarantine must stay empty, and every output must match
+   its plain version.  Three more requests, each counted alone, drive the
+   other routes: FFT at n = DFT_N (the DFT route), SORT of 4096 rows of
+   4096 (the tile route) and FLASH_ATTN at danube's prefill attention
+   shape in float32 (the CUDA-core route).  Then the template is timed
+   end to end (median of 5 runs, T1 per call).
 3b. The model path: h2o-danube-1.8b at full width (random bfloat16 weights
    from a seed) served through ``repro_torch.launch.serve.run_requests``
    on a SlotEngine/StepScheduler: 8 requests on 4 slots, prompts of 512
    and 4200 tokens (past the 4096 window), greedy, mixed budgets up to 16.
    The launch counts must follow the model's structure (MMM 7·L+1 and
-   RMSNORM 2·L+1 per forward pass, FLASH_ATTN L per prefill; a prefill's
+   RMSNORM 2·L+1 per forward pass, FLASH_ATTN L per prefill on the
+   tensor-core route; a prefill's
    7·L projections on MMM's tile route, its one-row unembed and every
    decode pass's MMMs on the skinny route), the quarantine must stay
    empty, and every step's logits must agree with a replay through the
@@ -71,10 +79,12 @@ Phases (any failure exits non-zero before the result lines are printed):
    time the card could take (``bound_ms``).  RMSNORM and FLASH_ATTN, at the
    shapes of phase 3b: device time per call from ``torch.profiler`` over 20
    calls (a kernel of tens of µs is shorter than its Python wrapper), with
-   the event times beside it; so are the radix FFT at the template's shape
+   the event times beside it (FLASH_ATTN's tensor-core route in bfloat16,
+   its CUDA-core route in float32); so are the radix FFT at the template's shape
    and MMM's skinny route at each decode projection (M = 4, bfloat16, B
    cold in L2), beside ``torch.matmul``, with a sweep of both MMM routes
-   over M that sets SKINNY_M_MAX.  The DFT route at 2048 x DFT_N.  The
+   over M that sets SKINNY_M_MAX.  The DFT route at 2048 x DFT_N; SORT's
+   radix route at 2^24 and its tile route at 4096 x 4096.  The
    fused chain kernel at a 4-step
    8192² float32 chain, beside its plain version, the four ATen calls and
    the four serial EW launches.
@@ -115,8 +125,9 @@ DFT_N = 3000
 #: order, which moves the result by a few units of 2^-24 times sqrt(K); 1e-5
 #: leaves room for K = 8192.  bfloat16: the float32 sums are alike, but
 #: rounding the output to an 8-bit mantissa (2^-9 ≈ 2e-3 relative) can land
-#: on the other side for some elements.
-TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+#: on the other side for some elements.  float16 (RMSNORM and FLASH_ATTN
+#: only): the same with an 11-bit mantissa, as tests/test_torch_cuda.py.
+TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
 
 #: VDP: |k − r| / |r| on vectors of mean 1, where Σxy ≈ n is about half of
 #: ‖x‖‖y‖, so this is the dot product's own relative error.  The output is
@@ -206,13 +217,18 @@ REPLACES = {
     "fused": "src/repro/kernels/fused.py:58",
     "mmm_skinny": "src/repro/kernels/matmul/matmul.py:43",
     "fft_radix": "src/repro/kernels/fft/fft.py:58",
+    "sort_radix": "src/repro/kernels/sorthist/sorthist.py:57",
+    "flash_attention_mma": "src/repro/kernels/flash_attention/flash_attention.py:106",
 }
 
 #: where each kernel's launches are counted when it is not the template's
-#: (phase 3): the model path (3b), the graphs (3c), or the template's FFT
-#: request at the non-power-of-two DFT_N (phase 3, the DFT route)
-PATH_OF = {"rmsnorm": "serve", "flash_attention": "serve", "mmm_skinny": "serve",
-           "fused": "graph", "fft": "dft"}
+#: (phase 3): the model path (3b), the graphs (3c), or one of phase 3's
+#: requests counted alone: FFT at the non-power-of-two DFT_N (the DFT
+#: route), SORT of rows that fit one tile, FLASH_ATTN in float32 (the
+#: CUDA-core route)
+PATH_OF = {"rmsnorm": "serve", "flash_attention_mma": "serve", "mmm_skinny": "serve",
+           "fused": "graph", "fft": "dft", "sort": "sort_tile",
+           "flash_attention": "fa_float32"}
 
 
 def decode_projections(cfg):
@@ -471,8 +487,9 @@ def phase2(dev) -> None:
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         phase2_fft(dev, gen, dt)
     for dt in (torch.float32, torch.bfloat16):
-        phase2_sort(dev, gen, dt)
         phase2_hist(dev, gen, dt)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        phase2_sort(dev, gen, dt)
         phase2_model(dev, gen, dt)
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         phase2_fused(dev, gen, dt)
@@ -557,13 +574,19 @@ def phase2_fft(dev, gen, dt) -> None:
 
 def phase2_sort(dev, gen, dt) -> None:
     """SORT bit-exact against its plain version across the tile boundary,
-    on ragged and many rows, on duplicates; NaN last beside ±inf and ±0."""
-    from repro_torch.kernels.sorthist.ref import sort_ref
-    from repro_torch.kernels.sorthist.sorthist import SORT_TILE, sort_hopper
+    on ragged and many rows, on duplicates; NaN last beside ±inf and ±0.
+    The radix route also on its own terms: rows that skip digit passes
+    (16-bit types, integers 0–15, a constant row) and negative-only rows,
+    bit-exact with the plain version, its plain model and, for rows that
+    fit one tile, the tile route."""
+    from repro_torch.kernels.sorthist.ref import sort_radix_ref, sort_ref
+    from repro_torch.kernels.sorthist.sorthist import (SORT_TILE, sort_hopper,
+                                                       sort_radix_hopper, sort_route,
+                                                       sort_tile_hopper)
 
     name = str(dt).split(".")[-1]
-    # rows of at most SORT_TILE places sort in one block, longer ones merge
-    # through global memory
+    # rows of at most SORT_TILE places sort in one block (the tile route),
+    # longer ones take the radix route
     tile = SORT_TILE
     shapes = [(n,) for n in (1, 2, 127, 128, 129, tile, tile + 1, (1 << 20) + 3,
                              SIZES["SORT"])]
@@ -592,6 +615,30 @@ def phase2_sort(dev, gen, dt) -> None:
         if not ok:
             fail(f"SORT {name} 2x{n} with NaN, ±inf and ±0: not NaN-last or "
                  f"not the plain version's values")
+        # the radix route orders −0 before +0, as its key order has it
+        check_bits(f"SORT radix {name} 2x{n} NaN, ±inf, ±0 vs model",
+                   sort_radix_hopper(x), sort_radix_ref(x))
+    # the radix route on its own terms, at rows that take every pass, skip
+    # passes (integers 0–15; 16-bit types), skip them all (a constant row),
+    # hold only negatives, and start off the 16-byte grid
+    cases = {"normal": lambda s: torch.randn(s, generator=gen, device=dev),
+             "integers 0-15": lambda s: torch.randint(0, 16, s, generator=gen,
+                                                      device=dev).float(),
+             "negative only": lambda s: -1.0 - torch.rand(s, generator=gen, device=dev),
+             "constant": lambda s: torch.full(s, -0.75, device=dev)}
+    for label, make in cases.items():
+        for shape in ((3, 4097), (2, tile + 1), (3, 70_001), (SIZES["SORT"],)):
+            x = make(shape).to(dt)
+            what = f"SORT radix {name} {'x'.join(map(str, shape))} {label}"
+            k = sort_radix_hopper(x)
+            check_bits(f"{what} vs plain", k, sort_ref(x))
+            check_bits(f"{what} vs model", k, sort_radix_ref(x))
+            if sort_route(shape[-1]) == "tile":
+                check_bits(f"{what} vs tile route", k, sort_tile_hopper(x))
+    x = torch.randn(3 * 20_001 + 1, generator=gen, device=dev).to(dt)[1:].view(3, 20_001)
+    if x.data_ptr() % 16 == 0:
+        fail("SORT radix: the offset view is 16-byte aligned")
+    check_bits(f"SORT radix {name} 3x20001 unaligned", sort_radix_hopper(x), sort_ref(x))
 
 
 def phase2_hist(dev, gen, dt) -> None:
@@ -627,11 +674,12 @@ FA_MASKS = {"causal": dict(sq=1024, causal=True, window=None, prefix_len=0),
 
 
 def phase2_model(dev, gen, dt) -> None:
-    """RMSNORM and FLASH_ATTN against their plain versions at the model
-    path's widths (danube: d_model 2560, 32 heads of 80 over 8 KV heads)."""
+    """RMSNORM and FLASH_ATTN (both routes) against their plain versions at
+    the model path's widths (danube: d_model 2560, 32 heads of 80 over 8 KV
+    heads)."""
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention_hopper)
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+        fa_route, flash_attention_cuda_cores_hopper, flash_attention_mma_hopper)
+    from repro_torch.kernels.flash_attention.ref import attention_mma_ref, attention_ref
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_hopper
 
@@ -643,16 +691,25 @@ def phase2_model(dev, gen, dt) -> None:
                     normwise(rmsnorm_hopper(x, g, 1e-5), rmsnorm_ref(x, g, 1e-5)), dt)
     # v has mean 1: with zero-mean v, attention spread over ~1000 keys
     # returns a sum ~30x smaller than its terms, and float32 reordering alone
-    # then moves it by ~1e-5; a dropped tile of 64 keys still moves it ~1e-3
+    # then moves it by ~1e-5; a dropped tile of 64 keys still moves it ~1e-3.
+    # 16-bit types: the tensor-core route, against the plain version and its
+    # plain model (p rounded to the input type per 64-key tile); every type:
+    # the CUDA-core route
     skv = 1024
     k = torch.randn((1, 8, skv, 80), generator=gen, device=dev).to(dt)
     v = (torch.randn((1, 8, skv, 80), generator=gen, device=dev) + 1.0).to(dt)
     for label, c in FA_MASKS.items():
         q = torch.randn((1, 32, c["sq"], 80), generator=gen, device=dev).to(dt)
         kw = dict(causal=c["causal"], window=c["window"], prefix_len=c["prefix_len"])
-        check_close(f"FLASH_ATTN {name} 1x32x{c['sq']}x80 {label}",
-                    normwise(flash_attention_hopper(q, k, v, **kw),
-                             attention_ref(q, k, v, **kw)), dt)
+        ref = attention_ref(q, k, v, **kw)
+        what = f"FLASH_ATTN {name} 1x32x{c['sq']}x80 {label}"
+        if fa_route(dt, 80) == "mma":
+            out = flash_attention_mma_hopper(q, k, v, **kw)
+            check_close(f"{what} mma", normwise(out, ref), dt)
+            check_close(f"{what} mma vs model",
+                        normwise(out, attention_mma_ref(q, k, v, **kw)), dt)
+        check_close(f"{what} cuda cores",
+                    normwise(flash_attention_cuda_cores_hopper(q, k, v, **kw), ref), dt)
 
 
 #: phase 2: fused chains — (op, a, b) steps over inputs 0..4, "acc" the
@@ -734,10 +791,12 @@ def phase2_fused(dev, gen, dt) -> None:
 # ---------------------------------------------------------------------------
 def phase3(dev):
     from repro_torch import halo, quickstart
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.conv1d.ref import conv1d_ref
     from repro_torch.kernels.ewise.ref import OP_REFS as EW_REFS
     from repro_torch.kernels.fft.ref import dft_ref, fft_radix_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.jacobi.ref import jacobi_step_ref
     from repro_torch.kernels.matmul.ref import mmm_ref
     from repro_torch.kernels.mvm.ref import mvm_ref
@@ -762,10 +821,12 @@ def phase3(dev):
           f"T1 {session.t1_seconds_per_call * 1e6:.1f} us per call over "
           f"{2 * len(jobs)} calls")
     print(f"  launches {launches}; quarantine {quarantined}")
-    # MMM at M = 4096 takes the tile route, FFT at n = 4096 the radix route
+    # MMM at M = 4096 takes the tile route, FFT at n = 4096 and SORT at
+    # 2^24 the radix routes
     expected = {"mmm": 2, "mmm_skinny": 0, "ewise": 8, "mvm": 2, "vdp": 2,
                 "jacobi": 2, "conv1d": 2, "spmm": 2, "fft": 0, "fft_radix": 2,
-                "sort": 2, "hist": 2, "rmsnorm": 0, "flash_attention": 0, "fused": 0}
+                "sort": 0, "sort_radix": 2, "hist": 2, "rmsnorm": 0,
+                "flash_attention": 0, "flash_attention_mma": 0, "fused": 0}
     if launches != expected:
         fail(f"launch counts {launches} != requests sent {expected}: a request "
              f"did not reach its kernel")
@@ -779,7 +840,7 @@ def phase3(dev):
             "HIST": hist_ref}
     kernel_of = {"MMM": "mmm", "MVM": "mvm", "VDP": "vdp", "JS": "jacobi",
                  "1DCONV": "conv1d", "SMMM": "spmm", "FFT": "fft_radix",
-                 "SORT": "sort", "HIST": "hist"}
+                 "SORT": "sort_radix", "HIST": "hist"}
     max_abs = {k: 0.0 for k in expected if k not in PATH_OF}
     for alias, args in jobs.items():
         ref = refs[alias](*args)
@@ -792,7 +853,7 @@ def phase3(dev):
             max_abs[kname] = max(max_abs[kname],
                                  float((wide(out) - wide(ref)).abs().max()))
             label = f"{alias} {mode} {'x'.join(map(str, args[0].shape))}"
-            if kname in ("ewise", "conv1d", "sort", "hist"):
+            if kname in ("ewise", "conv1d", "sort_radix", "hist"):
                 check_bits(label, out, ref)
             elif alias == "FFT":
                 check_close(f"{label} vs plain", normwise(out, ref), torch.float32,
@@ -806,25 +867,54 @@ def phase3(dev):
                 check_js(label, out, ref, *args, torch.float32)
             else:
                 check_close(label, normwise(out, ref), torch.float32)
-    # the DFT route through the same host API: one FFT request at the
-    # non-power-of-two DFT_N, counted on its own
-    x = torch.randn((SIZES["FFT"] // 2, DFT_N), generator=torch.Generator(
-        device=dev).manual_seed(2), device=dev)
-    cr = halo.claim("FFT", overrides=PIN)
-    _cuda.reset_launch_counts()
-    halo.send((x,), cr)
-    out = halo.recv(cr)
-    torch.cuda.synchronize(dev)
-    dft_launches = _cuda.launch_counts()
-    print(f"  FFT request {x.shape[0]}x{DFT_N}: launches "
-          f"{ {k: v for k, v in dft_launches.items() if v} }")
-    if dft_launches != {**{k: 0 for k in expected}, "fft": 1}:
-        fail(f"the FFT request at n={DFT_N} launched {dft_launches}, not one DFT")
-    label = f"FFT {x.shape[0]}x{DFT_N} (dft route)"
-    check_close(f"{label} vs plain", normwise(out, dft_ref(x)), torch.float32, FFT_TOL)
-    check_close(f"{label} vs float64", normwise(out, torch.fft.fft(x.double(), dim=-1)),
-                torch.float32, FFT_TOL)
-    max_abs["fft"] = float((wide(out) - wide(dft_ref(x))).abs().max())
+    # the other routes through the same host API, each request counted on
+    # its own: FFT at the non-power-of-two DFT_N (the DFT route), SORT of
+    # 4096 rows of 4096 (the tile route), FLASH_ATTN in float32 at danube's
+    # prefill attention shape (the CUDA-core route)
+    gen2 = torch.Generator(device=dev).manual_seed(2)
+    cfg = get_config(SERVE["arch"])
+    attn = cfg.stages[0].pattern[0].attn
+    seq = max(SERVE["prompt_lens"])
+    fkw = dict(causal=True, window=attn.window, prefix_len=cfg.prefix_len)
+    requests = {
+        "dft": ("FFT", (torch.randn((SIZES["FFT"] // 2, DFT_N), generator=gen2,
+                                    device=dev),), {}, "fft"),
+        "sort_tile": ("SORT", (torch.randn((4096, 4096), generator=gen2, device=dev),),
+                      {}, "sort"),
+        "fa_float32": ("FLASH_ATTN", (
+            torch.randn((1, attn.n_heads, seq, attn.head_dim), generator=gen2, device=dev),
+            torch.randn((1, attn.n_kv_heads, seq, attn.head_dim), generator=gen2,
+                        device=dev),
+            torch.randn((1, attn.n_kv_heads, seq, attn.head_dim), generator=gen2,
+                        device=dev) + 1.0), fkw, "flash_attention"),
+    }
+    path_launches = {}
+    for path, (alias, args, kw, kname) in requests.items():
+        cr = halo.claim(alias, overrides=PIN)
+        _cuda.reset_launch_counts()
+        halo.send(args, cr, **kw)
+        out = halo.recv(cr)
+        torch.cuda.synchronize(dev)
+        counts = _cuda.launch_counts()
+        path_launches[path] = counts
+        label = f"{alias} {'x'.join(map(str, args[0].shape))} ({path})"
+        print(f"  {label}: launches { {k: v for k, v in counts.items() if v} }")
+        if counts != {**{k: 0 for k in expected}, kname: 1}:
+            fail(f"the {label} request launched {counts}, not one {kname}")
+        if alias == "FFT":
+            x, = args
+            ref = dft_ref(x)
+            check_close(f"{label} vs plain", normwise(out, ref), torch.float32, FFT_TOL)
+            check_close(f"{label} vs float64", normwise(
+                out, torch.fft.fft(x.double(), dim=-1)), torch.float32, FFT_TOL)
+        elif alias == "SORT":
+            ref = sort_ref(*args)
+            check_bits(label, out, ref)
+        else:
+            ref = attention_ref(*args, **kw)
+            check_close(f"{label} vs plain", normwise(out, ref), torch.float32)
+        max_abs[kname] = float((wide(out) - wide(ref)).abs().max())
+        del out, ref
     # end to end, after the counted run: wall time of the whole template
     # (blocking + burst) on the same inputs, and T1 per call
     walls = []
@@ -839,7 +929,7 @@ def phase3(dev):
            "t1_us_per_call": session.t1_seconds_per_call * 1e6,
            "requests": 2 * len(jobs)}
     halo.finalize()
-    return jobs, launches, dft_launches, max_abs, e2e
+    return jobs, launches, path_launches, max_abs, e2e
 
 
 # ---------------------------------------------------------------------------
@@ -979,12 +1069,13 @@ def phase3b(dev):
     # 7·L + 1 MMMs per forward pass: a prefill's 7·L projections of its
     # prompt rows take the tile route and its last-token unembed (one row)
     # the skinny route; a decode pass's 7·L + 1 (one row per slot) all take
-    # the skinny route
+    # the skinny route; every prefill's attention (bfloat16, head dim 80)
+    # takes FLASH_ATTN's tensor-core route
     expected.update(mmm=7 * layers * len(engine.prefill_s),
                     mmm_skinny=(7 * layers + 1) * len(engine.decode_s)
                     + len(engine.prefill_s),
                     rmsnorm=(2 * layers + 1) * passes,
-                    flash_attention=layers * len(engine.prefill_s))
+                    flash_attention_mma=layers * len(engine.prefill_s))
     print(f"  {len(engine.prefill_s)} prefills + {len(engine.decode_s)} decode steps: "
           f"expected launches {expected}")
     if launches != expected:
@@ -1365,7 +1456,7 @@ def replay(model, params, prompt, toks, max_len, manifest):
 # phase 4: times at the phase-3 shapes
 # ---------------------------------------------------------------------------
 def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
-           graph_launches, dft_launches):
+           graph_launches, path_launches):
     from repro_torch.configs import get_config
     from repro_torch.core.portability import KernelReport, time_fn
     from repro_torch.kernels.conv1d.conv1d import conv1d_hopper
@@ -1377,7 +1468,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     from repro_torch.kernels.fft.ops import cached_radix_twiddles, cached_twiddles
     from repro_torch.kernels.fft.ref import dft_ref, fft_aten, fft_radix_ref
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention_hopper)
+        flash_attention_cuda_cores_hopper, flash_attention_mma_hopper)
     from repro_torch.kernels.flash_attention.ref import (attention_aten,
                                                          attention_ref, visibility)
     from repro_torch.kernels.fused import ewise_chain_hopper, ewise_chain_ref
@@ -1390,8 +1481,10 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     from repro_torch.kernels.mvm.ref import mvm_aten, mvm_ref
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_aten, rmsnorm_ref
     from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_hopper
-    from repro_torch.kernels.sorthist.ref import hist_ref, sort_ref
-    from repro_torch.kernels.sorthist.sorthist import hist_hopper, sort_hopper
+    from repro_torch.kernels.sorthist.ref import (hist_ref, radix_passes, sort_keys,
+                                                  sort_ref)
+    from repro_torch.kernels.sorthist.sorthist import (hist_hopper, sort_radix_hopper,
+                                                       sort_tile_hopper)
     from repro_torch.kernels.spmm.ref import bell_to_dense, smmm_aten, smmm_bell_ref
     from repro_torch.kernels.spmm.spmm import smmm_hopper
     from repro_torch.kernels.vdp.ref import vdp_aten, vdp_ref
@@ -1506,6 +1599,33 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     # comparison sort can do without (the bytes bound it all the same, and
     # no comparison sort reaches that bound)
     sort_bound = bound(4 * 2 * n_sort, n_sort * max(1, (n_sort - 1).bit_length()))
+    # the radix route's own traffic on this input, beside the bound: one
+    # counting read of x, the first pass's read and write, and a counting
+    # read, a read and a write for every later pass (tile counts aside)
+    n_passes = len(radix_passes(sort_keys(sx))) or 1
+    radix_bytes = 4 * n_sort * (3 + 3 * (n_passes - 1))
+    print(f"  sort radix route: {n_passes} digit passes at n={n_sort} float32, "
+          f"{radix_bytes / 1e6:.1f} MB of key traffic "
+          f"({radix_bytes / bw * 1e3:.4f} ms at {bw / 1e12} TB/s)")
+    # the radix route's device time by kernel (a count and a plan, then per
+    # pass an upsweep, a scan and a scatter): mean ms per launch from the
+    # profiler over 10 calls, and the launches it saw (it may drop some)
+    from torch.profiler import ProfilerActivity, profile
+    sort_radix_hopper(sx)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            sort_radix_hopper(sx)
+        torch.cuda.synchronize(dev)
+    parts = sorted(((device_seconds_of(e) * 1e3 / e.count, e.count,
+                     e.key.replace("(anonymous namespace)::", "").replace("void ", "")
+                     .split("(")[0].split("<")[0])
+                    for e in prof.key_averages() if device_seconds_of(e)), reverse=True)
+    print("  sort radix route by kernel (profiler over 10 calls): " + "; ".join(
+        f"{k} {t:.4f} ms x {c} launches seen" for t, c, k in parts))
+    # the tile route at phase 3's request shape: 4096 rows of 4096
+    stx = torch.randn((4096, 4096), generator=torch.Generator(device=dev).manual_seed(8),
+                      device=dev)
+    sort_tile_bound = bound(4 * 2 * stx.numel(), stx.numel() * 12)
     hx, = jobs["HIST"]
     n_hist = hx.numel()
     hist_bound = bound(4 * n_hist + 4 * 64, n_hist)
@@ -1538,11 +1658,15 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
           f"tensor-core peak")
     max_abs["rmsnorm"] = float((wide(rmsnorm_hopper(rx, rg, cfg.norm_eps))
                                 - wide(rmsnorm_ref(rx, rg, cfg.norm_eps))).abs().max())
-    fo, fr = flash_attention_hopper(fq, fk, fv, **fkw), attention_ref(fq, fk, fv, **fkw)
-    max_abs["flash_attention"] = float((wide(fo) - wide(fr)).abs().max())
-    check_close(f"FLASH_ATTN {tuple(fq.shape)} window {attn.window} vs plain",
+    fo, fr = flash_attention_mma_hopper(fq, fk, fv, **fkw), attention_ref(fq, fk, fv, **fkw)
+    max_abs["flash_attention_mma"] = float((wide(fo) - wide(fr)).abs().max())
+    check_close(f"FLASH_ATTN {tuple(fq.shape)} window {attn.window} mma vs plain",
                 normwise(fo, fr), mdt)
     del fo, fr
+    # the CUDA-core route at the same shape in float32 (phase 3's request),
+    # bound against the float32 CUDA-core peak
+    fq32, fk32, fv32 = fq.float(), fk.float(), fv.float()
+    fa32_bound = bound(4 * (2 * fq.numel() + fk.numel() + fv.numel()), fa_flops, f32_peak)
     mname = str(mdt).split(".")[-1]
 
     def cycling(fn, args_list):
@@ -1674,10 +1798,17 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
                  "library_ms": ms(fft_aten, dx)}, dft_bound,
          f"{f_m}x{DFT_N} float32, DFT route (library: cuFFT)"),
         # the library call also returns the permutation; the plain version
-        # makes every NaN positive, then keeps the values of one torch.sort
-        ("sort", {"ms": ms(sort_hopper, sx), "plain_ms": ms(sort_ref, sx),
-                  "library_ms": ms(torch.sort, sx)}, sort_bound,
-         f"n={n_sort} float32 (library: torch.sort)"),
+        # makes every NaN positive, then keeps the values of one torch.sort.
+        # Events, not the profiler: the radix route launches 4 of its
+        # kernels 4 times per call, and a window that drops launches would
+        # round that count down
+        ("sort_radix", {"ms": ms(sort_radix_hopper, sx), "plain_ms": ms(sort_ref, sx),
+                        "library_ms": ms(torch.sort, sx), "radix_passes": n_passes,
+                        "radix_bytes": radix_bytes}, sort_bound,
+         f"n={n_sort} float32, radix route, {n_passes} passes (library: torch.sort)"),
+        ("sort", {"ms": ms(sort_tile_hopper, stx), "plain_ms": ms(sort_ref, stx),
+                  "library_ms": ms(torch.sort, stx)}, sort_tile_bound,
+         "4096x4096 float32, tile route (library: torch.sort)"),
         # torch.histc bins the edges differently: a time yardstick only
         ("hist", {"ms": ms(hist_hopper, hx), "plain_ms": ms(hist_ref, hx),
                   "library_ms": ms(torch.histc, hx, 64, 0.0, 1.0)}, hist_bound,
@@ -1687,12 +1818,20 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
                               lambda: rmsnorm_ref(rx, rg, cfg.norm_eps),
                               lambda: rmsnorm_aten(rx, rg, cfg.norm_eps)), rms_bound,
          f"4096x{cfg.d_model} {mname}, device time (library: F.rms_norm)"),
-        ("flash_attention", model_row(lambda: flash_attention_hopper(fq, fk, fv, **fkw),
-                                      lambda: attention_ref(fq, fk, fv, **fkw),
-                                      lambda: attention_aten(fq, fk, fv, **fkw)),
+        ("flash_attention_mma", model_row(
+            lambda: flash_attention_mma_hopper(fq, fk, fv, **fkw),
+            lambda: attention_ref(fq, fk, fv, **fkw),
+            lambda: attention_aten(fq, fk, fv, **fkw)),
          fa_bound, f"1x{attn.n_heads}x{seq}x{attn.head_dim} {mname}, "
-         f"{attn.n_kv_heads} KV heads, causal, window {attn.window}, device time "
-         f"(library: SDPA, explicit mask)"),
+         f"{attn.n_kv_heads} KV heads, causal, window {attn.window}, tensor-core "
+         f"route, device time (library: SDPA, explicit mask)"),
+        ("flash_attention", model_row(
+            lambda: flash_attention_cuda_cores_hopper(fq32, fk32, fv32, **fkw),
+            lambda: attention_ref(fq32, fk32, fv32, **fkw),
+            lambda: attention_aten(fq32, fk32, fv32, **fkw)),
+         fa32_bound, f"1x{attn.n_heads}x{seq}x{attn.head_dim} float32, "
+         f"{attn.n_kv_heads} KV heads, causal, window {attn.window}, CUDA-core "
+         f"route, device time (library: SDPA, explicit mask)"),
         ("fused", {"ms": ms(lambda: ewise_chain_hopper(*chain_x, steps=chain)),
                    "plain_ms": ms(lambda: ewise_chain_ref(*chain_x, steps=chain)),
                    "library_ms": ms(four_aten, *chain_x),
@@ -1705,14 +1844,15 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     for name, times, (bound_ms, bound_by), shape in rows:
         # each kernel's launches in the run of the path it serves (PATH_OF):
         # phase 3 for the quickstart's, 3b for the model path's, 3c for the
-        # fused chain, phase 3's FFT request at DFT_N for the DFT route
-        path_launches = {"serve": serve_launches, "graph": graph_launches,
-                         "dft": dft_launches}.get(PATH_OF.get(name), launches)[name]
-        if not path_launches:
+        # fused chain, phase 3's requests counted alone for the DFT route,
+        # the tile SORT and the CUDA-core FLASH_ATTN
+        n_launches = {"serve": serve_launches, "graph": graph_launches,
+                      **path_launches}.get(PATH_OF.get(name), launches)[name]
+        if not n_launches:
             fail(f"{name} was launched no time on its path")
         entry = {"name": name, "route": "cuda",
                  "source": f"src/repro_torch/csrc/{name}.cu",
-                 "replaces": REPLACES[name], "launches": path_launches,
+                 "replaces": REPLACES[name], "launches": n_launches,
                  "max_abs_err": max_abs[name], **times, "bound_ms": bound_ms,
                  "bound_by": bound_by, "shape": shape}
         if name == "ewise":
@@ -1721,10 +1861,14 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
             entry["launches_serve"] = serve_launches["mmm"]
         if name == "fused":
             print(f"  fused: four serial EW launches {times['serial_ewise_ms']:.4f} ms")
+        if name.startswith("flash_attention"):
+            entry["tflops"] = fa_flops / (times["ms"] * 1e-3) / 1e12
+            print(f"  {name}: {entry['tflops']:.1f} TFLOP/s of the {fa_flops / 1e9:.1f} "
+                  f"GFLOP")
         kernels.append(entry)
         print(f"  {name:6s} {shape:40s} kernel_ms {times['ms']:.4f}  plain_ms "
               f"{times['plain_ms']:.4f}  library_ms {times['library_ms']:.4f}  "
-              f"bound_ms {bound_ms:.4f} ({bound_by})  launches {path_launches}")
+              f"bound_ms {bound_ms:.4f} ({bound_by})  launches {n_launches}")
     for op, t in per_op.items():
         print(f"  ewise {op}: kernel_ms {t['ms']:.4f}  plain_ms "
               f"{t['plain_ms']:.4f}  library_ms {t['library_ms']:.4f}")
@@ -1792,7 +1936,7 @@ def main() -> None:
     print("phase 3: quickstart through claim/send/recv and isend/waitall, "
           "pinned to hopper")
     t0 = time.perf_counter()
-    jobs, launches, dft_launches, max_abs, e2e = phase3(dev)
+    jobs, launches, path_launches, max_abs, e2e = phase3(dev)
     seconds["3 quickstart"] = time.perf_counter() - t0
     print(f"phase 3b: {SERVE['arch']} at full width served through "
           f"repro_torch.launch.serve on the kernels")
@@ -1808,7 +1952,7 @@ def main() -> None:
     print(f"phase 4: times (median of 20 CUDA-event-timed calls) on {card}")
     t0 = time.perf_counter()
     kernels = phase4(dev, jobs, launches, max_abs, e2e, card.split(",")[0],
-                     serve_launches, graph_launches, dft_launches)
+                     serve_launches, graph_launches, path_launches)
     seconds["4 times"] = time.perf_counter() - t0
     print(f"phase seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
 

@@ -16,8 +16,10 @@
 // 90 GFLOP, or 0.091 ms at the 989 TFLOP/s of the bfloat16 tensor cores,
 // against 54 MB of q, k, v and o (0.016 ms at 3.35 TB/s).
 //
-// Design (simple first, CUDA cores): one 256-thread block per (b, h, 64
-// query rows); the KV head is h / (H / Hkv).  The block stages the query
+// Design (simple first, CUDA cores; the float32 route and head dim 256 —
+// bfloat16 and float16 at head dims up to 128 take flash_attention_mma.cu,
+// see kernels/flash_attention/flash_attention.py::fa_route): one
+// 256-thread block per (b, h, 64 query rows); the KV head is h / (H / Hkv).  The block stages the query
 // tile (scaled by D^-1/2) and each 64-key tile of k transposed and of v in
 // shared memory as float32.  Each thread owns a 4x4 block of the 64x64
 // score tile (rows 4*ty.., keys 4*tx..), read with 16-byte shared loads;
@@ -30,6 +32,7 @@
 // key gets the mean of v over the Skv real keys, as attention_ref does;
 // such a row exists only when Sq > Skv, and a tile holding one visits every
 // key tile.  Head dims 32, 64, 80, 96, 128 and 256 are instantiated.
+#include "attention.cuh"
 #include "common.cuh"
 
 namespace {
@@ -37,26 +40,11 @@ namespace {
 constexpr int kBQ = 64, kBK = 64, kThreads = 256;
 constexpr int kPad = 4;  // keeps rows 16-byte aligned for float4 reads
 constexpr int kLQ = kBQ + kPad, kLK = kBK + kPad;
-constexpr float kMasked = -1e30f;
-
-struct Shape {
-  int H, Hkv, Sq, Skv, q_offset;
-  int causal, has_window, window, prefix;
-  float scale;
-};
-
-// The interval [lo, hi] of keys the causal and window masks leave visible
-// to the query at position pos (the prefix [0, prefix) aside).
-__device__ __forceinline__ int band_lo(const Shape& s, int pos) {
-  return s.has_window ? max(0, pos - s.window + 1) : 0;
-}
-__device__ __forceinline__ int band_hi(const Shape& s, int pos) {
-  return s.causal ? min(pos, s.Skv - 1) : s.Skv - 1;
-}
-__device__ __forceinline__ bool visible(const Shape& s, int pos, int j) {
-  const bool pre = j < s.prefix;
-  return (!s.causal || j <= pos || pre) && (!s.has_window || j > pos - s.window || pre);
-}
+constexpr float kMasked = halo::kMaskedScore;
+using Shape = halo::AttnShape;
+using halo::band_hi;
+using halo::band_lo;
+using halo::visible;
 
 template <int D>
 constexpr size_t smem_bytes() {

@@ -68,8 +68,10 @@ _SIGNATURES = {
     "halo_fft": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
     # x, tw, out, m, n, vec, dtype, stream
     "halo_fft_radix": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
-    # x, out, keys, keys_len, rows, n, npow2, dtype, stream
-    "halo_sort": [_vp, _vp, _vp, _ll, _ll, _ll, _ll, _int, _vp],
+    # x, out, rows, n, npow2, dtype, stream
+    "halo_sort": [_vp, _vp, _ll, _ll, _ll, _int, _vp],
+    # x, out, keys, keys_len, tables, tables_len, rows, n, dtype, stream
+    "halo_sort_radix": [_vp, _vp, _vp, _ll, _vp, _ll, _ll, _ll, _int, _vp],
     # x, counts, out, n, bins, lo, hi, width, dtype, stream
     "halo_hist": [_vp, _vp, _vp, _ll, _int, _f, _f, _f, _int, _vp],
     # x, gamma, out, rows, d, eps, dtype, vec, stream
@@ -78,6 +80,9 @@ _SIGNATURES = {
     # prefix, scale, dtype, stream
     "halo_flash_attention": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
                              _int, _int, _int, _int, _int, _f, _int, _vp],
+    # as halo_flash_attention, and vec before the stream
+    "halo_flash_attention_mma": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
+                                 _int, _int, _int, _int, _int, _f, _int, _int, _vp],
     # inputs (void* array), n_in, steps (int array), n_steps, out, n, dtype,
     # vec, stream
     "halo_fused": [ctypes.POINTER(_vp), _int, ctypes.POINTER(_int), _int, _vp,

@@ -1,10 +1,22 @@
-"""FLASH_ATTN on Hopper: the ctypes wrapper around
-``csrc/flash_attention.cu``.
+"""FLASH_ATTN on Hopper: the ctypes wrappers around
+``csrc/flash_attention_mma.cu`` and ``csrc/flash_attention.cu``, and the
+route between them.
 
 Replaces ``repro/kernels/flash_attention/flash_attention.py::
 flash_attention_pallas``.  Online-softmax GQA attention, one block per
-(b, h, 64 query rows), KV tiles staged in shared memory; nothing is padded
-and the scale is D^-1/2 of the real head dim.
+(b, h, query tile) that loops over KV tiles staged in shared memory;
+nothing is padded and the scale is D^-1/2 of the real head dim.  Two
+routes, chosen by type and head dim alone (:func:`fa_route`):
+
+* ``mma`` (``flash_attention_mma.cu``), bfloat16 and float16 at head dims
+  :data:`MMA_HEAD_DIMS`: both products on the tensor cores (mma.sync, float32
+  accumulators), p rounded to the input type in registers, K/V tiles in a
+  cp.async ring;
+* ``cuda_cores`` (``flash_attention.cu``), float32 and head dim 256: float32
+  products on the CUDA cores (no TF32, which would break float32's 1e-5).
+
+Each route counts its own launches (``flash_attention_mma`` and
+``flash_attention``).
 """
 from __future__ import annotations
 
@@ -15,9 +27,20 @@ import torch
 from .. import _cuda
 
 LAUNCHES = _cuda.counter("flash_attention")
+MMA_LAUNCHES = _cuda.counter("flash_attention_mma")
 
-#: head dims the kernel is instantiated for
+#: head dims the kernels are instantiated for
 HEAD_DIMS = (32, 64, 80, 96, 128, 256)
+#: head dims of the tensor-core route: multiples of 16 up to 128
+MMA_HEAD_DIMS = (32, 64, 80, 96, 128)
+
+
+def fa_route(dtype: torch.dtype, d: int) -> str:
+    """``"mma"`` for bfloat16 and float16 at a head dim in
+    :data:`MMA_HEAD_DIMS`, else ``"cuda_cores"``."""
+    return ("mma" if dtype in (torch.bfloat16, torch.float16) and d in MMA_HEAD_DIMS
+            else "cuda_cores")
+
 
 _MAX_GRID_YZ = 65535
 
@@ -45,20 +68,56 @@ def flash_attention_problem(q, k, v) -> Optional[str]:
     return None
 
 
-def flash_attention_hopper(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           *, causal: bool = True, window: Optional[int] = None,
-                           prefix_len: int = 0) -> torch.Tensor:
-    """Attention of q over k, v on the card, in q's type."""
-    _cuda.require_cuda(flash_attention_problem(q, k, v), "FLASH_ATTN", q)
+def _launch(route, q, k, v, causal, window, prefix_len):
     b, h, sq, d = q.shape
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    rc = _cuda.lib().halo_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-        k.shape[1], sq, k.shape[2], d, int(causal), int(window is not None),
-        int(window or 0), int(prefix_len), float(d ** -0.5),
-        _cuda.dtype_code(q.dtype), _cuda.stream(q.device))
-    _cuda.check(rc, "flash_attention")
-    LAUNCHES.add()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            k.shape[1], sq, k.shape[2], d, int(causal), int(window is not None),
+            int(window or 0), int(prefix_len), float(d ** -0.5),
+            _cuda.dtype_code(q.dtype))
+    if route == "mma":
+        rc = _cuda.lib().halo_flash_attention_mma(
+            *args, int(_cuda.aligned(q, k, v)), _cuda.stream(q.device))
+        _cuda.check(rc, "flash_attention_mma")
+        MMA_LAUNCHES.add()
+    else:
+        rc = _cuda.lib().halo_flash_attention(*args, _cuda.stream(q.device))
+        _cuda.check(rc, "flash_attention")
+        LAUNCHES.add()
     return out
+
+
+def flash_attention_cuda_cores_hopper(q: torch.Tensor, k: torch.Tensor,
+                                      v: torch.Tensor, *, causal: bool = True,
+                                      window: Optional[int] = None,
+                                      prefix_len: int = 0) -> torch.Tensor:
+    """Attention of q over k, v on the card by the CUDA-core kernel (any
+    type and head dim of :data:`HEAD_DIMS`), in q's type."""
+    _cuda.require_cuda(flash_attention_problem(q, k, v), "FLASH_ATTN", q)
+    return _launch("cuda_cores", q, k, v, causal, window, prefix_len)
+
+
+def flash_attention_mma_hopper(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               *, causal: bool = True, window: Optional[int] = None,
+                               prefix_len: int = 0) -> torch.Tensor:
+    """Attention of q over k, v on the card by the tensor-core kernel
+    (bfloat16 or float16, a head dim of :data:`MMA_HEAD_DIMS`), in q's
+    type."""
+    _cuda.require_cuda(flash_attention_problem(q, k, v), "FLASH_ATTN", q)
+    if fa_route(q.dtype, q.shape[-1]) != "mma":
+        raise ValueError(f"FLASH_ATTN: the mma route takes bfloat16 or float16 at "
+                         f"head dims {MMA_HEAD_DIMS}, got {q.dtype}, "
+                         f"{q.shape[-1]}")
+    return _launch("mma", q, k, v, causal, window, prefix_len)
+
+
+def flash_attention_hopper(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, causal: bool = True, window: Optional[int] = None,
+                           prefix_len: int = 0) -> torch.Tensor:
+    """Attention of q over k, v on the card, in q's type, by the route
+    :func:`fa_route` picks for its type and head dim."""
+    _cuda.require_cuda(flash_attention_problem(q, k, v), "FLASH_ATTN", q)
+    return _launch(fa_route(q.dtype, q.shape[-1]), q, k, v, causal, window,
+                   prefix_len)

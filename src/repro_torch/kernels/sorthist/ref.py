@@ -1,6 +1,16 @@
 """Plain PyTorch oracles for SORT and HIST (port of
-``repro.kernels.sorthist.ref``)."""
+``repro.kernels.sorthist.ref``), and the SORT radix route's plain model."""
 import torch
+
+#: key bits each type keeps (csrc/sort_radix.cu's KeyMask): below a 16-bit
+#: type's mantissa they are 0 for every positive and 1 for every negative
+#: value, so clearing them keeps the order and makes the low digits constant
+KEY_MASK = {torch.float32: 0xFFFFFFFF, torch.bfloat16: 0xFFFF0000,
+            torch.float16: 0xFFFFE000}
+#: the key of every NaN, above +inf's
+NAN_KEY = 0xFFFFFFFE
+#: the radix route's digit passes, of 8 bits each
+RADIX_PASSES = 4
 
 
 def sort_ref(x):
@@ -8,6 +18,54 @@ def sort_ref(x):
     (the fail-safe).  Each NaN is first made the one positive NaN: on the
     card ``torch.sort`` puts a NaN whose sign bit is set first."""
     return torch.sort(x.masked_fill(x.isnan(), float("nan")), dim=-1).values
+
+
+def sort_keys(x) -> torch.Tensor:
+    """The radix route's keys of ``x`` as int64 in [0, 2^32): the float32
+    value's bits with the sign flipped for positives and every bit flipped
+    for negatives, every NaN at :data:`NAN_KEY`, masked by
+    :data:`KEY_MASK` of x's type.  Unsigned order is the order of the
+    values, −0 below +0 and NaN last."""
+    u = x.float().view(torch.int32).long() & 0xFFFFFFFF
+    key = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+    key = torch.where(x.isnan(), NAN_KEY, key)
+    return key & KEY_MASK[x.dtype]
+
+
+def keys_to_values(keys: torch.Tensor, dtype) -> torch.Tensor:
+    """The values of :func:`sort_keys` keys in ``dtype`` (every NaN the one
+    positive NaN); exact."""
+    mask = KEY_MASK[dtype]
+    u = torch.where(keys >= 0x80000000, keys & 0x7FFFFFFF, keys ^ 0xFFFFFFFF) & mask
+    u = torch.where(keys >= (NAN_KEY & mask), 0x7FC00000, u)
+    bits = (u - ((u >= 0x80000000).long() << 32)).to(torch.int32)
+    return bits.view(torch.float32).to(dtype)
+
+
+def radix_passes(keys: torch.Tensor) -> tuple:
+    """The digit passes a row of :func:`sort_keys` keys takes: those whose
+    8-bit digit is not the same for every key (the kernel then runs one
+    stable copy for a row whose passes are all skipped)."""
+    return tuple(p for p in range(RADIX_PASSES)
+                 if bool((((keys >> (8 * p)) & 255) != ((keys[:1] >> (8 * p)) & 255)).any()))
+
+
+def sort_radix_ref(x):
+    """The radix route's plain model, in the kernel's steps: keys of
+    :func:`sort_keys`, then for each digit pass from the least significant
+    a stable scatter by the digit of every row whose digit is not constant
+    (the others skip it), then the values back in x's type."""
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    n = x.shape[-1]
+    keys = sort_keys(x).reshape(-1, n)
+    for p in range(RADIX_PASSES):
+        d = (keys >> (8 * p)) & 255
+        runs = (d != d[:, :1]).any(-1)
+        if bool(runs.any()):
+            order = torch.argsort(d[runs], dim=-1, stable=True)
+            keys[runs] = torch.gather(keys[runs], -1, order)
+    return keys_to_values(keys, x.dtype).reshape(x.shape)
 
 
 def sort_aten(x):

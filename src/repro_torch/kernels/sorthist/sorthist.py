@@ -1,16 +1,22 @@
-"""SORT and HIST on Hopper: the ctypes wrappers around ``csrc/sort.cu`` and
-``csrc/hist.cu``.
+"""SORT and HIST on Hopper: the ctypes wrappers around ``csrc/sort.cu``,
+``csrc/sort_radix.cu`` and ``csrc/hist.cu``, and SORT's route.
 
 Replace ``repro/kernels/sorthist/sorthist.py::sort_pallas`` and
 ``::hist_pallas``.
 
-SORT is a bitonic network over each row on 32-bit keys that order every
-float (NaN above +inf) and a sentinel key above every NaN for the places
-between the row's length and the next power of two, so NaN sorts last and
-no padding is copied.  Rows that fit one shared-memory tile sort in one
-launch; longer rows sort tile by tile, then merge with global-memory
-compare-exchange passes and shared-memory passes over the short strides,
-through an int32 key buffer the wrapper allocates.
+SORT orders 32-bit keys that order every float (NaN above +inf), by one of
+two routes chosen by the row length alone (:func:`sort_route`):
+
+* ``tile`` (``sort.cu``), rows of at most :data:`SORT_TILE` places after
+  rounding up to a power of two: a bitonic network per row in shared
+  memory, one launch, with a sentinel key above every NaN for the places
+  past the row's length;
+* ``radix`` (``sort_radix.cu``), longer rows: a least-significant-digit
+  radix sort of 8-bit digits that skips the digits constant over a row,
+  through two key buffers and count tables the wrapper allocates
+  (:func:`radix_scratch`).
+
+Each route counts its own launches (``sort`` and ``sort_radix``).
 
 HIST counts integers in per-warp shared-memory sub-histograms, adds each
 block's counts to 64-bit global counts with one atomic per bin, and writes
@@ -19,19 +25,40 @@ them as float32: the result does not depend on the atomics' order.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .. import _cuda
-from ..common import next_pow2
+from ..common import cdiv, next_pow2
+from .ref import RADIX_PASSES
 
 SORT_LAUNCHES = _cuda.counter("sort")
+RADIX_LAUNCHES = _cuda.counter("sort_radix")
 HIST_LAUNCHES = _cuda.counter("hist")
 
-#: keys one block sorts in shared memory (32 KB), csrc/sort.cu's kTile;
-#: the kernel refuses a key buffer shorter than its merge path needs
+#: keys one block sorts in shared memory (32 KB), csrc/sort.cu's kTile; the
+#: tile kernel refuses longer rows
 SORT_TILE = 8192
+#: keys per block of the radix kernels (csrc/sort_radix.cu's kTileKeys)
+#: and the values of an 8-bit digit
+RADIX_TILE = 4096
+RADIX = 256
+
+
+def sort_route(n: int) -> str:
+    """``"tile"`` when a row of n places fits one shared-memory tile
+    (``next_pow2(n) <= SORT_TILE``), else ``"radix"``."""
+    return "tile" if next_pow2(n) <= SORT_TILE else "radix"
+
+
+def radix_scratch(rows: int, n: int) -> Tuple[int, int]:
+    """``(keys_len, tables_len)``, in uint32 elements, of the radix route's
+    scratch: two ping-pong key buffers of rows x n, and per row the histogram
+    of each digit, the pass plan and the digit counts of every tile."""
+    tiles = cdiv(n, RADIX_TILE)
+    return (2 * rows * n,
+            rows * (RADIX_PASSES * RADIX + 1) + RADIX_PASSES * rows * RADIX * tiles)
 
 
 def sort_problem(x) -> Optional[str]:
@@ -56,24 +83,57 @@ def hist_problem(x, bins, lo, hi) -> Optional[str]:
     return None
 
 
-def sort_hopper(x: torch.Tensor) -> torch.Tensor:
-    """Ascending sort of the last axis on the card, in x's type, NaN last."""
-    _cuda.require_cuda(sort_problem(x), "SORT", x)
+def _sort_tile(x, out, rows, n):
+    rc = _cuda.lib().halo_sort(x.data_ptr(), out.data_ptr(), rows, n, next_pow2(n),
+                               _cuda.dtype_code(x.dtype), _cuda.stream(x.device))
+    _cuda.check(rc, "sort")
+    SORT_LAUNCHES.add()
+
+
+def _sort_radix(x, out, rows, n):
+    keys_len, tables_len = radix_scratch(rows, n)
+    keys = torch.empty(keys_len, dtype=torch.int32, device=x.device)
+    tables = torch.empty(tables_len, dtype=torch.int32, device=x.device)
+    rc = _cuda.lib().halo_sort_radix(x.data_ptr(), out.data_ptr(), keys.data_ptr(),
+                                     keys.numel(), tables.data_ptr(), tables.numel(),
+                                     rows, n, _cuda.dtype_code(x.dtype),
+                                     _cuda.stream(x.device))
+    _cuda.check(rc, "sort_radix")
+    RADIX_LAUNCHES.add()
+
+
+def _sort(route, x):
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     n = x.shape[-1]
-    rows = x.numel() // n
-    npow2 = next_pow2(n)
-    # rows longer than one tile merge through a key buffer of npow2 per row
-    keys = torch.empty((rows, npow2) if npow2 > SORT_TILE else (0,),
-                       dtype=torch.int32, device=x.device)
-    rc = _cuda.lib().halo_sort(x.data_ptr(), out.data_ptr(), keys.data_ptr(),
-                               keys.numel(), rows, n, npow2,
-                               _cuda.dtype_code(x.dtype), _cuda.stream(x.device))
-    _cuda.check(rc, "sort")
-    SORT_LAUNCHES.add()
+    (_sort_radix if route == "radix" else _sort_tile)(x, out, x.numel() // n, n)
     return out
+
+
+def sort_tile_hopper(x: torch.Tensor) -> torch.Tensor:
+    """Ascending sort of the last axis on the card by the shared-memory
+    bitonic kernel (rows of at most :data:`SORT_TILE` places)."""
+    _cuda.require_cuda(sort_problem(x), "SORT", x)
+    if sort_route(x.shape[-1]) != "tile":
+        raise ValueError(f"SORT: the tile route takes rows of at most {SORT_TILE} "
+                         f"places, got {x.shape[-1]}")
+    return _sort("tile", x)
+
+
+def sort_radix_hopper(x: torch.Tensor) -> torch.Tensor:
+    """Ascending sort of the last axis on the card by the radix kernels,
+    with key buffers and count tables of :func:`radix_scratch` (any row
+    length)."""
+    _cuda.require_cuda(sort_problem(x), "SORT", x)
+    return _sort("radix", x)
+
+
+def sort_hopper(x: torch.Tensor) -> torch.Tensor:
+    """Ascending sort of the last axis on the card, in x's type, NaN last,
+    by the route :func:`sort_route` picks for the row length."""
+    _cuda.require_cuda(sort_problem(x), "SORT", x)
+    return _sort(sort_route(x.shape[-1]), x)
 
 
 def hist_hopper(x: torch.Tensor, *, bins: int = 64, lo: float = 0.0,

@@ -20,8 +20,10 @@ from repro_torch.kernels.ewise.ref import OP_REFS
 from repro_torch.kernels.fft.fft import fft_hopper, fft_radix_hopper
 from repro_torch.kernels.fft.ops import cached_radix_twiddles, cached_twiddles
 from repro_torch.kernels.fft.ref import dft_ref, fft_radix_ref
-from repro_torch.kernels.flash_attention.flash_attention import flash_attention_hopper
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.flash_attention import (
+    fa_route, flash_attention_cuda_cores_hopper, flash_attention_hopper,
+    flash_attention_mma_hopper)
+from repro_torch.kernels.flash_attention.ref import attention_mma_ref, attention_ref
 from repro_torch.kernels.fused import (ACC, MAX_INPUTS, MAX_STEPS,
                                        ewise_chain_hopper, ewise_chain_ref)
 from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
@@ -34,9 +36,11 @@ from repro_torch.kernels.mvm.mvm import mvm_hopper
 from repro_torch.kernels.mvm.ref import mvm_ref
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_hopper
-from repro_torch.kernels.sorthist.ref import hist_ref, sort_ref
+from repro_torch.kernels.sorthist.ref import hist_ref, sort_radix_ref, sort_ref
 from repro_torch.kernels.sorthist import sorthist
-from repro_torch.kernels.sorthist.sorthist import hist_hopper, sort_hopper
+from repro_torch.kernels.sorthist.sorthist import (hist_hopper, sort_hopper,
+                                                   sort_radix_hopper, sort_route,
+                                                   sort_tile_hopper)
 from repro_torch.kernels.spmm.ref import (dense_to_bell, random_block_sparse,
                                           smmm_bell_ref)
 from repro_torch.kernels.spmm.spmm import smmm_hopper
@@ -283,8 +287,8 @@ def test_fft_radix_kernel(card, dtype, j):
 @pytest.mark.parametrize("shape", [(1,), (2,), (129,), (3, 8192), (2, 8193),
                                    (4, 70_000), (2, 3, 1000)])
 def test_sort_kernel_is_bit_exact(card, dtype, shape):
-    # 8192 places fit one shared-memory tile; 8193 and 70 000 merge through
-    # global memory, with the sentinel past n; integers give duplicates
+    # 8192 places fit one shared-memory tile; 8193 and 70 000 take the radix
+    # route; integers give duplicates
     x = _rnd(card, *shape, dtype=dtype)
     out = sort_hopper(x)
     assert out.dtype == dtype and out.shape == x.shape
@@ -294,14 +298,53 @@ def test_sort_kernel_is_bit_exact(card, dtype, shape):
     assert torch.equal(_bits(sort_hopper(d)), _bits(sort_ref(d)))
 
 
+def _radix_rows(card, dtype, shape, kind):
+    g = torch.Generator(device=card).manual_seed(7)
+    if kind == "normal":
+        return torch.randn(shape, generator=g, device=card).to(dtype)
+    if kind == "integers":       # the low digits are constant in every type
+        return torch.randint(0, 16, shape, generator=g, device=card).to(dtype)
+    if kind == "negative":
+        return (-1.0 - torch.rand(shape, generator=g, device=card)).to(dtype)
+    return torch.full(shape, -0.75, device=card).to(dtype)   # every pass skipped
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(1,), (129,), (3, 4096), (2, 4097), (2, 8193),
+                                   (3, 70_001), (2, 3, 1000)])
+@pytest.mark.parametrize("kind", ["normal", "integers", "negative", "constant"])
+def test_sort_radix_kernel_is_bit_exact(card, dtype, shape, kind):
+    # the radix route at any row length: bit-exact with the plain version,
+    # with its plain model, and with the tile route where both take the row
+    x = _radix_rows(card, dtype, shape, kind)
+    out = sort_radix_hopper(x)
+    assert out.dtype == dtype and out.shape == x.shape
+    assert torch.equal(_bits(out), _bits(sort_ref(x)))
+    assert torch.equal(_bits(out), _bits(sort_radix_ref(x)))
+    if sort_route(shape[-1]) == "tile":
+        assert torch.equal(_bits(out), _bits(sort_tile_hopper(x)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sort_radix_kernel_unaligned_rows(card, dtype):
+    # rows off the 16-byte grid load by scalars; two calls give the same bits
+    x = _rnd(card, 3 * 20_001 + 1, dtype=dtype)[1:].view(3, 20_001)
+    assert x.data_ptr() % 16 != 0
+    out = sort_radix_hopper(x)
+    assert torch.equal(_bits(out), _bits(sort_ref(x)))
+    assert torch.equal(_bits(out), _bits(sort_radix_hopper(x)))
+
+
 def test_sort_kernel_refuses_a_short_key_buffer(card, monkeypatch):
-    # a row longer than the kernel's tile merges through the key buffer;
-    # were the wrapper's tile larger than the kernel's, it would pass an
-    # empty buffer, and the kernel refuses it rather than write past it
-    monkeypatch.setattr(sorthist, "SORT_TILE", 2 * sorthist.SORT_TILE)
+    # the radix route sorts through key buffers and count tables the wrapper
+    # allocates; were the wrapper to ask for less than the kernel needs, the
+    # kernel refuses the buffers rather than write past them
     x = _rnd(card, 2, 8193, dtype=torch.float32)
-    with pytest.raises(RuntimeError, match="sort kernel launch failed"):
-        sort_hopper(x)
+    keys_len, tables_len = sorthist.radix_scratch(2, 8193)
+    for short in ((keys_len - 1, tables_len), (keys_len, tables_len - 1)):
+        monkeypatch.setattr(sorthist, "radix_scratch", lambda rows, n, s=short: s)
+        with pytest.raises(RuntimeError, match="sort_radix kernel launch failed"):
+            sort_radix_hopper(x)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -387,7 +430,9 @@ def test_flash_attention_kernel(card, dtype, d, case):
     # 8 query heads over 2 KV heads; ragged tiles everywhere.  "no key
     # seen": query rows 0-69 sit before every key and get the mean of v,
     # as attention_ref gives it.  v has mean 1, so the output is no
-    # near-cancelling sum whose float32 reordering alone errs by ~1e-5
+    # near-cancelling sum whose float32 reordering alone errs by ~1e-5.
+    # The route fa_route picks (the tensor cores for 16-bit types up to
+    # d = 128)
     c = FA_CASES[case]
     q = _rnd(card, 2, 8, c["sq"], d, dtype=dtype)
     k = _rnd(card, 2, 2, c["skv"], d, dtype=dtype, seed=1)
@@ -396,6 +441,49 @@ def test_flash_attention_kernel(card, dtype, d, case):
     out = flash_attention_hopper(q, k, v, **kw)
     assert out.dtype == dtype and out.shape == q.shape
     assert _normwise(out, attention_ref(q, k, v, **kw)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [32, 80, 128])
+@pytest.mark.parametrize("case", sorted(FA_CASES))
+def test_flash_attention_mma_kernel(card, dtype, d, case):
+    # the tensor-core route: within TOL of the plain version, and of its
+    # plain model (the same tiles, p rounded to the input type)
+    c = FA_CASES[case]
+    q = _rnd(card, 2, 8, c["sq"], d, dtype=dtype)
+    k = _rnd(card, 2, 2, c["skv"], d, dtype=dtype, seed=1)
+    v = _rnd(card, 2, 2, c["skv"], d, dtype=dtype, seed=2, shift=1.0)
+    kw = dict(causal=c["causal"], window=c["window"], prefix_len=c["prefix_len"])
+    out = flash_attention_mma_hopper(q, k, v, **kw)
+    assert out.dtype == dtype and out.shape == q.shape
+    assert _normwise(out, attention_ref(q, k, v, **kw)) <= TOL[dtype]
+    assert _normwise(out, attention_mma_ref(q, k, v, **kw)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [80, 256])
+@pytest.mark.parametrize("case", sorted(FA_CASES))
+def test_flash_attention_cuda_cores_kernel(card, dtype, d, case):
+    # the CUDA-core route in every type, 16-bit types included
+    c = FA_CASES[case]
+    q = _rnd(card, 2, 8, c["sq"], d, dtype=dtype)
+    k = _rnd(card, 2, 2, c["skv"], d, dtype=dtype, seed=1)
+    v = _rnd(card, 2, 2, c["skv"], d, dtype=dtype, seed=2, shift=1.0)
+    kw = dict(causal=c["causal"], window=c["window"], prefix_len=c["prefix_len"])
+    out = flash_attention_cuda_cores_hopper(q, k, v, **kw)
+    assert _normwise(out, attention_ref(q, k, v, **kw)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_mma_kernel_unaligned_views(card, dtype):
+    # operands off the 16-byte grid are staged by plain loads
+    def view(h, s, seed, shift=0.0):
+        n = 2 * h * s * 80
+        return _rnd(card, n + 1, dtype=dtype, seed=seed, shift=shift)[1:].view(2, h, s, 80)
+    q, k, v = view(8, 150, 0), view(2, 150, 1), view(2, 150, 2, 1.0)
+    assert q.data_ptr() % 16 != 0
+    out = flash_attention_mma_hopper(q, k, v, window=37)
+    assert _normwise(out, attention_ref(q, k, v, window=37)) <= TOL[dtype]
 
 
 def _bad_operands(dev):
@@ -445,10 +533,15 @@ def test_serve_launcher_without_a_device_refuses_a_missing_card():
 
 
 def test_model_on_the_card_runs_the_kernels(card):
-    """Reduced danube in float32 with GQA (Hkv 2): prefill of 40 tokens (past
-    the 32-token window) and 4 decode steps, once on a session that
-    resolves to the kernels and once on one that prefers the plain
-    versions; logits agree, and the kernels ran as the structure says."""
+    """Reduced danube with GQA (Hkv 2), in float32 and in bfloat16: prefill
+    of 40 tokens (past the 32-token window) and 4 decode steps, once on a
+    session that resolves to the kernels and once on one that prefers the
+    plain versions; logits agree, and the kernels ran as the structure says:
+    FLASH_ATTN on the CUDA-core route in float32, on the tensor cores in
+    bfloat16 (head dim 32).  bfloat16 logits are held to chip_smoke.py's
+    SERVE_TOL (2e-2): both paths round each kernel's output to bfloat16 at
+    the same places, but a rounding on the other side of a boundary moves
+    the next projection."""
     import dataclasses
 
     from repro_torch import halo
@@ -461,15 +554,14 @@ def test_model_on_the_card_runs_the_kernels(card):
     stages = tuple(dataclasses.replace(st, pattern=tuple(
         dataclasses.replace(b, attn=dataclasses.replace(b.attn, n_kv_heads=2))
         for b in st.pattern)) for st in cfg.stages)
-    model = build_model(dataclasses.replace(cfg, stages=stages))
-    params = model.init(torch.Generator(device=card).manual_seed(0))
+    cfg = dataclasses.replace(cfg, stages=stages)
     g = torch.Generator(device=card).manual_seed(1)
     prompt = torch.randint(0, cfg.vocab_size, (1, 40), generator=g, device=card)
     steps = torch.randint(0, cfg.vocab_size, (4, 1, 1), generator=g, device=card)
     plain = default_manifest()
     plain.platform_list = [{"platform_preference": ["torch"]}]
 
-    def run(manifest):
+    def run(model, params, manifest):
         halo.initialize(manifest=manifest, device=card)
         try:
             logits, caches = model.prefill(params, {"tokens": prompt})
@@ -482,24 +574,31 @@ def test_model_on_the_card_runs_the_kernels(card):
         finally:
             halo.finalize()
 
-    _cuda.reset_launch_counts()
-    served = run(None)
-    counts = _cuda.launch_counts()
-    layers = model.cfg.n_layers
-    # the prefill's 40 rows take the route mmm_route(40) picks, its
-    # last-token unembed (one row) and the 4 decode passes (one row each)
-    # the skinny route
-    assert counts["mmm"] + counts["mmm_skinny"] == 5 * (7 * layers + 1)
-    prefill_tile = 7 * layers if mmm_route(40) == "tile" else 0
-    assert counts["mmm"] == prefill_tile
-    assert counts["mmm_skinny"] == 5 * (7 * layers + 1) - prefill_tile
-    assert counts["rmsnorm"] == 5 * (2 * layers + 1)
-    assert counts["flash_attention"] == layers
-    _cuda.reset_launch_counts()
-    ref = run(plain)
-    assert sum(_cuda.launch_counts().values()) == 0
-    for a, b in zip(served, ref):
-        assert _normwise(a, b) <= 1e-4
+    for dtype, tol, route, attn in (
+            (torch.float32, 1e-4, "cuda_cores", "flash_attention"),
+            (torch.bfloat16, 2e-2, "mma", "flash_attention_mma")):
+        model = build_model(dataclasses.replace(cfg, dtype=str(dtype).split(".")[-1]))
+        params = model.init(torch.Generator(device=card).manual_seed(0))
+        assert fa_route(dtype, model.cfg.stages[0].pattern[0].attn.head_dim) == route
+        _cuda.reset_launch_counts()
+        served = run(model, params, None)
+        counts = _cuda.launch_counts()
+        layers = model.cfg.n_layers
+        # the prefill's 40 rows take the route mmm_route(40) picks, its
+        # last-token unembed (one row) and the 4 decode passes (one row
+        # each) the skinny route
+        assert counts["mmm"] + counts["mmm_skinny"] == 5 * (7 * layers + 1)
+        prefill_tile = 7 * layers if mmm_route(40) == "tile" else 0
+        assert counts["mmm"] == prefill_tile
+        assert counts["mmm_skinny"] == 5 * (7 * layers + 1) - prefill_tile
+        assert counts["rmsnorm"] == 5 * (2 * layers + 1)
+        other = ({"flash_attention", "flash_attention_mma"} - {attn}).pop()
+        assert counts[attn] == layers and counts[other] == 0
+        _cuda.reset_launch_counts()
+        ref = run(model, params, plain)
+        assert sum(_cuda.launch_counts().values()) == 0
+        for a, b in zip(served, ref):
+            assert _normwise(a, b) <= tol
 
 
 def test_each_launch_counts_once(card):
@@ -517,15 +616,18 @@ def test_each_launch_counts_once(card):
                                                  device=card), a)
     fft_hopper(a, *cached_twiddles(16, card))
     fft_radix_hopper(a, cached_radix_twiddles(16, card))
-    sort_hopper(a)
+    sort_tile_hopper(a)
+    sort_radix_hopper(a)
     hist_hopper(a)
     rmsnorm_hopper(a, a[0])
     q = a[:, :8].reshape(1, 2, 2, 32)
-    flash_attention_hopper(q, q[:, :1], q[:, :1])
+    flash_attention_cuda_cores_hopper(q, q[:, :1], q[:, :1])
+    qb = q.bfloat16()
+    flash_attention_mma_hopper(qb, qb[:, :1], qb[:, :1])
     after = _cuda.launch_counts()
     for name in ("mmm", "mmm_skinny", "ewise", "mvm", "vdp", "jacobi", "conv1d",
-                 "spmm", "fft", "fft_radix", "sort", "hist", "rmsnorm",
-                 "flash_attention"):
+                 "spmm", "fft", "fft_radix", "sort", "sort_radix", "hist", "rmsnorm",
+                 "flash_attention", "flash_attention_mma"):
         assert after[name] == before[name] + 1
 
 

@@ -115,8 +115,8 @@ ENTRY = {"spmm": "smmm"}
 
 @pytest.mark.parametrize("name", ["mmm", "mmm_skinny", "ewise", "mvm", "vdp",
                                   "jacobi", "conv1d", "spmm", "fft", "fft_radix",
-                                  "sort", "hist",
-                                  "rmsnorm", "flash_attention", "fused"])
+                                  "sort", "sort_radix", "hist", "rmsnorm",
+                                  "flash_attention", "flash_attention_mma", "fused"])
 def test_kernel_sources_carry_their_note(name):
     src = (PKG / "csrc" / f"{name}.cu").read_text()
     head = src.split("#include")[0]
