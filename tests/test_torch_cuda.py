@@ -53,6 +53,11 @@ DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 #: normwise relative error: float32 differs only in summation order; the
 #: 16-bit types also round the output (8- or 11-bit mantissa)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
+#: FLASH_ATTN's tensor-core route against its plain model, which takes the
+#: same tiles and roundings: only the float32 sum order differs (readings
+#: on the H100 ≤ 1.8e-4 bfloat16, ≤ 6e-5 float16); a window edge one key
+#: off reads ≥ 4e-3, inside TOL
+MMA_MODEL_TOL = {torch.bfloat16: 1e-3, torch.float16: 3e-4}
 
 
 @pytest.fixture(scope="module")
@@ -447,8 +452,9 @@ def test_flash_attention_kernel(card, dtype, d, case):
 @pytest.mark.parametrize("d", [32, 80, 128])
 @pytest.mark.parametrize("case", sorted(FA_CASES))
 def test_flash_attention_mma_kernel(card, dtype, d, case):
-    # the tensor-core route: within TOL of the plain version, and of its
-    # plain model (the same tiles, p rounded to the input type)
+    # the tensor-core route: within TOL of the plain version, and within
+    # MMA_MODEL_TOL of its plain model (the same tiles, p rounded to the
+    # input type)
     c = FA_CASES[case]
     q = _rnd(card, 2, 8, c["sq"], d, dtype=dtype)
     k = _rnd(card, 2, 2, c["skv"], d, dtype=dtype, seed=1)
@@ -457,7 +463,7 @@ def test_flash_attention_mma_kernel(card, dtype, d, case):
     out = flash_attention_mma_hopper(q, k, v, **kw)
     assert out.dtype == dtype and out.shape == q.shape
     assert _normwise(out, attention_ref(q, k, v, **kw)) <= TOL[dtype]
-    assert _normwise(out, attention_mma_ref(q, k, v, **kw)) <= TOL[dtype]
+    assert _normwise(out, attention_mma_ref(q, k, v, **kw)) <= MMA_MODEL_TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -484,6 +490,7 @@ def test_flash_attention_mma_kernel_unaligned_views(card, dtype):
     assert q.data_ptr() % 16 != 0
     out = flash_attention_mma_hopper(q, k, v, window=37)
     assert _normwise(out, attention_ref(q, k, v, window=37)) <= TOL[dtype]
+    assert _normwise(out, attention_mma_ref(q, k, v, window=37)) <= MMA_MODEL_TOL[dtype]
 
 
 def _bad_operands(dev):
