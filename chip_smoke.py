@@ -21,10 +21,14 @@ Phases (any failure exits non-zero before the result lines are printed):
    output rows must be exactly 0).  MMM's skinny route: every M up to
    SKINNY_M_MAX at danube's five decode projections, ragged and unaligned
    cases, against ``mmm_ref`` and the split-K plain version (``TOL``), and
-   two calls bit-identical.  FFT: normwise within ``FFT_TOL`` against
-   ``torch.fft.fft`` in float64 and against its plain version, in three
-   types: the radix route at every n = 2^j ≤ 4096, the DFT route at n = 7,
-   1000 and DFT_N.
+   two calls bit-identical.  MMM's tensor-core route, bfloat16 and float16:
+   danube's eight prefill projections (512 and 4200 rows), ragged M, N and
+   K, and 4096³, against ``mmm_ref`` (``TOL``) and element by element
+   within one output ulp of a float32 product of the same inputs
+   (``mmm_ulp_excess``); two calls bit-identical.  FFT: normwise within
+   ``FFT_TOL`` against ``torch.fft.fft`` in float64 and against its plain
+   version, in three types: the radix route at every n = 2^j ≤ 4096, the
+   DFT route at n = 7, 1000 and DFT_N.
    SORT: bit-exact, and NaN last on rows that hold NaN, ±inf and ±0;
    the radix route also on rows that skip passes (16-bit types, a
    constant row, integers 0–15) and on negative-only rows, bit-exact
@@ -56,14 +60,16 @@ Phases (any failure exits non-zero before the result lines are printed):
    The launch counts must follow the model's structure (MMM 7·L+1 and
    RMSNORM 2·L+1 per forward pass, FLASH_ATTN L per prefill on the
    tensor-core route; a prefill's
-   7·L projections on MMM's tile route, its one-row unembed and every
-   decode pass's MMMs on the skinny route), the quarantine must stay
+   7·L projections on MMM's tensor-core route, its one-row unembed and
+   every decode pass's MMMs on the skinny route, none on the tile route),
+   the quarantine must stay
    empty, and every step's logits must agree with a replay through the
    plain versions on the card (``SERVE_TOL``).  The same weights widened
    to float32 replay one request on the kernels against the plain versions
    (``F32_SERVE_TOL``); its prefill, counted alone, drives FLASH_ATTN's
-   CUDA-core route (L launches).  The decode step is split
-   into MMM device time per pass and dispatches per pass × T1.
+   CUDA-core route (L launches) and MMM's tile route (7·L launches).
+   Prefill MMM device time comes from a profiled rerun.  The decode step is
+   split into MMM device time per pass and dispatches per pass × T1.
 3c. Execution graphs, fusion and compiled replay: ``halo.graph(launch=False)``
    → ``compile()`` → 20 ``replay()`` calls per workload, every other one
    rebinding an input, each output bit-identical to serial blocking
@@ -84,10 +90,13 @@ Phases (any failure exits non-zero before the result lines are printed):
    the event times beside it (FLASH_ATTN's tensor-core route in bfloat16,
    its CUDA-core route in float32); so are the radix FFT at the template's shape
    and MMM's skinny route at each decode projection (M = 4, bfloat16, B
-   cold in L2), beside ``torch.matmul``, with a sweep of both MMM routes
-   over M that sets SKINNY_M_MAX.  The DFT route at 2048 x DFT_N; SORT's
-   radix route at 2^24 and its tile route at 4096 x 4096, with a sweep of
-   both SORT routes over the row lengths the tile route takes.  The
+   cold in L2), beside ``torch.matmul``, with a sweep of the three MMM
+   routes over M that set SKINNY_M_MAX; MMM's tensor-core route at each
+   prefill projection (bfloat16, B cold in L2) beside the tile route in
+   bfloat16, its plain version and ``torch.matmul``.  The DFT route at
+   2048 x DFT_N; SORT's radix route at 2^24 and its tile route at 4096 x
+   4096, with a sweep of both SORT routes over the row lengths the tile
+   route takes.  The
    fused chain kernel at a 4-step
    8192² float32 chain, beside its plain version, the four ATen calls and
    the four serial EW launches.
@@ -231,6 +240,7 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:106",
     "fused": "src/repro/kernels/fused.py:58",
     "mmm_skinny": "src/repro/kernels/matmul/matmul.py:43",
+    "mmm_wgmma": "src/repro/kernels/matmul/matmul.py:43",
     "fft_radix": "src/repro/kernels/fft/fft.py:58",
     "sort_radix": "src/repro/kernels/sorthist/sorthist.py:57",
     "flash_attention_mma": "src/repro/kernels/flash_attention/flash_attention.py:106",
@@ -242,7 +252,7 @@ REPLACES = {
 #: requests counted alone: FFT at the non-power-of-two DFT_N (the DFT
 #: route), SORT of rows that fit one tile
 PATH_OF = {"rmsnorm": "serve", "flash_attention_mma": "serve", "mmm_skinny": "serve",
-           "fused": "graph", "fft": "dft", "sort": "sort_tile",
+           "mmm_wgmma": "serve", "fused": "graph", "fft": "dft", "sort": "sort_tile",
            "flash_attention": "serve_float32"}
 
 
@@ -499,6 +509,8 @@ def phase2(dev) -> None:
                 JS_RESIDUAL)
     for dt in (torch.float32, torch.bfloat16):
         phase2_mmm_skinny(dev, gen, dt)
+    for dt in (torch.bfloat16, torch.float16):
+        phase2_mmm_wgmma(dev, gen, dt)
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         phase2_fft(dev, gen, dt)
     for dt in (torch.float32, torch.bfloat16):
@@ -549,6 +561,46 @@ def phase2_mmm_skinny(dev, gen, dt) -> None:
     if not torch.equal(bits(first), bits(mmm_skinny_hopper(a, b))):
         fail(f"MMM skinny {name}: two calls differ (expected the same bits)")
     print(f"  MMM skinny {name} 4x2560@2560x6912: two calls give the same bits")
+
+
+def prefill_projections(cfg):
+    """(K, N) → launches per prefill of danube's projections: the decode
+    pass's less the unembed (a prefill unembeds its last row alone)."""
+    shapes = decode_projections(cfg)
+    del shapes[(cfg.d_model, cfg.padded_vocab)]
+    return shapes
+
+
+def phase2_mmm_wgmma(dev, gen, dt) -> None:
+    """The tensor-core route against ``mmm_ref`` within ``TOL`` and, element
+    by element, within one output ulp of the float32 product of the same
+    inputs (``mmm_ulp_excess``; ``TOL`` alone would pass a lost K stage or a
+    wrong swizzle): danube's eight prefill projections, ragged M, N and K
+    (TMA zero-fills past each) and 4096³; two calls bit-identical."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.matmul.matmul import mmm_wgmma_hopper
+    from repro_torch.kernels.matmul.ref import mmm_ref, mmm_ulp_excess
+
+    name = str(dt).split(".")[-1]
+    shapes = [(m, kk, n) for m in SERVE["prompt_lens"]
+              for kk, n in prefill_projections(get_config(SERVE["arch"]))]
+    shapes += [(130, 72, 136), (65, 8, 8), (SIZES["MMM"],) * 3]
+    for m, kk, n in shapes:
+        a = torch.randn((m, kk), generator=gen, device=dev).to(dt)
+        b = torch.randn((kk, n), generator=gen, device=dev).to(dt)
+        out = mmm_wgmma_hopper(a, b)
+        label = f"MMM wgmma {name} {m}x{kk}@{kk}x{n}"
+        if out.shape != (m, n) or out.dtype != dt:
+            fail(f"{label}: {tuple(out.shape)} {out.dtype}")
+        check_close(f"{label} vs plain", normwise(out, mmm_ref(a, b)), dt)
+        excess = mmm_ulp_excess(out, a, b)
+        print(f"  {label:42s} {excess} of {out.numel()} past one ulp of the "
+              f"float32 product")
+        if excess:
+            fail(f"{label}: {excess} elements lie past one ulp of the float32 product")
+    if not torch.equal(bits(out), bits(mmm_wgmma_hopper(a, b))):
+        fail(f"MMM wgmma {name}: two calls differ (expected the same bits)")
+    print(f"  MMM wgmma {name} {m}x{kk}@{kk}x{n}: two calls give the same bits")
 
 
 def phase2_fft(dev, gen, dt) -> None:
@@ -839,8 +891,8 @@ def phase3(dev):
     print(f"  launches {launches}; quarantine {quarantined}")
     # MMM at M = 4096 takes the tile route, FFT at n = 4096 and SORT at
     # 2^24 the radix routes
-    expected = {"mmm": 2, "mmm_skinny": 0, "ewise": 8, "mvm": 2, "vdp": 2,
-                "jacobi": 2, "conv1d": 2, "spmm": 2, "fft": 0, "fft_radix": 2,
+    expected = {"mmm": 2, "mmm_skinny": 0, "mmm_wgmma": 0, "ewise": 8, "mvm": 2,
+                "vdp": 2, "jacobi": 2, "conv1d": 2, "spmm": 2, "fft": 0, "fft_radix": 2,
                 "sort": 0, "sort_radix": 2, "hist": 2, "rmsnorm": 0,
                 "flash_attention": 0, "flash_attention_mma": 0, "fused": 0}
     if launches != expected:
@@ -1069,11 +1121,12 @@ def phase3b(dev):
     layers = cfg.n_layers
     expected = {k: 0 for k in launches}
     # 7·L + 1 MMMs per forward pass: a prefill's 7·L projections of its
-    # prompt rows take the tile route and its last-token unembed (one row)
-    # the skinny route; a decode pass's 7·L + 1 (one row per slot) all take
-    # the skinny route; every prefill's attention (bfloat16, head dim 80)
-    # takes FLASH_ATTN's tensor-core route
-    expected.update(mmm=7 * layers * len(engine.prefill_s),
+    # prompt rows (bfloat16, K and N multiples of 8) take the tensor-core
+    # route and its last-token unembed (one row) the skinny route; a decode
+    # pass's 7·L + 1 (one row per slot) all take the skinny route; none
+    # takes the tile route; every prefill's attention (bfloat16, head dim
+    # 80) takes FLASH_ATTN's tensor-core route
+    expected.update(mmm_wgmma=7 * layers * len(engine.prefill_s),
                     mmm_skinny=(7 * layers + 1) * len(engine.decode_s)
                     + len(engine.prefill_s),
                     rmsnorm=(2 * layers + 1) * passes,
@@ -1120,6 +1173,13 @@ def phase3b(dev):
     busy_s = device_seconds(prof)
     stats["device_s"] = busy_s
     stats["device_busy_share"] = busy_s / wall if busy_s > 0 else None
+    # the prefills' projections: every MMM kernel that is not the skinny one
+    prefill_mmm_s = sum(device_seconds_of(e) for e in prof.key_averages()
+                        if e.key.split("<")[0].split("::")[-1].strip()
+                        in ("mmm_wgmma_kernel", "mmm_kernel"))
+    stats["prefill_mmm_device_ms"] = prefill_mmm_s * 1e3 if prefill_mmm_s > 0 else None
+    print("  prefill MMM device time (profiled rerun, 7·L projections per prefill): "
+          + (f"{prefill_mmm_s * 1e3:.1f} ms" if prefill_mmm_s > 0 else "not measured"))
     # the decode step's split: the skinny kernels of the decode passes (M =
     # slots; the prefills' one-row unembeds are the MT = 1 instances), and
     # the host's dispatches per pass times T1
@@ -1231,10 +1291,15 @@ def phase3b(dev):
         served32, replay(m32, wide32, prompt, toks, max_len, plain))]
     del wide32, served32
     attn_f32 = {k: f32_launches[k] for k in ("flash_attention", "flash_attention_mma")}
-    print(f"  float32 replay on the kernels: FLASH_ATTN launches {attn_f32}")
+    mmm_f32 = {k: f32_launches[k] for k in ("mmm", "mmm_wgmma")}
+    print(f"  float32 replay on the kernels: FLASH_ATTN launches {attn_f32}, "
+          f"prefill MMM launches {mmm_f32}")
     if attn_f32 != {"flash_attention": layers, "flash_attention_mma": 0}:
         fail(f"the float32 prefill launched FLASH_ATTN {attn_f32}, not {layers} "
              f"on the CUDA-core route")
+    if mmm_f32 != {"mmm": 7 * layers, "mmm_wgmma": 0}:
+        fail(f"the float32 prefill launched MMM {mmm_f32}, not {7 * layers} on the "
+             f"tile route")
     print(f"  float32, same weights, {len(prompt)}-token prompt + {len(toks) - 1} "
           f"decode steps, kernels vs plain: {', '.join(f'{e:.2e}' for e in e32)} "
           f"(tol {F32_SERVE_TOL:g})")
@@ -1486,7 +1551,8 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
     from repro_torch.kernels.jacobi.ref import jacobi_step_aten, jacobi_step_ref
     from repro_torch.kernels.matmul.matmul import (SKINNY_M_MAX, mmm_skinny_hopper,
-                                                   mmm_tile_hopper)
+                                                   mmm_tile_hopper, mmm_wgmma_hopper,
+                                                   wgmma_tile_n)
     from repro_torch.kernels.matmul.ref import mmm_aten, mmm_ref
     from repro_torch.kernels.mvm.mvm import mvm_hopper
     from repro_torch.kernels.mvm.ref import mvm_aten, mvm_ref
@@ -1746,8 +1812,61 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
           f"MMMs): kernel {skinny_times['ms']:.3f} ms, torch.matmul "
           f"{skinny_times['library_ms']:.3f} ms, bound {skinny_bound[0]:.3f} ms")
 
-    # the crossover of the two routes by device time, at the gate/up
-    # projection and at the unembed (the widest): it sets SKINNY_M_MAX
+    # the tensor-core route at danube's prefill projections (M = the two
+    # prompt lengths, the model's type): device time per call from the
+    # profiler, each call on the next of enough copies of B that the L2
+    # holds none of them from one call to the next, as a prefill finds its
+    # weights; beside it the tile route in the same type (what prefill ran
+    # before), the plain version, torch.matmul, and the bound at the
+    # tensor-core peak.  The row totals one serving run's prefills: each
+    # shape's time × its launches in phase 3b (7·L per prefill).
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lens = [SERVE["prompt_lens"][i % len(SERVE["prompt_lens"])]
+            for i in range(SERVE["requests"])]
+    prefill = []
+    for m_ in SERVE["prompt_lens"]:
+        a_ = torch.randn((m_, max(kk for kk, _ in decode_projections(cfg))),
+                         generator=gen7, device=dev).to(mdt)
+        for (kk, nn), per_prefill in prefill_projections(cfg).items():
+            am = a_[:, :kk].contiguous()
+            bs = weights(kk, nn, max(2, math.ceil(L2_COLD_BYTES / (2 * kk * nn))))
+            args = [(am, b_) for b_ in bs]
+            row = {k: device_ms(cycling(f, args)) for k, f in (
+                ("ms", mmm_wgmma_hopper), ("tile_ms", mmm_tile_hopper),
+                ("plain_ms", mmm_ref), ("library_ms", mmm_aten))}
+            t_bytes = am.element_size() * (am.numel() + kk * nn + m_ * nn) / bw
+            t_ops = 2 * m_ * kk * nn / bf16_peak
+            row.update(bound_ms=max(t_bytes, t_ops) * 1e3, bytes_ms=t_bytes * 1e3,
+                       ops_ms=t_ops * 1e3,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+            row["max_abs_err"] = float((wide(mmm_wgmma_hopper(am, bs[0]))
+                                        - wide(mmm_ref(am, bs[0]))).abs().max())
+            row.update(shape=f"{m_}x{kk}@{kk}x{nn} {mname}", tile_n=wgmma_tile_n(m_, nn, sms),
+                       launches_per_run=per_prefill * lens.count(m_), copies_of_b=len(bs))
+            prefill.append(row)
+            print(f"  mmm_wgmma {row['shape']:26s} (128x{row['tile_n']}) kernel_ms "
+                  f"{row['ms']:.4f}  tile_ms {row['tile_ms']:.4f}  plain_ms "
+                  f"{row['plain_ms']:.4f}  library_ms {row['library_ms']:.4f}  bound_ms "
+                  f"{row['bound_ms']:.4f} ({row['bound_by']}, {row['bound_ms'] / row['ms']:.0%} "
+                  f"of it)  {row['launches_per_run']} per run")
+            del bs, args, am
+        del a_
+    max_abs["mmm_wgmma"] = max(r["max_abs_err"] for r in prefill)
+    wgmma_times = {k: sum(r[k] * r["launches_per_run"] for r in prefill)
+                   for k in ("ms", "tile_ms", "plain_ms", "library_ms")}
+    t_bytes, t_ops = (sum(r[k] * r["launches_per_run"] for r in prefill)
+                      for k in ("bytes_ms", "ops_ms"))
+    wgmma_bound = (sum(r["bound_ms"] * r["launches_per_run"] for r in prefill),
+                   "bytes" if t_bytes >= t_ops else "operations")
+    wgmma_times.update(per_shape=prefill, sms=sms)
+    print(f"  mmm_wgmma, one serving run's prefills "
+          f"({sum(r['launches_per_run'] for r in prefill)} MMMs): kernel "
+          f"{wgmma_times['ms']:.1f} ms, tile route in {mname} {wgmma_times['tile_ms']:.1f} "
+          f"ms, torch.matmul {wgmma_times['library_ms']:.1f} ms, bound "
+          f"{wgmma_bound[0]:.1f} ms")
+
+    # the crossover of the routes by device time, at the gate/up projection
+    # and at the unembed (the widest): it set SKINNY_M_MAX
     crossover = {}
     for kk, nn in ((cfg.d_model, cfg.stages[0].pattern[0].d_ff),
                    (cfg.d_model, cfg.padded_vocab)):
@@ -1758,15 +1877,18 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
             args = [(a_, b_) for b_ in bs]
             sweep[str(m_)] = {"skinny_ms": device_ms(cycling(mmm_skinny_hopper, args)),
                               "tile_ms": device_ms(cycling(mmm_tile_hopper, args)),
+                              "wgmma_ms": device_ms(cycling(mmm_wgmma_hopper, args)),
                               "library_ms": device_ms(cycling(mmm_aten, args))}
         del bs, args
-        faster = [int(m_) for m_, t in sweep.items() if t["skinny_ms"] < t["tile_ms"]]
+        faster = {r: [int(m_) for m_, t in sweep.items() if t["skinny_ms"] < t[f"{r}_ms"]]
+                  for r in ("tile", "wgmma")}
         crossover[f"{kk}x{nn} {mname}"] = sweep
-        print(f"  MMM routes at {kk}x{nn} {mname}, device ms (M: skinny / tile / "
-              f"torch.matmul): " + "; ".join(
-                  f"{m_}: {t['skinny_ms']:.4f} / {t['tile_ms']:.4f} / {t['library_ms']:.4f}"
-                  for m_, t in sweep.items())
-              + f"; skinny faster at M = {faster}; SKINNY_M_MAX = {SKINNY_M_MAX}")
+        print(f"  MMM routes at {kk}x{nn} {mname}, device ms (M: skinny / tile / wgmma "
+              f"/ torch.matmul): " + "; ".join(
+                  f"{m_}: {t['skinny_ms']:.4f} / {t['tile_ms']:.4f} / {t['wgmma_ms']:.4f} "
+                  f"/ {t['library_ms']:.4f}" for m_, t in sweep.items())
+              + f"; skinny faster than tile at M = {faster['tile']}, than wgmma at "
+              f"M = {faster['wgmma']}; SKINNY_M_MAX = {SKINNY_M_MAX}")
     skinny_times.update(per_shape=decode, crossover=crossover, skinny_m_max=SKINNY_M_MAX)
 
     # the fused chain at phase 3c's EW shape: ((a·b + c) − d) / e over five
@@ -1803,6 +1925,13 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         ("mmm_skinny", skinny_times, skinny_bound,
          f"one decode pass: {sum(r['launches_per_pass'] for r in decode)} MMMs at "
          f"M={slots} {mname}, device time (library: torch.matmul)"),
+        # device time of one serving run's prefill projections: Σ per shape
+        # of device ms × launches per run (per_shape below; tile_ms: the
+        # tile route in the same type)
+        ("mmm_wgmma", wgmma_times, wgmma_bound,
+         f"one serving run's prefills: {sum(r['launches_per_run'] for r in prefill)} "
+         f"MMMs at M={'/'.join(map(str, SERVE['prompt_lens']))} {mname}, device time "
+         f"(library: torch.matmul)"),
         ("ewise", dict(per_op["mul"]), ew_bound, f"{ea.shape[0]}x{ea.shape[1]} "
          f"float32, EWMM (per op below)"),
         ("mvm", {"ms": ms(mvm_hopper, ma, mx), "plain_ms": ms(mvm_ref, ma, mx),
@@ -1889,7 +2018,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         if name == "ewise":
             entry["per_op"] = per_op
         if name == "mmm":
-            entry["launches_serve"] = serve_launches["mmm"]
+            entry["launches_float32_replay"] = path_launches["serve_float32"]["mmm"]
         if name == "fused":
             print(f"  fused: four serial EW launches {times['serial_ewise_ms']:.4f} ms")
         if name.startswith("flash_attention"):

@@ -49,6 +49,8 @@ _vp, _int, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_
 _SIGNATURES = {
     # a, b, c, m, n, k, dtype, stream
     "halo_mmm": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
+    # a, b, c, m, n, k, bn, dtype, stream (bfloat16 or float16)
+    "halo_mmm_wgmma": [_vp, _vp, _vp, _int, _int, _int, _int, _int, _vp],
     # a, b, c, ws, m, n, k, splits, kb, kw, vec, dtype, stream
     "halo_mmm_skinny": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int,
                         _int, _int, _vp],

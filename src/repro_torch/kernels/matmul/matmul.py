@@ -1,20 +1,28 @@
-"""MMM on Hopper: the ctypes wrappers around ``csrc/mmm.cu`` and
-``csrc/mmm_skinny.cu``, and the route between them.
+"""MMM on Hopper: the ctypes wrappers around ``csrc/mmm_skinny.cu``,
+``csrc/mmm_wgmma.cu`` and ``csrc/mmm.cu``, and the route between them.
 
-Replaces ``repro/kernels/matmul/matmul.py::mmm_pallas``.  Two routes, chosen
-by the row count alone (:func:`mmm_route`):
+Replaces ``repro/kernels/matmul/matmul.py::mmm_pallas``.  Three routes,
+chosen by type, shape and alignment alone (:func:`mmm_route`):
 
-* ``tile`` (``mmm.cu``): 128x128 output tiles with a shared-memory K loop,
-  for M above :data:`SKINNY_M_MAX` (prefill, the template's 4096³);
 * ``skinny`` (``mmm_skinny.cu``): column strips of 16-byte loads of B with
   K split across warps and, where the strips cannot fill the card, across
-  blocks (:func:`skinny_plan`), for the few rows of a decode step.
+  blocks (:func:`skinny_plan`), for the few rows of a decode step, up to
+  :data:`SKINNY_M_MAX` rows in every type;
+* ``wgmma`` (``mmm_wgmma.cu``): 128x128 or 128x256 output tiles
+  (:func:`wgmma_tile_n`) on the tensor cores, TMA loads into a ring of
+  shared-memory stages, for bfloat16 and float16 above SKINNY_M_MAX rows (a
+  prefill's projections) where K and N are multiples of 8 and the operands
+  16-byte aligned (TMA's stride and address rules);
+* ``tile`` (``mmm.cu``): 128x128 output tiles in float32 on the CUDA cores
+  for the rest, float32 above all (the template's 4096³, held to 1e-5).
 
-Both kernels mask ragged edges themselves, so the wrappers pad nothing.
-Each route counts its own launches (``mmm`` and ``mmm_skinny``).
+The kernels mask ragged edges themselves (TMA zero-fills them), so the
+wrappers pad nothing.  Each route counts its own launches (``mmm_skinny``,
+``mmm_wgmma`` and ``mmm``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -24,6 +32,10 @@ from ..common import cdiv, round_up
 
 LAUNCHES = _cuda.counter("mmm")
 SKINNY_LAUNCHES = _cuda.counter("mmm_skinny")
+WGMMA_LAUNCHES = _cuda.counter("mmm_wgmma")
+
+#: the types the tensor-core route takes
+WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 
 #: the largest M that takes the skinny route.  By device time on an H100
 #: (chip_smoke.py phase 4, bfloat16, B cold in L2), the skinny route beat
@@ -45,9 +57,32 @@ _SKINNY_MIN_SEGMENT = 32
 _SKINNY_TARGET_BLOCKS = 264
 
 
-def mmm_route(m: int) -> str:
-    """``"skinny"`` for M ≤ :data:`SKINNY_M_MAX`, else ``"tile"``."""
-    return "skinny" if m <= SKINNY_M_MAX else "tile"
+def _wgmma_takes(dtype: torch.dtype, k: int, n: int, aligned: bool) -> bool:
+    """bfloat16 or float16 operands whose K and N are positive multiples of
+    8 and whose base pointers are 16-byte aligned: what TMA can load."""
+    return dtype in WGMMA_DTYPES and aligned and k > 0 and n > 0 \
+        and k % 8 == 0 and n % 8 == 0
+
+
+def mmm_route(dtype: torch.dtype, m: int, k: int, n: int, aligned: bool) -> str:
+    """``"skinny"`` for M ≤ :data:`SKINNY_M_MAX` in every type; above it
+    ``"wgmma"`` for bfloat16 and float16 when K and N are positive multiples
+    of 8 and the operands' base pointers are 16-byte aligned (``aligned``),
+    else ``"tile"``."""
+    if m <= SKINNY_M_MAX:
+        return "skinny"
+    return "wgmma" if _wgmma_takes(dtype, k, n, aligned) else "tile"
+
+
+def wgmma_tile_n(m: int, n: int, sms: int) -> int:
+    """Columns of the tensor-core route's output tile, 128 or 256: the width
+    whose tiles finish in the fewer waves over ``sms`` SMs, a wave of
+    128x256 tiles counted as two of 128x128 ones (twice the products per
+    tile); on a tie 256, which reads each A tile from shared memory once per
+    256 columns rather than twice."""
+    def waves(bn):
+        return cdiv(cdiv(m, 128) * cdiv(n, bn), sms)
+    return 256 if 2 * waves(256) <= waves(128) else 128
 
 
 def skinny_plan(m: int, n: int, k: int, element_size: int) -> Tuple[int, int, int]:
@@ -88,6 +123,22 @@ def _tile(a, b, out):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _wgmma(a, b, out):
+    m, k = a.shape
+    n = out.shape[1]
+    rc = _cuda.lib().halo_mmm_wgmma(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                    m, n, k, wgmma_tile_n(m, n, _sm_count(a.device)),
+                                    _cuda.dtype_code(a.dtype), _cuda.stream(a.device))
+    _cuda.check(rc, "mmm_wgmma")
+    WGMMA_LAUNCHES.add()
+    return out
+
+
 def _skinny(a, b, out):
     m, k = a.shape
     n = out.shape[1]
@@ -110,13 +161,26 @@ def _launch(route, a, b):
     out = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
-    return (_skinny if route == "skinny" else _tile)(a, b, out)
+    return {"skinny": _skinny, "wgmma": _wgmma, "tile": _tile}[route](a, b, out)
 
 
 def mmm_tile_hopper(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """A (M,K) @ B (K,N) → (M,N) on the card by the 128x128 tile kernel."""
     _cuda.require_cuda(mmm_problem(a, b), "MMM", a)
     return _launch("tile", a, b)
+
+
+def mmm_wgmma_hopper(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A (M,K) @ B (K,N) → (M,N) on the card by the tensor-core kernel:
+    bfloat16 or float16, K and N positive multiples of 8, 16-byte-aligned
+    operands, any M ≥ 1."""
+    _cuda.require_cuda(mmm_problem(a, b), "MMM", a)
+    if not _wgmma_takes(a.dtype, a.shape[1], b.shape[1], _cuda.aligned(a, b)):
+        raise ValueError(f"MMM: the tensor-core route takes bfloat16/float16 "
+                         f"operands with K and N positive multiples of 8 on the "
+                         f"16-byte grid, got {a.dtype} {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    return _launch("wgmma", a, b)
 
 
 def mmm_skinny_hopper(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -129,6 +193,8 @@ def mmm_skinny_hopper(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def mmm_hopper(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """A (M,K) @ B (K,N) → (M,N) on the card, in A's type, by the route
-    :func:`mmm_route` picks for M."""
+    :func:`mmm_route` picks for the type, shape and alignment (the output,
+    from ``torch.empty``, is always aligned)."""
     _cuda.require_cuda(mmm_problem(a, b), "MMM", a)
-    return _launch(mmm_route(a.shape[0]), a, b)
+    m, k = a.shape
+    return _launch(mmm_route(a.dtype, m, k, b.shape[1], _cuda.aligned(a, b)), a, b)

@@ -9,6 +9,23 @@ def mmm_ref(a, b):
     return (a.float() @ b.float()).to(a.dtype)
 
 
+#: one output ulp of a 16-bit type relative to |r|: 2^-7 for bfloat16 (8
+#: significant bits), 2^-10 for float16 (11)
+ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+
+
+def mmm_ulp_excess(out, a, b) -> int:
+    """How many elements of the 16-bit product ``out`` of ``a`` and ``b``
+    lie farther from the float32 product of the same inputs than one output
+    ulp: |out − r| > ULP·|r| + 2^-14·max|r|, the second term for the
+    float32 sum order where r is near 0.  A sound product rounds r to
+    nearest and reads 0; a lost K stage or a wrong swizzle moves many
+    elements past the bound, where a normwise tolerance may not see them."""
+    r = a.float() @ b.float()
+    bound = ULP[a.dtype] * r.abs() + 2.0 ** -14 * r.abs().max()
+    return int(((out.float() - r).abs() > bound).sum())
+
+
 def mmm_splitk_ref(a, b):
     """The skinny kernel's plain version: C = A @ B summed over K in the
     kernel's own segments (:func:`~.matmul.skinny_plan`).  Each warp

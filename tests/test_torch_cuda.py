@@ -30,8 +30,9 @@ from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
 from repro_torch.kernels.jacobi.ops import jacobi_solve
 from repro_torch.kernels.jacobi.ref import jacobi_step_ref
 from repro_torch.kernels.matmul.matmul import (SKINNY_M_MAX, mmm_hopper, mmm_route,
-                                               mmm_skinny_hopper, mmm_tile_hopper)
-from repro_torch.kernels.matmul.ref import mmm_ref, mmm_splitk_ref
+                                               mmm_skinny_hopper, mmm_tile_hopper,
+                                               mmm_wgmma_hopper)
+from repro_torch.kernels.matmul.ref import mmm_ref, mmm_splitk_ref, mmm_ulp_excess
 from repro_torch.kernels.mvm.mvm import mvm_hopper
 from repro_torch.kernels.mvm.ref import mvm_ref
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -122,13 +123,54 @@ def test_mmm_skinny_unaligned_and_repeatable(card, dtype):
 
 
 def test_mmm_routes_count_apart(card):
+    """bfloat16 at M = 1 and SKINNY_M_MAX: the skinny route; at
+    SKINNY_M_MAX + 1: the tensor cores; past SKINNY_M_MAX in float32, with
+    an N off TMA's 16-byte stride, or with an A off the 16-byte grid: the
+    tile route."""
+    bf16 = torch.bfloat16
+    off = _rnd(card, 65 * 64 + 1, dtype=bf16, seed=2)[1:].view(65, 64)
+    assert off.data_ptr() % 16
+    cases = [(_rnd(card, m, 64, dtype=dt), _rnd(card, 64, n, dtype=dt, seed=1))
+             for m, n, dt in ((1, 32, bf16), (SKINNY_M_MAX, 32, bf16),
+                              (SKINNY_M_MAX + 1, 32, bf16),
+                              (SKINNY_M_MAX + 1, 32, torch.float32),
+                              (SKINNY_M_MAX + 1, 36, bf16))]
+    cases.append((off, _rnd(card, 64, 32, dtype=bf16, seed=3)))
     before = _cuda.launch_counts()
-    for m in (1, SKINNY_M_MAX, SKINNY_M_MAX + 1):
-        a, b = _rnd(card, m, 64, dtype=torch.bfloat16), _rnd(card, 64, 32, dtype=torch.bfloat16)
-        assert _normwise(mmm_hopper(a, b), mmm_ref(a, b)) <= TOL[torch.bfloat16]
+    for a, b in cases:
+        assert _normwise(mmm_hopper(a, b), mmm_ref(a, b)) <= TOL[a.dtype]
     after = _cuda.launch_counts()
     assert after["mmm_skinny"] == before["mmm_skinny"] + 2
-    assert after["mmm"] == before["mmm"] + 1
+    assert after["mmm_wgmma"] == before["mmm_wgmma"] + 1
+    assert after["mmm"] == before["mmm"] + 3
+
+
+#: the tensor-core route's shapes: danube's eight prefill projections
+#: (4200 rows: 32 row tiles and 104 rows), ragged M, N and K (TMA
+#: zero-fills past each), and the template's 4096³
+WGMMA_SHAPES = [(m, k, n) for m in (512, 4200)
+                for k, n in ((2560, 2560), (2560, 640), (2560, 6912), (6912, 2560))] \
+    + [(130, 72, 136), (65, 8, 8), (4096, 4096, 4096)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m,k,n", WGMMA_SHAPES)
+def test_mmm_wgmma_kernel(card, dtype, m, k, n):
+    """Against mmm_ref (TOL) and, element by element, within one output ulp
+    of the float32 product of the same inputs (mmm_ulp_excess)."""
+    a, b = _rnd(card, m, k, dtype=dtype), _rnd(card, k, n, dtype=dtype, seed=1)
+    out = mmm_wgmma_hopper(a, b)
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert _normwise(out, mmm_ref(a, b)) <= TOL[dtype]
+    assert mmm_ulp_excess(out, a, b) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_mmm_wgmma_kernel_is_repeatable(card, dtype):
+    """Two calls give the same bits: each output element's K sum runs in one
+    fixed order."""
+    a, b = _rnd(card, 4200, 2560, dtype=dtype), _rnd(card, 2560, 640, dtype=dtype, seed=1)
+    assert torch.equal(_bits(mmm_wgmma_hopper(a, b)), _bits(mmm_wgmma_hopper(a, b)))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -591,13 +633,16 @@ def test_model_on_the_card_runs_the_kernels(card):
         served = run(model, params, None)
         counts = _cuda.launch_counts()
         layers = model.cfg.n_layers
-        # the prefill's 40 rows take the route mmm_route(40) picks, its
-        # last-token unembed (one row) and the 4 decode passes (one row
-        # each) the skinny route
-        assert counts["mmm"] + counts["mmm_skinny"] == 5 * (7 * layers + 1)
-        prefill_tile = 7 * layers if mmm_route(40) == "tile" else 0
-        assert counts["mmm"] == prefill_tile
-        assert counts["mmm_skinny"] == 5 * (7 * layers + 1) - prefill_tile
+        # the prefill's 40 rows take the route mmm_route picks for 40 rows
+        # of the model's type (its projections' K and N are multiples of
+        # 8), its last-token unembed (one row) and the 4 decode passes (one
+        # row each) the skinny route
+        d = model.cfg.d_model
+        prefill = {"skinny": "mmm_skinny", "wgmma": "mmm_wgmma",
+                   "tile": "mmm"}[mmm_route(dtype, 40, d, d, True)]
+        expected = {"mmm": 0, "mmm_wgmma": 0, "mmm_skinny": 4 * (7 * layers + 1) + 1}
+        expected[prefill] += 7 * layers
+        assert {k: counts[k] for k in expected} == expected
         assert counts["rmsnorm"] == 5 * (2 * layers + 1)
         other = ({"flash_attention", "flash_attention_mma"} - {attn}).pop()
         assert counts[attn] == layers and counts[other] == 0
@@ -614,6 +659,7 @@ def test_each_launch_counts_once(card):
     before = _cuda.launch_counts()
     mmm_tile_hopper(a, a)
     mmm_skinny_hopper(a, a)
+    mmm_wgmma_hopper(a.bfloat16(), a.bfloat16())
     ewise_hopper(a, a, "add")
     mvm_hopper(a, a[0])
     vdp_hopper(a[0], a[0])
@@ -632,7 +678,7 @@ def test_each_launch_counts_once(card):
     qb = q.bfloat16()
     flash_attention_mma_hopper(qb, qb[:, :1], qb[:, :1])
     after = _cuda.launch_counts()
-    for name in ("mmm", "mmm_skinny", "ewise", "mvm", "vdp", "jacobi", "conv1d",
+    for name in ("mmm", "mmm_skinny", "mmm_wgmma", "ewise", "mvm", "vdp", "jacobi", "conv1d",
                  "spmm", "fft", "fft_radix", "sort", "sort_radix", "hist", "rmsnorm",
                  "flash_attention", "flash_attention_mma"):
         assert after[name] == before[name] + 1

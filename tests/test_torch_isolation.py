@@ -113,8 +113,8 @@ def test_hopper_path_calls_no_library_op(path):
 ENTRY = {"spmm": "smmm"}
 
 
-@pytest.mark.parametrize("name", ["mmm", "mmm_skinny", "ewise", "mvm", "vdp",
-                                  "jacobi", "conv1d", "spmm", "fft", "fft_radix",
+@pytest.mark.parametrize("name", ["mmm", "mmm_skinny", "mmm_wgmma", "ewise", "mvm",
+                                  "vdp", "jacobi", "conv1d", "spmm", "fft", "fft_radix",
                                   "sort", "sort_radix", "hist", "rmsnorm",
                                   "flash_attention", "flash_attention_mma", "fused"])
 def test_kernel_sources_carry_their_note(name):

@@ -86,17 +86,24 @@ def test_skinny_plan_covers_k_in_segments(m, k, n, element_size):
 
 
 def test_mmm_route_threshold(monkeypatch):
-    """M = SKINNY_M_MAX takes the skinny route, M + 1 the tile route; the
-    route depends on M alone."""
-    top = t_mm.SKINNY_M_MAX
-    assert t_mm.mmm_route(1) == t_mm.mmm_route(top) == "skinny"
-    assert t_mm.mmm_route(top + 1) == t_mm.mmm_route(4096) == "tile"
+    """M = SKINNY_M_MAX takes the skinny route in every type, M + 1 the
+    tile route in float32 and the tensor-core route in bfloat16 where TMA
+    can load the operands; SKINNY_M_MAX is the only row threshold."""
+    top, f32, bf16 = t_mm.SKINNY_M_MAX, torch.float32, torch.bfloat16
+    for dtype in (f32, bf16):
+        assert t_mm.mmm_route(dtype, 1, 8, 8, True) == "skinny"
+        assert t_mm.mmm_route(dtype, top, 2560, 6912, True) == "skinny"
+    assert t_mm.mmm_route(f32, top + 1, 8, 8, True) == "tile"
+    assert t_mm.mmm_route(f32, 4096, 4096, 4096, True) == "tile"
+    assert t_mm.mmm_route(bf16, top + 1, 8, 8, True) == "wgmma"
+    assert t_mm.mmm_route(bf16, 1 << 20, 8, 8, True) == "wgmma"
     routes = []
     monkeypatch.setattr(_cuda, "require_cuda", lambda *a: None)
     monkeypatch.setattr(t_mm, "_launch", lambda route, a, b: routes.append(route))
     for m in (1, top, top + 1, 512):
         t_mm.mmm_hopper(torch.ones(m, 8), torch.ones(8, 3))
-    assert routes == ["skinny", "skinny", "tile", "tile"]
+        t_mm.mmm_hopper(torch.ones(m, 8, dtype=bf16), torch.ones(8, 8, dtype=bf16))
+    assert routes == ["skinny"] * 4 + ["tile", "wgmma"] * 2
 
 
 @pytest.mark.parametrize("launch", [t_mm.mmm_skinny_hopper, t_mm.mmm_tile_hopper,
