@@ -24,7 +24,7 @@ Phases (any failure exits non-zero before the result lines are printed):
    two calls bit-identical.  MMM's tensor-core route, bfloat16 and float16:
    danube's eight prefill projections (512 and 4200 rows), ragged M, N and
    K, and 4096³, against ``mmm_ref`` (``TOL``) and element by element
-   within one output ulp of a float32 product of the same inputs
+   within half an output ulp of a float32 product of the same inputs
    (``mmm_ulp_excess``); two calls bit-identical.  FFT: normwise within
    ``FFT_TOL`` against ``torch.fft.fft`` in float64 and against its plain
    version, in three types: the radix route at every n = 2^j ≤ 4096, the
@@ -107,6 +107,7 @@ limit, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -573,13 +574,15 @@ def prefill_projections(cfg):
 
 def phase2_mmm_wgmma(dev, gen, dt) -> None:
     """The tensor-core route against ``mmm_ref`` within ``TOL`` and, element
-    by element, within one output ulp of the float32 product of the same
-    inputs (``mmm_ulp_excess``; ``TOL`` alone would pass a lost K stage or a
-    wrong swizzle): danube's eight prefill projections, ragged M, N and K
-    (TMA zero-fills past each) and 4096³; two calls bit-identical."""
+    by element, within half an output ulp (plus a float32 sum-order term)
+    of the float32 product of the same inputs (``mmm_ulp_excess``; ``TOL``
+    alone would pass a lost K stage, a wrong swizzle or rounding toward
+    zero): danube's eight prefill projections, ragged M, N and K (TMA
+    zero-fills past each) and 4096³; the largest ratio to that bound is
+    printed; two calls bit-identical."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.matmul.matmul import mmm_wgmma_hopper
-    from repro_torch.kernels.matmul.ref import mmm_ref, mmm_ulp_excess
+    from repro_torch.kernels.matmul.ref import mmm_ref, mmm_ulp_ratios
 
     name = str(dt).split(".")[-1]
     shapes = [(m, kk, n) for m in SERVE["prompt_lens"]
@@ -593,11 +596,12 @@ def phase2_mmm_wgmma(dev, gen, dt) -> None:
         if out.shape != (m, n) or out.dtype != dt:
             fail(f"{label}: {tuple(out.shape)} {out.dtype}")
         check_close(f"{label} vs plain", normwise(out, mmm_ref(a, b)), dt)
-        excess = mmm_ulp_excess(out, a, b)
-        print(f"  {label:42s} {excess} of {out.numel()} past one ulp of the "
-              f"float32 product")
+        ratios = mmm_ulp_ratios(out, a, b)
+        excess = int((ratios > 1).sum())
+        print(f"  {label:42s} {excess} of {out.numel()} past half an ulp of the "
+              f"float32 product; largest ratio to the bound {float(ratios.max()):.4f}")
         if excess:
-            fail(f"{label}: {excess} elements lie past one ulp of the float32 product")
+            fail(f"{label}: {excess} elements lie past half an ulp of the float32 product")
     if not torch.equal(bits(out), bits(mmm_wgmma_hopper(a, b))):
         fail(f"MMM wgmma {name}: two calls differ (expected the same bits)")
     print(f"  MMM wgmma {name} {m}x{kk}@{kk}x{n}: two calls give the same bits")
@@ -1584,12 +1588,23 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         for _ in range(3):
             fn()
         # the profiler on the card now and then returns an empty window (a
-        # library call has read 0.0 ms): measure again
+        # library call has read 0.0 ms): measure again, and after three
+        # empty windows time TIMED_RUNS calls back to back by CUDA events
+        # (the host's launches then count where they outlast the kernels)
         for _ in range(3):
             t = device_ms_per_call(fn, TIMED_RUNS, dev)
             if t > 0:
                 return t
-        fail("torch.profiler saw no device time in three windows")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(TIMED_RUNS):
+            fn()
+        end.record()
+        end.synchronize()
+        t = start.elapsed_time(end) / TIMED_RUNS
+        print(f"  torch.profiler saw no device time in three windows: {t:.4f} ms per "
+              f"call by CUDA events over {TIMED_RUNS} calls back to back")
+        return t
 
     def model_row(kernel, plain, library):
         """Device times of the model path's kernel, plain version and
@@ -1821,6 +1836,17 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     # tensor-core peak.  The row totals one serving run's prefills: each
     # shape's time × its launches in phase 3b (7·L per prefill).
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def wgmma_widths(args):
+        """Device ms per call of the tensor-core kernel at each tile width."""
+        return {str(bn): device_ms(cycling(functools.partial(mmm_wgmma_hopper, tile_n=bn),
+                                           args)) for bn in (128, 256)}
+
+    def widths_text(by_width, chosen):
+        fastest = min(by_width, key=by_width.get)
+        return (" / ".join(f"128x{bn} {t:.4f} ms" for bn, t in by_width.items())
+                + f"; wgmma_tile_n picks {chosen}, the faster is {fastest}")
+
     lens = [SERVE["prompt_lens"][i % len(SERVE["prompt_lens"])]
             for i in range(SERVE["requests"])]
     prefill = []
@@ -1834,6 +1860,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
             row = {k: device_ms(cycling(f, args)) for k, f in (
                 ("ms", mmm_wgmma_hopper), ("tile_ms", mmm_tile_hopper),
                 ("plain_ms", mmm_ref), ("library_ms", mmm_aten))}
+            row["width_ms"] = wgmma_widths(args)
             t_bytes = am.element_size() * (am.numel() + kk * nn + m_ * nn) / bw
             t_ops = 2 * m_ * kk * nn / bf16_peak
             row.update(bound_ms=max(t_bytes, t_ops) * 1e3, bytes_ms=t_bytes * 1e3,
@@ -1848,9 +1875,19 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
                   f"{row['ms']:.4f}  tile_ms {row['tile_ms']:.4f}  plain_ms "
                   f"{row['plain_ms']:.4f}  library_ms {row['library_ms']:.4f}  bound_ms "
                   f"{row['bound_ms']:.4f} ({row['bound_by']}, {row['bound_ms'] / row['ms']:.0%} "
-                  f"of it)  {row['launches_per_run']} per run")
+                  f"of it)  {row['launches_per_run']} per run; by width "
+                  + widths_text(row["width_ms"], row["tile_n"]))
             del bs, args, am
         del a_
+    # the template's 4096³ in the model's type, at both widths
+    a_ = torch.randn((SIZES["MMM"],) * 2, generator=gen7, device=dev).to(mdt)
+    bs = weights(SIZES["MMM"], SIZES["MMM"], 2)
+    cube = {"shape": f"{SIZES['MMM']}^3 {mname}",
+            "tile_n": wgmma_tile_n(SIZES["MMM"], SIZES["MMM"], sms),
+            "width_ms": wgmma_widths([(a_, b_) for b_ in bs])}
+    print(f"  mmm_wgmma {cube['shape']:26s} by width "
+          + widths_text(cube["width_ms"], cube["tile_n"]))
+    del a_, bs
     max_abs["mmm_wgmma"] = max(r["max_abs_err"] for r in prefill)
     wgmma_times = {k: sum(r[k] * r["launches_per_run"] for r in prefill)
                    for k in ("ms", "tile_ms", "plain_ms", "library_ms")}
@@ -1858,7 +1895,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
                       for k in ("bytes_ms", "ops_ms"))
     wgmma_bound = (sum(r["bound_ms"] * r["launches_per_run"] for r in prefill),
                    "bytes" if t_bytes >= t_ops else "operations")
-    wgmma_times.update(per_shape=prefill, sms=sms)
+    wgmma_times.update(per_shape=prefill, sms=sms, cube=cube)
     print(f"  mmm_wgmma, one serving run's prefills "
           f"({sum(r['launches_per_run'] for r in prefill)} MMMs): kernel "
           f"{wgmma_times['ms']:.1f} ms, tile route in {mname} {wgmma_times['tile_ms']:.1f} "

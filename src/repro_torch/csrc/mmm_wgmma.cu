@@ -39,11 +39,12 @@
 // 128x256 tile and their addressing need, so there is nothing to move.
 //
 // Tile width (wgmma_tile_n in matmul.py, an exact rule, no tuned
-// constant): the width whose tiles finish in the fewest waves over the
-// card's SMs (read from the device), a wave of 128x256 tiles counted as two
-// of 128x128 ones (twice the products per tile); on a tie the wider tile,
-// which reads each A tile from shared memory once per 256 columns rather
-// than twice.  Sums run over K in the same order at either width.
+// constant): the width at which an SM computes the fewer columns over the
+// waves of tiles on the card's SMs (read from the device), waves x the
+// tile's width, so a wide tile's padding past N counts in full; on a tie
+// the wider tile, which reads each A tile from shared memory once per 256
+// columns rather than twice.  Sums run over K in the same order at either
+// width, so the bits do not depend on it.
 //
 // The epilogue rounds the accumulators to the input type and stores pairs
 // of values straight from registers, masked at M and N.  TMA zero-fills

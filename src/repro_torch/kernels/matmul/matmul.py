@@ -76,13 +76,18 @@ def mmm_route(dtype: torch.dtype, m: int, k: int, n: int, aligned: bool) -> str:
 
 def wgmma_tile_n(m: int, n: int, sms: int) -> int:
     """Columns of the tensor-core route's output tile, 128 or 256: the width
-    whose tiles finish in the fewer waves over ``sms`` SMs, a wave of
-    128x256 tiles counted as two of 128x128 ones (twice the products per
-    tile); on a tie 256, which reads each A tile from shared memory once per
-    256 columns rather than twice."""
-    def waves(bn):
-        return cdiv(cdiv(m, 128) * cdiv(n, bn), sms)
-    return 256 if 2 * waves(256) <= waves(128) else 128
+    at which an SM computes the fewer columns, padding included, over the
+    waves of tiles on ``sms`` SMs: waves × the tile's width, a wide tile
+    costing 256 columns however many of them lie past N.  On a tie 256,
+    which reads each A tile from shared memory once per 256 columns rather
+    than twice.  By device time on an H100 (chip_smoke.py phase 4) the
+    width it picks was the faster at seven of danube's eight prefill shapes
+    and 4096³; at 4200x6912 @ 6912x2560 (5 waves of 128 columns against 3
+    of 256) the wide tile was 6 % faster, its products running faster per
+    column than the count assumes."""
+    def columns(bn):
+        return cdiv(cdiv(m, 128) * cdiv(n, bn), sms) * bn
+    return 256 if columns(256) <= columns(128) else 128
 
 
 def skinny_plan(m: int, n: int, k: int, element_size: int) -> Tuple[int, int, int]:
@@ -128,11 +133,11 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _wgmma(a, b, out):
+def _wgmma(a, b, out, tile_n=None):
     m, k = a.shape
     n = out.shape[1]
-    rc = _cuda.lib().halo_mmm_wgmma(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                    m, n, k, wgmma_tile_n(m, n, _sm_count(a.device)),
+    rc = _cuda.lib().halo_mmm_wgmma(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+                                    tile_n or wgmma_tile_n(m, n, _sm_count(a.device)),
                                     _cuda.dtype_code(a.dtype), _cuda.stream(a.device))
     _cuda.check(rc, "mmm_wgmma")
     WGMMA_LAUNCHES.add()
@@ -157,11 +162,11 @@ def _skinny(a, b, out):
     return out
 
 
-def _launch(route, a, b):
+def _launch(route, a, b, **options):
     out = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
-    return {"skinny": _skinny, "wgmma": _wgmma, "tile": _tile}[route](a, b, out)
+    return {"skinny": _skinny, "wgmma": _wgmma, "tile": _tile}[route](a, b, out, **options)
 
 
 def mmm_tile_hopper(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -170,17 +175,21 @@ def mmm_tile_hopper(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _launch("tile", a, b)
 
 
-def mmm_wgmma_hopper(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def mmm_wgmma_hopper(a: torch.Tensor, b: torch.Tensor,
+                     tile_n: Optional[int] = None) -> torch.Tensor:
     """A (M,K) @ B (K,N) → (M,N) on the card by the tensor-core kernel:
     bfloat16 or float16, K and N positive multiples of 8, 16-byte-aligned
-    operands, any M ≥ 1."""
+    operands, any M ≥ 1.  ``tile_n`` (128 or 256) sets the tile width in
+    place of :func:`wgmma_tile_n`'s, to time the two widths apart."""
     _cuda.require_cuda(mmm_problem(a, b), "MMM", a)
+    if tile_n not in (None, 128, 256):
+        raise ValueError(f"MMM: the tensor-core tile is 128 or 256 columns, not {tile_n}")
     if not _wgmma_takes(a.dtype, a.shape[1], b.shape[1], _cuda.aligned(a, b)):
         raise ValueError(f"MMM: the tensor-core route takes bfloat16/float16 "
                          f"operands with K and N positive multiples of 8 on the "
                          f"16-byte grid, got {a.dtype} {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
-    return _launch("wgmma", a, b)
+    return _launch("wgmma", a, b, tile_n=tile_n)
 
 
 def mmm_skinny_hopper(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

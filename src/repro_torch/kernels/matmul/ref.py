@@ -9,21 +9,32 @@ def mmm_ref(a, b):
     return (a.float() @ b.float()).to(a.dtype)
 
 
-#: one output ulp of a 16-bit type relative to |r|: 2^-7 for bfloat16 (8
-#: significant bits), 2^-10 for float16 (11)
-ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+#: half an output ulp of a 16-bit type relative to |r|: 2^-8 for bfloat16 (8
+#: significant bits), 2^-11 for float16 (11).  Rounding to nearest moves r
+#: by at most half an ulp of r, which is at most this fraction of |r|.
+HALF_ULP = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+
+
+def mmm_ulp_ratios(out, a, b) -> torch.Tensor:
+    """|out − r| / (HALF_ULP·|r| + 2^-14·max|r|) element by element, where r
+    is the float32 product of the same 16-bit inputs ``a`` and ``b``: the
+    first term is rounding r to nearest, the second the float32 sum order
+    where r is near 0.  A sound product of ``a`` and ``b`` rounded to
+    nearest reads at most 1 everywhere."""
+    r = a.float() @ b.float()
+    bound = HALF_ULP[a.dtype] * r.abs() + 2.0 ** -14 * r.abs().max()
+    diff = (out.float() - r).abs()
+    return torch.where(diff == 0, torch.zeros_like(diff), diff / bound)
 
 
 def mmm_ulp_excess(out, a, b) -> int:
     """How many elements of the 16-bit product ``out`` of ``a`` and ``b``
-    lie farther from the float32 product of the same inputs than one output
-    ulp: |out − r| > ULP·|r| + 2^-14·max|r|, the second term for the
-    float32 sum order where r is near 0.  A sound product rounds r to
-    nearest and reads 0; a lost K stage or a wrong swizzle moves many
-    elements past the bound, where a normwise tolerance may not see them."""
-    r = a.float() @ b.float()
-    bound = ULP[a.dtype] * r.abs() + 2.0 ** -14 * r.abs().max()
-    return int(((out.float() - r).abs() > bound).sum())
+    lie past the bound of :func:`mmm_ulp_ratios`: half an output ulp of
+    the float32 product plus its sum-order term.  A sound product rounded
+    to nearest reads 0; one rounded toward zero, one with a K stage lost
+    or a wrong swizzle moves many elements past the bound, where a
+    normwise tolerance may not see them."""
+    return int((mmm_ulp_ratios(out, a, b) > 1).sum())
 
 
 def mmm_splitk_ref(a, b):

@@ -155,11 +155,13 @@ WGMMA_SHAPES = [(m, k, n) for m in (512, 4200)
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("m,k,n", WGMMA_SHAPES)
-def test_mmm_wgmma_kernel(card, dtype, m, k, n):
-    """Against mmm_ref (TOL) and, element by element, within one output ulp
-    of the float32 product of the same inputs (mmm_ulp_excess)."""
+@pytest.mark.parametrize("tile_n", [None, 128, 256])
+def test_mmm_wgmma_kernel(card, dtype, m, k, n, tile_n):
+    """Against mmm_ref (TOL) and, element by element, within half an output
+    ulp of the float32 product of the same inputs (mmm_ulp_excess), at the
+    tile width wgmma_tile_n picks and at each width."""
     a, b = _rnd(card, m, k, dtype=dtype), _rnd(card, k, n, dtype=dtype, seed=1)
-    out = mmm_wgmma_hopper(a, b)
+    out = mmm_wgmma_hopper(a, b, tile_n=tile_n)
     assert out.dtype == dtype and out.shape == (m, n)
     assert _normwise(out, mmm_ref(a, b)) <= TOL[dtype]
     assert mmm_ulp_excess(out, a, b) == 0
