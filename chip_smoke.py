@@ -25,10 +25,16 @@ Phases (any failure exits non-zero before the result lines are printed):
    danube's eight prefill projections (512 and 4200 rows), ragged M, N and
    K, and 4096³, against ``mmm_ref`` (``TOL``) and element by element
    within half an output ulp of a float32 product of the same inputs
-   (``mmm_ulp_excess``); two calls bit-identical.  FFT: normwise within
-   ``FFT_TOL`` against ``torch.fft.fft`` in float64 and against its plain
-   version, in three types: the radix route at every n = 2^j ≤ 4096, the
-   DFT route at n = 7, 1000 and DFT_N.
+   (``mmm_ulp_excess``); two calls bit-identical.  MMM's 3×TF32 route,
+   float32: 4096³, the float32 replay's four 512-row prefill shapes, ragged
+   M, N and K that are multiples of 4, and M = 65, against ``mmm_ref``, a
+   float64 product and its plain model ``mmm_tf32x3_ref`` (``TOL``), its
+   error against float64 printed beside ``torch.matmul``'s; two calls
+   bit-identical.  FFT: normwise within ``FFT_TOL`` against
+   ``torch.fft.fft`` in float64 and against its plain version, in three
+   types: the radix route at every n = 2^j ≤ 4096, the chirp route at
+   n = 3, 7, 100, 1000, 2999, DFT_N, 4093 and 4095, each at 1, 3 and 2048
+   rows and 1-D, and an x off the 16-byte grid; two calls bit-identical.
    SORT: bit-exact, and NaN last on rows that hold NaN, ±inf and ±0;
    the radix route also on rows that skip passes (16-bit types, a
    constant row, integers 0–15) and on negative-only rows, bit-exact
@@ -46,13 +52,14 @@ Phases (any failure exits non-zero before the result lines are printed):
 3. The slice end to end: ``repro_torch.quickstart.run`` on ``cuda`` with
    every claim pinned to the hopper records, blocking and asynchronous, at
    working sets inside the paper's 48 MB–1 GB.  Every kernel's launch count
-   must rise by exactly the requests sent to it (MMM at 4096 rows on the
-   tile route, FFT at n = 4096 and SORT at 2^24 on their radix routes),
-   the scheduler's quarantine must stay empty, and every output must match
-   its plain version.  Two more requests, each counted alone, drive the
-   other routes: FFT at n = DFT_N (the DFT route) and SORT of 4096 rows of
-   4096 (the tile route).  Then the template is timed
-   end to end (median of 5 runs, T1 per call).
+   must rise by exactly the requests sent to it (MMM at 4096³ float32 on
+   the 3×TF32 route, FFT at n = 4096 and SORT at 2^24 on their radix
+   routes), the scheduler's quarantine must stay empty, and every output
+   must match its plain version.  Three more requests, each counted alone,
+   drive the other routes: FFT of 2048 rows of DFT_N (the chirp route),
+   SORT of 4096 rows of 4096 (the tile route) and MMM 4096×4094 @
+   4094×4096 float32 (the tile route: TMA cannot stride K = 4094).  Then
+   the template is timed end to end (median of 5 runs, T1 per call).
 3b. The model path: h2o-danube-1.8b at full width (random bfloat16 weights
    from a seed) served through ``repro_torch.launch.serve.run_requests``
    on a SlotEngine/StepScheduler: 8 requests on 4 slots, prompts of 512
@@ -67,7 +74,7 @@ Phases (any failure exits non-zero before the result lines are printed):
    plain versions on the card (``SERVE_TOL``).  The same weights widened
    to float32 replay one request on the kernels against the plain versions
    (``F32_SERVE_TOL``); its prefill, counted alone, drives FLASH_ATTN's
-   CUDA-core route (L launches) and MMM's tile route (7·L launches).
+   CUDA-core route (L launches) and MMM's 3×TF32 route (7·L launches).
    Prefill MMM device time comes from a profiled rerun.  The decode step is
    split into MMM device time per pass and dispatches per pass × T1.
 3c. Execution graphs, fusion and compiled replay: ``halo.graph(launch=False)``
@@ -93,10 +100,14 @@ Phases (any failure exits non-zero before the result lines are printed):
    cold in L2), beside ``torch.matmul``, with a sweep of the three MMM
    routes over M that set SKINNY_M_MAX; MMM's tensor-core route at each
    prefill projection (bfloat16, B cold in L2) beside the tile route in
-   bfloat16, its plain version and ``torch.matmul``.  The DFT route at
-   2048 x DFT_N; SORT's radix route at 2^24 and its tile route at 4096 x
-   4096, with a sweep of both SORT routes over the row lengths the tile
-   route takes.  The
+   bfloat16, its plain version and ``torch.matmul``.  MMM's 3×TF32 route
+   by device time at 4096³ (the split pass and the product apart) and at
+   the float32 replay's four 512-row shapes, beside ``torch.matmul`` (TF32
+   off); its tile route at the lone request's 4096×4094 @ 4094×4096.  The
+   chirp FFT route by device time at 2048 x DFT_N beside cuFFT, with its
+   table build apart and a sweep over n at 2048 rows; SORT's radix route
+   at 2^24 and its tile route at 4096 x 4096, with a sweep of both SORT
+   routes over the row lengths the tile route takes.  The
    fused chain kernel at a 4-step
    8192² float32 chain, beside its plain version, the four ATen calls and
    the four serial EW launches.
@@ -129,9 +140,14 @@ SIZES = {"MMM": 4096, "EW": 8192, "MVM": 8192, "VDP": 1 << 26, "JS": 8192,
          "1DCONV": 1 << 26, "SMMM": 8192, "FFT": 4096, "SORT": 1 << 24,
          "HIST": 1 << 26}
 
-#: phase 3 and 4: the FFT length that is not a power of two, for the DFT
-#: route (2048 rows of it, 24.6 MB, against 72 MB of twiddle matrices)
+#: phase 3 and 4: the FFT length that is not a power of two, for the chirp
+#: route (2048 rows of it, 24.6 MB in, 49.2 MB of complex64 out; L = 8192)
 DFT_N = 3000
+#: phase 2 and 4: the chirp route's lengths (2999 and 4093 are primes)
+CHIRP_N = (3, 7, 100, 1000, 2999, DFT_N, 4093, 4095)
+#: phase 3 and 4: the lone tile-route MMM, float32 (M, K, N): K = 4094 is
+#: not a multiple of 4, so TMA cannot stride A's rows
+TILE_MMM = (4096, 4094, 4096)
 
 #: MMM and MVM: normwise relative error allowed between a kernel and its
 #: plain version.  float32: the two sum the same float32 products in another
@@ -168,11 +184,12 @@ VDP_TOL = 1e-5
 JS_RESIDUAL = 1e-4
 
 #: FFT: normwise relative error of the kernel against the float64 DFT and
-#: against its plain version (the same float32 DFT by matmul).  Each output
-#: sums n float32 products of twiddles rounded once from float64; that
-#: errs by a few units of 2^-24 times sqrt(n), about 1e-6 at n = 4096.
-#: Twiddles whose angle is formed in float32, as the reference's are, err
-#: above this limit from n = 1000 on (tests/test_torch_fft_sorthist.py).
+#: against its plain version (the same stages in the same order).  Each
+#: Stockham stage rounds once in float32 against twiddles and chirps
+#: rounded once from float64; log2(L) ≤ 13 stages, twice on the chirp
+#: route, err by a few units of 2^-24 each, ~2e-7 on the H100.  Twiddles
+#: whose angle is formed in float32, as the reference's are, err above
+#: this limit from n = 1000 on (tests/test_torch_fft_sorthist.py).
 FFT_TOL = 1e-5
 
 #: SMMM pad slots are filled with this instead of zeros, so a kernel that
@@ -183,6 +200,8 @@ PAD_FILL = 7.0
 #: FLOP/s, bfloat16 tensor-core FLOP/s
 PEAKS = {"H100 SXM": (3.35e12, 67e12, 989e12),
          "H100 PCIe": (2.0e12, 51e12, 756e12)}
+#: TF32 tensor-core FLOP/s, dense (the same data sheets)
+TF32_PEAKS = {"H100 SXM": 495e12, "H100 PCIe": 378e12}
 
 #: phase 3b: the served model and its traffic
 SERVE = {"arch": "h2o-danube-1.8b", "slots": 4, "requests": 8,
@@ -234,7 +253,6 @@ REPLACES = {
     "jacobi": "src/repro/kernels/jacobi/jacobi.py:47",
     "conv1d": "src/repro/kernels/conv1d/conv1d.py:35",
     "spmm": "src/repro/kernels/spmm/spmm.py:54",
-    "fft": "src/repro/kernels/fft/fft.py:58",
     "sort": "src/repro/kernels/sorthist/sorthist.py:57",
     "hist": "src/repro/kernels/sorthist/sorthist.py:97",
     "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:36",
@@ -243,6 +261,8 @@ REPLACES = {
     "mmm_skinny": "src/repro/kernels/matmul/matmul.py:43",
     "mmm_wgmma": "src/repro/kernels/matmul/matmul.py:43",
     "fft_radix": "src/repro/kernels/fft/fft.py:58",
+    "fft_chirp": "src/repro/kernels/fft/fft.py:58",
+    "mmm_tf32x3": "src/repro/kernels/matmul/matmul.py:43",
     "sort_radix": "src/repro/kernels/sorthist/sorthist.py:57",
     "flash_attention_mma": "src/repro/kernels/flash_attention/flash_attention.py:106",
 }
@@ -250,11 +270,15 @@ REPLACES = {
 #: where each kernel's launches are counted when it is not the template's
 #: (phase 3): the model path (3b), its float32 replay on the kernels (3b;
 #: the CUDA-core FLASH_ATTN route), the graphs (3c), or one of phase 3's
-#: requests counted alone: FFT at the non-power-of-two DFT_N (the DFT
-#: route), SORT of rows that fit one tile
+#: requests counted alone: FFT at the non-power-of-two DFT_N (the chirp
+#: route), SORT of rows that fit one tile, MMM at a K TMA cannot stride
+#: (the tile route)
 PATH_OF = {"rmsnorm": "serve", "flash_attention_mma": "serve", "mmm_skinny": "serve",
-           "mmm_wgmma": "serve", "fused": "graph", "fft": "dft", "sort": "sort_tile",
-           "flash_attention": "serve_float32"}
+           "mmm_wgmma": "serve", "fused": "graph", "fft_chirp": "chirp",
+           "sort": "sort_tile", "mmm": "mmm_tile", "flash_attention": "serve_float32"}
+
+#: the source of each kernel whose file is not named after it
+SOURCE_OF = {"mmm_tf32x3": "mmm_wgmma"}
 
 
 def decode_projections(cfg):
@@ -512,6 +536,7 @@ def phase2(dev) -> None:
         phase2_mmm_skinny(dev, gen, dt)
     for dt in (torch.bfloat16, torch.float16):
         phase2_mmm_wgmma(dev, gen, dt)
+    phase2_mmm_tf32x3(dev, gen)
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         phase2_fft(dev, gen, dt)
     for dt in (torch.float32, torch.bfloat16):
@@ -607,14 +632,48 @@ def phase2_mmm_wgmma(dev, gen, dt) -> None:
     print(f"  MMM wgmma {name} {m}x{kk}@{kk}x{n}: two calls give the same bits")
 
 
+def phase2_mmm_tf32x3(dev, gen) -> None:
+    """The 3×TF32 route against ``mmm_ref``, a float64 product of the same
+    inputs and its plain model ``mmm_tf32x3_ref`` (the three float32
+    products of the TF32 parts) within ``TOL``: 4096³, the float32 replay's
+    four 512-row prefill projections, ragged M, N and K that are multiples
+    of 4, and M = 65; each shape's error against float64 printed beside
+    ``torch.matmul``'s (TF32 off); two calls bit-identical."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.matmul.matmul import mmm_tf32x3_hopper
+    from repro_torch.kernels.matmul.ref import mmm_ref, mmm_tf32x3_ref
+
+    dt = torch.float32
+    shapes = [(SERVE["prompt_lens"][0], kk, n)
+              for kk, n in prefill_projections(get_config(SERVE["arch"]))]
+    shapes += [(1000, 772, 1004), (130, 72, 136), (65, 2560, 640), (65, 8, 4),
+               (SIZES["MMM"],) * 3]
+    for m, kk, n in shapes:
+        a = torch.randn((m, kk), generator=gen, device=dev)
+        b = torch.randn((kk, n), generator=gen, device=dev)
+        out = mmm_tf32x3_hopper(a, b)
+        label = f"MMM tf32x3 float32 {m}x{kk}@{kk}x{n}"
+        if out.shape != (m, n) or out.dtype != dt:
+            fail(f"{label}: {tuple(out.shape)} {out.dtype}")
+        exact = a.double() @ b.double()
+        e64, e_lib = normwise(out, exact), normwise(torch.matmul(a, b), exact)
+        check_close(f"{label} vs plain", normwise(out, mmm_ref(a, b)), dt)
+        check_close(f"{label} vs float64 (torch.matmul {e_lib:.2e})", e64, dt)
+        check_close(f"{label} vs model", normwise(out, mmm_tf32x3_ref(a, b)), dt)
+        del exact
+    if not torch.equal(bits(out), bits(mmm_tf32x3_hopper(a, b))):
+        fail("MMM tf32x3: two calls differ (expected the same bits)")
+    print(f"  MMM tf32x3 float32 {m}x{kk}@{kk}x{n}: two calls give the same bits")
+
+
 def phase2_fft(dev, gen, dt) -> None:
     """FFT against torch.fft.fft of the same input in float64 and against
     its plain version, at 1, 3 and 2048 rows and 1-D: the radix route at
-    every n = 2^j up to 4096, and an x off the 16-byte grid; the DFT route
-    at n = 7, 1000 and DFT_N."""
-    from repro_torch.kernels.fft.fft import fft_hopper, fft_radix_hopper
-    from repro_torch.kernels.fft.ops import cached_radix_twiddles, cached_twiddles
-    from repro_torch.kernels.fft.ref import dft_ref, fft_radix_ref
+    every n = 2^j up to 4096, the chirp route at CHIRP_N, each with an x
+    off the 16-byte grid; two calls of each route bit-identical."""
+    from repro_torch.kernels.fft.fft import fft_chirp_hopper, fft_radix_hopper
+    from repro_torch.kernels.fft.ops import cached_chirp_tables, cached_radix_twiddles
+    from repro_torch.kernels.fft.ref import fft_chirp_ref, fft_radix_ref
 
     name = str(dt).split(".")[-1]
 
@@ -622,6 +681,11 @@ def phase2_fft(dev, gen, dt) -> None:
         check_close(f"{label} vs float64",
                     normwise(k, torch.fft.fft(x.double(), dim=-1)), dt, FFT_TOL)
         check_close(f"{label} vs plain", normwise(k, ref), dt, FFT_TOL)
+
+    def repeatable(label, fn, x):
+        if not torch.equal(torch.view_as_real(fn(x)), torch.view_as_real(fn(x))):
+            fail(f"{label}: two calls differ (expected the same bits)")
+        print(f"  {label}: two calls give the same bits")
 
     shapes = ((1,), (3,), (2048,), ())
     for j in range(13):
@@ -635,12 +699,22 @@ def phase2_fft(dev, gen, dt) -> None:
     tw = cached_radix_twiddles(4096, dev)
     check(f"FFT radix {name} 3x4096 unaligned", fft_radix_hopper(x, tw), x,
           fft_radix_ref(x, tw))
-    for n in (7, 1000, DFT_N):
-        c, s = cached_twiddles(n, dev)
+    repeatable(f"FFT radix {name} 3x4096", lambda x_: fft_radix_hopper(x_, tw), x)
+    for n in CHIRP_N:
+        tables = cached_chirp_tables(n, dev)
         for rows in shapes:
             x = torch.randn((*rows, n), generator=gen, device=dev).to(dt)
-            check(f"FFT dft {name} {'x'.join(map(str, (*rows, n)))}",
-                  fft_hopper(x, c, s), x, dft_ref(x, c, s))
+            check(f"FFT chirp {name} {'x'.join(map(str, (*rows, n)))}",
+                  fft_chirp_hopper(x, tables), x, fft_chirp_ref(x, tables))
+    x = torch.randn(3 * 2999 + 1, generator=gen, device=dev).to(dt)[1:].view(3, 2999)
+    if x.data_ptr() % 16 == 0:
+        fail("FFT chirp: the offset view is 16-byte aligned")
+    tables = cached_chirp_tables(2999, dev)
+    check(f"FFT chirp {name} 3x2999 unaligned", fft_chirp_hopper(x, tables), x,
+          fft_chirp_ref(x, tables))
+    x = torch.randn((2048, DFT_N), generator=gen, device=dev).to(dt)
+    tables = cached_chirp_tables(DFT_N, dev)
+    repeatable(f"FFT chirp {name} 2048x{DFT_N}", lambda x_: fft_chirp_hopper(x_, tables), x)
 
 
 def phase2_sort(dev, gen, dt) -> None:
@@ -868,7 +942,7 @@ def phase3(dev):
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.conv1d.ref import conv1d_ref
     from repro_torch.kernels.ewise.ref import OP_REFS as EW_REFS
-    from repro_torch.kernels.fft.ref import dft_ref, fft_radix_ref
+    from repro_torch.kernels.fft.ref import fft_chirp_ref, fft_radix_ref
     from repro_torch.kernels.jacobi.ref import jacobi_step_ref
     from repro_torch.kernels.matmul.ref import mmm_ref
     from repro_torch.kernels.mvm.ref import mvm_ref
@@ -893,11 +967,11 @@ def phase3(dev):
           f"T1 {session.t1_seconds_per_call * 1e6:.1f} us per call over "
           f"{2 * len(jobs)} calls")
     print(f"  launches {launches}; quarantine {quarantined}")
-    # MMM at M = 4096 takes the tile route, FFT at n = 4096 and SORT at
-    # 2^24 the radix routes
-    expected = {"mmm": 2, "mmm_skinny": 0, "mmm_wgmma": 0, "ewise": 8, "mvm": 2,
-                "vdp": 2, "jacobi": 2, "conv1d": 2, "spmm": 2, "fft": 0, "fft_radix": 2,
-                "sort": 0, "sort_radix": 2, "hist": 2, "rmsnorm": 0,
+    # MMM at 4096³ float32 takes the 3×TF32 route, FFT at n = 4096 and SORT
+    # at 2^24 the radix routes
+    expected = {"mmm": 0, "mmm_skinny": 0, "mmm_wgmma": 0, "mmm_tf32x3": 2, "ewise": 8,
+                "mvm": 2, "vdp": 2, "jacobi": 2, "conv1d": 2, "spmm": 2, "fft_radix": 2,
+                "fft_chirp": 0, "sort": 0, "sort_radix": 2, "hist": 2, "rmsnorm": 0,
                 "flash_attention": 0, "flash_attention_mma": 0, "fused": 0}
     if launches != expected:
         fail(f"launch counts {launches} != requests sent {expected}: a request "
@@ -910,7 +984,7 @@ def phase3(dev):
             "VDP": vdp_ref, "JS": jacobi_step_ref, "1DCONV": conv1d_ref,
             "SMMM": smmm_bell_ref, "FFT": fft_radix_ref, "SORT": sort_ref,
             "HIST": hist_ref}
-    kernel_of = {"MMM": "mmm", "MVM": "mvm", "VDP": "vdp", "JS": "jacobi",
+    kernel_of = {"MMM": "mmm_tf32x3", "MVM": "mvm", "VDP": "vdp", "JS": "jacobi",
                  "1DCONV": "conv1d", "SMMM": "spmm", "FFT": "fft_radix",
                  "SORT": "sort_radix", "HIST": "hist"}
     max_abs = {k: 0.0 for k in expected if k not in PATH_OF}
@@ -940,14 +1014,18 @@ def phase3(dev):
             else:
                 check_close(label, normwise(out, ref), torch.float32)
     # the other routes through the same host API, each request counted on
-    # its own: FFT at the non-power-of-two DFT_N (the DFT route), SORT of
-    # 4096 rows of 4096 (the tile route)
+    # its own: FFT at the non-power-of-two DFT_N (the chirp route), SORT of
+    # 4096 rows of 4096 (the tile route), MMM float32 at a K that TMA cannot
+    # stride (the tile route)
     gen2 = torch.Generator(device=dev).manual_seed(2)
+    tm, tk, tn = TILE_MMM
     requests = {
-        "dft": ("FFT", (torch.randn((SIZES["FFT"] // 2, DFT_N), generator=gen2,
-                                    device=dev),), "fft"),
+        "chirp": ("FFT", (torch.randn((SIZES["FFT"] // 2, DFT_N), generator=gen2,
+                                      device=dev),), "fft_chirp"),
         "sort_tile": ("SORT", (torch.randn((4096, 4096), generator=gen2, device=dev),),
                       "sort"),
+        "mmm_tile": ("MMM", (torch.randn((tm, tk), generator=gen2, device=dev),
+                             torch.randn((tk, tn), generator=gen2, device=dev)), "mmm"),
     }
     path_launches = {}
     for path, (alias, args, kname) in requests.items():
@@ -964,10 +1042,13 @@ def phase3(dev):
             fail(f"the {label} request launched {counts}, not one {kname}")
         if alias == "FFT":
             x, = args
-            ref = dft_ref(x)
+            ref = fft_chirp_ref(x)
             check_close(f"{label} vs plain", normwise(out, ref), torch.float32, FFT_TOL)
             check_close(f"{label} vs float64", normwise(
                 out, torch.fft.fft(x.double(), dim=-1)), torch.float32, FFT_TOL)
+        elif alias == "MMM":
+            ref = mmm_ref(*args)
+            check_close(f"{label} vs plain", normwise(out, ref), torch.float32)
         else:
             ref = sort_ref(*args)
             check_bits(label, out, ref)
@@ -1283,8 +1364,9 @@ def phase3b(dev):
     # where the bfloat16 gap comes from: the same weights widened to float32
     # on the kernels against the plain versions (F32_SERVE_TOL), and the
     # bfloat16 gap of the 512-token prefill against the depth kept.  The
-    # float32 prefill is the CUDA-core FLASH_ATTN route's path: its launches
-    # are counted over the kernels' replay alone
+    # float32 prefill is the path of FLASH_ATTN's CUDA-core route and of
+    # MMM's 3×TF32 route: their launches are counted over the kernels'
+    # replay alone
     prompt, toks = prompts[0], results[0][:4]
     wide32 = torch.utils._pytree.tree_map(lambda t: t.float(), params)
     m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
@@ -1295,15 +1377,15 @@ def phase3b(dev):
         served32, replay(m32, wide32, prompt, toks, max_len, plain))]
     del wide32, served32
     attn_f32 = {k: f32_launches[k] for k in ("flash_attention", "flash_attention_mma")}
-    mmm_f32 = {k: f32_launches[k] for k in ("mmm", "mmm_wgmma")}
+    mmm_f32 = {k: f32_launches[k] for k in ("mmm", "mmm_wgmma", "mmm_tf32x3")}
     print(f"  float32 replay on the kernels: FLASH_ATTN launches {attn_f32}, "
           f"prefill MMM launches {mmm_f32}")
     if attn_f32 != {"flash_attention": layers, "flash_attention_mma": 0}:
         fail(f"the float32 prefill launched FLASH_ATTN {attn_f32}, not {layers} "
              f"on the CUDA-core route")
-    if mmm_f32 != {"mmm": 7 * layers, "mmm_wgmma": 0}:
+    if mmm_f32 != {"mmm": 0, "mmm_wgmma": 0, "mmm_tf32x3": 7 * layers}:
         fail(f"the float32 prefill launched MMM {mmm_f32}, not {7 * layers} on the "
-             f"tile route")
+             f"3×TF32 route")
     print(f"  float32, same weights, {len(prompt)}-token prompt + {len(toks) - 1} "
           f"decode steps, kernels vs plain: {', '.join(f'{e:.2e}' for e in e32)} "
           f"(tol {F32_SERVE_TOL:g})")
@@ -1544,9 +1626,10 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     from repro_torch.kernels.ewise.ewise import ewise_hopper
     from repro_torch.kernels.ewise.ref import OP_ATEN
     from repro_torch.kernels.ewise.ref import OP_REFS as EW_REFS
-    from repro_torch.kernels.fft.fft import fft_hopper, fft_radix_hopper
-    from repro_torch.kernels.fft.ops import cached_radix_twiddles, cached_twiddles
-    from repro_torch.kernels.fft.ref import dft_ref, fft_aten, fft_radix_ref
+    from repro_torch.kernels.fft.fft import fft_chirp_hopper, fft_radix_hopper
+    from repro_torch.kernels.fft.ops import cached_chirp_tables, cached_radix_twiddles
+    from repro_torch.kernels.fft.ref import (chirp_length, fft_aten, fft_chirp_ref,
+                                             fft_radix_ref)
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_cuda_cores_hopper, flash_attention_mma_hopper)
     from repro_torch.kernels.flash_attention.ref import (attention_aten,
@@ -1555,8 +1638,8 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
     from repro_torch.kernels.jacobi.ref import jacobi_step_aten, jacobi_step_ref
     from repro_torch.kernels.matmul.matmul import (SKINNY_M_MAX, mmm_skinny_hopper,
-                                                   mmm_tile_hopper, mmm_wgmma_hopper,
-                                                   wgmma_tile_n)
+                                                   mmm_tf32x3_hopper, mmm_tile_hopper,
+                                                   mmm_wgmma_hopper, wgmma_tile_n)
     from repro_torch.kernels.matmul.ref import mmm_aten, mmm_ref
     from repro_torch.kernels.mvm.mvm import mvm_hopper
     from repro_torch.kernels.mvm.ref import mvm_aten, mvm_ref
@@ -1572,9 +1655,11 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     from repro_torch.kernels.vdp.vdp import vdp_hopper
 
     spec, (bw, f32_peak, bf16_peak) = peaks(card_name)
+    tf32_peak = TF32_PEAKS[spec]
     print(f"  bounds from the {spec} data sheet: {bw / 1e12} TB/s, "
           f"{f32_peak / 1e12} TFLOP/s float32 (all phase-3 inputs are float32), "
-          f"{bf16_peak / 1e12} TFLOP/s bfloat16 tensor cores (RMSNORM, FLASH_ATTN)")
+          f"{bf16_peak / 1e12} TFLOP/s bfloat16 tensor cores (RMSNORM, FLASH_ATTN), "
+          f"{tf32_peak / 1e12} TFLOP/s TF32 tensor cores (MMM's 3×TF32 route)")
 
     def ms(fn, *args):
         return time_fn(fn, *args, device=dev, warmup=3,
@@ -1621,7 +1706,16 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     a, b = jobs["MMM"]
     m, k = a.shape
     n = b.shape[1]
+    # the function's bound on the float32 CUDA cores, and the 3×TF32
+    # route's own: three products at the TF32 tensor-core peak
     mmm_bound = bound(4 * (m * k + k * n + m * n), 2 * m * n * k)
+    tf32_bound = bound(4 * (m * k + k * n + m * n), 3 * 2 * m * n * k, tf32_peak)
+    # the tile route at phase 3's lone request: K = 4094 off TMA's stride
+    gen9 = torch.Generator(device=dev).manual_seed(9)
+    tm, tk, tn = TILE_MMM
+    ta = torch.randn((tm, tk), generator=gen9, device=dev)
+    tb = torch.randn((tk, tn), generator=gen9, device=dev)
+    tile_bound = bound(4 * (tm * tk + tk * tn + tm * tn), 2 * tm * tn * tk)
     ea, eb = jobs["EWMM"]
     ne = ea.numel()
     ew_bound = bound(4 * 3 * ne, ne)
@@ -1660,31 +1754,37 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         and the 5/2·n·log2(n) operations of a real-input FFT per row."""
         return bound(4 * m_ * n_ + 8 * m_ * n_, 2.5 * m_ * n_ * math.log2(n_))
 
-    def dft_floor_of(m_, n_):
-        """The DFT-by-matmul algorithm's floor, not the function's: the
-        twiddles read once more and 4·m·n² operations."""
-        return bound(4 * m_ * n_ + 2 * 4 * n_ * n_ + 8 * m_ * n_, 4 * m_ * n_ * n_)
-
     fft_bound = fft_bound_of(f_m, f_n)
     dx = torch.randn((f_m, DFT_N), generator=torch.Generator(device=dev).manual_seed(6),
                      device=dev)
-    dft_bound = fft_bound_of(f_m, DFT_N)
-    for n_ in (f_n, DFT_N):
-        floor = dft_floor_of(f_m, n_)
-        print(f"  fft DFT-by-matmul floor at {f_m}x{n_} (4·m·n² operations): "
-              f"{floor[0]:.4f} ms ({floor[1]}); the bounds below are the transform's")
-    # the twiddles' first-call builds, timed apart from the kernels
+    chirp_bound = fft_bound_of(f_m, DFT_N)
+    # the tables' first-call builds, timed apart from the kernels
     for what, cache, n_ in (("radix table", cached_radix_twiddles, f_n),
-                            ("DFT matrices", cached_twiddles, DFT_N)):
+                            ("chirp tables", cached_chirp_tables, DFT_N)):
         cache.cache_clear()
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         cache(n_, dev)
         torch.cuda.synchronize(dev)
-        print(f"  fft twiddle build, {what} (first call, n={n_}, host clock): "
+        print(f"  fft table build, {what} (first call, n={n_}, host clock): "
               f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
     ftw = cached_radix_twiddles(f_n, dev)
-    fc, fs = cached_twiddles(DFT_N, dev)
+    ctab = cached_chirp_tables(DFT_N, dev)
+    # the chirp route over phase 2's lengths at f_m rows, by device time,
+    # beside cuFFT
+    chirp_sweep = {}
+    gen6 = torch.Generator(device=dev).manual_seed(6)
+    for n_ in CHIRP_N:
+        x_ = torch.randn((f_m, n_), generator=gen6, device=dev)
+        t_ = cached_chirp_tables(n_, dev)
+        chirp_sweep[str(n_)] = {"L": chirp_length(n_),
+                                "ms": device_ms(lambda: fft_chirp_hopper(x_, t_)),
+                                "library_ms": device_ms(lambda: fft_aten(x_)),
+                                "bound_ms": fft_bound_of(f_m, n_)[0]}
+    del x_
+    print(f"  fft chirp route at {f_m} rows, device ms (n (L): kernel / cuFFT / bound): "
+          + "; ".join(f"{n_} ({t['L']}): {t['ms']:.4f} / {t['library_ms']:.4f} / "
+                      f"{t['bound_ms']:.4f}" for n_, t in chirp_sweep.items()))
     sx, = jobs["SORT"]
     n_sort = sx.numel()
     # bytes: one read, one write; operations: the n·log2(n) comparisons no
@@ -1902,6 +2002,66 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
           f"ms, torch.matmul {wgmma_times['library_ms']:.1f} ms, bound "
           f"{wgmma_bound[0]:.1f} ms")
 
+    # the 3×TF32 route by device time: at the template's 4096³, the split
+    # pass and the product apart (mean device ms per launch of each kernel,
+    # torch.profiler), and at the float32 replay's four 512-row prefill
+    # projections (each call on the next of enough copies of B that the L2
+    # holds none of them), beside torch.matmul with TF32 off
+    def tf32x3_parts(fn):
+        """Device ms per call of the split pass and of the product."""
+        fn()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TIMED_RUNS):
+                fn()
+            torch.cuda.synchronize(dev)
+        parts = {"split_ms": 0.0, "product_ms": 0.0}
+        for e in prof.key_averages():
+            key = "split_ms" if "tf32_split" in e.key else (
+                "product_ms" if "Tf32x3" in e.key else None)
+            if key and e.count:
+                parts[key] += device_seconds_of(e) * 1e3 / e.count
+        return parts
+
+    tf32_times = model_row(lambda: mmm_tf32x3_hopper(a, b), lambda: mmm_ref(a, b),
+                           lambda: mmm_aten(a, b))
+    tf32_times.update(tf32x3_parts(lambda: mmm_tf32x3_hopper(a, b)))
+    exact = a.double() @ b.double()
+    tf32_times["err_vs_float64"] = normwise(mmm_tf32x3_hopper(a, b), exact)
+    tf32_times["library_err_vs_float64"] = normwise(mmm_aten(a, b), exact)
+    del exact
+    tf32_times.update(bound_float32_ms=mmm_bound[0], bound_float32_by=mmm_bound[1])
+    print(f"  mmm_tf32x3 {m}x{k}@{k}x{n} float32: kernel_ms {tf32_times['ms']:.4f} (split "
+          f"{tf32_times['split_ms']:.4f} + product {tf32_times['product_ms']:.4f})  "
+          f"torch.matmul {tf32_times['library_ms']:.4f}  bound {tf32_bound[0]:.4f} "
+          f"(three TF32 products), {mmm_bound[0]:.4f} (float32 CUDA cores); normwise "
+          f"error vs float64 {tf32_times['err_vs_float64']:.3e}, torch.matmul "
+          f"{tf32_times['library_err_vs_float64']:.3e}")
+    f32_prefill = []
+    m_ = SERVE["prompt_lens"][0]
+    for (kk, nn), per_prefill in prefill_projections(cfg).items():
+        am = torch.randn((m_, kk), generator=gen7, device=dev)
+        bs = [torch.randn((kk, nn), generator=gen7, device=dev) * kk ** -0.5
+              for _ in range(max(2, math.ceil(L2_COLD_BYTES / (4 * kk * nn))))]
+        args = [(am, b_) for b_ in bs]
+        row = {"shape": f"{m_}x{kk}@{kk}x{nn} float32", "launches_per_replay": per_prefill,
+               "ms": device_ms(cycling(mmm_tf32x3_hopper, args)),
+               "library_ms": device_ms(cycling(mmm_aten, args)),
+               "bound_ms": 3 * 2 * m_ * kk * nn / tf32_peak * 1e3, "copies_of_b": len(bs)}
+        row.update(tf32x3_parts(cycling(mmm_tf32x3_hopper, args)))
+        f32_prefill.append(row)
+        print(f"  mmm_tf32x3 {row['shape']:26s} kernel_ms {row['ms']:.4f} (split "
+              f"{row['split_ms']:.4f} + product {row['product_ms']:.4f})  torch.matmul "
+              f"{row['library_ms']:.4f}  bound_ms {row['bound_ms']:.4f}  {per_prefill} per "
+              f"float32 prefill")
+        del am, bs, args
+    replay_ms = {k: sum(r[k] * r["launches_per_replay"] for r in f32_prefill)
+                 for k in ("ms", "library_ms", "bound_ms")}
+    tf32_times.update(per_shape=f32_prefill, float32_prefill=replay_ms)
+    print(f"  mmm_tf32x3, the float32 replay's prefill "
+          f"({sum(r['launches_per_replay'] for r in f32_prefill)} MMMs): kernel "
+          f"{replay_ms['ms']:.2f} ms, torch.matmul {replay_ms['library_ms']:.2f} ms, bound "
+          f"{replay_ms['bound_ms']:.2f} ms")
+
     # the crossover of the routes by device time, at the gate/up projection
     # and at the unembed (the widest): it set SKINNY_M_MAX
     crossover = {}
@@ -1954,9 +2114,14 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
                       "plain_ms": ms(EW_REFS[op], ea, eb),
                       "library_ms": ms(OP_ATEN[op], ea, eb)}
     rows = [
-        ("mmm", {"ms": ms(mmm_tile_hopper, a, b), "plain_ms": ms(mmm_ref, a, b),
-                 "library_ms": ms(mmm_aten, a, b)}, mmm_bound,
-         f"{m}x{k}@{k}x{n} float32, tile route"),
+        ("mmm", {"ms": ms(mmm_tile_hopper, ta, tb), "plain_ms": ms(mmm_ref, ta, tb),
+                 "library_ms": ms(mmm_aten, ta, tb)}, tile_bound,
+         f"{tm}x{tk}@{tk}x{tn} float32, tile route (library: torch.matmul, TF32 off)"),
+        # device time (events under "event_ms"); bound: the three TF32
+        # products (the float32 CUDA-core bound under "bound_float32_ms")
+        ("mmm_tf32x3", tf32_times, tf32_bound,
+         f"{m}x{k}@{k}x{n} float32, 3×TF32 route, device time of the split pass and "
+         f"the product (library: torch.matmul, TF32 off)"),
         # device time of one decode pass's MMMs: Σ per shape of device ms ×
         # launches per pass (per_shape below); launches from phase 3b
         ("mmm_skinny", skinny_times, skinny_bound,
@@ -1991,9 +2156,11 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         ("fft_radix", model_row(lambda: fft_radix_hopper(fx, ftw),
                                 lambda: fft_radix_ref(fx, ftw), lambda: fft_aten(fx)),
          fft_bound, f"{f_m}x{f_n} float32, radix route, device time (library: cuFFT)"),
-        ("fft", {"ms": ms(fft_hopper, dx, fc, fs), "plain_ms": ms(dft_ref, dx, fc, fs),
-                 "library_ms": ms(fft_aten, dx)}, dft_bound,
-         f"{f_m}x{DFT_N} float32, DFT route (library: cuFFT)"),
+        ("fft_chirp", {**model_row(lambda: fft_chirp_hopper(dx, ctab),
+                                   lambda: fft_chirp_ref(dx, ctab), lambda: fft_aten(dx)),
+                       "sweep": chirp_sweep}, chirp_bound,
+         f"{f_m}x{DFT_N} float32, chirp route (L = {chirp_length(DFT_N)}), device time "
+         f"(library: cuFFT)"),
         # the library call also returns the permutation; the plain version
         # makes every NaN positive, then keeps the values of one torch.sort.
         # Events, not the profiler: the radix route launches 4 of its
@@ -2042,20 +2209,22 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         # each kernel's launches in the run of the path it serves (PATH_OF):
         # phase 3 for the quickstart's, 3b for the model path's, 3c for the
         # fused chain, 3b's float32 replay for the CUDA-core FLASH_ATTN,
-        # phase 3's requests counted alone for the DFT route and the tile SORT
+        # phase 3's requests counted alone for the chirp FFT, the tile SORT
+        # and the tile MMM
         n_launches = {"serve": serve_launches, "graph": graph_launches,
                       **path_launches}.get(PATH_OF.get(name), launches)[name]
         if not n_launches:
             fail(f"{name} was launched no time on its path")
         entry = {"name": name, "route": "cuda",
-                 "source": f"src/repro_torch/csrc/{name}.cu",
+                 "source": f"src/repro_torch/csrc/{SOURCE_OF.get(name, name)}.cu",
                  "replaces": REPLACES[name], "launches": n_launches,
                  "max_abs_err": max_abs[name], **times, "bound_ms": bound_ms,
                  "bound_by": bound_by, "shape": shape}
         if name == "ewise":
             entry["per_op"] = per_op
-        if name == "mmm":
-            entry["launches_float32_replay"] = path_launches["serve_float32"]["mmm"]
+        if name == "mmm_tf32x3":
+            entry["launches_float32_replay"] = \
+                path_launches["serve_float32"]["mmm_tf32x3"]
         if name == "fused":
             print(f"  fused: four serial EW launches {times['serial_ewise_ms']:.4f} ms")
         if name.startswith("flash_attention"):

@@ -4,8 +4,8 @@
 //
 // Replaces src/repro/kernels/fft/fft.py::fft_pallas (_fft_kernel), the
 // reference's O(n^2) DFT as two products against n x n twiddle matrices,
-// for the transform sizes that are powers of two (csrc/fft.cu keeps that
-// algorithm for the others).
+// for the transform sizes that are powers of two (csrc/fft_chirp.cu takes
+// the others).
 //
 // Bound on the H100: bytes.  The transform reads x once and writes the
 // complex output once, 96 MB at M = 2048, n = 4096 float32, 0.030 ms at
@@ -22,7 +22,8 @@
 // with 16-byte loads (scalar where x is off the 16-byte grid), and each
 // thread writes X[k] and X[k+h] for its k, neighbouring threads on
 // neighbouring k.  The h-point FFT is a Stockham (self-sorting) one in
-// place: with p the length of the sub-transforms done so far, a radix-2
+// place (the stages of fft_stockham.cuh, shared with fft_chirp.cu): with p
+// the length of the sub-transforms done so far, a radix-2
 // stage first when log2(h) is odd, then radix-4 stages; stage R reads
 // u_r = buf[i + r*h/R] for each of its h/R butterflies i, multiplies u_r
 // by w_h^(r*k*h/(R*p)) with k = i mod p, takes the R-point DFT and writes
@@ -34,66 +35,12 @@
 // (kernels/fft/ref.py, radix_twiddles); the kernel computes no sine or
 // cosine.
 #include "common.cuh"
+#include "fft_stockham.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxN = 4096;
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
-  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
-}
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
-}
-
-// One radix-R stage over a row of len values at buf, by the row's tpr
-// threads (this one is t), len/R >= tpr and at most 4 butterflies each.
-// The twiddle table holds nt values, nt a multiple of len: the stage's
-// twiddle w_len^(r*k*len/(R*p)) is entry r*k*nt/(R*p).
-template <int R>
-__device__ __forceinline__ void stage(float2* buf, const float2* __restrict__ tw, int len,
-                                      int nt, int t, int tpr, int p) {
-  const int nb = len / R;
-  const int nq = nb / tpr;
-  const int step = nt / (R * p);
-  float2 u[4][R];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    if (q < nq) {
-      const int i = t + q * tpr;
-#pragma unroll
-      for (int r = 0; r < R; ++r) u[q][r] = buf[i + r * nb];
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    if (q < nq) {
-      const int i = t + q * tpr;
-      const int k = i & (p - 1);
-#pragma unroll
-      for (int r = 1; r < R; ++r) u[q][r] = cmul(u[q][r], __ldg(tw + r * k * step));
-      const int j = (i - k) * R + k;
-      if constexpr (R == 2) {
-        buf[j] = cadd(u[q][0], u[q][1]);
-        buf[j + p] = csub(u[q][0], u[q][1]);
-      } else {
-        const float2 a0 = cadd(u[q][0], u[q][2]), a1 = csub(u[q][0], u[q][2]);
-        const float2 a2 = cadd(u[q][1], u[q][3]), a3 = csub(u[q][1], u[q][3]);
-        // -i * a3 = (a3.y, -a3.x)
-        buf[j] = cadd(a0, a2);
-        buf[j + p] = make_float2(a1.x + a3.y, a1.y - a3.x);
-        buf[j + 2 * p] = csub(a0, a2);
-        buf[j + 3 * p] = make_float2(a1.x - a3.y, a1.y + a3.x);
-      }
-    }
-  }
-  __syncthreads();
-}
 
 // Threads per row of h complex values: one radix-4 butterfly each below
 // h = 1024, 256 from there (1 to 4 butterflies each).
@@ -141,12 +88,7 @@ fft_radix_kernel(const T* __restrict__ x, const float2* __restrict__ tw,
   const int t = threadIdx.x % tpr;
   const int rl = threadIdx.x / tpr;
   float2* row = buf + rl * h;
-  int p = 1;
-  if (log2h & 1) {
-    stage<2>(row, tw, h, n, t, tpr, p);
-    p = 2;
-  }
-  for (; p < h; p *= 4) stage<4>(row, tw, h, n, t, tpr, p);
+  halo::stockham<4, 4>(row, tw, h, log2h, n, t, tpr);
 
   // X[k] = E[k] + w^k O[k] and X[k+h] = E[k] - w^k O[k], with
   // E = (Z[k] + conj(Z[h-k])) / 2 and O = -i (Z[k] - conj(Z[h-k])) / 2
@@ -156,9 +98,9 @@ fft_radix_kernel(const T* __restrict__ x, const float2* __restrict__ tw,
       const float2 zk = row[k], zm = row[(h - k) & (h - 1)];
       const float2 e = make_float2((zk.x + zm.x) * 0.5f, (zk.y - zm.y) * 0.5f);
       const float2 od = make_float2((zk.y + zm.y) * 0.5f, (zm.x - zk.x) * 0.5f);
-      const float2 wo = cmul(od, __ldg(tw + k));
-      o[k] = cadd(e, wo);
-      o[k + h] = csub(e, wo);
+      const float2 wo = halo::cmul(od, __ldg(tw + k));
+      o[k] = halo::cadd(e, wo);
+      o[k + h] = halo::csub(e, wo);
     }
   }
 }

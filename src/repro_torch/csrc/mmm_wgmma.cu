@@ -1,59 +1,78 @@
-// MMM, tensor-core route: C(M,N) = A(M,K) @ B(K,N), row-major, bfloat16 or
-// float16 operands, float32 accumulator, output in the input type.  K and N
-// must be positive multiples of 8 and A, B, C 16-byte aligned: the Tensor
-// Memory Accelerator's stride and address rules.  The route (mmm_route in
-// kernels/matmul/matmul.py) is a pure function of type, shape and
-// alignment: M <= 64 (SKINNY_M_MAX) in every type goes to mmm_skinny.cu,
-// 16-bit operands above it that meet those rules come here (a prefill's
-// projections), and everything else, float32 included, to mmm.cu.
+// MMM, tensor-core routes: C(M,N) = A(M,K) @ B(K,N), row-major, float32
+// accumulator, output in the input type, for bfloat16 and float16 operands
+// (the wgmma route) and for float32 by 3xTF32 (the tf32x3 route).  The
+// routes (mmm_route in kernels/matmul/matmul.py) are pure functions of
+// type, shape and alignment: M <= 64 (SKINNY_M_MAX) in every type goes to
+// mmm_skinny.cu; above it 16-bit operands with K and N multiples of 8 and
+// float32 with K and N multiples of 4, A and B 16-byte aligned in both
+// (the Tensor Memory Accelerator's stride and address rules), come here;
+// everything else to mmm.cu.
 //
 // Replaces src/repro/kernels/matmul/matmul.py::mmm_pallas (_mmm_kernel),
 // which walks (bm, bn) output tiles with K innermost on the TPU's MXU:
-// 16-bit products into a float32 VMEM accumulator
+// products into a float32 VMEM accumulator
 // (preferred_element_type=float32), rounded to the input type at the last
 // K step.  That is what the H100's tensor cores do.
 //
 // Bound on the H100: operations.  A danube prefill projection of 4200
 // tokens (4200x2560 @ 2560x6912) does 2*M*N*K = 149 GFLOP, 0.150 ms at the
 // 989 TFLOP/s of the bfloat16 tensor cores, against 114 MB of operands and
-// result (0.034 ms at 3.35 TB/s).  mmm.cu widens every element to float32
-// and multiplies on the CUDA cores (67 TFLOP/s): 2.2 ms at least.
+// result (0.034 ms at 3.35 TB/s).  float32 at 4096^3: the three TF32
+// products, 3*2*M*N*K = 412 GFLOP, take 0.833 ms at the 495 TFLOP/s of the
+// TF32 tensor cores; the function's own bound on the float32 CUDA cores
+// (2*M*N*K at 67 TFLOP/s) is 2.0513 ms, which mmm.cu and torch.matmul
+// (TF32 off) are held to.
 //
 // Design (Hopper's warp-specialised GEMM, simple first): one 288-thread
-// block per 128 x BN output tile, BN = 128 or 256, not persistent.  One
-// producer warp (its lane 0) streams 128x64 tiles of A and 64xBN tiles of
-// B into a ring of 4 shared-memory stages (32 KB each at BN = 128, 48 KB
-// at 256) with TMA (cp.async.bulk.tensor.2d), each stage guarded by a
-// "full" mbarrier (transaction bytes) and an "empty" one (one arrival per
-// consumer warp).  Both operands are loaded with the 128-byte swizzle: A is
-// K-major, its 128-byte rows one box of 64 x 128; B stays row-major
-// (N-major) as it lies in memory, in boxes of 64 columns, and wgmma reads
-// it through its transpose bit, so nothing copies or transposes B.  Two
-// consumer warpgroups each own 64 rows of the tile and run
-// wgmma.mma_async m64nBNk16 (float32 accumulators, BN/2 registers a thread)
-// four times per stage, the descriptors advanced 32 bytes (A) or 16 rows
-// (B) per K step of 16; a stage goes back to the producer once the next
-// stage's group is issued and wgmma.wait_group 1 shows the stage's own
-// group done.  No setmaxnreg: with one 288-thread block per SM each thread
-// may hold up to 224 registers, more than the 128 accumulators of a
-// 128x256 tile and their addressing need, so there is nothing to move.
+// block per 128 x BN output tile, not persistent.  One producer warp (its
+// lane 0) streams boxes into a ring of shared-memory stages with TMA
+// (cp.async.bulk.tensor.2d), each stage guarded by a "full" mbarrier
+// (transaction bytes) and an "empty" one (one arrival per consumer warp);
+// every box is loaded with the 128-byte swizzle.  Two consumer warpgroups
+// each own 64 rows of the tile and run wgmma.mma_async on each stage; a
+// stage goes back to the producer once the next stage's group is issued
+// and wgmma.wait_group 1 shows the stage's own group done.  The ring is
+// one kernel template; what a stage holds and how it is multiplied is its
+// type argument:
+// - 16-bit (Half16): BN = 128 or 256, 4 stages (32 KB each at BN = 128,
+//   48 KB at 256).  A K-major in 128 x 64 boxes; B stays row-major
+//   (N-major) as it lies in memory, in boxes of 64 columns, and wgmma
+//   reads it through its transpose bit, so nothing copies or transposes B.
+//   m64nBNk16 four times per stage, float32 accumulators (BN/2 registers a
+//   thread).  No setmaxnreg: with one 288-thread block per SM each thread
+//   may hold up to 224 registers, more than the 128 accumulators of a
+//   128x256 tile and their addressing need.  Tile width (wgmma_tile_n in
+//   matmul.py, an exact rule, no tuned constant): the width at which an
+//   SM computes the fewer columns over the waves of tiles on the card's
+//   SMs (read from the device), waves x the tile's width, so a wide tile's
+//   padding past N counts in full; on a tie the wider tile, which reads
+//   each A tile from shared memory once per 256 columns rather than twice.
+//   Sums run over K in the same order at either width.
+// - float32 (Tf32x3): one split pass first (tf32_split_kernel) writes hi =
+//   tf32(x) and lo = tf32(x - hi), rounded to nearest with ties away from
+//   zero (cvt.rna.tf32.f32), of A as [A_hi; A_lo] and of B transposed as
+//   [B_hi^T; B_lo^T] into a workspace the wrapper allocates (at 4096^3 it
+//   moves ~400 MB, ~0.12 ms): TF32 wgmma takes both operands K-major and
+//   has no transpose bit for 32-bit types.  Then BN = 128, 3 stages of four
+//   128 x 32 boxes (A_hi, A_lo, B_hi^T, B_lo^T: 64 KB), and m64n128k8
+//   lo*hi, hi*lo, hi*hi per K step of 8 into the same float32
+//   accumulators, the small terms first.  What is left out, lo*lo and the
+//   rounding of lo, is about 2^-21 of each product: float32's own range.
+//   The tensor cores' accumulator does not round to nearest, so each stage
+//   (K = 32) sums into a fresh one that the CUDA cores add to the tile's
+//   float32 sums after wgmma.wait_group 0, which gives up the overlap of
+//   one stage's products with the next one's.  One tile width, no rule.
 //
-// Tile width (wgmma_tile_n in matmul.py, an exact rule, no tuned
-// constant): the width at which an SM computes the fewer columns over the
-// waves of tiles on the card's SMs (read from the device), waves x the
-// tile's width, so a wide tile's padding past N counts in full; on a tie
-// the wider tile, which reads each A tile from shared memory once per 256
-// columns rather than twice.  Sums run over K in the same order at either
-// width, so the bits do not depend on it.
-//
-// The epilogue rounds the accumulators to the input type and stores pairs
+// The epilogue rounds the accumulators to the output type and stores pairs
 // of values straight from registers, masked at M and N.  TMA zero-fills
 // reads past M, N and K, so a ragged edge needs no load masks: danube's
-// 4200 rows are 32 full row tiles and 104 rows.  The tensor maps are built
-// on each call (cuTensorMapEncodeTiled, reached through
+// 4200 rows are 32 full row tiles and 104 rows.  (In the float32 route a
+// hi box's rows past M or N read lo rows instead, which only reach output
+// rows and columns that are never stored.)  The tensor maps are built on
+// each call (cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint, so the link needs no -lcuda) and passed as
 // __grid_constant__ parameters.  Sums run over K in another order than
-// mmm.cu's, so the two agree within tolerance, not bit for bit.
+// mmm.cu's, so the routes agree within tolerance, not bit for bit.
 // Persistent blocks (one tile's epilogue under the next one's loads) and a
 // TMA-store epilogue are later work.
 #include <cuda.h>
@@ -64,23 +83,10 @@
 
 namespace {
 
-constexpr int kBM = 128, kBK = 64;
+constexpr int kBM = 128;
 constexpr int kConsumerThreads = 256;                 // two warpgroups
 constexpr int kThreads = kConsumerThreads + 32;        // and one producer warp
 constexpr int kConsumerWarps = kConsumerThreads / 32;
-constexpr uint32_t kABytes = kBM * kBK * 2;            // 16 KB: 128 rows of 128 B
-constexpr uint32_t kBBoxBytes = kBK * 64 * 2;           // 8 KB: 64 K rows of 64 columns
-
-constexpr int kStages = 4;                              // the ring
-
-// Geometry of a 128 x BN output tile: accumulators per consumer thread,
-// the bytes of one stage and the dynamic shared memory (1 KB of alignment
-// slack, the stages, a full and an empty barrier per stage).
-template <int BN> struct Tile {
-  static constexpr int kAcc = BN / 2;
-  static constexpr uint32_t kStageBytes = kABytes + (BN / 64) * kBBoxBytes;
-  static constexpr size_t kSmem = 1024 + (size_t)kStages * kStageBytes + 16 * kStages;
-};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -257,6 +263,22 @@ template <> struct Wgmma<__half, 256> {
   }
 };
 
+// d(64x128, float32) += A(64x8, K-major) @ B(8x128, K-major), tf32
+// operands from shared memory through their descriptors (tf32 has no
+// transpose bit: both operands are K-major).
+// accumulate = 0 writes d = A @ B, ignoring what d held.
+struct WgmmaTf32 {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " HALO_WGMMA_REGS64
+        ", %64, %65, p, 1, 1;\n}\n"
+        : HALO_WGMMA_D64
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
 template <typename T> struct Pair;
 template <> struct Pair<__nv_bfloat16> {
   using type = __nv_bfloat162;
@@ -271,20 +293,106 @@ template <> struct Pair<__half> {
   }
 };
 
-template <typename T, int BN>
+// 16-bit operands (T bfloat16 or float16) into a 128 x BN tile: a stage
+// holds A's 128 x 64 box (K-major, 128-byte rows) and BN/64 boxes of B of
+// 64 K rows x 64 columns, N-major as B lies in memory, read through
+// wgmma's transpose bit; a ring of 4 stages.
+template <typename T, int BN> struct Half16 {
+  using Out = T;
+  static constexpr int kBN = BN, kBK = 64, kStages = 4, kAcc = BN / 2;
+  static constexpr bool kPerStageSums = false;
+  static constexpr uint32_t kABytes = kBM * kBK * 2;    // 16 KB: 128 rows of 128 B
+  static constexpr uint32_t kBBoxBytes = kBK * 64 * 2;  // 8 KB: 64 K rows of 64 columns
+  static constexpr uint32_t kStageBytes = kABytes + (BN / 64) * kBBoxBytes;
+
+  static __device__ __forceinline__ void load(uint32_t stage, const CUtensorMap* map_a,
+                                              const CUtensorMap* map_b, uint32_t full, int kt,
+                                              int m0, int n0, int, int) {
+    tma_load_2d(stage, map_a, full, kt * kBK, m0);
+#pragma unroll
+    for (int h = 0; h < BN / 64; ++h)
+      tma_load_2d(stage + kABytes + h * kBBoxBytes, map_b, full, n0 + 64 * h, kt * kBK);
+  }
+
+  // A: K-major rows of 128 B, 8-row atoms 1024 B apart (the leading
+  // offset is unused); B: N-major, boxes of 64 columns 8 KB apart, 8-row
+  // K groups 1024 B apart; descriptors advanced 32 bytes (A) or 16 rows
+  // (B) per K step of 16
+  static __device__ __forceinline__ void mma(float (&d)[kAcc], uint32_t stage, int wg) {
+    const uint32_t sa = stage + wg * 64 * 128, sb = stage + kABytes;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      Wgmma<T, BN>::run(d, desc_sw128(sa + kk * 32, 16, 1024),
+                        desc_sw128(sb + kk * 16 * 128, kBBoxBytes, 1024));
+  }
+
+  static __device__ __forceinline__ void store(T* p, float x, float y) {
+    *reinterpret_cast<typename Pair<T>::type*>(p) = Pair<T>::make(x, y);
+  }
+};
+
+// float32 by 3xTF32 into a 128 x 128 tile: the operands come split, A as
+// [A_hi; A_lo] (2M x K) and B transposed as [B_hi^T; B_lo^T] (2N x K), all
+// K-major, and a stage holds four 128 x 32 boxes (128-byte rows), A_hi,
+// A_lo, B_hi^T and B_lo^T, 64 KB; a ring of 3 stages.  Each K step of 8
+// issues lo*hi, then hi*lo, then hi*hi into the same accumulators.
+struct Tf32x3 {
+  using Out = float;
+  static constexpr int kBN = 128, kBK = 32, kStages = 3, kAcc = 64;
+  static constexpr bool kPerStageSums = true;
+  static constexpr uint32_t kBoxBytes = kBM * kBK * 4;  // 16 KB: 128 rows of 128 B
+  static constexpr uint32_t kStageBytes = 4 * kBoxBytes;
+
+  static __device__ __forceinline__ void load(uint32_t stage, const CUtensorMap* map_a,
+                                              const CUtensorMap* map_b, uint32_t full, int kt,
+                                              int m0, int n0, int M, int N) {
+    tma_load_2d(stage, map_a, full, kt * kBK, m0);
+    tma_load_2d(stage + kBoxBytes, map_a, full, kt * kBK, M + m0);
+    tma_load_2d(stage + 2 * kBoxBytes, map_b, full, kt * kBK, n0);
+    tma_load_2d(stage + 3 * kBoxBytes, map_b, full, kt * kBK, N + n0);
+  }
+
+  // every operand K-major: rows of 128 B, 8-row atoms 1024 B apart,
+  // descriptors advanced 32 bytes per K step of 8; d = the stage's sum
+  // (its first product overwrites d)
+  static __device__ __forceinline__ void mma(float (&d)[kAcc], uint32_t stage, int wg) {
+    const uint32_t a_hi = stage + wg * 64 * 128, a_lo = a_hi + kBoxBytes;
+    const uint32_t b_hi = stage + 2 * kBoxBytes, b_lo = b_hi + kBoxBytes;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk) {
+      const uint32_t off = kk * 32;
+      WgmmaTf32::run(d, desc_sw128(a_lo + off, 16, 1024), desc_sw128(b_hi + off, 16, 1024),
+                     kk > 0);
+      WgmmaTf32::run(d, desc_sw128(a_hi + off, 16, 1024), desc_sw128(b_lo + off, 16, 1024), 1);
+      WgmmaTf32::run(d, desc_sw128(a_hi + off, 16, 1024), desc_sw128(b_hi + off, 16, 1024), 1);
+    }
+  }
+
+  static __device__ __forceinline__ void store(float* p, float x, float y) {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  }
+};
+
+// Dynamic shared memory of a tile: 1 KB of alignment slack, the stages, a
+// full and an empty barrier per stage.
+template <class S> constexpr size_t smem_bytes() {
+  return 1024 + (size_t)S::kStages * S::kStageBytes + 16 * S::kStages;
+}
+
+template <class S>
 __global__ void __launch_bounds__(kThreads, 1)
 mmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
-                 const __grid_constant__ CUtensorMap map_b, T* __restrict__ C, int M,
-                 int N, int K) {
+                 const __grid_constant__ CUtensorMap map_b, typename S::Out* __restrict__ C,
+                 int M, int N, int K) {
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the stages to it
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  using G = Tile<BN>;
-  constexpr uint32_t kStageBytes = G::kStageBytes;
+  constexpr int kStages = S::kStages;
+  constexpr uint32_t kStageBytes = S::kStageBytes;
   const uint32_t bars = base + kStages * kStageBytes;  // full[s], then empty[s]
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
-  const int ktiles = (K + kBK - 1) / kBK;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * S::kBN;
+  const int ktiles = (K + S::kBK - 1) / S::kBK;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -302,12 +410,8 @@ mmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
         const int s = kt % kStages;
         if (kt >= kStages) mbar_wait(bars + 8 * (kStages + s), ((kt / kStages) + 1) & 1);
         const uint32_t full = bars + 8 * s;
-        const uint32_t sa = base + s * kStageBytes, sb = sa + kABytes;
         mbar_expect_tx(full, kStageBytes);
-        tma_load_2d(sa, &map_a, full, kt * kBK, m0);
-#pragma unroll
-        for (int h = 0; h < BN / 64; ++h)
-          tma_load_2d(sb + h * kBBoxBytes, &map_b, full, n0 + 64 * h, kt * kBK);
+        S::load(base + s * kStageBytes, &map_a, &map_b, full, kt, m0, n0, M, N);
       }
     }
     return;
@@ -315,45 +419,101 @@ mmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
 
   const int wg = threadIdx.x / 128;  // consumer warpgroup: rows wg*64 .. +63
   const int lane = threadIdx.x % 32;
-  float d[G::kAcc];
+  float d[S::kAcc];
 #pragma unroll
-  for (int i = 0; i < G::kAcc; ++i) d[i] = 0.f;
+  for (int i = 0; i < S::kAcc; ++i) d[i] = 0.f;
   fence_acc(d);
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int s = kt % kStages;
-    mbar_wait(bars + 8 * s, (kt / kStages) & 1);
-    const uint32_t stage = base + s * kStageBytes;
-    const uint32_t sa = stage + wg * 64 * 128, sb = stage + kABytes;
-    wgmma_fence();
+  if constexpr (S::kPerStageSums) {
+    // the tensor cores do not round their accumulator to nearest: one
+    // accumulator over K = 4096 erred by ~3e-5 normwise on an H100, past
+    // float32's 1e-5.  Each stage's products are summed in a fresh one,
+    // which the CUDA cores then add to d, rounding to nearest (~3e-7)
+    float part[S::kAcc];
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      // A: K-major rows of 128 B, 8-row atoms 1024 B apart (the leading
-      // offset is unused); B: N-major, boxes of 64 columns 8 KB apart,
-      // 8-row K groups 1024 B apart
-      Wgmma<T, BN>::run(d, desc_sw128(sa + kk * 32, 16, 1024),
-                        desc_sw128(sb + kk * 16 * 128, kBBoxBytes, 1024));
+    for (int i = 0; i < S::kAcc; ++i) part[i] = 0.f;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(bars + 8 * s, (kt / kStages) & 1);
+      wgmma_fence();
+      S::mma(part, base + s * kStageBytes, wg);
+      wgmma_commit();
+      wgmma_wait<0>();  // this stage's group is done: hand it back
+      fence_acc(part);
+      if (lane == 0) mbar_arrive(bars + 8 * (kStages + s));
+#pragma unroll
+      for (int i = 0; i < S::kAcc; ++i) d[i] += part[i];
     }
-    wgmma_commit();
-    wgmma_wait<1>();  // the previous stage's group is done: hand it back
-    if (kt > 0 && lane == 0) mbar_arrive(bars + 8 * (kStages + (kt - 1) % kStages));
+  } else {
+    for (int kt = 0; kt < ktiles; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(bars + 8 * s, (kt / kStages) & 1);
+      wgmma_fence();
+      S::mma(d, base + s * kStageBytes, wg);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's group is done: hand it back
+      if (kt > 0 && lane == 0) mbar_arrive(bars + 8 * (kStages + (kt - 1) % kStages));
+    }
+    wgmma_wait<0>();
+    fence_acc(d);
   }
-  wgmma_wait<0>();
-  fence_acc(d);
 
   // d[4j + 2h + v]: row warp*16 + lane/4 + 8h, column 8j + 2*(lane%4) + v
   const int warp = (threadIdx.x % 128) / 32;
   const int r0 = m0 + wg * 64 + warp * 16 + lane / 4;
-  using P = Pair<T>;
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
+  for (int j = 0; j < S::kBN / 8; ++j) {
     const int c = n0 + j * 8 + 2 * (lane % 4);
     if (c >= N) continue;
-    if (r0 < M)
-      *reinterpret_cast<typename P::type*>(C + (size_t)r0 * N + c) =
-          P::make(d[4 * j], d[4 * j + 1]);
-    if (r0 + 8 < M)
-      *reinterpret_cast<typename P::type*>(C + (size_t)(r0 + 8) * N + c) =
-          P::make(d[4 * j + 2], d[4 * j + 3]);
+    if (r0 < M) S::store(C + (size_t)r0 * N + c, d[4 * j], d[4 * j + 1]);
+    if (r0 + 8 < M) S::store(C + (size_t)(r0 + 8) * N + c, d[4 * j + 2], d[4 * j + 3]);
+  }
+}
+
+// x rounded to tf32 to nearest, ties away from zero: the low 13 bits of
+// the float32 pattern cleared.
+__device__ __forceinline__ float to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// The 3xTF32 route's split pass: hi = tf32(x) and lo = tf32(x - hi) (x -
+// hi is exact in float32) for every element of A (M x K) into ws_a =
+// [A_hi; A_lo] (2M x K), and of B (K x N), transposed through a shared
+// tile so that reads and writes both coalesce, into ws_b = [B_hi^T;
+// B_lo^T] (2N x K).  One 32 x 32 tile per 256-thread block, the first
+// tiles_a blocks on A.
+__global__ void __launch_bounds__(256)
+tf32_split_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                  float* __restrict__ ws_a, float* __restrict__ ws_b, int M, int N, int K,
+                  int tiles_a) {
+  __shared__ float tile[32][33];
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const int kx = (K + 31) / 32;
+  if (static_cast<int>(blockIdx.x) < tiles_a) {
+    const size_t mk = (size_t)M * K;
+    const int r0 = blockIdx.x / kx * 32, c = blockIdx.x % kx * 32 + tx;
+    for (int i = ty; i < 32 && c < K; i += 8) {
+      if (r0 + i >= M) break;
+      const size_t at = (size_t)(r0 + i) * K + c;
+      const float x = A[at], hi = to_tf32(x);
+      ws_a[at] = hi;
+      ws_a[mk + at] = to_tf32(x - hi);
+    }
+    return;
+  }
+  const size_t nk = (size_t)N * K;
+  const int b = blockIdx.x - tiles_a, nx = (N + 31) / 32;
+  const int k0 = b / nx * 32, n0 = b % nx * 32;
+  for (int i = ty; i < 32; i += 8)
+    tile[i][tx] = k0 + i < K && n0 + tx < N ? B[(size_t)(k0 + i) * N + n0 + tx] : 0.f;
+  __syncthreads();
+  for (int i = ty; i < 32; i += 8) {
+    if (n0 + i >= N || k0 + tx >= K) continue;
+    const size_t at = (size_t)(n0 + i) * K + k0 + tx;
+    const float x = tile[tx][i], hi = to_tf32(x);
+    ws_b[at] = hi;
+    ws_b[nk + at] = to_tf32(x - hi);
   }
 }
 
@@ -383,13 +543,14 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of a row-major (rows, cols) 16-bit matrix in boxes of
-// box_rows x 64 columns (128 bytes), 128-byte swizzle, zero fill.
-bool make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int rows, int cols,
-              int box_rows) {
+// Tensor map of a row-major (rows, cols) matrix of `bytes`-byte elements
+// in boxes of box_rows x 128 bytes, 128-byte swizzle, zero fill.
+bool make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int bytes,
+              long long rows, int cols, int box_rows) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / bytes),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   return encode_tiled()(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -405,28 +566,43 @@ template <> struct MapType<__half> {
   static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
 };
 
+// Raise the kernel's dynamic shared-memory limit.  Being a runtime call, it
+// also makes the device's primary context current on the calling host
+// thread, which cuTensorMapEncodeTiled needs: a new thread (an agent's
+// worker) has none until its first runtime call.
+template <class S> cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(mmm_wgmma_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem_bytes<S>()));
+}
+
+template <class S>
+int launch(const CUtensorMap& map_a, const CUtensorMap& map_b, void* c, int m, int n, int k,
+           cudaStream_t s) {
+  const dim3 grid((n + S::kBN - 1) / S::kBN, (m + kBM - 1) / kBM);
+  mmm_wgmma_kernel<S><<<grid, kThreads, smem_bytes<S>(), s>>>(
+      map_a, map_b, static_cast<typename S::Out*>(c), m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int BN>
-int launch(const void* a, const void* b, void* c, int m, int n, int k, cudaStream_t s) {
+int launch_16(const void* a, const void* b, void* c, int m, int n, int k, cudaStream_t s) {
+  const cudaError_t rc = allow_smem<Half16<T, BN>>();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   constexpr CUtensorMapDataType type = MapType<T>::value;
   CUtensorMap map_a, map_b;
-  if (!make_map(&map_a, a, type, m, k, kBM) || !make_map(&map_b, b, type, k, n, kBK))
+  if (!make_map(&map_a, a, type, 2, m, k, kBM) || !make_map(&map_b, b, type, 2, k, n, 64))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = Tile<BN>::kSmem;
-  cudaError_t rc = cudaFuncSetAttribute(mmm_wgmma_kernel<T, BN>,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                        static_cast<int>(smem));
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  const dim3 grid((n + BN - 1) / BN, (m + kBM - 1) / kBM);
-  mmm_wgmma_kernel<T, BN><<<grid, kThreads, smem, s>>>(map_a, map_b, static_cast<T*>(c),
-                                                        m, n, k);
-  return static_cast<int>(cudaGetLastError());
+  return launch<Half16<T, BN>>(map_a, map_b, c, m, n, k, s);
 }
 
 template <typename T>
 int launch_width(const void* a, const void* b, void* c, int m, int n, int k, int bn,
                  cudaStream_t s) {
-  return bn == 256 ? launch<T, 256>(a, b, c, m, n, k, s) : launch<T, 128>(a, b, c, m, n, k, s);
+  return bn == 256 ? launch_16<T, 256>(a, b, c, m, n, k, s)
+                   : launch_16<T, 128>(a, b, c, m, n, k, s);
 }
+
+bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
 }  // namespace
 
@@ -435,9 +611,6 @@ int launch_width(const void* a, const void* b, void* c, int m, int n, int k, int
 // columns, 128 or 256.
 extern "C" int halo_mmm_wgmma(const void* a, const void* b, void* c, int m, int n, int k,
                               int bn, int dtype, void* stream) {
-  const auto misaligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 != 0;
-  };
   if (m < 1 || n < 8 || k < 8 || n % 8 || k % 8 || (m + kBM - 1) / kBM > 65535 ||
       (bn != 128 && bn != 256) ||
       misaligned(a) || misaligned(b) || misaligned(c) || encode_tiled() == nullptr)
@@ -448,4 +621,34 @@ extern "C" int halo_mmm_wgmma(const void* a, const void* b, void* c, int m, int 
     case 2: return launch_width<__half>(a, b, c, m, n, k, bn, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// a (m, k), b (k, n), c (m, n) float32, 16-byte aligned, k and n multiples
+// of 4; ws a float32 workspace of 2*(m + n)*k values, 16-byte aligned: the
+// split pass writes [A_hi; A_lo] and [B_hi^T; B_lo^T] there and the
+// product reads them.
+extern "C" int halo_mmm_tf32x3(const void* a, const void* b, void* c, void* ws, int m,
+                               int n, int k, void* stream) {
+  if (m < 1 || n < 4 || k < 4 || n % 4 || k % 4 || (m + kBM - 1) / kBM > 65535 ||
+      2LL * m >= (1LL << 31) || 2LL * n >= (1LL << 31) || misaligned(a) || misaligned(b) ||
+      misaligned(c) || misaligned(ws) || encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t rc = allow_smem<Tf32x3>();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  float* ws_a = static_cast<float*>(ws);
+  float* ws_b = ws_a + 2 * (size_t)m * k;
+  CUtensorMap map_a, map_b;
+  if (!make_map(&map_a, ws_a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 2LL * m, k, kBM) ||
+      !make_map(&map_b, ws_b, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 2LL * n, k, Tf32x3::kBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles_a = (m + 31LL) / 32 * ((k + 31) / 32);
+  const long long tiles = tiles_a + (k + 31LL) / 32 * ((n + 31) / 32);
+  if (tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  tf32_split_kernel<<<static_cast<unsigned>(tiles), 256, 0, s>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), ws_a, ws_b, m, n, k,
+      static_cast<int>(tiles_a));
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return launch<Tf32x3>(map_a, map_b, c, m, n, k, s);
 }

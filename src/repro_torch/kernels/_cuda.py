@@ -51,6 +51,8 @@ _SIGNATURES = {
     "halo_mmm": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
     # a, b, c, m, n, k, bn, dtype, stream (bfloat16 or float16)
     "halo_mmm_wgmma": [_vp, _vp, _vp, _int, _int, _int, _int, _int, _vp],
+    # a, b, c, ws, m, n, k, stream (float32)
+    "halo_mmm_tf32x3": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
     # a, b, c, ws, m, n, k, splits, kb, kw, vec, dtype, stream
     "halo_mmm_skinny": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int,
                         _int, _int, _vp],
@@ -66,8 +68,8 @@ _SIGNATURES = {
     "halo_conv1d": [_vp, _vp, _vp, _ll, _ll, _int, _vp],
     # values, indices, b, c, nrows, S, bm, bk, k, n, dtype, stream
     "halo_smmm": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp],
-    # x, c, s, out, m, n, dtype, stream
-    "halo_fft": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
+    # x, chirp, spectrum, tw, out, m, n, dtype, stream
+    "halo_fft_chirp": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _vp],
     # x, tw, out, m, n, vec, dtype, stream
     "halo_fft_radix": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
     # x, out, rows, n, npow2, dtype, stream

@@ -1,5 +1,5 @@
 """FFT on Hopper: the ctypes wrappers around ``csrc/fft_radix.cu`` and
-``csrc/fft.cu``, and the route between them.
+``csrc/fft_chirp.cu``, and the route between them.
 
 Replaces ``repro/kernels/fft/fft.py::fft_pallas``.  Two routes, chosen by the
 transform length alone (:func:`fft_route`):
@@ -7,13 +7,15 @@ transform length alone (:func:`fft_route`):
 * ``radix`` (``fft_radix.cu``), for n a power of two: each real row as one
   n/2-point complex Stockham radix-4/2 FFT in shared memory and a
   post-pass, against a table of n twiddles;
-* ``dft`` (``fft.cu``), for every other n: the reference's DFT, re = x·C
-  and im = x·S against the n x n twiddle matrices, both accumulated in one
-  pass over x, in 128-row x 64-frequency tiles.
+* ``chirp`` (``fft_chirp.cu``), for every other n: Bluestein's chirp-z
+  identity, the row times a chirp as one circular convolution of length L
+  (the least power of two ≥ 2n − 1), by two L-point Stockham FFTs in
+  shared memory around a product with the filter's spectrum, against the
+  tables of :func:`~.ref.chirp_tables`.
 
 Both kernels mask ragged edges and write complex64 interleaved, so the
 wrappers pad and combine nothing.  Each route counts its own launches
-(``fft_radix`` and ``fft``).
+(``fft_radix`` and ``fft_chirp``).
 """
 from __future__ import annotations
 
@@ -22,20 +24,20 @@ from typing import Optional
 import torch
 
 from .. import _cuda
-from ..common import cdiv
+from .ref import ChirpTables, chirp_length
 
-LAUNCHES = _cuda.counter("fft")
 RADIX_LAUNCHES = _cuda.counter("fft_radix")
+CHIRP_LAUNCHES = _cuda.counter("fft_chirp")
 
-#: longest transform: the DFT route's twiddle matrices are n x n (the
-#: reference's cap), the radix route's shared buffer holds 4096 values
+#: longest transform (the reference's cap): the radix route's shared buffer
+#: holds 4096 values, the chirp route's 8192 (L at n = 4095)
 MAX_N = 4096
-_MAX_GRID_Y = 65535     # row tiles of 128
+_MAX_ROWS = 2**31 - 1
 
 
 def fft_route(n: int) -> str:
-    """``"radix"`` for n a power of two, else ``"dft"``."""
-    return "radix" if n >= 1 and n & (n - 1) == 0 else "dft"
+    """``"radix"`` for n a power of two, else ``"chirp"``."""
+    return "radix" if n >= 1 and n & (n - 1) == 0 else "chirp"
 
 
 def fft_problem(x) -> Optional[str]:
@@ -48,8 +50,8 @@ def fft_problem(x) -> Optional[str]:
     n = x.shape[-1]
     if not 1 <= n <= MAX_N:
         return f"FFT needs 1 <= n <= {MAX_N}, got n={n}"
-    if x.dim() == 2 and cdiv(x.shape[0], 128) > _MAX_GRID_Y:
-        return f"{x.shape[0]} rows exceed the grid"
+    if x.numel() // n > _MAX_ROWS:
+        return f"{x.numel() // n} rows exceed the grid"
     return None
 
 
@@ -80,29 +82,34 @@ def fft_radix_hopper(x: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def fft_hopper(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """DFT of each row of ``x`` on the card against the float32 twiddles
-    ``c``, ``s`` (n, n): complex64 of x's shape (the ``dft`` route; it takes
-    any n up to :data:`MAX_N`)."""
+def fft_chirp_hopper(x: torch.Tensor, tables: ChirpTables) -> torch.Tensor:
+    """FFT of each row of ``x`` on the card, n not a power of two, against
+    the :class:`~.ref.ChirpTables` of n on x's device: complex64 of x's
+    shape."""
     _cuda.require_cuda(fft_problem(x), "FFT", x)
     n = x.shape[-1]
-    for name, t in (("C", c), ("S", s)):
-        if t.dtype != torch.float32 or t.shape != (n, n) or t.device != x.device \
+    if fft_route(n) != "chirp":
+        raise ValueError(f"FFT: the chirp route takes n not a power of two, got n={n}")
+    L = chirp_length(n)
+    for name, t, size in (("chirp", tables.chirp, n), ("spectrum", tables.spectrum, L),
+                          ("twiddles", tables.twiddles, L)):
+        if t.dtype != torch.complex64 or t.shape != (size,) or t.device != x.device \
                 or not t.is_contiguous():
-            raise ValueError(f"FFT: twiddle matrix {name} must be a contiguous "
-                             f"float32 ({n}, {n}) tensor on {x.device}")
+            raise ValueError(f"FFT: the {name} table must be a contiguous "
+                             f"complex64 ({size},) tensor on {x.device}")
     out = torch.empty(x.shape, dtype=torch.complex64, device=x.device)
     m = x.numel() // n
     if m == 0:
         return out
-    rc = _cuda.lib().halo_fft(x.data_ptr(), c.data_ptr(), s.data_ptr(),
-                              out.data_ptr(), m, n, _cuda.dtype_code(x.dtype),
-                              _cuda.stream(x.device))
-    _cuda.check(rc, "fft")
-    LAUNCHES.add()
-    # the twiddles may come from a cache that drops them before the kernel
-    # is done: tell the allocator this stream still reads them
+    rc = _cuda.lib().halo_fft_chirp(x.data_ptr(), tables.chirp.data_ptr(),
+                                    tables.spectrum.data_ptr(), tables.twiddles.data_ptr(),
+                                    out.data_ptr(), m, n, _cuda.dtype_code(x.dtype),
+                                    _cuda.stream(x.device))
+    _cuda.check(rc, "fft_chirp")
+    CHIRP_LAUNCHES.add()
+    # the tables may come from a cache that drops them before the kernel is
+    # done: tell the allocator this stream still reads them
     stream = torch.cuda.current_stream(x.device)
-    c.record_stream(stream)
-    s.record_stream(stream)
+    for t in tables:
+        t.record_stream(stream)
     return out

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of FFT (port of ``repro.kernels.fft.ref``): the
 library call, the radix route's Stockham stages and its twiddle table, and
-the DFT route's product by twiddle matrices."""
+the chirp route's tables and steps."""
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -16,32 +17,10 @@ def fft_ref(x):
 fft_aten = fft_ref
 
 
-def twiddles(n: int, device) -> tuple:
-    """(time, freq) float32 matrices cos and −sin of 2π·((t·k) mod n)/n.
-
-    The product t·k is reduced mod n in int64 and the angle taken in
-    float64, so each entry is rounded to float32 once.  (The reference forms
-    the angle 2π/n·t·k in float32, which at n = 4096 is off by up to about
-    1.5e-3 rad.)"""
-    t = torch.arange(n, dtype=torch.int64, device=device)
-    theta = (torch.outer(t, t) % n).double() * (2.0 * math.pi / n)
-    return torch.cos(theta).float(), torch.sin(theta).neg_().float()
-
-
-def dft_ref(x, c=None, s=None):
-    """The kernel's plain version: re = x·C and im = x·S with the
-    :func:`twiddles` (or the ``c``, ``s`` given), float32, as complex64 of
-    x's shape."""
-    n = x.shape[-1]
-    if c is None:
-        c, s = twiddles(n, x.device)
-    xf = x.float()
-    return torch.complex(xf @ c, xf @ s)
-
-
 def radix_twiddles(n: int, device) -> torch.Tensor:
     """(n,) complex64 table w^j = exp(−2πi·j/n), the angle taken in float64
-    and each part rounded to float32 once, as :func:`twiddles` does."""
+    and each part rounded to float32 once.  (The reference forms its angles
+    in float32, which at n = 4096 is off by up to about 1.5e-3 rad.)"""
     theta = torch.arange(n, dtype=torch.float64, device=device) * (2.0 * math.pi / n)
     return torch.complex(torch.cos(theta).float(), torch.sin(theta).neg_().float())
 
@@ -53,29 +32,21 @@ def radix_plan(h: int) -> list:
     return [2] * (j % 2) + [4] * (j // 2)
 
 
-def fft_radix_ref(x, tw=None):
-    """The radix kernel's plain version, in the same steps and order as
-    ``csrc/fft_radix.cu`` on every row at once, in complex64: the n/2-point
-    Stockham FFT Z of z[t] = x[2t] + i·x[2t+1] (stage R with p the length
-    of the sub-transforms done so far: for each butterfly i < h/R,
-    u_r = buf[i + r·h/R] times w_h^(r·k·h/(R·p)) with k = i mod p, an
-    R-point DFT, buf'[(i − k)·R + k + r·p] = v_r), then
-    X[k] = E + w^k·O and X[k + n/2] = E − w^k·O with
-    E = (Z[k] + conj(Z[h−k]))/2 and O = −i·(Z[k] − conj(Z[h−k]))/2."""
-    n = x.shape[-1]
-    if tw is None:
-        tw = radix_twiddles(n, x.device)
-    xf = x.reshape(-1, n).float()
-    if n == 1:
-        return xf.to(torch.complex64).reshape(x.shape)
-    h = n // 2
-    buf = torch.complex(xf[:, 0::2], xf[:, 1::2])
+def stockham_ref(buf, tw):
+    """The h-point FFT of each row of the complex64 ``buf`` (m, h), h = 2^j,
+    in the kernels' Stockham stages and order (``csrc/fft_stockham.cuh``),
+    against a table ``tw`` of nt = c·h twiddles w^e = exp(−2πi·e/nt): stage
+    R, with p the length of the sub-transforms done so far, multiplies
+    u_r = buf[i + r·h/R] of butterfly i < h/R by w_h^(r·k·h/(R·p)), entry
+    r·k·nt/(R·p) of the table, with k = i mod p, takes the R-point DFT and
+    writes it to buf'[(i − k)·R + k + r·p]."""
+    h, nt = buf.shape[-1], tw.shape[0]
     p = 1
     for r_ in radix_plan(h):
         nb = h // r_
-        i = torch.arange(nb, device=x.device)
+        i = torch.arange(nb, device=buf.device)
         k = i & (p - 1)
-        step = n // (r_ * p)              # w_h^e is entry 2e of the n-table
+        step = nt // (r_ * p)
         u = [buf[:, i + r * nb] for r in range(r_)]
         u = [u[0]] + [u[r] * tw[r * k * step] for r in range(1, r_)]
         if r_ == 2:
@@ -90,9 +61,81 @@ def fft_radix_ref(x, tw=None):
         for r in range(r_):
             nxt[:, j + r * p] = v[r]
         buf, p = nxt, p * r_
+    return buf
+
+
+def fft_radix_ref(x, tw=None):
+    """The radix kernel's plain version, in the same steps and order as
+    ``csrc/fft_radix.cu`` on every row at once, in complex64: the n/2-point
+    Stockham FFT Z of z[t] = x[2t] + i·x[2t+1] (:func:`stockham_ref`), then
+    X[k] = E + w^k·O and X[k + n/2] = E − w^k·O with
+    E = (Z[k] + conj(Z[h−k]))/2 and O = −i·(Z[k] − conj(Z[h−k]))/2."""
+    n = x.shape[-1]
+    if tw is None:
+        tw = radix_twiddles(n, x.device)
+    xf = x.reshape(-1, n).float()
+    if n == 1:
+        return xf.to(torch.complex64).reshape(x.shape)
+    h = n // 2
+    buf = stockham_ref(torch.complex(xf[:, 0::2], xf[:, 1::2]), tw)
     k = torch.arange(h, device=x.device)
     zk, zm = buf, buf[:, (h - k) & (h - 1)]
     e = torch.complex((zk.real + zm.real) * 0.5, (zk.imag - zm.imag) * 0.5)
     od = torch.complex((zk.imag + zm.imag) * 0.5, (zm.real - zk.real) * 0.5)
     wo = od * tw[:h]
     return torch.cat([e + wo, e - wo], dim=-1).reshape(x.shape)
+
+
+def chirp_length(n: int) -> int:
+    """L of the chirp route: the least power of two ≥ 2n − 1, which holds
+    the circular convolution of two sequences of n values."""
+    return 1 << (2 * n - 2).bit_length()
+
+
+class ChirpTables(NamedTuple):
+    """The chirp route's tables for one n, all complex64: ``chirp`` (n,)
+    b_j = exp(−iπ·j²/n); ``spectrum`` (L,) H, the L-point FFT of the wrapped
+    filter h_j = conj(b_|j|), scaled by 1/L; ``twiddles`` (L,) the L-point
+    table of :func:`radix_twiddles`."""
+    chirp: torch.Tensor
+    spectrum: torch.Tensor
+    twiddles: torch.Tensor
+
+
+def chirp_tables(n: int, device) -> ChirpTables:
+    """:class:`ChirpTables` for n.  j² is reduced mod 2n in int64 (b_j
+    depends on j² mod 2n alone) and the angle π·(j² mod 2n)/n taken in
+    float64, and each part rounded to float32 once; H is computed in
+    float64 from the float64 chirp (one ``torch.fft.fft``, which builds a
+    constant as ``torch.cos`` builds the twiddles), scaled by 1/L there and
+    rounded once."""
+    L = chirp_length(n)
+    j = torch.arange(n, dtype=torch.int64, device=device)
+    theta = ((j * j) % (2 * n)).double() * (math.pi / n)
+    b64 = torch.complex(torch.cos(theta), -torch.sin(theta))
+    h = torch.zeros(L, dtype=torch.complex128, device=device)
+    h[:n] = b64.conj()
+    h[L - n + 1:] = b64[1:].conj().flip(0)
+    spectrum = torch.fft.fft(h) / L
+    return ChirpTables(b64.to(torch.complex64), spectrum.to(torch.complex64),
+                       radix_twiddles(L, device))
+
+
+def fft_chirp_ref(x, tables=None):
+    """The chirp kernel's plain version, in the same steps and order as
+    ``csrc/fft_chirp.cu`` on every row at once, in complex64: a = x·b
+    zero-padded to L; A = the L-point Stockham FFT of a
+    (:func:`stockham_ref`); conj(A·H); its L-point FFT D, so that conj(D)
+    is the inverse FFT of A·H times L (H holds the 1/L); X[k] = b_k·conj(D_k)
+    for k < n."""
+    n = x.shape[-1]
+    if tables is None:
+        tables = chirp_tables(n, x.device)
+    b, spectrum, tw = tables
+    L = spectrum.shape[0]
+    xf = x.reshape(-1, n).float()
+    a = torch.zeros((xf.shape[0], L), dtype=torch.complex64, device=x.device)
+    a[:, :n] = torch.complex(xf * b.real, xf * b.imag)
+    c = stockham_ref(a, tw) * spectrum
+    d = stockham_ref(c.conj(), tw)[:, :n].conj()
+    return (d * b).reshape(x.shape)

@@ -1,7 +1,7 @@
 """MMM on Hopper: the ctypes wrappers around ``csrc/mmm_skinny.cu``,
 ``csrc/mmm_wgmma.cu`` and ``csrc/mmm.cu``, and the route between them.
 
-Replaces ``repro/kernels/matmul/matmul.py::mmm_pallas``.  Three routes,
+Replaces ``repro/kernels/matmul/matmul.py::mmm_pallas``.  Four routes,
 chosen by type, shape and alignment alone (:func:`mmm_route`):
 
 * ``skinny`` (``mmm_skinny.cu``): column strips of 16-byte loads of B with
@@ -13,12 +13,19 @@ chosen by type, shape and alignment alone (:func:`mmm_route`):
   shared-memory stages, for bfloat16 and float16 above SKINNY_M_MAX rows (a
   prefill's projections) where K and N are multiples of 8 and the operands
   16-byte aligned (TMA's stride and address rules);
+* ``tf32x3`` (``mmm_wgmma.cu``): float32 above SKINNY_M_MAX rows where K
+  and N are multiples of 4 and the operands 16-byte aligned (TMA's rules
+  for 4-byte elements; the template's 4096³, held to 1e-5): a split pass
+  writes each operand's TF32 high and low parts into a workspace, and the
+  same ring of TMA stages sums lo·hi + hi·lo + hi·hi on the TF32 tensor
+  cores in 128x128 tiles;
 * ``tile`` (``mmm.cu``): 128x128 output tiles in float32 on the CUDA cores
-  for the rest, float32 above all (the template's 4096³, held to 1e-5).
+  for the rest (a K or N off the multiple, operands off the 16-byte grid).
 
 The kernels mask ragged edges themselves (TMA zero-fills them), so the
 wrappers pad nothing.  Each route counts its own launches (``mmm_skinny``,
-``mmm_wgmma`` and ``mmm``).
+``mmm_wgmma``, ``mmm_tf32x3`` and ``mmm``; one per call, the split pass
+and the product of ``tf32x3`` together).
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from ..common import cdiv, round_up
 LAUNCHES = _cuda.counter("mmm")
 SKINNY_LAUNCHES = _cuda.counter("mmm_skinny")
 WGMMA_LAUNCHES = _cuda.counter("mmm_wgmma")
+TF32X3_LAUNCHES = _cuda.counter("mmm_tf32x3")
 
 #: the types the tensor-core route takes
 WGMMA_DTYPES = (torch.bfloat16, torch.float16)
@@ -64,14 +72,24 @@ def _wgmma_takes(dtype: torch.dtype, k: int, n: int, aligned: bool) -> bool:
         and k % 8 == 0 and n % 8 == 0
 
 
+def _tf32x3_takes(dtype: torch.dtype, k: int, n: int, aligned: bool) -> bool:
+    """float32 operands whose K and N are positive multiples of 4 and whose
+    base pointers are 16-byte aligned: what TMA can load."""
+    return dtype == torch.float32 and aligned and k > 0 and n > 0 \
+        and k % 4 == 0 and n % 4 == 0
+
+
 def mmm_route(dtype: torch.dtype, m: int, k: int, n: int, aligned: bool) -> str:
-    """``"skinny"`` for M ≤ :data:`SKINNY_M_MAX` in every type; above it
+    """``"skinny"`` for M ≤ :data:`SKINNY_M_MAX` in every type; above it,
+    where the operands' base pointers are 16-byte aligned (``aligned``),
     ``"wgmma"`` for bfloat16 and float16 when K and N are positive multiples
-    of 8 and the operands' base pointers are 16-byte aligned (``aligned``),
+    of 8 and ``"tf32x3"`` for float32 when they are positive multiples of 4;
     else ``"tile"``."""
     if m <= SKINNY_M_MAX:
         return "skinny"
-    return "wgmma" if _wgmma_takes(dtype, k, n, aligned) else "tile"
+    if _wgmma_takes(dtype, k, n, aligned):
+        return "wgmma"
+    return "tf32x3" if _tf32x3_takes(dtype, k, n, aligned) else "tile"
 
 
 def wgmma_tile_n(m: int, n: int, sms: int) -> int:
@@ -144,6 +162,18 @@ def _wgmma(a, b, out, tile_n=None):
     return out
 
 
+def _tf32x3(a, b, out):
+    m, k = a.shape
+    n = out.shape[1]
+    # [A_hi; A_lo] (2M x K) and [B_hi^T; B_lo^T] (2N x K)
+    ws = torch.empty(2 * (m + n) * k, dtype=torch.float32, device=a.device)
+    rc = _cuda.lib().halo_mmm_tf32x3(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                     ws.data_ptr(), m, n, k, _cuda.stream(a.device))
+    _cuda.check(rc, "mmm_tf32x3")
+    TF32X3_LAUNCHES.add()
+    return out
+
+
 def _skinny(a, b, out):
     m, k = a.shape
     n = out.shape[1]
@@ -166,7 +196,8 @@ def _launch(route, a, b, **options):
     out = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
-    return {"skinny": _skinny, "wgmma": _wgmma, "tile": _tile}[route](a, b, out, **options)
+    return {"skinny": _skinny, "wgmma": _wgmma, "tf32x3": _tf32x3,
+            "tile": _tile}[route](a, b, out, **options)
 
 
 def mmm_tile_hopper(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -190,6 +221,19 @@ def mmm_wgmma_hopper(a: torch.Tensor, b: torch.Tensor,
                          f"16-byte grid, got {a.dtype} {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
     return _launch("wgmma", a, b, tile_n=tile_n)
+
+
+def mmm_tf32x3_hopper(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A (M,K) @ B (K,N) → (M,N) float32 on the card by 3×TF32 on the tensor
+    cores: K and N positive multiples of 4, 16-byte-aligned operands, any
+    M ≥ 1, with a float32 workspace of 2·(M + N)·K values for the split
+    operands."""
+    _cuda.require_cuda(mmm_problem(a, b), "MMM", a)
+    if not _tf32x3_takes(a.dtype, a.shape[1], b.shape[1], _cuda.aligned(a, b)):
+        raise ValueError(f"MMM: the 3xTF32 route takes float32 operands with K "
+                         f"and N positive multiples of 4 on the 16-byte grid, got "
+                         f"{a.dtype} {tuple(a.shape)} @ {tuple(b.shape)}")
+    return _launch("tf32x3", a, b)
 
 
 def mmm_skinny_hopper(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

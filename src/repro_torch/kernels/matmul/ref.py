@@ -37,6 +37,33 @@ def mmm_ulp_excess(out, a, b) -> int:
     return int((mmm_ulp_ratios(out, a, b) > 1).sum())
 
 
+def tf32_round(x):
+    """float32 ``x`` rounded to TF32 (10 stored mantissa bits) to nearest,
+    ties away from zero, as ``cvt.rna.tf32.f32`` does: 2^12 added to the
+    magnitude's bit pattern (a carry moves into the exponent), then the low
+    13 bits cleared.  Infinities and NaN pass through."""
+    bits = x.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x)
+
+
+def tf32_split(x):
+    """(hi, lo) of float32 ``x``: hi = tf32(x) and lo = tf32(x − hi), x − hi
+    exact in float32, as the 3×TF32 route's split pass writes them."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def mmm_tf32x3_ref(a, b):
+    """The 3×TF32 route's plain model: C = A_lo·B_hi + A_hi·B_lo + A_hi·B_hi
+    of the :func:`tf32_split` parts, three float32 products summed in
+    float32 (A_lo·B_lo is left out, as the kernel leaves it out).  The
+    kernel sums the three terms per K step of 8, in another order."""
+    a_hi, a_lo = tf32_split(a.float())
+    b_hi, b_lo = tf32_split(b.float())
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
 def mmm_splitk_ref(a, b):
     """The skinny kernel's plain version: C = A @ B summed over K in the
     kernel's own segments (:func:`~.matmul.skinny_plan`).  Each warp

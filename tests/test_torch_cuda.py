@@ -17,9 +17,9 @@ from repro_torch.kernels.conv1d.conv1d import conv1d_hopper
 from repro_torch.kernels.conv1d.ref import conv1d_ref
 from repro_torch.kernels.ewise.ewise import ewise_hopper
 from repro_torch.kernels.ewise.ref import OP_REFS
-from repro_torch.kernels.fft.fft import fft_hopper, fft_radix_hopper
-from repro_torch.kernels.fft.ops import cached_radix_twiddles, cached_twiddles
-from repro_torch.kernels.fft.ref import dft_ref, fft_radix_ref
+from repro_torch.kernels.fft.fft import fft_chirp_hopper, fft_radix_hopper
+from repro_torch.kernels.fft.ops import cached_chirp_tables, cached_radix_twiddles
+from repro_torch.kernels.fft.ref import fft_chirp_ref, fft_radix_ref
 from repro_torch.kernels.flash_attention.flash_attention import (
     fa_route, flash_attention_cuda_cores_hopper, flash_attention_hopper,
     flash_attention_mma_hopper)
@@ -30,9 +30,10 @@ from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
 from repro_torch.kernels.jacobi.ops import jacobi_solve
 from repro_torch.kernels.jacobi.ref import jacobi_step_ref
 from repro_torch.kernels.matmul.matmul import (SKINNY_M_MAX, mmm_hopper, mmm_route,
-                                               mmm_skinny_hopper, mmm_tile_hopper,
-                                               mmm_wgmma_hopper)
-from repro_torch.kernels.matmul.ref import mmm_ref, mmm_splitk_ref, mmm_ulp_excess
+                                               mmm_skinny_hopper, mmm_tf32x3_hopper,
+                                               mmm_tile_hopper, mmm_wgmma_hopper)
+from repro_torch.kernels.matmul.ref import (mmm_ref, mmm_splitk_ref, mmm_tf32x3_ref,
+                                            mmm_ulp_excess)
 from repro_torch.kernels.mvm.mvm import mvm_hopper
 from repro_torch.kernels.mvm.ref import mvm_ref
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -124,9 +125,9 @@ def test_mmm_skinny_unaligned_and_repeatable(card, dtype):
 
 def test_mmm_routes_count_apart(card):
     """bfloat16 at M = 1 and SKINNY_M_MAX: the skinny route; at
-    SKINNY_M_MAX + 1: the tensor cores; past SKINNY_M_MAX in float32, with
-    an N off TMA's 16-byte stride, or with an A off the 16-byte grid: the
-    tile route."""
+    SKINNY_M_MAX + 1: the tensor cores; past SKINNY_M_MAX in float32: the
+    3×TF32 route; with an N off TMA's 16-byte stride, or with an A off the
+    16-byte grid: the tile route."""
     bf16 = torch.bfloat16
     off = _rnd(card, 65 * 64 + 1, dtype=bf16, seed=2)[1:].view(65, 64)
     assert off.data_ptr() % 16
@@ -142,7 +143,8 @@ def test_mmm_routes_count_apart(card):
     after = _cuda.launch_counts()
     assert after["mmm_skinny"] == before["mmm_skinny"] + 2
     assert after["mmm_wgmma"] == before["mmm_wgmma"] + 1
-    assert after["mmm"] == before["mmm"] + 3
+    assert after["mmm_tf32x3"] == before["mmm_tf32x3"] + 1
+    assert after["mmm"] == before["mmm"] + 2
 
 
 #: the tensor-core route's shapes: danube's eight prefill projections
@@ -173,6 +175,65 @@ def test_mmm_wgmma_kernel_is_repeatable(card, dtype):
     fixed order."""
     a, b = _rnd(card, 4200, 2560, dtype=dtype), _rnd(card, 2560, 640, dtype=dtype, seed=1)
     assert torch.equal(_bits(mmm_wgmma_hopper(a, b)), _bits(mmm_wgmma_hopper(a, b)))
+
+
+#: the 3×TF32 route's shapes: the float32 replay's four 512-row prefill
+#: projections, ragged M, N and K that are multiples of 4, M = 65, and the
+#: template's 4096³
+TF32X3_SHAPES = [(512, 2560, 2560), (512, 2560, 640), (512, 2560, 6912), (512, 6912, 2560),
+                 (1000, 772, 1004), (130, 72, 136), (65, 2560, 640), (65, 8, 4),
+                 (4096, 4096, 4096)]
+
+
+@pytest.mark.parametrize("m,k,n", TF32X3_SHAPES)
+def test_mmm_tf32x3_kernel(card, m, k, n):
+    """float32 within TOL of mmm_ref, of a float64 product and of the plain
+    model (the three float32 products of the TF32 parts)."""
+    a, b = _rnd(card, m, k, dtype=torch.float32), _rnd(card, k, n, dtype=torch.float32, seed=1)
+    out = mmm_tf32x3_hopper(a, b)
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    tol = TOL[torch.float32]
+    assert _normwise(out, mmm_ref(a, b)) <= tol
+    assert _normwise(out, a.double() @ b.double()) <= tol
+    assert _normwise(out, mmm_tf32x3_ref(a, b)) <= tol
+
+
+def test_mmm_tf32x3_kernel_is_repeatable(card):
+    """Two calls give the same bits: each output element's K sum runs in one
+    fixed order."""
+    a = _rnd(card, 512, 6912, dtype=torch.float32)
+    b = _rnd(card, 6912, 2560, dtype=torch.float32, seed=1)
+    assert torch.equal(_bits(mmm_tf32x3_hopper(a, b)), _bits(mmm_tf32x3_hopper(a, b)))
+
+
+def test_tensor_map_routes_launch_first_on_a_new_thread(card):
+    """The wgmma and 3×TF32 routes encode TMA tensor maps with
+    cuTensorMapEncodeTiled, which needs the device's context current on
+    the calling thread: each route launches as the first CUDA work of a
+    new host thread, as a request's first launch on an agent's worker
+    does."""
+    import threading
+
+    a32 = _rnd(card, 256, 512, dtype=torch.float32)
+    b32 = _rnd(card, 512, 256, dtype=torch.float32, seed=1)
+    cases = {"wgmma": (mmm_wgmma_hopper, a32.bfloat16(), b32.bfloat16()),
+             "tf32x3": (mmm_tf32x3_hopper, a32, b32)}
+    torch.cuda.synchronize(card)
+    for route, (fn, a, b) in cases.items():
+        result = {}
+
+        def first_launch():
+            try:
+                result["out"] = fn(a, b)
+                torch.cuda.synchronize(card)
+            except Exception as e:                # reported by the assert below
+                result["error"] = e
+
+        thread = threading.Thread(target=first_launch)
+        thread.start()
+        thread.join()
+        assert "error" not in result, f"{route}: {result.get('error')}"
+        assert _normwise(result["out"], mmm_ref(a, b)) <= TOL[a.dtype]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -296,20 +357,25 @@ def test_smmm_kernel(card, dtype, m, k, n, bm, bk):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [(1, 1), (7,), (3, 1000), (130, 257), (5, 4096)])
-def test_fft_kernel(card, dtype, shape):
-    # normwise 1e-5 against the float64 DFT of the same input, whatever its
-    # type (16-bit inputs are exact in float32), and against the plain
-    # version, which sums the same float32 products in another order
-    x = _rnd(card, *shape, dtype=dtype)
-    c, s = cached_twiddles(shape[-1], card)
-    out = fft_hopper(x, c, s)
-    assert out.dtype == torch.complex64 and out.shape == x.shape
-    exact = torch.fft.fft(x.double(), dim=-1)
-    wide = out.to(torch.complex128)
-    assert float((wide - exact).norm() / exact.norm()) <= 1e-5
-    ref = dft_ref(x, c, s).to(torch.complex128)
-    assert float((wide - ref).norm() / ref.norm()) <= 1e-5
+@pytest.mark.parametrize("n", [3, 7, 100, 1000, 2999, 3000, 4093, 4095])
+def test_fft_chirp_kernel(card, dtype, n):
+    """Lengths that are not powers of two, the primes 2999 and 4093
+    included: normwise 1e-5 against the float64 DFT and against the plain
+    version (the same steps in the same order), 1-D, 3 rows and more rows
+    than a block holds, and an x off the 16-byte grid; two calls give the
+    same bits."""
+    tables = cached_chirp_tables(n, card)
+    unaligned = _rnd(card, 3 * n + 1, dtype=dtype, seed=2)[1:].view(3, n)
+    for x in (_rnd(card, n, dtype=dtype), _rnd(card, 3, n, dtype=dtype, seed=1),
+              _rnd(card, 1030, n, dtype=dtype, seed=3), unaligned):
+        out = fft_chirp_hopper(x, tables)
+        assert out.dtype == torch.complex64 and out.shape == x.shape
+        wide = out.to(torch.complex128)
+        exact = torch.fft.fft(x.double(), dim=-1)
+        assert float((wide - exact).norm() / exact.norm()) <= 1e-5
+        ref = fft_chirp_ref(x, tables).to(torch.complex128)
+        assert float((wide - ref).norm() / ref.norm()) <= 1e-5
+    assert torch.equal(torch.view_as_real(out), torch.view_as_real(fft_chirp_hopper(x, tables)))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -640,9 +706,10 @@ def test_model_on_the_card_runs_the_kernels(card):
         # 8), its last-token unembed (one row) and the 4 decode passes (one
         # row each) the skinny route
         d = model.cfg.d_model
-        prefill = {"skinny": "mmm_skinny", "wgmma": "mmm_wgmma",
+        prefill = {"skinny": "mmm_skinny", "wgmma": "mmm_wgmma", "tf32x3": "mmm_tf32x3",
                    "tile": "mmm"}[mmm_route(dtype, 40, d, d, True)]
-        expected = {"mmm": 0, "mmm_wgmma": 0, "mmm_skinny": 4 * (7 * layers + 1) + 1}
+        expected = {"mmm": 0, "mmm_wgmma": 0, "mmm_tf32x3": 0,
+                    "mmm_skinny": 4 * (7 * layers + 1) + 1}
         expected[prefill] += 7 * layers
         assert {k: counts[k] for k in expected} == expected
         assert counts["rmsnorm"] == 5 * (2 * layers + 1)
@@ -662,6 +729,7 @@ def test_each_launch_counts_once(card):
     mmm_tile_hopper(a, a)
     mmm_skinny_hopper(a, a)
     mmm_wgmma_hopper(a.bfloat16(), a.bfloat16())
+    mmm_tf32x3_hopper(a, a)
     ewise_hopper(a, a, "add")
     mvm_hopper(a, a[0])
     vdp_hopper(a[0], a[0])
@@ -669,7 +737,7 @@ def test_each_launch_counts_once(card):
     conv1d_hopper(a[0], a[1, :3])
     smmm_hopper(a.view(2, 1, 8, 16), torch.zeros(2, 1, dtype=torch.int32,
                                                  device=card), a)
-    fft_hopper(a, *cached_twiddles(16, card))
+    fft_chirp_hopper(a[:, :12].contiguous(), cached_chirp_tables(12, card))
     fft_radix_hopper(a, cached_radix_twiddles(16, card))
     sort_tile_hopper(a)
     sort_radix_hopper(a)
@@ -680,9 +748,9 @@ def test_each_launch_counts_once(card):
     qb = q.bfloat16()
     flash_attention_mma_hopper(qb, qb[:, :1], qb[:, :1])
     after = _cuda.launch_counts()
-    for name in ("mmm", "mmm_skinny", "mmm_wgmma", "ewise", "mvm", "vdp", "jacobi", "conv1d",
-                 "spmm", "fft", "fft_radix", "sort", "sort_radix", "hist", "rmsnorm",
-                 "flash_attention", "flash_attention_mma"):
+    for name in ("mmm", "mmm_skinny", "mmm_wgmma", "mmm_tf32x3", "ewise", "mvm", "vdp",
+                 "jacobi", "conv1d", "spmm", "fft_chirp", "fft_radix", "sort", "sort_radix",
+                 "hist", "rmsnorm", "flash_attention", "flash_attention_mma"):
         assert after[name] == before[name] + 1
 
 

@@ -5,9 +5,9 @@ bfloat16, at ragged sizes; the wrappers' refusals; and tests that pin three
 behaviours of the reference the port does not copy:
 
 * FFT: the reference forms the twiddle angle 2π/n·t·k in float32, which
-  costs ~1e-4 of normwise accuracy at n = 1000; the port reduces t·k mod n
-  in integers and rounds each twiddle once, and is held to 1e-5 against
-  float64.
+  costs ~1e-4 of normwise accuracy at n = 1000; the port takes its angles
+  in float64 (the chirp's j² reduced mod 2n in integers) and rounds each
+  table entry once, and is held to 1e-5 against float64.
 * SORT: the reference's bitonic network takes jnp.minimum/maximum, so one
   NaN turns its whole row to NaN; the port orders NaN last, as np.sort.
 * HIST: the jitted Pallas wrapper takes lo and hi as static arguments, so
@@ -122,7 +122,7 @@ def test_fft_matches_jax_and_float64(dtype, shape):
     exact = np.fft.fft(np.asarray(x, np.float64), axis=-1)
     tx = from_numpy(x)
     for fn in (t_fft_ops.fft, t_fft_ref.fft_ref, t_fft_ref.fft_aten,
-               t_fft_ref.dft_ref):
+               t_fft_ref.fft_chirp_ref):
         got = fn(tx)
         assert got.dtype == torch.complex64 and tuple(got.shape) == shape
         got = to_numpy(got)
@@ -132,42 +132,14 @@ def test_fft_matches_jax_and_float64(dtype, shape):
 
 def test_reference_fft_twiddles_err_above_1e5_at_n1000():
     """The reference's float32 angle 2π/n·t·k errs 7e-5 normwise at
-    n = 1000; the port's twiddles, rounded once from float64 after t·k is
-    reduced mod n, stay within 1e-5 on the same input."""
+    n = 1000; the port's chirp route, its tables rounded once from float64,
+    stays within 1e-5 on the same input."""
     x = _normal(11, 4, 1000)
     exact = np.fft.fft(x.astype(np.float64), axis=-1)
     ref_err = _normwise(j_fft_ops.fft(jnp.asarray(x), interpret=True), exact)
     port_err = _normwise(to_numpy(t_fft_ops.fft(from_numpy(x))), exact)
     assert ref_err > FFT_NORMWISE, ref_err
     assert port_err <= FFT_NORMWISE, port_err
-
-
-def test_twiddles_round_the_float64_angle_once():
-    n = 96
-    c, s = t_fft_ref.twiddles(n, "cpu")
-    t = np.arange(n)
-    theta = 2 * np.pi * (np.outer(t, t) % n) / n
-    assert c.dtype == s.dtype == torch.float32 and c.shape == (n, n)
-    np.testing.assert_allclose(to_numpy(c), np.cos(theta).astype(np.float32),
-                               rtol=0, atol=1e-7)
-    np.testing.assert_allclose(to_numpy(s), (-np.sin(theta)).astype(np.float32),
-                               rtol=0, atol=1e-7)
-    # an entry depends on t·k mod n alone: (2, k) and (1, 2k) are one angle,
-    # and (t, k) and (k, t) too
-    assert torch.equal(c[2, :n // 2], c[1, 0::2])
-    assert torch.equal(s[2, :n // 2], s[1, 0::2])
-    assert torch.equal(c, c.t()) and torch.equal(s, s.t())
-
-
-def test_twiddle_cache_is_bounded_and_reused():
-    t_fft_ops.cached_twiddles.cache_clear()
-    first = t_fft_ops.cached_twiddles(64, "cpu")
-    assert t_fft_ops.cached_twiddles(64, "cpu") is first
-    t_fft_ops.cached_twiddles(32, "cpu")
-    t_fft_ops.cached_twiddles(48, "cpu")         # two kept: 64 goes
-    assert t_fft_ops.cached_twiddles.cache_info().currsize == 2
-    assert t_fft_ops.cached_twiddles(64, "cpu") is not first
-    t_fft_ops.cached_twiddles.cache_clear()
 
 
 @pytest.mark.parametrize("x", [torch.ones(2, 4097), torch.ones(2, 3, 8),

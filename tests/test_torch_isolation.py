@@ -114,7 +114,7 @@ ENTRY = {"spmm": "smmm"}
 
 
 @pytest.mark.parametrize("name", ["mmm", "mmm_skinny", "mmm_wgmma", "ewise", "mvm",
-                                  "vdp", "jacobi", "conv1d", "spmm", "fft", "fft_radix",
+                                  "vdp", "jacobi", "conv1d", "spmm", "fft_chirp", "fft_radix",
                                   "sort", "sort_radix", "hist", "rmsnorm",
                                   "flash_attention", "flash_attention_mma", "fused"])
 def test_kernel_sources_carry_their_note(name):

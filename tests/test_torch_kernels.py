@@ -25,7 +25,7 @@ from repro_torch.kernels.ewise import ops as t_ew_ops
 from repro_torch.kernels.ewise import ref as t_ew_ref
 from repro_torch.kernels.ewise.ewise import ewise_hopper
 from repro_torch.kernels.fft import ops as t_fft_ops
-from repro_torch.kernels.fft.fft import fft_hopper
+from repro_torch.kernels.fft.fft import fft_chirp_hopper
 from repro_torch.kernels.jacobi import ops as t_js_ops
 from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
 from repro_torch.kernels.matmul import ops as t_mm_ops
@@ -165,7 +165,7 @@ def test_wrappers_reject_what_the_kernel_does_not_take(fn, args, match):
     (conv1d_hopper, (torch.ones(8), torch.ones(3))),
     (smmm_hopper, (torch.ones(2, 1, 4, 8), torch.zeros(2, 1, dtype=torch.int32),
                    torch.ones(16, 3))),
-    (fft_hopper, (torch.ones(2, 8), torch.ones(8, 8), torch.ones(8, 8))),
+    (fft_chirp_hopper, (torch.ones(2, 12), None)),
     (sort_hopper, (torch.ones(2, 8),)),
     (hist_hopper, (torch.ones(8),)),
 ])
@@ -193,7 +193,7 @@ def test_plain_versions_count_no_launch():
     t_sh_ops.hist(a)
     assert _cuda.launch_counts() == before
     assert set(before) >= {"mmm", "ewise", "mvm", "vdp", "jacobi", "conv1d",
-                           "spmm", "fft", "sort", "hist"}
+                           "spmm", "fft_radix", "fft_chirp", "sort", "hist"}
 
 
 def test_launch_counter_add_and_reset():

@@ -86,15 +86,17 @@ def test_skinny_plan_covers_k_in_segments(m, k, n, element_size):
 
 
 def test_mmm_route_threshold(monkeypatch):
-    """M = SKINNY_M_MAX takes the skinny route in every type, M + 1 the
-    tile route in float32 and the tensor-core route in bfloat16 where TMA
-    can load the operands; SKINNY_M_MAX is the only row threshold."""
+    """M = SKINNY_M_MAX takes the skinny route in every type, M + 1 a
+    tensor-core route where TMA can load the operands (3×TF32 in float32,
+    wgmma in bfloat16) and the tile route where it cannot (N = 3);
+    SKINNY_M_MAX is the only row threshold."""
     top, f32, bf16 = t_mm.SKINNY_M_MAX, torch.float32, torch.bfloat16
     for dtype in (f32, bf16):
         assert t_mm.mmm_route(dtype, 1, 8, 8, True) == "skinny"
         assert t_mm.mmm_route(dtype, top, 2560, 6912, True) == "skinny"
-    assert t_mm.mmm_route(f32, top + 1, 8, 8, True) == "tile"
-    assert t_mm.mmm_route(f32, 4096, 4096, 4096, True) == "tile"
+    assert t_mm.mmm_route(f32, top + 1, 8, 8, True) == "tf32x3"
+    assert t_mm.mmm_route(f32, 4096, 4096, 4096, True) == "tf32x3"
+    assert t_mm.mmm_route(f32, top + 1, 8, 3, True) == "tile"
     assert t_mm.mmm_route(bf16, top + 1, 8, 8, True) == "wgmma"
     assert t_mm.mmm_route(bf16, 1 << 20, 8, 8, True) == "wgmma"
     routes = []
@@ -160,14 +162,15 @@ def test_reference_fft_errs_beyond_its_override_from_n2048(n):
 
 def test_radix_twiddles_are_the_dft_twiddles_first_row():
     """w^j = exp(−2πi·j/n) rounded once from float64: the same bits as row 1
-    of the DFT route's matrices."""
+    of the DFT's twiddle matrices cos and −sin of 2π·((t·k) mod n)/n, built
+    in numpy."""
     n = 96
     tw = t_fft_ref.radix_twiddles(n, "cpu")
-    c, s = t_fft_ref.twiddles(n, "cpu")
     assert tw.dtype == torch.complex64 and tw.shape == (n,)
-    assert torch.equal(tw.real, c[1]) and torch.equal(tw.imag, s[1])
-    theta = 2 * np.pi * np.arange(n) / n
-    np.testing.assert_array_equal(to_numpy(tw.real), np.cos(theta).astype(np.float32))
+    t = np.arange(n)
+    theta = (np.outer(t, t) % n).astype(np.float64) * (2.0 * np.pi / n)
+    np.testing.assert_array_equal(to_numpy(tw.real), np.cos(theta[1]).astype(np.float32))
+    np.testing.assert_array_equal(to_numpy(tw.imag), (-np.sin(theta[1])).astype(np.float32))
 
 
 def test_radix_plan_orders_radix2_first():
@@ -179,18 +182,20 @@ def test_radix_plan_orders_radix2_first():
 
 
 def test_fft_cpu_route_by_length(monkeypatch):
-    """Powers of two take the radix plain version, other n ``dft_ref``."""
+    """Powers of two take the radix plain version, other n the chirp plain
+    version ``fft_chirp_ref``, with the L-point spectrum of the least power
+    of two L ≥ 2n − 1."""
     assert [fft_route(n) for n in (1, 2, 64, 4096, 3, 100, 4095)] == \
-        ["radix"] * 4 + ["dft"] * 3
+        ["radix"] * 4 + ["chirp"] * 3
     calls = []
     monkeypatch.setattr(t_fft_ops, "fft_radix_ref",
                         lambda x, tw: calls.append(("radix", tuple(tw.shape))))
-    monkeypatch.setattr(t_fft_ops, "dft_ref",
-                        lambda x, c, s: calls.append(("dft", tuple(c.shape))))
+    monkeypatch.setattr(t_fft_ops, "fft_chirp_ref",
+                        lambda x, t: calls.append(("chirp", tuple(t.spectrum.shape))))
     for n in (64, 100, 1, 7):
         t_fft_ops.fft(torch.ones(2, n))
-    assert calls == [("radix", (64,)), ("dft", (100, 100)), ("radix", (1,)),
-                     ("dft", (7, 7))]
+    assert calls == [("radix", (64,)), ("chirp", (256,)), ("radix", (1,)),
+                     ("chirp", (16,))]
 
 
 def test_radix_twiddle_cache_is_reused():

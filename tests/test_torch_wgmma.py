@@ -2,8 +2,9 @@
 
 * ``mmm_route`` as a pure function of type, shape and alignment: 16-bit
   operands above SKINNY_M_MAX rows whose K and N are multiples of 8 and
-  whose pointers are 16-byte aligned take ``wgmma``; float32 and the rest
-  take ``tile``; up to SKINNY_M_MAX rows every type takes ``skinny``.
+  whose pointers are 16-byte aligned take ``wgmma``; float32 there with K
+  and N multiples of 4 takes ``tf32x3``; the rest take ``tile``; up to
+  SKINNY_M_MAX rows every type takes ``skinny``.
 * ``wgmma_tile_n``, the exact tile-width rule, at danube's prefill shapes.
 * ``mmm_ulp_excess``, the half-ulp check the card holds the kernel to: 0
   for a sound product, many for one with a K slice dropped, B misread or
@@ -50,8 +51,14 @@ def test_route_sends_aligned_16bit_prefills_to_wgmma(dtype, m, k, n):
 
 @pytest.mark.parametrize("m", [65, 512, 4096, 4200])
 def test_route_keeps_float32_on_the_tile_kernel(m):
+    """float32 keeps the tile kernel where TMA cannot load it: operands off
+    the 16-byte grid, K or N off the multiple of 4; aligned multiples of 4
+    take the 3×TF32 route."""
     for k, n in PREFILL + [(4096, 4096)]:
-        assert t_mm.mmm_route(torch.float32, m, k, n, True) == "tile"
+        assert t_mm.mmm_route(torch.float32, m, k, n, True) == "tf32x3"
+        assert t_mm.mmm_route(torch.float32, m, k, n, False) == "tile"
+        assert t_mm.mmm_route(torch.float32, m, k + 2, n, True) == "tile"
+        assert t_mm.mmm_route(torch.float32, m, k, n + 2, True) == "tile"
 
 
 @pytest.mark.parametrize("dtype", HALF)
@@ -84,7 +91,7 @@ def test_mmm_hopper_routes_by_type_shape_and_alignment(monkeypatch):
              (off, torch.ones(72, 136, dtype=bf))]
     for a, b in cases:
         t_mm.mmm_hopper(a, b)
-    assert routes == ["skinny", "wgmma", "tile", "tile", "tile"]
+    assert routes == ["skinny", "wgmma", "tf32x3", "tile", "tile"]
 
 
 # ---------------------------------------------------------------------------
