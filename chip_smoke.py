@@ -101,9 +101,11 @@ Phases (any failure exits non-zero before the result lines are printed):
    routes over M that set SKINNY_M_MAX; MMM's tensor-core route at each
    prefill projection (bfloat16, B cold in L2) beside the tile route in
    bfloat16, its plain version and ``torch.matmul``.  MMM's 3×TF32 route
-   by device time at 4096³ (the split pass and the product apart) and at
-   the float32 replay's four 512-row shapes, beside ``torch.matmul`` (TF32
-   off); its tile route at the lone request's 4096×4094 @ 4094×4096.  The
+   by device time at 4096³ (the split pass and the product apart, from
+   the same profiler windows, unless their sum strays from the whole
+   call's) and at the float32 replay's four 512-row shapes, beside
+   ``torch.matmul`` (TF32 off), its bound at the TF32 tensor-core rate and
+   the floor of three such products apart; its tile route at the lone request's 4096×4094 @ 4094×4096.  The
    chirp FFT route by device time at 2048 x DFT_N beside cuFFT, with its
    table build apart and a sweep over n at 2048 rows; SORT's radix route
    at 2^24 and its tile route at 4096 x 4096, with a sweep of both SORT
@@ -121,6 +123,7 @@ import dataclasses
 import functools
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -245,26 +248,30 @@ TIMED_RUNS = 20
 E2E_REPEATS = 5
 PIN = {"allowed_platforms": ["hopper"]}
 
+#: each kernel: its source under src/repro_torch/csrc/ and the TPU kernel
+#: it replaces
 REPLACES = {
-    "mmm": "src/repro/kernels/matmul/matmul.py:43",
-    "ewise": "src/repro/kernels/ewise/ewise.py:33",
-    "mvm": "src/repro/kernels/mvm/mvm.py:42",
-    "vdp": "src/repro/kernels/vdp/vdp.py:33",
-    "jacobi": "src/repro/kernels/jacobi/jacobi.py:47",
-    "conv1d": "src/repro/kernels/conv1d/conv1d.py:35",
-    "spmm": "src/repro/kernels/spmm/spmm.py:54",
-    "sort": "src/repro/kernels/sorthist/sorthist.py:57",
-    "hist": "src/repro/kernels/sorthist/sorthist.py:97",
-    "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:36",
-    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:106",
-    "fused": "src/repro/kernels/fused.py:58",
-    "mmm_skinny": "src/repro/kernels/matmul/matmul.py:43",
-    "mmm_wgmma": "src/repro/kernels/matmul/matmul.py:43",
-    "fft_radix": "src/repro/kernels/fft/fft.py:58",
-    "fft_chirp": "src/repro/kernels/fft/fft.py:58",
-    "mmm_tf32x3": "src/repro/kernels/matmul/matmul.py:43",
-    "sort_radix": "src/repro/kernels/sorthist/sorthist.py:57",
-    "flash_attention_mma": "src/repro/kernels/flash_attention/flash_attention.py:106",
+    "mmm": ("mmm.cu", "src/repro/kernels/matmul/matmul.py:43"),
+    "ewise": ("ewise.cu", "src/repro/kernels/ewise/ewise.py:33"),
+    "mvm": ("mvm.cu", "src/repro/kernels/mvm/mvm.py:42"),
+    "vdp": ("vdp.cu", "src/repro/kernels/vdp/vdp.py:33"),
+    "jacobi": ("jacobi.cu", "src/repro/kernels/jacobi/jacobi.py:47"),
+    "conv1d": ("conv1d.cu", "src/repro/kernels/conv1d/conv1d.py:35"),
+    "spmm": ("spmm.cu", "src/repro/kernels/spmm/spmm.py:54"),
+    "sort": ("sort.cu", "src/repro/kernels/sorthist/sorthist.py:57"),
+    "hist": ("hist.cu", "src/repro/kernels/sorthist/sorthist.py:97"),
+    "rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm/rmsnorm.py:36"),
+    "flash_attention": ("flash_attention.cu",
+                        "src/repro/kernels/flash_attention/flash_attention.py:106"),
+    "fused": ("fused.cu", "src/repro/kernels/fused.py:58"),
+    "mmm_skinny": ("mmm_skinny.cu", "src/repro/kernels/matmul/matmul.py:43"),
+    "mmm_wgmma": ("mmm_wgmma.cu", "src/repro/kernels/matmul/matmul.py:43"),
+    "fft_radix": ("fft_radix.cu", "src/repro/kernels/fft/fft.py:58"),
+    "fft_chirp": ("fft_chirp.cu", "src/repro/kernels/fft/fft.py:58"),
+    "mmm_tf32x3": ("mmm_wgmma.cu", "src/repro/kernels/matmul/matmul.py:43"),
+    "sort_radix": ("sort_radix.cu", "src/repro/kernels/sorthist/sorthist.py:57"),
+    "flash_attention_mma": ("flash_attention_mma.cu",
+                            "src/repro/kernels/flash_attention/flash_attention.py:106"),
 }
 
 #: where each kernel's launches are counted when it is not the template's
@@ -276,9 +283,6 @@ REPLACES = {
 PATH_OF = {"rmsnorm": "serve", "flash_attention_mma": "serve", "mmm_skinny": "serve",
            "mmm_wgmma": "serve", "fused": "graph", "fft_chirp": "chirp",
            "sort": "sort_tile", "mmm": "mmm_tile", "flash_attention": "serve_float32"}
-
-#: the source of each kernel whose file is not named after it
-SOURCE_OF = {"mmm_tf32x3": "mmm_wgmma"}
 
 
 def decode_projections(cfg):
@@ -1127,13 +1131,14 @@ def device_seconds(prof) -> float:
     return sum(device_seconds_of(e) for e in prof.key_averages())
 
 
-def device_ms_per_call(fn, runs: int, dev):
+def device_ms_per_call(fn, runs: int, dev, by_kernel: bool = False):
     """Device ms of the kernels one call of ``fn`` launches: ``runs`` calls,
     each synchronised, under torch.profiler after one waiting and one
     warm-up call.  The profiler does not record every launch (on the H100
     it kept 4 of 5 of a kernel launched from an agent's worker thread), so
     each kernel counts at its mean time times its launches per call, the
-    recorded count over ``runs`` rounded."""
+    recorded count over ``runs`` rounded.  The sum over the kernels, or
+    with ``by_kernel`` each kernel's share keyed by its name."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     with profile(activities=[ProfilerActivity.CUDA],
@@ -1142,8 +1147,9 @@ def device_ms_per_call(fn, runs: int, dev):
             fn()
             torch.cuda.synchronize(dev)
             prof.step()
-    return 1e3 * sum(device_seconds_of(e) / e.count * max(1, round(e.count / runs))
-                     for e in prof.key_averages() if e.count and device_seconds_of(e))
+    per = {e.key: 1e3 * device_seconds_of(e) / e.count * max(1, round(e.count / runs))
+           for e in prof.key_averages() if e.count and device_seconds_of(e)}
+    return per if by_kernel else sum(per.values())
 
 
 def phase3b(dev):
@@ -1706,10 +1712,12 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     a, b = jobs["MMM"]
     m, k = a.shape
     n = b.shape[1]
-    # the function's bound on the float32 CUDA cores, and the 3×TF32
-    # route's own: three products at the TF32 tensor-core peak
+    # the function's bound on the float32 CUDA cores, and at the card's
+    # fastest rate for float32 operands (TF32 tensor cores), the 3×TF32
+    # route's; its algorithm floor, three products at that rate, apart
     mmm_bound = bound(4 * (m * k + k * n + m * n), 2 * m * n * k)
-    tf32_bound = bound(4 * (m * k + k * n + m * n), 3 * 2 * m * n * k, tf32_peak)
+    tf32_bound = bound(4 * (m * k + k * n + m * n), 2 * m * n * k, tf32_peak)
+    tf32_floor_ms = 3 * 2 * m * n * k / tf32_peak * 1e3
     # the tile route at phase 3's lone request: K = 4094 off TMA's stride
     gen9 = torch.Generator(device=dev).manual_seed(9)
     tm, tk, tn = TILE_MMM
@@ -2007,33 +2015,54 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     # torch.profiler), and at the float32 replay's four 512-row prefill
     # projections (each call on the next of enough copies of B that the L2
     # holds none of them), beside torch.matmul with TF32 off
-    def tf32x3_parts(fn):
-        """Device ms per call of the split pass and of the product."""
-        fn()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(TIMED_RUNS):
-                fn()
-            torch.cuda.synchronize(dev)
-        parts = {"split_ms": 0.0, "product_ms": 0.0}
-        for e in prof.key_averages():
-            key = "split_ms" if "tf32_split" in e.key else (
-                "product_ms" if "Tf32x3" in e.key else None)
-            if key and e.count:
-                parts[key] += device_seconds_of(e) * 1e3 / e.count
+    def tf32x3_parts(fn, whole_ms):
+        """Device ms per call of the split pass and of the product, each the
+        median of five device_ms_per_call windows (an empty window, which
+        the profiler on the card now and then returns, is measured again, up
+        to three times).  Printed as not measured (None) where a window saw
+        another kernel or only one of the two, or where ``whole_ms``, the
+        whole call's device time measured apart, lies farther from the
+        windows' totals than their spread."""
+        windows = []
+        for _ in range(5):
+            for _ in range(3):
+                per = device_ms_per_call(fn, TIMED_RUNS, dev, by_kernel=True)
+                if per:
+                    break
+            split = sum(t for k_, t in per.items() if "tf32_split" in k_)
+            product = sum(t for k_, t in per.items() if "Tf32x3" in k_)
+            windows.append((split, product, sum(per.values())))
+        totals = [w[2] for w in windows]
+        spread = max(totals) - min(totals)
+        off = max(min(totals) - whole_ms, whole_ms - max(totals), 0.0)
+        parts = {"split_ms": statistics.median(w[0] for w in windows),
+                 "product_ms": statistics.median(w[1] for w in windows),
+                 "parts_windows_ms": totals}
+        if off > spread or any(not (w[0] and w[1]) or w[0] + w[1] != w[2] for w in windows):
+            print(f"  mmm_tf32x3 split not measured: split {parts['split_ms']:.4f} + "
+                  f"product {parts['product_ms']:.4f} against the whole call's "
+                  f"{whole_ms:.4f} ms, window totals {', '.join(f'{t:.4f}' for t in totals)}")
+            parts.update(split_ms=None, product_ms=None)
         return parts
+
+    def parts_text(row):
+        if row["split_ms"] is None:
+            return "split not measured"
+        return f"split {row['split_ms']:.4f} + product {row['product_ms']:.4f}"
 
     tf32_times = model_row(lambda: mmm_tf32x3_hopper(a, b), lambda: mmm_ref(a, b),
                            lambda: mmm_aten(a, b))
-    tf32_times.update(tf32x3_parts(lambda: mmm_tf32x3_hopper(a, b)))
+    tf32_times.update(tf32x3_parts(lambda: mmm_tf32x3_hopper(a, b), tf32_times["ms"]))
     exact = a.double() @ b.double()
     tf32_times["err_vs_float64"] = normwise(mmm_tf32x3_hopper(a, b), exact)
     tf32_times["library_err_vs_float64"] = normwise(mmm_aten(a, b), exact)
     del exact
-    tf32_times.update(bound_float32_ms=mmm_bound[0], bound_float32_by=mmm_bound[1])
-    print(f"  mmm_tf32x3 {m}x{k}@{k}x{n} float32: kernel_ms {tf32_times['ms']:.4f} (split "
-          f"{tf32_times['split_ms']:.4f} + product {tf32_times['product_ms']:.4f})  "
-          f"torch.matmul {tf32_times['library_ms']:.4f}  bound {tf32_bound[0]:.4f} "
-          f"(three TF32 products), {mmm_bound[0]:.4f} (float32 CUDA cores); normwise "
+    tf32_times.update(bound_float32_ms=mmm_bound[0], bound_float32_by=mmm_bound[1],
+                      algorithm_floor_ms=tf32_floor_ms)
+    print(f"  mmm_tf32x3 {m}x{k}@{k}x{n} float32: kernel_ms {tf32_times['ms']:.4f} "
+          f"({parts_text(tf32_times)})  torch.matmul {tf32_times['library_ms']:.4f}  bound "
+          f"{tf32_bound[0]:.4f} (TF32 tensor cores), {mmm_bound[0]:.4f} (float32 CUDA "
+          f"cores); algorithm floor {tf32_floor_ms:.4f} (three TF32 products); normwise "
           f"error vs float64 {tf32_times['err_vs_float64']:.3e}, torch.matmul "
           f"{tf32_times['library_err_vs_float64']:.3e}")
     f32_prefill = []
@@ -2046,21 +2075,25 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         row = {"shape": f"{m_}x{kk}@{kk}x{nn} float32", "launches_per_replay": per_prefill,
                "ms": device_ms(cycling(mmm_tf32x3_hopper, args)),
                "library_ms": device_ms(cycling(mmm_aten, args)),
-               "bound_ms": 3 * 2 * m_ * kk * nn / tf32_peak * 1e3, "copies_of_b": len(bs)}
-        row.update(tf32x3_parts(cycling(mmm_tf32x3_hopper, args)))
+               "bound_ms": bound(4 * (m_ * kk + kk * nn + m_ * nn), 2 * m_ * kk * nn,
+                                 tf32_peak)[0],
+               "algorithm_floor_ms": 3 * 2 * m_ * kk * nn / tf32_peak * 1e3,
+               "copies_of_b": len(bs)}
+        row.update(tf32x3_parts(cycling(mmm_tf32x3_hopper, args), row["ms"]))
         f32_prefill.append(row)
-        print(f"  mmm_tf32x3 {row['shape']:26s} kernel_ms {row['ms']:.4f} (split "
-              f"{row['split_ms']:.4f} + product {row['product_ms']:.4f})  torch.matmul "
-              f"{row['library_ms']:.4f}  bound_ms {row['bound_ms']:.4f}  {per_prefill} per "
-              f"float32 prefill")
+        print(f"  mmm_tf32x3 {row['shape']:26s} kernel_ms {row['ms']:.4f} "
+              f"({parts_text(row)})  torch.matmul {row['library_ms']:.4f}  bound_ms "
+              f"{row['bound_ms']:.4f}  algorithm floor {row['algorithm_floor_ms']:.4f}  "
+              f"{per_prefill} per float32 prefill")
         del am, bs, args
     replay_ms = {k: sum(r[k] * r["launches_per_replay"] for r in f32_prefill)
-                 for k in ("ms", "library_ms", "bound_ms")}
+                 for k in ("ms", "library_ms", "bound_ms", "algorithm_floor_ms")}
     tf32_times.update(per_shape=f32_prefill, float32_prefill=replay_ms)
     print(f"  mmm_tf32x3, the float32 replay's prefill "
           f"({sum(r['launches_per_replay'] for r in f32_prefill)} MMMs): kernel "
           f"{replay_ms['ms']:.2f} ms, torch.matmul {replay_ms['library_ms']:.2f} ms, bound "
-          f"{replay_ms['bound_ms']:.2f} ms")
+          f"{replay_ms['bound_ms']:.2f} ms, algorithm floor "
+          f"{replay_ms['algorithm_floor_ms']:.2f} ms")
 
     # the crossover of the routes by device time, at the gate/up projection
     # and at the unembed (the widest): it set SKINNY_M_MAX
@@ -2117,8 +2150,9 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         ("mmm", {"ms": ms(mmm_tile_hopper, ta, tb), "plain_ms": ms(mmm_ref, ta, tb),
                  "library_ms": ms(mmm_aten, ta, tb)}, tile_bound,
          f"{tm}x{tk}@{tk}x{tn} float32, tile route (library: torch.matmul, TF32 off)"),
-        # device time (events under "event_ms"); bound: the three TF32
-        # products (the float32 CUDA-core bound under "bound_float32_ms")
+        # device time (events under "event_ms"); bound: 2·M·N·K at the TF32
+        # tensor-core rate (the float32 CUDA-core bound under
+        # "bound_float32_ms", three products under "algorithm_floor_ms")
         ("mmm_tf32x3", tf32_times, tf32_bound,
          f"{m}x{k}@{k}x{n} float32, 3×TF32 route, device time of the split pass and "
          f"the product (library: torch.matmul, TF32 off)"),
@@ -2215,9 +2249,9 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
                       **path_launches}.get(PATH_OF.get(name), launches)[name]
         if not n_launches:
             fail(f"{name} was launched no time on its path")
-        entry = {"name": name, "route": "cuda",
-                 "source": f"src/repro_torch/csrc/{SOURCE_OF.get(name, name)}.cu",
-                 "replaces": REPLACES[name], "launches": n_launches,
+        source, site = REPLACES[name]
+        entry = {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
+                 "replaces": site, "launches": n_launches,
                  "max_abs_err": max_abs[name], **times, "bound_ms": bound_ms,
                  "bound_by": bound_by, "shape": shape}
         if name == "ewise":

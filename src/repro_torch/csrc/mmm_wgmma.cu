@@ -17,11 +17,11 @@
 // Bound on the H100: operations.  A danube prefill projection of 4200
 // tokens (4200x2560 @ 2560x6912) does 2*M*N*K = 149 GFLOP, 0.150 ms at the
 // 989 TFLOP/s of the bfloat16 tensor cores, against 114 MB of operands and
-// result (0.034 ms at 3.35 TB/s).  float32 at 4096^3: the three TF32
-// products, 3*2*M*N*K = 412 GFLOP, take 0.833 ms at the 495 TFLOP/s of the
-// TF32 tensor cores; the function's own bound on the float32 CUDA cores
-// (2*M*N*K at 67 TFLOP/s) is 2.0513 ms, which mmm.cu and torch.matmul
-// (TF32 off) are held to.
+// result (0.034 ms at 3.35 TB/s).  float32 at 4096^3: the function's
+// 2*M*N*K = 137 GFLOP take 0.278 ms at the 495 TFLOP/s of the TF32 tensor
+// cores, the card's fastest rate for float32 operands; on the float32 CUDA
+// cores (67 TFLOP/s), which mmm.cu and torch.matmul (TF32 off) use, 2.0513
+// ms.  The 3xTF32 algorithm's own floor, three products, is 0.833 ms.
 //
 // Design (Hopper's warp-specialised GEMM, simple first): one 288-thread
 // block per 128 x BN output tile, not persistent.  One producer warp (its
@@ -50,14 +50,15 @@
 //   Sums run over K in the same order at either width.
 // - float32 (Tf32x3): one split pass first (tf32_split_kernel) writes hi =
 //   tf32(x) and lo = tf32(x - hi), rounded to nearest with ties away from
-//   zero (cvt.rna.tf32.f32), of A as [A_hi; A_lo] and of B transposed as
-//   [B_hi^T; B_lo^T] into a workspace the wrapper allocates (at 4096^3 it
-//   moves ~400 MB, ~0.12 ms): TF32 wgmma takes both operands K-major and
-//   has no transpose bit for 32-bit types.  Then BN = 128, 3 stages of four
-//   128 x 32 boxes (A_hi, A_lo, B_hi^T, B_lo^T: 64 KB), and m64n128k8
-//   lo*hi, hi*lo, hi*hi per K step of 8 into the same float32
-//   accumulators, the small terms first.  What is left out, lo*lo and the
-//   rounding of lo, is about 2^-21 of each product: float32's own range.
+//   zero (cvt.rna.tf32.f32; split_tf32 has the non-finite cases), of A as
+//   [A_hi; A_lo] and of B transposed as [B_hi^T; B_lo^T] into a workspace
+//   the wrapper allocates (at 4096^3 it moves ~400 MB, ~0.12 ms): TF32
+//   wgmma takes both operands K-major and has no transpose bit for 32-bit
+//   types.  Then BN = 128, 3 stages of four 128 x 32 boxes (A_hi, A_lo,
+//   B_hi^T, B_lo^T: 64 KB), and m64n128k8 lo*hi, hi*lo, hi*hi per K step
+//   of 8 into the same float32 accumulators, the small terms first.  What
+//   is left out, lo*lo and the rounding of lo, is about 2^-21 of each
+//   product: float32's own range.
 //   The tensor cores' accumulator does not round to nearest, so each stage
 //   (K = 32) sums into a fresh one that the CUDA cores add to the tile's
 //   float32 sums after wgmma.wait_group 0, which gives up the overlap of
@@ -477,10 +478,23 @@ __device__ __forceinline__ float to_tf32(float x) {
   return __uint_as_float(r);
 }
 
-// The 3xTF32 route's split pass: hi = tf32(x) and lo = tf32(x - hi) (x -
-// hi is exact in float32) for every element of A (M x K) into ws_a =
-// [A_hi; A_lo] (2M x K), and of B (K x N), transposed through a shared
-// tile so that reads and writes both coalesce, into ws_b = [B_hi^T;
+// x as hi + lo: hi = tf32(x) and lo = tf32(x - hi), x - hi exact in
+// float32.  A finite x that rounding to nearest would carry past FLT_MAX
+// takes hi by truncation instead, so that x - hi stays finite.  A
+// non-finite x goes whole into lo (hi = 0): it then meets the other
+// operand only in lo*hi (A) or hi*lo (B), once, times that operand's hi
+// part, as it meets the operand itself in A @ B; as a hi it would also meet
+// the other's lo, where inf * 0 or inf - inf makes NaN.
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = to_tf32(x);
+  if (!isfinite(x)) hi = 0.f;
+  else if (isinf(hi)) hi = __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+  lo = to_tf32(x - hi);
+}
+
+// The 3xTF32 route's split pass: split_tf32 of every element of A (M x K)
+// into ws_a = [A_hi; A_lo] (2M x K), and of B (K x N), transposed through a
+// shared tile so that reads and writes both coalesce, into ws_b = [B_hi^T;
 // B_lo^T] (2N x K).  One 32 x 32 tile per 256-thread block, the first
 // tiles_a blocks on A.
 __global__ void __launch_bounds__(256)
@@ -496,9 +510,7 @@ tf32_split_kernel(const float* __restrict__ A, const float* __restrict__ B,
     for (int i = ty; i < 32 && c < K; i += 8) {
       if (r0 + i >= M) break;
       const size_t at = (size_t)(r0 + i) * K + c;
-      const float x = A[at], hi = to_tf32(x);
-      ws_a[at] = hi;
-      ws_a[mk + at] = to_tf32(x - hi);
+      split_tf32(A[at], ws_a[at], ws_a[mk + at]);
     }
     return;
   }
@@ -511,9 +523,7 @@ tf32_split_kernel(const float* __restrict__ A, const float* __restrict__ B,
   for (int i = ty; i < 32; i += 8) {
     if (n0 + i >= N || k0 + tx >= K) continue;
     const size_t at = (size_t)(n0 + i) * K + k0 + tx;
-    const float x = tile[tx][i], hi = to_tf32(x);
-    ws_b[at] = hi;
-    ws_b[nk + at] = to_tf32(x - hi);
+    split_tf32(tile[tx][i], ws_b[at], ws_b[nk + at]);
   }
 }
 

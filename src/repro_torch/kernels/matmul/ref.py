@@ -49,8 +49,14 @@ def tf32_round(x):
 
 def tf32_split(x):
     """(hi, lo) of float32 ``x``: hi = tf32(x) and lo = tf32(x − hi), x − hi
-    exact in float32, as the 3×TF32 route's split pass writes them."""
+    exact in float32, as the 3×TF32 route's split pass writes them.  A
+    finite x that rounding would carry past the largest float32 takes hi by
+    truncation, so x − hi stays finite; a non-finite x goes whole into lo
+    (hi = 0), so that each product meets it once, as A @ B does."""
     hi = tf32_round(x)
+    truncated = (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+    hi = torch.where(torch.isinf(hi), truncated, hi)
+    hi = torch.where(torch.isfinite(x), hi, torch.zeros_like(hi))
     return hi, tf32_round(x - hi)
 
 

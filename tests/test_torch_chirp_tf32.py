@@ -220,6 +220,69 @@ def test_tf32_split_is_exact_to_22_bits():
     assert bool(((hi.double() + lo.double() - xd).abs() <= 2.0 ** -22 * xd.abs()).all())
 
 
+def test_tf32_split_keeps_non_finite_and_near_max_values():
+    """±inf and NaN go whole into lo with hi = 0; a finite value that rounding
+    to nearest would carry past the largest float32 takes hi by truncation,
+    and hi + lo is then still within 2^-22 of it."""
+    big = np.finfo(np.float32).max
+    x = from_numpy(np.array([np.inf, -np.inf, np.nan, big, -big, np.float32(big) * 0.99999,
+                             1.5], np.float32))
+    hi, lo = t_mm_ref.tf32_split(x)
+    assert torch.equal(hi[:3], torch.zeros(3))
+    assert lo[0].item() == np.inf and lo[1].item() == -np.inf and np.isnan(lo[2].item())
+    assert bool(torch.isfinite(hi[3:]).all()) and bool(torch.isfinite(lo[3:]).all())
+    assert not (to_numpy(hi[3:]).view(np.uint32) & 0x1FFF).any()
+    xd = x[3:].double()
+    assert bool(((hi[3:].double() + lo[3:].double() - xd).abs() <= 2.0 ** -22 * xd.abs()).all())
+
+
+def _non_finite_operands(seed, m, k, n):
+    """Normal float32 A (m, k) and B (k, n) with ±inf and NaN entries, and
+    ±FLT_MAX entries whose products stay finite (times 1/8 to 1/4) or
+    overflow (times 2 to 4), in rows of A and in a column of B.  No
+    overflowing product meets an infinite column: whether inf plus an
+    overflowed product is inf or NaN then hangs on the sum's order and on
+    fused multiply-adds, in the reference too."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    big = np.finfo(np.float32).max
+
+    def signed(lo, hi, size):
+        return (rng.uniform(lo, hi, size) * rng.choice([-1.0, 1.0], size)).astype(np.float32)
+
+    a[1, 5], a[2, 9], a[4, 0] = np.inf, -np.inf, np.nan
+    b[7, 3], b[8, 6] = np.inf, -np.inf
+    a[3, 11], b[11] = big, signed(0.125, 0.25, n)
+    a[5, 12], b[12] = -big, signed(2.0, 4.0, n)
+    b[12, [3, 6]] = 0.5
+    b[13, 10], a[:, 13] = big, signed(0.125, 0.25, m)
+    return a, b
+
+
+def test_mmm_tf32x3_ref_keeps_infinities_and_near_max_values():
+    """With ±inf, NaN and ±FLT_MAX entries the 3×TF32 model gives NaN and ±inf
+    where ``mmm_ref`` does, and elsewhere each entry lies within 1e-5 of
+    (|A|·|B|)_ij of the float64 product."""
+    a, b = (from_numpy(t) for t in _non_finite_operands(12, 130, 72, 136))
+    got, want = t_mm_ref.mmm_tf32x3_ref(a, b), t_mm_ref.mmm_ref(a, b)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    inf = torch.isinf(want)
+    assert torch.equal(got[inf], want[inf]) and int(inf.sum()) > 136
+    finite = torch.isfinite(want)
+    exact = a.double() @ b.double()
+    scale = a.double().abs() @ b.double().abs()
+    assert bool(((got.double() - exact).abs()[finite]
+                 <= MMM_NORMWISE * scale[finite]).all())
+    # the split of the seed's design (hi = tf32(x) whatever x) makes NaN
+    # of every row and column an infinity or FLT_MAX reaches
+    hi = t_mm_ref.tf32_round(a)
+    naive = (a - hi) @ t_mm_ref.tf32_round(b) + hi @ (b - t_mm_ref.tf32_round(b)) \
+        + hi @ t_mm_ref.tf32_round(b)
+    assert int(torch.isnan(naive).sum()) > int(torch.isnan(want).sum())
+
+
 @pytest.mark.parametrize("m,k,n", [(130, 72, 136), (65, 8, 4), (96, 640, 200)])
 def test_mmm_tf32x3_ref_matches_jax_and_float64(m, k, n):
     a, b = _normal(m + k, m, k), _normal(k + n, k, n)

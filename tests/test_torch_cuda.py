@@ -206,6 +206,46 @@ def test_mmm_tf32x3_kernel_is_repeatable(card):
     assert torch.equal(_bits(mmm_tf32x3_hopper(a, b)), _bits(mmm_tf32x3_hopper(a, b)))
 
 
+def _non_finite_operands(card, m, k, n):
+    """Normal float32 A (m, k) and B (k, n) with ±inf and NaN entries, and
+    ±FLT_MAX entries whose products stay finite (times 1/8 to 1/4) or
+    overflow (times 2 to 4), in rows of A and in a column of B.  No
+    overflowing product meets an infinite column: whether inf plus an
+    overflowed product is inf or NaN then hangs on the sum's order."""
+    a, b = _rnd(card, m, k, dtype=torch.float32), _rnd(card, k, n, dtype=torch.float32, seed=1)
+    g = torch.Generator(device=card).manual_seed(2)
+    big = torch.finfo(torch.float32).max
+
+    def signed(lo, hi, size):
+        u = torch.rand(size, generator=g, device=card) * (hi - lo) + lo
+        return torch.where(torch.rand(size, generator=g, device=card) < 0.5, -u, u)
+
+    a[1, 5], a[2, 9], a[4, 0] = float("inf"), float("-inf"), float("nan")
+    b[7, 3], b[8, 6] = float("inf"), float("-inf")
+    a[3, 11], b[11] = big, signed(0.125, 0.25, n)
+    a[5, 12], b[12] = -big, signed(2.0, 4.0, n)
+    b[12, [3, 6]] = 0.5
+    b[13, 10], a[:, 13] = big, signed(0.125, 0.25, m)
+    return a, b
+
+
+@pytest.mark.parametrize("m,k,n", [(130, 72, 136), (512, 2560, 640)])
+def test_mmm_tf32x3_kernel_keeps_infinities_and_near_max_values(card, m, k, n):
+    """With ±inf, NaN and ±FLT_MAX entries: NaN and ±inf where ``mmm_ref``
+    has them, and elsewhere each entry within 1e-5 of (|A|·|B|)_ij of the
+    float64 product.  A split that rounds ±inf or FLT_MAX into hi makes NaN
+    of whole rows and columns."""
+    a, b = _non_finite_operands(card, m, k, n)
+    out, want = mmm_tf32x3_hopper(a, b), mmm_ref(a, b)
+    assert torch.equal(torch.isnan(out), torch.isnan(want))
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(out), inf) and torch.equal(out[inf], want[inf])
+    finite = torch.isfinite(want)
+    err = (out.double() - a.double() @ b.double()).abs()
+    scale = a.double().abs() @ b.double().abs()
+    assert bool((err[finite] <= TOL[torch.float32] * scale[finite]).all())
+
+
 def test_tensor_map_routes_launch_first_on_a_new_thread(card):
     """The wgmma and 3×TF32 routes encode TMA tensor maps with
     cuTensorMapEncodeTiled, which needs the device's context current on
