@@ -7,7 +7,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero before the result lines are printed):
 
 1. Build the kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source,
-   in parallel); print the card and its power limit; turn TF32 off.
+   in parallel), with each kernel's ptxas register and spill counts by its
+   entry name; print the card and its power limit; turn TF32 off.
 2. Hold each kernel (each EW op) against its plain PyTorch version on the
    card, in float32 and bfloat16, at ragged shapes and at the shapes of
    phase 3.  EW*, 1DCONV: bit-exact.  MMM, MVM, SMMM: normwise relative
@@ -23,14 +24,18 @@ Phases (any failure exits non-zero before the result lines are printed):
    cases, against ``mmm_ref`` and the split-K plain version (``TOL``), and
    two calls bit-identical.  MMM's tensor-core route, bfloat16 and float16:
    danube's eight prefill projections (512 and 4200 rows), ragged M, N and
-   K, and 4096³, against ``mmm_ref`` (``TOL``) and element by element
-   within half an output ulp of a float32 product of the same inputs
+   K, 4096³, and operands TMA cannot load as they lie (K or N off a
+   multiple of 8, odd N, A or B off the 16-byte grid: packed first),
+   against ``mmm_ref`` (``TOL``) and element by element within half an
+   output ulp of a float32 product of the same inputs
    (``mmm_ulp_excess``); two calls bit-identical.  MMM's 3×TF32 route,
    float32: 4096³, the float32 replay's four 512-row prefill shapes, ragged
-   M, N and K that are multiples of 4, and M = 65, against ``mmm_ref``, a
-   float64 product and its plain model ``mmm_tf32x3_ref`` (``TOL``), its
-   error against float64 printed beside ``torch.matmul``'s; two calls
-   bit-identical.  FFT: normwise within ``FFT_TOL`` against
+   M, N and K, every K and N in {1, 3, 5, 4094, 4095}, M = 65, the lone
+   request's 4096×4094 @ 4094×4096 and operands off the 16-byte grid,
+   against ``mmm_ref``, a float64 product and its plain model
+   ``mmm_tf32x3_ref`` (``TOL``), its error against float64 printed beside
+   ``torch.matmul``'s; ±inf, NaN and ±FLT_MAX inputs at an off-grid shape
+   against ``mmm_ref``; two calls bit-identical.  FFT: normwise within ``FFT_TOL`` against
    ``torch.fft.fft`` in float64 and against its plain version, in three
    types: the radix route at every n = 2^j ≤ 4096, the chirp route at
    n = 3, 7, 100, 1000, 2999, DFT_N, 4093 and 4095, each at 1, 3 and 2048
@@ -42,8 +47,10 @@ Phases (any failure exits non-zero before the result lines are printed):
    HIST: bit-exact, on bin edges, range ends, NaN and ±inf, at several
    bin counts, and with every value in one bin.
    RMSNORM and FLASH_ATTN: normwise (``TOL``) at the model path's shapes
-   in three types, FLASH_ATTN under four masks (causal, window, prefix
-   with window, Sq < Skv): the tensor-core route in bfloat16 and float16
+   in three types (RMSNORM at 1, 4, 512, 4096 and 4200 rows of d_model,
+   two calls bit-identical, and at (3, 80) and (7, 1000)), FLASH_ATTN
+   under four masks (causal, window, prefix with window, Sq < Skv): the
+   tensor-core route in bfloat16 and float16
    (also against its plain model), the CUDA-core route in all three.
    The fused chain kernel: bit-exact against its plain version
    and against serial EW launches, in float32, bfloat16 and float16, on
@@ -58,7 +65,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    must match its plain version.  Three more requests, each counted alone,
    drive the other routes: FFT of 2048 rows of DFT_N (the chirp route),
    SORT of 4096 rows of 4096 (the tile route) and MMM 4096×4094 @
-   4094×4096 float32 (the tile route: TMA cannot stride K = 4094).  Then
+   4094×4096 float32 (the 3×TF32 route, its split pass padding K = 4094,
+   which TMA cannot stride, to 4096).  Then
    the template is timed end to end (median of 5 runs, T1 per call).
 3b. The model path: h2o-danube-1.8b at full width (random bfloat16 weights
    from a seed) served through ``repro_torch.launch.serve.run_requests``
@@ -68,7 +76,7 @@ Phases (any failure exits non-zero before the result lines are printed):
    RMSNORM 2·L+1 per forward pass, FLASH_ATTN L per prefill on the
    tensor-core route; a prefill's
    7·L projections on MMM's tensor-core route, its one-row unembed and
-   every decode pass's MMMs on the skinny route, none on the tile route),
+   every decode pass's MMMs on the skinny route),
    the quarantine must stay
    empty, and every step's logits must agree with a replay through the
    plain versions on the card (``SERVE_TOL``).  The same weights widened
@@ -95,17 +103,21 @@ Phases (any failure exits non-zero before the result lines are printed):
    shapes of phase 3b: device time per call from ``torch.profiler`` over 20
    calls (a kernel of tens of µs is shorter than its Python wrapper), with
    the event times beside it (FLASH_ATTN's tensor-core route in bfloat16,
-   its CUDA-core route in float32); so are the radix FFT at the template's shape
+   its CUDA-core route in float32; RMSNORM at 4, 512, 4096 and 4200 rows,
+   each beside ``F.rms_norm`` and its bound, under its launch plan); so are the radix FFT at the template's shape
    and MMM's skinny route at each decode projection (M = 4, bfloat16, B
-   cold in L2), beside ``torch.matmul``, with a sweep of the three MMM
-   routes over M that set SKINNY_M_MAX; MMM's tensor-core route at each
-   prefill projection (bfloat16, B cold in L2) beside the tile route in
-   bfloat16, its plain version and ``torch.matmul``.  MMM's 3×TF32 route
-   by device time at 4096³ (the split pass and the product apart, from
-   the same profiler windows, unless their sum strays from the whole
-   call's) and at the float32 replay's four 512-row shapes, beside
-   ``torch.matmul`` (TF32 off), its bound at the TF32 tensor-core rate and
-   the floor of three such products apart; its tile route at the lone request's 4096×4094 @ 4094×4096.  The
+   cold in L2), beside ``torch.matmul``, with a sweep over M of the skinny
+   route against the route that takes M > SKINNY_M_MAX (wgmma in
+   bfloat16, 3×TF32 in float32) that sets SKINNY_M_MAX; MMM's tensor-core
+   route at each prefill projection (bfloat16, B cold in L2) beside its
+   plain version and ``torch.matmul``, and at 4200×2558 @ 2558×6910 (both
+   operands packed; the pack and the product apart).  MMM's 3×TF32 route
+   by device time at 4096³ and at the lone request's 4096×4094 @
+   4094×4096 (the split pass and the product apart, from the same
+   profiler windows, unless their sum strays from the whole call's) and
+   at the float32 replay's four 512-row shapes, beside ``torch.matmul``
+   (TF32 off), its bound at the TF32 tensor-core rate and the floor of
+   three such products apart.  The
    chirp FFT route by device time at 2048 x DFT_N beside cuFFT, with its
    table build apart and a sweep over n at 2048 rows; SORT's radix route
    at 2^24 and its tile route at 4096 x 4096, with a sweep of both SORT
@@ -148,9 +160,13 @@ SIZES = {"MMM": 4096, "EW": 8192, "MVM": 8192, "VDP": 1 << 26, "JS": 8192,
 DFT_N = 3000
 #: phase 2 and 4: the chirp route's lengths (2999 and 4093 are primes)
 CHIRP_N = (3, 7, 100, 1000, 2999, DFT_N, 4093, 4095)
-#: phase 3 and 4: the lone tile-route MMM, float32 (M, K, N): K = 4094 is
-#: not a multiple of 4, so TMA cannot stride A's rows
-TILE_MMM = (4096, 4094, 4096)
+#: phase 3 and 4: the lone float32 MMM request (M, K, N): K = 4094 is not a
+#: multiple of 4, so TMA cannot stride A's rows; the 3×TF32 route's split
+#: pass pads its workspace to K = 4096
+LONE_MMM = (4096, 4094, 4096)
+#: phase 2 and 4: a bfloat16 prefill-sized MMM whose K and N are off every
+#: multiple of 8: the tensor-core route packs both operands first
+PACKED_MMM = (4200, 2558, 6910)
 
 #: MMM and MVM: normwise relative error allowed between a kernel and its
 #: plain version.  float32: the two sum the same float32 products in another
@@ -251,7 +267,6 @@ PIN = {"allowed_platforms": ["hopper"]}
 #: each kernel: its source under src/repro_torch/csrc/ and the TPU kernel
 #: it replaces
 REPLACES = {
-    "mmm": ("mmm.cu", "src/repro/kernels/matmul/matmul.py:43"),
     "ewise": ("ewise.cu", "src/repro/kernels/ewise/ewise.py:33"),
     "mvm": ("mvm.cu", "src/repro/kernels/mvm/mvm.py:42"),
     "vdp": ("vdp.cu", "src/repro/kernels/vdp/vdp.py:33"),
@@ -278,11 +293,10 @@ REPLACES = {
 #: (phase 3): the model path (3b), its float32 replay on the kernels (3b;
 #: the CUDA-core FLASH_ATTN route), the graphs (3c), or one of phase 3's
 #: requests counted alone: FFT at the non-power-of-two DFT_N (the chirp
-#: route), SORT of rows that fit one tile, MMM at a K TMA cannot stride
-#: (the tile route)
+#: route), SORT of rows that fit one tile
 PATH_OF = {"rmsnorm": "serve", "flash_attention_mma": "serve", "mmm_skinny": "serve",
            "mmm_wgmma": "serve", "fused": "graph", "fft_chirp": "chirp",
-           "sort": "sort_tile", "mmm": "mmm_tile", "flash_attention": "serve_float32"}
+           "sort": "sort_tile", "flash_attention": "serve_float32"}
 
 
 def decode_projections(cfg):
@@ -607,21 +621,29 @@ def phase2_mmm_wgmma(dev, gen, dt) -> None:
     of the float32 product of the same inputs (``mmm_ulp_excess``; ``TOL``
     alone would pass a lost K stage, a wrong swizzle or rounding toward
     zero): danube's eight prefill projections, ragged M, N and K (TMA
-    zero-fills past each) and 4096³; the largest ratio to that bound is
-    printed; two calls bit-identical."""
+    zero-fills past each), 4096³, and operands TMA cannot load as they lie,
+    which the route packs first (``wgmma_packs``): K or N off a multiple of
+    8, odd N, A or B one element into a buffer, off the 16-byte grid; the
+    largest ratio to that bound is printed; two calls bit-identical, at an
+    aligned and at a packed shape."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.matmul.matmul import mmm_wgmma_hopper
+    from repro_torch.kernels.matmul.matmul import mmm_wgmma_hopper, wgmma_packs
     from repro_torch.kernels.matmul.ref import mmm_ref, mmm_ulp_ratios
 
     name = str(dt).split(".")[-1]
-    shapes = [(m, kk, n) for m in SERVE["prompt_lens"]
+    shapes = [(m, kk, n, 0) for m in SERVE["prompt_lens"]
               for kk, n in prefill_projections(get_config(SERVE["arch"]))]
-    shapes += [(130, 72, 136), (65, 8, 8), (SIZES["MMM"],) * 3]
-    for m, kk, n in shapes:
-        a = torch.randn((m, kk), generator=gen, device=dev).to(dt)
-        b = torch.randn((kk, n), generator=gen, device=dev).to(dt)
+    shapes += [(130, 72, 136, 0), (65, 8, 8, 0), (SIZES["MMM"],) * 3 + (0,)]
+    # off TMA's grid: (M, K, N, 1 when A and B are views one element in)
+    shapes += [(*PACKED_MMM, 0), (130, 75, 137, 0), (300, 17, 259, 0), (200, 8, 13, 0),
+               (65, 1, 1, 0), (100, 64, 64, 1), (512, 2560, 640, 1), (130, 75, 137, 1)]
+    for m, kk, n, off in shapes:
+        a = torch.randn(m * kk + off, generator=gen, device=dev).to(dt)[off:].view(m, kk)
+        b = torch.randn(kk * n + off, generator=gen, device=dev).to(dt)[off:].view(kk, n)
+        packs = wgmma_packs(kk, n, a.data_ptr() % 16 == 0, b.data_ptr() % 16 == 0)
         out = mmm_wgmma_hopper(a, b)
-        label = f"MMM wgmma {name} {m}x{kk}@{kk}x{n}"
+        label = (f"MMM wgmma {name} {m}x{kk}@{kk}x{n}"
+                 + "".join(f" {w} packed" for w, p in zip("AB", packs) if p))
         if out.shape != (m, n) or out.dtype != dt:
             fail(f"{label}: {tuple(out.shape)} {out.dtype}")
         check_close(f"{label} vs plain", normwise(out, mmm_ref(a, b)), dt)
@@ -631,32 +653,40 @@ def phase2_mmm_wgmma(dev, gen, dt) -> None:
               f"float32 product; largest ratio to the bound {float(ratios.max()):.4f}")
         if excess:
             fail(f"{label}: {excess} elements lie past half an ulp of the float32 product")
-    if not torch.equal(bits(out), bits(mmm_wgmma_hopper(a, b))):
-        fail(f"MMM wgmma {name}: two calls differ (expected the same bits)")
-    print(f"  MMM wgmma {name} {m}x{kk}@{kk}x{n}: two calls give the same bits")
+        if (m, kk, n) in ((SIZES["MMM"],) * 3, PACKED_MMM):
+            if not torch.equal(bits(out), bits(mmm_wgmma_hopper(a, b))):
+                fail(f"{label}: two calls differ (expected the same bits)")
+            print(f"  {label}: two calls give the same bits")
 
 
 def phase2_mmm_tf32x3(dev, gen) -> None:
     """The 3×TF32 route against ``mmm_ref``, a float64 product of the same
     inputs and its plain model ``mmm_tf32x3_ref`` (the three float32
     products of the TF32 parts) within ``TOL``: 4096³, the float32 replay's
-    four 512-row prefill projections, ragged M, N and K that are multiples
-    of 4, and M = 65; each shape's error against float64 printed beside
-    ``torch.matmul``'s (TF32 off); two calls bit-identical."""
+    four 512-row prefill projections, ragged M, N and K, every K and N in
+    {1, 3, 5, 4094, 4095} (the split pass pads rows to a multiple of 4 and
+    the epilogue stores odd N one value at a time), M = 65, the lone
+    request's shape and A and B one element into a buffer, off the 16-byte
+    grid; each shape's error against float64 printed beside
+    ``torch.matmul``'s (TF32 off); ±inf, NaN and
+    ±FLT_MAX inputs at an off-grid shape against ``mmm_ref``; two calls
+    bit-identical, at 4096³ and at the lone request's shape."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.matmul.matmul import mmm_tf32x3_hopper
     from repro_torch.kernels.matmul.ref import mmm_ref, mmm_tf32x3_ref
 
     dt = torch.float32
-    shapes = [(SERVE["prompt_lens"][0], kk, n)
+    shapes = [(SERVE["prompt_lens"][0], kk, n, 0)
               for kk, n in prefill_projections(get_config(SERVE["arch"]))]
-    shapes += [(1000, 772, 1004), (130, 72, 136), (65, 2560, 640), (65, 8, 4),
-               (SIZES["MMM"],) * 3]
-    for m, kk, n in shapes:
-        a = torch.randn((m, kk), generator=gen, device=dev)
-        b = torch.randn((kk, n), generator=gen, device=dev)
+    shapes += [(1000, 772, 1004, 0), (130, 72, 136, 0), (65, 2560, 640, 0), (65, 8, 4, 0),
+               (SIZES["MMM"],) * 3 + (0,), (*LONE_MMM, 0), (1000, 777, 1001, 1),
+               (130, 75, 137, 1)]
+    shapes += [(130, kk, n, 0) for kk in (1, 3, 5, 4094, 4095) for n in (1, 3, 5, 4094, 4095)]
+    for m, kk, n, off in shapes:
+        a = torch.randn(m * kk + off, generator=gen, device=dev)[off:].view(m, kk)
+        b = torch.randn(kk * n + off, generator=gen, device=dev)[off:].view(kk, n)
         out = mmm_tf32x3_hopper(a, b)
-        label = f"MMM tf32x3 float32 {m}x{kk}@{kk}x{n}"
+        label = f"MMM tf32x3 float32 {m}x{kk}@{kk}x{n}" + (" off the grid" if off else "")
         if out.shape != (m, n) or out.dtype != dt:
             fail(f"{label}: {tuple(out.shape)} {out.dtype}")
         exact = a.double() @ b.double()
@@ -665,9 +695,49 @@ def phase2_mmm_tf32x3(dev, gen) -> None:
         check_close(f"{label} vs float64 (torch.matmul {e_lib:.2e})", e64, dt)
         check_close(f"{label} vs model", normwise(out, mmm_tf32x3_ref(a, b)), dt)
         del exact
-    if not torch.equal(bits(out), bits(mmm_tf32x3_hopper(a, b))):
-        fail("MMM tf32x3: two calls differ (expected the same bits)")
-    print(f"  MMM tf32x3 float32 {m}x{kk}@{kk}x{n}: two calls give the same bits")
+        if (m, kk, n) in ((SIZES["MMM"],) * 3, LONE_MMM):
+            if not torch.equal(bits(out), bits(mmm_tf32x3_hopper(a, b))):
+                fail(f"{label}: two calls differ (expected the same bits)")
+            print(f"  {label}: two calls give the same bits")
+    a, b = non_finite_operands(gen, dev, 130, 75, 137)
+    out, want = mmm_tf32x3_hopper(a, b), mmm_ref(a, b)
+    label = "MMM tf32x3 float32 130x75@75x137 ±inf, NaN, ±FLT_MAX"
+    inf = torch.isinf(want)
+    finite = torch.isfinite(want)
+    err = (out.double() - a.double() @ b.double()).abs()
+    scale = a.double().abs() @ b.double().abs()
+    worst = float((err[finite] / scale[finite].clamp_min(1e-300)).max())
+    print(f"  {label}: {int(torch.isnan(want).sum())} NaN, {int(inf.sum())} ±inf in "
+          f"mmm_ref; finite entries within {worst:.3e} of (|A|·|B|)_ij")
+    if not (torch.equal(torch.isnan(out), torch.isnan(want))
+            and torch.equal(torch.isinf(out), inf) and torch.equal(out[inf], want[inf])):
+        fail(f"{label}: NaN or ±inf where mmm_ref has none, or the reverse")
+    if not worst <= TOL[dt]:
+        fail(f"{label}: a finite entry errs by {worst:.3e} of (|A|·|B|)_ij")
+
+
+def non_finite_operands(gen, dev, m, k, n):
+    """Normal float32 A (m, k) and B (k, n) with ±inf and NaN entries, and
+    ±FLT_MAX entries whose products stay finite (times 1/8 to 1/4) or
+    overflow (times 2 to 4), in rows of A and in a column of B, as
+    tests/test_torch_cuda.py holds them.  No overflowing product meets an
+    infinite column: whether inf plus an overflowed product is inf or NaN
+    then hangs on the sum's order."""
+    a = torch.randn((m, k), generator=gen, device=dev)
+    b = torch.randn((k, n), generator=gen, device=dev)
+    big = torch.finfo(torch.float32).max
+
+    def signed(lo, hi, size):
+        u = torch.rand(size, generator=gen, device=dev) * (hi - lo) + lo
+        return torch.where(torch.rand(size, generator=gen, device=dev) < 0.5, -u, u)
+
+    a[1, 5], a[2, 9], a[4, 0] = float("inf"), float("-inf"), float("nan")
+    b[7, 3], b[8, 6] = float("inf"), float("-inf")
+    a[3, 11], b[11] = big, signed(0.125, 0.25, n)
+    a[5, 12], b[12] = -big, signed(2.0, 4.0, n)
+    b[12, [3, 6]] = 0.5
+    b[13, 10], a[:, 13] = big, signed(0.125, 0.25, m)
+    return a, b
 
 
 def phase2_fft(dev, gen, dt) -> None:
@@ -830,14 +900,23 @@ def phase2_model(dev, gen, dt) -> None:
         fa_route, flash_attention_cuda_cores_hopper, flash_attention_mma_hopper)
     from repro_torch.kernels.flash_attention.ref import attention_mma_ref, attention_ref
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_hopper
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_hopper, rmsnorm_plan
 
     name = str(dt).split(".")[-1]
-    for rows, d in ((4096, 2560), (3, 80), (7, 1000)):
+    # the model path's row counts (one row, decode's 4 slots, the two
+    # prefills, phase 4's 4096) under the launch plan, two calls the same
+    # bits; and rows of 80 (one warp a row) and 1000 (a row split over warps)
+    for rows, d in ((1, 2560), (4, 2560), (512, 2560), (4096, 2560), (4200, 2560), (3, 80),
+                    (7, 1000)):
         x = (torch.randn((rows, d), generator=gen, device=dev) + 0.5).to(dt)
         g = (torch.randn(d, generator=gen, device=dev) * 0.1 + 1.0).to(dt)
-        check_close(f"RMSNORM {name} {rows}x{d}",
-                    normwise(rmsnorm_hopper(x, g, 1e-5), rmsnorm_ref(x, g, 1e-5)), dt)
+        out = rmsnorm_hopper(x, g, 1e-5)
+        plan = rmsnorm_plan(rows, d, x.element_size(), _cuda.sm_count(dev))
+        check_close(f"RMSNORM {name} {rows}x{d} (plan {tuple(plan)})",
+                    normwise(out, rmsnorm_ref(x, g, 1e-5)), dt)
+        if not torch.equal(bits(out), bits(rmsnorm_hopper(x, g, 1e-5))):
+            fail(f"RMSNORM {name} {rows}x{d}: two calls differ (expected the same bits)")
     # v has mean 1: with zero-mean v, attention spread over ~1000 keys
     # returns a sum ~30x smaller than its terms, and float32 reordering alone
     # then moves it by ~1e-5; a dropped tile of 64 keys still moves it ~1e-3.
@@ -973,7 +1052,7 @@ def phase3(dev):
     print(f"  launches {launches}; quarantine {quarantined}")
     # MMM at 4096³ float32 takes the 3×TF32 route, FFT at n = 4096 and SORT
     # at 2^24 the radix routes
-    expected = {"mmm": 0, "mmm_skinny": 0, "mmm_wgmma": 0, "mmm_tf32x3": 2, "ewise": 8,
+    expected = {"mmm_skinny": 0, "mmm_wgmma": 0, "mmm_tf32x3": 2, "ewise": 8,
                 "mvm": 2, "vdp": 2, "jacobi": 2, "conv1d": 2, "spmm": 2, "fft_radix": 2,
                 "fft_chirp": 0, "sort": 0, "sort_radix": 2, "hist": 2, "rmsnorm": 0,
                 "flash_attention": 0, "flash_attention_mma": 0, "fused": 0}
@@ -1020,16 +1099,17 @@ def phase3(dev):
     # the other routes through the same host API, each request counted on
     # its own: FFT at the non-power-of-two DFT_N (the chirp route), SORT of
     # 4096 rows of 4096 (the tile route), MMM float32 at a K that TMA cannot
-    # stride (the tile route)
+    # stride (the 3×TF32 route, its split pass padding K)
     gen2 = torch.Generator(device=dev).manual_seed(2)
-    tm, tk, tn = TILE_MMM
+    tm, tk, tn = LONE_MMM
     requests = {
         "chirp": ("FFT", (torch.randn((SIZES["FFT"] // 2, DFT_N), generator=gen2,
                                       device=dev),), "fft_chirp"),
         "sort_tile": ("SORT", (torch.randn((4096, 4096), generator=gen2, device=dev),),
                       "sort"),
-        "mmm_tile": ("MMM", (torch.randn((tm, tk), generator=gen2, device=dev),
-                             torch.randn((tk, tn), generator=gen2, device=dev)), "mmm"),
+        "mmm_lone": ("MMM", (torch.randn((tm, tk), generator=gen2, device=dev),
+                             torch.randn((tk, tn), generator=gen2, device=dev)),
+                     "mmm_tf32x3"),
     }
     path_launches = {}
     for path, (alias, args, kname) in requests.items():
@@ -1056,7 +1136,8 @@ def phase3(dev):
         else:
             ref = sort_ref(*args)
             check_bits(label, out, ref)
-        max_abs[kname] = float((wide(out) - wide(ref)).abs().max())
+        max_abs[kname] = max(max_abs.get(kname, 0.0),
+                             float((wide(out) - wide(ref)).abs().max()))
         del out, ref
     # end to end, after the counted run: wall time of the whole template
     # (blocking + burst) on the same inputs, and T1 per call
@@ -1214,8 +1295,8 @@ def phase3b(dev):
     # 7·L + 1 MMMs per forward pass: a prefill's 7·L projections of its
     # prompt rows (bfloat16, K and N multiples of 8) take the tensor-core
     # route and its last-token unembed (one row) the skinny route; a decode
-    # pass's 7·L + 1 (one row per slot) all take the skinny route; none
-    # takes the tile route; every prefill's attention (bfloat16, head dim
+    # pass's 7·L + 1 (one row per slot) all take the skinny route; every
+    # prefill's attention (bfloat16, head dim
     # 80) takes FLASH_ATTN's tensor-core route
     expected.update(mmm_wgmma=7 * layers * len(engine.prefill_s),
                     mmm_skinny=(7 * layers + 1) * len(engine.decode_s)
@@ -1267,7 +1348,7 @@ def phase3b(dev):
     # the prefills' projections: every MMM kernel that is not the skinny one
     prefill_mmm_s = sum(device_seconds_of(e) for e in prof.key_averages()
                         if e.key.split("<")[0].split("::")[-1].strip()
-                        in ("mmm_wgmma_kernel", "mmm_kernel"))
+                        == "mmm_wgmma_kernel")
     stats["prefill_mmm_device_ms"] = prefill_mmm_s * 1e3 if prefill_mmm_s > 0 else None
     print("  prefill MMM device time (profiled rerun, 7·L projections per prefill): "
           + (f"{prefill_mmm_s * 1e3:.1f} ms" if prefill_mmm_s > 0 else "not measured"))
@@ -1383,13 +1464,13 @@ def phase3b(dev):
         served32, replay(m32, wide32, prompt, toks, max_len, plain))]
     del wide32, served32
     attn_f32 = {k: f32_launches[k] for k in ("flash_attention", "flash_attention_mma")}
-    mmm_f32 = {k: f32_launches[k] for k in ("mmm", "mmm_wgmma", "mmm_tf32x3")}
+    mmm_f32 = {k: f32_launches[k] for k in ("mmm_wgmma", "mmm_tf32x3")}
     print(f"  float32 replay on the kernels: FLASH_ATTN launches {attn_f32}, "
           f"prefill MMM launches {mmm_f32}")
     if attn_f32 != {"flash_attention": layers, "flash_attention_mma": 0}:
         fail(f"the float32 prefill launched FLASH_ATTN {attn_f32}, not {layers} "
              f"on the CUDA-core route")
-    if mmm_f32 != {"mmm": 0, "mmm_wgmma": 0, "mmm_tf32x3": 7 * layers}:
+    if mmm_f32 != {"mmm_wgmma": 0, "mmm_tf32x3": 7 * layers}:
         fail(f"the float32 prefill launched MMM {mmm_f32}, not {7 * layers} on the "
              f"3×TF32 route")
     print(f"  float32, same weights, {len(prompt)}-token prompt + {len(toks) - 1} "
@@ -1643,14 +1724,15 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     from repro_torch.kernels.fused import ewise_chain_hopper, ewise_chain_ref
     from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
     from repro_torch.kernels.jacobi.ref import jacobi_step_aten, jacobi_step_ref
+    from repro_torch.kernels import _cuda
     from repro_torch.kernels.matmul.matmul import (SKINNY_M_MAX, mmm_skinny_hopper,
-                                                   mmm_tf32x3_hopper, mmm_tile_hopper,
-                                                   mmm_wgmma_hopper, wgmma_tile_n)
+                                                   mmm_tf32x3_hopper, mmm_wgmma_hopper,
+                                                   wgmma_tile_n)
     from repro_torch.kernels.matmul.ref import mmm_aten, mmm_ref
     from repro_torch.kernels.mvm.mvm import mvm_hopper
     from repro_torch.kernels.mvm.ref import mvm_aten, mvm_ref
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_aten, rmsnorm_ref
-    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_hopper
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_hopper, rmsnorm_plan
     from repro_torch.kernels.sorthist.ref import (hist_ref, radix_passes, sort_keys,
                                                   sort_ref)
     from repro_torch.kernels.sorthist.sorthist import (SORT_TILE, hist_hopper,
@@ -1718,12 +1800,11 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     mmm_bound = bound(4 * (m * k + k * n + m * n), 2 * m * n * k)
     tf32_bound = bound(4 * (m * k + k * n + m * n), 2 * m * n * k, tf32_peak)
     tf32_floor_ms = 3 * 2 * m * n * k / tf32_peak * 1e3
-    # the tile route at phase 3's lone request: K = 4094 off TMA's stride
+    # phase 3's lone request on the 3×TF32 route: K = 4094 off TMA's stride
     gen9 = torch.Generator(device=dev).manual_seed(9)
-    tm, tk, tn = TILE_MMM
-    ta = torch.randn((tm, tk), generator=gen9, device=dev)
-    tb = torch.randn((tk, tn), generator=gen9, device=dev)
-    tile_bound = bound(4 * (tm * tk + tk * tn + tm * tn), 2 * tm * tn * tk)
+    lm, lk, ln = LONE_MMM
+    la = torch.randn((lm, lk), generator=gen9, device=dev)
+    lb = torch.randn((lk, ln), generator=gen9, device=dev)
     ea, eb = jobs["EWMM"]
     ne = ea.numel()
     ew_bound = bound(4 * 3 * ne, ne)
@@ -1854,8 +1935,33 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     gen = torch.Generator(device=dev).manual_seed(4)
     rx = (torch.randn((4096, cfg.d_model), generator=gen, device=dev) + 0.5).to(mdt)
     rg = (torch.randn(cfg.d_model, generator=gen, device=dev) * 0.1 + 1.0).to(mdt)
-    rms_bound = bound(rx.element_size() * (2 * rx.numel() + rg.numel()),
-                      4 * rx.numel(), bf16_peak)
+
+    def rms_bound_of(x):
+        """x read once, gamma once, the output written once; 4 operations
+        an element."""
+        return bound(x.element_size() * (2 * x.numel() + x.shape[-1]), 4 * x.numel(),
+                     bf16_peak)
+
+    rms_bound = rms_bound_of(rx)
+    # RMSNORM at the row counts the served run launches it at (decode's
+    # slots, the two prompt lengths) and at 4096, by device time, under its
+    # launch plan, beside F.rms_norm and its plain version
+    rms_rows = []
+    sms = _cuda.sm_count(dev)
+    for rows in sorted({SERVE["slots"], 4096, *SERVE["prompt_lens"]}):
+        x_ = (torch.randn((rows, cfg.d_model), generator=gen, device=dev) + 0.5).to(mdt)
+        eps = cfg.norm_eps
+        row = model_row(lambda: rmsnorm_hopper(x_, rg, eps), lambda: rmsnorm_ref(x_, rg, eps),
+                        lambda: rmsnorm_aten(x_, rg, eps))
+        row["bound_ms"], row["bound_by"] = rms_bound_of(x_)
+        row.update(rows=rows, plan=rmsnorm_plan(rows, cfg.d_model, x_.element_size(), sms)
+                   ._asdict())
+        rms_rows.append(row)
+        print(f"  rmsnorm {rows}x{cfg.d_model} {str(mdt).split('.')[-1]} (plan "
+              f"{tuple(row['plan'].values())}) kernel_ms {row['ms']:.4f}  F.rms_norm "
+              f"{row['library_ms']:.4f}  plain_ms {row['plain_ms']:.4f}  bound_ms "
+              f"{row['bound_ms']:.6f} ({row['bound_ms'] / row['ms']:.0%} of it)")
+        del x_
     fq = torch.randn((1, attn.n_heads, seq, attn.head_dim), generator=gen, device=dev).to(mdt)
     fk = torch.randn((1, attn.n_kv_heads, seq, attn.head_dim), generator=gen, device=dev).to(mdt)
     fv = (torch.randn((1, attn.n_kv_heads, seq, attn.head_dim), generator=gen, device=dev)
@@ -1939,11 +2045,9 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     # prompt lengths, the model's type): device time per call from the
     # profiler, each call on the next of enough copies of B that the L2
     # holds none of them from one call to the next, as a prefill finds its
-    # weights; beside it the tile route in the same type (what prefill ran
-    # before), the plain version, torch.matmul, and the bound at the
-    # tensor-core peak.  The row totals one serving run's prefills: each
-    # shape's time × its launches in phase 3b (7·L per prefill).
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # weights; beside it the plain version, torch.matmul, and the bound at
+    # the tensor-core peak.  The row totals one serving run's prefills:
+    # each shape's time × its launches in phase 3b (7·L per prefill).
 
     def wgmma_widths(args):
         """Device ms per call of the tensor-core kernel at each tile width."""
@@ -1966,8 +2070,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
             bs = weights(kk, nn, max(2, math.ceil(L2_COLD_BYTES / (2 * kk * nn))))
             args = [(am, b_) for b_ in bs]
             row = {k: device_ms(cycling(f, args)) for k, f in (
-                ("ms", mmm_wgmma_hopper), ("tile_ms", mmm_tile_hopper),
-                ("plain_ms", mmm_ref), ("library_ms", mmm_aten))}
+                ("ms", mmm_wgmma_hopper), ("plain_ms", mmm_ref), ("library_ms", mmm_aten))}
             row["width_ms"] = wgmma_widths(args)
             t_bytes = am.element_size() * (am.numel() + kk * nn + m_ * nn) / bw
             t_ops = 2 * m_ * kk * nn / bf16_peak
@@ -1980,7 +2083,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
                        launches_per_run=per_prefill * lens.count(m_), copies_of_b=len(bs))
             prefill.append(row)
             print(f"  mmm_wgmma {row['shape']:26s} (128x{row['tile_n']}) kernel_ms "
-                  f"{row['ms']:.4f}  tile_ms {row['tile_ms']:.4f}  plain_ms "
+                  f"{row['ms']:.4f}  plain_ms "
                   f"{row['plain_ms']:.4f}  library_ms {row['library_ms']:.4f}  bound_ms "
                   f"{row['bound_ms']:.4f} ({row['bound_by']}, {row['bound_ms'] / row['ms']:.0%} "
                   f"of it)  {row['launches_per_run']} per run; by width "
@@ -1998,7 +2101,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     del a_, bs
     max_abs["mmm_wgmma"] = max(r["max_abs_err"] for r in prefill)
     wgmma_times = {k: sum(r[k] * r["launches_per_run"] for r in prefill)
-                   for k in ("ms", "tile_ms", "plain_ms", "library_ms")}
+                   for k in ("ms", "plain_ms", "library_ms")}
     t_bytes, t_ops = (sum(r[k] * r["launches_per_run"] for r in prefill)
                       for k in ("bytes_ms", "ops_ms"))
     wgmma_bound = (sum(r["bound_ms"] * r["launches_per_run"] for r in prefill),
@@ -2006,19 +2109,21 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     wgmma_times.update(per_shape=prefill, sms=sms, cube=cube)
     print(f"  mmm_wgmma, one serving run's prefills "
           f"({sum(r['launches_per_run'] for r in prefill)} MMMs): kernel "
-          f"{wgmma_times['ms']:.1f} ms, tile route in {mname} {wgmma_times['tile_ms']:.1f} "
-          f"ms, torch.matmul {wgmma_times['library_ms']:.1f} ms, bound "
+          f"{wgmma_times['ms']:.1f} ms, torch.matmul {wgmma_times['library_ms']:.1f} ms, bound "
           f"{wgmma_bound[0]:.1f} ms")
 
-    # the 3×TF32 route by device time: at the template's 4096³, the split
-    # pass and the product apart (mean device ms per launch of each kernel,
-    # torch.profiler), and at the float32 replay's four 512-row prefill
-    # projections (each call on the next of enough copies of B that the L2
-    # holds none of them), beside torch.matmul with TF32 off
-    def tf32x3_parts(fn, whole_ms):
-        """Device ms per call of the split pass and of the product, each the
-        median of five device_ms_per_call windows (an empty window, which
-        the profiler on the card now and then returns, is measured again, up
+    # the 3×TF32 route by device time: at the template's 4096³ and at phase
+    # 3's lone request (K = 4094, padded to 4096 by the split pass), the
+    # split pass and the product apart (mean device ms per launch of each
+    # kernel, torch.profiler), and at the float32 replay's four 512-row
+    # prefill projections (each call on the next of enough copies of B that
+    # the L2 holds none of them), beside torch.matmul with TF32 off; the
+    # tensor-core route likewise at PACKED_MMM, the pack pass apart
+    def two_parts(fn, whole_ms, first, key):
+        """Device ms per call of a route's first pass (the kernel whose name
+        holds ``first``, under ``key``) and of its product, each the median
+        of five device_ms_per_call windows (an empty window, which the
+        profiler on the card now and then returns, is measured again, up
         to three times).  Printed as not measured (None) where a window saw
         another kernel or only one of the two, or where ``whole_ms``, the
         whole call's device time measured apart, lies farther from the
@@ -2029,30 +2134,31 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
                 per = device_ms_per_call(fn, TIMED_RUNS, dev, by_kernel=True)
                 if per:
                     break
-            split = sum(t for k_, t in per.items() if "tf32_split" in k_)
-            product = sum(t for k_, t in per.items() if "Tf32x3" in k_)
-            windows.append((split, product, sum(per.values())))
+            pre = sum(t for k_, t in per.items() if first in k_)
+            product = sum(t for k_, t in per.items() if "mmm_wgmma_kernel" in k_)
+            windows.append((pre, product, sum(per.values())))
         totals = [w[2] for w in windows]
         spread = max(totals) - min(totals)
         off = max(min(totals) - whole_ms, whole_ms - max(totals), 0.0)
-        parts = {"split_ms": statistics.median(w[0] for w in windows),
+        parts = {key: statistics.median(w[0] for w in windows),
                  "product_ms": statistics.median(w[1] for w in windows),
                  "parts_windows_ms": totals}
         if off > spread or any(not (w[0] and w[1]) or w[0] + w[1] != w[2] for w in windows):
-            print(f"  mmm_tf32x3 split not measured: split {parts['split_ms']:.4f} + "
-                  f"product {parts['product_ms']:.4f} against the whole call's "
-                  f"{whole_ms:.4f} ms, window totals {', '.join(f'{t:.4f}' for t in totals)}")
-            parts.update(split_ms=None, product_ms=None)
+            print(f"  {first} pass not measured: {parts[key]:.4f} + product "
+                  f"{parts['product_ms']:.4f} against the whole call's {whole_ms:.4f} ms, "
+                  f"window totals {', '.join(f'{t:.4f}' for t in totals)}")
+            parts.update({key: None, "product_ms": None})
         return parts
 
-    def parts_text(row):
-        if row["split_ms"] is None:
-            return "split not measured"
-        return f"split {row['split_ms']:.4f} + product {row['product_ms']:.4f}"
+    def parts_text(row, key="split_ms"):
+        if row[key] is None:
+            return f"{key[:-3]} not measured"
+        return f"{key[:-3]} {row[key]:.4f} + product {row['product_ms']:.4f}"
 
     tf32_times = model_row(lambda: mmm_tf32x3_hopper(a, b), lambda: mmm_ref(a, b),
                            lambda: mmm_aten(a, b))
-    tf32_times.update(tf32x3_parts(lambda: mmm_tf32x3_hopper(a, b), tf32_times["ms"]))
+    tf32_times.update(two_parts(lambda: mmm_tf32x3_hopper(a, b), tf32_times["ms"],
+                                "tf32_split", "split_ms"))
     exact = a.double() @ b.double()
     tf32_times["err_vs_float64"] = normwise(mmm_tf32x3_hopper(a, b), exact)
     tf32_times["library_err_vs_float64"] = normwise(mmm_aten(a, b), exact)
@@ -2065,6 +2171,39 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
           f"cores); algorithm floor {tf32_floor_ms:.4f} (three TF32 products); normwise "
           f"error vs float64 {tf32_times['err_vs_float64']:.3e}, torch.matmul "
           f"{tf32_times['library_err_vs_float64']:.3e}")
+    lone = model_row(lambda: mmm_tf32x3_hopper(la, lb), lambda: mmm_ref(la, lb),
+                     lambda: mmm_aten(la, lb))
+    lone.update(two_parts(lambda: mmm_tf32x3_hopper(la, lb), lone["ms"], "tf32_split",
+                          "split_ms"))
+    lone["bound_ms"], lone["bound_by"] = bound(4 * (lm * lk + lk * ln + lm * ln),
+                                               2 * lm * ln * lk, tf32_peak)
+    lone["max_abs_err"] = float((mmm_tf32x3_hopper(la, lb) - mmm_ref(la, lb)).abs().max())
+    lone["shape"] = f"{lm}x{lk}@{lk}x{ln} float32"
+    tf32_times["lone_request"] = lone
+    print(f"  mmm_tf32x3 {lone['shape']} (the lone request): kernel_ms {lone['ms']:.4f} "
+          f"({parts_text(lone)})  torch.matmul {lone['library_ms']:.4f}  plain_ms "
+          f"{lone['plain_ms']:.4f}  bound {lone['bound_ms']:.4f} (TF32 tensor cores)")
+    # the tensor-core route with both operands packed (K and N off every
+    # multiple of 8), B cold in L2, beside torch.matmul
+    pm, pk, pn = PACKED_MMM
+    pa = torch.randn((pm, pk), generator=gen7, device=dev).to(mdt)
+    pbs = weights(pk, pn, max(2, math.ceil(L2_COLD_BYTES / (2 * pk * pn))))
+    pargs = [(pa, b_) for b_ in pbs]
+    packed = {k_: device_ms(cycling(f, pargs)) for k_, f in (
+        ("ms", mmm_wgmma_hopper), ("plain_ms", mmm_ref), ("library_ms", mmm_aten))}
+    packed.update(two_parts(cycling(mmm_wgmma_hopper, pargs), packed["ms"], "pack16",
+                            "pack_ms"))
+    packed["bound_ms"], packed["bound_by"] = bound(
+        2 * (pm * pk + pk * pn + pm * pn), 2 * pm * pk * pn, bf16_peak)
+    packed["max_abs_err"] = float((wide(mmm_wgmma_hopper(pa, pbs[0]))
+                                   - wide(mmm_ref(pa, pbs[0]))).abs().max())
+    packed.update(shape=f"{pm}x{pk}@{pk}x{pn} {mname}, A and B packed",
+                  copies_of_b=len(pbs))
+    wgmma_times["packed"] = packed
+    print(f"  mmm_wgmma {packed['shape']}: kernel_ms {packed['ms']:.4f} "
+          f"({parts_text(packed, 'pack_ms')})  torch.matmul {packed['library_ms']:.4f}  "
+          f"plain_ms {packed['plain_ms']:.4f}  bound {packed['bound_ms']:.4f}")
+    del pa, pbs, pargs
     f32_prefill = []
     m_ = SERVE["prompt_lens"][0]
     for (kk, nn), per_prefill in prefill_projections(cfg).items():
@@ -2079,7 +2218,8 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
                                  tf32_peak)[0],
                "algorithm_floor_ms": 3 * 2 * m_ * kk * nn / tf32_peak * 1e3,
                "copies_of_b": len(bs)}
-        row.update(tf32x3_parts(cycling(mmm_tf32x3_hopper, args), row["ms"]))
+        row.update(two_parts(cycling(mmm_tf32x3_hopper, args), row["ms"], "tf32_split",
+                             "split_ms"))
         f32_prefill.append(row)
         print(f"  mmm_tf32x3 {row['shape']:26s} kernel_ms {row['ms']:.4f} "
               f"({parts_text(row)})  torch.matmul {row['library_ms']:.4f}  bound_ms "
@@ -2096,29 +2236,33 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
           f"{replay_ms['algorithm_floor_ms']:.2f} ms")
 
     # the crossover of the routes by device time, at the gate/up projection
-    # and at the unembed (the widest): it set SKINNY_M_MAX
+    # and at the unembed (the widest), in the model's type and in float32:
+    # the skinny route against the route that takes M > SKINNY_M_MAX in
+    # that type (wgmma in bfloat16, 3×TF32 in float32); it sets SKINNY_M_MAX
     crossover = {}
-    for kk, nn in ((cfg.d_model, cfg.stages[0].pattern[0].d_ff),
-                   (cfg.d_model, cfg.padded_vocab)):
-        bs = weights(kk, nn, max(2, math.ceil(L2_COLD_BYTES / (2 * kk * nn))))
-        sweep = {}
-        for m_ in CROSSOVER_M:
-            a_ = torch.randn((m_, kk), generator=gen7, device=dev).to(mdt)
-            args = [(a_, b_) for b_ in bs]
-            sweep[str(m_)] = {"skinny_ms": device_ms(cycling(mmm_skinny_hopper, args)),
-                              "tile_ms": device_ms(cycling(mmm_tile_hopper, args)),
-                              "wgmma_ms": device_ms(cycling(mmm_wgmma_hopper, args)),
-                              "library_ms": device_ms(cycling(mmm_aten, args))}
-        del bs, args
-        faster = {r: [int(m_) for m_, t in sweep.items() if t["skinny_ms"] < t[f"{r}_ms"]]
-                  for r in ("tile", "wgmma")}
-        crossover[f"{kk}x{nn} {mname}"] = sweep
-        print(f"  MMM routes at {kk}x{nn} {mname}, device ms (M: skinny / tile / wgmma "
-              f"/ torch.matmul): " + "; ".join(
-                  f"{m_}: {t['skinny_ms']:.4f} / {t['tile_ms']:.4f} / {t['wgmma_ms']:.4f} "
-                  f"/ {t['library_ms']:.4f}" for m_, t in sweep.items())
-              + f"; skinny faster than tile at M = {faster['tile']}, than wgmma at "
-              f"M = {faster['wgmma']}; SKINNY_M_MAX = {SKINNY_M_MAX}")
+    for dt_, above, fn_ in ((mdt, "wgmma", mmm_wgmma_hopper),
+                            (torch.float32, "tf32x3", mmm_tf32x3_hopper)):
+        dname = str(dt_).split(".")[-1]
+        for kk, nn in ((cfg.d_model, cfg.stages[0].pattern[0].d_ff),
+                       (cfg.d_model, cfg.padded_vocab)):
+            copies = max(2, math.ceil(L2_COLD_BYTES / (dt_.itemsize * kk * nn)))
+            bs = [(torch.randn((kk, nn), generator=gen7, device=dev) * kk ** -0.5).to(dt_)
+                  for _ in range(copies)]
+            sweep = {}
+            for m_ in CROSSOVER_M:
+                a_ = torch.randn((m_, kk), generator=gen7, device=dev).to(dt_)
+                args = [(a_, b_) for b_ in bs]
+                sweep[str(m_)] = {"skinny_ms": device_ms(cycling(mmm_skinny_hopper, args)),
+                                  f"{above}_ms": device_ms(cycling(fn_, args)),
+                                  "library_ms": device_ms(cycling(mmm_aten, args))}
+            del bs, args
+            faster = [int(m_) for m_, t in sweep.items() if t["skinny_ms"] < t[f"{above}_ms"]]
+            crossover[f"{kk}x{nn} {dname}"] = sweep
+            print(f"  MMM routes at {kk}x{nn} {dname}, device ms (M: skinny / {above} / "
+                  f"torch.matmul): " + "; ".join(
+                      f"{m_}: {t['skinny_ms']:.4f} / {t[f'{above}_ms']:.4f} / "
+                      f"{t['library_ms']:.4f}" for m_, t in sweep.items())
+                  + f"; skinny faster at M = {faster}; SKINNY_M_MAX = {SKINNY_M_MAX}")
     skinny_times.update(per_shape=decode, crossover=crossover, skinny_m_max=SKINNY_M_MAX)
 
     # the fused chain at phase 3c's EW shape: ((a·b + c) − d) / e over five
@@ -2147,23 +2291,21 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
                       "plain_ms": ms(EW_REFS[op], ea, eb),
                       "library_ms": ms(OP_ATEN[op], ea, eb)}
     rows = [
-        ("mmm", {"ms": ms(mmm_tile_hopper, ta, tb), "plain_ms": ms(mmm_ref, ta, tb),
-                 "library_ms": ms(mmm_aten, ta, tb)}, tile_bound,
-         f"{tm}x{tk}@{tk}x{tn} float32, tile route (library: torch.matmul, TF32 off)"),
         # device time (events under "event_ms"); bound: 2·M·N·K at the TF32
         # tensor-core rate (the float32 CUDA-core bound under
         # "bound_float32_ms", three products under "algorithm_floor_ms")
         ("mmm_tf32x3", tf32_times, tf32_bound,
          f"{m}x{k}@{k}x{n} float32, 3×TF32 route, device time of the split pass and "
-         f"the product (library: torch.matmul, TF32 off)"),
+         f"the product (library: torch.matmul, TF32 off; lone_request: phase 3's "
+         f"{lm}x{lk}@{lk}x{ln})"),
         # device time of one decode pass's MMMs: Σ per shape of device ms ×
         # launches per pass (per_shape below); launches from phase 3b
         ("mmm_skinny", skinny_times, skinny_bound,
          f"one decode pass: {sum(r['launches_per_pass'] for r in decode)} MMMs at "
          f"M={slots} {mname}, device time (library: torch.matmul)"),
         # device time of one serving run's prefill projections: Σ per shape
-        # of device ms × launches per run (per_shape below; tile_ms: the
-        # tile route in the same type)
+        # of device ms × launches per run (per_shape below; packed: A and B
+        # packed at PACKED_MMM)
         ("mmm_wgmma", wgmma_times, wgmma_bound,
          f"one serving run's prefills: {sum(r['launches_per_run'] for r in prefill)} "
          f"MMMs at M={'/'.join(map(str, SERVE['prompt_lens']))} {mname}, device time "
@@ -2211,10 +2353,12 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         ("hist", {"ms": ms(hist_hopper, hx), "plain_ms": ms(hist_ref, hx),
                   "library_ms": ms(torch.histc, hx, 64, 0.0, 1.0)}, hist_bound,
          f"n={n_hist} float32, 64 bins (library: histc)"),
-        # device time from the profiler (event times under "event_ms")
-        ("rmsnorm", model_row(lambda: rmsnorm_hopper(rx, rg, cfg.norm_eps),
-                              lambda: rmsnorm_ref(rx, rg, cfg.norm_eps),
-                              lambda: rmsnorm_aten(rx, rg, cfg.norm_eps)), rms_bound,
+        # device time from the profiler (event times under "event_ms"); the
+        # path's row counts under "per_rows"
+        ("rmsnorm", {**model_row(lambda: rmsnorm_hopper(rx, rg, cfg.norm_eps),
+                                 lambda: rmsnorm_ref(rx, rg, cfg.norm_eps),
+                                 lambda: rmsnorm_aten(rx, rg, cfg.norm_eps)),
+                     "per_rows": rms_rows}, rms_bound,
          f"4096x{cfg.d_model} {mname}, device time (library: F.rms_norm)"),
         ("flash_attention_mma", model_row(
             lambda: flash_attention_mma_hopper(fq, fk, fv, **fkw),
@@ -2243,8 +2387,8 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         # each kernel's launches in the run of the path it serves (PATH_OF):
         # phase 3 for the quickstart's, 3b for the model path's, 3c for the
         # fused chain, 3b's float32 replay for the CUDA-core FLASH_ATTN,
-        # phase 3's requests counted alone for the chirp FFT, the tile SORT
-        # and the tile MMM
+        # phase 3's requests counted alone for the chirp FFT and the tile
+        # SORT
         n_launches = {"serve": serve_launches, "graph": graph_launches,
                       **path_launches}.get(PATH_OF.get(name), launches)[name]
         if not n_launches:
@@ -2259,6 +2403,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         if name == "mmm_tf32x3":
             entry["launches_float32_replay"] = \
                 path_launches["serve_float32"]["mmm_tf32x3"]
+            entry["launches_lone_request"] = path_launches["mmm_lone"]["mmm_tf32x3"]
         if name == "fused":
             print(f"  fused: four serial EW launches {times['serial_ewise_ms']:.4f} ms")
         if name.startswith("flash_attention"):
@@ -2315,9 +2460,12 @@ def main() -> None:
     t0 = time.perf_counter()
     so = _cuda.build()
     print(f"  built {so.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s")
+    entry = ""
     for line in (so.parent / "build.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
         if "registers" in line or "bytes stack" in line or "error" in line:
-            print("  ptxas:", line.strip())
+            print(f"  ptxas: {entry}: {line.strip()}")
     _cuda.lib()
     card = card_line()
     print(f"  card: {card}")

@@ -9,9 +9,9 @@
 // Bound on the H100: bytes.  At M = 4 the product does 2*M*K*N operations
 // on 2*K*N bytes of B, 4 operations per byte, far below the ~295 where the
 // tensor cores would become the limit; a 2560x6912 bfloat16 projection
-// must read 35.4 MB, at least 10.6 us at 3.35 TB/s.  The 128x128 tile
-// kernel (mmm.cu) computes 124 masked rows per tile at M = 4 and launches
-// only ceil(N/128) blocks.
+// must read 35.4 MB, at least 10.6 us at 3.35 TB/s.  A 128-row output
+// tile computes 124 masked rows at M = 4 and launches only ceil(N/128)
+// blocks.
 //
 // Design: a 256-thread block owns a strip of 32*V columns (V = 8 bfloat16
 // or float16, 4 float32: one 16-byte vector per thread, neighbouring lanes

@@ -2,11 +2,8 @@
 // accumulator, output in the input type, for bfloat16 and float16 operands
 // (the wgmma route) and for float32 by 3xTF32 (the tf32x3 route).  The
 // routes (mmm_route in kernels/matmul/matmul.py) are pure functions of
-// type, shape and alignment: M <= 64 (SKINNY_M_MAX) in every type goes to
-// mmm_skinny.cu; above it 16-bit operands with K and N multiples of 8 and
-// float32 with K and N multiples of 4, A and B 16-byte aligned in both
-// (the Tensor Memory Accelerator's stride and address rules), come here;
-// everything else to mmm.cu.
+// type and rows: M <= 64 (SKINNY_M_MAX) in every type goes to
+// mmm_skinny.cu; every M above it comes here, at any K, N and alignment.
 //
 // Replaces src/repro/kernels/matmul/matmul.py::mmm_pallas (_mmm_kernel),
 // which walks (bm, bn) output tiles with K innermost on the TPU's MXU:
@@ -20,8 +17,8 @@
 // result (0.034 ms at 3.35 TB/s).  float32 at 4096^3: the function's
 // 2*M*N*K = 137 GFLOP take 0.278 ms at the 495 TFLOP/s of the TF32 tensor
 // cores, the card's fastest rate for float32 operands; on the float32 CUDA
-// cores (67 TFLOP/s), which mmm.cu and torch.matmul (TF32 off) use, 2.0513
-// ms.  The 3xTF32 algorithm's own floor, three products, is 0.833 ms.
+// cores (67 TFLOP/s), which torch.matmul (TF32 off) uses, 2.0513 ms.  The
+// 3xTF32 algorithm's own floor, three products, is 0.833 ms.
 //
 // Design (Hopper's warp-specialised GEMM, simple first): one 288-thread
 // block per 128 x BN output tile, not persistent.  One producer warp (its
@@ -48,36 +45,47 @@
 //   padding past N counts in full; on a tie the wider tile, which reads
 //   each A tile from shared memory once per 256 columns rather than twice.
 //   Sums run over K in the same order at either width.
+//   TMA needs each row stride a multiple of 16 bytes and each base
+//   16-byte aligned.  An operand that breaks either (A: K off a multiple
+//   of 8 or A off the grid; B: N off a multiple of 8 or B off the grid) is
+//   first copied by pack16_kernel into a zero-padded, aligned workspace,
+//   A as M x Kp8 and B as K x Np8 (Kp8, Np8 rounded up to 8); an operand
+//   TMA can load is read where it lies.  The pad columns are zeros, and
+//   B's rows past K are TMA's zero fill, so the padded K adds nothing.
 // - float32 (Tf32x3): one split pass first (tf32_split_kernel) writes hi =
 //   tf32(x) and lo = tf32(x - hi), rounded to nearest with ties away from
 //   zero (cvt.rna.tf32.f32; split_tf32 has the non-finite cases), of A as
 //   [A_hi; A_lo] and of B transposed as [B_hi^T; B_lo^T] into a workspace
 //   the wrapper allocates (at 4096^3 it moves ~400 MB, ~0.12 ms): TF32
 //   wgmma takes both operands K-major and has no transpose bit for 32-bit
-//   types.  Then BN = 128, 3 stages of four 128 x 32 boxes (A_hi, A_lo,
-//   B_hi^T, B_lo^T: 64 KB), and m64n128k8 lo*hi, hi*lo, hi*hi per K step
-//   of 8 into the same float32 accumulators, the small terms first.  What
-//   is left out, lo*lo and the rounding of lo, is about 2^-21 of each
-//   product: float32's own range.
+//   types.  The split pass reads A and B by scalar loads, so any base and
+//   any K or N will do; it writes rows of Kp = K rounded up to 4 values,
+//   the pad columns zeros, so the workspace's stride suits TMA.  Then BN =
+//   128, 3 stages of four 128 x 32 boxes (A_hi, A_lo, B_hi^T, B_lo^T: 64
+//   KB), and m64n128k8 lo*hi, hi*lo, hi*hi per K step of 8 into the same
+//   float32 accumulators, the small terms first.  What is left out, lo*lo
+//   and the rounding of lo, is about 2^-21 of each product: float32's own
+//   range.
 //   The tensor cores' accumulator does not round to nearest, so each stage
 //   (K = 32) sums into a fresh one that the CUDA cores add to the tile's
 //   float32 sums after wgmma.wait_group 0, which gives up the overlap of
 //   one stage's products with the next one's.  One tile width, no rule.
 //
 // The epilogue rounds the accumulators to the output type and stores pairs
-// of values straight from registers, masked at M and N.  TMA zero-fills
-// reads past M, N and K, so a ragged edge needs no load masks: danube's
-// 4200 rows are 32 full row tiles and 104 rows.  (In the float32 route a
-// hi box's rows past M or N read lo rows instead, which only reach output
-// rows and columns that are never stored.)  The tensor maps are built on
-// each call (cuTensorMapEncodeTiled, reached through
-// cudaGetDriverEntryPoint, so the link needs no -lcuda) and passed as
-// __grid_constant__ parameters.  Sums run over K in another order than
-// mmm.cu's, so the routes agree within tolerance, not bit for bit.
+// of values straight from registers, masked at M and N; where N is odd a
+// pair may cross the row's end and a row's start is not pair-aligned, so
+// it stores one value at a time.  TMA zero-fills reads past M, N and K, so
+// a ragged edge needs no load masks: danube's 4200 rows are 32 full row
+// tiles and 104 rows.  (In the float32 route a hi box's rows past M or N
+// read lo rows instead, which only reach output rows and columns that are
+// never stored.)  The tensor maps are built on each call
+// (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
+// link needs no -lcuda) and passed as __grid_constant__ parameters.
 // Persistent blocks (one tile's epilogue under the next one's loads) and a
 // TMA-store epilogue are later work.
 #include <cuda.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "common.cuh"
@@ -330,6 +338,7 @@ template <typename T, int BN> struct Half16 {
   static __device__ __forceinline__ void store(T* p, float x, float y) {
     *reinterpret_cast<typename Pair<T>::type*>(p) = Pair<T>::make(x, y);
   }
+  static __device__ __forceinline__ T one(float x) { return halo::from_float<T>(x); }
 };
 
 // float32 by 3xTF32 into a 128 x 128 tile: the operands come split, A as
@@ -372,7 +381,22 @@ struct Tf32x3 {
   static __device__ __forceinline__ void store(float* p, float x, float y) {
     *reinterpret_cast<float2*>(p) = make_float2(x, y);
   }
+  static __device__ __forceinline__ float one(float x) { return x; }
 };
+
+// Outputs c and c + 1 of one row at p: one paired store where N is even
+// (c is even, so the pair lies on its own boundary and inside the row),
+// else one value at a time, the second only where c + 1 < N.
+template <class S>
+__device__ __forceinline__ void store_two(typename S::Out* p, float x, float y, bool pairs,
+                                          bool second) {
+  if (pairs) {
+    S::store(p, x, y);
+    return;
+  }
+  p[0] = S::one(x);
+  if (second) p[1] = S::one(y);
+}
 
 // Dynamic shared memory of a tile: 1 KB of alignment slack, the stages, a
 // full and an empty barrier per stage.
@@ -461,12 +485,15 @@ mmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   // d[4j + 2h + v]: row warp*16 + lane/4 + 8h, column 8j + 2*(lane%4) + v
   const int warp = (threadIdx.x % 128) / 32;
   const int r0 = m0 + wg * 64 + warp * 16 + lane / 4;
+  const bool pairs = N % 2 == 0;
 #pragma unroll
   for (int j = 0; j < S::kBN / 8; ++j) {
     const int c = n0 + j * 8 + 2 * (lane % 4);
     if (c >= N) continue;
-    if (r0 < M) S::store(C + (size_t)r0 * N + c, d[4 * j], d[4 * j + 1]);
-    if (r0 + 8 < M) S::store(C + (size_t)(r0 + 8) * N + c, d[4 * j + 2], d[4 * j + 3]);
+    if (r0 < M)
+      store_two<S>(C + (size_t)r0 * N + c, d[4 * j], d[4 * j + 1], pairs, c + 1 < N);
+    if (r0 + 8 < M)
+      store_two<S>(C + (size_t)(r0 + 8) * N + c, d[4 * j + 2], d[4 * j + 3], pairs, c + 1 < N);
   }
 }
 
@@ -493,37 +520,60 @@ __device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
 }
 
 // The 3xTF32 route's split pass: split_tf32 of every element of A (M x K)
-// into ws_a = [A_hi; A_lo] (2M x K), and of B (K x N), transposed through a
+// into ws_a = [A_hi; A_lo] (2M x Kp), and of B (K x N), transposed through a
 // shared tile so that reads and writes both coalesce, into ws_b = [B_hi^T;
-// B_lo^T] (2N x K).  One 32 x 32 tile per 256-thread block, the first
-// tiles_a blocks on A.
+// B_lo^T] (2N x Kp), with zeros (split as hi = lo = 0) in the columns K ..
+// Kp - 1.  A and B are read by scalar loads: any base, any K and N.  One
+// 32 x 32 tile per 256-thread block, the first tiles_a blocks on A.
 __global__ void __launch_bounds__(256)
 tf32_split_kernel(const float* __restrict__ A, const float* __restrict__ B,
                   float* __restrict__ ws_a, float* __restrict__ ws_b, int M, int N, int K,
-                  int tiles_a) {
+                  int Kp, int tiles_a) {
   __shared__ float tile[32][33];
   const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  const int kx = (K + 31) / 32;
+  const int kx = (Kp + 31) / 32;
   if (static_cast<int>(blockIdx.x) < tiles_a) {
-    const size_t mk = (size_t)M * K;
+    const size_t mk = (size_t)M * Kp;
     const int r0 = blockIdx.x / kx * 32, c = blockIdx.x % kx * 32 + tx;
-    for (int i = ty; i < 32 && c < K; i += 8) {
+    for (int i = ty; i < 32 && c < Kp; i += 8) {
       if (r0 + i >= M) break;
-      const size_t at = (size_t)(r0 + i) * K + c;
-      split_tf32(A[at], ws_a[at], ws_a[mk + at]);
+      const size_t at = (size_t)(r0 + i) * Kp + c;
+      split_tf32(c < K ? A[(size_t)(r0 + i) * K + c] : 0.f, ws_a[at], ws_a[mk + at]);
     }
     return;
   }
-  const size_t nk = (size_t)N * K;
+  const size_t nk = (size_t)N * Kp;
   const int b = blockIdx.x - tiles_a, nx = (N + 31) / 32;
   const int k0 = b / nx * 32, n0 = b % nx * 32;
   for (int i = ty; i < 32; i += 8)
     tile[i][tx] = k0 + i < K && n0 + tx < N ? B[(size_t)(k0 + i) * N + n0 + tx] : 0.f;
   __syncthreads();
   for (int i = ty; i < 32; i += 8) {
-    if (n0 + i >= N || k0 + tx >= K) continue;
-    const size_t at = (size_t)(n0 + i) * K + k0 + tx;
+    if (n0 + i >= N || k0 + tx >= Kp) continue;
+    const size_t at = (size_t)(n0 + i) * Kp + k0 + tx;
     split_tf32(tile[tx][i], ws_b[at], ws_b[nk + at]);
+  }
+}
+
+// The 16-bit route's pack pass: src (rows x cols, row-major, 2-byte
+// elements, any alignment) into dst (rows x cols_p, 16-byte aligned,
+// cols_p a multiple of 8) with zeros in the columns cols .. cols_p - 1.
+// Each thread builds 16-byte vectors of dst from 2-byte loads; the bits are
+// copied as they are, so one kernel serves bfloat16 and float16.
+__global__ void __launch_bounds__(256)
+pack16_kernel(const uint16_t* __restrict__ src, uint16_t* __restrict__ dst, int rows,
+              int cols, int cols_p) {
+  const int vecs = cols_p / 8;
+  const size_t total = (size_t)rows * vecs;
+  for (size_t v = blockIdx.x * (size_t)blockDim.x + threadIdx.x; v < total;
+       v += (size_t)gridDim.x * blockDim.x) {
+    const int r = static_cast<int>(v / vecs), c0 = static_cast<int>(v % vecs) * 8;
+    const uint16_t* row = src + (size_t)r * cols;
+    uint4 u;
+    uint16_t* e = reinterpret_cast<uint16_t*>(&u);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) e[j] = c0 + j < cols ? row[c0 + j] : uint16_t{0};
+    reinterpret_cast<uint4*>(dst)[v] = u;
   }
 }
 
@@ -594,71 +644,103 @@ int launch(const CUtensorMap& map_a, const CUtensorMap& map_b, void* c, int m, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// a (m x kp, K-major) and b (k x np, N-major) as TMA loads them: kp >= k
+// columns of a (a zero pad past k), np >= n columns of b; the K loop runs
+// over kp, b's rows past k are TMA's zero fill.
 template <typename T, int BN>
-int launch_16(const void* a, const void* b, void* c, int m, int n, int k, cudaStream_t s) {
+int launch_16(const void* a, const void* b, void* c, int m, int n, int k, int kp, int np,
+              cudaStream_t s) {
   const cudaError_t rc = allow_smem<Half16<T, BN>>();
   if (rc != cudaSuccess) return static_cast<int>(rc);
   constexpr CUtensorMapDataType type = MapType<T>::value;
   CUtensorMap map_a, map_b;
-  if (!make_map(&map_a, a, type, 2, m, k, kBM) || !make_map(&map_b, b, type, 2, k, n, 64))
+  if (!make_map(&map_a, a, type, 2, m, kp, kBM) || !make_map(&map_b, b, type, 2, k, np, 64))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch<Half16<T, BN>>(map_a, map_b, c, m, n, k, s);
+  return launch<Half16<T, BN>>(map_a, map_b, c, m, n, kp, s);
 }
 
 template <typename T>
-int launch_width(const void* a, const void* b, void* c, int m, int n, int k, int bn,
-                 cudaStream_t s) {
-  return bn == 256 ? launch_16<T, 256>(a, b, c, m, n, k, s)
-                   : launch_16<T, 128>(a, b, c, m, n, k, s);
+int launch_width(const void* a, const void* b, void* c, int m, int n, int k, int kp, int np,
+                 int bn, cudaStream_t s) {
+  return bn == 256 ? launch_16<T, 256>(a, b, c, m, n, k, kp, np, s)
+                   : launch_16<T, 128>(a, b, c, m, n, k, kp, np, s);
 }
 
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
+int round_up(int x, int to) { return (x + to - 1) / to * to; }
+
+// pack16_kernel of src (rows x cols) into dst (rows x cols_p)
+int pack(const void* src, void* dst, int rows, int cols, int cols_p, cudaStream_t s) {
+  const long long vecs = static_cast<long long>(rows) * (cols_p / 8);
+  const unsigned blocks = static_cast<unsigned>(std::min<long long>((vecs + 255) / 256, 1 << 16));
+  pack16_kernel<<<blocks, 256, 0, s>>>(static_cast<const uint16_t*>(src),
+                                       static_cast<uint16_t*>(dst), rows, cols, cols_p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // a (m, k), b (k, n), c (m, n) in the type of `dtype` (1 bfloat16, 2
-// float16), 16-byte aligned, k and n multiples of 8; bn the tile's
-// columns, 128 or 256.
-extern "C" int halo_mmm_wgmma(const void* a, const void* b, void* c, int m, int n, int k,
-                              int bn, int dtype, void* stream) {
-  if (m < 1 || n < 8 || k < 8 || n % 8 || k % 8 || (m + kBM - 1) / kBM > 65535 ||
-      (bn != 128 && bn != 256) ||
-      misaligned(a) || misaligned(b) || misaligned(c) || encode_tiled() == nullptr)
+// float16), c 16-byte aligned; bn the tile's columns, 128 or 256.  pack_a:
+// a is first copied into ws as m x round_up(k, 8), zero-padded; else k is
+// a multiple of 8 and a 16-byte aligned.  pack_b: b is copied into ws
+// (after a's copy, if any) as k x round_up(n, 8); else n is a multiple of 8
+// and b 16-byte aligned.  ws 16-byte aligned where either is packed.
+extern "C" int halo_mmm_wgmma(const void* a, const void* b, void* c, void* ws, int m, int n,
+                              int k, int bn, int pack_a, int pack_b, int dtype, void* stream) {
+  if (m < 1 || n < 1 || k < 1 || (m + kBM - 1) / kBM > 65535 || (bn != 128 && bn != 256) ||
+      misaligned(c) || (!pack_a && (k % 8 || misaligned(a))) ||
+      (!pack_b && (n % 8 || misaligned(b))) || ((pack_a || pack_b) && misaligned(ws)) ||
+      encode_tiled() == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int kp = pack_a ? round_up(k, 8) : k, np = pack_b ? round_up(n, 8) : n;
+  uint16_t* next = static_cast<uint16_t*>(ws);
+  if (pack_a) {
+    const int rc = pack(a, next, m, k, kp, s);
+    if (rc) return rc;
+    a = next;
+    next += static_cast<size_t>(m) * kp;
+  }
+  if (pack_b) {
+    const int rc = pack(b, next, k, n, np, s);
+    if (rc) return rc;
+    b = next;
+  }
   switch (dtype) {
-    case 1: return launch_width<__nv_bfloat16>(a, b, c, m, n, k, bn, s);
-    case 2: return launch_width<__half>(a, b, c, m, n, k, bn, s);
+    case 1: return launch_width<__nv_bfloat16>(a, b, c, m, n, k, kp, np, bn, s);
+    case 2: return launch_width<__half>(a, b, c, m, n, k, kp, np, bn, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// a (m, k), b (k, n), c (m, n) float32, 16-byte aligned, k and n multiples
-// of 4; ws a float32 workspace of 2*(m + n)*k values, 16-byte aligned: the
-// split pass writes [A_hi; A_lo] and [B_hi^T; B_lo^T] there and the
-// product reads them.
+// a (m, k), b (k, n), c (m, n) float32, c 16-byte aligned, a and b at any
+// alignment; ws a 16-byte-aligned float32 workspace of 2*(m + n)*kp values,
+// kp = k rounded up to a multiple of 4: the split pass writes [A_hi; A_lo]
+// and [B_hi^T; B_lo^T] there, rows of kp values, and the product reads them.
 extern "C" int halo_mmm_tf32x3(const void* a, const void* b, void* c, void* ws, int m,
                                int n, int k, void* stream) {
-  if (m < 1 || n < 4 || k < 4 || n % 4 || k % 4 || (m + kBM - 1) / kBM > 65535 ||
-      2LL * m >= (1LL << 31) || 2LL * n >= (1LL << 31) || misaligned(a) || misaligned(b) ||
-      misaligned(c) || misaligned(ws) || encode_tiled() == nullptr)
+  if (m < 1 || n < 1 || k < 1 || (m + kBM - 1) / kBM > 65535 || 2LL * m >= (1LL << 31) ||
+      2LL * n >= (1LL << 31) || misaligned(c) || misaligned(ws) || encode_tiled() == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t rc = allow_smem<Tf32x3>();
   if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int kp = round_up(k, 4);
   float* ws_a = static_cast<float*>(ws);
-  float* ws_b = ws_a + 2 * (size_t)m * k;
+  float* ws_b = ws_a + 2 * (size_t)m * kp;
   CUtensorMap map_a, map_b;
-  if (!make_map(&map_a, ws_a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 2LL * m, k, kBM) ||
-      !make_map(&map_b, ws_b, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 2LL * n, k, Tf32x3::kBN))
+  if (!make_map(&map_a, ws_a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 2LL * m, kp, kBM) ||
+      !make_map(&map_b, ws_b, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, 2LL * n, kp, Tf32x3::kBN))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long tiles_a = (m + 31LL) / 32 * ((k + 31) / 32);
-  const long long tiles = tiles_a + (k + 31LL) / 32 * ((n + 31) / 32);
+  const long long tiles_a = (m + 31LL) / 32 * ((kp + 31) / 32);
+  const long long tiles = tiles_a + (kp + 31LL) / 32 * ((n + 31) / 32);
   if (tiles >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   tf32_split_kernel<<<static_cast<unsigned>(tiles), 256, 0, s>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), ws_a, ws_b, m, n, k,
+      static_cast<const float*>(a), static_cast<const float*>(b), ws_a, ws_b, m, n, k, kp,
       static_cast<int>(tiles_a));
   rc = cudaGetLastError();
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  return launch<Tf32x3>(map_a, map_b, c, m, n, k, s);
+  return launch<Tf32x3>(map_a, map_b, c, m, n, kp, s);
 }

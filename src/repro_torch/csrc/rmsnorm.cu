@@ -10,22 +10,33 @@
 // take at least 0.0125 ms at 3.35 TB/s, against 32 MFLOP.
 //
 // Design: no padding, so any D works.  Rows that are 16-byte aligned and
-// fill whole 16-byte vectors, up to 512 vectors (4096 bfloat16, 2048
-// float32), take one warp per row, eight rows per 256-thread block: each
-// lane loads its vectors once into registers, sums x^2 in float32, the warp
-// reduces by shuffles, and the lane scales the values it holds, so x is
-// read from device memory once.  Other rows take one 256-thread block per
-// row: pass one sums x^2 (reduced across warps through shared memory), pass
-// two reads the row again, from L1/L2.  Both write (x * r) * gamma with
-// r = __frsqrt_rn(sum / D + eps), a correctly rounded reciprocal square
-// root, never the approximate rsqrtf.
+// fill whole 16-byte vectors, up to 4096 vectors, take the rows kernel
+// under a launch plan (rmsnorm_plan in kernels/rmsnorm/rmsnorm.py, a pure
+// function of rows, D, the element size and the SM count): W warps share
+// a row (W = 1, 2, 4 or 8; 8 / W rows to a 256-thread block), and each
+// lane holds V 16-byte vectors of x and the same V vectors of gamma in
+// registers, V a template argument sized to the row (V = ceil(vectors /
+// 32W), 1..16), so a lane's registers follow D rather than the longest
+// row.  A lane loads gamma and x together, sums x^2 in float32, the warp
+// reduces by shuffles, the W warps of a row add their sums through shared
+// memory in warp order, and the lane scales the values it holds: x is read
+// from device memory once and the reduction order is fixed by the plan,
+// with no atomics, so two calls give the same bits.  The plan takes W up
+// from 1 until a lane holds at most 4 vectors and the blocks cover every
+// SM (danube's rows of 2560 bfloat16: 4 warps a row, 3 vectors a lane, 64
+// registers, 4 blocks an SM; 512 rows make 256 blocks over 132 SMs;
+// decode's 4 rows take 8 warps a row).  Other rows (off the 16-byte grid, or longer)
+// take one 256-thread block per row: pass one sums x^2 (reduced across
+// warps through shared memory), pass two reads the row again, from L1/L2.
+// Both write (x * r) * gamma with r = __frsqrt_rn(sum / D + eps), a
+// correctly rounded reciprocal square root, never the approximate rsqrtf.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarpRows = kThreads / 32;
-constexpr int kMaxVecs = 16;  // 16-byte vectors a lane holds in registers
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxVecs = 16;  // 16-byte vectors a lane holds in registers, at most
 
 // Sum of x^2 over elements [start, D) of row x with stride `step`.
 template <typename T>
@@ -86,25 +97,38 @@ __device__ __forceinline__ float inv_rms(float sum, int D, float eps) {
   return __frsqrt_rn(__fadd_rn(__fdiv_rn(sum, (float)D), eps));
 }
 
-template <typename T>
+// The rows kernel: warps_per_row (W) warps to a row, 8 / W rows to a
+// block; lane l of the row's warp p holds vectors i = 32 p + l + 32 W k,
+// k < V, of x and of gamma.
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-rmsnorm_regs_kernel(const T* __restrict__ X, const T* __restrict__ G, T* __restrict__ O,
-                    int R, int D, float eps) {
-  constexpr int V = halo::Vec16<T>::kN;
-  const int row = blockIdx.x * kWarpRows + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= R) return;  // uniform across the warp
-  const int nvec = D / V;
+rmsnorm_rows_kernel(const T* __restrict__ X, const T* __restrict__ G, T* __restrict__ O,
+                    int R, int D, float eps, int warps_per_row) {
+  constexpr int E = halo::Vec16<T>::kN;
+  __shared__ float partial[kWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = warp / warps_per_row, part = warp % warps_per_row;
+  const int row = blockIdx.x * (kWarps / warps_per_row) + group;
+  const bool live = row < R;  // uniform across the warp
+  const int nvec = D / E, first = 32 * part + lane, step = 32 * warps_per_row;
+  const uint4* gv = reinterpret_cast<const uint4*>(G);
   const uint4* xv = reinterpret_cast<const uint4*>(X + (size_t)row * D);
-  uint4 held[kMaxVecs];
+  uint4 g[V], x[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int i = first + step * k;
+    if (live && i < nvec) {
+      g[k] = gv[i];
+      x[k] = xv[i];
+    }
+  }
   float s = 0.f;
 #pragma unroll
-  for (int k = 0; k < kMaxVecs; ++k) {
-    if (lane + 32 * k < nvec) {
-      held[k] = xv[lane + 32 * k];
-      const T* p = reinterpret_cast<const T*>(&held[k]);
+  for (int k = 0; k < V; ++k) {
+    if (live && first + step * k < nvec) {
+      const T* p = reinterpret_cast<const T*>(&x[k]);
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
+      for (int j = 0; j < E; ++j) {
         const float f = halo::to_float(p[j]);
         s = fmaf(f, f, s);
       }
@@ -112,20 +136,26 @@ rmsnorm_regs_kernel(const T* __restrict__ X, const T* __restrict__ G, T* __restr
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (warps_per_row > 1) {
+    // every warp of the block passes the barrier, live or not
+    if (lane == 0) partial[warp] = s;
+    __syncthreads();
+    s = partial[group * warps_per_row];
+    for (int q = 1; q < warps_per_row; ++q) s += partial[group * warps_per_row + q];
+  }
+  if (!live) return;
   const float r = inv_rms(s, D, eps);
-  const uint4* gv = reinterpret_cast<const uint4*>(G);
   uint4* ov = reinterpret_cast<uint4*>(O + (size_t)row * D);
 #pragma unroll
-  for (int k = 0; k < kMaxVecs; ++k) {
-    const int i = lane + 32 * k;
+  for (int k = 0; k < V; ++k) {
+    const int i = first + step * k;
     if (i < nvec) {
-      const uint4 rg = gv[i];
-      const T* px = reinterpret_cast<const T*>(&held[k]);
-      const T* pg = reinterpret_cast<const T*>(&rg);
+      const T* px = reinterpret_cast<const T*>(&x[k]);
+      const T* pg = reinterpret_cast<const T*>(&g[k]);
       uint4 ro;
       T* po = reinterpret_cast<T*>(&ro);
 #pragma unroll
-      for (int j = 0; j < V; ++j)
+      for (int j = 0; j < E; ++j)
         po[j] = halo::from_float<T>(__fmul_rn(__fmul_rn(halo::to_float(px[j]), r),
                                               halo::to_float(pg[j])));
       ov[i] = ro;
@@ -146,23 +176,57 @@ rmsnorm_block_kernel(const T* __restrict__ X, const T* __restrict__ G, T* __rest
             inv_rms(total, D, eps), vec);
 }
 
+template <typename T, int V>
+void launch_rows(const void* x, const void* gamma, void* out, int rows, int d, float eps,
+                 int warps_per_row, unsigned blocks, cudaStream_t s) {
+  rmsnorm_rows_kernel<T, V><<<blocks, kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<T*>(out), rows, d,
+      eps, warps_per_row);
+}
+
+#define HALO_RMSNORM_V(n) \
+  case n: launch_rows<T, n>(x, gamma, out, rows, d, eps, warps_per_row, blocks, s); break;
+
+template <typename T>
+int launch_rows_v(int vecs, const void* x, const void* gamma, void* out, int rows, int d,
+                  float eps, int warps_per_row, unsigned blocks, cudaStream_t s) {
+  switch (vecs) {
+    HALO_RMSNORM_V(1) HALO_RMSNORM_V(2) HALO_RMSNORM_V(3) HALO_RMSNORM_V(4)
+    HALO_RMSNORM_V(5) HALO_RMSNORM_V(6) HALO_RMSNORM_V(7) HALO_RMSNORM_V(8)
+    HALO_RMSNORM_V(9) HALO_RMSNORM_V(10) HALO_RMSNORM_V(11) HALO_RMSNORM_V(12)
+    HALO_RMSNORM_V(13) HALO_RMSNORM_V(14) HALO_RMSNORM_V(15) HALO_RMSNORM_V(16)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+#undef HALO_RMSNORM_V
+
 }  // namespace
 
 // x (rows, d) and gamma (d) in one type; vec: x, gamma and out 16-byte
-// aligned and d * sizeof(T) a multiple of 16.
+// aligned and d * sizeof(T) a multiple of 16.  The launch plan:
+// warps_per_row 1, 2, 4 or 8 with vecs (1..16) vectors a lane and `blocks`
+// blocks of 8 / warps_per_row rows takes the rows kernel (vec rows only;
+// 32 * warps_per_row * vecs must cover the row's vectors); warps_per_row 0
+// takes the block kernel, one block per row (`blocks` = rows).
 extern "C" int halo_rmsnorm(const void* x, const void* gamma, void* out, int rows, int d,
-                            float eps, int dtype, int vec, void* stream) {
+                            float eps, int dtype, int vec, int warps_per_row, int vecs,
+                            int blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned warp_blocks = (unsigned)((rows + kWarpRows - 1) / kWarpRows);
+  if (rows < 1 || d < 1 || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   HALO_DISPATCH_TYPE(dtype, T,
-      if (vec && d <= 32 * kMaxVecs * halo::Vec16<T>::kN) {
-        rmsnorm_regs_kernel<T><<<warp_blocks, kThreads, 0, s>>>(
-            static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<T*>(out),
-            rows, d, eps);
-      } else {
-        rmsnorm_block_kernel<T><<<(unsigned)rows, kThreads, 0, s>>>(
+      if (warps_per_row == 0) {
+        rmsnorm_block_kernel<T><<<(unsigned)blocks, kThreads, 0, s>>>(
             static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<T*>(out),
             d, eps, vec);
-      })
-  return static_cast<int>(cudaGetLastError());
+        return static_cast<int>(cudaGetLastError());
+      }
+      const long long nvec = d / halo::Vec16<T>::kN;
+      if (!vec || (warps_per_row != 1 && warps_per_row != 2 && warps_per_row != 4 &&
+                   warps_per_row != 8) ||
+          vecs < 1 || vecs > kMaxVecs || 32LL * warps_per_row * vecs < nvec)
+        return static_cast<int>(cudaErrorInvalidValue);
+      return launch_rows_v<T>(vecs, x, gamma, out, rows, d, eps, warps_per_row,
+                              (unsigned)blocks, s);)
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -22,7 +22,7 @@
 // block (transposed, padded against bank conflicts) and of the B rows the
 // index selects are staged in shared memory as float32; each thread keeps
 // an 8x8 register micro-tile (rows strided by 8, columns by 32: broadcast
-// and conflict-free shared reads, coalesced stores), as in mmm.cu.  bm and
+// and conflict-free shared reads, coalesced stores).  bm and
 // bk are runtime values; rows past bm, columns past N and B rows past K
 // load 0 and are not stored, so the kernel never reads outside values or
 // B.  An index outside [-1, K/bk) gives an undefined result (as in the

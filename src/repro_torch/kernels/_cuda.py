@@ -18,6 +18,7 @@ kernels (:func:`launch_counts`).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,7 +33,7 @@ import torch
 __all__ = ["BUILD_ROOT", "CSRC", "LaunchCounter", "NVCC_FLAGS", "aligned",
            "build", "check", "counter", "dtype_code", "index_problem",
            "launch_counts", "lib", "operand_problem", "require",
-           "require_cuda", "reset_launch_counts", "source_hash", "stream"]
+           "require_cuda", "reset_launch_counts", "sm_count", "source_hash", "stream"]
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -47,10 +48,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _vp, _int, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    # a, b, c, m, n, k, dtype, stream
-    "halo_mmm": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
-    # a, b, c, m, n, k, bn, dtype, stream (bfloat16 or float16)
-    "halo_mmm_wgmma": [_vp, _vp, _vp, _int, _int, _int, _int, _int, _vp],
+    # a, b, c, ws, m, n, k, bn, pack_a, pack_b, dtype, stream (bfloat16 or
+    # float16)
+    "halo_mmm_wgmma": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp],
     # a, b, c, ws, m, n, k, stream (float32)
     "halo_mmm_tf32x3": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
     # a, b, c, ws, m, n, k, splits, kb, kw, vec, dtype, stream
@@ -78,8 +78,9 @@ _SIGNATURES = {
     "halo_sort_radix": [_vp, _vp, _vp, _ll, _vp, _ll, _ll, _ll, _int, _vp],
     # x, counts, out, n, bins, lo, hi, width, dtype, stream
     "halo_hist": [_vp, _vp, _vp, _ll, _int, _f, _f, _f, _int, _vp],
-    # x, gamma, out, rows, d, eps, dtype, vec, stream
-    "halo_rmsnorm": [_vp, _vp, _vp, _int, _int, _f, _int, _int, _vp],
+    # x, gamma, out, rows, d, eps, dtype, vec, warps_per_row, vecs, blocks,
+    # stream
+    "halo_rmsnorm": [_vp, _vp, _vp, _int, _int, _f, _int, _int, _int, _int, _int, _vp],
     # q, k, v, out, b, h, hkv, sq, skv, d, causal, has_window, window,
     # prefix, scale, dtype, stream
     "halo_flash_attention": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
@@ -206,6 +207,12 @@ def dtype_code(dtype: torch.dtype) -> int:
 def aligned(*tensors: torch.Tensor) -> bool:
     """True when every data pointer allows 16-byte vector loads."""
     return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors, read from the device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream(device: torch.device) -> int:

@@ -1,8 +1,8 @@
-"""MMM on Hopper: the ctypes wrappers around ``csrc/mmm_skinny.cu``,
-``csrc/mmm_wgmma.cu`` and ``csrc/mmm.cu``, and the route between them.
+"""MMM on Hopper: the ctypes wrappers around ``csrc/mmm_skinny.cu`` and
+``csrc/mmm_wgmma.cu``, and the route between them.
 
-Replaces ``repro/kernels/matmul/matmul.py::mmm_pallas``.  Four routes,
-chosen by type, shape and alignment alone (:func:`mmm_route`):
+Replaces ``repro/kernels/matmul/matmul.py::mmm_pallas``.  Three routes,
+chosen by type and row count alone (:func:`mmm_route`):
 
 * ``skinny`` (``mmm_skinny.cu``): column strips of 16-byte loads of B with
   K split across warps and, where the strips cannot fill the card, across
@@ -11,25 +11,24 @@ chosen by type, shape and alignment alone (:func:`mmm_route`):
 * ``wgmma`` (``mmm_wgmma.cu``): 128x128 or 128x256 output tiles
   (:func:`wgmma_tile_n`) on the tensor cores, TMA loads into a ring of
   shared-memory stages, for bfloat16 and float16 above SKINNY_M_MAX rows (a
-  prefill's projections) where K and N are multiples of 8 and the operands
-  16-byte aligned (TMA's stride and address rules);
-* ``tf32x3`` (``mmm_wgmma.cu``): float32 above SKINNY_M_MAX rows where K
-  and N are multiples of 4 and the operands 16-byte aligned (TMA's rules
-  for 4-byte elements; the template's 4096³, held to 1e-5): a split pass
-  writes each operand's TF32 high and low parts into a workspace, and the
+  prefill's projections).  TMA needs row strides that are multiples of 16
+  bytes and 16-byte-aligned bases: an operand that breaks either is first
+  copied into a zero-padded, aligned workspace (:func:`wgmma_packs`);
+* ``tf32x3`` (``mmm_wgmma.cu``): float32 above SKINNY_M_MAX rows (the
+  template's 4096³, held to 1e-5): a split pass writes each operand's
+  TF32 high and low parts into a workspace whose rows it pads to a
+  multiple of 4 with zeros, reading the operands by scalar loads, and the
   same ring of TMA stages sums lo·hi + hi·lo + hi·hi on the TF32 tensor
-  cores in 128x128 tiles;
-* ``tile`` (``mmm.cu``): 128x128 output tiles in float32 on the CUDA cores
-  for the rest (a K or N off the multiple, operands off the 16-byte grid).
+  cores in 128x128 tiles.
 
-The kernels mask ragged edges themselves (TMA zero-fills them), so the
-wrappers pad nothing.  Each route counts its own launches (``mmm_skinny``,
-``mmm_wgmma``, ``mmm_tf32x3`` and ``mmm``; one per call, the split pass
-and the product of ``tf32x3`` together).
+So every shape and alignment has its route.  The kernels mask ragged edges
+themselves (TMA zero-fills them).  A product over K = 0 is zeros and
+launches nothing.  Each route counts its own launches (``mmm_skinny``,
+``mmm_wgmma``, ``mmm_tf32x3``; one per call, a pack or split pass and the
+product together).
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -37,7 +36,6 @@ import torch
 from .. import _cuda
 from ..common import cdiv, round_up
 
-LAUNCHES = _cuda.counter("mmm")
 SKINNY_LAUNCHES = _cuda.counter("mmm_skinny")
 WGMMA_LAUNCHES = _cuda.counter("mmm_wgmma")
 TF32X3_LAUNCHES = _cuda.counter("mmm_tf32x3")
@@ -45,16 +43,13 @@ TF32X3_LAUNCHES = _cuda.counter("mmm_tf32x3")
 #: the types the tensor-core route takes
 WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 
-#: the largest M that takes the skinny route.  By device time on an H100
-#: (chip_smoke.py phase 4, bfloat16, B cold in L2), the skinny route beat
-#: the tile route at every M swept up to 256 at 2560x6912 (0.128 against
-#: 0.559 ms at M = 64), but only up to 64 at the 32000-column unembed
-#: (0.475 against 0.773 ms at 64; 0.943 against 0.773 at 128): it reads B
-#: once per 16 rows, so its time grows with M where the tile route's does
-#: not, and a wide N fills the card with tiles sooner.
+#: the largest M that takes the skinny route.  It reads B once per 16
+#: rows, so its time grows with M where a tiled route's does not, and a
+#: wide N fills the card with tiles sooner; chip_smoke.py phase 4 sweeps M
+#: against the tensor-core routes in bfloat16 and float32 (PERF.md).
 SKINNY_M_MAX = 64
 
-_MAX_GRID = 65535       # grid.y (tile: row tiles of 128; skinny: K splits)
+_MAX_GRID = 65535       # grid.y (tensor cores: row tiles of 128; skinny: K splits)
 #: skinny kernel geometry (csrc/mmm_skinny.cu): warps per block, rows per
 #: row group, and the K rows a block split covers at least (4 per warp)
 SKINNY_WARPS = 8
@@ -65,31 +60,23 @@ _SKINNY_MIN_SEGMENT = 32
 _SKINNY_TARGET_BLOCKS = 264
 
 
-def _wgmma_takes(dtype: torch.dtype, k: int, n: int, aligned: bool) -> bool:
-    """bfloat16 or float16 operands whose K and N are positive multiples of
-    8 and whose base pointers are 16-byte aligned: what TMA can load."""
-    return dtype in WGMMA_DTYPES and aligned and k > 0 and n > 0 \
-        and k % 8 == 0 and n % 8 == 0
-
-
-def _tf32x3_takes(dtype: torch.dtype, k: int, n: int, aligned: bool) -> bool:
-    """float32 operands whose K and N are positive multiples of 4 and whose
-    base pointers are 16-byte aligned: what TMA can load."""
-    return dtype == torch.float32 and aligned and k > 0 and n > 0 \
-        and k % 4 == 0 and n % 4 == 0
-
-
-def mmm_route(dtype: torch.dtype, m: int, k: int, n: int, aligned: bool) -> str:
-    """``"skinny"`` for M ≤ :data:`SKINNY_M_MAX` in every type; above it,
-    where the operands' base pointers are 16-byte aligned (``aligned``),
-    ``"wgmma"`` for bfloat16 and float16 when K and N are positive multiples
-    of 8 and ``"tf32x3"`` for float32 when they are positive multiples of 4;
-    else ``"tile"``."""
+def mmm_route(dtype: torch.dtype, m: int) -> str:
+    """``"skinny"`` for M ≤ :data:`SKINNY_M_MAX` in every type; above it
+    ``"wgmma"`` for bfloat16 and float16 and ``"tf32x3"`` for float32, at
+    any K, N and alignment."""
     if m <= SKINNY_M_MAX:
         return "skinny"
-    if _wgmma_takes(dtype, k, n, aligned):
-        return "wgmma"
-    return "tf32x3" if _tf32x3_takes(dtype, k, n, aligned) else "tile"
+    return "wgmma" if dtype in WGMMA_DTYPES else "tf32x3"
+
+
+def wgmma_packs(k: int, n: int, a_aligned: bool, b_aligned: bool) -> Tuple[bool, bool]:
+    """Which 16-bit operands the tensor-core route copies into its padded,
+    aligned workspace before TMA loads them: A (M x K) when K is not a
+    multiple of 8 (its row stride) or A is off the 16-byte grid, as M x
+    round_up(K, 8); B (K x N) when N is not a multiple of 8 or B is off
+    the grid, as K x round_up(N, 8).  B's rows past K are TMA's zero fill,
+    so a K off the multiple needs only A's copy."""
+    return k % 8 != 0 or not a_aligned, n % 8 != 0 or not b_aligned
 
 
 def wgmma_tile_n(m: int, n: int, sms: int) -> int:
@@ -136,27 +123,18 @@ def mmm_problem(a, b) -> Optional[str]:
     return None
 
 
-def _tile(a, b, out):
-    m, k = a.shape
-    rc = _cuda.lib().halo_mmm(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                              m, out.shape[1], k, _cuda.dtype_code(a.dtype),
-                              _cuda.stream(a.device))
-    _cuda.check(rc, "mmm")
-    LAUNCHES.add()
-    return out
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _wgmma(a, b, out, tile_n=None):
     m, k = a.shape
     n = out.shape[1]
-    rc = _cuda.lib().halo_mmm_wgmma(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-                                    tile_n or wgmma_tile_n(m, n, _sm_count(a.device)),
-                                    _cuda.dtype_code(a.dtype), _cuda.stream(a.device))
+    pack_a, pack_b = wgmma_packs(k, n, _cuda.aligned(a), _cuda.aligned(b))
+    # the packed copies, A's first: M x round_up(K, 8) and K x round_up(N, 8)
+    ws = torch.empty(pack_a * m * round_up(k, 8) + pack_b * k * round_up(n, 8),
+                     dtype=a.dtype, device=a.device) if pack_a or pack_b else None
+    rc = _cuda.lib().halo_mmm_wgmma(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                    None if ws is None else ws.data_ptr(), m, n, k,
+                                    tile_n or wgmma_tile_n(m, n, _cuda.sm_count(a.device)),
+                                    int(pack_a), int(pack_b), _cuda.dtype_code(a.dtype),
+                                    _cuda.stream(a.device))
     _cuda.check(rc, "mmm_wgmma")
     WGMMA_LAUNCHES.add()
     return out
@@ -165,8 +143,9 @@ def _wgmma(a, b, out, tile_n=None):
 def _tf32x3(a, b, out):
     m, k = a.shape
     n = out.shape[1]
-    # [A_hi; A_lo] (2M x K) and [B_hi^T; B_lo^T] (2N x K)
-    ws = torch.empty(2 * (m + n) * k, dtype=torch.float32, device=a.device)
+    # [A_hi; A_lo] (2M x Kp) and [B_hi^T; B_lo^T] (2N x Kp), Kp = K rounded
+    # up to 4
+    ws = torch.empty(2 * (m + n) * round_up(k, 4), dtype=torch.float32, device=a.device)
     rc = _cuda.lib().halo_mmm_tf32x3(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                                      ws.data_ptr(), m, n, k, _cuda.stream(a.device))
     _cuda.check(rc, "mmm_tf32x3")
@@ -196,43 +175,34 @@ def _launch(route, a, b, **options):
     out = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
-    return {"skinny": _skinny, "wgmma": _wgmma, "tf32x3": _tf32x3,
-            "tile": _tile}[route](a, b, out, **options)
-
-
-def mmm_tile_hopper(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """A (M,K) @ B (K,N) → (M,N) on the card by the 128x128 tile kernel."""
-    _cuda.require_cuda(mmm_problem(a, b), "MMM", a)
-    return _launch("tile", a, b)
+    if a.shape[1] == 0:
+        return out.zero_()
+    return {"skinny": _skinny, "wgmma": _wgmma, "tf32x3": _tf32x3}[route](a, b, out, **options)
 
 
 def mmm_wgmma_hopper(a: torch.Tensor, b: torch.Tensor,
                      tile_n: Optional[int] = None) -> torch.Tensor:
     """A (M,K) @ B (K,N) → (M,N) on the card by the tensor-core kernel:
-    bfloat16 or float16, K and N positive multiples of 8, 16-byte-aligned
-    operands, any M ≥ 1.  ``tile_n`` (128 or 256) sets the tile width in
-    place of :func:`wgmma_tile_n`'s, to time the two widths apart."""
+    bfloat16 or float16, any shape and alignment (operands TMA cannot load
+    are packed first, :func:`wgmma_packs`), any M ≥ 1.  ``tile_n`` (128 or
+    256) sets the tile width in place of :func:`wgmma_tile_n`'s, to time
+    the two widths apart."""
     _cuda.require_cuda(mmm_problem(a, b), "MMM", a)
     if tile_n not in (None, 128, 256):
         raise ValueError(f"MMM: the tensor-core tile is 128 or 256 columns, not {tile_n}")
-    if not _wgmma_takes(a.dtype, a.shape[1], b.shape[1], _cuda.aligned(a, b)):
+    if a.dtype not in WGMMA_DTYPES:
         raise ValueError(f"MMM: the tensor-core route takes bfloat16/float16 "
-                         f"operands with K and N positive multiples of 8 on the "
-                         f"16-byte grid, got {a.dtype} {tuple(a.shape)} @ "
-                         f"{tuple(b.shape)}")
+                         f"operands, got {a.dtype}")
     return _launch("wgmma", a, b, tile_n=tile_n)
 
 
 def mmm_tf32x3_hopper(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """A (M,K) @ B (K,N) → (M,N) float32 on the card by 3×TF32 on the tensor
-    cores: K and N positive multiples of 4, 16-byte-aligned operands, any
-    M ≥ 1, with a float32 workspace of 2·(M + N)·K values for the split
-    operands."""
+    cores: any shape and alignment, any M ≥ 1, with a float32 workspace of
+    2·(M + N)·Kp values for the split operands (Kp = K rounded up to 4)."""
     _cuda.require_cuda(mmm_problem(a, b), "MMM", a)
-    if not _tf32x3_takes(a.dtype, a.shape[1], b.shape[1], _cuda.aligned(a, b)):
-        raise ValueError(f"MMM: the 3xTF32 route takes float32 operands with K "
-                         f"and N positive multiples of 4 on the 16-byte grid, got "
-                         f"{a.dtype} {tuple(a.shape)} @ {tuple(b.shape)}")
+    if a.dtype != torch.float32:
+        raise ValueError(f"MMM: the 3xTF32 route takes float32 operands, got {a.dtype}")
     return _launch("tf32x3", a, b)
 
 
@@ -246,8 +216,6 @@ def mmm_skinny_hopper(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def mmm_hopper(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """A (M,K) @ B (K,N) → (M,N) on the card, in A's type, by the route
-    :func:`mmm_route` picks for the type, shape and alignment (the output,
-    from ``torch.empty``, is always aligned)."""
+    :func:`mmm_route` picks for the type and row count."""
     _cuda.require_cuda(mmm_problem(a, b), "MMM", a)
-    m, k = a.shape
-    return _launch(mmm_route(a.dtype, m, k, b.shape[1], _cuda.aligned(a, b)), a, b)
+    return _launch(mmm_route(a.dtype, a.shape[0]), a, b)

@@ -1,6 +1,7 @@
 """Plain PyTorch oracle for MMM (port of ``repro.kernels.matmul.ref``)."""
 import torch
 
+from ..common import round_up
 from .matmul import SKINNY_WARPS, skinny_plan
 
 
@@ -60,14 +61,47 @@ def tf32_split(x):
     return hi, tf32_round(x - hi)
 
 
-def mmm_tf32x3_ref(a, b):
-    """The 3×TF32 route's plain model: C = A_lo·B_hi + A_hi·B_lo + A_hi·B_hi
-    of the :func:`tf32_split` parts, three float32 products summed in
-    float32 (A_lo·B_lo is left out, as the kernel leaves it out).  The
-    kernel sums the three terms per K step of 8, in another order."""
-    a_hi, a_lo = tf32_split(a.float())
-    b_hi, b_lo = tf32_split(b.float())
+def tf32x3_workspace(a, b, kp=None):
+    """The 3×TF32 route's workspace as its split pass writes it, from
+    float32 A (M x K) and B (K x N): ``ws_a`` = [A_hi; A_lo] (2M x Kp) and
+    ``ws_b`` = [B_hi^T; B_lo^T] (2N x Kp) of the :func:`tf32_split` parts,
+    Kp = K rounded up to 4 (``kp`` sets another width ≥ K), zeros in the
+    columns K .. Kp − 1."""
+    m, k = a.shape
+    n = b.shape[1]
+    kp = round_up(k, 4) if kp is None else kp
+    ws_a = a.new_zeros((2 * m, kp))
+    ws_b = a.new_zeros((2 * n, kp))
+    ws_a[:m, :k], ws_a[m:, :k] = tf32_split(a)
+    b_hi, b_lo = tf32_split(b.t())
+    ws_b[:n, :k], ws_b[n:, :k] = b_hi, b_lo
+    return ws_a, ws_b
+
+
+def tf32x3_product(ws_a, ws_b):
+    """C = A_lo·B_hi + A_hi·B_lo + A_hi·B_hi of a :func:`tf32x3_workspace`,
+    three float32 products over its columns summed in float32 (A_lo·B_lo
+    is left out, as the kernel leaves it out).  The pad columns meet pad
+    columns only and add exact zeros.  The kernel sums the three terms per
+    K step of 8, in another order."""
+    m, n = ws_a.shape[0] // 2, ws_b.shape[0] // 2
+    a_hi, a_lo, b_hi, b_lo = ws_a[:m], ws_a[m:], ws_b[:n].t(), ws_b[n:].t()
     return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def mmm_tf32x3_ref(a, b):
+    """The 3×TF32 route's plain model: :func:`tf32x3_product` of the padded
+    :func:`tf32x3_workspace` of float32 ``a`` and ``b``."""
+    return tf32x3_product(*tf32x3_workspace(a.float(), b.float()))
+
+
+def pack_ref(x, cols_p):
+    """The tensor-core route's pack pass: the rows of 16-bit ``x`` (rows x
+    cols) copied bit for bit into rows of ``cols_p`` ≥ cols values, zeros
+    in the columns cols .. cols_p − 1."""
+    out = x.new_zeros((x.shape[0], cols_p))
+    out[:, :x.shape[1]] = x
+    return out
 
 
 def mmm_splitk_ref(a, b):

@@ -1,19 +1,64 @@
-"""RMSNORM on Hopper: the ctypes wrapper around ``csrc/rmsnorm.cu``.
+"""RMSNORM on Hopper: the ctypes wrapper around ``csrc/rmsnorm.cu`` and its
+launch plan.
 
-Replaces ``repro/kernels/rmsnorm/rmsnorm.py::rmsnorm_pallas``.  One warp
-per row holding the row in registers (16-byte aligned rows of up to 512
-vectors) or one block per row, float32 inside; nothing is padded, so the
-wrapper passes the rows as they are.
+Replaces ``repro/kernels/rmsnorm/rmsnorm.py::rmsnorm_pallas``.  Rows that
+are 16-byte aligned and fill whole 16-byte vectors take the rows kernel
+under :func:`rmsnorm_plan`: W warps share a row, each lane holding V
+vectors of x and of gamma in registers, V sized to the row; other rows
+take one block per row.  float32 inside; nothing is padded, so the wrapper
+passes the rows as they are.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import _cuda
+from ..common import cdiv
 
 LAUNCHES = _cuda.counter("rmsnorm")
+
+#: the rows kernel's block: 8 warps of 32 lanes (csrc/rmsnorm.cu kThreads)
+WARPS = 8
+#: warps a row may take, and the vectors a lane may hold (kMaxVecs)
+ROW_WARPS = (1, 2, 4, 8)
+MAX_VECS = 16
+#: the plan adds warps to a row until a lane holds at most VEC_BUDGET
+#: vectors and the blocks number at least one per SM.  On an H100 (ptxas
+#: counts, chip_smoke.py phase 1) a bfloat16 lane at 3 vectors holds 64
+#: registers, so 4 blocks of 256 fit an SM; at 5 it holds 117 (2 blocks),
+#: at 10 201 (1 block)
+VEC_BUDGET = 4
+
+
+class RmsnormPlan(NamedTuple):
+    """How the kernel covers the rows: ``warps_per_row`` (W) warps to a
+    row, 8 / W rows to a block, ``vecs_per_lane`` 16-byte vectors a lane,
+    ``blocks`` blocks; W = 0 is the block kernel, one block per row."""
+    warps_per_row: int
+    vecs_per_lane: int
+    blocks: int
+
+    @property
+    def rows_per_block(self) -> int:
+        return WARPS // self.warps_per_row if self.warps_per_row else 1
+
+
+def rmsnorm_plan(rows: int, d: int, element_size: int, sms: int,
+                 aligned: bool = True) -> RmsnormPlan:
+    """The launch plan for ``rows`` rows of ``d`` elements.  Rows that are
+    not 16-byte aligned (``aligned`` False or d·element_size off a multiple
+    of 16) or longer than 8 warps of 16 vectors a lane take the block
+    kernel.  Else W is the least of 1, 2, 4, 8 at which a lane holds at
+    most VEC_BUDGET vectors and the blocks reach ``sms``, or at which 32·W
+    lanes hold the row a vector each (more warps would idle)."""
+    nvec, rem = divmod(d * element_size, 16)
+    if not aligned or rem or nvec > 32 * WARPS * MAX_VECS:
+        return RmsnormPlan(0, 0, rows)
+    w = next(w for w in ROW_WARPS if w == WARPS or 32 * w >= nvec or (
+        cdiv(nvec, 32 * w) <= VEC_BUDGET and cdiv(rows, WARPS // w) >= sms))
+    return RmsnormPlan(w, cdiv(nvec, 32 * w), cdiv(rows, WARPS // w))
 
 
 def rmsnorm_problem(x, gamma) -> Optional[str]:
@@ -32,19 +77,20 @@ def rmsnorm_problem(x, gamma) -> Optional[str]:
     return None
 
 
-def rmsnorm_hopper(x: torch.Tensor, gamma: torch.Tensor,
-                   eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm of x over its last dim on the card, in x's type."""
+def rmsnorm_hopper(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm of x over its last dim on the card, in x's type, under
+    :func:`rmsnorm_plan`."""
     _cuda.require_cuda(rmsnorm_problem(x, gamma), "RMSNORM", x)
     d = x.shape[-1]
     rows = x.numel() // d
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    vec = _cuda.aligned(x, gamma, out) and (d * x.element_size()) % 16 == 0
-    rc = _cuda.lib().halo_rmsnorm(x.data_ptr(), gamma.data_ptr(),
-                                  out.data_ptr(), rows, d, float(eps),
-                                  _cuda.dtype_code(x.dtype), int(vec),
+    vec = _cuda.aligned(x, gamma, out)
+    plan = rmsnorm_plan(rows, d, x.element_size(), _cuda.sm_count(x.device), vec)
+    rc = _cuda.lib().halo_rmsnorm(x.data_ptr(), gamma.data_ptr(), out.data_ptr(), rows, d,
+                                  float(eps), _cuda.dtype_code(x.dtype),
+                                  int(vec and (d * x.element_size()) % 16 == 0), *plan,
                                   _cuda.stream(x.device))
     _cuda.check(rc, "rmsnorm")
     LAUNCHES.add()

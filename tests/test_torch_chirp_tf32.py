@@ -12,9 +12,11 @@
 * MMM, 3×TF32 route (``csrc/mmm_wgmma.cu``, float32): ``tf32_round`` bit
   for bit against an independent numpy model of round-to-nearest, ties
   away from zero, to the TF32 grid; ``mmm_tf32x3_ref`` against the
-  JAX package's MMM (interpret mode) and a float64 product; models that
-  drop the hi·lo term or keep only hi·hi fall outside the float32 ``TOL``;
-  the route; the wrappers' refusals.
+  JAX package's MMM (interpret mode) and a float64 product, also at
+  shapes whose K and N are off every multiple of 4; its padded workspace
+  (rows of K rounded up to 4, zeros past K) changes no bit of its result;
+  models that drop the hi·lo term or keep only hi·hi fall outside the
+  float32 ``TOL``; the route; the wrappers' refusals.
 
 Tolerances: the reference's conformance ones (tests/test_kernels_property.py:
 float32 2e-4, bfloat16 4e-2, and its FFT float32 override 1e-3/5e-3);
@@ -315,12 +317,16 @@ def test_models_without_the_cross_terms_fall_outside_the_float32_tol():
 
 @pytest.mark.parametrize("m", [65, 512, 4096])
 def test_route_sends_aligned_float32_to_tf32x3(m):
-    for k, n in [(4096, 4096), (2560, 640), (4, 4), (772, 1004)]:
-        assert t_mm.mmm_route(torch.float32, m, k, n, True) == "tf32x3"
-    for k, n in [(4094, 4096), (4096, 4094), (777, 1001), (0, 4), (4, 0)]:
-        assert t_mm.mmm_route(torch.float32, m, k, n, True) == "tile"
-    assert t_mm.mmm_route(torch.float32, m, 4096, 4096, False) == "tile"
-    assert t_mm.mmm_route(torch.float32, 64, 4096, 4096, True) == "skinny"
+    """float32 above SKINNY_M_MAX rows takes the 3×TF32 route at every K,
+    N and alignment (K or N off the multiple of 4, operands off the
+    16-byte grid: the split pass pads and reads by scalar loads); up to
+    SKINNY_M_MAX the skinny route."""
+    assert t_mm.mmm_route(torch.float32, m) == "tf32x3"
+    assert t_mm.mmm_route(torch.float32, 64) == "skinny"
+    for k in (4096, 4094, 4, 1, 777):
+        ws_a, ws_b = t_mm_ref.tf32x3_workspace(torch.ones(m, k), torch.ones(k, 3))
+        assert tuple(ws_a.shape) == (2 * m, k + (-k) % 4)
+        assert tuple(ws_b.shape) == (6, k + (-k) % 4)
 
 
 def test_mmm_tf32x3_hopper_refuses_host_tensors():
@@ -335,14 +341,60 @@ def test_mmm_tf32x3_hopper_refuses_host_tensors():
                                               (torch.float32, 72, 134, 0),
                                               (torch.float32, 72, 136, 1)])
 def test_mmm_tf32x3_hopper_refuses_what_tma_cannot_load(monkeypatch, dtype, k, n, offset):
-    """Past the device check (stubbed here), a 16-bit operand, a K or N off
-    the multiple of 4, or an A off the 16-byte grid is refused, not sent
-    elsewhere."""
+    """(Named for the refusals it held before the padded split.)  Past the
+    device check (stubbed here), a 16-bit operand is refused, not sent
+    elsewhere; a K or N off the multiple of 4 or an A off the 16-byte
+    grid is launched on the 3×TF32 route."""
     monkeypatch.setattr(_cuda, "require_cuda", lambda *a: None)
-    monkeypatch.setattr(t_mm, "_launch", lambda *a: pytest.fail("launched"))
+    launched = []
+    monkeypatch.setattr(t_mm, "_launch", lambda route, a, b: launched.append(route))
     a = torch.ones(130 * k + offset, dtype=dtype)[offset:].view(130, k)
-    with pytest.raises(ValueError, match="3xTF32 route"):
+    if dtype != torch.float32:
+        with pytest.raises(ValueError, match="3xTF32 route"):
+            t_mm.mmm_tf32x3_hopper(a, torch.ones(k, n, dtype=dtype))
+        assert launched == []
+    else:
         t_mm.mmm_tf32x3_hopper(a, torch.ones(k, n, dtype=dtype))
+        assert launched == ["tf32x3"]
+
+
+@pytest.mark.parametrize("m,k,n", [(70, 7, 13), (130, 1001, 3), (65, 5, 1), (96, 4094, 200)])
+def test_tf32x3_padding_changes_no_bit_of_the_model(m, k, n):
+    """The workspace as the split pass writes it, rows of Kp = K rounded up
+    to 4 with zeros past K, gives the unpadded parts' result: the pad
+    columns meet pad columns only, and each adds an exact zero.  At a K of
+    a few columns the CPU's product sums them in one order and the bits
+    agree; at a long K the library may block the sum differently for Kp
+    than for K, so the two agree to the sum-order error.  A pad column
+    left unwritten moves the result far past either."""
+    a, b = from_numpy(_normal(m, m, k)), from_numpy(_normal(n, k, n))
+    ws_a, ws_b = t_mm_ref.tf32x3_workspace(a, b)
+    assert ws_a.shape[1] == ws_b.shape[1] == k + (-k) % 4
+    assert not ws_a[:, k:].any() and not ws_b[:, k:].any()
+    padded = t_mm_ref.tf32x3_product(ws_a, ws_b)
+    plain = t_mm_ref.tf32x3_product(*t_mm_ref.tf32x3_workspace(a, b, kp=k))
+    if k <= 8:
+        assert torch.equal(padded.view(torch.int32), plain.view(torch.int32))
+    else:
+        assert _normwise(to_numpy(padded), to_numpy(plain).astype(np.float64)) <= 1e-6
+    assert torch.equal(t_mm_ref.mmm_tf32x3_ref(a, b), padded)
+    ws_a[:, k:] = 1.0
+    ws_b[:, k:] = 1.0
+    assert _normwise(to_numpy(t_mm_ref.tf32x3_product(ws_a, ws_b)),
+                     to_numpy(plain).astype(np.float64)) > MMM_NORMWISE
+
+
+@pytest.mark.parametrize("m,k,n", [(70, 7, 13), (130, 1001, 3)])
+def test_mmm_tf32x3_ref_matches_jax_off_grid(m, k, n):
+    """K and N off every multiple of 4 (the tile route's shapes before):
+    the padded model against the JAX MMM and float64."""
+    a, b = _normal(m + 1, m, k), _normal(k + 1, k, n)
+    want = np.asarray(j_mm_ops.mmm(jnp.asarray(a), jnp.asarray(b), interpret=True))
+    got = t_mm_ref.mmm_tf32x3_ref(from_numpy(a), from_numpy(b))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    np.testing.assert_allclose(to_numpy(got), want, **F32_TOL)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    assert _normwise(to_numpy(got), exact) <= MMM_NORMWISE
 
 
 def test_tf32x3_launches_count_apart():

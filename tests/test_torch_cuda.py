@@ -31,7 +31,7 @@ from repro_torch.kernels.jacobi.ops import jacobi_solve
 from repro_torch.kernels.jacobi.ref import jacobi_step_ref
 from repro_torch.kernels.matmul.matmul import (SKINNY_M_MAX, mmm_hopper, mmm_route,
                                                mmm_skinny_hopper, mmm_tf32x3_hopper,
-                                               mmm_tile_hopper, mmm_wgmma_hopper)
+                                               mmm_wgmma_hopper, wgmma_packs)
 from repro_torch.kernels.matmul.ref import (mmm_ref, mmm_splitk_ref, mmm_tf32x3_ref,
                                             mmm_ulp_excess)
 from repro_torch.kernels.mvm.mvm import mvm_hopper
@@ -87,12 +87,34 @@ def _bits(t):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,k,n", [(1, 1, 1), (37, 129, 70), (128, 256, 128),
-                                   (300, 17, 259)])
+                                   (300, 17, 259), (130, 75, 137), (65, 1, 1),
+                                   (200, 4095, 3)])
 def test_mmm_kernel(card, dtype, m, k, n):
+    """Every shape above SKINNY_M_MAX rows on the tensor cores: K and N off
+    every multiple of 4 and 8, odd N (the 3×TF32 split pads K, the wgmma
+    route packs A and B)."""
     a, b = _rnd(card, m, k, dtype=dtype), _rnd(card, k, n, dtype=dtype, seed=1)
     out = mmm_hopper(a, b)
     assert out.dtype == dtype and out.shape == (m, n)
     assert _normwise(out, mmm_ref(a, b)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", [(130, 75, 137), (512, 2560, 640)])
+def test_mmm_kernel_operands_off_the_grid(card, dtype, m, k, n):
+    """A and B one element into their buffers, off the 16-byte grid: the
+    3×TF32 split reads them by scalar loads, the wgmma route packs both;
+    two calls give the same bits."""
+    a = _rnd(card, m * k + 1, dtype=dtype)[1:].view(m, k)
+    b = _rnd(card, k * n + 1, dtype=dtype, seed=1)[1:].view(k, n)
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    if dtype != torch.float32:
+        assert wgmma_packs(k, n, False, False) == (True, True)
+    out = mmm_hopper(a, b)
+    assert _normwise(out, mmm_ref(a, b)) <= TOL[dtype]
+    if dtype != torch.float32:
+        assert mmm_ulp_excess(out, a, b) == 0
+    assert torch.equal(_bits(out), _bits(mmm_hopper(a, b)))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -125,9 +147,9 @@ def test_mmm_skinny_unaligned_and_repeatable(card, dtype):
 
 def test_mmm_routes_count_apart(card):
     """bfloat16 at M = 1 and SKINNY_M_MAX: the skinny route; at
-    SKINNY_M_MAX + 1: the tensor cores; past SKINNY_M_MAX in float32: the
-    3×TF32 route; with an N off TMA's 16-byte stride, or with an A off the
-    16-byte grid: the tile route."""
+    SKINNY_M_MAX + 1: the tensor cores, also with an N off TMA's 16-byte
+    stride or an A off the 16-byte grid (packed first); past SKINNY_M_MAX
+    in float32: the 3×TF32 route."""
     bf16 = torch.bfloat16
     off = _rnd(card, 65 * 64 + 1, dtype=bf16, seed=2)[1:].view(65, 64)
     assert off.data_ptr() % 16
@@ -142,17 +164,19 @@ def test_mmm_routes_count_apart(card):
         assert _normwise(mmm_hopper(a, b), mmm_ref(a, b)) <= TOL[a.dtype]
     after = _cuda.launch_counts()
     assert after["mmm_skinny"] == before["mmm_skinny"] + 2
-    assert after["mmm_wgmma"] == before["mmm_wgmma"] + 1
+    assert after["mmm_wgmma"] == before["mmm_wgmma"] + 3
     assert after["mmm_tf32x3"] == before["mmm_tf32x3"] + 1
-    assert after["mmm"] == before["mmm"] + 2
+    assert "mmm" not in after
 
 
 #: the tensor-core route's shapes: danube's eight prefill projections
 #: (4200 rows: 32 row tiles and 104 rows), ragged M, N and K (TMA
-#: zero-fills past each), and the template's 4096³
+#: zero-fills past each), the template's 4096³, and shapes TMA cannot load
+#: as they lie (K or N off a multiple of 8, odd N: packed first)
 WGMMA_SHAPES = [(m, k, n) for m in (512, 4200)
                 for k, n in ((2560, 2560), (2560, 640), (2560, 6912), (6912, 2560))] \
-    + [(130, 72, 136), (65, 8, 8), (4096, 4096, 4096)]
+    + [(130, 72, 136), (65, 8, 8), (4096, 4096, 4096), (130, 75, 137), (4200, 2558, 6910),
+       (300, 17, 259), (65, 1, 1)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -178,11 +202,14 @@ def test_mmm_wgmma_kernel_is_repeatable(card, dtype):
 
 
 #: the 3×TF32 route's shapes: the float32 replay's four 512-row prefill
-#: projections, ragged M, N and K that are multiples of 4, M = 65, and the
-#: template's 4096³
+#: projections, ragged M, N and K that are multiples of 4, M = 65, the
+#: template's 4096³, and K and N off the multiple of 4 (the split pass pads
+#: K; odd N is stored one value at a time): the lone request's 4096×4094 @
+#: 4094×4096 among them
 TF32X3_SHAPES = [(512, 2560, 2560), (512, 2560, 640), (512, 2560, 6912), (512, 6912, 2560),
                  (1000, 772, 1004), (130, 72, 136), (65, 2560, 640), (65, 8, 4),
-                 (4096, 4096, 4096)]
+                 (4096, 4096, 4096), (130, 1, 1), (130, 3, 5), (130, 4095, 4094),
+                 (1000, 777, 1001), (4096, 4094, 4096)]
 
 
 @pytest.mark.parametrize("m,k,n", TF32X3_SHAPES)
@@ -229,7 +256,8 @@ def _non_finite_operands(card, m, k, n):
     return a, b
 
 
-@pytest.mark.parametrize("m,k,n", [(130, 72, 136), (512, 2560, 640)])
+@pytest.mark.parametrize("m,k,n", [(130, 72, 136), (512, 2560, 640), (130, 75, 137),
+                                   (513, 2558, 641)])
 def test_mmm_tf32x3_kernel_keeps_infinities_and_near_max_values(card, m, k, n):
     """With ±inf, NaN and ±FLT_MAX entries: NaN and ±inf where ``mmm_ref``
     has them, and elsewhere each entry within 1e-5 of (|A|·|B|)_ij of the
@@ -542,16 +570,33 @@ def test_hist_kernel_is_bit_exact(card, dtype, bins, lo, hi):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(1, 1), (3, 80), (7, 1000), (5, 1025),
-                                   (4, 2560), (2, 3, 4097), (3, 8192)])
+                                   (4, 2560), (2, 3, 4097), (3, 8192), (1, 2560),
+                                   (512, 2560), (4096, 2560), (4200, 2560)])
 def test_rmsnorm_kernel(card, dtype, shape):
-    # rows that fill whole 16-byte vectors, up to 512 of them (80, 1000,
-    # 2560), are held in registers by one warp each; the others (1, 1025,
-    # 4097, and 8192, too long for the registers) take one block per row
+    # rows that fill whole 16-byte vectors (80, 1000, 2560, 8192) take the
+    # rows kernel under the launch plan, 1 to 8 warps a row; the others (1,
+    # 1025, 4097) take one block per row; two calls give the same bits
     x = _rnd(card, *shape, dtype=dtype, shift=0.5)
     g = _rnd(card, shape[-1], dtype=dtype, seed=1, shift=1.0)
     out = rmsnorm_hopper(x, g, 1e-5)
     assert out.dtype == dtype and out.shape == x.shape
     assert _normwise(out, rmsnorm_ref(x, g, 1e-5)) <= TOL[dtype]
+    assert torch.equal(_bits(out), _bits(rmsnorm_hopper(x, g, 1e-5)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows", [4, 512, 4200])
+@pytest.mark.parametrize("d", [80, 512, 1000, 2560])
+def test_rmsnorm_kernel_at_every_width(card, dtype, rows, d):
+    """The path's row counts at widths where the launch plan picks each of
+    1, 2, 4 and 8 warps a row in every type (tests/test_torch_model.py
+    checks the plans reach them all): the warps of a row add their sums in
+    a fixed order."""
+    x = _rnd(card, rows, d, dtype=dtype, shift=0.5)
+    g = _rnd(card, d, dtype=dtype, seed=1, shift=1.0)
+    out = rmsnorm_hopper(x, g, 1e-5)
+    assert _normwise(out, rmsnorm_ref(x, g, 1e-5)) <= TOL[dtype]
+    assert torch.equal(_bits(out), _bits(rmsnorm_hopper(x, g, 1e-5)))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -742,13 +787,12 @@ def test_model_on_the_card_runs_the_kernels(card):
         counts = _cuda.launch_counts()
         layers = model.cfg.n_layers
         # the prefill's 40 rows take the route mmm_route picks for 40 rows
-        # of the model's type (its projections' K and N are multiples of
-        # 8), its last-token unembed (one row) and the 4 decode passes (one
-        # row each) the skinny route
+        # of the model's type, its last-token unembed (one row) and the 4
+        # decode passes (one row each) the skinny route
         d = model.cfg.d_model
-        prefill = {"skinny": "mmm_skinny", "wgmma": "mmm_wgmma", "tf32x3": "mmm_tf32x3",
-                   "tile": "mmm"}[mmm_route(dtype, 40, d, d, True)]
-        expected = {"mmm": 0, "mmm_wgmma": 0, "mmm_tf32x3": 0,
+        prefill = {"skinny": "mmm_skinny", "wgmma": "mmm_wgmma",
+                   "tf32x3": "mmm_tf32x3"}[mmm_route(dtype, 40)]
+        expected = {"mmm_wgmma": 0, "mmm_tf32x3": 0,
                     "mmm_skinny": 4 * (7 * layers + 1) + 1}
         expected[prefill] += 7 * layers
         assert {k: counts[k] for k in expected} == expected
@@ -766,7 +810,6 @@ def test_each_launch_counts_once(card):
     a = _rnd(card, 16, 16, dtype=torch.float32)
     a.diagonal().add_(16.0)
     before = _cuda.launch_counts()
-    mmm_tile_hopper(a, a)
     mmm_skinny_hopper(a, a)
     mmm_wgmma_hopper(a.bfloat16(), a.bfloat16())
     mmm_tf32x3_hopper(a, a)
@@ -788,7 +831,7 @@ def test_each_launch_counts_once(card):
     qb = q.bfloat16()
     flash_attention_mma_hopper(qb, qb[:, :1], qb[:, :1])
     after = _cuda.launch_counts()
-    for name in ("mmm", "mmm_skinny", "mmm_wgmma", "mmm_tf32x3", "ewise", "mvm", "vdp",
+    for name in ("mmm_skinny", "mmm_wgmma", "mmm_tf32x3", "ewise", "mvm", "vdp",
                  "jacobi", "conv1d", "spmm", "fft_chirp", "fft_radix", "sort", "sort_radix",
                  "hist", "rmsnorm", "flash_attention", "flash_attention_mma"):
         assert after[name] == before[name] + 1

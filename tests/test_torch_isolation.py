@@ -113,7 +113,7 @@ def test_hopper_path_calls_no_library_op(path):
 ENTRY = {"spmm": "smmm"}
 
 
-@pytest.mark.parametrize("name", ["mmm", "mmm_skinny", "mmm_wgmma", "ewise", "mvm",
+@pytest.mark.parametrize("name", ["mmm_skinny", "mmm_wgmma", "ewise", "mvm",
                                   "vdp", "jacobi", "conv1d", "spmm", "fft_chirp", "fft_radix",
                                   "sort", "sort_radix", "hist", "rmsnorm",
                                   "flash_attention", "flash_attention_mma", "fused"])

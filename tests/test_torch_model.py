@@ -35,6 +35,7 @@ from repro_torch.kernels.flash_attention import ops as t_fa_ops
 from repro_torch.kernels.flash_attention import ref as t_fa_ref
 from repro_torch.kernels.rmsnorm import ops as t_rms_ops
 from repro_torch.kernels.rmsnorm import ref as t_rms_ref
+from repro_torch.kernels.rmsnorm.rmsnorm import ROW_WARPS, RmsnormPlan, rmsnorm_plan
 from repro_torch.launch import serve as t_serve
 from repro_torch.models import build_model
 from repro_torch.serve import kvcache as t_kvcache
@@ -106,6 +107,98 @@ def test_rmsnorm_matches_jax(dtype, d):
     assert _normwise(got, want) <= KERNEL_TOL[dtype]
     # the library row computes the same function
     assert _normwise(t_rms_ref.rmsnorm_aten(tx, tg, 1e-5), want) <= KERNEL_TOL[dtype]
+
+
+#: the H100's SMs, which the RMSNORM launch plan fills
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("rows,d,size", [(1, 2560, 2), (4, 2560, 2), (512, 2560, 2),
+                                         (4096, 2560, 2), (4200, 2560, 2), (3, 80, 2),
+                                         (7, 1000, 2), (7, 1000, 4), (3, 8192, 4),
+                                         (5, 1025, 2), (2, 32768, 2)])
+def test_rmsnorm_plan_covers_every_row_once(rows, d, size):
+    """Block b serves rows b·(8/W) .. b·(8/W) + 8/W − 1: the blocks cover
+    every row once and the last block holds at least one; a lane's V
+    vectors cover the row with fewer than one vector a lane to spare.
+    Rows off whole 16-byte vectors, or longer than 8 warps of 16 vectors,
+    take one block per row."""
+    plan = rmsnorm_plan(rows, d, size, H100_SMS)
+    per = plan.rows_per_block
+    assert (plan.blocks - 1) * per < rows <= plan.blocks * per
+    nvec, rem = divmod(d * size, 16)
+    if rem or nvec > 32 * 8 * 16:
+        assert plan == (0, 0, rows)
+        return
+    w, v = plan.warps_per_row, plan.vecs_per_lane
+    assert w in ROW_WARPS and 1 <= v <= 16
+    assert 32 * w * (v - 1) < nvec <= 32 * w * v
+
+
+def _width_plan(rows, d, size, w):
+    """The rows kernel's plan at ``w`` warps a row, whatever rmsnorm_plan
+    would pick."""
+    lanes = 32 * w
+    return RmsnormPlan(w, -(-d * size // (16 * lanes)), -(-rows // (8 // w)))
+
+
+@pytest.mark.parametrize("size", [2, 4])
+def test_rmsnorm_plan_reaches_every_width_at_the_card_tests_shapes(size):
+    """tests/test_torch_cuda.py::test_rmsnorm_kernel_at_every_width runs the
+    path's row counts at d 80, 512, 1000 and 2560: in each element size
+    the plan picks each of 1, 2, 4 and 8 warps a row at one of them."""
+    widths = {rmsnorm_plan(rows, d, size, H100_SMS).warps_per_row
+              for rows in (4, 512, 4200) for d in (80, 512, 1000, 2560)}
+    assert widths == set(ROW_WARPS)
+
+
+def test_rmsnorm_plan_fills_the_card_at_the_path_row_counts():
+    """danube's rows of 2560 bfloat16: a 512-token prefill's 512 rows and a
+    4200-token prefill's rows spread over every SM; decode's 4 rows take
+    8 warps a row, the most a block gives one row."""
+    for rows in (512, 4200):
+        assert rmsnorm_plan(rows, 2560, 2, H100_SMS).blocks >= H100_SMS
+    assert rmsnorm_plan(4, 2560, 2, H100_SMS) == (8, 2, 4)
+    assert rmsnorm_plan(4096, 2560, 2, H100_SMS).vecs_per_lane <= 8
+    # the plan reads the SM count: a card of twice the SMs gets more warps a row
+    assert rmsnorm_plan(512, 2560, 2, 2 * H100_SMS).warps_per_row \
+        >= rmsnorm_plan(512, 2560, 2, H100_SMS).warps_per_row
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d", [(15, 80), (15, 1000), (4, 2560), (9, 2560)])
+def test_rmsnorm_plan_ref_matches_jax(dtype, rows, d):
+    """The kernel's plain model under the plan, and under every warps-per-row
+    that holds the row, against the JAX RMSNORM (interpret mode)."""
+    rng = np.random.default_rng(rows * d)
+    x = _np(dtype, rng.standard_normal((rows, d)) * 2.0)
+    g = _np(dtype, 1.0 + 0.1 * rng.standard_normal(d))
+    want = j_rms_ops.rmsnorm(jnp.asarray(x), jnp.asarray(g), eps=1e-5, interpret=True)
+    tx, tg = from_numpy(x), from_numpy(g)
+    size = tx.element_size()
+    plans = {rmsnorm_plan(rows, d, size, H100_SMS)} | {
+        _width_plan(rows, d, size, w) for w in ROW_WARPS
+        if -(-d * size // (16 * 32 * w)) <= 16}
+    for plan in plans:
+        got = t_rms_ref.rmsnorm_plan_ref(tx, tg, 1e-5, plan)
+        assert got.dtype == tx.dtype and got.shape == tx.shape
+        assert _normwise(got, want) <= KERNEL_TOL[dtype], plan
+
+
+def test_rmsnorm_plan_ref_leaves_what_a_plan_skips():
+    """A plan one block short leaves its last rows unwritten (NaN in the
+    model), and one with a vector too few a lane the row's last columns:
+    the card's checks against rmsnorm_ref catch either."""
+    x = torch.randn(7, 1000).bfloat16()
+    g = torch.ones(1000).bfloat16()
+    plan = rmsnorm_plan(7, 1000, 2, H100_SMS)
+    assert not torch.isnan(t_rms_ref.rmsnorm_plan_ref(x, g, 1e-5, plan)).any()
+    short = t_rms_ref.rmsnorm_plan_ref(x, g, 1e-5, plan._replace(blocks=plan.blocks - 1))
+    assert torch.isnan(short[-1]).all() and not torch.isnan(short[0]).any()
+    wide = _width_plan(7, 1000, 2, 1)
+    narrow = t_rms_ref.rmsnorm_plan_ref(x, g, 1e-5,
+                                        wide._replace(vecs_per_lane=wide.vecs_per_lane - 1))
+    assert torch.isnan(narrow[:, -8:]).all() and not torch.isnan(narrow[:, :8]).any()
 
 
 # ---------------------------------------------------------------------------

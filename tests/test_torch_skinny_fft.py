@@ -87,29 +87,27 @@ def test_skinny_plan_covers_k_in_segments(m, k, n, element_size):
 
 def test_mmm_route_threshold(monkeypatch):
     """M = SKINNY_M_MAX takes the skinny route in every type, M + 1 a
-    tensor-core route where TMA can load the operands (3×TF32 in float32,
-    wgmma in bfloat16) and the tile route where it cannot (N = 3);
+    tensor-core route at every K, N and alignment (3×TF32 in float32,
+    wgmma in bfloat16, also at N = 3, which TMA cannot stride as it lies);
     SKINNY_M_MAX is the only row threshold."""
     top, f32, bf16 = t_mm.SKINNY_M_MAX, torch.float32, torch.bfloat16
     for dtype in (f32, bf16):
-        assert t_mm.mmm_route(dtype, 1, 8, 8, True) == "skinny"
-        assert t_mm.mmm_route(dtype, top, 2560, 6912, True) == "skinny"
-    assert t_mm.mmm_route(f32, top + 1, 8, 8, True) == "tf32x3"
-    assert t_mm.mmm_route(f32, 4096, 4096, 4096, True) == "tf32x3"
-    assert t_mm.mmm_route(f32, top + 1, 8, 3, True) == "tile"
-    assert t_mm.mmm_route(bf16, top + 1, 8, 8, True) == "wgmma"
-    assert t_mm.mmm_route(bf16, 1 << 20, 8, 8, True) == "wgmma"
+        assert t_mm.mmm_route(dtype, 1) == "skinny"
+        assert t_mm.mmm_route(dtype, top) == "skinny"
+    assert t_mm.mmm_route(f32, top + 1) == "tf32x3"
+    assert t_mm.mmm_route(f32, 4096) == "tf32x3"
+    assert t_mm.mmm_route(bf16, top + 1) == "wgmma"
+    assert t_mm.mmm_route(bf16, 1 << 20) == "wgmma"
     routes = []
     monkeypatch.setattr(_cuda, "require_cuda", lambda *a: None)
     monkeypatch.setattr(t_mm, "_launch", lambda route, a, b: routes.append(route))
     for m in (1, top, top + 1, 512):
         t_mm.mmm_hopper(torch.ones(m, 8), torch.ones(8, 3))
-        t_mm.mmm_hopper(torch.ones(m, 8, dtype=bf16), torch.ones(8, 8, dtype=bf16))
-    assert routes == ["skinny"] * 4 + ["tile", "wgmma"] * 2
+        t_mm.mmm_hopper(torch.ones(m, 8, dtype=bf16), torch.ones(8, 3, dtype=bf16))
+    assert routes == ["skinny"] * 4 + ["tf32x3", "wgmma"] * 2
 
 
-@pytest.mark.parametrize("launch", [t_mm.mmm_skinny_hopper, t_mm.mmm_tile_hopper,
-                                    t_mm.mmm_hopper])
+@pytest.mark.parametrize("launch", [t_mm.mmm_skinny_hopper, t_mm.mmm_hopper])
 def test_mmm_route_wrappers_refuse_host_tensors(launch):
     before = _cuda.launch_counts()
     with pytest.raises(ValueError, match="CUDA tensors"):

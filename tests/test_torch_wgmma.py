@@ -1,10 +1,13 @@
 """The tensor-core route of MMM (``csrc/mmm_wgmma.cu``) on the CPU.
 
-* ``mmm_route`` as a pure function of type, shape and alignment: 16-bit
-  operands above SKINNY_M_MAX rows whose K and N are multiples of 8 and
-  whose pointers are 16-byte aligned take ``wgmma``; float32 there with K
-  and N multiples of 4 takes ``tf32x3``; the rest take ``tile``; up to
-  SKINNY_M_MAX rows every type takes ``skinny``.
+* ``mmm_route`` as a pure function of type and rows: 16-bit operands
+  above SKINNY_M_MAX rows take ``wgmma`` and float32 there ``tf32x3``, at
+  any K, N and alignment (the CUDA-core tile route is retired); up to
+  SKINNY_M_MAX rows every type takes ``skinny``.  ``wgmma_packs``: which
+  16-bit operands the tensor-core route packs into its aligned workspace
+  (A when K is off a multiple of 8 or A is off the 16-byte grid, B when
+  N is off a multiple of 8 or B is off the grid), and ``pack_ref``, the
+  pack pass's plain version.
 * ``wgmma_tile_n``, the exact tile-width rule, at danube's prefill shapes.
 * ``mmm_ulp_excess``, the half-ulp check the card holds the kernel to: 0
   for a sound product, many for one with a K slice dropped, B misread or
@@ -13,7 +16,8 @@
   bfloat16 at a ragged shape, within the reference's conformance tolerance
   (tests/test_kernels_property.py: bfloat16 4e-2) and within half an ulp
   of the float32 product.
-* ``mmm_wgmma_hopper`` refuses host tensors and operands TMA cannot load.
+* ``mmm_wgmma_hopper`` refuses host tensors and float32 operands, and
+  takes 16-bit operands that TMA cannot load as they lie.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -45,39 +49,53 @@ def _normal(seed, *shape, dtype=torch.float32):
 @pytest.mark.parametrize("m", [65, 512, 4200])
 @pytest.mark.parametrize("k,n", PREFILL + [(8, 8), (72, 136)])
 def test_route_sends_aligned_16bit_prefills_to_wgmma(dtype, m, k, n):
-    assert t_mm.mmm_route(dtype, m, k, n, True) == "wgmma"
-    assert t_mm.mmm_route(dtype, m, k, n, False) == "tile"
+    """Aligned operands are read where they lie; the same shapes off the
+    16-byte grid are packed first, on the same route."""
+    assert t_mm.mmm_route(dtype, m) == "wgmma"
+    assert t_mm.wgmma_packs(k, n, True, True) == (False, False)
+    assert t_mm.wgmma_packs(k, n, False, False) == (True, True)
 
 
 @pytest.mark.parametrize("m", [65, 512, 4096, 4200])
 def test_route_keeps_float32_on_the_tile_kernel(m):
-    """float32 keeps the tile kernel where TMA cannot load it: operands off
-    the 16-byte grid, K or N off the multiple of 4; aligned multiples of 4
-    take the 3×TF32 route."""
+    """(Named for the CUDA-core tile kernel, now retired.)  float32 above
+    SKINNY_M_MAX rows takes the 3×TF32 route at every K, N and alignment,
+    where the tile kernel took K or N off the multiple of 4: the split
+    pass pads the workspace's rows to Kp = K rounded up to 4."""
     for k, n in PREFILL + [(4096, 4096)]:
-        assert t_mm.mmm_route(torch.float32, m, k, n, True) == "tf32x3"
-        assert t_mm.mmm_route(torch.float32, m, k, n, False) == "tile"
-        assert t_mm.mmm_route(torch.float32, m, k + 2, n, True) == "tile"
-        assert t_mm.mmm_route(torch.float32, m, k, n + 2, True) == "tile"
+        for kk, nn in ((k, n), (k + 2, n), (k, n + 2), (k + 3, n + 1)):
+            assert t_mm.mmm_route(torch.float32, m) == "tf32x3"
+            ws_a, ws_b = t_mm_ref.tf32x3_workspace(torch.ones(2, kk), torch.ones(kk, 3))
+            assert ws_a.shape[1] == ws_b.shape[1] == kk + (-kk) % 4
 
 
 @pytest.mark.parametrize("dtype", HALF)
-@pytest.mark.parametrize("k,n", [(2560, 644), (2564, 2560), (777, 1001), (4, 8),
-                                 (8, 4), (0, 8), (8, 0)])
-def test_route_sends_k_or_n_off_tma_strides_to_tile(dtype, k, n):
-    assert t_mm.mmm_route(dtype, 512, k, n, True) == "tile"
+@pytest.mark.parametrize("k,n,packs", [(2560, 644, (False, True)),
+                                       (2564, 2560, (True, False)),
+                                       (777, 1001, (True, True)),
+                                       (4, 8, (True, False)), (8, 4, (False, True)),
+                                       (0, 8, (False, False)), (8, 0, (False, False))])
+def test_route_sends_k_or_n_off_tma_strides_to_tile(dtype, k, n, packs):
+    """(Named for the tile route these shapes took.)  A K or N off TMA's
+    16-byte stride stays on the tensor-core route: A is packed when K is
+    off a multiple of 8, B when N is; B's rows past K are TMA's zero fill,
+    so a K off the multiple needs no copy of B."""
+    assert t_mm.mmm_route(dtype, 512) == "wgmma"
+    assert t_mm.wgmma_packs(k, n, True, True) == packs
 
 
 @pytest.mark.parametrize("dtype", HALF + [torch.float32])
 @pytest.mark.parametrize("m", [1, 4, 16, 64])
 def test_route_sends_few_rows_to_skinny_in_every_type(dtype, m):
-    for k, n, aligned in [(2560, 2560, True), (777, 1001, False), (2560, 32000, True)]:
-        assert t_mm.mmm_route(dtype, m, k, n, aligned) == "skinny"
+    assert t_mm.mmm_route(dtype, m) == "skinny"
+    assert t_mm.mmm_route(dtype, t_mm.SKINNY_M_MAX + m) != "skinny"
 
 
 def test_mmm_hopper_routes_by_type_shape_and_alignment(monkeypatch):
-    """The public wrapper passes the operands' type, shape and pointer
-    alignment to mmm_route and launches what it picks."""
+    """The public wrapper passes the operands' type and rows to mmm_route
+    and launches what it picks: 16-bit operands TMA cannot load as they
+    lie (K off a multiple of 8, A off the 16-byte grid) stay on the
+    tensor-core route."""
     routes = []
     monkeypatch.setattr(_cuda, "require_cuda", lambda *a: None)
     monkeypatch.setattr(t_mm, "_launch", lambda route, a, b: routes.append(route))
@@ -91,7 +109,23 @@ def test_mmm_hopper_routes_by_type_shape_and_alignment(monkeypatch):
              (off, torch.ones(72, 136, dtype=bf))]
     for a, b in cases:
         t_mm.mmm_hopper(a, b)
-    assert routes == ["skinny", "wgmma", "tf32x3", "tile", "tile"]
+    assert routes == ["skinny", "wgmma", "tf32x3", "wgmma", "wgmma"]
+
+
+@pytest.mark.parametrize("dtype", HALF)
+@pytest.mark.parametrize("rows,cols,cols_p", [(3, 5, 8), (130, 2558, 2560), (7, 8, 8)])
+def test_pack_ref_copies_bits_and_pads_zeros(dtype, rows, cols, cols_p):
+    """The pack pass's plain version: the rows' bits where they were, +0 in
+    the pad columns; a product of packed operands equals the product of
+    the originals (the pad meets zeros)."""
+    x = _normal(rows * cols, rows, cols, dtype=dtype)
+    packed = t_mm_ref.pack_ref(x, cols_p)
+    assert packed.dtype == dtype and tuple(packed.shape) == (rows, cols_p)
+    assert torch.equal(packed[:, :cols].view(torch.int16), x.view(torch.int16))
+    assert not packed[:, cols:].view(torch.int16).any()
+    b = _normal(cols, cols, 9, dtype=dtype)
+    padded_b = torch.cat([b, b.new_zeros((cols_p - cols, 9))])
+    assert torch.equal(packed.double() @ padded_b.double(), x.double() @ b.double())
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +164,7 @@ def test_wgmma_tile_n_follows_the_sm_count():
 @pytest.mark.parametrize("m,k,n", [(130, 72, 136), (65, 8, 8), (96, 640, 200)])
 def test_ulp_check_passes_a_sound_product_and_fails_a_lost_k_slice(dtype, m, k, n):
     a, b = _normal(m + k, m, k, dtype=dtype), _normal(k + n, k, n, dtype=dtype)
-    assert t_mm.mmm_route(dtype, m, k, n, True) == "wgmma"
+    assert t_mm.mmm_route(dtype, m) == "wgmma"
     assert t_mm_ref.mmm_ulp_excess(t_mm_ref.mmm_ref(a, b), a, b) == 0
     # one K step of 8 (the least TMA can load) left out
     cut = (a[:, 8:].float() @ b[8:].float()).to(dtype)
@@ -193,11 +227,21 @@ def test_mmm_wgmma_hopper_refuses_host_tensors():
                                               (torch.float16, 72, 132, 0),
                                               (torch.bfloat16, 72, 136, 1)])
 def test_mmm_wgmma_hopper_refuses_what_tma_cannot_load(monkeypatch, dtype, k, n, offset):
-    """Past the device check (stubbed here), a float32 operand, a K or N off
-    the multiple of 8, or an A off the 16-byte grid is refused, not sent
-    elsewhere."""
+    """(Named for the refusals it held before packing.)  Past the device
+    check (stubbed here), float32 is refused, not sent elsewhere; a K or N
+    off the multiple of 8 or an A off the 16-byte grid is launched on the
+    tensor-core route, which packs what TMA cannot load."""
     monkeypatch.setattr(_cuda, "require_cuda", lambda *a: None)
-    monkeypatch.setattr(t_mm, "_launch", lambda *a: pytest.fail("launched"))
+    launched = []
+    monkeypatch.setattr(t_mm, "_launch", lambda route, a, b, **kw: launched.append(route))
     a = torch.ones(130 * k + offset, dtype=dtype)[offset:].view(130, k)
-    with pytest.raises(ValueError, match="tensor-core route"):
-        t_mm.mmm_wgmma_hopper(a, torch.ones(k, n, dtype=dtype))
+    b = torch.ones(k, n, dtype=dtype)
+    if dtype == torch.float32:
+        with pytest.raises(ValueError, match="tensor-core route"):
+            t_mm.mmm_wgmma_hopper(a, b)
+        assert launched == []
+    else:
+        t_mm.mmm_wgmma_hopper(a, b)
+        assert launched == ["wgmma"]
+        assert t_mm.wgmma_packs(k, n, _cuda.aligned(a), _cuda.aligned(b)) \
+            == (k % 8 != 0 or offset != 0, n % 8 != 0)
