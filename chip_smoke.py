@@ -44,6 +44,16 @@ Phases (any failure exits non-zero before the result lines are printed):
    the radix route also on rows that skip passes (16-bit types, a
    constant row, integers 0–15) and on negative-only rows, bit-exact
    with its plain model and, where both take the row, the tile route.
+   SORT's tile route under its launch plan (``sort_tile_plan``): 3 rows at
+   every power of two from 1 to 8192 and one ragged length below each,
+   shapes with several rows a block, rows off the 16-byte grid, NaN of
+   both signs with ±inf and ±0, duplicates; bit-exact with the plain
+   version (±0 by value) and with the plan's model ``sort_tile_ref``, two
+   calls bit-identical.  EW* at the edges of its plan (``ewise_plan``:
+   n = 1, one vector ± 1, one block's vectors ± 1 at 1 and 4 vectors a
+   thread, a block for every SM ± 1, 8192² + 3) and off the 16-byte grid,
+   every op, bit-exact with the plain version and the plan's model
+   ``ewise_plan_ref``.
    HIST: bit-exact, on bin edges, range ends, NaN and ±inf, at several
    bin counts, and with every value in one bin.
    RMSNORM and FLASH_ATTN: normwise (``TOL``) at the model path's shapes
@@ -120,9 +130,12 @@ Phases (any failure exits non-zero before the result lines are printed):
    three such products apart.  The
    chirp FFT route by device time at 2048 x DFT_N beside cuFFT, with its
    table build apart and a sweep over n at 2048 rows; SORT's radix route
-   at 2^24 and its tile route at 4096 x 4096, with a sweep of both SORT
-   routes over the row lengths the tile route takes.  The
-   fused chain kernel at a 4-step
+   at 2^24 and its tile route at 4096 x 4096 (events, device time
+   beside), with a sweep of both SORT routes over the row lengths the tile
+   route takes; EW* per op by device time beside ATen's, event times
+   beside, and its vector kernel at 1 and at 4 vectors a thread around
+   the size where its plan turns to 4 and at phase 3's size.  The fused
+   chain kernel at a 4-step
    8192² float32 chain, beside its plain version, the four ATen calls and
    the four serial EW launches.
 
@@ -560,7 +573,9 @@ def phase2(dev) -> None:
     for dt in (torch.float32, torch.bfloat16):
         phase2_hist(dev, gen, dt)
     for dt in (torch.float32, torch.bfloat16, torch.float16):
+        phase2_ewise_plan(dev, gen, dt)
         phase2_sort(dev, gen, dt)
+        phase2_sort_tile(dev, gen, dt)
         phase2_model(dev, gen, dt)
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         phase2_fused(dev, gen, dt)
@@ -858,6 +873,102 @@ def phase2_sort(dev, gen, dt) -> None:
     if x.data_ptr() % 16 == 0:
         fail("SORT radix: the offset view is 16-byte aligned")
     check_bits(f"SORT radix {name} 3x20001 unaligned", sort_radix_hopper(x), sort_ref(x))
+
+
+def phase2_ewise_plan(dev, gen, dt) -> None:
+    """EW* at the edges of its launch plan (``ewise_plan``), every op:
+    n = 1, one 16-byte vector ± 1, one block's vectors ± 1 at 1 and at 4
+    vectors a thread, a block for every SM at 4 a thread ± 1 (where the
+    plan turns to 4), 8192² + 3, and a view off the 16-byte grid; bit-exact
+    with the plain version and with the plan's plain model
+    (``ewise_plan_ref``, NaN wherever the plan does not write)."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.ewise.ewise import ITEMS, THREADS, ewise_hopper, ewise_plan
+    from repro_torch.kernels.ewise.ref import OP_REFS as EW_REFS
+    from repro_torch.kernels.ewise.ref import ewise_plan_ref
+
+    name = str(dt).split(".")[-1]
+    v, sms = 16 // dt.itemsize, _cuda.sm_count(dev)
+    ns = {1, v - 1, v, v + 1, SIZES["EW"] ** 2 + 3}
+    for u in ITEMS:
+        for items in (u * THREADS, u * THREADS * sms):
+            ns |= {items * v - 1, items * v, items * v + 1}
+    cases = []
+    for n in sorted(k for k in ns if k >= 1):
+        cases.append((f"n={n}", torch.randn(n, generator=gen, device=dev).to(dt),
+                      (torch.randn(n, generator=gen, device=dev) + 3.0).to(dt)))
+    flat = torch.randn(2 * 100_004, generator=gen, device=dev).to(dt)
+    cases.append(("unaligned 100003", flat[1:100_004], flat[100_005:]))
+    for label, a, b in cases:
+        plan = ewise_plan(a.numel(), dt, _cuda.aligned(a, b), sms)
+        for op, ref in EW_REFS.items():
+            k = ewise_hopper(a, b, op)
+            what = f"EW {op} {name} {label} plan {tuple(plan)}"
+            same = torch.equal(bits(k), bits(ref(a, b))) and torch.equal(
+                bits(k), bits(ewise_plan_ref(a, b, op, plan)))
+            if not same:
+                fail(f"{what}: not bit-identical to the plain version and the plan's model")
+        print(f"  {f'EW {name} {label}':42s} plan {tuple(plan)}: 4 ops bit-exact with "
+              f"the plain version and the plan's model")
+        del a, b
+
+
+def phase2_sort_tile(dev, gen, dt) -> None:
+    """SORT's tile route under its launch plan (``sort_tile_plan``): 3 rows
+    at every power of two from 1 to SORT_TILE and one ragged length below
+    each; 1000 rows of 256 and 77 of 1000 (several rows a block); rows off
+    the 16-byte grid; NaN of both signs, ±inf and ±0; duplicates.  Each
+    bit-exact with the plain version (rows with ±0 by value: the kernel
+    orders −0 first) and with the plan's plain model (``sort_tile_ref``),
+    and two calls give the same bits."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.sorthist.ref import sort_ref, sort_tile_ref
+    from repro_torch.kernels.sorthist.sorthist import (SORT_TILE, sort_tile_hopper,
+                                                       sort_tile_plan)
+
+    name = str(dt).split(".")[-1]
+    sms = _cuda.sm_count(dev)
+
+    def check(label, x, by_value=False):
+        n = x.shape[-1]
+        plan = sort_tile_plan(x.numel() // n, n, sms)
+        k = sort_tile_hopper(x)
+        r = sort_ref(x)
+        plain = same_values(k, r) if by_value else torch.equal(bits(k), bits(r))
+        model = torch.equal(bits(k), bits(sort_tile_ref(x, plan)))
+        again = torch.equal(bits(k), bits(sort_tile_hopper(x)))
+        print(f"  {f'SORT tile {name} {label}':42s} plan {tuple(plan)}: plain version "
+              f"{plain}, model {model}, repeatable {again}")
+        if not (plain and model and again):
+            fail(f"SORT tile {name} {label}: plain version {plain}, model {model}, "
+                 f"repeatable {again}")
+
+    lengths = sorted({m for p in range(SORT_TILE.bit_length())
+                      for m in (1 << p, (1 << p) - 1) if m >= 1})
+    for n in lengths:
+        check(f"3x{n}", torch.randn((3, n), generator=gen, device=dev).to(dt))
+    for rows, n in ((1000, 256), (77, 1000)):
+        check(f"{rows}x{n}", torch.randn((rows, n), generator=gen, device=dev).to(dt))
+    for n in (100, 4096):
+        x = torch.randn(3 * n + 1, generator=gen, device=dev).to(dt)[1:].view(3, n)
+        if x.data_ptr() % 16 == 0:
+            fail("SORT tile: the offset view is 16-byte aligned")
+        check(f"3x{n} unaligned", x)
+    specials = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0, 0.0,
+                             -float("nan")], device=dev)
+    for n in (100, 4096, SORT_TILE):
+        x = torch.randn((2, n), generator=gen, device=dev)
+        place = torch.randperm(n, generator=gen, device=dev)[:3 * specials.numel()]
+        x[:, place] = specials.repeat(3)
+        x = x.to(dt)
+        check(f"2x{n} NaN, ±inf, ±0", x, by_value=True)
+        nans = int(x[0].isnan().sum())
+        k = sort_tile_hopper(x)
+        if not (bool(k[:, n - nans:].isnan().all()) and not bool(k[:, :n - nans].isnan().any())):
+            fail(f"SORT tile {name} 2x{n}: NaN not last")
+    for shape in ((3, 1000), (4096, 4096)):
+        x = torch.randint(0, 16, shape, generator=gen, device=dev).to(dt)
+        check(f"{'x'.join(map(str, shape))} duplicates", x)
 
 
 def phase2_hist(dev, gen, dt) -> None:
@@ -1710,7 +1821,9 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     from repro_torch.core.portability import KernelReport, time_fn
     from repro_torch.kernels.conv1d.conv1d import conv1d_hopper
     from repro_torch.kernels.conv1d.ref import conv1d_aten, conv1d_ref
-    from repro_torch.kernels.ewise.ewise import ewise_hopper
+    from repro_torch.kernels.ewise.ewise import OPS as EW_OPS
+    from repro_torch.kernels.ewise.ewise import THREADS as EW_THREADS
+    from repro_torch.kernels.ewise.ewise import ewise_hopper, ewise_plan
     from repro_torch.kernels.ewise.ref import OP_ATEN
     from repro_torch.kernels.ewise.ref import OP_REFS as EW_REFS
     from repro_torch.kernels.fft.fft import fft_chirp_hopper, fft_radix_hopper
@@ -1761,13 +1874,15 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         for _ in range(3):
             fn()
         # the profiler on the card now and then returns an empty window (a
-        # library call has read 0.0 ms): measure again, and after three
-        # empty windows time TIMED_RUNS calls back to back by CUDA events
-        # (the host's launches then count where they outlast the kernels)
-        for _ in range(3):
-            t = device_ms_per_call(fn, TIMED_RUNS, dev)
-            if t > 0:
-                return t
+        # library call has read 0.0 ms) or one that undercounts (an 8192²
+        # float32 ATen multiply has read 0.1244 ms, half its time): the
+        # median of three windows, and after three empty windows TIMED_RUNS
+        # calls back to back by CUDA events (the host's launches then count
+        # where they outlast the kernels)
+        windows = [t for t in (device_ms_per_call(fn, TIMED_RUNS, dev) for _ in range(3))
+                   if t > 0]
+        if windows:
+            return statistics.median(windows)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(TIMED_RUNS):
@@ -1780,8 +1895,8 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         return t
 
     def model_row(kernel, plain, library):
-        """Device times of the model path's kernel, plain version and
-        library call, with the CUDA-event times beside them."""
+        """Device times of a kernel, its plain version and its library call,
+        with the CUDA-event times beside them."""
         fns = {"ms": kernel, "plain_ms": plain, "library_ms": library}
         row = {k: device_ms(f) for k, f in fns.items()}
         row["event_ms"] = {k: ms(f) for k, f in fns.items()}
@@ -1904,22 +2019,80 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
                     for e in prof.key_averages() if device_seconds_of(e)), reverse=True)
     print("  sort radix route by kernel (profiler over 10 calls): " + "; ".join(
         f"{k} {t:.4f} ms x {c} launches seen" for t, c, k in parts))
-    # the two routes by events at rows that fit one tile, 2^24 keys each:
-    # the tile route takes every row up to SORT_TILE while it is faster
+    # EW* per op at phase 3's operands: device time of the kernel, the plain
+    # version and the ATen call, CUDA-event times beside
+    per_op = {op: model_row(lambda op=op: ewise_hopper(ea, eb, op),
+                            lambda op=op: EW_REFS[op](ea, eb),
+                            lambda op=op: OP_ATEN[op](ea, eb))
+              for op in ("mul", "div", "add", "sub")}
+    for op, t in per_op.items():
+        print(f"  ewise {op}, device ms: kernel {t['ms']:.4f}  plain {t['plain_ms']:.4f}  "
+              f"ATen {t['library_ms']:.4f}; by events: kernel {t['event_ms']['ms']:.4f}  "
+              f"ATen {t['event_ms']['library_ms']:.4f}")
+    # EW*'s plan takes 1 vector a thread while 4 would leave an SM without a
+    # block, else 4: the vector kernel at both, by device time, below the
+    # switch, at it and at phase 3's size, through the C entry point (plans
+    # the wrapper does not make; not counted as launches)
+    def ew_at(a_, b_, o_, op, u):
+        items = a_.numel() // (16 // a_.element_size())
+        rc = _cuda.lib().halo_ewise(a_.data_ptr(), b_.data_ptr(), o_.data_ptr(), a_.numel(),
+                                    EW_OPS[op], _cuda.dtype_code(a_.dtype), 1, u,
+                                    max(1, -(-items // (u * EW_THREADS))), _cuda.stream(dev))
+        _cuda.check(rc, "ewise")
+
+    sms = _cuda.sm_count(dev)
+    ew_u = {}
+    gen7 = torch.Generator(device=dev).manual_seed(7)
+    for dt in (torch.float32, torch.bfloat16):
+        v = 16 // dt.itemsize
+        for n_ in (65536, 4 * EW_THREADS * sms * v - v, SIZES["EW"] ** 2):
+            a_ = torch.randn(n_, generator=gen7, device=dev).to(dt)
+            b_ = (torch.randn(n_, generator=gen7, device=dev) + 3.0).to(dt)
+            o_ = torch.empty_like(a_)
+            row = {"plan_u": ewise_plan(n_, dt, True, sms).items_per_thread}
+            for op in ("mul", "div"):
+                for u in (1, 4):
+                    ew_at(a_, b_, o_, op, u)
+                    if not torch.equal(bits(o_), bits(EW_REFS[op](a_, b_))):
+                        fail(f"EW {op} {dt} n={n_} at U={u}: not bit-identical")
+                    row[f"{op}_u{u}_ms"] = device_ms(lambda: ew_at(a_, b_, o_, op, u))
+            ew_u[f"{str(dt).split('.')[-1]} {n_}"] = row
+    del a_, b_, o_
+    print("  ewise plan, vector kernel device us (type n, plan's U: mul U=1 / U=4; div "
+          "U=1 / U=4): " + "; ".join(
+              f"{k} U={r['plan_u']}: {r['mul_u1_ms'] * 1e3:.3f} / {r['mul_u4_ms'] * 1e3:.3f}; "
+              f"{r['div_u1_ms'] * 1e3:.3f} / {r['div_u4_ms'] * 1e3:.3f}"
+              for k, r in ew_u.items()))
+    # the two SORT routes at rows that fit one tile, 2^24 keys each: the tile
+    # route takes every row up to SORT_TILE while it is faster; the tile
+    # route's device time beside
     sort_sweep = {}
     gen8 = torch.Generator(device=dev).manual_seed(8)
     for n_ in CROSSOVER_SORT_N:
         x_ = torch.randn(((1 << 24) // n_, n_), generator=gen8, device=dev)
         sort_sweep[str(n_)] = {"tile_ms": ms(sort_tile_hopper, x_),
-                               "radix_ms": ms(sort_radix_hopper, x_)}
+                               "radix_ms": ms(sort_radix_hopper, x_),
+                               "tile_device_ms": device_ms(lambda: sort_tile_hopper(x_))}
     del x_
     faster = [int(n_) for n_, t in sort_sweep.items() if t["radix_ms"] < t["tile_ms"]]
-    print("  SORT routes at 2^24 float32 keys, event ms (row length: tile / radix): "
-          + "; ".join(f"{n_}: {t['tile_ms']:.4f} / {t['radix_ms']:.4f}"
-                      for n_, t in sort_sweep.items())
+    print("  SORT routes at 2^24 float32 keys, event ms (row length: tile / radix; "
+          "tile device ms): " + "; ".join(
+              f"{n_}: {t['tile_ms']:.4f} / {t['radix_ms']:.4f}; {t['tile_device_ms']:.4f}"
+              for n_, t in sort_sweep.items())
           + f"; radix faster at n = {faster}; SORT_TILE = {SORT_TILE}")
-    # the tile route at phase 3's request shape: 4096 rows of 4096
+    # the tile route at phase 3's request shape, 4096 rows of 4096: events,
+    # device time beside
     stx = torch.randn((4096, 4096), generator=gen8, device=dev)
+    sort_times = {"ms": ms(sort_tile_hopper, stx),
+                  "plain_ms": ms(sort_ref, stx),
+                  "library_ms": ms(torch.sort, stx),
+                  "device_ms": {"ms": device_ms(lambda: sort_tile_hopper(stx)),
+                                "library_ms": device_ms(lambda: torch.sort(stx))},
+                  "crossover": sort_sweep}
+    print(f"  sort tile route 4096x4096 float32: event ms kernel {sort_times['ms']:.4f}  "
+          f"torch.sort {sort_times['library_ms']:.4f}; device ms kernel "
+          f"{sort_times['device_ms']['ms']:.4f}  torch.sort "
+          f"{sort_times['device_ms']['library_ms']:.4f}")
     sort_tile_bound = bound(4 * 2 * stx.numel(), stx.numel() * 12)
     hx, = jobs["HIST"]
     n_hist = hx.numel()
@@ -1947,7 +2120,6 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     # slots, the two prompt lengths) and at 4096, by device time, under its
     # launch plan, beside F.rms_norm and its plain version
     rms_rows = []
-    sms = _cuda.sm_count(dev)
     for rows in sorted({SERVE["slots"], 4096, *SERVE["prompt_lens"]}):
         x_ = (torch.randn((rows, cfg.d_model), generator=gen, device=dev) + 0.5).to(mdt)
         eps = cfg.norm_eps
@@ -2285,11 +2457,6 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     def four_aten(a, b, c, d, e):
         return torch.div(torch.sub(torch.add(torch.mul(a, b), c), d), e)
 
-    per_op = {}
-    for op in ("mul", "div", "add", "sub"):
-        per_op[op] = {"ms": ms(ewise_hopper, ea, eb, op),
-                      "plain_ms": ms(EW_REFS[op], ea, eb),
-                      "library_ms": ms(OP_ATEN[op], ea, eb)}
     rows = [
         # device time (events under "event_ms"); bound: 2·M·N·K at the TF32
         # tensor-core rate (the float32 CUDA-core bound under
@@ -2310,8 +2477,9 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
          f"one serving run's prefills: {sum(r['launches_per_run'] for r in prefill)} "
          f"MMMs at M={'/'.join(map(str, SERVE['prompt_lens']))} {mname}, device time "
          f"(library: torch.matmul)"),
+        # device time (events under "event_ms"), per op under "per_op"
         ("ewise", dict(per_op["mul"]), ew_bound, f"{ea.shape[0]}x{ea.shape[1]} "
-         f"float32, EWMM (per op below)"),
+         f"float32, EWMM, device time (per op below)"),
         ("mvm", {"ms": ms(mvm_hopper, ma, mx), "plain_ms": ms(mvm_ref, ma, mx),
                  "library_ms": ms(mvm_aten, ma, mx)}, mvm_bound,
          f"{mm}x{mk}@{mk} float32"),
@@ -2345,9 +2513,9 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         ("sort_radix", {"ms": ms(sort_radix_hopper, sx), "plain_ms": ms(sort_ref, sx),
                         "library_ms": ms(torch.sort, sx)}, sort_bound,
          f"n={n_sort} float32, radix route (library: torch.sort)"),
-        ("sort", {"ms": ms(sort_tile_hopper, stx), "plain_ms": ms(sort_ref, stx),
-                  "library_ms": ms(torch.sort, stx), "crossover": sort_sweep},
-         sort_tile_bound,
+        # events (device time under "device_ms"); both routes per row
+        # length under "crossover"
+        ("sort", sort_times, sort_tile_bound,
          "4096x4096 float32, tile route (library: torch.sort)"),
         # torch.histc bins the edges differently: a time yardstick only
         ("hist", {"ms": ms(hist_hopper, hx), "plain_ms": ms(hist_ref, hx),
@@ -2400,6 +2568,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
                  "bound_by": bound_by, "shape": shape}
         if name == "ewise":
             entry["per_op"] = per_op
+            entry["items_a_thread"] = ew_u
         if name == "mmm_tf32x3":
             entry["launches_float32_replay"] = \
                 path_launches["serve_float32"]["mmm_tf32x3"]
@@ -2414,9 +2583,6 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         print(f"  {name:6s} {shape:40s} kernel_ms {times['ms']:.4f}  plain_ms "
               f"{times['plain_ms']:.4f}  library_ms {times['library_ms']:.4f}  "
               f"bound_ms {bound_ms:.4f} ({bound_by})  launches {n_launches}")
-    for op, t in per_op.items():
-        print(f"  ewise {op}: kernel_ms {t['ms']:.4f}  plain_ms "
-              f"{t['plain_ms']:.4f}  library_ms {t['library_ms']:.4f}")
     for name, t in ((e["name"], e["event_ms"]) for e in kernels if "event_ms" in e):
         print(f"  {name} CUDA-event times per call (host launch included): "
               f"kernel_ms {t['ms']:.4f}  plain_ms {t['plain_ms']:.4f}  "
@@ -2434,15 +2600,20 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         entry["phi"] = report.halo_score
         print("  " + report.csv())
     # device time the template's requests need: each kernel's median
-    # times the launches the counted run made (EW per op: two each)
-    busy = sum(per_op[op]["ms"] * 2 for op in per_op) + sum(
-        e["ms"] * e["launches"] for e in kernels
-        if e["name"] != "ewise" and e["name"] not in PATH_OF)
+    # times the launches the counted run made (EW per op: two each, by
+    # device time; the sum with EW by events beside, the yardstick of trees
+    # that time EW by events only)
+    rest = sum(e["ms"] * e["launches"] for e in kernels
+               if e["name"] != "ewise" and e["name"] not in PATH_OF)
+    busy = sum(per_op[op]["ms"] * 2 for op in per_op) + rest
     e2e["kernel_ms_sum"] = busy
+    e2e["kernel_ms_sum_ew_by_events"] = sum(
+        per_op[op]["event_ms"]["ms"] * 2 for op in per_op) + rest
     e2e["device_busy_share"] = busy / e2e["wall_ms"]
     print(f"  end to end: quickstart wall {e2e['wall_ms']:.3f} ms (median of "
           f"{E2E_REPEATS}: {', '.join(f'{w:.3f}' for w in e2e['wall_ms_all'])}) "
-          f"for {e2e['requests']} requests; kernel time {busy:.3f} ms; device "
+          f"for {e2e['requests']} requests; kernel time {busy:.3f} ms (EW by "
+          f"events: {e2e['kernel_ms_sum_ew_by_events']:.3f} ms); device "
           f"busy share {e2e['device_busy_share']:.3f}; T1 "
           f"{e2e['t1_us_per_call']:.1f} us per call")
     print(json.dumps({"e2e": e2e}))

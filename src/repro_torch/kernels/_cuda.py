@@ -56,8 +56,8 @@ _SIGNATURES = {
     # a, b, c, ws, m, n, k, splits, kb, kw, vec, dtype, stream
     "halo_mmm_skinny": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int,
                         _int, _int, _vp],
-    # a, b, out, n, op, dtype, vec, stream
-    "halo_ewise": [_vp, _vp, _vp, _ll, _int, _int, _int, _vp],
+    # a, b, out, n, op, dtype, vec, items_per_thread, blocks, stream
+    "halo_ewise": [_vp, _vp, _vp, _ll, _int, _int, _int, _int, _ll, _vp],
     # a, x, y, m, k, dtype, vec, stream
     "halo_mvm": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
     # x, y, partials, out, n, nparts, dtype, vec, stream
@@ -72,8 +72,9 @@ _SIGNATURES = {
     "halo_fft_chirp": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _vp],
     # x, tw, out, m, n, vec, dtype, stream
     "halo_fft_radix": [_vp, _vp, _vp, _int, _int, _int, _int, _vp],
-    # x, out, rows, n, npow2, dtype, stream
-    "halo_sort": [_vp, _vp, _ll, _ll, _ll, _int, _vp],
+    # x, out, rows, n, keys_per_thread, threads_per_row, rows_per_block,
+    # blocks, dtype, vec, stream
+    "halo_sort": [_vp, _vp, _ll, _ll, _int, _int, _int, _ll, _int, _int, _vp],
     # x, out, keys, keys_len, tables, tables_len, rows, n, dtype, stream
     "halo_sort_radix": [_vp, _vp, _vp, _ll, _vp, _ll, _ll, _ll, _int, _vp],
     # x, counts, out, n, bins, lo, hi, width, dtype, stream

@@ -1,18 +1,47 @@
-"""EW* on Hopper: the ctypes wrapper around ``csrc/ewise.cu``.
+"""EW* on Hopper: the ctypes wrapper around ``csrc/ewise.cu`` and its
+launch plan.
 
-Replaces ``repro/kernels/ewise/ewise.py::ewise_pallas``.  One grid-stride
-kernel per (type, op) over the flat operands, with 16-byte vector loads
-where aligned; the ragged edge is masked, so the divisor is never padded.
+Replaces ``repro/kernels/ewise/ewise.py::ewise_pallas``.  One kernel per
+(type, op) over the flat operands under :func:`ewise_plan`: items are
+16-byte vectors where all three pointers are aligned and single elements
+where not, each block covers one contiguous chunk of U items a thread, and
+a thread loads all its items of a and b before it computes; the ragged
+edge is masked, so the divisor is never padded.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import _cuda
+from ..common import cdiv
 
 LAUNCHES = _cuda.counter("ewise")
+
+#: threads a block (csrc/ewise.cu kThreads), and the items a thread may take
+THREADS = 256
+ITEMS = (4, 1)
+
+
+class EwisePlan(NamedTuple):
+    """How the kernel covers n elements: items of ``item_elems`` elements
+    (16 bytes' worth where aligned, else 1), ``items_per_thread`` (U) a
+    thread, ``blocks`` blocks of :data:`THREADS`; block g covers items
+    g·U·THREADS to (g + 1)·U·THREADS − 1, and the last block also the n mod
+    ``item_elems`` elements past the last whole item."""
+    item_elems: int
+    items_per_thread: int
+    blocks: int
+
+
+def ewise_plan(n: int, dtype: torch.dtype, aligned: bool, sms: int) -> EwisePlan:
+    """The launch plan for n ≥ 1 elements of ``dtype``: U = 4 items a thread
+    while that still gives every one of ``sms`` SMs a block, else 1."""
+    elems = 16 // dtype.itemsize if aligned else 1
+    items = n // elems
+    u = next(u for u in ITEMS if u == 1 or cdiv(items, u * THREADS) >= sms)
+    return EwisePlan(elems, u, max(1, cdiv(items, u * THREADS)))
 
 #: op name -> the code the C entry point takes
 OPS = {"mul": 0, "div": 1, "add": 2, "sub": 3}
@@ -32,14 +61,17 @@ def ewise_problem(a, b) -> Optional[str]:
 
 
 def ewise_hopper(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
-    """``a (op) b`` element-wise on the card, in ``a``'s shape and type."""
+    """``a (op) b`` element-wise on the card, in ``a``'s shape and type,
+    under :func:`ewise_plan`."""
     _cuda.require_cuda(ewise_problem(a, b), f"EW {op}", a)
     out = torch.empty_like(a)
     if out.numel() == 0:
         return out
+    vec = _cuda.aligned(a, b, out)
+    plan = ewise_plan(a.numel(), a.dtype, vec, _cuda.sm_count(a.device))
     rc = _cuda.lib().halo_ewise(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                a.numel(), OPS[op], _cuda.dtype_code(a.dtype),
-                                int(_cuda.aligned(a, b, out)),
+                                a.numel(), OPS[op], _cuda.dtype_code(a.dtype), int(vec),
+                                plan.items_per_thread, plan.blocks,
                                 _cuda.stream(a.device))
     _cuda.check(rc, "ewise")
     LAUNCHES.add()

@@ -1,5 +1,5 @@
 """Plain PyTorch oracles for SORT and HIST (port of
-``repro.kernels.sorthist.ref``), and the SORT radix route's plain model."""
+``repro.kernels.sorthist.ref``), and the plain models of SORT's two routes."""
 import torch
 
 #: key bits each type keeps (csrc/sort_radix.cu's KeyMask): below a 16-bit
@@ -9,8 +9,13 @@ KEY_MASK = {torch.float32: 0xFFFFFFFF, torch.bfloat16: 0xFFFF0000,
             torch.float16: 0xFFFFE000}
 #: the key of every NaN, above +inf's
 NAN_KEY = 0xFFFFFFFE
+#: the tile route's key for the places from n up to the row's power of
+#: two, above every NaN's
+PAD_KEY = 0xFFFFFFFF
 #: the radix route's digit passes, of 8 bits each
 RADIX_PASSES = 4
+#: lanes of a warp
+WARP = 32
 
 
 def sort_ref(x):
@@ -66,6 +71,88 @@ def sort_radix_ref(x):
             order = torch.argsort(d[runs], dim=-1, stable=True)
             keys[runs] = torch.gather(keys[runs], -1, order)
     return keys_to_values(keys, x.dtype).reshape(x.shape)
+
+
+def _slot_step(key, j, up):
+    """Compare-exchange of slots s and s + j (s & j = 0) in every thread:
+    the lower slot takes the smaller key where ``up``, the larger elsewhere."""
+    slots = torch.arange(key.shape[-1], device=key.device)
+    lo = slots[(slots & j) == 0]
+    a, b = key[..., lo], key[..., lo + j]
+    small, large = torch.minimum(a, b), torch.maximum(a, b)
+    out = key.clone()
+    out[..., lo] = torch.where(up, small, large)
+    out[..., lo + j] = torch.where(up, large, small)
+    return out
+
+
+def _thread_step(key, m):
+    """Compare-exchange of each slot with the same slot of thread t ^ m: the
+    lower thread keeps the smaller key.  The kernel takes its partner's key
+    by ``__shfl_xor_sync`` within a warp (m < 32), and past a warp's span
+    through the row's shared buffer (thread t writes slot s to word
+    s·T + t and reads word s·T + (t ^ m))."""
+    lane = torch.arange(key.shape[1], device=key.device)
+    partner = key[:, lane ^ m, :]
+    lower = ((lane & m) == 0)[:, None]
+    return torch.where(lower, torch.minimum(key, partner), torch.maximum(key, partner))
+
+
+def sort_tile_ref(x, plan):
+    """The tile route's plain model under a launch plan
+    (``sorthist.sort_tile_plan``), in the kernel's steps.  Keys of
+    :func:`sort_keys` of x's float32 values (no mask), :data:`PAD_KEY` from
+    n up to E·T places, held as (rows, T threads, E slots), loaded striped
+    as a row off the 16-byte grid is: slot s of thread t takes element
+    s·T + t (an aligned row's 16-byte loads start each key at its own
+    place, which changes no bit of the sorted row).  The network orders
+    place t·E + s, slot s of thread t, and the row is stored in place
+    order.  The bitonic network runs stage k = 2, 4, …, E·T
+    with strides j = k/2, …, 1.  Stages k ≤ E lie in one thread's slots,
+    the direction by place.  In a later stage every place of a thread has
+    one direction, ((t·E) & k) = 0 ascending, so the thread complements its
+    keys for a descending stage, sorts ascending, and complements back; its
+    strides from 32·E up exchange through shared memory, from E up by lane
+    shuffles, below E between slots.  Rows past the plan's blocks are NaN;
+    keys decode as ``from_key`` does (every NaN the one positive NaN)."""
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    n = x.shape[-1]
+    rows = x.numel() // n
+    e, t, r, blocks = plan
+    places = e * t
+    live = min(rows, blocks * r)
+    dev = x.device
+    held = torch.full((live, places), PAD_KEY, dtype=torch.int64, device=dev)
+    held[:, :n] = sort_keys(x.reshape(rows, n)[:live].float())
+    key = held.reshape(live, e, t).transpose(1, 2)          # the striped load
+    place = torch.arange(places, device=dev).reshape(t, e)
+    lane = torch.arange(t, device=dev)
+    k = 2
+    while k <= places:
+        j = k // 2
+        if k <= e:
+            while j:
+                up = ((place & k) == 0)[:, (torch.arange(e, device=dev) & j) == 0]
+                key = _slot_step(key, j, up)
+                j //= 2
+        else:
+            flip = torch.where((lane * e & k) == 0, 0, PAD_KEY)[:, None]
+            key = key ^ flip
+            while j >= WARP * e:                        # shared memory
+                key = _thread_step(key, j // e)
+                j //= 2
+            while j >= e:                               # lane shuffles
+                key = _thread_step(key, j // e)
+                j //= 2
+            while j:
+                key = _slot_step(key, j, torch.tensor(True, device=dev))
+                j //= 2
+            key = key ^ flip
+        k *= 2
+    out = torch.full((rows, n), float("nan"), device=dev)
+    out[:live] = keys_to_values(key.reshape(live, places)[:, :n], torch.float32)
+    return out.to(x.dtype).reshape(x.shape)
 
 
 def sort_aten(x):

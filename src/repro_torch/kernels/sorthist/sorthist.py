@@ -8,9 +8,10 @@ SORT orders 32-bit keys that order every float (NaN above +inf), by one of
 two routes chosen by the row length alone (:func:`sort_route`):
 
 * ``tile`` (``sort.cu``), rows of at most :data:`SORT_TILE` places after
-  rounding up to a power of two: a bitonic network per row in shared
-  memory, one launch, with a sentinel key above every NaN for the places
-  past the row's length;
+  rounding up to a power of two: a bitonic network per row whose keys stay
+  in registers under :func:`sort_tile_plan` (E keys a thread, a row over
+  the lanes of one warp or of several), one launch, with a sentinel key
+  above every NaN for the places past the row's length;
 * ``radix`` (``sort_radix.cu``), longer rows: a least-significant-digit
   radix sort of 8-bit digits that skips the digits constant over a row,
   through two key buffers and count tables the wrapper allocates
@@ -25,7 +26,7 @@ them as float32: the result does not depend on the atomics' order.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,9 +38,15 @@ SORT_LAUNCHES = _cuda.counter("sort")
 RADIX_LAUNCHES = _cuda.counter("sort_radix")
 HIST_LAUNCHES = _cuda.counter("hist")
 
-#: keys one block sorts in shared memory (32 KB), csrc/sort.cu's kTile; the
-#: tile kernel refuses longer rows
+#: places of the longest row the tile kernel takes (csrc/sort.cu's kTile);
+#: it refuses longer rows
 SORT_TILE = 8192
+#: keys a thread holds in registers, at most (csrc/sort.cu's kMaxKeys), and
+#: the threads a block of short rows takes at most (on an H100, 128-thread
+#: blocks ran rows of 256 and 1024 places faster than 256-thread ones, and
+#: 32 keys a thread, which spill, no faster than 16 at any length)
+SORT_KEYS = 16
+SORT_BLOCK = 128
 #: keys per block of the radix kernels (csrc/sort_radix.cu's kTileKeys)
 #: and the values of an 8-bit digit
 RADIX_TILE = 4096
@@ -51,10 +58,62 @@ def sort_route(n: int) -> str:
     (``next_pow2(n) <= SORT_TILE``), else ``"radix"``.
 
     The tile's capacity is also the measured crossover: on an H100 SXM at
-    2^24 float32 keys, the tile route is 4.6x (n = 8192) to 229x (n = 256)
-    faster than the radix route at every row length it takes, 4097 (padded
-    to 8192) included; ``chip_smoke.py`` phase 4 sweeps both routes."""
+    2^24 float32 keys, the register-resident tile route is 13x (n = 8192,
+    and 4097 padded to 8192) to 1000x (n = 256) faster than the radix route
+    at every row length it takes; ``chip_smoke.py`` phase 4 sweeps both
+    routes."""
     return "tile" if next_pow2(n) <= SORT_TILE else "radix"
+
+
+class SortTilePlan(NamedTuple):
+    """How the tile kernel holds the rows: ``keys_per_thread`` (E) keys in
+    each thread's registers, ``threads_per_row`` (T) threads a row, place
+    t·E + s of a row in slot s of thread t; ``rows_per_block`` (R) rows to a
+    block of T·R threads; ``blocks`` blocks."""
+    keys_per_thread: int
+    threads_per_row: int
+    rows_per_block: int
+    blocks: int
+
+    @property
+    def places(self) -> int:
+        """The row's places, next_pow2(n): E·T."""
+        return self.keys_per_thread * self.threads_per_row
+
+    @property
+    def threads(self) -> int:
+        return self.threads_per_row * self.rows_per_block
+
+    @property
+    def shared_bytes(self) -> int:
+        """The most shared memory a block takes (csrc/sort.cu tile_smem): two
+        buffers of R rows of keys for the steps whose partner lies in
+        another warp (none when a row fits one warp), or R rows of
+        places + places / 32 words to stage the stores of rows off the
+        16-byte grid, whichever is larger."""
+        r, p = self.rows_per_block, self.places
+        return max(0 if self.threads_per_row <= 32 else 2 * 4 * r * p, 4 * r * (p + p // 32))
+
+
+def sort_tile_plan(rows: int, n: int, sms: int) -> SortTilePlan:
+    """The tile kernel's launch plan for ``rows`` rows of ``n`` places (n ≤
+    :data:`SORT_TILE`), a pure function of rows, n and the SM count.  A
+    thread holds E = min(next_pow2(n), :data:`SORT_KEYS`) keys, so a row of
+    4096 spans 256 threads (8 warps) and a row of at most 512 one warp or
+    part of one.  A block holds R rows: at least a warp's worth (32 / T),
+    at most :data:`SORT_BLOCK` / T (one row where T is larger), and below
+    that as few as spread the rows over ``sms`` blocks (R a power of
+    two)."""
+    places = next_pow2(n)
+    if not 1 <= n <= SORT_TILE:
+        raise ValueError(f"SORT: the tile route takes rows of 1 to {SORT_TILE} "
+                         f"places, got {n}")
+    e = min(places, SORT_KEYS)
+    t = places // e
+    r_min = max(1, 32 // t)
+    r_max = max(r_min, SORT_BLOCK // t)
+    r = min(max(next_pow2(cdiv(rows, sms)), r_min), r_max)
+    return SortTilePlan(e, t, r, max(1, cdiv(rows, r)))
 
 
 def radix_scratch(rows: int, n: int) -> Tuple[int, int]:
@@ -89,8 +148,11 @@ def hist_problem(x, bins, lo, hi) -> Optional[str]:
 
 
 def _sort_tile(x, out, rows, n):
-    rc = _cuda.lib().halo_sort(x.data_ptr(), out.data_ptr(), rows, n, next_pow2(n),
-                               _cuda.dtype_code(x.dtype), _cuda.stream(x.device))
+    plan = sort_tile_plan(rows, n, _cuda.sm_count(x.device))
+    vec = _cuda.aligned(x, out) and (n * x.element_size()) % 16 == 0
+    rc = _cuda.lib().halo_sort(x.data_ptr(), out.data_ptr(), rows, n, *plan,
+                               _cuda.dtype_code(x.dtype), int(vec),
+                               _cuda.stream(x.device))
     _cuda.check(rc, "sort")
     SORT_LAUNCHES.add()
 
@@ -117,8 +179,9 @@ def _sort(route, x):
 
 
 def sort_tile_hopper(x: torch.Tensor) -> torch.Tensor:
-    """Ascending sort of the last axis on the card by the shared-memory
-    bitonic kernel (rows of at most :data:`SORT_TILE` places)."""
+    """Ascending sort of the last axis on the card by the register-resident
+    bitonic kernel under :func:`sort_tile_plan` (rows of at most
+    :data:`SORT_TILE` places)."""
     _cuda.require_cuda(sort_problem(x), "SORT", x)
     if sort_route(x.shape[-1]) != "tile":
         raise ValueError(f"SORT: the tile route takes rows of at most {SORT_TILE} "

@@ -340,11 +340,11 @@ def test_mmm_tf32x3_hopper_refuses_host_tensors():
                                               (torch.float32, 70, 136, 0),
                                               (torch.float32, 72, 134, 0),
                                               (torch.float32, 72, 136, 1)])
-def test_mmm_tf32x3_hopper_refuses_what_tma_cannot_load(monkeypatch, dtype, k, n, offset):
-    """(Named for the refusals it held before the padded split.)  Past the
-    device check (stubbed here), a 16-bit operand is refused, not sent
-    elsewhere; a K or N off the multiple of 4 or an A off the 16-byte
-    grid is launched on the 3×TF32 route."""
+def test_mmm_tf32x3_hopper_refuses_16bit_and_pads_what_tma_cannot_load(monkeypatch, dtype,
+                                                                        k, n, offset):
+    """Past the device check (stubbed here), a 16-bit operand is refused,
+    not sent elsewhere; a K or N off the multiple of 4 or an A off the
+    16-byte grid is launched on the 3×TF32 route, whose split pass pads."""
     monkeypatch.setattr(_cuda, "require_cuda", lambda *a: None)
     launched = []
     monkeypatch.setattr(t_mm, "_launch", lambda route, a, b: launched.append(route))

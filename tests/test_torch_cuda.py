@@ -15,8 +15,8 @@ from repro_torch.core.registry import KernelRecord, KernelRegistry
 from repro_torch.kernels import _cuda, register_all
 from repro_torch.kernels.conv1d.conv1d import conv1d_hopper
 from repro_torch.kernels.conv1d.ref import conv1d_ref
-from repro_torch.kernels.ewise.ewise import ewise_hopper
-from repro_torch.kernels.ewise.ref import OP_REFS
+from repro_torch.kernels.ewise.ewise import ITEMS, THREADS, ewise_hopper, ewise_plan
+from repro_torch.kernels.ewise.ref import OP_REFS, ewise_plan_ref
 from repro_torch.kernels.fft.fft import fft_chirp_hopper, fft_radix_hopper
 from repro_torch.kernels.fft.ops import cached_chirp_tables, cached_radix_twiddles
 from repro_torch.kernels.fft.ref import fft_chirp_ref, fft_radix_ref
@@ -38,11 +38,12 @@ from repro_torch.kernels.mvm.mvm import mvm_hopper
 from repro_torch.kernels.mvm.ref import mvm_ref
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_hopper
-from repro_torch.kernels.sorthist.ref import hist_ref, sort_radix_ref, sort_ref
+from repro_torch.kernels.sorthist.ref import (hist_ref, sort_radix_ref, sort_ref,
+                                              sort_tile_ref)
 from repro_torch.kernels.sorthist import sorthist
-from repro_torch.kernels.sorthist.sorthist import (hist_hopper, sort_hopper,
+from repro_torch.kernels.sorthist.sorthist import (SORT_TILE, hist_hopper, sort_hopper,
                                                    sort_radix_hopper, sort_route,
-                                                   sort_tile_hopper)
+                                                   sort_tile_hopper, sort_tile_plan)
 from repro_torch.kernels.spmm.ref import (dense_to_bell, random_block_sparse,
                                           smmm_bell_ref)
 from repro_torch.kernels.spmm.spmm import smmm_hopper
@@ -315,6 +316,34 @@ def test_ewise_kernel_is_bit_exact(card, dtype, op, shape):
     assert torch.equal(_bits(out), _bits(OP_REFS[op](a, b)))
 
 
+def _ewise_boundaries(card, dtype):
+    """n at the edges of the kernel's plan on this card: one element, one
+    16-byte vector ± 1, one block's vectors ± 1 at U = 1 and U = 4, a
+    block for every SM at U = 4 ± 1 (where U turns to 4), and 8192² + 3."""
+    v = 16 // dtype.itemsize
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    ns = {1, v - 1, v, v + 1, 8192 * 8192 + 3}
+    for u in ITEMS:
+        for items in (u * THREADS, u * THREADS * sms):
+            ns |= {items * v - 1, items * v, items * v + 1}
+    return sorted(n for n in ns if n >= 1), sms
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("op", sorted(OP_REFS))
+def test_ewise_kernel_at_each_plan_boundary(card, dtype, op):
+    # bit-exact with the plain version and with the plan's model, which is
+    # NaN wherever the plan does not reach
+    ns, sms = _ewise_boundaries(card, dtype)
+    for n in ns:
+        a = _rnd(card, n, dtype=dtype)
+        b = _rnd(card, n, dtype=dtype, seed=1, shift=3.0)
+        out = ewise_hopper(a, b, op)
+        assert torch.equal(_bits(out), _bits(OP_REFS[op](a, b))), n
+        plan = ewise_plan(n, dtype, True, sms)
+        assert torch.equal(_bits(out), _bits(ewise_plan_ref(a, b, op, plan))), (n, plan)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_ewise_kernel_unaligned_views(card, dtype):
     a = _rnd(card, 1001, dtype=dtype)[1:]
@@ -479,6 +508,51 @@ def test_sort_kernel_is_bit_exact(card, dtype, shape):
     g = torch.Generator(device=card).manual_seed(5)
     d = torch.randint(0, 9, shape, generator=g, device=card).to(dtype)
     assert torch.equal(_bits(sort_hopper(d)), _bits(sort_ref(d)))
+
+
+#: every power of two the tile route takes, and one ragged length below each
+TILE_LENGTHS = sorted({n for p in range(SORT_TILE.bit_length())
+                       for n in (1 << p, (1 << p) - 1) if n >= 1})
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", TILE_LENGTHS)
+def test_sort_tile_kernel_at_each_plan_shape(card, dtype, n):
+    # 3 rows at every length, and as many rows as fill several blocks of
+    # several rows: bit-exact with the plain version and the plan's model,
+    # and two calls give the same bits
+    for rows in (3, 300):
+        x = _rnd(card, rows, n, dtype=dtype, seed=n)
+        out = sort_tile_hopper(x)
+        assert out.dtype == dtype and out.shape == x.shape
+        assert torch.equal(_bits(out), _bits(sort_ref(x)))
+        sms = torch.cuda.get_device_properties(card).multi_processor_count
+        assert torch.equal(_bits(out), _bits(sort_tile_ref(x, sort_tile_plan(rows, n, sms))))
+        assert torch.equal(_bits(out), _bits(sort_tile_hopper(x)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [100, 256, 4096, 8192])
+def test_sort_tile_kernel_unaligned_rows_and_specials(card, dtype, n):
+    # rows off the 16-byte grid load by scalars; NaN of both signs, ±inf
+    # and ±0 bit-exact with the model (−0 before +0), by value with the
+    # plain version; duplicates
+    vals = _rnd(card, 3, n, dtype=torch.float32)
+    vals[:, [3, 7, 11, 20, 30, 40]] = torch.tensor(
+        [float("nan"), float("inf"), float("-inf"), -0.0, 0.0, -float("nan")],
+        device=card)
+    flat = torch.empty(3 * n + 1, dtype=dtype, device=card)
+    flat[1:] = vals.reshape(-1).to(dtype)
+    x = flat[1:].view(3, n)
+    assert x.data_ptr() % 16 != 0
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    out, ref = sort_tile_hopper(x), sort_ref(x)
+    assert torch.equal(_bits(out), _bits(sort_tile_ref(x, sort_tile_plan(3, n, sms))))
+    assert bool(((out == ref) | (out.isnan() & ref.isnan())).all())
+    assert torch.equal(_bits(out), _bits(sort_tile_hopper(x)))
+    g = torch.Generator(device=card).manual_seed(5)
+    d = torch.randint(0, 9, (3 * n + 1,), generator=g, device=card).to(dtype)[1:].view(3, n)
+    assert torch.equal(_bits(sort_tile_hopper(d)), _bits(sort_ref(d)))
 
 
 def _radix_rows(card, dtype, shape, kind):

@@ -57,11 +57,10 @@ def test_route_sends_aligned_16bit_prefills_to_wgmma(dtype, m, k, n):
 
 
 @pytest.mark.parametrize("m", [65, 512, 4096, 4200])
-def test_route_keeps_float32_on_the_tile_kernel(m):
-    """(Named for the CUDA-core tile kernel, now retired.)  float32 above
-    SKINNY_M_MAX rows takes the 3×TF32 route at every K, N and alignment,
-    where the tile kernel took K or N off the multiple of 4: the split
-    pass pads the workspace's rows to Kp = K rounded up to 4."""
+def test_route_sends_float32_above_64_rows_to_tf32x3(m):
+    """float32 above SKINNY_M_MAX rows takes the 3×TF32 route at every K, N
+    and alignment, where the tile kernel took K or N off the multiple of 4:
+    the split pass pads the workspace's rows to Kp = K rounded up to 4."""
     for k, n in PREFILL + [(4096, 4096)]:
         for kk, nn in ((k, n), (k + 2, n), (k, n + 2), (k + 3, n + 1)):
             assert t_mm.mmm_route(torch.float32, m) == "tf32x3"
@@ -75,8 +74,8 @@ def test_route_keeps_float32_on_the_tile_kernel(m):
                                        (777, 1001, (True, True)),
                                        (4, 8, (True, False)), (8, 4, (False, True)),
                                        (0, 8, (False, False)), (8, 0, (False, False))])
-def test_route_sends_k_or_n_off_tma_strides_to_tile(dtype, k, n, packs):
-    """(Named for the tile route these shapes took.)  A K or N off TMA's
+def test_route_keeps_k_or_n_off_tma_strides_on_wgmma_and_packs(dtype, k, n, packs):
+    """A K or N off TMA's
     16-byte stride stays on the tensor-core route: A is packed when K is
     off a multiple of 8, B when N is; B's rows past K are TMA's zero fill,
     so a K off the multiple needs no copy of B."""
@@ -226,11 +225,12 @@ def test_mmm_wgmma_hopper_refuses_host_tensors():
                                               (torch.bfloat16, 70, 136, 0),
                                               (torch.float16, 72, 132, 0),
                                               (torch.bfloat16, 72, 136, 1)])
-def test_mmm_wgmma_hopper_refuses_what_tma_cannot_load(monkeypatch, dtype, k, n, offset):
-    """(Named for the refusals it held before packing.)  Past the device
-    check (stubbed here), float32 is refused, not sent elsewhere; a K or N
-    off the multiple of 8 or an A off the 16-byte grid is launched on the
-    tensor-core route, which packs what TMA cannot load."""
+def test_mmm_wgmma_hopper_refuses_float32_and_packs_what_tma_cannot_load(monkeypatch, dtype,
+                                                                         k, n, offset):
+    """Past the device check (stubbed here), float32 is refused, not sent
+    elsewhere; a K or N off the multiple of 8 or an A off the 16-byte grid
+    is launched on the tensor-core route, which packs what TMA cannot
+    load."""
     monkeypatch.setattr(_cuda, "require_cuda", lambda *a: None)
     launched = []
     monkeypatch.setattr(t_mm, "_launch", lambda route, a, b, **kw: launched.append(route))
