@@ -19,7 +19,12 @@ Phases (any failure exits non-zero before the result lines are printed):
    plain version's own error; and 30 sweeps of ``jacobi_solve`` on the
    phase-3 system must reach ‖Ax − b‖/‖b‖ ≤ ``JS_RESIDUAL`` in float64.
    SMMM's pad slots hold 7.0 and one block row has only pad slots (its
-   output rows must be exactly 0).  MMM's skinny route: every M up to
+   output rows must be exactly 0); its tensor-core kernel, in three types,
+   also against its plain model ``smmm_tf32x3_ref`` (``SMMM_MODEL_TOL``)
+   and, in float32, a float64 product (``SMMM_F64_TOL``), at (bm, bk) off
+   64 and 32, N = 1 and an index row of 1100 slots, two calls
+   bit-identical, and with ±inf and NaN in kept blocks and in B against
+   ``smmm_bell_ref``.  MMM's skinny route: every M up to
    SKINNY_M_MAX at danube's five decode projections, ragged and unaligned
    cases, against ``mmm_ref`` and the split-K plain version (``TOL``), and
    two calls bit-identical.  MMM's tensor-core route, bfloat16 and float16:
@@ -137,7 +142,14 @@ Phases (any failure exits non-zero before the result lines are printed):
    the size where its plan turns to 4 and at phase 3's size.  The fused
    chain kernel at a 4-step
    8192² float32 chain, beside its plain version, the four ATen calls and
-   the four serial EW launches.
+   the four serial EW launches.  SMMM at the template's shape by events,
+   by device time with its split pass and product apart, beside the dense
+   ``torch.matmul`` of the densified A and a ``torch.sparse`` BSR product
+   where that takes the blocks, its bound at the TF32 tensor-core rate and
+   the float32 CUDA-core bound and three products' floor apart.
+   FLASH_ATTN's CUDA-core route also at the float32 replay's 512 tokens and
+   at head dim 256 (1x16x4096x256, causal) in float32 and bfloat16, each
+   beside SDPA and its bound.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.
@@ -198,6 +210,20 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
 #: tests' cases; a kernel that masks one key too many at the window's edge
 #: reads ≥ 4e-3.  ``TOL`` against the plain version would let that pass.
 MMA_MODEL_TOL = {torch.bfloat16: 1e-3, torch.float16: 3e-4}
+
+#: SMMM's tensor-core kernel against its plain model (``smmm_tf32x3_ref``:
+#: the same padded workspace, three TF32 products a 32-deep stage, each
+#: stage added to the float32 sums in slot order) and, in float32, against
+#: a float64 product.  Kernel and model differ only in the order of a
+#: stage's sum; on the H100 the kernel read ≤ 3.2e-7 against the model and
+#: ≤ 5.6e-7 against float64 in float32, and ≤ 2.6e-5 (bfloat16) and ≤ 1.7e-5
+#: (float16) against the model, where that order moves a 16-bit output's
+#: last rounding for a few elements.  A kernel that dropped the lo·hi term
+#: errs ~1e-4; one that carried one tensor-core accumulator over a row's
+#: stages errs past 1e-5 on the long index row.  ``TOL`` would pass both
+#: at some shapes.
+SMMM_MODEL_TOL = {torch.float32: 2e-6, torch.bfloat16: 1e-3, torch.float16: 3e-4}
+SMMM_F64_TOL = 2e-6
 
 #: VDP: |k − r| / |r| on vectors of mean 1, where Σxy ≈ n is about half of
 #: ‖x‖‖y‖, so this is the dot product's own relative error.  The output is
@@ -425,18 +451,18 @@ def js_system(n, dtype, gen, dev):
     return a.to(dtype), x.to(dtype), b.to(dtype)
 
 
-def bell_inputs(m, n, dtype, gen, dev):
-    """Blocked-ELL parts of a random block-sparse m×m A (64x128 blocks,
-    density 0.25) whose block row 0 has only pad slots, pad slots filled
-    with ``PAD_FILL``, and a dense m×n B."""
+def bell_inputs(m, k, n, bm, bk, density, dtype, gen, dev):
+    """Blocked-ELL parts of a random block-sparse m×k A (bm×bk blocks of
+    the given density) whose block row 0 has only pad slots, pad slots
+    filled with ``PAD_FILL``, and a dense k×n B."""
     from repro_torch.kernels.spmm.ref import dense_to_bell, random_block_sparse
-    a = random_block_sparse(gen, m, m, 64, 128, 0.25)
-    a[:64] = 0
-    values, indices = dense_to_bell(a.to(dtype), 64, 128)
+    a = random_block_sparse(gen, m, k, bm, bk, density)
+    a[:bm] = 0
+    values, indices = dense_to_bell(a.to(dtype), bm, bk)
     if not bool((indices[0] < 0).all()) or bool((indices >= 0).all()):
         fail("SMMM inputs: no pad slots or no all-pad block row")
     values[indices < 0] = PAD_FILL
-    b = torch.randn((m, n), generator=gen, device=dev).to(dtype)
+    b = torch.randn((k, n), generator=gen, device=dev).to(dtype)
     return values, indices, b
 
 
@@ -489,8 +515,6 @@ def phase2(dev) -> None:
     from repro_torch.kernels.matmul.ref import mmm_ref
     from repro_torch.kernels.mvm.mvm import mvm_hopper
     from repro_torch.kernels.mvm.ref import mvm_ref
-    from repro_torch.kernels.spmm.ref import smmm_bell_ref
-    from repro_torch.kernels.spmm.spmm import smmm_hopper
     from repro_torch.kernels.vdp.ref import vdp_ref
     from repro_torch.kernels.vdp.vdp import vdp_hopper
 
@@ -546,15 +570,6 @@ def phase2(dev) -> None:
             x, w = rnd(n, dtype=dt), rnd(k, dtype=dt)
             check_bits(f"1DCONV {name} N={n} K={k}", conv1d_hopper(x, w),
                        conv1d_ref(x, w))
-        # SMMM: pad slots hold 7.0, block row 0 is all pad, N not a multiple
-        # of the 256-column tile
-        for m, n in ((1024, 1000), (SIZES["SMMM"], SIZES["SMMM"] // 2 + 77)):
-            values, indices, b = bell_inputs(m, n, dt, gen, dev)
-            k = smmm_hopper(values, indices, b)
-            if bool(k[:64].any()):
-                fail(f"SMMM {name} {m}x{m}: the all-pad block row is not 0")
-            check_close(f"SMMM {name} {m}x{m}@{m}x{n}",
-                        normwise(k, smmm_bell_ref(values, indices, b)), dt)
     # JS convergence on the phase-3 system, on its own terms (not against
     # the plain version)
     n = SIZES["JS"]
@@ -568,6 +583,8 @@ def phase2(dev) -> None:
     for dt in (torch.bfloat16, torch.float16):
         phase2_mmm_wgmma(dev, gen, dt)
     phase2_mmm_tf32x3(dev, gen)
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        phase2_smmm(dev, dt)
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         phase2_fft(dev, gen, dt)
     for dt in (torch.float32, torch.bfloat16):
@@ -727,6 +744,96 @@ def phase2_mmm_tf32x3(dev, gen) -> None:
     if not (torch.equal(torch.isnan(out), torch.isnan(want))
             and torch.equal(torch.isinf(out), inf) and torch.equal(out[inf], want[inf])):
         fail(f"{label}: NaN or ±inf where mmm_ref has none, or the reverse")
+    if not worst <= TOL[dt]:
+        fail(f"{label}: a finite entry errs by {worst:.3e} of (|A|·|B|)_ij")
+
+
+def phase2_smmm(dev, dt) -> None:
+    """SMMM's tensor-core kernel against its plain version
+    (``smmm_bell_ref``, ``TOL``), its plain model (``smmm_tf32x3_ref``,
+    ``SMMM_MODEL_TOL``) and, in float32, a float64 product
+    (``SMMM_F64_TOL``, printed beside the plain version's own error): the
+    template's 64x128 blocks with N off the 256-column tile, (bm, bk) off 64
+    and 32 (the split pass pads), N = 1, and an index row of 1100 slots of
+    16x8 blocks (a tenth of them pads, block columns repeated), each far
+    past one warp's ballot of 32 slots; pad slots hold ``PAD_FILL`` and
+    block row 0 holds only pads (its rows must be exactly 0); two calls
+    bit-identical; in float32, ±inf and NaN in kept blocks and in B, NaN
+    and ±inf where ``smmm_bell_ref`` has them and finite entries within
+    ``TOL`` of (|A|·|B|)_ij."""
+    from repro_torch.kernels.spmm.ref import bell_to_dense, smmm_bell_ref, smmm_tf32x3_ref
+    from repro_torch.kernels.spmm.spmm import smmm_hopper
+
+    name = str(dt).split(".")[-1]
+    gen = torch.Generator(device=dev).manual_seed(10)
+    m8 = SIZES["SMMM"]
+    cases = []
+    for m, k, n, bm, bk in ((1024, 1024, 1000, 64, 128), (m8, m8, m8 // 2 + 77, 64, 128),
+                            (200, 120, 70, 100, 40), (64, 128, 1, 32, 128),
+                            (384, 256, 300, 128, 64), (390, 99, 257, 65, 33)):
+        values, indices, b = bell_inputs(m, k, n, bm, bk, 0.25 if m == m8 else 0.4, dt,
+                                         gen, dev)
+        cases.append((f"{m}x{k}@{k}x{n} in {bm}x{bk}", values, indices, b, True, m == m8))
+    k_long = 1200 * 8
+    values = torch.randn((3, 1100, 16, 8), generator=gen, device=dev).to(dt)
+    indices = torch.randint(0, 1200, (3, 1100), generator=gen, device=dev, dtype=torch.int32)
+    indices[:, ::10] = -1
+    values[indices < 0] = PAD_FILL
+    cases.append(("(3, 1100, 16, 8) @ 9600x300, 1100 slots a row", values, indices,
+                  torch.randn((k_long, 300), generator=gen, device=dev).to(dt), False, True))
+    for label, values, indices, b, pad_row, repeat in cases:
+        label = f"SMMM {name} {label}"
+        out = smmm_hopper(values, indices, b)
+        bm = values.shape[2]
+        if out.shape != (values.shape[0] * bm, b.shape[1]) or out.dtype != dt:
+            fail(f"{label}: {tuple(out.shape)} {out.dtype}")
+        if pad_row and bool(out[:bm].any()):
+            fail(f"{label}: the all-pad block row is not 0")
+        plain = smmm_bell_ref(values, indices, b)
+        check_close(f"{label} vs plain", normwise(out, plain), dt)
+        check_close(f"{label} vs model", normwise(out, smmm_tf32x3_ref(values, indices, b)),
+                    dt, SMMM_MODEL_TOL[dt])
+        if dt == torch.float32:
+            exact = bell_to_dense(values, indices, b.shape[0]).double() @ b.double()
+            check_close(f"{label} vs float64 (plain {normwise(plain, exact):.2e})",
+                        normwise(out, exact), dt, SMMM_F64_TOL)
+            del exact
+        if repeat:
+            if not torch.equal(bits(out), bits(smmm_hopper(values, indices, b))):
+                fail(f"{label}: two calls differ (expected the same bits)")
+            print(f"  {label}: two calls give the same bits")
+    if dt != torch.float32:
+        return
+    # ±inf and NaN in kept blocks and in B, in the 1024 case
+    _, values, indices, b, _, _ = cases[0]
+    values, b = values.clone(), b.clone()
+    rows, slots = (indices >= 0).nonzero(as_tuple=True)
+    for j, x in enumerate((float("inf"), float("-inf"), float("nan"))):
+        values[rows[3 * j + 1], slots[3 * j + 1], 5 + j, 7 + j] = x
+    b[200, 17], b[900, 400] = float("inf"), float("-inf")
+    out, want = smmm_hopper(values, indices, b), smmm_bell_ref(values, indices, b)
+    label = f"SMMM {name} 1024 ±inf, NaN"
+    inf, finite = torch.isinf(want), torch.isfinite(want)
+
+    def kept_sum(f):
+        """Σ over the kept slots of f(value block) @ f(B's rows) in float64
+        (a dense product would meet B's infinities with A's zeros)."""
+        b3 = f(b.double()).reshape(-1, values.shape[3], b.shape[1])
+        acc = 0
+        for s_ in range(indices.shape[1]):
+            idx = indices[:, s_].long()
+            acc = acc + torch.where((idx >= 0)[:, None, None],
+                                    f(values[:, s_].double()) @ b3[idx.clamp(min=0)], 0.0)
+        return acc.reshape(out.shape)
+
+    err = (out.double() - kept_sum(lambda x: x)).abs()
+    scale = kept_sum(torch.abs)
+    worst = float((err[finite] / scale[finite].clamp_min(1e-300)).max())
+    print(f"  {label}: {int(torch.isnan(want).sum())} NaN, {int(inf.sum())} ±inf in "
+          f"smmm_bell_ref; finite entries within {worst:.3e} of (|A|·|B|)_ij")
+    if not (torch.equal(torch.isnan(out), torch.isnan(want))
+            and torch.equal(torch.isinf(out), inf) and torch.equal(out[inf], want[inf])):
+        fail(f"{label}: NaN or ±inf where smmm_bell_ref has none, or the reverse")
     if not worst <= TOL[dt]:
         fail(f"{label}: a finite entry errs by {worst:.3e} of (|A|·|B|)_ij")
 
@@ -1942,8 +2049,13 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     # the work this run's sparsity pattern needs: its non-pad slots only,
     # counted on the host before any timing
     kept = int((si >= 0).sum())
-    spmm_bound = bound(4 * (kept * bm * bk + ks * ns + nrows * bm * ns)
-                       + si.numel() * si.element_size(), 2 * kept * bm * bk * ns)
+    spmm_bytes = 4 * (kept * bm * bk + ks * ns + nrows * bm * ns) + si.numel() * si.element_size()
+    # at the card's fastest rate for float32 operands (TF32 tensor cores),
+    # the kernel's; on the float32 CUDA cores and the three products' floor
+    # apart
+    spmm_bound = bound(spmm_bytes, 2 * kept * bm * bk * ns, tf32_peak)
+    spmm_bound_f32 = bound(spmm_bytes, 2 * kept * bm * bk * ns)
+    spmm_floor_ms = 3 * 2 * kept * bm * bk * ns / tf32_peak * 1e3
     # library yardstick: one dense cuBLAS product of the densified A (built
     # outside the timing); no single PyTorch call computes blocked-ELL @ B
     sa_dense = bell_to_dense(sv, si, ks)
@@ -2291,9 +2403,10 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     # prefill projections (each call on the next of enough copies of B that
     # the L2 holds none of them), beside torch.matmul with TF32 off; the
     # tensor-core route likewise at PACKED_MMM, the pack pass apart
-    def two_parts(fn, whole_ms, first, key):
+    def two_parts(fn, whole_ms, first, key, product_kernel="mmm_wgmma_kernel"):
         """Device ms per call of a route's first pass (the kernel whose name
-        holds ``first``, under ``key``) and of its product, each the median
+        holds ``first``, under ``key``) and of its product (the kernel whose
+        name holds ``product_kernel``), each the median
         of five device_ms_per_call windows (an empty window, which the
         profiler on the card now and then returns, is measured again, up
         to three times).  Printed as not measured (None) where a window saw
@@ -2307,7 +2420,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
                 if per:
                     break
             pre = sum(t for k_, t in per.items() if first in k_)
-            product = sum(t for k_, t in per.items() if "mmm_wgmma_kernel" in k_)
+            product = sum(t for k_, t in per.items() if product_kernel in k_)
             windows.append((pre, product, sum(per.values())))
         totals = [w[2] for w in windows]
         spread = max(totals) - min(totals)
@@ -2437,6 +2550,84 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
                   + f"; skinny faster at M = {faster}; SKINNY_M_MAX = {SKINNY_M_MAX}")
     skinny_times.update(per_shape=decode, crossover=crossover, skinny_m_max=SKINNY_M_MAX)
 
+    # SMMM at the template's shape three ways: by CUDA events (the row's ms,
+    # as every earlier tree timed it), by device time with the split pass
+    # and the product apart, and against its bounds; beside the dense
+    # torch.matmul of the densified A and, where torch.sparse takes the
+    # 64x128 blocks, one BSR product
+    def spmm_call():
+        return smmm_hopper(sv, si, sb)
+
+    spmm_times = {"ms": ms(smmm_hopper, sv, si, sb),
+                  "plain_ms": ms(smmm_bell_ref, sv, si, sb),
+                  "library_ms": ms(torch.matmul, sa_dense, sb),
+                  "device_ms": device_ms(spmm_call)}
+    spmm_times.update(two_parts(spmm_call, spmm_times["device_ms"], "smmm_split",
+                                "split_ms", product_kernel="smmm_tf32_kernel"))
+    exact = sa_dense.double() @ sb.double()
+    spmm_times.update(bound_float32_ms=spmm_bound_f32[0], algorithm_floor_ms=spmm_floor_ms,
+                      aten_per_slot_ms=spmm_aten_ms,
+                      err_vs_float64=normwise(spmm_call(), exact),
+                      library_err_vs_float64=normwise(torch.matmul(sa_dense, sb), exact))
+    del exact
+    try:
+        bsr = sa_dense.to_sparse_bsr((bm, bk))
+        bsr_err = normwise(bsr @ sb, smmm_bell_ref(sv, si, sb))
+        spmm_times["library_bsr_ms"] = ms(torch.matmul, bsr, sb)
+        spmm_times["library_bsr_err_vs_plain"] = bsr_err
+        bsr_text = f"torch.sparse BSR @ B {spmm_times['library_bsr_ms']:.4f} (err {bsr_err:.1e})"
+        del bsr
+    except (RuntimeError, NotImplementedError, ValueError) as e:
+        spmm_times["library_bsr_ms"] = None
+        spmm_times["library_bsr_error"] = str(e).splitlines()[0][:300]
+        bsr_text = "torch.sparse BSR @ B refused"
+        print(f"  spmm: torch.sparse BSR @ B with {bm}x{bk} blocks refused: "
+              f"{spmm_times['library_bsr_error']}")
+    print(f"  spmm {nrows * bm}x{ks} bELL {bm}x{bk} @{ks}x{ns} float32: kernel_ms "
+          f"{spmm_times['ms']:.4f} (events), device {spmm_times['device_ms']:.4f} "
+          f"({parts_text(spmm_times)})  dense torch.matmul {spmm_times['library_ms']:.4f}  "
+          f"{bsr_text}  bound {spmm_bound[0]:.4f} (TF32 tensor cores), "
+          f"{spmm_bound_f32[0]:.4f} (float32 CUDA cores); algorithm floor "
+          f"{spmm_floor_ms:.4f} (three TF32 products); normwise error vs float64 "
+          f"{spmm_times['err_vs_float64']:.3e}, torch.matmul "
+          f"{spmm_times['library_err_vs_float64']:.3e}")
+
+    # FLASH_ATTN's CUDA-core route where it runs: the float32 replay's
+    # prefill (1 x heads x 512 x 80 float32, danube's mask), and head dim 256
+    # (gemma's 16 heads on 16 KV heads, causal, 4096 tokens), the only route
+    # there in 16-bit; device time beside SDPA and the bound at the CUDA-core
+    # (float32) or tensor-core (bfloat16) peak
+    def fa_cuda_cores_row(heads, kv_heads, sq, d, dt_, **kw):
+        g_ = torch.Generator(device=dev).manual_seed(6)
+        q_ = torch.randn((1, heads, sq, d), generator=g_, device=dev).to(dt_)
+        k_ = torch.randn((1, kv_heads, sq, d), generator=g_, device=dev).to(dt_)
+        v_ = (torch.randn((1, kv_heads, sq, d), generator=g_, device=dev) + 1.0).to(dt_)
+        flops_ = 4 * d * int(visibility(sq, sq, device=dev, **kw).sum()) * heads
+        check_close(f"FLASH_ATTN cuda cores {(1, heads, sq, d)} {dt_} vs plain",
+                    normwise(flash_attention_cuda_cores_hopper(q_, k_, v_, **kw),
+                             attention_ref(q_, k_, v_, **kw)), dt_)
+        row = model_row(lambda: flash_attention_cuda_cores_hopper(q_, k_, v_, **kw),
+                        lambda: attention_ref(q_, k_, v_, **kw),
+                        lambda: attention_aten(q_, k_, v_, **kw))
+        row["bound_ms"], row["bound_by"] = bound(
+            q_.element_size() * (2 * q_.numel() + k_.numel() + v_.numel()), flops_,
+            f32_peak if dt_ == torch.float32 else bf16_peak)
+        row["shape"] = (f"1x{heads}x{sq}x{d} {str(dt_).split('.')[-1]}, {kv_heads} KV "
+                        f"heads, {kw}")
+        print(f"  flash_attention (CUDA-core route) {row['shape']}: kernel_ms "
+              f"{row['ms']:.4f}  SDPA {row['library_ms']:.4f}  plain_ms "
+              f"{row['plain_ms']:.4f}  bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
+        del q_, k_, v_
+        return row
+
+    fa_other_shapes = {
+        "float32_replay": fa_cuda_cores_row(attn.n_heads, attn.n_kv_heads,
+                                            min(SERVE["prompt_lens"]), attn.head_dim,
+                                            torch.float32, **fkw),
+        **{f"d256_{str(dt_).split('.')[-1]}": fa_cuda_cores_row(
+            16, 16, 4096, 256, dt_, causal=True, window=None, prefix_len=0)
+           for dt_ in (torch.float32, torch.bfloat16)}}
+
     # the fused chain at phase 3c's EW shape: ((a·b + c) − d) / e over five
     # 8192² float32 inputs; five read and one written, one operation per
     # element per step.  No single PyTorch call computes the chain: the
@@ -2493,10 +2684,13 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         ("conv1d", {"ms": ms(conv1d_hopper, cx, cw), "plain_ms": ms(conv1d_ref, cx, cw),
                     "library_ms": ms(conv1d_aten, cx, cw)}, conv_bound,
          f"N={nc} K={kc} float32"),
-        ("spmm", {"ms": ms(smmm_hopper, sv, si, sb),
-                  "plain_ms": ms(smmm_bell_ref, sv, si, sb),
-                  "library_ms": ms(torch.matmul, sa_dense, sb)}, spmm_bound,
-         f"{nrows * bm}x{ks} bELL {bm}x{bk} @{ks}x{ns} float32"),
+        # events (device time under "device_ms", split pass and product
+        # apart); bound: the kept slots' operations at the TF32 tensor-core
+        # rate (the float32 CUDA-core bound under "bound_float32_ms", three
+        # products under "algorithm_floor_ms")
+        ("spmm", spmm_times, spmm_bound,
+         f"{nrows * bm}x{ks} bELL {bm}x{bk} @{ks}x{ns} float32, 3×TF32 (library: dense "
+         f"torch.matmul of the densified A)"),
         ("fft_radix", model_row(lambda: fft_radix_hopper(fx, ftw),
                                 lambda: fft_radix_ref(fx, ftw), lambda: fft_aten(fx)),
          fft_bound, f"{f_m}x{f_n} float32, radix route, device time (library: cuFFT)"),
@@ -2535,10 +2729,11 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
          fa_bound, f"1x{attn.n_heads}x{seq}x{attn.head_dim} {mname}, "
          f"{attn.n_kv_heads} KV heads, causal, window {attn.window}, tensor-core "
          f"route, device time (library: SDPA, explicit mask)"),
-        ("flash_attention", model_row(
+        # the route's other shapes under "float32_replay" and "d256_*"
+        ("flash_attention", {**model_row(
             lambda: flash_attention_cuda_cores_hopper(fq32, fk32, fv32, **fkw),
             lambda: attention_ref(fq32, fk32, fv32, **fkw),
-            lambda: attention_aten(fq32, fk32, fv32, **fkw)),
+            lambda: attention_aten(fq32, fk32, fv32, **fkw)), **fa_other_shapes},
          fa32_bound, f"1x{attn.n_heads}x{seq}x{attn.head_dim} float32, "
          f"{attn.n_kv_heads} KV heads, causal, window {attn.window}, CUDA-core "
          f"route, device time (library: SDPA, explicit mask)"),

@@ -89,6 +89,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "tma_wgmma.cuh"
 
 namespace {
 
@@ -96,97 +97,6 @@ constexpr int kBM = 128;
 constexpr int kConsumerThreads = 256;                 // two warpgroups
 constexpr int kThreads = kConsumerThreads + 32;        // and one producer warp
 constexpr int kConsumerWarps = kConsumerThreads / 32;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Spin until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One 2-D box of the tensor map at (c0 innermost, c1) into shared memory,
-// completing `bytes` of the barrier's transaction count.
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand at `addr`
-// (1024-byte aligned swizzle atoms): leading and stride byte offsets.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators
-// across the asynchronous wgmma that owns them.
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define HALO_WGMMA_D64 \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),      \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),             \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),         \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),         \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
-      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),         \
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),         \
-      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),         \
-      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),         \
-      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),         \
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),         \
-      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-
-#define HALO_WGMMA_REGS64 \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,  " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,  " \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,  " \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,  " \
-  "%58, %59, %60, %61, %62, %63}"
 
 #define HALO_WGMMA_D128 \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),      \
@@ -269,22 +179,6 @@ template <> struct Wgmma<__half, 256> {
         ", %128, %129, p, 1, 1, 0, 1;\n}\n"
         : HALO_WGMMA_D128
         : "l"(a), "l"(b), "r"(1));
-  }
-};
-
-// d(64x128, float32) += A(64x8, K-major) @ B(8x128, K-major), tf32
-// operands from shared memory through their descriptors (tf32 has no
-// transpose bit: both operands are K-major).
-// accumulate = 0 writes d = A @ B, ignoring what d held.
-struct WgmmaTf32 {
-  static __device__ __forceinline__ void run(float (&d)[64], uint64_t a, uint64_t b,
-                                             int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " HALO_WGMMA_REGS64
-        ", %64, %65, p, 1, 1;\n}\n"
-        : HALO_WGMMA_D64
-        : "l"(a), "l"(b), "r"(accumulate));
   }
 };
 
@@ -497,28 +391,6 @@ mmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// x rounded to tf32 to nearest, ties away from zero: the low 13 bits of
-// the float32 pattern cleared.
-__device__ __forceinline__ float to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
-
-// x as hi + lo: hi = tf32(x) and lo = tf32(x - hi), x - hi exact in
-// float32.  A finite x that rounding to nearest would carry past FLT_MAX
-// takes hi by truncation instead, so that x - hi stays finite.  A
-// non-finite x goes whole into lo (hi = 0): it then meets the other
-// operand only in lo*hi (A) or hi*lo (B), once, times that operand's hi
-// part, as it meets the operand itself in A @ B; as a hi it would also meet
-// the other's lo, where inf * 0 or inf - inf makes NaN.
-__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
-  hi = to_tf32(x);
-  if (!isfinite(x)) hi = 0.f;
-  else if (isinf(hi)) hi = __uint_as_float(__float_as_uint(x) & 0xffffe000u);
-  lo = to_tf32(x - hi);
-}
-
 // The 3xTF32 route's split pass: split_tf32 of every element of A (M x K)
 // into ws_a = [A_hi; A_lo] (2M x Kp), and of B (K x N), transposed through a
 // shared tile so that reads and writes both coalesce, into ws_b = [B_hi^T;
@@ -575,47 +447,6 @@ pack16_kernel(const uint16_t* __restrict__ src, uint16_t* __restrict__ dst, int 
     for (int j = 0; j < 8; ++j) e[j] = c0 + j < cols ? row[c0 + j] : uint16_t{0};
     reinterpret_cast<uint4*>(dst)[v] = u;
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up once through the CUDA runtime's entry-point
-// query.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t rc =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return rc == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// Tensor map of a row-major (rows, cols) matrix of `bytes`-byte elements
-// in boxes of box_rows x 128 bytes, 128-byte swizzle, zero fill.
-bool make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int bytes,
-              long long rows, int cols, int box_rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * bytes};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / bytes),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode_tiled()(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T> struct MapType;

@@ -66,8 +66,8 @@ _SIGNATURES = {
     "halo_jacobi": [_vp, _vp, _vp, _vp, _int, _int, _int, _vp],
     # x, w, out, n, k, dtype, stream
     "halo_conv1d": [_vp, _vp, _vp, _ll, _ll, _int, _vp],
-    # values, indices, b, c, nrows, S, bm, bk, k, n, dtype, stream
-    "halo_smmm": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp],
+    # values, indices, b, c, ws, nrows, S, bm, bk, k, n, dtype, stream
+    "halo_smmm": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp],
     # x, chirp, spectrum, tw, out, m, n, dtype, stream
     "halo_fft_chirp": [_vp, _vp, _vp, _vp, _vp, _int, _int, _int, _vp],
     # x, tw, out, m, n, vec, dtype, stream

@@ -14,6 +14,10 @@ from __future__ import annotations
 
 import torch
 
+from ..common import round_up
+from ..matmul.ref import tf32_split
+from .spmm import ROW_TILE, STAGE_DEPTH, smmm_planes, smmm_workspace_shapes
+
 
 def dense_to_bell(a: torch.Tensor, bm: int, bk: int):
     """Blocked-ELL ``(values, indices)`` of a dense (M, K) matrix: each block
@@ -99,3 +103,66 @@ def smmm_aten(values, indices, b):
         v = v.float() * keep[:, None, None].float()
         return torch.baddbmm(acc, v, g.float())
     return _slot_products(values, indices, b, product)
+
+
+def smmm_tf32x3_workspace(values, indices, b):
+    """The split pass's workspace as ``csrc/spmm.cu`` writes it, ``(ws_v,
+    ws_b)`` of :func:`~.spmm.smmm_workspace_shapes`, float32.  ``ws_v``
+    holds the value planes, [V_hi; V_lo] of :func:`tf32_split` for float32
+    and the values themselves for the 16-bit types (exact in TF32): slot
+    (r, s) at rows (r·S + s)·bmp of each plane, zeros past bm and bk.  A
+    pad slot's rows hold NaN, where the kernel leaves its workspace
+    unwritten.  ``ws_b`` holds B's transposed planes, block column c's bk
+    rows of B at columns c·bkp onward and zeros up to (c + 1)·bkp."""
+    nrows, snnz, bm, bk = values.shape
+    k, n = b.shape
+    planes = smmm_planes(b.dtype)
+    (_, bkp), (_, kq) = smmm_workspace_shapes(nrows, snnz, bm, bk, k, n, planes)
+    bmp = round_up(bm, ROW_TILE)
+    blocks = values.new_zeros((nrows, snnz, bmp, bkp), dtype=torch.float32)
+    blocks[:, :, :bm, :bk] = values.float()
+    cols = b.new_zeros((n, k // bk, bkp), dtype=torch.float32)
+    cols[:, :, :bk] = b.float().t().reshape(n, k // bk, bk)
+
+    def split(x):
+        return list(tf32_split(x)) if planes == 2 else [x]
+
+    v_planes = split(blocks)
+    for p in v_planes:
+        p[indices < 0] = float("nan")
+    return (torch.cat([p.reshape(-1, bkp) for p in v_planes]),
+            torch.cat(split(cols.reshape(n, kq))))
+
+
+def smmm_tf32x3_product(ws_v, ws_b, indices, bm, planes):
+    """The product kernel's sums over a :func:`smmm_tf32x3_workspace` of
+    ``planes`` planes: each block row walks its slots in order, skips pad
+    slots, and adds each 32-deep stage's V_lo·B_hi + V_hi·B_lo + V_hi·B_hi
+    (one plane: V·B), float32 products over the stage, to its float32
+    sums.  The kernel sums a stage's terms per K step of 8, in another
+    order.  (R·bm, N) float32."""
+    nrows, snnz = indices.shape
+    bkp, kq = ws_v.shape[1], ws_b.shape[1]
+    bmp, n = ws_v.shape[0] // (planes * nrows * snnz), ws_b.shape[0] // planes
+    v_planes = [p.reshape(nrows, snnz, bmp, bkp) for p in ws_v.chunk(planes)]
+    b_planes = ws_b.chunk(planes)
+    depth = torch.arange(STAGE_DEPTH, device=ws_b.device)
+    acc = ws_v.new_zeros((nrows, bmp, n))
+    for s in range(snnz):
+        idx = indices[:, s].long()
+        keep = idx >= 0
+        for j in range(0, bkp, STAGE_DEPTH):
+            v = [p[:, s, :, j:j + STAGE_DEPTH] for p in v_planes]
+            cols = idx.clamp(min=0)[:, None] * bkp + j + depth       # (R, 32)
+            g = [p[:, cols].permute(1, 2, 0) for p in b_planes]     # (R, 32, N)
+            part = v[1] @ g[0] + v[0] @ g[1] + v[0] @ g[0] if planes == 2 else v[0] @ g[0]
+            acc = torch.where(keep[:, None, None], acc + part, acc)
+    return acc[:, :bm].reshape(nrows * bm, n)
+
+
+def smmm_tf32x3_ref(values, indices, b):
+    """The tensor-core kernel's plain model: :func:`smmm_tf32x3_product` of
+    the padded :func:`smmm_tf32x3_workspace`, in b's type."""
+    ws_v, ws_b = smmm_tf32x3_workspace(values, indices, b)
+    return smmm_tf32x3_product(ws_v, ws_b, indices, values.shape[2],
+                               smmm_planes(b.dtype)).to(b.dtype)

@@ -44,8 +44,9 @@ from repro_torch.kernels.sorthist import sorthist
 from repro_torch.kernels.sorthist.sorthist import (SORT_TILE, hist_hopper, sort_hopper,
                                                    sort_radix_hopper, sort_route,
                                                    sort_tile_hopper, sort_tile_plan)
-from repro_torch.kernels.spmm.ref import (dense_to_bell, random_block_sparse,
-                                          smmm_bell_ref)
+from repro_torch.kernels.spmm.ref import (bell_to_dense, dense_to_bell,
+                                          random_block_sparse, smmm_bell_ref,
+                                          smmm_tf32x3_ref)
 from repro_torch.kernels.spmm.spmm import smmm_hopper
 from repro_torch.kernels.vdp.ref import vdp_ref
 from repro_torch.kernels.vdp.vdp import vdp_hopper
@@ -61,6 +62,12 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
 #: on the H100 ≤ 1.8e-4 bfloat16, ≤ 6e-5 float16); a window edge one key
 #: off reads ≥ 4e-3, inside TOL
 MMA_MODEL_TOL = {torch.bfloat16: 1e-3, torch.float16: 3e-4}
+#: SMMM's tensor-core kernel against its plain model (the same padded
+#: workspace and per-stage sums: only the order of a stage's sum differs;
+#: readings on the H100 ≤ 3.2e-7 float32, ≤ 2.6e-5 bfloat16, ≤ 1.7e-5
+#: float16) and, in float32, against float64 (readings ≤ 5.6e-7)
+SMMM_MODEL_TOL = {torch.float32: 2e-6, torch.bfloat16: 1e-3, torch.float16: 3e-4}
+SMMM_F64_TOL = 2e-6
 
 
 @pytest.fixture(scope="module")
@@ -439,8 +446,13 @@ def test_conv1d_kernel_is_bit_exact(card, dtype, n, k):
 @pytest.mark.parametrize("m,k,n,bm,bk", [(256, 256, 200, 64, 128),
                                          (384, 256, 300, 128, 64),
                                          (200, 120, 70, 100, 40),
-                                         (64, 128, 1, 32, 128)])
+                                         (64, 128, 1, 32, 128),
+                                         (390, 99, 257, 65, 33)])
 def test_smmm_kernel(card, dtype, m, k, n, bm, bk):
+    """Pad slots hold 7.0 and block row 0 only pads (exactly 0 out); within
+    TOL of the plain version, SMMM_MODEL_TOL of the 3×TF32 model and, in
+    float32, SMMM_F64_TOL of float64, with bm and bk off 64 and 32 and N
+    off the 256-column tile or 1."""
     gen = torch.Generator(device=card).manual_seed(3)
     a = random_block_sparse(gen, m, k, bm, bk, density=0.4)
     a[:bm] = 0                                   # block row 0: only pad slots
@@ -451,6 +463,99 @@ def test_smmm_kernel(card, dtype, m, k, n, bm, bk):
     assert out.dtype == dtype and out.shape == (m // bm * bm, n)
     assert not bool(out[:bm].any())              # exactly 0
     assert _normwise(out, smmm_bell_ref(values, indices, b)) <= TOL[dtype]
+    assert _normwise(out, smmm_tf32x3_ref(values, indices, b)) <= SMMM_MODEL_TOL[dtype]
+    if dtype == torch.float32:
+        exact = bell_to_dense(values, indices, k).double() @ b.double()
+        assert _normwise(out, exact) <= SMMM_F64_TOL
+
+
+def _long_row(card, dtype):
+    """Three block rows of 1100 slots of 16x8 blocks, a tenth of them pads
+    holding 7.0, block columns repeated, and a 9600 x 300 B."""
+    g = torch.Generator(device=card).manual_seed(5)
+    values = torch.randn((3, 1100, 16, 8), generator=g, device=card).to(dtype)
+    indices = torch.randint(0, 1200, (3, 1100), generator=g, device=card, dtype=torch.int32)
+    indices[:, ::10] = -1
+    values[indices < 0] = 7.0
+    return values, indices, _rnd(card, 9600, 300, dtype=dtype, seed=6)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_smmm_kernel_over_a_long_index_row(card, dtype):
+    """1100 slots a row, far past a warp's ballot of 32: producer and
+    consumers walk the same stages, and each 32-deep stage's sum starts
+    afresh (one tensor-core accumulator over the row's ~990 stages errs
+    past SMMM_F64_TOL)."""
+    values, indices, b = _long_row(card, dtype)
+    out = smmm_hopper(values, indices, b)
+    assert _normwise(out, smmm_bell_ref(values, indices, b)) <= TOL[dtype]
+    assert _normwise(out, smmm_tf32x3_ref(values, indices, b)) <= SMMM_MODEL_TOL[dtype]
+    if dtype == torch.float32:
+        exact = bell_to_dense(values, indices, 9600).double() @ b.double()
+        assert _normwise(out, exact) <= SMMM_F64_TOL
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_smmm_kernel_is_repeatable(card, dtype):
+    """Two calls give the same bits: slots and stages are summed in one
+    fixed order."""
+    values, indices, b = _long_row(card, dtype)
+    assert torch.equal(_bits(smmm_hopper(values, indices, b)),
+                       _bits(smmm_hopper(values, indices, b)))
+
+
+def test_smmm_kernel_keeps_infinities_and_nan(card):
+    """±inf and NaN in kept blocks and in B: NaN and ±inf where the plain
+    version has them, and elsewhere each entry within 1e-5 of the kept
+    slots' (|A|·|B|)_ij.  A split that put ±inf in hi would meet the other
+    operand's lo and make NaN."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    a = random_block_sparse(gen, 512, 1024, 64, 128, density=0.4)
+    values, indices = dense_to_bell(a, 64, 128)
+    b = _rnd(card, 1024, 300, dtype=torch.float32, seed=8)
+    rows, slots = (indices >= 0).nonzero(as_tuple=True)
+    for j, x in enumerate((float("inf"), float("-inf"), float("nan"))):
+        values[rows[5 * j], slots[5 * j], 3 + j, 9 + j] = x
+    b[300, 20], b[700, 200] = float("inf"), float("-inf")
+    out, want = smmm_hopper(values, indices, b), smmm_bell_ref(values, indices, b)
+    assert torch.equal(torch.isnan(out), torch.isnan(want))
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(out), inf) and torch.equal(out[inf], want[inf])
+    b3 = b.double().reshape(8, 128, 300)
+    err = scale = 0
+    for s in range(indices.shape[1]):
+        idx = indices[:, s].long()
+        keep = (idx >= 0)[:, None, None]
+        v, g = values[:, s].double(), b3[idx.clamp(min=0)]
+        err = err + torch.where(keep, v @ g, 0.0)
+        scale = scale + torch.where(keep, v.abs() @ g.abs(), 0.0)
+    err, scale = (out.double() - err.reshape(512, 300)).abs(), scale.reshape(512, 300)
+    finite = torch.isfinite(want)
+    assert bool((err[finite] <= TOL[torch.float32] * scale[finite]).all())
+
+
+def test_smmm_kernel_launches_first_on_a_new_thread(card):
+    """SMMM encodes TMA tensor maps, which needs the device's context
+    current on the calling thread: it launches as the first CUDA work of a
+    new host thread, as a request's first launch on an agent's worker does."""
+    import threading
+
+    values, indices, b = _long_row(card, torch.float32)
+    torch.cuda.synchronize(card)
+    result = {}
+
+    def first_launch():
+        try:
+            result["out"] = smmm_hopper(values, indices, b)
+            torch.cuda.synchronize(card)
+        except Exception as e:                    # reported by the assert below
+            result["error"] = e
+
+    thread = threading.Thread(target=first_launch)
+    thread.start()
+    thread.join()
+    assert "error" not in result, result.get("error")
+    assert _normwise(result["out"], smmm_bell_ref(values, indices, b)) <= TOL[torch.float32]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
