@@ -66,7 +66,13 @@ Phases (any failure exits non-zero before the result lines are printed):
    two calls bit-identical, and at (3, 80) and (7, 1000)), FLASH_ATTN
    under four masks (causal, window, prefix with window, Sq < Skv): the
    tensor-core route in bfloat16 and float16
-   (also against its plain model), the CUDA-core route in all three.
+   (also against its plain model), the CUDA-core kernel in all three; the
+   3×TF32 route in float32 (``phase2_fa_tf32x3``) also against its plain
+   model ``attention_tf32x3_ref`` (``FA_TF32_MODEL_TOL``) and float64
+   (``FA_TF32_F64_TOL``), two calls bit-identical, at head dims 32, 128 and
+   256, over a row of 8192 keys, and with ±inf and NaN in kept key rows
+   and a query row (the same non-finite outputs as the model and the plain
+   version).
    The fused chain kernel: bit-exact against its plain version
    and against serial EW launches, in float32, bfloat16 and float16, on
    every op, copy, "acc" as the second operand, an input read twice and a
@@ -97,7 +103,7 @@ Phases (any failure exits non-zero before the result lines are printed):
    plain versions on the card (``SERVE_TOL``).  The same weights widened
    to float32 replay one request on the kernels against the plain versions
    (``F32_SERVE_TOL``); its prefill, counted alone, drives FLASH_ATTN's
-   CUDA-core route (L launches) and MMM's 3×TF32 route (7·L launches).
+   3×TF32 route (L launches) and MMM's 3×TF32 route (7·L launches).
    Prefill MMM device time comes from a profiled rerun.  The decode step is
    split into MMM device time per pass and dispatches per pass × T1.
 3c. Execution graphs, fusion and compiled replay: ``halo.graph(launch=False)``
@@ -118,7 +124,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    shapes of phase 3b: device time per call from ``torch.profiler`` over 20
    calls (a kernel of tens of µs is shorter than its Python wrapper), with
    the event times beside it (FLASH_ATTN's tensor-core route in bfloat16,
-   its CUDA-core route in float32; RMSNORM at 4, 512, 4096 and 4200 rows,
+   its 3×TF32 route and the CUDA-core kernel side by side in float32;
+   RMSNORM at 4, 512, 4096 and 4200 rows,
    each beside ``F.rms_norm`` and its bound, under its launch plan); so are the radix FFT at the template's shape
    and MMM's skinny route at each decode projection (M = 4, bfloat16, B
    cold in L2), beside ``torch.matmul``, with a sweep over M of the skinny
@@ -147,9 +154,13 @@ Phases (any failure exits non-zero before the result lines are printed):
    ``torch.matmul`` of the densified A and a ``torch.sparse`` BSR product
    where that takes the blocks, its bound at the TF32 tensor-core rate and
    the float32 CUDA-core bound and three products' floor apart.
-   FLASH_ATTN's CUDA-core route also at the float32 replay's 512 tokens and
-   at head dim 256 (1x16x4096x256, causal) in float32 and bfloat16, each
-   beside SDPA and its bound.
+   FLASH_ATTN's 3×TF32 route and the CUDA-core kernel also at the float32
+   replay's 512 tokens and at head dim 256 (1x16x4096x256, causal) in
+   float32, and the CUDA-core kernel there in bfloat16 (the domain it
+   keeps), each beside SDPA and its bound (the 3×TF32 route's at the TF32
+   rate, the three products' floor and the float32 CUDA-core bound beside
+   it, its split pass and product apart), with both kernels' error against
+   float64.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.
@@ -210,6 +221,19 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
 #: tests' cases; a kernel that masks one key too many at the window's edge
 #: reads ≥ 4e-3.  ``TOL`` against the plain version would let that pass.
 MMA_MODEL_TOL = {torch.bfloat16: 1e-3, torch.float16: 3e-4}
+
+#: FLASH_ATTN's float32 route (3×TF32 on the tensor cores) against its plain
+#: model (``attention_tf32x3_ref``: the same 32-deep head-dim stages, key
+#: tiles and 32-key p·v sums, each a fresh accumulator added in float32)
+#: and against float64 (``attention_f64``).  Kernel and model differ only
+#: in the order within a tensor-core sum; on the H100 the kernel read
+#: ≤ 2.5e-7 against the model and ≤ 2.3e-7 against float64 at phase 2's and
+#: the card tests' masks, ≤ 2.9e-7 and ≤ 3.6e-7 over rows of 8192 keys.  A
+#: kernel that carries one p·v accumulator over a row of thousands of keys
+#: (the tensor cores truncate its sums) or drops the lo·hi product of q·kᵀ
+#: errs past these; ``TOL`` (1e-5) would let the first pass.
+FA_TF32_MODEL_TOL = 1e-6
+FA_TF32_F64_TOL = 1e-6
 
 #: SMMM's tensor-core kernel against its plain model (``smmm_tf32x3_ref``:
 #: the same padded workspace, three TF32 products a 32-deep stage, each
@@ -326,16 +350,21 @@ REPLACES = {
     "sort_radix": ("sort_radix.cu", "src/repro/kernels/sorthist/sorthist.py:57"),
     "flash_attention_mma": ("flash_attention_mma.cu",
                             "src/repro/kernels/flash_attention/flash_attention.py:106"),
+    "flash_attention_tf32x3": ("flash_attention_tf32x3.cu",
+                               "src/repro/kernels/flash_attention/flash_attention.py:106"),
 }
 
 #: where each kernel's launches are counted when it is not the template's
 #: (phase 3): the model path (3b), its float32 replay on the kernels (3b;
-#: the CUDA-core FLASH_ATTN route), the graphs (3c), or one of phase 3's
+#: FLASH_ATTN's 3×TF32 route), the graphs (3c), or one of phase 3's
 #: requests counted alone: FFT at the non-power-of-two DFT_N (the chirp
-#: route), SORT of rows that fit one tile
+#: route), SORT of rows that fit one tile.  "none": FLASH_ATTN's CUDA-core
+#: kernel, which takes bfloat16 and float16 at head dim 256 and no path
+#: sends such a call; phase 4 still times it, with 0 launches
 PATH_OF = {"rmsnorm": "serve", "flash_attention_mma": "serve", "mmm_skinny": "serve",
            "mmm_wgmma": "serve", "fused": "graph", "fft_chirp": "chirp",
-           "sort": "sort_tile", "flash_attention": "serve_float32"}
+           "sort": "sort_tile", "flash_attention_tf32x3": "serve_float32",
+           "flash_attention": "none"}
 
 
 def decode_projections(cfg):
@@ -594,6 +623,7 @@ def phase2(dev) -> None:
         phase2_sort(dev, gen, dt)
         phase2_sort_tile(dev, gen, dt)
         phase2_model(dev, gen, dt)
+    phase2_fa_tf32x3(dev, gen)
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         phase2_fused(dev, gen, dt)
     torch.cuda.synchronize(dev)
@@ -1161,6 +1191,75 @@ def phase2_model(dev, gen, dt) -> None:
                     normwise(flash_attention_cuda_cores_hopper(q, k, v, **kw), ref), dt)
 
 
+def phase2_fa_tf32x3(dev, gen) -> None:
+    """FLASH_ATTN's float32 route (3×TF32) against the plain version
+    (``TOL``), its plain model (``FA_TF32_MODEL_TOL``) and float64
+    (``FA_TF32_F64_TOL``): danube's widths under ``FA_MASKS``, head dims
+    32, 128 and 256, a row of 8192 keys (where one p·v accumulator over the
+    row would err past the model tolerance), two calls bit-identical, and
+    ±inf and NaN in kept key rows and a query row (the same non-finite
+    outputs as the model and the plain version, the rest within
+    tolerance)."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        fa_route, flash_attention_tf32x3_hopper)
+    from repro_torch.kernels.flash_attention.ref import (attention_f64, attention_ref,
+                                                         attention_tf32x3_ref)
+
+    f32 = torch.float32
+    if fa_route(f32, 80) != "tf32x3":
+        fail(f"float32 FLASH_ATTN takes the {fa_route(f32, 80)} route, not tf32x3")
+
+    def rnd(*shape, shift=0.0):
+        return torch.randn(shape, generator=gen, device=dev) + shift
+
+    def check(what, q, k, v, **kw):
+        out = flash_attention_tf32x3_hopper(q, k, v, **kw)
+        check_close(f"{what} vs plain", normwise(out, attention_ref(q, k, v, **kw)), f32)
+        check_close(f"{what} vs model", normwise(out, attention_tf32x3_ref(q, k, v, **kw)),
+                    f32, FA_TF32_MODEL_TOL)
+        check_close(f"{what} vs float64", normwise(out, attention_f64(q, k, v, **kw)), f32,
+                    FA_TF32_F64_TOL)
+        return out
+
+    # v has mean 1 (phase2_model says why)
+    k, v = rnd(1, 8, 1024, 80), rnd(1, 8, 1024, 80, shift=1.0)
+    for label, c in FA_MASKS.items():
+        kw = dict(causal=c["causal"], window=c["window"], prefix_len=c["prefix_len"])
+        q = rnd(1, 32, c["sq"], 80)
+        out = check(f"FLASH_ATTN float32 1x32x{c['sq']}x80 {label} tf32x3", q, k, v, **kw)
+        if not torch.equal(bits(out), bits(flash_attention_tf32x3_hopper(q, k, v, **kw))):
+            fail(f"FLASH_ATTN tf32x3 {label}: two calls differ (expected the same bits)")
+    print("  FLASH_ATTN tf32x3: two calls give the same bits under every mask")
+    for d in (32, 128, 256):
+        q, kd, vd = rnd(1, 16, 300, d), rnd(1, 4, 300, d), rnd(1, 4, 300, d, shift=1.0)
+        check(f"FLASH_ATTN float32 1x16x300x{d} window 100 tf32x3", q, kd, vd,
+              window=100, prefix_len=20)
+    q, kl, vl = rnd(1, 8, 128, 80), rnd(1, 2, 8192, 80), rnd(1, 2, 8192, 80, shift=1.0)
+    check("FLASH_ATTN float32 1x8x128x80 over 8192 keys tf32x3", q, kl, vl, causal=False)
+    # +inf in key 5 of k (a score of ±inf by the sign of q); ±inf and NaN in
+    # key 9 of v (masked for rows 0-8, whose p = 0 meets them); -inf in
+    # query row 100
+    q, kn, vn = rnd(1, 8, 256, 80), rnd(1, 2, 256, 80), rnd(1, 2, 256, 80, shift=1.0)
+    kn[:, :, 5, 3] = float("inf")
+    vn[:, :, 9, 11], vn[:, :, 9, 12], vn[:, :, 9, 13] = (float("inf"), -float("inf"),
+                                                         float("nan"))
+    q[:, :, 100, 5] = -float("inf")
+    out = flash_attention_tf32x3_hopper(q, kn, vn)
+    for name, want, tol in (("model", attention_tf32x3_ref(q, kn, vn), FA_TF32_MODEL_TOL),
+                            ("plain", attention_ref(q, kn, vn), TOL[f32])):
+        for special in (torch.isnan, torch.isposinf, torch.isneginf):
+            if not torch.equal(special(out), special(want)):
+                fail(f"FLASH_ATTN tf32x3 ±inf/NaN: {special.__name__} differs from the "
+                     f"{name}'s")
+        finite = torch.isfinite(out)
+        if not (0 < int(finite.sum()) < out.numel() and bool(torch.isinf(out).any())):
+            fail("FLASH_ATTN tf32x3 ±inf/NaN: the case gives no mix of finite, inf and NaN")
+        check_close(f"FLASH_ATTN tf32x3 ±inf/NaN, finite part vs {name}",
+                    normwise(out[finite], want[finite]), f32, tol)
+    print(f"  FLASH_ATTN tf32x3 ±inf/NaN: {int(torch.isnan(out).sum())} NaN, "
+          f"{int(torch.isinf(out).sum())} inf, where the model and the plain version have them")
+
+
 #: phase 2: fused chains — (op, a, b) steps over inputs 0..4, "acc" the
 #: previous step's result
 FUSED_CHAINS = {
@@ -1273,7 +1372,8 @@ def phase3(dev):
     expected = {"mmm_skinny": 0, "mmm_wgmma": 0, "mmm_tf32x3": 2, "ewise": 8,
                 "mvm": 2, "vdp": 2, "jacobi": 2, "conv1d": 2, "spmm": 2, "fft_radix": 2,
                 "fft_chirp": 0, "sort": 0, "sort_radix": 2, "hist": 2, "rmsnorm": 0,
-                "flash_attention": 0, "flash_attention_mma": 0, "fused": 0}
+                "flash_attention": 0, "flash_attention_mma": 0,
+                "flash_attention_tf32x3": 0, "fused": 0}
     if launches != expected:
         fail(f"launch counts {launches} != requests sent {expected}: a request "
              f"did not reach its kernel")
@@ -1681,13 +1781,15 @@ def phase3b(dev):
     e32 = [normwise(k, r) for k, r in zip(
         served32, replay(m32, wide32, prompt, toks, max_len, plain))]
     del wide32, served32
-    attn_f32 = {k: f32_launches[k] for k in ("flash_attention", "flash_attention_mma")}
+    attn_f32 = {k: f32_launches[k] for k in ("flash_attention", "flash_attention_mma",
+                                             "flash_attention_tf32x3")}
     mmm_f32 = {k: f32_launches[k] for k in ("mmm_wgmma", "mmm_tf32x3")}
     print(f"  float32 replay on the kernels: FLASH_ATTN launches {attn_f32}, "
           f"prefill MMM launches {mmm_f32}")
-    if attn_f32 != {"flash_attention": layers, "flash_attention_mma": 0}:
+    if attn_f32 != {"flash_attention": 0, "flash_attention_mma": 0,
+                    "flash_attention_tf32x3": layers}:
         fail(f"the float32 prefill launched FLASH_ATTN {attn_f32}, not {layers} "
-             f"on the CUDA-core route")
+             f"on the 3×TF32 route")
     if mmm_f32 != {"mmm_wgmma": 0, "mmm_tf32x3": 7 * layers}:
         fail(f"the float32 prefill launched MMM {mmm_f32}, not {7 * layers} on the "
              f"3×TF32 route")
@@ -1938,8 +2040,9 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     from repro_torch.kernels.fft.ref import (chirp_length, fft_aten, fft_chirp_ref,
                                              fft_radix_ref)
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention_cuda_cores_hopper, flash_attention_mma_hopper)
-    from repro_torch.kernels.flash_attention.ref import (attention_aten,
+        flash_attention_cuda_cores_hopper, flash_attention_mma_hopper,
+        flash_attention_tf32x3_hopper)
+    from repro_torch.kernels.flash_attention.ref import (attention_aten, attention_f64,
                                                          attention_ref, visibility)
     from repro_torch.kernels.fused import ewise_chain_hopper, ewise_chain_ref
     from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
@@ -2267,16 +2370,21 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     check_close(f"FLASH_ATTN {tuple(fq.shape)} window {attn.window} mma vs plain",
                 normwise(fo, fr), mdt)
     del fo, fr
-    # the CUDA-core route at the same shape in float32 (the float32
-    # prefill's), bound against the float32 CUDA-core peak
+    # the 3×TF32 route (the one float32 takes) and the CUDA-core kernel at
+    # the same shape in float32, bound at the TF32 tensor-core and the
+    # float32 CUDA-core peak
     fq32, fk32, fv32 = fq.float(), fk.float(), fv.float()
-    fo, fr = (flash_attention_cuda_cores_hopper(fq32, fk32, fv32, **fkw),
-              attention_ref(fq32, fk32, fv32, **fkw))
-    max_abs["flash_attention"] = float((fo - fr).abs().max())
-    check_close(f"FLASH_ATTN {tuple(fq.shape)} window {attn.window} float32 "
-                f"cuda cores vs plain", normwise(fo, fr), torch.float32)
+    fr = attention_ref(fq32, fk32, fv32, **fkw)
+    for name_, fn_ in (("flash_attention_tf32x3", flash_attention_tf32x3_hopper),
+                       ("flash_attention", flash_attention_cuda_cores_hopper)):
+        fo = fn_(fq32, fk32, fv32, **fkw)
+        max_abs[name_] = float((fo - fr).abs().max())
+        check_close(f"FLASH_ATTN {tuple(fq.shape)} window {attn.window} float32 "
+                    f"{name_} vs plain", normwise(fo, fr), torch.float32)
     del fo, fr
-    fa32_bound = bound(4 * (2 * fq.numel() + fk.numel() + fv.numel()), fa_flops, f32_peak)
+    fa32_bytes = 4 * (2 * fq.numel() + fk.numel() + fv.numel())
+    fa32_bound = bound(fa32_bytes, fa_flops, f32_peak)
+    fa_tf32_bound = bound(fa32_bytes, fa_flops, tf32_peak)
     mname = str(mdt).split(".")[-1]
 
     def cycling(fn, args_list):
@@ -2592,41 +2700,89 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
           f"{spmm_times['err_vs_float64']:.3e}, torch.matmul "
           f"{spmm_times['library_err_vs_float64']:.3e}")
 
-    # FLASH_ATTN's CUDA-core route where it runs: the float32 replay's
-    # prefill (1 x heads x 512 x 80 float32, danube's mask), and head dim 256
-    # (gemma's 16 heads on 16 KV heads, causal, 4096 tokens), the only route
-    # there in 16-bit; device time beside SDPA and the bound at the CUDA-core
-    # (float32) or tensor-core (bfloat16) peak
-    def fa_cuda_cores_row(heads, kv_heads, sq, d, dt_, **kw):
+    # FLASH_ATTN in float32 at danube's prefill (1 x heads x 4200 x 80), at
+    # the float32 replay's (512 tokens, its launches) and at head dim 256
+    # (gemma's 16 heads on 16 KV heads, causal, 4096 tokens): the 3×TF32
+    # route and the CUDA-core kernel side by side by device time, beside the
+    # plain version and SDPA, each bound from the mask's visible pairs (the
+    # tf32x3 rows at the TF32 rate, with the three products' floor and the
+    # float32 CUDA-core bound beside it), and the error of both against
+    # float64.  The CUDA-core kernel also at head dim 256 in bfloat16, the
+    # one domain it keeps, against the bfloat16 tensor-core peak
+    def fa_rows(heads, kv_heads, sq, d, dt_, **kw):
         g_ = torch.Generator(device=dev).manual_seed(6)
         q_ = torch.randn((1, heads, sq, d), generator=g_, device=dev).to(dt_)
         k_ = torch.randn((1, kv_heads, sq, d), generator=g_, device=dev).to(dt_)
         v_ = (torch.randn((1, kv_heads, sq, d), generator=g_, device=dev) + 1.0).to(dt_)
         flops_ = 4 * d * int(visibility(sq, sq, device=dev, **kw).sum()) * heads
-        check_close(f"FLASH_ATTN cuda cores {(1, heads, sq, d)} {dt_} vs plain",
-                    normwise(flash_attention_cuda_cores_hopper(q_, k_, v_, **kw),
-                             attention_ref(q_, k_, v_, **kw)), dt_)
-        row = model_row(lambda: flash_attention_cuda_cores_hopper(q_, k_, v_, **kw),
-                        lambda: attention_ref(q_, k_, v_, **kw),
-                        lambda: attention_aten(q_, k_, v_, **kw))
-        row["bound_ms"], row["bound_by"] = bound(
-            q_.element_size() * (2 * q_.numel() + k_.numel() + v_.numel()), flops_,
-            f32_peak if dt_ == torch.float32 else bf16_peak)
-        row["shape"] = (f"1x{heads}x{sq}x{d} {str(dt_).split('.')[-1]}, {kv_heads} KV "
-                        f"heads, {kw}")
-        print(f"  flash_attention (CUDA-core route) {row['shape']}: kernel_ms "
-              f"{row['ms']:.4f}  SDPA {row['library_ms']:.4f}  plain_ms "
-              f"{row['plain_ms']:.4f}  bound_ms {row['bound_ms']:.4f} ({row['bound_by']})")
-        del q_, k_, v_
-        return row
+        nbytes = q_.element_size() * (2 * q_.numel() + k_.numel() + v_.numel())
+        f32 = dt_ == torch.float32
+        fns = {"cuda_cores": lambda: flash_attention_cuda_cores_hopper(q_, k_, v_, **kw)}
+        if f32:
+            fns["tf32x3"] = lambda: flash_attention_tf32x3_hopper(q_, k_, v_, **kw)
+        want = attention_ref(q_, k_, v_, **kw)
+        exact = attention_f64(q_, k_, v_, **kw) if f32 else None
+        errs = {}
+        for route, fn in fns.items():
+            out = fn()
+            check_close(f"FLASH_ATTN {route} {(1, heads, sq, d)} {dt_} vs plain",
+                        normwise(out, want), dt_)
+            if f32:
+                errs[route] = normwise(out, exact)
+        del want, exact, out
+        fns["plain"] = lambda: attention_ref(q_, k_, v_, **kw)
+        fns["library"] = lambda: attention_aten(q_, k_, v_, **kw)
+        dev_ms = {route: device_ms(fn) for route, fn in fns.items()}
+        ev_ms = {route: ms(fn) for route, fn in fns.items()}
+        shape = f"1x{heads}x{sq}x{d} {str(dt_).split('.')[-1]}, {kv_heads} KV heads, {kw}"
 
-    fa_other_shapes = {
-        "float32_replay": fa_cuda_cores_row(attn.n_heads, attn.n_kv_heads,
-                                            min(SERVE["prompt_lens"]), attn.head_dim,
-                                            torch.float32, **fkw),
-        **{f"d256_{str(dt_).split('.')[-1]}": fa_cuda_cores_row(
-            16, 16, 4096, 256, dt_, causal=True, window=None, prefix_len=0)
-           for dt_ in (torch.float32, torch.bfloat16)}}
+        def row(route, peak):
+            r = {"ms": dev_ms[route], "plain_ms": dev_ms["plain"],
+                 "library_ms": dev_ms["library"],
+                 "event_ms": {"ms": ev_ms[route], "plain_ms": ev_ms["plain"],
+                              "library_ms": ev_ms["library"]}, "shape": shape}
+            r["bound_ms"], r["bound_by"] = bound(nbytes, flops_, peak)
+            if f32:
+                r["err_vs_float64"] = errs[route]
+            return r
+
+        cc = row("cuda_cores", f32_peak if f32 else bf16_peak)
+        print(f"  flash_attention (CUDA-core kernel) {shape}: kernel_ms {cc['ms']:.4f}  SDPA "
+              f"{cc['library_ms']:.4f}  plain_ms {cc['plain_ms']:.4f}  bound_ms "
+              f"{cc['bound_ms']:.4f} ({cc['bound_by']})"
+              + (f"  error vs float64 {errs['cuda_cores']:.3e}" if f32 else ""))
+        if not f32:
+            return None, cc
+        tf = row("tf32x3", tf32_peak)
+        tf.update(cuda_cores_ms=cc["ms"], bound_float32_ms=cc["bound_ms"],
+                  algorithm_floor_ms=bound(nbytes, 3 * flops_, tf32_peak)[0],
+                  cuda_cores_err_vs_float64=errs["cuda_cores"])
+        tf.update(two_parts(fns["tf32x3"], tf["ms"], "fa_split_kernel", "split_ms",
+                            product_kernel="fa_wgmma_kernel"))
+        print(f"  flash_attention_tf32x3 {shape}: kernel_ms {tf['ms']:.4f} "
+              f"({parts_text(tf)})  CUDA-core "
+              f"kernel {cc['ms']:.4f}  SDPA {tf['library_ms']:.4f}  plain_ms "
+              f"{tf['plain_ms']:.4f}  bound_ms {tf['bound_ms']:.4f} ({tf['bound_by']}, TF32 "
+              f"tensor cores; three products {tf['algorithm_floor_ms']:.4f}, float32 CUDA "
+              f"cores {cc['bound_ms']:.4f})  error vs float64 {errs['tf32x3']:.3e}")
+        del q_, k_, v_
+        return tf, cc
+
+    fa_tf32_rows, fa_cc_rows = {}, {}
+    for key, args_ in (("main", (attn.n_heads, attn.n_kv_heads, seq, attn.head_dim,
+                                 torch.float32, fkw)),
+                       ("float32_replay", (attn.n_heads, attn.n_kv_heads,
+                                           min(SERVE["prompt_lens"]), attn.head_dim,
+                                           torch.float32, fkw)),
+                       *((f"d256_{str(dt_).split('.')[-1]}",
+                          (16, 16, 4096, 256, dt_,
+                           dict(causal=True, window=None, prefix_len=0)))
+                         for dt_ in (torch.float32, torch.bfloat16))):
+        *shape_args, kw_ = args_
+        fa_tf32_rows[key], fa_cc_rows[key] = fa_rows(*shape_args, **kw_)
+    fa_tf32_main = {**fa_tf32_rows.pop("main"),
+                    **{k: r for k, r in fa_tf32_rows.items() if r is not None}}
+    fa_cc_main = {**fa_cc_rows.pop("main"), **fa_cc_rows}
 
     # the fused chain at phase 3c's EW shape: ((a·b + c) − d) / e over five
     # 8192² float32 inputs; five read and one written, one operation per
@@ -2729,14 +2885,18 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
          fa_bound, f"1x{attn.n_heads}x{seq}x{attn.head_dim} {mname}, "
          f"{attn.n_kv_heads} KV heads, causal, window {attn.window}, tensor-core "
          f"route, device time (library: SDPA, explicit mask)"),
-        # the route's other shapes under "float32_replay" and "d256_*"
-        ("flash_attention", {**model_row(
-            lambda: flash_attention_cuda_cores_hopper(fq32, fk32, fv32, **fkw),
-            lambda: attention_ref(fq32, fk32, fv32, **fkw),
-            lambda: attention_aten(fq32, fk32, fv32, **fkw)), **fa_other_shapes},
-         fa32_bound, f"1x{attn.n_heads}x{seq}x{attn.head_dim} float32, "
-         f"{attn.n_kv_heads} KV heads, causal, window {attn.window}, CUDA-core "
-         f"route, device time (library: SDPA, explicit mask)"),
+        # device time (events under "event_ms"); the float32 replay's shape
+        # and head dim 256 under "float32_replay" and "d256_float32", the
+        # CUDA-core kernel in the same windows under "cuda_cores_ms"
+        ("flash_attention_tf32x3", fa_tf32_main, fa_tf32_bound,
+         f"1x{attn.n_heads}x{seq}x{attn.head_dim} float32, {attn.n_kv_heads} KV heads, "
+         f"causal, window {attn.window}, 3×TF32 route, device time (library: SDPA, "
+         f"explicit mask)"),
+        # the same shapes and head dim 256 in bfloat16 under "d256_bfloat16"
+        ("flash_attention", fa_cc_main, fa32_bound,
+         f"1x{attn.n_heads}x{seq}x{attn.head_dim} float32, {attn.n_kv_heads} KV heads, "
+         f"causal, window {attn.window}, CUDA-core kernel (on no path: it keeps "
+         f"bfloat16/float16 at head dim 256), device time (library: SDPA, explicit mask)"),
         ("fused", {"ms": ms(lambda: ewise_chain_hopper(*chain_x, steps=chain)),
                    "plain_ms": ms(lambda: ewise_chain_ref(*chain_x, steps=chain)),
                    "library_ms": ms(four_aten, *chain_x),
@@ -2749,12 +2909,14 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     for name, times, (bound_ms, bound_by), shape in rows:
         # each kernel's launches in the run of the path it serves (PATH_OF):
         # phase 3 for the quickstart's, 3b for the model path's, 3c for the
-        # fused chain, 3b's float32 replay for the CUDA-core FLASH_ATTN,
+        # fused chain, 3b's float32 replay for the 3×TF32 FLASH_ATTN,
         # phase 3's requests counted alone for the chirp FFT and the tile
-        # SORT
-        n_launches = {"serve": serve_launches, "graph": graph_launches,
-                      **path_launches}.get(PATH_OF.get(name), launches)[name]
-        if not n_launches:
+        # SORT; 0 for a kernel on no path
+        path = PATH_OF.get(name)
+        n_launches = 0 if path == "none" else {
+            "serve": serve_launches, "graph": graph_launches,
+            **path_launches}.get(path, launches)[name]
+        if not n_launches and path != "none":
             fail(f"{name} was launched no time on its path")
         source, site = REPLACES[name]
         entry = {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",

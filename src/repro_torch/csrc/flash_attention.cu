@@ -16,9 +16,11 @@
 // 90 GFLOP, or 0.091 ms at the 989 TFLOP/s of the bfloat16 tensor cores,
 // against 54 MB of q, k, v and o (0.016 ms at 3.35 TB/s).
 //
-// Design (simple first, CUDA cores; the float32 route and head dim 256 —
-// bfloat16 and float16 at head dims up to 128 take flash_attention_mma.cu,
-// see kernels/flash_attention/flash_attention.py::fa_route): one
+// Design (simple first, CUDA cores; the route of bfloat16 and float16 at
+// head dim 256 — float32 takes flash_attention_tf32x3.cu, bfloat16 and
+// float16 up to head dim 128 flash_attention_mma.cu, see
+// kernels/flash_attention/flash_attention.py::fa_route; the kernel still
+// takes every type, which the card checks use to hold it beside them): one
 // 256-thread block per (b, h, 64 query rows); the KV head is h / (H / Hkv).  The block stages the query
 // tile (scaled by D^-1/2) and each 64-key tile of k transposed and of v in
 // shared memory as float32.  Each thread owns a 4x4 block of the 64x64

@@ -89,6 +89,11 @@ _SIGNATURES = {
     # as halo_flash_attention, and vec before the stream
     "halo_flash_attention_mma": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
                                  _int, _int, _int, _int, _int, _f, _int, _int, _vp],
+    # q, k, v, out, ws, ws_bytes, then as halo_flash_attention_mma (float32
+    # only)
+    "halo_flash_attention_tf32x3": [_vp, _vp, _vp, _vp, _vp, _ll, _int, _int, _int, _int,
+                                    _int, _int, _int, _int, _int, _int, _f, _int, _int,
+                                    _vp],
     # inputs (void* array), n_in, steps (int array), n_steps, out, n, dtype,
     # vec, stream
     "halo_fused": [ctypes.POINTER(_vp), _int, ctypes.POINTER(_int), _int, _vp,

@@ -1,22 +1,30 @@
 """FLASH_ATTN on Hopper: the ctypes wrappers around
-``csrc/flash_attention_mma.cu`` and ``csrc/flash_attention.cu``, and the
-route between them.
+``csrc/flash_attention_tf32x3.cu``, ``csrc/flash_attention_mma.cu`` and
+``csrc/flash_attention.cu``, and the route between them.
 
 Replaces ``repro/kernels/flash_attention/flash_attention.py::
 flash_attention_pallas``.  Online-softmax GQA attention, one block per
 (b, h, query tile) that loops over KV tiles staged in shared memory;
-nothing is padded and the scale is D^-1/2 of the real head dim.  Two
+nothing is padded and the scale is D^-1/2 of the real head dim.  Three
 routes, chosen by type and head dim alone (:func:`fa_route`):
 
+* ``tf32x3`` (``flash_attention_tf32x3.cu``), float32 at every head dim of
+  :data:`HEAD_DIMS`: both products on the tensor cores (wgmma) by 3×TF32,
+  each operand split into TF32 hi + lo and each product lo·hi + hi·lo +
+  hi·hi, each 32-deep block of q·kᵀ and each 32 keys of p·v in a fresh
+  accumulator added in float32.  A split pass first writes each key tile
+  of k and v, split and laid out as the product kernel stages it, into a
+  workspace the wrapper allocates (:func:`tf32x3_workspace_bytes`);
 * ``mma`` (``flash_attention_mma.cu``), bfloat16 and float16 at head dims
   :data:`MMA_HEAD_DIMS`: both products on the tensor cores (mma.sync, float32
   accumulators), p rounded to the input type in registers, K/V tiles in a
   cp.async ring;
-* ``cuda_cores`` (``flash_attention.cu``), float32 and head dim 256: float32
-  products on the CUDA cores (no TF32, which would break float32's 1e-5).
+* ``cuda_cores`` (``flash_attention.cu``), bfloat16 and float16 at head dim
+  256: float32 products on the CUDA cores.
+  :func:`flash_attention_cuda_cores_hopper` still takes every type.
 
-Each route counts its own launches (``flash_attention_mma`` and
-``flash_attention``).
+Each route counts its own launches (``flash_attention_tf32x3``,
+``flash_attention_mma`` and ``flash_attention``).
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from .. import _cuda
 
 LAUNCHES = _cuda.counter("flash_attention")
 MMA_LAUNCHES = _cuda.counter("flash_attention_mma")
+TF32X3_LAUNCHES = _cuda.counter("flash_attention_tf32x3")
 
 #: head dims the kernels are instantiated for
 HEAD_DIMS = (32, 64, 80, 96, 128, 256)
@@ -36,10 +45,29 @@ MMA_HEAD_DIMS = (32, 64, 80, 96, 128)
 
 
 def fa_route(dtype: torch.dtype, d: int) -> str:
-    """``"mma"`` for bfloat16 and float16 at a head dim in
-    :data:`MMA_HEAD_DIMS`, else ``"cuda_cores"``."""
-    return ("mma" if dtype in (torch.bfloat16, torch.float16) and d in MMA_HEAD_DIMS
-            else "cuda_cores")
+    """``"tf32x3"`` for float32, ``"mma"`` for bfloat16 and float16 at a head
+    dim in :data:`MMA_HEAD_DIMS`, else ``"cuda_cores"``."""
+    if dtype == torch.float32:
+        return "tf32x3"
+    return "mma" if d in MMA_HEAD_DIMS else "cuda_cores"
+
+
+def tf32x3_key_tile(d: int) -> int:
+    """Keys per tile of the tf32x3 kernel at head dim ``d`` (its ``WGeom``):
+    64 up to d = 96, 32 above, where q's hi and lo planes and one key
+    tile's fill the shared memory."""
+    return 64 if d <= 96 else 32
+
+
+def tf32x3_workspace_bytes(b: int, hkv: int, skv: int, d: int) -> int:
+    """Bytes of the split key tiles the tf32x3 kernel stages from, for
+    k, v (b, hkv, skv, d): per KV head and key tile, k's and vᵀ's TF32 hi
+    and lo planes (k in 32-float column blocks of 128-byte rows, vᵀ in
+    blocks of 32 keys), as the kernel's split pass writes them."""
+    tile = tf32x3_key_tile(d)
+    blocks = -(-d // 32)
+    tile_bytes = 2 * (tile * blocks * 128 + d * (tile // 32) * 128)
+    return b * hkv * -(-skv // tile) * tile_bytes
 
 
 _MAX_GRID_YZ = 65535
@@ -73,11 +101,20 @@ def _launch(route, q, k, v, causal, window, prefix_len):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            k.shape[1], sq, k.shape[2], d, int(causal), int(window is not None),
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    rest = (b, h, k.shape[1], sq, k.shape[2], d, int(causal), int(window is not None),
             int(window or 0), int(prefix_len), float(d ** -0.5),
             _cuda.dtype_code(q.dtype))
-    if route == "mma":
+    args = ptrs + rest
+    if route == "tf32x3":
+        ws_bytes = tf32x3_workspace_bytes(b, k.shape[1], k.shape[2], d)
+        ws = torch.empty(max(ws_bytes, 16), dtype=torch.uint8, device=q.device)
+        rc = _cuda.lib().halo_flash_attention_tf32x3(
+            *ptrs, ws.data_ptr(), ws_bytes, *rest, int(_cuda.aligned(q, k, v)),
+            _cuda.stream(q.device))
+        _cuda.check(rc, "flash_attention_tf32x3")
+        TF32X3_LAUNCHES.add()
+    elif route == "mma":
         rc = _cuda.lib().halo_flash_attention_mma(
             *args, int(_cuda.aligned(q, k, v)), _cuda.stream(q.device))
         _cuda.check(rc, "flash_attention_mma")
@@ -111,6 +148,18 @@ def flash_attention_mma_hopper(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                          f"head dims {MMA_HEAD_DIMS}, got {q.dtype}, "
                          f"{q.shape[-1]}")
     return _launch("mma", q, k, v, causal, window, prefix_len)
+
+
+def flash_attention_tf32x3_hopper(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, *, causal: bool = True,
+                                  window: Optional[int] = None,
+                                  prefix_len: int = 0) -> torch.Tensor:
+    """Attention of float32 q over k, v on the card by the 3×TF32
+    tensor-core kernel (a head dim of :data:`HEAD_DIMS`), in float32."""
+    _cuda.require_cuda(flash_attention_problem(q, k, v), "FLASH_ATTN", q)
+    if q.dtype != torch.float32:
+        raise ValueError(f"FLASH_ATTN: the tf32x3 route takes float32, got {q.dtype}")
+    return _launch("tf32x3", q, k, v, causal, window, prefix_len)
 
 
 def flash_attention_hopper(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

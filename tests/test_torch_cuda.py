@@ -21,9 +21,10 @@ from repro_torch.kernels.fft.fft import fft_chirp_hopper, fft_radix_hopper
 from repro_torch.kernels.fft.ops import cached_chirp_tables, cached_radix_twiddles
 from repro_torch.kernels.fft.ref import fft_chirp_ref, fft_radix_ref
 from repro_torch.kernels.flash_attention.flash_attention import (
-    fa_route, flash_attention_cuda_cores_hopper, flash_attention_hopper,
-    flash_attention_mma_hopper)
-from repro_torch.kernels.flash_attention.ref import attention_mma_ref, attention_ref
+    HEAD_DIMS, fa_route, flash_attention_cuda_cores_hopper, flash_attention_hopper,
+    flash_attention_mma_hopper, flash_attention_tf32x3_hopper)
+from repro_torch.kernels.flash_attention.ref import (attention_f64, attention_mma_ref,
+                                                     attention_ref, attention_tf32x3_ref)
 from repro_torch.kernels.fused import (ACC, MAX_INPUTS, MAX_STEPS,
                                        ewise_chain_hopper, ewise_chain_ref)
 from repro_torch.kernels.jacobi.jacobi import jacobi_hopper
@@ -68,6 +69,14 @@ MMA_MODEL_TOL = {torch.bfloat16: 1e-3, torch.float16: 3e-4}
 #: float16) and, in float32, against float64 (readings ≤ 5.6e-7)
 SMMM_MODEL_TOL = {torch.float32: 2e-6, torch.bfloat16: 1e-3, torch.float16: 3e-4}
 SMMM_F64_TOL = 2e-6
+#: FLASH_ATTN's float32 tensor-core route (3×TF32) against its plain model
+#: (the same head-dim stages, key tiles and 32-key p·v sums: only the order
+#: within a tensor-core sum differs) and against float64 (readings on the
+#: H100 ≤ 2.5e-7 and ≤ 2.3e-7 at these shapes, ≤ 2.9e-7 and ≤ 3.6e-7 over a
+#: row of 8192 keys); a kernel that carries one p·v accumulator over a
+#: long row, or drops the lo·hi product of q·kᵀ, errs past them
+FA_TF32_MODEL_TOL = 1e-6
+FA_TF32_F64_TOL = 1e-6
 
 
 @pytest.fixture(scope="module")
@@ -867,6 +876,83 @@ def test_flash_attention_mma_kernel_unaligned_views(card, dtype):
     assert _normwise(out, attention_mma_ref(q, k, v, window=37)) <= MMA_MODEL_TOL[dtype]
 
 
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("case", sorted(FA_CASES))
+def test_flash_attention_tf32x3_kernel(card, d, case):
+    # float32 by 3×TF32 on the tensor cores: within TOL of the plain
+    # version, FA_TF32_MODEL_TOL of its plain model, FA_TF32_F64_TOL of
+    # float64
+    c = FA_CASES[case]
+    q = _rnd(card, 2, 8, c["sq"], d, dtype=torch.float32)
+    k = _rnd(card, 2, 2, c["skv"], d, dtype=torch.float32, seed=1)
+    v = _rnd(card, 2, 2, c["skv"], d, dtype=torch.float32, seed=2, shift=1.0)
+    kw = dict(causal=c["causal"], window=c["window"], prefix_len=c["prefix_len"])
+    out = flash_attention_tf32x3_hopper(q, k, v, **kw)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    assert _normwise(out, attention_ref(q, k, v, **kw)) <= TOL[torch.float32]
+    assert _normwise(out, attention_tf32x3_ref(q, k, v, **kw)) <= FA_TF32_MODEL_TOL
+    assert _normwise(out, attention_f64(q, k, v, **kw)) <= FA_TF32_F64_TOL
+
+
+@pytest.mark.parametrize("d", [80, 256])
+def test_flash_attention_tf32x3_kernel_is_repeatable(card, d):
+    # key tiles in order, fixed sums, no atomics: the same bits
+    q = _rnd(card, 1, 8, 300, d, dtype=torch.float32)
+    k = _rnd(card, 1, 2, 300, d, dtype=torch.float32, seed=1)
+    v = _rnd(card, 1, 2, 300, d, dtype=torch.float32, seed=2, shift=1.0)
+    out = flash_attention_tf32x3_hopper(q, k, v, window=100, prefix_len=20)
+    assert torch.equal(_bits(out), _bits(
+        flash_attention_tf32x3_hopper(q, k, v, window=100, prefix_len=20)))
+
+
+def test_flash_attention_tf32x3_kernel_unaligned_views(card):
+    # operands off the 16-byte grid are staged by plain loads
+    def view(h, s, seed, shift=0.0):
+        n = 2 * h * s * 80
+        return _rnd(card, n + 1, dtype=torch.float32, seed=seed,
+                    shift=shift)[1:].view(2, h, s, 80)
+    q, k, v = view(8, 150, 0), view(2, 150, 1), view(2, 150, 2, 1.0)
+    assert q.data_ptr() % 16 != 0
+    out = flash_attention_tf32x3_hopper(q, k, v, window=37)
+    assert _normwise(out, attention_ref(q, k, v, window=37)) <= TOL[torch.float32]
+    assert _normwise(out, attention_tf32x3_ref(q, k, v, window=37)) <= FA_TF32_MODEL_TOL
+
+
+@pytest.mark.parametrize("d,skv", [(80, 8192), (256, 4096)])
+def test_flash_attention_tf32x3_kernel_over_a_long_row(card, d, skv):
+    # every query row sees every key: each 32 keys of p·v in a fresh
+    # accumulator hold the model and float64; one accumulator over the row
+    # (the tensor cores truncate its sums) errs ~1e-5
+    q = _rnd(card, 1, 4, 128, d, dtype=torch.float32, seed=3)
+    k = _rnd(card, 1, 2, skv, d, dtype=torch.float32, seed=4)
+    v = _rnd(card, 1, 2, skv, d, dtype=torch.float32, seed=5, shift=1.0)
+    out = flash_attention_tf32x3_hopper(q, k, v, causal=False)
+    assert _normwise(out, attention_tf32x3_ref(q, k, v, causal=False)) <= FA_TF32_MODEL_TOL
+    assert _normwise(out, attention_f64(q, k, v, causal=False)) <= FA_TF32_F64_TOL
+
+
+def test_flash_attention_tf32x3_kernel_keeps_infinities_and_nan(card):
+    # ±inf and NaN split whole into lo: the kernel's non-finite outputs sit
+    # where its model's and the plain version's do, the rest within tolerance.
+    # k: +inf in key 5 (a score of ±inf by the sign of q); v: ±inf and NaN
+    # in key 9 (masked for rows 0-8, whose p = 0 then meets them); q: -inf
+    # in row 100
+    q = _rnd(card, 1, 8, 256, 80, dtype=torch.float32, seed=6)
+    k = _rnd(card, 1, 2, 256, 80, dtype=torch.float32, seed=7)
+    v = _rnd(card, 1, 2, 256, 80, dtype=torch.float32, seed=8, shift=1.0)
+    k[:, :, 5, 3] = float("inf")
+    v[:, :, 9, 11], v[:, :, 9, 12], v[:, :, 9, 13] = float("inf"), -float("inf"), float("nan")
+    q[:, :, 100, 5] = -float("inf")
+    out = flash_attention_tf32x3_hopper(q, k, v)
+    for want, tol in ((attention_tf32x3_ref(q, k, v), FA_TF32_MODEL_TOL),
+                      (attention_ref(q, k, v), TOL[torch.float32])):
+        for special in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(special(out), special(want))
+        finite = torch.isfinite(out)
+        assert 0 < int(finite.sum()) < out.numel() and torch.isinf(out).any()
+        assert _normwise(out[finite], want[finite]) <= tol
+
+
 def _bad_operands(dev):
     x = torch.randn(4, 80, device=dev)
     q = torch.randn(1, 4, 8, 32, device=dev)
@@ -901,7 +987,12 @@ def test_new_wrappers_refuse_bad_operands_on_the_card(card):
             fn(*args)
     after = _cuda.launch_counts()
     assert after.get("rmsnorm", 0) == before.get("rmsnorm", 0)
-    assert after.get("flash_attention", 0) == before.get("flash_attention", 0)
+    for name in ("flash_attention", "flash_attention_mma", "flash_attention_tf32x3"):
+        assert after.get(name, 0) == before.get(name, 0)
+    q = torch.randn(1, 4, 8, 32, device=card).bfloat16()
+    with pytest.raises(ValueError, match="tf32x3 route takes float32"):
+        flash_attention_tf32x3_hopper(q, q, q)
+    assert _cuda.launch_counts() == after
 
 
 def test_serve_launcher_without_a_device_refuses_a_missing_card():
@@ -918,8 +1009,8 @@ def test_model_on_the_card_runs_the_kernels(card):
     of 40 tokens (past the 32-token window) and 4 decode steps, once on a
     session that resolves to the kernels and once on one that prefers the
     plain versions; logits agree, and the kernels ran as the structure says:
-    FLASH_ATTN on the CUDA-core route in float32, on the tensor cores in
-    bfloat16 (head dim 32).  bfloat16 logits are held to chip_smoke.py's
+    FLASH_ATTN on the tensor cores in both, by 3×TF32 in float32 and by the
+    mma route in bfloat16 (head dim 32).  bfloat16 logits are held to chip_smoke.py's
     SERVE_TOL (2e-2): both paths round each kernel's output to bfloat16 at
     the same places, but a rounding on the other side of a boundary moves
     the next projection."""
@@ -956,7 +1047,7 @@ def test_model_on_the_card_runs_the_kernels(card):
             halo.finalize()
 
     for dtype, tol, route, attn in (
-            (torch.float32, 1e-4, "cuda_cores", "flash_attention"),
+            (torch.float32, 1e-4, "tf32x3", "flash_attention_tf32x3"),
             (torch.bfloat16, 2e-2, "mma", "flash_attention_mma")):
         model = build_model(dataclasses.replace(cfg, dtype=str(dtype).split(".")[-1]))
         params = model.init(torch.Generator(device=card).manual_seed(0))
@@ -976,8 +1067,8 @@ def test_model_on_the_card_runs_the_kernels(card):
         expected[prefill] += 7 * layers
         assert {k: counts[k] for k in expected} == expected
         assert counts["rmsnorm"] == 5 * (2 * layers + 1)
-        other = ({"flash_attention", "flash_attention_mma"} - {attn}).pop()
-        assert counts[attn] == layers and counts[other] == 0
+        others = {"flash_attention", "flash_attention_mma", "flash_attention_tf32x3"} - {attn}
+        assert counts[attn] == layers and all(counts[o] == 0 for o in others)
         _cuda.reset_launch_counts()
         ref = run(model, params, plain)
         assert sum(_cuda.launch_counts().values()) == 0
@@ -1009,10 +1100,12 @@ def test_each_launch_counts_once(card):
     flash_attention_cuda_cores_hopper(q, q[:, :1], q[:, :1])
     qb = q.bfloat16()
     flash_attention_mma_hopper(qb, qb[:, :1], qb[:, :1])
+    flash_attention_tf32x3_hopper(q, q[:, :1], q[:, :1])
     after = _cuda.launch_counts()
     for name in ("mmm_skinny", "mmm_wgmma", "mmm_tf32x3", "ewise", "mvm", "vdp",
                  "jacobi", "conv1d", "spmm", "fft_chirp", "fft_radix", "sort", "sort_radix",
-                 "hist", "rmsnorm", "flash_attention", "flash_attention_mma"):
+                 "hist", "rmsnorm", "flash_attention", "flash_attention_mma",
+                 "flash_attention_tf32x3"):
         assert after[name] == before[name] + 1
 
 

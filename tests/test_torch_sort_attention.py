@@ -200,7 +200,10 @@ def test_attention_mma_ref_matches_jax(dtype, d, case):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_fa_route_by_type_and_head_dim(dtype, d):
-    want = "mma" if dtype != torch.float32 and d <= 128 else "cuda_cores"
+    # float32 on the 3×TF32 tensor-core route at every head dim; 16-bit
+    # types on the tensor cores up to d = 128, the CUDA cores at d = 256
+    want = ("tf32x3" if dtype == torch.float32
+            else "mma" if d <= 128 else "cuda_cores")
     assert fa_route(dtype, d) == want
     assert (d in MMA_HEAD_DIMS) == (d % 16 == 0 and d <= 128)
 
