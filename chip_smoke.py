@@ -65,8 +65,12 @@ Phases (any failure exits non-zero before the result lines are printed):
    in three types (RMSNORM at 1, 4, 512, 4096 and 4200 rows of d_model,
    two calls bit-identical, and at (3, 80) and (7, 1000)), FLASH_ATTN
    under four masks (causal, window, prefix with window, Sq < Skv): the
-   tensor-core route in bfloat16 and float16
-   (also against its plain model), the CUDA-core kernel in all three; the
+   mma route in bfloat16 and float16 (also against its plain model); the
+   wgmma route (``phase2_fa_wgmma``) in both at gemma3-4b's widths (8
+   heads of 256 on 4 KV heads) under the same masks, also against its
+   plain model ``attention_mma_ref``, two calls bit-identical, at the served
+   leg's 2048 tokens with window 1024, over a row of 8192 keys, on operands
+   off the 16-byte grid and as a new host thread's first launch; the
    3×TF32 route in float32 (``phase2_fa_tf32x3``) also against its plain
    model ``attention_tf32x3_ref`` (``FA_TF32_MODEL_TOL``) and float64
    (``FA_TF32_F64_TOL``), two calls bit-identical, at head dims 32, 128 and
@@ -106,6 +110,13 @@ Phases (any failure exits non-zero before the result lines are printed):
    3×TF32 route (L launches) and MMM's 3×TF32 route (7·L launches).
    Prefill MMM device time comes from a profiled rerun.  The decode step is
    split into MMM device time per pass and dispatches per pass × T1.
+   A second leg (``SERVE_D256``) serves gemma3-4b at its published widths,
+   cut to one 5:1 pattern (5 local layers of window 1024, 1 global), 4
+   requests of 512 and 2048 tokens on 2 slots, 8 tokens each: every
+   prefill's attention takes FLASH_ATTN's wgmma route (head dim 256, one
+   launch a layer, no other FLASH_ATTN route), and one 2048-token
+   request's logits agree with the plain replay (``SERVE_TOL``);
+   FLASH_ATTN's device time from a profiled rerun.
 3c. Execution graphs, fusion and compiled replay: ``halo.graph(launch=False)``
    → ``compile()`` → 20 ``replay()`` calls per workload, every other one
    rebinding an input, each output bit-identical to serial blocking
@@ -123,8 +134,8 @@ Phases (any failure exits non-zero before the result lines are printed):
    time the card could take (``bound_ms``).  RMSNORM and FLASH_ATTN, at the
    shapes of phase 3b: device time per call from ``torch.profiler`` over 20
    calls (a kernel of tens of µs is shorter than its Python wrapper), with
-   the event times beside it (FLASH_ATTN's tensor-core route in bfloat16,
-   its 3×TF32 route and the CUDA-core kernel side by side in float32;
+   the event times beside it (FLASH_ATTN's mma route in bfloat16 and its
+   3×TF32 route in float32;
    RMSNORM at 4, 512, 4096 and 4200 rows,
    each beside ``F.rms_norm`` and its bound, under its launch plan); so are the radix FFT at the template's shape
    and MMM's skinny route at each decode projection (M = 4, bfloat16, B
@@ -154,13 +165,14 @@ Phases (any failure exits non-zero before the result lines are printed):
    ``torch.matmul`` of the densified A and a ``torch.sparse`` BSR product
    where that takes the blocks, its bound at the TF32 tensor-core rate and
    the float32 CUDA-core bound and three products' floor apart.
-   FLASH_ATTN's 3×TF32 route and the CUDA-core kernel also at the float32
-   replay's 512 tokens and at head dim 256 (1x16x4096x256, causal) in
-   float32, and the CUDA-core kernel there in bfloat16 (the domain it
-   keeps), each beside SDPA and its bound (the 3×TF32 route's at the TF32
-   rate, the three products' floor and the float32 CUDA-core bound beside
-   it, its split pass and product apart), with both kernels' error against
-   float64.
+   FLASH_ATTN's 3×TF32 route also at the float32 replay's 512 tokens and
+   at head dim 256 (1x16x4096x256, causal), beside SDPA and its bound at
+   the TF32 rate (the three products' floor and the float32 CUDA-core
+   bound beside it, its split pass and product apart), with its error
+   against float64.  FLASH_ATTN's wgmma route (``FA_D256``) at gemma-7b's
+   1x16x4096x256 causal in bfloat16 and float16 and gemma3-4b's 1x8x4096x256
+   on 4 KV heads with window 1024 in bfloat16, by device time beside SDPA,
+   the plain version and its bound at the bfloat16 tensor-core rate.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.
@@ -213,13 +225,16 @@ PACKED_MMM = (4200, 2558, 6910)
 #: only): the same with an 11-bit mantissa, as tests/test_torch_cuda.py.
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
 
-#: FLASH_ATTN's tensor-core route against its plain model
-#: (``attention_mma_ref``: the same 64-key tiles, p rounded to the input
-#: type): the two differ only in float32 sum order, which moves the
-#: output's last rounding for a few elements.  On the H100 the kernel reads
-#: ≤ 1.8e-4 (bfloat16) and ≤ 6e-5 (float16) on phase 2's and the card
-#: tests' cases; a kernel that masks one key too many at the window's edge
-#: reads ≥ 4e-3.  ``TOL`` against the plain version would let that pass.
+#: FLASH_ATTN's 16-bit tensor-core routes (mma, wgmma) against their plain
+#: model (``attention_mma_ref``: the same 64-key tiles, p rounded to the
+#: input type): the two differ only in float32 sum order, which moves the
+#: output's last rounding for a few elements.  On the H100, on phase 2's
+#: and the card tests' cases, the mma route reads ≤ 1.8e-4 (bfloat16) and
+#: ≤ 6e-5 (float16), the wgmma route ≤ 9.0e-5 and ≤ 5.7e-5, and 3.56e-4 and
+#: 1.68e-4 over 8192 keys (128 key tiles summed in one accumulator); a
+#: kernel that masks one key too many at the window's edge reads ≥ 4e-3
+#: (mma) and 5.66e-3 (wgmma, bfloat16).  ``TOL`` against the plain version
+#: would let that pass.
 MMA_MODEL_TOL = {torch.bfloat16: 1e-3, torch.float16: 3e-4}
 
 #: FLASH_ATTN's float32 route (3×TF32 on the tensor cores) against its plain
@@ -289,6 +304,15 @@ TF32_PEAKS = {"H100 SXM": 495e12, "H100 PCIe": 378e12}
 SERVE = {"arch": "h2o-danube-1.8b", "slots": 4, "requests": 8,
          "prompt_lens": (512, 4200), "max_new": 16, "seed": 0}
 
+#: phase 3b's second leg, FLASH_ATTN at head dim 256 on a served path:
+#: gemma3-4b at its published widths (d_model 2560, 8 heads of 256 on 4 KV
+#: heads, d_ff 10240, vocab 262144, bfloat16), its depth cut to one 5:1
+#: pattern (5 local layers of window 1024 and 1 global), weights from a
+#: seed; prompts of 2048 tokens pass the window, so the local caches roll
+#: into rings
+SERVE_D256 = {"arch": "gemma3-4b", "pattern_repeats": 1, "slots": 2, "requests": 4,
+              "prompt_lens": (512, 2048), "max_new": 8, "seed": 0}
+
 #: phase 3b: normwise error allowed between the served logits and the plain
 #: replay's, both bfloat16.  Both round every kernel's output to bfloat16 at
 #: the same places, and the kernels compute the plain versions' function
@@ -339,8 +363,6 @@ REPLACES = {
     "sort": ("sort.cu", "src/repro/kernels/sorthist/sorthist.py:57"),
     "hist": ("hist.cu", "src/repro/kernels/sorthist/sorthist.py:97"),
     "rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm/rmsnorm.py:36"),
-    "flash_attention": ("flash_attention.cu",
-                        "src/repro/kernels/flash_attention/flash_attention.py:106"),
     "fused": ("fused.cu", "src/repro/kernels/fused.py:58"),
     "mmm_skinny": ("mmm_skinny.cu", "src/repro/kernels/matmul/matmul.py:43"),
     "mmm_wgmma": ("mmm_wgmma.cu", "src/repro/kernels/matmul/matmul.py:43"),
@@ -352,19 +374,20 @@ REPLACES = {
                             "src/repro/kernels/flash_attention/flash_attention.py:106"),
     "flash_attention_tf32x3": ("flash_attention_tf32x3.cu",
                                "src/repro/kernels/flash_attention/flash_attention.py:106"),
+    "flash_attention_wgmma": ("flash_attention_wgmma.cu",
+                              "src/repro/kernels/flash_attention/flash_attention.py:106"),
 }
 
 #: where each kernel's launches are counted when it is not the template's
 #: (phase 3): the model path (3b), its float32 replay on the kernels (3b;
-#: FLASH_ATTN's 3×TF32 route), the graphs (3c), or one of phase 3's
-#: requests counted alone: FFT at the non-power-of-two DFT_N (the chirp
-#: route), SORT of rows that fit one tile.  "none": FLASH_ATTN's CUDA-core
-#: kernel, which takes bfloat16 and float16 at head dim 256 and no path
-#: sends such a call; phase 4 still times it, with 0 launches
+#: FLASH_ATTN's 3×TF32 route), its gemma3-4b leg (3b; FLASH_ATTN's wgmma
+#: route, head dim 256), the graphs (3c), or one of phase 3's requests
+#: counted alone: FFT at the non-power-of-two DFT_N (the chirp route), SORT
+#: of rows that fit one tile
 PATH_OF = {"rmsnorm": "serve", "flash_attention_mma": "serve", "mmm_skinny": "serve",
            "mmm_wgmma": "serve", "fused": "graph", "fft_chirp": "chirp",
            "sort": "sort_tile", "flash_attention_tf32x3": "serve_float32",
-           "flash_attention": "none"}
+           "flash_attention_wgmma": "serve_d256"}
 
 
 def decode_projections(cfg):
@@ -623,6 +646,8 @@ def phase2(dev) -> None:
         phase2_sort(dev, gen, dt)
         phase2_sort_tile(dev, gen, dt)
         phase2_model(dev, gen, dt)
+    for dt in (torch.bfloat16, torch.float16):
+        phase2_fa_wgmma(dev, gen, dt)
     phase2_fa_tf32x3(dev, gen)
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         phase2_fused(dev, gen, dt)
@@ -1141,11 +1166,11 @@ FA_MASKS = {"causal": dict(sq=1024, causal=True, window=None, prefix_len=0),
 
 
 def phase2_model(dev, gen, dt) -> None:
-    """RMSNORM and FLASH_ATTN (both routes) against their plain versions at
-    the model path's widths (danube: d_model 2560, 32 heads of 80 over 8 KV
+    """RMSNORM and FLASH_ATTN's mma route against their plain versions at the
+    model path's widths (danube: d_model 2560, 32 heads of 80 over 8 KV
     heads)."""
     from repro_torch.kernels.flash_attention.flash_attention import (
-        fa_route, flash_attention_cuda_cores_hopper, flash_attention_mma_hopper)
+        fa_route, flash_attention_mma_hopper)
     from repro_torch.kernels.flash_attention.ref import attention_mma_ref, attention_ref
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.kernels import _cuda
@@ -1171,8 +1196,7 @@ def phase2_model(dev, gen, dt) -> None:
     # With mean 1, on the H100, a dropped first key tile reads ≥ 1e-2 and one
     # key too many masked at the window's edge ≥ 4e-3 (MMA_MODEL_TOL).
     # 16-bit types: the tensor-core route, against the plain version and its
-    # plain model (p rounded to the input type per 64-key tile); every type:
-    # the CUDA-core route
+    # plain model (p rounded to the input type per 64-key tile)
     skv = 1024
     k = torch.randn((1, 8, skv, 80), generator=gen, device=dev).to(dt)
     v = (torch.randn((1, 8, skv, 80), generator=gen, device=dev) + 1.0).to(dt)
@@ -1187,8 +1211,92 @@ def phase2_model(dev, gen, dt) -> None:
             check_close(f"{what} mma vs model",
                         normwise(out, attention_mma_ref(q, k, v, **kw)), dt,
                         MMA_MODEL_TOL[dt])
-        check_close(f"{what} cuda cores",
-                    normwise(flash_attention_cuda_cores_hopper(q, k, v, **kw), ref), dt)
+
+
+def phase2_fa_wgmma(dev, gen, dt) -> None:
+    """FLASH_ATTN's wgmma route (bfloat16 and float16 at head dim 256)
+    against the plain version (``TOL``) and its plain model
+    ``attention_mma_ref`` with 64-key tiles (``MMA_MODEL_TOL``) at gemma3-4b's
+    widths (8 heads of 256 over 4 KV heads) under ``FA_MASKS``, two calls
+    bit-identical; at the served leg's shape (2048 tokens, window 1024);
+    over a row of 8192 keys; beside a NaN in the next KV head's first key;
+    on operands off the 16-byte grid (copied to an
+    aligned workspace first); and as the first CUDA work of a new host
+    thread (its tensor maps need the device's context there)."""
+    import threading
+
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        fa_route, flash_attention_wgmma_hopper)
+    from repro_torch.kernels.flash_attention.ref import attention_mma_ref, attention_ref
+
+    name = str(dt).split(".")[-1]
+    if fa_route(dt, 256) != "wgmma":
+        fail(f"{name} FLASH_ATTN at head dim 256 takes the {fa_route(dt, 256)} route, "
+             f"not wgmma")
+
+    def rnd(*shape, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) + shift).to(dt)
+
+    def check(what, q, k, v, **kw):
+        out = flash_attention_wgmma_hopper(q, k, v, **kw)
+        check_close(f"FLASH_ATTN {name} {what} wgmma", normwise(out, attention_ref(q, k, v, **kw)),
+                    dt)
+        check_close(f"FLASH_ATTN {name} {what} wgmma vs model",
+                    normwise(out, attention_mma_ref(q, k, v, **kw)), dt, MMA_MODEL_TOL[dt])
+        return out
+
+    # v has mean 1 (phase2_model says why)
+    k, v = rnd(1, 4, 1024, 256), rnd(1, 4, 1024, 256, shift=1.0)
+    for label, c in FA_MASKS.items():
+        kw = dict(causal=c["causal"], window=c["window"], prefix_len=c["prefix_len"])
+        q = rnd(1, 8, c["sq"], 256)
+        out = check(f"1x8x{c['sq']}x256 {label}", q, k, v, **kw)
+        if not torch.equal(bits(out), bits(flash_attention_wgmma_hopper(q, k, v, **kw))):
+            fail(f"FLASH_ATTN wgmma {name} {label}: two calls differ (expected the same bits)")
+    print(f"  FLASH_ATTN wgmma {name}: two calls give the same bits under every mask")
+    q, k2, v2 = rnd(1, 8, 2048, 256), rnd(1, 4, 2048, 256), rnd(1, 4, 2048, 256, shift=1.0)
+    check("1x8x2048x256 window 1024 (the served leg's local layers)", q, k2, v2, window=1024)
+    q, kl, vl = rnd(1, 4, 128, 256), rnd(1, 2, 8192, 256), rnd(1, 2, 8192, 256, shift=1.0)
+    check("1x4x128x256 over 8192 keys", q, kl, vl, causal=False)
+    # NaN in column 7 of KV head 1's first key: query heads 2-3 see it (NaN
+    # in column 7, as in the model); heads 0-1 must not, though their last
+    # key tile runs past Skv = 150, where the rows read must be zeros and
+    # not KV head 1's first keys
+    q, kn, vn = rnd(1, 4, 150, 256), rnd(1, 2, 150, 256), rnd(1, 2, 150, 256, shift=1.0)
+    vn[:, 1, 0, 7] = float("nan")
+    out, want = flash_attention_wgmma_hopper(q, kn, vn), attention_mma_ref(q, kn, vn)
+    if not torch.equal(torch.isnan(out), torch.isnan(want)) or not torch.isnan(out).any():
+        fail(f"FLASH_ATTN wgmma {name}: NaN at {int(torch.isnan(out[:, :2]).sum())} places "
+             f"of KV head 0's rows and {int(torch.isnan(out[:, 2:]).sum())} of KV head 1's, "
+             f"the model at {int(torch.isnan(want).sum())}: a head read another's keys")
+    check_close(f"FLASH_ATTN {name} 1x4x150x256 beside a NaN in the next KV head's keys, "
+                f"heads 0-1 wgmma vs model", normwise(out[:, :2], want[:, :2]), dt,
+                MMA_MODEL_TOL[dt])
+
+    def off_grid(h, s_, shift=0.0):
+        return rnd(2 * h * s_ * 256 + 1, shift=shift)[1:].view(2, h, s_, 256)
+
+    q, ku, vu = off_grid(8, 150), off_grid(2, 150), off_grid(2, 150, 1.0)
+    if q.data_ptr() % 16 == 0:
+        fail("the off-grid FLASH_ATTN operands lie on the 16-byte grid")
+    check("2x8x150x256 window 37, operands off the 16-byte grid", q, ku, vu, window=37)
+    result = {}
+    torch.cuda.synchronize(dev)
+
+    def first_launch():
+        try:
+            result["out"] = flash_attention_wgmma_hopper(q, ku, vu, window=37)
+            torch.cuda.synchronize(dev)
+        except Exception as e:                    # reported below
+            result["error"] = e
+
+    thread = threading.Thread(target=first_launch)
+    thread.start()
+    thread.join()
+    if "error" in result:
+        fail(f"FLASH_ATTN wgmma {name} as a new thread's first launch: {result['error']}")
+    check_close(f"FLASH_ATTN {name} wgmma on a new thread",
+                normwise(result["out"], attention_ref(q, ku, vu, window=37)), dt)
 
 
 def phase2_fa_tf32x3(dev, gen) -> None:
@@ -1372,8 +1480,8 @@ def phase3(dev):
     expected = {"mmm_skinny": 0, "mmm_wgmma": 0, "mmm_tf32x3": 2, "ewise": 8,
                 "mvm": 2, "vdp": 2, "jacobi": 2, "conv1d": 2, "spmm": 2, "fft_radix": 2,
                 "fft_chirp": 0, "sort": 0, "sort_radix": 2, "hist": 2, "rmsnorm": 0,
-                "flash_attention": 0, "flash_attention_mma": 0,
-                "flash_attention_tf32x3": 0, "fused": 0}
+                "flash_attention_mma": 0, "flash_attention_tf32x3": 0,
+                "flash_attention_wgmma": 0, "fused": 0}
     if launches != expected:
         fail(f"launch counts {launches} != requests sent {expected}: a request "
              f"did not reach its kernel")
@@ -1549,6 +1657,35 @@ def device_ms_per_call(fn, runs: int, dev, by_kernel: bool = False):
     per = {e.key: 1e3 * device_seconds_of(e) / e.count * max(1, round(e.count / runs))
            for e in prof.key_averages() if e.count and device_seconds_of(e)}
     return per if by_kernel else sum(per.values())
+
+
+def median_device_ms(fn, dev) -> float:
+    """Device time per call of the kernels ``fn`` launches, from
+    torch.profiler over TIMED_RUNS calls.  A kernel of tens of µs is
+    shorter than its Python wrapper, so events around each call would time
+    the host's launch."""
+    for _ in range(3):
+        fn()
+    # the profiler on the card now and then returns an empty window (a
+    # library call has read 0.0 ms) or one that undercounts (an 8192²
+    # float32 ATen multiply has read 0.1244 ms, half its time): the median
+    # of three windows, and after three empty windows TIMED_RUNS calls back
+    # to back by CUDA events (the host's launches then count where they
+    # outlast the kernels)
+    windows = [t for t in (device_ms_per_call(fn, TIMED_RUNS, dev) for _ in range(3))
+               if t > 0]
+    if windows:
+        return statistics.median(windows)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(TIMED_RUNS):
+        fn()
+    end.record()
+    end.synchronize()
+    t = start.elapsed_time(end) / TIMED_RUNS
+    print(f"  torch.profiler saw no device time in three windows: {t:.4f} ms per "
+          f"call by CUDA events over {TIMED_RUNS} calls back to back")
+    return t
 
 
 def phase3b(dev):
@@ -1769,9 +1906,8 @@ def phase3b(dev):
     # where the bfloat16 gap comes from: the same weights widened to float32
     # on the kernels against the plain versions (F32_SERVE_TOL), and the
     # bfloat16 gap of the 512-token prefill against the depth kept.  The
-    # float32 prefill is the path of FLASH_ATTN's CUDA-core route and of
-    # MMM's 3×TF32 route: their launches are counted over the kernels'
-    # replay alone
+    # float32 prefill is the path of FLASH_ATTN's and MMM's 3×TF32 routes:
+    # their launches are counted over the kernels' replay alone
     prompt, toks = prompts[0], results[0][:4]
     wide32 = torch.utils._pytree.tree_map(lambda t: t.float(), params)
     m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
@@ -1781,13 +1917,13 @@ def phase3b(dev):
     e32 = [normwise(k, r) for k, r in zip(
         served32, replay(m32, wide32, prompt, toks, max_len, plain))]
     del wide32, served32
-    attn_f32 = {k: f32_launches[k] for k in ("flash_attention", "flash_attention_mma",
-                                             "flash_attention_tf32x3")}
+    attn_f32 = {k: f32_launches[k] for k in ("flash_attention_mma", "flash_attention_tf32x3",
+                                             "flash_attention_wgmma")}
     mmm_f32 = {k: f32_launches[k] for k in ("mmm_wgmma", "mmm_tf32x3")}
     print(f"  float32 replay on the kernels: FLASH_ATTN launches {attn_f32}, "
           f"prefill MMM launches {mmm_f32}")
-    if attn_f32 != {"flash_attention": 0, "flash_attention_mma": 0,
-                    "flash_attention_tf32x3": layers}:
+    if attn_f32 != {"flash_attention_mma": 0, "flash_attention_tf32x3": layers,
+                    "flash_attention_wgmma": 0}:
         fail(f"the float32 prefill launched FLASH_ATTN {attn_f32}, not {layers} "
              f"on the 3×TF32 route")
     if mmm_f32 != {"mmm_wgmma": 0, "mmm_tf32x3": 7 * layers}:
@@ -1812,6 +1948,158 @@ def phase3b(dev):
         f"{n_}: {e:.2e}" for n_, e in depth.items()))
     stats.update(f32_err=e32, bf16_gap_by_depth=depth)
     return launches, stats, f32_launches
+
+
+def phase3b_d256(dev):
+    """gemma3-4b, cut to one 5:1 pattern, served through ``run_requests`` on
+    ``halo.initialize()`` (SERVE_D256): every prefill's attention is bfloat16
+    at head dim 256, FLASH_ATTN's wgmma route, one launch a layer; no other
+    FLASH_ATTN route moves.  One 2048-token request's logits at every step
+    against a replay through the plain versions on the card (SERVE_TOL),
+    and FLASH_ATTN's device time from a profiled rerun."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import halo
+    from repro_torch.configs import get_config
+    from repro_torch.core.manifest import default_manifest
+    from repro_torch.kernels import _cuda
+    from repro_torch.core.registry import KernelRegistry
+    from repro_torch.kernels import register_all
+    from repro_torch.launch.serve import run_requests
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import SlotEngine, StepScheduler
+
+    full = get_config(SERVE_D256["arch"])
+    cfg = dataclasses.replace(full, stages=(dataclasses.replace(
+        full.stages[0], repeats=SERVE_D256["pattern_repeats"]),))
+    attn = cfg.stages[0].pattern[0].attn
+    windows = [b.attn.window for b in cfg.stages[0].pattern]
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SERVE_D256["seed"])
+    params = model.init(gen)
+    n_params = sum(t.numel() for t in torch.utils._pytree.tree_leaves(params))
+    print(f"  {cfg.name}: {cfg.n_layers} of {full.n_layers} layers (windows {windows}), "
+          f"d_model {cfg.d_model}, {attn.n_heads} heads of {attn.head_dim} on "
+          f"{attn.n_kv_heads} KV heads, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
+          f"parameters in {cfg.dtype}, random from seed {SERVE_D256['seed']}")
+    n, lens = SERVE_D256["requests"], SERVE_D256["prompt_lens"]
+    prompts = [torch.randint(0, cfg.vocab_size, (lens[i % len(lens)],), generator=gen,
+                             device=dev).tolist() for i in range(n)]
+    max_news = [SERVE_D256["max_new"]] * n
+    max_len = max(lens) + SERVE_D256["max_new"] + cfg.prefix_len + 8
+
+    session = halo.initialize()              # device=None means the card
+    if session.device.type != "cuda":
+        fail(f"session runs on {session.device}, not the card")
+    warm = StepScheduler(SlotEngine(model, params, 1, 80), seed=SERVE_D256["seed"])
+    run_requests(warm, [prompts[0][:64]], [2])
+    del warm
+    engine = recording_engine()(model, params, SERVE_D256["slots"], max_len)
+    sched = StepScheduler(engine, temperature=0.0, seed=SERVE_D256["seed"])
+    torch.cuda.synchronize(dev)
+    _cuda.reset_launch_counts()
+    results, lat, wall = run_requests(sched, prompts, max_news)
+    torch.cuda.synchronize(dev)
+    launches = _cuda.launch_counts()
+    quarantined = session.scheduler.failed_record_keys()
+    prefills = len(engine.prefill_s)
+    attn_counts = {k: launches[k] for k in ("flash_attention_mma", "flash_attention_tf32x3",
+                                            "flash_attention_wgmma")}
+    want = {"flash_attention_mma": 0, "flash_attention_tf32x3": 0,
+            "flash_attention_wgmma": cfg.n_layers * prefills}
+    print(f"  {prefills} prefills + {len(engine.decode_s)} decode steps on "
+          f"{SERVE_D256['slots']} slots: FLASH_ATTN launches {attn_counts} (expected "
+          f"{want}); all launches {launches}; quarantine {quarantined}")
+    if [len(r) for r in results] != max_news or prefills != n:
+        fail(f"served {[len(r) for r in results]} tokens in {prefills} prefills, budgets "
+             f"{max_news}")
+    if attn_counts != want:
+        fail(f"the head-dim-256 leg launched FLASH_ATTN {attn_counts}, not {want}")
+    if quarantined:
+        fail(f"records were quarantined on the head-dim-256 leg: {quarantined}")
+    for rec, p_ in zip(engine.records, prompts):
+        if rec["prompt"] != p_ or not all(bool(torch.isfinite(x).all())
+                                          and x.shape == (cfg.padded_vocab,)
+                                          for x in rec["logits"]):
+            fail("the head-dim-256 leg's logits are not finite, not of the vocab's width "
+                 "or not its requests'")
+    prefill_ms = {str(L): [t * 1e3 for n_, t in engine.prefill_s if n_ == L] for L in lens}
+    stats = {"arch": cfg.name, "layers": cfg.n_layers, "launches": launches,
+             "tokens_per_s": sum(map(len, results)) / wall, "wall_s": wall,
+             "prefill_ms": prefill_ms}
+    records = engine.records
+    del engine, sched
+    # the same requests under torch.profiler: FLASH_ATTN's device time
+    sched = StepScheduler(SlotEngine(model, params, SERVE_D256["slots"], max_len),
+                          seed=SERVE_D256["seed"])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again, _, _ = run_requests(sched, prompts, max_news)
+        torch.cuda.synchronize(dev)
+    if again != results:
+        fail("a second greedy run of the head-dim-256 leg served other tokens")
+    fa_s = sum(device_seconds_of(e) for e in prof.key_averages()
+               if e.key.split("<")[0].split("::")[-1].strip() == "fa16_wgmma_kernel")
+    busy_s = device_seconds(prof)
+    stats["flash_attention_device_ms"] = fa_s * 1e3 if fa_s > 0 else None
+    stats["device_ms"] = busy_s * 1e3 if busy_s > 0 else None
+    del sched
+    halo.finalize()
+    print(f"  {stats['tokens_per_s']:.2f} tokens/s over {wall:.2f} s; prefill ms by prompt: "
+          + "; ".join(f"{L}: {', '.join(f'{x:.1f}' for x in v)}" for L, v in prefill_ms.items())
+          + "; FLASH_ATTN device time (profiled rerun, "
+          + f"{cfg.n_layers * prefills} launches): "
+          + (f"{fa_s * 1e3:.3f} ms" if fa_s > 0 else "not measured")
+          + "; all device time: "
+          + (f"{busy_s * 1e3:.1f} ms" if busy_s > 0 else "not measured"))
+
+    # one 2048-token request, every step, against the plain versions
+    plain = default_manifest()
+    plain.platform_list = [{"platform_preference": ["torch"]}]
+    i = lens.index(max(lens))
+    _cuda.reset_launch_counts()
+    ref = replay(model, params, prompts[i], results[i], max_len, plain)
+    if any(_cuda.launch_counts().values()):
+        fail("the plain replay of the head-dim-256 leg launched kernels")
+    errs = [normwise(k_, r_) for k_, r_ in zip(records[i]["logits"], ref)]
+    print(f"  {len(prompts[i])}-token request vs the plain replay on the card: worst "
+          f"normwise logits error {max(errs):.3e} over {len(errs)} steps (tol "
+          f"{SERVE_TOL:g})")
+    if len(errs) != len(results[i]) or not max(errs) <= SERVE_TOL:
+        fail(f"the head-dim-256 leg's logits differ from the plain replay by {max(errs):.3e}")
+    stats["plain_worst_err"] = max(errs)
+
+    # where the gap comes from: the same request's prefill, kernels vs
+    # plain, by the pattern's blocks kept; and at full depth with
+    # FLASH_ATTN alone on its plain version (a registry without its
+    # hopper and aten records), so the wgmma kernel's share is measured
+    prompt, first = prompts[i], results[i][:1]
+    depth = {}
+    for n_blocks in range(1, cfg.n_layers + 1):
+        cut = dataclasses.replace(cfg, stages=(dataclasses.replace(
+            cfg.stages[0], pattern=cfg.stages[0].pattern[:n_blocks]),))
+        sliced = dict(params, stages=[params["stages"][0][:n_blocks]])
+        mc = build_model(cut)
+        depth[n_blocks] = normwise(replay(mc, sliced, prompt, first, max_len, None)[0],
+                                   replay(mc, sliced, prompt, first, max_len, plain)[0])
+    no_fa = KernelRegistry()
+    register_all(no_fa)
+    no_fa.deregister("FLASH_ATTN", "hopper")
+    no_fa.deregister("FLASH_ATTN", "aten")
+    _cuda.reset_launch_counts()
+    fa_plain = replay(model, params, prompt, first, max_len, None, registry=no_fa)[0]
+    moved = _cuda.launch_counts()
+    if any(moved[k] for k in attn_counts) or not moved["mmm_wgmma"]:
+        fail(f"the replay with FLASH_ATTN on its plain version launched {moved}")
+    kernels_ref = replay(model, params, prompt, first, max_len, None)[0]
+    gap = {"fa_plain_vs_plain": normwise(fa_plain, ref[0]),
+           "kernels_vs_fa_plain": normwise(kernels_ref, fa_plain)}
+    print(f"  {cfg.dtype} prefill gap of the {len(prompt)}-token request, kernels vs "
+          f"plain, by blocks kept ({', '.join(str(w) for w in windows)}): " + ", ".join(
+              f"{n_}: {e:.2e}" for n_, e in depth.items())
+          + f"; at {cfg.n_layers}, FLASH_ATTN alone on its plain version vs plain "
+          f"{gap['fa_plain_vs_plain']:.2e}, kernels vs that {gap['kernels_vs_fa_plain']:.2e}")
+    stats.update(bf16_gap_by_depth=depth, **gap)
+    return launches, stats
 
 
 # ---------------------------------------------------------------------------
@@ -1998,15 +2286,16 @@ def phase3c(dev, card):
     return launches, stats
 
 
-def replay(model, params, prompt, toks, max_len, manifest):
+def replay(model, params, prompt, toks, max_len, manifest, registry=None):
     """Logits (float32) of ``prompt``'s prefill and of one decode step per
     token of ``toks`` but the last, on a session with ``manifest`` (None:
-    the default, which resolves to the kernels)."""
+    the default, which resolves to the kernels) and ``registry`` (None: the
+    global one)."""
     from repro_torch import halo
     from repro_torch.serve.kvcache import pad_caches
 
     dev = params["embed"].device
-    halo.initialize(manifest=manifest)
+    halo.initialize(manifest=manifest, registry=registry)
     try:
         with torch.no_grad():
             logits, caches = model.prefill(params, {"tokens": torch.tensor([prompt], device=dev)})
@@ -2024,6 +2313,68 @@ def replay(model, params, prompt, toks, max_len, manifest):
 # ---------------------------------------------------------------------------
 # phase 4: times at the phase-3 shapes
 # ---------------------------------------------------------------------------
+#: phase 4: FLASH_ATTN at head dim 256 in the 16-bit types, 4096 tokens,
+#: causal: (heads, KV heads, type, window) of gemma-7b's prefill and of
+#: gemma3-4b's local layers
+FA_D256 = {"gemma7b_bfloat16": (16, 16, torch.bfloat16, None),
+           "gemma3_4b_bfloat16": (8, 4, torch.bfloat16, 1024),
+           "gemma7b_float16": (16, 16, torch.float16, None)}
+FA_D256_SEQ = 4096
+
+
+def fa_d256_rows(dev, bw, peak, events_ms):
+    """FA_D256's rows through ``flash_attention_hopper``, by the route the
+    package gives 16-bit attention at head dim 256 (named in each row, so
+    the function also times an older tree's route there when imported
+    beside that tree's package): device time
+    per call of the kernel, the plain version and SDPA, event times beside
+    (``events_ms``), checked against the plain version (``TOL``), the route
+    under "fa_route", bound from
+    the mask's visible pairs (4·256 operations each) at the 16-bit
+    tensor-core peak ``peak`` or q, k, v and o over ``bw``."""
+    from repro_torch.kernels.flash_attention.flash_attention import (fa_route,
+                                                                     flash_attention_hopper)
+    from repro_torch.kernels.flash_attention.ref import (attention_aten, attention_ref,
+                                                         visibility)
+
+    rows = {}
+    for key, (heads, kv_heads, dt, window) in FA_D256.items():
+        g = torch.Generator(device=dev).manual_seed(6)
+        shape = (1, heads, FA_D256_SEQ, 256)
+        q = torch.randn(shape, generator=g, device=dev).to(dt)
+        k = torch.randn((1, kv_heads, FA_D256_SEQ, 256), generator=g, device=dev).to(dt)
+        v = (torch.randn((1, kv_heads, FA_D256_SEQ, 256), generator=g, device=dev)
+             + 1.0).to(dt)
+        kw = dict(causal=True, window=window, prefix_len=0)
+        pairs = int(visibility(FA_D256_SEQ, FA_D256_SEQ, device=dev, **kw).sum()) * heads
+        flops = 4 * 256 * pairs
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        t_bytes, t_ops = nbytes / bw, flops / peak
+        out, want = flash_attention_hopper(q, k, v, **kw), attention_ref(q, k, v, **kw)
+        route = fa_route(dt, 256)
+        check_close(f"FLASH_ATTN {route} {shape} {dt} window {window} vs plain",
+                    normwise(out, want), dt)
+        fns = {"ms": lambda: flash_attention_hopper(q, k, v, **kw),
+               "plain_ms": lambda: attention_ref(q, k, v, **kw),
+               "library_ms": lambda: attention_aten(q, k, v, **kw)}
+        row = {name: median_device_ms(fn, dev) for name, fn in fns.items()}
+        row["event_ms"] = {name: events_ms(fn) for name, fn in fns.items()}
+        row.update(fa_route=route, max_abs_err=float((wide(out) - wide(want)).abs().max()),
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   visible_pairs=pairs, tflops=flops / (row["ms"] * 1e-3) / 1e12,
+                   shape=f"1x{heads}x{FA_D256_SEQ}x256 {str(dt).split('.')[-1]}, {kv_heads} "
+                         f"KV heads, causal, window {window}")
+        del q, k, v, out, want
+        print(f"  flash_attention {route} {row['shape']}: kernel_ms {row['ms']:.4f}  SDPA "
+              f"{row['library_ms']:.4f}  plain_ms {row['plain_ms']:.4f}  bound_ms "
+              f"{row['bound_ms']:.4f} ({row['bound_by']}: {pairs} visible pairs)  "
+              f"{row['tflops']:.1f} TFLOP/s; events kernel {row['event_ms']['ms']:.4f}  "
+              f"SDPA {row['event_ms']['library_ms']:.4f}")
+        rows[key] = row
+    return rows
+
+
 def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
            graph_launches, path_launches):
     from repro_torch.configs import get_config
@@ -2040,8 +2391,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     from repro_torch.kernels.fft.ref import (chirp_length, fft_aten, fft_chirp_ref,
                                              fft_radix_ref)
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention_cuda_cores_hopper, flash_attention_mma_hopper,
-        flash_attention_tf32x3_hopper)
+        flash_attention_mma_hopper, flash_attention_tf32x3_hopper)
     from repro_torch.kernels.flash_attention.ref import (attention_aten, attention_f64,
                                                          attention_ref, visibility)
     from repro_torch.kernels.fused import ewise_chain_hopper, ewise_chain_ref
@@ -2077,32 +2427,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
                        iters=TIMED_RUNS).median_s * 1e3
 
     def device_ms(fn):
-        """Device time per call of the kernels ``fn`` launches, from
-        torch.profiler over TIMED_RUNS calls.  A kernel of tens of µs is
-        shorter than its Python wrapper, so events around each call would
-        time the host's launch."""
-        for _ in range(3):
-            fn()
-        # the profiler on the card now and then returns an empty window (a
-        # library call has read 0.0 ms) or one that undercounts (an 8192²
-        # float32 ATen multiply has read 0.1244 ms, half its time): the
-        # median of three windows, and after three empty windows TIMED_RUNS
-        # calls back to back by CUDA events (the host's launches then count
-        # where they outlast the kernels)
-        windows = [t for t in (device_ms_per_call(fn, TIMED_RUNS, dev) for _ in range(3))
-                   if t > 0]
-        if windows:
-            return statistics.median(windows)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(TIMED_RUNS):
-            fn()
-        end.record()
-        end.synchronize()
-        t = start.elapsed_time(end) / TIMED_RUNS
-        print(f"  torch.profiler saw no device time in three windows: {t:.4f} ms per "
-              f"call by CUDA events over {TIMED_RUNS} calls back to back")
-        return t
+        return median_device_ms(fn, dev)
 
     def model_row(kernel, plain, library):
         """Device times of a kernel, its plain version and its library call,
@@ -2370,20 +2695,16 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     check_close(f"FLASH_ATTN {tuple(fq.shape)} window {attn.window} mma vs plain",
                 normwise(fo, fr), mdt)
     del fo, fr
-    # the 3×TF32 route (the one float32 takes) and the CUDA-core kernel at
-    # the same shape in float32, bound at the TF32 tensor-core and the
-    # float32 CUDA-core peak
+    # the 3×TF32 route (the one float32 takes) at the same shape in float32,
+    # bound at the TF32 tensor-core peak (the float32 CUDA-core bound beside)
     fq32, fk32, fv32 = fq.float(), fk.float(), fv.float()
     fr = attention_ref(fq32, fk32, fv32, **fkw)
-    for name_, fn_ in (("flash_attention_tf32x3", flash_attention_tf32x3_hopper),
-                       ("flash_attention", flash_attention_cuda_cores_hopper)):
-        fo = fn_(fq32, fk32, fv32, **fkw)
-        max_abs[name_] = float((fo - fr).abs().max())
-        check_close(f"FLASH_ATTN {tuple(fq.shape)} window {attn.window} float32 "
-                    f"{name_} vs plain", normwise(fo, fr), torch.float32)
+    fo = flash_attention_tf32x3_hopper(fq32, fk32, fv32, **fkw)
+    max_abs["flash_attention_tf32x3"] = float((fo - fr).abs().max())
+    check_close(f"FLASH_ATTN {tuple(fq.shape)} window {attn.window} float32 "
+                f"flash_attention_tf32x3 vs plain", normwise(fo, fr), torch.float32)
     del fo, fr
     fa32_bytes = 4 * (2 * fq.numel() + fk.numel() + fv.numel())
-    fa32_bound = bound(fa32_bytes, fa_flops, f32_peak)
     fa_tf32_bound = bound(fa32_bytes, fa_flops, tf32_peak)
     mname = str(mdt).split(".")[-1]
 
@@ -2702,87 +3023,57 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
 
     # FLASH_ATTN in float32 at danube's prefill (1 x heads x 4200 x 80), at
     # the float32 replay's (512 tokens, its launches) and at head dim 256
-    # (gemma's 16 heads on 16 KV heads, causal, 4096 tokens): the 3×TF32
-    # route and the CUDA-core kernel side by side by device time, beside the
-    # plain version and SDPA, each bound from the mask's visible pairs (the
-    # tf32x3 rows at the TF32 rate, with the three products' floor and the
-    # float32 CUDA-core bound beside it), and the error of both against
-    # float64.  The CUDA-core kernel also at head dim 256 in bfloat16, the
-    # one domain it keeps, against the bfloat16 tensor-core peak
-    def fa_rows(heads, kv_heads, sq, d, dt_, **kw):
+    # (gemma-7b's 16 heads on 16 KV heads, causal, 4096 tokens): the 3×TF32
+    # route by device time, beside the plain version and SDPA, bound from the
+    # mask's visible pairs at the TF32 rate, with the three products' floor
+    # and the float32 CUDA-core bound beside it, and its error against
+    # float64
+    def fa_tf32_row(heads, kv_heads, sq, d, **kw):
         g_ = torch.Generator(device=dev).manual_seed(6)
-        q_ = torch.randn((1, heads, sq, d), generator=g_, device=dev).to(dt_)
-        k_ = torch.randn((1, kv_heads, sq, d), generator=g_, device=dev).to(dt_)
-        v_ = (torch.randn((1, kv_heads, sq, d), generator=g_, device=dev) + 1.0).to(dt_)
+        q_ = torch.randn((1, heads, sq, d), generator=g_, device=dev)
+        k_ = torch.randn((1, kv_heads, sq, d), generator=g_, device=dev)
+        v_ = torch.randn((1, kv_heads, sq, d), generator=g_, device=dev) + 1.0
         flops_ = 4 * d * int(visibility(sq, sq, device=dev, **kw).sum()) * heads
-        nbytes = q_.element_size() * (2 * q_.numel() + k_.numel() + v_.numel())
-        f32 = dt_ == torch.float32
-        fns = {"cuda_cores": lambda: flash_attention_cuda_cores_hopper(q_, k_, v_, **kw)}
-        if f32:
-            fns["tf32x3"] = lambda: flash_attention_tf32x3_hopper(q_, k_, v_, **kw)
-        want = attention_ref(q_, k_, v_, **kw)
-        exact = attention_f64(q_, k_, v_, **kw) if f32 else None
-        errs = {}
-        for route, fn in fns.items():
-            out = fn()
-            check_close(f"FLASH_ATTN {route} {(1, heads, sq, d)} {dt_} vs plain",
-                        normwise(out, want), dt_)
-            if f32:
-                errs[route] = normwise(out, exact)
-        del want, exact, out
-        fns["plain"] = lambda: attention_ref(q_, k_, v_, **kw)
-        fns["library"] = lambda: attention_aten(q_, k_, v_, **kw)
-        dev_ms = {route: device_ms(fn) for route, fn in fns.items()}
-        ev_ms = {route: ms(fn) for route, fn in fns.items()}
-        shape = f"1x{heads}x{sq}x{d} {str(dt_).split('.')[-1]}, {kv_heads} KV heads, {kw}"
-
-        def row(route, peak):
-            r = {"ms": dev_ms[route], "plain_ms": dev_ms["plain"],
-                 "library_ms": dev_ms["library"],
-                 "event_ms": {"ms": ev_ms[route], "plain_ms": ev_ms["plain"],
-                              "library_ms": ev_ms["library"]}, "shape": shape}
-            r["bound_ms"], r["bound_by"] = bound(nbytes, flops_, peak)
-            if f32:
-                r["err_vs_float64"] = errs[route]
-            return r
-
-        cc = row("cuda_cores", f32_peak if f32 else bf16_peak)
-        print(f"  flash_attention (CUDA-core kernel) {shape}: kernel_ms {cc['ms']:.4f}  SDPA "
-              f"{cc['library_ms']:.4f}  plain_ms {cc['plain_ms']:.4f}  bound_ms "
-              f"{cc['bound_ms']:.4f} ({cc['bound_by']})"
-              + (f"  error vs float64 {errs['cuda_cores']:.3e}" if f32 else ""))
-        if not f32:
-            return None, cc
-        tf = row("tf32x3", tf32_peak)
-        tf.update(cuda_cores_ms=cc["ms"], bound_float32_ms=cc["bound_ms"],
-                  algorithm_floor_ms=bound(nbytes, 3 * flops_, tf32_peak)[0],
-                  cuda_cores_err_vs_float64=errs["cuda_cores"])
-        tf.update(two_parts(fns["tf32x3"], tf["ms"], "fa_split_kernel", "split_ms",
+        nbytes = 4 * (2 * q_.numel() + k_.numel() + v_.numel())
+        out = flash_attention_tf32x3_hopper(q_, k_, v_, **kw)
+        check_close(f"FLASH_ATTN tf32x3 {(1, heads, sq, d)} float32 vs plain",
+                    normwise(out, attention_ref(q_, k_, v_, **kw)), torch.float32)
+        err = normwise(out, attention_f64(q_, k_, v_, **kw))
+        del out
+        fns = {"ms": lambda: flash_attention_tf32x3_hopper(q_, k_, v_, **kw),
+               "plain_ms": lambda: attention_ref(q_, k_, v_, **kw),
+               "library_ms": lambda: attention_aten(q_, k_, v_, **kw)}
+        tf = model_row(*fns.values())
+        shape = f"1x{heads}x{sq}x{d} float32, {kv_heads} KV heads, {kw}"
+        tf["bound_ms"], tf["bound_by"] = bound(nbytes, flops_, tf32_peak)
+        tf.update(shape=shape, err_vs_float64=err,
+                  bound_float32_ms=bound(nbytes, flops_, f32_peak)[0],
+                  algorithm_floor_ms=bound(nbytes, 3 * flops_, tf32_peak)[0])
+        tf.update(two_parts(fns["ms"], tf["ms"], "fa_split_kernel", "split_ms",
                             product_kernel="fa_wgmma_kernel"))
         print(f"  flash_attention_tf32x3 {shape}: kernel_ms {tf['ms']:.4f} "
-              f"({parts_text(tf)})  CUDA-core "
-              f"kernel {cc['ms']:.4f}  SDPA {tf['library_ms']:.4f}  plain_ms "
+              f"({parts_text(tf)})  SDPA {tf['library_ms']:.4f}  plain_ms "
               f"{tf['plain_ms']:.4f}  bound_ms {tf['bound_ms']:.4f} ({tf['bound_by']}, TF32 "
               f"tensor cores; three products {tf['algorithm_floor_ms']:.4f}, float32 CUDA "
-              f"cores {cc['bound_ms']:.4f})  error vs float64 {errs['tf32x3']:.3e}")
+              f"cores {tf['bound_float32_ms']:.4f})  error vs float64 {err:.3e}")
         del q_, k_, v_
-        return tf, cc
+        return tf
 
-    fa_tf32_rows, fa_cc_rows = {}, {}
-    for key, args_ in (("main", (attn.n_heads, attn.n_kv_heads, seq, attn.head_dim,
-                                 torch.float32, fkw)),
-                       ("float32_replay", (attn.n_heads, attn.n_kv_heads,
-                                           min(SERVE["prompt_lens"]), attn.head_dim,
-                                           torch.float32, fkw)),
-                       *((f"d256_{str(dt_).split('.')[-1]}",
-                          (16, 16, 4096, 256, dt_,
-                           dict(causal=True, window=None, prefix_len=0)))
-                         for dt_ in (torch.float32, torch.bfloat16))):
-        *shape_args, kw_ = args_
-        fa_tf32_rows[key], fa_cc_rows[key] = fa_rows(*shape_args, **kw_)
-    fa_tf32_main = {**fa_tf32_rows.pop("main"),
-                    **{k: r for k, r in fa_tf32_rows.items() if r is not None}}
-    fa_cc_main = {**fa_cc_rows.pop("main"), **fa_cc_rows}
+    fa_tf32_main = {**fa_tf32_row(attn.n_heads, attn.n_kv_heads, seq, attn.head_dim, **fkw),
+                    "float32_replay": fa_tf32_row(attn.n_heads, attn.n_kv_heads,
+                                                  min(SERVE["prompt_lens"]), attn.head_dim,
+                                                  **fkw),
+                    "d256_float32": fa_tf32_row(16, 16, 4096, 256, causal=True, window=None,
+                                                prefix_len=0)}
+    # FLASH_ATTN at head dim 256 in bfloat16 and float16, the wgmma route
+    # (FA_D256: gemma-7b's heads, gemma3-4b's local layers), by device time
+    fa_d256 = fa_d256_rows(dev, bw, bf16_peak, ms)
+    if any(r_["fa_route"] != "wgmma" for r_ in fa_d256.values()):
+        fail(f"FLASH_ATTN at head dim 256 took {[r_['fa_route'] for r_ in fa_d256.values()]}")
+    fa16_main = dict(fa_d256.pop("gemma7b_bfloat16"), **fa_d256)
+    max_abs["flash_attention_wgmma"] = fa16_main.pop("max_abs_err")
+    for r_ in fa_d256.values():
+        r_.pop("max_abs_err")
 
     # the fused chain at phase 3c's EW shape: ((a·b + c) − d) / e over five
     # 8192² float32 inputs; five read and one written, one operation per
@@ -2886,17 +3177,15 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
          f"{attn.n_kv_heads} KV heads, causal, window {attn.window}, tensor-core "
          f"route, device time (library: SDPA, explicit mask)"),
         # device time (events under "event_ms"); the float32 replay's shape
-        # and head dim 256 under "float32_replay" and "d256_float32", the
-        # CUDA-core kernel in the same windows under "cuda_cores_ms"
+        # and head dim 256 under "float32_replay" and "d256_float32"
         ("flash_attention_tf32x3", fa_tf32_main, fa_tf32_bound,
          f"1x{attn.n_heads}x{seq}x{attn.head_dim} float32, {attn.n_kv_heads} KV heads, "
          f"causal, window {attn.window}, 3×TF32 route, device time (library: SDPA, "
          f"explicit mask)"),
-        # the same shapes and head dim 256 in bfloat16 under "d256_bfloat16"
-        ("flash_attention", fa_cc_main, fa32_bound,
-         f"1x{attn.n_heads}x{seq}x{attn.head_dim} float32, {attn.n_kv_heads} KV heads, "
-         f"causal, window {attn.window}, CUDA-core kernel (on no path: it keeps "
-         f"bfloat16/float16 at head dim 256), device time (library: SDPA, explicit mask)"),
+        # device time (events under "event_ms"); gemma3-4b's local layers and
+        # float16 under "gemma3_4b_bfloat16" and "gemma7b_float16"
+        ("flash_attention_wgmma", fa16_main, (fa16_main["bound_ms"], fa16_main["bound_by"]),
+         fa16_main["shape"] + ", wgmma route, device time (library: SDPA)"),
         ("fused", {"ms": ms(lambda: ewise_chain_hopper(*chain_x, steps=chain)),
                    "plain_ms": ms(lambda: ewise_chain_ref(*chain_x, steps=chain)),
                    "library_ms": ms(four_aten, *chain_x),
@@ -2909,14 +3198,13 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     for name, times, (bound_ms, bound_by), shape in rows:
         # each kernel's launches in the run of the path it serves (PATH_OF):
         # phase 3 for the quickstart's, 3b for the model path's, 3c for the
-        # fused chain, 3b's float32 replay for the 3×TF32 FLASH_ATTN,
-        # phase 3's requests counted alone for the chirp FFT and the tile
-        # SORT; 0 for a kernel on no path
+        # fused chain, 3b's float32 replay for the 3×TF32 FLASH_ATTN, 3b's
+        # gemma3-4b leg for the wgmma FLASH_ATTN, phase 3's requests counted
+        # alone for the chirp FFT and the tile SORT
         path = PATH_OF.get(name)
-        n_launches = 0 if path == "none" else {
-            "serve": serve_launches, "graph": graph_launches,
-            **path_launches}.get(path, launches)[name]
-        if not n_launches and path != "none":
+        n_launches = {"serve": serve_launches, "graph": graph_launches,
+                      **path_launches}.get(path, launches)[name]
+        if not n_launches:
             fail(f"{name} was launched no time on its path")
         source, site = REPLACES[name]
         entry = {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
@@ -2932,7 +3220,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
             entry["launches_lone_request"] = path_launches["mmm_lone"]["mmm_tf32x3"]
         if name == "fused":
             print(f"  fused: four serial EW launches {times['serial_ewise_ms']:.4f} ms")
-        if name.startswith("flash_attention"):
+        if name in ("flash_attention_mma", "flash_attention_tf32x3"):
             entry["tflops"] = fa_flops / (times["ms"] * 1e-3) / 1e12
             print(f"  {name}: {entry['tflops']:.1f} TFLOP/s of the {fa_flops / 1e9:.1f} "
                   f"GFLOP")
@@ -3018,8 +3306,12 @@ def main() -> None:
           f"repro_torch.launch.serve on the kernels")
     t0 = time.perf_counter()
     serve_launches, serve_stats, path_launches["serve_float32"] = phase3b(dev)
-    seconds["3b serve"] = time.perf_counter() - t0
     print(json.dumps({"serve": serve_stats}))
+    print(f"phase 3b, head dim 256: {SERVE_D256['arch']} at full width, "
+          f"{SERVE_D256['pattern_repeats']} 5:1 pattern, served on the kernels")
+    path_launches["serve_d256"], d256_stats = phase3b_d256(dev)
+    print(json.dumps({"serve_d256": d256_stats}))
+    seconds["3b serve"] = time.perf_counter() - t0
     print(f"phase 3c: execution graphs, fusion and compiled replay on {card}")
     t0 = time.perf_counter()
     graph_launches, graph_stats = phase3c(dev, card)

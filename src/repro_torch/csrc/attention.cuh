@@ -1,11 +1,15 @@
-// Masks shared by the two FLASH_ATTN kernels (flash_attention.cu on the CUDA
-// cores, flash_attention_mma.cu on the tensor cores).
+// Masks shared by the three FLASH_ATTN kernels (flash_attention_mma.cu and
+// flash_attention_wgmma.cu for bfloat16 and float16, flash_attention_tf32x3.cu
+// for float32).
 //
 // Query row i sits at position q_offset + i, q_offset = Skv - Sq; key j is
 // visible to the query at position pos when
 //   (!causal || j <= pos || j < prefix) && (!window || j > pos - window || j < prefix),
 // and a masked score is the finite -1e30, as in the reference.
 #pragma once
+
+// -inf, the start of a running row max and the score of a key past Skv
+#define HALO_NEG_INF __int_as_float(0xff800000)
 
 namespace halo {
 

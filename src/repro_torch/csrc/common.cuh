@@ -6,6 +6,8 @@
 // 2 float16.
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -23,6 +25,23 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 }
 template <> __device__ __forceinline__ __half from_float<__half>(float x) {
   return __float2half_rn(x);
+}
+
+// x, y rounded to the 16-bit type T to nearest-even in one register (x in
+// the low half); x and y are left holding their rounded values in float32.
+template <typename T> __device__ __forceinline__ uint32_t round_pair(float& x, float& y);
+template <>
+__device__ __forceinline__ uint32_t round_pair<__nv_bfloat16>(float& x, float& y) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(x, y);
+  x = __low2float(p);
+  y = __high2float(p);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+template <> __device__ __forceinline__ uint32_t round_pair<__half>(float& x, float& y) {
+  const __half2 p = __floats2half2_rn(x, y);
+  x = __low2float(p);
+  y = __high2float(p);
+  return *reinterpret_cast<const uint32_t*>(&p);
 }
 
 // Elements of T in one 16-byte vector load.

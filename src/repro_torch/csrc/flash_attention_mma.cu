@@ -2,8 +2,9 @@
 // and float16.  q (B,H,Sq,D), k/v (B,Hkv,Skv,D) -> o (B,H,Sq,D), row-major
 // and contiguous, head dims 32, 64, 80, 96 and 128; float32 sums, o in the
 // input type.  The masks, positions and the masked score -1e30 are those of
-// attention.cuh, as in the CUDA-core kernel (flash_attention.cu), which keeps
-// float32 and head dim 256.
+// attention.cuh, as in the other two FLASH_ATTN routes
+// (flash_attention_wgmma.cu for bfloat16 and float16 at head dim 256,
+// flash_attention_tf32x3.cu for float32).
 //
 // Replaces src/repro/kernels/flash_attention/flash_attention.py::
 // flash_attention_pallas (_fa_kernel), whose grid (B, H, Sq/bq, Skv/bk)
@@ -58,7 +59,6 @@ namespace {
 
 constexpr int kBQ = 128, kBK = 64, kWarps = 8, kThreads = 32 * kWarps;
 constexpr int kPadE = 8;  // elements of padding per shared row (16 bytes)
-#define HALO_NEG_INF __int_as_float(0xff800000)
 
 using Shape = halo::AttnShape;
 
@@ -78,14 +78,6 @@ template <> struct MmaOp<__nv_bfloat16> {
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
   }
-  // x, y rounded to nearest-even into one register (x in the low half),
-  // and their rounded values back in float32
-  static __device__ __forceinline__ uint32_t pack(float& x, float& y) {
-    const __nv_bfloat162 p = __floats2bfloat162_rn(x, y);
-    x = __low2float(p);
-    y = __high2float(p);
-    return *reinterpret_cast<const uint32_t*>(&p);
-  }
 };
 template <> struct MmaOp<__half> {
   static __device__ __forceinline__ void run(float (&c)[4], const uint32_t (&a)[4],
@@ -95,12 +87,6 @@ template <> struct MmaOp<__half> {
         "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float& x, float& y) {
-    const __half2 p = __floats2half2_rn(x, y);
-    x = __low2float(p);
-    y = __high2float(p);
-    return *reinterpret_cast<const uint32_t*>(&p);
   }
 };
 
@@ -288,8 +274,8 @@ fa_mma_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __restr
     for (int nt = 0; nt < kNT; ++nt) {
       float p0 = expf(sc[nt][0] - mn0), p1 = expf(sc[nt][1] - mn0);
       float p2 = expf(sc[nt][2] - mn1), p3 = expf(sc[nt][3] - mn1);
-      pf[nt][0] = MmaOp<T>::pack(p0, p1);
-      pf[nt][1] = MmaOp<T>::pack(p2, p3);
+      pf[nt][0] = halo::round_pair<T>(p0, p1);
+      pf[nt][1] = halo::round_pair<T>(p2, p3);
       rs0 += p0 + p1;
       rs1 += p2 + p3;
     }
@@ -338,11 +324,11 @@ fa_mma_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __restr
     const int col = dt * 8 + 2 * tq;
     if (r0 < s.Sq) {
       float x = acc[dt][0] * inv0, y = acc[dt][1] * inv0;
-      *reinterpret_cast<uint32_t*>(o + (size_t)r0 * D + col) = MmaOp<T>::pack(x, y);
+      *reinterpret_cast<uint32_t*>(o + (size_t)r0 * D + col) = halo::round_pair<T>(x, y);
     }
     if (r1 < s.Sq) {
       float x = acc[dt][2] * inv1, y = acc[dt][3] * inv1;
-      *reinterpret_cast<uint32_t*>(o + (size_t)r1 * D + col) = MmaOp<T>::pack(x, y);
+      *reinterpret_cast<uint32_t*>(o + (size_t)r1 * D + col) = halo::round_pair<T>(x, y);
     }
   }
 }
@@ -376,9 +362,11 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int b, int d,
 
 }  // namespace
 
-// As halo_flash_attention, for bfloat16 (dtype 1) and float16 (2) only;
-// vec: q, k and v start on the 16-byte grid (cp.async staging), else plain
-// loads.  o must lie on the 4-byte grid.
+// Attention of q (b, h, sq, d) over k, v (b, hkv, skv, d) into o, row-major
+// and contiguous; query i at position skv - sq + i, the masks of
+// attention.cuh, scores scaled by `scale`.  bfloat16 (dtype 1) and float16
+// (2) at head dims 32 to 128 only; vec: q, k and v start on the 16-byte grid
+// (cp.async staging), else plain loads.  o must lie on the 4-byte grid.
 extern "C" int halo_flash_attention_mma(const void* q, const void* k, const void* v, void* o,
                                         int b, int h, int hkv, int sq, int skv, int d,
                                         int causal, int has_window, int window, int prefix,

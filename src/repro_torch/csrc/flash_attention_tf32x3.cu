@@ -3,7 +3,7 @@
 // contiguous, head dims 32, 64, 80, 96, 128 and 256.  The masks, positions
 // and the masked score -1e30 are those of attention.cuh, as in the other
 // two FLASH_ATTN kernels (flash_attention_mma.cu for bfloat16 and float16
-// up to head dim 128, flash_attention.cu for them at head dim 256).
+// up to head dim 128, flash_attention_wgmma.cu for them at head dim 256).
 //
 // Replaces src/repro/kernels/flash_attention/flash_attention.py::
 // flash_attention_pallas (_fa_kernel), whose grid (B, H, Sq/bq, Skv/bk)
@@ -71,7 +71,6 @@ namespace {
 
 constexpr int kStageD = 32;   // head-dim columns per q·kᵀ accumulator
 constexpr int kChunk = 32;    // keys per p·v accumulator, at most
-#define HALO_NEG_INF __int_as_float(0xff800000)
 
 using Shape = halo::AttnShape;
 
@@ -627,7 +626,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* ws,
 
 }  // namespace
 
-// As halo_flash_attention, for float32 (dtype 0) only; vec: q, k and v
+// As halo_flash_attention_mma, for float32 (dtype 0) only, with the split
+// pass's workspace ws of ws_bytes (tf32x3_workspace_bytes); vec: q, k and v
 // start on the 16-byte grid (cp.async staging and 16-byte loads of q),
 // else plain loads.  o must lie on the 8-byte grid.
 extern "C" int halo_flash_attention_tf32x3(const void* q, const void* k, const void* v,

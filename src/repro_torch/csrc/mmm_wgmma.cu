@@ -48,10 +48,11 @@
 //   TMA needs each row stride a multiple of 16 bytes and each base
 //   16-byte aligned.  An operand that breaks either (A: K off a multiple
 //   of 8 or A off the grid; B: N off a multiple of 8 or B off the grid) is
-//   first copied by pack16_kernel into a zero-padded, aligned workspace,
-//   A as M x Kp8 and B as K x Np8 (Kp8, Np8 rounded up to 8); an operand
-//   TMA can load is read where it lies.  The pad columns are zeros, and
-//   B's rows past K are TMA's zero fill, so the padded K adds nothing.
+//   first copied by pack16_kernel (pack16.cuh) into a zero-padded,
+//   aligned workspace, A as M x Kp8 and B as K x Np8 (Kp8, Np8 rounded up
+//   to 8); an operand TMA can load is read where it lies.  The pad columns
+//   are zeros, and B's rows past K are TMA's zero fill, so the padded K
+//   adds nothing.
 // - float32 (Tf32x3): one split pass first (tf32_split_kernel) writes hi =
 //   tf32(x) and lo = tf32(x - hi), rounded to nearest with ties away from
 //   zero (cvt.rna.tf32.f32; split_tf32 has the non-finite cases), of A as
@@ -85,10 +86,10 @@
 // TMA-store epilogue are later work.
 #include <cuda.h>
 
-#include <algorithm>
 #include <cstdint>
 
 #include "common.cuh"
+#include "pack16.cuh"
 #include "tma_wgmma.cuh"
 
 namespace {
@@ -97,46 +98,6 @@ constexpr int kBM = 128;
 constexpr int kConsumerThreads = 256;                 // two warpgroups
 constexpr int kThreads = kConsumerThreads + 32;        // and one producer warp
 constexpr int kConsumerWarps = kConsumerThreads / 32;
-
-#define HALO_WGMMA_D128 \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),      \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),             \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),         \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),         \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
-      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),         \
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),         \
-      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),         \
-      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),         \
-      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),         \
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),         \
-      "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),         \
-      "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),         \
-      "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),         \
-      "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),         \
-      "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),         \
-      "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),         \
-      "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),         \
-      "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]),        \
-      "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]),    \
-      "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]),    \
-      "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),    \
-      "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),    \
-      "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),    \
-      "+f"(d[126]), "+f"(d[127])
-
-#define HALO_WGMMA_REGS128 \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,  " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,  " \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,  " \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,  " \
-  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,  " \
-  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85,  " \
-  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99,  " \
-  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,  " \
-  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123,  " \
-  "%124, %125, %126, %127}"
 
 // d(64xBN, float32) += A(64x16, K-major) @ B(16xBN, N-major: transpose
 // bit set), both from shared memory through their descriptors.
@@ -182,20 +143,6 @@ template <> struct Wgmma<__half, 256> {
   }
 };
 
-template <typename T> struct Pair;
-template <> struct Pair<__nv_bfloat16> {
-  using type = __nv_bfloat162;
-  static __device__ __forceinline__ type make(float x, float y) {
-    return __floats2bfloat162_rn(x, y);
-  }
-};
-template <> struct Pair<__half> {
-  using type = __half2;
-  static __device__ __forceinline__ type make(float x, float y) {
-    return __floats2half2_rn(x, y);
-  }
-};
-
 // 16-bit operands (T bfloat16 or float16) into a 128 x BN tile: a stage
 // holds A's 128 x 64 box (K-major, 128-byte rows) and BN/64 boxes of B of
 // 64 K rows x 64 columns, N-major as B lies in memory, read through
@@ -230,7 +177,7 @@ template <typename T, int BN> struct Half16 {
   }
 
   static __device__ __forceinline__ void store(T* p, float x, float y) {
-    *reinterpret_cast<typename Pair<T>::type*>(p) = Pair<T>::make(x, y);
+    *reinterpret_cast<uint32_t*>(p) = halo::round_pair<T>(x, y);
   }
   static __device__ __forceinline__ T one(float x) { return halo::from_float<T>(x); }
 };
@@ -427,28 +374,6 @@ tf32_split_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
-// The 16-bit route's pack pass: src (rows x cols, row-major, 2-byte
-// elements, any alignment) into dst (rows x cols_p, 16-byte aligned,
-// cols_p a multiple of 8) with zeros in the columns cols .. cols_p - 1.
-// Each thread builds 16-byte vectors of dst from 2-byte loads; the bits are
-// copied as they are, so one kernel serves bfloat16 and float16.
-__global__ void __launch_bounds__(256)
-pack16_kernel(const uint16_t* __restrict__ src, uint16_t* __restrict__ dst, int rows,
-              int cols, int cols_p) {
-  const int vecs = cols_p / 8;
-  const size_t total = (size_t)rows * vecs;
-  for (size_t v = blockIdx.x * (size_t)blockDim.x + threadIdx.x; v < total;
-       v += (size_t)gridDim.x * blockDim.x) {
-    const int r = static_cast<int>(v / vecs), c0 = static_cast<int>(v % vecs) * 8;
-    const uint16_t* row = src + (size_t)r * cols;
-    uint4 u;
-    uint16_t* e = reinterpret_cast<uint16_t*>(&u);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) e[j] = c0 + j < cols ? row[c0 + j] : uint16_t{0};
-    reinterpret_cast<uint4*>(dst)[v] = u;
-  }
-}
-
 template <typename T> struct MapType;
 template <> struct MapType<__nv_bfloat16> {
   static constexpr CUtensorMapDataType value = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -497,18 +422,7 @@ int launch_width(const void* a, const void* b, void* c, int m, int n, int k, int
                    : launch_16<T, 128>(a, b, c, m, n, k, kp, np, s);
 }
 
-bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
-
 int round_up(int x, int to) { return (x + to - 1) / to * to; }
-
-// pack16_kernel of src (rows x cols) into dst (rows x cols_p)
-int pack(const void* src, void* dst, int rows, int cols, int cols_p, cudaStream_t s) {
-  const long long vecs = static_cast<long long>(rows) * (cols_p / 8);
-  const unsigned blocks = static_cast<unsigned>(std::min<long long>((vecs + 255) / 256, 1 << 16));
-  pack16_kernel<<<blocks, 256, 0, s>>>(static_cast<const uint16_t*>(src),
-                                       static_cast<uint16_t*>(dst), rows, cols, cols_p);
-  return static_cast<int>(cudaGetLastError());
-}
 
 }  // namespace
 
@@ -529,13 +443,13 @@ extern "C" int halo_mmm_wgmma(const void* a, const void* b, void* c, void* ws, i
   const int kp = pack_a ? round_up(k, 8) : k, np = pack_b ? round_up(n, 8) : n;
   uint16_t* next = static_cast<uint16_t*>(ws);
   if (pack_a) {
-    const int rc = pack(a, next, m, k, kp, s);
+    const int rc = pack16(a, next, m, k, kp, s);
     if (rc) return rc;
     a = next;
     next += static_cast<size_t>(m) * kp;
   }
   if (pack_b) {
-    const int rc = pack(b, next, k, n, np, s);
+    const int rc = pack16(b, next, k, n, np, s);
     if (rc) return rc;
     b = next;
   }

@@ -83,10 +83,7 @@ _SIGNATURES = {
     # stream
     "halo_rmsnorm": [_vp, _vp, _vp, _int, _int, _f, _int, _int, _int, _int, _int, _vp],
     # q, k, v, out, b, h, hkv, sq, skv, d, causal, has_window, window,
-    # prefix, scale, dtype, stream
-    "halo_flash_attention": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
-                             _int, _int, _int, _int, _int, _f, _int, _vp],
-    # as halo_flash_attention, and vec before the stream
+    # prefix, scale, dtype, vec, stream (bfloat16 or float16, d <= 128)
     "halo_flash_attention_mma": [_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
                                  _int, _int, _int, _int, _int, _f, _int, _int, _vp],
     # q, k, v, out, ws, ws_bytes, then as halo_flash_attention_mma (float32
@@ -94,6 +91,10 @@ _SIGNATURES = {
     "halo_flash_attention_tf32x3": [_vp, _vp, _vp, _vp, _vp, _ll, _int, _int, _int, _int,
                                     _int, _int, _int, _int, _int, _int, _f, _int, _int,
                                     _vp],
+    # q, k, v, out, ws, ws_bytes, then as halo_flash_attention_mma without
+    # vec (bfloat16 or float16 at d = 256; ws takes the aligned copies)
+    "halo_flash_attention_wgmma": [_vp, _vp, _vp, _vp, _vp, _ll, _int, _int, _int, _int,
+                                   _int, _int, _int, _int, _int, _int, _f, _int, _vp],
     # inputs (void* array), n_in, steps (int array), n_steps, out, n, dtype,
     # vec, stream
     "halo_fused": [ctypes.POINTER(_vp), _int, ctypes.POINTER(_int), _int, _vp,

@@ -1,6 +1,6 @@
 """FLASH_ATTN on Hopper: the ctypes wrappers around
 ``csrc/flash_attention_tf32x3.cu``, ``csrc/flash_attention_mma.cu`` and
-``csrc/flash_attention.cu``, and the route between them.
+``csrc/flash_attention_wgmma.cu``, and the route between them.
 
 Replaces ``repro/kernels/flash_attention/flash_attention.py::
 flash_attention_pallas``.  Online-softmax GQA attention, one block per
@@ -19,12 +19,15 @@ routes, chosen by type and head dim alone (:func:`fa_route`):
   :data:`MMA_HEAD_DIMS`: both products on the tensor cores (mma.sync, float32
   accumulators), p rounded to the input type in registers, K/V tiles in a
   cp.async ring;
-* ``cuda_cores`` (``flash_attention.cu``), bfloat16 and float16 at head dim
-  256: float32 products on the CUDA cores.
-  :func:`flash_attention_cuda_cores_hopper` still takes every type.
+* ``wgmma`` (``flash_attention_wgmma.cu``), bfloat16 and float16 at head
+  dim :data:`WGMMA_HEAD_DIM`: both products on wgmma, p rounded to the input
+  type in registers as on the mma route, q and a two-stage K/V ring loaded
+  by TMA from a producer warp.  Operands off the 16-byte grid are first
+  copied into a workspace the wrapper allocates
+  (:func:`wgmma_workspace_bytes`).
 
 Each route counts its own launches (``flash_attention_tf32x3``,
-``flash_attention_mma`` and ``flash_attention``).
+``flash_attention_mma`` and ``flash_attention_wgmma``).
 """
 from __future__ import annotations
 
@@ -34,22 +37,25 @@ import torch
 
 from .. import _cuda
 
-LAUNCHES = _cuda.counter("flash_attention")
 MMA_LAUNCHES = _cuda.counter("flash_attention_mma")
 TF32X3_LAUNCHES = _cuda.counter("flash_attention_tf32x3")
+WGMMA_LAUNCHES = _cuda.counter("flash_attention_wgmma")
 
 #: head dims the kernels are instantiated for
 HEAD_DIMS = (32, 64, 80, 96, 128, 256)
-#: head dims of the tensor-core route: multiples of 16 up to 128
+#: head dims of the mma route: multiples of 16 up to 128
 MMA_HEAD_DIMS = (32, 64, 80, 96, 128)
+#: the head dim of the wgmma route (gemma-7b's and gemma3-4b's)
+WGMMA_HEAD_DIM = 256
 
 
 def fa_route(dtype: torch.dtype, d: int) -> str:
     """``"tf32x3"`` for float32, ``"mma"`` for bfloat16 and float16 at a head
-    dim in :data:`MMA_HEAD_DIMS`, else ``"cuda_cores"``."""
+    dim in :data:`MMA_HEAD_DIMS`, ``"wgmma"`` for them at
+    :data:`WGMMA_HEAD_DIM`."""
     if dtype == torch.float32:
         return "tf32x3"
-    return "mma" if d in MMA_HEAD_DIMS else "cuda_cores"
+    return "mma" if d in MMA_HEAD_DIMS else "wgmma"
 
 
 def tf32x3_key_tile(d: int) -> int:
@@ -68,6 +74,14 @@ def tf32x3_workspace_bytes(b: int, hkv: int, skv: int, d: int) -> int:
     blocks = -(-d // 32)
     tile_bytes = 2 * (tile * blocks * 128 + d * (tile // 32) * 128)
     return b * hkv * -(-skv // tile) * tile_bytes
+
+
+def wgmma_workspace_bytes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """Bytes of the aligned copies the wgmma route makes first: TMA loads
+    from a 16-byte base only, so each of q, k and v whose data lies off the
+    16-byte grid is copied whole (its rows of 512 bytes keep every stride
+    on the grid)."""
+    return sum(t.numel() * t.element_size() for t in (q, k, v) if t.data_ptr() % 16)
 
 
 _MAX_GRID_YZ = 65535
@@ -120,20 +134,13 @@ def _launch(route, q, k, v, causal, window, prefix_len):
         _cuda.check(rc, "flash_attention_mma")
         MMA_LAUNCHES.add()
     else:
-        rc = _cuda.lib().halo_flash_attention(*args, _cuda.stream(q.device))
-        _cuda.check(rc, "flash_attention")
-        LAUNCHES.add()
+        ws_bytes = wgmma_workspace_bytes(q, k, v)
+        ws = torch.empty(max(ws_bytes, 16), dtype=torch.uint8, device=q.device)
+        rc = _cuda.lib().halo_flash_attention_wgmma(
+            *ptrs, ws.data_ptr(), ws_bytes, *rest, _cuda.stream(q.device))
+        _cuda.check(rc, "flash_attention_wgmma")
+        WGMMA_LAUNCHES.add()
     return out
-
-
-def flash_attention_cuda_cores_hopper(q: torch.Tensor, k: torch.Tensor,
-                                      v: torch.Tensor, *, causal: bool = True,
-                                      window: Optional[int] = None,
-                                      prefix_len: int = 0) -> torch.Tensor:
-    """Attention of q over k, v on the card by the CUDA-core kernel (any
-    type and head dim of :data:`HEAD_DIMS`), in q's type."""
-    _cuda.require_cuda(flash_attention_problem(q, k, v), "FLASH_ATTN", q)
-    return _launch("cuda_cores", q, k, v, causal, window, prefix_len)
 
 
 def flash_attention_mma_hopper(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -148,6 +155,19 @@ def flash_attention_mma_hopper(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                          f"head dims {MMA_HEAD_DIMS}, got {q.dtype}, "
                          f"{q.shape[-1]}")
     return _launch("mma", q, k, v, causal, window, prefix_len)
+
+
+def flash_attention_wgmma_hopper(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, *, causal: bool = True,
+                                  window: Optional[int] = None,
+                                  prefix_len: int = 0) -> torch.Tensor:
+    """Attention of q over k, v on the card by the wgmma kernel (bfloat16 or
+    float16 at head dim :data:`WGMMA_HEAD_DIM`), in q's type."""
+    _cuda.require_cuda(flash_attention_problem(q, k, v), "FLASH_ATTN", q)
+    if fa_route(q.dtype, q.shape[-1]) != "wgmma":
+        raise ValueError(f"FLASH_ATTN: the wgmma route takes bfloat16 or float16 at "
+                         f"head dim {WGMMA_HEAD_DIM}, got {q.dtype}, {q.shape[-1]}")
+    return _launch("wgmma", q, k, v, causal, window, prefix_len)
 
 
 def flash_attention_tf32x3_hopper(q: torch.Tensor, k: torch.Tensor,

@@ -21,8 +21,8 @@ from repro_torch.kernels.fft.fft import fft_chirp_hopper, fft_radix_hopper
 from repro_torch.kernels.fft.ops import cached_chirp_tables, cached_radix_twiddles
 from repro_torch.kernels.fft.ref import fft_chirp_ref, fft_radix_ref
 from repro_torch.kernels.flash_attention.flash_attention import (
-    HEAD_DIMS, fa_route, flash_attention_cuda_cores_hopper, flash_attention_hopper,
-    flash_attention_mma_hopper, flash_attention_tf32x3_hopper)
+    HEAD_DIMS, fa_route, flash_attention_hopper, flash_attention_mma_hopper,
+    flash_attention_tf32x3_hopper, flash_attention_wgmma_hopper)
 from repro_torch.kernels.flash_attention.ref import (attention_f64, attention_mma_ref,
                                                      attention_ref, attention_tf32x3_ref)
 from repro_torch.kernels.fused import (ACC, MAX_INPUTS, MAX_STEPS,
@@ -58,10 +58,12 @@ DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 #: normwise relative error: float32 differs only in summation order; the
 #: 16-bit types also round the output (8- or 11-bit mantissa)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 2e-3}
-#: FLASH_ATTN's tensor-core route against its plain model, which takes the
-#: same tiles and roundings: only the float32 sum order differs (readings
-#: on the H100 ≤ 1.8e-4 bfloat16, ≤ 6e-5 float16); a window edge one key
-#: off reads ≥ 4e-3, inside TOL
+#: FLASH_ATTN's 16-bit tensor-core routes (mma, wgmma) against their plain
+#: model, which takes the same 64-key tiles and roundings: only the float32
+#: sum order differs.  Readings on the H100: the mma route ≤ 1.8e-4
+#: bfloat16, ≤ 6e-5 float16; the wgmma route ≤ 9.0e-5 and ≤ 5.7e-5, and
+#: 3.56e-4 and 1.68e-4 over 8192 keys.  A window edge one key off reads
+#: ≥ 4e-3 (mma) and 5.66e-3 (wgmma, bfloat16), inside TOL
 MMA_MODEL_TOL = {torch.bfloat16: 1e-3, torch.float16: 3e-4}
 #: SMMM's tensor-core kernel against its plain model (the same padded
 #: workspace and per-stage sums: only the order of a stage's sum differs;
@@ -819,8 +821,8 @@ def test_flash_attention_kernel(card, dtype, d, case):
     # seen": query rows 0-69 sit before every key and get the mean of v,
     # as attention_ref gives it.  v has mean 1, so the output is no
     # near-cancelling sum whose float32 reordering alone errs by ~1e-5.
-    # The route fa_route picks (the tensor cores for 16-bit types up to
-    # d = 128)
+    # The route fa_route picks (mma for 16-bit types up to d = 128, wgmma at
+    # d = 256, tf32x3 for float32)
     c = FA_CASES[case]
     q = _rnd(card, 2, 8, c["sq"], d, dtype=dtype)
     k = _rnd(card, 2, 2, c["skv"], d, dtype=dtype, seed=1)
@@ -849,18 +851,104 @@ def test_flash_attention_mma_kernel(card, dtype, d, case):
     assert _normwise(out, attention_mma_ref(q, k, v, **kw)) <= MMA_MODEL_TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [80, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("case", sorted(FA_CASES))
-def test_flash_attention_cuda_cores_kernel(card, dtype, d, case):
-    # the CUDA-core route in every type, 16-bit types included
+def test_flash_attention_wgmma_kernel(card, dtype, case):
+    # the wgmma route (head dim 256): within TOL of the plain version, and
+    # within MMA_MODEL_TOL of its plain model (64-key tiles, p rounded to
+    # the input type)
     c = FA_CASES[case]
-    q = _rnd(card, 2, 8, c["sq"], d, dtype=dtype)
-    k = _rnd(card, 2, 2, c["skv"], d, dtype=dtype, seed=1)
-    v = _rnd(card, 2, 2, c["skv"], d, dtype=dtype, seed=2, shift=1.0)
+    q = _rnd(card, 2, 8, c["sq"], 256, dtype=dtype)
+    k = _rnd(card, 2, 2, c["skv"], 256, dtype=dtype, seed=1)
+    v = _rnd(card, 2, 2, c["skv"], 256, dtype=dtype, seed=2, shift=1.0)
     kw = dict(causal=c["causal"], window=c["window"], prefix_len=c["prefix_len"])
-    out = flash_attention_cuda_cores_hopper(q, k, v, **kw)
+    out = flash_attention_wgmma_hopper(q, k, v, **kw)
+    assert out.dtype == dtype and out.shape == q.shape
     assert _normwise(out, attention_ref(q, k, v, **kw)) <= TOL[dtype]
+    assert _normwise(out, attention_mma_ref(q, k, v, tile=64, **kw)) <= MMA_MODEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_wgmma_kernel_is_repeatable(card, dtype):
+    # key tiles in order, no atomics: the same bits
+    q = _rnd(card, 1, 8, 300, 256, dtype=dtype)
+    k = _rnd(card, 1, 4, 300, 256, dtype=dtype, seed=1)
+    v = _rnd(card, 1, 4, 300, 256, dtype=dtype, seed=2, shift=1.0)
+    out = flash_attention_wgmma_hopper(q, k, v, window=100, prefix_len=20)
+    assert torch.equal(_bits(out), _bits(
+        flash_attention_wgmma_hopper(q, k, v, window=100, prefix_len=20)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("off", ["q", "k", "v", "all"])
+def test_flash_attention_wgmma_kernel_unaligned_views(card, dtype, off):
+    # TMA loads from a 16-byte base only: an operand off the grid is first
+    # copied to an aligned workspace
+    def view(h, s, seed, shift=0.0, skew=False):
+        n = 2 * h * s * 256
+        t = _rnd(card, n + 1, dtype=dtype, seed=seed, shift=shift)
+        return (t[1:] if skew else t[:n]).view(2, h, s, 256)
+    q = view(8, 150, 0, skew=off in ("q", "all"))
+    k = view(2, 150, 1, skew=off in ("k", "all"))
+    v = view(2, 150, 2, 1.0, skew=off in ("v", "all"))
+    assert sum(t.data_ptr() % 16 != 0 for t in (q, k, v)) == (3 if off == "all" else 1)
+    out = flash_attention_wgmma_hopper(q, k, v, window=37)
+    assert _normwise(out, attention_ref(q, k, v, window=37)) <= TOL[dtype]
+    assert _normwise(out, attention_mma_ref(q, k, v, window=37)) <= MMA_MODEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_wgmma_kernel_over_a_long_row(card, dtype):
+    # every query row sees all 8192 keys: 128 key tiles through the ring
+    q = _rnd(card, 1, 4, 128, 256, dtype=dtype, seed=3)
+    k = _rnd(card, 1, 2, 8192, 256, dtype=dtype, seed=4)
+    v = _rnd(card, 1, 2, 8192, 256, dtype=dtype, seed=5, shift=1.0)
+    out = flash_attention_wgmma_hopper(q, k, v, causal=False)
+    assert _normwise(out, attention_ref(q, k, v, causal=False)) <= TOL[dtype]
+    assert _normwise(out, attention_mma_ref(q, k, v, causal=False)) <= MMA_MODEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_attention_wgmma_kernel_reads_no_other_heads_keys(card, dtype):
+    # NaN in column 7 of KV head 1's first key: query heads 2-3 see it (NaN
+    # in column 7, as in the model); heads 0-1 must not, though their last
+    # key tile runs past Skv = 150, where the rows read must be zeros and not
+    # KV head 1's first keys
+    q = _rnd(card, 1, 4, 150, 256, dtype=dtype, seed=6)
+    k = _rnd(card, 1, 2, 150, 256, dtype=dtype, seed=7)
+    v = _rnd(card, 1, 2, 150, 256, dtype=dtype, seed=8, shift=1.0)
+    v[:, 1, 0, 7] = float("nan")
+    out, want = flash_attention_wgmma_hopper(q, k, v), attention_mma_ref(q, k, v)
+    assert torch.isnan(want[:, 2:, :, 7]).all() and not torch.isnan(want[:, :2]).any()
+    assert torch.equal(torch.isnan(out), torch.isnan(want))
+    assert _normwise(out[:, :2], want[:, :2]) <= MMA_MODEL_TOL[dtype]
+
+
+def test_flash_attention_wgmma_kernel_launches_first_on_a_new_thread(card):
+    """The wgmma FLASH_ATTN encodes TMA tensor maps with
+    cuTensorMapEncodeTiled, which needs the device's context current on
+    the calling thread: it launches as the first CUDA work of a new host
+    thread, as a request's first launch on an agent's worker does."""
+    import threading
+
+    q = _rnd(card, 1, 8, 200, 256, dtype=torch.bfloat16)
+    k = _rnd(card, 1, 4, 200, 256, dtype=torch.bfloat16, seed=1)
+    v = _rnd(card, 1, 4, 200, 256, dtype=torch.bfloat16, seed=2, shift=1.0)
+    torch.cuda.synchronize(card)
+    result = {}
+
+    def first_launch():
+        try:
+            result["out"] = flash_attention_wgmma_hopper(q, k, v, window=64)
+            torch.cuda.synchronize(card)
+        except Exception as e:                # reported by the assert below
+            result["error"] = e
+
+    thread = threading.Thread(target=first_launch)
+    thread.start()
+    thread.join()
+    assert "error" not in result, result.get("error")
+    assert _normwise(result["out"], attention_ref(q, k, v, window=64)) <= TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -987,11 +1075,15 @@ def test_new_wrappers_refuse_bad_operands_on_the_card(card):
             fn(*args)
     after = _cuda.launch_counts()
     assert after.get("rmsnorm", 0) == before.get("rmsnorm", 0)
-    for name in ("flash_attention", "flash_attention_mma", "flash_attention_tf32x3"):
+    for name in ("flash_attention_mma", "flash_attention_tf32x3", "flash_attention_wgmma"):
         assert after.get(name, 0) == before.get(name, 0)
     q = torch.randn(1, 4, 8, 32, device=card).bfloat16()
     with pytest.raises(ValueError, match="tf32x3 route takes float32"):
         flash_attention_tf32x3_hopper(q, q, q)
+    with pytest.raises(ValueError, match="wgmma route takes bfloat16 or float16"):
+        flash_attention_wgmma_hopper(q, q, q)
+    with pytest.raises(ValueError, match="wgmma route takes bfloat16 or float16"):
+        flash_attention_wgmma_hopper(*(torch.randn(1, 4, 8, 256, device=card),) * 3)
     assert _cuda.launch_counts() == after
 
 
@@ -1067,7 +1159,8 @@ def test_model_on_the_card_runs_the_kernels(card):
         expected[prefill] += 7 * layers
         assert {k: counts[k] for k in expected} == expected
         assert counts["rmsnorm"] == 5 * (2 * layers + 1)
-        others = {"flash_attention", "flash_attention_mma", "flash_attention_tf32x3"} - {attn}
+        others = {"flash_attention_mma", "flash_attention_tf32x3",
+                  "flash_attention_wgmma"} - {attn}
         assert counts[attn] == layers and all(counts[o] == 0 for o in others)
         _cuda.reset_launch_counts()
         ref = run(model, params, plain)
@@ -1097,15 +1190,16 @@ def test_each_launch_counts_once(card):
     hist_hopper(a)
     rmsnorm_hopper(a, a[0])
     q = a[:, :8].reshape(1, 2, 2, 32)
-    flash_attention_cuda_cores_hopper(q, q[:, :1], q[:, :1])
     qb = q.bfloat16()
     flash_attention_mma_hopper(qb, qb[:, :1], qb[:, :1])
     flash_attention_tf32x3_hopper(q, q[:, :1], q[:, :1])
+    q256 = a.reshape(1, 1, 1, 256).bfloat16()
+    flash_attention_wgmma_hopper(q256, q256, q256)
     after = _cuda.launch_counts()
     for name in ("mmm_skinny", "mmm_wgmma", "mmm_tf32x3", "ewise", "mvm", "vdp",
                  "jacobi", "conv1d", "spmm", "fft_chirp", "fft_radix", "sort", "sort_radix",
-                 "hist", "rmsnorm", "flash_attention", "flash_attention_mma",
-                 "flash_attention_tf32x3"):
+                 "hist", "rmsnorm", "flash_attention_mma", "flash_attention_tf32x3",
+                 "flash_attention_wgmma"):
         assert after[name] == before[name] + 1
 
 

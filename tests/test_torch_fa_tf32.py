@@ -164,7 +164,7 @@ def test_one_pv_accumulator_over_a_long_row_errs_more_than_one_per_32_keys():
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_fa_route_sends_float32_to_tf32x3(d):
     assert fa_route(torch.float32, d) == "tf32x3"
-    assert fa_route(torch.bfloat16, d) == ("mma" if d <= 128 else "cuda_cores")
+    assert fa_route(torch.bfloat16, d) == ("mma" if d <= 128 else "wgmma")
 
 
 def test_tf32x3_wrapper_refuses_host_tensors_and_counts_nothing():

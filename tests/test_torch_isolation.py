@@ -116,8 +116,8 @@ ENTRY = {"spmm": "smmm"}
 @pytest.mark.parametrize("name", ["mmm_skinny", "mmm_wgmma", "ewise", "mvm",
                                   "vdp", "jacobi", "conv1d", "spmm", "fft_chirp", "fft_radix",
                                   "sort", "sort_radix", "hist", "rmsnorm",
-                                  "flash_attention", "flash_attention_mma",
-                                  "flash_attention_tf32x3", "fused"])
+                                  "flash_attention_mma", "flash_attention_tf32x3",
+                                  "flash_attention_wgmma", "fused"])
 def test_kernel_sources_carry_their_note(name):
     src = (PKG / "csrc" / f"{name}.cu").read_text()
     head = src.split("#include")[0]

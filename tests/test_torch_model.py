@@ -221,10 +221,14 @@ def fa_inputs(dtype, sq, skv, h=8, hkv=2, d=80, seed=0):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [80, 256])
 @pytest.mark.parametrize("case", sorted(FA_CASES))
-def test_flash_attention_matches_jax(dtype, case):
+def test_flash_attention_matches_jax(dtype, d, case):
+    """danube's head dim and gemma's 256; at 256 in bfloat16 also the plain
+    model of the wgmma route (attention_mma_ref, 64-key tiles, p rounded to
+    bfloat16)."""
     c = FA_CASES[case]
-    q, k, v = fa_inputs(dtype, c["sq"], c["skv"])
+    q, k, v = fa_inputs(dtype, c["sq"], c["skv"], d=d)
     kw = dict(causal=c["causal"], window=c["window"], prefix_len=c["prefix_len"])
     want = j_fa_ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
                                     jnp.asarray(v), interpret=True, **kw)
@@ -235,6 +239,9 @@ def test_flash_attention_matches_jax(dtype, case):
     # the library row: SDPA with the end-aligned mask where it differs
     assert _normwise(t_fa_ref.attention_aten(tq, tk, tv, **kw), want) \
         <= KERNEL_TOL[dtype]
+    if d == 256 and dtype == "bfloat16":
+        assert _normwise(t_fa_ref.attention_mma_ref(tq, tk, tv, tile=64, **kw), want) \
+            <= KERNEL_TOL[dtype]
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take():
@@ -332,6 +339,50 @@ def test_model_prefill_and_ring_decode_match_jax(cpu_session, arch, n_kv):
         jl, jcache = decode(jp, jcache, jnp.asarray(tok), jnp.int32(pos))
         tl, tcache = tm.decode_step(tp, tcache, torch.from_numpy(tok).long(), pos)
         assert _normwise(tl, jl) <= MODEL_TOL, (arch, i)
+
+
+def _head_dim_256(cfg):
+    """Reduced gemma3-4b as the wgmma FLASH_ATTN route sees it: head dim
+    256 kept, 2 heads on 1 KV head, one 5:1 pattern (5 local layers, window
+    32, and 1 global), the reduced widths otherwise."""
+    stage = cfg.stages[0]
+    pattern = tuple(dataclasses.replace(b, attn=dataclasses.replace(
+        b.attn, n_heads=2, n_kv_heads=1, head_dim=256)) for b in stage.pattern)
+    return dataclasses.replace(cfg, stages=(dataclasses.replace(
+        stage, pattern=pattern, repeats=1),))
+
+
+def test_head_dim_256_model_prefill_and_ring_decode_match_jax(cpu_session):
+    """gemma3-4b at head dim 256 (_head_dim_256), on the JAX weights: a
+    36-token prompt passes the local window, so the local layers' caches
+    roll into rings beside the global layer's; 8 decode steps wrap them.
+    Logits at every step and the padded caches ≤ 1e-4 normwise."""
+    jc = _head_dim_256(j_get_config("gemma3-4b").reduced())
+    tc = _head_dim_256(get_config("gemma3-4b").reduced())
+    assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+    assert tc.n_layers == 6 and [b.attn.window for b in tc.stages[0].pattern] \
+        == [32] * 5 + [None]
+    jm, tm = j_build_model(jc), build_model(tc)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp))
+    rng = np.random.default_rng(2)
+    prompt = rng.integers(0, tc.vocab_size, (1, 36)).astype(np.int32)
+    steps = rng.integers(0, tc.vocab_size, (8, 1, 1)).astype(np.int32)
+    max_len = 48
+    jl, jcache = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(prompt)})
+    tl, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(prompt).long()})
+    assert _normwise(tl, jl) <= MODEL_TOL
+    jcache = j_kvcache.pad_caches(jm.cfg, jcache, max_len)
+    tcache = t_kvcache.pad_caches(tc, tcache, max_len)
+    leaves = torch.utils._pytree.tree_leaves(tcache)
+    assert sorted({t.shape[-2] for t in leaves}) == [32, max_len]
+    for jc_, tc_ in zip(jax.tree.leaves(jcache), leaves):
+        assert _normwise(tc_, jc_) <= MODEL_TOL
+    decode = jax.jit(jm.decode_step)
+    for i, tok in enumerate(steps):
+        jl, jcache = decode(jp, jcache, jnp.asarray(tok), jnp.int32(36 + i))
+        tl, tcache = tm.decode_step(tp, tcache, torch.from_numpy(tok).long(), 36 + i)
+        assert _normwise(tl, jl) <= MODEL_TOL, i
 
 
 def test_decode_step_leaves_inactive_lanes_untouched(cpu_session):

@@ -21,8 +21,8 @@ from repro.kernels.sorthist import ref as j_sh_ref
 from repro_torch.core.compute_object import from_numpy, to_numpy
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.flash_attention.flash_attention import (
-    HEAD_DIMS, MMA_HEAD_DIMS, fa_route, flash_attention_cuda_cores_hopper,
-    flash_attention_mma_hopper)
+    HEAD_DIMS, MMA_HEAD_DIMS, WGMMA_HEAD_DIM, fa_route, flash_attention_mma_hopper,
+    flash_attention_wgmma_hopper, wgmma_workspace_bytes)
 from repro_torch.kernels.flash_attention.ref import attention_mma_ref
 from repro_torch.kernels.sorthist import sorthist as t_sh
 from repro_torch.kernels.sorthist.ref import (keys_to_values, radix_passes,
@@ -169,10 +169,11 @@ FA_CASES = {
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
-@pytest.mark.parametrize("d", [32, 80, 128])
+@pytest.mark.parametrize("d", [32, 80, 128, 256])
 @pytest.mark.parametrize("case", sorted(FA_CASES))
 def test_attention_mma_ref_matches_jax(dtype, d, case):
-    """4 query heads over 2 KV heads; v has mean 1.  "no key seen": query
+    """The plain model of both 16-bit routes (mma up to d = 128, wgmma at
+    d = 256).  4 query heads over 2 KV heads; v has mean 1.  "no key seen": query
     rows 0–19 see no key; the reference's Pallas op gives them Σv over keys
     zero-padded to its block (tests/test_torch_model.py pins it), so that
     case is held to the JAX package's attention_ref, which gives the mean
@@ -201,11 +202,26 @@ def test_attention_mma_ref_matches_jax(dtype, d, case):
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_fa_route_by_type_and_head_dim(dtype, d):
     # float32 on the 3×TF32 tensor-core route at every head dim; 16-bit
-    # types on the tensor cores up to d = 128, the CUDA cores at d = 256
+    # types on mma.sync up to d = 128 and on wgmma at d = 256
     want = ("tf32x3" if dtype == torch.float32
-            else "mma" if d <= 128 else "cuda_cores")
+            else "mma" if d <= 128 else "wgmma")
     assert fa_route(dtype, d) == want
     assert (d in MMA_HEAD_DIMS) == (d % 16 == 0 and d <= 128)
+    assert (d == WGMMA_HEAD_DIM) == (d not in MMA_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("off", [(), ("q",), ("k",), ("v",), ("q", "k", "v")])
+def test_wgmma_workspace_counts_each_operand_off_the_grid(off):
+    """The wgmma route copies each operand TMA cannot load (a base off the
+    16-byte grid) whole into its workspace, and no other."""
+    def operand(h, s, skew):
+        t = torch.zeros(2 * h * s * 256 + 1, dtype=torch.bfloat16)
+        return (t[1:] if skew else t[:-1]).view(2, h, s, 256)
+    q, k, v = operand(8, 5, "q" in off), operand(2, 7, "k" in off), operand(2, 7, "v" in off)
+    assert all((t.data_ptr() % 16 != 0) == (n in off) for n, t in zip("qkv", (q, k, v)))
+    want = sum(t.numel() * 2 for n, t in zip("qkv", (q, k, v)) if n in off)
+    assert wgmma_workspace_bytes(q, k, v) == want
+    assert want % 16 == 0
 
 
 # ---------------------------------------------------------------------------
@@ -219,8 +235,8 @@ def test_new_route_wrappers_refuse_host_tensors():
                      (t_sh.sort_tile_hopper, (x[:, :100].contiguous(),)),
                      (t_sh.sort_hopper, (x,)),
                      (flash_attention_mma_hopper, (q, q, q)),
-                     (flash_attention_cuda_cores_hopper, (q.float(),) * 3)):
+                     (flash_attention_wgmma_hopper, (q.new_zeros(1, 2, 4, 256),) * 3)):
         with pytest.raises(ValueError, match="CUDA tensors"):
             fn(*args)
     assert _cuda.launch_counts() == before
-    assert {"sort_radix", "flash_attention_mma"} <= set(before)
+    assert {"sort_radix", "flash_attention_mma", "flash_attention_wgmma"} <= set(before)
