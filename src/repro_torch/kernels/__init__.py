@@ -11,7 +11,8 @@ Each subpackage ships three artifacts per kernel:
 
 :func:`register_all` publishes three rows per alias with Table-II
 attributes — ``torch`` (oracle, priority 0, fail-safe), ``aten`` (library,
-10) and ``hopper`` (kernel, 20) — so the runtime agent resolves each alias
+10) and ``hopper`` (kernel, 20; none for SSD, SSD_DECODE and GQA_DECODE,
+which have no Pallas site) — so the runtime agent resolves each alias
 to the best feasible substrate (hopper > aten > torch by default), and
 declares which aliases the graph fusion pass (DESIGN.md §12) may collapse
 into chains.
@@ -111,6 +112,23 @@ def register_all(registry=None) -> None:
         registry.register(_rec(alias, ref_fn, "torch", 0, failsafe=True))
         registry.register(_rec(alias, aten_fn, "aten", 10))
         registry.register(_rec(alias, hopper_fn, "hopper", 20, supports=ok))
+
+    # Sequence-model aliases with no Pallas site in the reference, so no
+    # hopper row: SSD's scan is the fail-safe and its chunked form (batched
+    # float32 products) the library row; SSD_DECODE's step serves both.
+    # GQA_DECODE (decode-time attention) is attention_ref under both rows;
+    # the model attends inline at decode and dispatches it nowhere, as in
+    # the reference.
+    from .ssd import ssd_chunked, ssd_decode_step, ssd_ref
+
+    def gqa_decode(q, k, v, **kw):
+        return attention_ref(q, k, v, causal=True, **kw)
+
+    for alias, ref_fn, aten_fn in (("SSD", ssd_ref, ssd_chunked),
+                                   ("SSD_DECODE", ssd_decode_step, ssd_decode_step),
+                                   ("GQA_DECODE", gqa_decode, gqa_decode)):
+        registry.register(_rec(alias, ref_fn, "torch", 0, failsafe=True))
+        registry.register(_rec(alias, aten_fn, "aten", 10))
 
     # Data-movement builtins (DESIGN.md §10): every substrate carries a row,
     # so a graph can stage a value on whichever agent runs its consumer.

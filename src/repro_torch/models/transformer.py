@@ -13,9 +13,11 @@ stacked weights.  Two entry points serve a model:
 
 Parameters are nested dicts, lists and tuples of tensors with the
 reference's nesting, so :meth:`Model.params_from_numpy` carries the JAX
-package's weights across.  Not ported yet: Mamba, MoE, MLA, the
-zamba2-style shared block and the stub frontends (ROADMAP A6), and the
-training loss (ROADMAP A8).
+package's weights across.  Block kinds: attention, Mamba-2 (``models.ssm``;
+its cache is O(1) conv and SSM state) and zamba2's shared attention block,
+one weight copy in ``params["shared"]`` invoked where the pattern places it.
+Not ported yet: MoE and MLA (ROADMAP A6), the stub frontends (A7, which
+serves them) and the training loss (A8).
 """
 from __future__ import annotations
 
@@ -31,23 +33,25 @@ from ..core.compute_object import from_numpy
 from ..distributed.sharding import ParamSpec, current_context, shard
 from .attention import attn_param_specs, gqa_forward, mla_forward
 from .layers import embed_tokens, ffn, logits_from_hidden, rms_norm
+from .ssm import mamba_cache_specs, mamba_forward, mamba_param_specs
 
 PyTree = Any
 
 
 def _unsupported(cfg: ArchConfig) -> Optional[str]:
-    """What of ``cfg`` the port cannot build yet, or None."""
+    """What of ``cfg`` the port cannot build yet, each with its ROADMAP
+    item, or None."""
     if cfg.frontend != "none":
-        return f"the {cfg.frontend} frontend"
-    if cfg.shared_attn is not None:
-        return "the shared attention block"
-    for st in cfg.stages:
-        for b in st.pattern:
-            if b.kind != "attn":
-                return f"{b.kind} blocks (the SSD rows)"
-            if b.moe is not None:
-                return "MoE FFNs (the MOE_FFN row)"
-    return None
+        return (f"the {cfg.frontend} frontend (served through ServeEngine's "
+                f"lockstep path, ROADMAP A7)")
+    blocks = [b for st in cfg.stages for b in st.pattern]
+    missing = []
+    if any(b.moe is not None for b in blocks):
+        missing.append("MoE FFNs (models/moe.py, the MOE_FFN row; ROADMAP A6)")
+    if any(b.attn is not None and b.attn.kv_lora for b in blocks):
+        missing.append("MLA attention (mla_forward, a FLASH_ATTN route at "
+                       "head dim 192; ROADMAP A6)")
+    return " and ".join(missing) or None
 
 
 # ---------------------------------------------------------------------------
@@ -65,6 +69,13 @@ def _ffn_specs(d_model: int, d_ff: int, act: str, dtype) -> Dict[str, ParamSpec]
 
 def _block_specs(cfg: ArchConfig, spec: BlockSpec, dtype) -> Dict[str, Any]:
     d = cfg.d_model
+    if spec.kind == "shared_attn":
+        return {}                       # weights live in params["shared"]
+    if spec.kind == "mamba":
+        return {
+            "ln": ParamSpec((d,), dtype, (None,), init_kind="ones"),
+            "ssm": mamba_param_specs(d, spec.ssm, dtype),
+        }
     return {
         "ln1": ParamSpec((d,), dtype, (None,), init_kind="ones"),
         "ln2": ParamSpec((d,), dtype, (None,), init_kind="ones"),
@@ -92,13 +103,22 @@ def param_specs(cfg: ArchConfig) -> PyTree:
         specs["stages"].append(tuple(
             _stack_specs(_block_specs(cfg, b, dtype), st.repeats)
             for b in st.pattern))
+    if cfg.shared_attn is not None:
+        specs["shared"] = {
+            "ln1": ParamSpec((d,), dtype, (None,), init_kind="ones"),
+            "ln2": ParamSpec((d,), dtype, (None,), init_kind="ones"),
+            "attn": attn_param_specs(d, cfg.shared_attn, dtype),
+            "ffn": _ffn_specs(d, cfg.shared_d_ff, "swiglu", dtype),
+        }
     return specs
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator) -> PyTree:
     """Random weights from ``generator``, on its device: N(0, 1/fan_in) for
-    matrices, ones for norm scales (the reference's ``init_params``; the
-    two packages draw different numbers from the same seed)."""
+    matrices, ones for norm scales, Mamba's a_log = log(1..H) and dt_bias =
+    softplus⁻¹ of dt spread over [1e-3, 1e-1] (the reference's
+    ``init_params``; the two packages draw different numbers from the same
+    seed)."""
     dev = generator.device
 
     def materialize(s: ParamSpec):
@@ -106,6 +126,13 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> PyTree:
             return torch.ones(s.shape, dtype=s.dtype, device=dev)
         if s.init_kind == "zeros":
             return torch.zeros(s.shape, dtype=s.dtype, device=dev)
+        if s.init_kind == "a_log":
+            base = torch.log(torch.arange(1, s.shape[-1] + 1, dtype=torch.float32,
+                                          device=dev))
+            return base.expand(s.shape).to(s.dtype).clone()
+        if s.init_kind == "dt_bias":
+            u = torch.linspace(1e-3, 1e-1, s.shape[-1], device=dev)
+            return torch.log(torch.expm1(u)).expand(s.shape).to(s.dtype).clone()
         fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
         w = torch.randn(s.shape, generator=generator, dtype=torch.float32,
                         device=dev) * (fan_in ** -0.5)
@@ -155,20 +182,23 @@ def ring_len(cfg: ArchConfig, a: Optional[AttnConfig], seq: int) -> int:
     return seq
 
 
+def _block_cache_specs(cfg: ArchConfig, spec: BlockSpec, batch: int,
+                       seq: int, dtype):
+    """Mamba: (conv_x, conv_bc, ssm) states; attention and the shared
+    block (an ordinary GQA cache of ``cfg.shared_attn``): (k, v)."""
+    if spec.kind == "mamba":
+        return mamba_cache_specs(cfg.d_model, spec.ssm, batch, dtype)
+    a = cfg.shared_attn if spec.kind == "shared_attn" else spec.attn
+    shp = (batch, a.n_kv_heads, ring_len(cfg, a, seq), a.head_dim)
+    logical = _kv_cache_logical(a.n_kv_heads)
+    return (ParamSpec(shp, dtype, logical), ParamSpec(shp, dtype, logical))
+
+
 def cache_specs(cfg: ArchConfig, batch: int, seq: int) -> PyTree:
     dtype = cfg.activation_dtype()
-    out = []
-    for st in cfg.stages:
-        blocks = []
-        for b in st.pattern:
-            a = b.attn
-            shp = (batch, a.n_kv_heads, ring_len(cfg, a, seq), a.head_dim)
-            logical = _kv_cache_logical(a.n_kv_heads)
-            blocks.append(_stack_specs(
-                (ParamSpec(shp, dtype, logical), ParamSpec(shp, dtype, logical)),
-                st.repeats))
-        out.append(tuple(blocks))
-    return out
+    return [tuple(_stack_specs(_block_cache_specs(cfg, b, batch, seq, dtype),
+                               st.repeats) for b in st.pattern)
+            for st in cfg.stages]
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq: int, device="cpu") -> PyTree:
@@ -181,33 +211,42 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int, device="cpu") -> PyTree:
 # Forward
 # ---------------------------------------------------------------------------
 def _apply_block(spec: BlockSpec, bp, x, *, cfg: ArchConfig, positions,
-                 cache=None, cache_pos=None, active=None):
-    h = rms_norm(x, bp["ln1"], cfg.norm_eps)
-    attend = mla_forward if spec.attn.kv_lora else gqa_forward
-    att, nc = attend(bp["attn"], h, spec.attn, positions=positions,
+                 shared_params=None, cache=None, cache_pos=None, active=None):
+    if spec.kind == "mamba":
+        h = rms_norm(x, bp["ln"], cfg.norm_eps)
+        y, nc = mamba_forward(bp["ssm"], h, spec.ssm, cache=cache, active=active)
+        return x + y, nc
+    shared = spec.kind == "shared_attn"
+    p = shared_params if shared else bp
+    a_cfg = cfg.shared_attn if shared else spec.attn
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    attend = mla_forward if a_cfg.kv_lora else gqa_forward
+    att, nc = attend(p["attn"], h, a_cfg, positions=positions,
                      prefix_len=cfg.prefix_len, cache=cache,
                      cache_pos=cache_pos, active=active)
     x = x + att
-    h2 = rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + ffn(bp["ffn"], h2, spec.act), nc
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + ffn(p["ffn"], h2, "swiglu" if shared else spec.act), nc
 
 
-def _run_stage(st: Stage, sp, x, *, cfg, positions, caches=None,
-               cache_pos=None, active=None, mode: str = "prefill"):
-    """The stage's repeats in order.  Prefill returns each block's (k, v)
-    stacked over the repeats; decode updates ``caches`` in place."""
+def _run_stage(st: Stage, sp, x, *, cfg, positions, shared_params=None,
+               caches=None, cache_pos=None, active=None, mode: str = "prefill"):
+    """The stage's repeats in order.  Prefill returns each block's cache
+    leaves ((k, v), or Mamba's three states) stacked over the repeats;
+    decode updates ``caches`` in place."""
     fresh: List[List[tuple]] = [[] for _ in st.pattern]
     for r in range(st.repeats):
         x = shard(x, "batch", "seq_act", None)
         for j, spec in enumerate(st.pattern):
-            cj = None if caches is None else (caches[j][0][r], caches[j][1][r])
+            cj = None if caches is None else tuple(c[r] for c in caches[j])
             bp = pytree.tree_map(lambda t: t[r], sp[j])
             x, nc = _apply_block(spec, bp, x, cfg=cfg, positions=positions,
-                                 cache=cj, cache_pos=cache_pos, active=active)
+                                 shared_params=shared_params, cache=cj,
+                                 cache_pos=cache_pos, active=active)
             fresh[j].append(nc)
     if mode == "prefill":
-        return x, tuple((torch.stack([k for k, _ in kv]),
-                         torch.stack([v for _, v in kv])) for kv in fresh)
+        return x, tuple(tuple(torch.stack(leaf) for leaf in zip(*per_repeat))
+                        for per_repeat in fresh)
     return x, caches
 
 
@@ -217,6 +256,7 @@ def _forward(params, x, positions, cfg: ArchConfig, *, caches=None,
     for i, st in enumerate(cfg.stages):
         x, nc = _run_stage(
             st, params["stages"][i], x, cfg=cfg, positions=positions,
+            shared_params=params.get("shared"),
             caches=None if caches is None else caches[i],
             cache_pos=cache_pos, active=active, mode=mode)
         new_caches.append(nc)
@@ -293,6 +333,5 @@ class Model:
 def build_model(cfg: ArchConfig) -> Model:
     what = _unsupported(cfg)
     if what is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} is not ported yet (ROADMAP A6)")
+        raise NotImplementedError(f"{cfg.name}: {what}: not ported yet")
     return Model(cfg=cfg)

@@ -2,7 +2,9 @@
 ``repro.serve.kvcache``.
 
 Every leaf of the model's cache tree is stacked ``(R, B, ...)`` (leading
-R = the stage's stacked layers) and a *slot* is a batch lane on axis 1.
+R = the stage's stacked layers) and a *slot* is a batch lane on axis 1;
+leaves keep their own types (Mamba's float32 SSM state beside bfloat16
+conv states and keys).
 ``insert_slot`` and ``evict_slot`` write the pooled slot cache in place;
 ``pad_caches`` grows a prefill cache to its serving length.  The
 block-paged arena (``BlockPool``, block tables, COW) comes with
@@ -49,13 +51,18 @@ def _to_ring(k: torch.Tensor, window: int) -> torch.Tensor:
 
 def pad_caches(cfg: ArchConfig, caches: PyTree, target_len: int) -> PyTree:
     """Grow every attention cache's sequence axis to its serving length:
-    GQA (R,B,Hkv,S,dh) ×2 → pad axis 3, ring-rolled for sliding-window
-    layers."""
+    GQA (R,B,Hkv,S,dh) ×2, the shared block's included → pad axis 3,
+    ring-rolled for sliding-window layers.  Mamba's conv and SSM states are
+    O(1) and pass through unchanged."""
     out = []
     for i, st in enumerate(cfg.stages):
         blocks = []
         for j, spec in enumerate(st.pattern):
-            tgt = ring_len(cfg, spec.attn, target_len)
+            if spec.kind == "mamba":
+                blocks.append(caches[i][j])
+                continue
+            a = cfg.shared_attn if spec.kind == "shared_attn" else spec.attn
+            tgt = ring_len(cfg, a, target_len)
             ck, cv = caches[i][j]
             if tgt < target_len:                       # SWA ring layer
                 blocks.append((_to_ring(ck, tgt), _to_ring(cv, tgt)))

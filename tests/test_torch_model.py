@@ -38,6 +38,7 @@ from repro_torch.kernels.rmsnorm import ref as t_rms_ref
 from repro_torch.kernels.rmsnorm.rmsnorm import ROW_WARPS, RmsnormPlan, rmsnorm_plan
 from repro_torch.launch import serve as t_serve
 from repro_torch.models import build_model
+from repro_torch.models.transformer import Model
 from repro_torch.serve import kvcache as t_kvcache
 from repro_torch.serve.engine import (AdmissionError, AdmissionPolicy,
                                       QoSClass, SlotEngine, StepScheduler,
@@ -46,9 +47,16 @@ from repro_torch.serve.engine import (AdmissionError, AdmissionPolicy,
 KERNEL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 MODEL_TOL = 1e-4
 DTYPES = ["float32", "bfloat16"]
-#: the dense attention architectures the port builds; the others need the
-#: SSD, MOE_FFN or MLA rows, the shared block or a stub frontend
-PORTED = ["mistral-large-123b", "h2o-danube-1.8b", "gemma-7b", "gemma3-4b"]
+#: the architectures the port builds: dense attention, and the state-space
+#: ones (Mamba-2 blocks on the SSD rows, zamba2's shared attention block);
+#: the others need MOE_FFN, MLA or a stub frontend
+PORTED = ["mistral-large-123b", "h2o-danube-1.8b", "gemma-7b", "gemma3-4b",
+          "mamba2-370m", "zamba2-1.2b"]
+#: what build_model refuses, and the ROADMAP item each message names
+REFUSED = {"moonshot-v1-16b-a3b": "MoE.*ROADMAP A6",
+           "deepseek-v2-236b": "MoE.*ROADMAP A6.*MLA.*ROADMAP A6",
+           "musicgen-large": "frame_embed frontend.*ROADMAP A7",
+           "paligemma-3b": "patch_embed frontend.*ROADMAP A7"}
 
 
 def _np(dtype, a):
@@ -292,7 +300,8 @@ def test_reference_flash_attention_fully_masked_row_is_not_zero():
 # (d) whole models on the JAX package's weights
 # ---------------------------------------------------------------------------
 def _gqa(cfg, n_kv):
-    """``cfg`` with every attention block's n_kv_heads set to ``n_kv``."""
+    """``cfg`` with every attention block's n_kv_heads set to ``n_kv``
+    (dense attention configurations only)."""
     stages = tuple(dataclasses.replace(st, pattern=tuple(
         dataclasses.replace(b, attn=dataclasses.replace(b.attn, n_kv_heads=n_kv))
         for b in st.pattern)) for st in cfg.stages)
@@ -316,8 +325,9 @@ MODEL_CASES = [(a, None) for a in PORTED] + [("h2o-danube-1.8b", 2)]
                          ids=[f"{a}-kv{n or 'cfg'}" for a, n in MODEL_CASES])
 def test_model_prefill_and_ring_decode_match_jax(cpu_session, arch, n_kv):
     """Prefill a 36-token prompt (past the reduced 32-token window, so the
-    window masks and pad_caches rolls the cache into a ring), then 8 decode
-    steps that wrap the ring; logits at every step ≤ 1e-4 normwise."""
+    window masks and pad_caches rolls the cache into a ring; off the
+    reduced SSD chunk of 16), then 8 decode steps that wrap the ring (or
+    advance the Mamba states); logits at every step ≤ 1e-4 normwise."""
     jm, jp, tm, tp = _models(arch, n_kv)
     cfg = tm.cfg
     rng = np.random.default_rng(1)
@@ -413,20 +423,32 @@ def test_params_from_numpy_checks_every_leaf(cpu_session):
         tm.params_from_numpy(tree)
 
 
+def test_refused_and_ported_cover_every_arch():
+    assert sorted(REFUSED) == sorted(set(ARCH_IDS) - set(PORTED))
+
+
 @pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(PORTED)))
 def test_build_model_refuses_what_is_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    """MoE (moonshot-v1-16b-a3b, deepseek-v2-236b) and MLA wait for the
+    rest of A6; the stub frontends (musicgen-large, paligemma-3b) for A7's
+    ServeEngine, which serves them.  Each message names its item."""
+    with pytest.raises(NotImplementedError, match=REFUSED[arch]):
         build_model(get_config(arch).reduced())
+    with pytest.raises(NotImplementedError, match=REFUSED[arch]):
+        build_model(get_config(arch))
 
 
 def test_mla_attention_raises_naming_the_roadmap():
+    """deepseek-v2 without its MoE FFNs is refused for MLA, and MLA's stub
+    raises too, each naming ROADMAP A6."""
     cfg = get_config("deepseek-v2-236b").reduced()
     stages = tuple(dataclasses.replace(st, pattern=tuple(
         dataclasses.replace(b, moe=None, d_ff=64) for b in st.pattern))
         for st in cfg.stages)
-    model = build_model(dataclasses.replace(cfg, stages=stages))
     with pytest.raises(NotImplementedError, match="mla_forward.*ROADMAP A6"):
-        model.init(torch.Generator())
+        build_model(dataclasses.replace(cfg, stages=stages))
+    with pytest.raises(NotImplementedError, match="mla_forward.*ROADMAP A6"):
+        Model(cfg=dataclasses.replace(cfg, stages=stages)).init(torch.Generator())
 
 
 def test_bf16_weights_cross_with_their_bits(cpu_session):
