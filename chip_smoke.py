@@ -89,6 +89,16 @@ Phases (any failure exits non-zero before the result lines are printed):
    MMM at every projection on the wgmma (512 and 2048 rows) and skinny (2
    rows) routes, two calls bit-identical; RMSNORM at d_model 2048 and the
    gated norm's 4096; FLASH_ATTN's mma route at 32 heads of 64, causal.
+   MoE and MLA (``phase2_moe_mla``; MOE_FFN has no Pallas site, so no
+   kernel): MOE_FFN's aten row against its torch row at moonshot's prefill
+   and decode capacities, (64, 244, 2048) and (64, 4, 2048) bfloat16;
+   ``moe_layer`` at moonshot's widths on the kernels against the layer's
+   definition in float64 (``moe_definition``: its own routing, capacity
+   drops and every shared expert) at 4 and 256 tokens; the capacity
+   dispatch on the card bit-identical to the CPU's for a router that
+   overflows two experts; FLASH_ATTN at MLA's head dim 192 (1×128×2048×192
+   bfloat16, padded to 256 on the wgmma route; float32 on tf32x3) and at
+   48 (mma, tf32x3) against ``attention_ref`` at the real dim.
 3. The slice end to end: ``repro_torch.quickstart.run`` on ``cuda`` with
    every claim pinned to the hopper records, blocking and asynchronous, at
    working sets inside the paper's 48 MB–1 GB.  Every kernel's launch count
@@ -136,6 +146,30 @@ Phases (any failure exits non-zero before the result lines are printed):
    kernels against plain (``F32_SERVE_TOL``); tokens/s, prefill and
    decode-step ms, device time by kernel and the SSD rows' device time.
    ``tools/zamba2_gap.py`` studies where the bfloat16 gap comes from.
+   A fourth leg (``SERVE_MOE``) serves moonshot-v1-16b-a3b at its
+   published widths and full depth (layer 0 dense, 47 MoE layers of 64
+   experts top 6 and 2 shared), 8 requests of 512 and 2048 tokens on 4
+   slots, 8 tokens each; a fifth (``SERVE_MLA``) deepseek-v2-236b at its
+   published widths, cut to layer 0 and 3 MoE layers, 4 requests on 2
+   slots: MLA's prefill attention on FLASH_ATTN's wgmma route (head dim
+   192 padded to 256).  Each (``phase3b_moe_leg``): launch counts by the
+   model's structure (``moe_leg_structure``), MOE_FFN one dispatch a MoE
+   layer a pass on its aten row, none of FLASH_ATTN on aten; then, from
+   each block's input captured in the served run (``BlockCapture``) for
+   the 2048-token request's prefill and decode steps, the block on the
+   kernels and on the plain versions with the kernel block's expert
+   indices forced (``routing_tap``): (a) router probabilities within
+   ``ROUTER_PROB_TOL``, (b) a top-k set that differs from the plain
+   router's own only at a plain margin within ``FLIP_MARGIN`` × the call's
+   largest probability difference, (c) the block's output less its input
+   within ``MOE_BLOCK_TOL``, a control (MMM's plain version summed in
+   another order) beside; MLA's absorbed decode against a prefill through
+   the same position (``MLA_DECODE_TOL``); the whole model's gap with
+   routing forced and free, printed; tokens/s, prefill and decode-step
+   ms, peak memory, device time by kernel, MOE_FFN's device ms a call and
+   its share, one decode step's device time beside the expert weights'
+   bytes over 3.35 TB/s.  moonshot's first 4 layers in float32, kernels
+   against plain with routing forced (``F32_SERVE_TOL``).
 3c. Execution graphs, fusion and compiled replay: ``halo.graph(launch=False)``
    → ``compile()`` → 20 ``replay()`` calls per workload, every other one
    rebinding an input, each output bit-identical to serial blocking
@@ -190,8 +224,10 @@ Phases (any failure exits non-zero before the result lines are printed):
    bound beside it, its split pass and product apart), with its error
    against float64.  FLASH_ATTN's wgmma route (``FA_D256``) at gemma-7b's
    1x16x4096x256 causal in bfloat16 and float16 and gemma3-4b's 1x8x4096x256
-   on 4 KV heads with window 1024 in bfloat16, by device time beside SDPA,
-   the plain version and its bound at the bfloat16 tensor-core rate.
+   on 4 KV heads with window 1024 in bfloat16, and deepseek-v2's MLA
+   prefill 1x128x2048x192 (padded to 256; its bound at the real dim), by
+   device time beside SDPA, the plain version and its bound at the
+   bfloat16 tensor-core rate.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.
@@ -199,6 +235,7 @@ limit, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import json
@@ -207,6 +244,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import torch
@@ -341,6 +379,59 @@ SERVE_D256 = {"arch": "gemma3-4b", "pattern_repeats": 1, "slots": 2, "requests":
 #: tokens on 2 slots, 8 tokens each, greedy
 SERVE_HYBRID = {"arch": "zamba2-1.2b", "slots": 2, "requests": 4,
                 "prompt_lens": (512, 2048), "max_new": 8, "seed": 0}
+
+#: phase 3b's fourth leg, mixture of experts (SERVE_MOE): moonshot-v1-16b-a3b
+#: at its published widths and full depth (d_model 2048; 16 heads of 128 on
+#: 16 KV heads; layer 0 dense with d_ff 11264, then 47 MoE layers of 64
+#: experts of d_ff 1408, top 6, 2 shared experts, capacity factor 1.25;
+#: vocab 163840; 28.39 B parameters, 56.8 GB in bfloat16, from a seed), 8
+#: requests of 512 and 2048 tokens on 4 slots, 8 tokens each, greedy
+SERVE_MOE = {"arch": "moonshot-v1-16b-a3b", "slots": 4, "requests": 8,
+             "prompt_lens": (512, 2048), "max_new": 8, "seed": 0}
+#: phase 3b's fifth leg, MLA (SERVE_MLA): deepseek-v2-236b at its published
+#: widths (d_model 5120; MLA of 128 heads, q_lora 1536, kv_lora 512, nope
+#: 128 + rope 64, v 128; 160 experts of d_ff 1536, top 6, 2 shared,
+#: capacity factor 1.25; vocab 102400; bfloat16 from a seed), its depth cut
+#: from 60 layers to layer 0 (dense, d_ff 12288) and 3 MoE layers: 235.7 B
+#: parameters do not fit one 80 GB card, 13.3 B (26.6 GB) do; 4 requests of
+#: 512 and 2048 tokens on 2 slots, 8 tokens each, greedy
+SERVE_MLA = {"arch": "deepseek-v2-236b", "moe_repeats": 3, "slots": 2, "requests": 4,
+             "prompt_lens": (512, 2048), "max_new": 8, "seed": 0}
+#: phase 3b, the moonshot leg's float32 replay: its first layers (layer 0
+#: dense and 3 MoE layers), kernels against plain with routing forced
+F32_MOE_LAYERS = 4
+#: phase 3b's MoE legs, check (b): the kernel block's top-k set may differ
+#: from the plain router's own only where the plain margin between its k-th
+#: and (k+1)-th probability is at most this multiple of the largest
+#: difference between the two runs' probabilities in that call.  Two
+#: probability vectors within δ of each other can order two experts
+#: differently only if their plain margin is ≤ 2δ; a wider flip is a
+#: routing fault (a wrong index, a top k of other scores)
+FLIP_MARGIN = 2.0
+#: check (a): the router probabilities of the kernel block against the
+#: plain block's from the same block input, normwise.  Both round the
+#: block's bfloat16 attention output and residual at the same places, so
+#: the router's inputs differ by a few bfloat16 ulps: on the H100 the
+#: worst call read 1.47e-3 (moonshot, 48 blocks × 8 steps) and 1.54e-3
+#: (deepseek), the control below 1.19e-3 and 1.21e-3; attention scaled by
+#: the padded dim's 256^-1/2 at MLA's 192 read 1.74e-2
+ROUTER_PROB_TOL = 5e-3
+#: check (c): the block's output less its input, kernels against plain with
+#: the kernel block's routing forced, normwise.  On the H100 the worst
+#: block-step read 8.63e-3 (moonshot) and 6.93e-3 (deepseek); the no-fault
+#: control, the plain block with MMM's plain version summing K in another
+#: order, 7.21e-3 and 5.41e-3: the gap is bfloat16 rounding, as in one
+#: danube layer (SERVE_TOL).  Gates left unnormalised after the top k read
+#: 0.334, one expert's down product skipped 0.161, MLA's attention at the
+#: padded dim's scale 0.150 (deepseek's 4 blocks)
+MOE_BLOCK_TOL = 2e-2
+#: MLA's absorbed decode over the latent cache against a prefill through
+#: the same position (decompressed keys through FLASH_ATTN), normwise, on
+#: the kernels: the decode's float32 einsums against the prefill's
+#: bfloat16 products and attention.  On the H100 1.69e-3 to 3.48e-3 over
+#: deepseek's 4 blocks at the first and last decode step; a decode without
+#: the rope scores read 5.06e-2 to 3.65e-1
+MLA_DECODE_TOL = 1e-2
 
 #: phase 2: SSD's aten row against its torch row at zamba2's widths (B, S,
 #: H, P, G, N, chunk): the served 2048-token prefill, and two lanes of a
@@ -707,6 +798,7 @@ def phase2(dev) -> None:
         phase2_fused(dev, gen, dt)
     phase2_ssd(dev, gen)
     phase2_hybrid(dev, gen)
+    phase2_moe_mla(dev, gen)
     torch.cuda.synchronize(dev)
 
 
@@ -836,6 +928,125 @@ def phase2_hybrid(dev, gen) -> None:
         check_close(f"{what} vs model",
                     normwise(out, attention_mma_ref(q, k, v, causal=True)), dt,
                     MMA_MODEL_TOL[dt])
+
+
+def moe_definition(p, x2, m):
+    """The MoE layer by its definition, in float64, with routing of its
+    own: softmax of float32 products of x2 and the router rounded to x2's
+    type, the top k renormalised, each (token, k) row in flattened order
+    kept while its expert has fewer than the capacity's rows, then per
+    token Σ gate × SwiGLU expert + the shared experts (all of them).
+    Returns (y (T,D) float64, expert indices (T,k), kept (T,k) bool)."""
+    from repro_torch.models import moe
+    probs = torch.softmax(x2.float() @ p["router"].to(x2.dtype).float(), dim=-1)
+    gates, eidx = torch.topk(probs, m.top_k, dim=-1)
+    gates = (gates / gates.sum(-1, keepdim=True)).double()
+    fe = eidx.reshape(-1)
+    onehot = torch.nn.functional.one_hot(fe, m.n_experts)
+    earlier = (onehot.cumsum(0) * onehot).sum(1) - 1      # rows before, same expert
+    kept = (earlier < moe._capacity(x2.shape[0], m)).reshape(eidx.shape)
+    x = x2.double()
+    y = torch.zeros_like(x)
+    for e in range(m.n_experts):
+        tok, j = torch.nonzero((eidx == e) & kept, as_tuple=True)
+        if tok.numel():
+            h = torch.nn.functional.silu(x[tok] @ p["we_g"][e].double()) \
+                * (x[tok] @ p["we_u"][e].double())
+            y.index_add_(0, tok, gates[tok, j, None] * (h @ p["we_d"][e].double()))
+    sh = torch.nn.functional.silu(x @ p["ws_g"].double()) * (x @ p["ws_u"].double())
+    return y + sh @ p["ws_d"].double(), eidx, kept
+
+
+def phase2_moe_mla(dev, gen) -> None:
+    """The MoE and MLA legs' shapes (no new kernel: MOE_FFN has no Pallas
+    site; MLA runs FLASH_ATTN padded).  MOE_FFN's aten row against its
+    torch row in bfloat16 (``TOL``) at moonshot's prefill and decode
+    capacities, (64, 244, 2048) and (64, 4, 2048), d_ff 1408;
+    ``moe_layer`` at moonshot's widths on the kernels (MMM for the shared
+    experts) against ``moe_definition`` in float64 (``TOL``), at the decode
+    slots' 4 tokens (the capacity: no drop possible) and 256 (capacity 32)
+    whose first 64 tokens are one token repeated, so that its 6 experts
+    overflow and rows are dropped, its routing equal to the definition's;
+    ``_dispatch_indices`` and ``_gather_dispatch`` over 2048 tokens on the
+    card bit-identical to the same calls on the CPU, for a router skewed so
+    that experts 0 and 1 overflow; FLASH_ATTN at MLA's head dim 192,
+    1×128×2048×192 bfloat16 (padded to 256) and float32 at 1×16×1024×192,
+    and at the reduced MLA's 48 in both types, against ``attention_ref``
+    at the real dim (``TOL``), each on the route ``fa_route`` names."""
+    from repro_torch import halo
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.flash_attention.flash_attention import (fa_route,
+                                                                     flash_attention_hopper)
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.moe_ffn.ops import grouped_ffn
+    from repro_torch.kernels.moe_ffn.ref import grouped_ffn_ref
+    from repro_torch.models import moe
+
+    bf = torch.bfloat16
+    cfg = get_config(SERVE_MOE["arch"])
+    d_model, m, seq = cfg.d_model, cfg.stages[1].pattern[0].moe, max(SERVE_MOE["prompt_lens"])
+    specs = moe.moe_param_specs(d_model, m, bf)
+    p = {n: (torch.randn(s.shape, generator=gen, device=dev)
+             * s.shape[-2] ** -0.5).to(s.dtype) for n, s in specs.items()}
+    for cap in (moe._capacity(seq, m), moe._capacity(SERVE_MOE["slots"], m)):
+        xe = torch.randn((m.n_experts, cap, d_model), generator=gen, device=dev).to(bf)
+        got = grouped_ffn(xe, p["we_g"], p["we_u"], p["we_d"])
+        check_close(f"MOE_FFN aten vs torch {tuple(xe.shape)} bf16",
+                    normwise(got, grouped_ffn_ref(xe, p["we_g"], p["we_u"], p["we_d"])), bf)
+    halo.initialize()
+    try:
+        for t, repeat in ((SERVE_MOE["slots"], 1), (256, 64)):
+            x = torch.randn((1, t, d_model), generator=gen, device=dev).to(bf)
+            x[:, :repeat] = x[:, :1]
+            y, _ = moe.moe_layer(p, x, m, "swiglu")
+            _, eidx, _ = moe._route(x[0], p["router"], m)
+            want, want_eidx, kept = moe_definition(p, x[0], m)
+            if not torch.equal(eidx, want_eidx):
+                fail(f"moe_layer at {t} tokens routes otherwise than its definition")
+            if bool(kept.all()) != (repeat == 1):
+                fail(f"moe_layer at {t} tokens: {int((~kept).sum())} rows dropped, "
+                     f"expected {'none' if repeat == 1 else 'some'}")
+            check_close(f"moe_layer {t} tokens vs its definition", normwise(y[0], want), bf)
+    finally:
+        halo.finalize()
+    del p
+    # the dispatch, card against CPU, two experts overflowing
+    c = moe._capacity(seq, m)
+    g = torch.Generator().manual_seed(0)
+    x2 = (torch.randn(seq, d_model, generator=g) + 1.0).to(bf)
+    router = torch.randn(d_model, m.n_experts, generator=g) * d_model ** -0.5
+    router[:, :2] += 0.01                # every token's logits favour 0 and 1
+    _, eidx, _ = moe._route(x2, router, m)
+    slot, keep = moe._dispatch_indices(eidx, seq, c, m.n_experts)
+    xe = moe._gather_dispatch(x2, slot, keep, m.n_experts, c, m.top_k)
+    cs, ck = moe._dispatch_indices(eidx.to(dev), seq, c, m.n_experts)
+    cxe = moe._gather_dispatch(x2.to(dev), cs, ck, m.n_experts, c, m.top_k)
+    over = [int((eidx == e).sum()) for e in (0, 1)]
+    if min(over) <= c or bool(keep.all()):
+        fail(f"the skewed router did not overflow experts 0 and 1: {over} rows, capacity {c}")
+    check_bits(f"_dispatch_indices slot, card vs CPU ({over} rows, capacity {c})",
+               cs.cpu(), slot)
+    check_bits("_dispatch_indices keep, card vs CPU", ck.cpu().long(), keep.long())
+    check_bits("_gather_dispatch, card vs CPU", cxe.cpu(), xe)
+    # FLASH_ATTN between the instantiated head dims, at the real dim
+    mla = get_config(SERVE_MLA["arch"]).stages[0].pattern[0].attn
+    d_qk = mla.head_dim + mla.rope_head_dim
+    for (h, s, d, dt) in ((mla.n_heads, seq, d_qk, bf), (16, 1024, d_qk, torch.float32),
+                          (16, 1024, 48, bf), (16, 1024, 48, torch.float32)):
+        q, k, v = (torch.randn((1, h, s, d), generator=gen, device=dev).to(dt)
+                   for _ in range(3))
+        route = fa_route(dt, d)
+        before = _cuda.launch_counts().get(f"flash_attention_{route}", 0)
+        out = flash_attention_hopper(q, k, v, causal=True)
+        if _cuda.launch_counts()[f"flash_attention_{route}"] != before + 1 \
+                or out.shape != q.shape:
+            fail(f"FLASH_ATTN at head dim {d} {dt} did not launch the {route} route once "
+                 f"or returned {tuple(out.shape)}")
+        check_close(f"FLASH_ATTN {route} 1x{h}x{s}x{d} padded vs plain",
+                    normwise(out, attention_ref(q, k, v, causal=True)), dt)
+        del q, k, v, out
+    torch.cuda.synchronize(dev)
 
 
 def phase2_mmm_skinny(dev, gen, dt) -> None:
@@ -2338,75 +2549,63 @@ def first_blocks(cfg, params, k: int):
     return dataclasses.replace(cfg, stages=tuple(stages)), dict(params, stages=sp)
 
 
-def phase3b_hybrid(dev):
-    """zamba2-1.2b at full width and depth served through ``run_requests``
-    on ``halo.initialize()`` (SERVE_HYBRID).  Checks: launch counts by the
-    model's structure (FLASH_ATTN's mma route 6 per prefill and no other
-    route; MMM's wgmma route for a prefill's projections, skinny for its
-    unembed and every decode pass; RMSNORM 2 per Mamba layer and shared
-    invocation + 1 per pass); SSD dispatches 38 per prefill and SSD_DECODE
-    38 per decode pass, all on their aten rows (``counting_registry``); an
-    empty quarantine; finite logits; the 2048-token request's logits at
-    every step against a replay through the plain versions, at full depth
-    (SERVE_HYBRID_TOL) and with the first pattern kept (7 blocks: 6 Mamba
-    layers and the shared block; SERVE_TOL), so that bfloat16 decode steps
-    through SSD_DECODE, the conv step and the in-place state writes are
-    held to SERVE_TOL too; the same request in float32, kernels against
-    plain (F32_SERVE_TOL).  Prints tokens/s, prefill and decode-step ms,
-    the profiled rerun's device time by kernel and the SSD rows' device
-    time at the leg's shapes."""
+def serve_leg(dev, leg: dict, cfg, note: str, expect, capture: bool = False):
+    """``cfg`` with random weights from ``leg["seed"]``, its requests
+    (``leg["requests"]`` prompts of ``leg["prompt_lens"]`` in turn,
+    ``leg["max_new"]`` greedy tokens each, on ``leg["slots"]`` slots)
+    served through ``run_requests`` on ``halo.initialize()`` with a
+    counting registry, after a one-request warm-up; with ``capture`` the
+    longest request's block inputs are captured on the way
+    (``BlockCapture``).  ``expect(prefills, decodes)`` gives the launch
+    counts the model's structure predicts (a kernel it does not name: 0)
+    and the dispatch counts of the "ALIAS/platform" keys it names.
+    Checks the tokens served, both counts, an empty quarantine, every
+    request's logits finite and of the vocab's width, and a profiled
+    rerun that serves the same tokens.  Prints tokens/s, prefill and
+    decode-step ms, T1, peak memory and the rerun's device time by kernel.
+    The session stays open.  Returns a namespace: model, params, gen,
+    prompts, results, records, max_len, launches, cap, stats, busy_s."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import halo
-    from repro_torch.configs import get_config
-    from repro_torch.core.manifest import default_manifest
     from repro_torch.kernels import _cuda
-    from repro_torch.kernels.ssd.ops import ssd_chunked, ssd_decode_step
-    from repro_torch.kernels.ssd.ref import ssd_ref
     from repro_torch.launch.serve import run_requests
     from repro_torch.models import build_model
-    from repro_torch.models.ssm import ssm_dims
     from repro_torch.serve.engine import SlotEngine, StepScheduler
 
-    cfg = get_config(SERVE_HYBRID["arch"])
     model = build_model(cfg)
-    gen = torch.Generator(device=dev).manual_seed(SERVE_HYBRID["seed"])
+    gen = torch.Generator(device=dev).manual_seed(leg["seed"])
     params = model.init(gen)
-    n_params = sum(t.numel() for t in torch.utils._pytree.tree_leaves(params))
-    mamba = [b for st in cfg.stages for b in st.pattern for _ in range(st.repeats)
-             if b.kind == "mamba"]
-    invocations = sum(st.repeats for st in cfg.stages for b in st.pattern
-                      if b.kind == "shared_attn")
-    ssm, a_cfg = mamba[0].ssm, cfg.shared_attn
-    d_in, heads, _ = ssm_dims(cfg.d_model, ssm)
-    blocks = len(mamba) + invocations
-    print(f"  {cfg.name}: {len(mamba)} Mamba-2 layers (d_in {d_in}, {heads} heads of "
-          f"{ssm.head_dim}, state {ssm.state_dim}, conv {ssm.conv_width}, chunk "
-          f"{ssm.chunk}) + a shared block ({a_cfg.n_heads} heads of {a_cfg.head_dim}, "
-          f"d_ff {cfg.shared_d_ff}) invoked {invocations} times; d_model {cfg.d_model}, "
-          f"vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B parameters in {cfg.dtype}, "
-          f"random from seed {SERVE_HYBRID['seed']}")
-    n, lens = SERVE_HYBRID["requests"], SERVE_HYBRID["prompt_lens"]
+    leaves = torch.utils._pytree.tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    print(f"  {cfg.name}: {note}; {n_params / 1e9:.3f} B parameters in {cfg.dtype} "
+          f"({sum(t.numel() * t.element_size() for t in leaves) / 1e9:.1f} GB), random "
+          f"from seed {leg['seed']}")
+    n, lens = leg["requests"], leg["prompt_lens"]
     prompts = [torch.randint(0, cfg.vocab_size, (lens[i % len(lens)],), generator=gen,
                              device=dev).tolist() for i in range(n)]
-    max_news = [SERVE_HYBRID["max_new"]] * n
-    max_len = max(lens) + SERVE_HYBRID["max_new"] + 8
+    max_news = [leg["max_new"]] * n
+    max_len = max(lens) + leg["max_new"] + 8
+    cap = BlockCapture(prompts[lens.index(max(lens))], leg["max_new"] - 1) if capture \
+        else None
 
     registry, dispatches = counting_registry()
     session = halo.initialize(registry=registry)     # device=None means the card
     if session.device.type != "cuda":
         fail(f"session runs on {session.device}, not the card")
-    warm = StepScheduler(SlotEngine(model, params, 1, 80), seed=SERVE_HYBRID["seed"])
+    warm = StepScheduler(SlotEngine(model, params, 1, 80), seed=leg["seed"])
     run_requests(warm, [prompts[0][:64]], [2])
     del warm
-    engine = recording_engine()(model, params, SERVE_HYBRID["slots"], max_len)
-    sched = StepScheduler(engine, temperature=0.0, seed=SERVE_HYBRID["seed"])
+    engine = (cap.engine() if cap else recording_engine())(model, params, leg["slots"],
+                                                           max_len)
+    sched = StepScheduler(engine, temperature=0.0, seed=leg["seed"])
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     _cuda.reset_launch_counts()
     dispatches.clear()
     session.reset_t1()
-    results, lat, wall = run_requests(sched, prompts, max_news)
+    with cap.tapping() if cap else contextlib.nullcontext():
+        results, _, wall = run_requests(sched, prompts, max_news)
     torch.cuda.synchronize(dev)
     launches = _cuda.launch_counts()
     aliases = dict(sorted(dispatches.items()))
@@ -2414,43 +2613,36 @@ def phase3b_hybrid(dev):
     t1_us = session.t1_seconds_per_call * 1e6
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     prefills, decodes = len(engine.prefill_s), len(engine.decode_s)
-    per_pass = hybrid_projections(cfg)
-    mmm_pass = sum(per_pass.values())
+    want, want_dispatch = expect(prefills, decodes)
     expected = {k: 0 for k in launches}
-    expected.update(mmm_wgmma=(mmm_pass - 1) * prefills,
-                    mmm_skinny=mmm_pass * decodes + prefills,
-                    rmsnorm=(2 * blocks + 1) * (prefills + decodes),
-                    flash_attention_mma=invocations * prefills)
-    ssd_expected = {"SSD/aten": len(mamba) * prefills,
-                    "SSD_DECODE/aten": len(mamba) * decodes}
-    ssd_counts = {k: v for k, v in aliases.items() if k.split("/")[0] in
-                  ("SSD", "SSD_DECODE")}
-    print(f"  {prefills} prefills + {decodes} decode steps on {SERVE_HYBRID['slots']} "
-          f"slots: launches {launches} (expected {expected}); SSD dispatches "
-          f"{ssd_counts} (expected {ssd_expected}); all dispatches {aliases}; "
-          f"quarantine {quarantined}")
+    expected.update(want)
+    got_dispatch = {k: aliases.get(k, 0) for k in want_dispatch}
+    print(f"  {prefills} prefills + {decodes} decode steps on {leg['slots']} slots: "
+          f"launches {launches} (expected {expected}); dispatches {got_dispatch} "
+          f"(expected {want_dispatch}); all dispatches {aliases}; quarantine {quarantined}")
     if [len(r) for r in results] != max_news or prefills != n:
         fail(f"served {[len(r) for r in results]} tokens in {prefills} prefills, budgets "
              f"{max_news}")
     if launches != expected:
-        fail(f"the zamba2 leg's launch counts {launches} != the model's structure "
+        fail(f"the {cfg.name} leg's launch counts {launches} != the model's structure "
              f"{expected}")
-    if ssd_counts != ssd_expected:
-        fail(f"the zamba2 leg dispatched SSD {ssd_counts}, not {ssd_expected}")
+    if got_dispatch != want_dispatch:
+        fail(f"the {cfg.name} leg's dispatches {got_dispatch} != the model's structure "
+             f"{want_dispatch}")
     if quarantined:
-        fail(f"records were quarantined on the zamba2 leg: {quarantined}")
+        fail(f"records were quarantined on the {cfg.name} leg: {quarantined}")
     for rec, p_ in zip(engine.records, prompts):
         if rec["prompt"] != p_ or not all(bool(torch.isfinite(x).all())
                                           and x.shape == (cfg.padded_vocab,)
                                           for x in rec["logits"]):
-            fail("the zamba2 leg's logits are not finite, not of the vocab's width or "
-                 "not its requests'")
+            fail(f"the {cfg.name} leg's logits are not finite, not of the vocab's width "
+                 f"or not its requests'")
     prefill_ms = {str(L): [t * 1e3 for n_, t in engine.prefill_s if n_ == L] for L in lens}
     decode_ms = sorted(t * 1e3 for t in engine.decode_s)
-    stats = {"arch": cfg.name, "blocks": blocks, "n_params": n_params,
-             "launches": launches, "dispatches": aliases,
-             "tokens_per_s": sum(map(len, results)) / wall, "wall_s": wall,
-             "prefill_ms": prefill_ms, "decode_step_ms_median": decode_ms[len(decode_ms) // 2],
+    stats = {"arch": cfg.name, "n_params": n_params, "launches": launches,
+             "dispatches": aliases, "tokens_per_s": sum(map(len, results)) / wall,
+             "wall_s": wall, "prefill_ms": prefill_ms,
+             "decode_step_ms_median": decode_ms[len(decode_ms) // 2],
              "decode_steps": decodes, "t1_us_per_dispatch": t1_us, "peak_gb": peak_gb}
     print(f"  {stats['tokens_per_s']:.2f} tokens/s over {wall:.2f} s; prefill ms by "
           f"prompt: " + "; ".join(f"{L}: {', '.join(f'{x:.1f}' for x in v)}"
@@ -2462,13 +2654,13 @@ def phase3b_hybrid(dev):
     del engine, sched
 
     # the same requests under torch.profiler: device time by kernel
-    sched = StepScheduler(SlotEngine(model, params, SERVE_HYBRID["slots"], max_len),
-                          seed=SERVE_HYBRID["seed"])
+    sched = StepScheduler(SlotEngine(model, params, leg["slots"], max_len), seed=leg["seed"])
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         again, _, wall_prof = run_requests(sched, prompts, max_news)
         torch.cuda.synchronize(dev)
     if again != results:
-        fail("a second greedy run of the zamba2 leg served other tokens")
+        fail(f"a second greedy run of the {cfg.name} leg served other tokens")
+    del sched
     busy_s = device_seconds(prof)
     stats["device_ms"] = busy_s * 1e3 if busy_s > 0 else None
     stats["device_busy_share"] = busy_s / wall if busy_s > 0 else None
@@ -2483,7 +2675,65 @@ def phase3b_hybrid(dev):
             print(f"    {device_seconds_of(e) * 1e3:10.1f} ms  {e.count:6d}x  {e.key[:90]}")
     else:
         print("  device time: not measured (the profiler saw none)")
-    del sched
+    del prof
+    return types.SimpleNamespace(model=model, params=params, gen=gen, prompts=prompts,
+                                 results=results, records=records, max_len=max_len,
+                                 launches=launches, cap=cap, stats=stats, busy_s=busy_s)
+
+
+def phase3b_hybrid(dev):
+    """zamba2-1.2b at full width and depth served through ``serve_leg``
+    (SERVE_HYBRID).  Checks: launch counts by the model's structure
+    (FLASH_ATTN's mma route 6 per prefill and no other route; MMM's wgmma
+    route for a prefill's projections, skinny for its unembed and every
+    decode pass; RMSNORM 2 per Mamba layer and shared invocation + 1 per
+    pass); SSD dispatches 38 per prefill and SSD_DECODE 38 per decode
+    pass, all on their aten rows; ``serve_leg``'s checks; the 2048-token
+    request's logits at every step against a replay through the plain
+    versions, at full depth (SERVE_HYBRID_TOL) and with the first pattern
+    kept (7 blocks: 6 Mamba layers and the shared block; SERVE_TOL), so
+    that bfloat16 decode steps through SSD_DECODE, the conv step and the
+    in-place state writes are held to SERVE_TOL too; the same request in
+    float32, kernels against plain (F32_SERVE_TOL).  Prints what
+    ``serve_leg`` prints and the SSD rows' device time at the leg's
+    shapes."""
+    from repro_torch import halo
+    from repro_torch.configs import get_config
+    from repro_torch.core.manifest import default_manifest
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.ssd.ops import ssd_chunked, ssd_decode_step
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    from repro_torch.models import build_model
+    from repro_torch.models.ssm import ssm_dims
+
+    cfg = get_config(SERVE_HYBRID["arch"])
+    mamba = [b for st in cfg.stages for b in st.pattern for _ in range(st.repeats)
+             if b.kind == "mamba"]
+    invocations = sum(st.repeats for st in cfg.stages for b in st.pattern
+                      if b.kind == "shared_attn")
+    ssm, a_cfg = mamba[0].ssm, cfg.shared_attn
+    d_in, heads, _ = ssm_dims(cfg.d_model, ssm)
+    blocks = len(mamba) + invocations
+    mmm_pass = sum(hybrid_projections(cfg).values())
+
+    def expect(prefills, decodes):
+        return (dict(mmm_wgmma=(mmm_pass - 1) * prefills,
+                     mmm_skinny=mmm_pass * decodes + prefills,
+                     rmsnorm=(2 * blocks + 1) * (prefills + decodes),
+                     flash_attention_mma=invocations * prefills),
+                {"SSD/aten": len(mamba) * prefills, "SSD/torch": 0,
+                 "SSD_DECODE/aten": len(mamba) * decodes, "SSD_DECODE/torch": 0})
+
+    note = (f"{len(mamba)} Mamba-2 layers (d_in {d_in}, {heads} heads of {ssm.head_dim}, "
+            f"state {ssm.state_dim}, conv {ssm.conv_width}, chunk {ssm.chunk}) + a shared "
+            f"block ({a_cfg.n_heads} heads of {a_cfg.head_dim}, d_ff {cfg.shared_d_ff}) "
+            f"invoked {invocations} times; d_model {cfg.d_model}, vocab {cfg.vocab_size}")
+    leg = serve_leg(dev, SERVE_HYBRID, cfg, note, expect)
+    model, params, prompts, results = leg.model, leg.params, leg.prompts, leg.results
+    lens, max_len, stats = SERVE_HYBRID["prompt_lens"], leg.max_len, leg.stats
+    launches, records = leg.launches, leg.records
+    stats["blocks"] = blocks
+
     # the SSD rows at the leg's shapes: device time per call
     gen2 = torch.Generator(device=dev).manual_seed(3)
     ssd_ms = {}
@@ -2566,6 +2816,461 @@ def phase3b_hybrid(dev):
     if len(e32) != len(results[i]) or not max(e32) <= F32_SERVE_TOL:
         fail(f"the zamba2 leg's float32 logits differ from the plain versions by "
              f"{max(e32):.3e}")
+    return launches, stats
+
+
+class BlockCapture:
+    """Each block's input in a served run, for one request: its prefill's
+    (1, S, D) and, at each of its decode steps, its lane's (1, 1, D) row;
+    and each block's (spec, weights) in the order the blocks run."""
+
+    def __init__(self, prompt, decode_steps: int):
+        self.prompt, self.steps_left = prompt, decode_steps
+        self.lane = self.row = None
+        self.blocks, self.inputs, self.j = [], [], 0
+
+    @contextlib.contextmanager
+    def tapping(self):
+        """Patch ``transformer._apply_block`` to copy the captured row of
+        each block's input while a forward of the request runs."""
+        from repro_torch.models import transformer
+        orig = transformer._apply_block
+
+        def tapped(spec, bp, x, **kw):
+            if self.row is not None:
+                if self.j == len(self.blocks):
+                    self.blocks.append((spec, bp))
+                    self.inputs.append([])
+                self.inputs[self.j].append(x[self.row:self.row + 1].clone())
+                self.j += 1
+            return orig(spec, bp, x, **kw)
+        transformer._apply_block = tapped
+        try:
+            yield self
+        finally:
+            transformer._apply_block = orig
+
+    def engine(self):
+        """A RecordingEngine class that points the tap at the request's
+        prefill and at its lane in its first ``decode_steps`` decode
+        steps."""
+        cap = self
+
+        class CapturingEngine(recording_engine()):
+            def _admit_logits(self, slot, toks):
+                if cap.lane is not None or toks[0].tolist() != cap.prompt:
+                    return super()._admit_logits(slot, toks)
+                cap.lane, cap.row, cap.j = slot, 0, 0
+                try:
+                    return super()._admit_logits(slot, toks)
+                finally:
+                    cap.row = None
+
+            def _decode_logits(self, tok, pos, active):
+                if cap.lane is None or not cap.steps_left or cap.lane not in self._active:
+                    return super()._decode_logits(tok, pos, active)
+                cap.row, cap.j = cap.lane, 0
+                cap.steps_left -= 1
+                try:
+                    return super()._decode_logits(tok, pos, active)
+                finally:
+                    cap.row = None
+        return CapturingEngine
+
+
+@contextlib.contextmanager
+def routing_tap(mode: str, calls: list, key: str = "plain"):
+    """Patch ``models.moe._route``.  ``"record"``: route as the program does
+    and append {"probs", "eidx"} per call (the router's float32
+    probabilities by ``moe._router_probs``).  ``"force"``: take each call's
+    recorded expert indices in order, with gates recomputed from this run's
+    own probabilities at those indices and renormalised; keep this run's
+    probabilities and its own top k under ``key``."""
+    from repro_torch.models import moe
+    orig = moe._route
+    pending = iter(calls)
+
+    def tapped(x2, router_w, m):
+        probs = moe._router_probs(x2, router_w)
+        if mode == "record":
+            gates, eidx, aux = orig(x2, router_w, m)
+            calls.append({"probs": probs, "eidx": eidx})
+            return gates, eidx, aux
+        call = next(pending)
+        call[key] = (probs, torch.topk(probs, m.top_k, dim=-1).indices)
+        gates = probs.gather(1, call["eidx"])
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        return gates, call["eidx"], torch.zeros((), device=x2.device)
+    moe._route = tapped
+    try:
+        yield
+    finally:
+        moe._route = orig
+
+
+def run_block(cfg, spec, bp, xs, max_len):
+    """One block alone from captured inputs: a prefill of ``xs[0]`` (1, S,
+    D) at positions 0..S−1, its cache padded to ``max_len``, then one
+    decode step per later entry (1, 1, D) at S, S+1, …; its outputs."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.transformer import _apply_block
+    s, dev = xs[0].shape[1], xs[0].device
+    with torch.no_grad():
+        y, cache = _apply_block(spec, bp, xs[0], cfg=cfg,
+                                positions=torch.arange(s, device=dev)[None])
+        # the sequence axis is the last but one of GQA's (B,H,S,dh) and of
+        # MLA's (B,S,lat), (B,S,rope)
+        cache = tuple(F.pad(c, (0, 0, 0, max_len - s)) for c in cache)
+        outs = [y]
+        for i, xt in enumerate(xs[1:]):
+            pos = torch.tensor([s + i], device=dev)
+            y, cache = _apply_block(spec, bp, xt, cfg=cfg, positions=pos[:, None],
+                                    cache=cache, cache_pos=pos)
+            outs.append(y)
+    return outs
+
+
+def split_k_mmm(a, b):
+    """MMM's plain version with K summed in two halves and the halves added:
+    another float32 order of the same products, a no-fault control."""
+    h = a.shape[1] // 2
+    return ((a[:, :h].float() @ b[:h].float())
+            + (a[:, h:].float() @ b[h:].float())).to(a.dtype)
+
+
+def routed_block_check(cfg, cap: BlockCapture, max_len, plain):
+    """From each block's captured inputs, the block on the kernels (its
+    router's choices recorded), on the plain versions with the kernel
+    block's expert indices (``routing_tap``), and on the plain versions
+    with MMM summed in another order (``split_k_mmm``, the control).  Per
+    block and step: (a) the router probabilities, kernels against plain,
+    normwise; (b) every top-k set of the kernels that differs from the
+    plain router's own, with the plain margin between its k-th and
+    (k+1)-th probability; (c) the block's output less its input, kernels
+    (and the control) against plain, normwise."""
+    from repro_torch import halo
+
+    control_reg = wrapped_registry(
+        lambda rec: split_k_mmm if (rec.alias, rec.platform) == ("MMM", "torch") else None)
+    runs, calls = {}, [[] for _ in cap.blocks]
+    for name, manifest, registry, mode in (("kernels", None, None, "record"),
+                                           ("plain", plain, None, "force"),
+                                           ("control", plain, control_reg, "force")):
+        halo.initialize(manifest=manifest, registry=registry)
+        try:
+            runs[name] = []
+            for j, (spec, bp) in enumerate(cap.blocks):
+                with routing_tap(mode, calls[j], key=name):
+                    runs[name].append(run_block(cfg, spec, bp, cap.inputs[j], max_len))
+        finally:
+            halo.finalize()
+    out = {"block_err": [], "control_err": [], "prob_err": [], "control_prob_err": [],
+           "flips": 0, "flip_margin_ratio": 0.0, "routes": 0}
+    for j, xs in enumerate(cap.inputs):
+        for x, yk, yp, yc in zip(xs, runs["kernels"][j], runs["plain"][j], runs["control"][j]):
+            dp = yp.double() - x.double()
+            out["block_err"].append(float((yk.double() - yp.double()).norm() / dp.norm()))
+            out["control_err"].append(float((yc.double() - yp.double()).norm() / dp.norm()))
+        for call in calls[j]:
+            pk, (pp, own) = call["probs"], call["plain"]
+            out["prob_err"].append(normwise(pk, pp))
+            out["control_prob_err"].append(normwise(call["control"][0], pp))
+            delta = float((pk - pp).abs().max())
+            srt = pp.sort(dim=-1, descending=True).values
+            k = own.shape[1]
+            margin = srt[:, k - 1] - srt[:, k]
+            flipped = (call["eidx"].sort(-1).values != own.sort(-1).values).any(-1)
+            out["routes"] += own.shape[0]
+            if bool(flipped.any()):
+                n = int(flipped.sum())
+                out["flips"] += n
+                ratio = float(margin[flipped].max()) / max(delta, 1e-30)
+                out["flip_margin_ratio"] = max(out["flip_margin_ratio"], ratio)
+    return out
+
+
+def moe_leg_structure(cfg):
+    """Launches and dispatches per pass by the model's structure: MMM a
+    prefill (every projection on the wgmma route) and a decode pass (every
+    one on the skinny route, the unembed included); RMSNORM a pass; the
+    FLASH_ATTN route and launches a prefill; MOE_FFN a pass."""
+    from repro_torch.kernels.flash_attention.flash_attention import fa_route
+    blocks = [b for st in cfg.stages for b in st.pattern for _ in range(st.repeats)]
+    mla = [b.attn.kv_lora > 0 for b in blocks]
+    # MLA: wdq, wuq, wdkv, wkrope, wo, and in prefill wuk, wuv; GQA: q k v o
+    attn_pre = sum(7 if x else 4 for x in mla)
+    attn_dec = sum(5 if x else 4 for x in mla)
+    ffn = sum(3 for b in blocks if (b.moe is not None and b.moe.n_shared) or
+              (b.moe is None and b.d_ff))
+    a = blocks[0].attn
+    d_qk = a.head_dim + a.rope_head_dim if a.kv_lora else a.head_dim
+    return {"prefill_mmm": attn_pre + ffn, "decode_mmm": attn_dec + ffn + 1,
+            "rmsnorm": 2 * len(blocks) + 2 * sum(mla) + 1,
+            "fa_route": fa_route(cfg.activation_dtype(), d_qk), "fa": len(blocks),
+            "moe": sum(b.moe is not None for b in blocks), "d_qk": d_qk}
+
+
+def phase3b_moe_leg(dev, leg: dict, cfg, note: str):
+    """One MoE leg (SERVE_MOE, SERVE_MLA) through ``serve_leg``, the
+    2048-token request's block inputs captured on the way.  Checks: launch
+    counts by ``moe_leg_structure``; MOE_FFN dispatches one a MoE layer a
+    pass, all on aten; no FLASH_ATTN on aten; ``serve_leg``'s checks;
+    ``routed_block_check`` on the 2048-token request's prefill and decode
+    steps: (a) ≤ ROUTER_PROB_TOL, (b) every flip at a plain margin ≤
+    FLIP_MARGIN × the call's largest probability difference, (c) ≤
+    MOE_BLOCK_TOL; for MLA, each decode step's attention against a
+    prefill through the same position (≤ MLA_DECODE_TOL).  Prints what
+    ``serve_leg`` prints, MOE_FFN's device ms a call at the leg's
+    capacities and its share, one decode step's device time beside the
+    expert weights' bytes over 3.35 TB/s, and the whole-model gap to a
+    plain replay with routing forced and free.  Returns (launches, stats,
+    model, params, the 2048-token request's prompt and tokens)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import halo
+    from repro_torch.core.manifest import default_manifest
+    from repro_torch.kernels.moe_ffn.ops import grouped_ffn
+    from repro_torch.models import moe
+    from repro_torch.serve.engine import SlotEngine
+
+    st = moe_leg_structure(cfg)
+    mcfg = next(b.moe for s_ in cfg.stages for b in s_.pattern if b.moe is not None)
+
+    def expect(prefills, decodes):
+        return ({"mmm_wgmma": st["prefill_mmm"] * prefills,
+                 "mmm_skinny": st["decode_mmm"] * decodes + prefills,
+                 "rmsnorm": st["rmsnorm"] * (prefills + decodes),
+                 f"flash_attention_{st['fa_route']}": st["fa"] * prefills},
+                {"MOE_FFN/aten": st["moe"] * (prefills + decodes), "MOE_FFN/torch": 0,
+                 "FLASH_ATTN/aten": 0})
+
+    served = serve_leg(dev, leg, cfg, note, expect, capture=True)
+    model, params, gen, prompts = served.model, served.params, served.gen, served.prompts
+    results, max_len, cap, stats = served.results, served.max_len, served.cap, served.stats
+    busy_s, launches = served.busy_s, served.launches
+    stats["layers"] = cfg.n_layers
+    lens = leg["prompt_lens"]
+    i_long = lens.index(max(lens))
+    decodes = stats["decode_steps"]
+    if len(cap.inputs) != len(cap.blocks) or any(len(x) != leg["max_new"]
+                                                 for x in cap.inputs):
+        fail(f"captured {[len(x) for x in cap.inputs]} inputs of {len(cap.blocks)} blocks")
+
+    # MOE_FFN at the leg's capacities (one MoE layer's experts), device ms a
+    # call; its device time in the served run by the dispatches at each
+    layer = next(p_["moe"] for p_ in (sp[0] for sp in params["stages"]) if "moe" in p_)
+    w3 = [layer[k][0] for k in ("we_g", "we_u", "we_d")]
+    caps = {f"prefill_{L}": (moe._capacity(L, mcfg), st["moe"] * prompts_n)
+            for L, prompts_n in ((L, sum(len(p_) == L for p_ in prompts)) for L in lens)}
+    caps["decode"] = (moe._capacity(leg["slots"], mcfg), st["moe"] * decodes)
+    ffn_ms = {}
+    for key, (c, _) in caps.items():
+        xe = torch.randn((mcfg.n_experts, c, cfg.d_model), generator=gen, device=dev).to(
+            cfg.activation_dtype())
+        ffn_ms[key] = median_device_ms(lambda: grouped_ffn(xe, *w3), dev)
+    moe_ms = sum(ffn_ms[k] * calls for k, (_, calls) in caps.items())
+    expert_bytes = st["moe"] * sum(w.numel() * w.element_size() for w in w3)
+    stats.update(moe_ffn_ms_per_call=ffn_ms, moe_ffn_ms_in_run=moe_ms,
+                 moe_ffn_share=moe_ms / (busy_s * 1e3) if busy_s > 0 else None,
+                 expert_bytes_per_pass=expert_bytes,
+                 expert_bytes_bound_ms=expert_bytes / PEAKS["H100 SXM"][0] * 1e3)
+    print(f"  MOE_FFN (aten row) device ms a call, capacity: " + ", ".join(
+        f"{k} (C={caps[k][0]}) {v:.4f}" for k, v in ffn_ms.items())
+        + f"; in the served run ~{moe_ms:.1f} ms"
+        + (f", {stats['moe_ffn_share']:.3f} of its device time" if busy_s > 0 else "")
+        + f"; a decode pass reads every expert's weights: {expert_bytes / 1e9:.2f} GB, "
+        f"{stats['expert_bytes_bound_ms']:.2f} ms at 3.35 TB/s; MOE_FFN a decode pass "
+        f"{ffn_ms['decode'] * st['moe']:.2f} ms")
+
+    # one decode step alone, every slot past its prompt: host clock, device time
+    import numpy as np
+    lone = SlotEngine(model, params, leg["slots"], max_len)
+    tok = np.array([lone.prefill_into_slot(i, prompts[i], None)
+                    for i in range(leg["slots"])])
+    pos = np.array([len(p_) for p_ in prompts[:leg["slots"]]])
+    act = np.ones(leg["slots"], bool)
+
+    def steps(k):
+        nonlocal tok, pos
+        for _ in range(k):
+            tok = lone.decode_step(tok, pos, act, None)
+            pos = pos + 1
+        torch.cuda.synchronize(dev)
+
+    steps(1)
+    t0 = time.perf_counter()
+    steps(3)
+    stats["decode_step_ms_alone"] = (time.perf_counter() - t0) / 3 * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        steps(3)
+    lone_s = device_seconds(prof)
+    stats["decode_step_device_ms"] = lone_s / 3 * 1e3 if lone_s > 0 else None
+    print(f"  one decode step alone ({leg['slots']} slots): "
+          f"{stats['decode_step_ms_alone']:.2f} ms host clock, "
+          + (f"{stats['decode_step_device_ms']:.3f} ms of device time (the expert "
+             f"weights' bytes bound it at {stats['expert_bytes_bound_ms']:.2f})"
+             if lone_s > 0 else "device time not measured (the profiler saw none)"))
+    del lone, prof
+    halo.finalize()
+
+    # the 2048-token request, block by block, kernels against plain with the
+    # kernel block's routing forced on the plain one
+    plain = default_manifest()
+    plain.platform_list = [{"platform_preference": ["torch"]}]
+    chk = routed_block_check(cfg, cap, max_len, plain)
+    stats["routing"] = {k: (max(v) if isinstance(v, list) else v) for k, v in chk.items()}
+    print(f"  {len(prompts[i_long])}-token request, {len(cap.blocks)} blocks × "
+          f"{leg['max_new']} steps from the served run's inputs, kernels vs plain with "
+          f"routing forced: (a) router probabilities worst {max(chk['prob_err']):.3e} "
+          f"(tol {ROUTER_PROB_TOL:g}; control {max(chk['control_prob_err']):.3e}); "
+          f"(b) {chk['flips']} of {chk['routes']} top-k sets "
+          f"differ from the plain router's own, widest plain margin "
+          f"{chk['flip_margin_ratio']:.3f} × the call's largest probability difference "
+          f"(tol {FLIP_MARGIN:g}); (c) block output less input worst "
+          f"{max(chk['block_err']):.3e}, median {statistics.median(chk['block_err']):.3e} "
+          f"(tol {MOE_BLOCK_TOL:g}); control (plain, MMM summed in another order) worst "
+          f"{max(chk['control_err']):.3e}, median {statistics.median(chk['control_err']):.3e}")
+    if not max(chk["prob_err"]) <= ROUTER_PROB_TOL:
+        fail(f"the {cfg.name} leg's router probabilities differ from plain by "
+             f"{max(chk['prob_err']):.3e}")
+    if not chk["flip_margin_ratio"] <= FLIP_MARGIN:
+        fail(f"the {cfg.name} leg flipped an expert at a plain margin of "
+             f"{chk['flip_margin_ratio']:.3f} × its largest probability difference")
+    if not max(chk["block_err"]) <= MOE_BLOCK_TOL:
+        fail(f"a block of the {cfg.name} leg differs from its plain version by "
+             f"{max(chk['block_err']):.3e} with routing forced")
+    if cfg.stages[0].pattern[0].attn.kv_lora:
+        stats["mla_decode_vs_prefill"] = mla_decode_check(cfg, cap, max_len)
+
+    # the whole model, as information: the request replayed on the kernels
+    # (routing recorded) and on the plain versions, routing forced and free
+    req, toks = prompts[i_long], results[i_long]
+    calls = []
+    with routing_tap("record", calls):
+        kern = replay(model, params, req, toks, max_len, None)
+    with routing_tap("force", calls):
+        forced = replay(model, params, req, toks, max_len, plain)
+    free = replay(model, params, req, toks, max_len, plain)
+    for name, ref in (("forced", forced), ("free", free)):
+        errs = [normwise(k_, r_) for k_, r_ in zip(kern, ref)]
+        same = sum(int(r_.argmax()) == t for r_, t in zip(ref, toks))
+        stats[f"whole_model_{name}"] = {"errs": errs, "argmax_agree": same}
+        print(f"  whole model, kernels vs plain, routing {name}: " + ", ".join(
+            f"{e:.3e}" for e in errs) + f" by step; {same} of {len(errs)} served tokens "
+            f"equal the plain argmax")
+    del calls, kern, forced, free, cap
+    return launches, stats, model, params, req, toks
+
+
+def mla_decode_check(cfg, cap: BlockCapture, max_len):
+    """Each MLA block's attention at the request's first and last decode
+    step (the absorbed form over the latent cache) against a prefill over
+    the prompt and the decode inputs through that step (decompressed keys
+    through FLASH_ATTN), its last row, on the kernels: ≤ MLA_DECODE_TOL."""
+    import torch.nn.functional as F
+
+    from repro_torch import halo
+    from repro_torch.models.attention import mla_forward
+    from repro_torch.models.layers import rms_norm
+
+    halo.initialize()
+    errs = []
+    try:
+        with torch.no_grad():
+            for (spec, bp), xs in zip(cap.blocks, cap.inputs):
+                a, p = spec.attn, bp["attn"]
+                hs = [rms_norm(x, bp["ln1"], cfg.norm_eps) for x in xs]
+                s, dev = hs[0].shape[1], hs[0].device
+                _, cache = mla_forward(p, hs[0], a, positions=torch.arange(s, device=dev)[None],
+                                       norm_eps=cfg.norm_eps)
+                cache = tuple(F.pad(c, (0, 0, 0, max_len - s)) for c in cache)
+                for i, h in enumerate(hs[1:]):
+                    pos = torch.tensor([s + i], device=dev)
+                    y, cache = mla_forward(p, h, a, positions=pos[:, None], cache=cache,
+                                           cache_pos=pos, norm_eps=cfg.norm_eps)
+                    if i in (0, len(hs) - 2):
+                        seq = torch.cat(hs[:i + 2], dim=1)
+                        full, _ = mla_forward(p, seq, a, norm_eps=cfg.norm_eps,
+                                              positions=torch.arange(seq.shape[1],
+                                                                     device=dev)[None])
+                        errs.append(normwise(y[:, -1], full[:, -1]))
+    finally:
+        halo.finalize()
+    print(f"  MLA decode (absorbed, latent cache) vs prefill through the same position, "
+          f"{len(cap.blocks)} blocks at the first and last decode step: "
+          + ", ".join(f"{e:.3e}" for e in errs) + f" (tol {MLA_DECODE_TOL:g})")
+    if not max(errs) <= MLA_DECODE_TOL:
+        fail(f"MLA's decode differs from its prefill by {max(errs):.3e}")
+    return errs
+
+
+def phase3b_moe(dev):
+    """moonshot-v1-16b-a3b at its published widths and full depth
+    (SERVE_MOE) through ``phase3b_moe_leg``; then its first F32_MOE_LAYERS
+    layers in float32, built after the bfloat16 weights are freed, the
+    2048-token request on the kernels against the plain versions with the
+    kernels' routing forced (F32_SERVE_TOL)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(SERVE_MOE["arch"])
+    b0, b1 = cfg.stages[0].pattern[0], cfg.stages[1].pattern[0]
+    note = (f"{cfg.n_layers} layers (layer 0 dense, d_ff {b0.d_ff}; {cfg.n_layers - 1} of "
+            f"{b1.moe.n_experts} experts of d_ff {b1.moe.d_ff_expert}, top {b1.moe.top_k}, "
+            f"{b1.moe.n_shared} shared), d_model {cfg.d_model}, {b0.attn.n_heads} heads of "
+            f"{b0.attn.head_dim}, vocab {cfg.vocab_size}")
+    launches, stats, model, params, req, toks = phase3b_moe_leg(dev, SERVE_MOE, cfg, note)
+    max_len = len(req) + SERVE_MOE["max_new"] + 8
+    del model, params
+    torch.cuda.empty_cache()
+
+    # float32, the first F32_MOE_LAYERS layers, kernels against plain
+    from repro_torch.core.manifest import default_manifest
+    cut = dataclasses.replace(cfg, dtype="float32", stages=(
+        cfg.stages[0], dataclasses.replace(cfg.stages[1], repeats=F32_MOE_LAYERS - 1)))
+    m32 = build_model(cut)
+    p32 = m32.init(torch.Generator(device=dev).manual_seed(SERVE_MOE["seed"]))
+    plain = default_manifest()
+    plain.platform_list = [{"platform_preference": ["torch"]}]
+    calls = []
+    with routing_tap("record", calls):
+        kern = replay(m32, p32, req, toks, max_len, None)
+    with routing_tap("force", calls):
+        ref = replay(m32, p32, req, toks, max_len, plain)
+    e32 = [normwise(k_, r_) for k_, r_ in zip(kern, ref)]
+    stats["f32_errs"] = e32
+    print(f"  float32, the first {F32_MOE_LAYERS} layers, the {len(req)}-token request + "
+          f"{len(e32) - 1} decode steps, kernels vs plain, routing forced: "
+          + ", ".join(f"{e:.2e}" for e in e32) + f" (tol {F32_SERVE_TOL:g})")
+    del m32, p32, calls, kern, ref
+    torch.cuda.empty_cache()
+    if len(e32) != len(toks) or not max(e32) <= F32_SERVE_TOL:
+        fail(f"the moonshot leg's float32 logits differ from the plain versions by "
+             f"{max(e32):.3e}")
+    return launches, stats
+
+
+def phase3b_mla(dev):
+    """deepseek-v2-236b at its published widths, its depth cut to layer 0
+    and SERVE_MLA["moe_repeats"] MoE layers, through ``phase3b_moe_leg``:
+    FLASH_ATTN on the wgmma route at head dim 192 padded to 256."""
+    from repro_torch.configs import get_config
+
+    full = get_config(SERVE_MLA["arch"])
+    cfg = dataclasses.replace(full, stages=(
+        full.stages[0], dataclasses.replace(full.stages[1], repeats=SERVE_MLA["moe_repeats"])))
+    b0, b1 = cfg.stages[0].pattern[0], cfg.stages[1].pattern[0]
+    a = b0.attn
+    note = (f"{cfg.n_layers} of {full.n_layers} layers (layer 0 dense, d_ff {b0.d_ff}; "
+            f"{cfg.n_layers - 1} of {b1.moe.n_experts} experts of d_ff "
+            f"{b1.moe.d_ff_expert}, top {b1.moe.top_k}, {b1.moe.n_shared} shared), "
+            f"d_model {cfg.d_model}, MLA {a.n_heads} heads, q_lora {a.q_lora}, kv_lora "
+            f"{a.kv_lora}, nope {a.head_dim} + rope {a.rope_head_dim}, v {a.v_head_dim}, "
+            f"vocab {cfg.vocab_size}")
+    launches, stats, model, params, _, _ = phase3b_moe_leg(dev, SERVE_MLA, cfg, note)
+    del model, params
+    torch.cuda.empty_cache()
     return launches, stats
 
 
@@ -2780,24 +3485,24 @@ def replay(model, params, prompt, toks, max_len, manifest, registry=None):
 # ---------------------------------------------------------------------------
 # phase 4: times at the phase-3 shapes
 # ---------------------------------------------------------------------------
-#: phase 4: FLASH_ATTN at head dim 256 in the 16-bit types, 4096 tokens,
-#: causal: (heads, KV heads, type, window) of gemma-7b's prefill and of
-#: gemma3-4b's local layers
-FA_D256 = {"gemma7b_bfloat16": (16, 16, torch.bfloat16, None),
-           "gemma3_4b_bfloat16": (8, 4, torch.bfloat16, 1024),
-           "gemma7b_float16": (16, 16, torch.float16, None)}
-FA_D256_SEQ = 4096
+#: phase 4: FLASH_ATTN on its wgmma route in the 16-bit types, causal:
+#: (heads, KV heads, type, window, head dim, tokens) of gemma-7b's prefill
+#: and gemma3-4b's local layers at 4096 tokens, and of deepseek-v2's MLA
+#: prefill at the served 2048 (head dim 192, padded to 256)
+FA_D256 = {"gemma7b_bfloat16": (16, 16, torch.bfloat16, None, 256, 4096),
+           "gemma3_4b_bfloat16": (8, 4, torch.bfloat16, 1024, 256, 4096),
+           "gemma7b_float16": (16, 16, torch.float16, None, 256, 4096),
+           "deepseek_v2_mla_bfloat16": (128, 128, torch.bfloat16, None, 192, 2048)}
 
 
 def fa_d256_rows(dev, bw, peak, events_ms):
     """FA_D256's rows through ``flash_attention_hopper``, by the route the
-    package gives 16-bit attention at head dim 256 (named in each row, so
-    the function also times an older tree's route there when imported
-    beside that tree's package): device time
-    per call of the kernel, the plain version and SDPA, event times beside
-    (``events_ms``), checked against the plain version (``TOL``), the route
-    under "fa_route", bound from
-    the mask's visible pairs (4·256 operations each) at the 16-bit
+    package gives each (named in each row, so the function also times an
+    older tree's route there when imported beside that tree's package):
+    device time per call of the kernel, the plain version and SDPA, event
+    times beside (``events_ms``), checked against the plain version
+    (``TOL``), the route under "fa_route", bound from the mask's visible
+    pairs (4·d operations each at the real head dim d) at the 16-bit
     tensor-core peak ``peak`` or q, k, v and o over ``bw``."""
     from repro_torch.kernels.flash_attention.flash_attention import (fa_route,
                                                                      flash_attention_hopper)
@@ -2805,20 +3510,19 @@ def fa_d256_rows(dev, bw, peak, events_ms):
                                                          visibility)
 
     rows = {}
-    for key, (heads, kv_heads, dt, window) in FA_D256.items():
+    for key, (heads, kv_heads, dt, window, d, seq) in FA_D256.items():
         g = torch.Generator(device=dev).manual_seed(6)
-        shape = (1, heads, FA_D256_SEQ, 256)
+        shape = (1, heads, seq, d)
         q = torch.randn(shape, generator=g, device=dev).to(dt)
-        k = torch.randn((1, kv_heads, FA_D256_SEQ, 256), generator=g, device=dev).to(dt)
-        v = (torch.randn((1, kv_heads, FA_D256_SEQ, 256), generator=g, device=dev)
-             + 1.0).to(dt)
+        k = torch.randn((1, kv_heads, seq, d), generator=g, device=dev).to(dt)
+        v = (torch.randn((1, kv_heads, seq, d), generator=g, device=dev) + 1.0).to(dt)
         kw = dict(causal=True, window=window, prefix_len=0)
-        pairs = int(visibility(FA_D256_SEQ, FA_D256_SEQ, device=dev, **kw).sum()) * heads
-        flops = 4 * 256 * pairs
+        pairs = int(visibility(seq, seq, device=dev, **kw).sum()) * heads
+        flops = 4 * d * pairs
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         t_bytes, t_ops = nbytes / bw, flops / peak
         out, want = flash_attention_hopper(q, k, v, **kw), attention_ref(q, k, v, **kw)
-        route = fa_route(dt, 256)
+        route = fa_route(dt, d)
         check_close(f"FLASH_ATTN {route} {shape} {dt} window {window} vs plain",
                     normwise(out, want), dt)
         fns = {"ms": lambda: flash_attention_hopper(q, k, v, **kw),
@@ -2830,7 +3534,7 @@ def fa_d256_rows(dev, bw, peak, events_ms):
                    bound_ms=max(t_bytes, t_ops) * 1e3,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    visible_pairs=pairs, tflops=flops / (row["ms"] * 1e-3) / 1e12,
-                   shape=f"1x{heads}x{FA_D256_SEQ}x256 {str(dt).split('.')[-1]}, {kv_heads} "
+                   shape=f"1x{heads}x{seq}x{d} {str(dt).split('.')[-1]}, {kv_heads} "
                          f"KV heads, causal, window {window}")
         del q, k, v, out, want
         print(f"  flash_attention {route} {row['shape']}: kernel_ms {row['ms']:.4f}  SDPA "
@@ -3536,7 +4240,8 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     # (FA_D256: gemma-7b's heads, gemma3-4b's local layers), by device time
     fa_d256 = fa_d256_rows(dev, bw, bf16_peak, ms)
     if any(r_["fa_route"] != "wgmma" for r_ in fa_d256.values()):
-        fail(f"FLASH_ATTN at head dim 256 took {[r_['fa_route'] for r_ in fa_d256.values()]}")
+        fail(f"FLASH_ATTN at head dims 256 and 192 took "
+             f"{[r_['fa_route'] for r_ in fa_d256.values()]}")
     fa16_main = dict(fa_d256.pop("gemma7b_bfloat16"), **fa_d256)
     max_abs["flash_attention_wgmma"] = fa16_main.pop("max_abs_err")
     for r_ in fa_d256.values():
@@ -3649,8 +4354,9 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
          f"1x{attn.n_heads}x{seq}x{attn.head_dim} float32, {attn.n_kv_heads} KV heads, "
          f"causal, window {attn.window}, 3×TF32 route, device time (library: SDPA, "
          f"explicit mask)"),
-        # device time (events under "event_ms"); gemma3-4b's local layers and
-        # float16 under "gemma3_4b_bfloat16" and "gemma7b_float16"
+        # device time (events under "event_ms"); gemma3-4b's local layers,
+        # float16 and deepseek-v2's MLA prefill at head dim 192 under
+        # "gemma3_4b_bfloat16", "gemma7b_float16" and "deepseek_v2_mla_bfloat16"
         ("flash_attention_wgmma", fa16_main, (fa16_main["bound_ms"], fa16_main["bound_by"]),
          fa16_main["shape"] + ", wgmma route, device time (library: SDPA)"),
         ("fused", {"ms": ms(lambda: ewise_chain_hopper(*chain_x, steps=chain)),
@@ -3685,6 +4391,9 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
             entry["launches_float32_replay"] = \
                 path_launches["serve_float32"]["mmm_tf32x3"]
             entry["launches_lone_request"] = path_launches["mmm_lone"]["mmm_tf32x3"]
+        if name == "flash_attention_wgmma":
+            # the MLA leg's prefills, head dim 192 padded to 256
+            entry["launches_serve_mla"] = path_launches["serve_mla"][name]
         if name == "fused":
             print(f"  fused: four serial EW launches {times['serial_ewise_ms']:.4f} ms")
         if name in ("flash_attention_mma", "flash_attention_tf32x3"):
@@ -3782,6 +4491,15 @@ def main() -> None:
           f"served on the kernels")
     _, hybrid_stats = phase3b_hybrid(dev)
     print(json.dumps({"serve_hybrid": hybrid_stats}))
+    torch.cuda.empty_cache()              # the zamba2 leg's weights are gone
+    print(f"phase 3b, mixture of experts: {SERVE_MOE['arch']} at full width and depth, "
+          f"served on the kernels")
+    path_launches["serve_moe"], moe_stats = phase3b_moe(dev)
+    print(json.dumps({"serve_moe": moe_stats}))
+    print(f"phase 3b, MLA: {SERVE_MLA['arch']} at full width, layer 0 and "
+          f"{SERVE_MLA['moe_repeats']} MoE layers, served on the kernels")
+    path_launches["serve_mla"], mla_stats = phase3b_mla(dev)
+    print(json.dumps({"serve_mla": mla_stats}))
     seconds["3b serve"] = time.perf_counter() - t0
     print(f"phase 3c: execution graphs, fusion and compiled replay on {card}")
     t0 = time.perf_counter()

@@ -11,8 +11,8 @@ Each subpackage ships three artifacts per kernel:
 
 :func:`register_all` publishes three rows per alias with Table-II
 attributes — ``torch`` (oracle, priority 0, fail-safe), ``aten`` (library,
-10) and ``hopper`` (kernel, 20; none for SSD, SSD_DECODE and GQA_DECODE,
-which have no Pallas site) — so the runtime agent resolves each alias
+10) and ``hopper`` (kernel, 20; none for SSD, SSD_DECODE, GQA_DECODE and
+MOE_FFN, which have no Pallas site) — so the runtime agent resolves each alias
 to the best feasible substrate (hopper > aten > torch by default), and
 declares which aliases the graph fusion pass (DESIGN.md §12) may collapse
 into chains.
@@ -116,9 +116,11 @@ def register_all(registry=None) -> None:
     # Sequence-model aliases with no Pallas site in the reference, so no
     # hopper row: SSD's scan is the fail-safe and its chunked form (batched
     # float32 products) the library row; SSD_DECODE's step serves both.
-    # GQA_DECODE (decode-time attention) is attention_ref under both rows;
-    # the model attends inline at decode and dispatches it nowhere, as in
-    # the reference.
+    # MOE_FFN: the oracle in the input type, the library row's float32
+    # products.  GQA_DECODE (decode-time attention) is attention_ref under
+    # both rows; the model attends inline at decode and dispatches it
+    # nowhere, as in the reference.
+    from .moe_ffn import grouped_ffn, grouped_ffn_ref
     from .ssd import ssd_chunked, ssd_decode_step, ssd_ref
 
     def gqa_decode(q, k, v, **kw):
@@ -126,6 +128,7 @@ def register_all(registry=None) -> None:
 
     for alias, ref_fn, aten_fn in (("SSD", ssd_ref, ssd_chunked),
                                    ("SSD_DECODE", ssd_decode_step, ssd_decode_step),
+                                   ("MOE_FFN", grouped_ffn_ref, grouped_ffn),
                                    ("GQA_DECODE", gqa_decode, gqa_decode)):
         registry.register(_rec(alias, ref_fn, "torch", 0, failsafe=True))
         registry.register(_rec(alias, aten_fn, "aten", 10))

@@ -4,9 +4,14 @@
 
 Replaces ``repro/kernels/flash_attention/flash_attention.py::
 flash_attention_pallas``.  Online-softmax GQA attention, one block per
-(b, h, query tile) that loops over KV tiles staged in shared memory;
-nothing is padded and the scale is D^-1/2 of the real head dim.  Three
-routes, chosen by type and head dim alone (:func:`fa_route`):
+(b, h, query tile) that loops over KV tiles staged in shared memory.  The
+kernels are instantiated at the head dims of :data:`HEAD_DIMS`; any other
+head dim up to 256 is zero-padded in q, k and v to the next one
+(:func:`padded_head_dim`: MLA's 192 → 256, the reduced MLA's 48 → 64),
+which leaves q·kᵀ as it was, and the output is sliced back.  The scale is
+always D^-1/2 of the real head dim.  The reference pads the same way, to
+a multiple of 128.  Three routes, chosen by type and (padded) head dim
+alone (:func:`fa_route`):
 
 * ``tf32x3`` (``flash_attention_tf32x3.cu``), float32 at every head dim of
   :data:`HEAD_DIMS`: both products on the tensor cores (wgmma) by 3×TF32,
@@ -34,6 +39,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from .. import _cuda
 
@@ -49,13 +55,19 @@ MMA_HEAD_DIMS = (32, 64, 80, 96, 128)
 WGMMA_HEAD_DIM = 256
 
 
+def padded_head_dim(d: int) -> int:
+    """The smallest head dim of :data:`HEAD_DIMS` that holds ``d`` (at most
+    256): the width the kernels run ``d`` at."""
+    return min(x for x in HEAD_DIMS if x >= d)
+
+
 def fa_route(dtype: torch.dtype, d: int) -> str:
     """``"tf32x3"`` for float32, ``"mma"`` for bfloat16 and float16 at a head
-    dim in :data:`MMA_HEAD_DIMS`, ``"wgmma"`` for them at
-    :data:`WGMMA_HEAD_DIM`."""
+    dim that pads to one of :data:`MMA_HEAD_DIMS`, ``"wgmma"`` for them at
+    one that pads to :data:`WGMMA_HEAD_DIM`."""
     if dtype == torch.float32:
         return "tf32x3"
-    return "mma" if d in MMA_HEAD_DIMS else "wgmma"
+    return "mma" if padded_head_dim(d) in MMA_HEAD_DIMS else "wgmma"
 
 
 def tf32x3_key_tile(d: int) -> int:
@@ -101,8 +113,8 @@ def flash_attention_problem(q, k, v) -> Optional[str]:
     hkv, skv = k.shape[1], k.shape[2]
     if hkv == 0 or h % hkv:
         return f"{h} query heads do not split over {hkv} KV heads"
-    if d not in HEAD_DIMS:
-        return f"head dim {d} is not one of {HEAD_DIMS}"
+    if not 0 < d <= HEAD_DIMS[-1]:
+        return f"head dim {d} is not within 1..{HEAD_DIMS[-1]}"
     if skv == 0:
         return "no keys"
     if h > _MAX_GRID_YZ or b > _MAX_GRID_YZ or max(sq, skv) >= 2**31:
@@ -111,14 +123,24 @@ def flash_attention_problem(q, k, v) -> Optional[str]:
 
 
 def _launch(route, q, k, v, causal, window, prefix_len):
+    scale = float(q.shape[-1] ** -0.5)          # the real head dim's
+    dp = padded_head_dim(q.shape[-1])
+    if dp != q.shape[-1]:
+        pad = (0, dp - q.shape[-1])
+        out = _launch_at(route, F.pad(q, pad), F.pad(k, pad), F.pad(v, pad),
+                         causal, window, prefix_len, scale)
+        return out[..., :q.shape[-1]].contiguous()
+    return _launch_at(route, q, k, v, causal, window, prefix_len, scale)
+
+
+def _launch_at(route, q, k, v, causal, window, prefix_len, scale):
     b, h, sq, d = q.shape
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     rest = (b, h, k.shape[1], sq, k.shape[2], d, int(causal), int(window is not None),
-            int(window or 0), int(prefix_len), float(d ** -0.5),
-            _cuda.dtype_code(q.dtype))
+            int(window or 0), int(prefix_len), scale, _cuda.dtype_code(q.dtype))
     args = ptrs + rest
     if route == "tf32x3":
         ws_bytes = tf32x3_workspace_bytes(b, k.shape[1], k.shape[2], d)
@@ -147,8 +169,8 @@ def flash_attention_mma_hopper(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                                *, causal: bool = True, window: Optional[int] = None,
                                prefix_len: int = 0) -> torch.Tensor:
     """Attention of q over k, v on the card by the tensor-core kernel
-    (bfloat16 or float16, a head dim of :data:`MMA_HEAD_DIMS`), in q's
-    type."""
+    (bfloat16 or float16, a head dim that pads to one of
+    :data:`MMA_HEAD_DIMS`), in q's type."""
     _cuda.require_cuda(flash_attention_problem(q, k, v), "FLASH_ATTN", q)
     if fa_route(q.dtype, q.shape[-1]) != "mma":
         raise ValueError(f"FLASH_ATTN: the mma route takes bfloat16 or float16 at "
@@ -162,7 +184,8 @@ def flash_attention_wgmma_hopper(q: torch.Tensor, k: torch.Tensor,
                                   window: Optional[int] = None,
                                   prefix_len: int = 0) -> torch.Tensor:
     """Attention of q over k, v on the card by the wgmma kernel (bfloat16 or
-    float16 at head dim :data:`WGMMA_HEAD_DIM`), in q's type."""
+    float16 at a head dim that pads to :data:`WGMMA_HEAD_DIM`), in q's
+    type."""
     _cuda.require_cuda(flash_attention_problem(q, k, v), "FLASH_ATTN", q)
     if fa_route(q.dtype, q.shape[-1]) != "wgmma":
         raise ValueError(f"FLASH_ATTN: the wgmma route takes bfloat16 or float16 at "
@@ -175,7 +198,8 @@ def flash_attention_tf32x3_hopper(q: torch.Tensor, k: torch.Tensor,
                                   window: Optional[int] = None,
                                   prefix_len: int = 0) -> torch.Tensor:
     """Attention of float32 q over k, v on the card by the 3×TF32
-    tensor-core kernel (a head dim of :data:`HEAD_DIMS`), in float32."""
+    tensor-core kernel (any head dim up to 256, padded to one of
+    :data:`HEAD_DIMS`), in float32."""
     _cuda.require_cuda(flash_attention_problem(q, k, v), "FLASH_ATTN", q)
     if q.dtype != torch.float32:
         raise ValueError(f"FLASH_ATTN: the tf32x3 route takes float32, got {q.dtype}")

@@ -1,29 +1,30 @@
-"""Attention blocks: GQA/MQA (+SWA, prefix-LM) — port of
+"""Attention blocks: GQA/MQA (+SWA, prefix-LM) and MLA — port of
 ``repro.models.attention``.
 
 Sequence-level attention (prefill) routes through the FLASH_ATTN alias;
 decode-time single-query attention is inline masked einsum over the cache,
 as in the reference, where it is no Pallas kernel either.  The decode path
-writes each lane's new key and value into the slot cache in place.
+writes each lane's new key and value (MLA: latent and rope key) into the
+slot cache in place.
 
 Not ported yet: chunked prefill through the cache (``chunk_attention``,
-``chunk_ring_attention``), which serves the paged engine (ROADMAP A7), and
-MLA (``mla_forward``, ROADMAP A6).
+``chunk_ring_attention``, MLA's multi-token cache steps), which serves the
+paged engine (ROADMAP A7).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import AttnConfig
 from ..core.c2mpi import halo_dispatch
 from ..distributed.sharding import ParamSpec, shard
-from .layers import dense, rope
+from .layers import dense, rms_norm, rope
 
 Params = Dict[str, torch.Tensor]
 
-_MLA = "MLA attention (mla_forward, kv_lora > 0) is not ported yet (ROADMAP A6)"
 _CHUNK = ("multi-token steps through the cache (chunk_attention, "
           "chunk_ring_attention) come with PagedEngine (ROADMAP A7)")
 
@@ -32,9 +33,24 @@ _CHUNK = ("multi-token steps through the cache (chunk_attention, "
 # Parameter planning
 # ---------------------------------------------------------------------------
 def attn_param_specs(d_model: int, a: AttnConfig, dtype) -> Dict[str, ParamSpec]:
-    if a.kv_lora:
-        raise NotImplementedError(_MLA)
     h, kv, dh = a.n_heads, a.n_kv_heads, a.head_dim
+    if a.kv_lora:                                   # MLA (DeepSeek-V2)
+        qk_nope = dh
+        return {
+            "wdq": ParamSpec((d_model, a.q_lora), dtype, ("fsdp", None)),
+            "q_ln": ParamSpec((a.q_lora,), dtype, (None,), init_kind="ones"),
+            "wuq": ParamSpec((a.q_lora, h * (qk_nope + a.rope_head_dim)),
+                             dtype, ("fsdp", "tp")),
+            "wdkv": ParamSpec((d_model, a.kv_lora), dtype, ("fsdp", None)),
+            "kv_ln": ParamSpec((a.kv_lora,), dtype, (None,), init_kind="ones"),
+            "wkrope": ParamSpec((d_model, a.rope_head_dim), dtype,
+                                ("fsdp", None)),
+            "wuk": ParamSpec((a.kv_lora, h * qk_nope), dtype, ("fsdp", "tp")),
+            "wuv": ParamSpec((a.kv_lora, h * a.v_head_dim), dtype,
+                             ("fsdp", "tp")),
+            "wo": ParamSpec((h * a.v_head_dim, d_model), dtype,
+                            ("tp", "fsdp")),
+        }
     return {
         "wq": ParamSpec((d_model, h * dh), dtype, ("fsdp", "tp")),
         "wk": ParamSpec((d_model, kv * dh), dtype, ("fsdp", "tp")),
@@ -145,6 +161,80 @@ def decode_attention(q, ck, cv, pos, a: AttnConfig, *, prefix_len: int = 0,
     return out.reshape(bq, h, sq, dh).to(q.dtype)
 
 
-def mla_forward(p: Params, x: torch.Tensor, a: AttnConfig, **kwargs):
-    """Multi-head latent attention (DeepSeek-V2): not ported yet."""
-    raise NotImplementedError(_MLA)
+# ---------------------------------------------------------------------------
+# MLA forward (DeepSeek-V2, arXiv:2405.04434)
+# ---------------------------------------------------------------------------
+def mla_forward(p: Params, x: torch.Tensor, a: AttnConfig, *,
+                positions: torch.Tensor, norm_eps: float = 1e-6,
+                cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                cache_pos=None, active: Optional[torch.Tensor] = None):
+    """Multi-head latent attention.
+
+    Prefill: decompress K and V per head and run FLASH_ATTN over the
+    concatenated (nope ‖ rope) queries and keys, the rope key broadcast
+    over heads; V is zero-padded to the q·k width (128 → 192) and cut back
+    after, and the scale is (nope + rope)^-1/2.  Returns the latent cache
+    (ckv (B,S,kv_lora), k_rope (B,S,rope)).  Decode: the *absorbed* form in
+    float32 einsums — queries are projected into the latent space and
+    attend over the cached latent plus the shared rope key, so the cache
+    holds (B,S,kv_lora) + (B,S,rope) instead of per-head K and V.  Each
+    lane writes its latent and rope key at its position in place; lanes
+    where ``active`` is False write back what they hold."""
+    b, s, _ = x.shape
+    h, dh = a.n_heads, a.head_dim                    # dh = qk_nope dim
+    rdh, vdh, lat = a.rope_head_dim, a.v_head_dim, a.kv_lora
+
+    cq = rms_norm(dense(x, p["wdq"]), p["q_ln"], norm_eps)
+    q = dense(cq, p["wuq"]).reshape(b, s, h, dh + rdh)
+    q_nope, q_rope = q[..., :dh], q[..., dh:]
+    q_rope = rope(q_rope, positions, a.rope_theta)
+
+    ckv = rms_norm(dense(x, p["wdkv"]), p["kv_ln"], norm_eps)   # (B,S,lat)
+    k_rope = rope(dense(x, p["wkrope"])[:, :, None, :], positions,
+                  a.rope_theta)[:, :, 0]                        # (B,S,rdh)
+
+    if cache is None:
+        k_nope = dense(ckv, p["wuk"]).reshape(b, s, h, dh)
+        val = dense(ckv, p["wuv"]).reshape(b, s, h, vdh)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rdh)],
+                           dim=-1)
+        # (B,S,H,·) -> (B,H,S,·): the kernels take contiguous operands only
+        qh = q_full.transpose(1, 2).contiguous()
+        kh = k_full.transpose(1, 2).contiguous()
+        vh = F.pad(val, (0, dh + rdh - vdh)).transpose(1, 2).contiguous()
+        out = halo_dispatch("FLASH_ATTN", qh, kh, vh, causal=True)
+        out = shard(out[..., :vdh].transpose(1, 2).reshape(b, s, h * vdh),
+                    "batch", None, "tp")
+        new_cache = (ckv, k_rope)
+    else:
+        if s != 1:
+            raise NotImplementedError(_CHUNK)
+        cl, cr = cache                               # (B,S,lat), (B,S,rdh)
+        pos = _lane_positions(cache_pos, b, x.device)
+        lane = torch.arange(b, device=x.device)
+        cn, rn = ckv[:, 0].to(cl.dtype), k_rope[:, 0].to(cr.dtype)
+        if active is not None:
+            # inactive lanes write back what they hold (no host sync)
+            keep = torch.as_tensor(active, dtype=torch.bool, device=x.device)[:, None]
+            cn = torch.where(keep, cn, cl[lane, pos])
+            rn = torch.where(keep, rn, cr[lane, pos])
+        cl[lane, pos] = cn
+        cr[lane, pos] = rn
+        wuk = p["wuk"].reshape(lat, h, dh)
+        q_lat = torch.einsum("bshd,lhd->bshl", q_nope.float(), wuk.float())
+        s_lat = torch.einsum("bshl,btl->bhst", q_lat, cl.float())
+        s_rope = torch.einsum("bshd,btd->bhst", q_rope.float(), cr.float())
+        scores = (s_lat + s_rope) * (dh + rdh) ** -0.5
+        kpos = torch.arange(cl.shape[1], device=x.device)
+        visible = kpos[None, :] <= pos[:, None]      # per-lane causal mask (B,S)
+        scores = scores.masked_fill(~visible[:, None, None], -1e30)
+        probs = torch.softmax(scores, dim=-1)
+        ctx_lat = torch.einsum("bhst,btl->bshl", probs, cl.float())
+        wuv = p["wuv"].reshape(lat, h, vdh)
+        out = torch.einsum("bshl,lhv->bshv", ctx_lat, wuv.float())
+        out = out.reshape(b, s, h * vdh).to(x.dtype)
+        new_cache = (cl, cr)
+
+    out = dense(out, p["wo"])
+    return shard(out, "batch", None, None), new_cache

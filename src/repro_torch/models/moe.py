@@ -1,0 +1,178 @@
+"""Mixture-of-experts FFN (GShard/DeepSeek style), the one-device path —
+port of ``repro.models.moe``.
+
+Each token's router picks its top-k experts; tokens are scattered into
+per-expert capacity slots by index (an argsort-free scatter of at most
+T·k rows; the (T,E,C) one-hot dispatch tensor is never built), the
+grouped expert FFN runs through the MOE_FFN alias over all experts at once,
+and a gather-combine applies the router gates.  Rows past an expert's
+capacity are dropped, in the reference's order: slots are claimed in
+flattened (token, k) order.  No step reads a count back to the host: the
+capacity C is computed from the token count alone.
+
+Shared (always-on) experts run beside the routed ones as a plain dense
+FFN through MMM.  The router aux loss is Switch-style load balancing.
+
+Not ported yet: the expert-parallel paths (``moe_expert_parallel`` over a
+device group, the ``shard_map`` bodies and the int8 all_to_all), which
+need the collectives (ROADMAP A10).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import MoEConfig
+from ..core.c2mpi import halo_dispatch
+from ..distributed.sharding import ParamSpec, current_context
+from .layers import act_fn, dense
+
+Params = Dict[str, torch.Tensor]
+
+_EP = ("expert-parallel MoE (device groups, all_to_all dispatch) needs the "
+       "collectives (ROADMAP A10)")
+
+
+def moe_param_specs(d_model: int, m: MoEConfig, dtype) -> Dict[str, ParamSpec]:
+    """The router in float32, the stacked expert weights and the shared
+    experts' (``n_shared`` experts side by side) in ``dtype``."""
+    e, f = m.n_experts, m.d_ff_expert
+    specs = {
+        "router": ParamSpec((d_model, e), torch.float32, ("fsdp", None)),
+        "we_g": ParamSpec((e, d_model, f), dtype, ("expert", "fsdp", None)),
+        "we_u": ParamSpec((e, d_model, f), dtype, ("expert", "fsdp", None)),
+        "we_d": ParamSpec((e, f, d_model), dtype, ("expert", None, "fsdp")),
+    }
+    if m.n_shared:
+        fs = m.n_shared * f
+        specs.update({
+            "ws_g": ParamSpec((d_model, fs), dtype, ("fsdp", None)),
+            "ws_u": ParamSpec((d_model, fs), dtype, ("fsdp", None)),
+            "ws_d": ParamSpec((fs, d_model), dtype, (None, "fsdp")),
+        })
+    return specs
+
+
+# ---------------------------------------------------------------------------
+# Local (single-shard) routing + expert compute
+# ---------------------------------------------------------------------------
+def _router_probs(x2: torch.Tensor, router_w: torch.Tensor) -> torch.Tensor:
+    """(T,E) float32 softmax of the router logits.  The logits are float32
+    products of x2 and the router weights rounded to x2's type, as the
+    reference's bfloat16 einsum with float32 accumulation computes them: a
+    bfloat16 product would round the logits and flip experts."""
+    logits = torch.matmul(x2.float(), router_w.to(x2.dtype).float())
+    return torch.softmax(logits, dim=-1)
+
+
+def _route(x2: torch.Tensor, router_w: torch.Tensor, m: MoEConfig):
+    """(gates (T,k) float32 renormalised over the top k, expert indices
+    (T,k) in descending probability, the Switch aux loss)."""
+    probs = _router_probs(x2, router_w)
+    gates, eidx = torch.topk(probs, m.top_k, dim=-1)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    # Switch load-balance aux: E * sum_e (frac_tokens_e * frac_prob_e)
+    e = m.n_experts
+    frac_tok = F.one_hot(eidx[:, 0], e).float().mean(dim=0)
+    frac_prob = probs.mean(dim=0)
+    aux = e * torch.sum(frac_tok * frac_prob)
+    return gates, eidx, aux
+
+
+def _capacity(t: int, m: MoEConfig, world: int = 1) -> int:
+    c = int(t * m.top_k * m.capacity_factor / m.n_experts) + 1
+    return max(4, -(-c // 4) * 4)
+
+
+def _dispatch_indices(eidx: torch.Tensor, t: int, c: int, e: int):
+    """Capacity-slot assignment: each (token, k) row, in flattened order,
+    takes the next slot of its expert.  Returns (slot (T,k), keep (T,k));
+    a row past its expert's ``c`` slots is not kept."""
+    fe = eidx.reshape(-1)                               # (T*k,)
+    pos = torch.cumsum(F.one_hot(fe, e), dim=0) - 1     # position per expert
+    pos_in_e = pos.gather(1, fe[:, None])[:, 0]
+    keep = pos_in_e < c
+    slot = fe * c + pos_in_e
+    return slot.reshape(t, -1), keep.reshape(t, -1)
+
+
+def _gather_dispatch(x2, slot, keep, e: int, c: int, k: int):
+    """Scatter kept (token, k) rows into (E*C, D) capacity slots; dropped
+    rows land in a sink row ``e·c`` that is cut off."""
+    t, d = x2.shape
+    token_idx = torch.arange(t, device=x2.device).repeat_interleave(k)
+    slot_safe = torch.where(keep.reshape(-1), slot.reshape(-1), e * c)
+    buf = x2.new_zeros((e * c + 1, d))
+    buf[slot_safe] = x2[token_idx]
+    return buf[:-1].reshape(e, c, d)
+
+
+def _combine(ye, slot, keep, gates, t: int, k: int):
+    """Σ over each token's k slots of gate × expert output, in float32; a
+    dropped row weighs 0."""
+    d = ye.shape[-1]
+    ye_flat = ye.reshape(-1, d)
+    vals = ye_flat[slot.reshape(-1).clamp(0, ye_flat.shape[0] - 1)]
+    w = (gates.reshape(-1) * keep.reshape(-1)).float()[:, None]
+    return (vals.float() * w).reshape(t, k, d).sum(dim=1)
+
+
+def _expert_ffn(xe, wg, wu, wd, act: str):
+    return halo_dispatch("MOE_FFN", xe, wg.to(xe.dtype), wu.to(xe.dtype),
+                         wd.to(xe.dtype))
+
+
+def _moe_local(p: Params, x2: torch.Tensor, m: MoEConfig, act: str):
+    """The single-shard path: (y (T,D) in x2's type, aux)."""
+    t = x2.shape[0]
+    gates, eidx, aux = _route(x2, p["router"], m)
+    c = _capacity(t, m)
+    slot, keep = _dispatch_indices(eidx, t, c, m.n_experts)
+    xe = _gather_dispatch(x2, slot, keep, m.n_experts, c, m.top_k)
+    ye = _expert_ffn(xe, p["we_g"], p["we_u"], p["we_d"], act)
+    y = _combine(ye, slot, keep, gates, t, m.top_k)
+    return y.to(x2.dtype), aux
+
+
+def moe_layer(p: Params, x: torch.Tensor, m: MoEConfig, act: str
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,S,D) → (y (B,S,D), aux loss × ``router_aux_weight``): shared
+    experts through MMM, then the routed ones."""
+    if current_context().mesh is not None:
+        raise NotImplementedError(_EP)
+    b, s, d = x.shape
+    x2 = x.reshape(b * s, d)
+    y_sh = None
+    if p.get("ws_g") is not None:
+        g = dense(x2, p["ws_g"])
+        u = dense(x2, p["ws_u"])
+        y_sh = dense(act_fn("swiglu", g, u), p["ws_d"])
+    y, aux = _moe_local(p, x2, m, act)
+    if y_sh is not None:
+        y = y + y_sh.to(y.dtype)
+    return y.reshape(b, s, d).to(x.dtype), aux * m.router_aux_weight
+
+
+# ---------------------------------------------------------------------------
+# Distributed paths (ROADMAP A10)
+# ---------------------------------------------------------------------------
+def moe_expert_parallel(p, x, m, act, comm):
+    """Expert-parallel MoE over a C²MPI device group: not ported yet."""
+    raise NotImplementedError(_EP)
+
+
+def _a2a_int8(xe, ep_axis, split_axis, concat_axis):
+    """The int8 all_to_all wire format: not ported yet."""
+    raise NotImplementedError(_EP)
+
+
+def _moe_a2a_body(*args, **kwargs):
+    """The a2a-mode shard_map body: not ported yet."""
+    raise NotImplementedError(_EP)
+
+
+def _moe_replicated_body(*args, **kwargs):
+    """The replicated-mode (decode) shard_map body: not ported yet."""
+    raise NotImplementedError(_EP)

@@ -1,5 +1,5 @@
 """Model assembly: stage-stacked decoder stacks — port of
-``repro.models.transformer`` for dense attention models.
+``repro.models.transformer``.
 
 A model is a list of *stages* (see configs.base): each stage runs
 ``repeats`` stacked copies of a block *pattern*, as a plain loop over the
@@ -13,11 +13,12 @@ stacked weights.  Two entry points serve a model:
 
 Parameters are nested dicts, lists and tuples of tensors with the
 reference's nesting, so :meth:`Model.params_from_numpy` carries the JAX
-package's weights across.  Block kinds: attention, Mamba-2 (``models.ssm``;
-its cache is O(1) conv and SSM state) and zamba2's shared attention block,
-one weight copy in ``params["shared"]`` invoked where the pattern places it.
-Not ported yet: MoE and MLA (ROADMAP A6), the stub frontends (A7, which
-serves them) and the training loss (A8).
+package's weights across.  Block kinds: attention (GQA, or MLA with its
+latent cache), with a dense or a mixture-of-experts FFN (``models.moe``),
+Mamba-2 (``models.ssm``; its cache is O(1) conv and SSM state) and zamba2's
+shared attention block, one weight copy in ``params["shared"]`` invoked
+where the pattern places it.  Not ported yet: the stub frontends (ROADMAP
+A7, which serves them) and the training loss with MoE's aux (A8).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from ..core.compute_object import from_numpy
 from ..distributed.sharding import ParamSpec, current_context, shard
 from .attention import attn_param_specs, gqa_forward, mla_forward
 from .layers import embed_tokens, ffn, logits_from_hidden, rms_norm
+from .moe import moe_layer, moe_param_specs
 from .ssm import mamba_cache_specs, mamba_forward, mamba_param_specs
 
 PyTree = Any
@@ -44,14 +46,7 @@ def _unsupported(cfg: ArchConfig) -> Optional[str]:
     if cfg.frontend != "none":
         return (f"the {cfg.frontend} frontend (served through ServeEngine's "
                 f"lockstep path, ROADMAP A7)")
-    blocks = [b for st in cfg.stages for b in st.pattern]
-    missing = []
-    if any(b.moe is not None for b in blocks):
-        missing.append("MoE FFNs (models/moe.py, the MOE_FFN row; ROADMAP A6)")
-    if any(b.attn is not None and b.attn.kv_lora for b in blocks):
-        missing.append("MLA attention (mla_forward, a FLASH_ATTN route at "
-                       "head dim 192; ROADMAP A6)")
-    return " and ".join(missing) or None
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -76,12 +71,16 @@ def _block_specs(cfg: ArchConfig, spec: BlockSpec, dtype) -> Dict[str, Any]:
             "ln": ParamSpec((d,), dtype, (None,), init_kind="ones"),
             "ssm": mamba_param_specs(d, spec.ssm, dtype),
         }
-    return {
+    out: Dict[str, Any] = {
         "ln1": ParamSpec((d,), dtype, (None,), init_kind="ones"),
         "ln2": ParamSpec((d,), dtype, (None,), init_kind="ones"),
         "attn": attn_param_specs(d, spec.attn, dtype),
-        "ffn": _ffn_specs(d, spec.d_ff, spec.act, dtype),
     }
+    if spec.moe is not None:
+        out["moe"] = moe_param_specs(d, spec.moe, dtype)
+    elif spec.d_ff:
+        out["ffn"] = _ffn_specs(d, spec.d_ff, spec.act, dtype)
+    return out
 
 
 def _stack_specs(tree: PyTree, r: int) -> PyTree:
@@ -118,7 +117,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> PyTree:
     matrices, ones for norm scales, Mamba's a_log = log(1..H) and dt_bias =
     softplus⁻¹ of dt spread over [1e-3, 1e-1] (the reference's
     ``init_params``; the two packages draw different numbers from the same
-    seed)."""
+    seed).  A leaf of three or more axes (a stage's stacked weights) is
+    drawn one slab of its leading axis at a time, so the float32 draw
+    never holds more than one layer's slab: moonshot's stacked experts,
+    17.3 GB in bfloat16, would need 34.7 GB of float32 drawn whole."""
     dev = generator.device
 
     def materialize(s: ParamSpec):
@@ -134,9 +136,16 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> PyTree:
             u = torch.linspace(1e-3, 1e-1, s.shape[-1], device=dev)
             return torch.log(torch.expm1(u)).expand(s.shape).to(s.dtype).clone()
         fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
-        w = torch.randn(s.shape, generator=generator, dtype=torch.float32,
-                        device=dev) * (fan_in ** -0.5)
-        return w.to(s.dtype)
+
+        def draw(shape):
+            return (torch.randn(shape, generator=generator, dtype=torch.float32,
+                                device=dev) * (fan_in ** -0.5)).to(s.dtype)
+        if len(s.shape) < 3:
+            return draw(s.shape)
+        w = torch.empty(s.shape, dtype=s.dtype, device=dev)
+        for i in range(s.shape[0]):
+            w[i] = draw(s.shape[1:])
+        return w
 
     return pytree.tree_map(materialize, param_specs(cfg))
 
@@ -184,11 +193,17 @@ def ring_len(cfg: ArchConfig, a: Optional[AttnConfig], seq: int) -> int:
 
 def _block_cache_specs(cfg: ArchConfig, spec: BlockSpec, batch: int,
                        seq: int, dtype):
-    """Mamba: (conv_x, conv_bc, ssm) states; attention and the shared
-    block (an ordinary GQA cache of ``cfg.shared_attn``): (k, v)."""
+    """Mamba: (conv_x, conv_bc, ssm) states; MLA: the latent and the rope
+    key, (B,S,kv_lora) and (B,S,rope_head_dim); GQA and the shared block
+    (an ordinary GQA cache of ``cfg.shared_attn``): (k, v)."""
     if spec.kind == "mamba":
         return mamba_cache_specs(cfg.d_model, spec.ssm, batch, dtype)
     a = cfg.shared_attn if spec.kind == "shared_attn" else spec.attn
+    if a.kv_lora:
+        return (
+            ParamSpec((batch, seq, a.kv_lora), dtype, ("batch", "seq", None)),
+            ParamSpec((batch, seq, a.rope_head_dim), dtype, ("batch", "seq", None)),
+        )
     shp = (batch, a.n_kv_heads, ring_len(cfg, a, seq), a.head_dim)
     logical = _kv_cache_logical(a.n_kv_heads)
     return (ParamSpec(shp, dtype, logical), ParamSpec(shp, dtype, logical))
@@ -220,13 +235,21 @@ def _apply_block(spec: BlockSpec, bp, x, *, cfg: ArchConfig, positions,
     p = shared_params if shared else bp
     a_cfg = cfg.shared_attn if shared else spec.attn
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    attend = mla_forward if a_cfg.kv_lora else gqa_forward
-    att, nc = attend(p["attn"], h, a_cfg, positions=positions,
-                     prefix_len=cfg.prefix_len, cache=cache,
-                     cache_pos=cache_pos, active=active)
+    if a_cfg.kv_lora:
+        att, nc = mla_forward(p["attn"], h, a_cfg, positions=positions,
+                              norm_eps=cfg.norm_eps, cache=cache,
+                              cache_pos=cache_pos, active=active)
+    else:
+        att, nc = gqa_forward(p["attn"], h, a_cfg, positions=positions,
+                              prefix_len=cfg.prefix_len, cache=cache,
+                              cache_pos=cache_pos, active=active)
     x = x + att
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + ffn(p["ffn"], h2, "swiglu" if shared else spec.act), nc
+    if not shared and spec.moe is not None:
+        f, _ = moe_layer(bp["moe"], h2, spec.moe, spec.act)   # serving drops aux
+    else:
+        f = ffn(p["ffn"], h2, "swiglu" if shared else spec.act)
+    return x + f, nc
 
 
 def _run_stage(st: Stage, sp, x, *, cfg, positions, shared_params=None,

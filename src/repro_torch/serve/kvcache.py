@@ -52,7 +52,8 @@ def _to_ring(k: torch.Tensor, window: int) -> torch.Tensor:
 def pad_caches(cfg: ArchConfig, caches: PyTree, target_len: int) -> PyTree:
     """Grow every attention cache's sequence axis to its serving length:
     GQA (R,B,Hkv,S,dh) ×2, the shared block's included → pad axis 3,
-    ring-rolled for sliding-window layers.  Mamba's conv and SSM states are
+    ring-rolled for sliding-window layers; MLA's latent and rope key
+    (R,B,S,lat), (R,B,S,rdh) → pad axis 2.  Mamba's conv and SSM states are
     O(1) and pass through unchanged."""
     out = []
     for i, st in enumerate(cfg.stages):
@@ -62,6 +63,10 @@ def pad_caches(cfg: ArchConfig, caches: PyTree, target_len: int) -> PyTree:
                 blocks.append(caches[i][j])
                 continue
             a = cfg.shared_attn if spec.kind == "shared_attn" else spec.attn
+            if a.kv_lora:
+                pad = (0, 0, 0, target_len - caches[i][j][0].shape[2])
+                blocks.append(tuple(F.pad(c, pad) for c in caches[i][j]))
+                continue
             tgt = ring_len(cfg, a, target_len)
             ck, cv = caches[i][j]
             if tgt < target_len:                       # SWA ring layer

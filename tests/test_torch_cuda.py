@@ -7,6 +7,9 @@ This file imports no JAX, so it runs on a machine that has none:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import importlib.util
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -1051,7 +1054,7 @@ def _bad_operands(dev):
         (flash_attention_hopper, (q, q[:, :2].transpose(2, 3).contiguous()
                                   .transpose(2, 3), q[:, :2])),
         (flash_attention_hopper, (q, q[:, :2].half(), q[:, :2].half())),
-        (flash_attention_hopper, (q[..., :24].contiguous(),) * 3),   # head dim
+        (flash_attention_hopper, (torch.randn(1, 4, 8, 264, device=dev),) * 3),  # head dim
     ]
 
 
@@ -1434,3 +1437,129 @@ def test_failing_fused_hopper_record_on_the_card_fails_its_node(card):
         assert rt.scheduler.failed_record_keys() == []
     finally:
         rt.finalize()
+
+
+# ---------------------------------------------------------------------------
+# FLASH_ATTN between the instantiated head dims (MLA's 192, the reduced 48)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,route16", [(48, "mma"), (192, "wgmma")])
+@pytest.mark.parametrize("hkv", [1, 4])
+def test_flash_attention_padded_head_dim(card, dtype, d, route16, hkv):
+    """The hopper path zero-pads q, k and v to 64 or 256 and scales by the
+    real dim's D^-1/2: against attention_ref at the real dim on the route
+    the type picks (tf32x3 for float32), causal over 300 tokens, and once
+    over 70 queries of 300 keys; the padded columns never reach the
+    output (its shape is the real dim's)."""
+    route = "tf32x3" if dtype == torch.float32 else route16
+    assert fa_route(dtype, d) == route
+    for sq, seed in ((300, d + hkv), (70, d + hkv + 1)):
+        q = _rnd(card, 1, 4, sq, d, dtype=dtype, seed=seed)
+        k = _rnd(card, 1, hkv, 300, d, dtype=dtype, seed=seed + 10)
+        v = _rnd(card, 1, hkv, 300, d, dtype=dtype, seed=seed + 20)
+        before = _cuda.launch_counts().get(f"flash_attention_{route}", 0)
+        out = flash_attention_hopper(q, k, v, causal=True)
+        assert _cuda.launch_counts()[f"flash_attention_{route}"] == before + 1
+        assert out.shape == q.shape and out.dtype == dtype and out.is_contiguous()
+        assert _normwise(out, attention_ref(q, k, v, causal=True)) <= TOL[dtype]
+
+
+def test_flash_attention_mla_prefill_shape(card):
+    """deepseek-v2's prefill attention, 128 heads at 128 + 64 = 192 over 2048
+    tokens in bfloat16, on the wgmma route; the padded dim's scale
+    (256^-1/2) would read far past TOL."""
+    q, k, v = (_rnd(card, 1, 128, 2048, 192, dtype=torch.bfloat16, seed=s)
+               for s in (1, 2, 3))
+    out = flash_attention_wgmma_hopper(q, k, v, causal=True)
+    want = attention_ref(q, k, v, causal=True)
+    assert _normwise(out, want) <= TOL[torch.bfloat16]
+    wrong = attention_ref(q, k, v, causal=True, scale=256 ** -0.5)
+    assert _normwise(wrong, want) > 10 * TOL[torch.bfloat16]
+
+
+# ---------------------------------------------------------------------------
+# MoE: the MOE_FFN rows and the dispatch on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("cap", [244, 4])
+def test_moe_ffn_aten_row_against_torch_row(card, cap):
+    """moonshot's experts (64 of 2048 → 1408) at its 2048-token prefill
+    capacity and its 4-slot decode capacity, bfloat16: the aten row
+    (float32 h and u, by bmm out_dtype) against the torch row (every
+    product in bfloat16), and both against a float64 FFN of the same
+    inputs, the aten row nearer it."""
+    from repro_torch.kernels.moe_ffn.ops import grouped_ffn
+    from repro_torch.kernels.moe_ffn.ref import grouped_ffn_ref
+    xe = _rnd(card, 64, cap, 2048, dtype=torch.bfloat16, seed=1)
+    wg = (_rnd(card, 64, 2048, 1408, dtype=torch.float32, seed=2) / 2048 ** 0.5).bfloat16()
+    wu = (_rnd(card, 64, 2048, 1408, dtype=torch.float32, seed=3) / 2048 ** 0.5).bfloat16()
+    wd = (_rnd(card, 64, 1408, 2048, dtype=torch.float32, seed=4) / 1408 ** 0.5).bfloat16()
+    got, ref = grouped_ffn(xe, wg, wu, wd), grouped_ffn_ref(xe, wg, wu, wd)
+    assert got.dtype == torch.bfloat16 and got.shape == xe.shape
+    assert _normwise(got, ref) <= TOL[torch.bfloat16]
+    h = xe.double() @ wg.double()
+    exact = (torch.nn.functional.silu(h) * (xe.double() @ wu.double())) @ wd.double()
+    assert _normwise(got, exact) < _normwise(ref, exact) <= TOL[torch.bfloat16]
+
+
+def test_moe_dispatch_on_the_card_is_bit_identical_to_the_cpu(card):
+    """_dispatch_indices and _gather_dispatch at moonshot's widths (2048
+    tokens, 64 experts, top 6, capacity 244) with a router skewed so that
+    experts 0 and 1 overflow: slot, keep and the capacity buffer on the
+    card equal the same calls on the CPU bit for bit."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+    m = MoEConfig(n_experts=64, top_k=6, d_ff_expert=1408, n_shared=2)
+    t = 2048
+    c = moe._capacity(t, m)
+    g = torch.Generator().manual_seed(0)
+    x2 = (torch.randn(t, 2048, generator=g) + 1.0).bfloat16()
+    router = torch.randn(2048, 64, generator=g) * 2048 ** -0.5
+    router[:, :2] += 0.01                # every token's logits favour 0 and 1
+    _, eidx, _ = moe._route(x2, router, m)
+    assert int((eidx == 0).sum()) > c and int((eidx == 1).sum()) > c
+    slot, keep = moe._dispatch_indices(eidx, t, c, 64)
+    xe = moe._gather_dispatch(x2, slot, keep, 64, c, 6)
+    cs, ck = moe._dispatch_indices(eidx.to(card), t, c, 64)
+    cxe = moe._gather_dispatch(x2.to(card), cs, ck, 64, c, 6)
+    assert not bool(keep.all())
+    assert torch.equal(cs.cpu(), slot) and torch.equal(ck.cpu(), keep)
+    assert torch.equal(_bits(cxe.cpu()), _bits(xe))
+
+
+def _moe_definition():
+    """chip_smoke.py's float64 definition of the MoE layer (one definition
+    for the card's test and the card's smoke run)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.moe_definition
+
+
+@pytest.mark.parametrize("t", [4, 128])
+def test_moe_layer_on_the_card_against_its_definition(card, t):
+    """moonshot's MoE layer (64 experts top 6, d_ff 1408, 2 shared experts)
+    in bfloat16 on the card's kernels (MMM for the shared experts, MOE_FFN
+    on its aten row) against chip_smoke.py's ``moe_definition``: 4 tokens
+    (the decode capacity, no drop possible) and 128 (capacity 16) whose
+    first 32 tokens are one token repeated, so that rows are dropped."""
+    from repro_torch import halo
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+    m = MoEConfig(n_experts=64, top_k=6, d_ff_expert=1408, n_shared=2)
+    specs = moe.moe_param_specs(2048, m, torch.bfloat16)
+    p = {n: (_rnd(card, *s.shape, dtype=torch.float32, seed=i)
+             * s.shape[-2] ** -0.5).to(s.dtype) for i, (n, s) in enumerate(specs.items())}
+    x = _rnd(card, 1, t, 2048, dtype=torch.bfloat16, seed=9)
+    repeat = t // 4 if t > 4 else 1
+    x[:, :repeat] = x[:, :1]
+    halo.initialize()
+    try:
+        y, _ = moe.moe_layer(p, x, m, "swiglu")
+        _, eidx, _ = moe._route(x[0], p["router"], m)
+    finally:
+        halo.finalize()
+    want, want_eidx, kept = _moe_definition()(p, x[0], m)
+    assert torch.equal(eidx, want_eidx)
+    assert bool(kept.all()) == (repeat == 1)
+    assert _normwise(y[0], want) <= TOL[torch.bfloat16]

@@ -173,6 +173,6 @@ def test_tf32x3_wrapper_refuses_host_tensors_and_counts_nothing():
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash_attention_tf32x3_hopper(q, q, q)
     with pytest.raises(ValueError, match="head dim"):
-        flash_attention_tf32x3_hopper(*(torch.randn(1, 2, 4, 24),) * 3)
+        flash_attention_tf32x3_hopper(*(torch.randn(1, 2, 4, 264),) * 3)
     assert _cuda.launch_counts() == before
     assert before.get("flash_attention_tf32x3", 0) == 0

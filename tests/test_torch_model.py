@@ -38,7 +38,6 @@ from repro_torch.kernels.rmsnorm import ref as t_rms_ref
 from repro_torch.kernels.rmsnorm.rmsnorm import ROW_WARPS, RmsnormPlan, rmsnorm_plan
 from repro_torch.launch import serve as t_serve
 from repro_torch.models import build_model
-from repro_torch.models.transformer import Model
 from repro_torch.serve import kvcache as t_kvcache
 from repro_torch.serve.engine import (AdmissionError, AdmissionPolicy,
                                       QoSClass, SlotEngine, StepScheduler,
@@ -47,15 +46,14 @@ from repro_torch.serve.engine import (AdmissionError, AdmissionPolicy,
 KERNEL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 MODEL_TOL = 1e-4
 DTYPES = ["float32", "bfloat16"]
-#: the architectures the port builds: dense attention, and the state-space
-#: ones (Mamba-2 blocks on the SSD rows, zamba2's shared attention block);
-#: the others need MOE_FFN, MLA or a stub frontend
+#: the architectures the port builds: dense attention, the state-space ones
+#: (Mamba-2 blocks on the SSD rows, zamba2's shared attention block) and
+#: the MoE ones (MOE_FFN; deepseek-v2's MLA); the others need a stub
+#: frontend
 PORTED = ["mistral-large-123b", "h2o-danube-1.8b", "gemma-7b", "gemma3-4b",
-          "mamba2-370m", "zamba2-1.2b"]
+          "mamba2-370m", "zamba2-1.2b", "moonshot-v1-16b-a3b", "deepseek-v2-236b"]
 #: what build_model refuses, and the ROADMAP item each message names
-REFUSED = {"moonshot-v1-16b-a3b": "MoE.*ROADMAP A6",
-           "deepseek-v2-236b": "MoE.*ROADMAP A6.*MLA.*ROADMAP A6",
-           "musicgen-large": "frame_embed frontend.*ROADMAP A7",
+REFUSED = {"musicgen-large": "frame_embed frontend.*ROADMAP A7",
            "paligemma-3b": "patch_embed frontend.*ROADMAP A7"}
 
 
@@ -257,8 +255,7 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         t_fa_ops.flash_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v)
     with pytest.raises(ValueError, match="head dim"):
-        t_fa_ops.flash_attention(q[..., :40].contiguous(), k[..., :40].contiguous(),
-                                 v[..., :40].contiguous())
+        t_fa_ops.flash_attention(*from_numpy(fa_inputs("float32", 8, 8, d=264)))
     with pytest.raises(ValueError, match="share one of"):
         t_fa_ops.flash_attention(q, k.bfloat16(), v)
     with pytest.raises(ValueError, match="do not split"):
@@ -429,8 +426,7 @@ def test_refused_and_ported_cover_every_arch():
 
 @pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(PORTED)))
 def test_build_model_refuses_what_is_not_ported(arch):
-    """MoE (moonshot-v1-16b-a3b, deepseek-v2-236b) and MLA wait for the
-    rest of A6; the stub frontends (musicgen-large, paligemma-3b) for A7's
+    """The stub frontends (musicgen-large, paligemma-3b) wait for A7's
     ServeEngine, which serves them.  Each message names its item."""
     with pytest.raises(NotImplementedError, match=REFUSED[arch]):
         build_model(get_config(arch).reduced())
@@ -438,17 +434,19 @@ def test_build_model_refuses_what_is_not_ported(arch):
         build_model(get_config(arch))
 
 
-def test_mla_attention_raises_naming_the_roadmap():
-    """deepseek-v2 without its MoE FFNs is refused for MLA, and MLA's stub
-    raises too, each naming ROADMAP A6."""
+def test_mla_attention_raises_naming_the_roadmap(cpu_session):
+    """deepseek-v2 with dense FFNs in place of its MoE ones builds (MLA
+    alone); MLA's multi-token steps through the cache, the chunked prefill
+    of the paged engine, raise naming ROADMAP A7, as GQA's do."""
     cfg = get_config("deepseek-v2-236b").reduced()
     stages = tuple(dataclasses.replace(st, pattern=tuple(
         dataclasses.replace(b, moe=None, d_ff=64) for b in st.pattern))
         for st in cfg.stages)
-    with pytest.raises(NotImplementedError, match="mla_forward.*ROADMAP A6"):
-        build_model(dataclasses.replace(cfg, stages=stages))
-    with pytest.raises(NotImplementedError, match="mla_forward.*ROADMAP A6"):
-        Model(cfg=dataclasses.replace(cfg, stages=stages)).init(torch.Generator())
+    model = build_model(dataclasses.replace(cfg, stages=stages))
+    params = model.init(torch.Generator().manual_seed(0))
+    caches = model.init_cache(1, 16)
+    with pytest.raises(NotImplementedError, match="chunk.*ROADMAP A7"):
+        model.decode_step(params, caches, torch.tensor([[1, 2]]), 0)
 
 
 def test_bf16_weights_cross_with_their_bits(cpu_session):

@@ -1,0 +1,329 @@
+"""Port parity for the mixture-of-experts FFN: the MOE_FFN rows (``torch``
+oracle, ``aten`` batched float32 products) against the JAX package's
+``grouped_ffn_ref`` and ``grouped_ffn``; the router, the capacity-slot
+dispatch and the gate-combine of ``models/moe.py`` against the JAX
+package's, slot for slot where tokens are dropped; the reference's routing
+invariants (tests/test_moe.py) on the port; ``moe_layer`` with shared
+experts against JAX.
+
+Inputs are made in numpy from a seed and fed to both packages; the port
+runs on the CPU through a session made with ``device="cpu"``.  Tolerances
+are the reference's conformance tolerances (tests/test_kernels_property.py:
+float32 rtol = atol = 2e-4, bfloat16 4e-2: records that reduce in another
+order differ by ~1e-2 in an 8-bit mantissa)."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import MoEConfig as JMoEConfig
+from repro.kernels.moe_ffn import ops as j_moe_ops
+from repro.kernels.moe_ffn import ref as j_moe_ref
+from repro.models import moe as j_moe
+from repro_torch import halo
+from repro_torch.configs.base import MoEConfig
+from repro_torch.core.compute_object import from_numpy, to_numpy
+from repro_torch.kernels.moe_ffn import ops as t_moe_ops
+from repro_torch.kernels.moe_ffn import ref as t_moe_ref
+from repro_torch.models import moe as t_moe
+
+CONFORMANCE_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
+                   "bfloat16": dict(rtol=4e-2, atol=4e-2)}
+DTYPES = ["float32", "bfloat16"]
+#: a router margin below this may order two experts either way: the two
+#: packages sum the same float32 logit products in another order
+TIE_MARGIN = 1e-5
+
+
+def _np(dtype, a):
+    return np.asarray(a, np.float32).astype(jnp.bfloat16 if dtype == "bfloat16"
+                                            else np.float32)
+
+
+def _close(got, want, dtype):
+    got = to_numpy(got) if isinstance(got, torch.Tensor) else got
+    np.testing.assert_allclose(np.asarray(got, np.float32), np.asarray(want, np.float32),
+                               **CONFORMANCE_TOL[dtype])
+
+
+def _cfgs(**kw):
+    fields = dict(n_experts=8, top_k=2, d_ff_expert=16, capacity_factor=2.0)
+    fields.update(kw)
+    return MoEConfig(**fields), JMoEConfig(**fields)
+
+
+@pytest.fixture(scope="module")
+def cpu_session():
+    session = halo.initialize(device="cpu")
+    yield session
+    halo.finalize()
+
+
+def _ffn_inputs(dtype, e=4, c=6, d=24, f=40, seed=0):
+    rng = np.random.default_rng(seed)
+    return (_np(dtype, rng.standard_normal((e, c, d))),
+            _np(dtype, rng.standard_normal((e, d, f)) * d ** -0.5),
+            _np(dtype, rng.standard_normal((e, d, f)) * d ** -0.5),
+            _np(dtype, rng.standard_normal((e, f, d)) * f ** -0.5))
+
+
+# ---------------------------------------------------------------------------
+# (a) the MOE_FFN rows
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("row", ["torch", "aten"])
+@pytest.mark.parametrize("shape", [(4, 6, 24, 40), (8, 4, 64, 32)])
+def test_moe_ffn_rows_match_jax(dtype, row, shape):
+    """torch row against ``grouped_ffn_ref`` (every product in the input
+    type), aten row against ``grouped_ffn`` (float32 h and u)."""
+    args = _ffn_inputs(dtype, *shape)
+    jfn, tfn = {"torch": (j_moe_ref.grouped_ffn_ref, t_moe_ref.grouped_ffn_ref),
+                "aten": (j_moe_ops.grouped_ffn, t_moe_ops.grouped_ffn)}[row]
+    want = jfn(*map(jnp.asarray, args))
+    got = tfn(*from_numpy(args))
+    assert got.dtype == from_numpy(args[0]).dtype and tuple(got.shape) == want.shape
+    _close(got, want, dtype)
+
+
+def test_moe_ffn_aten_row_keeps_h_and_u_in_float32():
+    """In bfloat16 the aten row rounds only silu(h)·u and the output: it is
+    nearer a float64 FFN of the same inputs than the torch row, which
+    rounds h and u too."""
+    args = from_numpy(_ffn_inputs("bfloat16", 8, 32, 64, 128, seed=3))
+    x, wg, wu, wd = (t.double() for t in args)
+    h, u = x @ wg, x @ wu
+    exact = (torch.nn.functional.silu(h) * u) @ wd
+    err = {name: float((fn(*args).double() - exact).norm() / exact.norm())
+           for name, fn in (("aten", t_moe_ops.grouped_ffn),
+                            ("torch", t_moe_ref.grouped_ffn_ref))}
+    assert err["aten"] < err["torch"]
+
+
+# ---------------------------------------------------------------------------
+# (b) routing, dispatch and combine against the JAX package
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("e,k", [(8, 2), (64, 6)])
+def test_route_matches_jax(dtype, e, k):
+    """Gates, indices and the aux loss.  The two packages sum the float32
+    logit products in another order, so two experts whose probabilities
+    lie within TIE_MARGIN may come out in either order (JAX's top_k puts
+    the lower index first on an exact tie; torch.topk promises no order);
+    every index mismatch must be such a near-tie."""
+    tc, jc = _cfgs(n_experts=e, top_k=k)
+    rng = np.random.default_rng(e)
+    x = _np(dtype, rng.standard_normal((96, 32)))
+    w = rng.standard_normal((32, e)).astype(np.float32) * 0.5
+    jg, je, jaux = j_moe._route(jnp.asarray(x), jnp.asarray(w), jc)
+    tx, tw = from_numpy((x, w))
+    tg, te, taux = t_moe._route(tx, tw, tc)
+    assert tg.dtype == torch.float32 and te.shape == (96, k)
+    probs = t_moe._router_probs(tx, tw)
+    te_np, je_np = to_numpy(te), np.asarray(je)
+    for r, j in zip(*np.nonzero(te_np != je_np)):
+        assert abs(float(probs[r, te_np[r, j]] - probs[r, je_np[r, j]])) < TIE_MARGIN
+    _close(tg, jg, "float32")
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
+    np.testing.assert_allclose(to_numpy(tg.sum(-1)), 1.0, rtol=1e-5)
+
+
+def test_router_logits_are_float32_products():
+    """A bfloat16 product would round the logits: the port's probabilities
+    are those of float32 products of the bfloat16-rounded operands."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((64, 256)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rng.standard_normal((256, 64)).astype(np.float32)) / 16
+    want = torch.softmax(x.double() @ w.bfloat16().double(), dim=-1)
+    got = t_moe._router_probs(x, w)
+    rounded = torch.softmax((x @ w.bfloat16()).double(), dim=-1)
+    assert got.dtype == torch.float32
+    assert float((got.double() - want).abs().max()) < 1e-6
+    assert float((rounded - want).abs().max()) > 1e-4
+
+
+@pytest.mark.parametrize("t", [1, 4, 7, 64, 244, 2048])
+def test_capacity_matches_jax(t):
+    for e, k in ((8, 2), (64, 6), (160, 6)):
+        tc, jc = _cfgs(n_experts=e, top_k=k, capacity_factor=1.25)
+        assert t_moe._capacity(t, tc) == j_moe._capacity(t, jc)
+
+
+def _skewed_eidx(t, e, k, seed=0):
+    """Expert choices where experts 0 and 1 take most rows: every row
+    names 0 or 1 first, so both overflow any capacity near T·k/E."""
+    rng = np.random.default_rng(seed)
+    first = rng.integers(0, 2, (t, 1))
+    rest = np.stack([rng.permutation(np.arange(2, e))[:k - 1] for _ in range(t)])
+    return np.concatenate([first, rest], axis=1).astype(np.int32)
+
+
+@pytest.mark.parametrize("t,e,k", [(64, 8, 2), (96, 16, 4)])
+def test_dispatch_indices_equal_jax_under_drops(t, e, k):
+    """Slots are claimed in flattened (token, k) order: with experts 0 and 1
+    overflowing, slot and keep equal JAX's element for element, so the
+    same rows are dropped; the gathered capacity buffer is equal too."""
+    tc, jc = _cfgs(n_experts=e, top_k=k, capacity_factor=1.0)
+    c = t_moe._capacity(t, tc)
+    eidx = _skewed_eidx(t, e, k)
+    js, jk = j_moe._dispatch_indices(jnp.asarray(eidx), t, c, e)
+    ts, tk = t_moe._dispatch_indices(torch.from_numpy(eidx).long(), t, c, e)
+    assert not np.asarray(jk).all()                       # some rows dropped
+    np.testing.assert_array_equal(to_numpy(tk), np.asarray(jk))
+    np.testing.assert_array_equal(to_numpy(ts), np.asarray(js))
+    x = np.random.default_rng(1).standard_normal((t, 8)).astype(np.float32)
+    jxe = j_moe._gather_dispatch(jnp.asarray(x), js, jk, e, c, k)
+    txe = t_moe._gather_dispatch(torch.from_numpy(x), ts, tk, e, c, k)
+    np.testing.assert_array_equal(to_numpy(txe), np.asarray(jxe))
+    gates = np.random.default_rng(2).random((t, k)).astype(np.float32)
+    ye = np.random.default_rng(3).standard_normal((e, c, 8)).astype(np.float32)
+    want = j_moe._combine(jnp.asarray(ye), js, jk, jnp.asarray(gates), t, k)
+    got = t_moe._combine(torch.from_numpy(ye), ts, tk, torch.from_numpy(gates), t, k)
+    _close(got, want, "float32")
+
+
+# ---------------------------------------------------------------------------
+# (c) the reference's invariants (tests/test_moe.py), on the port
+# ---------------------------------------------------------------------------
+def _params(cfg, d, seed, dtype=torch.float32, shared=False):
+    g = torch.Generator().manual_seed(seed)
+    e, f = cfg.n_experts, cfg.d_ff_expert
+    p = {"router": torch.randn(d, e, generator=g),
+         "we_g": torch.randn(e, d, f, generator=g) * 0.2,
+         "we_u": torch.randn(e, d, f, generator=g) * 0.2,
+         "we_d": torch.randn(e, f, d, generator=g) * 0.2}
+    if shared:
+        fs = cfg.n_shared * f
+        p.update(ws_g=torch.randn(d, fs, generator=g) * 0.2,
+                 ws_u=torch.randn(d, fs, generator=g) * 0.2,
+                 ws_d=torch.randn(fs, d, generator=g) * 0.2)
+    return {n: (t if n == "router" else t.to(dtype)) for n, t in p.items()}
+
+
+def test_dispatch_slots_unique_and_capped():
+    cfg, _ = _cfgs()
+    t = 64
+    c = t_moe._capacity(t, cfg)
+    g = torch.Generator().manual_seed(0)
+    _, eidx, _ = t_moe._route(torch.randn(t, 16, generator=g),
+                              torch.randn(16, cfg.n_experts, generator=g), cfg)
+    slot, keep = t_moe._dispatch_indices(eidx, t, c, cfg.n_experts)
+    kept = slot.reshape(-1)[keep.reshape(-1)]
+    assert kept.unique().numel() == kept.numel()
+    assert int(kept.max()) < cfg.n_experts * c
+
+
+def test_dispatch_combine_roundtrip_identity():
+    """gather-dispatch → identity expert → gather-combine gives each kept
+    token its input times the sum of its kept gates."""
+    cfg, _ = _cfgs()
+    t, d = 32, 16
+    c = t_moe._capacity(t, cfg)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(t, d, generator=g)
+    gates, eidx, _ = t_moe._route(x, torch.randn(d, cfg.n_experts, generator=g), cfg)
+    slot, keep = t_moe._dispatch_indices(eidx, t, c, cfg.n_experts)
+    xe = t_moe._gather_dispatch(x, slot, keep, cfg.n_experts, c, cfg.top_k)
+    y = t_moe._combine(xe, slot, keep, gates, t, cfg.top_k)
+    w_tot = (gates * keep).sum(-1, keepdim=True)
+    torch.testing.assert_close(y, x * w_tot, rtol=1e-4, atol=1e-5)
+
+
+def test_moe_local_no_drops_matches_dense_mixture(cpu_session):
+    """With top_k == n_experts and ample capacity, the MoE is the explicit
+    softmax-weighted mixture of every expert."""
+    cfg, _ = _cfgs()
+    cfg = dataclasses.replace(cfg, top_k=cfg.n_experts, capacity_factor=4.0)
+    d, t = 16, 24
+    p = _params(cfg, d, 2)
+    x = torch.randn(t, d, generator=torch.Generator().manual_seed(3))
+    y, _ = t_moe._moe_local(p, x, cfg, "swiglu")
+    probs = torch.softmax(x @ p["router"], dim=-1)
+    ref = torch.zeros_like(x)
+    for e in range(cfg.n_experts):
+        h = torch.nn.functional.silu(x @ p["we_g"][e]) * (x @ p["we_u"][e])
+        ref += probs[:, e:e + 1] * (h @ p["we_d"][e])
+    torch.testing.assert_close(y, ref, rtol=2e-2, atol=2e-3)
+
+
+def test_capacity_drops_give_zero_rows(cpu_session):
+    """Dropped tokens produce zero output rows, never garbage."""
+    cfg, _ = _cfgs(capacity_factor=0.1)
+    d, t = 16, 64
+    p = _params(cfg, d, 4)
+    x = torch.randn(t, d, generator=torch.Generator().manual_seed(5))
+    y, _ = t_moe._moe_local(p, x, cfg, "swiglu")
+    assert bool(torch.isfinite(y).all())
+    assert int((y.abs().amax(dim=1) < 1e-6).sum()) > t // 2
+
+
+def test_param_specs_match_jax():
+    """Shapes, dtypes (the router float32), logical axes and init kinds."""
+    tc, jc = _cfgs(n_shared=2)
+    t = t_moe.moe_param_specs(48, tc, torch.bfloat16)
+    j = j_moe.moe_param_specs(48, jc, jnp.bfloat16)
+    assert sorted(t) == sorted(j) == ["router", "we_d", "we_g", "we_u",
+                                      "ws_d", "ws_g", "ws_u"]
+    for name in t:
+        assert (t[name].shape, t[name].logical, t[name].init_kind) == \
+            (j[name].shape, j[name].logical, j[name].init_kind)
+        assert str(t[name].dtype).split(".")[-1] == jnp.dtype(j[name].dtype).name
+    assert t["ws_g"].shape == (48, 2 * tc.d_ff_expert)
+
+
+def test_expert_parallel_paths_raise_naming_the_roadmap():
+    cfg, _ = _cfgs()
+    for fn, args in ((t_moe.moe_expert_parallel, (None, None, cfg, "swiglu", None)),
+                     (t_moe._a2a_int8, (None, "model", 0, 1)),
+                     (t_moe._moe_a2a_body, ()), (t_moe._moe_replicated_body, ())):
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            fn(*args)
+
+
+# ---------------------------------------------------------------------------
+# (d) the whole layer against the JAX package
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_shared", [0, 2])
+def test_moe_layer_matches_jax(cpu_session, dtype, n_shared):
+    """x (2,20,32) through shared experts (dense, MMM) and 8 routed experts
+    top-2 at capacity factor 1.25 (some rows dropped), on the same numpy
+    weights: output and the weighted aux loss."""
+    tc, jc = _cfgs(n_shared=n_shared, capacity_factor=1.25, d_ff_expert=24)
+    d = 32
+    rng = np.random.default_rng(7 + n_shared)
+    specs = j_moe.moe_param_specs(d, jc, jnp.bfloat16 if dtype == "bfloat16"
+                                  else jnp.float32)
+    w = {n: (rng.standard_normal(s.shape) * s.shape[-2] ** -0.5).astype(np.float32)
+         for n, s in specs.items()}
+    w = {n: (a if n == "router" else _np(dtype, a)) for n, a in w.items()}
+    x = _np(dtype, rng.standard_normal((2, 20, d)))
+    jy, jaux = j_moe.moe_layer({n: jnp.asarray(a) for n, a in w.items()},
+                               jnp.asarray(x), jc, "swiglu")
+    ty, taux = t_moe.moe_layer({n: from_numpy(a) for n, a in w.items()},
+                               from_numpy(x), tc, "swiglu")
+    assert ty.dtype == from_numpy(x).dtype and tuple(ty.shape) == x.shape
+    _close(ty, jy, dtype)
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
+    # the layer drops rows at this capacity in both packages
+    t = 40
+    _, eidx, _ = t_moe._route(from_numpy(x).reshape(t, d), from_numpy(w["router"]), tc)
+    _, keep = t_moe._dispatch_indices(eidx, t, t_moe._capacity(t, tc), tc.n_experts)
+    assert 0 < int(keep.sum()) <= t * tc.top_k
+
+
+def test_init_params_draws_stacked_leaves_one_slab_at_a_time(cpu_session):
+    """Each slab of a stacked expert leaf is its own draw (no two slabs
+    equal), with the spec's scale N(0, 1/fan_in), in the spec's type."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b").reduced(),
+                              dtype="bfloat16")
+    params = build_model(cfg).init(torch.Generator().manual_seed(0))
+    we_g = params["stages"][1][0]["moe"]["we_g"]           # (R, E, D, F)
+    assert we_g.dtype == torch.bfloat16 and we_g.shape[0] == 2
+    assert not torch.equal(we_g[0], we_g[1])
+    std = float(we_g.float().std())
+    assert abs(std * cfg.d_model ** 0.5 - 1.0) < 0.05
+    assert params["stages"][1][0]["moe"]["router"].dtype == torch.float32

@@ -195,7 +195,7 @@ def registries():
     return treg, jreg
 
 
-@pytest.mark.parametrize("alias", ["SSD", "SSD_DECODE", "GQA_DECODE"])
+@pytest.mark.parametrize("alias", ["SSD", "SSD_DECODE", "GQA_DECODE", "MOE_FFN"])
 def test_rows_are_torch_and_aten_only(registries, alias):
     treg, jreg = registries
     rows = {r.platform: r for r in treg.records(alias)}
@@ -206,10 +206,12 @@ def test_rows_are_torch_and_aten_only(registries, alias):
 
 
 def test_port_registers_twenty_of_the_references_aliases(registries):
+    """Twenty when SSD, SSD_DECODE and GQA_DECODE came; MOE_FFN makes 21.
+    The two training aliases wait for ROADMAP A8."""
     treg, jreg = registries
     missing = set(jreg.aliases()) - set(treg.aliases())
-    assert missing == {"MOE_FFN", "LM_GRAD", "ADAMW_STEP"}
-    assert len(set(treg.aliases()) & set(jreg.aliases())) == 20
+    assert missing == {"LM_GRAD", "ADAMW_STEP"}
+    assert len(set(treg.aliases()) & set(jreg.aliases())) == 21
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
