@@ -69,7 +69,9 @@ Phases (any failure exits non-zero before the result lines are printed):
    wgmma route (``phase2_fa_wgmma``) in both at gemma3-4b's widths (8
    heads of 256 on 4 KV heads) under the same masks, also against its
    plain model ``attention_mma_ref``, two calls bit-identical, at the served
-   leg's 2048 tokens with window 1024, over a row of 8192 keys, on operands
+   leg's 2048 tokens with window 1024, over a row of 8192 keys, at
+   paligemma-3b's prefill (2×8 heads on 1 KV head, 512 rows, causal with
+   a bidirectional prefix of 256 keys), on operands
    off the 16-byte grid and as a new host thread's first launch; the
    3×TF32 route in float32 (``phase2_fa_tf32x3``) also against its plain
    model ``attention_tf32x3_ref`` (``FA_TF32_MODEL_TOL``) and float64
@@ -128,13 +130,26 @@ Phases (any failure exits non-zero before the result lines are printed):
    3×TF32 route (L launches) and MMM's 3×TF32 route (7·L launches).
    Prefill MMM device time comes from a profiled rerun.  The decode step is
    split into MMM device time per pass and dispatches per pass × T1.
+   Then the same model, weights and requests on a PagedEngine
+   (``SERVE_PAGED``: 4 slots, 16-token blocks, every cache a ring of 4096,
+   ``phase3b_paged``): (a) whole-prompt admission — the dense leg's tokens
+   and launch counts, and every recorded logit bit for bit; (b) chunked
+   prefill of 256 tokens with requests 5 and 7 beginning with request 1's
+   first 448 tokens — exactly 56 prefix hits and no eviction, every block
+   back at drain, launch counts by the chunks' rows (no FLASH_ATTN in a
+   chunk), each request's end-of-prefill and teacher-forced decode logits
+   within ``SERVE_TOL`` of a dense one-lane replay on the kernels; one
+   decode step's gather and scatter by device time beside the bytes.
    A second leg (``SERVE_D256``) serves gemma3-4b at its published widths,
    cut to one 5:1 pattern (5 local layers of window 1024, 1 global), 4
    requests of 512 and 2048 tokens on 2 slots, 8 tokens each: every
    prefill's attention takes FLASH_ATTN's wgmma route (head dim 256, one
    launch a layer, no other FLASH_ATTN route), and one 2048-token
    request's logits agree with the plain replay (``SERVE_TOL``);
-   FLASH_ATTN's device time from a profiled rerun.  A third leg
+   FLASH_ATTN's device time from a profiled rerun; that request again
+   through ``Model.prefill_chunk`` at ``D256_CHUNK`` tokens a chunk (the
+   local layers' ring chunk attention, the global layer's full-length
+   one), its last logits within ``SERVE_TOL`` of the whole prefill.  A third leg
    (``SERVE_HYBRID``) serves zamba2-1.2b at its published widths and full
    depth (38 Mamba-2 layers and a shared attention block invoked 6 times),
    4 requests of 512 and 2048 tokens on 2 slots, 8 tokens each: launch
@@ -164,12 +179,25 @@ Phases (any failure exits non-zero before the result lines are printed):
    largest probability difference, (c) the block's output less its input
    within ``MOE_BLOCK_TOL``, a control (MMM's plain version summed in
    another order) beside; MLA's absorbed decode against a prefill through
-   the same position (``MLA_DECODE_TOL``); the whole model's gap with
+   the same position (``MLA_DECODE_TOL``) and MLA's multi-token cache step
+   (a ``MLA_CHUNK``-token chunk after the prompt) against a prefill over
+   prompt + chunk (``MLA_DECODE_TOL``); the whole model's gap with
    routing forced and free, printed; tokens/s, prefill and decode-step
    ms, peak memory, device time by kernel, MOE_FFN's device ms a call and
    its share, one decode step's device time beside the expert weights'
    bytes over 3.35 TB/s.  moonshot's first 4 layers in float32, kernels
-   against plain with routing forced (``F32_SERVE_TOL``).
+   against plain with routing forced (``F32_SERVE_TOL``).  Last, the stub
+   frontends at their published widths and full depth (``frontend_leg``):
+   paligemma-3b (``SERVE_PALIGEMMA``, 3.036 B parameters) through
+   ``ServeEngine.generate``'s lockstep path, 2 rows of 256 seeded patch
+   embeddings + 256 tokens, 16 tokens each; musicgen-large
+   (``SERVE_MUSICGEN``, 2.425 B) at the model level, a prefill over 2 × 512
+   seeded frame embeddings and 8 decode steps fed frame embeddings (the
+   lockstep path refuses ``frame_embed``): launch counts by structure (the
+   prefill's FLASH_ATTN on the wgmma route at paligemma's head dim 256, on
+   mma at musicgen's 64; none on aten), an empty quarantine, every step's
+   logits within ``SERVE_TOL`` of a plain replay (teacher-forced); prefill
+   and decode-step ms, peak memory, paligemma's tokens/s.
 3c. Execution graphs, fusion and compiled replay: ``halo.graph(launch=False)``
    → ``compile()`` → 20 ``replay()`` calls per workload, every other one
    rebinding an input, each output bit-identical to serial blocking
@@ -362,6 +390,20 @@ TF32_PEAKS = {"H100 SXM": 495e12, "H100 PCIe": 378e12}
 SERVE = {"arch": "h2o-danube-1.8b", "slots": 4, "requests": 8,
          "prompt_lens": (512, 4200), "max_new": 16, "seed": 0}
 
+#: phase 3b, the paged danube legs: the danube leg's model, weights and
+#: requests on a PagedEngine of SERVE["slots"] slots and 16-token blocks
+#: (every cache a ring of 4096), (a) whole-prompt admission, (b) chunked
+#: prefill of 256 tokens with requests 5 and 7 (512 tokens) beginning with
+#: request 1's first 448 tokens (28 blocks): 28 prefix hits each
+SERVE_PAGED = {"block_size": 16, "chunk": 256, "shared_tokens": 448, "sharers": (4, 6),
+               "prefix_hits": 56}
+#: phase 3b's gemma3-4b leg: its 2048-token request again through
+#: prefill_chunk, 256 tokens a chunk (below the 1024-slot rings)
+D256_CHUNK = 256
+#: phase 3b's deepseek leg: MLA's multi-token cache step, a chunk of this
+#: many tokens after the 2048-token prompt
+MLA_CHUNK = 64
+
 #: phase 3b's second leg, FLASH_ATTN at head dim 256 on a served path:
 #: gemma3-4b at its published widths (d_model 2560, 8 heads of 256 on 4 KV
 #: heads, d_ff 10240, vocab 262144, bfloat16), its depth cut to one 5:1
@@ -397,6 +439,17 @@ SERVE_MOE = {"arch": "moonshot-v1-16b-a3b", "slots": 4, "requests": 8,
 #: 512 and 2048 tokens on 2 slots, 8 tokens each, greedy
 SERVE_MLA = {"arch": "deepseek-v2-236b", "moe_repeats": 3, "slots": 2, "requests": 4,
              "prompt_lens": (512, 2048), "max_new": 8, "seed": 0}
+#: phase 3b's stub-frontend legs at their published widths and full depth:
+#: paligemma-3b (18 layers, d_model 2048, 8 heads of 256 on 1 KV head,
+#: d_ff 16384 geglu, vocab 257216) through ServeEngine.generate's lockstep
+#: path, 2 rows of 256 seeded patch embeddings + 256 prompt tokens, 16 new
+#: tokens each, greedy; musicgen-large (48 layers, 32 heads of 64, d_ff
+#: 8192 gelu, vocab 2048) at the model level: a prefill over 2 × 512 seeded
+#: frame embeddings, then 8 decode steps fed seeded frame embeddings
+SERVE_PALIGEMMA = {"arch": "paligemma-3b", "rows": 2, "prompt_len": 256, "max_new": 16,
+                   "seed": 0}
+SERVE_MUSICGEN = {"arch": "musicgen-large", "rows": 2, "frames": 512, "decode_steps": 8,
+                  "seed": 0}
 #: phase 3b, the moonshot leg's float32 replay: its first layers (layer 0
 #: dense and 3 MoE layers), kernels against plain with routing forced
 F32_MOE_LAYERS = 4
@@ -533,6 +586,12 @@ PATH_OF = {"rmsnorm": "serve", "flash_attention_mma": "serve", "mmm_skinny": "se
            "mmm_wgmma": "serve", "fused": "graph", "fft_chirp": "chirp",
            "sort": "sort_tile", "flash_attention_tf32x3": "serve_float32",
            "flash_attention_wgmma": "serve_d256"}
+
+
+#: the paged danube legs and the stub-frontend legs, whose launches the
+#: kernels line lists beside those of each kernel's own path
+NEW_LEG_PATHS = ("serve_paged_whole", "serve_paged_chunked", "serve_paligemma",
+                 "serve_musicgen")
 
 
 def decode_projections(cfg):
@@ -1614,7 +1673,8 @@ def phase2_fa_wgmma(dev, gen, dt) -> None:
     ``attention_mma_ref`` with 64-key tiles (``MMA_MODEL_TOL``) at gemma3-4b's
     widths (8 heads of 256 over 4 KV heads) under ``FA_MASKS``, two calls
     bit-identical; at the served leg's shape (2048 tokens, window 1024);
-    over a row of 8192 keys; beside a NaN in the next KV head's first key;
+    over a row of 8192 keys; at paligemma-3b's prefill (2×8 heads on 1 KV
+    head, 512 rows, causal with a prefix of 256); beside a NaN in the next KV head's first key;
     on operands off the 16-byte grid (copied to an
     aligned workspace first); and as the first CUDA work of a new host
     thread (its tensor maps need the device's context there)."""
@@ -1653,6 +1713,13 @@ def phase2_fa_wgmma(dev, gen, dt) -> None:
     check("1x8x2048x256 window 1024 (the served leg's local layers)", q, k2, v2, window=1024)
     q, kl, vl = rnd(1, 4, 128, 256), rnd(1, 2, 8192, 256), rnd(1, 2, 8192, 256, shift=1.0)
     check("1x4x128x256 over 8192 keys", q, kl, vl, causal=False)
+    # paligemma-3b's prefill: 8 query heads on one KV head and a
+    # bidirectional prefix of 256 patch keys, which a query of the prefix
+    # sees past its diagonal (a tile chosen or masked by the diagonal alone
+    # drops them)
+    q, kp, vp = rnd(2, 8, 512, 256), rnd(2, 1, 512, 256), rnd(2, 1, 512, 256, shift=1.0)
+    check("2x8x512x256 on 1 KV head, causal, prefix 256 (paligemma's prefill)", q, kp, vp,
+          causal=True, prefix_len=256)
     # NaN in column 7 of KV head 1's first key: query heads 2-3 see it (NaN
     # in column 7, as in the model); heads 0-1 must not, though their last
     # key tile runs past Skv = 150, where the rows read must be zeros and
@@ -1980,24 +2047,49 @@ def phase3(dev):
 # ---------------------------------------------------------------------------
 # phase 3b: the model path, served at full width
 # ---------------------------------------------------------------------------
-def recording_engine():
-    """A SlotEngine that keeps each request's logits at every step (float32
-    copies on the card) and the host time of each admission and decode
-    step; it computes exactly what SlotEngine does."""
-    from repro_torch.serve.engine import SlotEngine
+def recording_engine(paged: bool = False):
+    """A SlotEngine (a PagedEngine with ``paged``) that keeps each
+    request's logits (float32 copies on the card) at the end of its prefill
+    (whole, or its last chunk) and at every decode step, the rows of every
+    chunk, the time of each request's prefill (its device bodies, run to
+    completion, its chunks summed) and the host time of each decode step;
+    it computes exactly what the engine does."""
+    from repro_torch.serve.engine import PagedEngine, SlotEngine
 
-    class RecordingEngine(SlotEngine):
-        def __init__(self, *args):
-            super().__init__(*args)
-            self.records, self._lane_rec = [], {}
-            self.prefill_s, self.decode_s = [], []
+    class RecordingEngine(PagedEngine if paged else SlotEngine):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.records, self._lane_rec, self._prefill_t = [], {}, {}
+            self.prefill_s, self.decode_s, self.chunk_rows = [], [], []
             self._active = None
 
-        def _admit_logits(self, slot, toks):
-            logits = super()._admit_logits(slot, toks)
-            rec = {"prompt": toks[0].tolist(), "logits": [logits[0].float()]}
+        @staticmethod
+        def _timed(fn, *args):
+            t0 = time.perf_counter()
+            logits = fn(*args)
+            if logits.is_cuda:
+                torch.cuda.synchronize(logits.device)
+            return logits, time.perf_counter() - t0
+
+        def _prefilled(self, slot, prompt, logits, seconds):
+            self.prefill_s.append((len(prompt), self._prefill_t.pop(slot, 0.0) + seconds))
+            rec = {"prompt": list(prompt), "logits": [logits[0].float()]}
             self.records.append(rec)
             self._lane_rec[slot] = rec
+
+        def _admit_logits(self, slot, toks):
+            logits, sec = self._timed(super()._admit_logits, slot, toks)
+            self._prefilled(slot, toks[0].tolist(), logits, sec)
+            return logits
+
+        def _chunk_logits(self, slot, toks, p0):
+            logits, sec = self._timed(super()._chunk_logits, slot, toks, p0)
+            self.chunk_rows.append(toks.shape[1])
+            prompt = self._meta[slot].prompt
+            if p0 + toks.shape[1] < len(prompt):
+                self._prefill_t[slot] = self._prefill_t.get(slot, 0.0) + sec
+            else:
+                self._prefilled(slot, prompt, logits, sec)
             return logits
 
         def _decode_logits(self, tok, pos, active):
@@ -2005,12 +2097,6 @@ def recording_engine():
             for i in self._active:
                 self._lane_rec[i]["logits"].append(logits[i].float())
             return logits
-
-        def prefill_into_slot(self, slot, prompt, generator, temperature=0.0):
-            t0 = time.perf_counter()
-            tok = super().prefill_into_slot(slot, prompt, generator, temperature)
-            self.prefill_s.append((len(prompt), time.perf_counter() - t0))
-            return tok
 
         def decode_step(self, tok, pos, active, generator, temperature=0.0):
             self._active = [i for i, a in enumerate(active) if a]
@@ -2342,7 +2428,165 @@ def phase3b(dev):
     print(f"  {cfg.dtype} prefill gap, kernels vs plain, by layers kept: " + ", ".join(
         f"{n_}: {e:.2e}" for n_, e in depth.items()))
     stats.update(f32_err=e32, bf16_gap_by_depth=depth)
-    return launches, stats, f32_launches
+    paged_launches, stats["paged"] = phase3b_paged(dev, model, params, prompts, max_news,
+                                                   results, records, launches, max_len)
+    return launches, stats, f32_launches, paged_launches
+
+
+def phase3b_paged(dev, model, params, prompts, max_news, results, records, dense_launches,
+                  max_len):
+    """The danube leg's model, weights and requests on a PagedEngine
+    (SERVE_PAGED) through ``run_requests`` on the kernels.  (a) Whole-prompt
+    admission: the dense leg's tokens, launch counts and every recorded
+    logit bit for bit (the views are gathered to the dense cache's shape,
+    masked positions score -1e30 either way).  (b) Chunked prefill, 256
+    tokens a chunk, requests 5 and 7 beginning with request 1's first 448
+    tokens: the expected prefix hits and no eviction, every block back at
+    drain, launch counts by the chunks' rows (7·L MMMs a chunk on the wgmma
+    route past 64 rows, else skinny; one skinny unembed a chunk; no
+    FLASH_ATTN in a chunk), each request's end-of-prefill and decode logits
+    (teacher-forced on its tokens) within SERVE_TOL of a dense one-lane
+    replay on the kernels.  Prints tokens/s, prefill and decode-step ms,
+    the arena scorecard, and the device time of one decode step's gather
+    and scatter beside the bytes they move."""
+    from repro_torch import halo
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.serve import arena_line, run_requests, summary
+    from repro_torch.serve.engine import StepScheduler
+    from repro_torch.serve.kvcache import gather_views, scatter_token
+
+    cfg = model.cfg
+    layers = cfg.n_layers
+    bs, slots = SERVE_PAGED["block_size"], SERVE["slots"]
+    Engine = recording_engine(paged=True)
+    out_launches, out = {}, {}
+    for leg, chunk in (("whole", 0), ("chunked", SERVE_PAGED["chunk"])):
+        reqs = [list(p_) for p_ in prompts]
+        if chunk:
+            for i in SERVE_PAGED["sharers"]:
+                reqs[i][:SERVE_PAGED["shared_tokens"]] = prompts[0][:SERVE_PAGED["shared_tokens"]]
+        session = halo.initialize()            # device=None means the card
+        engine = Engine(model, params, slots, max_len, block_size=bs, chunk_tokens=chunk)
+        sched = StepScheduler(engine, temperature=0.0, seed=SERVE["seed"])
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _cuda.reset_launch_counts()
+        session.reset_t1()
+        res, lat, wall = run_requests(sched, reqs, max_news)
+        torch.cuda.synchronize(dev)
+        launches = _cuda.launch_counts()
+        quarantined = session.scheduler.failed_record_keys()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        st_ = engine.stats()
+        print(f"  paged danube, {leg} admission (block {bs}, chunk {engine.chunk_tokens}, "
+              f"{engine.num_blocks} blocks):")
+        for line in summary(res, lat, wall, sched.report()) + [arena_line(st_)]:
+            print("    " + line)
+        print(f"    launches {launches}; quarantine {quarantined}; pool {engine.pool.stats()}")
+        if [len(r) for r in res] != max_news:
+            fail(f"paged {leg}: served {[len(r) for r in res]} tokens, budgets {max_news}")
+        if quarantined:
+            fail(f"records were quarantined on the paged {leg} leg: {quarantined}")
+        engine.pool.check()
+        if engine.pool.live_blocks() or engine.pool.reserved:
+            fail(f"paged {leg}: {engine.pool.live_blocks()} blocks live and "
+                 f"{engine.pool.reserved} reserved at drain")
+        prefill_ms = {str(L): [t * 1e3 for n_, t in engine.prefill_s if n_ == L]
+                      for L in SERVE["prompt_lens"]}
+        decode_ms = sorted(t * 1e3 for t in engine.decode_s)
+        stats = {"tokens_per_s": sum(map(len, res)) / wall, "wall_s": wall,
+                 "prefill_ms": prefill_ms, "decode_step_ms_median": decode_ms[len(decode_ms) // 2],
+                 "decode_steps": len(decode_ms), "peak_gb": peak_gb, "arena": st_,
+                 "launches": launches}
+        print(f"    prefill ms by prompt: " + "; ".join(
+            f"{L}: {', '.join(f'{x:.1f}' for x in v)}" for L, v in prefill_ms.items())
+            + f"; decode step median {stats['decode_step_ms_median']:.2f} ms over "
+            f"{len(decode_ms)}; peak memory {peak_gb:.2f} GB")
+        # records in the order prefills completed: matched to requests by prompt
+        by_prompt = {tuple(r_["prompt"]): r_ for r_ in engine.records}
+        recs = [by_prompt.get(tuple(p_)) for p_ in reqs]
+        if None in recs:
+            fail(f"paged {leg}: a request's prefill left no record")
+        if not chunk:
+            # (a) the dense leg's tokens, launch counts and logits, bit for bit
+            if res != results:
+                fail("whole-prompt paged serving served other tokens than the dense leg")
+            if launches != dense_launches:
+                fail(f"whole-prompt paged launches {launches} != the dense leg's "
+                     f"{dense_launches}")
+            dense = {tuple(r_["prompt"]): r_ for r_ in records}
+            pairs = [(a_, b_) for ra in recs
+                     for a_, b_ in zip(ra["logits"], dense[tuple(ra["prompt"])]["logits"])]
+            same = sum(torch.equal(a_, b_) for a_, b_ in pairs)
+            n_steps = sum(len(r["logits"]) for r in records)
+            print(f"    {same} of {n_steps} recorded logit rows bit-identical to the dense "
+                  f"leg's")
+            if len(pairs) != n_steps or same != n_steps:
+                worst = max(normwise(a_, b_) for a_, b_ in pairs)
+                fail(f"whole-prompt paged logits differ from the dense leg's in "
+                     f"{n_steps - same} of {n_steps} rows (worst normwise {worst:.3e})")
+            stats["bit_identical_rows"] = same
+        else:
+            # (b) prefix hits, launches by the chunks' rows, logits vs dense
+            if st_["prefix_hits"] != SERVE_PAGED["prefix_hits"] or st_["evictions"]:
+                fail(f"chunked paged serving: {st_['prefix_hits']} prefix hits and "
+                     f"{st_['evictions']} evictions, expected "
+                     f"{SERVE_PAGED['prefix_hits']} and 0")
+            rows, decodes = engine.chunk_rows, len(engine.decode_s)
+            n_wide = sum(r > 64 for r in rows)
+            expected = {k: 0 for k in launches}
+            expected.update(mmm_wgmma=7 * layers * n_wide,
+                            mmm_skinny=7 * layers * (len(rows) - n_wide) + len(rows)
+                            + (7 * layers + 1) * decodes,
+                            rmsnorm=(2 * layers + 1) * (len(rows) + decodes))
+            print(f"    {len(rows)} chunks ({n_wide} past 64 rows; rows {sorted(set(rows))}) + "
+                  f"{decodes} decode steps: expected launches {expected}")
+            if launches != expected:
+                fail(f"chunked paged launches {launches} != the chunks' structure {expected}")
+            worst_prefill = worst_decode = 0.0
+            for rec, r in zip(recs, res):
+                ref = replay(model, params, rec["prompt"], r, max_len, None)
+                if len(ref) != len(rec["logits"]):
+                    fail("the chunked leg's recorded steps do not match its requests")
+                worst_prefill = max(worst_prefill, normwise(rec["logits"][0], ref[0]))
+                worst_decode = max([worst_decode] + [normwise(a_, b_) for a_, b_ in
+                                                     zip(rec["logits"][1:], ref[1:])])
+            print(f"    vs a dense one-lane replay on the kernels: end-of-prefill logits worst "
+                  f"{worst_prefill:.3e}, decode logits (teacher-forced) worst "
+                  f"{worst_decode:.3e} (tol {SERVE_TOL:g})")
+            if not max(worst_prefill, worst_decode) <= SERVE_TOL:
+                fail(f"chunked paged logits differ from the dense replay by "
+                     f"{max(worst_prefill, worst_decode):.3e}")
+            stats.update(prefill_vs_dense=worst_prefill, decode_vs_dense=worst_decode,
+                         chunks=len(rows), chunks_wide=n_wide)
+            # one decode step's gather and scatter over 4 full lanes
+            halo.initialize()
+            m = engine.blocks_per_lane
+            tables = torch.arange(1, 1 + slots * m, device=dev).reshape(slots, m)
+            pos = torch.tensor([len(p_) for p_ in prompts[:slots]], device=dev)
+            act = torch.ones(slots, dtype=torch.bool, device=dev)
+            views = gather_views(engine.layout, engine.paged, tables, bs)
+            view_bytes = sum(v.numel() * v.element_size()
+                             for v in torch.utils._pytree.tree_leaves(views))
+            g_ms = median_device_ms(lambda: gather_views(engine.layout, engine.paged, tables,
+                                                         bs), dev)
+            s_ms = median_device_ms(lambda: scatter_token(engine.layout, engine.paged, views,
+                                                          tables, pos, act, bs), dev)
+            bw = peaks(torch.cuda.get_device_name(dev))[1][0]
+            stats.update(gather_ms=g_ms, scatter_ms=s_ms, gather_bytes=2 * view_bytes,
+                         gather_bound_ms=2 * view_bytes / bw * 1e3)
+            print(f"    one decode step's gather ({slots} lanes × {m} blocks, 2·{layers} "
+                  f"leaves): {g_ms:.4f} ms of device time for {2 * view_bytes / 1e9:.3f} GB "
+                  f"read and written (bound {stats['gather_bound_ms']:.4f} ms at "
+                  f"{bw / 1e12:g} TB/s); scatter of the {slots} written entries "
+                  f"{s_ms:.4f} ms")
+            del views
+        out[leg] = stats
+        out_launches[f"serve_paged_{leg}"] = launches
+        del engine, sched
+        halo.finalize()
+        torch.cuda.empty_cache()
+    return out_launches, out
 
 
 def phase3b_d256(dev):
@@ -2462,6 +2706,8 @@ def phase3b_d256(dev):
     if len(errs) != len(results[i]) or not max(errs) <= SERVE_TOL:
         fail(f"the head-dim-256 leg's logits differ from the plain replay by {max(errs):.3e}")
     stats["plain_worst_err"] = max(errs)
+    stats["chunked_prefill"] = d256_chunk_check(dev, model, params, prompts[i],
+                                                records[i]["logits"][0], max_len)
 
     # where the gap comes from: the same request's prefill, kernels vs
     # plain, by the pattern's blocks kept; and at full depth with
@@ -2495,6 +2741,50 @@ def phase3b_d256(dev):
           f"{gap['fa_plain_vs_plain']:.2e}, kernels vs that {gap['kernels_vs_fa_plain']:.2e}")
     stats.update(bf16_gap_by_depth=depth, **gap)
     return launches, stats
+
+
+def d256_chunk_check(dev, model, params, prompt, whole_logits, max_len):
+    """The gemma3-4b leg's 2048-token request through
+    ``Model.prefill_chunk``, D256_CHUNK tokens a chunk from an empty cache
+    on the kernels: the 5 local layers take ``chunk_ring_attention`` over
+    their 1024-slot rings, the global layer ``chunk_attention``, at head
+    dim 256.  Launch counts by the chunks (7·L wgmma MMMs and one skinny
+    unembed a chunk, no FLASH_ATTN); the last chunk's logits within
+    SERVE_TOL of the leg's whole-prompt prefill."""
+    from repro_torch import halo
+    from repro_torch.kernels import _cuda
+
+    cfg = model.cfg
+    halo.initialize()
+    try:
+        with torch.no_grad():
+            cache = model.init_cache(1, max_len, device=dev)
+            toks = torch.tensor([prompt], device=dev)
+            chunks = list(range(0, len(prompt), D256_CHUNK))
+            torch.cuda.synchronize(dev)
+            _cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            for p0 in chunks:
+                logits, cache = model.prefill_chunk(params, cache,
+                                                    toks[:, p0:p0 + D256_CHUNK], p0)
+            torch.cuda.synchronize(dev)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: v for k, v in _cuda.launch_counts().items() if v}
+    finally:
+        halo.finalize()
+    rings = sorted({c.shape[3] for c in torch.utils._pytree.tree_leaves(cache)})
+    expected = {"mmm_wgmma": 7 * cfg.n_layers * len(chunks), "mmm_skinny": len(chunks),
+                "rmsnorm": (2 * cfg.n_layers + 1) * len(chunks)}
+    err = normwise(logits[0].float(), whole_logits)
+    print(f"  the {len(prompt)}-token request through prefill_chunk, {len(chunks)} chunks "
+          f"of {D256_CHUNK} (cache lengths {rings}): {wall_ms:.1f} ms host clock; launches "
+          f"{launches} (expected {expected}); last chunk's logits vs the whole prefill "
+          f"{err:.3e} (tol {SERVE_TOL:g})")
+    if launches != expected:
+        fail(f"the gemma3-4b chunked prefill launched {launches}, not {expected}")
+    if not err <= SERVE_TOL:
+        fail(f"gemma3-4b's chunked prefill differs from its whole prefill by {err:.3e}")
+    return {"err": err, "chunks": len(chunks), "wall_ms": wall_ms, "launches": launches}
 
 
 def wrapped_registry(wrap):
@@ -3142,6 +3432,7 @@ def phase3b_moe_leg(dev, leg: dict, cfg, note: str):
              f"{max(chk['block_err']):.3e} with routing forced")
     if cfg.stages[0].pattern[0].attn.kv_lora:
         stats["mla_decode_vs_prefill"] = mla_decode_check(cfg, cap, max_len)
+        stats["mla_chunk_vs_prefill"] = mla_chunk_check(cfg, cap)
 
     # the whole model, as information: the request replayed on the kernels
     # (routing recorded) and on the plain versions, routing forced and free
@@ -3202,6 +3493,51 @@ def mla_decode_check(cfg, cap: BlockCapture, max_len):
           + ", ".join(f"{e:.3e}" for e in errs) + f" (tol {MLA_DECODE_TOL:g})")
     if not max(errs) <= MLA_DECODE_TOL:
         fail(f"MLA's decode differs from its prefill by {max(errs):.3e}")
+    return errs
+
+
+def mla_chunk_check(cfg, cap: BlockCapture):
+    """Each MLA block's multi-token cache step: the 2048-token prompt's
+    block input prefilled into the latent cache, then a MLA_CHUNK-token
+    chunk at positions S..S+MLA_CHUNK-1 (the prompt's last MLA_CHUNK input
+    rows again: a chunk as long as the engines' clamp allows a MoE model
+    none, but the step is the paged engine's) written first and masked per
+    query, against a prefill over prompt + chunk (decompressed keys through
+    FLASH_ATTN), its last MLA_CHUNK rows, on the kernels: ≤
+    MLA_DECODE_TOL."""
+    import torch.nn.functional as F
+
+    from repro_torch import halo
+    from repro_torch.models.attention import mla_forward
+    from repro_torch.models.layers import rms_norm
+
+    halo.initialize()
+    errs = []
+    try:
+        with torch.no_grad():
+            for (spec, bp), xs in zip(cap.blocks, cap.inputs):
+                a, p = spec.attn, bp["attn"]
+                h = rms_norm(xs[0], bp["ln1"], cfg.norm_eps)
+                hc = h[:, -MLA_CHUNK:]
+                s, dev = h.shape[1], h.device
+                _, cache = mla_forward(p, h, a, positions=torch.arange(s, device=dev)[None],
+                                       norm_eps=cfg.norm_eps)
+                cache = tuple(F.pad(c, (0, 0, 0, MLA_CHUNK)) for c in cache)
+                pos = torch.tensor([s], device=dev)
+                y, _ = mla_forward(p, hc, a, positions=(s + torch.arange(
+                    MLA_CHUNK, device=dev))[None], cache=cache, cache_pos=pos,
+                    norm_eps=cfg.norm_eps)
+                seq = torch.cat([h, hc], dim=1)
+                full, _ = mla_forward(p, seq, a, norm_eps=cfg.norm_eps,
+                                      positions=torch.arange(s + MLA_CHUNK, device=dev)[None])
+                errs.append(normwise(y, full[:, s:]))
+    finally:
+        halo.finalize()
+    print(f"  MLA chunk step ({MLA_CHUNK} tokens after the prompt, latent cache written "
+          f"first, masked per query) vs prefill over prompt + chunk, {len(cap.blocks)} "
+          f"blocks: " + ", ".join(f"{e:.3e}" for e in errs) + f" (tol {MLA_DECODE_TOL:g})")
+    if not max(errs) <= MLA_DECODE_TOL:
+        fail(f"MLA's chunk step differs from its prefill by {max(errs):.3e}")
     return errs
 
 
@@ -3272,6 +3608,218 @@ def phase3b_mla(dev):
     del model, params
     torch.cuda.empty_cache()
     return launches, stats
+
+
+def replay_inputs(model, params, batch, steps, pos0, max_len, manifest, registry=None):
+    """Logits (float32, (B, V)) of a prefill over ``batch`` and of one
+    decode step per entry of ``steps`` ((B, 1) tokens or (B, 1, D) frame
+    embeddings) at positions ``pos0``, ``pos0 + 1``, …, on a session with
+    ``manifest`` (None: the kernels) and ``registry``; each step's host ms
+    (synchronised) and the session's quarantined records beside."""
+    from repro_torch import halo
+    from repro_torch.serve.kvcache import pad_caches
+
+    dev = params["embed"].device
+    halo.initialize(manifest=manifest, registry=registry)
+    out, ms = [], []
+    try:
+        with torch.no_grad():
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            logits, caches = model.prefill(params, batch)
+            caches = pad_caches(model.cfg, caches, max_len)
+            out.append(logits.float())
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            for i, x in enumerate(steps):
+                t0 = time.perf_counter()
+                logits, caches = model.decode_step(params, caches, x, pos0 + i)
+                out.append(logits.float())
+                torch.cuda.synchronize(dev)
+                ms.append((time.perf_counter() - t0) * 1e3)
+        return out, ms, halo.session().scheduler.failed_record_keys()
+    finally:
+        halo.finalize()
+
+
+def frontend_leg(dev, leg: dict, serve):
+    """One stub-frontend leg at its published widths: weights from
+    ``leg["seed"]``; ``serve(model, params, gen, registry, dispatches)``
+    runs it on the kernels and returns a namespace: batch, steps (the
+    decode inputs), pos0 (the first decode position), max_len, served (the
+    logits of every step), prefill_ms, decode_ms (a step each), toks (the
+    served tokens, or None), launches, quarantined and stats;
+    launch counts by the model's structure (a prefill: 7·L (6·L without a
+    gate) MMMs on the wgmma route, its unembed skinny, L FLASH_ATTN on the
+    route of the head dim; a decode pass: those MMMs + 1 skinny; RMSNORM
+    2·L + 1 a pass), no FLASH_ATTN on aten, an empty quarantine, finite
+    logits of the vocab's width, and every step's logits within SERVE_TOL
+    of a plain replay (teacher-forced), over the real vocabulary's
+    columns.  Prints the parameter count, prefill and decode-step ms and
+    peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.manifest import default_manifest
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.flash_attention.flash_attention import fa_route
+    from repro_torch.models import build_model
+
+    cfg = get_config(leg["arch"])
+    block = cfg.stages[0].pattern[0]
+    a, layers = block.attn, cfg.n_layers
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(leg["seed"])
+    params = model.init(gen)
+    leaves = torch.utils._pytree.tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    print(f"  {cfg.name} ({cfg.frontend}): {layers} layers, d_model {cfg.d_model}, "
+          f"{a.n_heads} heads of {a.head_dim} on {a.n_kv_heads} KV heads, d_ff "
+          f"{block.d_ff} {block.act}, vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B "
+          f"parameters in {cfg.dtype} ({sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} "
+          f"GB), random from seed {leg['seed']}")
+    registry, dispatches = counting_registry()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = serve(model, params, gen, registry, dispatches)
+    steps, served, launches, quarantined = run.steps, run.served, run.launches, run.quarantined
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    per_layer = 7 if block.act in ("swiglu", "geglu") else 6
+    route = fa_route(cfg.activation_dtype(), a.head_dim)
+    decodes = len(steps)
+    expected = {k: 0 for k in launches}
+    expected.update(mmm_wgmma=per_layer * layers,
+                    mmm_skinny=1 + (per_layer * layers + 1) * decodes,
+                    rmsnorm=(2 * layers + 1) * (1 + decodes))
+    expected[f"flash_attention_{route}"] = layers
+    fa_aten = dispatches.get("FLASH_ATTN/aten", 0)
+    print(f"  1 prefill + {decodes} decode passes: launches {launches} (expected {expected}); "
+          f"FLASH_ATTN on aten {fa_aten}; quarantine {quarantined}")
+    if launches != expected:
+        fail(f"the {cfg.name} leg's launch counts {launches} != its structure {expected}")
+    if fa_aten or quarantined:
+        fail(f"the {cfg.name} leg ran FLASH_ATTN on aten {fa_aten} times or quarantined "
+             f"{quarantined}")
+    if not all(bool(torch.isfinite(x).all()) and x.shape == (leg["rows"], cfg.padded_vocab)
+               for x in served):
+        fail(f"the {cfg.name} leg's logits are not finite or not of the vocab's width")
+    plain = default_manifest()
+    plain.platform_list = [{"platform_preference": ["torch"]}]
+    _cuda.reset_launch_counts()
+    ref, _, _ = replay_inputs(model, params, run.batch, steps, run.pos0, run.max_len, plain)
+    if any(_cuda.launch_counts().values()):
+        fail(f"the plain replay of the {cfg.name} leg launched kernels")
+    # the real vocabulary only: paligemma's padded tail (257280 − 257216
+    # columns) holds −1e30 on both sides and would swamp the norm
+    v = cfg.vocab_size
+    errs = [normwise(k_[:, :v], r_[:, :v]) for k_, r_ in zip(served, ref)]
+    stats = dict(run.stats, arch=cfg.name, n_params=n_params, launches=launches,
+                 prefill_ms=run.prefill_ms,
+                 decode_step_ms_median=statistics.median(run.decode_ms), peak_gb=peak_gb,
+                 plain_errs=errs)
+    if run.toks is not None:
+        stats["plain_argmax_agree"] = sum(
+            int(r_.argmax(-1)[j]) == t_[j] for r_, t_ in zip(ref, run.toks.T.tolist())
+            for j in range(leg["rows"]))
+    print(f"  prefill {run.prefill_ms:.1f} ms, decode step median {stats['decode_step_ms_median']:.2f} "
+          f"ms over {decodes}; peak memory {peak_gb:.2f} GB; vs the plain replay on the card "
+          f"(teacher-forced) by step: " + ", ".join(f"{e:.2e}" for e in errs)
+          + f" (tol {SERVE_TOL:g})")
+    if len(errs) != decodes + 1 or not max(errs) <= SERVE_TOL:
+        fail(f"the {cfg.name} leg's logits differ from the plain replay by {max(errs):.3e}")
+    del model, params
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def phase3b_frontends(dev):
+    """The stub frontends at their published widths and full depth:
+    paligemma-3b through ``ServeEngine.generate`` (the lockstep path, its
+    patches in ``batch_extra``, decode from s0 + prefix_len) and
+    musicgen-large at the model level (its frame embeddings through
+    ``Model.prefill`` and ``Model.decode_step``: the lockstep path refuses
+    ``frame_embed``), each through ``frontend_leg``."""
+    from repro_torch import halo
+    from repro_torch.kernels import _cuda
+    from repro_torch.serve.engine import ServeEngine
+
+    def paligemma(model, params, gen, registry, dispatches):
+        cfg, leg = model.cfg, SERVE_PALIGEMMA
+        b, s0, n = leg["rows"], leg["prompt_len"], leg["max_new"]
+        prompts = torch.randint(0, cfg.vocab_size, (b, s0), generator=gen, device=dev)
+        patches = (torch.randn((b, cfg.prefix_len, cfg.d_model), generator=gen, device=dev)
+                   * cfg.d_model ** -0.5).to(cfg.activation_dtype())
+        max_len = cfg.prefix_len + s0 + n + 8
+        engine = ServeEngine(model, max_len=max_len)
+        session = halo.initialize(registry=registry)       # device=None: the card
+        if session.device.type != "cuda":
+            fail(f"session runs on {session.device}, not the card")
+        engine.generate(params, prompts[:, :8], 2,
+                        batch_extra={"patches": patches})  # warm-up
+        # record every step's logits and host ms from the lockstep loop
+        served, times = [], []
+        prefill, decode = model.prefill, model.decode_step
+
+        def timed(fn):
+            def call(*args):
+                t0 = time.perf_counter()
+                logits, caches = fn(*args)
+                served.append(logits.float())
+                torch.cuda.synchronize(dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+                return logits, caches
+            return call
+
+        model.prefill, model.decode_step = timed(prefill), timed(decode)
+        torch.cuda.synchronize(dev)
+        _cuda.reset_launch_counts()
+        dispatches.clear()
+        t0 = time.perf_counter()
+        try:
+            toks = engine.generate(params, prompts, n, batch_extra={"patches": patches})
+            torch.cuda.synchronize(dev)
+        finally:
+            del model.prefill, model.decode_step
+        wall = time.perf_counter() - t0
+        launches = _cuda.launch_counts()
+        quarantined = session.scheduler.failed_record_keys()
+        halo.finalize()
+        print(f"  {b} rows × {n} tokens through ServeEngine.generate in {wall:.2f} s: "
+              f"{b * n / wall:.2f} tokens/s")
+        if tuple(toks.shape) != (b, n):
+            fail(f"paligemma served {tuple(toks.shape)} tokens, not {(b, n)}")
+        return types.SimpleNamespace(
+            batch={"tokens": prompts, "patches": patches},
+            steps=[toks[:, i:i + 1] for i in range(n - 1)], pos0=s0 + cfg.prefix_len,
+            max_len=max_len, served=served, prefill_ms=times[0], decode_ms=times[1:],
+            toks=toks, launches=launches, quarantined=quarantined,
+            stats={"tokens_per_s": b * n / wall, "wall_s": wall})
+
+    def musicgen(model, params, gen, registry, dispatches):
+        cfg, leg = model.cfg, SERVE_MUSICGEN
+        b, s0 = leg["rows"], leg["frames"]
+        dt = cfg.activation_dtype()
+        frames = (torch.randn((b, s0, cfg.d_model), generator=gen, device=dev)
+                  * cfg.d_model ** -0.5).to(dt)
+        steps = [(torch.randn((b, 1, cfg.d_model), generator=gen, device=dev)
+                  * cfg.d_model ** -0.5).to(dt) for _ in range(leg["decode_steps"])]
+        max_len = s0 + leg["decode_steps"] + 8
+        batch = {"frames": frames}
+        replay_inputs(model, params, {"frames": frames[:, :64]}, steps[:1], 64, 80, None,
+                      registry)                             # warm-up
+        _cuda.reset_launch_counts()
+        dispatches.clear()
+        served, ms, quarantined = replay_inputs(model, params, batch, steps, s0, max_len,
+                                                None, registry)
+        return types.SimpleNamespace(
+            batch=batch, steps=steps, pos0=s0, max_len=max_len, served=served,
+            prefill_ms=ms[0], decode_ms=ms[1:], toks=None,
+            launches=_cuda.launch_counts(), quarantined=quarantined, stats={})
+
+    out_launches, out = {}, {}
+    out_launches["serve_paligemma"], out["paligemma"] = frontend_leg(dev, SERVE_PALIGEMMA,
+                                                                    paligemma)
+    out_launches["serve_musicgen"], out["musicgen"] = frontend_leg(dev, SERVE_MUSICGEN,
+                                                                  musicgen)
+    return out_launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -3463,23 +4011,11 @@ def replay(model, params, prompt, toks, max_len, manifest, registry=None):
     token of ``toks`` but the last, on a session with ``manifest`` (None:
     the default, which resolves to the kernels) and ``registry`` (None: the
     global one)."""
-    from repro_torch import halo
-    from repro_torch.serve.kvcache import pad_caches
-
     dev = params["embed"].device
-    halo.initialize(manifest=manifest, registry=registry)
-    try:
-        with torch.no_grad():
-            logits, caches = model.prefill(params, {"tokens": torch.tensor([prompt], device=dev)})
-            caches = pad_caches(model.cfg, caches, max_len)
-            out = [logits[0].float()]
-            for i, tok in enumerate(toks[:-1]):
-                logits, caches = model.decode_step(
-                    params, caches, torch.tensor([[tok]], device=dev), len(prompt) + i)
-                out.append(logits[0].float())
-        return out
-    finally:
-        halo.finalize()
+    out, _, _ = replay_inputs(model, params, {"tokens": torch.tensor([prompt], device=dev)},
+                              [torch.tensor([[t]], device=dev) for t in toks[:-1]],
+                              len(prompt), max_len, manifest, registry)
+    return [x[0] for x in out]
 
 
 # ---------------------------------------------------------------------------
@@ -4394,6 +4930,9 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         if name == "flash_attention_wgmma":
             # the MLA leg's prefills, head dim 192 padded to 256
             entry["launches_serve_mla"] = path_launches["serve_mla"][name]
+        for leg in NEW_LEG_PATHS:
+            if path_launches[leg].get(name):
+                entry[f"launches_{leg}"] = path_launches[leg][name]
         if name == "fused":
             print(f"  fused: four serial EW launches {times['serial_ewise_ms']:.4f} ms")
         if name in ("flash_attention_mma", "flash_attention_tf32x3"):
@@ -4481,7 +5020,8 @@ def main() -> None:
     print(f"phase 3b: {SERVE['arch']} at full width served through "
           f"repro_torch.launch.serve on the kernels")
     t0 = time.perf_counter()
-    serve_launches, serve_stats, path_launches["serve_float32"] = phase3b(dev)
+    serve_launches, serve_stats, path_launches["serve_float32"], paged_launches = phase3b(dev)
+    path_launches.update(paged_launches)
     print(json.dumps({"serve": serve_stats}))
     print(f"phase 3b, head dim 256: {SERVE_D256['arch']} at full width, "
           f"{SERVE_D256['pattern_repeats']} 5:1 pattern, served on the kernels")
@@ -4500,6 +5040,12 @@ def main() -> None:
           f"{SERVE_MLA['moe_repeats']} MoE layers, served on the kernels")
     path_launches["serve_mla"], mla_stats = phase3b_mla(dev)
     print(json.dumps({"serve_mla": mla_stats}))
+    torch.cuda.empty_cache()              # the deepseek leg's weights are gone
+    print("phase 3b, stub frontends: paligemma-3b and musicgen-large at full width and "
+          "depth on the kernels")
+    frontend_launches, frontend_stats = phase3b_frontends(dev)
+    path_launches.update(frontend_launches)
+    print(json.dumps({"serve_frontends": frontend_stats}))
     seconds["3b serve"] = time.perf_counter() - t0
     print(f"phase 3c: execution graphs, fusion and compiled replay on {card}")
     t0 = time.perf_counter()

@@ -1,19 +1,22 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [...]``
-— port of ``repro.launch.serve``'s slot path.
+— port of ``repro.launch.serve``.
 
 Slot-based continuous batching: a StepScheduler admits requests into a
 fixed pool of decode slots, each request retires independently on its own
 EOS / ``max_new``, and the run reports throughput, per-request latency
-percentiles and the serving T1/T3 scorecard.  The model runs on the card
-(``--device cuda``, the default, which needs an H100) or, with
-``--device cpu``, on the plain versions of its kernels.  ``--legacy`` and
-``--paged`` are not ported yet (ROADMAP A7).
+percentiles and the serving T1/T3 scorecard.  ``--legacy`` routes the same
+workload through the whole-batch RequestQueue instead; ``--paged`` serves
+it from the paged KV cache (refcounted block arena, COW prefix sharing,
+chunked prefill: ``--block-size``, ``--num-blocks``, ``--chunk``) and
+reports the allocator scorecard.  The model runs on the card (``--device
+cuda``, the default, which needs an H100) or, with ``--device cpu``, on
+the plain versions of its kernels.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -21,7 +24,8 @@ from .. import halo
 from ..configs import get_config
 from ..core.portability import ServeReport, percentile_nearest
 from ..models import build_model
-from ..serve.engine import SlotEngine, StepScheduler
+from ..serve.engine import (PagedEngine, RequestQueue, ServeEngine,
+                            SlotEngine, StepScheduler)
 
 
 def mixed_budgets(requests: int, max_new: int) -> List[int]:
@@ -29,10 +33,11 @@ def mixed_budgets(requests: int, max_new: int) -> List[int]:
     return [max(1, max_new - (i % 4) * (max_new // 4)) for i in range(requests)]
 
 
-def run_requests(sched: StepScheduler, prompts: Sequence[Sequence[int]],
+def run_requests(sched, prompts: Sequence[Sequence[int]],
                  max_news: Sequence[int]) -> Tuple[list, List[float], float]:
-    """Submit every request to ``sched`` (started for the run) and wait for
-    all; returns (results, sorted request latencies in s, wall in s)."""
+    """Submit every request to ``sched`` (a StepScheduler or a
+    RequestQueue, started for the run) and wait for all; returns (results,
+    sorted request latencies in s, wall in s)."""
     lat: List[float] = []
     t0 = time.perf_counter()
     with sched:
@@ -53,21 +58,33 @@ def run_requests(sched: StepScheduler, prompts: Sequence[Sequence[int]],
 
 
 def summary(results, lat: List[float], dt: float,
-            report: ServeReport) -> List[str]:
-    """The launcher's report lines."""
+            report: Optional[ServeReport]) -> List[str]:
+    """The launcher's report lines (the T1/T3 scorecard when a scheduler's
+    ``report`` is given)."""
     toks = sum(len(r) for r in results)
-    return [f"served {len(results)} requests, {toks} tokens in {dt:.2f}s "
-            f"({toks / dt:.1f} tok/s)",
-            f"request latency p50={percentile_nearest(lat, .5) * 1e3:.0f}ms "
-            f"p95={percentile_nearest(lat, .95) * 1e3:.0f}ms",
-            ServeReport.csv_header(), report.csv()]
+    lines = [f"served {len(results)} requests, {toks} tokens in {dt:.2f}s "
+             f"({toks / dt:.1f} tok/s)",
+             f"request latency p50={percentile_nearest(lat, .5) * 1e3:.0f}ms "
+             f"p95={percentile_nearest(lat, .95) * 1e3:.0f}ms"]
+    if report is not None:
+        lines += [ServeReport.csv_header(), report.csv()]
+    return lines
+
+
+def arena_line(stats) -> str:
+    """The paged engine's allocator scorecard line."""
+    return (f"paged arena: capacity={stats['capacity']} "
+            f"hit_rate={stats['prefix_hit_rate']:.3f} "
+            f"blocks_per_token={stats['blocks_per_token']:.3f} "
+            f"forks={stats['forks']} evictions={stats['evictions']}")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--slots", type=int, default=4, help="decode-slot pool size")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="decode-slot pool size (legacy: batch size)")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16,
                     help="largest per-request decode budget (the workload "
@@ -78,12 +95,21 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (an H100; raises without one) or cpu")
     ap.add_argument("--legacy", action="store_true",
-                    help="whole-batch RequestQueue path (not ported yet)")
+                    help="whole-batch RequestQueue path")
     ap.add_argument("--paged", action="store_true",
-                    help="paged KV cache (not ported yet)")
+                    help="paged KV cache: refcounted block arena, COW "
+                         "prefix sharing, chunked prefill")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="tokens per KV block (--paged)")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="arena capacity in blocks (--paged; default: "
+                         "dense-parity capacity)")
+    ap.add_argument("--chunk", type=int, default=None,
+                    help="prefill chunk length in tokens (--paged; 0 = "
+                         "whole-prompt admission)")
     args = ap.parse_args(argv)
-    if args.legacy or args.paged:
-        ap.error("--legacy and --paged are not ported yet (ROADMAP A7)")
+    if args.legacy and args.paged:
+        ap.error("--legacy and --paged are mutually exclusive")
 
     session = halo.initialize(device=args.device)
     try:
@@ -97,12 +123,28 @@ def main(argv=None):
         prompts = torch.randint(0, cfg.vocab_size,
                                 (args.requests, args.prompt_len), generator=gen,
                                 device=session.device).tolist()
-        sched = StepScheduler(SlotEngine(model, params, args.slots, max_len),
-                              temperature=args.temperature, seed=args.seed)
+        paged = None
+        if args.legacy:
+            front = RequestQueue(ServeEngine(model, max_len=max_len), params,
+                                 args.slots, args.prompt_len,
+                                 temperature=args.temperature)
+        else:
+            if args.paged:
+                engine = paged = PagedEngine(
+                    model, params, args.slots, max_len,
+                    block_size=args.block_size, num_blocks=args.num_blocks,
+                    chunk_tokens=args.chunk)
+            else:
+                engine = SlotEngine(model, params, args.slots, max_len)
+            front = StepScheduler(engine, temperature=args.temperature,
+                                  seed=args.seed)
         results, lat, dt = run_requests(
-            sched, prompts, mixed_budgets(args.requests, args.max_new))
-        for line in summary(results, lat, dt, sched.report()):
+            front, prompts, mixed_budgets(args.requests, args.max_new))
+        report = None if args.legacy else front.report()
+        for line in summary(results, lat, dt, report):
             print(line)
+        if paged is not None:
+            print(arena_line(paged.stats()))
         for i, r in enumerate(results[:3]):
             print(f"  req {i + 1}: {r[:8]}…")
         return results

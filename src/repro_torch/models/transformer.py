@@ -7,6 +7,8 @@ stacked weights.  Two entry points serve a model:
 
 * ``prefill(params, batch)``            — full-sequence forward → (last-token
                                           logits, decode cache)
+* ``prefill_chunk(params, cache, tokens, p0)`` — one chunk of a chunked
+  prefill through the decode cache (the paged engine's admission)
 * ``decode_step(params, cache, token, pos[, active])`` — one-token serve
   step; ``pos`` may be a per-slot (B,) position vector and ``active`` a
   (B,) slot mask; the cache is updated in place
@@ -17,13 +19,16 @@ package's weights across.  Block kinds: attention (GQA, or MLA with its
 latent cache), with a dense or a mixture-of-experts FFN (``models.moe``),
 Mamba-2 (``models.ssm``; its cache is O(1) conv and SSM state) and zamba2's
 shared attention block, one weight copy in ``params["shared"]`` invoked
-where the pattern places it.  Not ported yet: the stub frontends (ROADMAP
-A7, which serves them) and the training loss with MoE's aux (A8).
+where the pattern places it.  The stub frontends take precomputed inputs:
+``patch_embed`` puts ``batch["patches"]`` before the token embeddings as a
+bidirectional prefix, ``frame_embed`` takes ``batch["frames"]`` and decodes
+over (B,1,D) frame embeddings.  Not ported yet: the training loss with
+MoE's aux (A8).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,15 +43,6 @@ from .moe import moe_layer, moe_param_specs
 from .ssm import mamba_cache_specs, mamba_forward, mamba_param_specs
 
 PyTree = Any
-
-
-def _unsupported(cfg: ArchConfig) -> Optional[str]:
-    """What of ``cfg`` the port cannot build yet, each with its ROADMAP
-    item, or None."""
-    if cfg.frontend != "none":
-        return (f"the {cfg.frontend} frontend (served through ServeEngine's "
-                f"lockstep path, ROADMAP A7)")
-    return None
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +269,22 @@ def _run_stage(st: Stage, sp, x, *, cfg, positions, shared_params=None,
     return x, caches
 
 
+def _embed_inputs(params, batch, cfg: ArchConfig) -> torch.Tensor:
+    """The (B,S,D) input of a prefill: token embeddings, with the stub
+    frontends' precomputed patch embeddings before them (``patch_embed``,
+    a bidirectional prefix) or frame embeddings in their place
+    (``frame_embed``)."""
+    dtype = cfg.activation_dtype()
+    if cfg.frontend == "patch_embed":
+        tok = embed_tokens(params["embed"], batch["tokens"]).to(dtype)
+        x = torch.cat([batch["patches"].to(dtype), tok], dim=1)
+    elif cfg.frontend == "frame_embed":
+        x = batch["frames"].to(dtype)
+    else:
+        x = embed_tokens(params["embed"], batch["tokens"]).to(dtype)
+    return shard(x, "batch", None, None)
+
+
 def _forward(params, x, positions, cfg: ArchConfig, *, caches=None,
              cache_pos=None, active=None, mode="prefill"):
     new_caches = []
@@ -325,24 +337,65 @@ class Model:
 
     # -- serving -----------------------------------------------------------
     def prefill(self, params, batch):
-        """batch["tokens"] (B,S) → (last-token logits (B,V), caches)."""
+        """batch["tokens"] (B,S) (with batch["patches"] (B,P,D) for
+        ``patch_embed``; batch["frames"] (B,S,D) in their place for
+        ``frame_embed``) → (last-token logits (B,V), caches)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        x = embed_tokens(params["embed"], tokens).to(cfg.activation_dtype())
-        b, s = tokens.shape
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        x = _embed_inputs(params, batch, cfg)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device).expand(b, s)
         x, caches = _forward(params, x, positions, cfg, mode="prefill")
         logits = _masked_logits(params, x[:, -1:], cfg)
         return logits[:, 0], caches
 
-    def decode_step(self, params, caches, token, pos, active=None):
-        """token (B,1) int; ``pos`` a scalar (every lane writes the same
-        cache slot) or a (B,) vector of per-slot write positions;
-        ``active`` an optional (B,) bool slot mask — inactive lanes write
-        nothing, so free slots never corrupt the slot-indexed cache.  The
-        cache is updated in place and returned."""
+    def supports_chunked_prefill(self) -> bool:
+        """True when prompts can be prefilled in multi-token chunks through
+        the decode caches.  Attention blocks (GQA ring/full and MLA) accept
+        multi-token cache steps; Mamba's cache path is single-token, MoE
+        routing is capacity-dependent (expert capacity is sized per call,
+        so chunked and whole-prompt prefills route — and drop — tokens
+        differently), and stub frontends / prefix-LM configs have no token
+        chunking — those serve by whole-prompt admission instead."""
+        if self.cfg.frontend != "none" or self.cfg.prefix_len:
+            return False
+        return all(b.kind != "mamba" and b.moe is None
+                   for st in self.cfg.stages for b in st.pattern)
+
+    def prefill_chunk(self, params, caches, tokens, p0
+                      ) -> Tuple[torch.Tensor, PyTree]:
+        """One prefill chunk through the decode caches.
+
+        ``tokens`` (B, C) continues each lane's prompt at positions
+        ``p0..p0+C-1`` (``p0`` scalar or (B,)); every attention cache is
+        updated in place (ring slots included) and the returned logits
+        (B,V) are the chunk's *last* token's — only the final chunk of a
+        prompt is sampled.  Callers gate on
+        :meth:`supports_chunked_prefill`."""
         cfg = self.cfg
-        x = embed_tokens(params["embed"], token).to(cfg.activation_dtype())
+        x = shard(embed_tokens(params["embed"], tokens).to(cfg.activation_dtype()),
+                  "batch", None, None)
+        b, c = tokens.shape
+        pos = torch.as_tensor(p0, dtype=torch.long, device=x.device)
+        if pos.dim() == 0:
+            pos = pos.expand(b)
+        positions = pos[:, None] + torch.arange(c, device=x.device)[None, :]
+        x, caches = _forward(params, x, positions, cfg, caches=caches,
+                             cache_pos=pos, mode="decode")
+        logits = _masked_logits(params, x[:, -1:], cfg)
+        return logits[:, 0], caches
+
+    def decode_step(self, params, caches, token, pos, active=None):
+        """token (B,1) int, or (B,1,D) frame embeddings for ``frame_embed``;
+        ``pos`` a scalar (every lane writes the same cache slot) or a (B,)
+        vector of per-slot write positions; ``active`` an optional (B,)
+        bool slot mask — inactive lanes write nothing, so free slots never
+        corrupt the slot-indexed cache.  The cache is updated in place and
+        returned."""
+        cfg = self.cfg
+        if cfg.frontend == "frame_embed":
+            x = token.to(cfg.activation_dtype())
+        else:
+            x = embed_tokens(params["embed"], token).to(cfg.activation_dtype())
         b = x.shape[0]
         pos = torch.as_tensor(pos, dtype=torch.long, device=x.device)
         if pos.dim() == 0:
@@ -354,7 +407,4 @@ class Model:
 
 
 def build_model(cfg: ArchConfig) -> Model:
-    what = _unsupported(cfg)
-    if what is not None:
-        raise NotImplementedError(f"{cfg.name}: {what}: not ported yet")
     return Model(cfg=cfg)

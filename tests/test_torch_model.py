@@ -1,7 +1,8 @@
 """Port parity for the model path: configs field for field, RMSNORM and
 FLASH_ATTN against the JAX package's Pallas ops (interpret mode), whole
-reduced models (prefill, then decode through the ring cache) on the JAX
-package's own weights, the slot engine's greedy tokens against the JAX
+reduced models (prefill, then decode through the ring cache; the stub
+frontends with their patch or frame embeddings) on the JAX package's own
+weights, the slot engine's greedy tokens against the JAX
 StepScheduler's, the serving helpers, and a fault of the reference pinned.
 
 Inputs are made once in numpy from a seed and fed to both packages; the
@@ -47,14 +48,14 @@ KERNEL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 MODEL_TOL = 1e-4
 DTYPES = ["float32", "bfloat16"]
 #: the architectures the port builds: dense attention, the state-space ones
-#: (Mamba-2 blocks on the SSD rows, zamba2's shared attention block) and
-#: the MoE ones (MOE_FFN; deepseek-v2's MLA); the others need a stub
-#: frontend
+#: (Mamba-2 blocks on the SSD rows, zamba2's shared attention block), the
+#: MoE ones (MOE_FFN; deepseek-v2's MLA) and the stub frontends
 PORTED = ["mistral-large-123b", "h2o-danube-1.8b", "gemma-7b", "gemma3-4b",
-          "mamba2-370m", "zamba2-1.2b", "moonshot-v1-16b-a3b", "deepseek-v2-236b"]
-#: what build_model refuses, and the ROADMAP item each message names
-REFUSED = {"musicgen-large": "frame_embed frontend.*ROADMAP A7",
-           "paligemma-3b": "patch_embed frontend.*ROADMAP A7"}
+          "mamba2-370m", "zamba2-1.2b", "moonshot-v1-16b-a3b", "deepseek-v2-236b",
+          "musicgen-large", "paligemma-3b"]
+#: the stub frontends: precomputed frame or patch embeddings, served by the
+#: lockstep path and the model-level entry points, refused by the engines
+STUB_FRONTENDS = ["musicgen-large", "paligemma-3b"]
 
 
 def _np(dtype, a):
@@ -324,16 +325,32 @@ def test_model_prefill_and_ring_decode_match_jax(cpu_session, arch, n_kv):
     """Prefill a 36-token prompt (past the reduced 32-token window, so the
     window masks and pad_caches rolls the cache into a ring; off the
     reduced SSD chunk of 16), then 8 decode steps that wrap the ring (or
-    advance the Mamba states); logits at every step ≤ 1e-4 normwise."""
+    advance the Mamba states); logits at every step ≤ 1e-4 normwise.  The
+    stub frontends take their precomputed inputs: paligemma-3b 8 patch
+    embeddings before the tokens (a bidirectional prefix; decode from
+    position 36 + 8), musicgen-large 36 frame embeddings and one frame
+    embedding a decode step."""
     jm, jp, tm, tp = _models(arch, n_kv)
     cfg = tm.cfg
     rng = np.random.default_rng(1)
     prompt = rng.integers(0, cfg.vocab_size, (1, 36)).astype(np.int32)
     steps = rng.integers(0, cfg.vocab_size, (8, 1, 1)).astype(np.int32)
-    max_len = 48
+    batch = {"tokens": prompt}
+    if cfg.frontend == "patch_embed":
+        batch["patches"] = rng.standard_normal((1, cfg.prefix_len, cfg.d_model)
+                                               ).astype(np.float32)
+    if cfg.frontend == "frame_embed":
+        batch = {"frames": rng.standard_normal((1, 36, cfg.d_model)).astype(np.float32)}
+        steps = rng.standard_normal((8, 1, 1, cfg.d_model)).astype(np.float32)
+    prefix = cfg.prefix_len if cfg.frontend == "patch_embed" else 0
+    max_len = 48 + prefix
 
-    jl, jcache = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(prompt)})
-    tl, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(prompt).long()})
+    def port(a):
+        t = torch.from_numpy(a)
+        return t.long() if a.dtype == np.int32 else t
+
+    jl, jcache = jax.jit(jm.prefill)(jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    tl, tcache = tm.prefill(tp, {k: port(v) for k, v in batch.items()})
     assert tl.shape == (1, cfg.padded_vocab)
     assert _normwise(tl, jl) <= MODEL_TOL
     jcache = j_kvcache.pad_caches(jm.cfg, jcache, max_len)
@@ -342,9 +359,9 @@ def test_model_prefill_and_ring_decode_match_jax(cpu_session, arch, n_kv):
         assert _normwise(tcc, jc) <= MODEL_TOL
     decode = jax.jit(jm.decode_step)
     for i, tok in enumerate(steps):
-        pos = 36 + i
+        pos = 36 + prefix + i
         jl, jcache = decode(jp, jcache, jnp.asarray(tok), jnp.int32(pos))
-        tl, tcache = tm.decode_step(tp, tcache, torch.from_numpy(tok).long(), pos)
+        tl, tcache = tm.decode_step(tp, tcache, port(tok), pos)
         assert _normwise(tl, jl) <= MODEL_TOL, (arch, i)
 
 
@@ -421,32 +438,57 @@ def test_params_from_numpy_checks_every_leaf(cpu_session):
 
 
 def test_refused_and_ported_cover_every_arch():
-    assert sorted(REFUSED) == sorted(set(ARCH_IDS) - set(PORTED))
+    """build_model builds every configuration the JAX package builds."""
+    assert sorted(PORTED) == sorted(ARCH_IDS)
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(PORTED)))
-def test_build_model_refuses_what_is_not_ported(arch):
-    """The stub frontends (musicgen-large, paligemma-3b) wait for A7's
-    ServeEngine, which serves them.  Each message names its item."""
-    with pytest.raises(NotImplementedError, match=REFUSED[arch]):
-        build_model(get_config(arch).reduced())
-    with pytest.raises(NotImplementedError, match=REFUSED[arch]):
-        build_model(get_config(arch))
+@pytest.mark.parametrize("arch", STUB_FRONTENDS)
+def test_build_model_refuses_what_is_not_ported(cpu_session, arch):
+    """The stub frontends build, at full size and reduced; what refuses
+    them is the token-fed engines (SlotEngine, PagedEngine), as in the
+    reference: they serve through ServeEngine's lockstep path and the
+    model-level entry points.  (The name dates from when build_model
+    refused them; what is refused now is these engines.)"""
+    from repro_torch.serve.engine import PagedEngine
+    from repro_torch.models.transformer import param_specs
+
+    assert param_specs(get_config(arch))["embed"].shape[1] == get_config(arch).d_model
+    model = build_model(get_config(arch).reduced())
+    params = model.init(torch.Generator().manual_seed(0))
+    for engine in (SlotEngine, PagedEngine):
+        with pytest.raises(ValueError, match="serves token frontends"):
+            engine(model, params, 1, 32)
 
 
 def test_mla_attention_raises_naming_the_roadmap(cpu_session):
-    """deepseek-v2 with dense FFNs in place of its MoE ones builds (MLA
-    alone); MLA's multi-token steps through the cache, the chunked prefill
-    of the paged engine, raise naming ROADMAP A7, as GQA's do."""
-    cfg = get_config("deepseek-v2-236b").reduced()
-    stages = tuple(dataclasses.replace(st, pattern=tuple(
-        dataclasses.replace(b, moe=None, d_ff=64) for b in st.pattern))
-        for st in cfg.stages)
-    model = build_model(dataclasses.replace(cfg, stages=stages))
-    params = model.init(torch.Generator().manual_seed(0))
-    caches = model.init_cache(1, 16)
-    with pytest.raises(NotImplementedError, match="chunk.*ROADMAP A7"):
-        model.decode_step(params, caches, torch.tensor([[1, 2]]), 0)
+    """deepseek-v2 with dense FFNs in place of its MoE ones (MLA alone), on
+    the JAX weights: MLA's multi-token step through the latent cache — a
+    prefill of 12 tokens, padded, then a 9-token chunk at position 12
+    (written first, masked per query) — against the JAX package's
+    prefill_chunk: the chunk's last logits ≤ 1e-4 normwise, the latent
+    and rope caches too; and against a whole prefill of all 21 tokens.
+    (The name dates from when this step raised; it is now a parity test.)"""
+    def dense_ffn(cfg):
+        return dataclasses.replace(cfg, stages=tuple(dataclasses.replace(
+            st, pattern=tuple(dataclasses.replace(b, moe=None, d_ff=64)
+                              for b in st.pattern)) for st in cfg.stages))
+
+    jm = j_build_model(dense_ffn(j_get_config("deepseek-v2-236b").reduced()))
+    tm = build_model(dense_ffn(get_config("deepseek-v2-236b").reduced()))
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = tm.params_from_numpy(jax.tree.map(np.asarray, jp))
+    toks = np.random.default_rng(6).integers(0, tm.cfg.vocab_size, (1, 21)).astype(np.int32)
+    _, jcache = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(toks[:, :12])})
+    _, tcache = tm.prefill(tp, {"tokens": torch.from_numpy(toks[:, :12]).long()})
+    jcache = j_kvcache.pad_caches(jm.cfg, jcache, 24)
+    tcache = t_kvcache.pad_caches(tm.cfg, tcache, 24)
+    jl, jcache = jax.jit(jm.prefill_chunk)(jp, jcache, jnp.asarray(toks[:, 12:]), 12)
+    tl, tcache = tm.prefill_chunk(tp, tcache, torch.from_numpy(toks[:, 12:]).long(), 12)
+    assert _normwise(tl, jl) <= MODEL_TOL
+    for jc, tcc in zip(jax.tree.leaves(jcache), torch.utils._pytree.tree_leaves(tcache)):
+        assert _normwise(tcc, jc) <= MODEL_TOL
+    whole, _ = tm.prefill(tp, {"tokens": torch.from_numpy(toks).long()})
+    assert _normwise(tl, whole) <= MODEL_TOL
 
 
 def test_bf16_weights_cross_with_their_bits(cpu_session):
@@ -525,6 +567,11 @@ def test_serve_launcher_on_the_cpu(capsys):
     assert "served 5 requests" in out and "T1_us" in out
 
 
-def test_serve_launcher_refuses_the_unported_paths():
+def test_serve_launcher_refuses_the_unported_paths(capsys):
+    """--legacy and --paged are two paths, not a combination: the parser
+    refuses them together.  (The name dates from when each flag alone was
+    refused; both now serve, see test_torch_serve_front.py.)"""
     with pytest.raises(SystemExit):
-        t_serve.main(["--arch", "h2o-danube-1.8b", "--paged", "--device", "cpu"])
+        t_serve.main(["--arch", "h2o-danube-1.8b", "--paged", "--legacy",
+                      "--device", "cpu"])
+    assert "mutually exclusive" in capsys.readouterr().err
