@@ -210,6 +210,25 @@ Phases (any failure exits non-zero before the result lines are printed):
    per replay, an empty quarantine, no re-scored placement in steady state
    and a compile-cache hit are checked; then each workload is timed three
    ways (serial, fresh capture + launch, compiled replay; median of 5).
+3d. Training (``phase3d``): (a) the gradients of the MMM, RMSNORM and
+   FLASH_ATTN autograd Functions on the card against autograd of their
+   plain versions on the card: MMM at danube's projections and unembed
+   with 2048 rows in bfloat16 (``TOL``, and dA and dB within half an ulp
+   of the float32 products, ``mmm_ulp_excess``) and at one float32 shape
+   on the tf32x3 route, RMSNORM at 2048 × 2560, FLASH_ATTN at 4 × 32 × 512
+   × 80 on 8 KV heads (causal, window 4096) and at head dim 256; (b)
+   h2o-danube-1.8b at full width and depth (``TRAIN``) trained 3 steps
+   through ``repro_torch.launch.train`` on the kernels: per step the loss,
+   lr, grad norm, host ms, device ms (torch.profiler over the step),
+   tokens/s and peak memory, and the launches, which must equal the
+   structure's (``train_structure``: each repeat recomputed in the
+   backward); (c) step 1 on the kernels against step 1 with every alias
+   on its plain torch row (the manifest of 3b's plain replays), same
+   weights and batch: loss within ``TRAIN_LOSS_TOL``, grad norm within
+   ``TRAIN_GNORM_TOL``, every gradient leaf at cosine ≥ ``TRAIN_COS_MIN``;
+   (d) LM_GRAD and ADAMW_STEP through ``halo_dispatch`` on danube cut to 4
+   layers against ``make_train_step`` (the same tolerances, the update's
+   cosine, launches by structure).
 4. Times at the phase-3 shapes: the median of 20 CUDA-event-timed calls of
    the kernel, its plain version and one library call, beside the least
    time the card could take (``bound_ms``).  RMSNORM and FLASH_ATTN, at the
@@ -545,6 +564,20 @@ CROSSOVER_SORT_N = (256, 1024, 4096, 4097, 8192)
 GRAPH = {"ew_n": 8192, "decode_d": 2560, "decode_layers": 24, "js_n": 8192,
          "js_sweeps": 30, "replays": 20}
 
+#: phase 3d, training: h2o-danube-1.8b at full width and depth through
+#: repro_torch.launch.train (batch × seq_len tokens a step, SyntheticLM from
+#: the seed); the LM_GRAD/ADAMW_STEP leg cut to ``alias_layers`` layers,
+#: whose flat float32 vectors (3p + 4 out, four p-vectors in) would not fit
+#: beside a full-depth model
+TRAIN = {"arch": "h2o-danube-1.8b", "batch": 4, "seq_len": 512, "steps": 3, "seed": 0,
+         "lr": 3e-3, "alias_layers": 4}
+#: phase 3d: step 1 on the kernels against step 1 on the plain rows, same
+#: weights and batch: the loss (relative), the gradients' global norm
+#: (relative), and each gradient leaf's cosine similarity
+TRAIN_LOSS_TOL = 2e-2
+TRAIN_GNORM_TOL = 5e-2
+TRAIN_COS_MIN = 0.99
+
 TIMED_RUNS = 20
 E2E_REPEATS = 5
 PIN = {"allowed_platforms": ["hopper"]}
@@ -588,10 +621,11 @@ PATH_OF = {"rmsnorm": "serve", "flash_attention_mma": "serve", "mmm_skinny": "se
            "flash_attention_wgmma": "serve_d256"}
 
 
-#: the paged danube legs and the stub-frontend legs, whose launches the
-#: kernels line lists beside those of each kernel's own path
+#: the paged danube legs, the stub-frontend legs and the training leg (3d),
+#: whose launches the kernels line lists beside those of each kernel's own
+#: path
 NEW_LEG_PATHS = ("serve_paged_whole", "serve_paged_chunked", "serve_paligemma",
-                 "serve_musicgen")
+                 "serve_musicgen", "train")
 
 
 def decode_projections(cfg):
@@ -3207,16 +3241,16 @@ def run_block(cfg, spec, bp, xs, max_len):
     from repro_torch.models.transformer import _apply_block
     s, dev = xs[0].shape[1], xs[0].device
     with torch.no_grad():
-        y, cache = _apply_block(spec, bp, xs[0], cfg=cfg,
-                                positions=torch.arange(s, device=dev)[None])
+        y, _, cache = _apply_block(spec, bp, xs[0], cfg=cfg,
+                                   positions=torch.arange(s, device=dev)[None])
         # the sequence axis is the last but one of GQA's (B,H,S,dh) and of
         # MLA's (B,S,lat), (B,S,rope)
         cache = tuple(F.pad(c, (0, 0, 0, max_len - s)) for c in cache)
         outs = [y]
         for i, xt in enumerate(xs[1:]):
             pos = torch.tensor([s + i], device=dev)
-            y, cache = _apply_block(spec, bp, xt, cfg=cfg, positions=pos[:, None],
-                                    cache=cache, cache_pos=pos)
+            y, _, cache = _apply_block(spec, bp, xt, cfg=cfg, positions=pos[:, None],
+                                       cache=cache, cache_pos=pos)
             outs.append(y)
     return outs
 
@@ -4004,6 +4038,311 @@ def phase3c(dev, card):
                  else "time not measured (the profiler saw none)"))
     halo.finalize()
     return launches, stats
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: training
+# ---------------------------------------------------------------------------
+def leaf_names(tree, prefix: str = "params") -> list:
+    """Each leaf's path, in the order ``core.tree.tree_leaves`` takes them."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}.{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree) for n in leaf_names(t, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    den = float(a.norm() * b.norm())
+    if den == 0.0:
+        return 1.0 if float(a.norm()) == float(b.norm()) else 0.0
+    return float(a @ b) / den
+
+
+def train_structure(cfg) -> dict:
+    """Launches one training step of danube's structure makes, each repeat
+    recomputed in the backward: MMM 7 a layer in the forward and again in
+    the recompute, dA and dB of each in the backward, and the unembed's
+    forward with its two (3); RMSNORM 2 a layer forward and recompute and
+    the final norm (its backward is the plain version's VJP); FLASH_ATTN 1
+    a layer forward and recompute (its backward is mea_attention's VJP).
+    Every product has 4·512 rows or more: the wgmma route."""
+    layers = cfg.n_layers
+    return {"mmm_wgmma": 28 * layers + 3, "rmsnorm": 4 * layers + 1,
+            "flash_attention_mma": 2 * layers}
+
+
+def phase3d_backward(dev) -> None:
+    """(a) each Function's gradients on the card against autograd of its
+    plain version on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.matmul.ops import mmm
+    from repro_torch.kernels.matmul.ref import mmm_ref, mmm_ulp_excess
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    gen = torch.Generator(device=dev).manual_seed(30)
+    cfg = get_config(TRAIN["arch"])
+    rows = TRAIN["batch"] * TRAIN["seq_len"]
+
+    def rnd(*shape, dtype, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale + shift).to(dtype)
+
+    def grads(fn, inputs, g):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        if out.grad_fn is None:
+            fail("a Function's output on the card has no grad_fn")
+        out.backward(g)
+        torch.cuda.synchronize(dev)
+        return out.detach(), [t.grad for t in leaves]
+
+    shapes = [(rows, k, n, torch.bfloat16) for k, n in decode_projections(cfg)]
+    shapes.append((rows, 2560, 640, torch.float32))          # the tf32x3 route
+    for m, k, n, dt in shapes:
+        a = rnd(m, k, dtype=dt)
+        b = rnd(k, n, dtype=dt, scale=k ** -0.5)
+        g = rnd(m, n, dtype=dt, scale=1e-2)
+        out, (da, db) = grads(mmm, (a, b), g)
+        ref, (ra, rb) = grads(mmm_ref, (a, b), g)
+        errs = [normwise(x, y) for x, y in ((out, ref), (da, ra), (db, rb))]
+        for what, e in zip(("C", "dA", "dB"), errs):
+            check_close(f"MMM backward {m}x{k} @ {k}x{n} {dt} {what}", e, dt)
+        line = (f"  MMM {m}x{k} @ {k}x{n} {str(dt)[6:]}: C {errs[0]:.2e}, dA {errs[1]:.2e}, "
+                f"dB {errs[2]:.2e} against autograd of mmm_ref")
+        if dt != torch.float32:
+            excess = (mmm_ulp_excess(da, g, b.t().contiguous()),
+                      mmm_ulp_excess(db, a.t().contiguous(), g))
+            if any(excess):
+                fail(f"MMM backward {m}x{k} @ {k}x{n}: {excess} elements of dA, dB past "
+                     f"half an ulp of the float32 product")
+            line += "; dA, dB within half an ulp of the float32 products"
+        print(line)
+        del a, b, g, out, da, db, ref, ra, rb
+
+    x = rnd(rows, cfg.d_model, dtype=torch.bfloat16, scale=2.0)
+    gamma = rnd(cfg.d_model, dtype=torch.bfloat16, scale=0.1, shift=1.0)
+    g = rnd(rows, cfg.d_model, dtype=torch.bfloat16)
+    out, (dx, dg) = grads(lambda x_, g_: rmsnorm(x_, g_, eps=cfg.norm_eps), (x, gamma), g)
+    ref, (rx, rg) = grads(lambda x_, g_: rmsnorm_ref(x_, g_, cfg.norm_eps), (x, gamma), g)
+    errs = [normwise(p, q) for p, q in ((out, ref), (dx, rx), (dg, rg))]
+    for what, e in zip(("out", "dx", "dgamma"), errs):
+        check_close(f"RMSNORM backward {rows}x{cfg.d_model} {what}", e, torch.bfloat16)
+    print(f"  RMSNORM {rows}x{cfg.d_model} bfloat16: out {errs[0]:.2e}, dx {errs[1]:.2e}, "
+          f"dgamma {errs[2]:.2e}; gradients bit-identical to the plain version's: "
+          f"{torch.equal(dx, rx) and torch.equal(dg, rg)}")
+
+    attn = cfg.stages[0].pattern[0].attn
+    fa_cases = [(TRAIN["batch"], attn.n_heads, attn.n_kv_heads, TRAIN["seq_len"],
+                 attn.head_dim, attn.window), (1, 8, 4, TRAIN["seq_len"], 256, None)]
+    for b_, h, hkv, s_, d, window in fa_cases:
+        q = rnd(b_, h, s_, d, dtype=torch.bfloat16)
+        k = rnd(b_, hkv, s_, d, dtype=torch.bfloat16)
+        v = rnd(b_, hkv, s_, d, dtype=torch.bfloat16)
+        g = rnd(b_, h, s_, d, dtype=torch.bfloat16)
+        kw = dict(causal=True, window=window)
+        out, gk = grads(lambda *t: flash_attention(*t, **kw), (q, k, v), g)
+        ref, gr = grads(lambda *t: attention_ref(*t, **kw), (q, k, v), g)
+        errs = [normwise(out, ref)] + [normwise(p, q_) for p, q_ in zip(gk, gr)]
+        for what, e in zip(("out", "dq", "dk", "dv"), errs):
+            check_close(f"FLASH_ATTN backward {b_}x{h}x{s_}x{d} on {hkv} KV heads {what}",
+                        e, torch.bfloat16)
+        print(f"  FLASH_ATTN {b_}x{h}x{s_}x{d} bfloat16 on {hkv} KV heads, causal, window "
+              f"{window}: out {errs[0]:.2e}, dq {errs[1]:.2e}, dk {errs[2]:.2e}, "
+              f"dv {errs[3]:.2e} against autograd of attention_ref")
+
+
+def phase3d(dev):
+    """Training: (a) ``phase3d_backward``; (b) danube at full width and
+    depth through ``repro_torch.launch.train``, each step timed, profiled
+    and counted; (c) step 1 on the kernels against step 1 on the plain rows;
+    (d) LM_GRAD and ADAMW_STEP through ``halo_dispatch`` against
+    ``make_train_step``.  Returns (the leg's launches over its steps,
+    stats)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import halo
+    from repro_torch.configs import get_config
+    from repro_torch.core.c2mpi import halo_dispatch
+    from repro_torch.core.manifest import default_manifest
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import adamw_init, global_norm
+    from repro_torch.train import step_kernels, trainer
+
+    print("  (a) each Function's gradients against autograd of its plain version")
+    phase3d_backward(dev)
+
+    cfg = get_config(TRAIN["arch"])
+    tokens = TRAIN["batch"] * TRAIN["seq_len"]
+    expect = train_structure(cfg)
+    print(f"  (b) {cfg.name} at full width and depth ({cfg.n_layers} layers, "
+          f"{cfg.dtype}) through repro_torch.launch.train: {TRAIN['steps']} steps of "
+          f"{TRAIN['batch']} x {TRAIN['seq_len']} tokens; launches a step by structure "
+          f"{expect}")
+    steps = []
+    orig = trainer.make_train_step
+
+    def timed_make_train_step(model, hp):
+        step_fn = orig(model, hp)
+
+        def timed(state, batch):
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            _cuda.reset_launch_counts()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batch)
+                torch.cuda.synchronize(dev)
+                host_s = time.perf_counter() - t0
+            launches = {k: v for k, v in _cuda.launch_counts().items() if v}
+            by_kernel = sorted(((device_seconds_of(e) * 1e3, e.count, e.key)
+                                for e in prof.key_averages() if device_seconds_of(e)),
+                               reverse=True)
+            rec = {"step": len(steps) + 1, "loss": float(metrics["loss"]),
+                   "lr": float(metrics["lr"]), "grad_norm": float(metrics["grad_norm"]),
+                   "host_ms": host_s * 1e3, "device_ms": device_seconds(prof) * 1e3,
+                   "tokens_per_s": tokens / host_s,
+                   "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                   "launches": launches,
+                   "top_kernels": [(round(ms, 3), n, key[:90]) for ms, n, key in by_kernel[:12]]}
+            rec["busy"] = rec["device_ms"] / rec["host_ms"]
+            steps.append(rec)
+            print(f"    step {rec['step']}: loss {rec['loss']:.4f}, lr {rec['lr']:.2e}, "
+                  f"grad norm {rec['grad_norm']:.4f}, {rec['host_ms']:.1f} ms host "
+                  f"(under the profiler), {rec['device_ms']:.1f} ms device (busy "
+                  f"{rec['busy']:.3f}), {rec['tokens_per_s']:.0f} tokens/s, peak "
+                  f"{rec['peak_gb']:.2f} GB; launches {launches}")
+            if rec["step"] == TRAIN["steps"]:
+                print("    its device time by kernel (ms, calls, name): " + "; ".join(
+                    f"{ms:.2f} {n} {key[:60]}" for ms, n, key in rec["top_kernels"]))
+            if launches != expect:
+                fail(f"training step {rec['step']} launched {launches}, the structure "
+                     f"gives {expect}")
+            return state, metrics
+        return timed
+
+    trainer.make_train_step = timed_make_train_step
+    try:
+        history = launch_train.main([
+            "--arch", TRAIN["arch"], "--steps", str(TRAIN["steps"]),
+            "--seq-len", str(TRAIN["seq_len"]), "--batch", str(TRAIN["batch"]),
+            "--lr", str(TRAIN["lr"]), "--seed", str(TRAIN["seed"])])
+    finally:
+        trainer.make_train_step = orig
+    if len(steps) != TRAIN["steps"] or not history:
+        fail(f"the launcher ran {len(steps)} steps, not {TRAIN['steps']}")
+    for rec in steps:
+        if not all(math.isfinite(rec[k]) for k in ("loss", "grad_norm")):
+            fail(f"training step {rec['step']}: loss or grad norm not finite: {rec}")
+    if abs(steps[0]["loss"] - math.log(cfg.vocab_size)) > 3.0:
+        fail(f"step 1's loss {steps[0]['loss']:.4f} is far from ln(vocab) "
+             f"{math.log(cfg.vocab_size):.4f} for random weights")
+    launches = collections.Counter()
+    for rec in steps:
+        launches.update(rec["launches"])
+    torch.cuda.empty_cache()
+
+    print("  (c) step 1 on the kernels against step 1 on the plain rows (manifest "
+          "prefers torch), same weights and batch")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(TRAIN["seed"]))
+    batch = SyntheticLM(cfg, TRAIN["seq_len"], TRAIN["batch"], TRAIN["seed"]).device_batch(0, dev)
+    halo.initialize()
+    _cuda.reset_launch_counts()
+    loss_k, _, grads_k = trainer.loss_and_grads(model, params, batch)
+    kernel_launches = {k: v for k, v in _cuda.launch_counts().items() if v}
+    gnorm_k = float(global_norm(grads_k))
+    halo.finalize()
+    if kernel_launches != expect:
+        fail(f"step 1 on the kernels launched {kernel_launches}, not {expect}")
+    plain = default_manifest()
+    plain.platform_list = [{"platform_preference": ["torch"]}]
+    halo.initialize(manifest=plain)
+    _cuda.reset_launch_counts()
+    loss_p, _, grads_p = trainer.loss_and_grads(model, params, batch)
+    plain_launches = {k: v for k, v in _cuda.launch_counts().items() if v}
+    gnorm_p = float(global_norm(grads_p))
+    halo.finalize()
+    if plain_launches:
+        fail(f"the plain replay launched kernels: {plain_launches}")
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    gnorm_err = abs(gnorm_k - gnorm_p) / gnorm_p
+    cos = [(cosine(a, b), name) for a, b, name in
+           zip(tree_leaves(grads_k), tree_leaves(grads_p), leaf_names(params))]
+    worst_cos, worst_leaf = min(cos)
+    print(f"    loss {loss_k:.6f} (kernels) vs {loss_p:.6f} (plain): {loss_err:.2e} "
+          f"(tol {TRAIN_LOSS_TOL:g}); the launcher's step 1 read {steps[0]['loss']:.6f}; "
+          f"grad norm {gnorm_k:.6f} vs {gnorm_p:.6f}: {gnorm_err:.2e} (tol "
+          f"{TRAIN_GNORM_TOL:g}); worst leaf cosine {worst_cos:.6f} at {worst_leaf} "
+          f"(min {TRAIN_COS_MIN:g}) over {len(cos)} leaves")
+    if loss_err > TRAIN_LOSS_TOL or gnorm_err > TRAIN_GNORM_TOL or worst_cos < TRAIN_COS_MIN:
+        fail("training step 1 on the kernels disagrees with the plain replay")
+    if abs(loss_k - steps[0]["loss"]) > 1e-3 * abs(loss_k):
+        fail(f"step 1 of the launcher ({steps[0]['loss']}) is not step 1 on the "
+             f"same weights and batch ({loss_k})")
+    del model, params, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    layers = TRAIN["alias_layers"]
+    name = f"{TRAIN['arch']}@{layers}"
+    cut = dataclasses.replace(cfg, stages=(dataclasses.replace(cfg.stages[0], repeats=layers),))
+    step_kernels.register_arch(name, cut)
+    model = build_model(cut)
+    params = model.init(torch.Generator(device=dev).manual_seed(TRAIN["seed"]))
+    p = step_kernels.param_size(name)
+    print(f"  (d) LM_GRAD and ADAMW_STEP through halo_dispatch on {cut.name} at full "
+          f"width cut to {layers} layers ({p} parameters) against make_train_step")
+    hp = trainer.TrainHyper(base_lr=TRAIN["lr"], warmup_steps=1, total_steps=TRAIN["steps"])
+    halo.initialize()
+    _cuda.reset_launch_counts()
+    pvec = step_kernels.flatten_params(params)
+    gvec = halo_dispatch("LM_GRAD", pvec, batch["tokens"], batch["labels"], batch["mask"],
+                         arch=name)
+    alias_launches = {k: v for k, v in _cuda.launch_counts().items() if v}
+    zeros = torch.zeros_like(pvec)
+    one = torch.ones((), dtype=torch.int32, device=dev)        # past the warmup
+    out = halo_dispatch("ADAMW_STEP", gvec, pvec, zeros, zeros, one, arch=name,
+                        n_micro=1, base_lr=hp.base_lr, warmup_steps=hp.warmup_steps,
+                        total_steps=hp.total_steps, weight_decay=hp.weight_decay,
+                        clip_norm=hp.clip_norm)
+    new_vec, _, _, m = step_kernels.unpack_adamw_out(out, name)
+    a_loss, a_gnorm = float(m["loss"]), float(m["grad_norm"])
+    del gvec, out, zeros
+    opt = adamw_init(params)._replace(step=one)
+    state, ref = trainer.make_train_step(model, hp)(trainer.TrainState(params, opt), batch)
+    r_loss, r_gnorm = float(ref["loss"]), float(ref["grad_norm"])
+    new_cos = cosine(new_vec - pvec, step_kernels.flatten_params(state.params) - pvec)
+    halo.finalize()
+    expect_alias = train_structure(cut)
+    loss_err, gnorm_err = abs(a_loss - r_loss) / abs(r_loss), abs(a_gnorm - r_gnorm) / r_gnorm
+    print(f"    LM_GRAD launches {alias_launches} (structure {expect_alias}); loss "
+          f"{a_loss:.6f} vs {r_loss:.6f}: {loss_err:.2e}; grad norm {a_gnorm:.6f} vs "
+          f"{r_gnorm:.6f}: {gnorm_err:.2e}; the parameter updates' cosine {new_cos:.6f}; "
+          f"step {int(m['step'])}")
+    if alias_launches != expect_alias:
+        fail(f"LM_GRAD launched {alias_launches}, not {expect_alias}")
+    if loss_err > TRAIN_LOSS_TOL or gnorm_err > TRAIN_GNORM_TOL or new_cos < TRAIN_COS_MIN \
+            or int(m["step"]) != 2:
+        fail("LM_GRAD/ADAMW_STEP disagree with make_train_step")
+    del model, params, pvec, new_vec, state
+    torch.cuda.empty_cache()
+
+    stats = {"arch": cfg.name, "layers": cfg.n_layers, "tokens_per_step": tokens,
+             "steps": steps, "history": history, "step1_loss_kernels": loss_k,
+             "step1_loss_plain": loss_p, "step1_gnorm_kernels": gnorm_k,
+             "step1_gnorm_plain": gnorm_p, "worst_leaf_cosine": worst_cos,
+             "worst_leaf": worst_leaf, "alias_layers": layers, "alias_params": p,
+             "alias_loss": [a_loss, r_loss], "alias_grad_norm": [a_gnorm, r_gnorm],
+             "alias_launches": alias_launches}
+    return dict(launches), stats
 
 
 def replay(model, params, prompt, toks, max_len, manifest, registry=None):
@@ -5052,6 +5391,11 @@ def main() -> None:
     graph_launches, graph_stats = phase3c(dev, card)
     seconds["3c graphs"] = time.perf_counter() - t0
     print(json.dumps({"graphs": graph_stats}))
+    print(f"phase 3d: training {TRAIN['arch']} at full width and depth on the kernels")
+    t0 = time.perf_counter()
+    path_launches["train"], train_stats = phase3d(dev)
+    seconds["3d train"] = time.perf_counter() - t0
+    print(json.dumps({"train": train_stats}))
     print(f"phase 4: times (median of 20 CUDA-event-timed calls) on {card}")
     t0 = time.perf_counter()
     kernels = phase4(dev, jobs, launches, max_abs, e2e, card.split(",")[0],

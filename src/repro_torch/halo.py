@@ -16,11 +16,15 @@ short names as ``repro.halo``::
         u = halo.isend((t, b), halo.claim("EWADD"))
     cg = g.compile()                       # fuse + plan (§12)
     out, = cg.replay()
+    state, history = halo.train("h2o-danube-1.8b", steps=20, reduced=True)
     halo.finalize()
 
-Each name re-exports the object :mod:`repro_torch.core.c2mpi` defines.
+Each name re-exports the object :mod:`repro_torch.core.c2mpi` defines;
+``train`` is a thin wrapper over the Trainer.
 """
 from __future__ import annotations
+
+from typing import Any, Optional, Tuple
 
 from .core.agents import HaloFuture
 from .core.c2mpi import (MPIX_Claim as claim,
@@ -42,4 +46,35 @@ __all__ = [
     "create_buffer", "free", "HaloFuture",
     # graph capture / compiled replay (§8, §12)
     "graph", "compile_graph", "ExecutionGraph", "CompiledGraph",
+    # training (§15)
+    "train",
 ]
+
+
+def train(arch: str, *, steps: int = 20, seq_len: int = 128, batch: int = 8,
+          comm: Any = None, reduced: bool = False, lr: float = 3e-3,
+          microbatches: Optional[int] = None, seed: int = 0,
+          log_every: int = 10) -> Tuple[Any, list]:
+    """One-call LM training on synthetic data on the session's device,
+    single-agent.  Returns ``(TrainState, [(step, loss), ...])``.  The
+    reference's data-parallel mode (``comm``) needs the collectives and
+    raises: ROADMAP A10."""
+    import torch
+
+    from .configs import get_config
+    from .data.pipeline import SyntheticLM
+    from .models import build_model
+    from .train.trainer import COMM_REFUSAL, TrainHyper, Trainer
+
+    if comm is not None:
+        raise ValueError(COMM_REFUSAL)
+    device = session().device
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    hp = TrainHyper(base_lr=lr, warmup_steps=max(1, steps // 10),
+                    total_steps=steps, microbatches=microbatches or 1)
+    trainer = Trainer(model=build_model(cfg), hp=hp, log_every=log_every)
+    pipe = SyntheticLM(cfg, seq_len=seq_len, global_batch=batch, seed=seed)
+    state = trainer.init_state(torch.Generator(device=device).manual_seed(seed))
+    return trainer.run(state, lambda step: pipe.device_batch(step, device), steps)

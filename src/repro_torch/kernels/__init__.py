@@ -12,7 +12,8 @@ Each subpackage ships three artifacts per kernel:
 :func:`register_all` publishes three rows per alias with Table-II
 attributes — ``torch`` (oracle, priority 0, fail-safe), ``aten`` (library,
 10) and ``hopper`` (kernel, 20; none for SSD, SSD_DECODE, GQA_DECODE and
-MOE_FFN, which have no Pallas site) — so the runtime agent resolves each alias
+MOE_FFN, which have no Pallas site; LM_GRAD and ADAMW_STEP share one callable
+on all three) — so the runtime agent resolves each alias
 to the best feasible substrate (hopper > aten > torch by default), and
 declares which aliases the graph fusion pass (DESIGN.md §12) may collapse
 into chains.
@@ -143,6 +144,17 @@ def register_all(registry=None) -> None:
     registry.register(_rec("CONCAT", concat_ref, "torch", 0, failsafe=True))
     registry.register(_rec("CONCAT", concat_ref, "aten", 10))
     registry.register(_rec("CONCAT", concat_ref, "hopper", 20))
+
+    # Training-step builtins (DESIGN.md §15): the forward/backward and the
+    # optimizer update as aliases, so device-group members (ROADMAP A10)
+    # can dispatch them.  Every platform row shares ONE callable, as in the
+    # reference; the callables run the model's own dispatches (MMM, RMSNORM,
+    # FLASH_ATTN) in the caller's thread, so autograd sees them.
+    from ..train.step_kernels import adamw_step_vec, lm_grad_vec
+    for alias, fn in (("LM_GRAD", lm_grad_vec), ("ADAMW_STEP", adamw_step_vec)):
+        registry.register(_rec(alias, fn, "torch", 0, failsafe=True))
+        registry.register(_rec(alias, fn, "aten", 10))
+        registry.register(_rec(alias, fn, "hopper", 20))
 
     # Fusibility rules (DESIGN.md §12): EW* members carry the element-wise
     # op the chain kernel (csrc/fused.cu) applies; COPY is a unary

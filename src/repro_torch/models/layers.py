@@ -3,11 +3,10 @@ of ``repro.models.layers``.
 
 All matmul-shaped work and every norm dispatch through HALO aliases;
 sharding names logical axes (a no-op on one device).
-``softmax_xent`` comes with training.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -74,3 +73,22 @@ def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def logits_from_hidden(unembed: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """h (..., D) @ unembed (D, V)."""
     return shard(dense(h, unembed), "batch", None, "vocab")
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy of (..., V) logits against integer labels, in float32:
+    (the mask-weighted mean over max(Σw, 1), or the plain mean; the
+    per-token nll).  The max is held constant under differentiation; the
+    label's logit is picked by ``gather``, which gives the reference's
+    one-hot einsum's value and gradient."""
+    lf = logits.float()
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
+    picked = lf.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - picked
+    if mask is not None:
+        w = mask.float()
+        return (nll * w).sum() / torch.clamp(w.sum(), min=1.0), nll
+    return nll.mean(), nll

@@ -87,8 +87,8 @@ def mamba_forward(p: Params, x: torch.Tensor, s: SSMConfig, *,
     """x (B,S,D).  Without ``cache``: the sequence path (prefill), which
     also returns a decode-ready cache: the conv states are the last W−1
     pre-activation inputs, left-padded with zeros when S < W−1, and the
-    SSM state is the scan's final one (the reference's ``want_cache``; the
-    port has no training path that would leave it off).  With ``cache`` =
+    SSM state is the scan's final one (the reference's ``want_cache``;
+    training discards it).  With ``cache`` =
     (conv_x_state, conv_bc_state, ssm_state): one decode token (S = 1),
     the states advanced in place but in lanes where ``active`` is False."""
     b, seq, d_model = x.shape

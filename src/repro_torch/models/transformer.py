@@ -22,8 +22,9 @@ shared attention block, one weight copy in ``params["shared"]`` invoked
 where the pattern places it.  The stub frontends take precomputed inputs:
 ``patch_embed`` puts ``batch["patches"]`` before the token embeddings as a
 bidirectional prefix, ``frame_embed`` takes ``batch["frames"]`` and decodes
-over (B,1,D) frame embeddings.  Not ported yet: the training loss with
-MoE's aux (A8).
+over (B,1,D) frame embeddings.  Training: ``loss_fn(params, batch)`` —
+the forward with each stage repeat recomputed in the backward, the masked
+cross-entropy plus MoE's router aux loss, which serving drops.
 """
 from __future__ import annotations
 
@@ -33,12 +34,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.utils._pytree as pytree
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, AttnConfig, BlockSpec, Stage
 from ..core.compute_object import from_numpy
 from ..distributed.sharding import ParamSpec, current_context, shard
 from .attention import attn_param_specs, gqa_forward, mla_forward
-from .layers import embed_tokens, ffn, logits_from_hidden, rms_norm
+from .layers import embed_tokens, ffn, logits_from_hidden, rms_norm, softmax_xent
 from .moe import moe_layer, moe_param_specs
 from .ssm import mamba_cache_specs, mamba_forward, mamba_param_specs
 
@@ -223,10 +225,12 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int, device="cpu") -> PyTree:
 # ---------------------------------------------------------------------------
 def _apply_block(spec: BlockSpec, bp, x, *, cfg: ArchConfig, positions,
                  shared_params=None, cache=None, cache_pos=None, active=None):
+    """One block: (x out, MoE's weighted aux loss (0.0 for any other
+    block), the block's cache)."""
     if spec.kind == "mamba":
         h = rms_norm(x, bp["ln"], cfg.norm_eps)
         y, nc = mamba_forward(bp["ssm"], h, spec.ssm, cache=cache, active=active)
-        return x + y, nc
+        return x + y, 0.0, nc
     shared = spec.kind == "shared_attn"
     p = shared_params if shared else bp
     a_cfg = cfg.shared_attn if shared else spec.attn
@@ -241,32 +245,63 @@ def _apply_block(spec: BlockSpec, bp, x, *, cfg: ArchConfig, positions,
                               cache_pos=cache_pos, active=active)
     x = x + att
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    aux = 0.0
     if not shared and spec.moe is not None:
-        f, _ = moe_layer(bp["moe"], h2, spec.moe, spec.act)   # serving drops aux
+        f, aux = moe_layer(bp["moe"], h2, spec.moe, spec.act)
     else:
         f = ffn(p["ffn"], h2, "swiglu" if shared else spec.act)
-    return x + f, nc
+    return x + f, aux, nc
+
+
+def _per_repeat(tree, repeats: int) -> List[Any]:
+    """A stage's stacked weights as one tree per repeat: each leaf unbound
+    along its leading axis once, so the backward stacks the repeats'
+    gradients into the leaf's gradient in one pass."""
+    leaves, spec = pytree.tree_flatten(tree)
+    per = [t.unbind(0) for t in leaves]
+    return [pytree.tree_unflatten([u[r] for u in per], spec) for r in range(repeats)]
+
+
+def _train_body(pattern, bps, x, cfg, positions, shared_params):
+    """One repeat of a stage's pattern in train mode: (x, Σ aux)."""
+    aux = 0.0
+    for spec, bp in zip(pattern, bps):
+        x, a, _ = _apply_block(spec, bp, x, cfg=cfg, positions=positions,
+                               shared_params=shared_params)
+        aux = aux + a
+    return x, aux
 
 
 def _run_stage(st: Stage, sp, x, *, cfg, positions, shared_params=None,
                caches=None, cache_pos=None, active=None, mode: str = "prefill"):
-    """The stage's repeats in order.  Prefill returns each block's cache
-    leaves ((k, v), or Mamba's three states) stacked over the repeats;
-    decode updates ``caches`` in place."""
+    """The stage's repeats in order; returns (x, Σ aux, caches).  Prefill
+    returns each block's cache leaves ((k, v), or Mamba's three states)
+    stacked over the repeats; decode updates ``caches`` in place; both
+    drop MoE's aux (0.0).  Train sums it, keeps no cache and recomputes
+    each repeat in the backward
+    (``torch.utils.checkpoint``, the reference's per-layer
+    ``jax.checkpoint``), so only the repeats' inputs stay saved."""
     fresh: List[List[tuple]] = [[] for _ in st.pattern]
+    layers = [_per_repeat(sp[j], st.repeats) for j in range(len(st.pattern))]
+    aux = 0.0
     for r in range(st.repeats):
         x = shard(x, "batch", "seq_act", None)
+        if mode == "train":
+            x, a = checkpoint(_train_body, st.pattern, [lp[r] for lp in layers], x,
+                              cfg, positions, shared_params, use_reentrant=False,
+                              preserve_rng_state=False)
+            aux = aux + a
+            continue
         for j, spec in enumerate(st.pattern):
             cj = None if caches is None else tuple(c[r] for c in caches[j])
-            bp = pytree.tree_map(lambda t: t[r], sp[j])
-            x, nc = _apply_block(spec, bp, x, cfg=cfg, positions=positions,
-                                 shared_params=shared_params, cache=cj,
-                                 cache_pos=cache_pos, active=active)
+            x, _, nc = _apply_block(spec, layers[j][r], x, cfg=cfg, positions=positions,
+                                    shared_params=shared_params, cache=cj,
+                                    cache_pos=cache_pos, active=active)
             fresh[j].append(nc)
     if mode == "prefill":
-        return x, tuple(tuple(torch.stack(leaf) for leaf in zip(*per_repeat))
-                        for per_repeat in fresh)
-    return x, caches
+        return x, aux, tuple(tuple(torch.stack(leaf) for leaf in zip(*per_repeat))
+                             for per_repeat in fresh)
+    return x, aux, caches
 
 
 def _embed_inputs(params, batch, cfg: ArchConfig) -> torch.Tensor:
@@ -287,16 +322,19 @@ def _embed_inputs(params, batch, cfg: ArchConfig) -> torch.Tensor:
 
 def _forward(params, x, positions, cfg: ArchConfig, *, caches=None,
              cache_pos=None, active=None, mode="prefill"):
+    """(final-normed x, Σ aux over the stages, caches)."""
+    aux = 0.0
     new_caches = []
     for i, st in enumerate(cfg.stages):
-        x, nc = _run_stage(
+        x, a, nc = _run_stage(
             st, params["stages"][i], x, cfg=cfg, positions=positions,
             shared_params=params.get("shared"),
             caches=None if caches is None else caches[i],
             cache_pos=cache_pos, active=active, mode=mode)
+        aux = aux + a
         new_caches.append(nc)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, new_caches
+    return x, aux, new_caches
 
 
 def _masked_logits(params, x, cfg: ArchConfig):
@@ -335,6 +373,26 @@ class Model:
         shape and dtype is checked against :meth:`param_specs`."""
         return _carry(param_specs(self.cfg), tree, device, "params")
 
+    # -- training ------------------------------------------------------------
+    def loss_fn(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(xent + aux, {"xent", "aux"}) of a train batch: batch["labels"]
+        and batch["mask"] (B,S) beside the inputs of :meth:`prefill`.  The
+        repeats recompute in the backward; ``patch_embed`` scores the
+        positions from the last patch on, one a label."""
+        cfg = self.cfg
+        x = _embed_inputs(params, batch, cfg)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        x, aux, _ = _forward(params, x, positions, cfg, mode="train")
+        logits = _masked_logits(params, x, cfg)
+        labels = batch["labels"]
+        if cfg.frontend == "patch_embed":
+            np_ = cfg.prefix_len
+            logits = logits[:, np_ - 1:np_ - 1 + labels.shape[1]]
+        xent, _ = softmax_xent(logits, labels, batch.get("mask"))
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=xent.device)
+        return xent + aux, {"xent": xent, "aux": aux}
+
     # -- serving -----------------------------------------------------------
     def prefill(self, params, batch):
         """batch["tokens"] (B,S) (with batch["patches"] (B,P,D) for
@@ -344,7 +402,7 @@ class Model:
         x = _embed_inputs(params, batch, cfg)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
-        x, caches = _forward(params, x, positions, cfg, mode="prefill")
+        x, _, caches = _forward(params, x, positions, cfg, mode="prefill")
         logits = _masked_logits(params, x[:, -1:], cfg)
         return logits[:, 0], caches
 
@@ -379,8 +437,8 @@ class Model:
         if pos.dim() == 0:
             pos = pos.expand(b)
         positions = pos[:, None] + torch.arange(c, device=x.device)[None, :]
-        x, caches = _forward(params, x, positions, cfg, caches=caches,
-                             cache_pos=pos, mode="decode")
+        x, _, caches = _forward(params, x, positions, cfg, caches=caches,
+                                cache_pos=pos, mode="decode")
         logits = _masked_logits(params, x[:, -1:], cfg)
         return logits[:, 0], caches
 
@@ -400,8 +458,8 @@ class Model:
         pos = torch.as_tensor(pos, dtype=torch.long, device=x.device)
         if pos.dim() == 0:
             pos = pos.expand(b)
-        x, caches = _forward(params, x, pos[:, None], cfg, caches=caches,
-                             cache_pos=pos, active=active, mode="decode")
+        x, _, caches = _forward(params, x, pos[:, None], cfg, caches=caches,
+                                cache_pos=pos, active=active, mode="decode")
         logits = _masked_logits(params, x, cfg)
         return logits[:, 0], caches
 

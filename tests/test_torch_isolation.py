@@ -93,20 +93,64 @@ LIBRARY_CALLS = {"matmul", "mm", "mv", "dot", "bmm", "baddbmm", "einsum",
                  "scaled_dot_product_attention", "softmax"}
 
 
+#: matrix products a tensor offers as methods (``g.matmul(b)``)
+PRODUCT_METHODS = {"matmul", "mm", "bmm", "mv", "dot", "baddbmm", "addmm", "einsum"}
+
+
 @pytest.mark.parametrize("path", HOPPER_PATH,
                          ids=[str(p.relative_to(PKG)) for p in HOPPER_PATH])
 def test_hopper_path_calls_no_library_op(path):
     """The wrappers reach the card only through the hand-written kernels:
-    no torch.matmul/mv/dot/fft/sort/histc/… and no ``@`` on the hopper
-    path."""
+    no torch.matmul/mv/dot/fft/sort/histc/…, no matrix-product method of a
+    tensor and no ``@`` on the hopper path.  That covers the backward of
+    MMM's autograd Function (``matmul/ops.py``), whose dA and dB are two
+    more MMMs."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Attribute) and node.attr in LIBRARY_CALLS \
                 and isinstance(node.value, ast.Name) \
                 and node.value.id in ("torch", "F"):
             pytest.fail(f"{path.name}:{node.lineno} calls torch.{node.attr}")
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) \
+                and node.func.attr in PRODUCT_METHODS:
+            pytest.fail(f"{path.name}:{node.lineno} calls .{node.func.attr}()")
         if isinstance(node, ast.BinOp) and isinstance(node.op, ast.MatMult):
             pytest.fail(f"{path.name}:{node.lineno} uses @")
+
+
+def test_mmm_backward_reaches_the_kernel_through_mmm(monkeypatch):
+    """On CPU tensors the MMM wrapper's one way to a product is its plain
+    version: the forward and both backward products pass through it."""
+    from repro_torch.kernels.matmul import ops
+    calls = []
+    orig = ops.mmm_ref
+
+    def counted(a, b):
+        calls.append((tuple(a.shape), tuple(b.shape)))
+        return orig(a, b)
+    monkeypatch.setattr(ops, "mmm_ref", counted)
+    a = torch.randn(6, 5, requires_grad=True)
+    b = torch.randn(5, 3, requires_grad=True)
+    ops.mmm(a, b).sum().backward()
+    assert calls == [((6, 5), (5, 3)), ((6, 3), (3, 5)), ((5, 6), (6, 3))]
+
+
+@pytest.mark.parametrize("alias", ["MMM", "RMSNORM", "FLASH_ATTN"])
+def test_hopper_rows_keep_the_graph(alias):
+    """Called on tensors that require grad, the hopper row of each alias
+    on the training path returns an output with a ``grad_fn``; with grad
+    off it records none."""
+    from repro_torch.core.registry import KernelRegistry
+    from repro_torch.kernels import register_all
+    reg = KernelRegistry()
+    register_all(reg)
+    fn = next(r.fn for r in reg.records(alias) if r.platform == "hopper")
+    args = {"MMM": ((4, 8), (8, 3)), "RMSNORM": ((2, 4, 16), (16,)),
+            "FLASH_ATTN": ((1, 2, 5, 16), (1, 1, 5, 16), (1, 1, 5, 16))}[alias]
+    inputs = [torch.randn(s, requires_grad=True) for s in args]
+    assert fn(*inputs).grad_fn is not None
+    with torch.no_grad():
+        assert fn(*inputs).grad_fn is None
 
 
 #: C entry point of each source whose name differs from the source's

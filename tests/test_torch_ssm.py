@@ -206,12 +206,16 @@ def test_rows_are_torch_and_aten_only(registries, alias):
 
 
 def test_port_registers_twenty_of_the_references_aliases(registries):
-    """Twenty when SSD, SSD_DECODE and GQA_DECODE came; MOE_FFN makes 21.
-    The two training aliases wait for ROADMAP A8."""
+    """Twenty when SSD, SSD_DECODE and GQA_DECODE came; MOE_FFN made 21;
+    the training aliases LM_GRAD and ADAMW_STEP (ROADMAP A8) make all 23,
+    each on torch, aten and hopper rows."""
     treg, jreg = registries
-    missing = set(jreg.aliases()) - set(treg.aliases())
-    assert missing == {"LM_GRAD", "ADAMW_STEP"}
-    assert len(set(treg.aliases()) & set(jreg.aliases())) == 21
+    assert set(jreg.aliases()) - set(treg.aliases()) == set()
+    assert len(set(treg.aliases()) & set(jreg.aliases())) == 23
+    for alias in ("LM_GRAD", "ADAMW_STEP"):
+        rows = {r.platform: r.fn for r in treg.records(alias)}
+        assert set(rows) == {"torch", "aten", "hopper"}
+        assert len(set(rows.values())) == 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
