@@ -210,6 +210,28 @@ Phases (any failure exits non-zero before the result lines are printed):
    per replay, an empty quarantine, no re-scored placement in steady state
    and a compile-cache hit are checked; then each workload is timed three
    ways (serial, fresh capture + launch, compiled replay; median of 5).
+3e. Collectives (``phase3e``, run after 3c; its tensors are freed before
+   3d): the paper's collective Jacobi (``repro_torch.collective_jacobi``)
+   on ``halo.initialize()``'s card session, an n = 16384 float32 system
+   (A 1.07 GB), 30 sweeps, over two device groups (``COLLECTIVE``): (a)
+   four ranks on ``hopper``, (b) the heterogeneous ``hopper`` + ``aten``
+   pair; each run serial (one agent pinned to ``hopper``), with blocking
+   collective verbs (eager) and as one captured graph.  First MVM, VDP
+   and EW* against their plain versions at the shapes the path gives
+   them (the whole system, each group's row shards, the 0-d combines) on
+   this problem's data; serial hopper and serial aten within
+   ``COLLECTIVE_B_TOL`` of serial on the plain ``torch`` rows.  Launches
+   of mvm, vdp and ewise by the runs' structure; (a)'s iterate
+   bit-identical to serial hopper (its residual within rtol 1e-5: VDP's
+   partials bracket apart), graph bit-identical to eager in both groups
+   (iterate and residual), (b)'s iterate within ``COLLECTIVE_B_TOL`` of
+   serial hopper; every graph node placed, every allreduce combine on a
+   member of its group; the solve error ‖Ax − b‖/‖b‖ falling over 1, 2
+   and 3 sweeps and within ``COLLECTIVE_SOLVE_TOL`` after 30; an empty
+   quarantine.  T3 (median of 5 solves)
+   and Φ against serial hopper for serial hopper, serial aten and each
+   group's eager and graph runs, with each solve's device ms (torch.profiler)
+   and busy share.
 3d. Training (``phase3d``): (a) the gradients of the MMM, RMSNORM and
    FLASH_ATTN autograd Functions on the card against autograd of their
    plain versions on the card: MMM at danube's projections and unembed
@@ -563,6 +585,27 @@ CROSSOVER_SORT_N = (256, 1024, 4096, 4097, 8192)
 #: phase 3c: the graph workloads' sizes and the replays each is driven
 GRAPH = {"ew_n": 8192, "decode_d": 2560, "decode_layers": 24, "js_n": 8192,
          "js_sweeps": 30, "replays": 20}
+
+#: phase 3e, collectives: the paper's distributed Jacobi
+#: (repro_torch.collective_jacobi) on an n × n float32 system (A is 1.07 GB at
+#: n = 16384) over two device groups — four ranks on one substrate, and the
+#: heterogeneous pair; the solve error is also read after ``err_sweeps``
+#: serial sweeps to see it fall
+COLLECTIVE = {"n": 16384, "sweeps": 30, "seed": 5, "err_sweeps": (1, 2, 3),
+              "groups": {"a": ("hopper",) * 4, "b": ("hopper", "aten")}}
+#: group (b)'s iterate against serial hopper, and serial hopper and serial
+#: aten against serial on the plain torch rows, normwise: torch.mv and the
+#: plain MVM sum each row's 16384 products in other orders than mvm.cu's
+#: warp, so the rows differ by float32 rounding; the Jacobi map contracts
+#: (spectral radius ~1/sqrt(n)) and the iterates meet at the float32
+#: solution's noise (~1e-7, relative), so float32's TOL leaves 100x.  A
+#: kernel that dropped one term of each row would move the fixed point by
+#: ~1/n relative (6e-5), past it
+COLLECTIVE_B_TOL = 1e-5
+#: the relative solve error ‖Ax − b‖/‖b‖ (float64) after 30 sweeps: it read
+#: 4.116e-7 at float32's floor on the card; 2e-6 leaves 5x, and is 30x below
+#: the ~6e-5 a fixed point moved by a dropped term per row would leave
+COLLECTIVE_SOLVE_TOL = 2e-6
 
 #: phase 3d, training: h2o-danube-1.8b at full width and depth through
 #: repro_torch.launch.train (batch × seq_len tokens a step, SyntheticLM from
@@ -4041,6 +4084,210 @@ def phase3c(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: collectives
+# ---------------------------------------------------------------------------
+def combine_nodes(g):
+    """The allreduce combine nodes of a captured collective Jacobi: EWADD
+    nodes fed by VDP partials or by other combines (a sweep's EWADD is fed
+    by EWSUB and EWMM)."""
+    return [n for n in g.nodes if n.alias == "EWADD"
+            and all(p.alias in ("VDP", "EWADD") for p in n.parents)]
+
+
+def check_path_kernels(a, b, d, n, group_sizes) -> None:
+    """MVM, VDP and EW* on the card against their plain versions at the
+    shapes the collective path gives them, on this problem's data: the
+    whole system (serial), each group's first row shard, and the 0-d
+    partials the allreduce combines.  MVM normwise within ``TOL``, VDP
+    relative within ``VDP_TOL``, EW* bit-exact.  These launches fall
+    outside every counted run."""
+    from repro_torch.kernels.ewise.ewise import ewise_hopper
+    from repro_torch.kernels.ewise.ref import OP_REFS as EW_REFS
+    from repro_torch.kernels.mvm.mvm import mvm_hopper
+    from repro_torch.kernels.mvm.ref import mvm_ref
+    from repro_torch.kernels.vdp.ref import vdp_ref
+    from repro_torch.kernels.vdp.vdp import vdp_hopper
+
+    x = b / d                                # the first sweep's iterate
+    e = x - b.roll(1) / d                    # a nonzero sweep difference
+    f32 = torch.float32
+    for rows in sorted({n // size for size in group_sizes} | {n}, reverse=True):
+        sl = slice(0, rows)
+        check_close(f"MVM {rows}x{n} (collective path)",
+                    normwise(mvm_hopper(a[sl], x), mvm_ref(a[sl], x)), f32)
+        check_close(f"VDP n={rows} (collective path)",
+                    relative(vdp_hopper(e[sl], e[sl]), vdp_ref(e[sl], e[sl])),
+                    f32, VDP_TOL)
+        for op, ref in EW_REFS.items():
+            u, v = (b[sl], d[sl]) if op == "div" else (b[sl], x[sl])
+            check_bits(f"EW {op} n={rows} (collective path)", ewise_hopper(u, v, op),
+                       ref(u, v))
+    s, t = vdp_ref(e, e), vdp_ref(x, x)      # 0-d float32, as VDP gives them
+    for op, ref in EW_REFS.items():
+        check_bits(f"EW {op} 0-d (allreduce combine)", ewise_hopper(s, t, op), ref(s, t))
+
+
+def phase3e(dev, card):
+    """The paper's collective Jacobi on the card (``COLLECTIVE``): serial on
+    one agent, eager blocking verbs and one captured graph, over each
+    group; bit-identity, tolerance, placement and convergence checks, the
+    launches of mvm, vdp and ewise, T3 and Φ against serial hopper."""
+    from repro_torch import collective_jacobi as cj
+    from repro_torch import halo
+    from repro_torch.core.portability import portability_score
+    from repro_torch.kernels import _cuda
+
+    session = halo.initialize()              # device=None means the card
+    if session.device.type != "cuda":
+        fail(f"session runs on {session.device}, not the card")
+    n, sweeps = COLLECTIVE["n"], COLLECTIVE["sweeps"]
+    a, b, d = cj.problem(n, dev, COLLECTIVE["seed"])
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def counted(fn):
+        sync()
+        _cuda.reset_launch_counts()
+        out = fn()
+        sync()
+        got = {k: v for k, v in _cuda.launch_counts().items() if v}
+        return out, got
+
+    def per_sweep(ranks, combines=0):
+        return {"ewise": 5 * ranks * sweeps + combines, "mvm": ranks * sweeps,
+                "vdp": ranks * sweeps}
+
+    check_path_kernels(a, b, d, n, [len(g) for g in COLLECTIVE["groups"].values()])
+    launches = collections.Counter()
+    (x_ser, res_ser), got = counted(lambda: cj.serial_jacobi(a, b, d, sweeps, "hopper"))
+    launches.update(got)
+    print(f"  n = {n} float32 (A {a.numel() * 4 / 1e9:.3f} GB), {sweeps} sweeps; "
+          f"serial hopper launches {got}")
+    if got != per_sweep(1):
+        fail(f"serial hopper launches {got} != {per_sweep(1)}")
+    errs = [1.0]                             # x = 0: ‖b‖ / ‖b‖
+    for k in COLLECTIVE["err_sweeps"]:
+        xk, _ = cj.serial_jacobi(a, b, d, k, "hopper")
+        errs.append(cj.solve_error(a, b, xk))
+    errs.append(cj.solve_error(a, b, x_ser))
+    marks = (0,) + COLLECTIVE["err_sweeps"] + (sweeps,)
+    print("  relative solve error ‖Ax − b‖/‖b‖ (float64) after "
+          + ", ".join(f"{k}: {e:.3e}" for k, e in zip(marks, errs)))
+    # it falls ~sqrt(n)-fold a sweep down to float32's floor (~4e-7 here),
+    # where the last sweeps only move its noise
+    if not all(e1 < e0 for e0, e1 in zip(errs[:-1], errs[1:-1])):
+        fail(f"the solve error does not fall across the sweeps: {errs}")
+    if not errs[-1] <= COLLECTIVE_SOLVE_TOL:
+        fail(f"the solve error after {sweeps} sweeps is {errs[-1]:.3e}, past "
+             f"{COLLECTIVE_SOLVE_TOL:g}")
+    print(f"  the solve error falls, and ends within {COLLECTIVE_SOLVE_TOL:g}")
+    x_aten, _ = cj.serial_jacobi(a, b, d, sweeps, "aten")
+    x_plain, _ = cj.serial_jacobi(a, b, d, sweeps, "torch")
+    check_close("serial hopper against serial plain", normwise(x_ser, x_plain),
+                torch.float32, COLLECTIVE_B_TOL)
+    check_close("serial aten against serial plain", normwise(x_aten, x_plain),
+                torch.float32, COLLECTIVE_B_TOL)
+
+    stats = {"n": n, "sweeps": sweeps, "solve_error": dict(zip(marks, errs)),
+             "groups": {}}
+    runs = {}
+    for key, group in COLLECTIVE["groups"].items():
+        comm = halo.comm_split(list(group))
+        ranks_on_hopper = sum(p == "hopper" for p in group)
+        (x_e, res_e), got_e = counted(lambda: cj.collective_jacobi(comm, a, b, d, sweeps))
+        (g, x_g, res_g), got_g = counted(
+            lambda: cj.collective_jacobi_graph(comm, a, b, d, sweeps))
+        launches.update(got_e)
+        launches.update(got_g)
+        n_combines = (len(group) - 1) * sweeps
+        combines = collections.Counter(nd.platform for nd in combine_nodes(g))
+        unplaced = [nd.uid for nd in g.nodes if nd.platform is None]
+        err_e = cj.solve_error(a, b, x_e)
+        # the eager combines run in private graphs: those on hopper show only
+        # as ewise launches past the sweeps' own, between none and all
+        hopper_e = got_e.get("ewise", 0) - per_sweep(ranks_on_hopper)["ewise"]
+        print(f"  group ({key}) {list(group)}: launches eager {got_e}, graph {got_g}; "
+              f"graph {len(g.nodes)} nodes, combines on {dict(combines)} (eager: "
+              f"{hopper_e} on hopper by launches); residual eager {res_e:.6e}, "
+              f"graph {res_g:.6e}, serial {res_ser:.6e}; solve error {err_e:.3e}")
+        if not 0 <= hopper_e <= n_combines \
+                or got_e != per_sweep(ranks_on_hopper, hopper_e) \
+                or got_g != per_sweep(ranks_on_hopper, combines["hopper"]):
+            fail(f"group ({key}): launches eager {got_e}, graph {got_g} != "
+                 f"{per_sweep(ranks_on_hopper)} and one ewise a combine on hopper")
+        if unplaced:
+            fail(f"group ({key}): graph nodes {unplaced[:8]} were never placed")
+        if not set(combines) <= set(group) \
+                or sum(combines.values()) != n_combines:
+            fail(f"group ({key}): combines {dict(combines)}, expected "
+                 f"{n_combines} on the members {sorted(set(group))}")
+        if len(set(group)) == 1 and hopper_e != n_combines:
+            fail(f"group ({key}): {n_combines - hopper_e} eager combines left hopper")
+        if not (torch.equal(x_g, x_e) and res_g == res_e):
+            fail(f"group ({key}): graph differs from eager (residual {res_g} vs {res_e})")
+        if len(set(group)) == 1:
+            if not torch.equal(x_e, x_ser):
+                fail(f"group ({key}): collective iterate differs from serial hopper")
+            if abs(res_e - res_ser) > 1e-5 * abs(res_ser):
+                fail(f"group ({key}): residual {res_e} vs serial {res_ser} "
+                     f"past rtol 1e-5")
+            print(f"  group ({key}): iterate bit-identical to serial hopper, graph "
+                  f"bit-identical to eager; residual within rtol 1e-5 of serial")
+        else:
+            check_close(f"group ({key}) iterate against serial hopper",
+                        normwise(x_e, x_ser), torch.float32, COLLECTIVE_B_TOL)
+            check_close(f"group ({key}) iterate against serial plain",
+                        normwise(x_e, x_plain), torch.float32, COLLECTIVE_B_TOL)
+            print(f"  group ({key}): {normwise(x_e, x_aten):.3e} from serial aten; "
+                  f"graph bit-identical to eager")
+        stats["groups"][key] = {"platforms": list(group), "launches": got_e,
+                                "graph_nodes": len(g.nodes),
+                                "combine_platforms": dict(combines),
+                                "eager_combines_on_hopper": hopper_e,
+                                "residual": res_e, "solve_error": err_e}
+        runs[key] = comm
+        del g, x_g, x_e
+    quarantined = session.scheduler.failed_record_keys()
+    if quarantined:
+        fail(f"quarantine {quarantined}")
+    print(f"  launches in the phase (checked runs): {dict(launches)}")
+
+    def t3(fn):
+        walls = []
+        for _ in range(E2E_REPEATS):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            walls.append(time.perf_counter() - t0)
+        return sorted(walls)[len(walls) // 2] * 1e3
+
+    fns = {"serial hopper": lambda: cj.serial_jacobi(a, b, d, sweeps, "hopper"),
+           "serial aten": lambda: cj.serial_jacobi(a, b, d, sweeps, "aten")}
+    for key, comm in runs.items():
+        fns[f"eager ({key})"] = functools.partial(cj.collective_jacobi, comm, a, b, d, sweeps)
+        fns[f"graph ({key})"] = functools.partial(cj.collective_jacobi_graph, comm,
+                                                  a, b, d, sweeps)
+    rows = {name: t3(fn) for name, fn in fns.items()}
+    busy = {name: device_ms_per_call(fn, 3, dev) for name, fn in fns.items()}
+    base = rows["serial hopper"]
+    print(f"  T3 on {card} (median of {E2E_REPEATS}, ms per {sweeps}-sweep solve, "
+          f"Φ = serial hopper / T3; device ms of a solve by torch.profiler, busy "
+          f"= device / T3):")
+    for name, ms in rows.items():
+        print(f"    {name}: T3 {ms:.3f} ms, Φ {portability_score(base, ms):.4f}, "
+              f"device {busy[name]:.3f} ms, busy {busy[name] / ms:.3f}")
+    stats["t3_ms"] = rows
+    stats["device_ms"] = busy
+    stats["phase_launches"] = dict(launches)
+    del a, b, d, x_ser, x_aten, x_plain, runs, fns
+    halo.finalize()
+    torch.cuda.empty_cache()
+    return dict(launches), stats
+
+
+# ---------------------------------------------------------------------------
 # phase 3d: training
 # ---------------------------------------------------------------------------
 def leaf_names(tree, prefix: str = "params") -> list:
@@ -5391,6 +5638,12 @@ def main() -> None:
     graph_launches, graph_stats = phase3c(dev, card)
     seconds["3c graphs"] = time.perf_counter() - t0
     print(json.dumps({"graphs": graph_stats}))
+    print(f"phase 3e: collectives — the collective Jacobi at n = {COLLECTIVE['n']} "
+          f"over device groups on {card}")
+    t0 = time.perf_counter()
+    _, collective_stats = phase3e(dev, card)
+    seconds["3e collectives"] = time.perf_counter() - t0
+    print(json.dumps({"collectives": collective_stats}))
     print(f"phase 3d: training {TRAIN['arch']} at full width and depth on the kernels")
     t0 = time.perf_counter()
     path_launches["train"], train_stats = phase3d(dev)

@@ -23,6 +23,8 @@ direct select-and-call, and ``claim/send/recv/send_fwd``, the C2MPI DRPC
 surface with child ranks, tagged FIFO mailboxes, stateful internal buffers
 and fail-safe re-placement.  Inside a ``halo_graph()`` capture region
 (DESIGN.md §8) ``dispatch`` and ``isend`` record graph nodes instead.
+:meth:`RuntimeAgent.comm_split` makes device groups over the agents
+(``core/collective.py``, DESIGN.md §10).
 """
 from __future__ import annotations
 
@@ -457,6 +459,7 @@ class RuntimeAgent:
         self.scheduler = scheduler or None
         self._cr_counter = 0
         self._crs: Dict[int, ChildRank] = {}
+        self._comms: List[Any] = []                  # live HaloComm handles
         self._buffer_table: Dict[int, Any] = {}      # BufferHandle.uid -> tensor
         self._lock = threading.RLock()
         self.finalized = False
@@ -542,11 +545,16 @@ class RuntimeAgent:
             w.cancel()
 
     def finalize(self) -> None:
-        """MPIX_Finalize: free all outstanding resources and stop workers."""
+        """MPIX_Finalize: free all outstanding resources (child ranks, their
+        buffers, device groups) and stop workers."""
         with self._lock:
             crs = list(self._crs.values())
         for cr in crs:
             self.free(cr)
+        with self._lock:
+            comms, self._comms = self._comms, []
+        for comm in comms:
+            comm.free()
         for agent in list(self.agents.values()):
             agent.shutdown(cancel_pending=True, wait=True)
         with self._lock:
@@ -559,6 +567,20 @@ class RuntimeAgent:
     def _check_live(self):
         if self.finalized:
             raise RuntimeError("runtime agent already finalized")
+
+    def comm_split(self, platforms: Optional[Sequence[str]] = None,
+                   name: Optional[str] = None):
+        """MPIX_CommSplit: create a device group (:class:`~repro_torch.core.
+        collective.HaloComm`) over this session's virtualization agents
+        (DESIGN.md §10).  ``platforms`` lists the member substrates in rank
+        order; the default spans every available accelerator substrate.
+        The handle is tracked so :meth:`finalize` frees it."""
+        self._check_live()
+        from .collective import comm_split
+        comm = comm_split(self, platforms, name=name)
+        with self._lock:
+            self._comms.append(comm)
+        return comm
 
     # -- selection + execution --------------------------------------------------
     def _select(self, alias: str, args: Tuple,

@@ -13,7 +13,9 @@ session, so host applications read exactly like the paper's template:
 Non-blocking variants return :class:`HaloFuture` request handles
 (DESIGN.md §4), mirroring MPI's ``MPI_Isend``/``MPI_Irecv``/``MPI_Wait``;
 ``MPIX_GraphBegin``/``MPIX_GraphEnd`` capture them into an execution graph
-(DESIGN.md §8).  The collective verbs of the reference are not ported yet.
+(DESIGN.md §8).  ``MPIX_CommSplit`` makes a device group over the session's
+agents and the collective verbs (``MPIX_Bcast`` … ``MPIX_IAllreduce``) run
+on it (DESIGN.md §10).
 """
 from __future__ import annotations
 
@@ -27,9 +29,13 @@ from .manifest import Manifest, default_manifest
 from .registry import GLOBAL_REGISTRY, KernelRegistry
 
 __all__ = [
-    "MPIX_Claim", "MPIX_CreateBuffer", "MPIX_Finalize", "MPIX_Free",
-    "MPIX_GraphBegin", "MPIX_GraphEnd", "MPIX_Initialize", "MPIX_IRecv",
-    "MPIX_ISend", "MPIX_Recv", "MPIX_Send", "MPIX_SendFwd", "MPIX_Test", "MPIX_Wait", "MPIX_Waitall",
+    "MPIX_Allgather", "MPIX_Allreduce", "MPIX_Bcast", "MPIX_Claim",
+    "MPIX_CommFree", "MPIX_CommSplit", "MPIX_CreateBuffer", "MPIX_Finalize",
+    "MPIX_Free", "MPIX_Gather", "MPIX_GraphBegin", "MPIX_GraphEnd",
+    "MPIX_IAllgather", "MPIX_IAllreduce", "MPIX_IBcast", "MPIX_IGather",
+    "MPIX_IRecv", "MPIX_IReduce", "MPIX_IScatter", "MPIX_ISend",
+    "MPIX_Initialize", "MPIX_Recv", "MPIX_Reduce", "MPIX_Scatter",
+    "MPIX_Send", "MPIX_SendFwd", "MPIX_Test", "MPIX_Wait", "MPIX_Waitall",
     "halo_dispatch", "halo_session",
 ]
 
@@ -216,3 +222,99 @@ def MPIX_GraphEnd(launch: bool = True) -> "ExecutionGraph":
     future (``MPIX_Wait(node)``)."""
     from .graph import end_capture
     return end_capture(launch=launch)
+
+
+# ---------------------------------------------------------------------------
+# Collective verbs over device groups (DESIGN.md §10)
+# ---------------------------------------------------------------------------
+def MPIX_CommSplit(platforms: Optional[Sequence[str]] = None,
+                   name: Optional[str] = None) -> "HaloComm":
+    """Create a device group over the session's virtualization agents.
+
+    ``platforms`` is the member-substrate list in rank order (e.g.
+    ``["hopper", "aten"]``; a substrate may hold several ranks); the default
+    spans every available accelerator substrate.  Collectives on the
+    returned :class:`~repro_torch.core.collective.HaloComm` run on the
+    member agents' worker queues and are graph-capturable like any other
+    C²MPI call."""
+    return halo_session().comm_split(platforms, name=name)
+
+
+def MPIX_CommFree(comm: "HaloComm") -> None:
+    """Release a device-group handle (in-flight collectives complete)."""
+    comm.free()
+
+
+def MPIX_Bcast(x, comm: "HaloComm", root: int = 0) -> List[Any]:
+    """Blocking broadcast: stage ``x`` onto every member agent; returns the
+    per-rank device-ready copies."""
+    return comm.bcast(x, root=root)
+
+
+def MPIX_IBcast(x, comm: "HaloComm", root: int = 0) -> List[HaloFuture]:
+    """Non-blocking :func:`MPIX_Bcast`: per-rank request handles."""
+    return comm.ibcast(x, root=root)
+
+
+def MPIX_Scatter(x, comm: "HaloComm", root: int = 0,
+                 axis: int = 0) -> List[Any]:
+    """Blocking scatter: split ``x`` into ``comm.size`` equal shards along
+    ``axis`` and stage shard *r* on member *r*."""
+    return comm.scatter(x, root=root, axis=axis)
+
+
+def MPIX_IScatter(x, comm: "HaloComm", root: int = 0,
+                  axis: int = 0) -> List[HaloFuture]:
+    """Non-blocking :func:`MPIX_Scatter`: per-rank request handles."""
+    return comm.iscatter(x, root=root, axis=axis)
+
+
+def MPIX_Gather(shards: Sequence[Any], comm: "HaloComm",
+                root: int = 0):
+    """Blocking gather: concatenate the per-rank shards (axis 0; 0-d shards
+    stack) at member ``root``."""
+    return comm.gather(shards, root=root)
+
+
+def MPIX_IGather(shards: Sequence[Any], comm: "HaloComm",
+                 root: int = 0) -> HaloFuture:
+    """Non-blocking :func:`MPIX_Gather`: request handle for the result."""
+    return comm.igather(shards, root=root)
+
+
+def MPIX_Allgather(shards: Sequence[Any], comm: "HaloComm") -> List[Any]:
+    """Blocking allgather: every member receives the concatenation."""
+    return comm.allgather(shards)
+
+
+def MPIX_IAllgather(shards: Sequence[Any],
+                    comm: "HaloComm") -> List[HaloFuture]:
+    """Non-blocking :func:`MPIX_Allgather`: per-rank request handles."""
+    return comm.iallgather(shards)
+
+
+def MPIX_Reduce(shards: Sequence[Any], comm: "HaloComm", op: str = "sum",
+                root: int = 0):
+    """Blocking reduce: combine the per-rank shards through the registry's
+    kernel for ``op`` (``sum``→EWADD, ``prod``→EWMM, or any registered
+    binary alias) in a pairwise tree placed on the fastest member."""
+    return comm.reduce(shards, op=op, root=root)
+
+
+def MPIX_IReduce(shards: Sequence[Any], comm: "HaloComm", op: str = "sum",
+                 root: int = 0) -> HaloFuture:
+    """Non-blocking :func:`MPIX_Reduce`: request handle for the result."""
+    return comm.ireduce(shards, op=op, root=root)
+
+
+def MPIX_Allreduce(shards: Sequence[Any], comm: "HaloComm",
+                   op: str = "sum") -> List[Any]:
+    """Blocking allreduce: reduce then broadcast — every member receives
+    the identical combined value (the Jacobi residual-check pattern)."""
+    return comm.allreduce(shards, op=op)
+
+
+def MPIX_IAllreduce(shards: Sequence[Any], comm: "HaloComm",
+                    op: str = "sum") -> List[HaloFuture]:
+    """Non-blocking :func:`MPIX_Allreduce`: per-rank request handles."""
+    return comm.iallreduce(shards, op=op)

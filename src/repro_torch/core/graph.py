@@ -209,6 +209,28 @@ class ExecutionGraph:
         self._wire(node)
         return node
 
+    def add_dependency(self, parent: GraphNode, child: GraphNode) -> None:
+        """Explicit hazard edge: ``child`` starts only after ``parent``
+        completes, with no data flowing between them.  The collective layer
+        serializes successive collectives on one
+        :class:`~repro_torch.core.collective.HaloComm` this way (MPI call
+        order); host code whose captured calls share a resource the payload
+        scan cannot see may use it too.  Duplicate and self edges are
+        ignored."""
+        if self._launched:
+            raise GraphError("graph already launched; begin a new capture")
+        if parent is child or any(p is parent for p in child.parents):
+            return
+        child.parents.append(parent)
+        parent.children.append(child)
+
+    def owns(self, node: GraphNode) -> bool:
+        """True when ``node`` was recorded in this graph (identity).  The
+        collective layer rejects hazard-edge sources from a dead capture
+        whose ``id()`` was recycled: a parent outside this graph never
+        decrements its child and would hang it."""
+        return id(node) in self._ids
+
     def _wire(self, node: GraphNode) -> None:
         if self._launched:
             raise GraphError("graph already launched; begin a new capture")

@@ -16,8 +16,10 @@ An estimate is the measured EMA, else the record's analytic
 with no estimate are left to the static selection order.  A record whose
 execution raised is quarantined (:meth:`mark_failed`) until
 :meth:`clear_failures`; :attr:`epoch` moves with every change of the
-quarantined set.  :meth:`place` scores graph nodes (DESIGN.md §8).  The
-reference's TuningDB rung is not ported yet.
+quarantined set.  :meth:`place` scores graph nodes (DESIGN.md §8) and
+:meth:`rank_platforms` orders a device group's members for its combines
+(§10).  The reference's TuningDB rung and ``backup_candidate`` are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -268,6 +270,30 @@ class CostModelScheduler:
             if best is None or score < best[0]:
                 best = (score, i)
         return candidates[best[1]]
+
+    def rank_platforms(self, alias: str, candidates: Sequence[KernelRecord],
+                       args: Sequence[Any]) -> List[str]:
+        """Group-aware platform ranking for collective combines (DESIGN.md
+        §10): the candidates' platforms fastest-first by estimated latency,
+        so a device group can seed a reduce node's ``platform_preference``
+        with the member most likely to finish first.  Platforms without any
+        estimate keep their given order behind every estimated one;
+        quarantined records are skipped."""
+        sig = abstract_signature(args)
+        best: Dict[str, float] = {}        # platform -> cheapest estimate
+        order: List[str] = []              # platforms in candidate order
+        for rec in candidates:
+            if self.is_failed(rec):
+                continue
+            if rec.platform not in order:
+                order.append(rec.platform)
+            est = self.estimate(rec, sig, args)
+            if est is None:
+                continue
+            if est < best.get(rec.platform, float("inf")):
+                best[rec.platform] = est
+        scored = sorted((p for p in order if p in best), key=best.__getitem__)
+        return scored + [p for p in order if p not in best]
 
     # -- persistence ---------------------------------------------------------
     def load(self, path: os.PathLike) -> None:

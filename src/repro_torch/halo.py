@@ -16,26 +16,37 @@ short names as ``repro.halo``::
         u = halo.isend((t, b), halo.claim("EWADD"))
     cg = g.compile()                       # fuse + plan (§12)
     out, = cg.replay()
+    comm = halo.comm_split(["hopper", "aten"])   # device group (§10)
+    parts = halo.scatter(x, comm)                # collective verbs
+    total = halo.allreduce(comm.map("VDP", [(p, p) for p in parts]), comm)
     state, history = halo.train("h2o-danube-1.8b", steps=20, reduced=True)
     halo.finalize()
 
-Each name re-exports the object :mod:`repro_torch.core.c2mpi` defines;
-``train`` is a thin wrapper over the Trainer.
+Each name re-exports the object :mod:`repro_torch.core.c2mpi` or
+:mod:`repro_torch.core.collective` defines; ``train`` is a thin wrapper
+over the Trainer.
 """
 from __future__ import annotations
 
 from typing import Any, Optional, Tuple
 
 from .core.agents import HaloFuture
-from .core.c2mpi import (MPIX_Claim as claim,
+from .core.c2mpi import (MPIX_Allgather as allgather,
+                         MPIX_Allreduce as allreduce, MPIX_Bcast as bcast,
+                         MPIX_Claim as claim, MPIX_CommSplit as comm_split,
                          MPIX_CreateBuffer as create_buffer,
                          MPIX_Finalize as finalize, MPIX_Free as free,
-                         MPIX_Initialize as initialize, MPIX_IRecv as irecv,
-                         MPIX_ISend as isend, MPIX_Recv as recv,
-                         MPIX_Send as send, MPIX_SendFwd as send_fwd,
-                         MPIX_Test as test, MPIX_Wait as wait,
-                         MPIX_Waitall as waitall, halo_dispatch as dispatch,
-                         halo_session as session)
+                         MPIX_Gather as gather, MPIX_IAllgather as iallgather,
+                         MPIX_IAllreduce as iallreduce, MPIX_IBcast as ibcast,
+                         MPIX_IGather as igather, MPIX_Initialize as initialize,
+                         MPIX_IRecv as irecv, MPIX_IReduce as ireduce,
+                         MPIX_IScatter as iscatter, MPIX_ISend as isend,
+                         MPIX_Recv as recv, MPIX_Reduce as reduce,
+                         MPIX_Scatter as scatter, MPIX_Send as send,
+                         MPIX_SendFwd as send_fwd, MPIX_Test as test,
+                         MPIX_Wait as wait, MPIX_Waitall as waitall,
+                         halo_dispatch as dispatch, halo_session as session)
+from .core.collective import HaloComm
 from .core.fusion import CompiledGraph, compile_graph
 from .core.graph import ExecutionGraph
 from .core.graph import halo_graph as graph
@@ -44,6 +55,10 @@ __all__ = [
     "initialize", "finalize", "session", "dispatch", "claim", "send",
     "recv", "isend", "irecv", "wait", "waitall", "test", "send_fwd",
     "create_buffer", "free", "HaloFuture",
+    # device groups + collective verbs (§10)
+    "HaloComm", "comm_split", "bcast", "ibcast", "scatter", "iscatter",
+    "gather", "igather", "allgather", "iallgather", "reduce", "ireduce",
+    "allreduce", "iallreduce",
     # graph capture / compiled replay (§8, §12)
     "graph", "compile_graph", "ExecutionGraph", "CompiledGraph",
     # training (§15)
@@ -57,8 +72,8 @@ def train(arch: str, *, steps: int = 20, seq_len: int = 128, batch: int = 8,
           log_every: int = 10) -> Tuple[Any, list]:
     """One-call LM training on synthetic data on the session's device,
     single-agent.  Returns ``(TrainState, [(step, loss), ...])``.  The
-    reference's data-parallel mode (``comm``) needs the collectives and
-    raises: ROADMAP A10."""
+    reference's data-parallel mode (``comm``) is A10's data-parallel half
+    and raises: ROADMAP A10b."""
     import torch
 
     from .configs import get_config

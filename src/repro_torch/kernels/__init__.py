@@ -28,14 +28,6 @@ _HOPPER_ATTRS = dict(vid="nvidia", pid="h100")
 _ANY_ATTRS = dict(vid="*", pid="*")
 
 
-def _ewise_ok(supported):
-    """EW* hopper feasibility: 0-d operands (e.g. scalar residual reduces)
-    go to the aten/torch rows, as in the reference."""
-    def ok(*args, **kw) -> bool:
-        return all(getattr(a, "ndim", 0) >= 1 for a in args) and supported(*args)
-    return ok
-
-
 def _rec(alias, fn, platform, prio, *, failsafe=False, supports=None, doc=""):
     hw = _HOPPER_ATTRS if platform == "hopper" else _ANY_ATTRS
     return KernelRecord(
@@ -86,14 +78,15 @@ def register_all(registry=None) -> None:
     from .vdp.ops import vdp_supported
     from .vdp.ref import vdp_aten
 
-    ew_ok = _ewise_ok(ewise_supported)
     table = [
         # (alias, ref_fn, aten_fn, hopper_fn, hopper feasibility)
         ("MMM", mmm_ref, mmm_aten, mmm, mmm_supported),
-        ("EWMM", ewmm_ref, ewmm_aten, ewmm, ew_ok),
-        ("EWMD", ewmd_ref, ewmd_aten, ewmd, ew_ok),
-        ("EWADD", ewadd_ref, ewadd_aten, ewadd, ew_ok),
-        ("EWSUB", ewsub_ref, ewsub_aten, ewsub, ew_ok),
+        # unlike the reference's tiled Pallas rows, csrc/ewise.cu takes 0-d
+        # operands (one element), so scalar residual reduces stay on hopper
+        ("EWMM", ewmm_ref, ewmm_aten, ewmm, ewise_supported),
+        ("EWMD", ewmd_ref, ewmd_aten, ewmd, ewise_supported),
+        ("EWADD", ewadd_ref, ewadd_aten, ewadd, ewise_supported),
+        ("EWSUB", ewsub_ref, ewsub_aten, ewsub, ewise_supported),
         ("MVM", mvm_ref, mvm_aten, mvm, mvm_supported),
         ("VDP", vdp_ref, vdp_aten, vdp, vdp_supported),
         ("JS", jacobi_step_ref, jacobi_step_aten, jacobi_step, jacobi_supported),
@@ -146,7 +139,7 @@ def register_all(registry=None) -> None:
     registry.register(_rec("CONCAT", concat_ref, "hopper", 20))
 
     # Training-step builtins (DESIGN.md §15): the forward/backward and the
-    # optimizer update as aliases, so device-group members (ROADMAP A10)
+    # optimizer update as aliases, so device-group members (ROADMAP A10b)
     # can dispatch them.  Every platform row shares ONE callable, as in the
     # reference; the callables run the model's own dispatches (MMM, RMSNORM,
     # FLASH_ATTN) in the caller's thread, so autograd sees them.

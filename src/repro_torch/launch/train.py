@@ -7,7 +7,7 @@ default, which needs an H100) or, with ``--device cpu``, on their plain
 versions; checkpoints, heartbeat and the straggler policy as in the
 reference; a resumed run goes on after the checkpointed step.  The
 data-parallel mode (``--comm N``) and the meshes
-(``--mesh``) need the collectives and raise: ROADMAP A10.
+(``--mesh``) are A10's data-parallel half and raise: ROADMAP A10b.
 """
 from __future__ import annotations
 
@@ -37,13 +37,13 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--comm", type=int, default=0, metavar="N",
                     help="train data-parallel over an N-member device group "
-                         "(needs the collectives: ROADMAP A10)")
+                         "(A10's data-parallel half, not ported: ROADMAP A10b)")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--heartbeat", default=None)
     ap.add_argument("--mesh", choices=["none", "debug", "single", "multi"],
-                    default="none", help="a device mesh other than none needs "
-                    "the collectives: ROADMAP A10")
+                    default="none", help="a device mesh other than none is "
+                    "A10's data-parallel half, not ported: ROADMAP A10b")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (an H100; raises without one) or cpu")
@@ -51,8 +51,9 @@ def main(argv=None):
     if args.comm:
         raise ValueError(f"--comm {args.comm}: {COMM_REFUSAL}")
     if args.mesh != "none":
-        raise ValueError(f"--mesh {args.mesh}: a device mesh needs the "
-                         f"collectives, which the port has not yet: ROADMAP A10")
+        raise ValueError(f"--mesh {args.mesh}: a device mesh comes with A10's "
+                         f"data-parallel half, which the port has not yet: "
+                         f"ROADMAP A10b")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")

@@ -14,8 +14,8 @@ Shared (always-on) experts run beside the routed ones as a plain dense
 FFN through MMM.  The router aux loss is Switch-style load balancing.
 
 Not ported yet: the expert-parallel paths (``moe_expert_parallel`` over a
-device group, the ``shard_map`` bodies and the int8 all_to_all), which
-need the collectives (ROADMAP A10).
+device group, the ``shard_map`` bodies and the int8 all_to_all): expert
+sharding, still to port on top of the collectives (ROADMAP A10c).
 """
 from __future__ import annotations
 
@@ -31,8 +31,8 @@ from .layers import act_fn, dense
 
 Params = Dict[str, torch.Tensor]
 
-_EP = ("expert-parallel MoE (device groups, all_to_all dispatch) needs the "
-       "collectives (ROADMAP A10)")
+_EP = ("expert-parallel MoE (device groups, all_to_all dispatch) is expert "
+       "sharding, which the port has not yet (ROADMAP A10c)")
 
 
 def moe_param_specs(d_model: int, m: MoEConfig, dtype) -> Dict[str, ParamSpec]:
@@ -156,7 +156,7 @@ def moe_layer(p: Params, x: torch.Tensor, m: MoEConfig, act: str
 
 
 # ---------------------------------------------------------------------------
-# Distributed paths (ROADMAP A10)
+# Distributed paths (ROADMAP A10c)
 # ---------------------------------------------------------------------------
 def moe_expert_parallel(p, x, m, act, comm):
     """Expert-parallel MoE over a C²MPI device group: not ported yet."""

@@ -47,7 +47,9 @@ def adamw_update(params: PyTree, grads: PyTree, state: AdamWState, *,
         flat_g = tree_leaves(grads)
         if clip_norm is not None:
             scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-            flat_g = [g * scale for g in flat_g]
+            # bfloat16 × a float32 scale is float32 in the reference (JAX
+            # promotes); torch would keep bfloat16 beside a 0-d tensor
+            flat_g = [g.to(torch.float32) * scale for g in flat_g]
         step = state.step + 1
         b1c = 1.0 - b1 ** step.to(torch.float32)
         b2c = 1.0 - b2 ** step.to(torch.float32)

@@ -20,9 +20,9 @@ reference's three rows do.  Parameters travel as a flat float32 vector in
 ``jax.tree``'s leaf order (bfloat16 → float32 → bfloat16 is lossless),
 unflattened from the arch's cached template.  ``arch`` is a config id
 resolved by :func:`repro_torch.configs.get_config`; in-process custom
-configs register with :func:`register_arch`.  The reduce tree and the
-members that would consume these vectors come with the collectives
-(ROADMAP A10).
+configs register with :func:`register_arch`.  The device-group members
+that would consume these vectors come with data-parallel training
+(ROADMAP A10b).
 """
 from __future__ import annotations
 

@@ -10,7 +10,8 @@ It runs eagerly on the session's device, one device.
 
 The reference's data-parallel mode (``comm=``: LM_GRAD per member, an
 EWADD reduce tree, ``iallreduce``, one ADAMW_STEP, replayed as a compiled
-graph) needs the collectives; ``comm=`` raises until ROADMAP A10 lands.
+graph) is A10's data-parallel half; ``comm=`` raises until ROADMAP A10b
+lands (the collectives it runs on are ported).
 """
 from __future__ import annotations
 
@@ -33,9 +34,10 @@ from .fault_tolerance import HeartbeatJournal, StragglerPolicy
 log = logging.getLogger("repro_torch.train")
 PyTree = Any
 
-#: the refusal of the data-parallel mode, which needs the collectives
-COMM_REFUSAL = ("data-parallel training over a device group (comm=) needs the "
-                "collectives, which the port has not yet: ROADMAP A10")
+#: the refusal of the data-parallel mode, A10's half still to port
+COMM_REFUSAL = ("data-parallel training over a device group (comm=) is A10's "
+                "data-parallel half, which the port has not yet (its "
+                "collectives are ported): ROADMAP A10b")
 
 
 @dataclasses.dataclass
@@ -136,7 +138,7 @@ class Trainer:
 
     ``straggler`` (when set) observes every step's wall time; straggler
     events are logged with the policy's recommendation.  ``comm`` (the
-    reference's data-parallel mode) raises: ROADMAP A10."""
+    reference's data-parallel mode) raises: ROADMAP A10b."""
     model: Model
     hp: TrainHyper
     ckpt: Optional[CheckpointManager] = None

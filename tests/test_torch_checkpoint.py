@@ -4,8 +4,8 @@ the reference's round trip, GC, corrupt skip, atomic write and async save,
 with a bfloat16 leaf kept bit for bit through its uint16 file, leaf files
 in ``jax.tree``'s order, a TrainState restored onto its own structure, and
 the launcher going on after the checkpointed step (the reference's replays
-it: pinned).  The elastic reshard across meshes waits for the collectives
-(ROADMAP A10).
+it: pinned).  The elastic reshard across meshes waits for data-parallel
+training (ROADMAP A10b).
 """
 import json
 import threading

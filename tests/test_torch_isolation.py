@@ -55,6 +55,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import repro_torch.launch.serve, repro_torch.serve.engine\n"
         "import repro_torch.core.graph, repro_torch.core.fusion\n"
         "import repro_torch.kernels.fused, repro_torch.graph_pipeline\n"
+        "import repro_torch.core.collective, repro_torch.collective_jacobi\n"
+        "import repro_torch.distributed.sharding\n"
         "import repro_torch.kernels as k\n"
         "from repro_torch.core.compute_object import to_numpy\n"
         "k.register_all()\n"

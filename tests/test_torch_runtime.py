@@ -78,9 +78,16 @@ def test_registry_ranks_hopper_over_aten_over_torch(registry, alias):
 
 @pytest.mark.parametrize("alias", ["EWMM", "EWMD", "EWADD", "EWSUB"])
 def test_ewise_zero_d_operands_go_to_lower_rows(registry, alias):
-    s = torch.tensor(2.0)
-    assert registry.select(alias, s, s).platform == "aten"
-    assert registry.select(alias, s, s, allowed_platforms=["hopper", "torch"]
+    """csrc/ewise.cu takes 0-d operands (one element), so the hopper row
+    does, unlike the reference's Pallas rows; without it they go to the
+    lower rows in order."""
+    s, t = torch.tensor(2.0), torch.tensor(3.0)
+    hop = registry.select(alias, s, t)
+    assert hop.platform == "hopper"
+    assert torch.equal(hop.fn(s, t), registry.failsafe(alias).fn(s, t))
+    assert registry.select(alias, s, t, allowed_platforms=["aten", "torch"]
+                           ).platform == "aten"
+    assert registry.select(alias, s, t, allowed_platforms=["torch"]
                            ).platform == "torch"
 
 

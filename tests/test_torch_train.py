@@ -308,6 +308,36 @@ def test_adamw_and_global_norm_match_jax():
             _close(got, want)
 
 
+def test_adamw_clips_a_bfloat16_leaf_in_float32_as_jax_does():
+    """A clipped bfloat16 gradient reaches the moments unrounded: JAX's
+    ``g * scale`` promotes bfloat16 × a float32 array to float32, so the
+    port casts each leaf before the clip scale.  One 64×64 bfloat16 leaf,
+    gradients N(0, 3²) (global norm ~190, so clip_norm 1.0 scales them), 5
+    steps, the same numpy arrays to both packages.  Moments within 1e-5 of
+    their largest value (the global norm's sum order; rounding the clipped
+    gradient to bfloat16 is ~2e-3), parameters at most one bfloat16 ulp
+    apart."""
+    rng = np.random.default_rng(23)
+    params = {"w": rng.standard_normal((64, 64)).astype(jnp.bfloat16)}
+    jp, tp = jax.tree.map(jnp.asarray, params), from_numpy(params)
+    jst, tst = j_adamw.adamw_init(jp), t_adamw.adamw_init(tp)
+    for _ in range(5):
+        grads = {"w": (rng.standard_normal((64, 64)) * 3.0).astype(jnp.bfloat16)}
+        jp, jst, _ = j_adamw.adamw_update(jp, jax.tree.map(jnp.asarray, grads), jst,
+                                          lr=3e-3, clip_norm=1.0)
+        tp, tst, _ = t_adamw.adamw_update(tp, from_numpy(grads), tst,
+                                          lr=3e-3, clip_norm=1.0)
+        for part in ("mu", "nu"):
+            got = _f64(getattr(tst, part)["w"])
+            want = _f64(getattr(jst, part)["w"])
+            assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max(), part
+        got = _f64(tp["w"])
+        want = _f64(jp["w"])
+        # one bfloat16 ulp at |want|: 2^(exponent - 7)
+        ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+        assert np.all(np.abs(got - want) <= ulp)
+
+
 def test_global_norm():
     t = {"a": torch.ones(4) * 3.0, "b": torch.ones(9) * 4.0}
     assert float(t_adamw.global_norm(t)) == pytest.approx((4 * 9 + 9 * 16) ** 0.5)
