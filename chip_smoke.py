@@ -250,7 +250,31 @@ Phases (any failure exits non-zero before the result lines are printed):
    ``TRAIN_GNORM_TOL``, every gradient leaf at cosine ≥ ``TRAIN_COS_MIN``;
    (d) LM_GRAD and ADAMW_STEP through ``halo_dispatch`` on danube cut to 4
    layers against ``make_train_step`` (the same tolerances, the update's
-   cosine, launches by structure).
+   cosine, launches by structure).  The structure counts EMBED_GRAD, the
+   embedding's backward, once a step.
+3f. Data-parallel training (``phase3f``, after 3d): danube at full width
+   cut to ``TRAIN_COMM["layers"]`` layers (the reckoning of a step's flat
+   float32 vectors at full depth is printed beside the measured peak),
+   phase 3d's 4 × 512 tokens in 4 microbatches, through ``Trainer(comm=,
+   arch=)`` on ``halo.initialize()``'s card session: (a) LM_GRAD twice on
+   one microbatch bit-identical, EMBED_GRAD at a step's 2048 × 2560
+   bfloat16 gradient bit-identical to its plain version and to itself, and
+   the number of elements in which two calls of the gather's own atomic
+   backward differ (printed); (b) groups ``["hopper"]``, ``["hopper"] * 2``,
+   ``["hopper"] * 4`` and ``["hopper", "aten", "hopper", "torch"]`` from the
+   same weights, 3 steps each: loss histories and final flat params, mu and
+   nu ``torch.equal``; per step the loss, lr, grad norm, host ms, device ms
+   (torch.profiler) and busy share, and the launches, which must follow
+   ``comm_structure`` (LM_GRAD's per microbatch on every member; on the
+   hopper-only groups the EWADD combines on the ewise kernel, the
+   one-member group's last one fused with its COPY); (c) ``["hopper",
+   "aten"]`` whose aten member dies (``on_member_dead``) before step 2: the
+   epoch moves, the trainer recaptures once, and its 4-step history equals
+   one member's bit for bit; (d) step 1 against ``Trainer.run`` on one
+   device with 4 microbatches, same weights and batch (phase 3d's loss and
+   grad-norm tolerances, the parameter updates' cosine); (e) a second
+   2-step run over ``["hopper"] * 2`` replays the cached compiled graph
+   (one more cache hit, no new graph) with the same history.
 4. Times at the phase-3 shapes: the median of 20 CUDA-event-timed calls of
    the kernel, its plain version and one library call, beside the least
    time the card could take (``bound_ms``).  RMSNORM and FLASH_ATTN, at the
@@ -296,7 +320,10 @@ Phases (any failure exits non-zero before the result lines are printed):
    on 4 KV heads with window 1024 in bfloat16, and deepseek-v2's MLA
    prefill 1x128x2048x192 (padded to 256; its bound at the real dim), by
    device time beside SDPA, the plain version and its bound at the
-   bfloat16 tensor-core rate.
+   bfloat16 tensor-core rate.  EMBED_GRAD at phase 3d's batch (2048
+   positions, 2560 columns, bfloat16, into the 32000-row table) by device
+   time beside its plain version, ``index_put_(accumulate=True)`` and its
+   byte bound.
 
 It prints one ``{"kernels": [...]}`` JSON line, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.
@@ -620,6 +647,17 @@ TRAIN = {"arch": "h2o-danube-1.8b", "batch": 4, "seq_len": 512, "steps": 3, "see
 TRAIN_LOSS_TOL = 2e-2
 TRAIN_GNORM_TOL = 5e-2
 TRAIN_COS_MIN = 0.99
+#: phase 3f, data-parallel training (§15): danube at full width cut to
+#: ``layers`` layers (a step's flat float32 vectors, several of 4p bytes
+#: each, would not fit 80 GB at full depth: ``comm_reckoning``), phase 3d's
+#: 4 × 512 tokens in 4 microbatches, one member to four, the mixed group;
+#: the member-death run over ``death``, ``death_steps`` steps; the second
+#: run from the compiled-graph cache over group "2", ``cache_steps`` steps
+TRAIN_COMM = {"arch": "h2o-danube-1.8b", "layers": 8, "batch": 4, "seq_len": 512,
+              "microbatches": 4, "steps": 3, "seed": 0, "lr": 3e-4,
+              "groups": {"1": ("hopper",), "2": ("hopper",) * 2, "4": ("hopper",) * 4,
+                         "mixed": ("hopper", "aten", "hopper", "torch")},
+              "death": ("hopper", "aten"), "death_steps": 4, "cache_steps": 2}
 
 TIMED_RUNS = 20
 E2E_REPEATS = 5
@@ -650,6 +688,10 @@ REPLACES = {
                                "src/repro/kernels/flash_attention/flash_attention.py:106"),
     "flash_attention_wgmma": ("flash_attention_wgmma.cu",
                               "src/repro/kernels/flash_attention/flash_attention.py:106"),
+    # no Pallas site: the card's fixed-order backward of the reference's
+    # jnp.take, whose VJP is XLA's scatter-add
+    "embed_grad": ("embed_grad.cu", "none (no Pallas site; the VJP of jnp.take at "
+                   "src/repro/models/layers.py:68, an XLA scatter-add)"),
 }
 
 #: where each kernel's launches are counted when it is not the template's
@@ -661,14 +703,14 @@ REPLACES = {
 PATH_OF = {"rmsnorm": "serve", "flash_attention_mma": "serve", "mmm_skinny": "serve",
            "mmm_wgmma": "serve", "fused": "graph", "fft_chirp": "chirp",
            "sort": "sort_tile", "flash_attention_tf32x3": "serve_float32",
-           "flash_attention_wgmma": "serve_d256"}
+           "flash_attention_wgmma": "serve_d256", "embed_grad": "train"}
 
 
-#: the paged danube legs, the stub-frontend legs and the training leg (3d),
-#: whose launches the kernels line lists beside those of each kernel's own
-#: path
+#: the paged danube legs, the stub-frontend legs, the training leg (3d)
+#: and the data-parallel one (3f, the member-count runs), whose launches
+#: the kernels line lists beside those of each kernel's own path
 NEW_LEG_PATHS = ("serve_paged_whole", "serve_paged_chunked", "serve_paligemma",
-                 "serve_musicgen", "train")
+                 "serve_musicgen", "train", "train_comm")
 
 
 def decode_projections(cfg):
@@ -2020,7 +2062,7 @@ def phase3(dev):
                 "mvm": 2, "vdp": 2, "jacobi": 2, "conv1d": 2, "spmm": 2, "fft_radix": 2,
                 "fft_chirp": 0, "sort": 0, "sort_radix": 2, "hist": 2, "rmsnorm": 0,
                 "flash_attention_mma": 0, "flash_attention_tf32x3": 0,
-                "flash_attention_wgmma": 0, "fused": 0}
+                "flash_attention_wgmma": 0, "fused": 0, "embed_grad": 0}
     if launches != expected:
         fail(f"launch counts {launches} != requests sent {expected}: a request "
              f"did not reach its kernel")
@@ -4313,11 +4355,12 @@ def train_structure(cfg) -> dict:
     the recompute, dA and dB of each in the backward, and the unembed's
     forward with its two (3); RMSNORM 2 a layer forward and recompute and
     the final norm (its backward is the plain version's VJP); FLASH_ATTN 1
-    a layer forward and recompute (its backward is mea_attention's VJP).
-    Every product has 4·512 rows or more: the wgmma route."""
+    a layer forward and recompute (its backward is mea_attention's VJP);
+    EMBED_GRAD once, the embedding's backward.  Every product has 512 rows
+    or more: the wgmma route."""
     layers = cfg.n_layers
     return {"mmm_wgmma": 28 * layers + 3, "rmsnorm": 4 * layers + 1,
-            "flash_attention_mma": 2 * layers}
+            "flash_attention_mma": 2 * layers, "embed_grad": 1}
 
 
 def phase3d_backward(dev) -> None:
@@ -4589,6 +4632,365 @@ def phase3d(dev):
              "worst_leaf": worst_leaf, "alias_layers": layers, "alias_params": p,
              "alias_loss": [a_loss, r_loss], "alias_grad_norm": [a_gnorm, r_gnorm],
              "alias_launches": alias_launches}
+    return dict(launches), stats
+
+
+def comm_reckoning(p: int, members: int, micro: int) -> dict:
+    """Device bytes a comm step holds at its peak, in flat float32 vectors
+    of ``p`` elements (4p bytes each) alive together while ADAMW_STEP runs:
+    the step's pvec, mu and nu; one LM_GRAD output a microbatch and the
+    EWADD tree's micro - 1 partials, which the replay's nodes keep until it
+    returns; one allreduce COPY a member; ADAMW_STEP's working trees (the
+    mean gradient, the clipped gradient, the new mu and nu, the weights in
+    and out in bfloat16: five vectors' worth) and its 3p + 4 output.  The
+    capture-time pvec, mu and nu the compiled graph keeps are freed after
+    the first replay, as the reference's donation frees a step's input
+    state; a running LM_GRAD's bfloat16 weights and gradients (one vector
+    a member agent) are gone by then."""
+    vectors = {"pvec, mu, nu": 3, "LM_GRAD outputs": micro, "EWADD partials": micro - 1,
+               "allreduce copies": members, "ADAMW_STEP trees": 5,
+               "ADAMW_STEP output": 3}
+    return {"vectors": vectors, "gb": sum(vectors.values()) * 4 * p / 1e9}
+
+
+def comm_structure(cut, members: int, micro: int, platforms) -> dict:
+    """Launches one comm step makes: LM_GRAD's ``train_structure`` once a
+    microbatch (each on the hopper rows, whatever member runs it), and on a
+    hopper-only group the combines: EWADD micro - 1 times on the ewise
+    kernel, the one-member group's last EWADD and its allreduce COPY fused
+    into one chain-kernel launch.  A mixed group's combines land where the
+    scheduler places them, so it fixes only the LM_GRAD part."""
+    out = {k: v * micro for k, v in train_structure(cut).items()}
+    if set(platforms) == {"hopper"} and micro > 1:
+        if members == 1:
+            out["ewise"], out["fused"] = micro - 2, 1
+        else:
+            out["ewise"] = micro - 1
+    return {k: v for k, v in out.items() if v}
+
+
+def phase3f(dev):
+    """Data-parallel training (DESIGN.md §15) at danube's full width, the
+    depth cut to ``TRAIN_COMM["layers"]``: (a) LM_GRAD twice bit-identical,
+    EMBED_GRAD against its plain version bit for bit at a training step's
+    gradient, the old atomic backward's differing elements printed; (b)
+    every group of ``TRAIN_COMM["groups"]`` trained from the same weights
+    on the same batches, histories and final params, mu and nu
+    bit-identical, each step timed, profiled and counted; (c) a member's
+    death before step 2 moving the epoch, a recapture, the 4-step history
+    bit-identical to one member's; (d) step 1 against ``Trainer.run`` on
+    one device with the same microbatches (phase 3d's tolerances); (e) a
+    second run of one topology replayed from the compiled-graph cache.
+    Returns (the (b) runs' launches, stats)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import halo
+    from repro_torch.configs import get_config
+    from repro_torch.core.c2mpi import halo_dispatch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.embed_grad.embed_grad import embed_grad_hopper
+    from repro_torch.kernels.embed_grad.ref import embed_grad_ref
+    from repro_torch.models import build_model
+    from repro_torch.train import step_kernels, trainer
+
+    tc = TRAIN_COMM
+    cfg = get_config(tc["arch"])
+    layers, micro = tc["layers"], tc["microbatches"]
+    name = f"{tc['arch']}@{layers}"
+    cut = dataclasses.replace(cfg, stages=(dataclasses.replace(cfg.stages[0],
+                                                               repeats=layers),))
+    step_kernels.register_arch(name, cut)
+    model = build_model(cut)
+    p = step_kernels.param_size(name)
+    full_p = step_kernels.param_size(tc["arch"])
+    widest = max(len(g) for g in tc["groups"].values())
+    need = comm_reckoning(p, widest, micro)
+    need_full = comm_reckoning(full_p, widest, micro)
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    print(f"  {cut.name} at full width (d_model {cut.d_model}, {cut.vocab_size} tokens, "
+          f"{cut.dtype}), cut to {layers} of {cfg.n_layers} layers: {p} parameters "
+          f"({full_p} at full depth); {tc['batch']} x {tc['seq_len']} tokens a step in "
+          f"{micro} microbatches; reckoning of a {widest}-member step's float32 vectors "
+          f"{need['vectors']} x 4p bytes: {need['gb']:.1f} GB at {layers} layers, "
+          f"{need_full['gb']:.1f} GB at {cfg.n_layers} (the card holds {card_gb:.1f})")
+    # no warmup: step 1 already moves the weights, so (d)'s update cosine
+    # compares two non-zero updates
+    hp = trainer.TrainHyper(base_lr=tc["lr"], warmup_steps=0,
+                            total_steps=tc["death_steps"], microbatches=micro)
+    pipe = SyntheticLM(cut, tc["seq_len"], tc["batch"], tc["seed"])
+
+    def data(step):
+        return pipe.device_batch(step, dev)
+
+    def weights():
+        return model.init(torch.Generator(device=dev).manual_seed(tc["seed"]))
+
+    session = halo.initialize()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # (a) determinism of one step's gradients
+    params = weights()
+    pvec = step_kernels.flatten_params(params)
+    del params
+    batch = data(0)
+    mb = tuple(batch[k][:tc["batch"] // micro] for k in ("tokens", "labels", "mask"))
+    _cuda.reset_launch_counts()
+    first = halo_dispatch("LM_GRAD", pvec, *mb, arch=name)
+    torch.cuda.synchronize(dev)
+    one = {k: v for k, v in _cuda.launch_counts().items() if v}
+    again = halo_dispatch("LM_GRAD", pvec, *mb, arch=name)
+    same = torch.equal(first, again)
+    print(f"  (a) LM_GRAD on microbatch 0 ({mb[0].numel()} tokens) twice: bit-identical "
+          f"{same}; loss {float(first[0]):.6f}; launches a call {one} (structure "
+          f"{train_structure(cut)})")
+    if not same:
+        fail("two LM_GRAD calls on the same inputs differ on the card")
+    if one != train_structure(cut):
+        fail(f"LM_GRAD launched {one}, not {train_structure(cut)}")
+    del first, again, pvec
+    gen = torch.Generator(device=dev).manual_seed(33)
+    tokens = batch["tokens"].reshape(-1)
+    g = torch.randn((tokens.numel(), cut.d_model), generator=gen, device=dev).to(cut.activation_dtype())
+    vocab = cut.padded_vocab
+    k1 = embed_grad_hopper(g, tokens, vocab)
+    k2 = embed_grad_hopper(g, tokens, vocab)
+    ref = embed_grad_ref(g, tokens, vocab)
+    torch.cuda.synchronize(dev)
+    runs = torch.bincount(tokens.long(), minlength=vocab)
+    eq = torch.equal(k1, ref) and torch.equal(k1, k2)
+    print(f"  (a) EMBED_GRAD at {tuple(g.shape)} {str(g.dtype)[6:]} into ({vocab}, "
+          f"{cut.d_model}): kernel bit-identical to its plain version and to itself: "
+          f"{eq} ({int((runs > 0).sum())} tokens occur, the longest run "
+          f"{int(runs.max())} rows)")
+    if not eq:
+        fail(f"EMBED_GRAD disagrees with its plain version: max abs "
+             f"{float((wide(k1) - wide(ref)).abs().max())}")
+    table = torch.zeros((vocab, cut.d_model), dtype=g.dtype, device=dev)
+    olds = []
+    for _ in range(2):
+        leaf = table.clone().requires_grad_()
+        leaf[tokens].backward(g)
+        olds.append(leaf.grad)
+    torch.cuda.synchronize(dev)
+    differ = int((olds[0] != olds[1]).sum())
+    print(f"  (a) the gather's own backward (index_put_ accumulate) twice: {differ} of "
+          f"{olds[0].numel()} elements of the embed gradient differ")
+    del g, k1, k2, ref, table, olds, leaf
+    torch.cuda.empty_cache()
+
+    # every comm step's metrics and per-step timing, counts and device time
+    metrics_log = []
+    orig_unpack = step_kernels.unpack_adamw_out
+
+    def recording_unpack(out, arch, reduced=False):
+        res = orig_unpack(out, arch, reduced)
+        metrics_log.append({k: float(v) for k, v in res[3].items()})
+        return res
+
+    class StepClock:
+        """data_fn wrapper: a step runs from one data call to the next (or
+        the run's end); each is synchronised and counted, and with
+        ``profiled`` timed under torch.profiler."""
+
+        def __init__(self, data_fn, profiled):
+            self.data_fn, self.profiled = data_fn, profiled
+            self.recs, self.prof, self.t0 = [], None, None
+
+        def close(self):
+            if self.t0 is None:
+                return
+            torch.cuda.synchronize(dev)
+            rec = {"host_ms": (time.perf_counter() - self.t0) * 1e3}
+            if self.prof is not None:
+                self.prof.stop()
+                rec["device_ms"] = device_seconds(self.prof) * 1e3
+                rec["busy"] = rec["device_ms"] / rec["host_ms"]
+            rec["launches"] = {k: v for k, v in _cuda.launch_counts().items() if v}
+            self.recs.append(rec)
+            self.prof = self.t0 = None
+
+        def __call__(self, step):
+            self.close()
+            batch_ = self.data_fn(step)
+            torch.cuda.synchronize(dev)
+            _cuda.reset_launch_counts()
+            if self.profiled:
+                self.prof = profile(activities=[ProfilerActivity.CUDA])
+                self.prof.start()
+            self.t0 = time.perf_counter()
+            return batch_
+
+    def run(platforms, steps, params=None, kill_before=None, profiled=False):
+        """A comm-mode run over ``platforms`` from the seed's weights (or
+        ``params``); ``kill_before`` = (step, platform) declares that member
+        dead when the step's batch is drawn.  Returns (state, history, step
+        records, [(epoch, compiled graph) per capture], metrics, comm)."""
+        comm = session.comm_split(list(platforms))
+        tr = trainer.Trainer(model=model, hp=hp, comm=comm, arch=name, log_every=1)
+        captures = []
+        orig = tr._capture_comm_step
+
+        def capture(*a):
+            cg_, slots = orig(*a)
+            captures.append((comm.epoch, cg_))
+            return cg_, slots
+
+        def data_fn(step):
+            if kill_before is not None and step == kill_before[0]:
+                if not comm.on_member_dead(kill_before[1]):
+                    fail(f"{kill_before[1]} was no member of {comm}")
+            return data(step)
+
+        tr._capture_comm_step = capture
+        params = weights() if params is None else params
+        state0 = trainer.TrainState(params, trainer.adamw_init(params))
+        del params
+        clock = StepClock(data_fn, profiled)
+        n0 = len(metrics_log)
+        state, hist = tr.run(state0, clock, steps)
+        clock.close()
+        comm.free()
+        return state, hist, clock.recs, captures, metrics_log[n0:], comm
+
+    step_kernels.unpack_adamw_out = recording_unpack
+    try:
+        # (b) member counts
+        torch.cuda.reset_peak_memory_stats(dev)
+        results = {}
+        launches = collections.Counter()
+        first_label = next(iter(tc["groups"]))
+        for label, plats in tc["groups"].items():
+            state, hist, recs, _, mets, _ = run(plats, tc["steps"], profiled=True)
+            vecs = [step_kernels.flatten_params(t)
+                    for t in (state.params, state.opt.mu, state.opt.nu)]
+            del state
+            expect = comm_structure(cut, len(plats), micro, plats)
+            for i, rec in enumerate(recs):
+                print(f"    {label} {list(plats)} step {i + 1}: loss {hist[i][1]:.6f}, "
+                      f"lr {mets[i]['lr']:.2e}, grad norm {mets[i]['grad_norm']:.6f}, "
+                      f"{rec['host_ms']:.1f} ms host{' (capture + compile)' if i == 0 else ''}"
+                      f", {rec['device_ms']:.1f} ms device (busy {rec['busy']:.3f}); "
+                      f"launches {rec['launches']}")
+                got = rec["launches"]
+                if set(plats) != {"hopper"}:       # the combines land anywhere
+                    got = {k: v for k, v in got.items() if k not in ("ewise", "fused")}
+                if got != expect:
+                    fail(f"group {label} step {i + 1} launched {rec['launches']}, the "
+                         f"structure gives {expect}")
+                launches.update(rec["launches"])
+            results[label] = (hist, vecs, recs, mets)
+            if label != first_label:
+                h0, v0 = results[first_label][:2]
+                equal = [hist == h0] + [torch.equal(a, b) for a, b in zip(vecs, v0)]
+                print(f"    {label}: history, params, mu, nu bit-identical to one "
+                      f"member's: {equal}")
+                if not all(equal):
+                    fail(f"group {label} {list(plats)} differs from one member: {equal}")
+                results[label] = (hist, None, recs, mets)
+            del vecs
+            torch.cuda.empty_cache()
+        results[first_label] = results[first_label][:1] + (None,) + results[first_label][2:]
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        print(f"  (b) peak device memory {peak_gb:.2f} GB (reckoned "
+              f"{need['gb']:.1f} GB for the widest group's step)")
+        torch.cuda.empty_cache()
+
+        # (c) a member's death between steps 1 and 2
+        _, ref_hist, *_ = run(("hopper",), tc["death_steps"])
+        _, hist, _, caps, _, comm = run(tc["death"], tc["death_steps"],
+                                        kill_before=(2, tc["death"][1]))
+        epochs = [e for e, _ in caps]
+        print(f"  (c) {list(tc['death'])}: {tc['death'][1]} dies before step 2: members "
+              f"now {list(comm.platforms)}, captures at epochs {epochs}; "
+              f"{tc['death_steps']}-step history bit-identical to one member's: "
+              f"{hist == ref_hist}")
+        if comm.epoch == 0 or epochs != [0, comm.epoch] or hist != ref_hist \
+                or tc["death"][1] in comm.platforms:
+            fail("the member-death run did not recapture or differs from one member's")
+
+        # (d) step 1 against the single-device trainer with the same microbatches
+        params = weights()
+        p0 = step_kernels.flatten_params(params)
+        c_state, c_hist, _, _, c_mets, _ = run(("hopper",), 1, params=params)
+        c_delta = step_kernels.flatten_params(c_state.params) - p0
+        del c_state
+        single = {}
+        orig_make = trainer.make_train_step
+
+        def recording_make(model_, hp_):
+            step_fn = orig_make(model_, hp_)
+
+            def step_(state_, batch_):
+                new, m = step_fn(state_, batch_)
+                single.update({k: float(v) for k, v in m.items() if v.numel() == 1})
+                return new, m
+            return step_
+
+        trainer.make_train_step = recording_make
+        try:
+            params = weights()
+            s_state, s_hist = trainer.Trainer(model=model, hp=hp, log_every=1).run(
+                trainer.TrainState(params, trainer.adamw_init(params)), data, 1)
+        finally:
+            trainer.make_train_step = orig_make
+        del params
+        s_delta = step_kernels.flatten_params(s_state.params) - p0
+        del s_state, p0
+        loss_err = abs(c_hist[0][1] - s_hist[0][1]) / abs(s_hist[0][1])
+        gnorm_err = abs(c_mets[0]["grad_norm"] - single["grad_norm"]) / single["grad_norm"]
+        upd_cos = cosine(c_delta, s_delta)
+        del c_delta, s_delta
+        print(f"  (d) step 1 in comm mode vs Trainer.run on one device ({micro} "
+              f"microbatches): loss {c_hist[0][1]:.6f} vs {s_hist[0][1]:.6f}: "
+              f"{loss_err:.2e} (tol {TRAIN_LOSS_TOL:g}); grad norm "
+              f"{c_mets[0]['grad_norm']:.6f} vs {single['grad_norm']:.6f}: {gnorm_err:.2e} "
+              f"(tol {TRAIN_GNORM_TOL:g}); the parameter updates' cosine {upd_cos:.6f} "
+              f"(min {TRAIN_COS_MIN:g})")
+        if loss_err > TRAIN_LOSS_TOL or gnorm_err > TRAIN_GNORM_TOL \
+                or upd_cos < TRAIN_COS_MIN:
+            fail("comm-mode step 1 disagrees with the single-device trainer")
+        torch.cuda.empty_cache()
+
+        # (e) a second run of one topology from the compiled-graph cache
+        plats = tc["groups"]["2"]
+        _, h_a, _, caps_a, _, _ = run(plats, tc["cache_steps"])
+        cg = caps_a[0][1]
+        before = dict(replays=cg.stats["replays"], hits=cg.stats["cache_hits"],
+                      graphs=len(session._compiled_graphs))
+        _, h_b, _, caps_b, _, _ = run(plats, tc["cache_steps"])
+        after = dict(replays=cg.stats["replays"], hits=cg.stats["cache_hits"],
+                     graphs=len(session._compiled_graphs))
+        print(f"  (e) a second {tc['cache_steps']}-step run over {list(plats)}: the same "
+              f"compiled graph {caps_b[0][1] is cg}, replays {before['replays']} -> "
+              f"{after['replays']}, cache hits {before['hits']} -> {after['hits']}, "
+              f"graphs cached {before['graphs']} -> {after['graphs']}; history equal "
+              f"{h_a == h_b}, and equal to the first steps of (b) "
+              f"{h_a == results['2'][0][:tc['cache_steps']]}")
+        if caps_b[0][1] is not cg or after["replays"] != before["replays"] + tc["cache_steps"] \
+                or after["hits"] != before["hits"] + 1 or after["graphs"] != before["graphs"] \
+                or h_a != h_b or h_a != results["2"][0][:tc["cache_steps"]]:
+            fail("the second run did not replay the cached graph or its history differs")
+        quarantined = session.scheduler.failed_record_keys()
+        if quarantined:
+            fail(f"records were quarantined on the comm path: {quarantined}")
+    finally:
+        step_kernels.unpack_adamw_out = orig_unpack
+        halo.finalize()
+    torch.cuda.empty_cache()
+    stats = {"arch": cut.name, "layers": layers, "of_layers": cfg.n_layers, "params": p,
+             "reduced": f"depth {layers} of {cfg.n_layers} layers: a step's flat float32 "
+                        f"vectors reckon {need_full['gb']:.1f} GB at full depth",
+             "reckoned_gb": need["gb"], "peak_gb": peak_gb,
+             "tokens_per_step": tc["batch"] * tc["seq_len"], "microbatches": micro,
+             "groups": {label: {"history": r[0], "steps": r[2], "metrics": r[3]}
+                        for label, r in results.items()},
+             "embed_grad_bits": eq, "atomic_backward_differing": differ,
+             "death_history": hist, "step1": {"loss": [c_hist[0][1], s_hist[0][1]],
+                                              "grad_norm": [c_mets[0]["grad_norm"],
+                                                            single["grad_norm"]],
+                                              "update_cosine": upd_cos}}
     return dict(launches), stats
 
 
@@ -5389,6 +5791,24 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
     def four_aten(a, b, c, d, e):
         return torch.div(torch.sub(torch.add(torch.mul(a, b), c), d), e)
 
+    # EMBED_GRAD at a danube training step's gradient: 4 × 512 positions of
+    # phase 3d's batch 0 into the (padded vocab, d_model) table, bfloat16;
+    # the bound reads g and the tokens once and writes the table once
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.embed_grad.embed_grad import embed_grad_hopper
+    from repro_torch.kernels.embed_grad.ref import embed_grad_aten, embed_grad_ref
+    e_tok = SyntheticLM(cfg, TRAIN["seq_len"], TRAIN["batch"],
+                        TRAIN["seed"]).device_batch(0, dev)["tokens"].reshape(-1)
+    e_vocab = cfg.padded_vocab
+    e_g = torch.randn((e_tok.numel(), cfg.d_model), generator=gen5,
+                      device=dev).to(torch.bfloat16)
+    embed_bound = bound(e_g.numel() * 2 + e_tok.numel() * e_tok.element_size()
+                        + e_vocab * cfg.d_model * 2, 0)
+    max_abs["embed_grad"] = float((wide(embed_grad_hopper(e_g, e_tok, e_vocab))
+                                   - wide(embed_grad_ref(e_g, e_tok, e_vocab))).abs().max())
+    if max_abs["embed_grad"] != 0.0:             # phase 3f holds it bit-exact
+        fail(f"EMBED_GRAD differs from its plain version by {max_abs['embed_grad']}")
+
     rows = [
         # device time (events under "event_ms"); bound: 2·M·N·K at the TF32
         # tensor-core rate (the float32 CUDA-core bound under
@@ -5488,6 +5908,14 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
          fused_bound, f"{SIZES['EW']}x{SIZES['EW']} float32, 4 steps "
          f"((a*b+c)-d)/e (library: four ATen calls; serial_ewise_ms: four EW "
          f"kernel launches)"),
+        # device time (events under "event_ms"); the plain version's Python
+        # loops over pieces read the card back (a synchronise) each call
+        ("embed_grad", model_row(lambda: embed_grad_hopper(e_g, e_tok, e_vocab),
+                                 lambda: embed_grad_ref(e_g, e_tok, e_vocab),
+                                 lambda: embed_grad_aten(e_g, e_tok, e_vocab)),
+         embed_bound, f"{e_tok.numel()}x{cfg.d_model} bfloat16 into {e_vocab}x"
+         f"{cfg.d_model}, a danube training step's tokens, device time (library: "
+         f"index_put_ accumulate, PyTorch's backward of table[tokens])"),
     ]
     kernels = []
     for name, times, (bound_ms, bound_by), shape in rows:
@@ -5649,6 +6077,12 @@ def main() -> None:
     path_launches["train"], train_stats = phase3d(dev)
     seconds["3d train"] = time.perf_counter() - t0
     print(json.dumps({"train": train_stats}))
+    print(f"phase 3f: data-parallel training, {TRAIN_COMM['arch']} at full width over "
+          f"device groups on {card}")
+    t0 = time.perf_counter()
+    path_launches["train_comm"], train_comm_stats = phase3f(dev)
+    seconds["3f train comm"] = time.perf_counter() - t0
+    print(json.dumps({"train_comm": train_comm_stats}))
     print(f"phase 4: times (median of 20 CUDA-event-timed calls) on {card}")
     t0 = time.perf_counter()
     kernels = phase4(dev, jobs, launches, max_abs, e2e, card.split(",")[0],

@@ -293,6 +293,10 @@ class VirtualizationAgent:
 
     def _worker_loop(self) -> None:
         while True:
+            # drop the last request before waiting for the next: its thunk
+            # holds its graph and every result in it, which would otherwise
+            # stay alive as long as this agent sits idle
+            item = fut = fn = after = result = None
             item = self._queue.get()
             if item is None:
                 return

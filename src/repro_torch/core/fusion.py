@@ -697,7 +697,8 @@ class CompiledGraph:
                timeout: Optional[float] = None) -> List[Any]:
         """One steady-state iteration: launch from templates and wait for
         the launches; returns the output nodes' results in capture order
-        (on the card, synchronise before reading them)."""
+        (on the card, synchronise before reading them).  The intermediate
+        results are freed on return."""
         g = self.replay_async(updates)
         out = g.wait(timeout)
         with self._lock:
@@ -705,6 +706,12 @@ class CompiledGraph:
                 g.stats["placements_pinned"]
             self.stats["placements_scored_last"] = \
                 g.stats["placements_scored"]
+        # parents and children link each other: the cycles would keep every
+        # node's result (a training step's gradient vectors) alive until
+        # the next cyclic collection.  Every node is done once the outputs
+        # are, and the graph goes no further than here
+        for node in g.nodes:
+            node.parents, node.children = [], []
         return out
 
 

@@ -5,8 +5,10 @@ Model code names *logical* axes ("batch", "fsdp", "tp", "seq", "vocab") as
 in the reference.  The port runs on one card, so there is never a mesh:
 :func:`current_context` reports ``mesh=None`` and :func:`shard` is the
 identity.  The partition helpers serve the collectives (C²MPI scatter and
-elastic re-layout, DESIGN.md §10–11); the mesh, ``mesh_context`` and
-``named_sharding`` come with data-parallel training.
+elastic re-layout, DESIGN.md §10–11).  Data-parallel training runs over
+C²MPI device groups and needs no mesh; the mesh, ``mesh_context`` and
+``named_sharding`` come with their first reader, the expert-sharded MoE
+(ROADMAP A10c).
 """
 from __future__ import annotations
 

@@ -20,6 +20,8 @@ short names as ``repro.halo``::
     parts = halo.scatter(x, comm)                # collective verbs
     total = halo.allreduce(comm.map("VDP", [(p, p) for p in parts]), comm)
     state, history = halo.train("h2o-danube-1.8b", steps=20, reduced=True)
+    state, history = halo.train("h2o-danube-1.8b", steps=20, reduced=True,
+                                comm=2)          # data-parallel (§15)
     halo.finalize()
 
 Each name re-exports the object :mod:`repro_torch.core.c2mpi` or
@@ -70,26 +72,35 @@ def train(arch: str, *, steps: int = 20, seq_len: int = 128, batch: int = 8,
           comm: Any = None, reduced: bool = False, lr: float = 3e-3,
           microbatches: Optional[int] = None, seed: int = 0,
           log_every: int = 10) -> Tuple[Any, list]:
-    """One-call LM training on synthetic data on the session's device,
-    single-agent.  Returns ``(TrainState, [(step, loss), ...])``.  The
-    reference's data-parallel mode (``comm``) is A10's data-parallel half
-    and raises: ROADMAP A10b."""
+    """One-call LM training on synthetic data on the session's device:
+    single-agent when ``comm`` is None, data-parallel over a device group
+    otherwise (``comm`` may be a :class:`HaloComm` or a member count, whose
+    group cycles the session's available substrates).  Returns
+    ``(TrainState, [(step, loss), ...])`` — DESIGN.md §15."""
     import torch
 
     from .configs import get_config
     from .data.pipeline import SyntheticLM
     from .models import build_model
-    from .train.trainer import COMM_REFUSAL, TrainHyper, Trainer
+    from .train.trainer import TrainHyper, Trainer
 
-    if comm is not None:
-        raise ValueError(COMM_REFUSAL)
-    device = session().device
+    sess = session()
+    if isinstance(comm, int):
+        subs = sess.comm_split().platforms
+        comm = sess.comm_split([subs[i % len(subs)] for i in range(comm)])
+    n = comm.size if comm is not None else 1
+    m = microbatches or n
+    if m % n:
+        raise ValueError(f"microbatches ({m}) must be a multiple of the "
+                         f"member count ({n})")
+    device = sess.device
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
     hp = TrainHyper(base_lr=lr, warmup_steps=max(1, steps // 10),
-                    total_steps=steps, microbatches=microbatches or 1)
-    trainer = Trainer(model=build_model(cfg), hp=hp, log_every=log_every)
+                    total_steps=steps, microbatches=m)
+    trainer = Trainer(model=build_model(cfg), hp=hp, comm=comm, arch=arch,
+                      arch_reduced=reduced, log_every=log_every)
     pipe = SyntheticLM(cfg, seq_len=seq_len, global_batch=batch, seed=seed)
     state = trainer.init_state(torch.Generator(device=device).manual_seed(seed))
     return trainer.run(state, lambda step: pipe.device_batch(step, device), steps)

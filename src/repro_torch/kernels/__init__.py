@@ -12,8 +12,10 @@ Each subpackage ships three artifacts per kernel:
 :func:`register_all` publishes three rows per alias with Table-II
 attributes — ``torch`` (oracle, priority 0, fail-safe), ``aten`` (library,
 10) and ``hopper`` (kernel, 20; none for SSD, SSD_DECODE, GQA_DECODE and
-MOE_FFN, which have no Pallas site; LM_GRAD and ADAMW_STEP share one callable
-on all three) — so the runtime agent resolves each alias
+MOE_FFN, which have no Pallas site; EMBED_GRAD, the embedding's backward,
+has no Pallas site either but keeps a kernel, for its fixed sum order;
+LM_GRAD and ADAMW_STEP share one callable on all three) — so the runtime
+agent resolves each alias
 to the best feasible substrate (hopper > aten > torch by default), and
 declares which aliases the graph fusion pass (DESIGN.md §12) may collapse
 into chains.
@@ -44,6 +46,9 @@ def register_all(registry=None) -> None:
         return
 
     from .conv1d import conv1d, conv1d_ref
+    from .embed_grad import embed_grad, embed_grad_ref
+    from .embed_grad.ops import embed_grad_supported
+    from .embed_grad.ref import embed_grad_aten
     from .conv1d.ops import conv1d_supported
     from .conv1d.ref import conv1d_aten
     from .ewise import (ewadd, ewadd_ref, ewmd, ewmd_ref, ewmm, ewmm_ref,
@@ -101,6 +106,11 @@ def register_all(registry=None) -> None:
         ("RMSNORM", rmsnorm_ref, rmsnorm_aten, rmsnorm, rmsnorm_supported),
         ("FLASH_ATTN", attention_ref, attention_aten, flash_attention,
          flash_attention_supported),
+        # the embedding's backward: no Pallas site (the reference's is XLA's
+        # scatter-add); its kernel adds in a fixed order, so training's
+        # gradients repeat bit for bit on the card (csrc/embed_grad.cu)
+        ("EMBED_GRAD", embed_grad_ref, embed_grad_aten, embed_grad,
+         embed_grad_supported),
     ]
     for alias, ref_fn, aten_fn, hopper_fn, ok in table:
         registry.register(_rec(alias, ref_fn, "torch", 0, failsafe=True))
@@ -139,8 +149,8 @@ def register_all(registry=None) -> None:
     registry.register(_rec("CONCAT", concat_ref, "hopper", 20))
 
     # Training-step builtins (DESIGN.md §15): the forward/backward and the
-    # optimizer update as aliases, so device-group members (ROADMAP A10b)
-    # can dispatch them.  Every platform row shares ONE callable, as in the
+    # optimizer update as aliases, so device-group members (the trainer's
+    # comm mode) can dispatch them.  Every platform row shares ONE callable, as in the
     # reference; the callables run the model's own dispatches (MMM, RMSNORM,
     # FLASH_ATTN) in the caller's thread, so autograd sees them.
     from ..train.step_kernels import adamw_step_vec, lm_grad_vec

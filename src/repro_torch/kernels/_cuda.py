@@ -95,6 +95,8 @@ _SIGNATURES = {
     # vec (bfloat16 or float16 at d = 256; ws takes the aligned copies)
     "halo_flash_attention_wgmma": [_vp, _vp, _vp, _vp, _vp, _ll, _int, _int, _int, _int,
                                    _int, _int, _int, _int, _int, _int, _f, _int, _vp],
+    # g, perm, sorted_tok, bounds, partial, out, n, d, vocab, dtype, stream
+    "halo_embed_grad": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _vp],
     # inputs (void* array), n_in, steps (int array), n_steps, out, n, dtype,
     # vec, stream
     "halo_fused": [ctypes.POINTER(_vp), _int, ctypes.POINTER(_int), _int, _vp,

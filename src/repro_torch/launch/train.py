@@ -5,9 +5,12 @@ Trains a configuration on the synthetic LM stream through the Trainer:
 the forward and backward on the card's kernels (``--device cuda``, the
 default, which needs an H100) or, with ``--device cpu``, on their plain
 versions; checkpoints, heartbeat and the straggler policy as in the
-reference; a resumed run goes on after the checkpointed step.  The
-data-parallel mode (``--comm N``) and the meshes
-(``--mesh``) are A10's data-parallel half and raise: ROADMAP A10b.
+reference; a resumed run goes on after the checkpointed step.  ``--comm
+N`` trains data-parallel over an N-member C²MPI device group cycling the
+session's available substrates, with ``--microbatches`` raised to a
+multiple of N.  A device mesh (``--mesh`` other than ``none``) places
+nothing on one card; it comes with the expert-sharded MoE and raises:
+ROADMAP A10c.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from ..data.pipeline import SyntheticLM
 from ..models import build_model
 from ..train.checkpoint import CheckpointManager
 from ..train.fault_tolerance import HeartbeatJournal, StragglerPolicy
-from ..train.trainer import COMM_REFUSAL, TrainHyper, Trainer
+from ..train.trainer import TrainHyper, Trainer
 
 
 def main(argv=None):
@@ -36,24 +39,23 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--comm", type=int, default=0, metavar="N",
-                    help="train data-parallel over an N-member device group "
-                         "(A10's data-parallel half, not ported: ROADMAP A10b)")
+                    help="train data-parallel over an N-member C²MPI device "
+                         "group (cycling the available substrates); "
+                         "microbatches is raised to a multiple of N")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--heartbeat", default=None)
     ap.add_argument("--mesh", choices=["none", "debug", "single", "multi"],
-                    default="none", help="a device mesh other than none is "
-                    "A10's data-parallel half, not ported: ROADMAP A10b")
+                    default="none", help="a device mesh other than none "
+                    "comes with the expert-sharded MoE, not ported: ROADMAP A10c")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (an H100; raises without one) or cpu")
     args = ap.parse_args(argv)
-    if args.comm:
-        raise ValueError(f"--comm {args.comm}: {COMM_REFUSAL}")
     if args.mesh != "none":
-        raise ValueError(f"--mesh {args.mesh}: a device mesh comes with A10's "
-                         f"data-parallel half, which the port has not yet: "
-                         f"ROADMAP A10b")
+        raise ValueError(f"--mesh {args.mesh}: a device mesh places nothing on "
+                         f"one card; it comes with the expert-sharded MoE, which "
+                         f"the port has not yet: ROADMAP A10c")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
@@ -63,13 +65,21 @@ def main(argv=None):
         if args.reduced:
             cfg = cfg.reduced()
         model = build_model(cfg)
+        comm = None
+        microbatches = args.microbatches
+        if args.comm:
+            subs = session.comm_split().platforms    # available substrates
+            comm = session.comm_split(
+                [subs[i % len(subs)] for i in range(args.comm)])
+            microbatches = -(-microbatches // args.comm) * args.comm
         hp = TrainHyper(base_lr=args.lr, warmup_steps=max(1, args.steps // 10),
-                        total_steps=args.steps, microbatches=args.microbatches,
+                        total_steps=args.steps, microbatches=microbatches,
                         compress_grads=args.compress_grads)
         ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
         hb = HeartbeatJournal(args.heartbeat) if args.heartbeat else None
         trainer = Trainer(model=model, hp=hp, ckpt=ckpt, heartbeat=hb,
-                          straggler=StragglerPolicy())
+                          straggler=StragglerPolicy(), comm=comm, arch=args.arch,
+                          arch_reduced=args.reduced)
         pipe = SyntheticLM(cfg, seq_len=args.seq_len, global_batch=args.batch,
                            seed=args.seed)
 

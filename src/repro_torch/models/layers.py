@@ -65,8 +65,33 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+class EmbedFunction(torch.autograd.Function):
+    """The row gather ``embed[tokens]`` whose backward is the EMBED_GRAD
+    alias: each table row's sum of its positions' gradient rows in a fixed
+    order (stable token order, float32), so a training step's gradients
+    repeat bit for bit on the card, where the gather's own backward adds
+    with atomics (``kernels/embed_grad/ref.py``).  Every position counts,
+    masked and padding ones too, as in the reference's scatter-add."""
+
+    @staticmethod
+    def forward(ctx, embed, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.vocab = embed.shape[0]
+        return embed[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens, = ctx.saved_tensors
+        grad = halo_dispatch("EMBED_GRAD", g.contiguous(), tokens.contiguous(),
+                             ctx.vocab)
+        return grad, None
+
+
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Embedding lookup: rows of the (V, D) table."""
+    """Embedding lookup: rows of the (V, D) table.  With grad on and a
+    table that requires it, through :class:`EmbedFunction`."""
+    if torch.is_grad_enabled() and embed.requires_grad:
+        return EmbedFunction.apply(embed, tokens)
     return embed[tokens]
 
 

@@ -13,8 +13,11 @@
 Leaves are written in ``jax.tree``'s order (``core.tree``), one
 ``leaf_{i:05d}.npy`` each, whole (logical shapes).  numpy has no bfloat16:
 such a leaf is stored as its uint16 bit pattern, and meta.json records
-every leaf's dtype.  Restoring onto another mesh (the reference's elastic
-reshard) comes with the collectives.
+every leaf's dtype.  The trainer's comm mode saves the same
+``TrainState`` leaves as the single-device trainer (``Trainer._comm_state``),
+so a checkpoint of either mode restores into the other.  Restoring onto
+another mesh (the reference's elastic reshard) comes with the meshes
+(ROADMAP A10c).
 """
 from __future__ import annotations
 

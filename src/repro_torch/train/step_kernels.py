@@ -20,9 +20,12 @@ reference's three rows do.  Parameters travel as a flat float32 vector in
 ``jax.tree``'s leaf order (bfloat16 → float32 → bfloat16 is lossless),
 unflattened from the arch's cached template.  ``arch`` is a config id
 resolved by :func:`repro_torch.configs.get_config`; in-process custom
-configs register with :func:`register_arch`.  The device-group members
-that would consume these vectors come with data-parallel training
-(ROADMAP A10b).
+configs register with :func:`register_arch`.  The trainer's comm mode
+(``train/trainer.py``) dispatches ``LM_GRAD`` on every member of a device
+group and one ``ADAMW_STEP``; ``LM_GRAD``'s own dispatches (MMM, RMSNORM,
+FLASH_ATTN, EMBED_GRAD) run on the calling member's worker thread through
+the process's session, so they take the same rows on every member, and
+each of those repeats bit for bit on the card.
 """
 from __future__ import annotations
 
@@ -88,9 +91,20 @@ def param_size(arch: str, reduced: bool = False) -> int:
 # ---------------------------------------------------------------------------
 # Flatten / unflatten
 # ---------------------------------------------------------------------------
-def flatten_params(params) -> torch.Tensor:
-    """Param tree → one float32 vector (leaf order = ``jax.tree.flatten``)."""
-    return torch.cat([l.to(torch.float32).reshape(-1) for l in tree_leaves(params)])
+def flatten_params(params, out=None) -> torch.Tensor:
+    """Param tree → one float32 vector (leaf order = ``jax.tree.flatten``),
+    each leaf copied into its slice of ``out`` (allocated when None): no
+    float32 copy of a leaf is made on the way, so a flattening holds one
+    vector at a time."""
+    leaves = tree_leaves(params)
+    if out is None:
+        out = torch.empty(sum(l.numel() for l in leaves), dtype=torch.float32,
+                          device=leaves[0].device if leaves else "cpu")
+    off = 0
+    for leaf in leaves:
+        out[off:off + leaf.numel()].copy_(leaf.reshape(-1))
+        off += leaf.numel()
+    return out
 
 
 flatten_f32 = flatten_params    # moments are float32 trees of the same shapes
@@ -134,7 +148,11 @@ def lm_grad_vec(params_vec, tokens, labels, mask, *, arch: str,
              "labels": torch.as_tensor(labels, device=dev),
              "mask": torch.as_tensor(mask, device=dev)}
     loss, _, grads = loss_and_grads(model, params, batch)
-    return torch.cat([loss.to(torch.float32)[None], flatten_f32(grads)])
+    del params
+    out = torch.empty(1 + param_size(arch, bool(reduced)), dtype=torch.float32, device=dev)
+    out[0] = loss
+    flatten_f32(grads, out=out[1:])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -168,10 +186,16 @@ def adamw_step_vec(gsum_vec, params_vec, mu_vec, nu_vec, step, *, arch: str,
         new_p, st, om = adamw_update(params, grads, AdamWState(step, mu, nu),
                                      lr=lr, weight_decay=float(weight_decay),
                                      clip_norm=float(clip_norm))
-        tail = torch.stack([st.step.to(torch.float32), loss,
-                            lr.to(torch.float32), om["grad_norm"]])
-        return torch.cat([flatten_params(new_p), flatten_f32(st.mu),
-                          flatten_f32(st.nu), tail])
+        del grads, params, mu, nu          # the output takes their room
+        p = param_size(arch, reduced)
+        out = torch.empty(3 * p + 4, dtype=torch.float32, device=params_vec.device)
+        flatten_params(new_p, out=out[:p])
+        del new_p
+        flatten_f32(st.mu, out=out[p:2 * p])
+        flatten_f32(st.nu, out=out[2 * p:3 * p])
+        out[3 * p:] = torch.stack([st.step.to(torch.float32), loss,
+                                   lr.to(torch.float32), om["grad_norm"]])
+        return out
 
 
 def unpack_adamw_out(out, arch: str, reduced: bool = False

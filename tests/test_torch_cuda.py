@@ -18,6 +18,8 @@ from repro_torch.core.registry import KernelRecord, KernelRegistry
 from repro_torch.kernels import _cuda, register_all
 from repro_torch.kernels.conv1d.conv1d import conv1d_hopper
 from repro_torch.kernels.conv1d.ref import conv1d_ref
+from repro_torch.kernels.embed_grad.embed_grad import embed_grad_hopper
+from repro_torch.kernels.embed_grad.ref import CHUNK, embed_grad_ref
 from repro_torch.kernels.ewise.ewise import ITEMS, THREADS, ewise_hopper, ewise_plan
 from repro_torch.kernels.ewise.ref import OP_REFS, ewise_plan_ref
 from repro_torch.kernels.fft.fft import fft_chirp_hopper, fft_radix_hopper
@@ -1563,3 +1565,74 @@ def test_moe_layer_on_the_card_against_its_definition(card, t):
     assert torch.equal(eidx, want_eidx)
     assert bool(kept.all()) == (repeat == 1)
     assert _normwise(y[0], want) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,d,vocab", [(0, 8, 5), (1, 1, 3), (CHUNK, 3, 7),
+                                       (CHUNK + 1, 257, 40), (1000, 80, 997),
+                                       (2048, 2560, 32000)])
+def test_embed_grad_kernel_is_bit_exact(card, dtype, n, d, vocab):
+    """EMBED_GRAD against its plain version (the same order and float32
+    roundings) bit for bit: no positions, one, a chunk and one past it,
+    ragged widths, a danube step's shape; Zipf-like tokens with one token
+    over a third of the positions; two calls the same bits."""
+    g = _rnd(card, n, d, dtype=dtype, seed=n + d)
+    gen = torch.Generator(device=card).manual_seed(7)
+    tok = torch.randint(0, vocab, (n,), generator=gen, device=card, dtype=torch.int32)
+    tok[::3] = vocab // 2
+    got = embed_grad_hopper(g, tok, vocab)
+    assert got.dtype == dtype and got.shape == (vocab, d)
+    assert torch.equal(_bits(got), _bits(embed_grad_ref(g, tok, vocab)))
+    assert torch.equal(_bits(got), _bits(embed_grad_hopper(g, tok, vocab)))
+
+
+def test_embed_grad_kernel_long_run_and_shapes(card):
+    """One token at 5000 of 5003 positions (157 chunks of one run), int64
+    tokens shaped (B, S) with g (B, S, D), rows past every run zero, one
+    launch a call."""
+    g = _rnd(card, 1, 5003, 64, dtype=torch.float32, seed=3)
+    tok = torch.full((1, 5003), 11, dtype=torch.int64, device=card)
+    tok[0, :3] = torch.tensor([2, 40, 2], device=card)
+    before = _cuda.launch_counts().get("embed_grad", 0)
+    got = embed_grad_hopper(g, tok, 41)
+    assert _cuda.launch_counts()["embed_grad"] == before + 1
+    assert torch.equal(got, embed_grad_ref(g, tok, 41))
+    want = torch.zeros((41, 64), dtype=torch.float64, device=card).index_put_(
+        (tok.reshape(-1),), g.reshape(-1, 64).double(), accumulate=True)
+    assert float((got.double() - want).abs().max()) < 1e-3
+    assert not got[[0, 1, 3, 39]].any()
+
+
+def test_embed_backward_on_the_card_repeats_bit_for_bit(card):
+    """The embedding's Function on the card (EMBED_GRAD's hopper row through
+    a card session): two backward passes give the same bits and match the
+    plain version."""
+    from repro_torch import halo
+    from repro_torch.models.layers import embed_tokens
+    table = _rnd(card, 1000, 96, dtype=torch.bfloat16, seed=5)
+    gen = torch.Generator(device=card).manual_seed(8)
+    tok = torch.randint(0, 50, (4, 512), generator=gen, device=card, dtype=torch.int32)
+    g = _rnd(card, 4, 512, 96, dtype=torch.bfloat16, seed=6)
+    halo.initialize()
+    try:
+        grads = []
+        for _ in range(2):
+            leaf = table.clone().requires_grad_()
+            embed_tokens(leaf, tok).backward(g)
+            grads.append(leaf.grad)
+    finally:
+        halo.finalize()
+    assert torch.equal(_bits(grads[0]), _bits(grads[1]))
+    assert torch.equal(_bits(grads[0]), _bits(embed_grad_ref(g, tok, 1000)))
+
+
+def test_embed_grad_kernel_refuses_what_it_does_not_take(card):
+    g = _rnd(card, 4, 8, dtype=torch.float32)
+    tok = torch.zeros(4, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        embed_grad_hopper(g.cpu(), tok.cpu(), 3)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        embed_grad_hopper(g, tok.float(), 3)
+    with pytest.raises(ValueError, match="shape"):
+        embed_grad_hopper(g, tok[:3], 3)
+

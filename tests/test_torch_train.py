@@ -6,7 +6,8 @@ configurations against ``jax.value_and_grad`` of the reference's, AdamW,
 the schedules and compression, a reduced danube's loss history against the
 JAX Trainer (plain, and with microbatches and compression), a resumed run
 against an unbroken one, the LM_GRAD and ADAMW_STEP vectors against the
-reference's, and the launcher and facade.
+reference's, and the launcher and facade (their data-parallel mode once
+each; test_torch_train_parallel.py holds it).
 
 Inputs are made once in numpy from a seed and fed to both packages; the
 port runs on the CPU (its wrappers' plain versions) through a session
@@ -450,10 +451,15 @@ def test_synthetic_stream_is_the_references(arch):
         np.testing.assert_array_equal(got[k].numpy(), want[k])
 
 
-def test_trainer_refuses_a_device_group():
+def test_trainer_refuses_a_device_group(cpu_session):
+    """A device group without ``arch`` is refused at ``run``, as the
+    reference refuses it (the comm mode's own tests are in
+    test_torch_train_parallel.py)."""
     tm = build_model(get_config(DANUBE).reduced())
-    with pytest.raises(ValueError, match="A10"):
-        Trainer(model=tm, hp=TrainHyper(), comm=object())
+    tr = Trainer(model=tm, hp=TrainHyper(), comm=cpu_session.comm_split(["hopper"]))
+    pipe = SyntheticLM(tm.cfg, seq_len=8, global_batch=2)
+    with pytest.raises(ValueError, match="arch"):
+        tr.run(tr.init_state(torch.Generator().manual_seed(0)), pipe.device_batch, steps=1)
 
 
 # ---------------------------------------------------------------------------
@@ -529,8 +535,16 @@ def test_launch_train_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [["--comm", "2"], ["--mesh", "debug"]])
 def test_launch_train_refuses_comm_and_mesh(flags):
-    with pytest.raises(ValueError, match="A10"):
-        t_launch.main(["--arch", DANUBE, "--reduced", "--device", "cpu", *flags])
+    """``--comm 2`` trains data-parallel over a two-member group; a mesh
+    places nothing on one card and is still refused, naming A10c."""
+    argv = ["--arch", DANUBE, "--reduced", "--device", "cpu", "--steps", "2",
+            "--seq-len", "16", "--batch", "2", *flags]
+    if flags[0] == "--mesh":
+        with pytest.raises(ValueError, match="A10c"):
+            t_launch.main(argv)
+        return
+    hist = t_launch.main(argv)
+    assert [s for s, _ in hist] == [0, 1] and all(np.isfinite(l) for _, l in hist)
 
 
 def test_launch_train_default_device_refuses_a_missing_card():
@@ -544,5 +558,6 @@ def test_halo_train_single_agent(cpu_session):
     state, hist = halo.train(DANUBE, steps=2, reduced=True, seq_len=16, batch=2,
                              log_every=1)
     assert [s for s, _ in hist] == [0, 1] and int(state.opt.step) == 2
-    with pytest.raises(ValueError, match="A10"):
-        halo.train(DANUBE, steps=1, reduced=True, comm=2)
+    state, hist2 = halo.train(DANUBE, steps=2, reduced=True, seq_len=16, batch=2,
+                              log_every=1, comm=2)
+    assert [s for s, _ in hist2] == [0, 1] and int(state.opt.step) == 2
