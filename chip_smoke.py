@@ -232,6 +232,38 @@ Phases (any failure exits non-zero before the result lines are printed):
    and Φ against serial hopper for serial hopper, serial aten and each
    group's eager and graph runs, with each solve's device ms (torch.profiler)
    and busy share.
+3g. Resilience (``phase3g``, after 3e; DESIGN.md §11; ``RESILIENCE``):
+   every leg on a fresh card session whose health monitor is started
+   (sweeps every 0.02 s), every check a ``fail()``: (a) 3e's n = 16384
+   system over ``["hopper", "aten"]``, eager and with one captured graph a
+   sweep, the aten member wedged (``FaultPlan(mode="die")``) a few sweeps
+   in: DEAD within 1 s, ``handle_dead_agent`` re-binds its rank onto hopper
+   (size 2, the epoch moved) and replays the wedged call, every later
+   sweep's MVM, VDP and EW* on hopper; the iterate within
+   ``COLLECTIVE_B_TOL`` of serial hopper, the solve error within
+   ``COLLECTIVE_SOLVE_TOL``, the elements differing from a fault-free group
+   run printed; (b) one MMM at danube's gate shape (512×2560 @ 2560×6912
+   bf16) over ``["aten", "hopper"]``, aten hung: the speculative backup on
+   hopper (``mmm_wgmma``, one launch) wins, ``torch.equal`` to a direct
+   hopper dispatch, and the late aten result leaves the node's result and
+   ready event the backup's; (c) 3c's EW chain over ``["hopper",
+   "torch"]``, compiled on the chain kernel (B13, which has no torch row),
+   the fused call hung: ``"decomposed+spec"``, the member chain placed off
+   hopper wins on the torch rows while the fused call still hangs, the
+   output ``torch.equal`` to serial dispatch on those rows (and compared
+   with serial hopper), the late fused launch discarded; (d) phase 3b's danube at
+   full width (random weights from ``SERVE["seed"]``) on a whole-prompt
+   PagedEngine, three requests on two slots: a raise at the second decode
+   call fails the in-flight lanes with ``FaultError`` and serves the
+   queued one with the fault-free tokens; a 0.2 s hang changes no token;
+   a wedged decode call under ``attach_health`` fails every request with
+   ``AgentDeadError`` and drains the arena while still wedged; after each,
+   ``pool.check()``, no live or reserved block, the whole capacity free.
+   Each leg prints the monitor states, the fault counts, the replay count,
+   the attempts, the ms to detect and to recover, and its launches; leg
+   (e) is phase 3f's (c).  The kernels line lists each kernel's launches
+   over the legs as ``launches_resilience``; a kernel of the legs' path
+   launched no time fails the run.
 3d. Training (``phase3d``): (a) the gradients of the MMM, RMSNORM and
    FLASH_ATTN autograd Functions on the card against autograd of their
    plain versions on the card: MMM at danube's projections and unembed
@@ -274,7 +306,14 @@ Phases (any failure exits non-zero before the result lines are printed):
    device with 4 microbatches, same weights and batch (phase 3d's loss and
    grad-norm tolerances, the parameter updates' cosine); (e) a second
    2-step run over ``["hopper"] * 2`` replays the cached compiled graph
-   (one more cache hit, no new graph) with the same history.
+   (one more cache hit, no new graph) with the same history.  Its (c) is
+   phase 3g's leg (e): the death goes through
+   ``session.handle_dead_agent`` (nothing queued, 0 replayed), and a second
+   4-step run on a fresh aten agent wedges it (``FaultPlan(mode="die")``)
+   in step 2's first LM_GRAD call under a started monitor
+   (``RESILIENCE["train_timeout"]``): DEAD, the wedged and the queued call
+   replayed on the torch row, the epoch moved, the history bit-identical to
+   one member's; the monitor is stopped after it.
 4. Times at the phase-3 shapes: the median of 20 CUDA-event-timed calls of
    the kernel, its plain version and one library call, beside the least
    time the card could take (``bound_ms``).  RMSNORM and FLASH_ATTN, at the
@@ -658,6 +697,24 @@ TRAIN_COMM = {"arch": "h2o-danube-1.8b", "layers": 8, "batch": 4, "seq_len": 512
               "groups": {"1": ("hopper",), "2": ("hopper",) * 2, "4": ("hopper",) * 4,
                          "mixed": ("hopper", "aten", "hopper", "torch")},
               "death": ("hopper", "aten"), "death_steps": 4, "cache_steps": 2}
+
+#: phase 3g, resilience (DESIGN.md §11): a monitor declares a member DEAD
+#: after ``timeout`` s without a beat, swept every ``poll`` s (straggler
+#: speculation off); (a) wedges the aten member on its ``death_nth``-th
+#: device call (a few sweeps into the solve); (b) and (c) hang a call for
+#: up to ``hang_s`` (the DEAD timeout then too, so only the straggler
+#: watch acts) with speculation at ``straggler_multiple`` × the estimate,
+#: never under ``straggler_min_s``; (b)'s MMM at danube's gate projection,
+#: 512 prefill rows; (d)'s paged danube requests (prompt lengths past
+#: SKINNY_M_MAX, so prefill takes the wgmma route); 3f's monitored
+#: member death at ``train_timeout`` (an LM_GRAD call takes ~0.2 s of host)
+RESILIENCE = {"timeout": 1.0, "poll": 0.02, "death_nth": 40, "hang_s": 60.0,
+              "straggler_multiple": 1.0, "straggler_min_s": 0.05,
+              "mmm": (512, 2560, 6912), "paged_lens": (96, 80, 72), "paged_max_new": 6,
+              "paged_slots": 2, "train_timeout": 2.0}
+#: the kernels phase 3g's legs (3f's death runs included) must launch
+RESILIENCE_KERNELS = ("mmm_wgmma", "mmm_skinny", "ewise", "mvm", "vdp", "rmsnorm",
+                      "flash_attention_mma", "fused", "embed_grad")
 
 TIMED_RUNS = 20
 E2E_REPEATS = 5
@@ -4260,6 +4317,9 @@ def phase3e(dev, card):
                  f"{per_sweep(ranks_on_hopper)} and one ewise a combine on hopper")
         if unplaced:
             fail(f"group ({key}): graph nodes {unplaced[:8]} were never placed")
+        retried = [(nd.uid, nd.attempts) for nd in g.nodes if len(nd.attempts) != 1]
+        if retried:
+            fail(f"group ({key}): nodes re-placed, replayed or speculated: {retried[:8]}")
         if not set(combines) <= set(group) \
                 or sum(combines.values()) != n_combines:
             fail(f"group ({key}): combines {dict(combines)}, expected "
@@ -4327,6 +4387,395 @@ def phase3e(dev, card):
     halo.finalize()
     torch.cuda.empty_cache()
     return dict(launches), stats
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: resilience
+# ---------------------------------------------------------------------------
+def captured_jacobi(comm, a, b, d, sweeps: int):
+    """The collective Jacobi with each sweep captured as one execution graph,
+    so a member's death re-binds the next sweep's capture (the reference's
+    captured chaos drill); returns the iterate and the last residual."""
+    from repro_torch import halo
+
+    A, B, D = comm.scatter(a), comm.scatter(b), comm.scatter(d)
+    X = comm.scatter(torch.zeros_like(b))
+    res = None
+    for _ in range(sweeps):
+        with halo.graph(session=comm.session):
+            xs = comm.iallgather(X)
+            P = comm.imap("MVM", list(zip(A, xs)))
+            T = comm.imap("EWSUB", list(zip(B, P)))
+            U = comm.imap("EWMM", list(zip(D, X)))
+            V = comm.imap("EWADD", list(zip(T, U)))
+            Xn = comm.imap("EWMD", list(zip(V, D)))
+            E = comm.imap("EWSUB", list(zip(Xn, X)))
+            S = comm.imap("VDP", list(zip(E, E)))
+            R = comm.iallreduce(S, op="sum")
+        X = [nd.result(timeout=600) for nd in Xn]
+        res = float(R[0].result(timeout=600))
+    return comm.gather(X), res
+
+
+@contextlib.contextmanager
+def recovery_log(session):
+    """Record the session's self-healing while the block runs: the count
+    each ``handle_dead_agent`` call returns (the monitor's DEAD response),
+    the graph nodes the replay hook re-placed, and each monitor transition
+    with its monotonic time."""
+    from repro_torch.core.graph import ExecutionGraph
+
+    log_ = {"replayed": [], "nodes": [], "transitions": []}
+    handle, replay = session.handle_dead_agent, ExecutionGraph._replay_dead
+
+    def handle_(agent, reason="heartbeat timeout"):
+        log_["replayed"].append(handle(agent, reason))
+        return log_["replayed"][-1]
+
+    def replay_(self, item, agent):
+        log_["nodes"].append(item[0][0])
+        return replay(self, item, agent)
+
+    if session.health is not None:
+        session.health.on_transition(lambda t, old, new: log_["transitions"].append(
+            (time.monotonic(), t.name, new)))
+    session.handle_dead_agent = handle_
+    ExecutionGraph._replay_dead = replay_
+    try:
+        yield log_
+    finally:
+        del session.handle_dead_agent
+        ExecutionGraph._replay_dead = replay
+
+
+def dead_after_ms(log_, target) -> float:
+    """ms from ``target``'s last beat (the wedged call's claim, or the
+    iteration that wedged) to the monitor's DEAD transition."""
+    t_dead = next(t for t, name, new in log_["transitions"]
+                  if name == target.name and new == "dead")
+    return (t_dead - target.heartbeat()[2]) * 1e3
+
+
+def phase3g(dev, card):
+    """Resilience (DESIGN.md §11) on the card, driven through the paths
+    that launch the kernels: (a) the collective Jacobi of 3e over
+    ``["hopper", "aten"]``, eager and one captured graph a sweep, whose aten
+    member wedges mid-solve under a started monitor (DEAD, ranks re-bound
+    onto hopper, its calls replayed); (b) a straggling aten MMM raced by a
+    speculative backup on the wgmma kernel; (c) a straggling fused EW chain
+    (B13) decomposed speculatively; (d) paged danube at full width under a
+    raising, a hanging and a wedged decode step.  Returns (launches, stats)."""
+    from repro_torch import collective_jacobi as cj
+    from repro_torch import halo
+    from repro_torch.configs import get_config
+    from repro_torch.core.agents import (AgentDeadError, AgentState, HealthConfig,
+                                         HealthMonitor)
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import PagedEngine, StepScheduler
+    from repro_torch.testing.faults import FaultError, FaultPlan, chaos, engine_chaos
+
+    rs = RESILIENCE
+    launches = collections.Counter()
+    stats = {}
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def counted(fn):
+        sync()
+        _cuda.reset_launch_counts()
+        out = fn()
+        sync()
+        got = {k: v for k, v in _cuda.launch_counts().items() if v}
+        launches.update(got)
+        return out, got
+
+    def wait_for(cond, what, timeout=60.0):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > deadline:
+                fail(f"3g: {what} not reached within {timeout:g} s")
+            time.sleep(0.002)
+
+    def card_session(**health):
+        session = halo.initialize()          # device=None means the card
+        if session.device.type != "cuda":
+            fail(f"session runs on {session.device}, not the card")
+        session.enable_health_monitor(config=HealthConfig(poll_interval=rs["poll"],
+                                                          **health))
+        return session
+
+    # (a) a member's death mid-solve
+    n, sweeps, group = COLLECTIVE["n"], COLLECTIVE["sweeps"], COLLECTIVE["groups"]["b"]
+    session = card_session(heartbeat_timeout=rs["timeout"], straggler_multiple=0.0)
+    a, b, d = cj.problem(n, dev, COLLECTIVE["seed"])
+    x_ser, _ = cj.serial_jacobi(a, b, d, sweeps, "hopper")
+    stats["a"] = {}
+    for mode, solve in (("eager", cj.collective_jacobi), ("captured", captured_jacobi)):
+        comm = halo.comm_split(list(group))
+        t0 = time.perf_counter()
+        x0, _ = solve(comm, a, b, d, sweeps)
+        sync()
+        wall0 = time.perf_counter() - t0
+        comm.free()
+        comm = halo.comm_split(list(group))
+        epoch0 = comm.epoch
+        with recovery_log(session) as rec, \
+                chaos(session, FaultPlan(platform="aten", mode="die",
+                                         nth=rs["death_nth"])) as fa:
+            t0 = time.perf_counter()
+            (x, res), got = counted(lambda: solve(comm, a, b, d, sweeps))
+            wall = time.perf_counter() - t0
+            detect = dead_after_ms(rec, fa)
+            state = session.health.state(fa)
+        err, sol = normwise(x, x_ser), cj.solve_error(a, b, x)
+        differ = int((x != x0).sum())
+        attempts = collections.Counter(tuple(nd.attempts) for nd in rec["nodes"])
+        print(f"  (a) {mode} over {list(group)}: aten wedged on its device call "
+              f"{rs['death_nth']} ({fa.calls} calls, {fa.failures} failures), monitor "
+              f"state {state} {detect:.1f} ms after its last beat; handle_dead_agent "
+              f"replayed {rec['replayed']}; replayed nodes' attempts {dict(attempts)}; "
+              f"members now {list(comm.platforms)} (size {comm.size}, epoch {epoch0} -> "
+              f"{comm.epoch}); launches {got}; {differ} of {x.numel()} elements differ "
+              f"from the fault-free group run; solve {wall * 1e3:.1f} ms against "
+              f"{wall0 * 1e3:.1f} fault-free")
+        check_close(f"(a) {mode} iterate against serial hopper", err, torch.float32,
+                    COLLECTIVE_B_TOL)
+        check_close(f"(a) {mode} solve error", sol, torch.float32, COLLECTIVE_SOLVE_TOL)
+        if fa.failures < 1 or state != AgentState.DEAD or rec["replayed"] != [
+                len(rec["nodes"])] or "aten" in comm.platforms or comm.size != len(group) \
+                or comm.epoch == epoch0:
+            fail(f"(a) {mode}: the member's death was not repaired: failures "
+                 f"{fa.failures}, state {state}, replayed {rec['replayed']} for "
+                 f"{len(rec['nodes'])} nodes, members {comm.platforms}, epoch "
+                 f"{comm.epoch}")
+        if not all(got.get(k, 0) > sweeps for k in ("mvm", "vdp")) \
+                or got.get("ewise", 0) <= 5 * sweeps:
+            fail(f"(a) {mode}: hopper did not take the dead member's sweeps: {got}")
+        stats["a"][mode] = {"detect_ms": detect, "replayed": rec["replayed"],
+                            "solve_ms": wall * 1e3, "fault_free_ms": wall0 * 1e3,
+                            "launches": got, "differ_from_fault_free": differ,
+                            "iterate_err": err, "solve_error": sol}
+        del rec, x, x0
+    del a, b, d, x_ser
+    torch.cuda.empty_cache()
+
+    # (b) straggler speculation onto the wgmma MMM
+    session = card_session(heartbeat_timeout=rs["hang_s"],
+                           straggler_multiple=rs["straggler_multiple"],
+                           straggler_min_s=rs["straggler_min_s"])
+    m, k, nn = rs["mmm"]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x_a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    x_b = (torch.randn((k, nn), generator=gen, device=dev) * k ** -0.5).to(torch.bfloat16)
+    want = halo.dispatch("MMM", x_a, x_b, overrides={"allowed_platforms": ["hopper"],
+                                                     "platform_preference": ["hopper"]})
+    sync()
+    both = ["aten", "hopper"]
+    with chaos(session, FaultPlan(platform="aten", mode="hang", delay_s=rs["hang_s"])) as fa:
+        cr = halo.claim("MMM", overrides={"allowed_platforms": both,
+                                          "platform_preference": both})
+
+        def straggle():
+            t0 = time.perf_counter()
+            with halo.graph():
+                node = halo.isend((x_a, x_b), cr)
+            out = node.result(timeout=60)
+            return node, out, (time.perf_counter() - t0) * 1e3
+
+        (node, out, won_ms), got = counted(straggle)
+        ready = node._ready
+        fa.release()                        # the late aten attempt lands now
+        wait_for(lambda: not fa.heartbeat()[1], "the late aten attempt")
+        sync()
+    same = torch.equal(bits(out), bits(want))
+    print(f"  (b) MMM {m}x{k} @ {k}x{nn} bfloat16 over {both}, aten hung: attempts "
+          f"{node.attempts}, ran on {node.platform}, result in {won_ms:.1f} ms; "
+          f"launches {got}; torch.equal to a direct hopper dispatch {same}; after the "
+          f"late aten result the ready event is the backup's: {node._ready is ready}")
+    if node.attempts != ["aten", "hopper+spec"] or node.platform != "hopper" \
+            or not same or node._ready is not ready or ready is None \
+            or node.result(timeout=0) is not out or got != {"mmm_wgmma": 1}:
+        fail("(b) the straggler's backup did not win on the wgmma kernel, or the late "
+             "result overwrote it")
+    stats["b"] = {"attempts": node.attempts, "backup_ms": won_ms, "launches": got}
+    del node, out, want, x_a, x_b, ready
+
+    # (c) a fused straggler decomposes, its member chain off hopper
+    nw = GRAPH["ew_n"]
+    w = {key: torch.randn((nw, nw), generator=gen, device=dev) for key in "abcd"}
+    w["e"] = torch.randn((nw, nw), generator=gen, device=dev).abs() + 1.0
+    spec = ["hopper", "torch"]
+    claims = {ov: {al: halo.claim(al, overrides={"allowed_platforms": list(ov),
+                                                 "platform_preference": list(ov)})
+                   for al in ("EWMM", "EWADD", "EWSUB", "EWMD")}
+              for ov in (("hopper",), ("torch",), tuple(spec))}
+
+    def serial(ov):
+        def send(al, p_):
+            halo.send(p_, claims[ov][al])
+            return halo.recv(claims[ov][al])
+        return ew_program(send, w)[0]
+
+    ref_hop, ref_torch = serial(("hopper",)), serial(("torch",))
+    with halo.graph(launch=False) as g:
+        ew_program(lambda al, p_: halo.isend(p_, claims[tuple(spec)][al]), w)
+    cg = g.compile()
+    (alias,) = cg.stats["fused_aliases"]
+    with chaos(session, FaultPlan(platform="hopper", mode="hang", delay_s=rs["hang_s"],
+                                  aliases=[alias])) as fa:
+        def hang_fused():
+            t0 = time.perf_counter()
+            gr = cg.replay_async()
+            out = gr.wait(timeout=60)[-1]    # the chain wins while the fused call hangs
+            won_ms = (time.perf_counter() - t0) * 1e3
+            hung, ready = fa.heartbeat()[1], gr.nodes[0]._ready
+            fa.release()                     # the late fused launch lands now
+            wait_for(lambda: not fa.heartbeat()[1], "the late fused attempt")
+            gr.wait_device()
+            return gr, out, won_ms, hung, ready
+
+        (gr, out, won_ms, hung, ready), got = counted(hang_fused)
+    node = gr.nodes[0]
+    shadows = [nd for nd in gr.nodes if nd._shadow]
+    same, same_hop = torch.equal(bits(out), bits(ref_torch)), torch.equal(bits(out),
+                                                                         bits(ref_hop))
+    print(f"  (c) fused {alias} over {spec}, its hopper call hung: attempts "
+          f"{node.attempts}, ran on {node.platform}; shadow members "
+          f"{[(nd.alias, nd.platform) for nd in shadows]}, result in {won_ms:.1f} ms "
+          f"with the fused call still hung: {hung}; launches {got} (the late fused "
+          f"call's); torch.equal to serial dispatch on the torch rows {same}, on hopper "
+          f"{same_hop}; after the late fused call the ready event is the chain's: "
+          f"{node._ready is ready}")
+    if "decomposed+spec" not in node.attempts or node.platform != "torch" or not hung \
+            or [nd.platform for nd in shadows] != ["torch"] * 4 or not same \
+            or node._ready is not ready or ready is not shadows[-1]._ready \
+            or got != {"fused": 1}:
+        fail("(c) the fused straggler's member chain did not win off hopper, or "
+             "differs from serial dispatch")
+    stats["c"] = {"attempts": node.attempts, "chain_ms": won_ms, "launches": got,
+                  "equal_to_serial_hopper": same_hop}
+    del w, ref_hop, ref_torch, out, gr, node, shadows, cg, g, ready
+    halo.finalize()
+    torch.cuda.empty_cache()
+
+    # (d) paged danube at full width
+    cfg = get_config(SERVE["arch"])
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SERVE["seed"]))
+    session = halo.initialize()
+    gen = torch.Generator(device=dev).manual_seed(SERVE["seed"] + 1)
+    prompts = [torch.randint(0, cfg.vocab_size, (length,), generator=gen, device=dev).tolist()
+               for length in rs["paged_lens"]]
+    max_new = rs["paged_max_new"]
+    max_len = max(rs["paged_lens"]) + max_new + cfg.prefix_len + 8
+
+    def paged():
+        engine = PagedEngine(model, params, rs["paged_slots"], max_len,
+                             block_size=SERVE_PAGED["block_size"], chunk_tokens=0)
+        return engine, StepScheduler(engine, temperature=0.0, seed=SERVE["seed"])
+
+    def drained(engine, case):
+        pool = engine.pool
+        pool.check()
+        if pool.live_blocks() or pool.reserved or pool.available() != pool.capacity:
+            fail(f"(d) {case}: the arena did not drain: {pool.live_blocks()} live, "
+                 f"{pool.reserved} reserved, {pool.available()} of {pool.capacity}")
+
+    def submit_all(sched):
+        return [sched.submit(p_, max_new=max_new) for p_ in prompts]
+
+    engine, sched = paged()
+
+    def fault_free():
+        futs = submit_all(sched)
+        sched.drain()
+        return [f.result(timeout=60) for f in futs]
+
+    expect, got_free = counted(fault_free)
+    drained(engine, "fault-free")
+    stats["d"] = {"launches": {"fault_free": got_free}}
+
+    engine, sched = paged()
+
+    def raising():
+        futs = submit_all(sched)
+        with engine_chaos(engine, mode="raise", nth=2, times=1) as fault:
+            try:
+                while sched.busy():          # the 2nd batched decode call raises
+                    sched.step()
+                fail("(d) raise: the injected decode fault never surfaced")
+            except FaultError:
+                pass
+            lanes = [type(f.exception(timeout=5)).__name__ for f in futs[:2]]
+            sched.drain()                    # the queued request still serves
+        return fault, lanes, futs[2].result(timeout=60)
+
+    (fault, lanes, third), got = counted(raising)
+    drained(engine, "raise")
+    print(f"  (d) paged {cfg.name} at full width, {len(prompts)} requests of "
+          f"{list(rs['paged_lens'])} tokens on {rs['paged_slots']} slots: raise at the "
+          f"2nd decode call ({fault.failures} failure): in-flight lanes {lanes}; the "
+          f"queued request equals the fault-free run's tokens: {third == expect[2]}; "
+          f"launches {got}; arena drained")
+    if lanes != ["FaultError"] * 2 or third != expect[2] or sched.completed != 1:
+        fail("(d) raise: the in-flight lanes or the queued request went wrong")
+    stats["d"]["launches"]["raise"] = got
+
+    engine, sched = paged()
+
+    def hanging():
+        with engine_chaos(engine, mode="hang", nth=2, times=1, delay_s=0.2) as fault:
+            futs = submit_all(sched)
+            sched.drain()
+        return fault, [f.result(timeout=60) for f in futs]
+
+    (fault, toks), got = counted(hanging)
+    drained(engine, "hang")
+    print(f"  (d) hang 0.2 s at the 2nd decode call ({fault.failures} failure): every "
+          f"request equals the fault-free run's tokens: {toks == expect}; launches {got}; "
+          f"arena drained")
+    if toks != expect or fault.failures != 1:
+        fail("(d) hang: the straggling decode changed the tokens")
+    stats["d"]["launches"]["hang"] = got
+
+    engine, sched = paged()
+    mon = HealthMonitor(HealthConfig(heartbeat_timeout=rs["timeout"], poll_interval=rs["poll"]))
+    sched.attach_health(mon)
+    trans = []
+    mon.on_transition(lambda t, old, new: trans.append((time.monotonic(), t.name, new)))
+
+    def dying():
+        with engine_chaos(engine, mode="die", nth=1) as fault, mon:
+            sched.start()
+            futs = submit_all(sched)
+            wait_for(lambda: fault.calls >= 1, "the wedged decode call")
+            errors = [type(f.exception(timeout=30)).__name__ for f in futs]
+            t_failed = time.monotonic()
+            last_beat = sched.heartbeat()[2]     # the wedged iteration's
+            wedged = not fault._release.is_set()
+            drained(engine, "die")           # while the decode call is still wedged
+        sched.stop(drain=False)
+        return errors, t_failed, last_beat, wedged
+
+    (errors, t_failed, last_beat, wedged), got = counted(dying)
+    t_dead = next(t for t, name, new in trans if name == sched.name and new == "dead")
+    detect = (t_dead - last_beat) * 1e3
+    print(f"  (d) die at the 1st decode call: the monitor declared {sched.name} "
+          f"{mon.state(sched)} {detect:.1f} ms after its last beat; futures {errors} "
+          f"{(t_failed - t_dead) * 1e3:.1f} ms later; the arena drained while the call "
+          f"was still wedged: {wedged}; launches {got}")
+    if errors != [AgentDeadError.__name__] * len(prompts) or not wedged \
+            or sched.pending() or sched.active():
+        fail("(d) die: the wedged scheduler's requests did not fail with AgentDeadError")
+    stats["d"]["launches"]["die"] = got
+    stats["d"]["detect_ms"] = detect
+    del model, params, engine, sched
+    halo.finalize()
+    torch.cuda.empty_cache()
+    print(f"  launches in the phase: {dict(launches)}")
+    return launches, stats
 
 
 # ---------------------------------------------------------------------------
@@ -4686,12 +5135,14 @@ def phase3f(dev):
 
     from repro_torch import halo
     from repro_torch.configs import get_config
+    from repro_torch.core.agents import AtenAgent, HealthConfig
     from repro_torch.core.c2mpi import halo_dispatch
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import _cuda
     from repro_torch.kernels.embed_grad.embed_grad import embed_grad_hopper
     from repro_torch.kernels.embed_grad.ref import embed_grad_ref
     from repro_torch.models import build_model
+    from repro_torch.testing.faults import FaultPlan, chaos
     from repro_torch.train import step_kernels, trainer
 
     tc = TRAIN_COMM
@@ -4822,11 +5273,11 @@ def phase3f(dev):
             self.t0 = time.perf_counter()
             return batch_
 
-    def run(platforms, steps, params=None, kill_before=None, profiled=False):
+    def run(platforms, steps, params=None, on_draw=None, profiled=False):
         """A comm-mode run over ``platforms`` from the seed's weights (or
-        ``params``); ``kill_before`` = (step, platform) declares that member
-        dead when the step's batch is drawn.  Returns (state, history, step
-        records, [(epoch, compiled graph) per capture], metrics, comm)."""
+        ``params``); ``on_draw(step)`` runs as each step's batch is drawn
+        (the member-death drills).  Returns (state, history, step records,
+        [(epoch, compiled graph) per capture], metrics, comm)."""
         comm = session.comm_split(list(platforms))
         tr = trainer.Trainer(model=model, hp=hp, comm=comm, arch=name, log_every=1)
         captures = []
@@ -4838,9 +5289,8 @@ def phase3f(dev):
             return cg_, slots
 
         def data_fn(step):
-            if kill_before is not None and step == kill_before[0]:
-                if not comm.on_member_dead(kill_before[1]):
-                    fail(f"{kill_before[1]} was no member of {comm}")
+            if on_draw is not None:
+                on_draw(step)
             return data(step)
 
         tr._capture_comm_step = capture
@@ -4897,18 +5347,64 @@ def phase3f(dev):
               f"{need['gb']:.1f} GB for the widest group's step)")
         torch.cuda.empty_cache()
 
-        # (c) a member's death between steps 1 and 2
+        # (c) a member's death (phase 3g's leg (e)): declared through the
+        # session before step 2 (the reference's drill), then found by a
+        # started monitor when the member wedges in step 2's first LM_GRAD
         _, ref_hist, *_ = run(("hopper",), tc["death_steps"])
-        _, hist, _, caps, _, comm = run(tc["death"], tc["death_steps"],
-                                        kill_before=(2, tc["death"][1]))
+        victim = tc["death"][1]
+        res_launches = collections.Counter()
+        replayed = []
+
+        def declare(step):
+            if step == 2 and not replayed:
+                replayed.append(session.handle_dead_agent(session.agents[victim],
+                                                          reason="chaos drill"))
+
+        _, hist, recs, caps, _, comm = run(tc["death"], tc["death_steps"], on_draw=declare)
+        for rec in recs:
+            res_launches.update(rec["launches"])
         epochs = [e for e, _ in caps]
-        print(f"  (c) {list(tc['death'])}: {tc['death'][1]} dies before step 2: members "
-              f"now {list(comm.platforms)}, captures at epochs {epochs}; "
-              f"{tc['death_steps']}-step history bit-identical to one member's: "
-              f"{hist == ref_hist}")
-        if comm.epoch == 0 or epochs != [0, comm.epoch] or hist != ref_hist \
-                or tc["death"][1] in comm.platforms:
+        print(f"  (c) {list(tc['death'])}: handle_dead_agent({victim}) before step 2 "
+              f"replayed {replayed}: members now {list(comm.platforms)}, captures at "
+              f"epochs {epochs}; {tc['death_steps']}-step history bit-identical to one "
+              f"member's: {hist == ref_hist}")
+        if replayed != [0] or not session.agents[victim].dead or comm.epoch == 0 \
+                or epochs != [0, comm.epoch] or hist != ref_hist or victim in comm.platforms:
             fail("the member-death run did not recapture or differs from one member's")
+        session.attach_agent(AtenAgent())        # an operator's re-registration
+        mon = session.enable_health_monitor(config=HealthConfig(
+            heartbeat_timeout=RESILIENCE["train_timeout"],
+            poll_interval=RESILIENCE["poll"], straggler_multiple=0.0))
+        with recovery_log(session) as rlog, \
+                chaos(session, FaultPlan(platform=victim, mode="die", nth=10 ** 6,
+                                         aliases=["LM_GRAD"])) as fa:
+            def arm(step):                        # wedge at step 2's first LM_GRAD
+                if step == 2:
+                    fa.plan = dataclasses.replace(fa.plan, nth=fa.calls + 1)
+
+            _, hist2, recs2, caps2, _, comm2 = run(tc["death"], tc["death_steps"],
+                                                   on_draw=arm)
+            detect = dead_after_ms(rlog, fa)
+            state = mon.state(fa)
+        mon.stop()
+        for rec in recs2:
+            res_launches.update(rec["launches"])
+        epochs2 = [e for e, _ in caps2]
+        attempts = [nd.attempts for nd in rlog["nodes"]]
+        print(f"  (c) {list(tc['death'])} under a started monitor: {victim} wedged in its "
+              f"LM_GRAD call {fa.plan.nth} ({fa.calls} calls, {fa.failures} failure), "
+              f"{state} {detect:.1f} ms after its last beat; handle_dead_agent replayed "
+              f"{rlog['replayed']}, attempts {attempts}; step 2 took "
+              f"{recs2[2]['host_ms']:.1f} ms (step 3 {recs2[3]['host_ms']:.1f}); members "
+              f"now {list(comm2.platforms)}, captures at epochs {epochs2}; history "
+              f"bit-identical to one member's: {hist2 == ref_hist}; launches of both "
+              f"death runs {dict(res_launches)}")
+        if fa.failures != 1 or state != "dead" or rlog["replayed"] != [len(attempts)] \
+                or not attempts or any(a_[-1] == victim for a_ in attempts) \
+                or epochs2 != [0, comm2.epoch] or comm2.epoch == 0 or hist2 != ref_hist \
+                or victim in comm2.platforms:
+            fail("the monitored member death was not repaired bit-identically")
+        del rlog
 
         # (d) step 1 against the single-device trainer with the same microbatches
         params = weights()
@@ -4987,7 +5483,10 @@ def phase3f(dev):
              "groups": {label: {"history": r[0], "steps": r[2], "metrics": r[3]}
                         for label, r in results.items()},
              "embed_grad_bits": eq, "atomic_backward_differing": differ,
-             "death_history": hist, "step1": {"loss": [c_hist[0][1], s_hist[0][1]],
+             "death_history": hist, "death_monitor": {"detect_ms": detect,
+                                                      "step_ms": [r["host_ms"] for r in recs2],
+                                                      "attempts": attempts},
+             "resilience_launches": dict(res_launches), "step1": {"loss": [c_hist[0][1], s_hist[0][1]],
                                               "grad_norm": [c_mets[0]["grad_norm"],
                                                             single["grad_norm"]],
                                               "update_cosine": upd_cos}}
@@ -5947,6 +6446,7 @@ def phase4(dev, jobs, launches, max_abs, e2e, card_name, serve_launches,
         for leg in NEW_LEG_PATHS:
             if path_launches[leg].get(name):
                 entry[f"launches_{leg}"] = path_launches[leg][name]
+        entry["launches_resilience"] = path_launches["resilience"].get(name, 0)
         if name == "fused":
             print(f"  fused: four serial EW launches {times['serial_ewise_ms']:.4f} ms")
         if name in ("flash_attention_mma", "flash_attention_tf32x3"):
@@ -6014,6 +6514,8 @@ def main() -> None:
     _cuda.lib()
     card = card_line()
     print(f"  card: {card}")
+    from repro_torch.core.config import halo_config
+    print(f"  knobs: {halo_config()} (the health monitor runs in phase 3g only)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"  torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -6072,6 +6574,12 @@ def main() -> None:
     _, collective_stats = phase3e(dev, card)
     seconds["3e collectives"] = time.perf_counter() - t0
     print(json.dumps({"collectives": collective_stats}))
+    print(f"phase 3g: resilience — a member's death, stragglers and a wedged decode "
+          f"step on {card}")
+    t0 = time.perf_counter()
+    resilience_launches, resilience_stats = phase3g(dev, card)
+    seconds["3g resilience"] = time.perf_counter() - t0
+    print(json.dumps({"resilience": resilience_stats}))
     print(f"phase 3d: training {TRAIN['arch']} at full width and depth on the kernels")
     t0 = time.perf_counter()
     path_launches["train"], train_stats = phase3d(dev)
@@ -6083,6 +6591,12 @@ def main() -> None:
     path_launches["train_comm"], train_comm_stats = phase3f(dev)
     seconds["3f train comm"] = time.perf_counter() - t0
     print(json.dumps({"train_comm": train_comm_stats}))
+    # phase 3g's legs and 3f's member-death runs (3g's leg (e))
+    resilience_launches.update(train_comm_stats["resilience_launches"])
+    path_launches["resilience"] = dict(resilience_launches)
+    missing = [k for k in RESILIENCE_KERNELS if not resilience_launches.get(k)]
+    if missing:
+        fail(f"the resilience legs launched no {missing}")
     print(f"phase 4: times (median of 20 CUDA-event-timed calls) on {card}")
     t0 = time.perf_counter()
     kernels = phase4(dev, jobs, launches, max_abs, e2e, card.split(",")[0],

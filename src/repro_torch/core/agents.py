@@ -25,6 +25,14 @@ and fail-safe re-placement.  Inside a ``halo_graph()`` capture region
 (DESIGN.md §8) ``dispatch`` and ``isend`` record graph nodes instead.
 :meth:`RuntimeAgent.comm_split` makes device groups over the agents
 (``core/collective.py``, DESIGN.md §10).
+
+Liveness (DESIGN.md §11): every agent's worker beats on each claim and
+completion; a :class:`HealthMonitor` marks a busy agent whose beats stall
+DEGRADED, then DEAD, and the session then re-binds the dead agent's group
+ranks and replays its unfinished requests on healthy agents
+(:meth:`RuntimeAgent.handle_dead_agent`).  The monitor is off unless a
+session asks for it (``health=``, :meth:`RuntimeAgent.enable_health_monitor`
+or ``HALO_HEALTH_MONITOR``).
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from .compute_object import BufferHandle, as_compute_object
+from .config import halo_config
 from .manifest import Manifest, default_manifest
 from .registry import (GLOBAL_REGISTRY, KernelRecord, KernelRegistry,
                        SelectionError)
@@ -261,6 +270,231 @@ class HaloFuture:
 
 
 # ---------------------------------------------------------------------------
+# Agent liveness (DESIGN.md §11)
+# ---------------------------------------------------------------------------
+class AgentState:
+    """Liveness states the :class:`HealthMonitor` assigns to a target."""
+    HEALTHY = "healthy"
+    DEGRADED = "degraded"    # busy with no progress past the degraded window
+    DEAD = "dead"            # no progress past the heartbeat timeout (sticky)
+
+
+class AgentDeadError(RuntimeError):
+    """An agent was declared dead: raised on new submissions to it, and used
+    to fail or re-place work that cannot be recovered from its queue."""
+
+
+#: share of the heartbeat timeout after which a stalled busy agent is DEGRADED
+DEGRADED_FRACTION = 0.5
+
+
+@dataclasses.dataclass
+class HealthConfig:
+    """Knobs for liveness detection and straggler speculation.
+
+    ``heartbeat_timeout`` is the full detection budget: a busy agent whose
+    worker makes no progress for that long is DEAD (DEGRADED past
+    :data:`DEGRADED_FRACTION` of it).  ``straggler_multiple`` arms speculative
+    re-execution of graph nodes that run past that multiple of their
+    estimated latency (never earlier than ``straggler_min_s``; 0 disables).
+    """
+
+    heartbeat_timeout: float = 30.0
+    poll_interval: Optional[float] = None    # None -> heartbeat_timeout / 4
+    straggler_multiple: float = 4.0
+    straggler_min_s: float = 0.25
+
+    @classmethod
+    def from_env(cls, **overrides: Any) -> "HealthConfig":
+        """Build from :func:`repro_torch.core.config.halo_config`
+        (``HALO_HEARTBEAT_TIMEOUT`` / ``HALO_HEALTH_POLL`` /
+        ``HALO_STRAGGLER_MULTIPLE`` / ``HALO_STRAGGLER_MIN`` plus
+        ``halo.configure(...)`` overrides), explicit keyword overrides
+        winning."""
+        hc = halo_config()
+        cfg = {"heartbeat_timeout": hc.heartbeat_timeout,
+               "poll_interval": hc.health_poll,
+               "straggler_multiple": hc.straggler_multiple,
+               "straggler_min_s": hc.straggler_min_s}
+        cfg.update(overrides)
+        return cls(**cfg)
+
+    @property
+    def effective_poll(self) -> float:
+        if self.poll_interval:
+            return self.poll_interval
+        return max(self.heartbeat_timeout / 4.0, 1e-3)
+
+
+class HealthMonitor:
+    """Marks heartbeat targets DEGRADED/DEAD on missed beats (DESIGN.md §11).
+
+    A *target* is anything exposing ``name`` and ``heartbeat() ->
+    (progress_counter, busy, last_activity)`` — virtualization agents and
+    the serving :class:`~repro_torch.serve.engine.StepScheduler` both
+    qualify.  An idle target is always HEALTHY; a busy one whose progress
+    counter has not advanced (equivalently: ``last_activity`` not
+    refreshed) within the configured windows degrades, then dies.  DEAD is
+    sticky: recovery is an explicit re-registration.
+
+    Beats count host progress: an agent beats when its worker claims a
+    request and when the request's thunk returns, and on the card a
+    hopper or aten thunk returns once its kernels are *launched*.  Device
+    completion is not counted, so a kernel still running on the card never
+    stalls a beat, and a worker wedged on the host (a hung launch, a lost
+    lock) does.
+
+    The monitor doubles as the deadline service for straggler speculation:
+    :meth:`watch` registers a one-shot callback fired when its deadline
+    passes.  Sweeps happen on the background thread (:meth:`start`) or
+    synchronously via :meth:`check`, which tests drive with a scripted
+    clock."""
+
+    def __init__(self, config: Optional[HealthConfig] = None):
+        self.config = config or HealthConfig.from_env()
+        self._lock = threading.Lock()
+        self._targets: Dict[str, Any] = {}
+        self._states: Dict[str, str] = {}
+        self._listeners: List[Callable[[Any, str, str], None]] = []
+        self._watches: Dict[int, Tuple[float, Callable[[], None]]] = {}
+        self._watch_uid = 0
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+
+    # -- registration --------------------------------------------------------
+    def register(self, target: Any) -> None:
+        """Track ``target``; re-registering a name resets it to HEALTHY."""
+        with self._lock:
+            self._targets[target.name] = target
+            self._states[target.name] = AgentState.HEALTHY
+
+    def unregister(self, target_or_name: Any) -> None:
+        name = getattr(target_or_name, "name", target_or_name)
+        with self._lock:
+            self._targets.pop(name, None)
+            self._states.pop(name, None)
+
+    def on_transition(self, listener: Callable[[Any, str, str], None]) -> None:
+        """``listener(target, old_state, new_state)`` on every change."""
+        with self._lock:
+            self._listeners.append(listener)
+
+    def state(self, target_or_name: Any) -> str:
+        name = getattr(target_or_name, "name", target_or_name)
+        with self._lock:
+            return self._states.get(name, AgentState.HEALTHY)
+
+    # -- straggler watch service ---------------------------------------------
+    def watch(self, deadline: float, callback: Callable[[], None]) -> int:
+        """Fire ``callback`` once on the first sweep after ``deadline``
+        (``time.monotonic`` clock); returns a token for :meth:`unwatch`."""
+        with self._lock:
+            self._watch_uid += 1
+            self._watches[self._watch_uid] = (deadline, callback)
+            return self._watch_uid
+
+    def unwatch(self, token: Optional[int]) -> None:
+        if token is None:
+            return
+        with self._lock:
+            self._watches.pop(token, None)
+
+    # -- sweeping ------------------------------------------------------------
+    def _classify(self, busy: bool, stalled: float) -> str:
+        cfg = self.config
+        if not busy:
+            return AgentState.HEALTHY
+        if stalled >= cfg.heartbeat_timeout:
+            return AgentState.DEAD
+        if stalled >= cfg.heartbeat_timeout * DEGRADED_FRACTION:
+            return AgentState.DEGRADED
+        return AgentState.HEALTHY
+
+    def _notify(self, listeners, target: Any, old: str, new: str) -> None:
+        for listener in listeners:
+            try:
+                listener(target, old, new)
+            except Exception:
+                log.exception("health-transition listener raised")
+
+    def check(self, now: Optional[float] = None) -> Dict[str, str]:
+        """One synchronous liveness sweep + expired-watch firing; returns
+        the post-sweep state map."""
+        now = time.monotonic() if now is None else now
+        transitions: List[Tuple[Any, str, str]] = []
+        with self._lock:
+            targets = list(self._targets.items())
+        for name, target in targets:
+            try:
+                _beats, busy, last = target.heartbeat()
+            except Exception:
+                log.exception("heartbeat() raised for %s", name)
+                continue
+            new = self._classify(busy, now - last)
+            with self._lock:
+                old = self._states.get(name, AgentState.HEALTHY)
+                if old == AgentState.DEAD or new == old:
+                    continue
+                self._states[name] = new
+            transitions.append((target, old, new))
+        with self._lock:
+            due = [(tok, cb) for tok, (dl, cb) in self._watches.items()
+                   if dl <= now]
+            for tok, _cb in due:
+                del self._watches[tok]
+            listeners = list(self._listeners)
+        for target, old, new in transitions:
+            self._notify(listeners, target, old, new)
+        for _tok, cb in due:
+            try:
+                cb()
+            except Exception:
+                log.exception("straggler watch callback raised")
+        with self._lock:
+            return dict(self._states)
+
+    def mark_dead(self, target_or_name: Any) -> None:
+        """Administratively force a target DEAD (listeners fire as usual)."""
+        name = getattr(target_or_name, "name", target_or_name)
+        with self._lock:
+            target = self._targets.get(name)
+            old = self._states.get(name, AgentState.HEALTHY)
+            if target is None or old == AgentState.DEAD:
+                return
+            self._states[name] = AgentState.DEAD
+            listeners = list(self._listeners)
+        self._notify(listeners, target, old, AgentState.DEAD)
+
+    # -- background sweeper --------------------------------------------------
+    def start(self) -> "HealthMonitor":
+        with self._lock:
+            if self._thread is not None and self._thread.is_alive():
+                return self
+            self._stop.clear()
+            self._thread = threading.Thread(
+                target=self._loop, name="halo-health-monitor", daemon=True)
+            self._thread.start()
+        return self
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.config.effective_poll):
+            self.check()
+
+    def stop(self) -> None:
+        with self._lock:
+            thread, self._thread = self._thread, None
+        self._stop.set()
+        if thread is not None and thread.is_alive():
+            thread.join(timeout=5.0)
+
+    def __enter__(self) -> "HealthMonitor":
+        return self.start()
+
+    def __exit__(self, *exc_info) -> None:
+        self.stop()
+
+
+# ---------------------------------------------------------------------------
 # Virtualization agents
 # ---------------------------------------------------------------------------
 class VirtualizationAgent:
@@ -281,6 +515,13 @@ class VirtualizationAgent:
         self._queue: "queue.Queue" = queue.Queue()
         self._worker: Optional[threading.Thread] = None
         self._shutdown = False
+        # liveness (DESIGN.md §11): worker-loop progress counter + last-
+        # activity timestamp, read by the HealthMonitor via heartbeat()
+        self._beats = 0
+        self._last_beat = time.monotonic()
+        self._current: Optional[tuple] = None    # item the worker is running
+        self._dead = False
+        self._dead_reason = ""
 
     # -- asynchronous execution (worker queue) -------------------------------
     def _ensure_worker(self) -> None:
@@ -291,25 +532,36 @@ class VirtualizationAgent:
                 daemon=True)
             self._worker.start()
 
+    def _beat(self, item: Optional[tuple]) -> None:
+        """Worker progress tick: claims (item) and completions (None)."""
+        with self._lock:
+            self._beats += 1
+            self._last_beat = time.monotonic()
+            self._current = item
+
     def _worker_loop(self) -> None:
         while True:
             # drop the last request before waiting for the next: its thunk
             # holds its graph and every result in it, which would otherwise
-            # stay alive as long as this agent sits idle
-            item = fut = fn = after = result = None
+            # stay alive as long as this agent sits idle (``_current`` is
+            # cleared by the completion beat for the same reason)
+            item = fut = fn = after = replay = result = None
             item = self._queue.get()
             if item is None:
                 return
-            fut, fn, after = item
+            fut, fn, after, replay = item
             if not fut._try_start():      # cancelled while queued
                 continue
+            self._beat(item)
             t0 = time.perf_counter()
             try:
                 result = fn()
             except BaseException as exc:  # noqa: BLE001 — propagate via future
                 fut.set_exception(exc)
+                self._beat(None)
                 continue
             fut.set_result(result)        # waiters proceed before bookkeeping
+            self._beat(None)
             if after is not None:
                 try:
                     after(result, t0)
@@ -317,18 +569,67 @@ class VirtualizationAgent:
                     log.exception("post-execution hook raised")
 
     def submit(self, fn: Callable[[], Any], future: Optional[HaloFuture] = None,
-               after: Optional[Callable[[Any, float], None]] = None) -> HaloFuture:
+               after: Optional[Callable[[Any, float], None]] = None,
+               replay: Optional[Callable[[], None]] = None) -> HaloFuture:
         """Enqueue a thunk on this agent's worker; returns its future.
 
         ``after(result, start_time)`` runs on the worker after the future is
-        completed — used for latency feedback without delaying waiters."""
+        completed — used for latency feedback without delaying waiters.
+        ``replay()`` is the recovery hook: if this agent is declared DEAD
+        with the item still incomplete, the session calls it (instead of
+        re-running ``fn``) so the owner can re-place the work."""
         fut = future or HaloFuture()
         with self._lock:
+            if self._dead:
+                raise AgentDeadError(
+                    f"agent {self.name} is dead ({self._dead_reason})")
             if self._shutdown:
                 raise RuntimeError(f"agent {self.name} is shut down")
             self._ensure_worker()
-            self._queue.put((fut, fn, after))
+            # the beat clock restarts when a busy period begins; refreshing
+            # it on every submit would let a steady caller mask a hung worker
+            if self._current is None and self._queue.empty():
+                self._last_beat = time.monotonic()
+            self._queue.put((fut, fn, after, replay))
         return fut
+
+    def heartbeat(self) -> Tuple[int, bool, float]:
+        """Liveness snapshot: ``(progress_counter, busy, last_activity)``.
+        ``busy`` means a request is running or queued — an idle agent is
+        healthy no matter how stale its timestamp."""
+        with self._lock:
+            busy = self._current is not None or not self._queue.empty()
+            return self._beats, busy, self._last_beat
+
+    @property
+    def dead(self) -> bool:
+        return self._dead
+
+    def mark_dead(self, reason: str = "declared dead") -> List[tuple]:
+        """Declare this agent dead: refuse new submissions, report
+        unavailable, and hand back every not-yet-completed work item — the
+        claimed in-flight one first, then the queue in FIFO order — for the
+        session to replay onto healthy agents.  The hung worker thread is
+        left behind; if it ever finishes, its late result loses the
+        first-completion race on the future.  Idempotent."""
+        with self._lock:
+            if self._dead:
+                return []
+            self._dead = True
+            self._dead_reason = reason
+            items: List[tuple] = []
+            if self._current is not None and not self._current[0].done():
+                items.append(self._current)
+            while True:
+                try:
+                    item = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                if item is not None and not item[0].done():
+                    items.append(item)
+            # wake an idle worker so the thread exits instead of lingering
+            self._queue.put(None)
+        return items
 
     def shutdown(self, cancel_pending: bool = True, wait: bool = True) -> None:
         """Stop the worker; optionally cancel still-queued requests."""
@@ -366,7 +667,7 @@ class VirtualizationAgent:
         return record.fn(*args, **kwargs)
 
     def available(self) -> bool:
-        return True
+        return not self._dead
 
     def execute(self, record: KernelRecord, *args, **kwargs):
         args, kwargs = self._ingest(record, args, kwargs)
@@ -449,7 +750,8 @@ class RuntimeAgent:
                  manifest: Optional[Manifest] = None,
                  agents: Optional[Sequence[VirtualizationAgent]] = None,
                  scheduler: Optional[CostModelScheduler] = None,
-                 device="cuda"):
+                 device="cuda",
+                 health: Optional[HealthMonitor] = None):
         self.device = torch.device(device)
         self.registry = registry or GLOBAL_REGISTRY
         self.manifest = manifest or default_manifest()
@@ -474,6 +776,122 @@ class RuntimeAgent:
         # CompiledGraph, LRU-bounded by ``fusion.GRAPH_CACHE``
         self._compiled_graphs: "collections.OrderedDict[str, Any]" = \
             collections.OrderedDict()
+        # liveness (DESIGN.md §11): monitor off by default — sessions opt in
+        # via the constructor, enable_health_monitor(), or HALO_HEALTH_MONITOR
+        self.health: Optional[HealthMonitor] = None
+        if health is not None:
+            self.enable_health_monitor(monitor=health, start=False)
+        elif halo_config().health_monitor:
+            self.enable_health_monitor()
+
+    # -- agent interoperability (plug-and-play, §V-A5) -------------------------
+    def attach_agent(self, agent: VirtualizationAgent) -> None:
+        with self._lock:
+            self.agents[agent.platform] = agent
+        if self.health is not None:
+            self.health.register(agent)
+
+    def detach_agent(self, platform: str) -> Optional[VirtualizationAgent]:
+        with self._lock:
+            agent = self.agents.pop(platform, None)
+        if agent is not None and self.health is not None:
+            self.health.unregister(agent)
+        return agent
+
+    # -- liveness + self-healing (DESIGN.md §11) -------------------------------
+    def enable_health_monitor(self, config: Optional[HealthConfig] = None,
+                              monitor: Optional[HealthMonitor] = None,
+                              start: bool = True) -> HealthMonitor:
+        """Wire a :class:`HealthMonitor` over this session's agents: every
+        registered agent is tracked, and a DEAD transition triggers
+        :meth:`handle_dead_agent` (queue replay + comm membership repair).
+        ``start=True`` launches the background sweeper; tests usually pass
+        ``start=False`` and drive ``monitor.check()`` themselves.
+
+        On a card session the kernel library is built (or loaded) here,
+        before any agent is watched: ``nvcc`` builds it at first launch
+        otherwise, inside a hopper request, and a cold build outlasts the
+        default heartbeat timeout — the hopper agent would be declared
+        DEAD and its work replayed on the plain rows."""
+        if self.device.type == "cuda" and "hopper" in self.agents:
+            from ..kernels import _cuda
+            _cuda.lib()
+        mon = monitor or HealthMonitor(config)
+        self.health = mon
+        with self._lock:
+            agents = list(self.agents.values())
+        for agent in agents:
+            mon.register(agent)
+        mon.on_transition(self._on_health_transition)
+        if start:
+            mon.start()
+        return mon
+
+    def _on_health_transition(self, target: Any, old: str, new: str) -> None:
+        if new != AgentState.DEAD or not isinstance(target, VirtualizationAgent):
+            return
+        if self.agents.get(target.platform) is target:
+            self.handle_dead_agent(target)
+
+    def _healthy_fallback(self, exclude: str) -> Optional[VirtualizationAgent]:
+        """An available agent to replay a dead agent's work on — the torch
+        fail-safe substrate when alive, else any other available one."""
+        with self._lock:
+            agents = dict(self.agents)
+        torch_agent = agents.get("torch")
+        if torch_agent is not None and torch_agent.platform != exclude \
+                and torch_agent.available():
+            return torch_agent
+        for platform, agent in agents.items():
+            if platform != exclude and agent.available():
+                return agent
+        return None
+
+    def handle_dead_agent(self, agent: VirtualizationAgent,
+                          reason: str = "heartbeat timeout") -> int:
+        """Self-healing response to a DEAD agent (DESIGN.md §11): declare it
+        dead (new submissions refused, ``available()`` False so placement
+        routes around it), re-bind every device-group rank it held onto
+        surviving members (``HaloComm.on_member_dead``), and replay its
+        not-yet-completed queue items onto a healthy agent — via each
+        item's ``replay`` hook when the owner registered one (graph nodes
+        re-place), else by re-running the thunk on the fail-safe agent.
+        Returns the number of items recovered."""
+        items = agent.mark_dead(reason)
+        log.warning("agent %s declared dead (%s); replaying %d queued "
+                    "request(s)", agent.name, reason, len(items))
+        with self._lock:
+            comms = list(self._comms)
+        for comm in comms:
+            try:
+                comm.on_member_dead(agent.platform)
+            except Exception:
+                log.exception("comm %s failed to drop dead member %s",
+                              getattr(comm, "name", comm), agent.platform)
+        fallback = self._healthy_fallback(exclude=agent.platform)
+        for fut, fn, _after, replay in items:
+            if replay is not None:
+                try:
+                    replay()
+                except Exception:
+                    log.exception("replay hook raised for %s", fut.alias)
+                continue
+            if fallback is None:
+                fut.set_exception(AgentDeadError(
+                    f"agent {agent.name} died and no healthy agent remains "
+                    f"to replay request (uid={fut.uid}, alias={fut.alias!r})"))
+                continue
+
+            def _replayed(fn=fn, fut=fut):
+                # the future may already be claimed by the dead worker, so
+                # run the thunk directly and race it (first result wins —
+                # for an in-flight hang the dead side never finishes anyway)
+                try:
+                    fut.set_result(fn())
+                except BaseException as exc:  # noqa: BLE001 — via future
+                    fut.set_exception(exc)
+            fallback.submit(_replayed)
+        return len(items)
 
     def _allowed_platforms(self) -> List[str]:
         return [p for p, a in self.agents.items() if a.available()]
@@ -550,7 +968,9 @@ class RuntimeAgent:
 
     def finalize(self) -> None:
         """MPIX_Finalize: free all outstanding resources (child ranks, their
-        buffers, device groups) and stop workers."""
+        buffers, device groups) and stop the monitor and the workers."""
+        if self.health is not None:
+            self.health.stop()
         with self._lock:
             crs = list(self._crs.values())
         for cr in crs:

@@ -698,7 +698,8 @@ class CompiledGraph:
         """One steady-state iteration: launch from templates and wait for
         the launches; returns the output nodes' results in capture order
         (on the card, synchronise before reading them).  The intermediate
-        results are freed on return."""
+        results are freed on return, even while a worker of a dead agent
+        is still wedged in one of the nodes."""
         g = self.replay_async(updates)
         out = g.wait(timeout)
         with self._lock:
@@ -712,6 +713,10 @@ class CompiledGraph:
         # are, and the graph goes no further than here
         for node in g.nodes:
             node.parents, node.children = [], []
+        # a worker still wedged inside one node (its agent declared dead and
+        # the node replayed elsewhere) holds this graph: without its node
+        # list the wedge pins that node alone, not every result of the step
+        g.nodes = []
         return out
 
 

@@ -27,9 +27,20 @@ port of ``repro.core.graph``.
   raises on card tensors fails its node at once, as in the DRPC path: a
   request on the card never gives way to a plain version unseen.
   ``cancel()`` cancels every not-yet-started node.
-
-The reference's straggler speculation and dead-agent replay need the health
-monitor, which is not ported (ROADMAP A11).
+* **Self-healing** (DESIGN.md §11) — every attempt is submitted with a
+  replay hook: when its agent is declared DEAD with the attempt queued or
+  in flight, the node is re-placed through the same quarantine ladder
+  (:meth:`ExecutionGraph._replay_dead`).  With a session
+  :class:`~repro_torch.core.agents.HealthMonitor`, an attempt still running
+  past ``straggler_multiple`` × its latency estimate (at least
+  ``straggler_min_s``) gets one speculative backup on the next-ranked
+  platform, or, for a fused node with no other fused record, its member
+  chain placed off the straggling platform; the first completion wins and
+  only the winner sets the node's result, platform and ready event.  An
+  original attempt that fails while its backup runs leaves the node to
+  the backup, and one that fails on a DEAD agent leaves it to the replay.  Every such move shows in
+  ``node.attempts`` (``"<platform>+spec"``, ``"decomposed+spec"``) and in
+  ``node.platform``.
 """
 from __future__ import annotations
 
@@ -41,8 +52,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from .agents import (HaloFuture, RuntimeAgent, VirtualizationAgent,
-                     _card_device, _graph_capture, _record_ready, log)
+from .agents import (AgentDeadError, HaloFuture, RuntimeAgent,
+                     VirtualizationAgent, _card_device, _graph_capture,
+                     _record_ready, log)
 from .compute_object import ComputeObject, as_compute_object
 from .registry import KernelRecord, SelectionError
 from .scheduler import abstract_signature
@@ -86,6 +98,7 @@ class GraphNode(HaloFuture):
         self._foreign_deps: List[HaloFuture] = []
         self.platform: Optional[str] = None      # substrate it actually ran on
         self.attempts: List[str] = []            # platforms tried, in order
+        self.speculated = False                  # a straggler backup launched
         #: record pre-placed by a CompiledGraph plan (DESIGN.md §12); used
         #: as a fast path in _place while it stays healthy and untried
         self.pinned: Optional[KernelRecord] = None
@@ -98,6 +111,10 @@ class GraphNode(HaloFuture):
         self._first_exc: Optional[BaseException] = None
         self._pending_parents = 0
         self._winner_claimed = False
+        #: a speculative backup (or member chain) is still running; the
+        #: original's error waits in ``_deferred`` until it has ended
+        self._backup_live = False
+        self._deferred: Optional[tuple] = None
 
     def _claim_win(self) -> bool:
         """Claim the right to complete this node and fire its children;
@@ -451,17 +468,43 @@ class ExecutionGraph:
                 self._backlog.get(agent.platform, 0.0) + est
         node.attempts.append(rec.platform if rec is not None else "failsafe")
         internal = HaloFuture(uid=node.uid, alias=node.alias, tag=node.tag)
-        item = (node, rec, est, args, kwargs)
+        # one-element chain cell shared with the replay hook: inline child
+        # continuations rebind it, so a DEAD declaration replays whichever
+        # node of the chain the wedged worker was actually running
+        item = [(node, rec, est, args, kwargs)]
         try:
-            agent.submit(lambda: self._run(item, agent), future=internal)
-        except Exception as exc:  # noqa: BLE001 — agent shut down
+            agent.submit(lambda: self._run(item, agent), future=internal,
+                         replay=lambda: self._replay_dead(item, agent))
+        except Exception as exc:  # noqa: BLE001 — agent shut down or dead
             self._backlog_sub(agent.platform, est)
             self._fail_node(node, exc)
 
+    def _replay_dead(self, item: List[tuple],
+                     agent: VirtualizationAgent) -> None:
+        """Recovery hook (DESIGN.md §11): ``agent`` was declared DEAD with
+        this attempt still queued or in flight.  ``item`` is the chain cell
+        shared with :meth:`_run` — it names the node the wedged worker was
+        on (the original submission or an inline child continuation).
+        Re-place it through the quarantine ladder so it lands on a healthy
+        agent; an in-flight attempt may still be hung on the dead worker,
+        and the replay races it (first completion wins).  A dead agent is
+        not a failing record: the card rule of :meth:`_run` does not apply,
+        and the move shows in ``node.attempts``."""
+        node, rec, est, args, kwargs = item[0]
+        self._backlog_sub(agent.platform, est)
+        if node.done():
+            return
+        self._retry_or_fail(node, rec, args, kwargs, AgentDeadError(
+            f"agent {agent.name} died before node {node.uid} "
+            f"({node.alias}) completed"))
+
     def _execute(self, node: GraphNode, rec: Optional[KernelRecord],
                  agent: VirtualizationAgent, args: Tuple, kwargs: Dict):
-        """Launch one node on the launching thread's stream and record its
-        ready event there."""
+        """Launch one attempt of ``node`` on the launching thread's stream,
+        after its foreign dependencies' events; returns the result and the
+        ready event recorded after it.  The caller sets ``node._ready`` only
+        if this attempt wins the node: a losing (speculated) attempt must
+        not overwrite the winner's event."""
         with torch.cuda.stream(self._stream):
             for dep in node._foreign_deps:       # work queued elsewhere
                 if dep._ready is not None and self._stream is not None:
@@ -471,10 +514,9 @@ class ExecutionGraph:
             else:
                 out = self.session._execute_on(agent, rec, node.cr, args,
                                                kwargs)
-            node._ready = _record_ready(out)
-        return out
+            return out, _record_ready(out)
 
-    def _run(self, item: tuple, agent: VirtualizationAgent) -> None:
+    def _run(self, item: List[tuple], agent: VirtualizationAgent) -> None:
         """Worker-side body of node attempts (runs on ``agent``'s worker).
 
         After a success, one ready child placed on the *same* agent
@@ -483,31 +525,38 @@ class ExecutionGraph:
         other agents are enqueued there (that is the overlap)."""
         sess = self.session
         while True:
-            node, rec, est, args, kwargs = item
+            node, rec, est, args, kwargs = item[0]
+            token = None
             try:
                 # the first attempt claims the node (refusing a queued
-                # cancel); re-placement attempts arrive already RUNNING
+                # cancel); re-placement and replay attempts arrive already
+                # RUNNING; a node completed meanwhile has nothing left to do
                 if not node._try_start() and not node.running():
                     self._backlog_sub(agent.platform, est)
                     return                       # cancelled or completed
                 t0 = time.perf_counter()
-                out = self._execute(node, rec, agent, args, kwargs)
+                token = self._watch_straggler(node, rec, agent, est,
+                                              args, kwargs)
+                out, ready = self._execute(node, rec, agent, args, kwargs)
             except Exception as exc:  # noqa: BLE001 — re-place or surface
+                self._unwatch(token)
                 self._backlog_sub(agent.platform, est)
-                if node.done():
+                # lost a speculation race, or the agent was declared DEAD
+                # and its replay hook already owns the node
+                if node.done() or agent.dead:
                     return
-                if rec is not None and rec.platform == "hopper" \
-                        and _card_device(args) is not None:
-                    # as in RuntimeAgent._execute_record: a kernel's build
-                    # or launch error on the card surfaces unquarantined
-                    self._fail_node(node, exc)
-                    return
-                self._retry_or_fail(node, rec, args, kwargs, exc)
+                with self._lock:
+                    if node._backup_live:        # the backup settles it
+                        node._deferred = (rec, args, kwargs, exc)
+                        return
+                self._attempt_failed(node, rec, args, kwargs, exc)
                 return
+            self._unwatch(token)
             self._backlog_sub(agent.platform, est)
-            if not node._claim_win():            # cancelled meanwhile
+            if not node._claim_win():            # cancelled or a backup won
                 return
             node.platform = rec.platform if rec is not None else agent.platform
+            node._ready = ready
             node.set_result(out)
             # sample before child placement, so the window matches the DRPC
             # path's (launch + device sync only)
@@ -516,14 +565,14 @@ class ExecutionGraph:
                 if sess.scheduler.wants_sample(rec, sig):
                     node.wait_device()
                     sess.scheduler.observe(rec, sig, time.perf_counter() - t0)
-            ready: List[GraphNode] = []
+            ready_children: List[GraphNode] = []
             with self._lock:
                 for child in node.children:
                     child._pending_parents -= 1
                     if child._pending_parents == 0:
-                        ready.append(child)
+                        ready_children.append(child)
             nxt = None
-            for child in ready:
+            for child in ready_children:
                 placed = self._prepare(child)
                 if placed is None:
                     continue
@@ -537,7 +586,29 @@ class ExecutionGraph:
                                            c_args, c_kwargs)
             if nxt is None:
                 return
-            item = nxt           # never queued: no backlog entry (est 0)
+            # never queued: no backlog entry (est 0); rebind the shared chain
+            # cell so a DEAD replay targets the child the worker runs next
+            item[0] = nxt
+
+    def _attempt_failed(self, node: GraphNode, rec: Optional[KernelRecord],
+                        args: Tuple, kwargs: Dict, exc: BaseException) -> None:
+        if rec is not None and rec.platform == "hopper" \
+                and _card_device(args) is not None:
+            # as in RuntimeAgent._execute_record: a kernel's build or launch
+            # error on the card surfaces unquarantined
+            self._fail_node(node, exc)
+            return
+        self._retry_or_fail(node, rec, args, kwargs, exc)
+
+    def _backup_ended(self, node: GraphNode) -> None:
+        """A speculative backup finished, won or lost.  An original attempt
+        that failed while it ran handed its error over: settle it now,
+        unless the node was completed meanwhile."""
+        with self._lock:
+            node._backup_live = False
+            deferred, node._deferred = node._deferred, None
+        if deferred is not None and not node.done():
+            self._attempt_failed(node, *deferred)
 
     def _backlog_sub(self, platform: str, est: float) -> None:
         if est:
@@ -545,9 +616,131 @@ class ExecutionGraph:
                 self._backlog[platform] = \
                     max(0.0, self._backlog.get(platform, 0.0) - est)
 
+    # -- straggler speculation (DESIGN.md §11) ----------------------------
+    def _watch_straggler(self, node: GraphNode, rec: Optional[KernelRecord],
+                         agent: VirtualizationAgent, est: float,
+                         args: Tuple, kwargs: Dict) -> Optional[int]:
+        """Arm a deadline on the session's HealthMonitor before executing:
+        if the attempt is still running past ``straggler_multiple ×`` its
+        latency estimate (floored at ``straggler_min_s``), a backup attempt
+        launches on the next-ranked platform.  Returns the watch token
+        (None when no monitor is wired or speculation is off)."""
+        mon = self.session.health
+        if mon is None or rec is None or node.speculated:
+            return None
+        cfg = mon.config
+        if not cfg.straggler_multiple:
+            return None
+        budget = max(est * cfg.straggler_multiple, cfg.straggler_min_s)
+        return mon.watch(
+            time.monotonic() + budget,
+            lambda: self._speculate(node, rec, agent, args, kwargs))
+
+    def _unwatch(self, token: Optional[int]) -> None:
+        mon = self.session.health
+        if token is not None and mon is not None:
+            mon.unwatch(token)
+
+    def _backup_for(self, node: GraphNode, rec: KernelRecord, args: Tuple
+                    ) -> Optional[Tuple[KernelRecord, VirtualizationAgent]]:
+        """(record, agent) for a speculative backup attempt: the scheduler's
+        best-ranked candidate on a different platform, falling back to the
+        registry fail-safe for member-pinned nodes (their allowed set is a
+        single — straggling — platform)."""
+        sess = self.session
+        sched = sess.scheduler
+        if sched is None:
+            return None
+        allowed = node.overrides.get("allowed_platforms") \
+            or sess._allowed_platforms()
+        pref = node.overrides.get("platform_preference") \
+            or sess._platform_preference()
+        try:
+            cands = sess.registry.candidates(
+                node.alias, *args, allowed_platforms=allowed,
+                platform_preference=pref, exclude=node._tried)
+        except SelectionError:
+            cands = []
+        backup = sched.backup_candidate(node.alias, cands, args,
+                                        exclude_platforms=(rec.platform,))
+        if backup is None:
+            fs = sess.registry.failsafe(node.alias)
+            if fs is not None and fs.platform != rec.platform \
+                    and all(fs is not r for r in node._tried):
+                backup = fs
+        if backup is None:
+            return None
+        b_agent = sess._agent_for(backup)
+        if b_agent is None:
+            return None
+        return backup, b_agent
+
+    def _speculate(self, node: GraphNode, rec: KernelRecord,
+                   agent: VirtualizationAgent, args: Tuple,
+                   kwargs: Dict) -> bool:
+        """Launch one backup attempt for a straggling node.  The original
+        keeps running — first completion wins (:meth:`GraphNode._claim_win`);
+        the loser's result is discarded, and a backup still queued when the
+        original finishes is cancelled outright."""
+        if node.done() or node.speculated:
+            return False
+        backup = self._backup_for(node, rec, args)
+        if backup is None:
+            # no second fused record to race — decompose instead: the member
+            # chain is the natural backup (§12), placed off the straggler's
+            # platform, and the straggling fused attempt still races it
+            return bool(node.fused_members) and self._decompose_fused(
+                node, args, None, straggler=agent.platform)
+        b_rec, b_agent = backup
+        if b_agent is agent:             # would queue behind the straggler
+            return False
+        node.speculated = True
+        node._backup_live = True
+        node.attempts.append(f"{b_rec.platform}+spec")
+        fut = HaloFuture(uid=node.uid, alias=node.alias, tag=node.tag)
+        node.add_done_callback(lambda _f: fut.cancel())
+        try:
+            b_agent.submit(
+                lambda: self._run_backup(node, b_rec, b_agent, args, kwargs),
+                future=fut)
+        except Exception:  # noqa: BLE001 — backup agent gone; keep original
+            self._backup_ended(node)
+            return False
+        log.warning("graph node %d (%s): straggling on %s; speculating "
+                    "on %s", node.uid, node.alias, agent.platform,
+                    b_rec.platform)
+        return True
+
+    def _run_backup(self, node: GraphNode, rec: KernelRecord,
+                    agent: VirtualizationAgent, args: Tuple,
+                    kwargs: Dict) -> None:
+        """Worker-side body of a speculative backup attempt, launched like
+        any attempt (:meth:`_execute`: the graph's stream, after the
+        foreign dependencies).  A backup that fails stays silent — the
+        original attempt still owns the node and its quarantine ladder."""
+        try:
+            if node.done():
+                return
+            try:
+                out, ready = self._execute(node, rec, agent, args, kwargs)
+            except Exception:  # noqa: BLE001 — speculative: never surfaces
+                log.warning("speculative attempt for node %d (%s) on %s "
+                            "failed; original attempt still owns the node",
+                            node.uid, node.alias, rec.platform, exc_info=True)
+                return
+            if node._claim_win():
+                node.platform = rec.platform
+                node._ready = ready
+                node.set_result(out)
+                self._fire_children(node)
+        finally:
+            self._backup_ended(node)
+
     def _fire_children(self, node: GraphNode) -> None:
         """Decrement children's readiness after an out-of-band completion
-        (a decomposed chain's tail) and submit the ready ones."""
+        (a speculative win or a decomposed chain's tail) and submit the
+        ready ones — the counterpart of the inline child scheduling in
+        :meth:`_run`."""
         ready: List[GraphNode] = []
         with self._lock:
             for child in node.children:
@@ -578,18 +771,44 @@ class ExecutionGraph:
         self._fail_node(node, node._first_exc)
 
     def _decompose_fused(self, node: GraphNode, args: Tuple,
-                         exc: Optional[BaseException]) -> bool:
+                         exc: Optional[BaseException],
+                         straggler: Optional[str] = None) -> bool:
         """§12 failure fallback: replay a failed fused node as its member
         chain — bit-identical to never having fused, because the members
         *are* the captured kernels with the captured arguments.  Members are
         appended as shadow nodes; the tail's completion completes the fused
-        node and fires its children."""
+        node and fires its children.
+
+        With ``straggler`` (the platform of a still-running fused attempt)
+        the chain is a speculative backup: its members are placed off that
+        platform, since behind the straggler they could never win (no chain
+        when the node allows no other platform); a member failure stays
+        silent, as a backup's does; and the members not yet started are
+        cancelled once the node completes either way."""
         members = node.fused_members
         if not members or node.done():
             return False
-        node.attempts.append("decomposed")
-        log.warning("graph node %d (%s): decomposing into %d member node(s)",
-                    node.uid, node.alias, len(members))
+        overrides = node.overrides
+        if straggler is not None:
+            sess = self.session
+            allowed = [p for p in (overrides.get("allowed_platforms")
+                                   or sess._allowed_platforms())
+                       if p != straggler]
+            if not allowed:
+                return False
+            pref = [p for p in (overrides.get("platform_preference")
+                                or sess._platform_preference() or ())
+                    if p != straggler]
+            overrides = dict(overrides, allowed_platforms=allowed,
+                             platform_preference=pref)
+            node.speculated = True
+            node._backup_live = True
+        node.attempts.append("decomposed" if straggler is None
+                             else "decomposed+spec")
+        log.warning("graph node %d (%s): decomposing into %d member "
+                    "node(s)%s", node.uid, node.alias, len(members),
+                    "" if straggler is None
+                    else f" (speculative, off {straggler})")
         sub: List[GraphNode] = []
         with self._lock:
             base = len(self.nodes)
@@ -599,7 +818,7 @@ class ExecutionGraph:
                 payload = tuple(prev if s == "chain" else args[s]
                                 for s in m.argmap)
                 child = GraphNode(base + j + 1, m.alias, payload,
-                                  dict(m.kwargs), overrides=node.overrides)
+                                  dict(m.kwargs), overrides=overrides)
                 child._shadow = True
                 if prev is not None:
                     child.parents.append(prev)
@@ -612,22 +831,23 @@ class ExecutionGraph:
         tail = sub[-1]
 
         def _finish(fut: HaloFuture) -> None:
-            if fut.cancelled():
-                self._fail_node(node, node._first_exc or exc or GraphError(
-                    f"decomposed chain for node {node.uid} ({node.alias}) "
-                    f"was cancelled"))
-                return
-            tail_exc = fut.exception(timeout=0)
-            if tail_exc is not None:
+            tail_exc = GraphError(
+                f"decomposed chain for node {node.uid} ({node.alias}) was "
+                f"cancelled") if fut.cancelled() else fut.exception(timeout=0)
+            if tail_exc is None:
+                if node._claim_win():
+                    node.platform = tail.platform
+                    node._ready = tail._ready
+                    node.set_result(fut.result(timeout=0))
+                    self._fire_children(node)
+            elif straggler is None:
                 self._fail_node(node, node._first_exc or exc or tail_exc)
-                return
-            if node._claim_win():
-                node.platform = tail.platform
-                node._ready = tail._ready
-                node.set_result(fut.result(timeout=0))
-                self._fire_children(node)
+            if straggler is not None:
+                self._backup_ended(node)
 
         tail.add_done_callback(_finish)
+        if straggler is not None:
+            node.add_done_callback(lambda _f: [m.cancel() for m in sub])
         self._submit(sub[0])
         return True
 

@@ -30,7 +30,7 @@ import threading
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-from .envutil import env_path
+from .config import halo_config
 from .registry import KernelRecord
 
 log = logging.getLogger("repro_torch.halo.scheduler")
@@ -107,9 +107,9 @@ class CostModelScheduler:
 
     @classmethod
     def default(cls) -> "CostModelScheduler":
-        """Process-default scheduler: persistent iff ``HALO_AUTOTUNE_CACHE``
-        is set."""
-        return cls(cache_path=env_path("HALO_AUTOTUNE_CACHE"))
+        """Process-default scheduler: persistent iff ``autotune_cache`` is
+        set (``HALO_AUTOTUNE_CACHE`` or ``halo.configure``)."""
+        return cls(cache_path=halo_config().autotune_cache)
 
     # -- measurement feedback ------------------------------------------------
     def observe(self, record: KernelRecord, sig: SigType,
@@ -294,6 +294,26 @@ class CostModelScheduler:
                 best[rec.platform] = est
         scored = sorted((p for p in order if p in best), key=best.__getitem__)
         return scored + [p for p in order if p not in best]
+
+    def backup_candidate(self, alias: str,
+                         candidates: Sequence[KernelRecord],
+                         args: Sequence[Any],
+                         exclude_platforms: Sequence[str] = ()
+                         ) -> Optional[KernelRecord]:
+        """The record a straggling graph node should speculatively re-execute
+        on (DESIGN.md §11): the best-ranked candidate — :meth:`rank_platforms`
+        order, fastest estimated platform first — on a platform other than
+        the one(s) already running the node.  Quarantined records are
+        skipped; None when no other platform can run it."""
+        pool = [c for c in candidates
+                if c.platform not in exclude_platforms and not self.is_failed(c)]
+        if not pool:
+            return None
+        for platform in self.rank_platforms(alias, pool, args):
+            for rec in pool:
+                if rec.platform == platform:
+                    return rec
+        return pool[0]
 
     # -- persistence ---------------------------------------------------------
     def load(self, path: os.PathLike) -> None:

@@ -22,11 +22,12 @@ short names as ``repro.halo``::
     state, history = halo.train("h2o-danube-1.8b", steps=20, reduced=True)
     state, history = halo.train("h2o-danube-1.8b", steps=20, reduced=True,
                                 comm=2)          # data-parallel (§15)
+    halo.configure(health_monitor=True)   # typed HALO_* knobs (§11)
     halo.finalize()
 
-Each name re-exports the object :mod:`repro_torch.core.c2mpi` or
-:mod:`repro_torch.core.collective` defines; ``train`` is a thin wrapper
-over the Trainer.
+Each name re-exports the object :mod:`repro_torch.core.c2mpi`,
+:mod:`repro_torch.core.collective` or :mod:`repro_torch.core.config`
+defines; ``train`` is a thin wrapper over the Trainer.
 """
 from __future__ import annotations
 
@@ -49,6 +50,8 @@ from .core.c2mpi import (MPIX_Allgather as allgather,
                          MPIX_Wait as wait, MPIX_Waitall as waitall,
                          halo_dispatch as dispatch, halo_session as session)
 from .core.collective import HaloComm
+from .core.config import HaloConfig, configure
+from .core.config import halo_config as config
 from .core.fusion import CompiledGraph, compile_graph
 from .core.graph import ExecutionGraph
 from .core.graph import halo_graph as graph
@@ -63,6 +66,8 @@ __all__ = [
     "allreduce", "iallreduce",
     # graph capture / compiled replay (§8, §12)
     "graph", "compile_graph", "ExecutionGraph", "CompiledGraph",
+    # configuration (typed env knobs)
+    "HaloConfig", "configure", "config",
     # training (§15)
     "train",
 ]

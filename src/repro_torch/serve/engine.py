@@ -24,14 +24,18 @@ Three layers:
   ``RequestQueue.flush`` joins requests at batch boundaries with no echo
   lanes.
 
-Not ported yet: the health hooks ``heartbeat``/``attach_health`` (A11).
-The port's caches are updated in place and never donated, so the
+A :class:`StepScheduler` is a liveness target (DESIGN.md §11): it beats
+once per engine iteration, and ``attach_health`` hands it to a
+:class:`~repro_torch.core.agents.HealthMonitor`, which fails every queued
+and in-flight request with ``AgentDeadError`` when a stepping thread
+wedged inside a device call stops the beats.  The port's caches are updated in place and never donated, so the
 reference's ``ensure_caches`` rebuild has nothing to do here.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import itertools
 import logging
 import threading
 import time
@@ -41,7 +45,7 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
-from ..core.agents import HaloFuture
+from ..core.agents import AgentDeadError, AgentState, HaloFuture
 from ..core.c2mpi import halo_session
 from ..core.portability import ServeReport
 from ..models.transformer import Model
@@ -570,6 +574,8 @@ class StepScheduler:
     ``max_new``.  Drive the loop synchronously (``step``/``drain``) or in
     the background (``start``/``stop``, or ``with sched:``)."""
 
+    _seq = itertools.count(1)
+
     def __init__(self, engine, temperature: float = 0.0,
                  seed: int = 0, policy: Optional[AdmissionPolicy] = None):
         self.engine = engine
@@ -577,6 +583,9 @@ class StepScheduler:
         self.policy = policy or AdmissionPolicy()
         self.rejected = 0        # submits refused at the QoS depth cap
         self.expired = 0         # queued requests aged out past max_delay
+        self.name = f"slot-engine-{next(StepScheduler._seq)}"
+        self._beats = 0
+        self._last_beat = time.monotonic()
         self._gen = torch.Generator(device=engine.device).manual_seed(seed)
         self._queue: "collections.deque[Request]" = collections.deque()
         self._lanes: List[Optional[_Lane]] = [None] * engine.slots
@@ -627,6 +636,11 @@ class StepScheduler:
                     raise AdmissionError(
                         f"QoS class {qos!r} queue is full "
                         f"({depth}/{cap} queued); rejected")
+            if not self._queue and not any(lane is not None
+                                           for lane in self._lanes):
+                # a busy period starts now: the liveness stall clock runs
+                # from here, not from whenever the last request finished
+                self._last_beat = time.monotonic()
             self._uid += 1
             fut = HaloFuture(uid=self._uid, alias="generate")
             self._queue.append(Request(self._uid, prompt, max_new,
@@ -649,6 +663,49 @@ class StepScheduler:
         with self._cond:
             return bool(self._queue) or any(lane is not None
                                             for lane in self._lanes)
+
+    def heartbeat(self):
+        """Liveness probe for :class:`~repro_torch.core.agents.HealthMonitor`:
+        ``(progress counter, busy, last activity)``.  Busy means queued or
+        in-flight requests exist; the counter advances once per engine
+        iteration (and once more when it did work), so a stepping thread
+        wedged inside a device call, or a scheduler nobody drives, stalls
+        and gets flagged."""
+        with self._cond:
+            busy = bool(self._queue) or any(lane is not None
+                                            for lane in self._lanes)
+            return self._beats, busy, self._last_beat
+
+    def _beat(self) -> None:
+        with self._cond:
+            self._beats += 1
+            self._last_beat = time.monotonic()
+
+    def attach_health(self, monitor) -> "StepScheduler":
+        """Register with a :class:`~repro_torch.core.agents.HealthMonitor`:
+        when the monitor declares this scheduler DEAD (its stepping thread
+        stopped advancing while work was pending), every queued and
+        in-flight request fails with :class:`AgentDeadError`, and a paged
+        engine's failed lanes give their blocks back, instead of leaving
+        clients blocked on futures that never resolve."""
+        monitor.register(self)
+        monitor.on_transition(self._on_health_transition)
+        return self
+
+    def _on_health_transition(self, target, old: str, new: str) -> None:
+        if target is not self or new != AgentState.DEAD:
+            return
+        exc = AgentDeadError(
+            f"{self.name} declared dead (engine loop stopped making "
+            f"progress); queued and in-flight requests failed")
+        log.error("%s", exc)
+        with self._cond:
+            dropped = list(self._queue)
+            self._queue.clear()
+        for r in dropped:
+            if r.future is not None:
+                r.future.set_exception(exc)
+        self._fail_active(exc)
 
     def report(self) -> ServeReport:
         return ServeReport(t1_s=self._t1, t3_s=self._t3, steps=self._steps,
@@ -753,6 +810,7 @@ class StepScheduler:
         t0 = time.perf_counter()
         dev = 0.0
         worked = False
+        self._beat()          # claim the iteration: a hang inside it stalls
         self._expire_queued()
 
         # (a) admission: prefill queued requests into free slots.  FCFS — a
@@ -851,6 +909,7 @@ class StepScheduler:
 
         if worked:
             self._steps += 1
+            self._beat()
         self._t3 += dev
         self._t1 += (time.perf_counter() - t0) - dev
         return worked

@@ -1636,3 +1636,72 @@ def test_embed_grad_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="shape"):
         embed_grad_hopper(g, tok[:3], 3)
 
+
+
+# ---------------------------------------------------------------------------
+# Resilience on the card (DESIGN.md §11)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("m,route", [(4, "mmm_skinny"), (256, "mmm_wgmma")])
+def test_faulty_hopper_agent_launches_the_same_kernel(card, m, route):
+    """A FaultyAgent on hopper executes its non-faulting calls through a
+    HopperAgent on the card: the same kernel, launched once, bit for bit."""
+    from repro_torch.core.agents import HopperAgent
+    from repro_torch.testing.faults import FaultPlan, FaultyAgent
+    reg = KernelRegistry()
+    register_all(reg)
+    rec = next(r for r in reg.records("MMM") if r.platform == "hopper")
+    a = _rnd(card, m, 320, dtype=torch.bfloat16, seed=1)
+    b = _rnd(card, 320, 264, dtype=torch.bfloat16, seed=2)
+    fa = FaultyAgent(FaultPlan(platform="hopper", mode="raise", nth=10 ** 6),
+                     device=card)
+    _cuda.reset_launch_counts()
+    got = fa.execute(rec, a, b)
+    assert _cuda.launch_counts().get(route) == 1 and fa.calls == 1
+    want = HopperAgent(card).execute(rec, a, b)
+    assert _cuda.launch_counts().get(route) == 2
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_speculative_backup_keeps_the_winners_ready_event(card):
+    """An aten MMM straggles (hang); its backup runs on hopper and wins.
+    When the late aten attempt lands, its result is discarded and the
+    node's ready event stays the backup's: a waiter on the node waits for
+    the kernel that produced its result."""
+    import time
+
+    from repro_torch.core.agents import HealthConfig
+    from repro_torch.core.graph import halo_graph
+    from repro_torch.testing.faults import FaultPlan, chaos
+    rt = _card_session(card)
+    a = _rnd(card, 512, 2560, dtype=torch.bfloat16, seed=3)
+    b = _rnd(card, 2560, 512, dtype=torch.bfloat16, seed=4)
+    try:
+        rt.enable_health_monitor(
+            config=HealthConfig(heartbeat_timeout=60.0, straggler_multiple=1.0,
+                                straggler_min_s=0.05), start=False)
+        with chaos(rt, FaultPlan(platform="aten", mode="hang", delay_s=60.0)) as fa:
+            cr = rt.claim("MMM", overrides={
+                "allowed_platforms": ["aten", "hopper"],
+                "platform_preference": ["aten", "hopper"]})
+            with halo_graph(session=rt):
+                node = rt.isend((a, b), cr)
+            deadline = time.monotonic() + 10
+            while fa.failures < 1:
+                assert time.monotonic() < deadline
+                time.sleep(0.005)
+            time.sleep(0.06)
+            rt.health.check()
+            out = node.result(timeout=60)
+            ready = node._ready
+            assert isinstance(ready, torch.cuda.Event)
+            fa.release()
+            deadline = time.monotonic() + 10
+            while fa.heartbeat()[1]:
+                assert time.monotonic() < deadline
+                time.sleep(0.005)
+        assert node.attempts == ["aten", "hopper+spec"] and node.platform == "hopper"
+        assert node._ready is ready and node.result(timeout=0) is out
+        node.wait_device()
+        assert torch.equal(_bits(out), _bits(mmm_hopper(a, b)))
+    finally:
+        rt.finalize()

@@ -7,8 +7,10 @@ element-wise chains) and in float32 and bfloat16; decomposition after a
 failing fused record too.  Against the JAX package, on the same numpy
 inputs: the compile stats of the same captured program are equal, and the
 fused results agree within the reference's conformance tolerances
-(tests/test_kernels_property.py: float32 2e-4, bfloat16 4e-2).  The
-reference's straggler test waits for the health monitor (ROADMAP A11)."""
+(tests/test_kernels_property.py: float32 2e-4, bfloat16 4e-2).  A
+straggling fused attempt speculates by decomposing, bit-identical too."""
+import time
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +24,7 @@ from repro.kernels import register_all as jax_register_all
 from repro.kernels.fused import ewise_chain as jax_ewise_chain
 from repro_torch import halo
 from repro_torch.core import fusion
-from repro_torch.core.agents import RuntimeAgent
+from repro_torch.core.agents import HealthConfig, RuntimeAgent
 from repro_torch.core.graph import GraphError, halo_graph
 from repro_torch.core.manifest import default_manifest
 from repro_torch.core.registry import (KernelRecord, KernelRegistry,
@@ -31,6 +33,7 @@ from repro_torch.core.scheduler import CostModelScheduler, abstract_signature
 from repro_torch.kernels import register_all
 from repro_torch.kernels.fused import (ACC, chain_problem, ewise_chain,
                                        ewise_chain_ref, make_composed)
+from repro_torch.testing.faults import FaultPlan, chaos
 
 TOL = {torch.float32: 2e-4, torch.bfloat16: 4e-2}
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -83,9 +86,11 @@ def _jax(arrays, dtype=torch.float32):
 
 
 def _ov(pin):
+    """Overrides for one platform (a string) or an ordered list of them."""
     if pin is None:
         return None
-    return {"allowed_platforms": [pin], "platform_preference": [pin]}
+    pins = [pin] if isinstance(pin, str) else list(pin)
+    return {"allowed_platforms": pins, "platform_preference": pins}
 
 
 def _serial(sess, chain, inputs, pin=None):
@@ -387,6 +392,92 @@ def test_decomposed_member_failure_fails_the_fused_node(sess):
     assert [n.alias for n in shadow] == ["EWMM", "EWADD", "EWSUB"]
     with pytest.raises(ValueError, match="member exploded"):
         shadow[-1].result(timeout=60)
+
+
+def _wait_until(cond, timeout=5.0, what="condition"):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, f"{what} not reached in time"
+        time.sleep(0.005)
+
+
+def _straggle_fused(sess, chain, inputs, allowed):
+    """Compile ``chain`` over ``allowed`` (hopper first: the fused node runs
+    on hopper) and hang its fused hopper attempt past the speculation
+    floor; returns (compiled replay, the hopper fault agent)."""
+    sess.enable_health_monitor(
+        config=HealthConfig(heartbeat_timeout=60.0, straggler_multiple=1.0,
+                            straggler_min_s=0.05), start=False)
+    cg = _capture(sess, chain, inputs, pin=allowed).compile()
+    (alias,) = cg.stats["fused_aliases"]
+    return cg, FaultPlan(platform="hopper", mode="hang", delay_s=60.0,
+                         aliases=[alias])
+
+
+@pytest.mark.parametrize("winner", ["chain", "fused"])
+@pytest.mark.parametrize("chain", [MIXED4, EW4], ids=["mixed4", "ew4"])
+def test_straggler_fused_node_decomposes(sess, chain, winner):
+    """A straggling fused attempt with no second fused record (the node
+    allows hopper and torch, and no fused row is on torch) speculates by
+    decomposing: the member chain is placed off the straggler, on torch,
+    and races it; first win counts, bit-identical to serial dispatch on the
+    platform that won.  When the fused attempt wins, the members not yet
+    started are cancelled."""
+    inputs = _torch(_np_inputs())
+    won_on = "torch" if winner == "chain" else "hopper"
+    ref = _serial(sess, chain, inputs, pin=won_on)
+    cg, plan = _straggle_fused(sess, chain, inputs, ["hopper", "torch"])
+    plans = [plan]
+    if winner == "fused":                        # the first member hangs too
+        plans.append(FaultPlan(platform="torch", mode="hang", delay_s=60.0))
+    with chaos(sess, *plans) as fas:
+        fa = fas[0] if winner == "fused" else fas
+        gr = cg.replay_async()
+        _wait_until(lambda: fa.failures >= 1, what="fused attempt wedged")
+        time.sleep(0.06)                         # past the speculation floor
+        sess.health.check()
+        node = gr.nodes[0]
+        assert node.attempts == ["hopper", "decomposed+spec"]
+        assert node.speculated
+        shadows = [n for n in gr.nodes if n._shadow]
+        if winner == "chain":
+            out = gr.wait(timeout=60)[-1]        # while the fused call hangs
+            assert fa.heartbeat()[1]
+            assert node._ready is shadows[-1]._ready
+            fa.release()
+            _wait_until(lambda: not fa.heartbeat()[1], what="late fused call")
+            assert all(n.platform == "torch" for n in shadows)
+        else:
+            _wait_until(lambda: fas[1].failures >= 1, what="member wedged")
+            fa.release()                         # the fused attempt wins
+            out = gr.wait(timeout=60)[-1]
+            assert [n.cancelled() for n in shadows] == \
+                [False] + [True] * (len(chain) - 1)
+            fas[1].release()
+            _wait_until(lambda: shadows[0].done(), what="first member done")
+    assert node.platform == won_on
+    assert node.result(timeout=0) is out
+    assert [n.alias for n in shadows] == [a for a, _ in chain]
+    _bitwise(ref, out)
+
+
+def test_straggler_pinned_fused_node_does_not_decompose(sess):
+    """Pinned to the straggling platform, the member chain could only queue
+    behind the straggler: no decomposition; the fused attempt finishes."""
+    inputs = _torch(_np_inputs())
+    ref = _serial(sess, EW4, inputs, pin="hopper")
+    cg, plan = _straggle_fused(sess, EW4, inputs, "hopper")
+    with chaos(sess, plan) as fa:
+        gr = cg.replay_async()
+        _wait_until(lambda: fa.failures >= 1, what="fused attempt wedged")
+        time.sleep(0.06)
+        sess.health.check()
+        node = gr.nodes[0]
+        assert node.attempts == ["hopper"] and not node.speculated
+        fa.release()
+        out = gr.wait(timeout=60)[-1]
+    assert node.platform == "hopper" and len(gr.nodes) == 1
+    _bitwise(ref, out)
 
 
 # ---------------------------------------------------------------------------

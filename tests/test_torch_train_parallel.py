@@ -7,8 +7,11 @@ As ``tests/test_train_parallel.py`` holds the JAX package, at its size
 (reduced danube, seq 32, global batch 8, 4 microbatches, 3 steps): at
 equal global batch the loss history, parameters and moments are
 bit-identical for 1, 2 and 4 members, the substrates mixed; a second run
-replays through the compiled-graph cache; a member's death at step 2
-moves the epoch and changes no bit.  The comm-mode history is held to the
+replays through the compiled-graph cache; a member's death at step 2 —
+re-bound by hand, declared through ``session.handle_dead_agent`` (the
+reference's drill), or found by a started health monitor when the aten
+member wedges in its first LM_GRAD call of step 2 — moves the epoch and
+changes no bit.  The comm-mode history is held to the
 JAX package's comm-mode history from the same weights and batches at the
 parity tolerance (float32 2e-4).  Sessions run on the CPU, where the
 hopper rows run their plain versions."""
@@ -33,6 +36,7 @@ from repro.train.trainer import Trainer as JTrainer
 from repro.train.trainer import TrainHyper as JTrainHyper
 from repro_torch import halo
 from repro_torch.configs import get_config
+from repro_torch.core.agents import HealthConfig
 from repro_torch.core.compute_object import to_numpy
 from repro_torch.core.registry import KernelRegistry
 from repro_torch.core.tree import tree_leaves
@@ -42,6 +46,7 @@ from repro_torch.kernels.embed_grad.ref import CHUNK, embed_grad_aten, embed_gra
 from repro_torch.launch import train as t_launch
 from repro_torch.models import build_model
 from repro_torch.models.layers import EmbedFunction, embed_tokens
+from repro_torch.testing.faults import FaultPlan, chaos
 from repro_torch.optim.adamw import adamw_init
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.fault_tolerance import StragglerPolicy
@@ -208,6 +213,78 @@ def test_member_death_mid_run_repairs_and_stays_bit_identical(cpu_session, setup
     assert comm.platforms == ("hopper", "hopper")
     assert captures == [epoch0, comm.epoch]
     assert h_mix == h_ref
+
+
+def _death_run(session, model, data, kill):
+    """4 steps over ``["hopper", "aten"]`` with ``kill(step)`` called at
+    each batch draw; returns the history, the comm and the epochs each
+    capture saw."""
+    comm = session.comm_split(["hopper", "aten"])
+    captures = []
+    orig = Trainer._capture_comm_step
+
+    def counted(self, *a):
+        captures.append(comm.epoch)
+        return orig(self, *a)
+
+    def chaotic_data(step):
+        kill(step)
+        return data(step)
+
+    Trainer._capture_comm_step = counted
+    try:
+        _, hist = _train(session, model, chaotic_data, None, steps=4, comm=comm)
+    finally:
+        Trainer._capture_comm_step = orig
+    return hist, comm, captures
+
+
+def test_member_death_through_handle_dead_agent_stays_bit_identical(
+        cpu_session, setup):
+    """The reference's drill: the session declares its aten agent dead
+    before step 2 (``handle_dead_agent``, the monitor's own response): the
+    comm re-binds aten's rank onto hopper, the agent refuses work, the
+    trainer recaptures, and the 4-step history equals one member's."""
+    model, data = setup
+    _, h_ref = _train(cpu_session, model, data, SINGLE, steps=4)
+    aten = cpu_session.agents["aten"]
+    killed = []
+
+    def kill(step):
+        if step == 2 and not killed:
+            killed.append(cpu_session.handle_dead_agent(aten, reason="chaos drill"))
+
+    hist, comm, captures = _death_run(cpu_session, model, data, kill)
+    assert killed == [0]                   # nothing queued between steps
+    assert aten.dead and "aten" not in cpu_session._allowed_platforms()
+    assert comm.platforms == ("hopper", "hopper") and comm.epoch == 1
+    assert captures == [0, 1]
+    assert hist == h_ref
+
+
+def test_member_death_found_by_the_monitor_stays_bit_identical(cpu_session, setup):
+    """A started monitor over the session (2 s timeout) and an aten member
+    that wedges in its first LM_GRAD call of step 2: the monitor declares
+    it DEAD, the session re-binds its rank and replays the wedged call and
+    the queued one on the fail-safe torch row (LM_GRAD is one callable on
+    every row), step 2 completes on the old graph, step 3 recaptures, and
+    the history equals one member's bit for bit."""
+    model, data = setup
+    _, h_ref = _train(cpu_session, model, data, SINGLE, steps=4)
+    cpu_session.enable_health_monitor(
+        config=HealthConfig(heartbeat_timeout=2.0, poll_interval=0.02,
+                            straggler_multiple=0.0))
+    with chaos(cpu_session, FaultPlan(platform="aten", mode="die", nth=10 ** 6,
+                                      aliases=["LM_GRAD"])) as fa:
+        def kill(step):
+            if step == 2:                  # arm at step 2's first LM_GRAD
+                fa.plan = dataclasses.replace(fa.plan, nth=fa.calls + 1)
+
+        hist, comm, captures = _death_run(cpu_session, model, data, kill)
+        assert fa.calls == 5 and fa.failures == 1 and fa.dead
+    assert comm.platforms == ("hopper", "hopper") and comm.epoch == 1
+    assert captures == [0, 1]
+    assert hist == h_ref
 
 
 def test_comm_checkpoint_restores_into_the_single_device_trainer_and_back(
