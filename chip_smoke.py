@@ -264,6 +264,27 @@ Phases (any failure exits non-zero before the result lines are printed):
    (e) is phase 3f's (c).  The kernels line lists each kernel's launches
    over the legs as ``launches_resilience``; a kernel of the legs' path
    launched no time fails the run.
+3h. Multi-process C²MPI (``phase3h``, after 3g; DESIGN.md §13;
+   ``MULTIPROC``): (a) a worker process ``w0`` spawned on the card
+   (``repro_torch.distributed.remote.spawn_worker``: its own CUDA context,
+   the kernel library loaded before its hello; the seconds to hello
+   printed) and attached as ``hopper@w0``; (b) every alias with a hopper
+   row sent at small shapes to ``hopper@w0`` and to the in-process hopper
+   row: ``torch.equal``, the worker's own launch counts (carried in its
+   ``ping`` reply) equal to the host's for the same request, every
+   request served by the worker's hopper agent (none by its aten or torch
+   rows); (c) 3e's system, eager and captured, over ``["hopper",
+   "hopper@w0"]`` at the default wire-cache cap (the 0.54 GB row block
+   ships every sweep) and, after (d), over ``["hopper", "hopper@w1"]``
+   with w1 spawned under ``HALO_WIRE_CACHE_MB`` raised (the block ships
+   once; ``bytes_saved`` counts the rest): bit-identical to serial hopper, one MVM and VDP a sweep on
+   each side, T3, the host process's device time and busy share, and
+   ``wire_stats()``; (d) w0 killed with its MVM wedged in flight: the ms
+   from the kill to DEAD, the comm re-bound, the clones gone, held as 3g
+   holds its member death; (e) danube cut to 2 layers over ``["hopper",
+   "hopper@w1"]``, 2 steps: history and parameters bit-identical to one
+   member's, the worker's LM_GRAD on its kernels.  Every worker is shut
+   down before the phase ends, also on failure.
 3d. Training (``phase3d``): (a) the gradients of the MMM, RMSNORM and
    FLASH_ATTN autograd Functions on the card against autograd of their
    plain versions on the card: MMM at danube's projections and unembed
@@ -715,6 +736,19 @@ RESILIENCE = {"timeout": 1.0, "poll": 0.02, "death_nth": 40, "hang_s": 60.0,
 #: the kernels phase 3g's legs (3f's death runs included) must launch
 RESILIENCE_KERNELS = ("mmm_wgmma", "mmm_skinny", "ewise", "mvm", "vdp", "rmsnorm",
                       "flash_attention_mma", "fused", "embed_grad")
+
+#: phase 3h, multi-process C²MPI (DESIGN.md §13): workers on the card;
+#: (b)'s requests from ``payload_seed``; (c) runs on w0 at the default
+#: wire-cache cap (256 MB: a member's 0.54 GB row block of 3e's system ships
+#: every sweep) and on w1, spawned with ``HALO_WIRE_CACHE_MB`` at
+#: ``raised_mb``, after (d) (it ships once); (d) wedges w0's MVM
+#: ``kill_nth`` (a third of the way into the solve) and kills w0; (e)
+#: trains danube cut to ``train_layers`` layers (its float32 parameter
+#: vector 1.2 GB) for ``train_steps`` steps; ``hello_timeout`` bounds a
+#: spawn (a cold kernel build in the worker included) and ``timeout`` a
+#: request
+MULTIPROC = {"payload_seed": 13, "raised_mb": 1024, "kill_nth": 10, "train_layers": 2,
+             "train_steps": 2, "hello_timeout": 300.0, "timeout": 600.0}
 
 TIMED_RUNS = 20
 E2E_REPEATS = 5
@@ -4779,6 +4813,354 @@ def phase3g(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 3h: multi-process C²MPI
+# ---------------------------------------------------------------------------
+def same_tree(a, b) -> bool:
+    """Equal structure, and every tensor leaf equal bit for bit in dtype and
+    shape (NaN included)."""
+    import torch.utils._pytree as pytree
+    la, sa = pytree.tree_flatten(a)
+    lb, sb = pytree.tree_flatten(b)
+    if sa != sb:
+        return False
+    for x, y in zip(la, lb):
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)) \
+                    or x.dtype != y.dtype or x.shape != y.shape:
+                return False
+            if x.numel() and not torch.equal(
+                    x.contiguous().reshape(-1).view(torch.uint8),
+                    y.contiguous().reshape(-1).view(torch.uint8)):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def hopper_alias_payloads(dev):
+    """One small request, on the card, for every alias with a hopper row:
+    (args, kwargs) from a seed (the cases of tests/test_torch_remote.py)."""
+    from repro_torch.kernels.spmm.ref import dense_to_bell, random_block_sparse
+    from repro_torch.train.step_kernels import param_size, resolve_arch
+
+    gen = torch.Generator(device=dev).manual_seed(MULTIPROC["payload_seed"])
+
+    def a(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    n = 16
+    diag_dom = a((n, n)) + n * torch.eye(n, device=dev)
+    values, indices = dense_to_bell(random_block_sparse(gen, 16, 16, 4, 4), 4, 4)
+    q, k, v = a((1, 2, 64, 16)), a((1, 2, 64, 16)), a((1, 2, 64, 16))
+    step_kw = dict(arch=TRAIN_COMM["arch"], reduced=True)
+    p = param_size(**step_kw)
+    vocab = resolve_arch(**step_kw).vocab_size
+    toks = torch.randint(0, vocab, (2, 16), generator=gen, device=dev)
+    return {
+        "MMM": ((a((16, 12)), a((12, 8))), {}),
+        "EWMM": ((a((8, 8)), a((8, 8))), {}),
+        "EWMD": ((a((8, 8)), a((8, 8)).abs() + 1.0), {}),
+        "EWADD": ((a((8, 8)), a((8, 8))), {}),
+        "EWSUB": ((a((8, 8)), a((8, 8))), {}),
+        "MVM": ((a((8, 8)), a((8,))), {}),
+        "VDP": ((a((16,)), a((16,))), {}),
+        "JS": ((diag_dom, a((n,)), a((n,))), {}),
+        "1DCONV": ((a((32,)), a((5,))), {}),
+        "RMSNORM": ((a((4, 16)), torch.ones(16, device=dev)), {}),
+        "FLASH_ATTN": ((q, k, v), {}),
+        "SMMM": ((values, indices, a((16, 8))), {}),
+        "COPY": ((a((8, 8)),), {}),
+        "CONCAT": ((a((4, 4)), a((4, 4))), {}),
+        "FFT": ((a((4, 32)),), {}),
+        "SORT": ((a((33,)),), {}),
+        "HIST": ((torch.sigmoid(a((200,))),), {}),
+        "EMBED_GRAD": ((a((24, 16), torch.bfloat16),
+                        torch.randint(0, 40, (24,), generator=gen, device=dev), 40), {}),
+        "LM_GRAD": ((a((p,)) * 0.02, toks, toks.roll(-1, 1),
+                     torch.ones((2, 16), device=dev)), step_kw),
+        "ADAMW_STEP": ((a((p + 1,)) * 0.01, a((p,)) * 0.02, torch.zeros(p, device=dev),
+                        torch.zeros(p, device=dev),
+                        torch.tensor(0, dtype=torch.int32, device=dev)),
+                       dict(step_kw, n_micro=2)),
+    }
+
+
+def phase3h(dev, card):
+    """Multi-process C²MPI (DESIGN.md §13) on the card: (a) worker w0 spawned
+    on the card, ``hopper@w0`` attached; (b) every alias with a hopper row
+    on ``hopper@w0`` torch.equal to the in-process hopper row, the worker's
+    own launch counts equal to the host's for the same request; (c) phase
+    3e's Jacobi, eager and captured, over ``["hopper", "hopper@w0"]`` at the
+    default wire-cache cap and, after (d), over ``["hopper", "hopper@w1"]``
+    with w1 spawned under a raised ``HALO_WIRE_CACHE_MB``, bit-identical to
+    serial hopper; (d) w0 killed mid-solve; (e) phase 3f's danube cut to
+    ``MULTIPROC["train_layers"]`` layers over ``["hopper", "hopper@w1"]``,
+    its history and parameters bit-identical to one member's.  Every worker
+    is shut down (or killed) before the phase returns, also on failure.
+    Returns stats."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import collective_jacobi as cj
+    from repro_torch import halo
+    from repro_torch import multiproc_jacobi as mpj
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.remote import spawn_worker
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train import step_kernels
+    from repro_torch.train.trainer import TrainHyper, Trainer, TrainState
+
+    mp = MULTIPROC
+    timeout = mp["timeout"]
+    stats = {}
+    workers = []
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def pin(platform):
+        return {"allowed_platforms": [platform], "platform_preference": [platform]}
+
+    def diff(after, before):
+        return {k: v - before.get(k, 0) for k, v in after.items() if v - before.get(k, 0)}
+
+    def spawn(name):
+        t0 = time.perf_counter()
+        w = spawn_worker(name, device="cuda", timeout=mp["hello_timeout"])
+        workers.append(w)
+        return w, time.perf_counter() - t0
+
+    session = halo.initialize()              # device=None means the card
+    if session.device.type != "cuda":
+        fail(f"session runs on {session.device}, not the card")
+    try:
+        # (a) spawn
+        w0, hello_s = spawn("w0")
+        agent = w0.agent("hopper").attach(session)
+        banned = sorted(set(w0.hello["imports"]) & {"jax", "jaxlib", "repro", "ml_dtypes"})
+        print(f"  (a) worker w0 (pid {w0.proc.pid}) on {w0.device}: hello after "
+              f"{hello_s:.2f} s (its kernel library loaded first); serves "
+              f"{list(w0.platforms)}; {len(agent._clones)} hopper records cloned as "
+              f"{agent.platform}; packages of JAX in the worker: {banned}")
+        if not w0.device.startswith("cuda") or banned or not agent._clones:
+            fail(f"(a) worker w0 on {w0.device}, JAX packages {banned}, "
+                 f"{len(agent._clones)} clones")
+        stats["hello_s"] = hello_s
+
+        # (b) parity sweep
+        payloads = hopper_alias_payloads(dev)
+        if set(payloads) != {r.alias for r in agent._clones}:
+            fail(f"(b) payloads {sorted(payloads)} != hopper aliases "
+                 f"{sorted(r.alias for r in agent._clones)}")
+        served0 = w0.heartbeat(timeout)["served"]
+        sweep, differ, kernels = {}, [], collections.Counter()
+        for alias, (args, kwargs) in payloads.items():
+            sync()
+            _cuda.reset_launch_counts()
+            local = session.isend(args, session.claim(alias, overrides=pin("hopper")),
+                                  mailbox=False, **kwargs).result(timeout)
+            sync()
+            here = {k: v for k, v in _cuda.launch_counts().items() if v}
+            before = w0.heartbeat(timeout)["launches"]
+            remote = session.isend(args, session.claim(alias, overrides=pin(agent.platform)),
+                                   mailbox=False, **kwargs).result(timeout)
+            there = diff(w0.heartbeat(timeout)["launches"], before)
+            same = same_tree(remote, local)
+            sweep[alias] = {"equal": same, "launches": there}
+            kernels.update(there)
+            if not same:
+                differ.append(alias)
+            if there != here:
+                fail(f"(b) {alias}: the worker launched {there}, in process {here}")
+        served = diff(w0.heartbeat(timeout)["served"], served0)
+        print(f"  (b) {len(payloads)} aliases with a hopper row on {agent.platform} against "
+              f"in-process hopper: torch.equal for all but {differ}; the worker's agents "
+              f"served {served}; its launches, equal to the host's for each request: "
+              f"{dict(kernels)}")
+        if differ:
+            fail(f"(b) {differ} on {agent.platform} differ from in-process hopper")
+        if served != {"hopper": len(payloads)}:
+            fail(f"(b) the worker's requests went to {served}, not its hopper agent alone")
+        quarantined = session.scheduler.failed_record_keys()
+        if quarantined:
+            fail(f"(b) quarantine {quarantined}")
+        stats["parity"] = {"aliases": len(payloads), "served": served,
+                           "launches": dict(kernels)}
+
+        # (c) the collective Jacobi over a local and a remote member: at the
+        # default wire-cache cap on w0 here, at the raised cap on w1 after (d)
+        n, sweeps = COLLECTIVE["n"], COLLECTIVE["sweeps"]
+        a, b, d = cj.problem(n, dev, COLLECTIVE["seed"])
+        x_ser, _ = cj.serial_jacobi(a, b, d, sweeps, "hopper")
+        block = a.numel() * 4 // 2
+        stats["jacobi"] = {}
+
+        def jacobi(w, member, cap):
+            group = ["hopper", member.platform]
+            cap_mb = w.client.cache.cap_bytes >> 20
+            if cap_mb != (mp["raised_mb"] if cap == "raised" else 256):
+                fail(f"(c) {w.name}'s wire cap is {cap_mb} MB at the {cap} cap")
+            for mode in ("eager", "captured"):
+                comm = halo.comm_split(group)
+                wire0, hb0 = w.client.wire_stats(), w.heartbeat(timeout)
+                sync()
+                _cuda.reset_launch_counts()
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.start()
+                t0 = time.perf_counter()
+                if mode == "eager":
+                    x, res = cj.collective_jacobi(comm, a, b, d, sweeps)
+                else:
+                    _, x, res = cj.collective_jacobi_graph(comm, a, b, d, sweeps)
+                sync()
+                wall = time.perf_counter() - t0
+                prof.stop()
+                device_ms = device_seconds(prof) * 1e3
+                here = {k: v for k, v in _cuda.launch_counts().items() if v}
+                there = diff(w.heartbeat(timeout)["launches"], hb0["launches"])
+                wire = diff(w.client.wire_stats(), wire0)
+                comm.free()
+                same = torch.equal(x, x_ser)
+                print(f"  (c) {mode} over {group}, wire cap {cap_mb} MB: T3 "
+                      f"{wall * 1e3:.1f} ms, device {device_ms:.1f} ms in the host process "
+                      f"(busy {device_ms / (wall * 1e3):.3f}; the worker's kernels are "
+                      f"not in it); launches host {here}, worker {there}; wire "
+                      f"{wire} (totals {w.client.wire_stats()}); iterate bit-identical "
+                      f"to serial hopper: {same}; residual {res:.6e}")
+                if not same:
+                    fail(f"(c) {mode} at cap {cap}: the iterate differs from serial hopper")
+                if here.get("mvm") != sweeps or there.get("mvm") != sweeps \
+                        or there.get("vdp") != sweeps:
+                    fail(f"(c) {mode}: launches host {here}, worker {there}: one MVM "
+                         f"and VDP a sweep on each member")
+                if cap == "default" and wire.get("bytes_sent", 0) < sweeps * block:
+                    fail(f"(c) at the default cap the {block / 1e9:.2f} GB row block "
+                         f"did not ship every sweep: {wire}")
+                if cap == "raised" and wire.get("bytes_saved", 0) < sweeps * block:
+                    fail(f"(c) at the raised cap the row block was not elided: {wire}")
+                stats["jacobi"][f"{mode} {cap}"] = {
+                    "t3_ms": wall * 1e3, "device_ms_host": device_ms,
+                    "busy_host": device_ms / (wall * 1e3), "wire": wire,
+                    "launches_host": here, "launches_worker": there}
+                del x
+
+        jacobi(w0, agent, "default")
+
+        # (d) the kill drill
+        group = ["hopper", agent.platform]
+        comm = halo.comm_split(group)
+        epoch0 = comm.epoch
+        sync()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        (x, res), dead_ms = mpj.kill_mid_solve(
+            w0, lambda: cj.collective_jacobi(comm, a, b, d, sweeps), nth=mp["kill_nth"],
+            timeout=timeout)
+        sync()
+        wall = time.perf_counter() - t0
+        here = {k: v for k, v in _cuda.launch_counts().items() if v}
+        w0.proc.wait(timeout=60)
+        err, sol = normwise(x, x_ser), cj.solve_error(a, b, x)
+        differ_n = int((x != x_ser).sum())
+        print(f"  (d) w0 killed with its MVM {mp['kill_nth']} wedged in flight: DEAD "
+              f"{dead_ms:.2f} ms after the kill (exit code {w0.proc.returncode}); members "
+              f"now {list(comm.platforms)} (epoch {epoch0} -> {comm.epoch}); clones left "
+              f"{len(agent._clones)}; launches {here}; {differ_n} of {x.numel()} elements "
+              f"differ from serial hopper; solve {wall * 1e3:.1f} ms")
+        check_close("(d) iterate against serial hopper", err, torch.float32,
+                    COLLECTIVE_B_TOL)
+        check_close("(d) solve error", sol, torch.float32, COLLECTIVE_SOLVE_TOL)
+        if not (agent.dead and w0.dead) or agent._clones or agent.platform in comm.platforms \
+                or comm.size != 2 or comm.epoch == epoch0:
+            fail("(d) the worker's death was not repaired")
+        if here.get("mvm", 0) <= sweeps:
+            fail(f"(d) hopper did not take the dead member's sweeps: {here}")
+        comm.free()
+        stats["kill"] = {"dead_ms": dead_ms, "iterate_err": err, "solve_error": sol,
+                         "differ": differ_n, "launches": here, "solve_ms": wall * 1e3}
+        del x
+
+        # (e) data-parallel training with a remote member
+        tc = TRAIN_COMM
+        name = f"{tc['arch']}@{mp['train_layers']}"
+        cut = step_kernels.resolve_arch(name)
+        model = build_model(cut)
+        hp = TrainHyper(base_lr=tc["lr"], warmup_steps=0, total_steps=mp["train_steps"],
+                        microbatches=tc["microbatches"])
+        pipe = SyntheticLM(cut, tc["seq_len"], tc["batch"], tc["seed"])
+
+        def train(platforms):
+            comm_ = session.comm_split(list(platforms))
+            tr = Trainer(model=model, hp=hp, comm=comm_, arch=name, log_every=1)
+            params = model.init(torch.Generator(device=dev).manual_seed(tc["seed"]))
+            state0 = TrainState(params, adamw_init(params))
+            del params
+            t0_ = time.perf_counter()
+            state, hist = tr.run(state0, lambda s: pipe.device_batch(s, dev),
+                                 mp["train_steps"])
+            sync()
+            wall_ = time.perf_counter() - t0_
+            comm_.free()
+            return hist, step_kernels.flatten_params(state.params), wall_
+
+        h_one, p_one, wall_one = train(["hopper"])
+        # (c) at the raised cap, on w1 (spawned after (e)'s one-member run,
+        # as no remote member may be attached to it): a worker's wire ledger
+        # reads the HALO_WIRE_CACHE_MB knob when the worker is spawned
+        halo.configure(wire_cache_mb=mp["raised_mb"])
+        try:
+            w1, hello1 = spawn("w1")
+        finally:
+            halo.configure(wire_cache_mb=None)
+        ag1 = w1.agent("hopper").attach(session)
+        jacobi(w1, ag1, "raised")
+        del a, b, d, x_ser
+        torch.cuda.empty_cache()
+
+        # (e) continued: the group with the remote member
+        hb0, wire_e0 = w1.heartbeat(timeout), w1.client.wire_stats()
+        h_mix, p_mix, wall_mix = train(["hopper", ag1.platform])
+        hb1 = w1.heartbeat(timeout)
+        there = diff(hb1["launches"], hb0["launches"])
+        served = diff(hb1["served"], hb0["served"])
+        wire_e = diff(w1.client.wire_stats(), wire_e0)
+        same = h_mix == h_one and torch.equal(p_mix, p_one)
+        print(f"  (e) {cut.name} at full width cut to {mp['train_layers']} layers "
+              f"({step_kernels.param_size(name)} parameters, a float32 vector "
+              f"{step_kernels.param_size(name) * 4 / 1e9:.2f} GB), {mp['train_steps']} "
+              f"steps of {tc['batch']} x {tc['seq_len']} tokens in {tc['microbatches']} "
+              f"microbatches: w1 hello after {hello1:.2f} s; one member {h_one} in "
+              f"{wall_one:.2f} s; ['hopper', '{ag1.platform}'] {h_mix} in {wall_mix:.2f} s; "
+              f"history and parameters bit-identical: {same}; the worker served {served}, "
+              f"launched {there}; wire {wire_e}")
+        if not same:
+            fail("(e) the remote-member history or parameters differ from one member's")
+        if not all(there.get(k) for k in ("mmm_wgmma", "rmsnorm", "flash_attention_mma",
+                                          "embed_grad")):
+            fail(f"(e) the worker's LM_GRAD did not run on the kernels: {there}")
+        stats["train"] = {"history": h_mix, "one_member_s": wall_one, "mixed_s": wall_mix,
+                          "worker_launches": there, "served": served,
+                          "wire": wire_e, "hello_s": hello1}
+        del model, p_one, p_mix
+    finally:
+        for w in workers:
+            if not w.dead:
+                w.shutdown(timeout=60)
+            w.kill()
+            if w.proc is not None:
+                w.proc.wait(timeout=60)
+        halo.finalize()
+        torch.cuda.empty_cache()
+    alive = [w.name for w in workers if w.proc is None or w.proc.poll() is None]
+    print(f"  workers {[w.name for w in workers]} exit codes "
+          f"{[w.proc.returncode for w in workers]}; alive: {alive}")
+    if alive:
+        fail(f"workers {alive} are still alive")
+    return stats
+
+
+# ---------------------------------------------------------------------------
 # phase 3d: training
 # ---------------------------------------------------------------------------
 def leaf_names(tree, prefix: str = "params") -> list:
@@ -6580,6 +6962,11 @@ def main() -> None:
     resilience_launches, resilience_stats = phase3g(dev, card)
     seconds["3g resilience"] = time.perf_counter() - t0
     print(json.dumps({"resilience": resilience_stats}))
+    print(f"phase 3h: multi-process C²MPI — worker processes serving hopper@w0 on {card}")
+    t0 = time.perf_counter()
+    multiproc_stats = phase3h(dev, card)
+    seconds["3h multi-process"] = time.perf_counter() - t0
+    print(json.dumps({"multiproc": multiproc_stats}))
     print(f"phase 3d: training {TRAIN['arch']} at full width and depth on the kernels")
     t0 = time.perf_counter()
     path_launches["train"], train_stats = phase3d(dev)

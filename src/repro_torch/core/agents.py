@@ -93,6 +93,26 @@ def _card_device(tree: Any) -> Optional[torch.device]:
     return None
 
 
+def _on_hopper(record: Optional[KernelRecord]) -> bool:
+    """Whether ``record`` runs a hand-written kernel: the local ``hopper``
+    row or a worker's ``hopper@<worker>`` clone."""
+    return record is not None \
+        and record.platform.partition("@")[0] == "hopper"
+
+
+def _hopper_error(record: Optional[KernelRecord],
+                  exc: BaseException) -> bool:
+    """Whether ``exc`` is a hopper record's own failure — in this process,
+    or a worker's ``hopper@<worker>`` clone — which the card rule makes
+    surface at once, unquarantined, when the request's tensors lie on the
+    card.  A clone whose worker was lost (:class:`AgentDeadError`) is a
+    dead member, not a failing kernel: on card tensors its request
+    re-places onto hopper records only (``hopper_only`` of
+    :meth:`RuntimeAgent._next_record` and of the graph's placement)."""
+    return _on_hopper(record) and not (
+        "@" in record.platform and isinstance(exc, AgentDeadError))
+
+
 def _caller_stream(args: Tuple) -> Optional["torch.cuda.Stream"]:
     """The calling thread's current stream on the device of ``args``, or
     None for host operands.  A worker thread's own current stream is the
@@ -557,7 +577,7 @@ class VirtualizationAgent:
             try:
                 result = fn()
             except BaseException as exc:  # noqa: BLE001 — propagate via future
-                fut.set_exception(exc)
+                self._fail_item(fut, exc)
                 self._beat(None)
                 continue
             fut.set_result(result)        # waiters proceed before bookkeeping
@@ -567,6 +587,15 @@ class VirtualizationAgent:
                     after(result, t0)
                 except Exception:
                     log.exception("post-execution hook raised")
+
+    def _fail_item(self, fut: HaloFuture, exc: BaseException) -> None:
+        """Complete a work item's future with its execution error.  Split
+        out of :meth:`_worker_loop` so transports can suppress it: a
+        RemoteAgent whose process died fails the *transport* call on the
+        blocked worker thread, but by then ``mark_dead`` already handed the
+        item to the replay ladder — completing the future with the
+        transport error would race (and could beat) the replayed result."""
+        fut.set_exception(exc)
 
     def submit(self, fn: Callable[[], Any], future: Optional[HaloFuture] = None,
                after: Optional[Callable[[Any, float], None]] = None,
@@ -1106,9 +1135,13 @@ class RuntimeAgent:
         (or the CR's claim-level callback); only when every path fails does
         the *original* error surface to the waiter.
 
-        A hopper record given tensors on the card is the exception: its
-        build or launch error surfaces at once, unquarantined, so a request
-        on the card never gives way to a plain version unseen."""
+        A hopper record given tensors on the card is the exception (a
+        worker's ``hopper@<worker>`` clone included, :func:`_hopper_error`):
+        its build or launch error surfaces at once, unquarantined, so a
+        request on the card never gives way to a plain version unseen.  A
+        clone whose worker was lost re-places onto the other hopper records
+        (the local row, another worker's clone) and raises when none is
+        left."""
         overrides = cr.overrides if cr is not None else {}
         agent = self._agent_for(record)
         if agent is None:
@@ -1120,18 +1153,24 @@ class RuntimeAgent:
             agent = self._agent_for(record) or self.agents["torch"]
         tried: List[KernelRecord] = []
         first_exc: Optional[BaseException] = None
+        card = _card_device(args) is not None
+        hopper_only = False
         while True:
             try:
                 return self._execute_on(agent, record, cr, args, kwargs)
             except Exception as exc:  # noqa: BLE001 — failsafe re-placement
-                if record.platform == "hopper" and _card_device(args) is not None:
+                if card and _hopper_error(record, exc):
                     raise
+                # a lost worker's hopper clone on the card: no plain row
+                hopper_only = hopper_only or (card and _on_hopper(record))
                 tried.append(record)
                 first_exc = first_exc or exc
                 self._record_failure(record, exc)
-            nxt = self._next_record(record.alias, args, overrides, tried)
+            nxt = self._next_record(record.alias, args, overrides, tried,
+                                    hopper_only=hopper_only)
             if nxt is None:
-                if cr is not None and cr.failsafe is not None:
+                if cr is not None and cr.failsafe is not None \
+                        and not hopper_only:
                     log.warning("CR %d (%s): fail-safe callback engaged after "
                                 "execution failure", cr.uid, cr.alias)
                     return cr.failsafe(*args, **kwargs)
@@ -1140,11 +1179,15 @@ class RuntimeAgent:
             agent = self._agent_for(record) or self.agents["torch"]
 
     def _next_record(self, alias: str, args: Tuple, overrides: Dict,
-                     tried: Sequence[KernelRecord]) -> Optional[KernelRecord]:
+                     tried: Sequence[KernelRecord],
+                     hopper_only: bool = False) -> Optional[KernelRecord]:
         """Next feasible record for re-placement, excluding already-tried
         ones; falls back to the registry fail-safe record when the claim's
-        ``allowed_platforms`` admit it."""
+        ``allowed_platforms`` admit it.  ``hopper_only`` offers hopper
+        records alone, and no fail-safe."""
         allowed = overrides.get("allowed_platforms", self._allowed_platforms())
+        if hopper_only:
+            allowed = [p for p in allowed if p.partition("@")[0] == "hopper"]
         pref = overrides.get("platform_preference", self._platform_preference())
         try:
             cands = self.registry.candidates(
@@ -1155,6 +1198,8 @@ class RuntimeAgent:
         for rec in cands:
             if self._agent_for(rec) is not None:
                 return rec
+        if hopper_only:
+            return None
         fs = self.registry.failsafe(alias)
         if fs is not None and fs.platform in allowed \
                 and all(fs is not r for r in tried):

@@ -13,11 +13,15 @@ Overrides are never written back into ``os.environ``.
 
 Only the fields with a reader in the port are kept: the liveness and
 straggler knobs (read by ``core/agents.py``'s :class:`HealthConfig` and
-:class:`RuntimeAgent`) and ``autotune_cache`` (read by
-:meth:`CostModelScheduler.default`).  The reference's fusion and
-compiled-graph cache knobs wait for A9's remainder, the wire-cache and
-worker knobs for the multi-process runtime (A12), and ``tuning_db`` for
-the tuning database (A5): each comes with the module that reads it.
+:class:`RuntimeAgent`), ``autotune_cache`` (read by
+:meth:`CostModelScheduler.default`), and the wire-cache cap and worker
+knobs (read by ``distributed/remote.py`` and ``launch/worker.py``).  The
+reference's fusion and compiled-graph cache knobs wait for A9's remainder
+and ``tuning_db`` for the tuning database (A5): each comes with the module
+that reads it.  Its ``wire_cache`` switch and ``wire_cache_min`` are
+constants of ``distributed/remote.py`` (the cache always on, its floor
+``WIRE_CACHE_MIN``) until a second value is needed, and its
+``worker_devices`` — XLA's host-device fan-out — has no torch counterpart.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ import dataclasses
 import threading
 from typing import Any, Dict, Optional
 
-from .envutil import env_flag, env_float, env_path
+from .envutil import env_flag, env_float, env_int, env_path
 
 __all__ = ["HaloConfig", "configure", "halo_config", "reset_config"]
 
@@ -54,6 +58,16 @@ class HaloConfig:
     #: path of the persisted scheduler latency table (None → memory only)
     autotune_cache: Optional[str] = None
 
+    # -- multi-process workers (DESIGN.md §13) -----------------------------
+    #: per-worker pinned-tensor budget in MiB
+    wire_cache_mb: int = 256
+    #: client-side timeout (s) for one remote execution (None → no limit)
+    remote_timeout: Optional[float] = None
+    #: seconds to wait for a spawned worker's hello (its kernel build included)
+    worker_timeout: float = 120.0
+    #: worker-process log level name
+    worker_log: str = "WARNING"
+
 
 _FIELDS = {f.name: f for f in dataclasses.fields(HaloConfig)}
 
@@ -64,6 +78,10 @@ _READERS = {
     "straggler_multiple": lambda d: env_float("HALO_STRAGGLER_MULTIPLE", d),
     "straggler_min_s": lambda d: env_float("HALO_STRAGGLER_MIN", d),
     "autotune_cache": lambda d: env_path("HALO_AUTOTUNE_CACHE", d),
+    "wire_cache_mb": lambda d: env_int("HALO_WIRE_CACHE_MB", d),
+    "remote_timeout": lambda d: env_float("HALO_REMOTE_TIMEOUT", d),
+    "worker_timeout": lambda d: env_float("HALO_WORKER_TIMEOUT", d),
+    "worker_log": lambda d: env_path("HALO_WORKER_LOG", d),
 }
 
 assert set(_READERS) == set(_FIELDS)

@@ -13,7 +13,20 @@ from typing import Optional
 
 log = logging.getLogger("repro_torch.halo.env")
 
-__all__ = ["env_flag", "env_float", "env_path"]
+__all__ = ["env_flag", "env_float", "env_int", "env_path"]
+
+
+def env_int(name: str, default: int) -> int:
+    """``int(os.environ[name])`` with warn-and-fallback on malformed values."""
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        log.warning("ignoring non-integer %s=%r (using default %r)",
+                    name, raw, default)
+        return default
 
 
 def env_float(name: str, default: Optional[float]) -> Optional[float]:

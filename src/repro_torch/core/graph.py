@@ -54,7 +54,7 @@ import torch
 
 from .agents import (AgentDeadError, HaloFuture, RuntimeAgent,
                      VirtualizationAgent, _card_device, _graph_capture,
-                     _record_ready, log)
+                     _hopper_error, _on_hopper, _record_ready, log)
 from .compute_object import ComputeObject, as_compute_object
 from .registry import KernelRecord, SelectionError
 from .scheduler import abstract_signature
@@ -371,12 +371,14 @@ class ExecutionGraph:
             return args, kwargs
         return tuple(payload), dict(node.kwargs)
 
-    def _place(self, node: GraphNode, args: Tuple
+    def _place(self, node: GraphNode, args: Tuple, hopper_only: bool = False
                ) -> Tuple[Optional[KernelRecord], VirtualizationAgent, float]:
         """Pick (record, agent, estimate) for one ready node.
 
         Returns ``record=None`` for the claim-level failsafe callback.
-        Raises SelectionError when nothing can run the node."""
+        Raises SelectionError when nothing can run the node.
+        ``hopper_only`` offers the node's hopper records alone (the local
+        row, a worker's clone), and no fail-safe."""
         sess = self.session
         overrides = node.overrides
         sched = sess.scheduler
@@ -385,6 +387,7 @@ class ExecutionGraph:
         # is healthy, untried, feasible, and its agent is up
         pinned = node.pinned
         if pinned is not None and all(pinned is not r for r in node._tried) \
+                and (_on_hopper(pinned) or not hopper_only) \
                 and (sched is None or not sched.is_failed(pinned)) \
                 and pinned.feasible(*args):
             agent = sess._agent_for(pinned)
@@ -425,6 +428,8 @@ class ExecutionGraph:
             # filter at use time: a record quarantined after this key was
             # cached must stop being offered at once
             cands = [c for c in cands if not sched.is_failed(c)]
+        if hopper_only:
+            cands = [c for c in cands if _on_hopper(c)]
         parent_platforms = [p.platform for p in node.parents]
         rec: Optional[KernelRecord] = None
         est = 0.0
@@ -447,12 +452,12 @@ class ExecutionGraph:
                 if rec is not None:
                     break
             rec = rec or cands[0]
-        if rec is None:
+        if rec is None and not hopper_only:
             fs = sess.registry.failsafe(node.alias)
             if fs is not None and all(fs is not r for r in node._tried):
                 rec = fs
         if rec is None:
-            if node.failsafe is not None:
+            if node.failsafe is not None and not hopper_only:
                 return None, sess.agents["torch"], 0.0
             raise SelectionError(
                 f"graph node {node.uid}: no feasible record for "
@@ -592,13 +597,15 @@ class ExecutionGraph:
 
     def _attempt_failed(self, node: GraphNode, rec: Optional[KernelRecord],
                         args: Tuple, kwargs: Dict, exc: BaseException) -> None:
-        if rec is not None and rec.platform == "hopper" \
-                and _card_device(args) is not None:
+        card = _card_device(args) is not None
+        if card and _hopper_error(rec, exc):
             # as in RuntimeAgent._execute_record: a kernel's build or launch
-            # error on the card surfaces unquarantined
+            # error on the card surfaces unquarantined, and a lost worker's
+            # hopper clone re-places onto hopper records only
             self._fail_node(node, exc)
             return
-        self._retry_or_fail(node, rec, args, kwargs, exc)
+        self._retry_or_fail(node, rec, args, kwargs, exc,
+                            hopper_only=card and _on_hopper(rec))
 
     def _backup_ended(self, node: GraphNode) -> None:
         """A speculative backup finished, won or lost.  An original attempt
@@ -751,7 +758,8 @@ class ExecutionGraph:
             self._submit(child)
 
     def _retry_or_fail(self, node: GraphNode, rec: Optional[KernelRecord],
-                       args: Tuple, kwargs: Dict, exc: BaseException) -> None:
+                       args: Tuple, kwargs: Dict, exc: BaseException,
+                       hopper_only: bool = False) -> None:
         # the *original* error surfaces after every re-placement path fails
         node._first_exc = node._first_exc or exc
         if rec is not None:
@@ -760,13 +768,14 @@ class ExecutionGraph:
             log.warning("graph node %d (%s): attempt on %s failed; re-placing",
                         node.uid, node.alias, rec.platform)
             try:
-                rec2, agent2, est2 = self._place(node, args)
+                rec2, agent2, est2 = self._place(node, args, hopper_only)
             except Exception:  # noqa: BLE001 — nothing left to try
                 pass
             else:
                 self._dispatch_attempt(node, rec2, agent2, est2, args, kwargs)
                 return
-        if node.fused_members and self._decompose_fused(node, args, exc):
+        if node.fused_members and not hopper_only \
+                and self._decompose_fused(node, args, exc):
             return                               # members run instead (§12)
         self._fail_node(node, node._first_exc)
 

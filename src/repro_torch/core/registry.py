@@ -31,6 +31,7 @@ __all__ = [
     "KernelRegistry",
     "PLATFORM_PREFERENCE",
     "SelectionError",
+    "clone_record",
 ]
 
 # Process-wide monotonic record ids: caches that may outlive a record key on
@@ -93,6 +94,18 @@ class KernelRecord:
             log.debug("supports() raised for %s/%s; treating as infeasible",
                       self.alias, self.platform, exc_info=True)
             return False
+
+
+def clone_record(record: KernelRecord, **changes) -> KernelRecord:
+    """A copy of ``record`` with ``changes`` applied and a **fresh uid**.
+
+    ``dataclasses.replace`` alone would copy the source's uid, making the
+    clone indistinguishable from the original to every uid-keyed cache.
+    Used by the remote transport (DESIGN.md §13) to republish a worker's
+    records under its remote platform id."""
+    if "uid" not in changes:
+        changes["uid"] = next(_record_uids)
+    return dataclasses.replace(record, **changes)
 
 
 class SelectionError(KeyError):

@@ -164,14 +164,28 @@ class CostModelScheduler:
 
     def mark_failed(self, record: KernelRecord) -> None:
         """Quarantine a record whose execution raised: selection skips it
-        until :meth:`clear_failures`.  Process-local, never persisted."""
-        key = _record_key(record)
+        until :meth:`clear_failures`.
+
+        **Locality**: quarantine state (and :attr:`epoch`) is process-local,
+        never persisted and never shared implicitly.  A worker process's
+        scheduler quarantines on its own; a record that fails only inside a
+        worker stays selectable on the host unless the event is passed back
+        through :meth:`mark_failed_key` (the remote transport does this on
+        every reply, DESIGN.md §13)."""
+        self.mark_failed_key(_record_key(record))
+
+    def mark_failed_key(self, key: str) -> None:
+        """Quarantine by raw record key (``alias|platform|prio:ver``): the
+        cross-process form of :meth:`mark_failed`, with which the host
+        applies a worker's quarantine events after translating the platform
+        segment to the remote member's id."""
         with self._lock:
             self._failed[key] = self._failed.get(key, 0) + 1
             self._epoch += 1
 
     def failed_record_keys(self) -> List[str]:
-        """The currently-quarantined record keys (``alias|platform|prio:ver``)."""
+        """The currently-quarantined record keys (``alias|platform|prio:ver``),
+        for shipping across the wire (see :meth:`mark_failed_key`)."""
         with self._lock:
             return sorted(self._failed)
 

@@ -23,11 +23,15 @@ short names as ``repro.halo``::
     state, history = halo.train("h2o-danube-1.8b", steps=20, reduced=True,
                                 comm=2)          # data-parallel (§15)
     halo.configure(health_monitor=True)   # typed HALO_* knobs (§11)
+    w = halo.spawn_worker("w0")           # a worker process (§13)
+    w.agent("hopper").attach(halo.session())
+    comm = halo.comm_split(["hopper", "hopper@w0"])
     halo.finalize()
 
 Each name re-exports the object :mod:`repro_torch.core.c2mpi`,
-:mod:`repro_torch.core.collective` or :mod:`repro_torch.core.config`
-defines; ``train`` is a thin wrapper over the Trainer.
+:mod:`repro_torch.core.collective`, :mod:`repro_torch.core.config` or
+:mod:`repro_torch.distributed.remote` defines; ``train`` is a thin wrapper
+over the Trainer.
 """
 from __future__ import annotations
 
@@ -55,6 +59,7 @@ from .core.config import halo_config as config
 from .core.fusion import CompiledGraph, compile_graph
 from .core.graph import ExecutionGraph
 from .core.graph import halo_graph as graph
+from .distributed.remote import spawn_worker
 
 __all__ = [
     "initialize", "finalize", "session", "dispatch", "claim", "send",
@@ -68,6 +73,8 @@ __all__ = [
     "graph", "compile_graph", "ExecutionGraph", "CompiledGraph",
     # configuration (typed env knobs)
     "HaloConfig", "configure", "config",
+    # multi-process workers (§13)
+    "spawn_worker",
     # training (§15)
     "train",
 ]

@@ -26,9 +26,10 @@ identically everywhere:
   never sees a decode call.  ``engine_chaos`` wraps a serving engine's
   host entry point ``decode_step`` with the same :class:`FaultPlan`
   semantics instead.
-
-The reference's record-level ``failing``/``faulty_record`` wait for a
-caller in the port.
+* :func:`failing` / :func:`faulty_record` — the record-level counterparts:
+  a kernel function, and a registry record around it, that always raise,
+  for paths where the *record* is bad (quarantine, re-placement, fail-safe
+  ladders, a worker's quarantine passed to the host) rather than the agent.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ from ..core.agents import (AtenAgent, HopperAgent, RuntimeAgent, TorchAgent,
 from ..core.registry import KernelRecord
 
 __all__ = ["EngineFault", "FaultError", "FaultPlan", "FaultyAgent", "chaos",
-           "engine_chaos"]
+           "engine_chaos", "failing", "faulty_record"]
 
 _MODES = ("raise", "hang", "die")
 
@@ -271,3 +272,30 @@ def engine_chaos(engine: Any, **plan_fields) -> Iterator[EngineFault]:
         fault.release()
         fault.uninstall()
 
+
+
+def failing(message: str = "injected fault",
+            exc_type: type = FaultError,
+            calls: Optional[list] = None) -> Callable[..., Any]:
+    """A kernel function that always raises ``exc_type(message)``.
+
+    Pass ``calls`` (any list) to record each invocation's positional args —
+    tests assert on attempt counts without a bespoke closure every time."""
+    def _boom(*args, **kwargs):
+        if calls is not None:
+            calls.append(args)
+        raise exc_type(message)
+    return _boom
+
+
+def faulty_record(alias: str, platform: str = "aten", priority: int = 50,
+                  message: Optional[str] = None,
+                  exc_type: type = FaultError,
+                  is_failsafe: bool = False) -> KernelRecord:
+    """A registry record whose kernel always raises — the record-level
+    counterpart of :class:`FaultyAgent`, for paths where the *record* is bad
+    (quarantine, re-placement, fail-safe ladders) rather than the agent."""
+    message = message or f"injected fault: {alias} on {platform} died"
+    return KernelRecord(alias=alias, fn=failing(message, exc_type),
+                        platform=platform, priority=priority,
+                        is_failsafe=is_failsafe)

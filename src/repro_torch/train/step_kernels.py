@@ -19,8 +19,11 @@ The torch, aten and hopper rows of each share ONE callable, as the
 reference's three rows do.  Parameters travel as a flat float32 vector in
 ``jax.tree``'s leaf order (bfloat16 → float32 → bfloat16 is lossless),
 unflattened from the arch's cached template.  ``arch`` is a config id
-resolved by :func:`repro_torch.configs.get_config`; in-process custom
-configs register with :func:`register_arch`.  The trainer's comm mode
+resolved by :func:`repro_torch.configs.get_config`, or ``"<id>@<L>"``,
+that config cut to ``L`` layers (one-stage configs only): a name every
+process resolves alike, so a worker process (DESIGN.md §13) runs the same
+cut as its host.  Other in-process custom configs register with
+:func:`register_arch` (this process only).  The trainer's comm mode
 (``train/trainer.py``) dispatches ``LM_GRAD`` on every member of a device
 group and one ``ADAMW_STEP``; ``LM_GRAD``'s own dispatches (MMM, RMSNORM,
 FLASH_ATTN, EMBED_GRAD) run on the calling member's worker thread through
@@ -29,6 +32,7 @@ each of those repeats bit for bit on the card.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Dict, Tuple
@@ -60,8 +64,22 @@ def register_arch(name: str, cfg: ArchConfig) -> None:
 
 
 def resolve_arch(arch: str, reduced: bool = False) -> ArchConfig:
-    cfg = _EXTRA_ARCHES.get(arch) or get_config(arch)
+    cfg = _EXTRA_ARCHES.get(arch) or _depth_cut(arch)
     return cfg.reduced() if reduced else cfg
+
+
+def _depth_cut(arch: str) -> ArchConfig:
+    """``get_config(arch)``, or for ``"<id>@<L>"`` that config with its one
+    stage cut to ``L`` repeats."""
+    base, sep, layers = arch.rpartition("@")
+    if not sep:
+        return get_config(arch)
+    cfg = get_config(base)
+    if len(cfg.stages) != 1 or not layers.isdigit() or int(layers) < 1:
+        raise KeyError(f"arch {arch!r}: a depth cut names a one-stage config "
+                       f"and a layer count >= 1")
+    return dataclasses.replace(cfg, stages=(dataclasses.replace(
+        cfg.stages[0], repeats=int(layers)),))
 
 
 @functools.lru_cache(maxsize=None)

@@ -3,9 +3,10 @@ parsing (``repro_torch.core.envutil``), held against the JAX package's:
 the kept fields' defaults equal ``repro.core.config.HaloConfig``'s field
 for field; the environment beats a default and an override beats the
 environment without touching ``os.environ``; an unknown field raises; a
-snapshot is frozen; the facade exposes the names; ``env_flag`` and
-``env_float`` parse a table of raw strings exactly as the reference's
-readers do.  Each knob kept has a reader in the port, named here."""
+snapshot is frozen; the facade exposes the names (``spawn_worker``
+among them); ``env_flag``, ``env_float``, ``env_int`` and ``env_path``
+parse a table of raw strings exactly as the reference's readers do.
+Each knob kept has a reader in the port, named here."""
 import dataclasses
 import os
 
@@ -29,6 +30,10 @@ KNOBS = {
     "straggler_min_s": ("HALO_STRAGGLER_MIN", "0.5", 0.5),
     "autotune_cache": ("HALO_AUTOTUNE_CACHE", "/nonexistent/at.json",
                        "/nonexistent/at.json"),
+    "wire_cache_mb": ("HALO_WIRE_CACHE_MB", "64", 64),
+    "remote_timeout": ("HALO_REMOTE_TIMEOUT", "30", 30.0),
+    "worker_timeout": ("HALO_WORKER_TIMEOUT", "15", 15.0),
+    "worker_log": ("HALO_WORKER_LOG", "INFO", "INFO"),
 }
 
 RAW = [None, "", "0", "1", "yes", "no", "false", "2.5", "-1e-3", "inf", "nan",
@@ -60,8 +65,8 @@ def test_env_beats_default_and_override_beats_env(monkeypatch, field):
     monkeypatch.setenv(var, raw)
     assert getattr(t_config.halo_config(), field) == value \
         == getattr(j_config.halo_config(), field)
-    other = {"health_monitor": False, "autotune_cache": "/elsewhere.json"}.get(
-        field, 7.0)
+    other = {"health_monitor": False, "autotune_cache": "/elsewhere.json",
+             "worker_log": "DEBUG"}.get(field, 7.0)
     snap = t_config.configure(**{field: other})
     assert getattr(snap, field) == other
     assert os.environ[var] == raw                # never written back
@@ -91,6 +96,61 @@ def test_facade_exposes_config():
         assert name in halo.__all__ and name in jhalo.__all__
     assert halo.configure(straggler_min_s=0.1) == halo.config()
     assert halo.config().straggler_min_s == 0.1
+
+
+def test_facade_exposes_spawn_worker():
+    from repro_torch.distributed import remote
+    assert halo.spawn_worker is remote.spawn_worker
+    assert "spawn_worker" in halo.__all__ and "spawn_worker" in jhalo.__all__
+
+
+def test_worker_knobs_have_their_readers(monkeypatch):
+    """wire_cache_mb reaches the wire ledger, remote_timeout the remote
+    agent, worker_timeout spawn_worker's default, worker_log the worker
+    launcher.  The reference's wire_cache and wire_cache_min are constants
+    here, and its worker_devices (XLA's fan-out) is not taken: no
+    ``--devices`` reaches the worker."""
+    from repro_torch.distributed import remote
+    from repro_torch.launch import worker as t_worker
+    halo.configure(wire_cache_mb=3, remote_timeout=4.5, worker_timeout=0.5,
+                   worker_log="ERROR")
+    cache = remote._WireCache()
+    assert cache.cap_bytes == 3 << 20 and remote.WIRE_CACHE_MIN == 4096
+    for field in ("wire_cache", "wire_cache_min", "worker_devices"):
+        with pytest.raises(TypeError, match="unknown HaloConfig field"):
+            halo.configure(**{field: 1})
+
+    class _Handle:
+        name, dead = "w9", False
+    assert remote.RemoteAgent(_Handle(), "hopper")._timeout == 4.5
+    seen = {}
+
+    class _Proc:
+        def __init__(self, cmd, env):
+            seen["cmd"] = cmd
+
+        def poll(self):
+            return 1                      # exits at once: no hello
+
+        def kill(self):
+            pass
+
+        def wait(self, timeout=None):
+            return 1
+    monkeypatch.setattr(remote.subprocess, "Popen", _Proc)
+    with pytest.raises(remote.RemoteWorkerError, match="within 0.5s"):
+        remote.spawn_worker("w9", device="cpu")
+    assert "--devices" not in seen["cmd"]
+    levels = []
+    monkeypatch.setattr(t_worker.logging, "basicConfig",
+                        lambda **kw: levels.append(kw["level"]))
+    import repro_torch.distributed.remote as r
+    monkeypatch.setattr(r, "connect_and_serve",
+                        lambda *a, **kw: seen.update(serve=kw))
+    assert t_worker.main(["--connect", "127.0.0.1:1", "--device", "cpu"]) == 0
+    assert levels == ["ERROR"]
+    assert seen["serve"] == {"name": "w0", "platforms": ["hopper", "aten", "torch"],
+                             "device": "cpu"}
 
 
 def test_each_knob_has_its_reader(monkeypatch, tmp_path):
@@ -126,3 +186,5 @@ def test_env_readers_parse_as_the_reference_does(monkeypatch, raw):
         assert (got != got and want != want) or got == want   # nan == nan here
     for default in (None, "/d"):
         assert t_env.env_path(name, default) == j_env.env_path(name, default)
+    for default in (0, 4096):
+        assert t_env.env_int(name, default) == j_env.env_int(name, default)

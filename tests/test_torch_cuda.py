@@ -1705,3 +1705,32 @@ def test_speculative_backup_keeps_the_winners_ready_event(card):
         assert torch.equal(_bits(out), _bits(mmm_hopper(a, b)))
     finally:
         rt.finalize()
+
+
+def test_card_worker_hopper_mmm_equals_in_process(card):
+    """A worker process on the card serves ``hopper@tw-card``: its MMM runs
+    mmm_wgmma.cu in the worker's own CUDA context on the same card, its
+    launch counted there and not here, and the result comes back to the
+    card torch.equal to the in-process hopper row's."""
+    from repro_torch.distributed.remote import spawn_worker
+    rt = _card_session(card)
+    w = spawn_worker("tw-card", device="cuda")
+    try:
+        agent = w.agent("hopper").attach(rt)
+        a = _rnd(card, 512, 2560, dtype=torch.bfloat16, seed=5)
+        b = _rnd(card, 2560, 640, dtype=torch.bfloat16, seed=6)
+        pin = {"allowed_platforms": [agent.platform],
+               "platform_preference": [agent.platform]}
+        before = w.heartbeat(timeout=60)["launches"]
+        _cuda.reset_launch_counts()
+        remote = rt.isend((a, b), rt.claim("MMM", overrides=pin),
+                          mailbox=False).result(timeout=60)
+        assert not any(_cuda.launch_counts().values())
+        after = w.heartbeat(timeout=60)["launches"]
+        assert after["mmm_wgmma"] - before["mmm_wgmma"] == 1
+        assert remote.device == card and remote.dtype == torch.bfloat16
+        assert torch.equal(_bits(remote), _bits(mmm_hopper(a, b)))
+    finally:
+        w.shutdown()
+        w.kill()
+        rt.finalize()

@@ -57,6 +57,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import repro_torch.kernels.fused, repro_torch.graph_pipeline\n"
         "import repro_torch.core.collective, repro_torch.collective_jacobi\n"
         "import repro_torch.distributed.sharding\n"
+        "import repro_torch.distributed.remote, repro_torch.multiproc_jacobi\n"
+        "import repro_torch.launch.worker\n"
         "import repro_torch.kernels as k\n"
         "from repro_torch.core.compute_object import to_numpy\n"
         "k.register_all()\n"
@@ -185,7 +187,8 @@ def test_build_flags_target_sm90a_without_fast_math():
     "repro_torch.core.c2mpi", "repro_torch.kernels.staging",
     "repro_torch.core.fusion", "repro_torch.core.graph",
     "repro_torch.core.registry", "repro_torch.core.scheduler",
-    "repro_torch.kernels.fused", "repro_torch.halo"])
+    "repro_torch.kernels.fused", "repro_torch.halo",
+    "repro_torch.distributed.remote"])
 def test_public_api_has_docstrings(module):
     """As tests/test_docstrings.py asks of the reference's core modules:
     ``__all__`` resolves and every function or class in it has a one-line

@@ -167,6 +167,47 @@ def test_compiled_graph_cache_across_runs(cpu_session, setup):
     assert h_a == h_b
 
 
+def test_remote_member_parity(cpu_session, setup, single_run):
+    """One member rank lives in a spawned worker process (``hopper@tw-train``,
+    on the CPU): the wire carries the LM_GRAD vectors and the EWADD
+    partials bit-exactly, so the mixed local/remote group reproduces the
+    single member's history, parameters and moments bit for bit."""
+    from repro_torch.distributed.remote import spawn_worker
+    model, data = setup
+    hist, vecs, step = single_run
+    w = spawn_worker("tw-train", device="cpu")
+    try:
+        agent = w.agent("hopper").attach(cpu_session)
+        served0 = w.heartbeat(timeout=60)["served"]["hopper"]
+        state, h = _train(cpu_session, model, data, ["hopper", agent.platform])
+        served = w.heartbeat(timeout=60)["served"]["hopper"] - served0
+    finally:
+        w.shutdown()
+        w.kill()
+    assert h == hist
+    for got, want in zip(_vectors(state), vecs):
+        assert torch.equal(got, want)
+    assert int(state.opt.step) == step
+    # 2 of each step's 4 LM_GRAD microbatches, and its local EWADD, ran there
+    assert served >= 3 * 3
+    assert w.client.wire_stats()["bytes_sent"] > 0
+
+
+def test_arch_depth_cut_names_resolve_in_every_process():
+    """``"<id>@<L>"`` is the config cut to L layers, as a host registers a
+    cut with ``register_arch``; a worker resolves the same name alike."""
+    from repro_torch.train.step_kernels import param_size, resolve_arch
+    cfg = get_config(ARCH)
+    cut = resolve_arch(f"{ARCH}@2")
+    assert cut == dataclasses.replace(cfg, stages=(dataclasses.replace(
+        cfg.stages[0], repeats=2),))
+    assert resolve_arch(f"{ARCH}@2", reduced=True) == cut.reduced()
+    assert param_size(f"{ARCH}@1") < param_size(f"{ARCH}@2") < param_size(ARCH)
+    for bad in (f"{ARCH}@0", f"{ARCH}@x", "zamba2-1.2b@2"):
+        with pytest.raises(KeyError):
+            resolve_arch(bad)
+
+
 def test_comm_mode_requires_arch_and_divisibility(cpu_session, setup):
     model, data = setup
     comm = cpu_session.comm_split(["hopper", "aten"])
