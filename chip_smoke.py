@@ -112,7 +112,11 @@ Phases (any failure exits non-zero before the result lines are printed):
    SORT of 4096 rows of 4096 (the tile route) and MMM 4096×4094 @
    4094×4096 float32 (the 3×TF32 route, its split pass padding K = 4094,
    which TMA cannot stride, to 4096).  Then
-   the template is timed end to end (median of 5 runs, T1 per call).
+   the template is timed end to end (median of 5 runs, T1 per call), and
+   ``repro_torch.portability_demo`` runs on the card (``portability_leg``:
+   the torch, aten and hopper policies' picks, one ``mmm_tf32x3`` launch a
+   hopper call, each result within ``TOL`` of ``mmm_ref``, the attached
+   agent served, the fail-safe engaged; T3, Φ and the penalty printed).
 3b. The model path: h2o-danube-1.8b at full width (random bfloat16 weights
    from a seed) served through ``repro_torch.launch.serve.run_requests``
    on a SlotEngine/StepScheduler: 8 requests on 4 slots, prompts of 512
@@ -285,6 +289,20 @@ Phases (any failure exits non-zero before the result lines are printed):
    "hopper@w1"]``, 2 steps: history and parameters bit-identical to one
    member's, the worker's LM_GRAD on its kernels.  Every worker is shut
    down before the phase ends, also on failure.
+3i. Expert parallelism (``phase3i``, after 3h; DESIGN.md §15;
+   ``EXPERT_PARALLEL``): moonshot-v1-16b-a3b's MoE layers 1-4 at their
+   published widths through ``moe_expert_parallel``, each call against
+   ``moe_layer`` on the same session and inputs: (a) bfloat16, a prefill
+   batch of 4 x 512 tokens and a decode batch of 4 x 1, over ``["aten",
+   "aten"]`` and ``["aten"] * 4``; (b) float32, layer 1, over ``["aten",
+   "torch", "aten", "torch"]``; (c) layer 1 over ``["aten", "aten@w0"]``,
+   w0 a worker process on the card, against (a)'s two-member result.  y
+   and aux ``torch.equal`` to the reference (a call that ``EP_FAULTS``
+   names, ROADMAP C3, bit for bit to ``ep_composition`` and within
+   ``TOL``), every MOE_FFN node on its member's platform, 3 MMM launches
+   a call on the route ``mmm_route`` names, the worker's aten agent
+   serving 5 requests a call; host ms a call, device ms and the wire's
+   bytes printed.  The worker is shut down before the phase ends.
 3d. Training (``phase3d``): (a) the gradients of the MMM, RMSNORM and
    FLASH_ATTN autograd Functions on the card against autograd of their
    plain versions on the card: MMM at danube's projections and unembed
@@ -750,6 +768,32 @@ RESILIENCE_KERNELS = ("mmm_wgmma", "mmm_skinny", "ewise", "mvm", "vdp", "rmsnorm
 MULTIPROC = {"payload_seed": 13, "raised_mb": 1024, "kill_nth": 10, "train_layers": 2,
              "train_steps": 2, "hello_timeout": 300.0, "timeout": 600.0}
 
+#: phase 3i, expert parallelism over device groups (DESIGN.md §15; ROADMAP
+#: A10c's first half): moonshot-v1-16b-a3b's MoE layers at their published
+#: widths (d_model 2048, 64 experts of d_ff 1408, top 6, 2 shared experts,
+#: capacity factor 1.25) cut to ``layers`` of its 48, weights from
+#: ``seed``; (a) a prefill batch of ``batch`` × ``prefill`` tokens (C =
+#: 244) and a decode batch of ``batch`` × 1 (C = 4), bfloat16, each layer
+#: fed the one before's output, over each group of ``groups_a``; (b)
+#: float32, the first layer, over ``group_b``; (c) the first layer over
+#: ``["aten", "aten@w0"]``, w0 a worker process on the card; host ms a call
+#: the median of ``timed`` synchronised calls, device ms from ``profiled``
+#: profiler runs (in (c), one synchronised call in a bare profiler window
+#: gives both: each of its calls ships ~1.7 GB over the wire and back, 5-6 s
+#: on the H100)
+EXPERT_PARALLEL = {"arch": "moonshot-v1-16b-a3b", "layers": (1, 2, 3, 4), "batch": 4,
+                   "prefill": 512, "seed": 21, "timed": 5, "profiled": 2,
+                   "groups_a": (("aten", "aten"), ("aten",) * 4),
+                   "group_b": ("aten", "torch", "aten", "torch")}
+#: calls whose result may differ from ``moe_layer``'s bits, by (dtype,
+#: capacity C), naming the ROADMAP C fault recorded for them: such a call
+#: is held bit for bit to ``ep_composition`` and within ``TOL`` of
+#: ``moe_layer``.  Every other call is held bit for bit to ``moe_layer``.
+#: C3: cuBLAS's float32 batched product at 4 rows a batch sums in another
+#: order for 64 batches than for 16 (MOE_FFN over 64 experts against its
+#: four slices: max |Δ| by row 1.311e-06 aten, 1.490e-06 torch on the H100)
+EP_FAULTS = {("float32", 4): "ROADMAP C3 (cuBLAS float32 bmm at M = 4 by batch count)"}
+
 TIMED_RUNS = 20
 E2E_REPEATS = 5
 PIN = {"allowed_platforms": ["hopper"]}
@@ -797,11 +841,13 @@ PATH_OF = {"rmsnorm": "serve", "flash_attention_mma": "serve", "mmm_skinny": "se
            "flash_attention_wgmma": "serve_d256", "embed_grad": "train"}
 
 
-#: the paged danube legs, the stub-frontend legs, the training leg (3d)
-#: and the data-parallel one (3f, the member-count runs), whose launches
+#: the paged danube legs, the stub-frontend legs, the training leg (3d),
+#: the data-parallel one (3f, the member-count runs), expert parallelism
+#: (3i) and phase 3's portability demo, whose launches
 #: the kernels line lists beside those of each kernel's own path
 NEW_LEG_PATHS = ("serve_paged_whole", "serve_paged_chunked", "serve_paligemma",
-                 "serve_musicgen", "train", "train_comm")
+                 "serve_musicgen", "train", "train_comm", "expert_parallel",
+                 "portability_demo")
 
 
 def decode_projections(cfg):
@@ -2251,7 +2297,63 @@ def phase3(dev):
            "t1_us_per_call": session.t1_seconds_per_call * 1e6,
            "requests": 2 * len(jobs)}
     halo.finalize()
+    path_launches["portability_demo"], e2e["portability_demo"] = portability_leg(dev)
     return jobs, launches, path_launches, max_abs, e2e
+
+
+def portability_leg(dev):
+    """``repro_torch.portability_demo`` on the card: the same
+    ``agent.invoke`` line for MMM 512×512 float32 under the policies
+    ``["torch"]``, ``["torch", "aten"]`` and ``["torch", "aten", "hopper"]``
+    is served, every call of it, by the torch, aten and hopper agent in
+    turn (their request counts); the hopper policy's every call launches
+    the 3×TF32 MMM once and nothing else launches a kernel; each result
+    within ``TOL`` of ``mmm_ref``; the fancy agent serves its claim; the
+    fail-safe engages.  Prints T3 per policy with Φ and the penalty
+    against aten.  Returns (launches, stats)."""
+    from repro_torch import portability_demo
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.matmul.ref import mmm_ref
+
+    torch.cuda.synchronize(dev)
+    _cuda.reset_launch_counts()
+    res = portability_demo.run(dev)
+    torch.cuda.synchronize(dev)
+    got = {k: v for k, v in _cuda.launch_counts().items() if v}
+    picks = [pol["picked"] for pol in res["policies"]]
+    calls = sum(pol["calls"] for pol in res["policies"] if pol["picked"] == "hopper")
+    ref = mmm_ref(res["a"], res["b"])
+    rows = {}
+    for pol in res["policies"]:
+        err = normwise(pol["out"], ref)
+        check_close(f"portability demo {pol['allowed']} -> {pol['picked']}", err,
+                    torch.float32)
+        rows[pol["picked"]] = {"t3_ms": pol["t3_s"] * 1e3, "phi": pol["phi"],
+                               "penalty_pct": pol["penalty_pct"], "err": err}
+        print(f"  portability demo: substrates={pol['allowed']} -> {pol['picked']}: "
+              f"T3 {pol['t3_s'] * 1e3:.4f} ms a call, Φ {pol['phi']:.4f}, penalty "
+              f"{pol['penalty_pct']:+.2f} % against {portability_demo.BASELINE}; "
+              f"normwise {err:.3e} against mmm_ref")
+    fancy_err = normwise(res["fancy"]["out"], ref)
+    print(f"  portability demo: launches {got} ({calls} hopper calls); the fancy agent "
+          f"served {res['fancy']['served']} (normwise {fancy_err:.3e}); fail-safe "
+          f"engaged {res['failsafe']['engaged']}, result {tuple(res['failsafe']['out'].shape)} "
+          f"on {res['failsafe']['out'].device}")
+    served = [pol["served"] for pol in res["policies"]]
+    if picks != ["torch", "aten", "hopper"] or \
+            served != [{p: pol["calls"]} for p, pol in zip(picks, res["policies"])]:
+        fail(f"the portability demo's policies were served by {served}")
+    if got != {"mmm_tf32x3": calls}:
+        fail(f"the portability demo launched {got}, not {calls} mmm_tf32x3 (one a hopper "
+             f"call)")
+    check_close("portability demo fancy agent", fancy_err, torch.float32)
+    if res["fancy"]["served"] != 1 or not res["failsafe"]["engaged"] \
+            or res["failsafe"]["out"].device != dev or res["fancy"]["out"].device != dev:
+        fail(f"the fancy agent served {res['fancy']['served']}, the fail-safe engaged "
+             f"{res['failsafe']['engaged']}, results on {res['fancy']['out'].device} and "
+             f"{res['failsafe']['out'].device}")
+    return got, {"picks": picks, "policies": rows, "launches": got,
+                 "fancy_served": res["fancy"]["served"], "failsafe": True}
 
 
 # ---------------------------------------------------------------------------
@@ -5161,6 +5263,286 @@ def phase3h(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 3i: expert parallelism over device groups
+# ---------------------------------------------------------------------------
+def ep_composition(p, x, m, platforms):
+    """``moe_expert_parallel``'s result composed by hand: the session's
+    shared experts, routing and dispatch, then each member's MOE_FFN row
+    (``aten``: ``grouped_ffn``; ``torch``: ``grouped_ffn_ref``) called in
+    this thread on its expert slice, the slices concatenated and
+    combined.  What a call in ``EP_FAULTS`` is held to bit for bit.  Also
+    returns, for each row the members run, the max |Δ| of that row over
+    all experts in one call against the same row over the members'
+    slices (0.0: the row's bits do not depend on the expert count)."""
+    from repro_torch.kernels.moe_ffn.ops import grouped_ffn
+    from repro_torch.kernels.moe_ffn.ref import grouped_ffn_ref
+    from repro_torch.models import moe
+    from repro_torch.models.layers import act_fn, dense
+
+    rows = {"aten": grouped_ffn, "torch": grouped_ffn_ref}
+    b, s, d = x.shape
+    t, x2 = b * s, x.reshape(b * s, d)
+    y_sh = dense(act_fn("swiglu", dense(x2, p["ws_g"]), dense(x2, p["ws_u"])), p["ws_d"])
+    gates, eidx, aux = moe._route(x2, p["router"], m)
+    c = moe._capacity(t, m)
+    slot, keep = moe._dispatch_indices(eidx, t, c, m.n_experts)
+    xe = moe._gather_dispatch(x2, slot, keep, m.n_experts, c, m.top_k)
+    whole = [w.to(xe.dtype) for w in (xe, p["we_g"], p["we_u"], p["we_d"])]
+    parts = [w.chunk(len(platforms)) for w in whole]
+    names = [plat.split("@")[0] for plat in platforms]
+    sliced = [rows[name](*(w[r].clone() for w in parts)) for r, name in enumerate(names)]
+    ye = torch.cat(sliced)
+    gaps = {}
+    for name in dict.fromkeys(names):
+        one = rows[name](*whole).chunk(len(platforms))
+        gaps[name] = max(float((one[r].float() - sliced[r].float()).abs().max())
+                         for r, n in enumerate(names) if n == name)
+    y = moe._combine(ye, slot, keep, gates, t, m.top_k).to(x2.dtype) + y_sh.to(x2.dtype)
+    return y.reshape(b, s, d).to(x.dtype), aux * m.router_aux_weight, gaps
+
+
+def phase3i(dev, card):
+    """Expert parallelism (DESIGN.md §15) on the card: moonshot's MoE layers
+    through ``moe_expert_parallel`` over device groups (``EXPERT_PARALLEL``),
+    each call against ``moe_layer`` on the same session and inputs:
+    (a) bfloat16, 4 layers, prefill and decode, over ``["aten", "aten"]``
+    and ``["aten"] * 4``; (b) float32, one layer, over ``["aten", "torch",
+    "aten", "torch"]``; (c) one layer over ``["aten", "aten@w0"]`` with w0 a
+    worker process on the card, against (a)'s two-member result, the
+    worker's aten agent serving that member's 4 COPYs and its MOE_FFN.
+    Every call: y and aux ``torch.equal`` to the reference (or, for a group
+    in ``EP_FAULTS``, to ``ep_composition`` and within ``TOL``), each
+    MOE_FFN node on its member's own platform, MMM launches 3 (the shared
+    experts) on the route ``mmm_route`` names and no other kernel.  Host
+    ms a call and device ms by torch.profiler beside ``moe_layer``'s, as
+    records.  The worker is shut down (or killed) before the phase
+    returns, also on failure.  Returns (launches over the counted calls,
+    stats)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import halo
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.remote import spawn_worker
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.matmul.matmul import mmm_route
+    from repro_torch.models import moe
+
+    ep = EXPERT_PARALLEL
+    cfg = get_config(ep["arch"])
+    m, d = cfg.stages[1].pattern[0].moe, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(ep["seed"])
+    totals = collections.Counter()
+    stats = {"arch": cfg.name, "layers": list(ep["layers"]), "of_layers": cfg.n_layers,
+             "d_model": d, "experts": m.n_experts, "d_ff": m.d_ff_expert, "top_k": m.top_k,
+             "shared": m.n_shared, "capacity_factor": m.capacity_factor, "legs": {}}
+    workers = []
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def weights(dtype):
+        specs = moe.moe_param_specs(d, m, dtype)
+        return {n: (torch.randn(s.shape, generator=gen, device=dev)
+                    * s.shape[-2] ** -0.5).to(s.dtype) for n, s in specs.items()}
+
+    def counted(fn):
+        sync()
+        _cuda.reset_launch_counts()
+        out = fn()
+        sync()
+        got = {k: v for k, v in _cuda.launch_counts().items() if v}
+        totals.update(got)
+        return out, got
+
+    def group_call(p, x, platforms):
+        comm, nodes = session.comm_split(list(platforms)), []
+        imap = comm.imap
+
+        def spy(*a, **k):
+            out = imap(*a, **k)
+            nodes.extend(out)
+            return out
+        comm.imap = spy
+        try:
+            out = moe.moe_expert_parallel(p, x, m, "swiglu", comm)
+        finally:
+            # the session keeps every comm it split until it finalizes: the
+            # spy, and through it the nodes' payloads, must not stay on it
+            del comm.imap
+            comm.free()
+        return out, [n.platform for n in nodes]
+
+    def host_device_ms(fn, runs):
+        """Host ms a call (median of ``timed``) and device ms a call from
+        ``runs`` profiled calls; where ``runs`` is 0 (a worker member's
+        calls take seconds) one synchronised call in a bare profiler window
+        gives both."""
+        if not runs:
+            sync()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                wall = (time.perf_counter() - t0) * 1e3
+            return wall, device_seconds(prof) * 1e3
+        walls = []
+        for _ in range(ep["timed"]):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls), device_ms_per_call(fn, runs, dev)
+
+    def check(label, p, x, platforms, ref, timed, runs=ep["profiled"]):
+        """One group call against ``ref`` (y, aux); returns its record."""
+        route = f"mmm_{mmm_route(x.dtype, x.shape[0] * x.shape[1])}"
+        ((y, aux), placed), got = counted(lambda: group_call(p, x, platforms))
+        if got != {route: 3}:
+            fail(f"{label}: launches {got}, not 3 {route} (the shared experts)")
+        if placed != list(platforms):
+            fail(f"{label}: MOE_FFN ran on {placed}, not on the members {list(platforms)}")
+        same = torch.equal(y, ref[0]) and torch.equal(aux, ref[1])
+        rec = {"platforms": list(platforms), "bit_identical": same, "moe_ffn_on": placed,
+               "launches": got}
+        fault = EP_FAULTS.get((str(x.dtype).split(".")[-1],
+                               moe._capacity(x.shape[0] * x.shape[1], m)))
+        if not same:
+            gap = float((y.float() - ref[0].float()).abs().max())
+            if fault is None:
+                fail(f"{label}: not bit-identical to its reference (max |Δ| {gap:.3e}, "
+                     f"aux {float(aux)} vs {float(ref[1])})")
+            y_c, aux_c, rows_gap = ep_composition(p, x, m, platforms)
+            composed = torch.equal(y, y_c) and torch.equal(aux, aux_c)
+            err = normwise(y, ref[0])
+            print(f"  {label}: recorded fault {fault}: max |Δ| {gap:.3e} against "
+                  f"moe_layer, normwise {err:.3e}; bit-identical to the member-wise "
+                  f"composition: {composed}; MOE_FFN over {m.n_experts} experts against "
+                  f"the members' slices, max |Δ| by row {rows_gap}")
+            if not composed:
+                fail(f"{label}: not bit-identical to the member-wise composition")
+            check_close(f"{label} against moe_layer", err, x.dtype)
+            rec.update(fault=fault, max_abs_gap=gap, normwise=err, row_gaps=rows_gap)
+        if timed:
+            rec["host_ms"], rec["device_ms"] = host_device_ms(
+                lambda: group_call(p, x, platforms), runs)
+        print(f"  {label}: {list(platforms)} bit-identical {same}; MOE_FFN on {placed}; "
+              f"launches {got}" + (f"; host {rec['host_ms']:.3f} ms, device "
+                                   f"{rec['device_ms']:.3f} ms a call" if timed else ""))
+        return rec, y
+
+    def reference(label, p, x, timed):
+        route = f"mmm_{mmm_route(x.dtype, x.shape[0] * x.shape[1])}"
+        (y, aux), got = counted(lambda: moe.moe_layer(p, x, m, "swiglu"))
+        if got != {route: 3} or y.shape != x.shape or not bool(torch.isfinite(y).all()):
+            fail(f"{label}: moe_layer launched {got} or returned {tuple(y.shape)} "
+                 f"with non-finite values")
+        rec = {"launches": got}
+        if timed:
+            rec["host_ms"], rec["device_ms"] = host_device_ms(
+                lambda: moe.moe_layer(p, x, m, "swiglu"), ep["profiled"])
+            print(f"  {label}: moe_layer host {rec['host_ms']:.3f} ms, device "
+                  f"{rec['device_ms']:.3f} ms a call")
+        return (y, aux), rec
+
+    session = halo.initialize()              # device=None means the card
+    if session.device.type != "cuda":
+        fail(f"session runs on {session.device}, not the card")
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        layers = {layer: weights(torch.bfloat16) for layer in ep["layers"]}
+        first = ep["layers"][0]
+        xs = {"prefill": torch.randn((ep["batch"], ep["prefill"], d), generator=gen,
+                                     device=dev).to(torch.bfloat16),
+              "decode": torch.randn((ep["batch"], 1, d), generator=gen,
+                                    device=dev).to(torch.bfloat16)}
+        print(f"  {cfg.name} MoE layers {list(ep['layers'])} of {cfg.n_layers}: d_model "
+              f"{d}, {m.n_experts} experts of d_ff {m.d_ff_expert}, top {m.top_k}, "
+              f"{m.n_shared} shared, capacity factor {m.capacity_factor}; expert stacks "
+              f"{sum(layers[first][n].numel() * 2 for n in ('we_g', 'we_u', 'we_d')) / 1e9:.3f}"
+              f" GB a layer; {card}")
+        # (a) bfloat16, every layer, two groups
+        leg_a, firsts = {}, {}
+        for batch, x0 in xs.items():
+            x, c = x0, moe._capacity(x0.shape[0] * x0.shape[1], m)
+            for layer in ep["layers"]:
+                p, timed = layers[layer], layer == first
+                label = f"(a) {batch} {tuple(x.shape)} C={c} layer {layer}"
+                ref, ref_rec = reference(label, p, x, timed)
+                recs = {"moe_layer": ref_rec}
+                for group in ep["groups_a"]:
+                    recs[f"x{len(group)}"], y = check(label, p, x, group, ref, timed)
+                    if layer == first and len(group) == 2:
+                        firsts[batch] = (ref, y)
+                leg_a[f"{batch}/layer{layer}"] = recs
+                x = ref[0]
+        stats["legs"]["a"] = leg_a
+        # (b) float32, the first layer, the reference's mixed-substrate group
+        p32 = weights(torch.float32)
+        leg_b = {}
+        for batch, x0 in xs.items():
+            x = x0.float()
+            label = f"(b) {batch} {tuple(x.shape)} float32 layer {first}"
+            ref, ref_rec = reference(label, p32, x, True)
+            leg_b[batch] = {"moe_layer": ref_rec}
+            leg_b[batch]["group"], _ = check(label, p32, x, ep["group_b"], ref, True)
+        stats["legs"]["b"] = leg_b
+        del p32
+        # (c) a worker member on the card
+        t0 = time.perf_counter()
+        w0 = spawn_worker("w0", device="cuda", timeout=MULTIPROC["hello_timeout"])
+        workers.append(w0)
+        hello_s = time.perf_counter() - t0
+        agent = w0.agent("aten").attach(session)
+        group = ["aten", agent.platform]
+        timeout = MULTIPROC["timeout"]
+        leg_c = {"hello_s": hello_s}
+        print(f"  (c) worker w0 (pid {w0.proc.pid}) on {w0.device}: hello after "
+              f"{hello_s:.2f} s; {len(agent._clones)} aten records cloned as "
+              f"{agent.platform}; wire cap {w0.client.cache.cap_bytes >> 20} MB")
+        for batch, x in xs.items():
+            ref, two = firsts[batch]
+            label = f"(c) {batch} {tuple(x.shape)} layer {first}"
+            wire0, served0 = w0.client.wire_stats(), w0.heartbeat(timeout)["served"]
+            rec, y = check(label, layers[first], x, group, (two, ref[1]), False)
+            served = {k: v - served0.get(k, 0) for k, v in
+                      w0.heartbeat(timeout)["served"].items() if v - served0.get(k, 0)}
+            wire = {k: v - wire0[k] for k, v in w0.client.wire_stats().items()}
+            if served != {"aten": 5}:
+                fail(f"{label}: the worker served {served}, not 4 COPYs and one MOE_FFN "
+                     f"on its aten agent")
+            rec.update(served=served, wire=wire,
+                       equal_to_moe_layer=bool(torch.equal(y, ref[0])))
+            rec["host_ms"], rec["device_ms"] = host_device_ms(
+                lambda: group_call(layers[first], x, group), 0)
+            print(f"  {label}: the worker served {served}; wire bytes sent "
+                  f"{wire['bytes_sent']}, saved {wire['bytes_saved']}; pinned "
+                  f"{w0.client.wire_stats()['pinned_bytes']} bytes; torch.equal to "
+                  f"moe_layer {rec['equal_to_moe_layer']}; host {rec['host_ms']:.3f} ms, "
+                  f"device (this process) {rec['device_ms']:.3f} ms a call")
+            leg_c[batch] = rec
+        stats["legs"]["c"] = leg_c
+        agent._deregister_clones()
+        stats["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        print(f"  peak device memory {stats['peak_gb']:.2f} GB")
+        del layers, xs, firsts
+    finally:
+        for w in workers:
+            if not w.dead:
+                w.shutdown(timeout=60)
+            w.kill()
+            if w.proc is not None:
+                w.proc.wait(timeout=60)
+        halo.finalize()
+        torch.cuda.empty_cache()
+    alive = [w.name for w in workers if w.proc is None or w.proc.poll() is None]
+    if alive:
+        fail(f"workers {alive} are still alive")
+    stats["launches"] = dict(totals)
+    return dict(totals), stats
+
+
+# ---------------------------------------------------------------------------
 # phase 3d: training
 # ---------------------------------------------------------------------------
 def leaf_names(tree, prefix: str = "params") -> list:
@@ -6967,6 +7349,12 @@ def main() -> None:
     multiproc_stats = phase3h(dev, card)
     seconds["3h multi-process"] = time.perf_counter() - t0
     print(json.dumps({"multiproc": multiproc_stats}))
+    print(f"phase 3i: expert parallelism — {EXPERT_PARALLEL['arch']}'s MoE layers over "
+          f"device groups on {card}")
+    t0 = time.perf_counter()
+    path_launches["expert_parallel"], ep_stats = phase3i(dev, card)
+    seconds["3i expert parallelism"] = time.perf_counter() - t0
+    print(json.dumps({"expert_parallel": ep_stats}))
     print(f"phase 3d: training {TRAIN['arch']} at full width and depth on the kernels")
     t0 = time.perf_counter()
     path_launches["train"], train_stats = phase3d(dev)

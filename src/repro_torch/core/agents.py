@@ -1396,6 +1396,11 @@ class RuntimeAgent:
         to end — only references move)."""
         self.isend(payload, cr, tag=tag, dest=dest, **kwargs).result()
 
+    def invoke(self, cr: ChildRank, *args, tag: int = 0, **kwargs):
+        """Synchronous convenience: send + recv in one call."""
+        self.send(tuple(args), cr, tag=tag, **kwargs)
+        return self.recv(cr, tag=tag)
+
     # -- overhead instrumentation (paper T1) -------------------------------------
     def _account_t1(self, dt: float) -> None:
         with self._lock:

@@ -66,6 +66,20 @@ class ComputeObject:
         """Stateful RPC = at least one internal buffer attached (§IV-D)."""
         return bool(self.buffers)
 
+    def with_input(self, name: str, value) -> "ComputeObject":
+        """A new compute-object with ``inputs[name] = value``; this one is
+        left as it was."""
+        new = dict(self.inputs)
+        new[name] = value
+        return dataclasses.replace(self, inputs=new)
+
+    def with_buffer(self, name: str, handle: BufferHandle) -> "ComputeObject":
+        """A new compute-object with ``buffers[name] = handle``; this one
+        is left as it was."""
+        new = dict(self.buffers)
+        new[name] = handle
+        return dataclasses.replace(self, buffers=new)
+
     def working_set_bytes(self) -> int:
         return sum(leaf.numel() * leaf.element_size()
                    for leaf in pytree.tree_leaves(self.inputs)

@@ -61,6 +61,7 @@ __all__ = [
     "NodeTemplate",
     "compile_graph",
     "find_chains",
+    "fusion_rule",
     "register_fusible",
 ]
 
@@ -108,6 +109,11 @@ def register_fusible(alias: str, *, ewise_op: Optional[str] = None,
                       terminal=terminal)
     FUSION_RULES[alias] = rule
     return rule
+
+
+def fusion_rule(alias: str) -> Optional[FusionRule]:
+    """The :class:`FusionRule` registered for ``alias``, or None."""
+    return FUSION_RULES.get(alias)
 
 
 @dataclasses.dataclass

@@ -1,6 +1,7 @@
 """Performance-portability metrics (paper §VI-A) — port of
 ``repro.core.portability``.
 
+* ``performance_penalty``  = (T3_x − T3_baseline) / T3_baseline × 100   [%]
 * ``portability_score`` Φ  = T3_baseline / T3_hardware_agnostic ∈ [0, 1]
 * ``overhead_ratio``       = T1 / T4, with T4 = T1 + T2 + T3
 
@@ -21,7 +22,8 @@ from typing import Callable, List, Sequence
 import torch
 
 __all__ = ["KernelReport", "ServeReport", "Timing", "overhead_ratio",
-           "percentile_nearest", "portability_score", "time_fn"]
+           "percentile_nearest", "performance_penalty", "portability_score",
+           "time_fn"]
 
 
 @dataclasses.dataclass
@@ -70,6 +72,11 @@ def time_fn(fn: Callable, *args, device="cuda", warmup: int = 2,
     return Timing(mean_s=statistics.fmean(samples),
                   std_s=statistics.pstdev(samples),
                   median_s=statistics.median(samples), runs=iters, device=where)
+
+
+def performance_penalty(t3_impl: float, t3_baseline: float) -> float:
+    """Percent slowdown vs. the hardware-optimized baseline (Table VI)."""
+    return (t3_impl - t3_baseline) / t3_baseline * 100.0
 
 
 def portability_score(t3_baseline: float, t3_agnostic: float) -> float:

@@ -133,6 +133,20 @@ class KernelRegistry:
                   record.alias, record.platform, record.priority, record.is_failsafe)
         return record
 
+    def register_fn(self, alias: str, platform: str, *, priority: int = 0,
+                    attrs: Optional[KernelAttributes] = None,
+                    supports=None, cost_model=None, is_failsafe: bool = False,
+                    doc: str = ""):
+        """Decorator form: ``@registry.register_fn("MMM", "hopper")``."""
+        def deco(fn):
+            self.register(KernelRecord(
+                alias=alias, fn=fn, platform=platform,
+                attrs=attrs or KernelAttributes(sw_fid=alias),
+                priority=priority, supports=supports, cost_model=cost_model,
+                is_failsafe=is_failsafe, doc=doc or (fn.__doc__ or "")))
+            return fn
+        return deco
+
     def deregister(self, alias: str, platform: Optional[str] = None) -> int:
         """Plug-and-play: agents may disconnect without affecting host code."""
         with self._lock:

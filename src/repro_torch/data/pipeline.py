@@ -20,7 +20,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, InputShape
 
 
 @dataclasses.dataclass
@@ -78,3 +78,10 @@ class SyntheticLM:
         """:meth:`batch` as tensors on ``device``."""
         return {k: torch.from_numpy(v).to(device) for k, v in self.batch(step).items()}
 
+
+def make_batch(cfg: ArchConfig, shape: InputShape, step: int = 0,
+               seed: int = 0, *, device) -> Dict[str, torch.Tensor]:
+    """Step ``step``'s batch of ``shape``'s size as tensors on ``device``:
+    the reference's arrays for the same ``seed``."""
+    pipe = SyntheticLM(cfg, shape.seq_len, shape.global_batch, seed)
+    return pipe.device_batch(step, device)

@@ -49,15 +49,20 @@ Where the port differs from the reference:
   a tree of numpy arrays the frame is byte-identical to the reference's.
 * **No torch tensor is immutable.**  The reference caches only
   ``jax.Array``\\ s and memoizes their digests by identity.  Here any
-  tensor is eligible, and its memoized digest is valid only while the
-  tensor's version counter (``_version``, shared by every view of its
-  storage and bumped by every in-place op), data pointer and shape are
-  unchanged, so an in-place write re-hashes and ships the new bytes.  A
-  write that torch does not see — through ``.data``, or by a kernel
-  through a raw pointer into a tensor it was *given* — would go unnoticed:
-  the port's kernels write only the outputs their wrappers allocate.
-  Inference tensors have no version counter and ship raw; numpy arrays
-  always ship raw.
+  tensor is eligible.  A CPU tensor is hashed on every send: it may share
+  its memory with a numpy array (``torch.from_numpy``, ``Tensor.numpy()``,
+  the port's own ``compute_object.from_numpy``), whose writes torch does
+  not count.  A CUDA tensor's digest is memoized, valid only while its
+  version counter (``_version``, shared by every view of its storage and
+  bumped by every in-place op), data pointer, shape and stride are
+  unchanged, so an in-place write re-hashes and ships the new bytes; the
+  memo is what keeps a cached solve from hashing its operands every
+  sweep.  Two writes to a CUDA tensor leave the memo stale: one through
+  ``.data`` (which has a version counter of its own), and one by a kernel
+  through a raw pointer into a tensor it was *given*.  The port makes
+  neither: it writes nothing through ``.data``, and its kernels write
+  only the outputs their wrappers allocate.  Inference tensors have no
+  version counter and ship raw; numpy arrays always ship raw.
 * **CUDA operands go through host memory.**  Before an operand's bytes are
   read the device is synchronized (its producing launch may sit on another
   agent's stream), and a decoded result lands on the host session's device.
@@ -226,22 +231,26 @@ _digest_lock = threading.Lock()
 _digest_memo: Dict[int, Tuple[Any, Tuple, str]] = {}
 
 
-def _digest_of(t: torch.Tensor, stamp: Tuple,
-               data: Callable[[], memoryview]) -> str:
+def _digest(t: torch.Tensor, data: memoryview) -> str:
     """Cache key of ``t``: the reference's content digest of its bytes,
     then its dtype and shape — equal bytes under another dtype or shape
-    (zeros of one size, say) are another operand and pin on their own.
-    Memoized by object identity and ``stamp`` so a matrix reused across
-    thousands of dispatches is hashed once, and re-hashed after an
-    in-place write."""
+    (zeros of one size, say) are another operand and pin on their own."""
+    return "{}:{}:{}".format(
+        hashlib.blake2b(data, digest_size=16).hexdigest(),
+        _NUMPY_NAMES[t.dtype], "x".join(map(str, t.shape)))
+
+
+def _digest_of(t: torch.Tensor, stamp: Tuple,
+               data: Callable[[], memoryview]) -> str:
+    """:func:`_digest` of a CUDA tensor, memoized by object identity and
+    ``stamp`` so a matrix reused across thousands of dispatches is hashed
+    once, and re-hashed after an in-place write."""
     key = id(t)
     with _digest_lock:
         ent = _digest_memo.get(key)
         if ent is not None and ent[0]() is t and ent[1] == stamp:
             return ent[2]
-    digest = "{}:{}:{}".format(
-        hashlib.blake2b(data(), digest_size=16).hexdigest(),
-        _NUMPY_NAMES[t.dtype], "x".join(map(str, t.shape)))
+    digest = _digest(t, data())
     with _digest_lock:
         if len(_digest_memo) > 4096:        # prune dead weakrefs, bounded
             for k in [k for k, e in _digest_memo.items() if e[0]() is None]:
@@ -260,7 +269,11 @@ class _WireCache:
     cap and can never miss.  A tensor larger than the whole cap can never
     have been pinned, so it ships raw without being hashed (hashing runs
     at about a GB/s on the host: a 1.2 GB parameter vector would pay it on
-    every new version).  ``offer`` runs under the client's write lock
+    every new version).  A CPU tensor is hashed on every send, since a
+    numpy array may share its memory and write it uncounted; a CUDA
+    tensor's digest is memoized under its version counter, which a write
+    through ``.data`` or through a raw pointer a kernel was given does not
+    bump (the port makes neither).  ``offer`` runs under the client's write lock
     (one frame encodes at a time); ``commit``/``rollback`` settle a frame's
     new digests after the send succeeds or fails."""
 
@@ -283,7 +296,10 @@ class _WireCache:
         stamp = _stamp(obj)
         if stamp is None:
             return None
-        digest = _digest_of(obj, stamp, data)
+        if obj.device.type == "cpu":        # numpy may alias it: no memo
+            digest = _digest(obj, data())
+        else:
+            digest = _digest_of(obj, stamp, data)
         if digest in self.known:
             self.bytes_saved += nbytes
             return "ref", digest

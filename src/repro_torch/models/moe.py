@@ -13,9 +13,14 @@ capacity C is computed from the token count alone.
 Shared (always-on) experts run beside the routed ones as a plain dense
 FFN through MMM.  The router aux loss is Switch-style load balancing.
 
-Not ported yet: the expert-parallel paths (``moe_expert_parallel`` over a
-device group, the ``shard_map`` bodies and the int8 all_to_all): expert
-sharding, still to port on top of the collectives (ROADMAP A10c).
+:func:`moe_expert_parallel` runs the routed experts over a C²MPI device
+group instead: the session routes and dispatches, the expert blocks and
+weight stacks scatter over the members, each member runs MOE_FFN on its
+experts, and the outputs gather for the combine.
+
+Not ported yet: the mesh paths (the ``shard_map`` bodies, the int8
+all_to_all and ``moe_layer`` under a mesh), which need a mesh over
+several cards (ROADMAP A10c's second half).
 """
 from __future__ import annotations
 
@@ -31,8 +36,9 @@ from .layers import act_fn, dense
 
 Params = Dict[str, torch.Tensor]
 
-_EP = ("expert-parallel MoE (device groups, all_to_all dispatch) is expert "
-       "sharding, which the port has not yet (ROADMAP A10c)")
+_EP = ("expert-parallel MoE over a mesh (shard_map bodies, the int8 "
+       "all_to_all dispatch) needs a mesh over several cards, which the port "
+       "has not yet (ROADMAP A10c)")
 
 
 def moe_param_specs(d_model: int, m: MoEConfig, dtype) -> Dict[str, ParamSpec]:
@@ -124,16 +130,35 @@ def _expert_ffn(xe, wg, wu, wd, act: str):
                          wd.to(xe.dtype))
 
 
-def _moe_local(p: Params, x2: torch.Tensor, m: MoEConfig, act: str):
-    """The single-shard path: (y (T,D) in x2's type, aux)."""
+def _moe_local(p: Params, x2: torch.Tensor, m: MoEConfig, act: str,
+               expert_ffn=_expert_ffn):
+    """The single-shard path: (y (T,D) in x2's type, aux).  ``expert_ffn``
+    runs the routed experts on the (E,C,D) blocks."""
     t = x2.shape[0]
     gates, eidx, aux = _route(x2, p["router"], m)
     c = _capacity(t, m)
     slot, keep = _dispatch_indices(eidx, t, c, m.n_experts)
     xe = _gather_dispatch(x2, slot, keep, m.n_experts, c, m.top_k)
-    ye = _expert_ffn(xe, p["we_g"], p["we_u"], p["we_d"], act)
+    ye = expert_ffn(xe, p["we_g"], p["we_u"], p["we_d"], act)
     y = _combine(ye, slot, keep, gates, t, m.top_k)
     return y.to(x2.dtype), aux
+
+
+def _moe(p: Params, x: torch.Tensor, m: MoEConfig, act: str, expert_ffn
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,S,D) → (y (B,S,D), aux loss × ``router_aux_weight``): shared
+    experts through MMM, then the routed ones through ``expert_ffn``."""
+    b, s, d = x.shape
+    x2 = x.reshape(b * s, d)
+    y_sh = None
+    if p.get("ws_g") is not None:
+        g = dense(x2, p["ws_g"])
+        u = dense(x2, p["ws_u"])
+        y_sh = dense(act_fn("swiglu", g, u), p["ws_d"])
+    y, aux = _moe_local(p, x2, m, act, expert_ffn)
+    if y_sh is not None:
+        y = y + y_sh.to(y.dtype)
+    return y.reshape(b, s, d).to(x.dtype), aux * m.router_aux_weight
 
 
 def moe_layer(p: Params, x: torch.Tensor, m: MoEConfig, act: str
@@ -142,27 +167,37 @@ def moe_layer(p: Params, x: torch.Tensor, m: MoEConfig, act: str
     experts through MMM, then the routed ones."""
     if current_context().mesh is not None:
         raise NotImplementedError(_EP)
-    b, s, d = x.shape
-    x2 = x.reshape(b * s, d)
-    y_sh = None
-    if p.get("ws_g") is not None:
-        g = dense(x2, p["ws_g"])
-        u = dense(x2, p["ws_u"])
-        y_sh = dense(act_fn("swiglu", g, u), p["ws_d"])
-    y, aux = _moe_local(p, x2, m, act)
-    if y_sh is not None:
-        y = y + y_sh.to(y.dtype)
-    return y.reshape(b, s, d).to(x.dtype), aux * m.router_aux_weight
+    return _moe(p, x, m, act, _expert_ffn)
+
+
+def moe_expert_parallel(p: Params, x: torch.Tensor, m: MoEConfig, act: str,
+                        comm) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE over a C²MPI device group (DESIGN.md §15).
+
+    Host-side eager twin of :func:`moe_layer`'s local path: the shared
+    experts, routing and the capacity dispatch run on the session, then the
+    (E,C,D) expert blocks and the expert weight stacks scatter over the
+    group's member ranks (E split on axis 0, ``E % comm.size == 0``), every
+    member runs ``MOE_FFN`` on its expert slice, and a gather reassembles
+    the outputs for the gate-combine.  Per-expert FFNs are independent, so
+    the result is bit-identical to the single-shard path wherever each
+    member runs the record that path runs.  A member whose substrate has
+    no MOE_FFN row (``hopper``) runs the registry's fail-safe, the
+    ``torch`` row, in the host process."""
+    e, n = m.n_experts, comm.size
+    if e % n:
+        raise ValueError(f"n_experts ({e}) must divide over the {n}-member "
+                         f"device group")
+
+    def group_ffn(xe, wg, wu, wd, act):
+        parts = [comm.scatter(w.to(xe.dtype), axis=0) for w in (xe, wg, wu, wd)]
+        return comm.gather(comm.map("MOE_FFN", list(zip(*parts))))
+    return _moe(p, x, m, act, group_ffn)
 
 
 # ---------------------------------------------------------------------------
-# Distributed paths (ROADMAP A10c)
+# Mesh paths (ROADMAP A10c's second half)
 # ---------------------------------------------------------------------------
-def moe_expert_parallel(p, x, m, act, comm):
-    """Expert-parallel MoE over a C²MPI device group: not ported yet."""
-    raise NotImplementedError(_EP)
-
-
 def _a2a_int8(xe, ep_axis, split_axis, concat_axis):
     """The int8 all_to_all wire format: not ported yet."""
     raise NotImplementedError(_EP)

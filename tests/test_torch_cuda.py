@@ -1734,3 +1734,30 @@ def test_card_worker_hopper_mmm_equals_in_process(card):
         w.shutdown()
         w.kill()
         rt.finalize()
+
+
+def test_wire_cache_hashes_an_unchanged_card_tensor_once(card, monkeypatch):
+    """The wire cache keeps its digest memo for card tensors (a CPU tensor
+    is hashed on every send, since numpy may alias it): a CUDA tensor sent
+    twice unchanged is hashed once and goes the second time as a ref; a
+    write torch counts re-hashes it."""
+    from repro_torch.distributed import remote
+    hashed = []
+    digest = remote._digest
+    monkeypatch.setattr(remote, "_digest", lambda t, data: hashed.append(
+        t.device.type) or digest(t, data))
+    cache = remote._WireCache()
+    a = _rnd(card, 64, 64, dtype=torch.float32, seed=3)
+
+    def mark():
+        hdr, _ = remote.encode_payload({"args": (a,)}, cache)
+        cache.commit()
+        return hdr["__d__"][0][1]["__t__"][0]
+
+    first, second = mark(), mark()
+    assert hashed == ["cuda"]
+    assert "put" in first and second == {"__aref__": first["put"], "s": [64, 64],
+                                         "d": "float32"}
+    a.add_(1.0)
+    third = mark()
+    assert hashed == ["cuda", "cuda"] and third["put"] != first["put"]

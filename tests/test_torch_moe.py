@@ -273,9 +273,9 @@ def test_param_specs_match_jax():
 
 
 def test_expert_parallel_paths_raise_naming_the_roadmap():
-    cfg, _ = _cfgs()
-    for fn, args in ((t_moe.moe_expert_parallel, (None, None, cfg, "swiglu", None)),
-                     (t_moe._a2a_int8, (None, "model", 0, 1)),
+    """The mesh half of expert parallelism (A10c's second half) is still
+    refused; ``moe_expert_parallel`` over a device group is ported (§(e))."""
+    for fn, args in ((t_moe._a2a_int8, (None, "model", 0, 1)),
                      (t_moe._moe_a2a_body, ()), (t_moe._moe_replicated_body, ())):
         with pytest.raises(NotImplementedError, match="ROADMAP A10"):
             fn(*args)
@@ -327,3 +327,112 @@ def test_init_params_draws_stacked_leaves_one_slab_at_a_time(cpu_session):
     std = float(we_g.float().std())
     assert abs(std * cfg.d_model ** 0.5 - 1.0) < 0.05
     assert params["stages"][1][0]["moe"]["router"].dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# (e) expert parallelism over a C²MPI device group (DESIGN.md §15)
+# ---------------------------------------------------------------------------
+#: port member mixes and their JAX counterparts (hopper ↔ pallas: neither
+#: has a MOE_FFN row of its own, so both run the registry's fail-safe)
+EP_MIXES = {"aten2": (["aten", "aten"], ["xla", "xla"]),
+            "mixed4": (["aten", "hopper", "torch", "aten"],
+                       ["xla", "pallas", "jnp", "xla"])}
+
+
+def _ep_inputs(dtype, seed=11):
+    """8 experts top-2 at capacity factor 1.25 (rows dropped) with 2 shared
+    experts, d 32, x (2,20,32): numpy weights and input."""
+    tc, jc = _cfgs(n_shared=2, capacity_factor=1.25, d_ff_expert=24)
+    d = 32
+    rng = np.random.default_rng(seed)
+    specs = j_moe.moe_param_specs(d, jc, jnp.float32)
+    w = {n: (rng.standard_normal(s.shape) * s.shape[-2] ** -0.5).astype(np.float32)
+         for n, s in specs.items()}
+    w = {n: (a if n == "router" else _np(dtype, a)) for n, a in w.items()}
+    return tc, jc, w, _np(dtype, rng.standard_normal((2, 20, d)))
+
+
+def _ep_port(session, platforms, w, x, tc):
+    comm = session.comm_split(platforms)
+    try:
+        return t_moe.moe_expert_parallel({n: from_numpy(a) for n, a in w.items()},
+                                         from_numpy(x), tc, "swiglu", comm)
+    finally:
+        comm.free()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mix", sorted(EP_MIXES))
+def test_expert_parallel_matches_jax(cpu_session, dtype, mix):
+    """The port's ``moe_expert_parallel`` against the JAX package's on the
+    same numpy weights and input, over the matching member mixes: output
+    within the conformance tolerance, the weighted aux loss to 1e-5."""
+    from repro.core.c2mpi import MPIX_Initialize, halo_session
+    tc, jc, w, x = _ep_inputs(dtype)
+    t_plats, j_plats = EP_MIXES[mix]
+    MPIX_Initialize()
+    jcomm = halo_session().comm_split(j_plats)
+    try:
+        jy, jaux = j_moe.moe_expert_parallel({n: jnp.asarray(a) for n, a in w.items()},
+                                             jnp.asarray(x), jc, "swiglu", jcomm)
+    finally:
+        jcomm.free()
+    ty, taux = _ep_port(cpu_session, t_plats, w, x, tc)
+    assert ty.dtype == from_numpy(x).dtype and tuple(ty.shape) == x.shape
+    _close(ty, jy, dtype)
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,platforms", [
+    ("float32", ["aten", "aten"]),
+    ("float32", ["aten", "hopper", "torch", "aten"]),
+    ("bfloat16", ["aten", "aten"]),
+    ("bfloat16", ["aten"] * 4)])
+def test_expert_parallel_is_bit_identical_to_moe_layer(cpu_session, dtype, platforms):
+    """Split over the members, the layer changes no bit of ``moe_layer``'s
+    single-shard path where every member runs that path's MOE_FFN record
+    (aten).  In float32 the torch row's bits equal aten's, so the mixed
+    group holds too; in bfloat16 they differ (the torch row rounds h and u
+    to bfloat16), so only all-aten groups are held there."""
+    tc, _, w, x = _ep_inputs(dtype)
+    y0, a0 = t_moe.moe_layer({n: from_numpy(a) for n, a in w.items()},
+                             from_numpy(x), tc, "swiglu")
+    y, a = _ep_port(cpu_session, platforms, w, x, tc)
+    assert torch.equal(y, y0) and torch.equal(a, a0)
+
+
+def test_expert_parallel_rejects_indivisible_groups(cpu_session):
+    tc, _, w, x = _ep_inputs("float32")
+    with pytest.raises(ValueError, match="divide"):
+        _ep_port(cpu_session, ["aten", "aten", "aten"], w, x, tc)  # 8 % 3
+
+
+def test_expert_parallel_places_moe_ffn_on_each_members_row(cpu_session):
+    """Each member's MOE_FFN node runs on its own substrate's row; a member
+    pinned to ``hopper``, which has no MOE_FFN row, runs the registry's
+    fail-safe (the torch row), as the reference's ``pallas`` member runs
+    its ``jnp`` one.  The scatter's COPY stages stay on the members."""
+    tc, _, w, x = _ep_inputs("float32")
+    comm = cpu_session.comm_split(["aten", "hopper", "torch", "aten"])
+    nodes = {}
+    for verb in ("imap", "iscatter"):
+        real = getattr(comm, verb)
+
+        def spy(*a, _real=real, _verb=verb, **k):
+            out = _real(*a, **k)
+            nodes.setdefault(_verb, []).append(out)
+            return out
+        setattr(comm, verb, spy)
+    try:
+        t_moe.moe_expert_parallel({n: from_numpy(a) for n, a in w.items()},
+                                  from_numpy(x), tc, "swiglu", comm)
+    finally:
+        del comm.imap, comm.iscatter
+        comm.free()
+    (ffn,) = nodes["imap"]
+    assert [n.alias for n in ffn] == ["MOE_FFN"] * 4
+    assert [n.platform for n in ffn] == ["aten", "torch", "torch", "aten"]
+    assert len(nodes["iscatter"]) == 4
+    for copies in nodes["iscatter"]:
+        assert [n.platform for n in copies] == ["aten", "hopper", "torch", "aten"]
+

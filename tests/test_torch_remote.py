@@ -521,14 +521,21 @@ def test_wire_cache_unpinned_ref_rejected():
                        [], {})
 
 
-@pytest.mark.parametrize("write", ["add_", "view", "copy_", "out="])
+@pytest.mark.parametrize("write", ["add_", "view", "copy_", "out=", "numpy",
+                                   ".data"])
 def test_wire_cache_in_place_write_ships_new_bytes(write):
     """A torch tensor is mutable: an in-place write between two sends —
-    on the tensor, through a view of it, by ``copy_`` or as an ``out=``
-    target — bumps its version counter, so the second send re-hashes and
-    ships the new bytes (a new pin) instead of a ref to the stale ones."""
+    on the tensor, through a view of it, by ``copy_``, as an ``out=``
+    target, through a numpy array that shares its memory, or through
+    ``.data`` (the last two bump no version counter the tensor sees) —
+    makes the second send re-hash and ship the new bytes (a new pin)
+    instead of a ref to the stale ones."""
     cache, store = _WireCache(), {}
-    a = torch.arange(64 * 64, dtype=torch.float32).reshape(64, 64)
+    if write == "numpy":
+        base = np.arange(64 * 64, dtype=np.float32).reshape(64, 64)
+        a = torch.from_numpy(base)
+    else:
+        a = torch.arange(64 * 64, dtype=torch.float32).reshape(64, 64)
     h1, d1 = _cached_roundtrip(cache, store, {"args": (a,)})
     if write == "add_":
         a.add_(1.0)
@@ -536,8 +543,12 @@ def test_wire_cache_in_place_write_ships_new_bytes(write):
         a[3].fill_(-7.0)
     elif write == "copy_":
         a.copy_(torch.flip(a, (0,)))
-    else:
+    elif write == "out=":
         torch.mul(a, 2.0, out=a)
+    elif write == "numpy":
+        base[:] = 5.0
+    else:
+        a.data.add_(1.0)
     h2, d2 = _cached_roundtrip(cache, store, {"args": (a,)})
     m1, m2 = _marks(h1)[0], _marks(h2)[0]
     assert "put" in m2 and m2["put"] != m1["put"]
@@ -545,6 +556,24 @@ def test_wire_cache_in_place_write_ships_new_bytes(write):
     assert cache.stats()["bytes_saved"] == 0
     h3, d3 = _cached_roundtrip(cache, store, {"args": (a,)})    # unchanged now
     assert _marks(h3)[0] == {"__aref__": m2["put"], "s": [64, 64], "d": "float32"}
+
+
+def test_wire_cache_hashes_a_cpu_tensor_on_every_send(monkeypatch):
+    """A CPU tensor's digest is never memoized (numpy may write its memory
+    uncounted): each send hashes it again, and an unchanged one still goes
+    as a ref to its pin."""
+    from repro_torch.distributed import remote
+    hashed = []
+    digest = remote._digest
+    monkeypatch.setattr(remote, "_digest", lambda t, data: hashed.append(
+        t.device.type) or digest(t, data))
+    cache, store = _WireCache(), {}
+    a = torch.ones((64, 64))
+    marks = [_marks(_cached_roundtrip(cache, store, {"args": (a,)})[0])[0]
+             for _ in range(3)]
+    assert hashed == ["cpu"] * 3
+    assert marks[1] == marks[2] == {"__aref__": marks[0]["put"], "s": [64, 64],
+                                    "d": "float32"}
 
 
 def test_wire_cache_inference_tensor_ships_raw():
@@ -824,6 +853,57 @@ def test_mixed_group_jacobi_against_reference(sess, worker, ragent, watchdog):
     assert torch.equal(x_e, x_ser) and torch.equal(x_g, x_e) and res_g == res_e
     np.testing.assert_allclose(x_e.numpy(), jx, **F32_TOL)
     assert res_e == pytest.approx(float(jres), rel=1e-2, abs=1e-12)
+
+
+def _spy_imap(comm, nodes):
+    real = comm.imap
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        nodes.extend(out)
+        return out
+    comm.imap = spy
+
+
+def test_expert_parallel_over_a_worker_member(sess, worker, ragent, watchdog):
+    """``moe_expert_parallel`` over ``["aten", "aten@tw0"]`` is
+    bit-identical to ``moe_layer``: the worker's aten agent serves that
+    member's four scatter COPYs and its MOE_FFN.  Over ``["aten",
+    "hopper@tw0"]`` the worker serves the COPYs on its hopper agent, but
+    the member's MOE_FFN runs on the host's torch fail-safe (hopper has no
+    MOE_FFN row, so the worker has no clone of one); in float32 that row's
+    bits are aten's, so the layer is still bit-identical."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models.moe import moe_expert_parallel, moe_layer, moe_param_specs
+    cfg = MoEConfig(n_experts=8, top_k=2, d_ff_expert=24, capacity_factor=1.25,
+                    n_shared=2)
+    gen = torch.Generator().manual_seed(3)
+    p = {n: torch.randn(s.shape, generator=gen) * s.shape[-2] ** -0.5
+         for n, s in moe_param_specs(32, cfg, torch.float32).items()}
+    x = torch.randn(2, 20, 32, generator=gen)
+    y0, a0 = moe_layer(p, x, cfg, "swiglu")
+    aten = worker.agent("aten").attach(sess)
+    try:
+        served = [worker.heartbeat(timeout=TIMEOUT)["served"]]
+        for member in (aten.platform, ragent.platform):
+            comm, nodes = sess.comm_split(["aten", member]), []
+            _spy_imap(comm, nodes)
+            try:
+                y, a = moe_expert_parallel(p, x, cfg, "swiglu", comm)
+            finally:
+                del comm.imap
+                comm.free()
+            served.append(worker.heartbeat(timeout=TIMEOUT)["served"])
+            assert torch.equal(y, y0) and torch.equal(a, a0)
+            assert [n.platform for n in nodes] == \
+                ["aten", aten.platform if member == aten.platform else "torch"]
+        assert served[1]["aten"] - served[0]["aten"] == 5      # 4 COPYs + MOE_FFN
+        assert served[1]["hopper"] == served[0]["hopper"]
+        assert served[2]["hopper"] - served[1]["hopper"] == 4  # the COPYs only
+        assert served[2]["aten"] == served[1]["aten"]
+    finally:
+        aten._deregister_clones()
+        sess.detach_agent(aten.platform)
 
 
 # ---------------------------------------------------------------------------
