@@ -297,12 +297,35 @@ Phases (any failure exits non-zero before the result lines are printed):
    "aten"]`` and ``["aten"] * 4``; (b) float32, layer 1, over ``["aten",
    "torch", "aten", "torch"]``; (c) layer 1 over ``["aten", "aten@w0"]``,
    w0 a worker process on the card, against (a)'s two-member result.  y
-   and aux ``torch.equal`` to the reference (a call that ``EP_FAULTS``
-   names, ROADMAP C3, bit for bit to ``ep_composition`` and within
-   ``TOL``), every MOE_FFN node on its member's platform, 3 MMM launches
-   a call on the route ``mmm_route`` names, the worker's aten agent
-   serving 5 requests a call; host ms a call, device ms and the wire's
-   bytes printed.  The worker is shut down before the phase ends.
+   and aux ``torch.equal`` to the reference, every MOE_FFN node on its
+   member's platform, 3 MMM launches a call on the route ``mmm_route``
+   names, the worker's aten agent serving 5 requests a call; host ms a
+   call, device ms and the wire's bytes printed.  The worker is shut down before the phase ends.
+3j. Expert parallelism under a device mesh (``phase3j``, after 3i; ROADMAP
+   A10c's serving half; ``MESH``): the kernel library built first, then
+   four ranks on the one card over ``gloo`` (``launch.mesh.run_ranks``,
+   ``mesh_rank``), each holding every tensor whole outside the
+   ``shard_map`` bodies: (a) moonshot-v1-16b-a3b's MoE layers at
+   published width, bfloat16, 2 layers, a prefill of 4 × 128 tokens (a2a)
+   and a decode of 4 × 1 (replicated) on meshes (1, 4) and (2, 2), the
+   prefill with int8 dispatch (within 0.05 of the exact path), float32
+   decode on (1, 4): each call within ``TOL`` of ``moe_layer`` in one
+   process over the same token shares (``moe_by_shares``), two calls the
+   same bits, the body and MOE_FFN on the rank's aten row once a call, 3
+   MMM launches on ``mmm_route``'s route; on (1, 4) decode each rank's
+   expert outputs ``torch.equal`` to ``moe_layer``'s rows [16r, 16r + 16),
+   float32 included; host ms, device ms (torch.profiler) and the bytes a
+   rank hands each verb, beside ``moe_layer``'s; (b) moonshot at full
+   width cut to layer 0 and 2 MoE layers (capacity factor 11.0 ≥ 64 / 6:
+   no row drops) served through ``ServeEngine.generate`` under (2, 2), 4 prompts
+   of 128 tokens, 8 greedy tokens, every step's logits within ``TOL`` of a
+   one-process run fed the one-process tokens, its expert choices forced
+   on the mesh (``mesh_routing``; the free gap and the tokens routed
+   otherwise printed: a bfloat16 router margin flips an expert now and
+   then).  Every rank's outputs the
+   same bits; the bodies counted in every rank; MMM, RMSNORM and
+   FLASH_ATTN launches summed over the ranks into the kernels line
+   (``launches_mesh``).  Every rank is reaped before the phase returns.
 3d. Training (``phase3d``): (a) the gradients of the MMM, RMSNORM and
    FLASH_ATTN autograd Functions on the card against autograd of their
    plain versions on the card: MMM at danube's projections and unembed
@@ -785,14 +808,33 @@ EXPERT_PARALLEL = {"arch": "moonshot-v1-16b-a3b", "layers": (1, 2, 3, 4), "batch
                    "prefill": 512, "seed": 21, "timed": 5, "profiled": 2,
                    "groups_a": (("aten", "aten"), ("aten",) * 4),
                    "group_b": ("aten", "torch", "aten", "torch")}
-#: calls whose result may differ from ``moe_layer``'s bits, by (dtype,
-#: capacity C), naming the ROADMAP C fault recorded for them: such a call
-#: is held bit for bit to ``ep_composition`` and within ``TOL`` of
-#: ``moe_layer``.  Every other call is held bit for bit to ``moe_layer``.
-#: C3: cuBLAS's float32 batched product at 4 rows a batch sums in another
-#: order for 64 batches than for 16 (MOE_FFN over 64 experts against its
-#: four slices: max |Δ| by row 1.311e-06 aten, 1.490e-06 torch on the H100)
-EP_FAULTS = {("float32", 4): "ROADMAP C3 (cuBLAS float32 bmm at M = 4 by batch count)"}
+#: phase 3j, expert parallelism under a device mesh (ROADMAP A10c's
+#: serving half): ``ranks`` processes on the one card over gloo
+#: (``run_ranks``), meshes (data, model) of ``meshes``; (a) moonshot's MoE
+#: layers at published width (d_model 2048, 64 experts of d_ff 1408, top
+#: 6, 2 shared, capacity factor 1.25), ``layers`` of them, weights from
+#: ``seed``: bfloat16 prefill ``batch`` × ``prefill`` (a2a: 128 tokens a
+#: rank, C = 16) and decode ``batch`` × 1 (replicated, C = 4) on each
+#: mesh, the prefill again with int8 dispatch (within ``int8_rel`` of the
+#: exact path, tests/test_sharded.py's bound), float32 decode on (1, 4);
+#: host ms the median of ``timed`` calls, device ms from ``profiled``
+#: profiler runs; (b) moonshot at full width cut to layer 0 and
+#: ``moe_layers`` MoE layers served under ``mesh``, ``requests`` prompts
+#: of ``prompt_len`` tokens, ``max_new`` greedy tokens, at capacity factor
+#: 11.0 ≥ 64 experts / top 6, so that every expert's capacity holds every
+#: token a call sees and no row drops, in one process or on a rank's share
+#: (a capacity is sized per call from the tokens it sees, so where rows
+#: drop the mesh drops others than one process: at 8.0 random weights
+#: route so many of a prompt's tokens to one expert that the mesh dropped
+#: each share's last tokens, and the prefill's last-token logits stood
+#: 7.5e-2 from one process's on the H100).  ``timeout`` bounds the ranks'
+#: whole run, spawn included
+MESH = {"arch": "moonshot-v1-16b-a3b", "ranks": 4,
+        "meshes": {"1x4": (1, 4), "2x2": (2, 2)}, "layers": 2, "batch": 4,
+        "prefill": 128, "seed": 23, "timed": 3, "profiled": 2, "int8_rel": 0.05,
+        "timeout": 400,
+        "serve": {"mesh": "2x2", "moe_layers": 2, "capacity_factor": 11.0, "requests": 4,
+                  "prompt_len": 128, "max_new": 8}}
 
 TIMED_RUNS = 20
 E2E_REPEATS = 5
@@ -843,10 +885,11 @@ PATH_OF = {"rmsnorm": "serve", "flash_attention_mma": "serve", "mmm_skinny": "se
 
 #: the paged danube legs, the stub-frontend legs, the training leg (3d),
 #: the data-parallel one (3f, the member-count runs), expert parallelism
-#: (3i) and phase 3's portability demo, whose launches
+#: over device groups (3i) and under a mesh (3j, summed over its four
+#: ranks) and phase 3's portability demo, whose launches
 #: the kernels line lists beside those of each kernel's own path
 NEW_LEG_PATHS = ("serve_paged_whole", "serve_paged_chunked", "serve_paligemma",
-                 "serve_musicgen", "train", "train_comm", "expert_parallel",
+                 "serve_musicgen", "train", "train_comm", "expert_parallel", "mesh",
                  "portability_demo")
 
 
@@ -5265,42 +5308,6 @@ def phase3h(dev, card):
 # ---------------------------------------------------------------------------
 # phase 3i: expert parallelism over device groups
 # ---------------------------------------------------------------------------
-def ep_composition(p, x, m, platforms):
-    """``moe_expert_parallel``'s result composed by hand: the session's
-    shared experts, routing and dispatch, then each member's MOE_FFN row
-    (``aten``: ``grouped_ffn``; ``torch``: ``grouped_ffn_ref``) called in
-    this thread on its expert slice, the slices concatenated and
-    combined.  What a call in ``EP_FAULTS`` is held to bit for bit.  Also
-    returns, for each row the members run, the max |Δ| of that row over
-    all experts in one call against the same row over the members'
-    slices (0.0: the row's bits do not depend on the expert count)."""
-    from repro_torch.kernels.moe_ffn.ops import grouped_ffn
-    from repro_torch.kernels.moe_ffn.ref import grouped_ffn_ref
-    from repro_torch.models import moe
-    from repro_torch.models.layers import act_fn, dense
-
-    rows = {"aten": grouped_ffn, "torch": grouped_ffn_ref}
-    b, s, d = x.shape
-    t, x2 = b * s, x.reshape(b * s, d)
-    y_sh = dense(act_fn("swiglu", dense(x2, p["ws_g"]), dense(x2, p["ws_u"])), p["ws_d"])
-    gates, eidx, aux = moe._route(x2, p["router"], m)
-    c = moe._capacity(t, m)
-    slot, keep = moe._dispatch_indices(eidx, t, c, m.n_experts)
-    xe = moe._gather_dispatch(x2, slot, keep, m.n_experts, c, m.top_k)
-    whole = [w.to(xe.dtype) for w in (xe, p["we_g"], p["we_u"], p["we_d"])]
-    parts = [w.chunk(len(platforms)) for w in whole]
-    names = [plat.split("@")[0] for plat in platforms]
-    sliced = [rows[name](*(w[r].clone() for w in parts)) for r, name in enumerate(names)]
-    ye = torch.cat(sliced)
-    gaps = {}
-    for name in dict.fromkeys(names):
-        one = rows[name](*whole).chunk(len(platforms))
-        gaps[name] = max(float((one[r].float() - sliced[r].float()).abs().max())
-                         for r, n in enumerate(names) if n == name)
-    y = moe._combine(ye, slot, keep, gates, t, m.top_k).to(x2.dtype) + y_sh.to(x2.dtype)
-    return y.reshape(b, s, d).to(x.dtype), aux * m.router_aux_weight, gaps
-
-
 def phase3i(dev, card):
     """Expert parallelism (DESIGN.md §15) on the card: moonshot's MoE layers
     through ``moe_expert_parallel`` over device groups (``EXPERT_PARALLEL``),
@@ -5310,9 +5317,8 @@ def phase3i(dev, card):
     "aten", "torch"]``; (c) one layer over ``["aten", "aten@w0"]`` with w0 a
     worker process on the card, against (a)'s two-member result, the
     worker's aten agent serving that member's 4 COPYs and its MOE_FFN.
-    Every call: y and aux ``torch.equal`` to the reference (or, for a group
-    in ``EP_FAULTS``, to ``ep_composition`` and within ``TOL``), each
-    MOE_FFN node on its member's own platform, MMM launches 3 (the shared
+    Every call: y and aux ``torch.equal`` to the reference, each MOE_FFN
+    node on its member's own platform, MMM launches 3 (the shared
     experts) on the route ``mmm_route`` names and no other kernel.  Host
     ms a call and device ms by torch.profiler beside ``moe_layer``'s, as
     records.  The worker is shut down (or killed) before the phase
@@ -5405,24 +5411,10 @@ def phase3i(dev, card):
         same = torch.equal(y, ref[0]) and torch.equal(aux, ref[1])
         rec = {"platforms": list(platforms), "bit_identical": same, "moe_ffn_on": placed,
                "launches": got}
-        fault = EP_FAULTS.get((str(x.dtype).split(".")[-1],
-                               moe._capacity(x.shape[0] * x.shape[1], m)))
         if not same:
-            gap = float((y.float() - ref[0].float()).abs().max())
-            if fault is None:
-                fail(f"{label}: not bit-identical to its reference (max |Δ| {gap:.3e}, "
-                     f"aux {float(aux)} vs {float(ref[1])})")
-            y_c, aux_c, rows_gap = ep_composition(p, x, m, platforms)
-            composed = torch.equal(y, y_c) and torch.equal(aux, aux_c)
-            err = normwise(y, ref[0])
-            print(f"  {label}: recorded fault {fault}: max |Δ| {gap:.3e} against "
-                  f"moe_layer, normwise {err:.3e}; bit-identical to the member-wise "
-                  f"composition: {composed}; MOE_FFN over {m.n_experts} experts against "
-                  f"the members' slices, max |Δ| by row {rows_gap}")
-            if not composed:
-                fail(f"{label}: not bit-identical to the member-wise composition")
-            check_close(f"{label} against moe_layer", err, x.dtype)
-            rec.update(fault=fault, max_abs_gap=gap, normwise=err, row_gaps=rows_gap)
+            fail(f"{label}: not bit-identical to its reference (max |Δ| "
+                 f"{float((y.float() - ref[0].float()).abs().max()):.3e}, "
+                 f"aux {float(aux)} vs {float(ref[1])})")
         if timed:
             rec["host_ms"], rec["device_ms"] = host_device_ms(
                 lambda: group_call(p, x, platforms), runs)
@@ -5540,6 +5532,399 @@ def phase3i(dev, card):
         fail(f"workers {alive} are still alive")
     stats["launches"] = dict(totals)
     return dict(totals), stats
+
+
+# ---------------------------------------------------------------------------
+# phase 3j: expert parallelism under a device mesh
+# ---------------------------------------------------------------------------
+def mesh_shares(x, m, mesh_shape):
+    """The token shares ``moe_layer`` gives the ranks under a mesh of
+    ``mesh_shape`` (data, model): a2a splits the tokens over every rank,
+    replicated over the data axis only.  Returns (mode, shares)."""
+    n_dp, n_ep = mesh_shape
+    t = x.shape[0] * x.shape[1]
+    a2a = m.n_experts % n_ep == 0 and t % (n_dp * n_ep) == 0 \
+        and t // (n_dp * n_ep) >= m.top_k
+    return ("a2a", n_dp * n_ep) if a2a else ("replicated", n_dp)
+
+
+@contextlib.contextmanager
+def expert_tap():
+    """Patch ``models.moe._expert_ffn`` to keep each call's expert outputs
+    (one a share in one process, one a rank's body under a mesh)."""
+    from repro_torch.models import moe
+    taps, ffn = [], moe._expert_ffn
+
+    def tap(*a, **k):
+        taps.append(ffn(*a, **k))
+        return taps[-1]
+    moe._expert_ffn = tap
+    try:
+        yield taps
+    finally:
+        moe._expert_ffn = ffn
+
+
+def moe_by_shares(p, x, m, shares: int):
+    """``moe_layer`` in one process on each token share alone (the
+    capacity a mesh call sizes from a rank's share), the shares' y
+    concatenated and their aux averaged, as the mesh's pmean does; with
+    the expert outputs of each share's call."""
+    from repro_torch.models import moe
+
+    b, s, d = x.shape
+    with expert_tap() as taps:
+        outs = [moe.moe_layer(p, xs[None], m, "swiglu")
+                for xs in x.reshape(b * s, d).chunk(shares)]
+    y = torch.cat([o[0][0] for o in outs]).reshape(b, s, d)
+    return y, torch.stack([o[1] for o in outs]).mean(), taps
+
+
+@contextlib.contextmanager
+def mesh_routing(mode: str, calls: list, mesh, key: str = "mesh"):
+    """``routing_tap`` for one rank under ``mesh``, over the calls a
+    one-process run recorded: each ``_route`` call sees this rank's token
+    share, the row-major block of the one-process call that the body's
+    spec gives it (a2a: one block a rank; replicated: one a data-axis
+    coordinate).  ``"record"``: route as the program does and keep
+    (block, top k) under ``key``; ``"force"``: route the share by the
+    recorded call's indices, gates from this run's probabilities."""
+    import torch.distributed as dist
+
+    from repro_torch.models import moe
+    orig = moe._route
+    pending = iter(calls)
+
+    def block(call, n):
+        parts = call["eidx"].shape[0] // n
+        idx = (0 if parts == 1 else dist.get_rank() if parts == mesh.size()
+               else mesh.get_local_rank("data"))
+        return slice(idx * n, (idx + 1) * n)
+
+    def tapped(x2, router_w, m):
+        call = next(pending)
+        rows = block(call, x2.shape[0])
+        if mode == "record":
+            gates, eidx, aux = orig(x2, router_w, m)
+            call[key] = (rows, eidx)
+            return gates, eidx, aux
+        probs = moe._router_probs(x2, router_w)
+        eidx = call["eidx"][rows]
+        gates = probs.gather(1, eidx)
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        return gates, eidx, torch.zeros((), device=x2.device)
+    moe._route = tapped
+    try:
+        yield
+    finally:
+        moe._route = orig
+
+
+def digest(*ts) -> str:
+    """A hash of tensors' bytes (cross-rank bit identity)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_rank(legs):
+    """Phase 3j in one of four ranks on the card (``run_ranks``, gloo):
+    ``legs`` ⊆ {"layers", "f32", "serve"}.  Every check is a ``fail()``
+    (a SystemExit the parent reports); returns this rank's records,
+    digests and launch counts."""
+    import torch.distributed as dist
+
+    from repro_torch import halo
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import mesh_ops
+    from repro_torch.distributed.sharding import mesh_context
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.matmul.matmul import mmm_route
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model, moe
+    from repro_torch.serve.engine import ServeEngine
+
+    ms = MESH
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reg, counts = counting_registry()
+    session = halo.initialize(registry=reg)       # device=None means the card
+    if session.device.type != "cuda":
+        fail(f"rank {rank}: session runs on {session.device}, not the card")
+    meshes = {k: make_mesh(v, ("data", "model")) for k, v in ms["meshes"].items()}
+    if any(mm.device_type != "cuda" for mm in meshes.values()):
+        fail(f"rank {rank}: a mesh is not on the card")
+    cfg = get_config(ms["arch"])
+    m, d = cfg.stages[1].pattern[0].moe, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(ms["seed"])
+    out = {"rank": rank, "records": {}, "digests": {}, "launches": collections.Counter()}
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def weights(dtype):
+        specs = moe.moe_param_specs(d, m, dtype)
+        return {n: (torch.randn(s.shape, generator=gen, device=dev)
+                    * s.shape[-2] ** -0.5).to(s.dtype) for n, s in specs.items()}
+
+    def counted(fn):
+        """``fn()`` with this rank's kernel launches and MOE_FFN dispatches
+        (by platform) during it."""
+        sync()
+        _cuda.reset_launch_counts()
+        before = dict(counts)
+        res = fn()
+        sync()
+        got = {k: v for k, v in _cuda.launch_counts().items() if v}
+        rows = {k: v - before.get(k, 0) for k, v in counts.items()
+                if k.startswith("MOE_FFN/") and v - before.get(k, 0)}
+        return res, got, rows
+
+    def timed_call(fn):
+        """(host ms a call, the median of ``timed``; device ms a call by
+        torch.profiler): every rank runs the same calls, each rank times
+        its own."""
+        walls = []
+        for _ in range(ms["timed"]):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls), device_ms_per_call(fn, ms["profiled"], dev)
+
+    def mesh_check(label, mk, p, x, timed, m_=m):
+        """One MoE call under mesh ``mk`` against ``moe_by_shares``."""
+        mode, shares = mesh_shares(x, m_, ms["meshes"][mk])
+        t = x.shape[0] * x.shape[1]
+        route = f"mmm_{mmm_route(x.dtype, t)}"
+        ref_y, ref_aux, ref_taps = moe_by_shares(p, x, m_, shares)
+        calls0 = dict(moe.BODY_CALLS)
+        bytes0 = dict(mesh_ops.BYTES_SENT)
+        with mesh_context(meshes[mk]), expert_tap() as taps:
+            (y, aux), got, rows = counted(lambda: moe.moe_layer(p, x, m_, "swiglu"))
+            y2, aux2 = moe.moe_layer(p, x, m_, "swiglu")
+        body = {k: v - calls0.get(k, 0) for k, v in moe.BODY_CALLS.items()
+                if v - calls0.get(k, 0)}
+        sent = {k: (v - bytes0.get(k, 0)) // 2 for k, v in mesh_ops.BYTES_SENT.items()
+                if v - bytes0.get(k, 0)}
+        if body != {mode: 2}:
+            fail(f"{label} rank {rank}: bodies ran {body}, not the {mode} body twice")
+        if got != {route: 3}:
+            fail(f"{label} rank {rank}: launches {got}, not 3 {route} (the shared experts)")
+        if rows != {"MOE_FFN/aten": 1}:
+            fail(f"{label} rank {rank}: MOE_FFN ran on {rows}, not once on this rank's aten row")
+        if y.shape != x.shape or y.dtype != x.dtype or not bool(torch.isfinite(y).all()):
+            fail(f"{label} rank {rank}: y {tuple(y.shape)} {y.dtype} or non-finite")
+        if not (torch.equal(y, y2) and torch.equal(aux, aux2)):
+            fail(f"{label} rank {rank}: two calls differ")
+        err = normwise(y, ref_y)
+        aux_err = abs(float(aux) - float(ref_aux)) / max(abs(float(ref_aux)), 1e-30)
+        if not (err <= TOL[x.dtype] and aux_err <= TOL[x.dtype]):
+            fail(f"{label} rank {rank}: y normwise {err:.3e}, aux relative {aux_err:.3e} "
+                 f"against moe_layer by shares (tol {TOL[x.dtype]:g})")
+        e_loc = m_.n_experts // ms["meshes"][mk][1]
+        slice_equal = None
+        if mode == "replicated" and shares == 1:
+            slice_equal = bool(torch.equal(
+                taps[0], ref_taps[0][rank * e_loc:(rank + 1) * e_loc]))
+            if not slice_equal:
+                fail(f"{label} rank {rank}: expert outputs differ from moe_layer's rows "
+                     f"[{rank * e_loc}, {(rank + 1) * e_loc})")
+        rec = {"mode": mode, "shares": shares, "capacity": moe._capacity(t // shares, m_),
+               "normwise": err, "aux_rel": aux_err, "launches": got, "moe_ffn": rows,
+               "bytes_sent": sent, "expert_slice_equal": slice_equal}
+        out["digests"][label] = digest(y, aux)
+        out["launches"].update(got)
+        if timed:
+            with mesh_context(meshes[mk]):
+                rec["host_ms"], rec["device_ms"] = timed_call(
+                    lambda: moe.moe_layer(p, x, m_, "swiglu"))
+            rec["moe_layer_host_ms"], rec["moe_layer_device_ms"] = timed_call(
+                lambda: moe.moe_layer(p, x, m_, "swiglu"))
+        out["records"][label] = rec
+        return y
+
+    if "layers" in legs:
+        layers = {layer: weights(torch.bfloat16) for layer in range(1, ms["layers"] + 1)}
+        xs = {"prefill": torch.randn((ms["batch"], ms["prefill"], d), generator=gen,
+                                     device=dev).to(torch.bfloat16),
+              "decode": torch.randn((ms["batch"], 1, d), generator=gen,
+                                    device=dev).to(torch.bfloat16)}
+        for mk in ms["meshes"]:
+            for batch, x0 in xs.items():
+                x = x0
+                for layer, p in layers.items():
+                    x = mesh_check(f"(a) {mk} {batch} layer {layer}", mk, p, x, layer == 1)
+            # int8 dispatch: the first layer's prefill against the exact path
+            p, x = layers[1], xs["prefill"]
+            m8 = dataclasses.replace(m, a2a_precision="int8")
+            with mesh_context(meshes[mk]):
+                exact = moe.moe_layer(p, x, m, "swiglu")[0]
+                y8, aux8 = moe.moe_layer(p, x, m8, "swiglu")
+                y8b = moe.moe_layer(p, x, m8, "swiglu")[0]
+            rel = float((y8.float() - exact.float()).abs().max() / exact.float().abs().max())
+            if not 0 < rel < ms["int8_rel"] or not torch.equal(y8, y8b):
+                fail(f"(a) {mk} int8 rank {rank}: relative gap {rel:.3e} to the exact "
+                     f"dispatch (limit {ms['int8_rel']}) or two calls differ")
+            out["digests"][f"(a) {mk} int8"] = digest(y8, aux8)
+            out["records"][f"(a) {mk} int8"] = {"rel_to_exact": rel}
+        del layers, xs
+        torch.cuda.empty_cache()
+    if "f32" in legs:
+        p32 = weights(torch.float32)
+        x32 = torch.randn((ms["batch"], 1, d), generator=gen, device=dev)
+        mesh_check("(a) 1x4 decode float32 layer 1", "1x4", p32, x32, True)
+        del p32
+        torch.cuda.empty_cache()
+    if "serve" in legs:
+        sv = ms["serve"]
+        full = get_config(ms["arch"])
+        cut = dataclasses.replace(full, stages=(
+            full.stages[0], dataclasses.replace(full.stages[1], pattern=tuple(
+                dataclasses.replace(b, moe=dataclasses.replace(
+                    b.moe, capacity_factor=sv["capacity_factor"]))
+                for b in full.stages[1].pattern), repeats=sv["moe_layers"])))
+        model = build_model(cut)
+        params = model.init(torch.Generator(device=dev).manual_seed(ms["seed"]))
+        prompts = torch.randint(0, cut.vocab_size, (sv["requests"], sv["prompt_len"]),
+                                generator=gen, device=dev)
+        max_len = sv["prompt_len"] + sv["max_new"] + 8
+        mesh = meshes[sv["mesh"]]
+        calls0 = dict(moe.BODY_CALLS)
+        sync()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mesh_context(mesh), torch.no_grad():
+            toks = ServeEngine(model, max_len=max_len).generate(params, prompts, sv["max_new"])
+        sync()
+        serve_s = time.perf_counter() - t0
+        launches = {k: v for k, v in _cuda.launch_counts().items() if v}
+        body = {k: v - calls0.get(k, 0) for k, v in moe.BODY_CALLS.items()
+                if v - calls0.get(k, 0)}
+        out["launches"].update(launches)
+        out["digests"]["(b) tokens"] = digest(toks)
+        # the one-process run (its routing recorded), then the mesh fed its
+        # tokens, routing free (flips counted) and with its choices forced
+        from repro_torch.serve.kvcache import pad_caches
+
+        def lockstep(mesh_, feed=None):
+            logits_, toks_ = [], []
+            with mesh_context(mesh_), torch.no_grad():
+                lg, caches = model.prefill(params, {"tokens": prompts})
+                caches = pad_caches(cut, caches, max_len)
+                logits_.append(lg.float())
+                for i in range(sv["max_new"] - 1):
+                    nxt = feed[i] if feed is not None else lg.argmax(-1, keepdim=True)
+                    toks_.append(nxt)
+                    lg, caches = model.decode_step(params, caches, nxt, sv["prompt_len"] + i)
+                    logits_.append(lg.float())
+            return logits_, toks_
+        calls = []
+        with routing_tap("record", calls):
+            one, one_toks = lockstep(None)
+        with mesh_routing("record", calls, mesh):
+            free, _ = lockstep(mesh, one_toks)
+        with mesh_routing("force", calls, mesh):
+            meshed, _ = lockstep(mesh, one_toks)
+        errs = [normwise(a, b) for a, b in zip(meshed, one)]
+        free_errs = [normwise(a, b) for a, b in zip(free, one)]
+        flips = [int((c["mesh"][1].sort(-1).values != c["eidx"][c["mesh"][0]].sort(-1).values)
+                     .any(-1).sum()) for c in calls]
+        if len(errs) != sv["max_new"] or not max(errs) <= TOL[torch.bfloat16]:
+            fail(f"(b) rank {rank}: logits with routing forced against the one-process "
+                 f"run {errs}")
+        first = torch.cat(one_toks + [one[-1].argmax(-1, keepdim=True)], dim=1)
+        out["records"]["(b)"] = {
+            "mesh": sv["mesh"], "serve_s": serve_s, "bodies": body, "launches": launches,
+            "logits_normwise": errs, "logits_normwise_free": free_errs,
+            "flips_by_call": flips, "tokens": toks.tolist(),
+            "tokens_equal_one_process": bool(torch.equal(toks, first))}
+        if not body.get("a2a") or not body.get("replicated"):
+            fail(f"(b) rank {rank}: the bodies ran {body}: the engine lost the mesh")
+        del model, params
+        torch.cuda.empty_cache()
+    out["body_calls"] = dict(moe.BODY_CALLS)
+    out["launches"] = dict(out["launches"])
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    halo.finalize()
+    return out
+
+
+def phase3j(dev, card):
+    """Expert parallelism under a device mesh (ROADMAP A10c's serving half;
+    ``MESH``): four ranks on the one card over ``gloo`` (``run_ranks``),
+    every rank holding every tensor whole outside the ``shard_map`` bodies.
+    (a) moonshot's MoE layers at published width, bfloat16, 2 layers:
+    prefill 4 × 128 (a2a) and decode 4 × 1 (replicated) on (1, 4) and (2,
+    2), int8 dispatch on the prefill, float32 decode on (1, 4); each call
+    within ``TOL`` of ``moe_layer`` in one process on the same token
+    shares (``moe_by_shares``: the capacity a call sizes from the tokens
+    it sees), two calls the same bits, the bodies and MOE_FFN on this
+    rank's aten row counted, 3 MMM launches a call on ``mmm_route``'s
+    route; on (1, 4) decode every rank's expert outputs ``torch.equal`` to
+    ``moe_layer``'s rows, float32 included.  (b) moonshot at full width
+    cut to 3 layers served through ``ServeEngine.generate`` under the
+    mesh; every step's logits within ``TOL`` of a one-process run fed the
+    same tokens with that run's expert choices forced (``mesh_routing``;
+    the free run's gap and the tokens it routes otherwise printed, as the
+    phase-3b MoE legs force the kernels' choices).  Every rank's results
+    the same bits (digests).  The
+    kernel library is built before the ranks start; every rank is reaped
+    before this returns.  Returns (launches summed over the ranks,
+    stats)."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.mesh import run_ranks
+
+    _cuda.lib()
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(mesh_rank, MESH["ranks"], backend="gloo", timeout=MESH["timeout"],
+                          args=(("layers", "f32", "serve"),), device_type="cuda")
+    except (RuntimeError, TimeoutError) as exc:
+        fail(f"phase 3j: {exc}")
+    wall = time.perf_counter() - t0
+    for label, dig in ranks[0]["digests"].items():
+        differ = [r["rank"] for r in ranks if r["digests"].get(label) != dig]
+        if differ:
+            fail(f"phase 3j {label}: ranks {differ} differ from rank 0")
+    for r in ranks:
+        if not r["body_calls"].get("a2a") or not r["body_calls"].get("replicated"):
+            fail(f"phase 3j: rank {r['rank']} ran the bodies {r['body_calls']}")
+    launches = collections.Counter()
+    for r in ranks:
+        launches.update(r["launches"])
+    records = ranks[0]["records"]
+    for label, rec in records.items():
+        extra = ""
+        if "host_ms" in rec:
+            extra = (f"; host {rec['host_ms']:.3f} ms, device {rec['device_ms']:.3f} ms a "
+                     f"call (moe_layer in one process: host {rec['moe_layer_host_ms']:.3f}"
+                     f" ms, device {rec['moe_layer_device_ms']:.3f} ms)")
+        if "mode" in rec:
+            print(f"  {label}: {rec['mode']} over {rec['shares']} shares, C={rec['capacity']}"
+                  f"; normwise {rec['normwise']:.3e}, aux {rec['aux_rel']:.3e}; bytes a rank "
+                  f"hands each verb {rec['bytes_sent']}; expert slice equal "
+                  f"{rec['expert_slice_equal']}{extra}")
+        elif label == "(b)":
+            print(f"  (b) served under {rec['mesh']}: {rec['serve_s']:.2f} s; bodies "
+                  f"{rec['bodies']}; launches {rec['launches']}; logits normwise against "
+                  f"one process, routing forced "
+                  f"{['%.2e' % e for e in rec['logits_normwise']]}, free "
+                  f"{['%.2e' % e for e in rec['logits_normwise_free']]} (tokens routed "
+                  f"otherwise by MoE call {rec['flips_by_call']}); tokens equal to the "
+                  f"one-process run {rec['tokens_equal_one_process']}")
+        else:
+            print(f"  {label}: {rec}")
+    stats = {"ranks": MESH["ranks"], "backend": "gloo", "wall_s": wall,
+             "peak_gb": [r["peak_gb"] for r in ranks], "records": records,
+             "body_calls": [r["body_calls"] for r in ranks], "launches": dict(launches)}
+    print(f"  four ranks on {card}: {wall:.1f} s with spawn; peak GB a rank "
+          f"{[round(g, 2) for g in stats['peak_gb']]}; launches over the ranks {dict(launches)}")
+    return dict(launches), stats
 
 
 # ---------------------------------------------------------------------------
@@ -7355,6 +7740,12 @@ def main() -> None:
     path_launches["expert_parallel"], ep_stats = phase3i(dev, card)
     seconds["3i expert parallelism"] = time.perf_counter() - t0
     print(json.dumps({"expert_parallel": ep_stats}))
+    print(f"phase 3j: expert parallelism under a device mesh — {MESH['ranks']} gloo ranks "
+          f"on {card}")
+    t0 = time.perf_counter()
+    path_launches["mesh"], mesh_stats = phase3j(dev, card)
+    seconds["3j mesh"] = time.perf_counter() - t0
+    print(json.dumps({"mesh": mesh_stats}))
     print(f"phase 3d: training {TRAIN['arch']} at full width and depth on the kernels")
     t0 = time.perf_counter()
     path_launches["train"], train_stats = phase3d(dev)

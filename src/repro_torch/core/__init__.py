@@ -16,8 +16,9 @@
 
 The names below are those of ``repro.core`` that the port has; the
 reference's tuning names (ROADMAP A5) and its JAX agents (``JnpAgent``,
-``XlaAgent``, ``PallasAgent``, ``ShardedAgent``) have no counterpart here —
-the port's agents are ``TorchAgent``, ``AtenAgent`` and ``HopperAgent`` in
+``XlaAgent``, ``PallasAgent``) have no counterpart here — the port's
+agents are ``TorchAgent``, ``AtenAgent``, ``HopperAgent`` and
+``ShardedAgent`` (the reference's, on a ``torch.distributed`` mesh) in
 :mod:`repro_torch.core.agents`.
 """
 from .compute_object import BufferHandle, ComputeObject, as_compute_object
@@ -27,7 +28,8 @@ from .manifest import FuncEntry, HostEntry, Manifest, default_manifest
 from .scheduler import CostModelScheduler, abstract_signature
 from .agents import (AgentDeadError, AgentState, ChildRank,
                      HaloCancelledError, HaloFuture, HealthConfig,
-                     HealthMonitor, RuntimeAgent, VirtualizationAgent)
+                     HealthMonitor, RuntimeAgent, ShardedAgent,
+                     VirtualizationAgent)
 from .c2mpi import (MPIX_Allgather, MPIX_Allreduce, MPIX_Bcast, MPIX_Claim,
                     MPIX_CommFree, MPIX_CommSplit, MPIX_CreateBuffer,
                     MPIX_Finalize, MPIX_Free, MPIX_Gather, MPIX_GraphBegin,
@@ -53,7 +55,7 @@ __all__ = [
     "CostModelScheduler", "abstract_signature",
     "AgentDeadError", "AgentState", "ChildRank", "HaloCancelledError",
     "HaloFuture", "HealthConfig", "HealthMonitor", "RuntimeAgent",
-    "VirtualizationAgent",
+    "ShardedAgent", "VirtualizationAgent",
     "MPIX_Allgather", "MPIX_Allreduce", "MPIX_Bcast", "MPIX_Claim",
     "MPIX_CommFree", "MPIX_CommSplit", "MPIX_CreateBuffer", "MPIX_Finalize",
     "MPIX_Free", "MPIX_Gather", "MPIX_GraphBegin", "MPIX_GraphEnd",

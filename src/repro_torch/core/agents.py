@@ -9,7 +9,9 @@ execution substrate:
 * ``torch``  — plain PyTorch reference implementations (the fail-safe),
 * ``aten``   — PyTorch's library calls (cuBLAS and ATen kernels),
 * ``hopper`` — the hand-written Hopper kernels (``csrc/*.cu``); on CPU
-  tensors their wrappers run the plain version.
+  tensors their wrappers run the plain version,
+* ``sharded`` — records run under a device mesh
+  (:class:`ShardedAgent`); available only with a mesh attached.
 
 Agents are in-process modules with one FIFO worker thread each (DESIGN.md
 §2).  PyTorch's current stream is per thread, so ``isend`` captures the
@@ -733,6 +735,28 @@ class HopperAgent(VirtualizationAgent):
             require_hopper(self.device)
 
 
+class ShardedAgent(AtenAgent):
+    """Distributed substrate: runs each record under a device mesh
+    (``distributed.sharding.mesh_context``), so the records' ``shard_map``
+    regions split over it.  Available only with a mesh attached; no
+    built-in record is registered on it."""
+    platform = "sharded"
+
+    def __init__(self, mesh=None, name: Optional[str] = None):
+        super().__init__(name)
+        self.mesh = mesh
+
+    def available(self) -> bool:
+        return self.mesh is not None and not self._dead
+
+    def _device_execute(self, record: KernelRecord, args, kwargs):
+        if self.mesh is None:
+            raise RuntimeError("ShardedAgent has no mesh attached")
+        from ..distributed.sharding import mesh_context
+        with mesh_context(self.mesh):
+            return super()._device_execute(record, args, kwargs)
+
+
 # ---------------------------------------------------------------------------
 # Child ranks
 # ---------------------------------------------------------------------------
@@ -780,12 +804,18 @@ class RuntimeAgent:
                  agents: Optional[Sequence[VirtualizationAgent]] = None,
                  scheduler: Optional[CostModelScheduler] = None,
                  device="cuda",
-                 health: Optional[HealthMonitor] = None):
+                 health: Optional[HealthMonitor] = None,
+                 mesh=None):
         self.device = torch.device(device)
         self.registry = registry or GLOBAL_REGISTRY
         self.manifest = manifest or default_manifest()
         if agents is None:
+            # the sharded substrate joins only with a mesh: without one no
+            # reader of the session's agents (comm_split, the health
+            # monitor, a worker's clones) sees it
             agents = [TorchAgent(), AtenAgent(), HopperAgent(self.device)]
+            if mesh is not None:
+                agents.append(ShardedAgent(mesh))
         self.agents: Dict[str, VirtualizationAgent] = {a.platform: a for a in agents}
         # cost-model + measured-latency request scheduler (DESIGN.md §4);
         # scheduler=False disables it (pure static platform-preference order)
@@ -921,6 +951,15 @@ class RuntimeAgent:
                     fut.set_exception(exc)
             fallback.submit(_replayed)
         return len(items)
+
+    def attach_mesh(self, mesh) -> None:
+        """Give the ``sharded`` substrate ``mesh`` (replacing any earlier
+        one), attaching a :class:`ShardedAgent` if the session has none."""
+        a = self.agents.get("sharded")
+        if isinstance(a, ShardedAgent):
+            a.mesh = mesh
+        else:
+            self.attach_agent(ShardedAgent(mesh))
 
     def _allowed_platforms(self) -> List[str]:
         return [p for p, a in self.agents.items() if a.available()]

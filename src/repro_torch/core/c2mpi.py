@@ -48,7 +48,7 @@ _session: Optional[RuntimeAgent] = None
 # ---------------------------------------------------------------------------
 def MPIX_Initialize(manifest: Optional[Manifest] = None,
                     registry: Optional[KernelRegistry] = None,
-                    device=None) -> RuntimeAgent:
+                    device=None, mesh=None) -> RuntimeAgent:
     """Create the process-global HALO session, finalizing any live one.
 
     ``device`` is where the session runs: ``None`` means ``"cuda"``, which
@@ -56,13 +56,15 @@ def MPIX_Initialize(manifest: Optional[Manifest] = None,
     port never demotes to the CPU); pass ``"cpu"`` to run every record's
     plain version on the host.  ``manifest`` is the unified config
     (Table I), ``registry`` the kernel repository (defaults to the global
-    one with built-ins registered)."""
+    one with built-ins registered); ``mesh`` attaches the sharded
+    substrate."""
     global _session
     from .. import kernels  # ensure built-in kernel records are registered
     kernels.register_all()
     session = RuntimeAgent(registry=registry or GLOBAL_REGISTRY,
                            manifest=manifest or default_manifest(),
-                           device="cuda" if device is None else device)
+                           device="cuda" if device is None else device,
+                           mesh=mesh)
     with _session_lock:
         old, _session = _session, session
     if old is not None and not old.finalized:

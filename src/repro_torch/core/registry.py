@@ -39,7 +39,7 @@ __all__ = [
 _record_uids = itertools.count(1)
 
 # Platform ids, ordered by default performance preference on the H100.
-PLATFORM_PREFERENCE: Tuple[str, ...] = ("hopper", "aten", "torch")
+PLATFORM_PREFERENCE: Tuple[str, ...] = ("sharded", "hopper", "aten", "torch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +75,7 @@ class KernelRecord:
 
     alias: str                       # func_alias, e.g. "MMM"
     fn: Callable                     # the implementation
-    platform: str                    # "torch" | "aten" | "hopper"
+    platform: str                    # "torch" | "aten" | "hopper" | "sharded"
     attrs: KernelAttributes = dataclasses.field(default_factory=KernelAttributes)
     priority: int = 0                # higher wins within a platform
     supports: Optional[Callable[..., bool]] = None   # predicate over args

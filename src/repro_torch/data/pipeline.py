@@ -8,9 +8,9 @@ the reference's for the same seed and step, then moved to the device.
 
 Synthetic stream: Zipf-distributed unigrams with a Markov refresh, giving
 a non-degenerate learnable distribution (loss decreases).  Placement on a
-mesh (the reference's ``named_sharding``) comes with the meshes (ROADMAP
-A10c); a device group's members take their microbatches as slices of the
-global batch (``Trainer._microbatches``).
+mesh (the reference's ``named_sharding``) comes with training under a mesh
+(ROADMAP A10c, training part); a device group's members take their
+microbatches as slices of the global batch (``Trainer._microbatches``).
 """
 from __future__ import annotations
 

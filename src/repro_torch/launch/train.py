@@ -8,9 +8,10 @@ versions; checkpoints, heartbeat and the straggler policy as in the
 reference; a resumed run goes on after the checkpointed step.  ``--comm
 N`` trains data-parallel over an N-member C²MPI device group cycling the
 session's available substrates, with ``--microbatches`` raised to a
-multiple of N.  A device mesh (``--mesh`` other than ``none``) places
-nothing on one card; it comes with the expert-sharded MoE and raises:
-ROADMAP A10c.
+multiple of N.  A device mesh (``--mesh`` other than ``none``) raises:
+serving runs under a mesh (``repro_torch.launch.mesh``), training under a
+mesh — the backward through the collectives, the Trainer's shardings —
+is ROADMAP A10c's training part.
 """
 from __future__ import annotations
 
@@ -46,16 +47,16 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--heartbeat", default=None)
     ap.add_argument("--mesh", choices=["none", "debug", "single", "multi"],
-                    default="none", help="a device mesh other than none "
-                    "comes with the expert-sharded MoE, not ported: ROADMAP A10c")
+                    default="none", help="a device mesh other than none: "
+                    "training under a mesh is not ported (ROADMAP A10c)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (an H100; raises without one) or cpu")
     args = ap.parse_args(argv)
     if args.mesh != "none":
-        raise ValueError(f"--mesh {args.mesh}: a device mesh places nothing on "
-                         f"one card; it comes with the expert-sharded MoE, which "
-                         f"the port has not yet: ROADMAP A10c")
+        raise ValueError(f"--mesh {args.mesh}: training under a mesh (the "
+                         f"backward through the collectives, the Trainer's "
+                         f"shardings) is not ported yet: ROADMAP A10c")
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")

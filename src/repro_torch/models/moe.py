@@ -18,12 +18,34 @@ group instead: the session routes and dispatches, the expert blocks and
 weight stacks scatter over the members, each member runs MOE_FFN on its
 experts, and the outputs gather for the combine.
 
-Not ported yet: the mesh paths (the ``shard_map`` bodies, the int8
-all_to_all and ``moe_layer`` under a mesh), which need a mesh over
-several cards (ROADMAP A10c's second half).
+Under a mesh (``distributed.sharding.mesh_context``) :func:`moe_layer`
+runs the routed experts in a ``shard_map`` region (``distributed.mesh_ops``)
+in one of the reference's two modes, chosen by token count:
+
+* **a2a** (prefill): tokens split over the (fsdp × expert) ranks; each
+  rank routes its tokens into capacity slots, a tiled all_to_all over the
+  expert axis sends each expert's rows to the rank that owns it (in
+  bfloat16, or int8 with per-row scales: :func:`_a2a_int8`), the rank runs
+  MOE_FFN on its experts, and the inverse exchange brings the outputs back
+  for the combine.
+* **replicated** (decode): too few tokens to split over the expert axis;
+  every expert-axis rank routes the same tokens, serves only its own
+  experts, and a psum over the expert axis adds the partial outputs.
+
+Expert weights enter the region split E over "expert" only.  The
+reference also splits their D over "fsdp" and all-gathers it in the body;
+here parameter storage is whole on every rank (the global view), so that
+gather would only send back bytes every rank already holds.  It returns
+with placed storage (ROADMAP A10c, training part).  The shared experts
+run outside the region on every rank.  The bodies count their calls in
+:data:`BODY_CALLS`, so a check can see that a mesh call took the mesh path:
+the context is thread-local, and a thread started elsewhere takes the
+one-device path.
 """
 from __future__ import annotations
 
+import collections
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -31,14 +53,14 @@ import torch.nn.functional as F
 
 from ..configs.base import MoEConfig
 from ..core.c2mpi import halo_dispatch
-from ..distributed.sharding import ParamSpec, current_context
+from ..distributed import mesh_ops
+from ..distributed.sharding import P, ParamSpec, current_context
 from .layers import act_fn, dense
 
 Params = Dict[str, torch.Tensor]
 
-_EP = ("expert-parallel MoE over a mesh (shard_map bodies, the int8 "
-       "all_to_all dispatch) needs a mesh over several cards, which the port "
-       "has not yet (ROADMAP A10c)")
+#: calls of each shard_map body in this process ("a2a", "replicated")
+BODY_CALLS: collections.Counter = collections.Counter()
 
 
 def moe_param_specs(d_model: int, m: MoEConfig, dtype) -> Dict[str, ParamSpec]:
@@ -144,10 +166,10 @@ def _moe_local(p: Params, x2: torch.Tensor, m: MoEConfig, act: str,
     return y.to(x2.dtype), aux
 
 
-def _moe(p: Params, x: torch.Tensor, m: MoEConfig, act: str, expert_ffn
+def _moe(p: Params, x: torch.Tensor, m: MoEConfig, routed
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,D) → (y (B,S,D), aux loss × ``router_aux_weight``): shared
-    experts through MMM, then the routed ones through ``expert_ffn``."""
+    experts through MMM, then ``routed(x2)`` → (y (T,D), aux)."""
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
     y_sh = None
@@ -155,7 +177,7 @@ def _moe(p: Params, x: torch.Tensor, m: MoEConfig, act: str, expert_ffn
         g = dense(x2, p["ws_g"])
         u = dense(x2, p["ws_u"])
         y_sh = dense(act_fn("swiglu", g, u), p["ws_d"])
-    y, aux = _moe_local(p, x2, m, act, expert_ffn)
+    y, aux = routed(x2)
     if y_sh is not None:
         y = y + y_sh.to(y.dtype)
     return y.reshape(b, s, d).to(x.dtype), aux * m.router_aux_weight
@@ -164,10 +186,30 @@ def _moe(p: Params, x: torch.Tensor, m: MoEConfig, act: str, expert_ffn
 def moe_layer(p: Params, x: torch.Tensor, m: MoEConfig, act: str
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,D) → (y (B,S,D), aux loss × ``router_aux_weight``): shared
-    experts through MMM, then the routed ones."""
-    if current_context().mesh is not None:
-        raise NotImplementedError(_EP)
-    return _moe(p, x, m, act, _expert_ffn)
+    experts through MMM, then the routed ones — in one process, or under
+    the thread's mesh in the a2a or the replicated body."""
+    ctx = current_context()
+    ep_axes = ctx.rules.expert
+    if ctx.mesh is None or not ep_axes:
+        return _moe(p, x, m, lambda x2: _moe_local(p, x2, m, act, _expert_ffn))
+    assert len(ep_axes) == 1, "single expert axis supported"
+    ep_axis = ep_axes[0]
+    dp_axes = tuple(a for a in ctx.rules.fsdp if a != ep_axis)
+    t = x.shape[0] * x.shape[1]
+    n_dp, n_ep = ctx.axis_size(dp_axes), ctx.axis_size(ep_axes)
+    a2a_ok = (m.n_experts % n_ep == 0 and t % (n_dp * n_ep) == 0
+              and t // (n_dp * n_ep) >= m.top_k)
+    body = _moe_a2a_body if a2a_ok else _moe_replicated_body
+    tok_spec = P((*dp_axes, ep_axis), None) if a2a_ok else P(dp_axes or None, None)
+    fn = mesh_ops.shard_map(
+        functools.partial(body, m=m, act=act, mesh=ctx.mesh, ep_axis=ep_axis,
+                          n_ep=n_ep, dp_axes=dp_axes),
+        ctx.mesh,
+        in_specs=(tok_spec, P(None, None), P(ep_axis, None, None),
+                  P(ep_axis, None, None), P(ep_axis, None, None)),
+        out_specs=(tok_spec, P()))
+    return _moe(p, x, m, lambda x2: fn(x2, p["router"], p["we_g"], p["we_u"],
+                                       p["we_d"]))
 
 
 def moe_expert_parallel(p: Params, x: torch.Tensor, m: MoEConfig, act: str,
@@ -192,22 +234,71 @@ def moe_expert_parallel(p: Params, x: torch.Tensor, m: MoEConfig, act: str,
     def group_ffn(xe, wg, wu, wd, act):
         parts = [comm.scatter(w.to(xe.dtype), axis=0) for w in (xe, wg, wu, wd)]
         return comm.gather(comm.map("MOE_FFN", list(zip(*parts))))
-    return _moe(p, x, m, act, group_ffn)
+    return _moe(p, x, m, lambda x2: _moe_local(p, x2, m, act, group_ffn))
 
 
 # ---------------------------------------------------------------------------
-# Mesh paths (ROADMAP A10c's second half)
+# Mesh paths: the shard_map bodies
 # ---------------------------------------------------------------------------
-def _a2a_int8(xe, ep_axis, split_axis, concat_axis):
-    """The int8 all_to_all wire format: not ported yet."""
-    raise NotImplementedError(_EP)
+def _a2a_int8(xe, mesh, ep_axis: str, split_axis: int, concat_axis: int):
+    """all_to_all in an int8 wire format: per-row absmax scales (float32,
+    floored at 1e-12, over 127) ride along; rounding half to even, clipped
+    to ±127, dequantized to xe's type.  Halves the dispatch bytes of
+    bfloat16.  Gradients would flow through the dequantized values
+    (straight-through on the rounding)."""
+    xf = xe.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-12) / 127.0
+    q = torch.round(xf / scale)
+    q = (q + (q.clamp(-127, 127) - q).detach()).to(torch.int8)
+    q = mesh_ops.all_to_all(q, mesh, ep_axis, split_axis, concat_axis)
+    scale = mesh_ops.all_to_all(scale, mesh, ep_axis, split_axis, concat_axis)
+    return (q.float() * scale).to(xe.dtype)
 
 
-def _moe_a2a_body(*args, **kwargs):
-    """The a2a-mode shard_map body: not ported yet."""
-    raise NotImplementedError(_EP)
+def _moe_a2a_body(x2, router_w, wg, wu, wd, *, m: MoEConfig, act: str, mesh,
+                  ep_axis: str, n_ep: int, dp_axes: Tuple[str, ...]):
+    """a2a mode.  x2 (T_loc, D); wg/wu (E_loc, D, F); wd (E_loc, F, D)."""
+    BODY_CALLS["a2a"] += 1
+    t = x2.shape[0]
+    gates, eidx, aux = _route(x2, router_w, m)
+    c = _capacity(t, m)
+    slot, keep = _dispatch_indices(eidx, t, c, m.n_experts)
+    xe = _gather_dispatch(x2, slot, keep, m.n_experts, c, m.top_k)
+    # (E, C, D) → (E/n_ep, C·n_ep, D): tokens to their experts' owners
+    if m.a2a_precision == "int8":
+        xe = _a2a_int8(xe, mesh, ep_axis, 0, 1)
+    else:
+        xe = mesh_ops.all_to_all(xe, mesh, ep_axis, 0, 1)
+    ye = _expert_ffn(xe, wg, wu, wd, act)
+    # the inverse exchange: expert outputs back to their tokens' owners
+    ye = mesh_ops.all_to_all(ye, mesh, ep_axis, 1, 0)
+    y = _combine(ye, slot, keep, gates, t, m.top_k)
+    aux = mesh_ops.pmean(aux, mesh, (*dp_axes, ep_axis))
+    return y.to(x2.dtype), aux
 
 
-def _moe_replicated_body(*args, **kwargs):
-    """The replicated-mode (decode) shard_map body: not ported yet."""
-    raise NotImplementedError(_EP)
+def _moe_replicated_body(x2, router_w, wg, wu, wd, *, m: MoEConfig, act: str,
+                         mesh, ep_axis: str, n_ep: int,
+                         dp_axes: Tuple[str, ...]):
+    """Replicated mode (decode).  x2 (T_loc, D) is the same on every rank
+    of the expert axis; each rank serves only its experts and the partial
+    outputs psum over the expert axis."""
+    BODY_CALLS["replicated"] += 1
+    t = x2.shape[0]
+    e_loc = m.n_experts // n_ep
+    first = mesh_ops.axis_index(mesh, ep_axis) * e_loc
+    gates, eidx, aux = _route(x2, router_w, m)
+    # keep only the assignments to this rank's experts
+    local = (eidx >= first) & (eidx < first + e_loc)
+    gates_loc = torch.where(local, gates, 0.0)
+    c = _capacity(t, m, n_ep)
+    slot, keep = _dispatch_indices(torch.where(local, eidx - first, e_loc), t,
+                                   c, e_loc + 1)
+    keep = keep & local
+    xe = _gather_dispatch(x2, slot, keep, e_loc + 1, c, m.top_k)[:e_loc]
+    ye = _expert_ffn(xe, wg, wu, wd, act)
+    ye = torch.cat([ye, torch.zeros_like(ye[:1])], dim=0)
+    y = _combine(ye, slot, keep, gates_loc, t, m.top_k)
+    y = mesh_ops.psum(y, mesh, (ep_axis,))
+    aux = mesh_ops.pmean(aux, mesh, (*dp_axes, ep_axis))
+    return y.to(x2.dtype), aux

@@ -16,8 +16,9 @@ such a leaf is stored as its uint16 bit pattern, and meta.json records
 every leaf's dtype.  The trainer's comm mode saves the same
 ``TrainState`` leaves as the single-device trainer (``Trainer._comm_state``),
 so a checkpoint of either mode restores into the other.  Restoring onto
-another mesh (the reference's elastic reshard) comes with the meshes
-(ROADMAP A10c).
+another mesh (the reference's elastic reshard) comes with training under a
+mesh (ROADMAP A10c, training part); the meshes themselves serve already
+(``repro_torch.launch.mesh``).
 """
 from __future__ import annotations
 

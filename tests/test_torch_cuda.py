@@ -1503,6 +1503,58 @@ def test_moe_ffn_aten_row_against_torch_row(card, cap):
     assert _normwise(got, exact) < _normwise(ref, exact) <= TOL[torch.bfloat16]
 
 
+def test_moe_ffn_float32_rows_hold_a_slice_bit_for_bit(card):
+    """ROADMAP C3: at moonshot's decode shapes, (64, 4, 2048) @ (64, 2048,
+    1408) float32, both MOE_FFN rows over experts 16-31 alone give rows
+    16-31 of the 64-expert call bit for bit: an expert's bits do not
+    depend on how many experts the call holds (the per-expert products)."""
+    from repro_torch.kernels.moe_ffn.ops import grouped_ffn
+    from repro_torch.kernels.moe_ffn.ref import grouped_ffn_ref
+    xe = _rnd(card, 64, 4, 2048, dtype=torch.float32, seed=1)
+    wg = _rnd(card, 64, 2048, 1408, dtype=torch.float32, seed=2) / 2048 ** 0.5
+    wu = _rnd(card, 64, 2048, 1408, dtype=torch.float32, seed=3) / 2048 ** 0.5
+    wd = _rnd(card, 64, 1408, 2048, dtype=torch.float32, seed=4) / 1408 ** 0.5
+    for row in (grouped_ffn, grouped_ffn_ref):
+        whole = row(xe, wg, wu, wd)
+        part = row(*(w[16:32].clone() for w in (xe, wg, wu, wd)))
+        assert whole.dtype == torch.float32 and whole.shape == xe.shape
+        assert torch.equal(part, whole[16:32]), row.__name__
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _mesh_float32_rank():
+    """chip_smoke.py phase 3j (a)'s float32 decode leg in one rank."""
+    return _chip_smoke().mesh_rank(("f32",))
+
+
+def test_mesh_float32_decode_on_four_gloo_ranks(card):
+    """Phase 3j (a)'s float32 case on the card: moonshot's MoE layer at
+    published width, decode 4 × 1 under a (1, 4) mesh of four gloo ranks
+    on one card: within float32's TOL of moe_layer in one process, every
+    rank's expert outputs torch.equal to moe_layer's rows [16r, 16r + 16)
+    (ROADMAP C3's repair), every rank's result the same bits, the
+    replicated body counted in every rank.  (mesh_rank fails the rank on
+    any check; run_ranks then raises.)"""
+    from repro_torch.launch.mesh import run_ranks
+    _cuda.lib()                              # built once, before the ranks
+    ranks = run_ranks(_mesh_float32_rank, 4, backend="gloo", timeout=300,
+                      device_type="cuda")
+    label = "(a) 1x4 decode float32 layer 1"
+    assert len({r["digests"][label] for r in ranks}) == 1
+    for r in ranks:
+        rec = r["records"][label]
+        assert rec["mode"] == "replicated" and rec["expert_slice_equal"] is True
+        assert rec["normwise"] <= TOL[torch.float32]
+        assert r["body_calls"]["replicated"] > 0
+
+
 def test_moe_dispatch_on_the_card_is_bit_identical_to_the_cpu(card):
     """_dispatch_indices and _gather_dispatch at moonshot's widths (2048
     tokens, 64 experts, top 6, capacity 244) with a router skewed so that
@@ -1531,11 +1583,7 @@ def test_moe_dispatch_on_the_card_is_bit_identical_to_the_cpu(card):
 def _moe_definition():
     """chip_smoke.py's float64 definition of the MoE layer (one definition
     for the card's test and the card's smoke run)."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.moe_definition
+    return _chip_smoke().moe_definition
 
 
 @pytest.mark.parametrize("t", [4, 128])

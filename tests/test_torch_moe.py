@@ -272,15 +272,6 @@ def test_param_specs_match_jax():
     assert t["ws_g"].shape == (48, 2 * tc.d_ff_expert)
 
 
-def test_expert_parallel_paths_raise_naming_the_roadmap():
-    """The mesh half of expert parallelism (A10c's second half) is still
-    refused; ``moe_expert_parallel`` over a device group is ported (§(e))."""
-    for fn, args in ((t_moe._a2a_int8, (None, "model", 0, 1)),
-                     (t_moe._moe_a2a_body, ()), (t_moe._moe_replicated_body, ())):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            fn(*args)
-
-
 # ---------------------------------------------------------------------------
 # (d) the whole layer against the JAX package
 # ---------------------------------------------------------------------------
