@@ -326,6 +326,26 @@ Phases (any failure exits non-zero before the result lines are printed):
    same bits; the bodies counted in every rank; MMM, RMSNORM and
    FLASH_ATTN launches summed over the ranks into the kernels line
    (``launches_mesh``).  Every rank is reaped before the phase returns.
+3k. Training under a device mesh (``phase3k``, after 3j; ROADMAP A10c's
+   training half; ``MESH_TRAIN``): moonshot-v1-16b-a3b at published
+   width cut to layer 0 and one MoE layer at capacity factor 11.0,
+   bfloat16, 4 × 128 tokens a step.  ``mesh_train_reckoning`` (bytes a
+   rank under the global view) is printed and the ranks' fit checked
+   before any rank starts; a one-process step runs first in a process of
+   its own and keeps its step-1 gradients in a temporary file; then two
+   gloo ranks on the card train 2 steps of ``make_train_step`` under
+   (1, 2) and then (2, 1): (a) every rank's loss, gradients and state the
+   same bits as rank 0's after every step (``fingerprint``), (b) step 1's
+   xent, grad norm and every gradient leaf within phase 3d's tolerances of
+   the one-process step, (c) the int8 dispatch's gradients at cosine ≥
+   ``TRAIN_COS_MIN`` of the exact dispatch's, (d) MMM, RMSNORM, FLASH_ATTN
+   and EMBED_GRAD launches a step by ``train_structure``, (e) the a2a body
+   twice a MoE layer a step (the recompute kept the mesh), (f) the
+   backward's all_to_all bytes equal to the forward's; host ms, device ms
+   (rank 0, torch.profiler), peak GB and bytes a verb printed.  The launches
+   over ranks, meshes and steps go into the kernels line
+   (``launches_mesh_train``).  ``tools/mesh_train_cards.py`` runs the same
+   leg over four cards, (2, 2), one NCCL rank a card.
 3d. Training (``phase3d``): (a) the gradients of the MMM, RMSNORM and
    FLASH_ATTN autograd Functions on the card against autograd of their
    plain versions on the card: MMM at danube's projections and unembed
@@ -836,6 +856,25 @@ MESH = {"arch": "moonshot-v1-16b-a3b", "ranks": 4,
         "serve": {"mesh": "2x2", "moe_layers": 2, "capacity_factor": 11.0, "requests": 4,
                   "prompt_len": 128, "max_new": 8}}
 
+#: phase 3k, training under a device mesh (ROADMAP A10c's training half):
+#: moonshot-v1-16b-a3b at published width (d_model 2048, vocab 163840, 64
+#: experts of d_ff 1408, top 6, 2 shared) cut to layer 0 and ``moe_layers``
+#: MoE layers at capacity factor 11.0 ≥ 64 / 6 (no row can drop, in one
+#: process or on a rank's share: PR 37), bfloat16, ``batch`` ×
+#: ``seq_len`` tokens a step from SyntheticLM(``seed``), ``steps`` steps of
+#: make_train_step (lr ``lr`` after one warmup step; step i on batch i - 1),
+#: on ``ranks`` gloo ranks on the one card, mesh after mesh: (1, 2)
+#: exchanges over the model axis (a2a bodies at 256 tokens a rank), (2, 1)
+#: sums over the data axis.
+#: Every rank holds the whole state (the global view): the ranks must fit
+#: the card together, with ``headroom_gb`` a rank beside the reckoning
+#: (``mesh_train_reckoning``) for the CUDA context and the backend's buffers.
+#: ``timeout`` bounds one mesh's ranks, spawn included
+MESH_TRAIN = {"arch": "moonshot-v1-16b-a3b", "moe_layers": 1, "capacity_factor": 11.0,
+              "batch": 4, "seq_len": 128, "steps": 2, "seed": 0, "lr": 3e-3,
+              "ranks": 2, "meshes": {"1x2": (1, 2), "2x1": (2, 1)}, "headroom_gb": 2.0,
+              "timeout": 600}
+
 TIMED_RUNS = 20
 E2E_REPEATS = 5
 PIN = {"allowed_platforms": ["hopper"]}
@@ -886,11 +925,12 @@ PATH_OF = {"rmsnorm": "serve", "flash_attention_mma": "serve", "mmm_skinny": "se
 #: the paged danube legs, the stub-frontend legs, the training leg (3d),
 #: the data-parallel one (3f, the member-count runs), expert parallelism
 #: over device groups (3i) and under a mesh (3j, summed over its four
-#: ranks) and phase 3's portability demo, whose launches
+#: ranks), training under a mesh (3k, summed over its ranks, meshes and
+#: steps) and phase 3's portability demo, whose launches
 #: the kernels line lists beside those of each kernel's own path
 NEW_LEG_PATHS = ("serve_paged_whole", "serve_paged_chunked", "serve_paligemma",
                  "serve_musicgen", "train", "train_comm", "expert_parallel", "mesh",
-                 "portability_demo")
+                 "mesh_train", "portability_demo")
 
 
 def decode_projections(cfg):
@@ -5928,6 +5968,393 @@ def phase3j(dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 3k: training under a device mesh
+# ---------------------------------------------------------------------------
+def mesh_train_config(moe_layers: int):
+    """moonshot at full width cut to layer 0 and ``moe_layers`` MoE layers
+    at ``MESH_TRAIN``'s capacity factor."""
+    from repro_torch.configs import get_config
+    full = get_config(MESH_TRAIN["arch"])
+    return dataclasses.replace(full, stages=(
+        full.stages[0], dataclasses.replace(full.stages[1], pattern=tuple(
+            dataclasses.replace(b, moe=dataclasses.replace(
+                b.moe, capacity_factor=MESH_TRAIN["capacity_factor"]))
+            for b in full.stages[1].pattern), repeats=moe_layers)))
+
+
+def mesh_train_reckoning(cfg) -> dict:
+    """Device bytes one rank holds at a step's peak under the global view,
+    from the parameter specs: the parameters, their gradients (each in its
+    parameter's type), AdamW's float32 moments, the update's new
+    parameters and moments beside the old (the old state is freed after
+    the step), and four float32 temporaries of the largest leaf (its
+    update).  Activations are not reckoned: the one-process step's peak,
+    measured, stands beside this."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.transformer import param_specs
+    specs = tree_leaves(param_specs(cfg))
+    item = [torch.empty((), dtype=s.dtype).element_size() for s in specs]
+    n = [math.prod(s.shape) for s in specs]
+    params = sum(k * i for k, i in zip(n, item))
+    parts = {"params": params, "grads": params, "moments": 8 * sum(n),
+             "new_state": params + 8 * sum(n), "update_temporaries": 16 * max(n)}
+    return {"parameters": sum(n), **parts, "total": sum(parts.values())}
+
+
+def fingerprint(ts) -> list:
+    """Each tensor's bit patterns summed with pseudo-random int64 weights
+    (one fixed stream, the same on every rank), mod 2⁶⁴, on its device: two
+    tensors whose bits differ anywhere give equal sums with probability
+    about 2⁻³² or less (a bit pattern of ≤ 32 bits differs by less than
+    2³²).  Stands in for torch.equal across ranks where the state is GBs a
+    rank."""
+    out = []
+    for t in ts:
+        t = t.detach().reshape(-1)
+        bits = t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()])
+        gen = torch.Generator(device=t.device).manual_seed(38)
+        acc = torch.zeros((), dtype=torch.int64, device=t.device)
+        for chunk in bits.split(1 << 26):
+            w = torch.randint(-(1 << 62), 1 << 62, chunk.shape, generator=gen,
+                              device=t.device, dtype=torch.int64)
+            acc += (chunk.to(torch.int64) * w).sum()
+        out.append(int(acc))
+    return out
+
+
+def mesh_train_rank(shape, moe_layers: int, ref_path: str):
+    """Phase 3k in one rank (``run_ranks``): ``MESH_TRAIN["steps"]`` steps
+    of make_train_step under a (data, model) mesh of ``shape``; step 1's gradients
+    against the one-process step's (``ref_path``, rank 0); then the int8
+    dispatch's gradients against the exact one's.  Every check is a
+    ``fail()``; returns this rank's records, fingerprints and counts."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import halo
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import mesh_ops
+    from repro_torch.distributed.sharding import mesh_context
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model, moe
+    from repro_torch.optim.adamw import adamw_init, global_norm
+    from repro_torch.train import trainer
+
+    mt = MESH_TRAIN
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    session = halo.initialize()                   # device=None means the card
+    if session.device.type != "cuda":
+        fail(f"rank {rank}: session runs on {session.device}, not the card")
+    mesh = make_mesh(shape, ("data", "model"))
+    mesh_key = f"{shape[0]}x{shape[1]}"
+    cfg = mesh_train_config(moe_layers)
+    expect = train_structure(cfg)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(mt["seed"]))
+    pipe = SyntheticLM(cfg, mt["seq_len"], mt["batch"], mt["seed"])
+    hp = trainer.TrainHyper(base_lr=mt["lr"], warmup_steps=1, total_steps=mt["steps"])
+    state = trainer.TrainState(params=params, opt=adamw_init(params))
+    del params
+    out = {"rank": rank, "steps": [], "launches": collections.Counter()}
+
+    def delta(before, now):
+        return {k: v - before.get(k, 0) for k, v in now.items() if v - before.get(k, 0)}
+
+    orig = trainer.loss_and_grads
+
+    def recorded(model_, params_, batch_):
+        """loss_and_grads with this step's records: bytes a verb in the
+        forward and in the backward (the recompute's forward exchanges
+        included), body calls, fingerprints, and at step 1 the gradients
+        against the one-process step's."""
+        rec = {"step": len(out["steps"]) + 1}
+        bytes0, calls0 = dict(mesh_ops.BYTES_SENT), dict(moe.BODY_CALLS)
+        forward = {}
+
+        def loss_fn(p, b):
+            res = type(model_).loss_fn(model_, p, b)
+            forward.update(delta(bytes0, mesh_ops.BYTES_SENT))
+            return res
+        model_.loss_fn = loss_fn
+        try:
+            loss, metrics, grads = orig(model_, params_, batch_)
+        finally:
+            del model_.loss_fn
+        total = delta(bytes0, mesh_ops.BYTES_SENT)
+        rec["bytes_forward"] = forward
+        rec["bytes_backward"] = {k: v - forward.get(k, 0) for k, v in total.items()}
+        rec["body_calls"] = delta(calls0, moe.BODY_CALLS)
+        leaves = tree_leaves(grads)
+        rec["grad_norm"] = float(global_norm(grads))
+        rec["xent"], rec["aux"] = float(metrics["xent"]), float(metrics["aux"])
+        out.setdefault("fingerprints", {})[f"step {rec['step']} loss, grads"] = \
+            fingerprint([loss, *leaves])
+        if rec["step"] == 1 and rank == 0:
+            ref = torch.load(ref_path)
+            rec["cosines"] = [cosine(g, r.to(dev)) for g, r in zip(leaves, ref["grads"])]
+            rec["ref"] = {k: ref[k] for k in ("xent", "grad_norm", "aux")}
+            del ref
+        out["steps"].append(rec)
+        return loss, metrics, grads
+
+    trainer.loss_and_grads = recorded
+    try:
+        step_fn = trainer.make_train_step(model, hp)
+        for i in range(mt["steps"]):
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            _cuda.reset_launch_counts()
+            profiled = rank == 0 and i == mt["steps"] - 1
+            with mesh_context(mesh), (profile(activities=[ProfilerActivity.CUDA])
+                                      if profiled else contextlib.nullcontext()) as prof:
+                t0 = time.perf_counter()
+                new, metrics = step_fn(state, pipe.device_batch(i, dev))
+                torch.cuda.synchronize(dev)
+                host_ms = (time.perf_counter() - t0) * 1e3
+            trainer._donate(state, new)
+            state = new
+            rec = out["steps"][-1]
+            rec.update(host_ms=host_ms, loss=float(metrics["loss"]),
+                       peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                       launches={k: v for k, v in _cuda.launch_counts().items() if v})
+            if profiled:
+                rec["device_ms"] = device_seconds(prof) * 1e3
+            out["launches"].update(rec["launches"])
+            out["fingerprints"][f"step {rec['step']} state"] = fingerprint(
+                [metrics["loss"], *tree_leaves(state)])
+            if rec["launches"] != expect:
+                fail(f"3k {mesh_key} rank {rank} step {rec['step']}: launches "
+                     f"{rec['launches']}, the structure gives {expect}")
+            if rec["body_calls"] != {"a2a": 2 * moe_layers}:
+                fail(f"3k {mesh_key} rank {rank} step {rec['step']}: bodies ran "
+                     f"{rec['body_calls']}, not a2a twice a MoE layer (forward and "
+                     f"recompute): the recompute lost the mesh")
+            if rec["bytes_backward"].get("all_to_all", 0) != \
+                    rec["bytes_forward"].get("all_to_all", 0) * 2:
+                fail(f"3k {mesh_key} rank {rank} step {rec['step']}: all_to_all bytes "
+                     f"forward {rec['bytes_forward']}, backward with the recompute "
+                     f"{rec['bytes_backward']}: the backward's own exchange is not "
+                     f"the forward's")
+            if not all(math.isfinite(rec[k]) for k in ("loss", "grad_norm")):
+                fail(f"3k {mesh_key} rank {rank} step {rec['step']}: not finite {rec}")
+    finally:
+        trainer.loss_and_grads = orig
+    first = out["steps"][0]
+    if rank == 0:
+        xent_err = abs(first["xent"] - first["ref"]["xent"]) / abs(first["ref"]["xent"])
+        gnorm_err = abs(first["grad_norm"] - first["ref"]["grad_norm"]) / \
+            first["ref"]["grad_norm"]
+        worst = min(first["cosines"])
+        first.update(xent_err=xent_err, gnorm_err=gnorm_err, worst_cosine=worst)
+        if xent_err > TRAIN_LOSS_TOL or gnorm_err > TRAIN_GNORM_TOL or worst < TRAIN_COS_MIN:
+            fail(f"3k {mesh_key}: step 1 against one process: xent {xent_err:.2e} (tol "
+                 f"{TRAIN_LOSS_TOL:g}), grad norm {gnorm_err:.2e} (tol {TRAIN_GNORM_TOL:g}), "
+                 f"worst leaf cosine {worst:.6f} (min {TRAIN_COS_MIN:g})")
+    # (c) the int8 dispatch's gradients against the exact dispatch's, on
+    # the trained parameters (the moments go first)
+    params = state.params
+    del state, new
+    torch.cuda.empty_cache()
+    m8 = build_model(dataclasses.replace(cfg, stages=tuple(
+        dataclasses.replace(st, pattern=tuple(
+            dataclasses.replace(b, moe=dataclasses.replace(b.moe, a2a_precision="int8"))
+            if b.moe is not None else b for b in st.pattern)) for st in cfg.stages)))
+    batch = pipe.device_batch(0, dev)
+    with mesh_context(mesh):
+        exact = tree_leaves(trainer.loss_and_grads(model, params, batch)[2])
+        int8 = tree_leaves(trainer.loss_and_grads(m8, params, batch)[2])
+    cos8 = [cosine(a, b) for a, b in zip(int8, exact)]
+    out["int8"] = {"worst_cosine": min(cos8), "rel_max": max(
+        float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+        for a, b in zip(int8, exact))}
+    out["fingerprints"]["int8 grads"] = fingerprint(int8)
+    if min(cos8) < TRAIN_COS_MIN:
+        fail(f"3k {mesh_key} rank {rank}: int8 dispatch's gradients against the exact "
+             f"dispatch's: worst leaf cosine {min(cos8):.6f} (min {TRAIN_COS_MIN:g})")
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["launches"] = dict(out["launches"])
+    del params, exact, int8
+    halo.finalize()
+    return out
+
+
+def mesh_train_reference(moe_layers: int, ref_path: str) -> dict:
+    """Phase 3k's one-process step, in a process of its own (so that its
+    memory goes with it): one make_train_step on the weights and batch the
+    ranks take, its step-1 gradients, xent, aux and grad norm saved to
+    ``ref_path``; returns those scalars, the step's host ms and its peak
+    bytes."""
+    from repro_torch import halo
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import adamw_init, global_norm
+    from repro_torch.train import trainer
+
+    mt = MESH_TRAIN
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    session = halo.initialize()
+    if session.device.type != "cuda":
+        fail(f"the one-process step runs on {session.device}, not the card")
+    cfg = mesh_train_config(moe_layers)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(mt["seed"]))
+    batch = SyntheticLM(cfg, mt["seq_len"], mt["batch"], mt["seed"]).device_batch(0, dev)
+    state = trainer.TrainState(params=params, opt=adamw_init(params))
+    del params
+    kept = {}
+    orig = trainer.loss_and_grads
+
+    def keep(model_, params_, batch_):
+        loss, metrics, grads = orig(model_, params_, batch_)
+        kept.update(grads=[g.cpu() for g in tree_leaves(grads)], xent=float(metrics["xent"]),
+                    aux=float(metrics["aux"]), grad_norm=float(global_norm(grads)))
+        return loss, metrics, grads
+    trainer.loss_and_grads = keep
+    try:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer.make_train_step(model, trainer.TrainHyper(
+            base_lr=mt["lr"], warmup_steps=1, total_steps=mt["steps"]))(state, batch)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        trainer.loss_and_grads = orig
+    torch.save(kept, ref_path)
+    halo.finalize()
+    return {"xent": kept["xent"], "aux": kept["aux"], "grad_norm": kept["grad_norm"],
+            "ms": ms, "peak": torch.cuda.max_memory_allocated(dev)}
+
+
+def mesh_train_leg(dev, card, meshes: dict, moe_layers: int, backend: str):
+    """Training under each of ``meshes`` (key → shape, one mesh after the
+    other), moonshot cut to ``moe_layers`` MoE layers: the reckoning, the
+    one-process step (its gradients kept in a file, its memory freed),
+    then each mesh's ranks (``mesh_train_rank``) over ``backend`` (gloo:
+    the ranks share the card ``dev``; nccl: one card a rank).  Returns
+    (launches summed over the ranks, stats)."""
+    import tempfile
+
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.mesh import run_ranks
+
+    mt = MESH_TRAIN
+    ranks = math.prod(next(iter(meshes.values())))
+    cfg = mesh_train_config(moe_layers)
+    reckoning = mesh_train_reckoning(cfg)
+    print(f"  moonshot-v1-16b-a3b at full width, layer 0 and {moe_layers} MoE layer(s) at "
+          f"capacity factor {mt['capacity_factor']}, bfloat16, {mt['batch']} x "
+          f"{mt['seq_len']} tokens a step; mesh_train_reckoning (bytes a rank): "
+          f"{json.dumps(reckoning)}")
+
+    print("  one process, step 1 on the same weights and batch (the reference for (b)), "
+          "in a process of its own")
+    _cuda.lib()
+    with tempfile.TemporaryDirectory(prefix="mesh_train_") as tmp:
+        ref_path = str(Path(tmp) / "step1.pt")
+        try:
+            one = run_ranks(mesh_train_reference, 1, backend="gloo", timeout=mt["timeout"],
+                            args=(moe_layers, ref_path), device_type="cuda")[0]
+        except (RuntimeError, TimeoutError) as exc:
+            fail(f"phase 3k, the one-process step: {exc}")
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info(dev)[0] if backend == "gloo" else \
+            torch.cuda.get_device_properties(dev).total_memory
+        one_peak = one["peak"]
+        per_rank = max(reckoning["total"], one_peak) + mt["headroom_gb"] * 1e9
+        need = per_rank * (ranks if backend == "gloo" else 1)
+        print(f"    xent {one['xent']:.6f}, aux {one['aux']:.6f}, grad norm "
+              f"{one['grad_norm']:.6f}; the whole step {one['ms']:.1f} ms, peak "
+              f"{one_peak / 1e9:.2f} GB (reckoned {reckoning['total'] / 1e9:.2f})")
+        print(f"    a rank needs {per_rank / 1e9:.2f} GB (the larger of the two, and "
+              f"{mt['headroom_gb']} GB for its context and the backend's buffers); "
+              f"{ranks} rank(s) over {backend}, "
+              f"{'all on the card' if backend == 'gloo' else 'one a card'}: "
+              f"{need / 1e9:.2f} GB of {free / 1e9:.2f} GB free a card")
+        if need > free:
+            fail(f"phase 3k: {ranks} ranks of {per_rank / 1e9:.2f} GB do not fit the "
+                 f"{free / 1e9:.2f} GB free on {card}")
+
+        launches = collections.Counter()
+        stats = {"moe_layers": moe_layers, "reckoning": reckoning, "one_process_peak_gb":
+                 one_peak / 1e9, "one_process_step_ms": one["ms"], "backend": backend,
+                 "meshes": {}}
+        for mk, shape in meshes.items():
+            t0 = time.perf_counter()
+            try:
+                got = run_ranks(mesh_train_rank, ranks, backend=backend,
+                                timeout=mt["timeout"],
+                                args=(tuple(shape), moe_layers, ref_path),
+                                device_type="cuda")
+            except (RuntimeError, TimeoutError) as exc:
+                fail(f"phase 3k {mk}: {exc}")
+            wall = time.perf_counter() - t0
+            r0 = got[0]
+            for label, fp in r0["fingerprints"].items():
+                differ = [r["rank"] for r in got if r["fingerprints"].get(label) != fp]
+                if differ:
+                    fail(f"phase 3k {mk} {label}: ranks {differ} differ from rank 0")
+            for r in got:
+                launches.update(r["launches"])
+            first = r0["steps"][0]
+            print(f"  ({shape[0]}, {shape[1]}) over {ranks} {backend} rank(s): {wall:.1f} s "
+                  f"with spawn; (a) every rank's loss, gradients and state the same bits "
+                  f"as rank 0's after each step ({len(r0['fingerprints'])} fingerprints)")
+            print(f"    (b) step 1 against one process: xent {first['xent']:.6f} vs "
+                  f"{first['ref']['xent']:.6f} ({first['xent_err']:.2e}), grad norm "
+                  f"{first['grad_norm']:.6f} vs {first['ref']['grad_norm']:.6f} "
+                  f"({first['gnorm_err']:.2e}), worst leaf cosine {first['worst_cosine']:.6f}"
+                  f"; aux {first['aux']:.6f} (one process {first['ref']['aux']:.6f}: the "
+                  f"mesh's is the mean of each share's)")
+            print(f"    (c) int8 dispatch against exact: worst leaf cosine "
+                  f"{r0['int8']['worst_cosine']:.6f}, largest relative gap "
+                  f"{r0['int8']['rel_max']:.3e}")
+            for rec in r0["steps"]:
+                print(f"    step {rec['step']}: loss {rec['loss']:.6f}, grad norm "
+                      f"{rec['grad_norm']:.6f}; host {rec['host_ms']:.1f} ms"
+                      + (f", device {rec['device_ms']:.1f} ms (rank 0, profiler)"
+                         if "device_ms" in rec else "")
+                      + f"; peak {rec['peak_gb']:.2f} GB; (d) launches {rec['launches']}; "
+                      f"(e) bodies {rec['body_calls']}; (f) bytes a rank forward "
+                      f"{rec['bytes_forward']}, backward with the recompute "
+                      f"{rec['bytes_backward']}")
+            stats["meshes"][mk] = {
+                "shape": list(shape), "wall_s": wall, "steps": [
+                    {k: v for k, v in rec.items() if k not in ("cosines", "ref")}
+                    for rec in r0["steps"]],
+                "int8": r0["int8"], "peak_gb": [r["peak_gb"] for r in got],
+                "step1": {k: first[k] for k in ("xent_err", "gnorm_err", "worst_cosine")}}
+    return dict(launches), stats
+
+
+def phase3k(dev, card):
+    """Training under a device mesh (ROADMAP A10c's training half;
+    ``MESH_TRAIN``): moonshot at published width cut to layer 0 and one MoE
+    layer, two gloo ranks on the one card, (1, 2) then (2, 1), two steps of
+    make_train_step each.  (a) after every step every rank's loss,
+    gradients and state the same bits as rank 0's (``fingerprint``); (b)
+    step 1's cross-entropy, grad norm and every gradient leaf against a
+    one-process step on the same weights and batch at phase 3d's
+    tolerances (aux printed: under a mesh it is the mean of each share's);
+    (c) the int8 dispatch's gradients against the exact dispatch's, every
+    leaf at cosine ≥ TRAIN_COS_MIN; (d) the kernels' launches a step by
+    structure (``train_structure``); (e) the a2a body twice a MoE
+    layer a step (forward and recompute: the recompute kept the mesh);
+    (f) the backward's all_to_all bytes equal the forward's.  The
+    reckoning is printed before any rank starts, and the phase fails if
+    the ranks would not fit.  Returns (launches summed over the ranks,
+    meshes and steps, stats)."""
+    return mesh_train_leg(dev, card, MESH_TRAIN["meshes"], MESH_TRAIN["moe_layers"], "gloo")
+
+
+# ---------------------------------------------------------------------------
 # phase 3d: training
 # ---------------------------------------------------------------------------
 def leaf_names(tree, prefix: str = "params") -> list:
@@ -5948,17 +6375,21 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def train_structure(cfg) -> dict:
-    """Launches one training step of danube's structure makes, each repeat
-    recomputed in the backward: MMM 7 a layer in the forward and again in
-    the recompute, dA and dB of each in the backward, and the unembed's
-    forward with its two (3); RMSNORM 2 a layer forward and recompute and
-    the final norm (its backward is the plain version's VJP); FLASH_ATTN 1
-    a layer forward and recompute (its backward is mea_attention's VJP);
-    EMBED_GRAD once, the embedding's backward.  Every product has 512 rows
-    or more: the wgmma route."""
-    layers = cfg.n_layers
-    return {"mmm_wgmma": 28 * layers + 3, "rmsnorm": 4 * layers + 1,
-            "flash_attention_mma": 2 * layers, "embed_grad": 1}
+    """Launches one training step of a GQA stack makes, each repeat
+    recomputed in the backward: each MMM of a pass (``moe_leg_structure``'s
+    prefill count: 7 a danube layer; a MoE layer's shared experts included)
+    in the forward and again in the recompute, dA and dB of each in the
+    backward, and the unembed's forward with its two (3); RMSNORM 2 a layer
+    forward and recompute and the final norm (its backward is the plain
+    version's VJP); FLASH_ATTN 1 a layer forward and recompute (its backward
+    is mea_attention's VJP); EMBED_GRAD once, the embedding's backward.
+    Every product has 512 rows or more: the wgmma route.  Under a mesh
+    every rank runs the whole model outside the MoE bodies, so each rank
+    launches these (MOE_FFN has no kernel)."""
+    layers = sum(st.repeats * len(st.pattern) for st in cfg.stages)
+    st = moe_leg_structure(cfg)
+    return {"mmm_wgmma": 4 * st["prefill_mmm"] + 3, "rmsnorm": 4 * layers + 1,
+            f"flash_attention_{st['fa_route']}": 2 * layers, "embed_grad": 1}
 
 
 def phase3d_backward(dev) -> None:
@@ -7746,6 +8177,13 @@ def main() -> None:
     path_launches["mesh"], mesh_stats = phase3j(dev, card)
     seconds["3j mesh"] = time.perf_counter() - t0
     print(json.dumps({"mesh": mesh_stats}))
+    torch.cuda.empty_cache()
+    print(f"phase 3k: training under a device mesh — {MESH_TRAIN['arch']} on "
+          f"{MESH_TRAIN['ranks']} gloo ranks on {card}")
+    t0 = time.perf_counter()
+    path_launches["mesh_train"], mesh_train_stats = phase3k(dev, card)
+    seconds["3k mesh train"] = time.perf_counter() - t0
+    print(json.dumps({"mesh_train": mesh_train_stats}))
     print(f"phase 3d: training {TRAIN['arch']} at full width and depth on the kernels")
     t0 = time.perf_counter()
     path_launches["train"], train_stats = phase3d(dev)

@@ -7,10 +7,13 @@ step counter).  Batches are built host-side in numpy, the same numbers as
 the reference's for the same seed and step, then moved to the device.
 
 Synthetic stream: Zipf-distributed unigrams with a Markov refresh, giving
-a non-degenerate learnable distribution (loss decreases).  Placement on a
-mesh (the reference's ``named_sharding``) comes with training under a mesh
-(ROADMAP A10c, training part); a device group's members take their
-microbatches as slices of the global batch (``Trainer._microbatches``).
+a non-degenerate learnable distribution (loss decreases).  Under a mesh
+every rank takes the whole global batch (the global view,
+``distributed.sharding``): the MoE layers' ``shard_map`` bodies give each
+rank its share.  The reference's ``batch_specs`` (its ``named_sharding``
+of a batch) has one reader, the dry run (ROADMAP A13), and comes with it.
+A device group's members take their microbatches as slices of the global
+batch (``Trainer._microbatches``).
 """
 from __future__ import annotations
 

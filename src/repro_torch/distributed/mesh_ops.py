@@ -27,12 +27,41 @@ mesh and axes.  Every rank must reach each verb in the same order, as in
 an SPMD program.  A verb over one rank returns its input.  Each verb adds
 the bytes this rank hands it to :data:`BYTES_SENT` under its name.
 
+**The backward** is the transpose the reference's ``shard_map`` takes
+with ``check_vma=False`` (``jax._src.shard_map._shard_map_transpose``).
+Each verb and each half of :func:`shard_map` is an ``autograd.Function``
+that saves its mesh, axes and specs at the forward; a backward never
+reads the thread-local context (on the card autograd runs it on its own
+device thread):
+
+* an output's reassembly — this rank's own block of the cotangent (every
+  rank holds it whole: the global view), divided by the ranks along the
+  mesh axes the output's spec leaves out, over which the output is
+  replicated; no collective (a reduce-scatter would add the same
+  cotangent n times);
+* :func:`psum` — a sum of the cotangent over the same axes (JAX's psum
+  transposes to a psum); :func:`pmean` divides that by n;
+* :func:`all_to_all` — the inverse exchange, split and concat swapped;
+* :func:`all_gather` inside a body — the cotangent summed over its axes,
+  then this rank's block (a reduce-scatter);
+* an input's block (:func:`block_of`) — the cotangent summed over the
+  mesh axes the spec leaves out, then gathered over the axes it splits,
+  so every rank holds the whole gradient.
+
+Together they give the gradient of the global function: an output made
+equal across an axis by a psum carries the cotangent over n into each
+term and the psum adds the n copies back, and one made equal by
+computing the same thing on every rank of the axis counts it once.  A
+backward verb counts its bytes in :data:`BYTES_SENT` under the forward's
+verb names.
+
 Only verbs that exist in every supported torch are used (no
 ``all_gather_into_tensor``, no ``all_gather_single``).  The backend is
 the process group's own, and no verb is staged through host memory here:
 ``gloo`` takes CUDA tensors for every verb used (``all_to_all_single`` in
 int8, bfloat16 and float32, ``all_gather``, ``all_reduce`` of a 0-d
-tensor: checked with four ranks on one H100) and copies them through the
+tensor and of bfloat16 and float32 gradients: checked with two and four
+ranks on one H100) and copies them through the
 host itself; ``nccl`` keeps them on the cards.  Nothing here switches
 backend or device on an error.
 """
@@ -114,14 +143,9 @@ def group_of(mesh, axes: Sequence[str]):
     return _GROUPS[key][1]
 
 
-def all_to_all(x: torch.Tensor, mesh, axis: str, split_axis: int,
-               concat_axis: int) -> torch.Tensor:
-    """Tiled all_to_all along ``axis``: chunk r of ``split_axis`` goes to
-    rank r; the chunks received are concatenated along ``concat_axis`` in
-    rank order."""
+def _exchange(x: torch.Tensor, mesh, axis: str, split_axis: int,
+              concat_axis: int) -> torch.Tensor:
     n = _size(mesh, (axis,))
-    if n == 1:
-        return x
     if x.shape[split_axis] % n:
         raise ValueError(f"split axis of size {x.shape[split_axis]} does not "
                          f"divide over the {n} ranks of {axis!r}")
@@ -134,10 +158,7 @@ def all_to_all(x: torch.Tensor, mesh, axis: str, split_axis: int,
                      dim=concat_axis)
 
 
-def all_gather(x: torch.Tensor, mesh, axes: Sequence[str],
-               axis: int) -> torch.Tensor:
-    """Tiled all_gather over ``axes``: every rank's block concatenated
-    along ``axis`` in row-major order."""
+def _gather(x: torch.Tensor, mesh, axes: Sequence[str], axis: int) -> torch.Tensor:
     n = _size(mesh, axes)
     if n == 1:
         return x
@@ -148,8 +169,7 @@ def all_gather(x: torch.Tensor, mesh, axes: Sequence[str],
     return torch.cat(parts, dim=axis)
 
 
-def psum(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
-    """Sum over the ranks along ``axes`` (a new tensor)."""
+def _sum(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     if _size(mesh, axes) == 1:
         return x
     out = x.clone(memory_format=torch.contiguous_format)
@@ -158,22 +178,97 @@ def psum(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     return out
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_axis, concat_axis):
+        ctx.args = (mesh, axis, split_axis, concat_axis)
+        return _exchange(x, mesh, axis, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_axis, concat_axis = ctx.args
+        return _exchange(g, mesh, axis, concat_axis, split_axis), None, None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """A gather inside a body; backward: every rank's cotangent for this
+    rank's block, summed (JAX's all_gather transposes to psum_scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, axis):
+        ctx.args = (mesh, axes, axis, x.shape[axis])
+        return _gather(x, mesh, axes, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, axis, size = ctx.args
+        g = _sum(g, mesh, axes)
+        return g.narrow(axis, _index(mesh, axes) * size, size), None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return _sum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.args
+        return _sum(g, mesh, axes), None, None
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """Tiled all_to_all along ``axis``: chunk r of ``split_axis`` goes to
+    rank r; the chunks received are concatenated along ``concat_axis`` in
+    rank order.  Backward: the inverse exchange."""
+    if _size(mesh, (axis,)) == 1:
+        return x
+    return _AllToAll.apply(x, mesh, axis, split_axis, concat_axis)
+
+
+def all_gather(x: torch.Tensor, mesh, axes: Sequence[str],
+               axis: int) -> torch.Tensor:
+    """Tiled all_gather over ``axes``: every rank's block concatenated
+    along ``axis`` in row-major order.  Backward (inside a body, where
+    every rank's cotangent differs): a sum over ``axes`` of the
+    cotangent, then this rank's block."""
+    if _size(mesh, axes) == 1:
+        return x
+    return _AllGather.apply(x, mesh, tuple(axes), axis)
+
+
+def psum(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """Sum over the ranks along ``axes`` (a new tensor).  Backward: the
+    same sum of the cotangent."""
+    if _size(mesh, axes) == 1:
+        return x
+    return _Psum.apply(x, mesh, tuple(axes))
+
+
 def pmean(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
-    """Mean over the ranks along ``axes``."""
+    """Mean over the ranks along ``axes``.  Backward: psum's, over n."""
     n = _size(mesh, axes)
     return x if n == 1 else psum(x, mesh, axes) / n
 
 
-def block_of(x: torch.Tensor, mesh, spec: PartitionSpec) -> torch.Tensor:
-    """This rank's block of ``x`` under ``spec``."""
-    if len(spec) > x.ndim:
-        raise ValueError(f"spec {spec} has more entries than x has dims "
-                         f"({tuple(x.shape)})")
+def _split_dims(mesh, spec: PartitionSpec, ndim: int):
+    """(dim, axes) of every dim ``spec`` splits, checked against the mesh."""
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec} has more entries than the tensor has "
+                         f"dims ({ndim})")
+    out = []
     for dim, entry in enumerate(spec):
         axes = _axes(entry)
-        if not axes:
-            continue
-        _check_order(mesh, axes)
+        if axes:
+            _check_order(mesh, axes)
+            out.append((dim, axes))
+    return out
+
+
+def _narrow(x: torch.Tensor, mesh, splits) -> torch.Tensor:
+    for dim, axes in splits:
         n = _size(mesh, axes)
         if x.shape[dim] % n:
             raise ValueError(f"dim {dim} of size {x.shape[dim]} does not "
@@ -183,12 +278,53 @@ def block_of(x: torch.Tensor, mesh, spec: PartitionSpec) -> torch.Tensor:
     return x
 
 
+class _Block(torch.autograd.Function):
+    """An input's block; backward: the cotangent summed over the axes the
+    spec leaves out, then gathered over those it splits."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, splits):
+        ctx.args = (mesh, splits)
+        return _narrow(x, mesh, splits)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, splits = ctx.args
+        split = {a for _, axes in splits for a in axes}
+        g = _sum(g, mesh, tuple(a for a in mesh.mesh_dim_names if a not in split))
+        for dim, axes in splits:
+            g = _gather(g, mesh, axes, dim)
+        return g, None, None
+
+
+class _Unblock(torch.autograd.Function):
+    """An output put back together; backward: this rank's own block of the
+    cotangent over ``copies``, the ranks along the axes the spec leaves
+    out."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, splits, copies):
+        ctx.args = (mesh, splits, copies)
+        for dim, axes in splits:
+            x = _gather(x, mesh, axes, dim)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, splits, copies = ctx.args
+        return _narrow(g, mesh, splits) / copies, None, None, None
+
+
+def block_of(x: torch.Tensor, mesh, spec: PartitionSpec) -> torch.Tensor:
+    """This rank's block of ``x`` under ``spec``."""
+    return _Block.apply(x, mesh, _split_dims(mesh, spec, x.ndim))
+
+
 def _unblock(x: torch.Tensor, mesh, spec: PartitionSpec) -> torch.Tensor:
-    for dim, entry in enumerate(spec):
-        axes = _axes(entry)
-        if axes:
-            x = all_gather(x, mesh, axes, dim)
-    return x
+    splits = _split_dims(mesh, spec, x.ndim)
+    split = {a for _, axes in splits for a in axes}
+    copies = _size(mesh, [a for a in mesh.mesh_dim_names if a not in split])
+    return _Unblock.apply(x, mesh, splits, copies) if splits or copies > 1 else x
 
 
 def shard_map(fn: Callable, mesh, in_specs: Sequence[PartitionSpec],

@@ -17,10 +17,13 @@ is the identity here, and :func:`logical_spec` only names the placement.
 Inside a region each rank takes its block of each input by the region's
 specs and the body's collectives run on the mesh's axis groups.
 
-Parameter storage stays whole on every rank.  Placing only a rank's
-blocks (the reference's ``named_sharding`` and ``ParamSpec.struct``)
-comes with training under a mesh and the checkpoint's elastic reshard
-(ROADMAP A10c, training part), together with their readers.
+Parameter storage stays whole on every rank, in training too: every
+rank takes the whole batch, holds the whole state and computes the same
+update, and the backward through a region's collectives
+(``mesh_ops``) hands every rank the whole gradient.  A checkpoint thus
+restores onto any mesh or none.  Placing only a rank's blocks (the
+reference's ``named_sharding`` and ``ParamSpec.struct``) has one reader,
+the dry run (ROADMAP A13), and comes with it.
 
 The partition helpers serve the C²MPI collectives (scatter and elastic
 re-layout, DESIGN.md §10–11).

@@ -25,8 +25,13 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-__all__ = ["make_debug_mesh", "make_group_mesh", "make_mesh",
+__all__ = ["NAMED_MESHES", "make_debug_mesh", "make_group_mesh", "make_mesh",
            "make_production_mesh", "run_ranks"]
+
+#: the reference's named meshes: (shape, axes)
+NAMED_MESHES = {"debug": ((2, 2), ("data", "model")),
+                "single": ((16, 16), ("data", "model")),
+                "multi": ((2, 16, 16), ("pod", "data", "model"))}
 
 
 def _session_device_type() -> str:
@@ -62,12 +67,10 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
 
 def make_production_mesh(*, multi_pod: bool = False):
     """16×16 = 256 ranks one pod, or 2×16×16 = 512 across two pods."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_mesh(*NAMED_MESHES["multi" if multi_pod else "single"])
 
 
-def make_debug_mesh(shape=(2, 2), axes=("data", "model")):
+def make_debug_mesh(shape=NAMED_MESHES["debug"][0], axes=NAMED_MESHES["debug"][1]):
     """Small mesh for tests (four ranks by default)."""
     return make_mesh(shape, axes)
 

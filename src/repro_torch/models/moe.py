@@ -35,12 +35,18 @@ in one of the reference's two modes, chosen by token count:
 Expert weights enter the region split E over "expert" only.  The
 reference also splits their D over "fsdp" and all-gathers it in the body;
 here parameter storage is whole on every rank (the global view), so that
-gather would only send back bytes every rank already holds.  It returns
-with placed storage (ROADMAP A10c, training part).  The shared experts
-run outside the region on every rank.  The bodies count their calls in
-:data:`BODY_CALLS`, so a check can see that a mesh call took the mesh path:
-the context is thread-local, and a thread started elsewhere takes the
-one-device path.
+gather would only send back bytes every rank already holds (placed
+storage is ROADMAP A13's, with its only reader).  The shared experts run
+outside the region on every rank.
+
+Both bodies differentiate through ``mesh_ops``' verbs, whose backward
+rules keep the global view: the gradients under a mesh are the
+one-device path's (to rounding), on every rank; the expert weights'
+"data" sum comes from their block's backward.  The int8 dispatch is
+straight-through.  The bodies count their calls in :data:`BODY_CALLS`,
+so a check can see that a mesh call took the mesh path: the context is
+thread-local, and a thread started elsewhere takes the one-device path
+(``Model.loss_fn``'s recompute re-enters the forward's context).
 """
 from __future__ import annotations
 
@@ -240,19 +246,35 @@ def moe_expert_parallel(p: Params, x: torch.Tensor, m: MoEConfig, act: str,
 # ---------------------------------------------------------------------------
 # Mesh paths: the shard_map bodies
 # ---------------------------------------------------------------------------
-def _a2a_int8(xe, mesh, ep_axis: str, split_axis: int, concat_axis: int):
+class _Int8Exchange(torch.autograd.Function):
     """all_to_all in an int8 wire format: per-row absmax scales (float32,
     floored at 1e-12, over 127) ride along; rounding half to even, clipped
-    to ±127, dequantized to xe's type.  Halves the dispatch bytes of
-    bfloat16.  Gradients would flow through the dequantized values
-    (straight-through on the rounding)."""
-    xf = xe.float()
-    scale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-12) / 127.0
-    q = torch.round(xf / scale)
-    q = (q + (q.clamp(-127, 127) - q).detach()).to(torch.int8)
-    q = mesh_ops.all_to_all(q, mesh, ep_axis, split_axis, concat_axis)
-    scale = mesh_ops.all_to_all(scale, mesh, ep_axis, split_axis, concat_axis)
-    return (q.float() * scale).to(xe.dtype)
+    to ±127, dequantized to xe's type (the reference's bits).  Halves the
+    dispatch bytes of bfloat16.  The backward is straight-through on the
+    rounding, as the reference documents (its int8 cast cuts the gradient
+    but the scales' path: ROADMAP C): the cotangent goes back by the
+    inverse exchange in xe's type."""
+
+    @staticmethod
+    def forward(ctx, xe, mesh, ep_axis: str, split_axis: int, concat_axis: int):
+        ctx.args = (mesh, ep_axis, split_axis, concat_axis)
+        xf = xe.float()
+        scale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-12) / 127.0
+        q = torch.round(xf / scale).clamp(-127, 127).to(torch.int8)
+        q = mesh_ops.all_to_all(q, mesh, ep_axis, split_axis, concat_axis)
+        scale = mesh_ops.all_to_all(scale, mesh, ep_axis, split_axis, concat_axis)
+        return (q.float() * scale).to(xe.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, ep_axis, split_axis, concat_axis = ctx.args
+        return (mesh_ops.all_to_all(g, mesh, ep_axis, concat_axis, split_axis),
+                None, None, None, None)
+
+
+def _a2a_int8(xe, mesh, ep_axis: str, split_axis: int, concat_axis: int):
+    """:class:`_Int8Exchange`: the int8 dispatch, straight-through."""
+    return _Int8Exchange.apply(xe, mesh, ep_axis, split_axis, concat_axis)
 
 
 def _moe_a2a_body(x2, router_w, wg, wu, wd, *, m: MoEConfig, act: str, mesh,

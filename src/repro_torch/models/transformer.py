@@ -28,6 +28,7 @@ cross-entropy plus MoE's router aux loss, which serving drops.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -38,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, AttnConfig, BlockSpec, Stage
 from ..core.compute_object import from_numpy
-from ..distributed.sharding import ParamSpec, current_context, shard
+from ..distributed.sharding import ParamSpec, current_context, mesh_context, shard
 from .attention import attn_param_specs, gqa_forward, mla_forward
 from .layers import embed_tokens, ffn, logits_from_hidden, rms_norm, softmax_xent
 from .moe import moe_layer, moe_param_specs
@@ -280,16 +281,22 @@ def _run_stage(st: Stage, sp, x, *, cfg, positions, shared_params=None,
     drop MoE's aux (0.0).  Train sums it, keeps no cache and recomputes
     each repeat in the backward
     (``torch.utils.checkpoint``, the reference's per-layer
-    ``jax.checkpoint``), so only the repeats' inputs stay saved."""
+    ``jax.checkpoint``), so only the repeats' inputs stay saved.  The
+    recompute runs under the mesh context the forward ran under, whatever
+    thread runs the backward (on the card, autograd's device thread)."""
     fresh: List[List[tuple]] = [[] for _ in st.pattern]
     layers = [_per_repeat(sp[j], st.repeats) for j in range(len(st.pattern))]
     aux = 0.0
+    ctx = current_context()
+
+    def recompute():
+        return contextlib.nullcontext(), mesh_context(ctx.mesh, ctx.rules)
     for r in range(st.repeats):
         x = shard(x, "batch", "seq_act", None)
         if mode == "train":
             x, a = checkpoint(_train_body, st.pattern, [lp[r] for lp in layers], x,
                               cfg, positions, shared_params, use_reentrant=False,
-                              preserve_rng_state=False)
+                              preserve_rng_state=False, context_fn=recompute)
             aux = aux + a
             continue
         for j, spec in enumerate(st.pattern):

@@ -44,29 +44,34 @@ def adamw_update(params: PyTree, grads: PyTree, state: AdamWState, *,
     """Returns (new_params, new_state, {"grad_norm"})."""
     with torch.no_grad():
         gnorm = global_norm(grads)
-        flat_g = tree_leaves(grads)
+        scale = None
         if clip_norm is not None:
             scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-            # bfloat16 × a float32 scale is float32 in the reference (JAX
-            # promotes); torch would keep bfloat16 beside a 0-d tensor
-            flat_g = [g.to(torch.float32) * scale for g in flat_g]
         step = state.step + 1
         b1c = 1.0 - b1 ** step.to(torch.float32)
         b2c = 1.0 - b2 ** step.to(torch.float32)
         lr = torch.as_tensor(lr, dtype=torch.float32)
 
         def upd(p, g, m, v):
+            # the clip, a leaf at a time: bfloat16 × a float32 scale is
+            # float32 in the reference (JAX promotes); torch would keep
+            # bfloat16 beside a 0-d tensor.  The float32 temporaries of one
+            # leaf are alive at a time, and those of its last ops are
+            # updated in place (the same values): at full width the
+            # largest leaf's are GBs
             g = g.to(torch.float32)
+            if scale is not None:
+                g = g * scale
             m = b1 * m + (1 - b1) * g
             v = b2 * v + (1 - b2) * g * g
-            mhat = m / b1c
-            vhat = v / b2c
-            delta = mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.to(torch.float32)
+            del g
+            delta = (m / b1c).div_((v / b2c).sqrt_().add_(eps))
+            delta.add_(weight_decay * p.to(torch.float32))
             return (p.to(torch.float32) - lr * delta).to(p.dtype), m, v
 
         flat_p, spec = tree_flatten(params)
         out = [upd(p, g, m, v) for p, g, m, v in
-               zip(flat_p, flat_g, tree_leaves(state.mu), tree_leaves(state.nu))]
+               zip(flat_p, tree_leaves(grads), tree_leaves(state.mu), tree_leaves(state.nu))]
         new_p = tree_unflatten(spec, [o[0] for o in out])
         new_m = tree_unflatten(spec, [o[1] for o in out])
         new_v = tree_unflatten(spec, [o[2] for o in out])

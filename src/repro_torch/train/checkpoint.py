@@ -15,14 +15,22 @@ Leaves are written in ``jax.tree``'s order (``core.tree``), one
 such a leaf is stored as its uint16 bit pattern, and meta.json records
 every leaf's dtype.  The trainer's comm mode saves the same
 ``TrainState`` leaves as the single-device trainer (``Trainer._comm_state``),
-so a checkpoint of either mode restores into the other.  Restoring onto
-another mesh (the reference's elastic reshard) comes with training under a
-mesh (ROADMAP A10c, training part); the meshes themselves serve already
-(``repro_torch.launch.mesh``).
+so a checkpoint of either mode restores into the other.
+
+Under a mesh (``distributed.sharding.mesh_context`` with a process group)
+every rank holds the whole state (the global view), so rank 0 alone
+writes: the other ranks' saves write nothing, and no two ranks ever touch
+one ``.tmp-<step>``.  A waited save ends at a barrier of every rank, and
+a restore starts at one (rank 0 first finishes its save in flight) and
+ends at another, so no rank reads a checkpoint before it is whole or
+while another is being written.  Leaves are whole, so a checkpoint
+restores onto any mesh or none (the reference's elastic reshard, in the
+global view).
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import logging
@@ -34,8 +42,10 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.tree import tree_flatten, tree_unflatten
+from ..distributed.sharding import current_context
 
 log = logging.getLogger("repro_torch.ckpt")
 PyTree = Any
@@ -48,6 +58,13 @@ def _host(t) -> Tuple[np.ndarray, str]:
     if t.dtype == torch.bfloat16:
         return t.view(torch.uint16).numpy().copy(), name
     return t.numpy().copy(), name
+
+
+def _mesh_rank() -> Optional[int]:
+    """This process's rank under a mesh with a process group, else None."""
+    if current_context().mesh is None or not dist.is_initialized():
+        return None
+    return dist.get_rank()
 
 
 def _tensor(arr: np.ndarray, dtype_name: str, like) -> torch.Tensor:
@@ -70,12 +87,18 @@ class CheckpointManager:
 
     # -- save -----------------------------------------------------------------
     def save(self, step: int, state: PyTree, wait: bool = False) -> None:
-        leaves, _ = tree_flatten(state)
-        host = [_host(x) for x in leaves]
-        self.wait()                         # one in flight at a time
-        self._pending = self._pool.submit(self._write, step, host)
-        if wait:
-            self.wait()
+        """Write ``state`` as ``step`` (rank 0 alone under a mesh); with
+        ``wait``, return once it is on disk (under a mesh, on every rank)."""
+        rank = _mesh_rank()
+        if not rank:
+            leaves, _ = tree_flatten(state)
+            host = [_host(x) for x in leaves]
+            self.wait()                     # one in flight at a time
+            self._pending = self._pool.submit(self._write, step, host)
+            if wait:
+                self.wait()
+        if wait and rank is not None:
+            dist.barrier()
 
     def _write(self, step: int, leaves) -> None:
         base = Path(self.directory)
@@ -128,9 +151,27 @@ class CheckpointManager:
                 return False
         return True
 
+    @contextlib.contextmanager
+    def _reading(self):
+        """Under a mesh: rank 0's save in flight finished and every rank
+        at a barrier before the read, and again after it."""
+        rank = _mesh_rank()
+        if rank is None:
+            yield
+            return
+        if rank == 0:
+            self.wait()
+        dist.barrier()
+        yield
+        dist.barrier()
+
     def restore(self, step: int, like: PyTree) -> PyTree:
         """The checkpoint of ``step`` as a tree shaped like ``like``, each
         leaf on ``like``'s leaf's device and in its dtype."""
+        with self._reading():
+            return self._read(step, like)
+
+    def _read(self, step: int, like: PyTree) -> PyTree:
         path = Path(self.directory) / f"step_{step:08d}"
         if not self._valid(path):
             raise IOError(f"invalid checkpoint at {path}")
@@ -144,13 +185,15 @@ class CheckpointManager:
         return tree_unflatten(spec, leaves)
 
     def restore_latest(self, like: PyTree) -> Tuple[Optional[PyTree], int]:
-        """Newest *valid* checkpoint (skipping corrupt ones), or (None, 0)."""
-        for step in reversed(self.list_steps()):
-            path = Path(self.directory) / f"step_{step:08d}"
-            if self._valid(path):
-                return self.restore(step, like), step
-            log.warning("skipping invalid checkpoint %s", path)
-        return None, 0
+        """Newest *valid* checkpoint (skipping corrupt ones), or (None, 0);
+        on every rank under a mesh."""
+        with self._reading():
+            for step in reversed(self.list_steps()):
+                path = Path(self.directory) / f"step_{step:08d}"
+                if self._valid(path):
+                    return self._read(step, like), step
+                log.warning("skipping invalid checkpoint %s", path)
+            return None, 0
 
     def wait(self):
         """Block until the save in flight is on disk; re-raise its error."""

@@ -24,6 +24,15 @@ at equal global batch, the card included, since every kernel of
 ``LM_GRAD`` repeats bit for bit there (EMBED_GRAD sums in a fixed order).
 A member's death moves ``comm.epoch`` (the comm re-binds its ranks) and
 the loop recaptures on the re-bound group (§11).
+
+**Under a mesh** (``distributed.sharding.mesh_context``, one process a
+rank: ``launch/train.py --mesh``) the step is the same code, as the
+reference's ``jax.jit`` step is under its mesh: every rank takes the whole
+batch and holds the whole state (the global view), the MoE layers run
+their ``shard_map`` bodies, and the backward through the bodies'
+collectives hands every rank the whole gradient, so every rank makes the
+same update.  Only rank 0 logs and beats the heartbeat; the checkpoint
+manager lets rank 0 alone write.
 """
 from __future__ import annotations
 
@@ -33,9 +42,11 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.utils._pytree as pytree
 
 from ..core.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from ..distributed.sharding import current_context
 from ..models.transformer import Model
 from ..optim.adamw import AdamWState, adamw_init, adamw_update
 from ..optim.compression import compress_gradients, decompress_gradients
@@ -84,6 +95,12 @@ def loss_and_grads(model: Model, params: PyTree, batch
                                     materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_unflatten(spec, grads))
+
+
+def _lead() -> bool:
+    """False on a rank other than 0 under a mesh, which logs nothing and
+    beats no heartbeat."""
+    return current_context().mesh is None or dist.get_rank() == 0
 
 
 def _donate(old: PyTree, new: PyTree) -> None:
@@ -178,8 +195,8 @@ class Trainer:
                 return restored, step
         return state, 0
 
-    def _observe_straggler(self, step: int, dt: float) -> None:
-        if self.straggler is not None and self.straggler.observe(dt):
+    def _observe_straggler(self, step: int, dt: float, lead: bool = True) -> None:
+        if self.straggler is not None and self.straggler.observe(dt) and lead:
             log.warning("step %d straggler: %.2fs vs median %.2fs (%s)",
                         step, dt, self.straggler.median(),
                         self.straggler.recommendation())
@@ -193,6 +210,7 @@ class Trainer:
         if self.comm is not None:
             return self._run_comm(state, data_fn, steps, start_step)
         step_fn = make_train_step(self.model, self.hp)
+        lead = _lead()
         history = []
         t_last = time.perf_counter()
         for step in range(start_step, start_step + steps):
@@ -203,16 +221,17 @@ class Trainer:
             state = new_state
             if self.straggler is not None:
                 float(metrics["loss"])          # the step's work, done
-            self._observe_straggler(step, time.perf_counter() - t0)
-            if self.heartbeat is not None:
+            self._observe_straggler(step, time.perf_counter() - t0, lead)
+            if self.heartbeat is not None and lead:
                 self.heartbeat.beat(step)
             if step % self.log_every == 0 or step == start_step + steps - 1:
                 dt = time.perf_counter() - t_last
                 t_last = time.perf_counter()
                 history.append((step, float(metrics["loss"])))
-                log.info("step %5d loss %.4f lr %.2e gnorm %.3f (%.2fs)",
-                         step, float(metrics["loss"]), float(metrics["lr"]),
-                         float(metrics["grad_norm"]), dt)
+                if lead:
+                    log.info("step %5d loss %.4f lr %.2e gnorm %.3f (%.2fs)",
+                             step, float(metrics["loss"]), float(metrics["lr"]),
+                             float(metrics["grad_norm"]), dt)
             if self.ckpt is not None and step and step % self.ckpt_every == 0:
                 self.ckpt.save(step, state)
         if self.ckpt is not None:
@@ -328,6 +347,7 @@ class Trainer:
 
         cg = slots = None
         cap_epoch = -1
+        lead = _lead()
         history = []
         t_last = time.perf_counter()
         for step in range(start_step, start_step + steps):
@@ -367,17 +387,18 @@ class Trainer:
             step_arr = metrics["step"]
             if self.straggler is not None:
                 float(metrics["loss"])          # the step's work, done
-            self._observe_straggler(step, time.perf_counter() - t0)
-            if self.heartbeat is not None:
+            self._observe_straggler(step, time.perf_counter() - t0, lead)
+            if self.heartbeat is not None and lead:
                 self.heartbeat.beat(step)
             if step % self.log_every == 0 or step == start_step + steps - 1:
                 dt = time.perf_counter() - t_last
                 t_last = time.perf_counter()
                 history.append((step, float(metrics["loss"])))
-                log.info("step %5d loss %.4f lr %.2e gnorm %.3f "
-                         "[%d members] (%.2fs)", step, float(metrics["loss"]),
-                         float(metrics["lr"]), float(metrics["grad_norm"]),
-                         comm.size, dt)
+                if lead:
+                    log.info("step %5d loss %.4f lr %.2e gnorm %.3f "
+                             "[%d members] (%.2fs)", step, float(metrics["loss"]),
+                             float(metrics["lr"]), float(metrics["grad_norm"]),
+                             comm.size, dt)
             if self.ckpt is not None and step and step % self.ckpt_every == 0:
                 self.ckpt.save(step, self._comm_state(pvec, mu, nu, step_arr))
         state = self._comm_state(pvec, mu, nu, step_arr)

@@ -4,9 +4,10 @@ the reference's round trip, GC, corrupt skip, atomic write and async save,
 with a bfloat16 leaf kept bit for bit through its uint16 file, leaf files
 in ``jax.tree``'s order, a TrainState restored onto its own structure, and
 the launcher going on after the checkpointed step (the reference's replays
-it: pinned).  The elastic reshard across meshes waits for the meshes
-(ROADMAP A10c); a comm-mode checkpoint's round trip through the
-single-device trainer is in test_torch_train_parallel.py.
+it: pinned).  A checkpoint written under a mesh (rank 0 alone) and
+restored on another mesh and on none is in test_torch_mesh_train.py; a
+comm-mode checkpoint's round trip through the single-device trainer is in
+test_torch_train_parallel.py.
 """
 import json
 import threading

@@ -1503,6 +1503,41 @@ def test_moe_ffn_aten_row_against_torch_row(card, cap):
     assert _normwise(got, exact) < _normwise(ref, exact) <= TOL[torch.bfloat16]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_moe_ffn_aten_row_takes_a_backward(card, dtype):
+    """ROADMAP C4: ``bmm(..., out_dtype=float32)`` has no derivative, so a
+    16-bit MoE step on the card could not take its backward.  moonshot's
+    experts (64 of 2048 → 1408) at 16 slots: the aten row's forward is
+    bit-identical to the three products taken outside autograd (the row
+    before the repair), and its gradients for xe, w_gate, w_up and w_down
+    are within the type's TOL of autograd of the torch row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.moe_ffn.ops import grouped_ffn
+    from repro_torch.kernels.moe_ffn.ref import grouped_ffn_ref
+    xe = _rnd(card, 64, 16, 2048, dtype=dtype, seed=1)
+    wg = (_rnd(card, 64, 2048, 1408, dtype=torch.float32, seed=2) / 2048 ** 0.5).to(dtype)
+    wu = (_rnd(card, 64, 2048, 1408, dtype=torch.float32, seed=3) / 2048 ** 0.5).to(dtype)
+    wd = (_rnd(card, 64, 1408, 2048, dtype=torch.float32, seed=4) / 1408 ** 0.5).to(dtype)
+    g = _rnd(card, 64, 16, 2048, dtype=dtype, seed=5)
+
+    def grads(row):
+        leaves = [t.detach().clone().requires_grad_() for t in (xe, wg, wu, wd)]
+        out = row(*leaves)
+        out.backward(g)
+        return out.detach(), [t.grad for t in leaves]
+    out, got = grads(grouped_ffn)
+    _, want = grads(grouped_ffn_ref)
+    with torch.no_grad():
+        h = torch.bmm(xe, wg, out_dtype=torch.float32)
+        u = torch.bmm(xe, wu, out_dtype=torch.float32)
+        before = torch.bmm((F.silu(h) * u).to(dtype), wd)
+    assert torch.equal(out, before)
+    for name, a, b in zip(("xe", "w_gate", "w_up", "w_down"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert _normwise(a, b) <= TOL[dtype], (name, _normwise(a, b))
+
+
 def test_moe_ffn_float32_rows_hold_a_slice_bit_for_bit(card):
     """ROADMAP C3: at moonshot's decode shapes, (64, 4, 2048) @ (64, 2048,
     1408) float32, both MOE_FFN rows over experts 16-31 alone give rows

@@ -101,6 +101,23 @@ def test_moe_ffn_aten_row_keeps_h_and_u_in_float32():
     assert err["aten"] < err["torch"]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_f32_product_backward_is_the_widened_paths(dtype):
+    """ROADMAP C4: the aten row's float32 product of 16-bit CUDA operands
+    (bmm with out_dtype, no derivative in torch) takes f32_product_vjp as
+    its backward.  Run here on the operands widened as the CPU path widens
+    them, the formula gives autograd of that path bit for bit: dx = g·wᵀ,
+    dw = xᵀ·g from the float32 cotangent, each rounded once."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(4, 8, 32, generator=g).to(dtype).requires_grad_()
+    w = (torch.randn(4, 32, 16, generator=g) / 32 ** 0.5).to(dtype).requires_grad_()
+    ct = torch.randn(4, 8, 16, generator=g)
+    torch.bmm(x.float(), w.float()).backward(ct)
+    dx, dw = t_moe_ops.f32_product_vjp(x.detach(), w.detach(), ct)
+    assert dx.dtype == dtype and dw.dtype == dtype
+    assert torch.equal(dx, x.grad) and torch.equal(dw, w.grad)
+
+
 # ---------------------------------------------------------------------------
 # (b) routing, dispatch and combine against the JAX package
 # ---------------------------------------------------------------------------

@@ -534,17 +534,18 @@ def test_launch_train_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--comm", "2"], ["--mesh", "debug"]])
-def test_launch_train_refuses_comm_and_mesh(flags):
-    """``--comm 2`` trains data-parallel over a two-member group; a mesh
-    places nothing on one card and is still refused, naming A10c."""
+def test_launch_train_refuses_comm_and_mesh(flags, capsys):
+    """``--comm 2`` trains data-parallel over a two-member group; ``--mesh
+    debug`` trains under a (2, 2) mesh of four gloo ranks on the CPU (the
+    launcher raises if a rank's history differs from rank 0's), and says
+    so.  Both run 2 steps (tests/test_torch_mesh_train.py holds the mesh
+    against the reference)."""
     argv = ["--arch", DANUBE, "--reduced", "--device", "cpu", "--steps", "2",
             "--seq-len", "16", "--batch", "2", *flags]
-    if flags[0] == "--mesh":
-        with pytest.raises(ValueError, match="A10c"):
-            t_launch.main(argv)
-        return
     hist = t_launch.main(argv)
     assert [s for s, _ in hist] == [0, 1] and all(np.isfinite(l) for _, l in hist)
+    if flags[0] == "--mesh":
+        assert "mesh debug (2, 2): 4 ranks over gloo" in capsys.readouterr().out
 
 
 def test_launch_train_default_device_refuses_a_missing_card():
