@@ -396,6 +396,30 @@ Phases (any failure exits non-zero before the result lines are printed):
    (``RESILIENCE["train_timeout"]``): DEAD, the wedged and the queued call
    replayed on the torch row, the epoch moved, the history bit-identical to
    one member's; the monitor is stopped after it.
+3l. Tuning (``phase3l``, after 3f; DESIGN.md §9; ROADMAP A5; ``TUNE``):
+   the only phase run under a TuningDB (``HALO_TUNING_DB`` is unset at the
+   start and after it).  (a) ``repro_torch.launch.tune.sweep`` over its
+   SHAPES into a temporary DB, each bucket's default and tuned µs, gain
+   and every plan's µs printed with the card; every bucket must time 1 +
+   len(variants) plans (a plan that raised on the card fails the phase);
+   (b) every plan of every bucket against its plan model, two calls
+   bit-identical (``tuned_bucket_check``); (c) with no DB every swept
+   shape dispatches with no plan merged and one launch on the default
+   route, with the swept DB with the entry's plan, the bits those of the
+   row at that plan; (d) danube at full width served (``tuned_serve``)
+   with no DB, a seeded DB (the decode k/v bucket on ``TUNE["kv_plan"]``:
+   its projections, 48 a decode pass, move from ``mmm_skinny`` to
+   ``mmm_wgmma``, launches by structure) and the swept DB, each run's
+   logits against no DB's within SERVE_TOL up to the step the served
+   tokens part (``served_logits_agree``), decode-step host ms, one step
+   alone by host clock and device time, T1; (e) the template under the
+   swept DB: EW* and SORT bit-identical to no DB, the rest within TOL,
+   launches equal; (f) a worker spawned under the seeded DB: MMM and
+   RMSNORM at seeded buckets on ``hopper@w0`` torch.equal to in-process,
+   launches equal; (g) 3c's decode chain under the swept DB with
+   ``TUNE["norm_plan"]`` seeded at its RMSNORM bucket: serial dispatch and
+   replays run every RMSNORM at that plan (a noting registry), replays
+   bit-identical to serial dispatch under the DB, launches per replay.
 4. Times at the phase-3 shapes: the median of 20 CUDA-event-timed calls of
    the kernel, its plain version and one library call, beside the least
    time the card could take (``bound_ms``).  RMSNORM and FLASH_ATTN, at the
@@ -457,6 +481,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -875,6 +900,18 @@ MESH_TRAIN = {"arch": "moonshot-v1-16b-a3b", "moe_layers": 1, "capacity_factor":
               "ranks": 2, "meshes": {"1x2": (1, 2), "2x1": (2, 1)}, "headroom_gb": 2.0,
               "timeout": 600}
 
+#: phase 3l, tuning (DESIGN.md §9; ROADMAP A5): launch.tune's sweep at
+#: ``repeats`` interleaved rounds after ``warmup`` calls a plan, its inputs
+#: from ``seed``; (d) danube served at full width, ``requests`` prompts of
+#: ``prompt_len`` tokens on ``slots`` slots, ``max_new`` tokens each, under
+#: no DB, a seeded DB (danube's decode k/v projections, ``slots`` rows,
+#: onto ``kv_plan``; RMSNORM at ``worker_rows`` rows, (f)'s, at
+#: ``norm_plan``) and the swept DB (with ``norm_plan`` seeded at phase 3c's
+#: decode chain's one-row bucket for (g)); (g) ``replays`` replays
+TUNE = {"repeats": 5, "warmup": 2, "seed": 21, "slots": 4, "requests": 2,
+        "prompt_len": 512, "max_new": 8, "worker_rows": 8, "replays": 5,
+        "kv_plan": {"route": "wgmma", "tile_n": 128}, "norm_plan": {"warps_per_row": 2}}
+
 TIMED_RUNS = 20
 E2E_REPEATS = 5
 PIN = {"allowed_platforms": ["hopper"]}
@@ -926,11 +963,12 @@ PATH_OF = {"rmsnorm": "serve", "flash_attention_mma": "serve", "mmm_skinny": "se
 #: the data-parallel one (3f, the member-count runs), expert parallelism
 #: over device groups (3i) and under a mesh (3j, summed over its four
 #: ranks), training under a mesh (3k, summed over its ranks, meshes and
-#: steps) and phase 3's portability demo, whose launches
+#: steps), phase 3's portability demo and phase 3l's danube served under
+#: the seeded and the swept TuningDB (summed), whose launches
 #: the kernels line lists beside those of each kernel's own path
 NEW_LEG_PATHS = ("serve_paged_whole", "serve_paged_chunked", "serve_paligemma",
                  "serve_musicgen", "train", "train_comm", "expert_parallel", "mesh",
-                 "mesh_train", "portability_demo")
+                 "mesh_train", "portability_demo", "tune")
 
 
 def decode_projections(cfg):
@@ -7086,6 +7124,567 @@ def replay(model, params, prompt, toks, max_len, manifest, registry=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 3l: tuning — the launch plans swept on the card and taken through the
+# normal entry points under a TuningDB (DESIGN.md §9)
+# ---------------------------------------------------------------------------
+#: the EW aliases' ops
+EW_OPS = {"EWMM": "mul", "EWMD": "div", "EWADD": "add", "EWSUB": "sub"}
+
+
+def tuned_bucket_check(dev, alias, rec, args, plans, sms) -> int:
+    """(b): each plan of ``plans`` (``{}`` first) through the hopper row's
+    fn against its plan model, and two calls bit-identical.  EW* and SORT
+    bit-exact with their plan models, RMSNORM bit-exact with
+    ``rmsnorm_plan_ref`` under the plan, a skinny MMM within TOL of
+    ``mmm_splitk_ref`` at its split count, a wgmma one within TOL of
+    ``mmm_ref``, both within half an ulp of the float32 product
+    (``mmm_ulp_excess`` 0).  Returns the plans checked."""
+    from repro_torch.kernels.ewise.ewise import ewise_plan
+    from repro_torch.kernels.ewise.ref import OP_REFS as EW_REFS
+    from repro_torch.kernels.ewise.ref import ewise_plan_ref
+    from repro_torch.kernels.matmul.matmul import mmm_route
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.matmul.ref import mmm_ref, mmm_splitk_ref, mmm_ulp_excess
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_plan_ref
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_plan
+    from repro_torch.kernels.sorthist.ref import sort_tile_ref
+    from repro_torch.kernels.sorthist.sorthist import sort_tile_plan
+
+    for plan in plans:
+        out = rec.fn(*args, **plan)
+        again = rec.fn(*args, **plan)
+        torch.cuda.synchronize(dev)
+        label = f"{alias} {'x'.join(map(str, args[0].shape))} {plan or '(default)'}"
+        if not torch.equal(bits(out), bits(again)):
+            fail(f"(b) {label}: two calls differ")
+        if alias in EW_OPS:
+            a, b = args
+            model = ewise_plan_ref(a, b, EW_OPS[alias], ewise_plan(
+                a.numel(), a.dtype, _cuda.aligned(a, b, out), sms, **plan))
+            check_bits(f"(b) {label} vs its plan model", out, model)
+            check_bits(f"(b) {label} vs plain", out, EW_REFS[EW_OPS[alias]](a, b))
+        elif alias == "SORT":
+            x, = args
+            n = x.shape[-1]
+            check_bits(f"(b) {label} vs its plan model", out,
+                       sort_tile_ref(x, sort_tile_plan(x.numel() // n, n, sms, **plan)))
+        elif alias == "RMSNORM":
+            x, g = args
+            d = x.shape[-1]
+            check_bits(f"(b) {label} vs its plan model", out, rmsnorm_plan_ref(
+                x, g, 1e-6, rmsnorm_plan(x.numel() // d, d, x.element_size(), sms,
+                                         _cuda.aligned(x, g, out), **plan)))
+        else:
+            a, b = args
+            route = plan.get("route", mmm_route(a.dtype, a.shape[0]))
+            model = mmm_splitk_ref(a, b, splits=plan.get("splits")) if route == "skinny" \
+                else mmm_ref(a, b)
+            check_close(f"(b) {label} vs {'split-K model' if route == 'skinny' else 'plain'}",
+                        normwise(out, model), a.dtype)
+            excess = mmm_ulp_excess(out, a, b) if a.dtype != torch.float32 else 0
+            if excess:
+                fail(f"(b) {label}: {excess} elements past half an ulp of the float32 "
+                     f"product")
+        del out, again
+    return len(plans)
+
+
+def tuned_serve(dev, model, params, prompts, max_news, max_len, db_path):
+    """Danube served through ``launch.serve.run_requests`` on a fresh
+    ``halo.initialize()`` session with ``HALO_TUNING_DB`` at ``db_path``
+    (unset for None): the recorded logits and tokens, launch counts,
+    prefills and decode passes, T1 per dispatch and the median decode step
+    by the host clock; then one decode step alone, every slot past its
+    prompt, by the host clock (5 steps) and by profiler device time."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import halo
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.serve import run_requests
+    from repro_torch.serve.engine import SlotEngine, StepScheduler
+
+    if db_path is None:
+        os.environ.pop("HALO_TUNING_DB", None)
+    else:
+        os.environ["HALO_TUNING_DB"] = str(db_path)
+    session = halo.initialize()
+    try:
+        entries = len(session.scheduler.tuning)
+        engine = recording_engine()(model, params, TUNE["slots"], max_len)
+        sched = StepScheduler(engine, temperature=0.0, seed=TUNE["seed"])
+        torch.cuda.synchronize(dev)
+        _cuda.reset_launch_counts()
+        session.reset_t1()
+        results, _, wall = run_requests(sched, prompts, max_news)
+        torch.cuda.synchronize(dev)
+        launches = _cuda.launch_counts()
+        out = {"entries": entries, "results": results, "records": engine.records,
+               "launches": launches, "prefills": len(engine.prefill_s),
+               "decodes": len(engine.decode_s), "wall_s": wall,
+               "t1_us": session.t1_seconds_per_call * 1e6,
+               "decode_step_ms": statistics.median(engine.decode_s) * 1e3}
+        quarantined = session.scheduler.failed_record_keys()
+        if quarantined:
+            fail(f"(d) records were quarantined serving under {db_path}: {quarantined}")
+        del engine, sched
+        lone = SlotEngine(model, params, TUNE["slots"], max_len)
+        tok = np.array([lone.prefill_into_slot(i, prompts[i % len(prompts)], None)
+                        for i in range(TUNE["slots"])])
+        pos = np.array([len(prompts[i % len(prompts)]) for i in range(TUNE["slots"])])
+        act = np.ones(TUNE["slots"], bool)
+
+        def steps(k):
+            nonlocal tok, pos
+            for _ in range(k):
+                tok = lone.decode_step(tok, pos, act, None)
+                pos = pos + 1
+            torch.cuda.synchronize(dev)
+
+        steps(2)
+        session.reset_t1()
+        t0 = time.perf_counter()
+        steps(5)
+        out["alone_host_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+        out["alone_t1_us"] = session.t1_seconds_per_call * 1e6
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            steps(5)
+        busy = device_seconds(prof)
+        out["alone_device_ms"] = busy / 5 * 1e3 if busy > 0 else None
+        del lone
+    finally:
+        halo.finalize()
+    return out
+
+
+def served_logits_agree(what: str, prompts, base, other) -> dict:
+    """(d): each request's logits under a DB against the run with no DB, at
+    every step whose inputs are the same — up to and including the first
+    step at which the served tokens part (a bfloat16 argmax that the other
+    plan's rounding flips), after which the runs' inputs differ.  Within
+    SERVE_TOL normwise.  Returns the steps compared, the worst error and
+    the steps at which tokens parted."""
+    def by_prompt(run):
+        return {tuple(r["prompt"]): r["logits"] for r in run["records"]}
+
+    logits, base_logits = by_prompt(other), by_prompt(base)
+    worst, compared, parted = 0.0, 0, []
+    for i, p in enumerate(prompts):
+        toks, base_toks = other["results"][i], base["results"][i]
+        for j, (k, r) in enumerate(zip(logits[tuple(p)], base_logits[tuple(p)])):
+            worst = max(worst, normwise(k, r))
+            compared += 1
+            if toks[j] != base_toks[j]:
+                parted.append(j)
+                break
+    print(f"  (d) {what}: logits against the run with no DB at {compared} steps, worst "
+          f"normwise {worst:.3e} (tol {SERVE_TOL:g}); served tokens parted at steps "
+          f"{parted or 'none'}")
+    if not worst <= SERVE_TOL:
+        fail(f"(d) {what}: served logits differ from the run with no DB by {worst:.3e}")
+    return {"steps_compared": compared, "worst_err": worst, "tokens_parted_at": parted}
+
+
+def phase3l(dev, card):
+    """Tuning (DESIGN.md §9; ROADMAP A5) on the card: (a) ``launch.tune``'s
+    sweep over its SHAPES into a temporary DB, each bucket's default and
+    tuned µs and gain printed with the card, every bucket timing 1 +
+    len(variants) plans (none dropped); (b) every plan of every bucket
+    against its plan model (``tuned_bucket_check``); (c) with no DB every
+    swept shape dispatches with the wrapper's own plan (no kwargs merged,
+    one launch on the default route), with the swept DB with the entry's
+    plan; (d) danube at full width served with no DB, with a seeded entry
+    (the decode k/v projections' bucket onto the wgmma route: the skinny
+    and wgmma counters move by 2 × layers a decode pass) and with the
+    swept DB, logits against the run with no DB, decode-step host and
+    device ms and T1 beside each other; (e) the template under the swept DB
+    (EW* and SORT bit-identical to no DB, the rest within TOL); (f) a
+    worker spawned under the seeded DB: MMM and RMSNORM at seeded buckets
+    through ``hopper@w0`` torch.equal to in-process; (g) phase 3c's decode
+    chain under the swept DB (with a seeded RMSNORM plan at the chain's
+    bucket) replayed bit-identical to serial dispatch.  The DB files live
+    in a temporary directory removed at the end; ``HALO_TUNING_DB`` is
+    unset before and after.  Returns (launches of (d)'s DB runs, stats)."""
+    import shutil
+    import tempfile
+
+    from repro_torch import halo, quickstart
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import abstract_signature
+    from repro_torch.core.tuning import TuneEntry, TuningDB
+    from repro_torch.distributed.remote import spawn_worker
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.matmul.matmul import mmm_route
+    from repro_torch.launch import tune
+    from repro_torch.models import build_model
+
+    if os.environ.get("HALO_TUNING_DB"):
+        fail("HALO_TUNING_DB is set before phase 3l: every other phase runs with no DB")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tmp = Path(tempfile.mkdtemp(prefix="halo_tune_"))
+    stats, workers = {"card": card}, []
+    try:
+        # (a) the sweep
+        swept_path = tmp / "swept.json"
+        db = TuningDB(swept_path)
+        t0 = time.perf_counter()
+        results = tune.sweep(db, sorted(tune.SHAPES), repeats=TUNE["repeats"],
+                             warmup=TUNE["warmup"], verbose=False, device=dev,
+                             seed=TUNE["seed"])
+        stats["sweep_s"] = time.perf_counter() - t0
+        db.save()
+        buckets = [(alias, i, build) for alias in sorted(tune.SHAPES)
+                   for i, build in enumerate(tune.SHAPES[alias])]
+        if len(results) != len(buckets) or any(
+                r.record.alias != alias or not r.swept
+                for r, (alias, _, _) in zip(results, buckets)):
+            fail(f"(a) the sweep visited {[(r.record.alias, r.swept) for r in results]}, "
+                 f"not one swept bucket each of {[(a, i) for a, i, _ in buckets]}")
+        print(f"  (a) {len(results)} buckets swept in {stats['sweep_s']:.1f} s "
+              f"(repeats {TUNE['repeats']}, warm-up {TUNE['warmup']}) on {card}:")
+        rows, plans_checked, inputs = [], 0, []
+        for res, (alias, i, build) in zip(results, buckets):
+            args = build(dev, TUNE["seed"] + 2 * i)
+            inputs.append(args)
+            variants = res.record.variants(*args)
+            timed = [c for c, _ in res.timings]
+            if timed != [{}] + variants:
+                fail(f"(a) {res.key}: timed {timed}, not the default and every variant "
+                     f"{variants}: a variant raised on the card")
+            default_us = res.timings[0][1] * 1e6
+            row = {"key": res.key, "default_us": default_us,
+                   "tuned_us": res.entry.seconds * 1e6, "gain": res.entry.speedup,
+                   "config": res.entry.config,
+                   "timings_us": [[c, s * 1e6] for c, s in res.timings]}
+            rows.append(row)
+            print(f"    {res.key}: default {default_us:.1f} us, tuned "
+                  f"{row['tuned_us']:.1f} us, gain {row['gain']:.3f}x -> "
+                  f"{res.entry.config or '(default)'}; every plan: " + ", ".join(
+                      f"{c or 'default'} {s * 1e6:.1f}" for c, s in res.timings))
+            # (b) every plan against its plan model
+            plans_checked += tuned_bucket_check(dev, alias, res.record, args,
+                                                [{}] + variants, sms)
+        print(f"  (b) {plans_checked} plans over {len(results)} buckets against their "
+              f"plan models (EW*, SORT, RMSNORM bit-exact; MMM within TOL and half an "
+              f"ulp), two calls of each bit-identical")
+        stats["sweep"] = rows
+
+        # the seeded DB of (d) and (f), and the swept DB with the chain's plan
+        cfg = get_config(SERVE["arch"])
+        records = {res.record.alias: res.record for res in results}
+        mmm_rec, norm_rec = records["MMM"], records["RMSNORM"]
+        bf16 = torch.bfloat16
+
+        def key_of(rec, *shapes):
+            return db.key_for(rec, abstract_signature(
+                [torch.empty(s, dtype=bf16, device="meta") for s in shapes]))
+
+        kv = (cfg.d_model, cfg.stages[0].pattern[0].attn.n_kv_heads
+              * cfg.stages[0].pattern[0].attn.head_dim)
+        seeded_path = tmp / "seeded.json"
+        seeded = TuningDB(seeded_path)
+        seed_keys = {"kv": key_of(mmm_rec, (TUNE["slots"], kv[0]), kv),
+                     "norm": key_of(norm_rec, (TUNE["worker_rows"], cfg.d_model),
+                                    (cfg.d_model,))}
+        seeded.put(seed_keys["kv"], TuneEntry(config=dict(TUNE["kv_plan"]), seconds=1e-6,
+                                              default_seconds=1e-6, source="seed"))
+        seeded.put(seed_keys["norm"], TuneEntry(config=dict(TUNE["norm_plan"]),
+                                                seconds=1e-6, default_seconds=1e-6,
+                                                source="seed"))
+        seeded.save()
+        chain_key = key_of(norm_rec, (GRAPH["decode_d"],), (GRAPH["decode_d"],))
+        db.put(chain_key, TuneEntry(config=dict(TUNE["norm_plan"]), seconds=1e-6,
+                                    default_seconds=1e-6, source="seed"))
+        db.save()
+        print(f"  seeded DB: {seed_keys['kv']} -> {TUNE['kv_plan']}, {seed_keys['norm']} "
+              f"-> {TUNE['norm_plan']}; swept DB + {chain_key} -> {TUNE['norm_plan']}")
+
+        # (c) no DB: every swept shape with the wrapper's own plan; the swept
+        # DB: the entry's plan
+        pin = {"allowed_platforms": ["hopper"]}
+        for db_path in (None, swept_path):
+            if db_path is None:
+                os.environ.pop("HALO_TUNING_DB", None)
+            else:
+                os.environ["HALO_TUNING_DB"] = str(db_path)
+            session = halo.initialize()
+            try:
+                n_entries = len(session.scheduler.tuning)
+                if (db_path is None) != (n_entries == 0):
+                    fail(f"(c) the session under {db_path} holds {n_entries} entries")
+                moved = 0
+                for res, (alias, _, _), args in zip(results, buckets, inputs):
+                    merged = session._tuned_kwargs(res.record, args, {})
+                    want = {} if db_path is None else res.entry.config
+                    if merged != want:
+                        fail(f"(c) {res.key} under {db_path}: merged plan {merged}, not {want}")
+                    moved += bool(merged)
+                    torch.cuda.synchronize(dev)
+                    _cuda.reset_launch_counts()
+                    out = session.dispatch(alias, *args, overrides=pin)
+                    torch.cuda.synchronize(dev)
+                    counts = {k: v for k, v in _cuda.launch_counts().items() if v}
+                    route = merged.get("route", mmm_route(args[0].dtype, args[0].shape[0])) \
+                        if alias == "MMM" else None
+                    kname = {"MMM": f"mmm_{route}", "SORT": "sort",
+                             "RMSNORM": "rmsnorm"}.get(alias, "ewise")
+                    if counts != {kname: 1}:
+                        fail(f"(c) {res.key} under {db_path}: launches {counts}, not one "
+                             f"{kname}")
+                    if not torch.equal(bits(out), bits(res.record.fn(*args, **want))):
+                        fail(f"(c) {res.key} under {db_path}: dispatch differs from the "
+                             f"row at plan {want or '(default)'}")
+                    del out
+            finally:
+                halo.finalize()
+            print(f"  (c) {'no DB' if db_path is None else 'swept DB'}: "
+                  f"{len(results)} swept shapes dispatched on one launch each, "
+                  f"{moved} with a merged plan, bits equal to the row at "
+                  f"{'its default plan' if db_path is None else 'the entry plan'}")
+        os.environ.pop("HALO_TUNING_DB", None)
+        del inputs
+
+        # (d) danube served with no DB, the seeded DB and the swept DB
+        model = build_model(cfg)
+        gen = torch.Generator(device=dev).manual_seed(TUNE["seed"])
+        params = model.init(gen)
+        prompts = [torch.randint(0, cfg.vocab_size, (TUNE["prompt_len"],), generator=gen,
+                                 device=dev).tolist() for _ in range(TUNE["requests"])]
+        max_news = [TUNE["max_new"]] * TUNE["requests"]
+        max_len = TUNE["prompt_len"] + TUNE["max_new"] + 8
+        # warm-up, before any count
+        tuned_serve(dev, model, params, [p[:64] for p in prompts], [2] * len(prompts),
+                    max_len, None)
+        runs = {name: tuned_serve(dev, model, params, prompts, max_news, max_len, path)
+                for name, path in (("no_db", None), ("seeded", seeded_path),
+                                   ("swept", swept_path))}
+        # the decode pass's projections in the seeded bucket: k and v, 2 a
+        # layer (48 on danube: q and o, 2560 × 2560, bucket apart)
+        layers = cfg.n_layers
+        moved = sum(n_ for (k_, n_out), n_ in decode_projections(cfg).items()
+                    if key_of(mmm_rec, (TUNE["slots"], k_), (k_, n_out)) == seed_keys["kv"])
+        print(f"  (d) {moved} MMMs a decode pass lie in the seeded bucket {seed_keys['kv']}")
+        tune_launches = collections.Counter()
+        for name, r in runs.items():
+            per_decode = moved if name == "seeded" else 0
+            want = {k: 0 for k in r["launches"]}
+            want.update(mmm_wgmma=7 * layers * r["prefills"] + per_decode * r["decodes"],
+                        mmm_skinny=(7 * layers + 1) * r["decodes"] + r["prefills"]
+                        - per_decode * r["decodes"],
+                        rmsnorm=(2 * layers + 1) * (r["prefills"] + r["decodes"]),
+                        flash_attention_mma=layers * r["prefills"])
+            got = {k: v for k, v in r["launches"].items() if v}
+            print(f"  (d) {name} ({r['entries']} entries): {r['prefills']} prefills + "
+                  f"{r['decodes']} decode passes, launches {got}")
+            if name != "swept" and r["launches"] != want:
+                fail(f"(d) {name}: launches {got} != {want}: the seeded plan moved "
+                     f"{moved} k/v projections a decode pass onto the wgmma route only "
+                     f"if these agree")
+            if [len(x) for x in r["results"]] != max_news:
+                fail(f"(d) {name}: served {[len(x) for x in r['results']]} tokens")
+            if name != "no_db":
+                tune_launches.update(r["launches"])
+                r["agreement"] = served_logits_agree(name, prompts, runs["no_db"], r)
+        for name, r in runs.items():
+            print(f"  (d) {name}: decode step median {r['decode_step_ms']:.3f} ms (host "
+                  f"clock, served), alone {r['alone_host_ms']:.3f} ms host / "
+                  + (f"{r['alone_device_ms']:.3f} ms device" if r["alone_device_ms"]
+                     else "device not measured")
+                  + f"; T1 {r['t1_us']:.2f} us a dispatch served, {r['alone_t1_us']:.2f} "
+                  f"us alone; wall {r['wall_s'] * 1e3:.1f} ms on {card}")
+        stats["serve"] = {name: {k: v for k, v in r.items() if k not in ("records",
+                                                                          "results")}
+                          for name, r in runs.items()}
+        del runs, params, model
+        torch.cuda.empty_cache()
+
+        # (e) the template under the swept DB
+        jobs = quickstart.make_jobs(SIZES, dev, seed=0)
+        outs = {}
+        for db_path in (None, swept_path):
+            if db_path is None:
+                os.environ.pop("HALO_TUNING_DB", None)
+            else:
+                os.environ["HALO_TUNING_DB"] = str(db_path)
+            halo.initialize()
+            try:
+                torch.cuda.synchronize(dev)
+                _cuda.reset_launch_counts()
+                outs[db_path] = quickstart.run(jobs, overrides=PIN)
+                torch.cuda.synchronize(dev)
+                outs[db_path, "launches"] = _cuda.launch_counts()
+            finally:
+                halo.finalize()
+        os.environ.pop("HALO_TUNING_DB", None)
+        if outs[None, "launches"] != outs[swept_path, "launches"]:
+            fail(f"(e) template launches {outs[swept_path, 'launches']} under the swept DB, "
+                 f"{outs[None, 'launches']} with none")
+        worst = 0.0
+        for mode in (0, 1):
+            for alias in jobs:
+                a, b = outs[None][mode][alias], outs[swept_path][mode][alias]
+                if alias in EW_OPS or alias == "SORT":
+                    check_bits(f"(e) {alias} under the swept DB vs no DB", b, a)
+                else:
+                    err = normwise(b, a)
+                    worst = max(worst, err)
+                    check_close(f"(e) {alias} under the swept DB vs no DB", err,
+                                torch.float32)
+        print(f"  (e) template (sync + async) under the swept DB: EW* and SORT "
+              f"bit-identical to no DB, the rest within {worst:.2e} (TOL "
+              f"{TOL[torch.float32]:g}); launches equal to no DB's "
+              f"{ {k: v for k, v in outs[None, 'launches'].items() if v} }")
+        stats["template_worst"] = worst
+        del jobs, outs
+
+        # (f) one process boundary under the seeded DB
+        os.environ["HALO_TUNING_DB"] = str(seeded_path)
+        session = halo.initialize()
+        try:
+            w = spawn_worker("w0", device="cuda", timeout=MULTIPROC["hello_timeout"])
+            workers.append(w)
+            agent = w.agent("hopper").attach(session)
+            g2 = torch.Generator(device=dev).manual_seed(TUNE["seed"] + 1)
+            cases = {
+                "MMM": (torch.randn((TUNE["slots"], kv[0]), generator=g2, device=dev).to(bf16),
+                        (torch.randn(kv, generator=g2, device=dev) * kv[0] ** -0.5).to(bf16)),
+                "RMSNORM": (torch.randn((TUNE["worker_rows"], cfg.d_model), generator=g2,
+                                        device=dev).to(bf16),
+                            (torch.randn((cfg.d_model,), generator=g2, device=dev) * 0.1
+                             + 1.0).to(bf16))}
+            timeout = MULTIPROC["timeout"]
+            for alias, args in cases.items():
+                rec = mmm_rec if alias == "MMM" else norm_rec
+                plan = session._tuned_kwargs(rec, args, {})
+                want = TUNE["kv_plan"] if alias == "MMM" else TUNE["norm_plan"]
+                if plan != want:
+                    fail(f"(f) {alias}: the host merges {plan}, not the seeded {want}")
+                torch.cuda.synchronize(dev)
+                _cuda.reset_launch_counts()
+                local = session.isend(args, session.claim(alias, overrides={
+                    "allowed_platforms": ["hopper"]}), mailbox=False).result(timeout)
+                torch.cuda.synchronize(dev)
+                here = {k: v for k, v in _cuda.launch_counts().items() if v}
+                before = w.heartbeat(timeout)["launches"]
+                remote = session.isend(args, session.claim(alias, overrides={
+                    "allowed_platforms": [agent.platform]}), mailbox=False).result(timeout)
+                after = w.heartbeat(timeout)["launches"]
+                there = {k: v - before.get(k, 0) for k, v in after.items()
+                         if v - before.get(k, 0)}
+                default = rec.fn(*args)
+                torch.cuda.synchronize(dev)
+                moved_bits = not torch.equal(bits(local), bits(default))
+                print(f"  (f) {alias} {'x'.join(map(str, args[0].shape))} at its seeded "
+                      f"plan {want}: in process {here}, on {agent.platform} {there}; "
+                      f"torch.equal {torch.equal(remote, local)}; the plan moved the bits "
+                      f"off the default plan's: {moved_bits}")
+                if not torch.equal(remote, local) or there != here:
+                    fail(f"(f) {alias} on {agent.platform} differs from in-process under "
+                         f"the seeded DB ({there} vs {here})")
+                if alias == "MMM" and here != {"mmm_wgmma": 1}:
+                    fail(f"(f) the seeded MMM launched {here}, not one mmm_wgmma")
+        finally:
+            for w in workers:
+                if not w.dead:
+                    w.shutdown(timeout=60)
+                w.kill()
+                if w.proc is not None:
+                    w.proc.wait(timeout=60)
+            halo.finalize()
+            os.environ.pop("HALO_TUNING_DB", None)
+
+        # (g) phase 3c's decode chain replayed under the swept DB
+        gen3 = torch.Generator(device=dev).manual_seed(3)
+        d, chain_layers = GRAPH["decode_d"], GRAPH["decode_layers"]
+
+        def rnd(*shape, shift=0.0, scale=1.0):
+            return (torch.randn(shape, generator=gen3, device=dev) * scale + shift).to(bf16)
+
+        w_dec = {"W": [rnd(d, d, scale=d ** -0.5) for _ in range(chain_layers)],
+                 "bias": [rnd(d, scale=0.1) for _ in range(chain_layers)],
+                 "gamma": rnd(d, shift=1.0, scale=0.1), "x": rnd(d)}
+        # the hopper RMSNORM row's function notes the plan each call gets
+        norm_plans = []
+
+        def note_plan(rec):
+            if rec.alias != "RMSNORM" or rec.platform != "hopper":
+                return None
+            fn = rec.fn
+
+            def noted(*args, **kw):
+                norm_plans.append({k: v for k, v in kw.items() if k != "eps"})
+                return fn(*args, **kw)
+            return noted
+
+        serial_out, noted = {}, {}
+        for db_path in (None, swept_path):
+            if db_path is None:
+                os.environ.pop("HALO_TUNING_DB", None)
+            else:
+                os.environ["HALO_TUNING_DB"] = str(db_path)
+            halo.initialize(registry=wrapped_registry(note_plan))
+            norm_plans.clear()
+            try:
+                crs = {}
+                decode_program(lambda al, p: crs.setdefault(al, halo.claim(al, overrides=PIN)),
+                               w_dec)
+
+                def send(al, p):
+                    halo.send(p, crs[al])
+                    return halo.recv(crs[al])
+
+                serial_out[db_path] = decode_program(send, w_dec)[0]
+                noted[db_path, "serial"] = list(norm_plans)
+                if db_path is None:
+                    continue
+                with halo.graph(launch=False) as g:
+                    decode_program(lambda al, p: halo.isend(p, crs[al]), w_dec)
+                cg = g.compile()
+                if cg.stats["fused_nodes"] != 1:
+                    fail(f"(g) the decode chain compiled to {cg.stats}")
+                torch.cuda.synchronize(dev)
+                _cuda.reset_launch_counts()
+                norm_plans.clear()
+                for i in range(TUNE["replays"]):
+                    out = cg.replay(timeout=600)[0]
+                    torch.cuda.synchronize(dev)
+                    if not torch.equal(bits(out), bits(serial_out[db_path])):
+                        fail(f"(g) replay {i} under the swept DB differs from serial "
+                             f"dispatch under it")
+                counts = {k: v for k, v in _cuda.launch_counts().items() if v}
+                noted[db_path, "replay"] = list(norm_plans)
+            finally:
+                halo.finalize()
+        os.environ.pop("HALO_TUNING_DB", None)
+        want = {k: v * TUNE["replays"] for k, v in
+                {"mvm": chain_layers, "ewise": chain_layers, "rmsnorm": chain_layers}.items()}
+        plan = dict(TUNE["norm_plan"])
+        want_noted = {(None, "serial"): [{}] * chain_layers,
+                      (swept_path, "serial"): [plan] * chain_layers,
+                      (swept_path, "replay"): [plan] * chain_layers * TUNE["replays"]}
+        moved_bits = not torch.equal(bits(serial_out[None]), bits(serial_out[swept_path]))
+        print(f"  (g) decode chain ({3 * chain_layers} nodes, one call loop) under the swept "
+              f"DB: {TUNE['replays']} replays bit-identical to serial dispatch under it; "
+              f"launches {counts}; RMSNORM ran at {plan} in every serial call and every "
+              f"replayed member: {noted == want_noted}; the plan moved serial dispatch's "
+              f"bits off the run with no DB: {moved_bits}")
+        if counts != want:
+            fail(f"(g) replay launches {counts} != {want}")
+        if noted != want_noted:
+            fail(f"(g) RMSNORM's plans {noted} != {want_noted}: a member did not run at "
+                 f"the plan serial dispatch gives it")
+        stats["chain_moved_bits"] = moved_bits
+    finally:
+        os.environ.pop("HALO_TUNING_DB", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    alive = [w.name for w in workers if w.proc is None or w.proc.poll() is None]
+    if alive:
+        fail(f"(f) workers {alive} are still alive")
+    return dict(tune_launches), stats
+
+
+# ---------------------------------------------------------------------------
 # phase 4: times at the phase-3 shapes
 # ---------------------------------------------------------------------------
 #: phase 4: FLASH_ATTN on its wgmma route in the 16-bit types, causal:
@@ -8081,6 +8680,10 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     seconds = {}
+    # every phase but 3l runs with no TuningDB: the launch counts they hold
+    # the kernels to are the default plans'
+    if os.environ.pop("HALO_TUNING_DB", None):
+        print("  HALO_TUNING_DB was set: unset for the run (phase 3l sets its own)")
     print("phase 1: build")
     t0 = time.perf_counter()
     so = _cuda.build()
@@ -8195,6 +8798,12 @@ def main() -> None:
     path_launches["train_comm"], train_comm_stats = phase3f(dev)
     seconds["3f train comm"] = time.perf_counter() - t0
     print(json.dumps({"train_comm": train_comm_stats}))
+    print(f"phase 3l: tuning — the kernels' launch plans swept, checked and served "
+          f"under a TuningDB on {card}")
+    t0 = time.perf_counter()
+    path_launches["tune"], tune_stats = phase3l(dev, card)
+    seconds["3l tuning"] = time.perf_counter() - t0
+    print(json.dumps({"tuning": tune_stats}))
     # phase 3g's legs and 3f's member-death runs (3g's leg (e))
     resilience_launches.update(train_comm_stats["resilience_launches"])
     path_launches["resilience"] = dict(resilience_launches)

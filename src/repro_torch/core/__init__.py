@@ -5,6 +5,8 @@
 * :mod:`repro_torch.core.manifest`       — unified configuration file (Table I)
 * :mod:`repro_torch.core.agents`         — runtime + virtualization agents (§V)
 * :mod:`repro_torch.core.scheduler`      — cost-model scheduler
+* :mod:`repro_torch.core.tuning`         — shape-bucketed autotuning of the
+  kernels' launch plans: TuningDB + sweep driver (DESIGN.md §9)
 * :mod:`repro_torch.core.c2mpi`          — MPIX_* application interface (§IV)
 * :mod:`repro_torch.core.collective`     — collective verbs over device groups of
   virtualization agents (DESIGN.md §10)
@@ -14,9 +16,11 @@
   compiled graphs (DESIGN.md §12)
 * :mod:`repro_torch.core.portability`    — performance-portability metrics (§VI)
 
-The names below are those of ``repro.core`` that the port has; the
-reference's tuning names (ROADMAP A5) and its JAX agents (``JnpAgent``,
-``XlaAgent``, ``PallasAgent``) have no counterpart here — the port's
+The names below are those of ``repro.core`` that the port has, its
+tuning names (``TuneEntry``, ``TuneResult``, ``TuningDB``, ``autotune``,
+``config_feasible``, ``shape_bucket``, ``tuning_key``) among them; the
+reference's JAX agents (``JnpAgent``, ``XlaAgent``, ``PallasAgent``) have
+no counterpart here — the port's
 agents are ``TorchAgent``, ``AtenAgent``, ``HopperAgent`` and
 ``ShardedAgent`` (the reference's, on a ``torch.distributed`` mesh) in
 :mod:`repro_torch.core.agents`.
@@ -26,6 +30,8 @@ from .registry import (GLOBAL_REGISTRY, KernelAttributes, KernelRecord,
                        KernelRegistry, SelectionError, PLATFORM_PREFERENCE)
 from .manifest import FuncEntry, HostEntry, Manifest, default_manifest
 from .scheduler import CostModelScheduler, abstract_signature
+from .tuning import (TuneEntry, TuneResult, TuningDB, autotune,
+                     config_feasible, shape_bucket, tuning_key)
 from .agents import (AgentDeadError, AgentState, ChildRank,
                      HaloCancelledError, HaloFuture, HealthConfig,
                      HealthMonitor, RuntimeAgent, ShardedAgent,
@@ -53,6 +59,8 @@ __all__ = [
     "SelectionError", "PLATFORM_PREFERENCE",
     "FuncEntry", "HostEntry", "Manifest", "default_manifest",
     "CostModelScheduler", "abstract_signature",
+    "TuneEntry", "TuneResult", "TuningDB", "autotune", "config_feasible",
+    "shape_bucket", "tuning_key",
     "AgentDeadError", "AgentState", "ChildRank", "HaloCancelledError",
     "HaloFuture", "HealthConfig", "HealthMonitor", "RuntimeAgent",
     "ShardedAgent", "VirtualizationAgent",

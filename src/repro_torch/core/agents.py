@@ -1110,11 +1110,29 @@ class RuntimeAgent:
                 f"alias {alias!r}: no feasible record on {list(allowed)}")
         return record
 
+    def _tuned_kwargs(self, record: KernelRecord, args: Tuple,
+                      kwargs: Dict) -> Dict:
+        """Merge the TuningDB's winning launch plan for (record, args) into
+        the call kwargs (DESIGN.md §9).  Explicit caller kwargs always win;
+        records without a tuning space, schedulers without a DB and an
+        empty DB pass through untouched — the last without building a key
+        or calling ``variants()``, since this runs on every dispatch."""
+        sched = self.scheduler
+        if sched is None or record.tuning_space is None or not sched.tuning:
+            return kwargs
+        cfg = sched.tuned_config(record, args)
+        if not cfg:
+            return kwargs
+        cfg.update(kwargs)
+        return cfg
+
     def dispatch(self, alias: str, *args, overrides: Optional[Dict] = None,
                  **kwargs):
         """Direct dispatch: select, then call the record in the caller's
         thread.  No mailboxes, no buffer table and no device sync — the
-        result may still be in flight on the card.
+        result may still be in flight on the card.  A TuningDB entry for
+        the selected record merges its launch plan into the call
+        (:meth:`_tuned_kwargs`); T1 counts the merge with the selection.
 
         Inside a ``halo_graph()`` capture region the call records a DAG node
         and returns it; passing the node into later captured calls expresses
@@ -1125,6 +1143,7 @@ class RuntimeAgent:
         t0 = time.perf_counter()
         try:
             record = self._select(alias, args, overrides)
+            kwargs = self._tuned_kwargs(record, args, kwargs)
         except SelectionError:
             if overrides and overrides.get("failsafe") is not None:
                 return overrides["failsafe"](*args, **kwargs)
@@ -1135,7 +1154,12 @@ class RuntimeAgent:
 
     def _execute_on(self, agent: VirtualizationAgent, record: KernelRecord,
                     cr: Optional[ChildRank], args: Tuple, kwargs: Dict):
-        """One execution attempt on an explicit agent — no failover."""
+        """One execution attempt on an explicit agent — no failover.
+
+        Shared by the DRPC path and graph-node execution, so the TuningDB
+        merge (:meth:`_tuned_kwargs`) happens here: whichever record was
+        placed runs at its swept launch plan."""
+        kwargs = self._tuned_kwargs(record, args, kwargs)
         if cr is not None and cr.stateful:
             # snapshot under the lock: a concurrent free() may be clearing
             # the CR's buffers while this request is in flight on a worker

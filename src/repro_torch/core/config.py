@@ -14,11 +14,11 @@ Overrides are never written back into ``os.environ``.
 Only the fields with a reader in the port are kept: the liveness and
 straggler knobs (read by ``core/agents.py``'s :class:`HealthConfig` and
 :class:`RuntimeAgent`), ``autotune_cache`` (read by
-:meth:`CostModelScheduler.default`), and the wire-cache cap and worker
-knobs (read by ``distributed/remote.py`` and ``launch/worker.py``).  The
-reference's fusion and compiled-graph cache knobs wait for A9's remainder
-and ``tuning_db`` for the tuning database (A5): each comes with the module
-that reads it.  Its ``wire_cache`` switch and ``wire_cache_min`` are
+:meth:`CostModelScheduler.default`), ``tuning_db`` (read by
+:meth:`TuningDB.default`, ``core/tuning.py``), and the wire-cache cap and
+worker knobs (read by ``distributed/remote.py`` and ``launch/worker.py``).
+The reference's fusion and compiled-graph cache knobs wait for A9's
+remainder: each comes with the module that reads it.  Its ``wire_cache`` switch and ``wire_cache_min`` are
 constants of ``distributed/remote.py`` (the cache always on, its floor
 ``WIRE_CACHE_MIN``) until a second value is needed, and its
 ``worker_devices`` — XLA's host-device fan-out — has no torch counterpart.
@@ -57,6 +57,8 @@ class HaloConfig:
     # -- autotuning (DESIGN.md §9) -----------------------------------------
     #: path of the persisted scheduler latency table (None → memory only)
     autotune_cache: Optional[str] = None
+    #: path of the persisted TuningDB (None → autotune-cache sibling)
+    tuning_db: Optional[str] = None
 
     # -- multi-process workers (DESIGN.md §13) -----------------------------
     #: per-worker pinned-tensor budget in MiB
@@ -78,6 +80,7 @@ _READERS = {
     "straggler_multiple": lambda d: env_float("HALO_STRAGGLER_MULTIPLE", d),
     "straggler_min_s": lambda d: env_float("HALO_STRAGGLER_MIN", d),
     "autotune_cache": lambda d: env_path("HALO_AUTOTUNE_CACHE", d),
+    "tuning_db": lambda d: env_path("HALO_TUNING_DB", d),
     "wire_cache_mb": lambda d: env_int("HALO_WIRE_CACHE_MB", d),
     "remote_timeout": lambda d: env_float("HALO_REMOTE_TIMEOUT", d),
     "worker_timeout": lambda d: env_float("HALO_WORKER_TIMEOUT", d),

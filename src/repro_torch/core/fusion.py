@@ -12,6 +12,11 @@ port of ``repro.core.fusion``.
   execution: the call loops run the members' own launches, and the chain
   kernel rounds as each EW launch does, so the reference's
   ``HALO_FUSION_CONTRACT`` choice between the two has no counterpart here.
+  A call loop passes each member the launch plan serial dispatch would
+  give it — its captured kwargs merged with the TuningDB's entry for the
+  member's record at the member's shapes, resolved when the chain is
+  compiled — so the loop stays bit-identical to serial dispatch under a
+  DB (the reference's loop calls its members at their default plans).
   Fused records estimate as the sum of their members' estimates until
   measured.
 * **Buffer planning** — chain intermediates never become node payloads;
@@ -380,27 +385,62 @@ def _loop_supports(registry, members: Sequence[MemberSpec],
     return supports
 
 
-def _fused_alias(members: Sequence[MemberSpec], donate: Sequence[int]) -> str:
-    """``FUSED:A+B+…@hash``."""
+def _member_configs(session: RuntimeAgent, chain: List[Any],
+                    members: Sequence[MemberSpec], table: Dict[int, Any]
+                    ) -> Dict[str, Tuple[Dict[str, Any], ...]]:
+    """Platform → each member's call kwargs in that platform's call loop:
+    its captured kwargs merged with the launch plan serial dispatch would
+    give the member's record at the member's shapes
+    (:meth:`RuntimeAgent._tuned_kwargs`), resolved now, when the chain is
+    compiled."""
+    out: Dict[str, Tuple[Dict[str, Any], ...]] = {}
+    for platform in ("aten", "hopper"):
+        cfgs = []
+        for node, m in zip(chain, members):
+            rec = _member_record(session.registry, m.alias, platform)
+            try:
+                args = _abstract_args(node, table)[0]
+            except _Unknown:
+                cfgs.append(dict(m.kwargs))
+                continue
+            cfgs.append(dict(session._tuned_kwargs(rec, args, dict(m.kwargs))))
+        out[platform] = tuple(cfgs)
+    return out
+
+
+def _fused_alias(members: Sequence[MemberSpec], donate: Sequence[int],
+                 configs: Optional[Dict[str, Tuple[Dict[str, Any], ...]]] = None
+                 ) -> str:
+    """``FUSED:A+B+…@hash``; member configs that differ from the captured
+    kwargs (a TuningDB's plans) key a record of their own."""
     desc = "+".join(m.alias for m in members)
     spec = repr([(m.alias, m.argmap, sorted(m.kwargs.items()))
                  for m in members]) + repr(sorted(donate))
+    captured = [m.kwargs for m in members]
+    tuned = sorted((p, [sorted(c.items()) for c in cfgs])
+                   for p, cfgs in (configs or {}).items()
+                   if list(cfgs) != captured)
+    if tuned:
+        spec += repr(tuned)
     return f"FUSED:{desc}@{hashlib.sha1(spec.encode()).hexdigest()[:8]}"
 
 
 def _ensure_fused_records(session: RuntimeAgent, alias: str,
                           members: Sequence[MemberSpec], n_inputs: int,
                           ew_steps: Optional[Tuple],
-                          donate: Sequence[int]) -> List[KernelRecord]:
+                          donate: Sequence[int],
+                          configs: Optional[Dict[str, Tuple]] = None
+                          ) -> List[KernelRecord]:
     """Register (idempotently) the synthetic records for one fused alias.
 
     ``aten`` (10): a call loop over the members' aten records (the
     reference's single-jit composition has no counterpart here).
     ``hopper`` (20): a pure element-wise chain is the chain kernel
     (``csrc/fused.cu``, one launch); a mixed chain is a call loop over the
-    members' hopper records, when every member has one.  No fail-safe row:
-    an exhausted fused node decomposes back to its members, which *is* the
-    fail-safe."""
+    members' hopper records, when every member has one.  A call loop calls
+    each member with ``configs[platform]`` (:func:`_member_configs`), else
+    its captured kwargs.  No fail-safe row: an exhausted fused node
+    decomposes back to its members, which *is* the fail-safe."""
     registry = session.registry
     existing = registry.records(alias)
     if existing:
@@ -410,11 +450,12 @@ def _ensure_fused_records(session: RuntimeAgent, alias: str,
     cost = _sum_of_parts_cost(session, members)
     argmaps = [tuple(ACC if s == CHAIN else s for s in m.argmap)
                for m in members]
+    configs = configs or {}
     kwargs_list = [dict(m.kwargs) for m in members]
     aten_recs = [_member_record(registry, m.alias, "aten") for m in members]
     out = [registry.register(KernelRecord(
         alias=alias, fn=make_composed([r.fn for r in aten_recs], argmaps,
-                                      kwargs_list),
+                                      configs.get("aten", kwargs_list)),
         platform="aten", attrs=KernelAttributes(sw_fid=f"fid:{alias.lower()}"),
         priority=10, cost_model=cost,
         doc=f"composition loop over {len(members)} chained aten kernels"))]
@@ -433,7 +474,7 @@ def _ensure_fused_records(session: RuntimeAgent, alias: str,
     if all(r.platform == "hopper" for r in hop_recs):
         out.append(registry.register(KernelRecord(
             alias=alias, fn=make_composed([r.fn for r in hop_recs], argmaps,
-                                          kwargs_list),
+                                          configs.get("hopper", kwargs_list)),
             platform="hopper",
             attrs=KernelAttributes(sw_fid=f"fid:{alias.lower()}:hopper", **hw),
             priority=20, supports=_loop_supports(registry, members, hop_recs),
@@ -589,12 +630,15 @@ def _callable_uid(fn: Callable) -> int:
 
 def _graph_key(g, fuse: bool, slot_idx: Dict[int, int]) -> str:
     """Cache key: topology + shapes/dtypes/devices + kwargs/overrides + the
-    fusion switch + placement epoch.  A quarantine change (scheduler epoch)
-    invalidates every compiled plan, so stale pinned placements are never
-    replayed."""
+    fusion switch + placement epoch + TuningDB generation.  A quarantine
+    change (scheduler epoch) invalidates every compiled plan, so stale
+    pinned placements are never replayed; so does a change of the DB, whose
+    plans the call loops hold."""
     sched = g.session.scheduler
+    tuning = sched.tuning if sched is not None else None
     h = hashlib.sha1()
-    h.update(f"fuse={int(fuse)};epoch={sched.epoch if sched else 0}".encode())
+    h.update(f"fuse={int(fuse)};epoch={sched.epoch if sched else 0};"
+             f"tuning={tuning.generation if tuning is not None else 0}".encode())
     for node in g.nodes:
         # stateless CRs key by presence only (re-claiming the same alias
         # between steps still hits); stateful CRs key by uid
@@ -902,9 +946,10 @@ def compile_graph(g, fuse: bool = True) -> CompiledGraph:
                       if isinstance(e, HaloFuture)
                       and all(id(c) in chain_ids for c in e.children)]
             planned_donations += len(donate)
-            alias = _fused_alias(members, donate)
+            configs = _member_configs(session, chain, members, table)
+            alias = _fused_alias(members, donate, configs)
             _ensure_fused_records(session, alias, members, len(payload),
-                                  ew_steps, donate)
+                                  ew_steps, donate, configs)
             fused_aliases.append(alias)
             t = NodeTemplate(
                 alias=alias,

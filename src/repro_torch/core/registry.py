@@ -20,7 +20,7 @@ import dataclasses
 import itertools
 import logging
 import threading
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 log = logging.getLogger("repro_torch.halo.registry")
 
@@ -82,6 +82,11 @@ class KernelRecord:
     cost_model: Optional[Callable[..., float]] = None  # est. seconds for args
     is_failsafe: bool = False        # reference oracle for the alias
     doc: str = ""
+    # Tunable-configuration axis (DESIGN.md §9): maps the call's args to a
+    # list of launch-plan dicts the autotuner may sweep, a function of the
+    # args' shapes and types alone.  A record that declares a space
+    # promises that ``fn`` takes every dict's keys as keyword arguments.
+    tuning_space: Optional[Callable[..., List[Dict[str, Any]]]] = None
     uid: int = dataclasses.field(default_factory=_record_uids.__next__)
 
     def feasible(self, *args, **kwargs) -> bool:
@@ -94,6 +99,20 @@ class KernelRecord:
             log.debug("supports() raised for %s/%s; treating as infeasible",
                       self.alias, self.platform, exc_info=True)
             return False
+
+    def variants(self, *args, **kwargs) -> List[Dict[str, Any]]:
+        """Feasible tuning-space configs for these args ([] when untunable).
+
+        A raising space is treated as empty — tuning is advisory and must
+        never break dispatch."""
+        if self.tuning_space is None:
+            return []
+        try:
+            return list(self.tuning_space(*args, **kwargs))
+        except Exception:  # noqa: BLE001 — same contract as supports()
+            log.debug("tuning_space raised for %s/%s; treating as empty",
+                      self.alias, self.platform, exc_info=True)
+            return []
 
 
 def clone_record(record: KernelRecord, **changes) -> KernelRecord:
@@ -136,14 +155,15 @@ class KernelRegistry:
     def register_fn(self, alias: str, platform: str, *, priority: int = 0,
                     attrs: Optional[KernelAttributes] = None,
                     supports=None, cost_model=None, is_failsafe: bool = False,
-                    doc: str = ""):
+                    tuning_space=None, doc: str = ""):
         """Decorator form: ``@registry.register_fn("MMM", "hopper")``."""
         def deco(fn):
             self.register(KernelRecord(
                 alias=alias, fn=fn, platform=platform,
                 attrs=attrs or KernelAttributes(sw_fid=alias),
                 priority=priority, supports=supports, cost_model=cost_model,
-                is_failsafe=is_failsafe, doc=doc or (fn.__doc__ or "")))
+                is_failsafe=is_failsafe, tuning_space=tuning_space,
+                doc=doc or (fn.__doc__ or "")))
             return fn
         return deco
 

@@ -11,15 +11,18 @@ The first observation per key is discarded as warmup (it includes the
 kernel build).  The table persists as a small JSON file when
 ``HALO_AUTOTUNE_CACHE`` (or an explicit path) is set.
 
-An estimate is the measured EMA, else the record's analytic
-``cost_model`` (fused graph records sum their members' estimates).  Records
-with no estimate are left to the static selection order.  A record whose
-execution raised is quarantined (:meth:`mark_failed`) until
-:meth:`clear_failures`; :attr:`epoch` moves with every change of the
-quarantined set.  :meth:`place` scores graph nodes (DESIGN.md §8) and
-:meth:`rank_platforms` orders a device group's members for its combines
-(§10).  The reference's TuningDB rung and ``backup_candidate`` are not
-ported yet.
+An estimate is, best first (DESIGN.md §9): a feasible
+:class:`~repro_torch.core.tuning.TuningDB` sweep result for the record's
+``platform|alias|shape-bucket|dtype`` (rung 1, which also supplies the
+launch plan the runtime agent merges into the call, :meth:`tuned_config`),
+the measured EMA, else the record's analytic ``cost_model`` (fused graph
+records sum their members' estimates).  Records with no estimate are left
+to the static selection order.  A record whose execution raised is
+quarantined (:meth:`mark_failed`) until :meth:`clear_failures`;
+:attr:`epoch` moves with every change of the quarantined set.
+:meth:`place` scores graph nodes (DESIGN.md §8), :meth:`rank_platforms`
+orders a device group's members for its combines (§10) and
+:meth:`backup_candidate` picks a straggler's backup (§11).
 """
 from __future__ import annotations
 
@@ -85,10 +88,15 @@ class CostModelScheduler:
 
     def __init__(self, cache_path: Optional[os.PathLike] = None,
                  explore_every: Optional[int] = None,
-                 explore_offset: int = 0):
+                 explore_offset: int = 0,
+                 tuning_db=None):
         """``explore_every``/``explore_offset`` inject the exploration
         policy: every Nth :meth:`choose` per key explores, starting the
-        per-key counter at ``offset`` (0/None disables exploration)."""
+        per-key counter at ``offset`` (0/None disables exploration).
+        ``tuning_db`` wires a :class:`~repro_torch.core.tuning.TuningDB`
+        (rung 1): None builds an empty in-memory DB, ``False`` disables
+        tuned-config consultation entirely."""
+        from .tuning import TuningDB       # deferred: tuning imports us
         self._lock = threading.Lock()
         # key -> [n_observations, ema_seconds]; n counts *kept* samples
         self._measured: Dict[str, List[float]] = {}
@@ -101,15 +109,23 @@ class CostModelScheduler:
         if explore_every is not None:
             self.explore_every = explore_every or None
         self.explore_offset = explore_offset
+        # an empty TuningDB is falsy (len 0): test identity, not truth
+        if tuning_db is None:
+            tuning_db = TuningDB()
+        self.tuning = tuning_db if tuning_db is not False else None
         self.cache_path = Path(cache_path) if cache_path else None
         if self.cache_path is not None and self.cache_path.exists():
             self.load(self.cache_path)
 
     @classmethod
     def default(cls) -> "CostModelScheduler":
-        """Process-default scheduler: persistent iff ``autotune_cache`` is
-        set (``HALO_AUTOTUNE_CACHE`` or ``halo.configure``)."""
-        return cls(cache_path=halo_config().autotune_cache)
+        """Process-default scheduler: EMA table persistent iff
+        ``autotune_cache`` is set (``HALO_AUTOTUNE_CACHE`` or
+        ``halo.configure``); tuning DB from ``HALO_TUNING_DB`` (or the
+        cache path's ``.tuning.json`` sibling, else memory)."""
+        from .tuning import TuningDB       # deferred: tuning imports us
+        return cls(cache_path=halo_config().autotune_cache,
+                   tuning_db=TuningDB.default())
 
     # -- measurement feedback ------------------------------------------------
     def observe(self, record: KernelRecord, sig: SigType,
@@ -202,8 +218,18 @@ class CostModelScheduler:
     # -- selection -----------------------------------------------------------
     def estimate(self, record: KernelRecord, sig: SigType,
                  args: Sequence[Any]) -> Optional[float]:
-        """Best available latency estimate for one record, or None: the
-        measured EMA, then the record's analytic cost model."""
+        """Best available latency estimate for one record, or None: a
+        feasible TuningDB sweep result, then the measured EMA, then the
+        record's analytic cost model."""
+        if self.tuning is not None:
+            try:
+                est = self.tuning.tuned_seconds(record, sig, args)
+            except Exception:              # advisory data must never break
+                log.debug("tuning lookup raised for %s/%s", record.alias,
+                          record.platform, exc_info=True)
+                est = None
+            if est is not None:
+                return est
         est = self.measured(record, sig)
         if est is not None:
             return est
@@ -214,6 +240,25 @@ class CostModelScheduler:
                 log.debug("cost_model raised for %s/%s", record.alias,
                           record.platform, exc_info=True)
         return None
+
+    def tuned_config(self, record: KernelRecord, args: Sequence[Any],
+                     sig: Optional[SigType] = None
+                     ) -> Optional[Dict[str, Any]]:
+        """The TuningDB's winning launch plan for (record, args-bucket): a
+        fresh dict of config kwargs, or None when no DB is wired, no entry
+        exists, the default config won the sweep, or the stored config is
+        no longer a feasible variant for these args (a stale entry falls
+        through)."""
+        if self.tuning is None:
+            return None
+        try:
+            return self.tuning.tuned_config_for(
+                record, sig if sig is not None else abstract_signature(args),
+                args)
+        except Exception:                  # advisory data must never break
+            log.debug("tuned_config raised for %s/%s", record.alias,
+                      record.platform, exc_info=True)
+            return None
 
     def choose(self, alias: str, candidates: Sequence[KernelRecord],
                args: Sequence[Any], explore: bool = False

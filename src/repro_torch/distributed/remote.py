@@ -887,7 +887,8 @@ def spawn_worker(name: str = "w0",
     the given substrates.  The reference's ``devices`` (XLA's host-device
     fan-out) has no torch counterpart and is not taken.  The parent's
     environment is inherited — so ``HALO_AUTOTUNE_CACHE`` gives workers the
-    host's warm-start table — with transport details overridden by ``env``.
+    host's warm-start table and ``HALO_TUNING_DB`` its tuned launch plans —
+    with transport details overridden by ``env``.
     Blocks until the worker's hello frame (default budget
     ``HALO_WORKER_TIMEOUT``, 120 s: a worker on the card builds or loads
     the kernel library before it answers)."""

@@ -11,7 +11,8 @@ Each subpackage ships three artifacts per kernel:
 
 :func:`register_all` publishes three rows per alias with Table-II
 attributes — ``torch`` (oracle, priority 0, fail-safe), ``aten`` (library,
-10) and ``hopper`` (kernel, 20; none for SSD, SSD_DECODE, GQA_DECODE and
+10) and ``hopper`` (kernel, 20; MMM's, EW*'s, RMSNORM's and SORT's with a
+tuning space over their launch plans; none for SSD, SSD_DECODE, GQA_DECODE and
 MOE_FFN, which have no Pallas site; EMBED_GRAD, the embedding's backward,
 has no Pallas site either but keeps a kernel, for its fixed sum order;
 LM_GRAD and ADAMW_STEP share one callable on all three) — so the runtime
@@ -30,12 +31,13 @@ _HOPPER_ATTRS = dict(vid="nvidia", pid="h100")
 _ANY_ATTRS = dict(vid="*", pid="*")
 
 
-def _rec(alias, fn, platform, prio, *, failsafe=False, supports=None, doc=""):
+def _rec(alias, fn, platform, prio, *, failsafe=False, supports=None,
+         space=None, doc=""):
     hw = _HOPPER_ATTRS if platform == "hopper" else _ANY_ATTRS
     return KernelRecord(
         alias=alias, fn=fn, platform=platform, priority=prio,
         attrs=KernelAttributes(sw_fid=f"fid:{alias.lower()}", **hw),
-        supports=supports, is_failsafe=failsafe, doc=doc)
+        supports=supports, is_failsafe=failsafe, tuning_space=space, doc=doc)
 
 
 def register_all(registry=None) -> None:
@@ -53,6 +55,7 @@ def register_all(registry=None) -> None:
     from .conv1d.ref import conv1d_aten
     from .ewise import (ewadd, ewadd_ref, ewmd, ewmd_ref, ewmm, ewmm_ref,
                         ewsub, ewsub_ref)
+    from .ewise.ewise import ewise_space
     from .ewise.ops import ewise_supported
     from .ewise.ref import ewadd_aten, ewmd_aten, ewmm_aten, ewsub_aten
     from .fft import fft, fft_ref
@@ -65,6 +68,7 @@ def register_all(registry=None) -> None:
     from .jacobi.ops import jacobi_supported
     from .jacobi.ref import jacobi_step_aten
     from .matmul import mmm, mmm_ref
+    from .matmul.matmul import mmm_space
     from .matmul.ops import mmm_supported
     from .matmul.ref import mmm_aten
     from .mvm import mvm, mvm_ref
@@ -72,9 +76,11 @@ def register_all(registry=None) -> None:
     from .mvm.ref import mvm_aten
     from .rmsnorm import rmsnorm, rmsnorm_ref
     from .rmsnorm.ops import rmsnorm_supported
+    from .rmsnorm.rmsnorm import rmsnorm_space
     from .rmsnorm.ref import rmsnorm_aten
     from .sorthist import hist, hist_ref, sort, sort_ref
     from .sorthist.ops import hist_supported, sort_supported
+    from .sorthist.sorthist import sort_space
     from .sorthist.ref import hist_aten, sort_aten
     from .spmm import smmm
     from .spmm.ops import smmm_supported
@@ -112,10 +118,16 @@ def register_all(registry=None) -> None:
         ("EMBED_GRAD", embed_grad_ref, embed_grad_aten, embed_grad,
          embed_grad_supported),
     ]
+    # the hopper rows whose kernels take their launch plan at run time
+    # declare a tuning space (DESIGN.md §9); the torch and aten rows never do
+    spaces = {"MMM": mmm_space, "EWMM": ewise_space, "EWMD": ewise_space,
+              "EWADD": ewise_space, "EWSUB": ewise_space,
+              "RMSNORM": rmsnorm_space, "SORT": sort_space}
     for alias, ref_fn, aten_fn, hopper_fn, ok in table:
         registry.register(_rec(alias, ref_fn, "torch", 0, failsafe=True))
         registry.register(_rec(alias, aten_fn, "aten", 10))
-        registry.register(_rec(alias, hopper_fn, "hopper", 20, supports=ok))
+        registry.register(_rec(alias, hopper_fn, "hopper", 20, supports=ok,
+                               space=spaces.get(alias)))
 
     # Sequence-model aliases with no Pallas site in the reference, so no
     # hopper row: SSD's scan is the fail-safe and its chunked form (batched

@@ -6,11 +6,13 @@ Replaces ``repro/kernels/ewise/ewise.py::ewise_pallas``.  One kernel per
 16-byte vectors where all three pointers are aligned and single elements
 where not, each block covers one contiguous chunk of U items a thread, and
 a thread loads all its items of a and b before it computes; the ragged
-edge is masked, so the divisor is never padded.
+edge is masked, so the divisor is never padded.  A TuningDB entry may set
+the items a thread (:func:`ewise_space`); every plan writes each element
+once with the same arithmetic, so the bits do not depend on it.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -35,13 +37,37 @@ class EwisePlan(NamedTuple):
     blocks: int
 
 
-def ewise_plan(n: int, dtype: torch.dtype, aligned: bool, sms: int) -> EwisePlan:
+def ewise_plan(n: int, dtype: torch.dtype, aligned: bool, sms: int,
+               items_per_thread: Optional[int] = None) -> EwisePlan:
     """The launch plan for n ≥ 1 elements of ``dtype``: U = 4 items a thread
-    while that still gives every one of ``sms`` SMs a block, else 1."""
+    while that still gives every one of ``sms`` SMs a block, else 1; or
+    ``items_per_thread`` where a tuned plan gives it.  ``blocks`` follows
+    from U."""
     elems = 16 // dtype.itemsize if aligned else 1
     items = n // elems
-    u = next(u for u in ITEMS if u == 1 or cdiv(items, u * THREADS) >= sms)
+    u = items_per_thread or next(
+        u for u in ITEMS if u == 1 or cdiv(items, u * THREADS) >= sms)
     return EwisePlan(elems, u, max(1, cdiv(items, u * THREADS)))
+
+
+def ewise_space(a, b, **kw) -> List[Dict[str, Any]]:
+    """The launch plans EW*'s hopper rows may be tuned over: U in
+    :data:`ITEMS` items a thread, for operands of one or more elements and
+    as many in b.  A function of the element count alone; one space serves
+    EWMM, EWMD, EWADD and EWSUB."""
+    n = getattr(a, "numel", lambda: 0)()
+    if n < 1 or getattr(b, "numel", lambda: -1)() != n:
+        return []
+    return [{"items_per_thread": u} for u in ITEMS]
+
+
+def check_plan(a, b, items_per_thread: Optional[int]) -> None:
+    """Raise unless ``items_per_thread`` is None or one of
+    :func:`ewise_space`'s."""
+    if items_per_thread is not None and \
+            {"items_per_thread": items_per_thread} not in ewise_space(a, b):
+        raise ValueError(f"EW*: {items_per_thread} items a thread is not in the "
+                         f"tuning space of {tuple(a.shape)} (one of {ITEMS})")
 
 #: op name -> the code the C entry point takes
 OPS = {"mul": 0, "div": 1, "add": 2, "sub": 3}
@@ -60,15 +86,19 @@ def ewise_problem(a, b) -> Optional[str]:
     return None
 
 
-def ewise_hopper(a: torch.Tensor, b: torch.Tensor, op: str) -> torch.Tensor:
+def ewise_hopper(a: torch.Tensor, b: torch.Tensor, op: str,
+                 items_per_thread: Optional[int] = None) -> torch.Tensor:
     """``a (op) b`` element-wise on the card, in ``a``'s shape and type,
-    under :func:`ewise_plan`."""
+    under :func:`ewise_plan` (at ``items_per_thread``, a tuned plan's U,
+    where given)."""
     _cuda.require_cuda(ewise_problem(a, b), f"EW {op}", a)
+    check_plan(a, b, items_per_thread)
     out = torch.empty_like(a)
     if out.numel() == 0:
         return out
     vec = _cuda.aligned(a, b, out)
-    plan = ewise_plan(a.numel(), a.dtype, vec, _cuda.sm_count(a.device))
+    plan = ewise_plan(a.numel(), a.dtype, vec, _cuda.sm_count(a.device),
+                      items_per_thread)
     rc = _cuda.lib().halo_ewise(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                                 a.numel(), OPS[op], _cuda.dtype_code(a.dtype), int(vec),
                                 plan.items_per_thread, plan.blocks,

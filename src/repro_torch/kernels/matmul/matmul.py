@@ -26,10 +26,15 @@ themselves (TMA zero-fills them).  A product over K = 0 is zeros and
 launches nothing.  Each route counts its own launches (``mmm_skinny``,
 ``mmm_wgmma``, ``mmm_tf32x3``; one per call, a pack or split pass and the
 product together).
+
+The route, the skinny split count and the tensor-core tile width are the
+plan's defaults; :func:`mmm_space` lists the plans a TuningDB may put in
+their place (``route``, ``splits``, ``tile_n`` keyword arguments), and
+:func:`check_plan` refuses any other.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -79,6 +84,63 @@ def wgmma_packs(k: int, n: int, a_aligned: bool, b_aligned: bool) -> Tuple[bool,
     return k % 8 != 0 or not a_aligned, n % 8 != 0 or not b_aligned
 
 
+def _bucket(d: int) -> int:
+    """``d`` rounded up to a power of two (the TuningDB's shape bucket)."""
+    return 1 if d <= 1 else 1 << (d - 1).bit_length()
+
+
+def skinny_splits_space(m: int, n: int, k: int, element_size: int) -> List[int]:
+    """Split counts the skinny route may take in place of
+    :func:`skinny_plan`'s: the count it picks at the corner of the shape
+    bucket (M, N, K rounded up to powers of two), half and double that,
+    each at most K's 32-row segments at the bucket's least K and the grid.
+    A function of the bucket alone, so every shape of one bucket has the
+    same list."""
+    bm, bn, bk = _bucket(m), _bucket(n), _bucket(k)
+    k_least = bk // 2 + 1 if bk > 1 else bk
+    cap = max(1, min(k_least // _SKINNY_MIN_SEGMENT, _MAX_GRID))
+    s0 = skinny_plan(bm, bn, bk, element_size)[0]
+    return sorted({max(1, min(s, cap)) for s in (s0 // 2, s0, 2 * s0)})
+
+
+def mmm_space(a, b, **kw) -> List[Dict[str, Any]]:
+    """The launch plans MMM's hopper row may be tuned over, a pure function
+    of the operands' shapes and type (no SM count: it means the same on
+    the CPU).  16-bit operands: at M ≤ SKINNY_M_MAX the skinny route at
+    :func:`skinny_splits_space`'s split counts and the tensor-core route
+    at either tile width, above it either tile width; float32: at M ≤
+    SKINNY_M_MAX the skinny splits and the 3×TF32 route, above it none
+    (the 3×TF32 route takes no plan).  ``{}`` — the default — is not
+    listed."""
+    shape_a, shape_b = tuple(getattr(a, "shape", ())), tuple(getattr(b, "shape", ()))
+    dtype = getattr(a, "dtype", None)
+    if len(shape_a) != 2 or len(shape_b) != 2 or shape_a[1] != shape_b[0] \
+            or getattr(b, "dtype", None) != dtype \
+            or dtype not in WGMMA_DTYPES + (torch.float32,):
+        return []
+    m, k = shape_a
+    n = shape_b[1]
+    if min(m, n, k) < 1:
+        return []
+    if m > SKINNY_M_MAX:
+        return [{"tile_n": 128}, {"tile_n": 256}] if dtype in WGMMA_DTYPES else []
+    out = [{"route": "skinny", "splits": s}
+           for s in skinny_splits_space(m, n, k, dtype.itemsize)]
+    if dtype in WGMMA_DTYPES:
+        out += [{"route": "wgmma", "tile_n": 128}, {"route": "wgmma", "tile_n": 256}]
+    else:
+        out.append({"route": "tf32x3"})
+    return out
+
+
+def check_plan(a, b, plan: Dict[str, Any]) -> None:
+    """Raise unless ``plan`` (the non-None of ``route``, ``splits``,
+    ``tile_n``) is the default ``{}`` or one of :func:`mmm_space`'s."""
+    if plan and plan not in mmm_space(a, b):
+        raise ValueError(f"MMM: plan {plan} is not in the tuning space of "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)} {a.dtype}")
+
+
 def wgmma_tile_n(m: int, n: int, sms: int) -> int:
     """Columns of the tensor-core route's output tile, 128 or 256: the width
     at which an SM computes the fewer columns, padding included, over the
@@ -89,23 +151,29 @@ def wgmma_tile_n(m: int, n: int, sms: int) -> int:
     width it picks was the faster at seven of danube's eight prefill shapes
     and 4096³; at 4200x6912 @ 6912x2560 (5 waves of 128 columns against 3
     of 256) the wide tile was 6 % faster, its products running faster per
-    column than the count assumes."""
+    column than the count assumes.  A TuningDB entry's ``tile_n``
+    (:func:`mmm_space`) overrides this rule per shape bucket."""
     def columns(bn):
         return cdiv(cdiv(m, 128) * cdiv(n, bn), sms) * bn
     return 256 if columns(256) <= columns(128) else 128
 
 
-def skinny_plan(m: int, n: int, k: int, element_size: int) -> Tuple[int, int, int]:
+def skinny_plan(m: int, n: int, k: int, element_size: int,
+                splits: Optional[int] = None) -> Tuple[int, int, int]:
     """``(splits, kb, kw)`` of the skinny kernel: K is cut into ``splits``
     block segments of ``kb`` rows (the last one shorter), each into
     :data:`SKINNY_WARPS` warp segments of ``kw`` rows.  As many splits as
     keep strips × row groups × splits within two blocks per SM (one wave:
     a few blocks past it would take a second one), but no block segment
-    under 32 rows of K."""
-    strips = cdiv(n, 32 * (16 // element_size))
-    want = _SKINNY_TARGET_BLOCKS // (strips * cdiv(m, _SKINNY_ROWS))
-    splits = max(1, min(want, k // _SKINNY_MIN_SEGMENT, _MAX_GRID))
-    kb = max(SKINNY_WARPS, round_up(cdiv(k, splits), SKINNY_WARPS))
+    under 32 rows of K.  ``splits`` — a TuningDB entry's
+    (:func:`mmm_space`) — takes the rule's place; ``kb`` and ``kw`` follow
+    from it the same way, and the count returned is the segments of ``kb``
+    rows that cover K."""
+    if splits is None:
+        strips = cdiv(n, 32 * (16 // element_size))
+        want = _SKINNY_TARGET_BLOCKS // (strips * cdiv(m, _SKINNY_ROWS))
+        splits = max(1, min(want, k // _SKINNY_MIN_SEGMENT, _MAX_GRID))
+    kb = max(SKINNY_WARPS, round_up(cdiv(k, max(1, splits)), SKINNY_WARPS))
     return max(1, cdiv(k, kb)), kb, kb // SKINNY_WARPS
 
 
@@ -153,12 +221,12 @@ def _tf32x3(a, b, out):
     return out
 
 
-def _skinny(a, b, out):
+def _skinny(a, b, out, splits=None):
     m, k = a.shape
     n = out.shape[1]
     if cdiv(m, _SKINNY_ROWS) > _MAX_GRID:
         raise ValueError(f"MMM: {m} rows exceed the skinny route's grid")
-    splits, kb, kw = skinny_plan(m, n, k, a.element_size())
+    splits, kb, kw = skinny_plan(m, n, k, a.element_size(), splits)
     ws = torch.empty((splits, m, n), dtype=torch.float32, device=a.device) \
         if splits > 1 else None
     vec = _cuda.aligned(b) and n % (16 // b.element_size()) == 0
@@ -214,8 +282,17 @@ def mmm_skinny_hopper(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _launch("skinny", a, b)
 
 
-def mmm_hopper(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def mmm_hopper(a: torch.Tensor, b: torch.Tensor, route: Optional[str] = None,
+               splits: Optional[int] = None,
+               tile_n: Optional[int] = None) -> torch.Tensor:
     """A (M,K) @ B (K,N) → (M,N) on the card, in A's type, by the route
-    :func:`mmm_route` picks for the type and row count."""
+    :func:`mmm_route` picks for the type and row count, under the plan of
+    :func:`skinny_plan` or :func:`wgmma_tile_n` — or, where ``route``,
+    ``splits`` or ``tile_n`` is given, under that plan, which must be one
+    of :func:`mmm_space`'s (:func:`check_plan`)."""
     _cuda.require_cuda(mmm_problem(a, b), "MMM", a)
-    return _launch(mmm_route(a.dtype, a.shape[0]), a, b)
+    plan = {k: v for k, v in (("route", route), ("splits", splits),
+                               ("tile_n", tile_n)) if v is not None}
+    check_plan(a, b, plan)
+    route = plan.pop("route", None) or mmm_route(a.dtype, a.shape[0])
+    return _launch(route, a, b, **plan)

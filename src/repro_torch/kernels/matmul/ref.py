@@ -104,15 +104,16 @@ def pack_ref(x, cols_p):
     return out
 
 
-def mmm_splitk_ref(a, b):
+def mmm_splitk_ref(a, b, splits=None):
     """The skinny kernel's plain version: C = A @ B summed over K in the
-    kernel's own segments (:func:`~.matmul.skinny_plan`).  Each warp
-    segment is one float32 partial product; a block sums its warps'
-    partials in warp order, the splits are summed in split order, all in
-    float32, and the result is rounded once to A's type."""
+    kernel's own segments (:func:`~.matmul.skinny_plan`, at ``splits``
+    where a tuned plan gives one).  Each warp segment is one float32
+    partial product; a block sums its warps' partials in warp order, the
+    splits are summed in split order, all in float32, and the result is
+    rounded once to A's type."""
     m, k = a.shape
     n = b.shape[1]
-    splits, kb, kw = skinny_plan(m, n, k, a.element_size())
+    splits, kb, kw = skinny_plan(m, n, k, a.element_size(), splits)
     af, bf = a.float(), b.float()
     total = None
     for s in range(splits):

@@ -4,15 +4,18 @@ from __future__ import annotations
 
 from .. import _cuda
 from .ref import hist_ref, sort_ref
-from .sorthist import hist_hopper, hist_problem, sort_hopper, sort_problem
+from .sorthist import check_plan, hist_hopper, hist_problem, sort_hopper, sort_problem
 
 
-def sort(x):
-    """Ascending sort along the last axis, in x's type, NaN last."""
+def sort(x, *, rows_per_block=None):
+    """Ascending sort along the last axis, in x's type, NaN last.
+    ``rows_per_block`` is a tuned launch plan's (:func:`~.sorthist.sort_space`);
+    on the CPU it is only checked."""
     if x.device.type == "cpu":
         _cuda.require(sort_problem(x), "SORT")
+        check_plan(x, rows_per_block)
         return sort_ref(x)
-    return sort_hopper(x)
+    return sort_hopper(x, rows_per_block)
 
 
 def hist(x, *, bins: int = 64, lo: float = 0.0, hi: float = 1.0):

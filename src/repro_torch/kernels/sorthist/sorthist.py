@@ -26,7 +26,7 @@ them as float32: the result does not depend on the atomics' order.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -95,7 +95,43 @@ class SortTilePlan(NamedTuple):
         return max(0 if self.threads_per_row <= 32 else 2 * 4 * r * p, 4 * r * (p + p // 32))
 
 
-def sort_tile_plan(rows: int, n: int, sms: int) -> SortTilePlan:
+def _tile_rows(places: int) -> Tuple[int, int, int, int]:
+    """``(E, T, r_min, r_max)`` of the tile kernel for rows of ``places``
+    (a power of two): E keys a thread, T threads a row, and the rows a
+    block may hold, at least a warp's worth, at most SORT_BLOCK / T."""
+    e = min(places, SORT_KEYS)
+    t = places // e
+    r_min = max(1, 32 // t)
+    return e, t, r_min, max(r_min, SORT_BLOCK // t)
+
+
+def sort_space(x, **kw) -> List[Dict[str, Any]]:
+    """The launch plans SORT's hopper row may be tuned over, on the tile
+    route only (rows of at most :data:`SORT_TILE` places; the radix route
+    takes no plan): R rows a block, each power of two from the least to
+    the most :func:`sort_tile_plan` would choose.  A function of
+    next_pow2(n) alone."""
+    shape = tuple(getattr(x, "shape", ()))
+    if not shape or shape[-1] < 1 or next_pow2(shape[-1]) > SORT_TILE:
+        return []
+    _, _, r_min, r_max = _tile_rows(next_pow2(shape[-1]))
+    out, r = [], r_min
+    while r <= r_max:
+        out.append({"rows_per_block": r})
+        r *= 2
+    return out
+
+
+def check_plan(x, rows_per_block: Optional[int]) -> None:
+    """Raise unless ``rows_per_block`` is None or one of :func:`sort_space`'s."""
+    if rows_per_block is not None and \
+            {"rows_per_block": rows_per_block} not in sort_space(x):
+        raise ValueError(f"SORT: {rows_per_block} rows a block is not in the "
+                         f"tuning space of rows of {x.shape[-1]} places")
+
+
+def sort_tile_plan(rows: int, n: int, sms: int,
+                   rows_per_block: Optional[int] = None) -> SortTilePlan:
     """The tile kernel's launch plan for ``rows`` rows of ``n`` places (n ≤
     :data:`SORT_TILE`), a pure function of rows, n and the SM count.  A
     thread holds E = min(next_pow2(n), :data:`SORT_KEYS`) keys, so a row of
@@ -103,16 +139,13 @@ def sort_tile_plan(rows: int, n: int, sms: int) -> SortTilePlan:
     part of one.  A block holds R rows: at least a warp's worth (32 / T),
     at most :data:`SORT_BLOCK` / T (one row where T is larger), and below
     that as few as spread the rows over ``sms`` blocks (R a power of
-    two)."""
-    places = next_pow2(n)
+    two) — or ``rows_per_block`` where a tuned plan gives it
+    (:func:`sort_space`).  ``blocks`` follows from R."""
     if not 1 <= n <= SORT_TILE:
         raise ValueError(f"SORT: the tile route takes rows of 1 to {SORT_TILE} "
                          f"places, got {n}")
-    e = min(places, SORT_KEYS)
-    t = places // e
-    r_min = max(1, 32 // t)
-    r_max = max(r_min, SORT_BLOCK // t)
-    r = min(max(next_pow2(cdiv(rows, sms)), r_min), r_max)
+    e, t, r_min, r_max = _tile_rows(next_pow2(n))
+    r = rows_per_block or min(max(next_pow2(cdiv(rows, sms)), r_min), r_max)
     return SortTilePlan(e, t, r, max(1, cdiv(rows, r)))
 
 
@@ -147,8 +180,8 @@ def hist_problem(x, bins, lo, hi) -> Optional[str]:
     return None
 
 
-def _sort_tile(x, out, rows, n):
-    plan = sort_tile_plan(rows, n, _cuda.sm_count(x.device))
+def _sort_tile(x, out, rows, n, rows_per_block=None):
+    plan = sort_tile_plan(rows, n, _cuda.sm_count(x.device), rows_per_block)
     vec = _cuda.aligned(x, out) and (n * x.element_size()) % 16 == 0
     rc = _cuda.lib().halo_sort(x.data_ptr(), out.data_ptr(), rows, n, *plan,
                                _cuda.dtype_code(x.dtype), int(vec),
@@ -169,12 +202,15 @@ def _sort_radix(x, out, rows, n):
     RADIX_LAUNCHES.add()
 
 
-def _sort(route, x):
+def _sort(route, x, rows_per_block=None):
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     n = x.shape[-1]
-    (_sort_radix if route == "radix" else _sort_tile)(x, out, x.numel() // n, n)
+    if route == "radix":
+        _sort_radix(x, out, x.numel() // n, n)
+    else:
+        _sort_tile(x, out, x.numel() // n, n, rows_per_block)
     return out
 
 
@@ -197,11 +233,13 @@ def sort_radix_hopper(x: torch.Tensor) -> torch.Tensor:
     return _sort("radix", x)
 
 
-def sort_hopper(x: torch.Tensor) -> torch.Tensor:
+def sort_hopper(x: torch.Tensor, rows_per_block: Optional[int] = None) -> torch.Tensor:
     """Ascending sort of the last axis on the card, in x's type, NaN last,
-    by the route :func:`sort_route` picks for the row length."""
+    by the route :func:`sort_route` picks for the row length (the tile
+    route at ``rows_per_block``, a tuned plan's R, where given)."""
     _cuda.require_cuda(sort_problem(x), "SORT", x)
-    return _sort(sort_route(x.shape[-1]), x)
+    check_plan(x, rows_per_block)
+    return _sort(sort_route(x.shape[-1]), x, rows_per_block)
 
 
 def hist_hopper(x: torch.Tensor, *, bins: int = 64, lo: float = 0.0,

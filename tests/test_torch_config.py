@@ -30,6 +30,8 @@ KNOBS = {
     "straggler_min_s": ("HALO_STRAGGLER_MIN", "0.5", 0.5),
     "autotune_cache": ("HALO_AUTOTUNE_CACHE", "/nonexistent/at.json",
                        "/nonexistent/at.json"),
+    "tuning_db": ("HALO_TUNING_DB", "/nonexistent/tuning.json",
+                  "/nonexistent/tuning.json"),
     "wire_cache_mb": ("HALO_WIRE_CACHE_MB", "64", 64),
     "remote_timeout": ("HALO_REMOTE_TIMEOUT", "30", 30.0),
     "worker_timeout": ("HALO_WORKER_TIMEOUT", "15", 15.0),
@@ -66,6 +68,7 @@ def test_env_beats_default_and_override_beats_env(monkeypatch, field):
     assert getattr(t_config.halo_config(), field) == value \
         == getattr(j_config.halo_config(), field)
     other = {"health_monitor": False, "autotune_cache": "/elsewhere.json",
+             "tuning_db": "/elsewhere.tuning.json",
              "worker_log": "DEBUG"}.get(field, 7.0)
     snap = t_config.configure(**{field: other})
     assert getattr(snap, field) == other
@@ -155,7 +158,8 @@ def test_worker_knobs_have_their_readers(monkeypatch):
 
 def test_each_knob_has_its_reader(monkeypatch, tmp_path):
     """health_* and straggler_* reach HealthConfig, health_monitor the
-    session, autotune_cache the default scheduler."""
+    session, autotune_cache the default scheduler and its TuningDB's
+    sibling path, tuning_db the default scheduler's TuningDB."""
     halo.configure(heartbeat_timeout=3.0, health_poll=0.5,
                    straggler_multiple=2.0, straggler_min_s=0.01,
                    autotune_cache=str(tmp_path / "at.json"))
@@ -163,6 +167,9 @@ def test_each_knob_has_its_reader(monkeypatch, tmp_path):
         "heartbeat_timeout": 3.0, "poll_interval": 0.5, "straggler_multiple": 2.0,
         "straggler_min_s": 0.01}
     assert CostModelScheduler.default().cache_path == tmp_path / "at.json"
+    assert CostModelScheduler.default().tuning.path == tmp_path / "at.tuning.json"
+    halo.configure(tuning_db=str(tmp_path / "db.json"))
+    assert CostModelScheduler.default().tuning.path == tmp_path / "db.json"
     halo.configure(health_monitor=True)
     s = RuntimeAgent(device="cpu")
     try:

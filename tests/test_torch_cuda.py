@@ -1844,3 +1844,110 @@ def test_wire_cache_hashes_an_unchanged_card_tensor_once(card, monkeypatch):
     a.add_(1.0)
     third = mark()
     assert hashed == ["cuda", "cuda"] and third["put"] != first["put"]
+
+
+# ---------------------------------------------------------------------------
+# the tuning spaces' launch plans (DESIGN.md §9): every variant against its
+# plan model, two calls bit-identical
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n", [(4, 2560, 640), (4, 2560, 32000), (64, 6912, 2560),
+                                   (3, 777, 1001), (512, 2560, 640), (130, 75, 137)])
+def test_mmm_every_tuned_plan(card, dtype, m, k, n):
+    """Each of mmm_space's plans through mmm_hopper: a skinny split count
+    against mmm_splitk_ref at that count (TOL; 16-bit also within half an
+    ulp of the float32 product), a wgmma width within TOL and half an ulp,
+    the tf32x3 route within TOL of mmm_ref; the default plan is the
+    route's own."""
+    from repro_torch.kernels.matmul.matmul import mmm_space
+    a, b = _rnd(card, m, k, dtype=dtype), _rnd(card, k, n, dtype=dtype, seed=1)
+    space = mmm_space(a, b)
+    assert torch.equal(_bits(mmm_hopper(a, b)), _bits(mmm_hopper(a, b, **{})))
+    assert space or (dtype == torch.float32 and m > SKINNY_M_MAX)
+    for plan in space:
+        out = mmm_hopper(a, b, **plan)
+        assert out.dtype == dtype and out.shape == (m, n)
+        route = plan.get("route", mmm_route(dtype, m))
+        ref = mmm_splitk_ref(a, b, splits=plan["splits"]) if route == "skinny" \
+            else mmm_ref(a, b)
+        assert _normwise(out, ref) <= TOL[dtype], plan
+        if dtype != torch.float32:
+            assert mmm_ulp_excess(out, a, b) == 0, plan
+        assert torch.equal(_bits(out), _bits(mmm_hopper(a, b, **plan))), plan
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("op", sorted(OP_REFS))
+def test_ewise_every_tuned_plan(card, dtype, op):
+    from repro_torch.kernels.ewise.ewise import ewise_space
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for n in (1, 1000, 4 * THREADS * sms * 16 // dtype.itemsize + 3):
+        a = _rnd(card, n, dtype=dtype)
+        b = _rnd(card, n, dtype=dtype, seed=1, shift=3.0)
+        for plan in ewise_space(a, b):
+            out = ewise_hopper(a, b, op, **plan)
+            model = ewise_plan_ref(a, b, op, ewise_plan(n, dtype, True, sms, **plan))
+            assert torch.equal(_bits(out), _bits(model)), (n, plan)
+            assert torch.equal(_bits(out), _bits(OP_REFS[op](a, b))), (n, plan)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d", [(4, 2560), (512, 2560), (4096, 2560), (3, 80),
+                                    (7, 1000)])
+def test_rmsnorm_every_tuned_plan(card, dtype, rows, d):
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_plan_ref
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_plan, rmsnorm_space
+    x = _rnd(card, rows, d, dtype=dtype, shift=0.5)
+    g = _rnd(card, d, dtype=dtype, seed=1, shift=1.0)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    space = rmsnorm_space(x)
+    assert space
+    for plan in space:
+        out = rmsnorm_hopper(x, g, 1e-5, **plan)
+        model = rmsnorm_plan_ref(x, g, 1e-5, rmsnorm_plan(rows, d, x.element_size(),
+                                                          sms, True, **plan))
+        assert torch.equal(_bits(out), _bits(model)), plan
+        assert torch.equal(_bits(out), _bits(rmsnorm_hopper(x, g, 1e-5, **plan))), plan
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,n", [(4096, 4096), (300, 100), (40, 8192), (64, 32)])
+def test_sort_every_tuned_plan(card, dtype, rows, n):
+    from repro_torch.kernels.sorthist.sorthist import sort_space
+    x = _rnd(card, rows, n, dtype=dtype, seed=n)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for plan in sort_space(x):
+        out = sort_hopper(x, **plan)
+        model = sort_tile_ref(x, sort_tile_plan(rows, n, sms, **plan))
+        assert torch.equal(_bits(out), _bits(model)), plan
+        assert torch.equal(_bits(out), _bits(sort_ref(x))), plan
+
+
+def test_tuned_plan_reaches_the_kernel_through_dispatch(card):
+    """A seeded TuningDB entry at a decode k/v bucket moves the MMM from
+    the skinny kernel to the wgmma one through halo dispatch; with no entry
+    it stays on the skinny one."""
+    from repro_torch.core.scheduler import CostModelScheduler, abstract_signature
+    from repro_torch.core.tuning import TuneEntry, TuningDB
+    registry = KernelRegistry()
+    register_all(registry)
+    a = _rnd(card, 4, 2560, dtype=torch.bfloat16)
+    b = _rnd(card, 2560, 640, dtype=torch.bfloat16, seed=1)
+    rec = next(r for r in registry.records("MMM") if r.platform == "hopper")
+    db = TuningDB()
+    for with_entry in (False, True):
+        sess = RuntimeAgent(registry=registry, scheduler=CostModelScheduler(tuning_db=db),
+                            device=card)
+        try:
+            _cuda.reset_launch_counts()
+            out = sess.dispatch("MMM", a, b, overrides={"allowed_platforms": ["hopper"]})
+            torch.cuda.synchronize(card)
+            counts = _cuda.launch_counts()
+        finally:
+            sess.finalize()
+        want = "mmm_wgmma" if with_entry else "mmm_skinny"
+        assert counts["mmm_wgmma"] + counts["mmm_skinny"] == 1 and counts[want] == 1
+        assert _normwise(out, mmm_ref(a, b)) <= TOL[torch.bfloat16]
+        db.put(db.key_for(rec, abstract_signature((a, b))),
+               TuneEntry(config={"route": "wgmma", "tile_n": 128}, seconds=1e-6,
+                         default_seconds=1e-5, source="seed"))

@@ -212,15 +212,16 @@ def test_core_reexports_the_reference_names_the_port_has():
     the submodule's own object."""
     import importlib
     modules = [importlib.import_module(f"repro_torch.core.{m}") for m in (
-        "compute_object", "registry", "manifest", "scheduler", "agents",
-        "c2mpi", "collective", "graph", "fusion", "portability")]
+        "compute_object", "registry", "manifest", "scheduler", "tuning",
+        "agents", "c2mpi", "collective", "graph", "fusion", "portability")]
     has = {n for n in j_core.__all__ if any(hasattr(m, n) for m in modules)}
     assert set(t_core.__all__) == has
     assert len(t_core.__all__) == len(set(t_core.__all__))
     for name in t_core.__all__:
         owner = next(m for m in modules if hasattr(m, name))
         assert getattr(t_core, name) is getattr(owner, name), name
-    assert {"performance_penalty", "fusion_rule"} <= set(t_core.__all__)
+    assert {"performance_penalty", "fusion_rule", "TuningDB",
+            "autotune"} <= set(t_core.__all__)
 
 
 # ---------------------------------------------------------------------------
