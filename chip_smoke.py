@@ -202,6 +202,23 @@ Phases (any failure exits non-zero before the result lines are printed):
    mma at musicgen's 64; none on aten), an empty quarantine, every step's
    logits within ``SERVE_TOL`` of a plain replay (teacher-forced); prefill
    and decode-step ms, peak memory, paligemma's tokens/s.
+   Every engine of these legs captures its decode step once into a CUDA
+   graph and replays it (``serve/step_graph.py``): each leg checks its
+   engine's steps (``check_captured``: the first eager, the second
+   captured, the rest replayed; a MoE leg's tapped steps eager), counts
+   launches at every step (replays credited) and dispatches at the
+   dispatched passes only, and prints them; the profiled reruns fail where
+   torch.profiler missed replayed kernels (``profiler_coverage``); on every
+   leg one step alone is timed captured against eager (``lone_decode``:
+   host ms, device ms, busy share, the capturing step's ms, graph pool GB).
+3m. The captured decode step against the eager body (``phase3m``, after
+   3b; ``DECODE_GRAPH``): danube at full width, dense and paged, 6
+   requests on 4 slots as lanes join and leave; before each step a twin
+   engine's caches take a copy of the engine's and the twin runs the eager
+   body: logits and every cache leaf ``torch.equal`` at every step; one
+   step alone captured against eager (host ms, device ms, busy share,
+   capture ms, graph pool GB) beside the card's name and power limit;
+   launches with replays credited by structure.
 3c. Execution graphs, fusion and compiled replay: ``halo.graph(launch=False)``
    → ``compile()`` → 20 ``replay()`` calls per workload, every other one
    rebinding an input, each output bit-identical to serial blocking
@@ -611,6 +628,15 @@ SERVE = {"arch": "h2o-danube-1.8b", "slots": 4, "requests": 8,
 #: request 1's first 448 tokens (28 blocks): 28 prefix hits each
 SERVE_PAGED = {"block_size": 16, "chunk": 256, "shared_tokens": 448, "sharers": (4, 6),
                "prefix_hits": 56}
+#: phase 3m: the captured decode step against the eager body, danube at
+#: full width (24 layers, bfloat16) on 4 slots, dense and paged (16-token
+#: blocks, whole-prompt admission): 6 requests of these prompt lengths and
+#: budgets, so lanes join and leave (13 decode steps); then one decode step
+#: alone, every slot past its prompt, captured and eager, ``runs`` steps a
+#: sample
+DECODE_GRAPH = {"arch": "h2o-danube-1.8b", "slots": 4,
+                "prompt_lens": (512, 96, 300, 40, 700, 128), "max_new": (12, 5, 9, 4, 6, 7),
+                "seed": 0, "runs": 5}
 #: phase 3b's gemma3-4b leg: its 2048-token request again through
 #: prefill_chunk, 256 tokens a chunk (below the 1024-slot rings)
 D256_CHUNK = 256
@@ -963,12 +989,13 @@ PATH_OF = {"rmsnorm": "serve", "flash_attention_mma": "serve", "mmm_skinny": "se
 #: the data-parallel one (3f, the member-count runs), expert parallelism
 #: over device groups (3i) and under a mesh (3j, summed over its four
 #: ranks), training under a mesh (3k, summed over its ranks, meshes and
-#: steps), phase 3's portability demo and phase 3l's danube served under
-#: the seeded and the swept TuningDB (summed), whose launches
+#: steps), phase 3's portability demo, phase 3l's danube served under
+#: the seeded and the swept TuningDB (summed) and phase 3m's steps alone
+#: (dense and paged, replays credited), whose launches
 #: the kernels line lists beside those of each kernel's own path
 NEW_LEG_PATHS = ("serve_paged_whole", "serve_paged_chunked", "serve_paligemma",
                  "serve_musicgen", "train", "train_comm", "expert_parallel", "mesh",
-                 "mesh_train", "portability_demo", "tune")
+                 "mesh_train", "portability_demo", "tune", "decode_graph")
 
 
 def decode_projections(cfg):
@@ -2485,8 +2512,9 @@ def recording_engine(paged: bool = False):
     request's logits (float32 copies on the card) at the end of its prefill
     (whole, or its last chunk) and at every decode step, the rows of every
     chunk, the time of each request's prefill (its device bodies, run to
-    completion, its chunks summed) and the host time of each decode step;
-    it computes exactly what the engine does."""
+    completion, its chunks summed) and the host time of each decode step,
+    and apart those of the steps that replayed the captured step; it
+    computes exactly what the engine does."""
     from repro_torch.serve.engine import PagedEngine, SlotEngine
 
     class RecordingEngine(PagedEngine if paged else SlotEngine):
@@ -2494,6 +2522,7 @@ def recording_engine(paged: bool = False):
             super().__init__(*args, **kw)
             self.records, self._lane_rec, self._prefill_t = [], {}, {}
             self.prefill_s, self.decode_s, self.chunk_rows = [], [], []
+            self.replay_s = []
             self._active = None
 
         @staticmethod
@@ -2533,9 +2562,13 @@ def recording_engine(paged: bool = False):
 
         def decode_step(self, tok, pos, active, generator, temperature=0.0):
             self._active = [i for i, a in enumerate(active) if a]
+            before = self.step_stats()
             t0 = time.perf_counter()
             out = super().decode_step(tok, pos, active, generator, temperature)
             self.decode_s.append(time.perf_counter() - t0)
+            after = self.step_stats()
+            if after["replays"] > before["replays"] and after["captures"] == before["captures"]:
+                self.replay_s.append(self.decode_s[-1])
             return out
 
     return RecordingEngine
@@ -2602,9 +2635,170 @@ def median_device_ms(fn, dev) -> float:
     return t
 
 
-def phase3b(dev):
+class EagerStep:
+    """Stands in for an engine's step graph (``engine._step``) and runs
+    every decode step eagerly: the graph is handed no key."""
+
+    def __init__(self, graph):
+        self.graph = graph
+
+    def __call__(self, key, body, *inputs):
+        return self.graph(None, body, *inputs)
+
+    def stats(self):
+        return self.graph.stats()
+
+
+def step_line(stats: dict) -> str:
+    return (f"{stats['captures']} captured, {stats['replays']} replayed, "
+            f"{stats['eager_steps']} eager")
+
+
+def check_captured(what: str, engine, decodes: int, tapped: int = 0) -> dict:
+    """The engine's decode steps: the first eager, the second captured
+    (and replayed), every later one a replay (one key for the whole run),
+    but the ``tapped`` steps a ``BlockCapture`` ran eagerly."""
+    stats = engine.step_stats()
+    print(f"  {what}: decode steps {step_line(stats)} of {decodes}"
+          + (f" ({tapped} tapped steps eager)" if tapped else ""))
+    want = {"captures": 1, "replays": decodes - 1 - tapped, "eager_steps": 1 + tapped} \
+        if decodes - tapped > 1 else {"captures": 0, "replays": 0, "eager_steps": decodes}
+    if stats != want:
+        fail(f"{what}: decode steps {stats}, not {want}: a step after the first was not "
+             f"a replay of the captured step")
+    return stats
+
+
+def profiler_coverage(prof, launched: int, what: str) -> str:
+    """How many of the ``launched`` RMSNORM kernels a torch.profiler run
+    saw (it must attribute the replayed ones as well as the eager ones);
+    fails below 95 %."""
+    seen = sum(e.count for e in prof.key_averages() if "rmsnorm_" in e.key.split("<")[0])
+    if not launched or seen < 0.95 * launched:
+        fail(f"{what}: torch.profiler saw {seen} of the {launched} RMSNORM kernels "
+             f"launched, so its device time misses kernels")
+    return f"{seen} of {launched} RMSNORM kernels seen"
+
+
+def profiled_rerun(dev, make, prompts, max_news, seed):
+    """The same requests again on a fresh engine ``make()`` under
+    torch.profiler, its decode steps captured and replayed; fails where the
+    profiler missed the replayed kernels (``profiler_coverage``).  Returns
+    (tokens, profile, wall s, coverage)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.serve import run_requests
+    from repro_torch.serve.engine import StepScheduler
+
+    sched = StepScheduler(make(), seed=seed)
+    _cuda.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again, _, wall = run_requests(sched, prompts, max_news)
+        torch.cuda.synchronize(dev)
+    how = profiler_coverage(prof, _cuda.launch_counts()["rmsnorm"], "profiled rerun")
+    print(f"  profiled rerun: {how}")
+    return again, prof, wall, how
+
+
+def lone_steps(runs: int) -> int:
+    """The decode steps ``lone_decode`` takes: the eager one and the
+    capture, three samples of 2·``runs`` (host clock, profiler), and the
+    eager sample's warm step.  Its engine holds that many positions past
+    each prompt."""
+    return 3 + 6 * runs
+
+
+def slot_stepper(engine, admit, slots: int):
+    """One decode step of ``engine`` a call, every lane active from its
+    prompt on (``admit(slot)`` prefills lane ``slot`` and returns (first
+    token, prompt length))."""
+    import numpy as np
+
+    first = [admit(i) for i in range(slots)]
+    state = {"tok": np.array([t for t, _ in first]), "pos": np.array([n for _, n in first])}
+    act = np.ones(slots, bool)
+
+    def step():
+        state["tok"] = engine.decode_step(state["tok"], state["pos"], act, None)
+        state["pos"] = state["pos"] + 1
+    return step
+
+
+def lone_decode(dev, step, holder, runs: int, attr: str = "_step") -> dict:
+    """One decode step alone: ``step()`` takes one, every lane past its
+    prompt, through the step graph ``getattr(holder, attr)`` (an engine's
+    ``_step``, a lockstep width's ``graph``), whose key has taken no step
+    yet.  The eager step; the capturing step (its capture and its replay)
+    by the host clock with the device memory it reserved, the graph's pool;
+    then ``runs`` captured steps, ``runs`` eager ones (``EagerStep``), and
+    ``runs`` captured again, each by the host clock (synchronised) and by
+    torch.profiler's device time (``profiler_coverage``).  Busy share:
+    device ms / host ms.  The engine's caches must hold
+    ``lone_steps(runs)`` positions past every prompt."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _cuda
+
+    graph = getattr(holder, attr)
+
+    def steps(k):
+        for _ in range(k):
+            step()
+        torch.cuda.synchronize(dev)
+
+    def timed(what):
+        t0 = time.perf_counter()
+        steps(runs)
+        host = (time.perf_counter() - t0) / runs * 1e3
+        norms = _cuda.launch_counts()["rmsnorm"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            steps(runs)
+        profiler_coverage(prof, _cuda.launch_counts()["rmsnorm"] - norms, what)
+        return host, device_seconds(prof) / runs * 1e3
+
+    steps(1)
+    reserved = torch.cuda.memory_reserved(dev)
+    t0 = time.perf_counter()
+    steps(1)
+    out = {"capture_ms": (time.perf_counter() - t0) * 1e3,
+           "pool_gb": (torch.cuda.memory_reserved(dev) - reserved) / 1e9}
+    if graph.stats() != {"captures": 1, "replays": 1, "eager_steps": 1}:
+        fail(f"one decode step alone: steps {graph.stats()}, not one eager and one captured")
+    out["captured_host_ms"], out["captured_device_ms"] = timed("captured steps alone")
+    setattr(holder, attr, EagerStep(graph))
+    steps(1)
+    out["eager_host_ms"], out["eager_device_ms"] = timed("eager steps alone")
+    setattr(holder, attr, graph)
+    out["captured_host_ms_2"], out["captured_device_ms_2"] = timed("captured steps alone")
+    host = min(out["captured_host_ms"], out["captured_host_ms_2"])
+    out["captured_busy"] = out["captured_device_ms"] / host
+    out["eager_busy"] = out["eager_device_ms"] / out["eager_host_ms"]
+    return out
+
+
+def lone_line(r: dict) -> str:
+    return (f"one decode step alone: host ms captured {r['captured_host_ms']:.3f}, "
+            f"{r['captured_host_ms_2']:.3f}, eager {r['eager_host_ms']:.3f}; device ms "
+            f"(torch.profiler) captured {r['captured_device_ms']:.3f}, "
+            f"{r['captured_device_ms_2']:.3f}, eager {r['eager_device_ms']:.3f}; busy "
+            f"captured {r['captured_busy']:.3f}, eager {r['eager_busy']:.3f}; the capturing "
+            f"step {r['capture_ms']:.1f} ms host clock, graph pool {r['pool_gb']:.3f} GB")
+
+
+def lone_slot_decode(dev, model, params, slots: int, prompts, max_len: int, runs: int):
+    """``lone_decode`` on a fresh SlotEngine, lane i prefilled with
+    ``prompts[i]``; the engine holds ``lone_steps(runs)`` positions more
+    than ``max_len``."""
+    from repro_torch.serve.engine import SlotEngine
+
+    lone = SlotEngine(model, params, slots, max_len + lone_steps(runs))
+    step = slot_stepper(lone, lambda i: (lone.prefill_into_slot(i, prompts[i], None),
+                                         len(prompts[i])), slots)
+    return lone_decode(dev, step, lone, runs)
+
+
+def phase3b(dev):
     from repro_torch import halo
     from repro_torch.configs import get_config
     from repro_torch.core.manifest import default_manifest
@@ -2654,10 +2848,11 @@ def phase3b(dev):
     report = sched.report()
     for line in summary(results, lat, wall, report):
         print("  " + line)
-    print(f"  launches {launches}; quarantine {quarantined}")
+    print(f"  launches {launches} (replays credited); quarantine {quarantined}")
 
     if [len(r) for r in results] != max_news:
         fail(f"served {[len(r) for r in results]} tokens, budgets {max_news}")
+    graph_stats = check_captured("danube", engine, len(engine.decode_s))
     passes = len(engine.prefill_s) + len(engine.decode_s)
     layers = cfg.n_layers
     expected = {k: 0 for k in launches}
@@ -2694,21 +2889,22 @@ def phase3b(dev):
              "prefill_ms": {str(L): v for L, v in prefill_ms.items()},
              "decode_step_ms_median": decode_ms[len(decode_ms) // 2],
              "decode_steps": len(decode_ms), "t1_us_per_dispatch": t1_us,
-             "t1_s": report.t1_s, "t3_s": report.t3_s, "peak_gb": peak_gb}
+             "t1_s": report.t1_s, "t3_s": report.t3_s, "peak_gb": peak_gb,
+             "decode_graph": graph_stats,
+             "replay_step_ms_median": statistics.median(engine.replay_s) * 1e3}
     for L, v in prefill_ms.items():
         print(f"  prefill {L} tokens: {', '.join(f'{x:.1f}' for x in v)} ms per request")
     print(f"  decode step: median {stats['decode_step_ms_median']:.2f} ms over "
-          f"{len(decode_ms)} steps ({decode_ms[0]:.2f}–{decode_ms[-1]:.2f}); T1 "
+          f"{len(decode_ms)} steps ({decode_ms[0]:.2f}–{decode_ms[-1]:.2f}), the "
+          f"{len(engine.replay_s)} replays' {stats['replay_step_ms_median']:.2f}; T1 "
           f"{t1_us:.1f} us per dispatch; peak memory {peak_gb:.2f} GB")
 
     # the same requests again under torch.profiler: device time by kernel
     records = engine.records
     del engine, sched
-    sched = StepScheduler(SlotEngine(model, params, SERVE["slots"], max_len),
-                          seed=SERVE["seed"])
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        again, _, wall_prof = run_requests(sched, prompts, max_news)
-        torch.cuda.synchronize(dev)
+    again, prof, wall_prof, stats["profiled_by"] = profiled_rerun(
+        dev, lambda: SlotEngine(model, params, SERVE["slots"], max_len), prompts,
+        max_news, SERVE["seed"])
     if again != results:
         fail("a second greedy run served other tokens")
     busy_s = device_seconds(prof)
@@ -2737,9 +2933,10 @@ def phase3b(dev):
           + (f"{stats['decode_mmm_device_ms_per_pass']:.3f} ms per pass (profiled "
              f"rerun, skinny kernels at M = {SERVE['slots']})" if mmm_decode_s > 0
              else "not measured (the profiler saw no skinny kernel)")
-          + f"; {per_pass} dispatches per pass × T1 {t1_us:.1f} us = "
-          f"{stats['decode_dispatch_t1_ms_per_pass']:.3f} ms; median step "
-          f"{stats['decode_step_ms_median']:.2f} ms")
+          + f"; {per_pass} dispatches per dispatched pass (the eager step and the "
+          f"capture: 2 of {stats['decode_steps']}; a replay makes none) × T1 "
+          f"{t1_us:.1f} us = {stats['decode_dispatch_t1_ms_per_pass']:.3f} ms; median "
+          f"step {stats['decode_step_ms_median']:.2f} ms")
     if busy_s > 0:
         print(f"  device time {busy_s * 1e3:.1f} ms (profiled rerun, wall "
               f"{wall_prof * 1e3:.1f} ms); busy share {busy_s / wall:.3f} of the "
@@ -2751,36 +2948,12 @@ def phase3b(dev):
             print(f"    {getattr(e, key) / 1e3:10.1f} ms  {e.count:6d}x  {e.key[:90]}")
     else:
         print("  device busy share: not measured (the profiler saw no device time)")
-    del sched
-    # one decode step alone, every slot past its prompt: host-clock ms per
-    # step over 5 steps, then device ms per step under the profiler
-    import numpy as np
-    lone = SlotEngine(model, params, SERVE["slots"], max_len)
-    tok = np.array([lone.prefill_into_slot(i, prompts[i], None)
-                    for i in range(SERVE["slots"])])
-    pos, act = np.array([len(p) for p in prompts[:SERVE["slots"]]]), np.ones(
-        SERVE["slots"], bool)
-
-    def steps(k):
-        nonlocal tok, pos
-        for _ in range(k):
-            tok = lone.decode_step(tok, pos, act, None)
-            pos = pos + 1
-        torch.cuda.synchronize(dev)
-
-    steps(2)
-    t0 = time.perf_counter()
-    steps(5)
-    stats["decode_step_ms_alone"] = (time.perf_counter() - t0) / 5 * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        steps(5)
-    lone_s = device_seconds(prof)
-    stats["decode_step_device_ms"] = lone_s / 5 * 1e3 if lone_s > 0 else None
-    print(f"  one decode step alone ({SERVE['slots']} slots): "
-          f"{stats['decode_step_ms_alone']:.2f} ms host clock, "
-          + (f"{stats['decode_step_device_ms']:.3f} ms of device time" if lone_s > 0
-             else "device time not measured (the profiler saw none)"))
-    del lone
+    # one decode step alone, every slot past its prompt: captured and eager
+    alone = lone_slot_decode(dev, model, params, SERVE["slots"], prompts, max_len, 5)
+    stats["alone"] = alone
+    stats["decode_step_ms_alone"] = alone["captured_host_ms"]
+    stats["decode_step_device_ms"] = alone["captured_device_ms"]
+    print(f"  ({SERVE['slots']} slots) " + lone_line(alone))
     halo.finalize()
 
     # replay every request through the plain versions on the card
@@ -2885,7 +3058,7 @@ def phase3b_paged(dev, model, params, prompts, max_news, results, records, dense
     from repro_torch import halo
     from repro_torch.kernels import _cuda
     from repro_torch.launch.serve import arena_line, run_requests, summary
-    from repro_torch.serve.engine import StepScheduler
+    from repro_torch.serve.engine import PagedEngine, StepScheduler
     from repro_torch.serve.kvcache import gather_views, scatter_token
 
     cfg = model.cfg
@@ -2918,6 +3091,7 @@ def phase3b_paged(dev, model, params, prompts, max_news, results, records, dense
         print(f"    launches {launches}; quarantine {quarantined}; pool {engine.pool.stats()}")
         if [len(r) for r in res] != max_news:
             fail(f"paged {leg}: served {[len(r) for r in res]} tokens, budgets {max_news}")
+        graph_stats = check_captured(f"paged {leg}", engine, len(engine.decode_s))
         if quarantined:
             fail(f"records were quarantined on the paged {leg} leg: {quarantined}")
         engine.pool.check()
@@ -2930,11 +3104,13 @@ def phase3b_paged(dev, model, params, prompts, max_news, results, records, dense
         stats = {"tokens_per_s": sum(map(len, res)) / wall, "wall_s": wall,
                  "prefill_ms": prefill_ms, "decode_step_ms_median": decode_ms[len(decode_ms) // 2],
                  "decode_steps": len(decode_ms), "peak_gb": peak_gb, "arena": st_,
-                 "launches": launches}
+                 "launches": launches, "decode_graph": graph_stats,
+                 "replay_step_ms_median": statistics.median(engine.replay_s) * 1e3}
         print(f"    prefill ms by prompt: " + "; ".join(
             f"{L}: {', '.join(f'{x:.1f}' for x in v)}" for L, v in prefill_ms.items())
             + f"; decode step median {stats['decode_step_ms_median']:.2f} ms over "
-            f"{len(decode_ms)}; peak memory {peak_gb:.2f} GB")
+            f"{len(decode_ms)} (replays {stats['replay_step_ms_median']:.2f}); peak memory "
+            f"{peak_gb:.2f} GB")
         # records in the order prefills completed: matched to requests by prompt
         by_prompt = {tuple(r_["prompt"]): r_ for r_ in engine.records}
         recs = [by_prompt.get(tuple(p_)) for p_ in reqs]
@@ -2959,6 +3135,16 @@ def phase3b_paged(dev, model, params, prompts, max_news, results, records, dense
                 fail(f"whole-prompt paged logits differ from the dense leg's in "
                      f"{n_steps - same} of {n_steps} rows (worst normwise {worst:.3e})")
             stats["bit_identical_rows"] = same
+            # one decode step alone, every lane past its prompt: captured and
+            # eager (the chunked leg's decode step is this one: chunks change
+            # admission only)
+            lone = PagedEngine(model, params, slots, max_len + lone_steps(5), block_size=bs,
+                               chunk_tokens=0)
+            stats["alone"] = lone_decode(dev, slot_stepper(lone, lambda i: (
+                lone.begin_admission(i, prompts[i], lone_steps(5) + 1, None),
+                len(prompts[i])), slots), lone, 5)
+            print(f"    ({slots} lanes) " + lone_line(stats["alone"]))
+            del lone
         else:
             # (b) prefix hits, launches by the chunks' rows, logits vs dense
             if st_["prefix_hits"] != SERVE_PAGED["prefix_hits"] or st_["evictions"]:
@@ -3022,6 +3208,141 @@ def phase3b_paged(dev, model, params, prompts, max_news, results, records, dense
     return out_launches, out
 
 
+def phase3m(dev, card):
+    """The captured decode step against the eager body at danube's full
+    width (DECODE_GRAPH), on a SlotEngine and a PagedEngine through
+    ``run_requests``: before each step a twin engine's caches take a copy
+    of the engine's, the twin runs the eager body (``_decode_body``) and
+    the engine its step (the first eager, the second captured, the rest
+    replays); every step's logits and every cache leaf after it
+    ``torch.equal`` between the two, each timed by the host clock to a
+    synchronise.  Then one decode step alone (``lone_decode``): captured
+    and eager by the host clock and device time, busy shares, the capturing
+    step's ms and its graph pool.  Launch counts of the
+    path: the dense engine's timed captured steps (replays credited)
+    against 7·L + 1 skinny MMMs and 2·L + 1 RMSNORMs a step.  Returns
+    (launches, stats)."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch import halo
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.matmul.matmul import mmm_route
+    from repro_torch.launch.serve import run_requests
+    from repro_torch.models import build_model
+    from repro_torch.serve.engine import PagedEngine, SlotEngine, StepScheduler
+
+    leg = DECODE_GRAPH
+    cfg = get_config(leg["arch"])
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(leg["seed"])
+    params = model.init(gen)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device=dev).tolist()
+               for n in leg["prompt_lens"]]
+    max_news = list(leg["max_new"])
+    max_len = max(leg["prompt_lens"]) + max(max_news) + 8
+    slots, layers = leg["slots"], cfg.n_layers
+    session = halo.initialize()
+    if session.device.type != "cuda":
+        fail(f"session runs on {session.device}, not the card")
+    out, launches = {}, {}
+    for name in ("dense", "paged"):
+        def make():
+            if name == "paged":
+                return PagedEngine(model, params, slots, max_len,
+                                   block_size=SERVE_PAGED["block_size"], chunk_tokens=0)
+            return SlotEngine(model, params, slots, max_len)
+        engine, twin = make(), make()
+        caches = (lambda e: e.paged) if name == "paged" else (lambda e: e.caches)
+        rows = []
+        captured_step = engine._decode_logits
+
+        def both(tok, pos, act):
+            for d, s_ in zip(pytree.tree_leaves(caches(twin)), pytree.tree_leaves(caches(engine))):
+                d.copy_(s_)
+            extra = (torch.from_numpy(engine.tables).to(dev),) if name == "paged" else ()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            eager = twin._decode_body(tok.to(dev), pos.to(dev), act.to(dev), *extra)
+            torch.cuda.synchronize(dev)
+            reserved = torch.cuda.memory_reserved(dev)
+            t1 = time.perf_counter()
+            got = captured_step(tok, pos, act)
+            torch.cuda.synchronize(dev)
+            t2 = time.perf_counter()
+            same = all(torch.equal(a, b) for a, b in zip(pytree.tree_leaves(caches(twin)),
+                                                         pytree.tree_leaves(caches(engine))))
+            rows.append({"logits": bool(torch.equal(eager, got)), "caches": same,
+                         "active": int(act.sum()), "eager_ms": (t1 - t0) * 1e3,
+                         "step_ms": (t2 - t1) * 1e3,
+                         "reserved_gb": (torch.cuda.memory_reserved(dev) - reserved) / 1e9})
+            return got
+        engine._decode_logits = both
+        results, _, wall = run_requests(StepScheduler(engine, seed=leg["seed"]), prompts,
+                                        max_news)
+        stats = check_captured(f"3m {name}", engine, len(rows))
+        if [len(r) for r in results] != max_news or len(rows) < 8:
+            fail(f"3m {name}: served {[len(r) for r in results]} tokens in {len(rows)} "
+                 f"decode steps")
+        bad = [i for i, r in enumerate(rows) if not (r["logits"] and r["caches"])]
+        replays = rows[2:]
+        res = {"steps": len(rows), "lanes_by_step": [r["active"] for r in rows],
+               "not_equal_steps": bad, "capture_ms": rows[1]["step_ms"],
+               "pool_gb": rows[1]["reserved_gb"],
+               "replay_step_ms": statistics.median(r["step_ms"] for r in replays),
+               "eager_body_ms": statistics.median(r["eager_ms"] for r in replays),
+               "first_steps_ms": [r["step_ms"] for r in rows[:2]], "decode_graph": stats,
+               "wall_s": wall}
+        print(f"  {name}: {len(rows)} decode steps, lanes active by step "
+              f"{res['lanes_by_step']}; captured vs eager body from the same caches: "
+              f"logits and every cache leaf torch.equal at {len(rows) - len(bad)} of "
+              f"{len(rows)} steps; the body a step, host clock to a synchronise, median "
+              f"over the {len(replays)} replays: captured {res['replay_step_ms']:.3f} ms, "
+              f"eager {res['eager_body_ms']:.3f} ms (the eager step "
+              f"{rows[0]['step_ms']:.1f}); the capturing step (capture + its replay) "
+              f"{res['capture_ms']:.1f} ms, graph pool {res['pool_gb']:.3f} GB; {card}")
+        if bad:
+            fail(f"3m {name}: the captured step differs from the eager body at steps {bad}")
+        del engine._decode_logits           # the wrapper's cycle through the engine
+        del engine, twin, rows
+        # one decode step alone, every slot past its prompt
+        lone = make()
+        steps = lone_steps(leg["runs"])
+        if name == "paged":
+            def admit(i):
+                return (lone.begin_admission(i, prompts[i], steps + 1, None),
+                        len(prompts[i]))
+        else:
+            def admit(i):
+                return lone.prefill_into_slot(i, prompts[i], None), len(prompts[i])
+        _cuda.reset_launch_counts()
+        alone = lone_decode(dev, slot_stepper(lone, admit, slots), lone, leg["runs"])
+        got = {k: v for k, v in _cuda.launch_counts().items() if v}
+        # a prefill: 7·L projections on the route of its rows and a one-row
+        # unembed; a decode step: 7·L + 1 one-row-a-lane MMMs
+        want = collections.Counter({"mmm_skinny": (7 * layers + 1) * steps + slots,
+                                    "rmsnorm": (2 * layers + 1) * (steps + slots),
+                                    "flash_attention_mma": layers * slots})
+        for n_ in leg["prompt_lens"][:slots]:
+            want[f"mmm_{mmm_route(cfg.activation_dtype(), n_)}"] += 7 * layers
+        want = dict(want)
+        print(f"  {name} " + lone_line(alone) + f"; {card}")
+        print(f"  {name}: launches {got} over {slots} prefills and {steps} decode steps "
+              f"(expected {want})")
+        if got != want:
+            fail(f"3m {name}: launches {got}, not {want}: replays were not credited")
+        res["alone"] = alone
+        launches[name] = got
+        out[name] = res
+        del lone
+        torch.cuda.empty_cache()
+    halo.finalize()
+    total = collections.Counter()
+    for got in launches.values():
+        total.update(got)
+    return dict(total), out
+
+
 def phase3b_d256(dev):
     """gemma3-4b, cut to one 5:1 pattern, served through ``run_requests`` on
     ``halo.initialize()`` (SERVE_D256): every prefill's attention is bfloat16
@@ -3029,8 +3350,6 @@ def phase3b_d256(dev):
     FLASH_ATTN route moves.  One 2048-token request's logits at every step
     against a replay through the plain versions on the card (SERVE_TOL),
     and FLASH_ATTN's device time from a profiled rerun."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch import halo
     from repro_torch.configs import get_config
     from repro_torch.core.manifest import default_manifest
@@ -3085,6 +3404,7 @@ def phase3b_d256(dev):
     if [len(r) for r in results] != max_news or prefills != n:
         fail(f"served {[len(r) for r in results]} tokens in {prefills} prefills, budgets "
              f"{max_news}")
+    graph_stats = check_captured(cfg.name, engine, len(engine.decode_s))
     if attn_counts != want:
         fail(f"the head-dim-256 leg launched FLASH_ATTN {attn_counts}, not {want}")
     if quarantined:
@@ -3098,15 +3418,15 @@ def phase3b_d256(dev):
     prefill_ms = {str(L): [t * 1e3 for n_, t in engine.prefill_s if n_ == L] for L in lens}
     stats = {"arch": cfg.name, "layers": cfg.n_layers, "launches": launches,
              "tokens_per_s": sum(map(len, results)) / wall, "wall_s": wall,
-             "prefill_ms": prefill_ms}
+             "prefill_ms": prefill_ms, "decode_graph": graph_stats,
+             "decode_step_ms_median": statistics.median(engine.decode_s) * 1e3,
+             "replay_step_ms_median": statistics.median(engine.replay_s) * 1e3}
     records = engine.records
     del engine, sched
     # the same requests under torch.profiler: FLASH_ATTN's device time
-    sched = StepScheduler(SlotEngine(model, params, SERVE_D256["slots"], max_len),
-                          seed=SERVE_D256["seed"])
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        again, _, _ = run_requests(sched, prompts, max_news)
-        torch.cuda.synchronize(dev)
+    again, prof, _, stats["profiled_by"] = profiled_rerun(
+        dev, lambda: SlotEngine(model, params, SERVE_D256["slots"], max_len), prompts,
+        max_news, SERVE_D256["seed"])
     if again != results:
         fail("a second greedy run of the head-dim-256 leg served other tokens")
     fa_s = sum(device_seconds_of(e) for e in prof.key_averages()
@@ -3114,15 +3434,21 @@ def phase3b_d256(dev):
     busy_s = device_seconds(prof)
     stats["flash_attention_device_ms"] = fa_s * 1e3 if fa_s > 0 else None
     stats["device_ms"] = busy_s * 1e3 if busy_s > 0 else None
-    del sched
+    stats["device_busy_share"] = busy_s / wall if busy_s > 0 else None
+    stats["alone"] = lone_slot_decode(dev, model, params, SERVE_D256["slots"], prompts,
+                                      max_len, 3)
     halo.finalize()
+    print(f"  ({SERVE_D256['slots']} slots) " + lone_line(stats["alone"]))
     print(f"  {stats['tokens_per_s']:.2f} tokens/s over {wall:.2f} s; prefill ms by prompt: "
           + "; ".join(f"{L}: {', '.join(f'{x:.1f}' for x in v)}" for L, v in prefill_ms.items())
           + "; FLASH_ATTN device time (profiled rerun, "
           + f"{cfg.n_layers * prefills} launches): "
           + (f"{fa_s * 1e3:.3f} ms" if fa_s > 0 else "not measured")
           + "; all device time: "
-          + (f"{busy_s * 1e3:.1f} ms" if busy_s > 0 else "not measured"))
+          + (f"{busy_s * 1e3:.1f} ms, busy share {busy_s / wall:.3f}" if busy_s > 0
+             else "not measured")
+          + f"; decode step median {stats['decode_step_ms_median']:.2f} ms (replays "
+          f"{stats['replay_step_ms_median']:.2f})")
 
     # one 2048-token request, every step, against the plain versions
     plain = default_manifest()
@@ -3281,15 +3607,17 @@ def serve_leg(dev, leg: dict, cfg, note: str, expect, capture: bool = False):
     longest request's block inputs are captured on the way
     (``BlockCapture``).  ``expect(prefills, decodes)`` gives the launch
     counts the model's structure predicts (a kernel it does not name: 0)
-    and the dispatch counts of the "ALIAS/platform" keys it names.
+    and the dispatch counts of the "ALIAS/platform" keys it names: the
+    launches at every decode step (replays credited), the dispatches at
+    the steps that dispatched (the eager ones and the capture).
     Checks the tokens served, both counts, an empty quarantine, every
     request's logits finite and of the vocab's width, and a profiled
-    rerun that serves the same tokens.  Prints tokens/s, prefill and
-    decode-step ms, T1, peak memory and the rerun's device time by kernel.
+    rerun that serves the same tokens; then one decode step alone
+    (``lone_slot_decode``).  Prints tokens/s, prefill and decode-step ms,
+    T1, peak memory, the rerun's device time by kernel and the lone step's
+    figures.
     The session stays open.  Returns a namespace: model, params, gen,
     prompts, results, records, max_len, launches, cap, stats, busy_s."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch import halo
     from repro_torch.kernels import _cuda
     from repro_torch.launch.serve import run_requests
@@ -3336,13 +3664,17 @@ def serve_leg(dev, leg: dict, cfg, note: str, expect, capture: bool = False):
     t1_us = session.t1_seconds_per_call * 1e6
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     prefills, decodes = len(engine.prefill_s), len(engine.decode_s)
-    want, want_dispatch = expect(prefills, decodes)
+    graph_stats = check_captured(cfg.name, engine, decodes, getattr(engine, "tapped", 0))
+    dispatched = graph_stats["eager_steps"] + graph_stats["captures"]
+    want, _ = expect(prefills, decodes)
+    _, want_dispatch = expect(prefills, dispatched)
     expected = {k: 0 for k in launches}
     expected.update(want)
     got_dispatch = {k: aliases.get(k, 0) for k in want_dispatch}
     print(f"  {prefills} prefills + {decodes} decode steps on {leg['slots']} slots: "
           f"launches {launches} (expected {expected}); dispatches {got_dispatch} "
-          f"(expected {want_dispatch}); all dispatches {aliases}; quarantine {quarantined}")
+          f"(expected {want_dispatch}, {dispatched} decode passes dispatched); all "
+          f"dispatches {aliases}; quarantine {quarantined}")
     if [len(r) for r in results] != max_news or prefills != n:
         fail(f"served {[len(r) for r in results]} tokens in {prefills} prefills, budgets "
              f"{max_news}")
@@ -3366,24 +3698,25 @@ def serve_leg(dev, leg: dict, cfg, note: str, expect, capture: bool = False):
              "dispatches": aliases, "tokens_per_s": sum(map(len, results)) / wall,
              "wall_s": wall, "prefill_ms": prefill_ms,
              "decode_step_ms_median": decode_ms[len(decode_ms) // 2],
-             "decode_steps": decodes, "t1_us_per_dispatch": t1_us, "peak_gb": peak_gb}
+             "decode_steps": decodes, "t1_us_per_dispatch": t1_us, "peak_gb": peak_gb,
+             "decode_graph": graph_stats,
+             "replay_step_ms_median": statistics.median(engine.replay_s) * 1e3}
     print(f"  {stats['tokens_per_s']:.2f} tokens/s over {wall:.2f} s; prefill ms by "
           f"prompt: " + "; ".join(f"{L}: {', '.join(f'{x:.1f}' for x in v)}"
                                   for L, v in prefill_ms.items())
           + f"; decode step median {stats['decode_step_ms_median']:.2f} ms over "
-          f"{decodes} ({decode_ms[0]:.2f}–{decode_ms[-1]:.2f}); T1 {t1_us:.1f} us per "
-          f"dispatch; peak memory {peak_gb:.2f} GB")
+          f"{decodes} ({decode_ms[0]:.2f}–{decode_ms[-1]:.2f}), the "
+          f"{len(engine.replay_s)} replays' {stats['replay_step_ms_median']:.2f}; T1 "
+          f"{t1_us:.1f} us per dispatch; peak memory {peak_gb:.2f} GB")
     records = engine.records
     del engine, sched
 
     # the same requests under torch.profiler: device time by kernel
-    sched = StepScheduler(SlotEngine(model, params, leg["slots"], max_len), seed=leg["seed"])
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        again, _, wall_prof = run_requests(sched, prompts, max_news)
-        torch.cuda.synchronize(dev)
+    again, prof, wall_prof, stats["profiled_by"] = profiled_rerun(
+        dev, lambda: SlotEngine(model, params, leg["slots"], max_len), prompts, max_news,
+        leg["seed"])
     if again != results:
         fail(f"a second greedy run of the {cfg.name} leg served other tokens")
-    del sched
     busy_s = device_seconds(prof)
     stats["device_ms"] = busy_s * 1e3 if busy_s > 0 else None
     stats["device_busy_share"] = busy_s / wall if busy_s > 0 else None
@@ -3399,6 +3732,9 @@ def serve_leg(dev, leg: dict, cfg, note: str, expect, capture: bool = False):
     else:
         print("  device time: not measured (the profiler saw none)")
     del prof
+    # one decode step alone, every slot past its prompt: captured and eager
+    stats["alone"] = lone_slot_decode(dev, model, params, leg["slots"], prompts, max_len, 3)
+    print(f"  ({leg['slots']} slots) " + lone_line(stats["alone"]))
     return types.SimpleNamespace(model=model, params=params, gen=gen, prompts=prompts,
                                  results=results, records=records, max_len=max_len,
                                  launches=launches, cap=cap, stats=stats, busy_s=busy_s)
@@ -3576,10 +3912,14 @@ class BlockCapture:
     def engine(self):
         """A RecordingEngine class that points the tap at the request's
         prefill and at its lane in its first ``decode_steps`` decode
-        steps."""
+        steps.  The tap is Python inside the forward, which a replay does
+        not run: a tapped step runs eagerly (``EagerStep``), and
+        ``tapped`` counts them."""
         cap = self
 
         class CapturingEngine(recording_engine()):
+            tapped = 0
+
             def _admit_logits(self, slot, toks):
                 if cap.lane is not None or toks[0].tolist() != cap.prompt:
                     return super()._admit_logits(slot, toks)
@@ -3594,10 +3934,13 @@ class BlockCapture:
                     return super()._decode_logits(tok, pos, active)
                 cap.row, cap.j = cap.lane, 0
                 cap.steps_left -= 1
+                self.tapped += 1
+                graph, self._step = self._step, EagerStep(self._step)
                 try:
                     return super()._decode_logits(tok, pos, active)
                 finally:
                     cap.row = None
+                    self._step = graph
         return CapturingEngine
 
 
@@ -3749,13 +4092,10 @@ def phase3b_moe_leg(dev, leg: dict, cfg, note: str):
     expert weights' bytes over 3.35 TB/s, and the whole-model gap to a
     plain replay with routing forced and free.  Returns (launches, stats,
     model, params, the 2048-token request's prompt and tokens)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch import halo
     from repro_torch.core.manifest import default_manifest
     from repro_torch.kernels.moe_ffn.ops import grouped_ffn
     from repro_torch.models import moe
-    from repro_torch.serve.engine import SlotEngine
 
     st = moe_leg_structure(cfg)
     mcfg = next(b.moe for s_ in cfg.stages for b in s_.pattern if b.moe is not None)
@@ -3806,35 +4146,11 @@ def phase3b_moe_leg(dev, leg: dict, cfg, note: str):
         f"{stats['expert_bytes_bound_ms']:.2f} ms at 3.35 TB/s; MOE_FFN a decode pass "
         f"{ffn_ms['decode'] * st['moe']:.2f} ms")
 
-    # one decode step alone, every slot past its prompt: host clock, device time
-    import numpy as np
-    lone = SlotEngine(model, params, leg["slots"], max_len)
-    tok = np.array([lone.prefill_into_slot(i, prompts[i], None)
-                    for i in range(leg["slots"])])
-    pos = np.array([len(p_) for p_ in prompts[:leg["slots"]]])
-    act = np.ones(leg["slots"], bool)
-
-    def steps(k):
-        nonlocal tok, pos
-        for _ in range(k):
-            tok = lone.decode_step(tok, pos, act, None)
-            pos = pos + 1
-        torch.cuda.synchronize(dev)
-
-    steps(1)
-    t0 = time.perf_counter()
-    steps(3)
-    stats["decode_step_ms_alone"] = (time.perf_counter() - t0) / 3 * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        steps(3)
-    lone_s = device_seconds(prof)
-    stats["decode_step_device_ms"] = lone_s / 3 * 1e3 if lone_s > 0 else None
-    print(f"  one decode step alone ({leg['slots']} slots): "
-          f"{stats['decode_step_ms_alone']:.2f} ms host clock, "
-          + (f"{stats['decode_step_device_ms']:.3f} ms of device time (the expert "
-             f"weights' bytes bound it at {stats['expert_bytes_bound_ms']:.2f})"
-             if lone_s > 0 else "device time not measured (the profiler saw none)"))
-    del lone, prof
+    stats["decode_step_ms_alone"] = stats["alone"]["captured_host_ms"]
+    stats["decode_step_device_ms"] = stats["alone"]["captured_device_ms"]
+    print(f"  the expert weights' bytes bound a decode step at "
+          f"{stats['expert_bytes_bound_ms']:.2f} ms; one alone takes "
+          f"{stats['decode_step_device_ms']:.3f} ms of device time")
     halo.finalize()
 
     # the 2048-token request, block by block, kernels against plain with the
@@ -4186,22 +4502,24 @@ def phase3b_frontends(dev):
         if session.device.type != "cuda":
             fail(f"session runs on {session.device}, not the card")
         engine.generate(params, prompts[:, :8], 2,
-                        batch_extra={"patches": patches})  # warm-up
-        # record every step's logits and host ms from the lockstep loop
+                        batch_extra={"patches": patches})  # warm-up: the eager step
+        # record every step's logits and host ms from the lockstep loop: the
+        # prefill, and each decode step through the width's step graph
         served, times = [], []
-        prefill, decode = model.prefill, model.decode_step
+        prefill, decode = model.prefill, engine._lockstep_logits
 
-        def timed(fn):
+        def timed(fn, logits_of):
             def call(*args):
                 t0 = time.perf_counter()
-                logits, caches = fn(*args)
-                served.append(logits.float())
+                out = fn(*args)
+                served.append(logits_of(out).float())
                 torch.cuda.synchronize(dev)
                 times.append((time.perf_counter() - t0) * 1e3)
-                return logits, caches
+                return out
             return call
 
-        model.prefill, model.decode_step = timed(prefill), timed(decode)
+        model.prefill = timed(prefill, lambda out: out[0])
+        engine._lockstep_logits = timed(decode, lambda out: out)
         torch.cuda.synchronize(dev)
         _cuda.reset_launch_counts()
         dispatches.clear()
@@ -4210,21 +4528,40 @@ def phase3b_frontends(dev):
             toks = engine.generate(params, prompts, n, batch_extra={"patches": patches})
             torch.cuda.synchronize(dev)
         finally:
-            del model.prefill, model.decode_step
+            del model.prefill, engine._lockstep_logits
         wall = time.perf_counter() - t0
         launches = _cuda.launch_counts()
         quarantined = session.scheduler.failed_record_keys()
+        graph_stats = engine.step_stats()
+        del engine
+        # one lockstep decode step alone, on a fresh engine's width b
+        lone = ServeEngine(model, max_len=max_len + lone_steps(3))
+        state = {"tok": lone.generate(params, prompts, 1, batch_extra={"patches": patches}),
+                 "pos": s0 + cfg.prefix_len}
+        width = lone._lockstep[b]
+
+        def step():
+            logits = lone._lockstep_logits(width, state["tok"], state["pos"])
+            state["tok"], state["pos"] = logits.argmax(-1)[:, None], state["pos"] + 1
+        alone = lone_decode(dev, step, width, 3, attr="graph")
+        del lone, width
         halo.finalize()
+        print(f"  ({b} rows, lockstep) " + lone_line(alone))
         print(f"  {b} rows × {n} tokens through ServeEngine.generate in {wall:.2f} s: "
-              f"{b * n / wall:.2f} tokens/s")
+              f"{b * n / wall:.2f} tokens/s; lockstep decode steps {step_line(graph_stats)} "
+              f"(the warm-up call's 1 step eager, this call's first captured)")
         if tuple(toks.shape) != (b, n):
             fail(f"paligemma served {tuple(toks.shape)} tokens, not {(b, n)}")
+        want = {"captures": 1, "replays": n - 1, "eager_steps": 1}
+        if graph_stats != want:
+            fail(f"paligemma's lockstep steps {graph_stats}, not {want}")
         return types.SimpleNamespace(
             batch={"tokens": prompts, "patches": patches},
             steps=[toks[:, i:i + 1] for i in range(n - 1)], pos0=s0 + cfg.prefix_len,
             max_len=max_len, served=served, prefill_ms=times[0], decode_ms=times[1:],
             toks=toks, launches=launches, quarantined=quarantined,
-            stats={"tokens_per_s": b * n / wall, "wall_s": wall})
+            stats={"tokens_per_s": b * n / wall, "wall_s": wall,
+                   "decode_graph": graph_stats, "alone": alone})
 
     def musicgen(model, params, gen, registry, dispatches):
         cfg, leg = model.cfg, SERVE_MUSICGEN
@@ -5876,9 +6213,13 @@ def mesh_rank(legs):
         sync()
         _cuda.reset_launch_counts()
         t0 = time.perf_counter()
+        serving = ServeEngine(model, max_len=max_len)
         with mesh_context(mesh), torch.no_grad():
-            toks = ServeEngine(model, max_len=max_len).generate(params, prompts, sv["max_new"])
+            toks = serving.generate(params, prompts, sv["max_new"])
         sync()
+        # under a mesh the decode step is not captured: every step eager
+        graph_stats = serving._scheds[len(prompts)].engine.step_stats()
+        del serving
         serve_s = time.perf_counter() - t0
         launches = {k: v for k, v in _cuda.launch_counts().items() if v}
         body = {k: v - calls0.get(k, 0) for k, v in moe.BODY_CALLS.items()
@@ -5920,9 +6261,14 @@ def mesh_rank(legs):
             "mesh": sv["mesh"], "serve_s": serve_s, "bodies": body, "launches": launches,
             "logits_normwise": errs, "logits_normwise_free": free_errs,
             "flips_by_call": flips, "tokens": toks.tolist(),
-            "tokens_equal_one_process": bool(torch.equal(toks, first))}
+            "tokens_equal_one_process": bool(torch.equal(toks, first)),
+            "decode_graph": graph_stats}
         if not body.get("a2a") or not body.get("replicated"):
             fail(f"(b) rank {rank}: the bodies ran {body}: the engine lost the mesh")
+        if graph_stats["captures"] or graph_stats["replays"] \
+                or graph_stats["eager_steps"] != sv["max_new"] - 1:
+            fail(f"(b) rank {rank}: decode steps {graph_stats} under the mesh, not "
+                 f"{sv['max_new'] - 1} eager")
         del model, params
         torch.cuda.empty_cache()
     out["body_calls"] = dict(moe.BODY_CALLS)
@@ -7195,7 +7541,9 @@ def tuned_serve(dev, model, params, prompts, max_news, max_len, db_path):
     (unset for None): the recorded logits and tokens, launch counts,
     prefills and decode passes, T1 per dispatch and the median decode step
     by the host clock; then one decode step alone, every slot past its
-    prompt, by the host clock (5 steps) and by profiler device time."""
+    prompt, by the host clock (5 replays of the captured step) and by
+    profiler device time, with T1 a dispatch of the two steps before them
+    (the eager one and the capture)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -7241,12 +7589,13 @@ def tuned_serve(dev, model, params, prompts, max_news, max_len, db_path):
                 pos = pos + 1
             torch.cuda.synchronize(dev)
 
-        steps(2)
+        # the eager step and the capture dispatch; the timed replays do not
         session.reset_t1()
+        steps(2)
+        out["alone_t1_us"] = session.t1_seconds_per_call * 1e6
         t0 = time.perf_counter()
         steps(5)
         out["alone_host_ms"] = (time.perf_counter() - t0) / 5 * 1e3
-        out["alone_t1_us"] = session.t1_seconds_per_call * 1e6
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             steps(5)
         busy = device_seconds(prof)
@@ -8746,6 +9095,12 @@ def main() -> None:
     path_launches.update(frontend_launches)
     print(json.dumps({"serve_frontends": frontend_stats}))
     seconds["3b serve"] = time.perf_counter() - t0
+    print(f"phase 3m: the captured decode step against the eager body, "
+          f"{DECODE_GRAPH['arch']} at full width on {card}")
+    t0 = time.perf_counter()
+    path_launches["decode_graph"], decode_graph_stats = phase3m(dev, card)
+    seconds["3m decode graph"] = time.perf_counter() - t0
+    print(json.dumps({"decode_graph": decode_graph_stats}))
     print(f"phase 3c: execution graphs, fusion and compiled replay on {card}")
     t0 = time.perf_counter()
     graph_launches, graph_stats = phase3c(dev, card)

@@ -526,6 +526,9 @@ class VirtualizationAgent:
     ``_device_execute``."""
 
     platform: str = "torch"
+    #: whether the agent runs its records in this process on the caller's
+    #: stream, so that a CUDA graph captured around a dispatch records them
+    on_caller_stream: bool = True
 
     def __init__(self, name: Optional[str] = None):
         self.name = name or f"{self.platform}-agent"
@@ -741,6 +744,7 @@ class ShardedAgent(AtenAgent):
     regions split over it.  Available only with a mesh attached; no
     built-in record is registered on it."""
     platform = "sharded"
+    on_caller_stream = False      # its records call collectives over the mesh
 
     def __init__(self, mesh=None, name: Optional[str] = None):
         super().__init__(name)
@@ -963,6 +967,16 @@ class RuntimeAgent:
 
     def _allowed_platforms(self) -> List[str]:
         return [p for p, a in self.agents.items() if a.available()]
+
+    def capturable_platforms(self) -> Optional[Tuple[str, ...]]:
+        """The platforms the session may dispatch to, or None where one of
+        their agents runs its records off the caller's stream (a worker
+        process, the sharded substrate): a CUDA graph cannot capture what
+        such a session dispatches."""
+        live = [a for a in self.agents.values() if a.available()]
+        if not all(a.on_caller_stream for a in live):
+            return None
+        return tuple(a.platform for a in live)
 
     def _platform_preference(self) -> Optional[Sequence[str]]:
         """Hardware recommendation strategy (paper §IV-C, platform_list)."""

@@ -139,6 +139,9 @@ class KernelRegistry:
         self._fid_index: Dict[str, str] = {}   # sw_fid -> alias
         self._rr: Dict[str, itertools.count] = {}
         self._lock = threading.RLock()
+        #: moves with every registration and deregistration, so a frozen
+        #: selection (a captured decode step) can tell the records changed
+        self.generation = 0
 
     # -- registration -------------------------------------------------------
     def register(self, record: KernelRecord) -> KernelRecord:
@@ -148,6 +151,7 @@ class KernelRegistry:
             if record.attrs.sw_fid:
                 self._fid_index[record.attrs.sw_fid] = record.alias
             self._rr.setdefault(record.alias, itertools.count())
+            self.generation += 1
         log.debug("registered %s [%s] prio=%d failsafe=%s",
                   record.alias, record.platform, record.priority, record.is_failsafe)
         return record
@@ -173,6 +177,7 @@ class KernelRegistry:
             recs = self._records.get(alias, [])
             keep = [r for r in recs if platform is not None and r.platform != platform]
             removed = len(recs) - len(keep)
+            self.generation += 1
             if keep:
                 self._records[alias] = keep
             else:

@@ -660,6 +660,8 @@ class RemoteAgent(VirtualizationAgent):
     include the wire cost — honest end-to-end latency), and quarantine is
     per-member."""
 
+    on_caller_stream = False      # its records run in the worker process
+
     def __init__(self, worker: "RemoteWorker", substrate: str = "hopper"):
         self.platform = f"{substrate}@{worker.name}"
         super().__init__(name=f"remote-{substrate}-{worker.name}")

@@ -13,10 +13,13 @@ launches on that stream (PyTorch's current stream), and returns
 
 Each kernel wrapper owns a :class:`LaunchCounter` and adds one to it where
 it launches its kernel, so a run can show that its requests reached the
-kernels (:func:`launch_counts`).
+kernels (:func:`launch_counts`).  A CUDA graph replays launches without
+their wrappers: :func:`recording_launches` notes what a capture launched,
+and the replaying code credits it to the counters on every replay.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -26,14 +29,15 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, Iterator, Optional, Sequence
 
 import torch
 
 __all__ = ["BUILD_ROOT", "CSRC", "LaunchCounter", "NVCC_FLAGS", "aligned",
-           "build", "check", "counter", "dtype_code", "index_problem",
-           "launch_counts", "lib", "operand_problem", "require",
-           "require_cuda", "reset_launch_counts", "sm_count", "source_hash", "stream"]
+           "build", "check", "counter", "credit_launches", "dtype_code",
+           "index_problem", "launch_counts", "lib", "operand_problem",
+           "recording_launches", "require", "require_cuda",
+           "reset_launch_counts", "sm_count", "source_hash", "stream"]
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -110,6 +114,9 @@ _lib: Optional[ctypes.CDLL] = None
 # ---------------------------------------------------------------------------
 # Launch accounting
 # ---------------------------------------------------------------------------
+_recording = threading.local()
+
+
 class LaunchCounter:
     """Number of launches of one kernel; its wrapper adds one per launch."""
 
@@ -118,9 +125,12 @@ class LaunchCounter:
         self.count = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self.count += 1
+            self.count += n
+        noted = getattr(_recording, "counts", None)
+        if noted is not None:
+            noted[self] = noted.get(self, 0) + n
 
     def reset(self) -> None:
         with self._lock:
@@ -148,6 +158,30 @@ def reset_launch_counts() -> None:
         counters = list(_COUNTERS.values())
     for c in counters:
         c.reset()
+
+
+@contextlib.contextmanager
+def recording_launches() -> Iterator[Dict[LaunchCounter, int]]:
+    """Note every launch this thread's wrappers count inside the block:
+    yields {counter: launches}, filled as they launch (a CUDA graph's
+    capture, whose launches a replay repeats without the wrappers)."""
+    outer = getattr(_recording, "counts", None)
+    noted: Dict[LaunchCounter, int] = {}
+    _recording.counts = noted
+    try:
+        yield noted
+    finally:
+        _recording.counts = outer
+        if outer is not None:
+            for c, n in noted.items():
+                outer[c] = outer.get(c, 0) + n
+
+
+def credit_launches(noted: Dict[LaunchCounter, int]) -> None:
+    """Add launches noted by :func:`recording_launches` to their counters
+    (one replay of what was recorded)."""
+    for c, n in noted.items():
+        c.add(n)
 
 
 # ---------------------------------------------------------------------------

@@ -55,7 +55,6 @@ import functools
 from typing import Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ..configs.base import MoEConfig
 from ..core.c2mpi import halo_dispatch
@@ -101,6 +100,14 @@ def _router_probs(x2: torch.Tensor, router_w: torch.Tensor) -> torch.Tensor:
     return torch.softmax(logits, dim=-1)
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.nn.functional.one_hot(idx, n)`` (int64) by comparison,
+    which reads nothing back to the host on any device: ``one_hot`` checks
+    its indices' range with a host read on the CPU, where the decode
+    step's host-sync audit runs (``serve.step_graph``)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def _route(x2: torch.Tensor, router_w: torch.Tensor, m: MoEConfig):
     """(gates (T,k) float32 renormalised over the top k, expert indices
     (T,k) in descending probability, the Switch aux loss)."""
@@ -109,7 +116,7 @@ def _route(x2: torch.Tensor, router_w: torch.Tensor, m: MoEConfig):
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     # Switch load-balance aux: E * sum_e (frac_tokens_e * frac_prob_e)
     e = m.n_experts
-    frac_tok = F.one_hot(eidx[:, 0], e).float().mean(dim=0)
+    frac_tok = _one_hot(eidx[:, 0], e).float().mean(dim=0)
     frac_prob = probs.mean(dim=0)
     aux = e * torch.sum(frac_tok * frac_prob)
     return gates, eidx, aux
@@ -125,7 +132,7 @@ def _dispatch_indices(eidx: torch.Tensor, t: int, c: int, e: int):
     takes the next slot of its expert.  Returns (slot (T,k), keep (T,k));
     a row past its expert's ``c`` slots is not kept."""
     fe = eidx.reshape(-1)                               # (T*k,)
-    pos = torch.cumsum(F.one_hot(fe, e), dim=0) - 1     # position per expert
+    pos = torch.cumsum(_one_hot(fe, e), dim=0) - 1      # position per expert
     pos_in_e = pos.gather(1, fe[:, None])[:, 0]
     keep = pos_in_e < c
     slot = fe * c + pos_in_e

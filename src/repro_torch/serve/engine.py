@@ -28,8 +28,16 @@ A :class:`StepScheduler` is a liveness target (DESIGN.md §11): it beats
 once per engine iteration, and ``attach_health`` hands it to a
 :class:`~repro_torch.core.agents.HealthMonitor`, which fails every queued
 and in-flight request with ``AgentDeadError`` when a stepping thread
-wedged inside a device call stops the beats.  The port's caches are updated in place and never donated, so the
-reference's ``ensure_caches`` rebuild has nothing to do here.
+wedged inside a device call stops the beats.
+
+The reference compiles each engine's decode step once (``jax.jit`` with
+the caches donated); on the card the port captures it once into a CUDA
+graph and replays it (:mod:`~repro_torch.serve.step_graph`): the first
+step of an engine runs eagerly, the second captures, every later one
+replays.  Admission and chunked prefill stay eager, and so does every
+step on the CPU.  The caches are updated in place, by the eager body and
+by the graph alike, so the reference's ``ensure_caches`` rebuild has
+nothing to do here.
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ from .kvcache import (BlockPool, copy_block, evict_slot, gather_views,
                       init_paged, insert_slot, leaf_layout, pad_caches,
                       prefix_block_keys, ring_lengths, scatter_slots,
                       scatter_token)
+from .step_graph import StepGraph, capture_key
 
 log = logging.getLogger("repro_torch.serve.engine")
 
@@ -91,6 +100,11 @@ class AdmissionPolicy:
 
     def qos(self, name: str) -> QoSClass:
         return self.classes.get(name, self.default)
+
+
+def _host(values, dtype) -> torch.Tensor:
+    """A host (B,) array as a CPU tensor; the step copies it to the card."""
+    return torch.as_tensor(np.asarray(values), dtype=dtype)
 
 
 def sample_tokens(logits: torch.Tensor, generator: Optional[torch.Generator],
@@ -133,7 +147,14 @@ class Request:
 class SlotEngine:
     """Fixed pool of ``slots`` decode lanes over one persistent cache on the
     parameters' device.  Device-facing only — no queueing policy lives
-    here."""
+    here.
+
+    The decode step compiles once in the reference (fixed ``(slots, 1)``
+    token shape, ``(slots,)`` position vector and active mask); here, on
+    the card, it is captured once into a CUDA graph and replayed
+    (:class:`~repro_torch.serve.step_graph.StepGraph`; :meth:`step_stats`
+    counts captures, replays and eager steps).  ``_decode_body`` is the
+    eager step."""
 
     def __init__(self, model: Model, params: PyTree, slots: int,
                  max_len: int):
@@ -145,6 +166,7 @@ class SlotEngine:
         self.max_len = max_len
         self.device = params["embed"].device
         self.caches = model.init_cache(slots, max_len, device=self.device)
+        self._step = StepGraph(self.device)
 
     # -- device bodies -------------------------------------------------------
     def _admit_logits(self, slot: int, toks: torch.Tensor) -> torch.Tensor:
@@ -155,12 +177,24 @@ class SlotEngine:
                     slot)
         return logits
 
-    def _decode_logits(self, tok: torch.Tensor, pos: torch.Tensor,
-                       active: torch.Tensor) -> torch.Tensor:
-        """One batched decode step over every lane; (B, V) logits."""
+    def _decode_body(self, tok: torch.Tensor, pos: torch.Tensor,
+                     active: torch.Tensor) -> torch.Tensor:
+        """One batched decode step over every lane, eagerly, from device
+        (B,) tensors; (B, V) logits."""
         logits, _ = self.model.decode_step(self.params, self.caches,
                                            tok[:, None], pos, active)
         return logits
+
+    def _decode_logits(self, tok: torch.Tensor, pos: torch.Tensor,
+                       active: torch.Tensor) -> torch.Tensor:
+        """One batched decode step over every lane from (B,) tensors on the
+        host: on the card a replay of the captured step; (B, V) logits."""
+        return self._step(capture_key(self.device, self.params, self.caches),
+                          self._decode_body, tok, pos, active)
+
+    def step_stats(self) -> Dict[str, int]:
+        """Decode steps captured, replayed and run eagerly."""
+        return self._step.stats()
 
     # -- host surface --------------------------------------------------------
     def prefill_into_slot(self, slot: int, prompt: List[int],
@@ -177,11 +211,8 @@ class SlotEngine:
         """One batched decode step across all lanes.  ``tok``/``pos``/
         ``active`` are host (B,) arrays; returns the host (B,) next tokens
         (entries of inactive lanes are garbage — they wrote nothing)."""
-        dev = self.device
-        logits = self._decode_logits(
-            torch.as_tensor(np.asarray(tok), dtype=torch.long, device=dev),
-            torch.as_tensor(np.asarray(pos), dtype=torch.long, device=dev),
-            torch.as_tensor(np.asarray(active), dtype=torch.bool, device=dev))
+        logits = self._decode_logits(_host(tok, torch.long), _host(pos, torch.long),
+                                     _host(active, torch.bool))
         return sample_tokens(logits, generator, temperature).cpu().numpy()
 
     def release_slot(self, slot: int) -> None:
@@ -242,8 +273,12 @@ class PagedEngine:
     *unmodified* ``model.decode_step`` on it, and scatters the one written
     entry per leaf back — masked garbage beyond each lane's position scores
     exactly -1e30 either way, so paged decode is bit-identical to the dense
-    slot engine.  ``release_slot`` is host-only bookkeeping (refcounts, no
-    device work), which is what lets failed lanes free their blocks."""
+    slot engine.  On the card the gather → decode → scatter is captured
+    once into a CUDA graph and replayed, as the dense step is; the block
+    tables reach it through a static buffer, and the host's block
+    bookkeeping and copy-on-write copies run before each replay.
+    ``release_slot`` is host-only bookkeeping (refcounts, no device work),
+    which is what lets failed lanes free their blocks."""
 
     def __init__(self, model: Model, params: PyTree, slots: int,
                  max_len: int, *, block_size: int = 16,
@@ -286,6 +321,7 @@ class PagedEngine:
         self.tables = np.zeros((slots, self.blocks_per_lane), np.int64)
         self._meta: List[Optional[_SlotMeta]] = [None] * slots
         self.tokens_cached = 0          # positions written (prompt + decode)
+        self._step = StepGraph(self.device)
 
     # -- device bodies -------------------------------------------------------
     def _table(self, rows) -> torch.Tensor:
@@ -330,17 +366,25 @@ class PagedEngine:
             scatter_slots(ls, arena, view, row, slots, self.block_size)
         return logits
 
-    def _decode_logits(self, tok: torch.Tensor, pos: torch.Tensor,
-                       active: torch.Tensor) -> torch.Tensor:
+    def _decode_body(self, tok: torch.Tensor, pos: torch.Tensor,
+                     active: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
         """Gather every lane's view, the unchanged ``decode_step`` on the
-        views, the one written entry per leaf scattered back; (B, V)."""
-        tables = self._table(slice(None))
+        views, the one written entry per leaf scattered back, eagerly, from
+        device tensors (``tables`` the (B, blocks) block table); (B, V)."""
         views = gather_views(self.layout, self.paged, tables, self.block_size)
         logits, views = self.model.decode_step(self.params, views,
                                                tok[:, None], pos, active)
         scatter_token(self.layout, self.paged, views, tables, pos, active,
                       self.block_size)
         return logits
+
+    def _decode_logits(self, tok: torch.Tensor, pos: torch.Tensor,
+                       active: torch.Tensor) -> torch.Tensor:
+        """The decode body from (B,) tensors on the host and the host's
+        block tables: on the card a replay of the captured step; (B, V)."""
+        return self._step(capture_key(self.device, self.params, self.paged),
+                          self._decode_body, tok, pos, active,
+                          torch.from_numpy(self.tables))
 
     # -- block bookkeeping (host) --------------------------------------------
     def _fork_bound(self, prompt_len: int, max_new: int) -> int:
@@ -508,11 +552,8 @@ class PagedEngine:
                 self._grow_table(i, p + 1)
                 self._prepare_writes(i, p, 1)
                 self.tokens_cached += 1
-        dev = self.device
-        logits = self._decode_logits(
-            torch.as_tensor(np.asarray(tok), dtype=torch.long, device=dev),
-            torch.as_tensor(np.asarray(pos), dtype=torch.long, device=dev),
-            torch.as_tensor(np.asarray(active), dtype=torch.bool, device=dev))
+        logits = self._decode_logits(_host(tok, torch.long), _host(pos, torch.long),
+                                     _host(active, torch.bool))
         return sample_tokens(logits, generator, temperature).cpu().numpy()
 
     def release_slot(self, slot: int) -> None:
@@ -539,8 +580,13 @@ class PagedEngine:
         there is nothing to check."""
         return True
 
+    def step_stats(self) -> Dict[str, int]:
+        """Decode steps captured, replayed and run eagerly."""
+        return self._step.stats()
+
     def stats(self) -> Dict[str, Any]:
-        """Allocator + sharing scorecard."""
+        """Allocator + sharing scorecard, the reference's keys (the decode
+        steps by how they ran: :meth:`step_stats`)."""
         s = dict(self.pool.stats())
         s["tokens_cached"] = self.tokens_cached
         s["prefix_hit_rate"] = (self.pool.prefix_hits
@@ -993,6 +1039,37 @@ def _as_rows(prompts, device) -> torch.Tensor:
     return torch.as_tensor(prompts, dtype=torch.long, device=device)
 
 
+class _Lockstep:
+    """One batch width's lockstep decode: the caches its step graph reads
+    and updates in place — the first call's padded caches, into which later
+    calls copy theirs — and the graph.  ``lock`` serializes the calls of
+    one width."""
+
+    def __init__(self, model: Model, device: torch.device):
+        self.model = model
+        self.device = device
+        self.params: PyTree = None
+        self.caches: PyTree = None
+        self.graph = StepGraph(device)
+        self.lock = threading.Lock()
+
+    def body(self, tok: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        logits, _ = self.model.decode_step(self.params, self.caches, tok, pos)
+        return logits
+
+    def bind(self, params: PyTree, caches: PyTree) -> None:
+        """Serve ``params`` from ``caches``: on the card copied into the
+        width's caches (the graph's addresses), on the CPU taken as they
+        are."""
+        self.params = params
+        if self.caches is None or self.device.type != "cuda":
+            self.caches = caches
+            return
+        for dst, src in zip(pytree.tree_leaves(self.caches),
+                            pytree.tree_leaves(caches)):
+            dst.copy_(src)
+
+
 @dataclasses.dataclass
 class ServeEngine:
     """Whole-batch front: ``generate`` is a thin wrapper over the slot
@@ -1011,7 +1088,9 @@ class ServeEngine:
     def __post_init__(self):
         self._scheds: "collections.OrderedDict[int, StepScheduler]" = \
             collections.OrderedDict()
-        self._scheds_lock = threading.Lock()      # guards the width cache
+        self._lockstep: "collections.OrderedDict[int, _Lockstep]" = \
+            collections.OrderedDict()
+        self._scheds_lock = threading.Lock()      # guards the width caches
 
     def _sched_for(self, b: int, params) -> StepScheduler:
         """Width-``b`` scheduler from the LRU cache (dict access only — the
@@ -1028,6 +1107,40 @@ class ServeEngine:
             else:
                 self._scheds.move_to_end(b)
         return sched
+
+    def _lockstep_for(self, b: int, device: torch.device) -> _Lockstep:
+        """Width-``b`` lockstep state from its LRU cache, as
+        :meth:`_sched_for`: one captured step a width, as the reference's
+        jitted decode compiles one program a shape."""
+        with self._scheds_lock:
+            st = self._lockstep.get(b)
+            if st is None or st.device != device:
+                st = self._lockstep[b] = _Lockstep(self.model, device)
+                while len(self._lockstep) > self.MAX_CACHED_WIDTHS:
+                    self._lockstep.popitem(last=False)
+            self._lockstep.move_to_end(b)
+        return st
+
+    def _lockstep_logits(self, st: _Lockstep, tok: torch.Tensor,
+                         pos: int) -> torch.Tensor:
+        """One lockstep decode step: ``tok`` (B, 1) at cache position
+        ``pos`` for every row, through the width's step graph (a replay on
+        the card); (B, V) logits."""
+        b = tok.shape[0]
+        return st.graph(capture_key(st.device, st.params, st.caches), st.body, tok,
+                        torch.full((b,), pos, dtype=torch.long))
+
+    def step_stats(self) -> Dict[str, int]:
+        """Lockstep decode steps captured, replayed and run eagerly, summed
+        over the widths kept; the slot path's are its engines'
+        (``self._scheds[b].engine.step_stats()``)."""
+        with self._scheds_lock:
+            states = list(self._lockstep.values())
+        out = {"captures": 0, "replays": 0, "eager_steps": 0}
+        for st in states:
+            for k, v in st.graph.stats().items():
+                out[k] += v
+        return out
 
     def generate(self, params, prompts, max_new: int, *,
                  temperature: float = 0.0,
@@ -1073,7 +1186,9 @@ class ServeEngine:
         """The whole-batch path: one batched prefill (with ``batch_extra``,
         e.g. ``patches``), then lockstep decode at a scalar position —
         ``s0 + prefix_len`` onward for ``patch_embed``.  Serves the stub
-        frontends, and is the slot engine's parity reference.
+        frontends, and is the slot engine's parity reference.  Each decode
+        step goes through the width's step graph (:meth:`_lockstep_logits`),
+        the position a (B,) vector of the scalar.
 
         ``frame_embed`` is refused: lockstep decoding feeds the sampled
         tokens back, where that frontend's ``decode_step`` takes (B, 1, D)
@@ -1095,15 +1210,18 @@ class ServeEngine:
             raise ValueError(f"prefix ({prefix}) + prompt ({s0}) + max_new "
                              f"({max_new}) exceeds max_len ({self.max_len})")
         batch = {"tokens": prompts, **(batch_extra or {})}
-        logits, caches = self.model.prefill(params, batch)
-        caches = pad_caches(cfg, caches, self.max_len)
-        pos = s0 + prefix                      # next cache slot to write
-        tok = sample_tokens(logits, generator, temperature)[:, None]
-        out = [tok]
-        for i in range(max_new - 1):
-            logits, caches = self.model.decode_step(params, caches, tok, pos + i)
+        st = self._lockstep_for(b, dev)
+        with st.lock:
+            logits, caches = self.model.prefill(params, batch)
+            st.bind(params, pad_caches(cfg, caches, self.max_len))
+            del caches
+            pos = s0 + prefix                  # next cache slot to write
             tok = sample_tokens(logits, generator, temperature)[:, None]
-            out.append(tok)
+            out = [tok]
+            for i in range(max_new - 1):
+                logits = self._lockstep_logits(st, tok, pos + i)
+                tok = sample_tokens(logits, generator, temperature)[:, None]
+                out.append(tok)
         return torch.cat(out, dim=1)
 
 

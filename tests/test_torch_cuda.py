@@ -1951,3 +1951,363 @@ def test_tuned_plan_reaches_the_kernel_through_dispatch(card):
         db.put(db.key_for(rec, abstract_signature((a, b))),
                TuneEntry(config={"route": "wgmma", "tile_n": 128}, seconds=1e-6,
                          default_seconds=1e-5, source="seed"))
+
+
+# ---------------------------------------------------------------------------
+# the captured decode step (serve/step_graph.py)
+# ---------------------------------------------------------------------------
+def _bf16_model(arch, seed=0):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    model = build_model(dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16"))
+    return model, model.init(torch.Generator(device="cuda").manual_seed(seed))
+
+
+def _twin_steps(engine, twin):
+    """Wrap ``engine._decode_logits`` so each step first runs ``twin``'s
+    eager body from a copy of the engine's caches and the same inputs;
+    returns the list of (eager logits, captured logits, caches equal)."""
+    import torch.utils._pytree as pytree
+    paged = hasattr(engine, "paged")
+    mine = (lambda e: e.paged) if paged else (lambda e: e.caches)
+    rows = []
+    orig = engine._decode_logits
+
+    def both(tok, pos, act):
+        for d, s in zip(pytree.tree_leaves(mine(twin)), pytree.tree_leaves(mine(engine))):
+            d.copy_(s)
+        dev = engine.device
+        extra = (torch.from_numpy(engine.tables).to(dev),) if paged else ()
+        eager = twin._decode_body(tok.to(dev), pos.to(dev), act.to(dev), *extra)
+        got = orig(tok, pos, act)
+        same = all(torch.equal(a, b) for a, b in zip(pytree.tree_leaves(mine(twin)),
+                                                     pytree.tree_leaves(mine(engine))))
+        rows.append((eager, got, same))
+        return got
+    engine._decode_logits = both
+    return rows
+
+
+def _serve_card(engine, prompts, budgets, seed=0):
+    from repro_torch.serve.engine import StepScheduler
+    sched = StepScheduler(engine, seed=seed)
+    futs = [sched.submit(p, max_new=n) for p, n in zip(prompts, budgets)]
+    sched.drain()
+    return [f.result(timeout=120) for f in futs]
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["slot", "paged"])
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "zamba2-1.2b"])
+def test_captured_decode_equals_the_eager_body(card, arch, paged):
+    """Five requests on three slots (lanes join and leave): every captured
+    step's logits and every cache leaf after it torch.equal to the eager
+    body's from the same caches; one eager step, one capture, the rest
+    replays."""
+    from repro_torch import halo
+    from repro_torch.serve.engine import PagedEngine, SlotEngine
+
+    model, params = _bf16_model(arch)
+    halo.initialize(device=card)
+    try:
+        make = (lambda: PagedEngine(model, params, 3, 64, block_size=8)) if paged \
+            else (lambda: SlotEngine(model, params, 3, 64))
+        engine, twin = make(), make()
+        rows = _twin_steps(engine, twin)
+        g = torch.Generator().manual_seed(1)
+        prompts = [torch.randint(0, model.cfg.vocab_size, (n,), generator=g).tolist()
+                   for n in (9, 17, 5, 12, 7)]
+        out = _serve_card(engine, prompts, [9, 4, 6, 3, 5])
+        assert [len(t) for t in out] == [9, 4, 6, 3, 5]
+        assert len(rows) >= 8
+        for eager, got, same in rows:
+            assert torch.equal(eager, got) and same
+        stats = engine.step_stats()
+        assert stats == {"captures": 1, "replays": len(rows) - 1, "eager_steps": 1}
+        del engine._decode_logits              # the wrapper's cycle through the engine
+    finally:
+        halo.finalize()
+
+
+def test_two_widths_on_two_threads_take_turns_on_the_capture_stream(card):
+    """Two SlotEngines of different widths step on two threads, one
+    capturing while the other runs its first (eager) step: the eager step
+    waits for the capture instead of being recorded into it, and both
+    engines' steps, eager, captured and replayed, are torch.equal to their
+    eager bodies in logits and caches."""
+    import threading
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from repro_torch import halo
+    from repro_torch.serve.engine import SlotEngine
+
+    model, params = _bf16_model("h2o-danube-1.8b")
+    halo.initialize(device=card)
+    try:
+        a, b = SlotEngine(model, params, 2, 48), SlotEngine(model, params, 3, 48)
+        rows_a = _twin_steps(a, SlotEngine(model, params, 2, 48))
+        rows_b = _twin_steps(b, SlotEngine(model, params, 3, 48))
+        for engine in (a, b):
+            for slot in range(engine.slots):
+                engine.prefill_into_slot(slot, [5 + slot, 6, 7, 8], None)
+        capturing, b_going = threading.Event(), threading.Event()
+        body = a._decode_body
+
+        def held(*args):
+            if torch.cuda.is_current_stream_capturing() and not capturing.is_set():
+                capturing.set()
+                assert b_going.wait(30)
+                time.sleep(0.5)            # B's eager step would be queued by now
+            return body(*args)
+        a._decode_body = held
+
+        def steps(engine, n, first):
+            w = engine.slots
+            for i in range(first, first + n):
+                engine.decode_step(np.arange(1, w + 1), np.full(w, 4 + i), np.ones(w, bool),
+                                   None)
+            torch.cuda.synchronize(card)
+
+        def b_after_capture_began():
+            assert capturing.wait(30)
+            b_going.set()
+            steps(b, 3, 0)
+        steps(a, 1, 0)
+        with ThreadPoolExecutor(2) as pool:
+            futs = [pool.submit(steps, a, 1, 1), pool.submit(b_after_capture_began)]
+            for f in futs:
+                f.result(timeout=120)
+        steps(a, 2, 2)
+        assert a.step_stats() == {"captures": 1, "replays": 3, "eager_steps": 1}
+        assert b.step_stats() == {"captures": 1, "replays": 2, "eager_steps": 1}
+        assert len(rows_a) == 4 and len(rows_b) == 3
+        for eager, got, same in rows_a + rows_b:
+            assert torch.equal(eager, got) and same
+        del a._decode_body, a._decode_logits, b._decode_logits   # the wrappers' cycles
+    finally:
+        halo.finalize()
+
+
+def test_rebound_parameters_recapture_and_follow_the_new_weights(card):
+    """A rebound parameter tree drops the graph (an eager step, then a new
+    capture) and serves the new weights; an in-place write to a parameter
+    replays with the new values and captures nothing."""
+    import numpy as np
+    import torch.utils._pytree as pytree
+
+    from repro_torch import halo
+    from repro_torch.serve.engine import SlotEngine
+
+    model, params = _bf16_model("h2o-danube-1.8b")
+    _, other = _bf16_model("h2o-danube-1.8b", seed=5)
+    halo.initialize(device=card)
+    try:
+        engine, twin = SlotEngine(model, params, 2, 48), SlotEngine(model, params, 2, 48)
+        for slot, prompt in enumerate(([5, 6, 7, 8], [9, 10])):
+            engine.prefill_into_slot(slot, prompt, None)
+        rows = _twin_steps(engine, twin)
+        tok, act = np.array([1, 2]), np.array([True, True])
+
+        def step(i):
+            engine.decode_step(tok, np.array([4 + i, 2 + i]), act, None)
+            eager, got, same = rows[-1]
+            assert torch.equal(eager, got) and same
+            return got
+        for i in range(3):
+            step(i)
+        assert engine.step_stats() == {"captures": 1, "replays": 2, "eager_steps": 1}
+        before = step(3)
+        engine.params = twin.params = other
+        after = step(4)
+        assert engine.step_stats() == {"captures": 1, "replays": 3, "eager_steps": 2}
+        step(5)
+        assert engine.step_stats() == {"captures": 2, "replays": 4, "eager_steps": 2}
+        assert not torch.equal(before, after)
+        with torch.no_grad():
+            pytree.tree_leaves(other)[0].mul_(2.0)
+            other["final_norm"].mul_(0.5)
+        step(6)
+        assert engine.step_stats() == {"captures": 2, "replays": 5, "eager_steps": 2}
+        del engine._decode_logits              # the wrapper's cycle through the engine
+    finally:
+        halo.finalize()
+
+
+def test_seeded_tuning_db_recaptures(card):
+    """A TuningDB entry seeded between steps moves the key: the next step
+    runs eagerly under the new plan (the decode k/v projections on the
+    wgmma MMM), the one after captures it, and replays launch it."""
+    import numpy as np
+
+    from repro_torch import halo
+    from repro_torch.core.scheduler import abstract_signature
+    from repro_torch.core.tuning import TuneEntry
+    from repro_torch.serve.engine import SlotEngine
+
+    model, params = _bf16_model("h2o-danube-1.8b")
+    session = halo.initialize(device=card)
+    try:
+        engine = SlotEngine(model, params, 2, 48)
+        for slot, prompt in enumerate(([5, 6, 7, 8], [9, 10])):
+            engine.prefill_into_slot(slot, prompt, None)
+        tok, act = np.array([1, 2]), np.array([True, True])
+        for i in range(3):
+            engine.decode_step(tok, np.array([4 + i, 2 + i]), act, None)
+        wk = params["stages"][0][0]["attn"]["wk"][0]
+        a = torch.empty((2, wk.shape[0]), dtype=wk.dtype, device=card)
+        rec = next(r for r in session.registry.records("MMM") if r.platform == "hopper")
+        db = session.scheduler.tuning
+        db.put(db.key_for(rec, abstract_signature((a, wk))),
+               TuneEntry(config={"route": "wgmma", "tile_n": 128}, seconds=1e-6,
+                         default_seconds=1e-5, source="seed"))
+        counts = []
+        for i in range(3, 6):
+            _cuda.reset_launch_counts()
+            engine.decode_step(tok, np.array([4 + i, 2 + i]), act, None)
+            torch.cuda.synchronize(card)
+            counts.append(_cuda.launch_counts()["mmm_wgmma"])
+        # the projections of k's bucket a layer (the reduced q, k and v
+        # share a shape) on wgmma: the eager step, the capture, the replay
+        layers = model.cfg.n_layers
+        assert counts[0] >= 2 * layers and counts[0] % layers == 0
+        assert counts == [counts[0]] * 3
+        assert engine.step_stats() == {"captures": 2, "replays": 4, "eager_steps": 2}
+    finally:
+        halo.finalize()
+
+
+def test_capture_runs_with_the_collector_off(card):
+    """While a decode step captures, the cyclic collector is off (a
+    collection on the capturing thread that freed another engine's graph
+    would destroy it, a call refused while the stream captures, and
+    invalidate the capture: seen when a test left an engine in a reference
+    cycle); it is on again after, and on in the eager step."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from repro_torch import halo
+    from repro_torch.serve.engine import SlotEngine
+
+    seen = []
+    reg, full = KernelRegistry(), KernelRegistry()
+    register_all(full)
+    for alias in full.aliases():
+        for rec in full.records(alias):
+            if (alias, rec.platform) == ("RMSNORM", "hopper"):
+                def noted(*args, _fn=rec.fn, **kwargs):
+                    seen.append((torch.cuda.is_current_stream_capturing(), gc.isenabled()))
+                    return _fn(*args, **kwargs)
+                rec = dataclasses.replace(rec, fn=noted)
+            reg.register(rec)
+    model, params = _bf16_model("h2o-danube-1.8b")
+    halo.initialize(registry=reg, device=card)
+    try:
+        engine = SlotEngine(model, params, 2, 48)
+        engine.prefill_into_slot(0, [5, 6, 7, 8], None)
+        tok, act = np.array([1, 2]), np.array([True, False])
+        seen.clear()
+        for i in range(3):
+            engine.decode_step(tok, np.array([4 + i, 0]), act, None)
+        per_pass = 2 * model.cfg.n_layers + 1
+        assert seen == [(False, True)] * per_pass + [(True, False)] * per_pass
+        assert gc.isenabled()
+        assert engine.step_stats() == {"captures": 1, "replays": 2, "eager_steps": 1}
+    finally:
+        halo.finalize()
+
+
+def test_replays_credit_launch_counts(card):
+    """Each step counts one pass of launches whether it ran eagerly, was
+    captured or was replayed: 7·L + 1 skinny MMMs and 2·L + 1 RMSNORMs."""
+    import numpy as np
+
+    from repro_torch import halo
+    from repro_torch.serve.engine import SlotEngine
+
+    model, params = _bf16_model("h2o-danube-1.8b")
+    halo.initialize(device=card)
+    try:
+        engine = SlotEngine(model, params, 2, 48)
+        for slot, prompt in enumerate(([5, 6, 7, 8], [9, 10])):
+            engine.prefill_into_slot(slot, prompt, None)
+        tok, act = np.array([1, 2]), np.array([True, False])
+        layers = model.cfg.n_layers
+        for i in range(5):
+            _cuda.reset_launch_counts()
+            engine.decode_step(tok, np.array([4 + i, 2]), act, None)
+            counts = _cuda.launch_counts()
+            assert counts["mmm_skinny"] == 7 * layers + 1 and counts["mmm_wgmma"] == 0
+            assert counts["rmsnorm"] == 2 * layers + 1
+        assert engine.step_stats() == {"captures": 1, "replays": 4, "eager_steps": 1}
+    finally:
+        halo.finalize()
+
+
+def test_capture_failure_raises(card):
+    """A record that synchronises the card runs eagerly but cannot be
+    captured: the second step raises, and so does the third (no eager
+    fallback hides it)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import halo
+    from repro_torch.serve.engine import SlotEngine
+
+    reg, full = KernelRegistry(), KernelRegistry()
+    register_all(full)
+    for alias in full.aliases():
+        for rec in full.records(alias):
+            if (alias, rec.platform) == ("RMSNORM", "hopper"):
+                def synced(*args, _fn=rec.fn, **kwargs):
+                    torch.cuda.synchronize()
+                    return _fn(*args, **kwargs)
+                rec = dataclasses.replace(rec, fn=synced)
+            reg.register(rec)
+    model, params = _bf16_model("h2o-danube-1.8b")
+    halo.initialize(registry=reg, device=card)
+    try:
+        engine = SlotEngine(model, params, 2, 48)
+        engine.prefill_into_slot(0, [5, 6, 7, 8], None)
+        tok, act = np.array([1, 2]), np.array([True, False])
+        engine.decode_step(tok, np.array([4, 0]), act, None)
+        for i in (1, 2):
+            with pytest.raises(RuntimeError):
+                engine.decode_step(tok, np.array([4 + i, 0]), act, None)
+        assert engine.step_stats() == {"captures": 0, "replays": 0, "eager_steps": 1}
+    finally:
+        halo.finalize()
+
+
+def test_lockstep_replays_across_calls(card):
+    """ServeEngine's lockstep loop at one width, called twice: the tokens
+    equal an eager decode_step loop's, the first call captures and the
+    second replays every step."""
+    from repro_torch import halo
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kvcache import pad_caches
+
+    model, params = _bf16_model("h2o-danube-1.8b")
+    halo.initialize(device=card)
+    try:
+        g = torch.Generator(device=card).manual_seed(2)
+        engine = ServeEngine(model, max_len=40)
+        for _ in range(2):
+            prompts = torch.randint(0, model.cfg.vocab_size, (3, 7), generator=g, device=card)
+            got = engine._generate_lockstep(params, prompts, 8)
+            logits, caches = model.prefill(params, {"tokens": prompts})
+            caches = pad_caches(model.cfg, caches, 40)
+            want = [logits.argmax(-1)[:, None]]
+            for i in range(7):
+                logits, caches = model.decode_step(params, caches, want[-1], 7 + i)
+                want.append(logits.argmax(-1)[:, None])
+            assert torch.equal(got, torch.cat(want, dim=1))
+        assert engine.step_stats() == {"captures": 1, "replays": 13, "eager_steps": 1}
+    finally:
+        halo.finalize()
